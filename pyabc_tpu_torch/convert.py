@@ -1,0 +1,63 @@
+"""Carry state across from the JAX package, given as numpy arrays and plain
+specs, so that both packages can be fed the same state and compared.
+
+Nothing here imports the JAX package: the caller turns its arrays into
+numpy first (``jax.tree.map(np.asarray, ...)``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.random_variables import Distribution
+from .inference.context import Carry
+from .utils import resolve_device
+
+#: keys of a fitted MultivariateNormalTransition's device params
+TRANSITION_KEYS = ("thetas", "weights", "chol", "prec", "center",
+                   "thetas_c", "quad", "logdet")
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def transition_params(params: dict, device=None) -> dict:
+    """``device_params``/``device_fit`` dict -> the port's params (float32
+    tensors, contiguous; ``dim`` a Python float). ``device=None`` means the
+    CUDA card, as everywhere in the port."""
+    device = resolve_device(device)
+    out = {k: _f32(params[k], device).contiguous() for k in TRANSITION_KEYS}
+    out["dim"] = float(np.asarray(params["dim"]))
+    return out
+
+
+def distance_weights(w, device=None) -> torch.Tensor:
+    """A p-norm weight vector (``device_params`` of a PNormDistance)."""
+    return _f32(np.ravel(np.asarray(w)), resolve_device(device))
+
+
+def prior(spec) -> Distribution:
+    """``[(name, "norm"|"uniform", loc, scale), ...]`` -> Distribution."""
+    return Distribution.from_spec(spec)
+
+
+def carry(jax_carry: tuple, device=None) -> Carry:
+    """The multigen carry slots this slice uses, from the JAX tuple
+    ``(trans_params, log_model_probs, fitted, dist_w, eps, (pdf_norm,
+    max_found, daly_k), stopped[, (eps_prev, stall_count)])`` with numpy
+    leaves. Single model: the first transition param set is taken."""
+    device = resolve_device(device)
+    trans, _logp, fitted, dist_w, eps, acc_state = jax_carry[:6]
+    health = jax_carry[7] if len(jax_carry) > 7 else (np.inf, 0)
+    return Carry(
+        trans_params=transition_params(trans[0], device),
+        fitted=torch.as_tensor(bool(np.asarray(fitted).reshape(-1)[0]),
+                               device=device),
+        dist_w=distance_weights(dist_w, device),
+        eps=_f32(eps, device),
+        hist_min=_f32(acc_state[0], device),
+        eps_prev=_f32(health[0], device),
+        stall_count=torch.as_tensor(np.asarray(health[1], np.int32),
+                                    device=device),
+    )

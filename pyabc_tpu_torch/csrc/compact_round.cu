@@ -1,0 +1,132 @@
+// K6 compact_round: the mask-and-refill compaction of one proposal round.
+//
+// Replaces: the body of pyabc_tpu/inference/util.py::
+// DeviceContext._generation_while (the lax.while_loop round step).
+//
+// With acc = accept & valid and slot = r*B + lane:
+//   - lane i's accepted rank within the round is the exclusive prefix count
+//     of acc; its reservoir row is n_acc + rank, written (theta, sumstats,
+//     distance, log_weight, slot) only while < n_cap;
+//   - the record ring keeps the first rec_cap evaluations in slot order:
+//     row `slot` gets (sumstats, distance, acc, valid=1) for every VALID
+//     lane with slot < rec_cap (rec_cap = 0: no ring);
+//   - counters = [n_acc, r, n_valid, ...] are updated in device memory:
+//     n_acc += count(acc) (lanes dropped past n_cap still count, exactly
+//     like the JAX loop, since gen_ok reads it), r += 1,
+//     n_valid += count(valid).
+// The host reads the counters once per round.
+//
+// Bound on an H100: bytes (each lane's row is read once, each accepted or
+// recorded row written once). The design is deliberately simple and
+// deterministic, and one SM's load/store rate, not the card's memory,
+// sets its time: ONE block walks the round in chunks of blockDim lanes
+// with a running offset (warp-shuffle scan + a scan of the warp totals),
+// writes each chunk's destination rows to shared memory, and then copies
+// the rows cooperatively so that neighbouring threads touch neighbouring
+// floats.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+
+__global__ void __launch_bounds__(kThreads)
+compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
+                     const uint8_t* __restrict__ valid,
+                     const float* __restrict__ theta,
+                     const float* __restrict__ ss,
+                     const float* __restrict__ dist,
+                     const float* __restrict__ logw, int n_cap,
+                     float* __restrict__ res_theta, float* __restrict__ res_ss,
+                     float* __restrict__ res_dist,
+                     float* __restrict__ res_logw, int* __restrict__ res_slot,
+                     int rec_cap, float* __restrict__ rec_ss,
+                     float* __restrict__ rec_dist,
+                     uint8_t* __restrict__ rec_acc,
+                     uint8_t* __restrict__ rec_valid,
+                     int* __restrict__ counters) {
+  __shared__ int s_pos[kThreads];   // reservoir row of the chunk's lanes
+  __shared__ int s_ring[kThreads];  // ring row of the chunk's lanes
+  __shared__ int s_warp[kWarps];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int n_acc0 = counters[0];
+  const int r = counters[1];
+  const bool ring = rec_cap > 0 && rec_ss != nullptr;
+  int taken = 0;      // accepted lanes in earlier chunks (uniform)
+  int n_valid = 0;    // valid lanes so far (uniform)
+
+  for (int start = 0; start < B; start += kThreads) {
+    const int i = start + tid;
+    const bool in = i < B;
+    const int v = (in && valid[i]) ? 1 : 0;
+    const int a = (v && accept[i]) ? 1 : 0;
+    const int incl = warp_inclusive_scan(a);
+    if ((tid & 31) == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int tot = warp_inclusive_scan(s_warp[tid & 31]);
+      s_warp[tid & 31] = tot;
+    }
+    __syncthreads();
+    const int before = (warp > 0 ? s_warp[warp - 1] : 0) + incl - a;
+    const int chunk_total = s_warp[kWarps - 1];
+    const long long pos = (long long)n_acc0 + taken + before;
+    const int slot = r * B + i;
+    s_pos[tid] = (a && pos < n_cap) ? (int)pos : -1;
+    s_ring[tid] = (ring && v && slot < rec_cap) ? slot : -1;
+    n_valid += __syncthreads_count(v);  // also the barrier for s_pos/s_ring
+
+    if (s_pos[tid] >= 0) {
+      const int p = s_pos[tid];
+      res_dist[p] = dist[i];
+      res_logw[p] = logw[i];
+      res_slot[p] = slot;
+    }
+    if (s_ring[tid] >= 0) {
+      const int q = s_ring[tid];
+      rec_dist[q] = dist[i];
+      rec_acc[q] = (uint8_t)a;
+      rec_valid[q] = 1;
+    }
+    const int cnt = min(kThreads, B - start);
+    for (int idx = tid; idx < cnt * S; idx += kThreads) {
+      const int j = idx / S, k = idx - j * S;
+      const float val = ss[(size_t)(start + j) * S + k];
+      const int p = s_pos[j];
+      if (p >= 0) res_ss[(size_t)p * S + k] = val;
+      const int q = s_ring[j];
+      if (q >= 0) rec_ss[(size_t)q * S + k] = val;
+    }
+    for (int idx = tid; idx < cnt * d; idx += kThreads) {
+      const int j = idx / d, k = idx - j * d;
+      const int p = s_pos[j];
+      if (p >= 0) res_theta[(size_t)p * d + k] = theta[(size_t)(start + j) * d + k];
+    }
+    taken += chunk_total;
+    __syncthreads();  // s_pos/s_ring/s_warp are rewritten by the next chunk
+  }
+  if (tid == 0) {
+    counters[0] = n_acc0 + taken;
+    counters[1] = r + 1;
+    counters[2] += n_valid;
+  }
+}
+
+}  // namespace
+
+extern "C" int pyabc_compact_round(
+    int B, int S, int d, const uint8_t* accept, const uint8_t* valid,
+    const float* theta, const float* ss, const float* dist, const float* logw,
+    int n_cap, float* res_theta, float* res_ss, float* res_dist,
+    float* res_logw, int* res_slot, int rec_cap, float* rec_ss,
+    float* rec_dist, uint8_t* rec_acc, uint8_t* rec_valid, int* counters,
+    void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  compact_round_kernel<<<1, kThreads, 0, stream>>>(
+      B, S, d, accept, valid, theta, ss, dist, logw, n_cap, res_theta, res_ss,
+      res_dist, res_logw, res_slot, rec_cap, rec_ss, rec_dist, rec_acc,
+      rec_valid, counters);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,141 @@
+"""Weighted p-norm distances, fixed and adaptive
+(``pyabc_tpu/distance/pnorm.py`` counterpart).
+
+d(x, x0) = (sum_i (w_i |x_i - x0_i|)^p)^(1/p); p = inf gives the max. The
+round's distance, accept test and log-weight run in the K5 kernel
+(``kernels/pnorm_accept.py``); the adaptive refit (1/scale weights over the
+record ring, then the accepted distances under the new weights) is plain
+PyTorch on the device.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..kernels.pnorm_accept import pnorm_rows
+from .scale import device_scale_fn, median_absolute_deviation
+
+
+class PNormDistance:
+    """Fixed-weight weighted p-norm. ``weights`` is a flat vector, a dict
+    keyed by sum-stat label or name, or None (all ones)."""
+
+    def __init__(self, p: float = 2.0, weights=None, sumstat=None):
+        if p < 1:
+            raise ValueError("p must be >= 1")
+        if sumstat is not None:
+            raise NotImplementedError(
+                "learned summary statistics are not ported yet (ROADMAP "
+                "queue A, item 14)")
+        if isinstance(weights, dict) and weights and all(
+                isinstance(k, (int, np.integer)) for k in weights):
+            raise NotImplementedError(
+                "per-generation weight schedules are not ported yet "
+                "(ROADMAP queue A, item 12)")
+        self.p = float(p)
+        self._weights_arg = weights
+        self.spec = None
+        #: host mirror of the weights in effect per generation
+        self.weights: dict[int, np.ndarray] = {}
+
+    adaptive = False
+
+    def requires_calibration(self) -> bool:
+        return False
+
+    def initialize(self, spec) -> None:
+        self.spec = spec
+        w = self._weights_arg
+        if w is None:
+            return
+        if isinstance(w, dict):
+            vec = np.ones(spec.total_size)
+            labels = spec.labels()
+            for k, v in w.items():
+                if k in labels:
+                    vec[labels.index(k)] = v
+                elif k in spec.names:
+                    off = spec.offsets[k]
+                    vec[off: off + spec.sizes[k]] = v
+                else:
+                    raise KeyError(f"unknown sum-stat label {k!r}")
+            self.weights[-1] = vec
+        else:
+            self.weights[-1] = np.ravel(np.asarray(w, np.float64))
+
+    def initial_weights(self, device) -> torch.Tensor:
+        """The (S,) float32 device weight vector the run starts with."""
+        w = self.weights.get(-1)
+        if w is None:
+            w = np.ones(self.spec.total_size)
+        return torch.as_tensor(np.asarray(w, np.float32), device=device)
+
+    def rows(self, ss: torch.Tensor, x0: torch.Tensor,
+             w: torch.Tensor) -> torch.Tensor:
+        """Plain distances of every row of ``ss`` under weights ``w``."""
+        return pnorm_rows(ss, x0, w, self.p)
+
+    def get_config(self) -> dict:
+        return {"name": type(self).__name__, "p": self.p}
+
+    def __repr__(self):
+        return f"{type(self).__name__}(p={self.p})"
+
+
+class AdaptivePNormDistance(PNormDistance):
+    """Self-reweighting p-norm: each generation the weights are refit to
+    1/scale over all recorded simulations (accepted and rejected),
+    optionally clipped to ``max_weight_ratio`` and normalized to mean 1."""
+
+    def __init__(self, p: float = 2.0,
+                 scale_function: Callable = median_absolute_deviation,
+                 adaptive: bool = True, normalize_weights: bool = True,
+                 max_weight_ratio: float | None = None,
+                 scale_log_file: str | None = None, sumstat=None):
+        super().__init__(p=p, weights=None, sumstat=sumstat)
+        if scale_log_file is not None:
+            raise NotImplementedError(
+                "scale_log_file is not ported yet (ROADMAP queue A, item 17)")
+        self._device_scale = device_scale_fn(scale_function)
+        if self._device_scale is None:
+            raise NotImplementedError(
+                f"scale function {scale_function!r} has no device twin; "
+                f"custom scale functions need the host samplers (ROADMAP "
+                f"queue A, item 16)")
+        self.scale_function = scale_function
+        self.adaptive = bool(adaptive)
+        self.normalize_weights = bool(normalize_weights)
+        self.max_weight_ratio = max_weight_ratio
+
+    def requires_calibration(self) -> bool:
+        return True
+
+    def scale(self, samples: torch.Tensor, valid: torch.Tensor,
+              x0: torch.Tensor) -> torch.Tensor:
+        """Device (S,) scale over the rows of ``samples`` with ``valid``."""
+        return self._device_scale(samples, valid, x0)
+
+    def weights_from_scale(self, scale: torch.Tensor) -> torch.Tensor:
+        """1/scale, optional ratio clip, mean-1 normalization (device)."""
+        pos = scale > 0
+        w = torch.where(pos, 1.0 / torch.where(pos, scale,
+                                               torch.ones_like(scale)),
+                        torch.zeros_like(scale))
+        if self.max_weight_ratio is not None:
+            wmin = torch.where(w > 0, w, torch.full_like(w, torch.inf)).min()
+            w = torch.minimum(w, wmin * self.max_weight_ratio)
+        if self.normalize_weights:
+            s = w.sum()
+            w = torch.where(s > 0, w * (w.numel() / torch.where(
+                s > 0, s, torch.ones_like(s))), w)
+        return w
+
+    def get_config(self) -> dict:
+        return {"name": type(self).__name__, "p": self.p,
+                "scale_function": self.scale_function.__name__}
+
+    def __repr__(self):
+        return (f"AdaptivePNormDistance(p={self.p}, "
+                f"scale_function={self.scale_function.__name__})")

@@ -1,0 +1,266 @@
+"""The device side of a fused single-model run
+(``pyabc_tpu/inference/util.py::DeviceContext`` counterpart, main branch).
+
+One generation is a host loop of proposal rounds. Each round runs on the
+device: the proposal (prior draw, or weighted ancestor + MVN perturbation
+with ``N_REDRAWS`` redraws against zero prior mass), the proposal density
+(K3), the simulator (K4 for Lotka-Volterra), distance / accept /
+log-weight (K5) and the compaction into the slot-ordered reservoir and
+the record ring (K6). The host then reads the round counters once; that
+read is the round's only sync. After the last round the generation step
+(weight normalization, adaptive reweighting, quantile epsilon, MVN refit,
+health word) runs on the device with no host read at all: epsilon,
+distance weights and transition parameters stay device tensors from one
+generation to the next.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..kernels.compact import compact_round
+from ..kernels.pnorm_accept import pnorm_accept_weight
+from ..observability.sync import SyncLedger
+from ..ops.health import generation_health
+from ..ops.stats import normalize_log_weights, weighted_quantile
+
+#: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps
+N_ACC, ROUNDS, N_VALID, EPS_AT_MIN = range(4)
+
+
+@dataclass
+class Carry:
+    """Device state carried from one generation to the next."""
+
+    trans_params: dict
+    fitted: torch.Tensor        # bool ()
+    dist_w: torch.Tensor        # (S,)
+    eps: torch.Tensor           # () threshold of the next generation
+    hist_min: torch.Tensor      # () running min of used epsilons
+    eps_prev: torch.Tensor      # () health: previous epsilon
+    stall_count: torch.Tensor   # () int32 health: stall counter
+
+
+@dataclass
+class GenerationRun:
+    """One generation's rounds: host counters and the device buffers."""
+
+    n_acc: int
+    rounds: int
+    n_valid: int
+    eps_at_min: bool
+    counters: torch.Tensor
+    res: dict
+    rec: dict | None
+
+
+class DeviceContext:
+    N_REDRAWS = 4
+
+    def __init__(self, *, model, prior, distance, acceptor, transition,
+                 spec, x0: torch.Tensor, device: torch.device,
+                 generator: torch.Generator, B: int, n_cap: int,
+                 rec_cap: int, max_rounds: int,
+                 sync_ledger: SyncLedger | None = None):
+        self.model = model
+        self.prior = prior
+        self.distance = distance
+        self.acceptor = acceptor
+        self.transition = transition
+        self.spec = spec
+        self.x0 = x0
+        self.device = device
+        self.generator = generator
+        self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
+        self.max_rounds = int(max_rounds)
+        self.d = prior.dim
+        self.S = spec.total_size
+        self.sync_ledger = sync_ledger or SyncLedger()
+        self.use_hist = bool(getattr(acceptor, "use_complete_history",
+                                     False))
+
+    # ------------------------------------------------------------ buffers
+    def new_reservoir(self) -> dict:
+        dev, f32 = self.device, torch.float32
+        return {
+            "theta": torch.zeros(self.n_cap, self.d, dtype=f32, device=dev),
+            "sumstats": torch.zeros(self.n_cap, self.S, dtype=f32,
+                                    device=dev),
+            "distance": torch.zeros(self.n_cap, dtype=f32, device=dev),
+            "log_weight": torch.full((self.n_cap,), -math.inf, dtype=f32,
+                                     device=dev),
+            "slot": torch.full((self.n_cap,), -1, dtype=torch.int32,
+                               device=dev),
+        }
+
+    def new_ring(self) -> dict | None:
+        if self.rec_cap <= 0:
+            return None
+        dev = self.device
+        return {
+            "sumstats": torch.zeros(self.rec_cap, self.S,
+                                    dtype=torch.float32, device=dev),
+            "distance": torch.zeros(self.rec_cap, dtype=torch.float32,
+                                    device=dev),
+            "accepted": torch.zeros(self.rec_cap, dtype=torch.bool,
+                                    device=dev),
+            "valid": torch.zeros(self.rec_cap, dtype=torch.bool,
+                                 device=dev),
+        }
+
+    # -------------------------------------------------------------- lanes
+    def _simulate(self, theta: torch.Tensor) -> torch.Tensor:
+        return self.model.simulate_flat(theta, self.generator, self.spec)
+
+    def lanes_prior(self, eps: torch.Tensor, dist_w: torch.Tensor,
+                    hist_min: torch.Tensor | None = None) -> dict:
+        """One round proposed from the prior (generation 0, calibration)."""
+        theta = self.prior.rvs_array(self.B, self.generator, self.device)
+        ss = self._simulate(theta)
+        valid = torch.ones(self.B, dtype=torch.bool, device=self.device)
+        d, accept, logw = pnorm_accept_weight(
+            ss, self.x0, dist_w, eps, valid, p=self.distance.p,
+            hist_min=hist_min)
+        return {"theta": theta, "sumstats": ss, "distance": d,
+                "accepted": accept, "valid": valid, "log_weight": logw}
+
+    def propose(self, params: dict):
+        """Transition proposal with redraws against zero prior mass ->
+        (theta, log prior, valid)."""
+        draws = [self.transition.device_rvs(params, self.B, self.generator)
+                 for _ in range(self.N_REDRAWS)]
+        theta = draws[0]
+        logpri = self.prior.logpdf_array(theta)
+        for redraw in draws[1:]:
+            re_logpri = self.prior.logpdf_array(redraw)
+            take = ~torch.isfinite(logpri)
+            theta = torch.where(take[:, None], redraw, theta)
+            logpri = torch.where(take, re_logpri, logpri)
+        return theta.contiguous(), logpri.contiguous(), torch.isfinite(logpri)
+
+    def lanes_transition(self, params: dict, eps: torch.Tensor,
+                         dist_w: torch.Tensor,
+                         hist_min: torch.Tensor | None = None) -> dict:
+        """One round proposed from the fitted transition (t > 0)."""
+        theta, logpri, valid = self.propose(params)
+        logq = self.transition.device_logpdf(theta, params)
+        ss = self._simulate(theta)
+        # K = 1: log model prior = log model factor = 0
+        d, accept, logw = pnorm_accept_weight(
+            ss, self.x0, dist_w, eps, valid, p=self.distance.p,
+            hist_min=hist_min, logpri=logpri, logq=logq, log_offset=0.0)
+        return {"theta": theta, "sumstats": ss, "distance": d,
+                "accepted": accept, "valid": valid, "log_weight": logw}
+
+    # --------------------------------------------------------- generation
+    def generation_while(self, lanes, n_target: int,
+                         eps_at_min: torch.Tensor | None = None,
+                         ring: bool = True) -> GenerationRun:
+        """Propose rounds until ``n_target`` acceptances or the round
+        budget; one counter read per round. ``ring=False`` skips the
+        record ring (the calibration sample reduces the reservoir)."""
+        res = self.new_reservoir()
+        rec = self.new_ring() if ring else None
+        counters = torch.zeros(4, dtype=torch.int32, device=self.device)
+        if eps_at_min is not None:
+            counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
+        while True:
+            out = lanes()
+            compact_round(out["accepted"], out["valid"], out["theta"],
+                          out["sumstats"], out["distance"],
+                          out["log_weight"], res, rec, counters)
+            host = counters.cpu()
+            self.sync_ledger.record("round_counters", host.nbytes)
+            n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
+            if not (n_acc < n_target and r < self.max_rounds):
+                break
+        return GenerationRun(n_acc=n_acc, rounds=r,
+                             n_valid=int(host[N_VALID]),
+                             eps_at_min=bool(host[EPS_AT_MIN]),
+                             counters=counters, res=res, rec=rec)
+
+    def k_mask(self, counters: torch.Tensor, n_target: int) -> torch.Tensor:
+        n_keep = torch.clamp(counters[N_ACC], max=n_target)
+        return torch.arange(self.n_cap, device=self.device) < n_keep
+
+    def calibrate(self, n_cal: int, dist_w0: torch.Tensor, *,
+                  calib_w: bool, calib_eps: bool, alpha: float,
+                  multiplier: float):
+        """Prior round(s) at eps = +inf: initial adaptive weights and the
+        from-sample epsilon (``multigen_kernel``'s in-kernel calibration).
+        Returns (w0, eps0 or None, the GenerationRun)."""
+        inf = torch.tensor(math.inf, dtype=torch.float32, device=self.device)
+        run = self.generation_while(
+            lambda: self.lanes_prior(inf, dist_w0), n_cal, ring=False)
+        mask = self.k_mask(run.counters, n_cal)
+        w0 = dist_w0
+        if calib_w:
+            w0 = self.distance.weights_from_scale(
+                self.distance.scale(run.res["sumstats"], mask, self.x0))
+        eps0 = None
+        if calib_eps:
+            d0 = self.distance.rows(run.res["sumstats"], self.x0, w0)
+            eps0 = weighted_quantile(
+                torch.where(mask, d0, torch.full_like(d0, math.inf)),
+                mask.to(torch.float32), alpha) * multiplier
+        return w0, eps0, run
+
+    def generation_step(self, carry: Carry, run: GenerationRun, *,
+                        n_target: int, adaptive: bool, eps_quantile: bool,
+                        eps_weighted: bool, alpha: float, multiplier: float,
+                        fit_statics: dict, health_config: tuple | None):
+        """Everything between two generations, on the device:
+        normalize -> adaptive reweight + distance recompute -> quantile
+        epsilon -> MVN refit -> health word. Returns (carry, outputs)."""
+        res, counters = run.res, run.counters
+        k_mask = self.k_mask(counters, n_target)
+        w_norm = normalize_log_weights(res["log_weight"], k_mask)
+        eps_g = carry.eps
+        if adaptive:
+            scale = self.distance.scale(run.rec["sumstats"],
+                                        run.rec["valid"], self.x0)
+            dist_w_next = self.distance.weights_from_scale(scale)
+            d_new = self.distance.rows(res["sumstats"], self.x0, dist_w_next)
+        else:
+            dist_w_next = carry.dist_w
+            d_new = res["distance"]
+        if eps_quantile:
+            pts = torch.where(k_mask, d_new, torch.full_like(d_new,
+                                                             math.inf))
+            wts = (torch.where(k_mask, w_norm, torch.zeros_like(w_norm))
+                   if eps_weighted else k_mask.to(torch.float32))
+            eps_next = weighted_quantile(pts, wts, alpha) * multiplier
+        else:
+            eps_next = eps_g
+        trans_next = self.transition.device_fit(
+            res["theta"], w_norm, dim=self.d, **fit_statics)
+        fitted_next = k_mask.sum() > 0
+        n_acc = counters[N_ACC]
+        acc_rate = n_acc.to(torch.float32) / counters[N_VALID].clamp_min(
+            1).to(torch.float32)
+        hist_min_next = (torch.minimum(carry.hist_min, eps_g)
+                         if self.use_hist else carry.hist_min)
+        out = {"theta": res["theta"], "distance": res["distance"],
+               "log_weight": res["log_weight"], "sumstats": res["sumstats"],
+               "eps_used": eps_g, "eps_next": eps_next,
+               "dist_w_next": dist_w_next}
+        eps_prev_n, stall_n = carry.eps_prev, carry.stall_count
+        if health_config is not None:
+            ess_floor, acc_floor, stall_w, stall_rtol = health_config
+            word, ess, eps_prev_n, stall_n = generation_health(
+                theta=res["theta"], k_mask=k_mask, w_norm=w_norm,
+                d_new=d_new, n_acc=n_acc, n_target=n_target,
+                acc_rate=acc_rate, trans_params=carry.trans_params,
+                trans_next=trans_next, fitted=carry.fitted,
+                fitted_next=fitted_next, eps_g=eps_g, eps_next=eps_next,
+                eps_prev=carry.eps_prev, stall_count=carry.stall_count,
+                ess_floor=ess_floor, acc_floor=acc_floor,
+                stall_window=stall_w, stall_rtol=stall_rtol)
+            out["health"], out["ess"] = word, ess
+        nxt = Carry(trans_params=trans_next, fitted=fitted_next,
+                    dist_w=dist_w_next, eps=eps_next,
+                    hist_min=hist_min_next, eps_prev=eps_prev_n,
+                    stall_count=stall_n)
+        return nxt, out

@@ -1,0 +1,481 @@
+"""ABCSMC on the fused single-model path
+(``pyabc_tpu/inference/smc.py::ABCSMC`` counterpart).
+
+``ABCSMC(model, prior, distance, ...).new(db, observed)`` then ``.run()``.
+Generations are grouped into chunks of ``fused_generations``: within a
+chunk the host reads only the per-round counters; the accepted rows of the
+chunk come back in one packed fetch, after which the chunk's generations
+are persisted to History. The device carries epsilon, distance weights
+and transition parameters between generations and chunks.
+"""
+from __future__ import annotations
+
+import datetime
+import json
+import logging
+import math
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..acceptor.acceptor import UniformAcceptor
+from ..core.population import Population
+from ..core.random_variables import Distribution
+from ..core.sumstat_spec import SumStatSpec
+from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
+from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
+                            QuantileEpsilon)
+from ..model import TorchModel
+from ..observability.sync import SyncLedger
+from ..ops.health import decode
+from ..ops.pack import fetch_dtype_of, pack_rows, unpack_rows
+from ..populationstrategy import ConstantPopulationSize
+from ..storage.history import History
+from ..transition.multivariatenormal import MultivariateNormalTransition
+from ..utils import pick_batch, pow2_bucket, resolve_device
+from .context import Carry, DeviceContext
+
+logger = logging.getLogger("pyabc_tpu_torch.ABCSMC")
+
+
+class DegenerateRunError(RuntimeError):
+    """A generation's health word came back nonzero."""
+
+    def __init__(self, t: int, word: int):
+        self.t, self.word = int(t), int(word)
+        super().__init__(
+            f"generation {t} failed its health checks: {decode(word)} "
+            f"(word {word}); rollback and recovery are not ported yet "
+            f"(ROADMAP queue A, item 8)")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to pyabc_tpu_torch yet (ROADMAP queue A, "
+        f"item {item})")
+
+
+def exp_normalize_log_weights(log_w) -> np.ndarray:
+    """Stable exp of relative log weights: -inf gives 0, an all-non-finite
+    input degrades to uniform weights."""
+    log_w = np.asarray(log_w, np.float64)
+    finite = np.isfinite(log_w)
+    if finite.any():
+        return np.where(finite, np.exp(log_w - log_w[finite].max()), 0.0)
+    return np.ones_like(log_w)
+
+
+class ABCSMC:
+    #: proposal rounds a generation may take before it counts as failed
+    MAX_ROUNDS = 256
+
+    def __init__(self, models, parameter_priors, distance_function=None,
+                 population_size=100, summary_statistics=None,
+                 model_prior=None, model_perturbation_kernel=None,
+                 transitions=None, eps=None, sampler=None, acceptor=None,
+                 stop_if_only_single_model_alive: bool = False,
+                 max_nr_recorded_particles: float = np.inf,
+                 seed: int = 0, mesh=None, sharded=None,
+                 early_reject: bool | str = "auto",
+                 fused_generations: int = 8,
+                 fetch_dtype: str = "float16",
+                 checkpoint_path: str | None = None,
+                 health_checks: bool = True, ess_floor: float = 0.0,
+                 health_acc_floor: float = 0.0,
+                 eps_stall_window: int = 16, eps_stall_rtol: float = 1e-6,
+                 device=None):
+        if isinstance(models, Sequence) and not isinstance(models, str):
+            models = list(models)
+            if len(models) != 1:
+                raise _not_ported("model selection (several models)", "9")
+            models = models[0]
+        if isinstance(parameter_priors, Sequence):
+            parameter_priors = list(parameter_priors)
+            if len(parameter_priors) != 1:
+                raise _not_ported("model selection (several priors)", "9")
+            parameter_priors = parameter_priors[0]
+        if not isinstance(models, TorchModel):
+            raise _not_ported(
+                f"a {type(models).__name__} model (only TorchModel runs on "
+                f"the device path; host models need the host samplers)",
+                "16")
+        if not isinstance(parameter_priors, Distribution):
+            raise TypeError("parameter_priors must be a Distribution")
+        if summary_statistics is not None:
+            raise _not_ported("a host summary_statistics callable", "16")
+        if model_prior is not None or model_perturbation_kernel is not None:
+            raise _not_ported("model priors and model perturbation", "9")
+        if stop_if_only_single_model_alive:
+            raise _not_ported("stop_if_only_single_model_alive", "9")
+        if sampler is not None:
+            raise _not_ported("host samplers", "16")
+        if mesh is not None or sharded:
+            raise _not_ported("a device mesh or sharded sampling", "15")
+        if early_reject is True:
+            raise _not_ported("segmented early reject", "13")
+        if early_reject not in ("auto", False):
+            raise ValueError(f"early_reject must be 'auto', True or False, "
+                             f"got {early_reject!r}")
+        if checkpoint_path is not None:
+            raise _not_ported("mid-chunk checkpoints", "8")
+        if np.isfinite(max_nr_recorded_particles):
+            raise _not_ported("max_nr_recorded_particles", "12")
+        self.model = models
+        self.prior = parameter_priors
+        if len(self.model.space.names) != self.prior.dim:
+            raise ValueError("model and prior disagree in parameter dim")
+
+        distance = (distance_function if distance_function is not None
+                    else PNormDistance(p=2))
+        if type(distance) not in (PNormDistance, AdaptivePNormDistance):
+            raise _not_ported(f"distance {type(distance).__name__}", "12")
+        self.distance_function = distance
+        self.eps = eps if eps is not None else MedianEpsilon()
+        if not isinstance(self.eps, (QuantileEpsilon, ListEpsilon,
+                                     ConstantEpsilon)):
+            raise _not_ported(f"epsilon {type(self.eps).__name__} "
+                              f"(temperatures belong to noisy ABC)", "11")
+        acceptor = acceptor if acceptor is not None else UniformAcceptor()
+        if type(acceptor) is not UniformAcceptor:
+            raise _not_ported(f"acceptor {type(acceptor).__name__}", "11")
+        self.acceptor = acceptor
+        if isinstance(population_size, ConstantPopulationSize):
+            self.population_strategy = population_size
+        elif isinstance(population_size, (int, np.integer)):
+            self.population_strategy = ConstantPopulationSize(
+                int(population_size))
+        else:
+            raise _not_ported(f"population strategy "
+                              f"{type(population_size).__name__}", "12")
+        if transitions is None:
+            transitions = MultivariateNormalTransition()
+        if isinstance(transitions, Sequence):
+            transitions = list(transitions)
+            if len(transitions) != 1:
+                raise _not_ported("one transition per model", "9")
+            transitions = transitions[0]
+        if type(transitions) is not MultivariateNormalTransition:
+            raise _not_ported(f"transition {type(transitions).__name__}",
+                              "12")
+        self.transition = transitions
+        if fetch_dtype not in ("float16", "bfloat16", "float32"):
+            raise ValueError(f"fetch_dtype must be float16/bfloat16/"
+                             f"float32, got {fetch_dtype!r}")
+        self.fetch_dtype = fetch_dtype
+        self.fused_generations = max(int(fused_generations), 1)
+        self.health_checks = bool(health_checks)
+        self.ess_floor = float(ess_floor)
+        self.health_acc_floor = float(health_acc_floor)
+        self.eps_stall_window = int(eps_stall_window)
+        self.eps_stall_rtol = float(eps_stall_rtol)
+        self.seed = int(seed)
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+        self.sync_ledger = SyncLedger()
+        self.history: History | None = None
+        self.x_0: dict | None = None
+        self.spec: SumStatSpec | None = None
+        #: per-generation host record of the last run: t, eps, rounds,
+        #: evaluations, syncs and the host seconds spent proposing and
+        #: stepping (compute_s), reading (fetch_s, a chunk's share) and
+        #: persisting (persist_s); chip_smoke.py reads it
+        self.generation_log: list[dict] = []
+
+    @property
+    def model_names(self) -> list[str]:
+        return [self.model.name]
+
+    # ---------------------------------------------------------- lifecycle
+    def new(self, db: str, observed_sum_stat: dict | None = None, *,
+            gt_model: int | None = None, gt_par: dict | None = None,
+            meta_info: dict | None = None,
+            store_sum_stats: bool | int = True) -> History:
+        """Open a new run in ``db`` and store the observed data."""
+        if not observed_sum_stat:
+            raise ValueError("observed summary statistics are required")
+        self.x_0 = {k: np.asarray(v) for k, v in observed_sum_stat.items()}
+        self.spec = SumStatSpec(self.x_0)
+        self.history = History(db, store_sum_stats=store_sum_stats)
+        options = dict(meta_info or {})
+        options["parameter_names"] = {0: list(self.prior.space.names)}
+        self.history.store_initial_data(
+            gt_model, options, self.x_0, gt_par or {}, self.model_names,
+            json.dumps(self.distance_function.get_config()),
+            json.dumps(self.eps.get_config()),
+            json.dumps(self.population_strategy.get_config()))
+        return self.history
+
+    def load(self, *args, **kwargs):
+        raise _not_ported("resuming a stored run", "7")
+
+    # ---------------------------------------------------------------- run
+    def run(self, minimum_epsilon: float | None = None,
+            max_nr_populations: float = np.inf,
+            min_acceptance_rate: float = 0.0,
+            max_total_nr_simulations: float = np.inf,
+            max_walltime: datetime.timedelta | float | None = None
+            ) -> History:
+        if self.history is None:
+            raise RuntimeError("call .new(db, observed) first")
+        if self.history.max_t >= 0:
+            raise _not_ported("continuing a run that already has "
+                              "generations", "7")
+        if isinstance(max_walltime, datetime.timedelta):
+            max_walltime = max_walltime.total_seconds()
+        self.generation_log = []
+        self.sync_ledger.reset()
+        self._run_fused(
+            minimum_epsilon=(0.0 if minimum_epsilon is None
+                             else float(minimum_epsilon)),
+            max_nr_populations=max_nr_populations,
+            min_acceptance_rate=float(min_acceptance_rate),
+            max_total_nr_simulations=max_total_nr_simulations,
+            max_walltime=max_walltime)
+        self.history.done()
+        return self.history
+
+    # ------------------------------------------------------------- setup
+    def _build_context(self, n: int, min_acceptance_rate: float):
+        d = self.distance_function
+        d.initialize(self.spec)
+        adaptive = bool(getattr(d, "adaptive", False))
+        n_cap = pow2_bucket(n, 64)
+        B = pick_batch(n)
+        rec_cap = pow2_bucket(max(8 * n_cap, 1), 256) if adaptive else 0
+        max_rounds = self.MAX_ROUNDS
+        if min_acceptance_rate > 0:
+            max_rounds = max(1, min(max_rounds,
+                                    int(n / min_acceptance_rate) // B + 1))
+        x0 = torch.as_tensor(self.spec.flatten_host(self.x_0),
+                             dtype=torch.float32, device=self.device)
+        return DeviceContext(
+            model=self.model, prior=self.prior, distance=d,
+            acceptor=self.acceptor, transition=self.transition,
+            spec=self.spec, x0=x0, device=self.device,
+            generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
+            max_rounds=max_rounds, sync_ledger=self.sync_ledger)
+
+    def _health_config(self):
+        if not self.health_checks:
+            return None
+        stall_w = (self.eps_stall_window
+                   if isinstance(self.eps, QuantileEpsilon) else 0)
+        return (self.ess_floor, self.health_acc_floor, stall_w,
+                self.eps_stall_rtol)
+
+    def _scalar(self, value: float) -> torch.Tensor:
+        return torch.tensor(float(value), dtype=torch.float32,
+                            device=self.device)
+
+    # -------------------------------------------------------- the loop
+    def _run_fused(self, *, minimum_epsilon, max_nr_populations,
+                   min_acceptance_rate, max_total_nr_simulations,
+                   max_walltime) -> None:
+        t_start = time.perf_counter()
+        n = self.population_strategy(0)
+        ctx = self._build_context(n, min_acceptance_rate)
+        d = self.distance_function
+        adaptive = bool(getattr(d, "adaptive", False))
+        eps_quantile = isinstance(self.eps, QuantileEpsilon)
+        statics = dict(
+            n_target=n, adaptive=adaptive, eps_quantile=eps_quantile,
+            eps_weighted=getattr(self.eps, "weighted", True),
+            alpha=getattr(self.eps, "alpha", 0.5),
+            multiplier=getattr(self.eps, "quantile_multiplier", 1.0),
+            fit_statics=self.transition.fit_statics(),
+            health_config=self._health_config())
+        min_eps = self._scalar(minimum_epsilon)
+        inf = math.inf
+        carry = Carry(
+            trans_params=self.transition.zero_params(ctx.n_cap, ctx.d,
+                                                     self.device),
+            fitted=torch.zeros((), dtype=torch.bool, device=self.device),
+            dist_w=d.initial_weights(self.device),
+            eps=self._scalar(0.0),
+            hist_min=self._scalar(inf),
+            eps_prev=self._scalar(inf),
+            stall_count=torch.zeros((), dtype=torch.int32,
+                                    device=self.device))
+
+        calib = None
+        calib_w = isinstance(d, AdaptivePNormDistance)
+        calib_eps = self.eps.requires_calibration()
+        if calib_w or calib_eps:
+            n_cal = (self.population_strategy.nr_calibration_particles or n)
+            if n_cal > ctx.n_cap:
+                raise ValueError(f"nr_calibration_particles {n_cal} exceeds "
+                                 f"the reservoir ({ctx.n_cap})")
+            w0, eps0, _run = ctx.calibrate(
+                int(n_cal), carry.dist_w, calib_w=calib_w,
+                calib_eps=calib_eps, alpha=statics["alpha"],
+                multiplier=statics["multiplier"])
+            carry.dist_w = w0
+            if eps0 is not None:
+                carry.eps = eps0
+            calib = {"w0": w0, "eps0": carry.eps}
+
+        G = self.fused_generations
+        fetch_dtype = fetch_dtype_of(self.fetch_dtype)
+        t = 0
+        sims_total = 0
+        chunk_index = 0
+        stop = False
+        while not stop:
+            g_limit = G
+            if np.isfinite(max_nr_populations):
+                g_limit = min(g_limit, int(max_nr_populations) - t)
+            if isinstance(self.eps, ListEpsilon):
+                g_limit = min(g_limit, len(self.eps.epsilon_values) - t)
+            if g_limit <= 0:
+                break
+            t_chunk = time.perf_counter()
+            outs, host_gen = [], []
+            for g in range(g_limit):
+                tg = t + g
+                t_gen = time.perf_counter()
+                syncs0 = self.sync_ledger.count
+                if not eps_quantile or (tg == 0 and not calib_eps):
+                    carry.eps = self._scalar(self.eps(tg))
+                hist = carry.hist_min if ctx.use_hist else None
+                at_min = carry.eps <= min_eps
+                if tg == 0:
+                    def lanes(c=carry, h=hist):
+                        return ctx.lanes_prior(c.eps, c.dist_w, h)
+                else:
+                    def lanes(c=carry, h=hist):
+                        return ctx.lanes_transition(c.trans_params, c.eps,
+                                                    c.dist_w, h)
+                run = ctx.generation_while(lanes, n, eps_at_min=at_min)
+                gen_ok = run.n_acc >= min(n, ctx.n_cap)
+                if not gen_ok:
+                    logger.info("stopping: generation %d incomplete "
+                                "(n_acc=%d/%d in %d rounds)", tg, run.n_acc,
+                                n, run.rounds)
+                    stop = True
+                    break
+                carry, out = ctx.generation_step(carry, run, **statics)
+                outs.append(out)
+                sims_total += run.n_valid
+                acc_rate = n / max(run.n_valid, 1)
+                host_gen.append({
+                    "t": tg, "rounds": run.rounds, "n_valid": run.n_valid,
+                    "n_acc": run.n_acc, "acceptance_rate": acc_rate,
+                    "syncs": self.sync_ledger.count - syncs0,
+                    "compute_s": time.perf_counter() - t_gen})
+                if (run.eps_at_min or tg + 1 >= max_nr_populations
+                        or acc_rate < min_acceptance_rate
+                        or sims_total >= max_total_nr_simulations
+                        or (max_walltime is not None
+                            and time.perf_counter() - t_start
+                            > max_walltime)):
+                    stop = True
+                    break
+            if not outs:
+                break
+            t_fetch = time.perf_counter()
+            fetched = self._fetch_chunk(outs, t, n, fetch_dtype, adaptive,
+                                        calib if chunk_index == 0 else None)
+            for info in host_gen:
+                info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
+            chunk_s = time.perf_counter() - t_chunk
+            self._persist_chunk(fetched, host_gen, t, n, chunk_index,
+                                chunk_s, eps_quantile, adaptive)
+            t += len(outs)
+            chunk_index += 1
+
+    # ------------------------------------------------------ fetch/persist
+    def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib) -> dict:
+        """Pack the chunk's generations and read them in one sync."""
+        stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
+        tree = {
+            "rows": pack_rows(stack("theta"), stack("distance"),
+                              stack("log_weight"), n_keep=n, dtype=dtype),
+            "eps_used": stack("eps_used"),
+            "eps_next": stack("eps_next"),
+        }
+        ss_gens = [g for g in range(len(outs))
+                   if self.history.wants_sum_stats(t0 + g)]
+        if ss_gens:
+            tree["sumstats"] = torch.stack(
+                [outs[g]["sumstats"][:n] for g in ss_gens]).to(dtype)
+        if adaptive:
+            tree["dist_w_next"] = stack("dist_w_next")
+        if "health" in outs[0]:
+            tree["health"] = stack("health")
+            tree["ess"] = stack("ess")
+        if calib is not None:
+            tree["calib_w0"] = calib["w0"]
+            tree["calib_eps0"] = calib["eps0"]
+        host = self._to_host(tree)
+        host["ss_gens"] = ss_gens
+        return host
+
+    def _to_host(self, tree: dict) -> dict:
+        """One device -> host read of every tensor of ``tree``."""
+        out, nbytes = {}, 0
+        cuda = self.device.type == "cuda"
+        for k, v in tree.items():
+            if cuda:
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+            else:
+                h = v.detach().clone()
+            out[k] = h
+            nbytes += v.numel() * v.element_size()
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.sync_ledger.record("chunk_fetch", nbytes)
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                for k, v in out.items()}
+
+    def _persist_chunk(self, fetched, host_gen, t0, n, chunk_index, chunk_s,
+                       eps_quantile, adaptive) -> None:
+        if "calib_w0" in fetched:
+            self.distance_function.weights[0] = np.asarray(
+                fetched["calib_w0"], np.float64)
+            if eps_quantile and self.eps.requires_calibration():
+                self.eps._values[0] = float(fetched["calib_eps0"])
+        d = self.prior.dim
+        theta, dist, logw = unpack_rows(fetched["rows"], d)
+        for g, info in enumerate(host_gen):
+            t = t0 + g
+            if "health" in fetched and int(fetched["health"][g]) != 0:
+                raise DegenerateRunError(t, int(fetched["health"][g]))
+            eps_used = float(fetched["eps_used"][g])
+            ss = None
+            if g in fetched["ss_gens"]:
+                ss = fetched["sumstats"][fetched["ss_gens"].index(g)]
+            pop = Population(
+                ms=np.zeros(n, np.int32), thetas=theta[g],
+                weights=exp_normalize_log_weights(logw[g]),
+                distances=dist[g], sumstats=ss, spaces=[self.prior.space],
+                sumstat_spec=self.spec, model_names=self.model_names)
+            telemetry = {
+                "fused_chunk": len(host_gen), "chunk_index": chunk_index,
+                "chunk_s": round(chunk_s, 4), "rounds": info["rounds"],
+                "n_evaluations": info["n_valid"],
+                "acceptance_rate": round(info["acceptance_rate"], 6),
+                "syncs": info["syncs"],
+                "device": str(self.device),
+            }
+            if "health" in fetched:
+                telemetry["health"] = int(fetched["health"][g])
+                telemetry["ess"] = float(fetched["ess"][g])
+            t_persist = time.perf_counter()
+            self.history.append_population(t, eps_used, pop, info["n_valid"],
+                                           self.model_names, telemetry)
+            info = {**info, "persist_s": time.perf_counter() - t_persist}
+            if eps_quantile:
+                self.eps._values[t] = eps_used
+                self.eps._values[t + 1] = float(fetched["eps_next"][g])
+            if adaptive:
+                self.distance_function.weights[t + 1] = np.asarray(
+                    fetched["dist_w_next"][g], np.float64)
+            self.generation_log.append({**info, "eps": eps_used,
+                                        "chunk_s": chunk_s})
+            logger.info("t: %d, eps: %.8g, acceptance rate: %.5f (%d "
+                        "evaluations)", t, eps_used,
+                        info["acceptance_rate"], info["n_valid"])

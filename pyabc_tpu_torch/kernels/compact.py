@@ -1,0 +1,101 @@
+"""K6: the mask-and-refill compaction of one proposal round.
+
+Counterpart of the loop body of
+``pyabc_tpu/inference/util.py::DeviceContext._generation_while``; the CUDA
+kernel is ``csrc/compact_round.cu``. ``res`` is the slot-ordered reservoir
+(``theta``, ``sumstats``, ``distance``, ``log_weight``, ``slot``), ``rec``
+the record ring (``sumstats``, ``distance``, ``accepted``, ``valid``) or
+None, and ``counters`` the int32 device vector ``[n_acc, r, n_valid, ...]``.
+Everything is updated in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .base import Kernel
+
+
+def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
+                        rec: dict | None, counters: torch.Tensor) -> None:
+    """Plain PyTorch version (in place)."""
+    B = accept.shape[0]
+    n_cap = res["distance"].shape[0]
+    acc = accept & valid
+    n_acc0, r = counters[0], counters[1]
+    slots = r * B + torch.arange(B, dtype=torch.int32, device=accept.device)
+    rank = torch.cumsum(acc.to(torch.int32), 0) - 1
+    pos = n_acc0 + rank
+    write = acc & (pos < n_cap)
+    idx = pos[write].long()
+    res["theta"][idx] = theta[write]
+    res["sumstats"][idx] = ss[write]
+    res["distance"][idx] = dist[write]
+    res["log_weight"][idx] = logw[write]
+    res["slot"][idx] = slots[write]
+    if rec is not None:
+        rec_cap = rec["distance"].shape[0]
+        take = valid & (slots < rec_cap)
+        ridx = slots[take].long()
+        rec["sumstats"][ridx] = ss[take]
+        rec["distance"][ridx] = dist[take]
+        rec["accepted"][ridx] = acc[take]
+        rec["valid"][ridx] = True
+    counters[0] += acc.sum(dtype=torch.int32)
+    counters[1] += 1
+    counters[2] += valid.sum(dtype=torch.int32)
+
+
+class CompactRound(Kernel):
+    name = "compact_round"
+    source = "pyabc_tpu_torch/csrc/compact_round.cu"
+    replaces = "pyabc_tpu/inference/util.py:563"
+
+    def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
+                 rec: dict | None, counters: torch.Tensor) -> None:
+        bufs = list(res.values()) + (list(rec.values()) if rec else [])
+        if self.on_cpu(accept, valid, theta, ss, dist, logw, counters,
+                       *bufs):
+            compact_round_plain(accept, valid, theta, ss, dist, logw, res,
+                                rec, counters)
+            return
+        B, d = theta.shape
+        S = ss.shape[1]
+        n_cap = res["distance"].shape[0]
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        self.expect(accept, "accept", b8, (B,))
+        self.expect(valid, "valid", b8, (B,))
+        self.expect(theta, "theta", f32, (B, d))
+        self.expect(ss, "ss", f32, (B, S))
+        self.expect(dist, "dist", f32, (B,))
+        self.expect(logw, "logw", f32, (B,))
+        self.expect(res["theta"], "res.theta", f32, (n_cap, d))
+        self.expect(res["sumstats"], "res.sumstats", f32, (n_cap, S))
+        self.expect(res["distance"], "res.distance", f32, (n_cap,))
+        self.expect(res["log_weight"], "res.log_weight", f32, (n_cap,))
+        self.expect(res["slot"], "res.slot", i32, (n_cap,))
+        self.expect(counters, "counters", i32, (counters.shape[0],))
+        if counters.shape[0] < 3:
+            raise ValueError(f"{self.name}: counters need 3 entries")
+        rec_cap = 0
+        rec_ptrs = [None, None, None, None]
+        if rec is not None:
+            rec_cap = rec["distance"].shape[0]
+            self.expect(rec["sumstats"], "rec.sumstats", f32, (rec_cap, S))
+            self.expect(rec["distance"], "rec.distance", f32, (rec_cap,))
+            self.expect(rec["accepted"], "rec.accepted", b8, (rec_cap,))
+            self.expect(rec["valid"], "rec.valid", b8, (rec_cap,))
+            rec_ptrs = [rec[k].data_ptr() for k in
+                        ("sumstats", "distance", "accepted", "valid")]
+        err = _build.library().pyabc_compact_round(
+            B, S, d, accept.data_ptr(), valid.data_ptr(), theta.data_ptr(),
+            ss.data_ptr(), dist.data_ptr(), logw.data_ptr(), n_cap,
+            res["theta"].data_ptr(), res["sumstats"].data_ptr(),
+            res["distance"].data_ptr(), res["log_weight"].data_ptr(),
+            res["slot"].data_ptr(), rec_cap, *rec_ptrs,
+            counters.data_ptr(), _build.stream_ptr(theta.device))
+        _build.check(err, self.name)
+        self.launches += 1
+
+
+compact_round = CompactRound()

@@ -1,0 +1,84 @@
+"""K5: p-norm distance, uniform accept test and importance log-weight.
+
+Counterpart of ``pyabc_tpu/distance/pnorm.py::PNormDistance.device_fn`` +
+``acceptor/acceptor.py::UniformAcceptor.device_fn`` + the log-weight sum of
+``inference/util.py::_lane_transition``; the CUDA kernel is
+``csrc/pnorm_accept.cu``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .base import Kernel
+
+
+def pnorm_rows(ss: torch.Tensor, x0: torch.Tensor, w: torch.Tensor,
+               p: float) -> torch.Tensor:
+    """Weighted p-norm of every row of ``ss`` against ``x0``."""
+    diff = w * (ss - x0).abs()
+    if math.isinf(p):
+        return diff.max(dim=-1).values
+    return (diff ** p).sum(dim=-1) ** (1.0 / p)
+
+
+def pnorm_accept_weight_plain(ss, x0, w, eps, valid, *, p: float,
+                              hist_min=None, logpri=None, logq=None,
+                              log_offset: float = 0.0):
+    """Plain PyTorch version -> (distance, accept, log_weight)."""
+    d = pnorm_rows(ss, x0, w, p)
+    accept = valid & (d <= eps)
+    if hist_min is not None:
+        accept = accept & (d <= hist_min)
+    if logpri is None:
+        lw = torch.zeros_like(d)
+    else:
+        lw = log_offset + logpri - logq
+    lw = torch.where(valid, lw, torch.full_like(lw, -math.inf))
+    return d, accept, lw
+
+
+class PnormAcceptWeight(Kernel):
+    name = "pnorm_accept_weight"
+    source = "pyabc_tpu_torch/csrc/pnorm_accept.cu"
+    replaces = "pyabc_tpu/distance/pnorm.py:204"
+
+    def __call__(self, ss, x0, w, eps, valid, *, p: float, hist_min=None,
+                 logpri=None, logq=None, log_offset: float = 0.0):
+        opt = [t for t in (hist_min, logpri, logq) if t is not None]
+        if self.on_cpu(ss, x0, w, eps, valid, *opt):
+            return pnorm_accept_weight_plain(
+                ss, x0, w, eps, valid, p=p, hist_min=hist_min,
+                logpri=logpri, logq=logq, log_offset=log_offset)
+        if (logpri is None) != (logq is None):
+            raise ValueError(f"{self.name}: logpri and logq go together")
+        B, S = ss.shape
+        f32 = torch.float32
+        self.expect(ss, "ss", f32, (B, S))
+        self.expect(x0, "x0", f32, (S,))
+        self.expect(w, "w", f32, (S,))
+        self.expect(eps, "eps", f32, ())
+        self.expect(valid, "valid", torch.bool, (B,))
+        if hist_min is not None:
+            self.expect(hist_min, "hist_min", f32, ())
+        if logpri is not None:
+            self.expect(logpri, "logpri", f32, (B,))
+            self.expect(logq, "logq", f32, (B,))
+        dev = ss.device
+        d = torch.empty(B, dtype=f32, device=dev)
+        accept = torch.empty(B, dtype=torch.bool, device=dev)
+        lw = torch.empty(B, dtype=f32, device=dev)
+        err = _build.library().pyabc_pnorm_accept_weight(
+            ss.data_ptr(), B, S, x0.data_ptr(), w.data_ptr(), float(p),
+            valid.data_ptr(), eps.data_ptr(), self.ptr(hist_min),
+            self.ptr(logpri), self.ptr(logq), float(log_offset),
+            d.data_ptr(), accept.data_ptr(), lw.data_ptr(),
+            _build.stream_ptr(dev))
+        _build.check(err, self.name)
+        self.launches += 1
+        return d, accept, lw
+
+
+pnorm_accept_weight = PnormAcceptWeight()

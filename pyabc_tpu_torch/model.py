@@ -1,0 +1,39 @@
+"""Device models (the ``pyabc_tpu/model.py::JaxModel`` counterpart).
+
+A ``TorchModel`` wraps a batched simulator
+``sim(theta (B, dim), generator) -> {name: (B, *shape) tensor}``; the
+generation loop flattens its output in SumStatSpec's sorted key order.
+Built-in models may override :meth:`simulate_flat` to produce the flat
+``(B, S)`` rows directly from a kernel.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .core.parameters import ParameterSpace
+from .core.sumstat_spec import SumStatSpec
+
+
+class TorchModel:
+    def __init__(self, sim: Callable, space: ParameterSpace | list[str],
+                 name: str = "torch_model"):
+        if not isinstance(space, ParameterSpace):
+            space = ParameterSpace(space)
+        self.sim = sim
+        self.space = space
+        self.name = name
+
+    def simulate_flat(self, theta: torch.Tensor, generator: torch.Generator,
+                      spec: SumStatSpec) -> torch.Tensor:
+        """``(B, dim)`` parameters -> ``(B, S)`` flat sum stats."""
+        out = self.sim(theta, generator)
+        missing = set(spec.names) - set(out)
+        if missing:
+            raise KeyError(f"{self.name}: simulator output lacks "
+                           f"{sorted(missing)} of the observed data")
+        return spec.flatten(out, theta.shape[0])
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.name!r})"
