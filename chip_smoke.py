@@ -7,16 +7,19 @@ Phases, one or more lines each:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, the compute capability (must be 9.0) and the kernel build;
-2. every hand-written kernel (K3-K6) against its plain PyTorch version on
-   the card, at the main-path shapes of BASELINE config 2 (B = 4096 lanes,
-   n_cap = 1024, d = 4, S = 40), with its error, its device time ("ms":
-   back-to-back calls replayed from one CUDA graph), its time per call
-   ("call_ms": CUDA events around the same calls made from Python, the
-   wrapper's host work included), the plain version's time per call (the
-   plain compaction syncs on its boolean masks, so no plain version is
-   graph-captured), the least time the card could take and, for K3, the
-   time per call of the PyTorch logsumexp-over-matmul form of the same
-   function;
+2. every hand-written kernel (K2 with K1, K3-K11) against its plain
+   PyTorch version on the card, at the main-path shapes of BASELINE config
+   2 (B = 4096 lanes, n_cap = 1024, d = 4, S = 40, the record ring 8192
+   rows, a chunk of G = 8 generations) and, for K2 and K7-K11, at a second
+   shape (d = 1, n_cap = 64, an odd valid count), with its largest
+   absolute error, its device time ("ms": back-to-back
+   calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
+   events around the same calls made from Python, the wrapper's host work
+   included), the plain version's time per call (the plain compaction
+   syncs on its boolean masks, so no plain version is graph-captured), the
+   least time the card could take and, where one PyTorch call computes the
+   same function, that call's time. Philox4x32-10 (K1) is held to
+   Random123's known-answer vectors on the card;
 3. the Gaussian conjugate toy (pop 1000, 6 generations, 32 seeds) on the
    card and on the CPU, the mean of its posterior means against the
    analytic posterior mean and the card's against the CPU's;
@@ -26,7 +29,15 @@ Phases, one or more lines each:
    The kernels' launch counts are reset just before this run and read just
    after it: each kernel of the path must have launched. A run of the same
    model under a fixed p-norm (6 generations) comes first; its epsilon
-   trail must not increase.
+   trail must not increase. Then one more config 2 run under
+   torch.profiler gives the device's busy share of the run's window and
+   the ten device ops that take the most time, and the same seed run on
+   the CPU (the same Philox streams) gives its epsilon trail beside the
+   card's.
+
+While the card runs of phases 3 and 4 go, the plain version of every
+kernel (K1-K11) is replaced by a function that raises, so none can run on
+the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -34,6 +45,7 @@ nonzero without that line. Without a CUDA device it exits nonzero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -48,6 +60,16 @@ PEAK_F32_FLOPS = 67e12
 B_MAIN, N_CAP_MAIN, POP = 4096, 1024, 1000
 #: seeds of the Gaussian toy, on the card and on the CPU
 TOY_SEEDS = tuple(range(32))
+#: Random123's known-answer vectors for Philox4x32-10
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
 
 
 def log(msg: str) -> None:
@@ -119,8 +141,29 @@ def check(cond: bool, what: str) -> None:
 
 
 # ------------------------------------------------------------ phase 2
+def stream_on(dev, tag: int, gen: int = 2, rounds: int = 1, seed: int = 0):
+    """A Philox stream of generation ``gen`` at round ``rounds``."""
+    import torch
+
+    from pyabc_tpu_torch.kernels.philox import PhiloxStream
+
+    ctr = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctr[1] = rounds
+    return PhiloxStream(seed, gen, tag, 256, ctr)
+
+
+def within(a, b, atol: float, rtol: float) -> bool:
+    """|a - b| <= atol + rtol |b| where b is finite, NaN where b is NaN."""
+    import torch
+
+    if not torch.equal(a.isnan(), b.isnan()):
+        return False
+    fin = ~b.isnan()
+    return bool(((a - b).abs()[fin] <= atol + rtol * b.abs()[fin]).all())
+
+
 def kernel_checks(dev) -> dict:
-    """K3-K6 against their plain versions on main-path inputs."""
+    """Every kernel against its plain version on main-path inputs."""
     import torch
 
     from pyabc_tpu_torch import AdaptivePNormDistance
@@ -128,9 +171,9 @@ def kernel_checks(dev) -> dict:
     from pyabc_tpu_torch.kernels import (compact_round, compact_round_plain,
                                          lv_simulate, lv_simulate_plain,
                                          mvn_mixture_logpdf,
-                                         mvn_mixture_logpdf_plain,
+                                         mvn_mixture_logpdf_plain, philox,
                                          pnorm_accept_weight,
-                                         pnorm_accept_weight_plain)
+                                         pnorm_accept_weight_plain, propose)
     from pyabc_tpu_torch.models import lotka_volterra as lv
     from pyabc_tpu_torch.ops.stats import weighted_quantile
     from pyabc_tpu_torch.transition import (MultivariateNormalTransition,
@@ -140,40 +183,46 @@ def kernel_checks(dev) -> dict:
     gen.manual_seed(0)
     B, n, S = B_MAIN, N_CAP_MAIN, 40
     model, prior = lv.make_lv_model(), lv.default_prior()
+    prior_arrays = prior.arrays(dev)
     obs = lv.observed_data(seed=0)
     spec = SumStatSpec(obs)
     x0 = torch.as_tensor(spec.flatten_host(obs), dtype=torch.float32,
                          device=dev)
     results = {}
+    philox_checks(dev)
 
-    # K4 on prior draws (includes lanes that grow past the 1e6 clip)
-    theta = prior.rvs_array(B, gen, dev)
-    noise = model.noise(B, gen, dev)
+    # K4 on prior draws (includes lanes that grow past the 1e6 clip), its
+    # noise drawn in the kernel from Philox
+    theta = propose(stream_on(dev, philox.PRIOR), B, prior_arrays)[0]
     kw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
               y0=lv.Y0, noise_sd=model.noise_sd, log_parameters=False)
-    ss_k = lv_simulate(theta, noise, **kw)
-    ss_p = lv_simulate_plain(theta, noise, **kw)
+    sim = stream_on(dev, philox.SIM_NOISE)
+    ss_k = lv_simulate(theta, None, stream=sim, **kw)
+    ss_p = lv_simulate_plain(theta, None, stream=sim, **kw)
     torch.cuda.synchronize()
     same_nan = bool((torch.isnan(ss_k) == torch.isnan(ss_p)).all())
     fin = torch.isfinite(ss_p)
     err = (ss_k - ss_p).abs()[fin]
-    tol = 1e-3 + 1e-4 * ss_p.abs()[fin]
     k4_err = float(err.max())
-    log(f"K4 lv_simulate: max_abs_err={k4_err:.3e} "
-        f"max_rel_err={float((err / ss_p.abs()[fin].clamp_min(1)).max()):.3e}"
+    rel = float((err / ss_p.abs()[fin].clamp_min(1)).max())
+    log(f"K4 lv_simulate: max_abs_err={k4_err:.3e} max_rel_err={rel:.3e}"
         f" nan_lanes={int(torch.isnan(ss_p).any(1).sum())}"
         f" same_nan={same_nan}")
-    check(same_nan and bool((err <= tol).all()),
+    check(same_nan and bool((err <= 1e-3 + 1e-4 * ss_p.abs()[fin]).all()),
           "K4 outside |err| <= 1e-3 + 1e-4 |x| (FMA contraction over 190 "
-          "RK4 steps)")
+          "RK4 steps; Philox normals within 2e-6)")
     steps = (model.n_obs - 1) * model.n_substeps
-    k4_bytes = B * 4 * 4 + 2 * B * 2 * model.n_obs * 4
-    k4_flops = B * (steps * 60 + model.n_obs * 2 * 3)
+    k4_bytes = B * 4 * 4 + B * 2 * model.n_obs * 4
+    # RK4 steps, and 2 n_obs Philox normals (a block of 10 rounds of ~10
+    # integer operations makes 4 of them, Box-Muller ~10 more each)
+    k4_flops = B * (steps * 60 + model.n_obs * 2 * (3 + 25 + 10))
     results["lv_simulate"] = dict(
         err=k4_err,
-        call_ms=time_ms(lambda: lv_simulate(theta, noise, **kw), 50),
-        ms=graph_ms(lambda: lv_simulate(theta, noise, **kw)),
-        plain_ms=time_ms(lambda: lv_simulate_plain(theta, noise, **kw), 3),
+        call_ms=time_ms(lambda: lv_simulate(theta, None, stream=sim, **kw),
+                        50),
+        ms=graph_ms(lambda: lv_simulate(theta, None, stream=sim, **kw)),
+        plain_ms=time_ms(lambda: lv_simulate_plain(theta, None, stream=sim,
+                                                   **kw), 3),
         bound=bound(k4_bytes, k4_flops), library_ms=None)
 
     # K3 on a transition fitted to the first n prior draws
@@ -182,7 +231,8 @@ def kernel_checks(dev) -> dict:
     params = MultivariateNormalTransition.device_fit(
         theta[:n], w / w.sum(), dim=4, scaling=1.0,
         bandwidth_selector=silverman_rule_of_thumb)
-    q = MultivariateNormalTransition.device_rvs(params, B, gen)
+    q = MultivariateNormalTransition.device_rvs(
+        params, B, stream_on(dev, philox.TRANSITION), prior_arrays)
     lq_k = mvn_mixture_logpdf(q, params)
     lq_p = mvn_mixture_logpdf_plain(q, params)
     torch.cuda.synchronize()
@@ -216,7 +266,7 @@ def kernel_checks(dev) -> dict:
     # K5 on the K4 rows with MAD weights and a median epsilon
     dist = AdaptivePNormDistance(p=2)
     valid = torch.rand(B, generator=gen, device=dev) > 0.05
-    wts = dist.weights_from_scale(dist.scale(ss_p, valid, x0))
+    wts = dist.refit(ss_p, valid, x0, ss_p[:1])[0]
     eps = weighted_quantile(
         torch.where(valid, dist.rows(ss_p, x0, wts),
                     torch.full((B,), math.inf, device=dev)),
@@ -317,16 +367,555 @@ def kernel_checks(dev) -> dict:
             *k6_in, res_p, rec_p, torch.zeros(4, dtype=torch.int32,
                                               device=dev)), 10),
         bound=bound(k6_bytes, 0.0), library_ms=None)
+
+    # K2, K7, K8, K9 at the main-path shapes and at a second, small shape
+    ring = torch.cat([ss_p, lv_simulate_plain(
+        theta.flip(0), None, stream=stream_on(dev, philox.SIM_NOISE,
+                                              rounds=2), **kw)])
+    ring_valid = torch.ones(2 * B, dtype=torch.bool, device=dev)
+    ring_valid[-1000:] = False  # the ring's tail not yet written
+    res_theta, res_ss = theta[:n].contiguous(), ss_p[:n].contiguous()
+    k_mask = torch.arange(n, device=dev) < 1000
+    logw = torch.where(k_mask, lw_k[:n], torch.full_like(lw_k[:n],
+                                                          -math.inf))
+    results["propose"] = k2_checks(dev, params, prior_arrays, B)
+    results["normalize_quantile"] = k7_checks(dev, logw, k_mask, d_k[:n])
+    results["mvn_fit"] = k8_checks(dev, res_theta, k_mask, logw)
+    results["scale_reduce"] = k9_checks(dev, ring, ring_valid, x0, res_ss)
+    results["pack_fetch"] = k10_checks(dev, theta, d_k, lw_k, ss_p, n)
+    results["generation_health"] = k11_checks(dev, res_theta, k_mask, logw,
+                                              d_k[:n])
+    small_shape_checks(dev)
     return results
 
 
-# ------------------------------------------------------------ phases 3-4
-def gaussian_toy(dev) -> None:
-    """The conjugate toy over TOY_SEEDS seeds on the card and, as the
-    reference, on the CPU (plain versions, another random stream)."""
+def philox_checks(dev) -> None:
+    """K1 on the card: the known-answer vectors, then 16384 random
+    counters against the plain twin (words and uniforms bit-exact, normals
+    within 2e-6)."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox
+
+    for ctr, key, want in PHILOX_KAT:
+        words, _u, _z = philox.philox_blocks_cuda(
+            torch.tensor([ctr], dtype=torch.int64, device=dev), key)
+        check(words[0].tolist() == list(want),
+              f"Philox known-answer vector {ctr} {key} failed on the card")
+    rng = np.random.default_rng(0)
+    ctr = torch.from_numpy(rng.integers(0, 2 ** 32, size=(16384, 4),
+                                        dtype=np.int64)).to(dev)
+    key = (0x12345678, 0x9ABCDEF0)
+    words, uni, nrm = philox.philox_blocks_cuda(ctr, key)
+    w = philox.philox4x32_10(*ctr.unbind(1), key)
+    u = [philox.uniform_of(x) for x in w]
+    z = torch.stack([philox.box_muller(u[0], u[1], False),
+                     philox.box_muller(u[0], u[1], True),
+                     philox.box_muller(u[2], u[3], False),
+                     philox.box_muller(u[2], u[3], True)], dim=1)
+    z_err = float((nrm - z).abs().max())
+    same = (torch.equal(words, torch.stack(w, dim=1))
+            and torch.equal(uni, torch.stack(u, dim=1)))
+    log(f"K1 philox: known-answer vectors ok, words and uniforms "
+        f"bit-exact={same}, normals max_abs_err={z_err:.3e}")
+    check(same and z_err <= 2e-6, "K1 Philox disagrees with its plain twin")
+
+
+def redraws_taken(stream, B, prior_arrays, params):
+    """Per lane, the draws K2 evaluates on these inputs: one, plus one for
+    each leading draw without prior mass (at most N_REDRAWS)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox
+    from pyabc_tpu_torch.kernels.propose import (N_REDRAWS,
+                                                 prior_logpdf_plain)
+
+    n, d = params["thetas"].shape
+    nb = (d + 3) // 4
+    lanes = torch.arange(B, device=params["cdf"].device)
+    cdf = params["cdf"]
+    total = cdf[-1]
+    taken = torch.zeros(B, dtype=torch.int64, device=cdf.device)
+    done = torch.zeros(B, dtype=torch.bool, device=cdf.device)
+    for j in range(N_REDRAWS):
+        u = torch.minimum(philox.uniforms(stream, lanes, j * (1 + nb), 0)
+                          * total, torch.nextafter(total, 0 * total))
+        idx = torch.searchsorted(cdf, u, right=True).clamp(max=n - 1)
+        th = params["thetas"][idx] + philox.normals(
+            stream, lanes, j * (1 + nb) + 1, d) @ params["chol"].T
+        taken += (~done).long()
+        done |= torch.isfinite(prior_logpdf_plain(th, prior_arrays))
+    return taken
+
+
+def compare_propose(dev, params, prior_arrays, B, tag):
+    """K2 against its plain version: theta, logpri and valid, apart from
+    lanes whose draw lies within rounding of a uniform prior bound."""
+    from pyabc_tpu_torch.kernels import propose, propose_plain
+
+    st = stream_on(dev, tag)
+    th_k, lp_k, v_k = propose(st, B, prior_arrays, params)
+    th_p, lp_p, v_p = propose_plain(st, B, prior_arrays, params)
+    lo, hi = prior_arrays["loc"], prior_arrays["hi"]
+    near = ((((th_p - lo).abs() < 1e-4) | ((th_p - hi).abs() < 1e-4))
+            & (prior_arrays["kind"] == 1)).any(dim=1)
+    th_err = ((th_k - th_p).abs() - 1e-5 * th_p.abs())
+    odd = (v_k != v_p) | (th_err > 1e-5).any(dim=1)
+    ok = ~odd & v_p
+    lp_err = float((lp_k - lp_p)[ok].abs().max()) if bool(ok.any()) else 0.0
+    err = max(float((th_k - th_p)[~odd].abs().max()), lp_err)
+    log(f"K2 propose ({'prior' if params is None else 'transition'}, "
+        f"B={B}, d={prior_arrays['kind'].shape[0]}): max_abs_err={err:.3e} "
+        f"lanes apart={int(odd.sum())} (all within 1e-4 of a bound: "
+        f"{bool(near[odd].all())}) valid={int(v_k.sum())}/{B}")
+    check(bool(near[odd].all()) and lp_err <= 1e-5 and int(ok.sum()) > 0,
+          "K2 outside theta abs 1e-5 + rel 1e-5, logpri abs 1e-5, equal "
+          "valid")
+    return err
+
+
+def k2_checks(dev, params, prior_arrays, B) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose, propose_plain
+
+    err = max(compare_propose(dev, None, prior_arrays, B, philox.PRIOR),
+              compare_propose(dev, params, prior_arrays, B,
+                              philox.TRANSITION))
+    st = stream_on(dev, philox.TRANSITION)
+    n, d = params["thetas"].shape
+    nb = (d + 3) // 4
+    draws = float(redraws_taken(st, B, prior_arrays, params).sum())
+    # per draw: 1 + nb Philox blocks (~100 integer operations each), the
+    # uniform and d Box-Muller normals, the binary search, theta + L z and
+    # the prior log-density
+    per_draw = (100 * (1 + nb) + 3 + 14 * d + 2 * math.ceil(math.log2(n))
+                + d * (2 * d + 1) + 8 * d)
+    nbytes = (n + n * d + d * d + 5 * d + 1) * 4 + B * (d * 4 + 4 + 1)
+    log(f"K2 propose: {draws / B:.3f} draws per lane on these inputs")
+    return dict(
+        err=err,
+        call_ms=time_ms(lambda: propose(st, B, prior_arrays, params), 50),
+        ms=graph_ms(lambda: propose(st, B, prior_arrays, params)),
+        plain_ms=time_ms(lambda: propose_plain(st, B, prior_arrays, params),
+                         5),
+        bound=bound(nbytes, draws * per_draw), library_ms=None)
+
+
+def off_step(points, weights, alpha) -> bool:
+    """True when alpha lies clear of float rounding of every step of the
+    weighted CDF (float64 on the host)."""
     import numpy as np
 
-    import pyabc_tpu_torch as pt
+    p = points.double().cpu().numpy()
+    w = weights.double().cpu().numpy()
+    cum = np.cumsum(w[np.argsort(p, kind="stable")])
+    if not cum[-1] > 0:
+        return True
+    return bool(np.abs(cum / cum[-1] - alpha).min() > 1e-6)
+
+
+def compare_quantile(points, weights, alpha) -> bool:
+    from pyabc_tpu_torch.kernels import (normalize_quantile,
+                                         weighted_quantile_plain)
+
+    got = float(normalize_quantile.quantile(points, weights, alpha))
+    ref = float(weighted_quantile_plain(points, weights, alpha))
+    clear = off_step(points, weights, alpha)
+    check(got == ref or not clear,
+          f"K7 quantile {got} != plain {ref} with alpha clear of a step")
+    return got == ref
+
+
+def k7_checks(dev, logw, k_mask, dist) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import (normalize_log_weights_plain,
+                                         normalize_quantile,
+                                         weighted_quantile_plain)
+
+    n = logw.shape[0]
+    w_k = normalize_quantile.normalize(logw, k_mask)
+    w_p = normalize_log_weights_plain(logw, k_mask)
+    w_err = float(((w_k - w_p).abs() / w_p.abs().clamp_min(1e-30)).max())
+    w_abs = float((w_k - w_p).abs().max())
+    pts = torch.where(k_mask, dist, torch.full_like(dist, math.inf))
+    same = [compare_quantile(pts, wts, a) for a in (0.5, 0.1, 0.9)
+            for wts in (w_p, k_mask.float())]
+    log(f"K7 normalize_quantile (n={n}): max_rel_err(w)={w_err:.3e} "
+        f"max_abs_err(w)={w_abs:.3e} quantile equal={same}")
+    check(w_err <= 1e-6, "K7 weights outside rel 1e-6")
+    # the generation step runs one normalization and one quantile
+    nbytes = n * (4 + 1 + 4) + n * 8 + 4
+
+    def both():
+        normalize_quantile.normalize(logw, k_mask)
+        normalize_quantile.quantile(pts, w_p, 0.5)
+
+    def plain():
+        normalize_log_weights_plain(logw, k_mask)
+        weighted_quantile_plain(pts, w_p, 0.5)
+
+    masked = torch.where(k_mask, logw, torch.full_like(logw, -math.inf))
+    return dict(err=w_abs, call_ms=time_ms(both, 50), ms=graph_ms(both),
+                plain_ms=time_ms(plain, 20), bound=bound(nbytes, 6 * n),
+                library_ms=time_ms(lambda: torch.softmax(masked, 0), 50))
+
+
+def compare_fit(got, ref) -> tuple[float, float]:
+    """K8 against its plain version at the tolerances the tests hold
+    against the JAX package -> (largest relative, largest absolute
+    error)."""
+    tol = {"thetas": 1e-5, "weights": 1e-5, "center": 1e-5, "cdf": 1e-5,
+           "chol": 1e-4, "prec": 1e-4, "logdet": 1e-4, "quad": 1e-4}
+    err = err_abs = 0.0
+    for k, rt in tol.items():
+        atol = 1e-7 if rt == 1e-5 else 1e-5
+        check(within(got[k], ref[k], atol, rt), f"K8 {k} outside rel {rt}")
+        diff = (got[k] - ref[k]).abs().nan_to_num(0.0)
+        err = max(err, float((diff / ref[k].abs().clamp_min(1e-6)).max()))
+        err_abs = max(err_abs, float(diff.max()))
+    scale = 1e-5 * float(ref["center"].abs().max())
+    check(within(got["thetas_c"], ref["thetas_c"], scale, 1e-5),
+          "K8 centred rows outside the mean's error")
+    return err, err_abs
+
+
+def k8_checks(dev, thetas, k_mask, logw) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import (mvn_fit, mvn_fit_plain,
+                                         normalize_log_weights_plain)
+    from pyabc_tpu_torch.kernels.mvn_fit import (chol_guarded_cuda,
+                                                 device_chol_guarded)
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    n, d = thetas.shape
+    w = normalize_log_weights_plain(logw, k_mask)
+    kw = dict(dim=d, scaling=1.0, bandwidth_selector=silverman_rule_of_thumb)
+    err, err_abs = compare_fit(mvn_fit(thetas, w, **kw),
+                               mvn_fit_plain(thetas, w, **kw))
+    rungs = []
+    for x in (1.0, -1e-11, -1e-9, -1e-6, -1.0):
+        cov = torch.diag(torch.tensor([1.0, 2.0, 0.5, x], device=dev))
+        cov[0, 1] = cov[1, 0] = 0.3
+        chol, used, rung = chol_guarded_cuda(cov)
+        ref_chol, ref_used, bad = device_chol_guarded(cov)
+        check(torch.equal(used, ref_used) and bool(bad) == (int(rung) == 4)
+              and within(chol, ref_chol, 1e-7, 1e-5),
+              f"K8 ladder disagrees with the plain version at {x}")
+        rungs.append(int(rung))
+    log(f"K8 mvn_fit (n={n}, d={d}): max_rel_err={err:.3e} max_abs_err="
+        f"{err_abs:.3e}; ladder rungs {rungs} (expected [0, 1, 2, 3, 4])")
+    check(rungs == [0, 1, 2, 3, 4], "K8 ladder took the wrong rung")
+    nbytes = (n * (d + 1) + 2 * n * d + 3 * n + 2 * d * d + d + 1) * 4
+    flops = n * (2 * d + 2 * d * d + 2 * d * d + 2 * d) + 2 * d ** 3
+    return dict(err=err_abs,
+                call_ms=time_ms(lambda: mvn_fit(thetas, w, **kw), 50),
+                ms=graph_ms(lambda: mvn_fit(thetas, w, **kw)),
+                plain_ms=time_ms(lambda: mvn_fit_plain(thetas, w, **kw), 20),
+                bound=bound(nbytes, flops), library_ms=None)
+
+
+def compare_scales(samples, valid, x0, rows, name) -> float:
+    """K9 against its plain version: medians bit-exact, the rest within
+    rel 1e-5; returns the largest absolute error."""
+    from pyabc_tpu_torch.kernels import scale_reduce, scale_reduce_plain
+
+    kw = dict(scale_name=name, max_weight_ratio=None, normalize_weights=True,
+              rows=rows, p=2.0)
+    got = scale_reduce(samples, valid, x0, **kw)
+    ref = scale_reduce_plain(samples, valid, x0, **kw)
+    if "median" in name:
+        check(within(got[0], ref[0], 0.0, 0.0), f"K9 {name} not bit-exact")
+    for a, b, what in zip(got, ref, ("scale", "weights", "distances")):
+        check(within(a, b, 1e-6, 1e-5), f"K9 {name} {what} outside rel 1e-5")
+    return max(float((a - b).abs().nan_to_num(0.0).max())
+               for a, b in zip(got, ref))
+
+
+def k9_checks(dev, ring, valid, x0, rows) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import scale_reduce, scale_reduce_plain
+    from pyabc_tpu_torch.kernels.scale_reduce import SCALE_NAMES
+
+    n, S = ring.shape
+    name = "median_absolute_deviation"
+    err = compare_scales(ring, valid, x0, rows, name)
+    others = max(compare_scales(ring, valid, x0, rows, other)
+                 for other in SCALE_NAMES)
+    log(f"K9 scale_reduce (ring {n}x{S}, {int(valid.sum())} valid, "
+        f"{int(ring.isnan().any(1).sum())} NaN rows; {rows.shape[0]} rows): "
+        f"MAD max_abs_err={err:.3e}; all 13 scales max_abs_err="
+        f"{others:.3e}")
+    kw = dict(scale_name=name, max_weight_ratio=None, normalize_weights=True,
+              rows=rows, p=2.0)
+    nbytes = n * S * 4 + n + S * 4 + rows.numel() * 4 + (2 * S
+                                                        + rows.shape[0]) * 4
+    masked = torch.where(valid[:, None], ring,
+                         torch.full_like(ring, math.nan))
+    return dict(
+        err=err,
+        call_ms=time_ms(lambda: scale_reduce(ring, valid, x0, **kw), 20),
+        ms=graph_ms(lambda: scale_reduce(ring, valid, x0, **kw), iters=20),
+        plain_ms=time_ms(lambda: scale_reduce_plain(ring, valid, x0, **kw),
+                         10),
+        bound=bound(nbytes, 8 * n * S),
+        library_ms=time_ms(lambda: torch.nanquantile(masked, 0.5, dim=0),
+                           10))
+
+
+#: generations per chunk on the main path (ABCSMC's fused_generations)
+G_CHUNK = 8
+
+
+def compare_pack(theta, dist, logw, ss, n_keep, dtype) -> float:
+    """K10 against its plain version: rows and sum stats bit-identical
+    (NaN where NaN) -> the largest absolute difference (0)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (cast_rows_plain, pack_fetch,
+                                         pack_rows_plain)
+
+    got = (pack_fetch.rows(theta, dist, logw, n_keep=n_keep, dtype=dtype),
+           pack_fetch.sumstats(ss, n_keep=n_keep, dtype=dtype))
+    ref = (pack_rows_plain(theta, dist, logw, n_keep=n_keep, dtype=dtype),
+           cast_rows_plain(ss, n_keep=n_keep, dtype=dtype))
+    err = 0.0
+    for a, b in zip(got, ref):
+        nan = a.isnan()
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(nan, b.isnan())
+              and torch.equal(a[~nan], b[~nan]),
+              f"K10 {dtype} not bit-identical to its plain version")
+        err = max(err, float((a[~nan].float() - b[~nan].float()).abs()
+                             .nan_to_num(0.0, 0.0, 0.0).max()))
+    return err
+
+
+def k10_checks(dev, theta, dist, logw, ss, n) -> dict:
+    """K10 on a chunk of G_CHUNK reservoirs (n_cap rows each, the first
+    POP kept), in every fetch dtype; timed in float16, the default."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import pack_fetch, pack_rows_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    d = theta.shape[1]
+    perm = [torch.randperm(theta.shape[0], generator=g, device=dev)[:n]
+            for _ in range(G_CHUNK)]
+    th = [theta[p].contiguous() for p in perm]
+    di = [dist[p].contiguous() for p in perm]
+    lw = [logw[p].contiguous() for p in perm]
+    sst = [ss[p].contiguous() for p in perm]
+    err = max(compare_pack(th, di, lw, sst, POP, dt)
+              for dt in (torch.float16, torch.bfloat16, torch.float32))
+    log(f"K10 pack_fetch (G={G_CHUNK}, n_cap={n}, n_keep={POP}, d={d}, "
+        f"S={ss.shape[1]}; float16, bfloat16, float32): bit-identical, "
+        f"max_abs_err={err:.3e}")
+    f16 = torch.float16
+    nbytes = G_CHUNK * POP * (d + 2) * (4 + 2)
+
+    def rows():
+        return pack_fetch.rows(th, di, lw, n_keep=POP, dtype=f16)
+
+    return dict(
+        err=err, call_ms=time_ms(rows, 50), ms=graph_ms(rows),
+        plain_ms=time_ms(lambda: pack_rows_plain(th, di, lw, n_keep=POP,
+                                                 dtype=f16), 20),
+        bound=bound(nbytes, G_CHUNK * POP * 6), library_ms=None)
+
+
+def health_inputs(dev, thetas, k_mask, logw, d_new, kind="ok") -> dict:
+    """generation_health's inputs on a reservoir: the refit of the kept
+    rows as both parameter sets, with one fault where ``kind`` says."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_fit, normalize_quantile
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    n, d = thetas.shape
+    w = normalize_quantile.normalize(logw, k_mask)
+    fit = mvn_fit(thetas, w, dim=d, scaling=1.0,
+                  bandwidth_selector=silverman_rule_of_thumb)
+    nxt = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+           for k, v in fit.items()}
+    n_keep = k_mask.sum(dtype=torch.int32)
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    x = dict(theta=thetas.clone(), k_mask=k_mask, w_norm=w,
+             d_new=d_new.clone(), n_acc=n_keep, n_target=POP,
+             acc_rate=f(0.3), trans_params=fit, trans_next=nxt,
+             fitted=torch.tensor(True, device=dev), fitted_next=n_keep > 0,
+             eps_g=f(0.5), eps_next=f(0.4), eps_prev=f(0.5 * (1 + 1e-7)),
+             stall_count=torch.tensor(2, dtype=torch.int32, device=dev),
+             ess_floor=0.0, acc_floor=0.0, stall_window=16,
+             stall_rtol=1e-6)
+    if kind == "nan_theta":
+        x["theta"][int(n_keep) - 1, d - 1] = math.nan
+    elif kind == "psd":
+        nxt["chol"][d - 1, 0] = math.nan
+    elif kind == "stall":
+        x["stall_window"] = 3
+    elif kind == "nan_distance":
+        x["d_new"][0] = math.inf
+    elif kind == "ess_floor":
+        x["ess_floor"] = 2.0  # above any ESS of n_cap rows
+    elif kind == "acc_collapse":
+        x["acc_floor"] = 0.5
+    return x
+
+
+def compare_health(x) -> float:
+    """K11 against its plain version: equal words and stall counts, ESS
+    within rel 1e-5 -> the ESS's absolute error."""
+    from pyabc_tpu_torch.kernels import (generation_health,
+                                         generation_health_plain)
+
+    word, ess, _e, stall = generation_health(**x)
+    r_word, r_ess, _r, r_stall = generation_health_plain(**x)
+    check(int(word) == int(r_word) and int(stall) == int(r_stall)
+          and within(ess, r_ess, 0.0, 1e-5),
+          f"K11 word {int(word)} stall {int(stall)} ess {float(ess)} "
+          f"against plain {int(r_word)} {int(r_stall)} {float(r_ess)}")
+    return abs(float(ess) - float(r_ess))
+
+
+def k11_checks(dev, thetas, k_mask, logw, d_new) -> dict:
+    from pyabc_tpu_torch.kernels import (generation_health,
+                                         generation_health_plain)
+
+    n, d = thetas.shape
+    words, err = {}, 0.0
+    for kind in ("ok", "nan_theta", "psd", "stall", "nan_distance",
+                 "ess_floor", "acc_collapse"):
+        x = health_inputs(dev, thetas, k_mask, logw, d_new, kind)
+        err = max(err, compare_health(x))
+        words[kind] = int(generation_health(**x)[0])
+    log(f"K11 generation_health (n_cap={n}, d={d}): words {words}, "
+        f"ess max_abs_err={err:.3e}")
+    check(words["ok"] == 0 and all(words[k] for k in words if k != "ok"),
+          "K11 missed a fault or flagged a healthy generation")
+    x = health_inputs(dev, thetas, k_mask, logw, d_new)
+    params = sum(v.numel() for p in (x["trans_params"], x["trans_next"])
+                 for v in p.values() if hasattr(v, "numel"))
+    nbytes = n * d * 4 + n + 2 * n * 4 + params * 4 + 8 * 4 + 3 * 4
+    return dict(
+        err=err, call_ms=time_ms(lambda: generation_health(**x), 50),
+        ms=graph_ms(lambda: generation_health(**x)),
+        plain_ms=time_ms(lambda: generation_health_plain(**x), 20),
+        bound=bound(nbytes, n * d + 4 * n + params), library_ms=None)
+
+
+def small_shape_checks(dev) -> None:
+    """K2, K7-K11 at the Gaussian toy's shape: d = 1, n_cap = 64, S = 1, an
+    odd valid count (33 of 64 reservoir rows, 301 of 512 ring rows)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (mvn_fit, mvn_fit_plain,
+                                         normalize_log_weights_plain,
+                                         normalize_quantile, philox)
+    from pyabc_tpu_torch.kernels.scale_reduce import SCALE_NAMES
+    from pyabc_tpu_torch.models import gaussian
+    from pyabc_tpu_torch.transition import scott_rule_of_thumb
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    n, B = 64, 256
+    prior_arrays = gaussian.mean_only_prior().arrays(dev)
+    k_mask = torch.arange(n, device=dev) < 33
+    thetas = torch.where(k_mask[:, None],
+                         torch.randn(n, 1, generator=g, device=dev),
+                         torch.zeros(n, 1, device=dev))
+    logw = torch.where(k_mask, torch.randn(n, generator=g, device=dev),
+                       torch.full((n,), -math.inf, device=dev))
+    w_k = normalize_quantile.normalize(logw, k_mask)
+    w_p = normalize_log_weights_plain(logw, k_mask)
+    check(within(w_k, w_p, 0.0, 1e-6), "K7 weights outside rel 1e-6 (small)")
+    dist = torch.rand(n, generator=g, device=dev)
+    pts = torch.where(k_mask, dist, torch.full_like(dist, math.inf))
+    q_same = [compare_quantile(pts, wts, 0.5)
+              for wts in (w_p, k_mask.float())]
+    kw = dict(dim=1, scaling=1.0, bandwidth_selector=scott_rule_of_thumb)
+    params = mvn_fit(thetas, w_p, **kw)
+    fit_err = compare_fit(params, mvn_fit_plain(thetas, w_p, **kw))[0]
+    p_err = max(compare_propose(dev, None, prior_arrays, B, philox.PRIOR),
+                compare_propose(dev, params, prior_arrays, B,
+                                philox.TRANSITION))
+    ring = torch.randn(512, 1, generator=g, device=dev)
+    ring_valid = torch.arange(512, device=dev) < 301
+    x0 = torch.ones(1, device=dev)
+    s_err = max(compare_scales(ring, ring_valid, x0, dist[:, None], name)
+                for name in SCALE_NAMES)
+    pk_err = max(compare_pack(
+        [thetas] * 3, [dist] * 3, [logw] * 3, [ring[:n]] * 3, 33, dt)
+        for dt in (torch.float16, torch.bfloat16, torch.float32))
+    h_err = max(compare_health(dict(
+        health_inputs(dev, thetas, k_mask, logw, dist, kind), n_target=33))
+        for kind in ("ok", "nan_theta", "psd"))
+    log(f"small shape (d=1, n_cap=64, 33 valid rows; ring 512x1, 301 "
+        f"valid): K2 max_abs_err={p_err:.3e}, K7 quantile equal={q_same}, "
+        f"K8 max_rel_err={fit_err:.3e}, K9 max_abs_err={s_err:.3e}, K10 "
+        f"max_abs_err={pk_err:.3e}, K11 ess max_abs_err={h_err:.3e}")
+
+
+# ------------------------------------------------------------ phases 3-4
+#: (module, attribute) of the plain version of every kernel, K1-K11
+PLAIN_VERSIONS = (
+    ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
+    ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
+    ("pyabc_tpu_torch.kernels.mvn_logpdf", "mvn_mixture_logpdf_plain"),
+    ("pyabc_tpu_torch.kernels.lv_simulate", "lv_simulate_plain"),
+    ("pyabc_tpu_torch.kernels.pnorm_accept", "pnorm_accept_weight_plain"),
+    ("pyabc_tpu_torch.kernels.compact", "compact_round_plain"),
+    ("pyabc_tpu_torch.kernels.normalize_quantile",
+     "normalize_log_weights_plain"),
+    ("pyabc_tpu_torch.kernels.normalize_quantile", "weighted_quantile_plain"),
+    ("pyabc_tpu_torch.kernels.mvn_fit", "mvn_fit_plain"),
+    ("pyabc_tpu_torch.kernels.mvn_fit", "device_chol_guarded"),
+    ("pyabc_tpu_torch.kernels.scale_reduce", "scale_reduce_plain"),
+    ("pyabc_tpu_torch.kernels.scale_reduce", "weight_update_plain"),
+    ("pyabc_tpu_torch.kernels.pack_fetch", "pack_rows_plain"),
+    ("pyabc_tpu_torch.kernels.pack_fetch", "cast_rows_plain"),
+    ("pyabc_tpu_torch.kernels.pack_fetch", "cast_monotone_down"),
+    ("pyabc_tpu_torch.kernels.generation_health", "generation_health_plain"),
+)
+
+
+@contextlib.contextmanager
+def plain_versions_raise():
+    """Replace the plain version of every kernel with a function that
+    raises, so a card run that falls back to one fails loudly."""
+    import importlib
+
+    saved = []
+    for mod_name, attr in PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, attr, getattr(mod, attr)))
+
+        def raiser(*_a, _name=f"{mod_name}.{attr}", **_k):
+            raise AssertionError(f"plain version {_name} ran on the path")
+
+        setattr(mod, attr, raiser)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def gaussian_toy(dev) -> None:
+    """The conjugate toy over TOY_SEEDS seeds on the card and, as the
+    reference, on the CPU (plain versions: the same Philox proposals, the
+    simulator's noise from another generator)."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
     from pyabc_tpu_torch.models import gaussian
 
     mu_true, sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
@@ -334,32 +923,21 @@ def gaussian_toy(dev) -> None:
     for where in (dev, "cpu"):
         mus, ess_min = [], []
         t0 = time.perf_counter()
-        for seed in TOY_SEEDS:
-            abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=0.5),
-                            gaussian.mean_only_prior(), pt.PNormDistance(p=2),
-                            population_size=POP, eps=pt.MedianEpsilon(),
-                            seed=seed, device=where)
-            abc.new("sqlite://", {"x": 1.0})
-            h = abc.run(max_nr_populations=6)
-            check(h.n_populations == 6,
-                  f"gaussian toy seed {seed} did not run 6 generations")
-            ess = []
-            for t in range(h.n_populations):
-                _df, w_t = h.get_distribution(t=t)
-                ess.append(float(1.0 / np.sum(w_t * w_t)))
-            df, w = h.get_distribution()
-            mus.append(float(np.sum(df["theta"] * w)))
-            ess_min.append(min(ess))
-            if seed == TOY_SEEDS[0]:
-                sd = float(np.sqrt(np.sum(w * (df["theta"] - mus[0]) ** 2)))
-                eps = [round(float(e), 5)
-                       for e in h.get_all_populations()["epsilon"][1:]]
-                log(f"gaussian toy ({where}, seed {seed}): pop={POP} gens=6 "
-                    f"posterior mean={mus[0]:.4f} sd={sd:.4f} analytic "
-                    f"mean={mu_true:.4f} sd={sd_true:.4f} eps={eps}")
-                if where == dev:
-                    check(abs(mus[0] - mu_true) < 0.1,
-                          "gaussian posterior mean off by >= 0.1")
+        on_card = where == dev
+        guard = plain_versions_raise() if on_card else contextlib.nullcontext()
+        if on_card:
+            reset_launch_counts()
+        with guard:
+            lowest = run_toy_seeds(where, mus, ess_min, mu_true, sd_true,
+                                   on_card)
+        if on_card:
+            counts = launch_counts()
+            log(f"gaussian toy ({where}): kernel launches {counts}")
+            toy_path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
+                        "compact_round", "normalize_quantile", "mvn_fit",
+                        "pack_fetch", "generation_health")
+            check(all(counts[k] > 0 for k in toy_path),
+                  "a kernel of the Gaussian toy's path was never launched")
         wall = time.perf_counter() - t0
         m = float(np.mean(mus))
         se = float(np.std(mus, ddof=1) / math.sqrt(len(mus)))
@@ -370,6 +948,8 @@ def gaussian_toy(dev) -> None:
             f"max {max(mus):.4f}; least ESS over the generations, lowest "
             f"seed {min(ess_min):.1f} median seed "
             f"{float(np.median(ess_min)):.1f}")
+        log(f"gaussian toy ({where}): lowest ESS {lowest[0]:.1f} at seed "
+            f"{lowest[1]} generation {lowest[2]}")
     (m_d, se_d), (m_c, se_c) = means[dev], means["cpu"]
     gap_se = (m_d - m_c) / math.hypot(se_d, se_c)
     log(f"gaussian toy: card - cpu {m_d - m_c:+.4f} ({gap_se:+.2f} se)")
@@ -381,8 +961,59 @@ def gaussian_toy(dev) -> None:
           ">= 4 standard errors")
 
 
-def lotka_volterra(dev, adaptive: bool, gens: int) -> dict[str, int]:
-    """LV config 2 (``adaptive``) or the same run under a fixed p-norm."""
+def toy_run(where, seed):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gaussian
+
+    abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=0.5),
+                    gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    device=where)
+    abc.new("sqlite://", {"x": 1.0})
+    return abc.run(max_nr_populations=6)
+
+
+def ess_trail(h) -> list[float]:
+    import numpy as np
+
+    ess = []
+    for t in range(h.n_populations):
+        _df, w_t = h.get_distribution(t=t)
+        ess.append(float(1.0 / np.sum(w_t * w_t)))
+    return ess
+
+
+def run_toy_seeds(where, mus, ess_min, mu_true, sd_true, on_card):
+    """The conjugate toy over TOY_SEEDS on one device; appends each seed's
+    posterior mean and least ESS -> (lowest ESS, its seed, generation)."""
+    import numpy as np
+
+    lowest = (math.inf, None, None)
+    for seed in TOY_SEEDS:
+        h = toy_run(where, seed)
+        check(h.n_populations == 6,
+              f"gaussian toy seed {seed} did not run 6 generations")
+        ess = ess_trail(h)
+        lowest = min(lowest, (min(ess), seed, int(np.argmin(ess))))
+        df, w = h.get_distribution()
+        mus.append(float(np.sum(df["theta"] * w)))
+        ess_min.append(min(ess))
+        if seed == TOY_SEEDS[0]:
+            sd = float(np.sqrt(np.sum(w * (df["theta"] - mus[0]) ** 2)))
+            eps = [round(float(e), 5)
+                   for e in h.get_all_populations()["epsilon"][1:]]
+            log(f"gaussian toy ({where}, seed {seed}): pop={POP} gens=6 "
+                f"posterior mean={mus[0]:.4f} sd={sd:.4f} analytic "
+                f"mean={mu_true:.4f} sd={sd_true:.4f} eps={eps}")
+            if on_card:
+                check(abs(mus[0] - mu_true) < 0.1,
+                      "gaussian posterior mean off by >= 0.1")
+    return lowest
+
+
+def lotka_volterra(dev, adaptive: bool, gens: int):
+    """LV config 2 (``adaptive``) or the same run under a fixed p-norm ->
+    (launch counts, epsilon trail)."""
     import numpy as np
     import torch
 
@@ -399,10 +1030,11 @@ def lotka_volterra(dev, adaptive: bool, gens: int) -> dict[str, int]:
     abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    h = abc.run(max_nr_populations=gens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = launch_counts()
     pops = h.get_all_populations()[1:]
     eps = [float(e) for e in pops["epsilon"]]
@@ -435,7 +1067,9 @@ def lotka_volterra(dev, adaptive: bool, gens: int) -> dict[str, int]:
     else:
         check(all(b <= a for a, b in zip(eps, eps[1:])),
               "LV epsilons increased under a fixed distance")
-    check(all(v > 0 for v in counts.values()),
+    # the fixed p-norm has no adaptive refit (K9); config 2 runs all eight
+    path = [k for k in counts if adaptive or k != "scale_reduce"]
+    check(all(counts[k] > 0 for k in path),
           "a kernel of the path was never launched")
     check(all(math.isfinite(v) for v in means.values()),
           "non-finite LV posterior mean")
@@ -451,7 +1085,79 @@ def lotka_volterra(dev, adaptive: bool, gens: int) -> dict[str, int]:
     if adaptive:
         check(all(post_sd[k] < prior_sd[k] for k in means),
               "LV posterior did not concentrate (sd >= the prior sd)")
-    return counts
+    return counts, eps
+
+
+def config2(where):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=POP,
+                    eps=pt.MedianEpsilon(), seed=0, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
+    return abc
+
+
+def profile_lv(dev) -> None:
+    """One more LV config 2 run under torch.profiler: the device's busy
+    share of the run's window and the ten device ops that take the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    abc = config2(dev)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with plain_versions_raise(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        abc.run(max_nr_populations=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("LV config 2 under torch.profiler: device busy share not "
+            "measured (the profiler recorded no device activity)")
+        return
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    by_name: dict[str, list] = {}
+    for start, end, name in spans:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += end - start
+        tot[1] += 1
+    busy = (busy + cur_end - cur_start) / 1e6  # microseconds -> s
+    active = (spans[-1][1] - spans[0][0]) / 1e6
+    log(f"LV config 2 under torch.profiler: wall_s={wall:.4f} device "
+        f"busy_s={busy:.5f} busy_share_of_window={busy / wall:.4f} "
+        f"(first to last device op {active:.4f} s, "
+        f"{len(spans)} device ops)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    log("LV config 2 top device ops (name, total ms, count): " + "; ".join(
+        f"{name[:70]} {tot / 1e3:.4f} {cnt}" for name, (tot, cnt) in top))
+
+
+def lv_cpu_trail(card_eps: list[float]) -> None:
+    """LV config 2 with the same seed on the CPU (the plain versions, the
+    same Philox streams): its epsilon trail beside the card's. A finding,
+    not a check: an accept that flips near the threshold parts them."""
+    t0 = time.perf_counter()
+    h = config2("cpu").run(max_nr_populations=len(card_eps))
+    wall = time.perf_counter() - t0
+    cpu_eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_eps, cpu_eps)]
+    parted = next((t for t, r in enumerate(rel) if r > 1e-3), None)
+    log(f"LV config 2 on the CPU (seed 0, {wall:.1f} s): eps trail "
+        f"{[round(e, 4) for e in cpu_eps]}; |card - cpu| / cpu per "
+        f"generation {[float(f'{r:.2e}') for r in rel]}; first generation "
+        f"apart by more than 1e-3: {parted}")
 
 
 def main() -> int:
@@ -486,7 +1192,9 @@ def main() -> int:
             f"library_ms={r['library_ms']}")
     gaussian_toy(dev)
     lotka_volterra(dev, adaptive=False, gens=6)
-    counts = lotka_volterra(dev, adaptive=True, gens=10)
+    counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
+    profile_lv(dev)
+    lv_cpu_trail(eps)
 
     kernels = []
     for k in KERNELS:

@@ -22,12 +22,22 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def ancestor_cdf(weights) -> np.ndarray:
+    """The ancestor CDF that K2 searches, from a weight vector, in float32:
+    cummax(where(w > 0, cumsum(w), 0))."""
+    w = np.asarray(weights, np.float32)
+    cum = np.cumsum(w, dtype=np.float32)
+    return np.maximum.accumulate(np.where(w > 0, cum, np.float32(0)))
+
+
 def transition_params(params: dict, device=None) -> dict:
     """``device_params``/``device_fit`` dict -> the port's params (float32
-    tensors, contiguous; ``dim`` a Python float). ``device=None`` means the
-    CUDA card, as everywhere in the port."""
+    tensors, contiguous; ``dim`` a Python float; the ancestor ``cdf``
+    computed from the weights). ``device=None`` means the CUDA card, as
+    everywhere in the port."""
     device = resolve_device(device)
     out = {k: _f32(params[k], device).contiguous() for k in TRANSITION_KEYS}
+    out["cdf"] = _f32(ancestor_cdf(params["weights"]), device).contiguous()
     out["dim"] = float(np.asarray(params["dim"]))
     return out
 

@@ -4,7 +4,9 @@ The ``pyabc_tpu.core.random_variables`` counterpart for the families the
 main path uses: ``RV("norm", loc, scale)`` and ``RV("uniform", loc,
 scale)`` in scipy's loc/scale convention. ``Distribution.rvs_array`` and
 ``logpdf_array`` are the batched twins of the JAX per-lane functions:
-one ``(B, dim)`` draw per call from an explicit ``torch.Generator``.
+one ``(B, dim)`` draw per call from an explicit ``torch.Generator`` (the
+CPU and the tests). On the run's path the K2 kernel draws and scores the
+prior itself, from the per-dimension arrays of ``Distribution.arrays``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from .parameters import ParameterSpace
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-#: families with a batched torch sampler and log-density
+#: families with a batched torch sampler and log-density; the index is
+#: the family code K2 reads (``Distribution.arrays``)
 FAMILIES = ("norm", "uniform")
 
 
@@ -96,6 +99,25 @@ class Distribution:
         parts = [rv.logpdf(theta[..., i])
                  for i, rv in enumerate(self.rv_map.values())]
         return sum(parts[1:], parts[0])
+
+    def arrays(self, device) -> dict:
+        """Per-dimension float32/int32 device arrays of the prior, built
+        once per run for the K2 kernel: ``kind`` (index in FAMILIES),
+        ``loc``, ``scale``, ``hi = loc + scale`` (the uniform's upper
+        edge) and ``log_scale``."""
+        rvs = list(self.rv_map.values())
+
+        def f32(vals):
+            return torch.tensor(vals, dtype=torch.float32, device=device)
+
+        return {
+            "kind": torch.tensor([FAMILIES.index(rv.name) for rv in rvs],
+                                 dtype=torch.int32, device=device),
+            "loc": f32([rv.loc for rv in rvs]),
+            "scale": f32([rv.scale for rv in rvs]),
+            "hi": f32([rv.loc + rv.scale for rv in rvs]),
+            "log_scale": f32([math.log(rv.scale) for rv in rvs]),
+        }
 
     def __repr__(self) -> str:
         inner = ", ".join(f"{k}={v!r}" for k, v in self.rv_map.items())

@@ -1,0 +1,388 @@
+// K8 mvn_fit: the MultivariateNormalTransition refit of a generation step.
+//
+// Replaces: pyabc_tpu/transition/multivariatenormal.py::device_fit with
+// pyabc_tpu/transition/util.py::device_chol_guarded (the jitter ladder).
+//
+// On n rows thetas (n, d) (d = d_max, the first `dim` real) and weights (n,):
+//   w = weights / max(sum, 1e-38); mean = w @ thetas;
+//   cov[k][l] = sum_i (c_ik w_i) c_il with c = thetas - mean;
+//   smart_cov fill: a diagonal entry <= 0 becomes |mean_k| 1e-4 + 1e-8;
+//   ess = 1 / max(sum w^2, 1e-38); factor = Scott ess^(-1/(dim+4)) or
+//   Silverman (4/(dim+2))^(1/(dim+4)) ess^(-1/(dim+4)); cov *= (s f)^2;
+//   Cholesky with the jitter ladder: rung 0 is cov itself, then
+//   cov + (j tr) I for j = 1e-10, 1e-7, 1e-4 (tr = max(trace / d, 1e-30)):
+//   the first rung whose factor exists (every pivot > 0) and is finite.
+//   a factor that fails is NaN on and below the diagonal (jnp semantics);
+//   prec = L^-T L^-1 from the factor (the plain version inverts the
+//   covariance with inv_ex; both agree wherever a factor exists, and with
+//   no factor the kernel's precision is NaN);
+//   logdet = 2 sum_{k < dim} log max(L_kk, 1e-38); chol and prec masked to
+//   the real dims; the epilogue writes thetas * vmask, the centred rows,
+//   quad_i = c_i' P c_i and the ancestor CDF that K2 searches:
+//   cdf = cummax(where(w > 0, cumsum(w), 0)).
+//
+// Bound on an H100: bytes (n (d + 1) floats in, 2 n d + 3 n out, a few KB
+// at the main-path size), so at n_cap = 1024 the kernel is latency bound.
+// Design: one block (1024 threads; 256 for d > 4, whose accumulators need
+// the registers). The weighted moments are block reductions (the
+// covariance splits its d^2 entries and the rows across the threads),
+// thread 0 runs the d x d ladder Cholesky and the inverse in shared memory
+// (d <= 32, a few thousand flops at most), all threads write the rows; the
+// cdf is a chunked scan (each thread a contiguous run of rows, a block
+// scan of the run totals), then the same for the running max.
+#include "common.cuh"
+
+namespace {
+
+// threads of the one block: 1024 for the dim buckets up to 4, 256 above,
+// where each thread's d + 1 accumulators need more than 64 registers
+template <int D>
+struct FitThreads {
+  static constexpr int value = D <= 4 ? 1024 : 256;
+};
+__constant__ float kLadder[3] = {1e-10f, 1e-7f, 1e-4f};
+
+__device__ __forceinline__ float clamp_min_keep_nan(float x, float lo) {
+  return x < lo ? lo : x;  // NaN compares false and stays NaN
+}
+
+__device__ float block_sum(float v, float* s_warp) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  __syncthreads();
+  if (lane == 0) s_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = warp_sum(lane < nw ? s_warp[lane] : 0.f);
+    if (lane == 0) s_warp[0] = v;
+  }
+  __syncthreads();
+  return s_warp[0];
+}
+
+__device__ __forceinline__ float warp_scan_sum(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += up;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_scan_max(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v = fmaxf(v, up);
+  }
+  return v;
+}
+
+// Exclusive block scan (sum or max) of one value per thread.
+__device__ float block_exclusive_scan(float v, bool is_max, float* s_warp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const float incl = is_max ? warp_scan_max(v) : warp_scan_sum(v);
+  __syncthreads();
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const float t = lane < nw ? s_warp[lane] : 0.f;
+    const float ti = is_max ? warp_scan_max(t) : warp_scan_sum(t);
+    s_warp[lane] = ti;
+  }
+  __syncthreads();
+  const float ident = is_max ? 0.f : 0.f;  // cdf values are >= 0
+  const float before_warp = warp > 0 ? s_warp[warp - 1] : ident;
+  const float excl_in_warp = __shfl_up_sync(0xffffffffu, incl, 1);
+  const float in_warp = lane > 0 ? excl_in_warp : ident;
+  return is_max ? fmaxf(before_warp, in_warp) : before_warp + in_warp;
+}
+
+// Cholesky of the lower triangle of the d x d matrix A (row stride ld)
+// into L; false when a pivot is not positive (L is then NaN on and below
+// the diagonal, 0 above, as jnp.linalg.cholesky's failed factor) or L is
+// not finite.
+__device__ bool cholesky(const float* A, float* L, int d, int ld) {
+  for (int i = 0; i < d; ++i)
+    for (int j = 0; j < d; ++j) L[i * ld + j] = 0.f;
+  for (int j = 0; j < d; ++j) {
+    float s = A[j * ld + j];
+    for (int k = 0; k < j; ++k) s -= L[j * ld + k] * L[j * ld + k];
+    if (!(s > 0.f)) {
+      for (int i = 0; i < d; ++i)
+        for (int k = 0; k < d; ++k) L[i * ld + k] = k <= i ? NAN : 0.f;
+      return false;
+    }
+    const float ljj = sqrtf(s);
+    L[j * ld + j] = ljj;
+    for (int i = j + 1; i < d; ++i) {
+      float t = A[i * ld + j];
+      for (int k = 0; k < j; ++k) t -= L[i * ld + k] * L[j * ld + k];
+      L[i * ld + j] = t / ljj;
+    }
+  }
+  for (int i = 0; i < d; ++i)
+    for (int j = 0; j < d; ++j)
+      if (!isfinite(L[i * ld + j])) return false;
+  return true;
+}
+
+// The jitter ladder on cov (modified in place into the covariance used).
+// Returns the rung taken (0..3), or 4 when every rung failed (L NaN).
+__device__ int chol_guarded(float* cov, float* L, int d, int ld) {
+  if (cholesky(cov, L, d, ld)) return 0;
+  float tr = 0.f;
+  for (int k = 0; k < d; ++k) tr += cov[k * ld + k];
+  tr = clamp_min_keep_nan(tr / (float)d, 1e-30f);
+  float diag[32];
+  for (int k = 0; k < d; ++k) diag[k] = cov[k * ld + k];
+  for (int r = 0; r < 3; ++r) {
+    const float jit = kLadder[r] * tr;
+    for (int k = 0; k < d; ++k) cov[k * ld + k] = diag[k] + jit;
+    if (cholesky(cov, L, d, ld)) return r + 1;
+  }
+  return 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(FitThreads<D>::value)
+mvn_fit_kernel(const float* __restrict__ thetas,
+               const float* __restrict__ weights, int n, int d, int dim,
+               float scaling, int selector, float sel_const, float sel_exp,
+               float* __restrict__ th_out, float* __restrict__ w_out,
+               float* __restrict__ chol_out, float* __restrict__ prec_out,
+               float* __restrict__ center_out, float* __restrict__ thc_out,
+               float* __restrict__ quad_out, float* __restrict__ logdet_out,
+               float* __restrict__ cdf_out) {
+  constexpr int kThreads = FitThreads<D>::value;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float s_warp[kWarps * (D + 1)];
+  __shared__ float s_part[kThreads];
+  __shared__ float s_mean[D + 1];
+  __shared__ float s_cov[D * D];
+  __shared__ float s_L[D * D];
+  __shared__ float s_Linv[D * D];
+  __shared__ float s_prec[D * D];
+  __shared__ float s_vmask[D];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // 1. w = weights / max(sum, 1e-38)
+  float ws = 0.f;
+  for (int i = tid; i < n; i += kThreads) ws += weights[i];
+  ws = clamp_min_keep_nan(block_sum(ws, s_warp), 1e-38f);
+
+  // 2. mean = w @ thetas and sum w^2, one block reduction of d + 1 values
+  float acc[D + 1];
+#pragma unroll
+  for (int k = 0; k <= D; ++k) acc[k] = 0.f;
+  for (int i = tid; i < n; i += kThreads) {
+    const float w = weights[i] / ws;
+    w_out[i] = w;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      if (k < d) acc[k] += w * thetas[(size_t)i * d + k];
+    acc[D] += w * w;
+  }
+  __syncthreads();  // every thread has read block_sum's s_warp[0]
+#pragma unroll
+  for (int k = 0; k <= D; ++k) {
+    const float v = warp_sum(acc[k]);
+    if (lane == 0) s_warp[warp * (D + 1) + k] = v;
+  }
+  __syncthreads();
+  if (tid <= D) {
+    float s = 0.f;
+    for (int wi = 0; wi < kWarps; ++wi) s += s_warp[wi * (D + 1) + tid];
+    s_mean[tid] = s;
+  }
+  if (tid < D) s_vmask[tid] = tid < dim ? 1.f : 0.f;
+  __syncthreads();
+
+  // 3. cov: entry p = k D + l over the rows g, g + G, ... (G row groups
+  // when the threads outnumber the entries, else each thread its entries
+  // over all rows)
+  constexpr int P = D * D;
+  constexpr int G = kThreads >= P ? kThreads / P : 1;
+  for (int t = tid; t < (G > 1 ? kThreads : P); t += kThreads) {
+    const int p = t % P, g = t / P;
+    const int k = p / D, l = p % D;
+    float c = 0.f;
+    if (g < G && k < d && l < d) {
+      const float mk = s_mean[k], ml = s_mean[l];
+      for (int i = g; i < n; i += G) {
+        const float w = w_out[i];
+        const float ck = thetas[(size_t)i * d + k] - mk;
+        const float cl = thetas[(size_t)i * d + l] - ml;
+        c += (ck * w) * cl;
+      }
+    }
+    if (G > 1)
+      s_part[t] = c;
+    else
+      s_cov[p] = c;
+  }
+  __syncthreads();
+  if (G > 1 && tid < P) {
+    float s = 0.f;
+    for (int g = 0; g < G; ++g) s += s_part[g * P + tid];
+    s_cov[tid] = s;
+  }
+  __syncthreads();
+
+  // 4. fill, bandwidth, ladder, inverse, logdet (thread 0, d x d)
+  if (tid == 0) {
+    float* cov = s_cov;  // row stride D throughout
+    for (int k = 0; k < d; ++k) {
+      const float c = cov[k * D + k];
+      const float fill = fabsf(s_mean[k]) * 1e-4f + 1e-8f;
+      if (c <= 0.f) cov[k * D + k] = c + (fill - c);
+    }
+    const float ess = 1.f / clamp_min_keep_nan(s_mean[D], 1e-38f);
+    float factor = powf(ess, sel_exp);
+    if (selector == 1) factor = sel_const * factor;
+    const float sf = scaling * factor;
+    const float sf2 = sf * sf;
+    for (int k = 0; k < d; ++k)
+      for (int l = 0; l < d; ++l) cov[k * D + l] = cov[k * D + l] * sf2;
+    chol_guarded(cov, s_L, d, D);
+    // L^-1 by forward substitution, then P = L^-T L^-1
+    float* Linv = s_Linv;
+    for (int c = 0; c < d; ++c) {
+      for (int i = 0; i < c; ++i) Linv[i * D + c] = 0.f;
+      Linv[c * D + c] = 1.f / s_L[c * D + c];
+      for (int i = c + 1; i < d; ++i) {
+        float t = 0.f;
+        for (int k = c; k < i; ++k) t += s_L[i * D + k] * Linv[k * D + c];
+        Linv[i * D + c] = -t / s_L[i * D + i];
+      }
+    }
+    float ld = 0.f;
+    for (int k = 0; k < d; ++k)
+      ld += s_vmask[k] * logf(clamp_min_keep_nan(s_L[k * D + k], 1e-38f));
+    logdet_out[0] = 2.f * ld;
+    for (int i = 0; i < d; ++i)
+      for (int j = 0; j < d; ++j) {
+        float p = 0.f;
+        for (int k = (i > j ? i : j); k < d; ++k)
+          p += Linv[k * D + i] * Linv[k * D + j];
+        const float outer = s_vmask[i] * s_vmask[j];
+        s_prec[i * D + j] = p * outer;
+        prec_out[i * d + j] = p * outer;
+        chol_out[i * d + j] = s_L[i * D + j] * outer;
+      }
+    for (int k = 0; k < d; ++k) center_out[k] = s_mean[k] * s_vmask[k];
+  }
+  __syncthreads();
+
+  // 5. rows: thetas * vmask, centred rows, quad
+  for (int i = tid; i < n; i += kThreads) {
+    float c[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (k >= d) break;
+      const float th = thetas[(size_t)i * d + k] * s_vmask[k];
+      th_out[(size_t)i * d + k] = th;
+      c[k] = th - s_mean[k] * s_vmask[k];
+      thc_out[(size_t)i * d + k] = c[k];
+    }
+    float q = 0.f;
+#pragma unroll
+    for (int l = 0; l < D; ++l) {
+      if (l >= d) break;
+      float pc = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        if (k < d) pc += c[k] * s_prec[k * D + l];
+      q += pc * c[l];
+    }
+    quad_out[i] = q;
+  }
+
+  // 6. cdf: each thread a contiguous run of rows, sums then running max
+  const int chunk = (n + kThreads - 1) / kThreads;
+  const int a = min(n, tid * chunk), b = min(n, a + chunk);
+  float run_sum = 0.f;
+  for (int i = a; i < b; ++i) run_sum += w_out[i];
+  float run = block_exclusive_scan(run_sum, false, s_warp);
+  float local_max = 0.f;
+  for (int i = a; i < b; ++i) {
+    const float w = w_out[i];
+    run += w;
+    const float v = w > 0.f ? run : 0.f;
+    local_max = fmaxf(local_max, v);
+    cdf_out[i] = v;
+  }
+  float cur = block_exclusive_scan(local_max, true, s_warp);
+  for (int i = a; i < b; ++i) {
+    cur = fmaxf(cur, cdf_out[i]);
+    cdf_out[i] = cur;
+  }
+}
+
+template <int D>
+void launch(const float* thetas, const float* weights, int n, int d, int dim,
+            float scaling, int selector, float sel_const, float sel_exp,
+            float* th, float* w, float* chol, float* prec, float* center,
+            float* thc, float* quad, float* logdet, float* cdf,
+            cudaStream_t stream) {
+  mvn_fit_kernel<D><<<1, FitThreads<D>::value, 0, stream>>>(
+      thetas, weights, n, d, dim, scaling, selector, sel_const, sel_exp, th,
+      w, chol, prec, center, thc, quad, logdet, cdf);
+}
+
+__global__ void chol_guarded_kernel(const float* cov, int d, float* chol,
+                                    float* cov_used, int* rung) {
+  __shared__ float A[32 * 32], L[32 * 32];
+  for (int i = 0; i < d * d; ++i) A[i] = cov[i];
+  rung[0] = chol_guarded(A, L, d, d);
+  for (int i = 0; i < d * d; ++i) {
+    chol[i] = L[i];
+    cov_used[i] = A[i];
+  }
+}
+
+}  // namespace
+
+extern "C" int pyabc_mvn_fit(const float* thetas, const float* weights, int n,
+                             int d, int dim, float scaling, int selector,
+                             float sel_const, float sel_exp, float* th,
+                             float* w, float* chol, float* prec,
+                             float* center, float* thc, float* quad,
+                             float* logdet, float* cdf, void* stream_ptr) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+#define PYABC_FIT(DB)                                                       \
+  launch<DB>(thetas, weights, n, d, dim, scaling, selector, sel_const,      \
+             sel_exp, th, w, chol, prec, center, thc, quad, logdet, cdf,   \
+             stream)
+  if (d <= 1)
+    PYABC_FIT(1);
+  else if (d <= 2)
+    PYABC_FIT(2);
+  else if (d <= 4)
+    PYABC_FIT(4);
+  else if (d <= 8)
+    PYABC_FIT(8);
+  else if (d <= 16)
+    PYABC_FIT(16);
+  else if (d <= 32)
+    PYABC_FIT(32);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef PYABC_FIT
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Card check of the ladder alone, on a given d x d matrix.
+extern "C" int pyabc_chol_guarded(const float* cov, int d, float* chol,
+                                  float* cov_used, int* rung,
+                                  void* stream_ptr) {
+  if (d <= 0 || d > 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  chol_guarded_kernel<<<1, 1, 0, stream>>>(cov, d, chol, cov_used, rung);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -3,9 +3,9 @@
 
 d(x, x0) = (sum_i (w_i |x_i - x0_i|)^p)^(1/p); p = inf gives the max. The
 round's distance, accept test and log-weight run in the K5 kernel
-(``kernels/pnorm_accept.py``); the adaptive refit (1/scale weights over the
-record ring, then the accepted distances under the new weights) is plain
-PyTorch on the device.
+(``kernels/pnorm_accept.py``); the adaptive refit (the scale over the
+record ring, 1/scale weights, then the reservoir's distances under the new
+weights) is the K9 kernel (``kernels/scale_reduce.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..kernels.pnorm_accept import pnorm_rows
+from ..kernels.scale_reduce import scale_reduce
 from .scale import device_scale_fn, median_absolute_deviation
 
 
@@ -98,8 +99,7 @@ class AdaptivePNormDistance(PNormDistance):
         if scale_log_file is not None:
             raise NotImplementedError(
                 "scale_log_file is not ported yet (ROADMAP queue A, item 17)")
-        self._device_scale = device_scale_fn(scale_function)
-        if self._device_scale is None:
+        if device_scale_fn(scale_function) is None:
             raise NotImplementedError(
                 f"scale function {scale_function!r} has no device twin; "
                 f"custom scale functions need the host samplers (ROADMAP "
@@ -112,25 +112,25 @@ class AdaptivePNormDistance(PNormDistance):
     def requires_calibration(self) -> bool:
         return True
 
+    def _reduce(self, samples, valid, x0, rows=None):
+        return scale_reduce(samples, valid, x0,
+                            scale_name=self.scale_function.__name__,
+                            max_weight_ratio=self.max_weight_ratio,
+                            normalize_weights=self.normalize_weights,
+                            rows=rows, p=self.p)
+
     def scale(self, samples: torch.Tensor, valid: torch.Tensor,
               x0: torch.Tensor) -> torch.Tensor:
         """Device (S,) scale over the rows of ``samples`` with ``valid``."""
-        return self._device_scale(samples, valid, x0)
+        return self._reduce(samples, valid, x0)[0]
 
-    def weights_from_scale(self, scale: torch.Tensor) -> torch.Tensor:
-        """1/scale, optional ratio clip, mean-1 normalization (device)."""
-        pos = scale > 0
-        w = torch.where(pos, 1.0 / torch.where(pos, scale,
-                                               torch.ones_like(scale)),
-                        torch.zeros_like(scale))
-        if self.max_weight_ratio is not None:
-            wmin = torch.where(w > 0, w, torch.full_like(w, torch.inf)).min()
-            w = torch.minimum(w, wmin * self.max_weight_ratio)
-        if self.normalize_weights:
-            s = w.sum()
-            w = torch.where(s > 0, w * (w.numel() / torch.where(
-                s > 0, s, torch.ones_like(s))), w)
-        return w
+    def refit(self, samples: torch.Tensor, valid: torch.Tensor,
+              x0: torch.Tensor, rows: torch.Tensor):
+        """The generation step's refit in one K9 call: the scale over
+        ``samples`` under ``valid``, the new weights, and the distances of
+        ``rows`` under them -> (weights, distances)."""
+        _scale, w, d = self._reduce(samples, valid, x0, rows)
+        return w, d
 
     def get_config(self) -> dict:
         return {"name": type(self).__name__, "p": self.p,

@@ -4,13 +4,16 @@
 The numpy functions are the user-facing names (``AdaptivePNormDistance(
 scale_function=standard_deviation)``); each has a device twin that reduces
 the UNMASKED record ring ``samples (n, S)`` under ``valid (n,)`` against
-``x_0 (S,)`` to an ``(S,)`` scale vector, all on the device (part of K9 in
-ROADMAP queue B, plain PyTorch).
+``x_0 (S,)`` to an ``(S,)`` scale vector, all on the device: the K9
+wrapper (``kernels/scale_reduce.py``).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
-import torch
+
+from ..kernels.scale_reduce import SCALE_NAMES, scale_reduce
 
 
 def median_absolute_deviation(samples, x_0=None):
@@ -86,100 +89,13 @@ SCALE_FUNCTIONS = {
 
 
 # ------------------------------------------------------------ device twins
-def _masked(samples, valid):
-    return torch.where(valid[:, None], samples,
-                       torch.full_like(samples, torch.nan))
+def _device_scale(name: str, samples, valid, x_0):
+    return scale_reduce(samples, valid, x_0, scale_name=name,
+                        normalize_weights=False)[0]
 
 
-def _nanmedian(x):
-    return torch.nanquantile(x, 0.5, dim=0)
-
-
-def _count(valid):
-    return valid.sum().clamp_min(1).to(torch.float32)
-
-
-def _mean(samples, valid):
-    return torch.where(valid[:, None], samples,
-                       torch.zeros_like(samples)).sum(0) / _count(valid)
-
-
-def _std(samples, valid):
-    mu = _mean(samples, valid)
-    sq = torch.where(valid[:, None], (samples - mu) ** 2,
-                     torch.zeros_like(samples))
-    return torch.sqrt(sq.sum(0) / _count(valid))
-
-
-def _mad(samples, valid, x_0):
-    m = _masked(samples, valid)
-    return _nanmedian((m - _nanmedian(m)).abs())
-
-
-def _mean_ad(samples, valid, x_0):
-    mu = _mean(samples, valid)
-    return torch.where(valid[:, None], (samples - mu).abs(),
-                       torch.zeros_like(samples)).sum(0) / _count(valid)
-
-
-def _span(samples, valid, x_0):
-    big = torch.where(valid[:, None], samples,
-                      torch.full_like(samples, -torch.inf)).max(0).values
-    small = torch.where(valid[:, None], samples,
-                        torch.full_like(samples, torch.inf)).min(0).values
-    return big - small
-
-
-def _bias(samples, valid, x_0):
-    return (_mean(samples, valid) - x_0).abs()
-
-
-def _rmsd(samples, valid, x_0):
-    b = _bias(samples, valid, x_0)
-    s = _std(samples, valid)
-    return torch.sqrt(b * b + s * s)
-
-
-def _mad_to_obs(samples, valid, x_0):
-    return _nanmedian((_masked(samples, valid) - x_0).abs())
-
-
-def _mean_ad_to_obs(samples, valid, x_0):
-    return torch.where(valid[:, None], (samples - x_0).abs(),
-                       torch.zeros_like(samples)).sum(0) / _count(valid)
-
-
-def _combined_mad(samples, valid, x_0):
-    return _mad(samples, valid, x_0) + (
-        _nanmedian(_masked(samples, valid)) - x_0).abs()
-
-
-def _combined_mean_ad(samples, valid, x_0):
-    return _mean_ad(samples, valid, x_0) + (
-        _mean(samples, valid) - x_0).abs()
-
-
-def _std_to_obs(samples, valid, x_0):
-    sq = torch.where(valid[:, None], (samples - x_0) ** 2,
-                     torch.zeros_like(samples))
-    return torch.sqrt(sq.sum(0) / _count(valid))
-
-
-DEVICE_SCALES = {
-    "median_absolute_deviation": _mad,
-    "mean_absolute_deviation": _mean_ad,
-    "standard_deviation": lambda s, v, x0: _std(s, v),
-    "span": _span,
-    "mean": lambda s, v, x0: _mean(s, v),
-    "median": lambda s, v, x0: _nanmedian(_masked(s, v)),
-    "bias": _bias,
-    "root_mean_square_deviation": _rmsd,
-    "median_absolute_deviation_to_observation": _mad_to_obs,
-    "mean_absolute_deviation_to_observation": _mean_ad_to_obs,
-    "combined_median_absolute_deviation": _combined_mad,
-    "combined_mean_absolute_deviation": _combined_mean_ad,
-    "standard_deviation_to_observation": _std_to_obs,
-}
+#: device twin of each built-in scale function: the K9 wrapper
+DEVICE_SCALES = {name: partial(_device_scale, name) for name in SCALE_NAMES}
 
 
 def device_scale_fn(scale_function):

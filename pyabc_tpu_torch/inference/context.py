@@ -2,16 +2,22 @@
 (``pyabc_tpu/inference/util.py::DeviceContext`` counterpart, main branch).
 
 One generation is a host loop of proposal rounds. Each round runs on the
-device: the proposal (prior draw, or weighted ancestor + MVN perturbation
-with ``N_REDRAWS`` redraws against zero prior mass), the proposal density
-(K3), the simulator (K4 for Lotka-Volterra), distance / accept /
+device: the proposal (K2 with its own Philox numbers, K1: prior draw, or
+weighted ancestor + MVN perturbation with ``N_REDRAWS`` redraws against
+zero prior mass), the proposal density (K3), the simulator (K4 for
+Lotka-Volterra, its noise drawn from Philox too), distance / accept /
 log-weight (K5) and the compaction into the slot-ordered reservoir and
 the record ring (K6). The host then reads the round counters once; that
 read is the round's only sync. After the last round the generation step
-(weight normalization, adaptive reweighting, quantile epsilon, MVN refit,
-health word) runs on the device with no host read at all: epsilon,
-distance weights and transition parameters stay device tensors from one
-generation to the next.
+(weight normalization and the quantile epsilon K7, the adaptive refit K9,
+the MVN refit K8, the health word K11) runs on the device with no host read
+at all: epsilon, distance weights and transition parameters stay device
+tensors from one generation to the next.
+
+Every draw of a round sits at a fixed place of the run's Philox stream:
+key = the seed, counter = (lane, block, generation, tag * max_rounds +
+round), the round read on the device from the counters. Calibration runs
+as generation -1 (2^32 - 1), so its draws never meet generation 0's.
 """
 from __future__ import annotations
 
@@ -20,14 +26,19 @@ from dataclasses import dataclass
 
 import torch
 
+from ..kernels import philox
 from ..kernels.compact import compact_round
+from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
+from ..kernels.propose import N_REDRAWS, propose
 from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
 from ..ops.stats import normalize_log_weights, weighted_quantile
 
 #: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps
 N_ACC, ROUNDS, N_VALID, EPS_AT_MIN = range(4)
+#: the generation index of the calibration rounds' draws
+CALIBRATION_GENERATION = 2 ** 32 - 1
 
 
 @dataclass
@@ -57,13 +68,13 @@ class GenerationRun:
 
 
 class DeviceContext:
-    N_REDRAWS = 4
+    N_REDRAWS = N_REDRAWS
 
     def __init__(self, *, model, prior, distance, acceptor, transition,
                  spec, x0: torch.Tensor, device: torch.device,
                  generator: torch.Generator, B: int, n_cap: int,
                  rec_cap: int, max_rounds: int,
-                 sync_ledger: SyncLedger | None = None):
+                 sync_ledger: SyncLedger | None = None, seed: int = 0):
         self.model = model
         self.prior = prior
         self.distance = distance
@@ -72,7 +83,12 @@ class DeviceContext:
         self.spec = spec
         self.x0 = x0
         self.device = device
+        #: draws of user simulators (built-in models draw from Philox)
         self.generator = generator
+        self.seed = int(seed)
+        self.prior_arrays = prior.arrays(device)
+        #: round counters of the generation in progress (generation_while)
+        self.counters = torch.zeros(4, dtype=torch.int32, device=device)
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
         self.max_rounds = int(max_rounds)
         self.d = prior.dim
@@ -111,42 +127,40 @@ class DeviceContext:
         }
 
     # -------------------------------------------------------------- lanes
-    def _simulate(self, theta: torch.Tensor) -> torch.Tensor:
-        return self.model.simulate_flat(theta, self.generator, self.spec)
+    def stream(self, t: int, tag: int) -> PhiloxStream:
+        """The Philox stream ``tag`` of generation ``t`` for the rounds of
+        the generation in progress."""
+        return PhiloxStream(self.seed, t, tag, self.max_rounds,
+                            self.counters)
+
+    def _simulate(self, theta: torch.Tensor, t: int) -> torch.Tensor:
+        return self.model.simulate_flat(
+            theta, self.generator, self.spec,
+            stream=self.stream(t, philox.SIM_NOISE))
 
     def lanes_prior(self, eps: torch.Tensor, dist_w: torch.Tensor,
-                    hist_min: torch.Tensor | None = None) -> dict:
+                    hist_min: torch.Tensor | None = None, *, t: int = 0,
+                    tag: int = philox.PRIOR) -> dict:
         """One round proposed from the prior (generation 0, calibration)."""
-        theta = self.prior.rvs_array(self.B, self.generator, self.device)
-        ss = self._simulate(theta)
-        valid = torch.ones(self.B, dtype=torch.bool, device=self.device)
+        theta, _logpri, valid = propose(self.stream(t, tag), self.B,
+                                        self.prior_arrays)
+        ss = self._simulate(theta, t)
         d, accept, logw = pnorm_accept_weight(
             ss, self.x0, dist_w, eps, valid, p=self.distance.p,
             hist_min=hist_min)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw}
 
-    def propose(self, params: dict):
-        """Transition proposal with redraws against zero prior mass ->
-        (theta, log prior, valid)."""
-        draws = [self.transition.device_rvs(params, self.B, self.generator)
-                 for _ in range(self.N_REDRAWS)]
-        theta = draws[0]
-        logpri = self.prior.logpdf_array(theta)
-        for redraw in draws[1:]:
-            re_logpri = self.prior.logpdf_array(redraw)
-            take = ~torch.isfinite(logpri)
-            theta = torch.where(take[:, None], redraw, theta)
-            logpri = torch.where(take, re_logpri, logpri)
-        return theta.contiguous(), logpri.contiguous(), torch.isfinite(logpri)
-
     def lanes_transition(self, params: dict, eps: torch.Tensor,
                          dist_w: torch.Tensor,
-                         hist_min: torch.Tensor | None = None) -> dict:
-        """One round proposed from the fitted transition (t > 0)."""
-        theta, logpri, valid = self.propose(params)
+                         hist_min: torch.Tensor | None = None, *,
+                         t: int) -> dict:
+        """One round proposed from the fitted transition (t > 0), with
+        redraws against zero prior mass (K2)."""
+        theta, logpri, valid = propose(self.stream(t, philox.TRANSITION),
+                                       self.B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
-        ss = self._simulate(theta)
+        ss = self._simulate(theta, t)
         # K = 1: log model prior = log model factor = 0
         d, accept, logw = pnorm_accept_weight(
             ss, self.x0, dist_w, eps, valid, p=self.distance.p,
@@ -164,6 +178,7 @@ class DeviceContext:
         res = self.new_reservoir()
         rec = self.new_ring() if ring else None
         counters = torch.zeros(4, dtype=torch.int32, device=self.device)
+        self.counters = counters
         if eps_at_min is not None:
             counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
         while True:
@@ -193,15 +208,16 @@ class DeviceContext:
         Returns (w0, eps0 or None, the GenerationRun)."""
         inf = torch.tensor(math.inf, dtype=torch.float32, device=self.device)
         run = self.generation_while(
-            lambda: self.lanes_prior(inf, dist_w0), n_cal, ring=False)
+            lambda: self.lanes_prior(inf, dist_w0, t=CALIBRATION_GENERATION,
+                                     tag=philox.CALIBRATION),
+            n_cal, ring=False)
         mask = self.k_mask(run.counters, n_cal)
-        w0 = dist_w0
+        ss = run.res["sumstats"]
+        w0, d0 = dist_w0, run.res["distance"]  # K5's distances under w0
         if calib_w:
-            w0 = self.distance.weights_from_scale(
-                self.distance.scale(run.res["sumstats"], mask, self.x0))
+            w0, d0 = self.distance.refit(ss, mask, self.x0, ss)
         eps0 = None
         if calib_eps:
-            d0 = self.distance.rows(run.res["sumstats"], self.x0, w0)
             eps0 = weighted_quantile(
                 torch.where(mask, d0, torch.full_like(d0, math.inf)),
                 mask.to(torch.float32), alpha) * multiplier
@@ -219,10 +235,9 @@ class DeviceContext:
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
         eps_g = carry.eps
         if adaptive:
-            scale = self.distance.scale(run.rec["sumstats"],
-                                        run.rec["valid"], self.x0)
-            dist_w_next = self.distance.weights_from_scale(scale)
-            d_new = self.distance.rows(res["sumstats"], self.x0, dist_w_next)
+            dist_w_next, d_new = self.distance.refit(
+                run.rec["sumstats"], run.rec["valid"], self.x0,
+                res["sumstats"])
         else:
             dist_w_next = carry.dist_w
             d_new = res["distance"]

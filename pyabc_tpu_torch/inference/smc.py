@@ -4,9 +4,9 @@
 ``ABCSMC(model, prior, distance, ...).new(db, observed)`` then ``.run()``.
 Generations are grouped into chunks of ``fused_generations``: within a
 chunk the host reads only the per-round counters; the accepted rows of the
-chunk come back in one packed fetch, after which the chunk's generations
-are persisted to History. The device carries epsilon, distance weights
-and transition parameters between generations and chunks.
+chunk come back in one packed fetch (K10), after which the chunk's
+generations are persisted to History. The device carries epsilon, distance
+weights and transition parameters between generations and chunks.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
 from ..ops.health import decode
-from ..ops.pack import fetch_dtype_of, pack_rows, unpack_rows
+from ..ops.pack import (fetch_dtype_of, pack_rows, pack_sumstats,
+                        unpack_rows)
 from ..populationstrategy import ConstantPopulationSize
 from ..storage.history import History
 from ..transition.multivariatenormal import MultivariateNormalTransition
@@ -172,6 +173,8 @@ class ABCSMC:
         self.eps_stall_rtol = float(eps_stall_rtol)
         self.seed = int(seed)
         self.device = resolve_device(device)
+        # the seed keys the kernels' Philox stream (proposals, built-in
+        # simulators' noise); a user simulator draws from this generator
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self.sync_ledger = SyncLedger()
@@ -256,7 +259,8 @@ class ABCSMC:
             acceptor=self.acceptor, transition=self.transition,
             spec=self.spec, x0=x0, device=self.device,
             generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
-            max_rounds=max_rounds, sync_ledger=self.sync_ledger)
+            max_rounds=max_rounds, sync_ledger=self.sync_ledger,
+            seed=self.seed)
 
     def _health_config(self):
         if not self.health_checks:
@@ -343,11 +347,11 @@ class ABCSMC:
                 at_min = carry.eps <= min_eps
                 if tg == 0:
                     def lanes(c=carry, h=hist):
-                        return ctx.lanes_prior(c.eps, c.dist_w, h)
+                        return ctx.lanes_prior(c.eps, c.dist_w, h, t=0)
                 else:
-                    def lanes(c=carry, h=hist):
+                    def lanes(c=carry, h=hist, tg=tg):
                         return ctx.lanes_transition(c.trans_params, c.eps,
-                                                    c.dist_w, h)
+                                                    c.dist_w, h, t=tg)
                 run = ctx.generation_while(lanes, n, eps_at_min=at_min)
                 gen_ok = run.n_acc >= min(n, ctx.n_cap)
                 if not gen_ok:
@@ -389,18 +393,21 @@ class ABCSMC:
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib) -> dict:
         """Pack the chunk's generations and read them in one sync."""
-        stack = lambda k: torch.stack([o[k] for o in outs])  # noqa: E731
+        each = lambda k: [o[k] for o in outs]  # noqa: E731
+        stack = lambda k: torch.stack(each(k))  # noqa: E731
         tree = {
-            "rows": pack_rows(stack("theta"), stack("distance"),
-                              stack("log_weight"), n_keep=n, dtype=dtype),
+            # K10 reads each generation's reservoir in place
+            "rows": pack_rows(each("theta"), each("distance"),
+                              each("log_weight"), n_keep=n, dtype=dtype),
             "eps_used": stack("eps_used"),
             "eps_next": stack("eps_next"),
         }
         ss_gens = [g for g in range(len(outs))
                    if self.history.wants_sum_stats(t0 + g)]
         if ss_gens:
-            tree["sumstats"] = torch.stack(
-                [outs[g]["sumstats"][:n] for g in ss_gens]).to(dtype)
+            tree["sumstats"] = pack_sumstats(
+                [outs[g]["sumstats"] for g in ss_gens], n_keep=n,
+                dtype=dtype)
         if adaptive:
             tree["dist_w_next"] = stack("dist_w_next")
         if "health" in outs[0]:

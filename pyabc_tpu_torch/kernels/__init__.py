@@ -5,13 +5,22 @@ its CUDA kernel (``pyabc_tpu_torch/csrc``) on CUDA tensors. Importing this
 package builds nothing: the kernels are compiled at first launch.
 """
 from .compact import compact_round, compact_round_plain
+from .generation_health import generation_health, generation_health_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
+from .mvn_fit import mvn_fit, mvn_fit_plain
 from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
+from .normalize_quantile import (normalize_log_weights_plain,
+                                 normalize_quantile, weighted_quantile_plain)
+from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
+from .propose import propose, propose_plain
+from .scale_reduce import scale_reduce, scale_reduce_plain
 
-#: every kernel wrapper, in the order of ROADMAP queue B (K3-K6)
-KERNELS = (mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
-           compact_round)
+#: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
+#: K3-K11)
+KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
+           compact_round, normalize_quantile, mvn_fit, scale_reduce,
+           pack_fetch, generation_health)
 
 
 def reset_launch_counts() -> None:
@@ -24,8 +33,12 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNELS", "compact_round", "compact_round_plain", "launch_counts",
-    "lv_simulate", "lv_simulate_plain", "mvn_mixture_logpdf",
-    "mvn_mixture_logpdf_plain", "pnorm_accept_weight",
-    "pnorm_accept_weight_plain", "reset_launch_counts",
+    "KERNELS", "cast_rows_plain", "compact_round", "compact_round_plain",
+    "generation_health", "generation_health_plain", "launch_counts",
+    "lv_simulate", "lv_simulate_plain", "mvn_fit", "mvn_fit_plain",
+    "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain",
+    "normalize_log_weights_plain", "normalize_quantile", "pack_fetch",
+    "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
+    "propose", "propose_plain", "reset_launch_counts", "scale_reduce",
+    "scale_reduce_plain", "weighted_quantile_plain",
 ]

@@ -30,22 +30,43 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "pyabc_mvn_mixture_logpdf": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _F, _P, _P],
     "pyabc_lv_simulate": [
-        _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P],
+        _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _P, _P,
+        _P],
     "pyabc_pnorm_accept_weight": [
         _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P],
     "pyabc_compact_round": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _I, _P, _P, _P, _P, _P, _P],
+    "pyabc_propose": [
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _P,
+        _I, _P, _P, _P, _P],
+    "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
+    "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
+    "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],
+    "pyabc_mvn_fit": [
+        _P, _P, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P],
+    "pyabc_chol_guarded": [_P, _I, _P, _P, _P, _P],
+    "pyabc_scale_reduce": [
+        _P, _I, _I, _P, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+    "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _P],
+    "pyabc_generation_health": [
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P,
+        _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+#: the error of a failed build, raised again instead of building anew
+_build_error: RuntimeError | None = None
 #: seconds the last build took (0.0 when a cached library was loaded)
 build_seconds = 0.0
 
@@ -108,15 +129,21 @@ def _build(out: Path) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
-    global _lib, build_seconds
+    global _lib, _build_error, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
+        if _build_error is not None:
+            raise _build_error
         out = BUILD_DIR / f"libpyabc_tpu_torch_{_digest()}.so"
         t0 = time.perf_counter()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build(out)
+            try:
+                _build(out)
+            except RuntimeError as exc:
+                _build_error = exc
+                raise
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():

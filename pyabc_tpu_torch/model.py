@@ -4,7 +4,8 @@ A ``TorchModel`` wraps a batched simulator
 ``sim(theta (B, dim), generator) -> {name: (B, *shape) tensor}``; the
 generation loop flattens its output in SumStatSpec's sorted key order.
 Built-in models may override :meth:`simulate_flat` to produce the flat
-``(B, S)`` rows directly from a kernel.
+``(B, S)`` rows directly from a kernel, drawing their noise from the
+round's Philox stream (``stream``) instead of the generator.
 """
 from __future__ import annotations
 
@@ -26,8 +27,10 @@ class TorchModel:
         self.name = name
 
     def simulate_flat(self, theta: torch.Tensor, generator: torch.Generator,
-                      spec: SumStatSpec) -> torch.Tensor:
-        """``(B, dim)`` parameters -> ``(B, S)`` flat sum stats."""
+                      spec: SumStatSpec, stream=None) -> torch.Tensor:
+        """``(B, dim)`` parameters -> ``(B, S)`` flat sum stats. A user
+        simulator draws from ``generator``; ``stream`` (the round's
+        ``PhiloxStream`` for the simulator noise) is for built-in models."""
         out = self.sim(theta, generator)
         missing = set(spec.names) - set(out)
         if missing:

@@ -3,7 +3,8 @@
 
 theta = (alpha, beta, gamma, delta); the simulator integrates with RK4
 and returns noisy trajectories {"prey": (n_obs,), "pred": (n_obs,)}. A
-proposal round goes through the K4 kernel (``kernels/lv_simulate.py``).
+proposal round goes through the K4 kernel (``kernels/lv_simulate.py``),
+which draws the observation noise from the round's Philox stream.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from ..core.random_variables import RV, Distribution
 from ..core.sumstat_spec import SumStatSpec
 from ..kernels.lv_simulate import lv_rhs, lv_simulate
+from ..kernels.philox import ROUND, SIM_NOISE, PhiloxStream
 from ..model import TorchModel
 from .ode import rk4_dt
 
@@ -39,30 +41,45 @@ class LotkaVolterraModel(TorchModel):
         super().__init__(self._sim_dict,
                          ["alpha", "beta", "gamma", "delta"], name=name)
 
-    def noise(self, B: int, generator: torch.Generator,
-              device: torch.device) -> torch.Tensor:
-        """``(B, 2, n_obs)`` standard normals, [:, 0] prey, [:, 1] pred."""
-        return torch.randn(B, 2, self.n_obs, generator=generator,
-                           device=device)
+    @staticmethod
+    def generator_stream(generator: torch.Generator,
+                         device: torch.device) -> PhiloxStream:
+        """A simulator-noise stream for a call outside the rounds: keyed by
+        the generator's seed, its round a number drawn from the generator
+        on the device (so nothing is read back and each call moves on)."""
+        counters = torch.zeros(4, dtype=torch.int32, device=device)
+        counters[ROUND] = torch.randint(
+            0, 2 ** 31 - 1, (), generator=generator, device=device,
+            dtype=torch.int32)
+        return PhiloxStream(generator.initial_seed(), 0, SIM_NOISE, 1,
+                            counters)
 
     def simulate_with_noise(self, theta: torch.Tensor,
-                            noise: torch.Tensor) -> torch.Tensor:
-        """``(B, 2 * n_obs)`` rows, ``pred | prey``, on the given noise."""
+                            noise: torch.Tensor | None,
+                            stream: PhiloxStream | None = None
+                            ) -> torch.Tensor:
+        """``(B, 2 * n_obs)`` rows, ``pred | prey``, on noise drawn from
+        ``stream`` or, on the CPU only, on the given ``noise``."""
         return lv_simulate(
             theta.contiguous(), noise, n_obs=self.n_obs,
             n_substeps=self.n_substeps, dt=self.dt, y0=Y0,
-            noise_sd=self.noise_sd, log_parameters=self.log_parameters)
+            noise_sd=self.noise_sd, log_parameters=self.log_parameters,
+            stream=stream)
 
-    def _sim_dict(self, theta, generator):
-        flat = self.simulate_with_noise(
-            theta, self.noise(theta.shape[0], generator, theta.device))
+    def _split(self, flat: torch.Tensor) -> dict:
         return {"pred": flat[:, : self.n_obs], "prey": flat[:, self.n_obs:]}
 
-    def simulate_flat(self, theta, generator, spec: SumStatSpec):
+    def _sim_dict(self, theta, generator):
+        return self._split(self.simulate_with_noise(
+            theta, None, self.generator_stream(generator, theta.device)))
+
+    def simulate_flat(self, theta, generator, spec: SumStatSpec,
+                      stream: PhiloxStream | None = None):
         if spec.names != ("pred", "prey") or spec.total_size != 2 * self.n_obs:
             return super().simulate_flat(theta, generator, spec)
-        return self.simulate_with_noise(
-            theta, self.noise(theta.shape[0], generator, theta.device))
+        if stream is None:
+            stream = self.generator_stream(generator, theta.device)
+        return self.simulate_with_noise(theta, None, stream)
 
 
 def make_lv_model(n_obs: int = 20, t1: float = 15.0, n_substeps: int = 10,

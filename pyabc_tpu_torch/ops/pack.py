@@ -1,16 +1,25 @@
-"""Fetch compaction (``pyabc_tpu/ops/pack.py`` counterpart, plain PyTorch;
-K10 in ROADMAP queue B).
+"""Fetch compaction (``pyabc_tpu/ops/pack.py`` counterpart; K10 in ROADMAP
+queue B).
 
 Before the once-per-chunk host read, theta, distance and log_weight of the
 accepted rows collapse into one narrowed-dtype ``(G, n_keep, d + 2)``
 buffer; sum stats ship in the same dtype only for the generations History
 stores. The distance rounds DOWN when narrowed, so the stored invariant
-``distance <= eps_used`` survives the cast.
+``distance <= eps_used`` survives the cast. Both go through the K10
+wrapper (``kernels/pack_fetch.py``): the CUDA kernel on CUDA tensors, the
+plain version on the CPU.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
+
+from ..kernels.pack_fetch import cast_monotone_down, pack_fetch
+
+__all__ = ["DTYPES", "cast_monotone_down", "fetch_dtype_of", "pack_rows",
+           "pack_sumstats", "unpack_rows"]
 
 DTYPES = {
     "float32": torch.float32,
@@ -27,27 +36,19 @@ def fetch_dtype_of(name: str) -> torch.dtype:
                          f"{sorted(DTYPES)}") from None
 
 
-def cast_monotone_down(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Narrowing cast whose result never exceeds ``x``."""
-    if dtype == torch.float32:
-        return x.to(dtype)
-    step = 2.0 ** -10 if dtype == torch.float16 else 2.0 ** -7
-    down = x * torch.where(x >= 0, 1.0 - step, 1.0 + step)
-    cast = x.to(dtype)
-    over = cast.to(x.dtype) > x
-    return torch.where(over, down.to(dtype), cast)
-
-
-def pack_rows(theta: torch.Tensor, distance: torch.Tensor,
-              log_weight: torch.Tensor, *, n_keep: int,
+def pack_rows(theta, distance, log_weight, *, n_keep: int,
               dtype: torch.dtype) -> torch.Tensor:
-    """``(G, n_cap, d)``, ``(G, n_cap)``, ``(G, n_cap)`` ->
-    ``(G, n_keep, d + 2)`` in ``dtype``."""
-    return torch.cat([
-        theta[:, :n_keep].to(dtype),
-        cast_monotone_down(distance[:, :n_keep, None], dtype),
-        log_weight[:, :n_keep, None].to(dtype),
-    ], dim=-1)
+    """G generations of ``(n_cap, d)``, ``(n_cap,)``, ``(n_cap,)`` (a
+    sequence of tensors or one stacked tensor each) -> ``(G, n_keep, d +
+    2)`` in ``dtype``."""
+    return pack_fetch.rows(list(theta), list(distance), list(log_weight),
+                           n_keep=n_keep, dtype=dtype)
+
+
+def pack_sumstats(rows: Sequence[torch.Tensor], *, n_keep: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """G generations of ``(n_cap, S)`` -> ``(G, n_keep, S)`` in ``dtype``."""
+    return pack_fetch.sumstats(list(rows), n_keep=n_keep, dtype=dtype)
 
 
 def unpack_rows(rows, d: int):

@@ -17,6 +17,7 @@ from pyabc_tpu.distance import scale as jscale  # noqa: E402
 from pyabc_tpu_torch import AdaptivePNormDistance  # noqa: E402
 from pyabc_tpu_torch.distance import scale as tscale  # noqa: E402
 from pyabc_tpu_torch.kernels import pnorm_accept_weight  # noqa: E402
+from pyabc_tpu_torch.kernels.scale_reduce import weight_update_plain  # noqa: E402,E501
 
 torch.set_num_threads(1)
 
@@ -116,7 +117,8 @@ def test_weight_update_matches_jax(max_ratio, normalize):
     ref = np.asarray(jd.device_weight_update()(jnp.asarray(scale)))
     td = AdaptivePNormDistance(p=2, max_weight_ratio=max_ratio,
                                normalize_weights=normalize)
-    got = td.weights_from_scale(torch.from_numpy(scale)).numpy()
+    got = weight_update_plain(torch.from_numpy(scale), td.max_weight_ratio,
+                              td.normalize_weights).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
@@ -130,10 +132,75 @@ def test_calibration_weights_match_host_fit():
     jd = jpt.AdaptivePNormDistance(p=2)
     jd.initialize(0, lambda: sample.astype(np.float64), obs)
     td = AdaptivePNormDistance(p=2)
-    got = td.weights_from_scale(td.scale(
+    got = weight_update_plain(td.scale(
         torch.from_numpy(sample), torch.ones(500, dtype=torch.bool),
-        torch.ones(S))).numpy()
+        torch.ones(S)), td.max_weight_ratio, td.normalize_weights).numpy()
     # float32 medians against float64 ones: rel 1e-5
     np.testing.assert_allclose(got, jd.weights[0], rtol=1e-5)
     with pytest.raises(NotImplementedError, match="item 16"):
         AdaptivePNormDistance(scale_function=lambda s, x0=None: s.std(0))
+
+
+def _edge_ring(case):
+    rng = np.random.default_rng(8)
+    n, s = 64, 4
+    samples = rng.normal(3, 2, size=(n, s)).astype(np.float32)
+    samples[:, 0] = np.round(samples[:, 0])  # ties at the median
+    valid = rng.random(n) > 0.3
+    if case == "nan_row":
+        samples[4, 1] = np.nan  # a blown-up lane in a valid row
+        valid[4] = True
+    elif case == "even":
+        valid[:] = False
+        valid[:20] = True
+    elif case == "odd":
+        valid[:] = False
+        valid[:21] = True
+    elif case == "one_valid":
+        valid[:] = False
+        valid[9] = True
+    elif case == "none_valid":
+        valid[:] = False
+    x0 = rng.normal(3, 1, size=s).astype(np.float32)
+    return samples, valid, x0
+
+
+@pytest.mark.parametrize("case", ["nan_row", "even", "odd", "one_valid",
+                                  "none_valid"])
+@pytest.mark.parametrize("name", sorted(jscale.SCALE_FUNCTIONS))
+def test_device_scale_edge_cases_match_jax(name, case):
+    samples, valid, x0 = _edge_ring(case)
+    ref = np.asarray(jscale._device_scale_impls()[name](
+        jnp.asarray(samples), jnp.asarray(valid), jnp.asarray(x0)))
+    got = tscale.DEVICE_SCALES[name](torch.from_numpy(samples),
+                                     torch.from_numpy(valid),
+                                     torch.from_numpy(x0)).numpy()
+    if "median" in name:
+        # nanquantile's linear method in the same float32 steps: equal,
+        # NaN left out (an empty column gives NaN)
+        np.testing.assert_array_equal(got, ref)
+    else:
+        # masked float32 sums in another order; NaN propagates: rel 1e-5
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("max_ratio", [None, 4.0])
+def test_refit_matches_jax_record_reduce_and_recompute(max_ratio):
+    """One K9 call (scale over the ring, weights, the reservoir's
+    distances under them) against the JAX package's record reduce, weight
+    update and p-norm on the same ring."""
+    samples, valid, x0 = _edge_ring("nan_row")
+    rows = np.random.default_rng(1).normal(3, 2, size=(32, 4)).astype(
+        np.float32)
+    spec = jpt.SumStatSpec({"s": np.zeros(4)})
+    jd = jpt.AdaptivePNormDistance(p=2, max_weight_ratio=max_ratio)
+    j_w = jd.device_weight_update()(jd.device_record_reduce(spec)(
+        jnp.asarray(samples), jnp.asarray(valid), jnp.asarray(x0)))
+    j_d = np.asarray(jax.vmap(jd.device_fn(spec), in_axes=(0, None, None))(
+        jnp.asarray(rows), jnp.asarray(x0), j_w))
+    td = AdaptivePNormDistance(p=2, max_weight_ratio=max_ratio)
+    w, d = td.refit(torch.from_numpy(samples), torch.from_numpy(valid),
+                    torch.from_numpy(x0), torch.from_numpy(rows))
+    np.testing.assert_allclose(w.numpy(), np.asarray(j_w), rtol=1e-6)
+    np.testing.assert_allclose(d.numpy(), j_d, rtol=1e-5)

@@ -1,7 +1,8 @@
-"""Card tests: each hand-written kernel (K3-K6) against its plain PyTorch
-version on the CUDA device, at small shapes and at the main-path shapes of
-BASELINE config 2. Marked ``gpu``; without a card every test skips (the
-decision is taken in a fixture, so every worker collects the same tests).
+"""Card tests: each hand-written kernel (K2 with K1, K3-K11) against its
+plain PyTorch version on the CUDA device, at small shapes and at the
+main-path shapes of BASELINE config 2. Marked ``gpu``; without a card
+every test skips (the decision is taken in a fixture, so every worker
+collects the same tests).
 
 Run on the card with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``
@@ -13,14 +14,28 @@ import numpy as np
 import pytest
 import torch
 
-from pyabc_tpu_torch.kernels import (compact_round, compact_round_plain,
-                                     lv_simulate, lv_simulate_plain,
-                                     mvn_mixture_logpdf,
+from pyabc_tpu_torch import RV, Distribution
+from pyabc_tpu_torch.kernels import (cast_rows_plain, compact_round,
+                                     compact_round_plain, generation_health,
+                                     generation_health_plain, lv_simulate,
+                                     lv_simulate_plain, mvn_fit,
+                                     mvn_fit_plain, mvn_mixture_logpdf,
                                      mvn_mixture_logpdf_plain,
+                                     normalize_log_weights_plain,
+                                     normalize_quantile, pack_fetch,
+                                     pack_rows_plain, philox,
                                      pnorm_accept_weight,
-                                     pnorm_accept_weight_plain)
+                                     pnorm_accept_weight_plain, propose,
+                                     propose_plain, scale_reduce,
+                                     scale_reduce_plain,
+                                     weighted_quantile_plain)
+from pyabc_tpu_torch.kernels.mvn_fit import (chol_guarded_cuda,
+                                             device_chol_guarded)
+from pyabc_tpu_torch.kernels.philox import philox_blocks_cuda
+from pyabc_tpu_torch.kernels.scale_reduce import SCALE_NAMES
 from pyabc_tpu_torch.models import lotka_volterra as lv
 from pyabc_tpu_torch.transition import (MultivariateNormalTransition,
+                                        scott_rule_of_thumb,
                                         silverman_rule_of_thumb)
 
 pytestmark = pytest.mark.gpu
@@ -47,7 +62,7 @@ def _lv_round(dev, B):
     g = _gen(dev)
     model, prior = lv.make_lv_model(), lv.default_prior()
     theta = prior.rvs_array(B, g, dev)
-    noise = model.noise(B, g, dev)
+    noise = torch.randn(B, 2, model.n_obs, generator=g, device=dev)
     kw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
               y0=lv.Y0, noise_sd=model.noise_sd, log_parameters=False)
     return theta, noise, kw
@@ -57,10 +72,14 @@ def _lv_round(dev, B):
 def test_lv_simulate_kernel(dev, B, n):
     theta, noise, kw = _lv_round(dev, B)
     theta[0, 0] = float("nan")
+    stream = _stream(dev, philox.SIM_NOISE, seed=B)
     before = lv_simulate.launches
-    got = lv_simulate(theta, noise, **kw)
+    got = lv_simulate(theta, None, stream=stream, **kw)
     assert lv_simulate.launches == before + 1
-    ref = lv_simulate_plain(theta, noise, **kw)
+    ref = lv_simulate_plain(theta, None, stream=stream, **kw)
+    # on the card the noise is drawn in the kernel, never given
+    with pytest.raises(ValueError):
+        lv_simulate(theta, noise, **kw)
     assert torch.equal(got.isnan(), ref.isnan())
     fin = ref.isfinite()
     # FMA contraction over 190 RK4 steps: |err| <= 1e-3 + 1e-4 |x|
@@ -78,7 +97,8 @@ def test_mvn_mixture_logpdf_kernel(dev, B, n, d):
     params = MultivariateNormalTransition.device_fit(
         thetas, w / w.sum(), dim=d, scaling=1.0,
         bandwidth_selector=silverman_rule_of_thumb)
-    q = MultivariateNormalTransition.device_rvs(params, B, g)
+    q = MultivariateNormalTransition.device_rvs(
+        params, B, _stream(dev, philox.TRANSITION, seed=d))
     got = mvn_mixture_logpdf(q, params)
     ref = mvn_mixture_logpdf_plain(q, params)
     # float32 logsumexp over n terms in another order
@@ -175,3 +195,294 @@ def test_lv_run_on_the_card(dev):
     assert all(v > 0 for v in launch_counts().values())
     eps = np.asarray(h.get_all_populations()["epsilon"][1:])
     assert np.all(np.isfinite(eps)) and eps[-1] < eps[0]
+
+
+# ------------------------------------------------------ K1, K2, K7, K8, K9
+KAT = [  # Random123's known-answer vectors for Philox4x32-10
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(KAT)))
+def test_philox_known_answers_on_card(dev, case):
+    ctr, key, want = KAT[case]
+    words, _u, _z = philox_blocks_cuda(
+        torch.tensor([ctr], dtype=torch.int64, device=dev), key)
+    assert words[0].tolist() == list(want)
+
+
+def test_philox_card_matches_plain(dev):
+    rng = np.random.default_rng(0)
+    ctr = torch.from_numpy(rng.integers(0, 2 ** 32, size=(4096, 4),
+                                        dtype=np.int64)).to(dev)
+    key = (0x12345678, 0x9abcdef0)
+    words, uni, nrm = philox_blocks_cuda(ctr, key)
+    w = philox.philox4x32_10(*ctr.unbind(1), key)
+    assert torch.equal(words, torch.stack(w, dim=1))
+    u = [philox.uniform_of(x) for x in w]
+    assert torch.equal(uni, torch.stack(u, dim=1))  # bit-exact
+    z = torch.stack([philox.box_muller(u[0], u[1], False),
+                     philox.box_muller(u[0], u[1], True),
+                     philox.box_muller(u[2], u[3], False),
+                     philox.box_muller(u[2], u[3], True)], dim=1)
+    # logf / sinf / cosf against PyTorch's: abs 2e-6 at |z| <= 5.8
+    assert float((nrm - z).abs().max()) <= 2e-6
+    assert float(uni.min()) > 0.0 and float(uni.max()) < 1.0
+
+
+def _fit(dev, n, d, seed=0, dim=None, n_empty=None):
+    g = _gen(dev, seed)
+    thetas = torch.randn(n, d, generator=g, device=dev) * 0.3 + 1.0
+    w = torch.rand(n, generator=g, device=dev)
+    n_empty = n // 5 if n_empty is None else n_empty
+    if n_empty:
+        w[n - n_empty:] = 0.0
+        thetas[n - n_empty:] = 0.0
+    return thetas, w / w.sum(), d if dim is None else dim
+
+
+def _stream(dev, tag, rounds=3, gen=2, seed=7):
+    ctr = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctr[1] = rounds
+    return philox.PhiloxStream(seed, gen, tag, 256, ctr)
+
+
+def _near_bounds(theta, prior, tol=1e-4):
+    lo, hi = prior["loc"], prior["hi"]
+    unif = prior["kind"] == 1
+    near = ((theta - lo).abs() < tol) | ((theta - hi).abs() < tol)
+    return (near & unif).any(dim=1)
+
+
+@pytest.mark.parametrize("B,n", SHAPES)
+@pytest.mark.parametrize("d", [1, 4, 7])
+def test_propose_kernel(dev, B, n, d):
+    thetas, w, _ = _fit(dev, n, d, seed=d)
+    params = mvn_fit_plain(thetas, w, dim=d, scaling=1.0,
+                           bandwidth_selector=silverman_rule_of_thumb)
+    prior = Distribution(**{f"p{k}": RV("uniform" if k % 2 else "norm",
+                                        0.5 if k % 2 else 1.0, 1.0)
+                            for k in range(d)}).arrays(dev)
+    for tag, p in ((philox.PRIOR, None), (philox.TRANSITION, params)):
+        stream = _stream(dev, tag)
+        before = propose.launches
+        th_k, lp_k, v_k = propose(stream, B, prior, p)
+        assert propose.launches == before + 1
+        th_p, lp_p, v_p = propose_plain(stream, B, prior, p)
+        # a lane whose draw sits within rounding of a uniform bound may
+        # take another redraw; the normals differ by 2e-6 at most
+        odd = (v_k != v_p) | ((th_k - th_p).abs()
+                              > 1e-5 + 1e-5 * th_p.abs()).any(dim=1)
+        assert bool(_near_bounds(th_p[odd], prior).all())
+        ok = ~odd & v_p
+        assert int(ok.sum()) > B // 2
+        assert float((lp_k - lp_p)[ok].abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [64, 1024, 5000])
+def test_normalize_quantile_kernel(dev, n):
+    g = _gen(dev, n)
+    lw = torch.randn(n, generator=g, device=dev) * 5 - 40
+    mask = torch.rand(n, generator=g, device=dev) < 0.8
+    for m in (mask, torch.zeros_like(mask), None):
+        got = normalize_quantile.normalize(lw, m)
+        ref = normalize_log_weights_plain(lw, m)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-12)
+    w = normalize_log_weights_plain(lw, mask)
+    pts = torch.rand(n, generator=g, device=dev).mul(8).floor()  # ties
+    pts = torch.where(mask, pts, torch.full_like(pts, math.inf))
+    # alpha = 1 with float weights lies on a step: the plain cumsum may
+    # absorb the last tiny weights in float32, the kernel sums in double
+    cases = [(a, wts) for a in (0.1, 0.5, 0.9)
+             for wts in (w, mask.float(), torch.zeros_like(w))]
+    for alpha, wts in cases + [(1.0, mask.float())]:
+        got = normalize_quantile.quantile(pts, wts, alpha)
+        ref = weighted_quantile_plain(pts, wts, alpha)
+        assert float(got) == float(ref), (alpha, float(got), float(ref))
+
+
+@pytest.mark.parametrize("n,d,dim", [(64, 1, 1), (1024, 4, 4), (1024, 7, 5),
+                                     (333, 4, 4)])
+def test_mvn_fit_kernel(dev, n, d, dim):
+    thetas, w, dim = _fit(dev, n, d, seed=n + d, dim=dim)
+    for sel in (silverman_rule_of_thumb, scott_rule_of_thumb):
+        before = mvn_fit.launches
+        got = mvn_fit(thetas, w, dim=dim, scaling=1.0,
+                      bandwidth_selector=sel)
+        assert mvn_fit.launches == before + 1
+        ref = mvn_fit_plain(thetas, w, dim=dim, scaling=1.0,
+                            bandwidth_selector=sel)
+        # weighted moments summed in another order: rel 1e-5; the centred
+        # rows inherit the mean's absolute error (rel 1e-5 of |center|)
+        for k in ("thetas", "weights", "center", "cdf"):
+            torch.testing.assert_close(got[k], ref[k], rtol=1e-5,
+                                       atol=1e-7, msg=k)
+        torch.testing.assert_close(got["thetas_c"], ref["thetas_c"],
+                                   rtol=1e-5, atol=1e-5 * float(
+                                       ref["center"].abs().max()))
+        for k in ("chol", "prec", "logdet", "quad"):
+            torch.testing.assert_close(got[k], ref[k], rtol=1e-4,
+                                       atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("x,rung", [(-1e-11, 1), (-1e-9, 2), (-1e-6, 3),
+                                    (-1.0, 4), (1.0, 0)])
+def test_chol_ladder_rungs_on_card(dev, x, rung):
+    cov = torch.diag(torch.tensor([1.0, 2.0, 0.5, x], device=dev))
+    cov[0, 1] = cov[1, 0] = 0.3
+    chol, used, got = chol_guarded_cuda(cov)
+    assert int(got) == rung
+    ref_chol, ref_used, bad = device_chol_guarded(cov)
+    assert bool(bad) == (rung == 4)
+    torch.testing.assert_close(used, ref_used, rtol=1e-6, atol=0)
+    torch.testing.assert_close(chol, ref_chol, rtol=1e-5, atol=1e-7,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("n,S", [(8192, 40), (63, 1), (64, 3)])
+@pytest.mark.parametrize("name", SCALE_NAMES)
+def test_scale_reduce_kernel(dev, n, S, name):
+    g = _gen(dev, S)
+    samples = torch.randn(n, S, generator=g, device=dev) * 3 + 2
+    samples[:, 0] = samples[:, 0].round()  # ties at the median
+    valid = torch.rand(n, generator=g, device=dev) < 0.7
+    rows = torch.randn(64, S, generator=g, device=dev)
+    x0 = torch.randn(S, generator=g, device=dev)
+    if S > 2:
+        samples[5, 2] = math.nan  # a blown-up lane in a valid row
+        valid[5] = True
+    for ratio in (None, 5.0):
+        kw = dict(scale_name=name, max_weight_ratio=ratio,
+                  normalize_weights=True, rows=rows, p=2.0)
+        sc, w, d = scale_reduce(samples, valid, x0, **kw)
+        sc_p, w_p, d_p = scale_reduce_plain(samples, valid, x0, **kw)
+        if "median" in name:
+            assert torch.equal(sc.isnan(), sc_p.isnan())
+            fin = ~sc_p.isnan()
+            assert torch.equal(sc[fin], sc_p[fin]), name  # bit-exact
+        else:
+            torch.testing.assert_close(sc, sc_p, rtol=1e-5, atol=1e-6,
+                                       equal_nan=True)
+        torch.testing.assert_close(w, w_p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(d, d_p, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("B", [64, 4096])
+def test_lv_philox_noise_kernel(dev, B):
+    theta, _noise, kw = _lv_round(dev, B)
+    stream = _stream(dev, philox.SIM_NOISE)
+    got = lv_simulate(theta, None, stream=stream, **kw)
+    ref = lv_simulate_plain(theta, None, stream=stream, **kw)
+    assert torch.equal(got.isnan(), ref.isnan())
+    fin = ref.isfinite()
+    assert bool(((got - ref).abs()[fin]
+                 <= 1e-3 + 1e-4 * ref.abs()[fin]).all())
+
+
+# ------------------------------------------------------------- K10, K11
+EDGE_VALUES = [-0.6001, -0.0, 0.0, 1e-7, 3e-5, 0.6001, 65519.0, 65520.0,
+               7e4, 3.4e38, math.nan, math.inf, -math.inf]
+
+
+@pytest.mark.parametrize("G", [1, 8, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_pack_fetch_kernel(dev, G, dtype):
+    """Bit-identical to the plain version, over the cast's edge values and
+    more generations than one launch takes (40 > 32)."""
+    g = _gen(dev, G)
+    n_cap, n_keep, d, S = 1024, 1000, 4, 40
+    theta = [torch.randn(n_cap, d, generator=g, device=dev) * 3
+             for _ in range(G)]
+    dist = [torch.rand(n_cap, generator=g, device=dev) for _ in range(G)]
+    logw = [torch.randn(n_cap, generator=g, device=dev) for _ in range(G)]
+    ss = [torch.randn(n_cap, S, generator=g, device=dev) * 1e4
+          for _ in range(G)]
+    edge = torch.tensor(EDGE_VALUES, device=dev)
+    k = edge.numel()
+    dist[0][:k] = theta[-1][:k, 1] = logw[G // 2][:k] = ss[0][:k, 2] = edge
+    before = pack_fetch.launches
+    got = pack_fetch.rows(theta, dist, logw, n_keep=n_keep, dtype=dtype)
+    got_ss = pack_fetch.sumstats(ss, n_keep=n_keep, dtype=dtype)
+    assert pack_fetch.launches == before + 2 * math.ceil(G / 32)
+    ref = pack_rows_plain(theta, dist, logw, n_keep=n_keep, dtype=dtype)
+    ref_ss = cast_rows_plain(ss, n_keep=n_keep, dtype=dtype)
+    for a, b in ((got, ref), (got_ss, ref_ss)):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+def _health_case(dev, kind, n_cap=1024, d=4, n_keep=1000):
+    g = _gen(dev, n_cap)
+    thetas, w, _dim = _fit(dev, n_cap, d, seed=3, dim=d)
+    params = mvn_fit_plain(thetas, w, dim=d, scaling=1.0,
+                           bandwidth_selector=silverman_rule_of_thumb)
+    params_next = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                   for k, v in params.items()}
+    k_mask = torch.arange(n_cap, device=dev) < n_keep
+    w_norm = torch.where(k_mask, w, torch.zeros_like(w))
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa
+    x = dict(theta=torch.randn(n_cap, d, generator=g, device=dev),
+             k_mask=k_mask, w_norm=w_norm,
+             d_new=torch.rand(n_cap, generator=g, device=dev),
+             n_acc=torch.tensor(n_keep, dtype=torch.int32, device=dev),
+             n_target=n_keep, acc_rate=f(0.25), trans_params=params,
+             trans_next=params_next,
+             fitted=torch.tensor(True, device=dev),
+             fitted_next=torch.tensor(True, device=dev), eps_g=f(0.5),
+             eps_next=f(0.4), eps_prev=f(1.0),
+             stall_count=torch.tensor(1, dtype=torch.int32, device=dev),
+             ess_floor=0.05, acc_floor=0.2, stall_window=2, stall_rtol=1e-3)
+    if kind == "nan_theta":
+        x["theta"][n_keep - 1, d - 1] = math.nan
+    elif kind == "nan_masked_rows":
+        x["theta"][n_keep, 0] = math.inf
+        x["d_new"][n_cap - 1] = math.nan
+    elif kind == "nan_weight":
+        x["w_norm"][0] = math.nan
+    elif kind == "ess_floor":
+        x["ess_floor"] = 0.99
+    elif kind == "psd":
+        params_next["chol"][1, 0] = math.nan
+    elif kind == "zero_weights":
+        params["weights"].zero_()
+    elif kind == "unfitted":
+        params["chol"].fill_(math.nan)
+        x["fitted"] = torch.tensor(False, device=dev)
+    elif kind == "stall":
+        x["eps_prev"] = f(0.5 * (1 + 1e-4))
+    elif kind == "eps_nonfinite":
+        x["eps_g"] = f(math.nan)
+    elif kind == "all_masked":
+        x["k_mask"] = torch.zeros_like(k_mask)
+        x["w_norm"] = torch.zeros_like(w_norm)
+        x["n_acc"] = torch.tensor(0, dtype=torch.int32, device=dev)
+        x["fitted_next"] = torch.tensor(False, device=dev)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["ok", "nan_theta", "nan_masked_rows",
+                                  "nan_weight", "ess_floor", "psd",
+                                  "zero_weights", "unfitted", "stall",
+                                  "eps_nonfinite", "all_masked"])
+def test_generation_health_kernel(dev, kind):
+    x = _health_case(dev, kind)
+    before = generation_health.launches
+    word, ess, eps_prev, stall = generation_health(**x)
+    assert generation_health.launches == before + 1
+    r_word, r_ess, r_prev, r_stall = generation_health_plain(**x)
+    assert int(word) == int(r_word), kind
+    assert int(stall) == int(r_stall) and eps_prev is x["eps_g"]
+    # sum of squared weights in another order: rel 1e-5
+    torch.testing.assert_close(ess, r_ess, rtol=1e-5, atol=0,
+                               equal_nan=True)
+    assert (int(word) == 0) == (kind in ("ok", "nan_masked_rows",
+                                         "unfitted", "all_masked"))

@@ -18,6 +18,7 @@ import pyabc_tpu as jpt  # noqa: E402
 from pyabc_tpu.models import gaussian as jgauss  # noqa: E402
 from pyabc_tpu.models import lotka_volterra as jlv  # noqa: E402
 import pyabc_tpu_torch as tpt  # noqa: E402
+from pyabc_tpu_torch.kernels.scale_reduce import weight_update_plain  # noqa: E402,E501
 from pyabc_tpu_torch.models import gaussian, lotka_volterra  # noqa: E402
 
 torch.set_num_threads(1)
@@ -169,8 +170,9 @@ def test_calibration_weights_match_jax_on_one_sample():
     j_d = np.asarray([jd.device_fn(spec)(jnp.asarray(r), jnp.asarray(x0),
                                          j_w) for r in ss.numpy()[:n_cal]])
     td = tpt.AdaptivePNormDistance(p=2)
-    t_w = td.weights_from_scale(td.scale(ss, torch.from_numpy(mask),
-                                         torch.from_numpy(x0)))
+    t_w = weight_update_plain(
+        td.scale(ss, torch.from_numpy(mask), torch.from_numpy(x0)),
+        td.max_weight_ratio, td.normalize_weights)
     # float32 masked medians in another order: rel 1e-5
     np.testing.assert_allclose(t_w.numpy(), np.asarray(j_w), rtol=1e-5)
     t_d = td.rows(ss[:n_cal], torch.from_numpy(x0), t_w).numpy()
