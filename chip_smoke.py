@@ -11,7 +11,11 @@ Phases, one or more lines each:
    PyTorch version on the card, at the main-path shapes of BASELINE config
    2 (B = 4096 lanes, n_cap = 1024, d = 4, S = 40, the record ring 8192
    rows, a chunk of G = 8 generations) and, for K2 and K7-K11, at a second
-   shape (d = 1, n_cap = 64, an odd valid count), with its largest
+   shape (d = 1, n_cap = 64, an odd valid count); then K20 (SIR), K21a
+   (noise kernel + stochastic accept), K21b (pdf norm + temperature) and
+   K6's record mode at the shapes of BASELINE config 4 (B = 4096, n_cap =
+   1024, d = 2, S = 15, the ring 8192 rows) and at a small odd shape; each
+   with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
    events around the same calls made from Python, the wrapper's host work
@@ -22,7 +26,10 @@ Phases, one or more lines each:
    Random123's known-answer vectors on the card;
 3. the Gaussian conjugate toy (pop 1000, 6 generations, 32 seeds) on the
    card and on the CPU, the mean of its posterior means against the
-   analytic posterior mean and the card's against the CPU's;
+   analytic posterior mean and the card's against the CPU's; then the noisy
+   Gaussian anchor (x = theta under IndependentNormalKernel(var 0.09),
+   Temperature, StochasticAcceptor, pop 1000, 32 seeds) the same way, its
+   posterior mean and sd against the exact posterior N(0.7339, 0.2874^2);
 4. Lotka-Volterra config 2 (AdaptivePNormDistance(p=2), MedianEpsilon,
    pop 1000, observed_data(seed=0)), 10 generations: throughput, wall time
    and syncs per generation, the epsilon trail and the posterior means.
@@ -33,11 +40,17 @@ Phases, one or more lines each:
    torch.profiler gives the device's busy share of the run's window and
    the ten device ops that take the most time, and the same seed run on
    the CPU (the same Philox streams) gives its epsilon trail beside the
-   card's.
+   card's. Then SIR config 4 (IndependentNormalKernel(var 100 x 15),
+   Temperature, StochasticAcceptor, pop 1000, observed_data(seed=11), 8
+   generations, a budget of 1024 rounds a generation), counts reset just
+   before and read just after: its own throughput, syncs and temperature
+   trail, which must end at exactly 1, and posterior means within 3
+   posterior sd of the true parameters; once more under torch.profiler;
+   and the same seed on the CPU for its first generations' temperatures.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K11) is replaced by a function that raises, so none can run on
-the path unseen.
+kernel (K1-K11, K20, K21a, K21b) is replaced by a function that raises, so
+none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -58,8 +71,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 B_MAIN, N_CAP_MAIN, POP = 4096, 1024, 1000
-#: seeds of the Gaussian toy, on the card and on the CPU
+#: seeds of the Gaussian toy and of the noisy anchor, card and CPU
 TOY_SEEDS = tuple(range(32))
+#: round budget of a SIR config 4 generation: at T = 1 with the norm at
+#: the kernel's maximum about 5e-4 of the evaluations are accepted, so
+#: pop 1000 needs some 2e6 (the JAX sampler's 256 rounds hold 1e6)
+SIR_MAX_ROUNDS = 1024
+SIR_GENS = 8
+#: kernels of the LV path (phase 4) and of the SIR config 4 path
+LV_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+           "pnorm_accept_weight", "compact_round", "normalize_quantile",
+           "mvn_fit", "scale_reduce", "pack_fetch", "generation_health")
+SIR_PATH = ("propose", "mvn_mixture_logpdf", "sir_simulate", "kernel_accept",
+            "compact_round", "normalize_quantile", "mvn_fit", "pack_fetch",
+            "generation_health", "temperature_update")
+NOISY_KERNELS = ("sir_simulate", "kernel_accept", "temperature_update")
 #: Random123's known-answer vectors for Philox4x32-10
 PHILOX_KAT = [
     ((0, 0, 0, 0), (0, 0),
@@ -864,6 +890,346 @@ def small_shape_checks(dev) -> None:
         f"max_abs_err={pk_err:.3e}, K11 ess max_abs_err={h_err:.3e}")
 
 
+def sir_inputs(dev, B: int, rounds: int = 1):
+    """``rounds`` rounds of SIR config 4 prior lanes: theta, the prior's
+    log-density (the records' logq), K20's rows and their kernel values."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose, sir_simulate
+    from pyabc_tpu_torch.kernels.kernel_accept import normal_logdensity_rows
+    from pyabc_tpu_torch.models import sir
+
+    model = sir.make_sir_model()
+    kw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
+              n_pop=sir.N_POP)
+    parts = [propose(stream_on(dev, philox.PRIOR, rounds=r), B,
+                     sir.default_prior().arrays(dev))[:2]
+             for r in range(1, rounds + 1)]
+    theta = torch.cat([p[0] for p in parts]).contiguous()
+    logpri = torch.cat([p[1] for p in parts])
+    ss = sir_simulate(theta, **kw)
+    x0 = torch.as_tensor(sir.observed_data(seed=11)["infected"],
+                         dtype=torch.float32, device=dev)
+    var = torch.full((model.n_obs,), 100.0, device=dev)
+    v = normal_logdensity_rows(ss, x0, var)
+    return dict(theta=theta, logpri=logpri, ss=ss, x0=x0, var=var, v=v,
+                kw=kw)
+
+
+def noisy_checks(dev) -> dict:
+    """K20, K21a, K6's record mode and K21b against their plain versions
+    at config 4's shapes and at a small odd shape."""
+    x = sir_inputs(dev, B_MAIN, rounds=2)
+    results = {"sir_simulate": k20_checks(dev, x)}
+    results["kernel_accept"] = k21a_checks(dev, x)
+    results["compact_round_record"] = k6_record_checks(dev, x)
+    results["temperature_update"] = k21b_checks(dev, x)
+    return results
+
+
+def k20_checks(dev, x) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, sir_simulate, \
+        sir_simulate_plain
+
+    theta, kw = x["theta"][:B_MAIN].contiguous(), x["kw"]
+    got = sir_simulate(theta, **kw)
+    ref = sir_simulate_plain(theta, **kw)
+    small = x["theta"][:77].contiguous()
+    noise = dict(noise_sd=10.0, stream=stream_on(dev, philox.SIM_NOISE))
+    s_got = sir_simulate(small, **noise, **kw)
+    s_ref = sir_simulate_plain(small, **noise, **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1)).max())
+    s_err = float((s_got - s_ref).abs().max())
+    log(f"K20 sir_simulate (B={B_MAIN}, 15 x 8 substeps): max_abs_err="
+        f"{err:.3e} max_rel_err={rel:.3e}; B=77 with Philox noise "
+        f"max_abs_err={s_err:.3e}; infected up to {float(ref.max()):.1f}")
+    check(bool((got - ref).abs().le(1e-3 + 1e-4 * ref.abs()).all())
+          and bool((s_got - s_ref).abs().le(1e-3 + 1e-4 * s_ref.abs())
+                   .all()),
+          "K20 outside |err| <= 1e-3 + 1e-4 |x| (FMA contraction over 112 "
+          "RK4 steps)")
+    B = B_MAIN
+    steps = 14 * 8
+    # per RK4 step 4 right-hand sides (6 ops) + 3 stages and the update
+    # of 3 states (about 42 ops)
+    return dict(
+        err=err, call_ms=time_ms(lambda: sir_simulate(theta, **kw), 50),
+        ms=graph_ms(lambda: sir_simulate(theta, **kw)),
+        plain_ms=time_ms(lambda: sir_simulate_plain(theta, **kw), 3),
+        bound=bound(B * (2 + 15) * 4, B * steps * 66), library_ms=None)
+
+
+def k21a_checks(dev, x) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.kernels import (kernel_accept, kernel_accept_plain,
+                                         philox)
+    from pyabc_tpu_torch.kernels.kernel_accept import accept_uniforms
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    B, S = B_MAIN, 15
+    ss, x0, var = x["ss"][:B].contiguous(), x["x0"], x["var"]
+    pdf_max = -0.5 * 15 * (math.log(2 * math.pi) + math.log(100.0))
+    temp = torch.tensor(300.0, device=dev)
+    pdf_norm = torch.tensor(pdf_max, dtype=torch.float32, device=dev)
+    valid = torch.rand(B, generator=g, device=dev) > 0.05
+    stream = stream_on(dev, philox.ACCEPT)
+    kw = dict(stream=stream, lin=False, apply_iw=True,
+              logpri=x["logpri"][:B].contiguous(),
+              logq=torch.randn(B, generator=g, device=dev))
+    args = (ss, x0, var, temp, pdf_norm, valid)
+    err = flips = 0
+    for mode in ("transition", "prior", "lin", "small"):
+        a_kw = dict(kw)
+        a_args = args
+        if mode != "transition":
+            a_kw.update(logpri=None, logq=None)
+        if mode == "lin":
+            a_kw["lin"] = True
+        if mode == "small":
+            a_args = (ss[:77].contiguous(), x0, var, temp, pdf_norm,
+                      valid[:77].contiguous())
+        v, a, lw = kernel_accept(*a_args, **a_kw)
+        v_r, a_r, lw_r = kernel_accept_plain(*a_args, **a_kw)
+        check(torch.allclose(v, v_r, rtol=1e-5, atol=1e-4, equal_nan=True)
+              and torch.allclose(lw, lw_r, rtol=1e-5, atol=1e-5,
+                                 equal_nan=True),
+              f"K21a ({mode}) v or log weight outside rel 1e-5")
+        ratio = ((torch.log(v_r.clamp_min(1e-30)) if a_kw["lin"] else v_r)
+                 - pdf_norm) / temp
+        logu = torch.log(accept_uniforms(stream, v.shape[0]))
+        clear = (logu - ratio).abs() > 1e-5 * (1 + ratio.abs())
+        check(bool(torch.equal(a[clear], a_r[clear])),
+              f"K21a ({mode}) accept flags differ away from the boundary")
+        flips += int((a != a_r).sum())
+        fin = lw_r.isfinite()
+        err = max(err, float((lw - lw_r)[fin].abs().max()),
+                  float((v - v_r).abs().max()))
+    v, a, lw = kernel_accept(*args, **kw)
+    log(f"K21a kernel_accept (B={B}, S={S}; transition, prior, SCALE_LIN "
+        f"and B=77): max_abs_err={err:.3e} flags apart {flips} (all "
+        f"within 1e-5 of log u); accepted {int(a.sum())}/{B} at T=300")
+    # read the rows, x0, var, the scalars, flags, logpri and logq once;
+    # write v, accept, log weight; per lane S (log + 5 flops) + ~20 and
+    # one Philox block (~100 integer operations)
+    nbytes = B * S * 4 + 2 * S * 4 + 8 + B + 2 * B * 4 + B * (4 + 1 + 4)
+    return dict(
+        err=err, call_ms=time_ms(lambda: kernel_accept(*args, **kw), 100),
+        ms=graph_ms(lambda: kernel_accept(*args, **kw)),
+        plain_ms=time_ms(lambda: kernel_accept_plain(*args, **kw), 20),
+        bound=bound(nbytes, B * (S * 6 + 20 + 100)), library_ms=None)
+
+
+def k6_record_checks(dev, x) -> dict:
+    """K6 in record mode (the ring keeps theta and logq) on a config 4
+    first round: reservoir, ring and counters bit-identical."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import compact_round, compact_round_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    B, n, S, d = B_MAIN, N_CAP_MAIN, 15, 2
+    rec_cap = 8 * n
+    theta, ss = x["theta"][:B].contiguous(), x["ss"][:B].contiguous()
+    dist, logq = x["v"][:B].contiguous(), x["logpri"][:B].contiguous()
+    logw = torch.randn(B, generator=g, device=dev)
+    accept = torch.rand(B, generator=g, device=dev) < 0.3
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+
+    def buffers(n_, rec_):
+        f = dict(device=dev)
+        res = {"theta": torch.zeros(n_, d, **f),
+               "sumstats": torch.zeros(n_, S, **f),
+               "distance": torch.zeros(n_, **f),
+               "log_weight": torch.full((n_,), -math.inf, **f),
+               "slot": torch.full((n_,), -1, dtype=torch.int32, **f)}
+        rec = {"sumstats": torch.zeros(rec_, S, **f),
+               "distance": torch.zeros(rec_, **f),
+               "accepted": torch.zeros(rec_, dtype=torch.bool, **f),
+               "valid": torch.zeros(rec_, dtype=torch.bool, **f),
+               "theta": torch.zeros(rec_, d, **f),
+               "logq": torch.zeros(rec_, **f)}
+        return res, rec
+
+    exact = True
+    for B_, n_, rec_ in ((B, n, rec_cap), (77, 64, 100)):
+        k_in = (accept[:B_], valid[:B_], theta[:B_], ss[:B_], dist[:B_],
+                logw[:B_])
+        k_in = tuple(t.contiguous() for t in k_in)
+        (rk, ck), (rp, cp) = buffers(n_, rec_), buffers(n_, rec_)
+        ctr_k = torch.zeros(4, dtype=torch.int32, device=dev)
+        ctr_p = torch.zeros(4, dtype=torch.int32, device=dev)
+        for _ in range(2):  # the second round overflows the small ring
+            compact_round(*k_in, rk, ck, ctr_k, logq=logq[:B_].contiguous())
+            compact_round_plain(*k_in, rp, cp, ctr_p,
+                                logq[:B_].contiguous())
+        exact = exact and torch.equal(ctr_k, ctr_p) and all(
+            torch.equal(a, b) for a, b in [*zip(rk.values(), rp.values()),
+                                           *zip(ck.values(), cp.values())])
+    log(f"K6 compact_round record mode (B={B}, n_cap={n}, ring {rec_cap} "
+        f"with theta and logq; B=77, ring 100, two rounds): exact={exact}")
+    check(exact, "K6 record mode not bit-identical")
+    res_k, rec_k = buffers(n, rec_cap)
+    ctr_g = torch.zeros(4, dtype=torch.int32, device=dev)
+    k_in = (accept, valid, theta, ss, dist, logw)
+    acc = accept & valid
+    n_res = min(int(acc.sum()), n)
+    n_ring = min(int(valid.sum()), rec_cap)  # a first round: every row
+    # read the flags, each kept row's sumstats, distance and theta once,
+    # log weights of reservoir rows and logq of ring rows; write both
+    nbytes = (2 * B + n_ring * (S + 1 + d) * 4 + n_res * 4 + n_ring * 4
+              + n_res * (d + S + 3) * 4 + n_ring * ((S + 1 + d + 1) * 4 + 2)
+              + 2 * 3 * 4)
+    return dict(
+        err=0.0 if exact else math.inf,
+        call_ms=time_ms(lambda: compact_round(
+            *k_in, res_k, rec_k, torch.zeros(4, dtype=torch.int32,
+                                             device=dev), logq=logq), 50),
+        ms=graph_ms(lambda: (ctr_g.zero_(), compact_round(
+            *k_in, res_k, rec_k, ctr_g, logq=logq))),
+        plain_ms=time_ms(lambda: compact_round_plain(
+            *k_in, res_k, rec_k, torch.zeros(4, dtype=torch.int32,
+                                             device=dev), logq), 10),
+        bound=bound(nbytes, 0.0), library_ms=None)
+
+
+def k21b_inputs(dev, x, n_cap, rec_cap, n_keep, n_valid):
+    """A generation step's K21b inputs from config 4 prior lanes: the ring
+    (kernel values, prior logq, theta), the reservoir's first rows and the
+    density of the ring under a refit of them (K3)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_mixture_logpdf, mvn_fit
+    from pyabc_tpu_torch.kernels import normalize_quantile
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    k_mask = torch.arange(n_cap, device=dev) < n_keep
+    res_v = x["v"][:n_cap].contiguous()
+    logw = torch.where(k_mask, -0.01 * res_v.abs(),
+                       torch.full_like(res_v, -math.inf))
+    w_norm = normalize_quantile.normalize(logw, k_mask)
+    fit = mvn_fit(x["theta"][:n_cap].contiguous(), w_norm, dim=2,
+                  scaling=1.0, bandwidth_selector=silverman_rule_of_thumb)
+    rec = {"distance": x["v"][:rec_cap].contiguous(),
+           "valid": torch.arange(rec_cap, device=dev) < n_valid,
+           "logq": x["logpri"][:rec_cap].contiguous()}
+    logq_new = mvn_mixture_logpdf(x["theta"][:rec_cap].contiguous(), fit)
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    return dict(rec=rec, logq_new=logq_new, res_distance=res_v,
+                k_mask=k_mask, w_norm=w_norm, pdf_norm=f(-48.32285),
+                max_found=f(-60.0), daly_k=f(1500.0), temp=f(2000.0),
+                acc_rate=f(0.05))
+
+
+def k21b_checks(dev, x) -> dict:
+    import torch
+
+    from pyabc_tpu_torch.epsilon.temperature import TempConfig
+    from pyabc_tpu_torch.kernels import temperature_update
+    from pyabc_tpu_torch.kernels.temperature_update import scheme_tables
+
+    default = (("acceptance_rate", 0.3), ("exp_decay_fixed_iter",))
+    cases = [default, (("poly_decay_fixed_iter", 3.0),),
+             (("exp_decay_fixed_ratio", 0.5, 1e-4, 0.5),),
+             (("friel_pettitt",),), (("daly", 0.5, 0.1),), (("ess", 0.8),),
+             ()]
+    results, err = [], 0.0
+    for shape in ((N_CAP_MAIN, 8 * N_CAP_MAIN, POP, 8 * N_CAP_MAIN),
+                  (64, 512, 33, 301)):
+        inp = k21b_inputs(dev, x, *shape)
+        for schemes in cases:
+            for scaled in (None, (10.0, 0.5)):
+                cfg = TempConfig(schemes=schemes, max_np=SIR_GENS,
+                                 pdf_max=None if scaled else -48.32285,
+                                 lin=False, pdf_scaled=scaled,
+                                 initial=("acceptance_rate", 0.3))
+                got = temperature_update.update(
+                    **inp, tables=scheme_tables(schemes, dev), t_next=3,
+                    config=cfg)
+                ref = temperature_update_plain_of(inp, schemes, cfg)
+                t0 = temperature_update.initial(
+                    res_distance=inp["res_distance"], k_mask=inp["k_mask"],
+                    tables=scheme_tables((cfg.initial,), dev), config=cfg)
+                t0_ref = temperature_update_plain_of(
+                    inp, (cfg.initial,), cfg, calibration=True)
+                got = [float(t) for t in got] + [float(t) for t in t0]
+                ref = [float(t) for t in ref] + [float(t) for t in t0_ref]
+                bis = any(s[0] in ("acceptance_rate", "ess")
+                          for s in schemes)
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    rt = 1e-4 if i in (0, 4) and (bis or i == 4) else 1e-6
+                    check(abs(a - b) <= rt * abs(b),
+                          f"K21b {schemes} scaled={scaled} output {i}: "
+                          f"{a} against plain {b}")
+                    err = max(err, abs(a - b))
+                results.append(got[0])
+    log(f"K21b temperature_update (ring {8 * N_CAP_MAIN}, n_cap "
+        f"{N_CAP_MAIN}; ring 512 with 301 valid, n_cap 64 with 33; 7 scheme "
+        f"sets x pdf_max / ScaledPDFNorm, and the initial T): "
+        f"max_abs_err={err:.3e}; temperatures "
+        f"{[round(t, 3) for t in results]}")
+    inp = k21b_inputs(dev, x, N_CAP_MAIN, 8 * N_CAP_MAIN, POP,
+                      8 * N_CAP_MAIN)
+    cfg = TempConfig(schemes=default, max_np=SIR_GENS, pdf_max=-48.32285,
+                     lin=False, pdf_scaled=None,
+                     initial=("acceptance_rate", 0.3))
+    tables = scheme_tables(default, dev)
+
+    def run():
+        return temperature_update.update(**inp, tables=tables, t_next=3,
+                                         config=cfg)
+
+    R, n = 8 * N_CAP_MAIN, N_CAP_MAIN
+    # read the ring's kernel values, flags and both log densities, the
+    # reservoir's values, mask and weights once; 61 bisection steps of
+    # ~5 operations per record, ~10 per record to prepare
+    nbytes = R * (4 + 1 + 4 + 4) + n * (4 + 1 + 4) + 5 * 4 + 16
+    return dict(
+        err=err, call_ms=time_ms(run, 50), ms=graph_ms(run, iters=20),
+        plain_ms=time_ms(lambda: temperature_update_plain_of(inp, default,
+                                                             cfg), 3),
+        bound=bound(nbytes, R * (10 + 61 * 5)), library_ms=None)
+
+
+def temperature_update_plain_of(inp, schemes, cfg, calibration=False):
+    """K21b's plain version on the kernel's inputs (as ``update`` and
+    ``initial`` pass them)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels.temperature_update import (
+        FALLBACK_T0, temperature_update_plain)
+
+    kw = dict(schemes=schemes, t_next=0 if calibration else 3,
+              max_np=cfg.max_np, pdf_max=cfg.pdf_max, lin=cfg.lin,
+              pdf_scaled=cfg.pdf_scaled)
+    if calibration:
+        v, mask = inp["res_distance"], inp["k_mask"]
+        inf = torch.tensor(math.inf, device=v.device)
+        return temperature_update_plain(
+            rec_distance=v, rec_valid=mask, rec_logq=None, logq_new=None,
+            res_distance=v, k_mask=mask, w_norm=torch.zeros_like(v),
+            pdf_norm=-inf, max_found=-inf, daly_k=inf, temp=inf,
+            acc_rate=torch.zeros((), device=v.device), fallback=FALLBACK_T0,
+            **kw)[:3]
+    rec = inp["rec"]
+    return temperature_update_plain(
+        rec_distance=rec["distance"], rec_valid=rec["valid"],
+        rec_logq=rec["logq"], logq_new=inp["logq_new"],
+        res_distance=inp["res_distance"], k_mask=inp["k_mask"],
+        w_norm=inp["w_norm"], pdf_norm=inp["pdf_norm"],
+        max_found=inp["max_found"], daly_k=inp["daly_k"], temp=inp["temp"],
+        acc_rate=inp["acc_rate"], **kw)
+
+
 # ------------------------------------------------------------ phases 3-4
 #: (module, attribute) of the plain version of every kernel, K1-K11
 PLAIN_VERSIONS = (
@@ -884,6 +1250,10 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.pack_fetch", "cast_rows_plain"),
     ("pyabc_tpu_torch.kernels.pack_fetch", "cast_monotone_down"),
     ("pyabc_tpu_torch.kernels.generation_health", "generation_health_plain"),
+    ("pyabc_tpu_torch.kernels.sir_simulate", "sir_simulate_plain"),
+    ("pyabc_tpu_torch.kernels.kernel_accept", "kernel_accept_plain"),
+    ("pyabc_tpu_torch.kernels.temperature_update",
+     "temperature_update_plain"),
 )
 
 
@@ -1067,10 +1437,12 @@ def lotka_volterra(dev, adaptive: bool, gens: int):
     else:
         check(all(b <= a for a, b in zip(eps, eps[1:])),
               "LV epsilons increased under a fixed distance")
-    # the fixed p-norm has no adaptive refit (K9); config 2 runs all eight
-    path = [k for k in counts if adaptive or k != "scale_reduce"]
+    # the fixed p-norm has no adaptive refit (K9); config 2 runs all ten
+    path = [k for k in LV_PATH if adaptive or k != "scale_reduce"]
     check(all(counts[k] > 0 for k in path),
           "a kernel of the path was never launched")
+    check(all(counts[k] == 0 for k in NOISY_KERNELS),
+          "a noisy-ABC kernel ran on the LV path")
     check(all(math.isfinite(v) for v in means.values()),
           "non-finite LV posterior mean")
     for t in range(n_gen):
@@ -1100,27 +1472,30 @@ def config2(where):
 
 
 def profile_lv(dev) -> None:
-    """One more LV config 2 run under torch.profiler: the device's busy
-    share of the run's window and the ten device ops that take the most
-    device time."""
+    """One more LV config 2 run under torch.profiler."""
+    profile_run("LV config 2", config2(dev), 10)
+
+
+def profile_run(label: str, abc, gens: int) -> None:
+    """A run under torch.profiler: the device's busy share of the run's
+    window and the ten device ops that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    abc = config2(dev)
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with plain_versions_raise(), profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        abc.run(max_nr_populations=10)
+        abc.run(max_nr_populations=gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("LV config 2 under torch.profiler: device busy share not "
-            "measured (the profiler recorded no device activity)")
+        log(f"{label} under torch.profiler: device busy share not "
+            f"measured (the profiler recorded no device activity)")
         return
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     by_name: dict[str, list] = {}
@@ -1135,12 +1510,12 @@ def profile_lv(dev) -> None:
         tot[1] += 1
     busy = (busy + cur_end - cur_start) / 1e6  # microseconds -> s
     active = (spans[-1][1] - spans[0][0]) / 1e6
-    log(f"LV config 2 under torch.profiler: wall_s={wall:.4f} device "
+    log(f"{label} under torch.profiler: wall_s={wall:.4f} device "
         f"busy_s={busy:.5f} busy_share_of_window={busy / wall:.4f} "
         f"(first to last device op {active:.4f} s, "
         f"{len(spans)} device ops)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    log("LV config 2 top device ops (name, total ms, count): " + "; ".join(
+    log(f"{label} top device ops (name, total ms, count): " + "; ".join(
         f"{name[:70]} {tot / 1e3:.4f} {cnt}" for name, (tot, cnt) in top))
 
 
@@ -1158,6 +1533,181 @@ def lv_cpu_trail(card_eps: list[float]) -> None:
         f"{[round(e, 4) for e in cpu_eps]}; |card - cpu| / cpu per "
         f"generation {[float(f'{r:.2e}') for r in rel]}; first generation "
         f"apart by more than 1e-3: {parted}")
+
+
+def anchor_run(where, seed):
+    """The noisy Gaussian anchor: x = theta (a one-line user model),
+    prior N(0, 1), IndependentNormalKernel(var 0.09), x_obs 0.8."""
+    import pyabc_tpu_torch as pt
+
+    model = pt.TorchModel(lambda theta, gen: {"x": theta[:, 0]}, ["theta"],
+                          name="det")
+    abc = pt.ABCSMC(model, pt.Distribution(theta=pt.RV("norm", 0.0, 1.0)),
+                    pt.IndependentNormalKernel(var=[0.09]),
+                    population_size=POP, eps=pt.Temperature(),
+                    acceptor=pt.StochasticAcceptor(), seed=seed,
+                    device=where)
+    abc.new("sqlite://", {"x": 0.8})
+    return abc.run(max_nr_populations=7)
+
+
+def noisy_anchor(dev) -> None:
+    """The anchor over TOY_SEEDS on the card and on the CPU: the seed
+    means of the posterior mean and sd against the exact posterior, and
+    the card's mean against the CPU's."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    var = 1.0 / (1.0 + 1.0 / 0.09)
+    mu_true, sd_true = var * 0.8 / 0.09, math.sqrt(var)
+    stats = {}
+    for where in (dev, "cpu"):
+        on_card = where == dev
+        mus, sds, trails = [], [], []
+        t0 = time.perf_counter()
+        if on_card:
+            reset_launch_counts()
+        with plain_versions_raise() if on_card else contextlib.nullcontext():
+            for seed in TOY_SEEDS:
+                h = anchor_run(where, seed)
+                temps = [float(x) for x in
+                         h.get_all_populations()["epsilon"][1:]]
+                check(temps[-1] == 1.0 and all(
+                    b <= a for a, b in zip(temps, temps[1:])),
+                    f"noisy anchor seed {seed} ({where}): temperature "
+                    f"trail {temps} does not fall to exactly 1")
+                df, w = h.get_distribution()
+                x = np.asarray(df["theta"])
+                mu = float(np.sum(w * x))
+                mus.append(mu)
+                sds.append(float(np.sqrt(np.sum(w * (x - mu) ** 2))))
+                trails.append(temps)
+        wall = time.perf_counter() - t0
+        if on_card:
+            counts = launch_counts()
+            log(f"noisy anchor ({where}): kernel launches {counts}")
+            path = [k for k in SIR_PATH if k != "sir_simulate"]
+            check(all(counts[k] > 0 for k in path),
+                  "a kernel of the noisy anchor's path was never launched")
+        m, se = float(np.mean(mus)), float(np.std(mus, ddof=1)
+                                           / math.sqrt(len(mus)))
+        m_sd = float(np.mean(sds))
+        stats[where] = (m, se)
+        log(f"noisy anchor ({where}, {len(mus)} seeds, {wall:.2f} s): mean "
+            f"of posterior means {m:.4f} se {se:.4f} (exact {mu_true:.4f}, "
+            f"{(m - mu_true) / se:+.2f} se); mean posterior sd {m_sd:.4f} "
+            f"(exact {sd_true:.4f}); seed 0 temperatures "
+            f"{[round(t, 4) for t in trails[0]]}; generations per seed "
+            f"{sorted(set(len(t) for t in trails))}")
+        if on_card:
+            check(abs(m - mu_true) < 0.02 and abs(m_sd - sd_true) < 0.02,
+                  "noisy anchor: the card's seed mean of the posterior "
+                  "mean or sd is 0.02 or more off the exact posterior")
+    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
+    gap = (m_d - m_c) / math.hypot(se_d, se_c)
+    log(f"noisy anchor: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+    check(abs(gap) < 4.0, "noisy anchor: card and CPU means differ by >= 4 "
+          "standard errors")
+
+
+def sir_config4(where, seed: int = 0, **run_kw):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import sir
+
+    abc = pt.ABCSMC(sir.make_sir_model(), sir.default_prior(),
+                    pt.IndependentNormalKernel(var=[100.0] * 15),
+                    population_size=POP, eps=pt.Temperature(),
+                    acceptor=pt.StochasticAcceptor(), seed=seed,
+                    device=where)
+    abc.MAX_ROUNDS = SIR_MAX_ROUNDS
+    abc.new("sqlite://", sir.observed_data(seed=11), store_sum_stats=False)
+    return abc
+
+
+def sir_run(dev):
+    """SIR config 4 on the card, the plain versions set to raise, the
+    launch counts reset just before and read just after ->
+    (launch counts, temperature trail)."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import sir
+
+    label = "SIR config 4"
+    abc = sir_config4(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=SIR_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    temps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    n_gen = len(temps)
+    syncs = abc.sync_ledger.summary()
+    rounds = [g["rounds"] for g in abc.generation_log]
+    df, w = h.get_distribution()
+    means = {k: float(np.sum(df[k] * w)) for k in sir.TRUE_PARS}
+    sds = {k: float(np.sqrt(np.sum(w * (df[k] - means[k]) ** 2)))
+           for k in means}
+    evals = sum(g["n_valid"] for g in abc.generation_log)
+    log(f"{label}: pop={POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={POP * n_gen / wall:.1f} "
+        f"wall_s_per_generation={wall / n_gen:.4f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
+        f"evaluations={evals} (rounds {rounds}, {syncs['by_kind']})")
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s")}
+    log(f"{label}: host seconds, rounds + generation steps "
+        f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
+        f"History persist {split['persist_s']:.4f}, other "
+        f"{wall - sum(split.values()):.4f}")
+    norms = sorted(set(round(v, 4) for v in abc.acceptor.pdf_norms.values()))
+    log(f"{label}: temperature trail {[round(t, 4) for t in temps]}; pdf "
+        f"norms {norms}")
+    log(f"{label}: posterior means {means} sd {sds} true {sir.TRUE_PARS}")
+    log(f"{label}: kernel launches {counts}")
+    check(n_gen == SIR_GENS, f"SIR ran {n_gen} of {SIR_GENS} generations")
+    check(temps[-1] == 1.0 and all(b <= a for a, b in zip(temps, temps[1:])),
+          "SIR temperature trail not non-increasing to exactly 1")
+    check(all(counts[k] > 0 for k in SIR_PATH),
+          "a kernel of the SIR path was never launched")
+    check(counts["pnorm_accept_weight"] == counts["lv_simulate"] ==
+          counts["scale_reduce"] == 0, "a p-norm kernel ran on the SIR path")
+    # one counter read per round (calibration's too) and one fetch per
+    # chunk: nothing else reads the device
+    check(syncs["by_kind"].get("chunk_fetch") == 1
+          and set(syncs["by_kind"]) == {"round_counters", "chunk_fetch"}
+          and syncs["by_kind"]["round_counters"] >= sum(rounds),
+          "SIR: a host read besides the round counters and the fetch")
+    check(all(abs(means[k] - v) <= 3 * sds[k]
+              for k, v in sir.TRUE_PARS.items()),
+          "SIR posterior means beyond 3 posterior sd of TRUE_PARS")
+    return counts, temps
+
+
+def sir_cpu_trail(card_temps: list[float]) -> None:
+    """SIR config 4 with the same seed on the CPU (plain versions, the
+    same Philox streams) for its first generations: its temperatures
+    beside the card's. The first two must agree within 1e-3; where the
+    two part after that is a finding."""
+    t0 = time.perf_counter()
+    h = sir_config4("cpu").run(max_nr_populations=SIR_GENS,
+                               max_total_nr_simulations=30_000)
+    wall = time.perf_counter() - t0
+    cpu = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_temps, cpu)]
+    parted = next((t for t, r in enumerate(rel) if r > 1e-3), None)
+    log(f"SIR config 4 on the CPU (seed 0, {len(cpu)} generations, "
+        f"{wall:.1f} s): temperatures {[round(t, 4) for t in cpu]}; |card "
+        f"- cpu| / cpu {[float(f'{r:.2e}') for r in rel]}; first generation "
+        f"apart by more than 1e-3: {parted}")
+    check(len(rel) >= 2 and max(rel[:2]) <= 1e-3,
+          "SIR: the CPU's first two temperatures differ from the card's by "
+          "more than 1e-3")
 
 
 def main() -> int:
@@ -1185,27 +1735,44 @@ def main() -> int:
         f"(nvcc {_build.build_seconds:.2f} s)")
 
     results = kernel_checks(dev)
+    results.update(noisy_checks(dev))
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
             f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) "
             f"library_ms={r['library_ms']}")
     gaussian_toy(dev)
+    noisy_anchor(dev)
     lotka_volterra(dev, adaptive=False, gens=6)
     counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
     profile_lv(dev)
     lv_cpu_trail(eps)
+    sir_counts, temps = sir_run(dev)
+    profile_run("SIR config 4", sir_config4(dev), SIR_GENS)
+    sir_cpu_trail(temps)
 
     kernels = []
     for k in KERNELS:
         r = results[k.name]
-        kernels.append({
+        # each kernel's launches on its slice's main path: LV config 2 for
+        # K1-K11, SIR config 4 for K20, K21a and K21b
+        own = sir_counts if k.name in NOISY_KERNELS else counts
+        entry = {
             "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": counts[k.name],
+            "replaces": k.replaces, "launches": own[k.name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-        })
+            "launches_by_path": {"lv_config2": counts[k.name],
+                                 "sir_config4": sir_counts[k.name]},
+        }
+        if k.name == "compact_round":
+            rec = results["compact_round_record"]
+            entry["record_mode"] = {
+                "max_abs_err": rec["err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
+                "bound_by": rec["bound"][1], "library_ms": None}
+        kernels.append(entry)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

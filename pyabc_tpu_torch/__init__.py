@@ -4,11 +4,18 @@ single-model ABC-SMC path, for one NVIDIA H100.
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
 """
-from .acceptor import UniformAcceptor
+from .acceptor import (ScaledPDFNorm, StochasticAcceptor, UniformAcceptor,
+                       pdf_norm_from_kernel, pdf_norm_max_found)
 from .core import RV, Distribution, ParameterSpace, Population
-from .distance import AdaptivePNormDistance, PNormDistance
-from .epsilon import (ConstantEpsilon, Epsilon, ListEpsilon, MedianEpsilon,
-                      QuantileEpsilon)
+from .distance import (SCALE_LIN, SCALE_LOG, AdaptivePNormDistance,
+                       IndependentNormalKernel, PNormDistance,
+                       StochasticKernel)
+from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
+                      Epsilon, EssScheme, ExpDecayFixedIterScheme,
+                      ExpDecayFixedRatioScheme, FrielPettittScheme,
+                      ListEpsilon, ListTemperature, MedianEpsilon,
+                      PolynomialDecayFixedIterScheme, QuantileEpsilon,
+                      Temperature, TemperatureScheme)
 from .inference import ABCSMC, DegenerateRunError
 from .model import TorchModel
 from .populationstrategy import ConstantPopulationSize
@@ -17,10 +24,16 @@ from .transition import (MultivariateNormalTransition, scott_rule_of_thumb,
                          silverman_rule_of_thumb)
 
 __all__ = [
-    "ABCSMC", "AdaptivePNormDistance", "ConstantEpsilon",
-    "ConstantPopulationSize", "DegenerateRunError", "Distribution",
-    "Epsilon", "History", "ListEpsilon", "MedianEpsilon",
-    "MultivariateNormalTransition", "PNormDistance",
-    "ParameterSpace", "Population", "QuantileEpsilon", "RV", "TorchModel",
-    "UniformAcceptor", "scott_rule_of_thumb", "silverman_rule_of_thumb",
+    "ABCSMC", "AcceptanceRateScheme", "AdaptivePNormDistance",
+    "ConstantEpsilon", "ConstantPopulationSize", "DalyScheme",
+    "DegenerateRunError", "Distribution", "Epsilon", "EssScheme",
+    "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
+    "FrielPettittScheme", "History", "IndependentNormalKernel",
+    "ListEpsilon", "ListTemperature", "MedianEpsilon",
+    "MultivariateNormalTransition", "PNormDistance", "ParameterSpace",
+    "PolynomialDecayFixedIterScheme", "Population", "QuantileEpsilon", "RV",
+    "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
+    "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",
+    "UniformAcceptor", "pdf_norm_from_kernel", "pdf_norm_max_found",
+    "scott_rule_of_thumb", "silverman_rule_of_thumb",
 ]

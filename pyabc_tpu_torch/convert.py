@@ -56,7 +56,12 @@ def carry(jax_carry: tuple, device=None) -> Carry:
     """The multigen carry slots this slice uses, from the JAX tuple
     ``(trans_params, log_model_probs, fitted, dist_w, eps, (pdf_norm,
     max_found, daly_k), stopped[, (eps_prev, stall_count)])`` with numpy
-    leaves. Single model: the first transition param set is taken."""
+    leaves. Single model: the first transition param set is taken. The
+    accept-state slots go to ``pdf_norm``, ``max_found`` and ``daly_k``
+    (a noisy-ABC run's norm, largest kernel value and Daly's k; ``eps``
+    is then its temperature and ``dist_w`` its kernel's variances); the
+    JAX package keeps the running minimum of a complete-history acceptor
+    in the first of them, so it also goes to ``hist_min``."""
     device = resolve_device(device)
     trans, _logp, fitted, dist_w, eps, acc_state = jax_carry[:6]
     health = jax_carry[7] if len(jax_carry) > 7 else (np.inf, 0)
@@ -70,4 +75,7 @@ def carry(jax_carry: tuple, device=None) -> Carry:
         eps_prev=_f32(health[0], device),
         stall_count=torch.as_tensor(np.asarray(health[1], np.int32),
                                     device=device),
+        pdf_norm=_f32(acc_state[0], device),
+        max_found=_f32(acc_state[1], device),
+        daly_k=_f32(acc_state[2], device),
     )

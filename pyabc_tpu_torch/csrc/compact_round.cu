@@ -10,6 +10,11 @@
 //   - the record ring keeps the first rec_cap evaluations in slot order:
 //     row `slot` gets (sumstats, distance, acc, valid=1) for every VALID
 //     lane with slot < rec_cap (rec_cap = 0: no ring);
+//   - record mode (a noisy-ABC run: rec_theta, rec_logq and logq given):
+//     ring row `slot` also gets the lane's theta (d floats) and logq, the
+//     log-density of the proposal it was drawn from
+//     (_generation_while(record_proposal=True)); with null pointers the
+//     kernel does exactly the work it did without the mode;
 //   - counters = [n_acc, r, n_valid, ...] are updated in device memory:
 //     n_acc += count(acc) (lanes dropped past n_cap still count, exactly
 //     like the JAX loop, since gen_ok reads it), r += 1,
@@ -37,7 +42,8 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
                      const float* __restrict__ theta,
                      const float* __restrict__ ss,
                      const float* __restrict__ dist,
-                     const float* __restrict__ logw, int n_cap,
+                     const float* __restrict__ logw,
+                     const float* __restrict__ logq, int n_cap,
                      float* __restrict__ res_theta, float* __restrict__ res_ss,
                      float* __restrict__ res_dist,
                      float* __restrict__ res_logw, int* __restrict__ res_slot,
@@ -45,6 +51,8 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
                      float* __restrict__ rec_dist,
                      uint8_t* __restrict__ rec_acc,
                      uint8_t* __restrict__ rec_valid,
+                     float* __restrict__ rec_theta,
+                     float* __restrict__ rec_logq,
                      int* __restrict__ counters) {
   __shared__ int s_pos[kThreads];   // reservoir row of the chunk's lanes
   __shared__ int s_ring[kThreads];  // ring row of the chunk's lanes
@@ -54,6 +62,7 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
   const int n_acc0 = counters[0];
   const int r = counters[1];
   const bool ring = rec_cap > 0 && rec_ss != nullptr;
+  const bool record = ring && rec_theta != nullptr;
   int taken = 0;      // accepted lanes in earlier chunks (uniform)
   int n_valid = 0;    // valid lanes so far (uniform)
 
@@ -89,6 +98,7 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
       rec_dist[q] = dist[i];
       rec_acc[q] = (uint8_t)a;
       rec_valid[q] = 1;
+      if (record) rec_logq[q] = logq[i];
     }
     const int cnt = min(kThreads, B - start);
     for (int idx = tid; idx < cnt * S; idx += kThreads) {
@@ -101,8 +111,11 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
     }
     for (int idx = tid; idx < cnt * d; idx += kThreads) {
       const int j = idx / d, k = idx - j * d;
+      const float val = theta[(size_t)(start + j) * d + k];
       const int p = s_pos[j];
-      if (p >= 0) res_theta[(size_t)p * d + k] = theta[(size_t)(start + j) * d + k];
+      if (p >= 0) res_theta[(size_t)p * d + k] = val;
+      const int q = s_ring[j];
+      if (record && q >= 0) rec_theta[(size_t)q * d + k] = val;
     }
     taken += chunk_total;
     __syncthreads();  // s_pos/s_ring/s_warp are rewritten by the next chunk
@@ -119,14 +132,17 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
 extern "C" int pyabc_compact_round(
     int B, int S, int d, const uint8_t* accept, const uint8_t* valid,
     const float* theta, const float* ss, const float* dist, const float* logw,
-    int n_cap, float* res_theta, float* res_ss, float* res_dist,
-    float* res_logw, int* res_slot, int rec_cap, float* rec_ss,
-    float* rec_dist, uint8_t* rec_acc, uint8_t* rec_valid, int* counters,
-    void* stream_ptr) {
+    const float* logq, int n_cap, float* res_theta, float* res_ss,
+    float* res_dist, float* res_logw, int* res_slot, int rec_cap, float* rec_ss,
+    float* rec_dist, uint8_t* rec_acc, uint8_t* rec_valid, float* rec_theta,
+    float* rec_logq, int* counters, void* stream_ptr) {
+  if ((rec_theta == nullptr) != (rec_logq == nullptr) ||
+      (rec_theta != nullptr && logq == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   compact_round_kernel<<<1, kThreads, 0, stream>>>(
-      B, S, d, accept, valid, theta, ss, dist, logw, n_cap, res_theta, res_ss,
-      res_dist, res_logw, res_slot, rec_cap, rec_ss, rec_dist, rec_acc,
-      rec_valid, counters);
+      B, S, d, accept, valid, theta, ss, dist, logw, logq, n_cap, res_theta,
+      res_ss, res_dist, res_logw, res_slot, rec_cap, rec_ss, rec_dist, rec_acc,
+      rec_valid, rec_theta, rec_logq, counters);
   return static_cast<int>(cudaGetLastError());
 }

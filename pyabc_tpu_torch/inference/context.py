@@ -5,14 +5,26 @@ One generation is a host loop of proposal rounds. Each round runs on the
 device: the proposal (K2 with its own Philox numbers, K1: prior draw, or
 weighted ancestor + MVN perturbation with ``N_REDRAWS`` redraws against
 zero prior mass), the proposal density (K3), the simulator (K4 for
-Lotka-Volterra, its noise drawn from Philox too), distance / accept /
-log-weight (K5) and the compaction into the slot-ordered reservoir and
-the record ring (K6). The host then reads the round counters once; that
-read is the round's only sync. After the last round the generation step
-(weight normalization and the quantile epsilon K7, the adaptive refit K9,
-the MVN refit K8, the health word K11) runs on the device with no host read
-at all: epsilon, distance weights and transition parameters stay device
-tensors from one generation to the next.
+Lotka-Volterra, K20 for SIR, their noise drawn from Philox too), distance /
+accept / log-weight (K5) and the compaction into the slot-ordered
+reservoir and the record ring (K6). The host then reads the round counters
+once; that read is the round's only sync. After the last round the
+generation step (weight normalization and the quantile epsilon K7, the
+adaptive refit K9, the MVN refit K8, the health word K11) runs on the
+device with no host read at all: epsilon, distance weights and transition
+parameters stay device tensors from one generation to the next.
+
+Noisy ABC (a ``StochasticAcceptor`` with a temperature epsilon,
+``pyabc_tpu`` ``multigen_kernel(stochastic=True)``): a round's kernel
+value, accept test and log weight come from K21a in place of K5, with the
+temperature and the pdf norm as device scalars and each lane's uniform on
+the accept stream; the record ring also keeps each record's theta and
+proposal log-density (K6's record mode). The generation step skips the
+quantile, evaluates the ring under the refit transition (K3) and runs K21b,
+which updates the pdf norm, the running maximum, Daly's k and the
+temperature on the device. The calibration gives the first norm and
+temperature from its sample through K21b too, so no temperature is ever
+read back to the host. The temperature rides ``Carry.eps``.
 
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
@@ -28,9 +40,11 @@ import torch
 
 from ..kernels import philox
 from ..kernels.compact import compact_round
+from ..kernels.kernel_accept import kernel_accept
 from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
 from ..kernels.propose import N_REDRAWS, propose
+from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
 from ..ops.stats import normalize_log_weights, weighted_quantile
@@ -47,11 +61,15 @@ class Carry:
 
     trans_params: dict
     fitted: torch.Tensor        # bool ()
-    dist_w: torch.Tensor        # (S,)
-    eps: torch.Tensor           # () threshold of the next generation
+    dist_w: torch.Tensor        # (S,); a stochastic kernel's variances
+    eps: torch.Tensor           # () threshold (temperature) of the next
     hist_min: torch.Tensor      # () running min of used epsilons
     eps_prev: torch.Tensor      # () health: previous epsilon
     stall_count: torch.Tensor   # () int32 health: stall counter
+    # noisy ABC: the pdf norm, the largest kernel value found, Daly's k
+    pdf_norm: torch.Tensor | None = None
+    max_found: torch.Tensor | None = None
+    daly_k: torch.Tensor | None = None
 
 
 @dataclass
@@ -74,7 +92,8 @@ class DeviceContext:
                  spec, x0: torch.Tensor, device: torch.device,
                  generator: torch.Generator, B: int, n_cap: int,
                  rec_cap: int, max_rounds: int,
-                 sync_ledger: SyncLedger | None = None, seed: int = 0):
+                 sync_ledger: SyncLedger | None = None, seed: int = 0,
+                 temp_config=None):
         self.model = model
         self.prior = prior
         self.distance = distance
@@ -96,6 +115,13 @@ class DeviceContext:
         self.sync_ledger = sync_ledger or SyncLedger()
         self.use_hist = bool(getattr(acceptor, "use_complete_history",
                                      False))
+        #: noisy ABC: K21b's descriptor (``epsilon.temperature.TempConfig``)
+        #: and its scheme tables on the device, built once
+        self.temp_config = temp_config
+        self.stochastic = temp_config is not None
+        if self.stochastic:
+            self.temp_tables = scheme_tables(temp_config.schemes, device)
+            self.init_tables = scheme_tables((temp_config.initial,), device)
 
     # ------------------------------------------------------------ buffers
     def new_reservoir(self) -> dict:
@@ -112,19 +138,25 @@ class DeviceContext:
         }
 
     def new_ring(self) -> dict | None:
+        """The record ring; a noisy-ABC run's also keeps each record's
+        theta and proposal log-density (``record_proposal``)."""
         if self.rec_cap <= 0:
             return None
-        dev = self.device
-        return {
-            "sumstats": torch.zeros(self.rec_cap, self.S,
-                                    dtype=torch.float32, device=dev),
-            "distance": torch.zeros(self.rec_cap, dtype=torch.float32,
+        dev, f32 = self.device, torch.float32
+        ring = {
+            "sumstats": torch.zeros(self.rec_cap, self.S, dtype=f32,
                                     device=dev),
+            "distance": torch.zeros(self.rec_cap, dtype=f32, device=dev),
             "accepted": torch.zeros(self.rec_cap, dtype=torch.bool,
                                     device=dev),
             "valid": torch.zeros(self.rec_cap, dtype=torch.bool,
                                  device=dev),
         }
+        if self.stochastic:
+            ring["theta"] = torch.zeros(self.rec_cap, self.d, dtype=f32,
+                                        device=dev)
+            ring["logq"] = torch.zeros(self.rec_cap, dtype=f32, device=dev)
+        return ring
 
     # -------------------------------------------------------------- lanes
     def stream(self, t: int, tag: int) -> PhiloxStream:
@@ -138,23 +170,40 @@ class DeviceContext:
             theta, self.generator, self.spec,
             stream=self.stream(t, philox.SIM_NOISE))
 
+    def _accept(self, ss, eps, dist_w, valid, hist_min, pdf_norm, t,
+                logpri=None, logq=None):
+        """K21a (noisy ABC) or K5 -> (distance, accept, log weight)."""
+        if self.stochastic:
+            return kernel_accept(
+                ss, self.x0, dist_w, eps, pdf_norm, valid,
+                stream=self.stream(t, philox.ACCEPT),
+                lin=self.temp_config.lin,
+                apply_iw=self.acceptor.apply_importance_weighting,
+                logpri=logpri, logq=logq)
+        return pnorm_accept_weight(
+            ss, self.x0, dist_w, eps, valid, p=self.distance.p,
+            hist_min=hist_min, logpri=logpri, logq=logq)
+
     def lanes_prior(self, eps: torch.Tensor, dist_w: torch.Tensor,
                     hist_min: torch.Tensor | None = None, *, t: int = 0,
-                    tag: int = philox.PRIOR) -> dict:
+                    tag: int = philox.PRIOR,
+                    pdf_norm: torch.Tensor | None = None) -> dict:
         """One round proposed from the prior (generation 0, calibration)."""
-        theta, _logpri, valid = propose(self.stream(t, tag), self.B,
-                                        self.prior_arrays)
+        theta, logpri, valid = propose(self.stream(t, tag), self.B,
+                                       self.prior_arrays)
         ss = self._simulate(theta, t)
-        d, accept, logw = pnorm_accept_weight(
-            ss, self.x0, dist_w, eps, valid, p=self.distance.p,
-            hist_min=hist_min)
+        d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
+                                       pdf_norm, t)
+        # the record's proposal density: the prior's (K = 1)
         return {"theta": theta, "sumstats": ss, "distance": d,
-                "accepted": accept, "valid": valid, "log_weight": logw}
+                "accepted": accept, "valid": valid, "log_weight": logw,
+                "logq": logpri}
 
     def lanes_transition(self, params: dict, eps: torch.Tensor,
                          dist_w: torch.Tensor,
                          hist_min: torch.Tensor | None = None, *,
-                         t: int) -> dict:
+                         t: int, pdf_norm: torch.Tensor | None = None
+                         ) -> dict:
         """One round proposed from the fitted transition (t > 0), with
         redraws against zero prior mass (K2)."""
         theta, logpri, valid = propose(self.stream(t, philox.TRANSITION),
@@ -162,11 +211,11 @@ class DeviceContext:
         logq = self.transition.device_logpdf(theta, params)
         ss = self._simulate(theta, t)
         # K = 1: log model prior = log model factor = 0
-        d, accept, logw = pnorm_accept_weight(
-            ss, self.x0, dist_w, eps, valid, p=self.distance.p,
-            hist_min=hist_min, logpri=logpri, logq=logq, log_offset=0.0)
+        d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
+                                       pdf_norm, t, logpri=logpri, logq=logq)
         return {"theta": theta, "sumstats": ss, "distance": d,
-                "accepted": accept, "valid": valid, "log_weight": logw}
+                "accepted": accept, "valid": valid, "log_weight": logw,
+                "logq": logq}
 
     # --------------------------------------------------------- generation
     def generation_while(self, lanes, n_target: int,
@@ -177,6 +226,7 @@ class DeviceContext:
         record ring (the calibration sample reduces the reservoir)."""
         res = self.new_reservoir()
         rec = self.new_ring() if ring else None
+        record = rec is not None and "theta" in rec
         counters = torch.zeros(4, dtype=torch.int32, device=self.device)
         self.counters = counters
         if eps_at_min is not None:
@@ -185,7 +235,8 @@ class DeviceContext:
             out = lanes()
             compact_round(out["accepted"], out["valid"], out["theta"],
                           out["sumstats"], out["distance"],
-                          out["log_weight"], res, rec, counters)
+                          out["log_weight"], res, rec, counters,
+                          logq=out["logq"] if record else None)
             host = counters.cpu()
             self.sync_ledger.record("round_counters", host.nbytes)
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
@@ -223,13 +274,33 @@ class DeviceContext:
                 mask.to(torch.float32), alpha) * multiplier
         return w0, eps0, run
 
+    def calibrate_stochastic(self, n_cal: int, var: torch.Tensor):
+        """Noisy ABC's calibration: prior round(s) at T = +inf (every lane
+        with a finite kernel value is accepted), then K21b over the sample's
+        kernel values -> (T0, pdf_norm0, max_found0, the GenerationRun);
+        the host ``StochasticAcceptor.initialize`` and
+        ``Temperature.initialize`` at t = 0, on the device."""
+        inf = torch.tensor(math.inf, dtype=torch.float32, device=self.device)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        run = self.generation_while(
+            lambda: self.lanes_prior(inf, var, t=CALIBRATION_GENERATION,
+                                     tag=philox.CALIBRATION, pdf_norm=zero),
+            n_cal, ring=False)
+        temp0, pdf_norm0, max_found0 = temperature_update.initial(
+            res_distance=run.res["distance"],
+            k_mask=self.k_mask(run.counters, n_cal),
+            tables=self.init_tables, config=self.temp_config)
+        return temp0, pdf_norm0, max_found0, run
+
     def generation_step(self, carry: Carry, run: GenerationRun, *,
                         n_target: int, adaptive: bool, eps_quantile: bool,
                         eps_weighted: bool, alpha: float, multiplier: float,
-                        fit_statics: dict, health_config: tuple | None):
+                        fit_statics: dict, health_config: tuple | None,
+                        t: int = 0):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute -> quantile
-        epsilon -> MVN refit -> health word. Returns (carry, outputs)."""
+        epsilon -> MVN refit -> [noisy ABC: K3 over the ring, K21b] ->
+        health word. Returns (carry, outputs)."""
         res, counters = run.res, run.counters
         k_mask = self.k_mask(counters, n_target)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
@@ -261,6 +332,21 @@ class DeviceContext:
                "log_weight": res["log_weight"], "sumstats": res["sumstats"],
                "eps_used": eps_g, "eps_next": eps_next,
                "dist_w_next": dist_w_next}
+        noisy = {}
+        if self.stochastic:
+            cfg = self.temp_config
+            logq_new = (self.transition.device_logpdf(run.rec["theta"],
+                                                      trans_next)
+                        if cfg.needs_logq_new else None)
+            eps_next, pdf_n, mf_n, dk_n = temperature_update.update(
+                rec=run.rec, logq_new=logq_new, res_distance=res["distance"],
+                k_mask=k_mask, w_norm=w_norm, pdf_norm=carry.pdf_norm,
+                max_found=carry.max_found, daly_k=carry.daly_k, temp=eps_g,
+                acc_rate=acc_rate, tables=self.temp_tables, t_next=t + 1,
+                config=cfg)
+            noisy = {"pdf_norm": pdf_n, "max_found": mf_n, "daly_k": dk_n}
+            out.update(eps_next=eps_next, pdf_norm_next=pdf_n,
+                       max_found_next=mf_n, daly_k_next=dk_n)
         eps_prev_n, stall_n = carry.eps_prev, carry.stall_count
         if health_config is not None:
             ess_floor, acc_floor, stall_w, stall_rtol = health_config
@@ -277,5 +363,5 @@ class DeviceContext:
         nxt = Carry(trans_params=trans_next, fitted=fitted_next,
                     dist_w=dist_w_next, eps=eps_next,
                     hist_min=hist_min_next, eps_prev=eps_prev_n,
-                    stall_count=stall_n)
+                    stall_count=stall_n, **noisy)
         return nxt, out

@@ -7,6 +7,13 @@ chunk the host reads only the per-round counters; the accepted rows of the
 chunk come back in one packed fetch (K10), after which the chunk's
 generations are persisted to History. The device carries epsilon, distance
 weights and transition parameters between generations and chunks.
+
+Noisy ABC (``IndependentNormalKernel`` + ``StochasticAcceptor`` +
+``Temperature`` or ``ListTemperature``) runs on the same loop: the device
+carries the temperature (in epsilon's place; History's ``epsilon`` column
+holds it, as in the JAX package), the pdf norm, the largest kernel value
+found and Daly's k, and the host objects (``acceptor.pdf_norms``,
+``eps.temperatures``) mirror them after each chunk's fetch.
 """
 from __future__ import annotations
 
@@ -20,13 +27,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..acceptor.acceptor import UniformAcceptor
+from ..acceptor.acceptor import StochasticAcceptor, UniformAcceptor
 from ..core.population import Population
 from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
+from ..distance.kernel import IndependentNormalKernel, StochasticKernel
 from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
+from ..epsilon.temperature import (ListTemperature, Temperature,
+                                   device_config)
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
 from ..ops.health import decode
@@ -35,6 +45,7 @@ from ..ops.pack import (fetch_dtype_of, pack_rows, pack_sumstats,
 from ..populationstrategy import ConstantPopulationSize
 from ..storage.history import History
 from ..transition.multivariatenormal import MultivariateNormalTransition
+from ..utils import not_ported as _not_ported
 from ..utils import pick_batch, pow2_bucket, resolve_device
 from .context import Carry, DeviceContext
 
@@ -50,12 +61,6 @@ class DegenerateRunError(RuntimeError):
             f"generation {t} failed its health checks: {decode(word)} "
             f"(word {word}); rollback and recovery are not ported yet "
             f"(ROADMAP queue A, item 8)")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to pyabc_tpu_torch yet (ROADMAP queue A, "
-        f"item {item})")
 
 
 def exp_normalize_log_weights(log_w) -> np.ndarray:
@@ -130,18 +135,34 @@ class ABCSMC:
 
         distance = (distance_function if distance_function is not None
                     else PNormDistance(p=2))
-        if type(distance) not in (PNormDistance, AdaptivePNormDistance):
+        if type(distance) not in (PNormDistance, AdaptivePNormDistance,
+                                  IndependentNormalKernel):
             raise _not_ported(f"distance {type(distance).__name__}", "12")
         self.distance_function = distance
         self.eps = eps if eps is not None else MedianEpsilon()
-        if not isinstance(self.eps, (QuantileEpsilon, ListEpsilon,
-                                     ConstantEpsilon)):
-            raise _not_ported(f"epsilon {type(self.eps).__name__} "
-                              f"(temperatures belong to noisy ABC)", "11")
         acceptor = acceptor if acceptor is not None else UniformAcceptor()
-        if type(acceptor) is not UniformAcceptor:
+        if type(acceptor) not in (UniformAcceptor, StochasticAcceptor):
             raise _not_ported(f"acceptor {type(acceptor).__name__}", "11")
         self.acceptor = acceptor
+        #: noisy ABC: a stochastic acceptor, kernel and temperature
+        self.stochastic = type(acceptor) is StochasticAcceptor
+        if self.stochastic:
+            # the JAX package's sanity pairing
+            if not isinstance(distance, StochasticKernel):
+                raise ValueError("StochasticAcceptor requires a "
+                                 "StochasticKernel distance")
+            if not isinstance(self.eps, (Temperature, ListTemperature)):
+                raise ValueError(
+                    "StochasticAcceptor requires a Temperature epsilon (a "
+                    "distance-quantile epsilon would yield a negative "
+                    "'temperature' and invert acceptance)")
+        elif isinstance(distance, StochasticKernel):
+            raise _not_ported("a stochastic kernel without a "
+                              "StochasticAcceptor", "11")
+        elif not isinstance(self.eps, (QuantileEpsilon, ListEpsilon,
+                                       ConstantEpsilon)):
+            raise _not_ported(f"epsilon {type(self.eps).__name__} without "
+                              f"a StochasticAcceptor", "11")
         if isinstance(population_size, ConstantPopulationSize):
             self.population_strategy = population_size
         elif isinstance(population_size, (int, np.integer)):
@@ -230,9 +251,12 @@ class ABCSMC:
             max_walltime = max_walltime.total_seconds()
         self.generation_log = []
         self.sync_ledger.reset()
+        if minimum_epsilon is None:
+            # the JAX package's default: a temperature schedule stops at
+            # T = 1 (the exact posterior), a threshold runs to the others
+            minimum_epsilon = 1.0 if type(self.eps) is Temperature else 0.0
         self._run_fused(
-            minimum_epsilon=(0.0 if minimum_epsilon is None
-                             else float(minimum_epsilon)),
+            minimum_epsilon=float(minimum_epsilon),
             max_nr_populations=max_nr_populations,
             min_acceptance_rate=float(min_acceptance_rate),
             max_total_nr_simulations=max_total_nr_simulations,
@@ -245,9 +269,14 @@ class ABCSMC:
         d = self.distance_function
         d.initialize(self.spec)
         adaptive = bool(getattr(d, "adaptive", False))
+        temp_config = None
+        if self.stochastic:
+            self.acceptor._kernel = d
+            temp_config = device_config(self.eps, d, self.acceptor)
         n_cap = pow2_bucket(n, 64)
         B = pick_batch(n)
-        rec_cap = pow2_bucket(max(8 * n_cap, 1), 256) if adaptive else 0
+        rec_cap = (pow2_bucket(max(8 * n_cap, 1), 256)
+                   if adaptive or self.stochastic else 0)
         max_rounds = self.MAX_ROUNDS
         if min_acceptance_rate > 0:
             max_rounds = max(1, min(max_rounds,
@@ -260,13 +289,16 @@ class ABCSMC:
             spec=self.spec, x0=x0, device=self.device,
             generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
             max_rounds=max_rounds, sync_ledger=self.sync_ledger,
-            seed=self.seed)
+            seed=self.seed, temp_config=temp_config)
 
     def _health_config(self):
         if not self.health_checks:
             return None
-        stall_w = (self.eps_stall_window
-                   if isinstance(self.eps, QuantileEpsilon) else 0)
+        # the stall window arms only for schedules that adapt from the
+        # data: quantile thresholds and temperature schemes
+        adapts = isinstance(self.eps, QuantileEpsilon) or (
+            self.stochastic and type(self.eps) is Temperature)
+        stall_w = self.eps_stall_window if adapts else 0
         return (self.ess_floor, self.health_acc_floor, stall_w,
                 self.eps_stall_rtol)
 
@@ -280,7 +312,14 @@ class ABCSMC:
                    max_walltime) -> None:
         t_start = time.perf_counter()
         n = self.population_strategy(0)
+        if type(self.eps) is Temperature:
+            # the horizon the fixed-iteration schemes and the final T = 1
+            # read (the host Temperature.initialize's max_nr_populations)
+            self.eps._max_nr_populations = (
+                int(max_nr_populations) if np.isfinite(max_nr_populations)
+                else None)
         ctx = self._build_context(n, min_acceptance_rate)
+        stochastic = ctx.stochastic
         d = self.distance_function
         adaptive = bool(getattr(d, "adaptive", False))
         eps_quantile = isinstance(self.eps, QuantileEpsilon)
@@ -307,11 +346,20 @@ class ABCSMC:
         calib = None
         calib_w = isinstance(d, AdaptivePNormDistance)
         calib_eps = self.eps.requires_calibration()
-        if calib_w or calib_eps:
+        # a stochastic acceptor always calibrates: the first pdf norm (and
+        # the first temperature) come from a prior sample, on the device
+        if stochastic or calib_w or calib_eps:
             n_cal = (self.population_strategy.nr_calibration_particles or n)
             if n_cal > ctx.n_cap:
                 raise ValueError(f"nr_calibration_particles {n_cal} exceeds "
                                  f"the reservoir ({ctx.n_cap})")
+        if stochastic:
+            temp0, pdf0, mf0, _run = ctx.calibrate_stochastic(
+                int(n_cal), carry.dist_w)
+            carry.eps, carry.daly_k = temp0, temp0
+            carry.pdf_norm, carry.max_found = pdf0, mf0
+            calib = {"temp0": temp0, "pdf_norm0": pdf0, "max_found0": mf0}
+        elif calib_w or calib_eps:
             w0, eps0, _run = ctx.calibrate(
                 int(n_cal), carry.dist_w, calib_w=calib_w,
                 calib_eps=calib_eps, alpha=statics["alpha"],
@@ -341,17 +389,25 @@ class ABCSMC:
                 tg = t + g
                 t_gen = time.perf_counter()
                 syncs0 = self.sync_ledger.count
-                if not eps_quantile or (tg == 0 and not calib_eps):
+                if stochastic:
+                    # a ListTemperature ladder comes from the host
+                    host_eps = ctx.temp_config.fixed
+                else:
+                    host_eps = not eps_quantile or (tg == 0
+                                                    and not calib_eps)
+                if host_eps:
                     carry.eps = self._scalar(self.eps(tg))
                 hist = carry.hist_min if ctx.use_hist else None
                 at_min = carry.eps <= min_eps
                 if tg == 0:
                     def lanes(c=carry, h=hist):
-                        return ctx.lanes_prior(c.eps, c.dist_w, h, t=0)
+                        return ctx.lanes_prior(c.eps, c.dist_w, h, t=0,
+                                               pdf_norm=c.pdf_norm)
                 else:
                     def lanes(c=carry, h=hist, tg=tg):
-                        return ctx.lanes_transition(c.trans_params, c.eps,
-                                                    c.dist_w, h, t=tg)
+                        return ctx.lanes_transition(
+                            c.trans_params, c.eps, c.dist_w, h, t=tg,
+                            pdf_norm=c.pdf_norm)
                 run = ctx.generation_while(lanes, n, eps_at_min=at_min)
                 gen_ok = run.n_acc >= min(n, ctx.n_cap)
                 if not gen_ok:
@@ -360,7 +416,8 @@ class ABCSMC:
                                 n, run.rounds)
                     stop = True
                     break
-                carry, out = ctx.generation_step(carry, run, **statics)
+                carry, out = ctx.generation_step(carry, run, t=tg,
+                                                 **statics)
                 outs.append(out)
                 sims_total += run.n_valid
                 acc_rate = n / max(run.n_valid, 1)
@@ -381,7 +438,8 @@ class ABCSMC:
                 break
             t_fetch = time.perf_counter()
             fetched = self._fetch_chunk(outs, t, n, fetch_dtype, adaptive,
-                                        calib if chunk_index == 0 else None)
+                                        calib if chunk_index == 0 else None,
+                                        stochastic)
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
             chunk_s = time.perf_counter() - t_chunk
@@ -391,7 +449,8 @@ class ABCSMC:
             chunk_index += 1
 
     # ------------------------------------------------------ fetch/persist
-    def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib) -> dict:
+    def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
+                     stochastic) -> dict:
         """Pack the chunk's generations and read them in one sync."""
         each = lambda k: [o[k] for o in outs]  # noqa: E731
         stack = lambda k: torch.stack(each(k))  # noqa: E731
@@ -410,12 +469,14 @@ class ABCSMC:
                 dtype=dtype)
         if adaptive:
             tree["dist_w_next"] = stack("dist_w_next")
+        if stochastic:
+            for k in ("pdf_norm_next", "max_found_next", "daly_k_next"):
+                tree[k] = stack(k)
         if "health" in outs[0]:
             tree["health"] = stack("health")
             tree["ess"] = stack("ess")
         if calib is not None:
-            tree["calib_w0"] = calib["w0"]
-            tree["calib_eps0"] = calib["eps0"]
+            tree.update({f"calib_{k}": v for k, v in calib.items()})
         host = self._to_host(tree)
         host["ss_gens"] = ss_gens
         return host
@@ -440,6 +501,10 @@ class ABCSMC:
 
     def _persist_chunk(self, fetched, host_gen, t0, n, chunk_index, chunk_s,
                        eps_quantile, adaptive) -> None:
+        if "calib_pdf_norm0" in fetched:
+            self._mirror_noisy(-1, fetched["calib_pdf_norm0"],
+                               fetched["calib_max_found0"],
+                               fetched["calib_temp0"])
         if "calib_w0" in fetched:
             self.distance_function.weights[0] = np.asarray(
                 fetched["calib_w0"], np.float64)
@@ -481,8 +546,30 @@ class ABCSMC:
             if adaptive:
                 self.distance_function.weights[t + 1] = np.asarray(
                     fetched["dist_w_next"][g], np.float64)
+            if "pdf_norm_next" in fetched:
+                self._mirror_noisy(
+                    t, fetched["pdf_norm_next"][g],
+                    fetched["max_found_next"][g], fetched["eps_next"][g],
+                    fetched["daly_k_next"][g])
             self.generation_log.append({**info, "eps": eps_used,
                                         "chunk_s": chunk_s})
             logger.info("t: %d, eps: %.8g, acceptance rate: %.5f (%d "
                         "evaluations)", t, eps_used,
                         info["acceptance_rate"], info["n_valid"])
+
+    def _mirror_noisy(self, t, pdf_norm, max_found, temp,
+                      daly_k=None) -> None:
+        """Mirror generation t + 1's device noisy-ABC state into the host
+        objects (t = -1: the calibration's, for generation 0); a
+        ListTemperature ladder is already authoritative."""
+        self.acceptor.pdf_norms[t + 1] = float(pdf_norm)
+        if np.isfinite(float(max_found)):
+            self.acceptor._max_found = max(self.acceptor._max_found,
+                                           float(max_found))
+        if type(self.eps) is not Temperature:
+            return
+        self.eps.temperatures[t + 1] = float(temp)
+        if daly_k is not None:
+            for sch in self.eps._effective_schemes():
+                if type(sch).__name__ == "DalyScheme":
+                    sch._k[t + 1] = float(daly_k)

@@ -6,6 +6,7 @@ package builds nothing: the kernels are compiled at first launch.
 """
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
+from .kernel_accept import kernel_accept, kernel_accept_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
 from .mvn_fit import mvn_fit, mvn_fit_plain
 from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
@@ -15,12 +16,15 @@ from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
 from .propose import propose, propose_plain
 from .scale_reduce import scale_reduce, scale_reduce_plain
+from .sir_simulate import sir_simulate, sir_simulate_plain
+from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
-#: K3-K11)
+#: K3-K11, K20, K21a, K21b)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
-           pack_fetch, generation_health)
+           pack_fetch, generation_health, sir_simulate, kernel_accept,
+           temperature_update)
 
 
 def reset_launch_counts() -> None:
@@ -34,11 +38,14 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS", "cast_rows_plain", "compact_round", "compact_round_plain",
-    "generation_health", "generation_health_plain", "launch_counts",
+    "generation_health", "generation_health_plain", "kernel_accept",
+    "kernel_accept_plain", "launch_counts",
     "lv_simulate", "lv_simulate_plain", "mvn_fit", "mvn_fit_plain",
     "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain",
     "normalize_log_weights_plain", "normalize_quantile", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_plain", "reset_launch_counts", "scale_reduce",
-    "scale_reduce_plain", "weighted_quantile_plain",
+    "scale_reduce_plain", "sir_simulate", "sir_simulate_plain",
+    "temperature_update", "temperature_update_plain",
+    "weighted_quantile_plain",
 ]

@@ -39,11 +39,19 @@ SIGNATURES = {
     "pyabc_lv_simulate": [
         _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _P, _P,
         _P],
+    "pyabc_sir_simulate": [
+        _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_pnorm_accept_weight": [
         _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P],
     "pyabc_compact_round": [
-        _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-        _I, _P, _P, _P, _P, _P, _P],
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "pyabc_temperature_update": [
+        _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+        _F, _I, _I, _F, _I, _I, _F, _F, _I, _P, _P, _P],
+    "pyabc_kernel_accept": [
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _U, _U, _U, _U, _U,
+        _P, _P, _P, _P, _P],
     "pyabc_propose": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _P,
         _I, _P, _P, _P, _P],

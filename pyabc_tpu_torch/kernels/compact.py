@@ -7,6 +7,13 @@ kernel is ``csrc/compact_round.cu``. ``res`` is the slot-ordered reservoir
 the record ring (``sumstats``, ``distance``, ``accepted``, ``valid``) or
 None, and ``counters`` the int32 device vector ``[n_acc, r, n_valid, ...]``.
 Everything is updated in place.
+
+Record mode (a noisy-ABC run, ``_generation_while(record_proposal=True)``):
+the ring also holds ``theta`` and ``logq``, each record's parameters and
+the log-density of the proposal it was drawn from (the prior's in
+generation 0), and the round passes its ``logq``. Without those columns
+the compaction is exactly the plain one. The model index ``m`` of the JAX
+ring is not kept: the port runs one model.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from .base import Kernel
 
 
 def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
-                        rec: dict | None, counters: torch.Tensor) -> None:
+                        rec: dict | None, counters: torch.Tensor,
+                        logq: torch.Tensor | None = None) -> None:
     """Plain PyTorch version (in place)."""
     B = accept.shape[0]
     n_cap = res["distance"].shape[0]
@@ -41,6 +49,9 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
         rec["distance"][ridx] = dist[take]
         rec["accepted"][ridx] = acc[take]
         rec["valid"][ridx] = True
+        if "theta" in rec:
+            rec["theta"][ridx] = theta[take]
+            rec["logq"][ridx] = logq[take]
     counters[0] += acc.sum(dtype=torch.int32)
     counters[1] += 1
     counters[2] += valid.sum(dtype=torch.int32)
@@ -52,12 +63,18 @@ class CompactRound(Kernel):
     replaces = "pyabc_tpu/inference/util.py:563"
 
     def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
-                 rec: dict | None, counters: torch.Tensor) -> None:
+                 rec: dict | None, counters: torch.Tensor,
+                 logq: torch.Tensor | None = None) -> None:
+        record = rec is not None and "theta" in rec
+        if record != (logq is not None):
+            raise ValueError(f"{self.name}: a ring with theta/logq columns "
+                             f"and the round's logq go together")
         bufs = list(res.values()) + (list(rec.values()) if rec else [])
+        extra = [logq] if logq is not None else []
         if self.on_cpu(accept, valid, theta, ss, dist, logw, counters,
-                       *bufs):
+                       *bufs, *extra):
             compact_round_plain(accept, valid, theta, ss, dist, logw, res,
-                                rec, counters)
+                                rec, counters, logq)
             return
         B, d = theta.shape
         S = ss.shape[1]
@@ -79,6 +96,7 @@ class CompactRound(Kernel):
             raise ValueError(f"{self.name}: counters need 3 entries")
         rec_cap = 0
         rec_ptrs = [None, None, None, None]
+        record_ptrs = [None, None]
         if rec is not None:
             rec_cap = rec["distance"].shape[0]
             self.expect(rec["sumstats"], "rec.sumstats", f32, (rec_cap, S))
@@ -87,12 +105,17 @@ class CompactRound(Kernel):
             self.expect(rec["valid"], "rec.valid", b8, (rec_cap,))
             rec_ptrs = [rec[k].data_ptr() for k in
                         ("sumstats", "distance", "accepted", "valid")]
+        if record:
+            self.expect(logq, "logq", f32, (B,))
+            self.expect(rec["theta"], "rec.theta", f32, (rec_cap, d))
+            self.expect(rec["logq"], "rec.logq", f32, (rec_cap,))
+            record_ptrs = [rec["theta"].data_ptr(), rec["logq"].data_ptr()]
         err = _build.library().pyabc_compact_round(
             B, S, d, accept.data_ptr(), valid.data_ptr(), theta.data_ptr(),
-            ss.data_ptr(), dist.data_ptr(), logw.data_ptr(), n_cap,
-            res["theta"].data_ptr(), res["sumstats"].data_ptr(),
+            ss.data_ptr(), dist.data_ptr(), logw.data_ptr(), self.ptr(logq),
+            n_cap, res["theta"].data_ptr(), res["sumstats"].data_ptr(),
             res["distance"].data_ptr(), res["log_weight"].data_ptr(),
-            res["slot"].data_ptr(), rec_cap, *rec_ptrs,
+            res["slot"].data_ptr(), rec_cap, *rec_ptrs, *record_ptrs,
             counters.data_ptr(), _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1

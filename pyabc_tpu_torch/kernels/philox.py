@@ -31,8 +31,8 @@ TWO_PI_F32 = 6.28318548202514648
 ROUND = 1
 
 #: stream tags: calibration rounds, the generation-0 prior, the transition
-#: proposal, the simulator's noise
-CALIBRATION, PRIOR, TRANSITION, SIM_NOISE = range(4)
+#: proposal, the simulator's noise, the stochastic accept's uniform
+CALIBRATION, PRIOR, TRANSITION, SIM_NOISE, ACCEPT = range(5)
 
 
 @dataclass(frozen=True)
@@ -122,6 +122,18 @@ def normals(stream: PhiloxStream, lanes: torch.Tensor, base: int,
                      box_muller(u[2], u[3], False),
                      box_muller(u[2], u[3], True)], dim=-1)
     return z.reshape(lanes.shape[0], nb * 4)[:, :n]
+
+
+def generator_stream(generator: torch.Generator,
+                     device: torch.device) -> PhiloxStream:
+    """A simulator-noise stream for a call outside the rounds: keyed by the
+    generator's seed, its round a number drawn from the generator on the
+    device (so nothing is read back and each call moves on)."""
+    counters = torch.zeros(4, dtype=torch.int32, device=device)
+    counters[ROUND] = torch.randint(
+        0, 2 ** 31 - 1, (), generator=generator, device=device,
+        dtype=torch.int32)
+    return PhiloxStream(generator.initial_seed(), 0, SIM_NOISE, 1, counters)
 
 
 def _as_i32_bits(x: torch.Tensor) -> torch.Tensor:

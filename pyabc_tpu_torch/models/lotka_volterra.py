@@ -14,7 +14,7 @@ import torch
 from ..core.random_variables import RV, Distribution
 from ..core.sumstat_spec import SumStatSpec
 from ..kernels.lv_simulate import lv_rhs, lv_simulate
-from ..kernels.philox import ROUND, SIM_NOISE, PhiloxStream
+from ..kernels.philox import PhiloxStream, generator_stream
 from ..model import TorchModel
 from .ode import rk4_dt
 
@@ -41,18 +41,8 @@ class LotkaVolterraModel(TorchModel):
         super().__init__(self._sim_dict,
                          ["alpha", "beta", "gamma", "delta"], name=name)
 
-    @staticmethod
-    def generator_stream(generator: torch.Generator,
-                         device: torch.device) -> PhiloxStream:
-        """A simulator-noise stream for a call outside the rounds: keyed by
-        the generator's seed, its round a number drawn from the generator
-        on the device (so nothing is read back and each call moves on)."""
-        counters = torch.zeros(4, dtype=torch.int32, device=device)
-        counters[ROUND] = torch.randint(
-            0, 2 ** 31 - 1, (), generator=generator, device=device,
-            dtype=torch.int32)
-        return PhiloxStream(generator.initial_seed(), 0, SIM_NOISE, 1,
-                            counters)
+    #: a simulator-noise stream for a call outside the rounds
+    generator_stream = staticmethod(generator_stream)
 
     def simulate_with_noise(self, theta: torch.Tensor,
                             noise: torch.Tensor | None,

@@ -1,4 +1,5 @@
-"""Small shared helpers: device resolution and bucket sizing."""
+"""Small shared helpers: device resolution, bucket sizing and the error for
+what is not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -35,3 +36,10 @@ def pick_batch(n: int) -> int:
     defaults: a 0.5 acceptance estimate, 1.3 overshoot, 256 to 2^17
     lanes): enough for one round to fill n."""
     return pow2_bucket(max(int(n / 0.5 * 1.3), 256), 256, 1 << 17)
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a configuration outside the ported path raises."""
+    return NotImplementedError(
+        f"{what} is not ported to pyabc_tpu_torch yet (ROADMAP queue A, "
+        f"item {item})")

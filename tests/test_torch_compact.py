@@ -1,5 +1,6 @@
-"""Port parity: K6 (the mask-and-refill compaction) against the JAX
-package's ``DeviceContext._generation_while``.
+"""Port parity: K6 (the mask-and-refill compaction, and its record mode
+for noisy ABC) against the JAX package's
+``DeviceContext._generation_while``.
 
 A deterministic JAX ``run_lanes`` makes the round outputs from
 ``fold_in(key, r)``; the JAX while-loop consumes them inside its trace and
@@ -21,7 +22,9 @@ import pyabc_tpu as jpt  # noqa: E402
 from pyabc_tpu.inference.util import DeviceContext as JaxContext  # noqa: E402
 from pyabc_tpu_torch import RV, Distribution  # noqa: E402
 from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec  # noqa: E402
+from pyabc_tpu_torch.epsilon.temperature import TempConfig  # noqa: E402
 from pyabc_tpu_torch.inference.context import DeviceContext  # noqa: E402
+from pyabc_tpu_torch.kernels import compact_round  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -29,8 +32,9 @@ B, D, S = 64, 2, 5
 
 
 def _run_lanes(key, dyn):
-    k = jax.random.split(key, 6)
+    k = jax.random.split(key, 7)
     return {
+        "logq": jax.random.normal(k[6], (B,)),
         "m": jnp.zeros((B,), jnp.int32),
         "theta": jax.random.normal(k[0], (B, D)),
         "sumstats": jax.random.normal(k[1], (B, S)),
@@ -55,13 +59,17 @@ def _jax_ctx():
                       transition_cls=jpt.MultivariateNormalTransition)
 
 
-def _port_ctx(n_cap, rec_cap, max_rounds):
+def _port_ctx(n_cap, rec_cap, max_rounds, record=False):
     prior = Distribution(a=RV("norm", 0, 1), b=RV("norm", 0, 1))
+    # a noisy-ABC run (a temperature descriptor) keeps the record columns
+    temp_config = TempConfig(schemes=(), max_np=-1, pdf_max=None, lin=False,
+                             pdf_scaled=None, initial=("constant", 1.0))
     return DeviceContext(
         model=None, prior=prior, distance=None, acceptor=None,
         transition=None, spec=SumStatSpec({"s": np.zeros(S)}),
         x0=torch.zeros(S), device=torch.device("cpu"), generator=None, B=B,
-        n_cap=n_cap, rec_cap=rec_cap, max_rounds=max_rounds)
+        n_cap=n_cap, rec_cap=rec_cap, max_rounds=max_rounds,
+        temp_config=temp_config if record else None)
 
 
 @pytest.mark.parametrize("n_cap,n_target,rec_cap,max_rounds", [
@@ -93,6 +101,53 @@ def test_compaction_matches_generation_while(n_cap, n_target, rec_cap,
     for k in ("sumstats", "distance", "accepted", "valid"):
         np.testing.assert_array_equal(run.rec[k].numpy(),
                                       np.asarray(rec[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("n_cap,n_target,rec_cap,max_rounds", [
+    (64, 64, 128, 10),   # round 2 overflows the reservoir
+    (128, 100, 96, 10),  # three rounds, the ring fills mid-round
+])
+def test_record_mode_matches_generation_while(n_cap, n_target, rec_cap,
+                                              max_rounds):
+    """``record_proposal=True``: the ring also keeps each valid record's
+    theta and proposal log-density, in slot order, exactly as the JAX
+    ring; the plain columns are the same as without the mode."""
+    key = jax.random.key(13)
+    n_acc, rounds, n_valid, res, rec = _jax_ctx()._generation_while(
+        key, None, jnp.int32(n_target), B=B, n_cap=n_cap, rec_cap=rec_cap,
+        max_rounds=max_rounds, run_lanes=_run_lanes, record_proposal=True)
+
+    def lanes(r=iter(range(100))):
+        out = _run_lanes(jax.random.fold_in(key, next(r)), None)
+        return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+    run = _port_ctx(n_cap, rec_cap, max_rounds, record=True)\
+        .generation_while(lanes, n_target)
+    assert (run.n_acc, run.rounds, run.n_valid) == (int(n_acc), int(rounds),
+                                                   int(n_valid))
+    assert set(run.rec) == {"sumstats", "distance", "accepted", "valid",
+                            "theta", "logq"}
+    for k in ("theta", "logq", "sumstats", "distance", "accepted",
+              "valid"):
+        np.testing.assert_array_equal(run.rec[k].numpy(),
+                                      np.asarray(rec[k]), err_msg=k)
+    for k in ("theta", "sumstats", "distance", "log_weight", "slot"):
+        np.testing.assert_array_equal(run.res[k].numpy(),
+                                      np.asarray(res[k]), err_msg=k)
+
+
+def test_record_mode_needs_the_round_logq():
+    ctx = _port_ctx(64, 128, 4, record=True)
+    res, rec = ctx.new_reservoir(), ctx.new_ring()
+    out = {k: torch.from_numpy(np.array(v)) for k, v in
+           _run_lanes(jax.random.key(1), None).items()}
+    args = (out["accepted"], out["valid"], out["theta"], out["sumstats"],
+            out["distance"], out["log_weight"], res, rec,
+            torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="logq"):
+        compact_round(*args)
+    compact_round(*args, logq=out["logq"])
+    assert bool(rec["valid"][:B].any())
 
 
 def test_no_ring_when_rec_cap_is_zero():

@@ -1,6 +1,7 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K11) against its
-plain PyTorch version on the CUDA device, at small shapes and at the
-main-path shapes of BASELINE config 2. Marked ``gpu``; without a card
+"""Card tests: each hand-written kernel (K2 with K1, K3-K11, K20, K21a,
+K21b and K6's record mode) against its plain PyTorch version on the CUDA
+device, at small shapes and at the main-path shapes of BASELINE configs 2
+and 4. Marked ``gpu``; without a card
 every test skips (the decision is taken in a fixture, so every worker
 collects the same tests).
 
@@ -192,7 +193,11 @@ def test_lv_run_on_the_card(dev):
     reset_launch_counts()
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4
-    assert all(v > 0 for v in launch_counts().values())
+    # every kernel of the LV path (the noisy-ABC kernels are not on it)
+    noisy = ("sir_simulate", "kernel_accept", "temperature_update")
+    counts = launch_counts()
+    assert all(v > 0 for k, v in counts.items() if k not in noisy)
+    assert all(counts[k] == 0 for k in noisy)
     eps = np.asarray(h.get_all_populations()["epsilon"][1:])
     assert np.all(np.isfinite(eps)) and eps[-1] < eps[0]
 
@@ -486,3 +491,223 @@ def test_generation_health_kernel(dev, kind):
                                equal_nan=True)
     assert (int(word) == 0) == (kind in ("ok", "nan_masked_rows",
                                          "unfitted", "all_masked"))
+
+
+# ------------------------------------------- K20, K21a, K21b, K6 records
+def _sir_round(dev, B):
+    from pyabc_tpu_torch.models import sir
+
+    g = _gen(dev, 20)
+    theta = sir.default_prior().rvs_array(B, g, dev)
+    theta[:4] = torch.tensor([[0.05, 0.01], [1.0, 0.5], [0.05, 0.5],
+                              [1.0, 0.01]], device=dev)
+    model = sir.make_sir_model()
+    kw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
+              n_pop=sir.N_POP)
+    return theta.contiguous(), kw
+
+
+@pytest.mark.parametrize("B", [77, 4096])
+@pytest.mark.parametrize("noise_sd", [0.0, 10.0])
+def test_sir_simulate_kernel(dev, B, noise_sd):
+    from pyabc_tpu_torch.kernels import sir_simulate, sir_simulate_plain
+
+    theta, kw = _sir_round(dev, B)
+    stream = _stream(dev, philox.SIM_NOISE, seed=B) if noise_sd else None
+    before = sir_simulate.launches
+    got = sir_simulate(theta, noise_sd=noise_sd, stream=stream, **kw)
+    assert sir_simulate.launches == before + 1
+    ref = sir_simulate_plain(theta, noise_sd=noise_sd, stream=stream, **kw)
+    assert got.shape == (B, 15) and bool(got.isfinite().all())
+    # FMA contraction over 112 RK4 steps: |err| <= 1e-3 + 1e-4 |x|
+    assert bool(((got - ref).abs() <= 1e-3 + 1e-4 * ref.abs()).all())
+
+
+def _noisy_round(dev, B):
+    from pyabc_tpu_torch.models import sir
+
+    theta, kw = _sir_round(dev, B)
+    from pyabc_tpu_torch.kernels import sir_simulate_plain
+    ss = sir_simulate_plain(theta, **kw)
+    x0 = torch.as_tensor(sir.observed_data(seed=11)["infected"],
+                         dtype=torch.float32, device=dev)
+    var = torch.full((15,), 100.0, device=dev)
+    return theta, ss, x0, var
+
+
+@pytest.mark.parametrize("B", [77, 4096])
+@pytest.mark.parametrize("mode", ["prior", "transition", "lin"])
+def test_kernel_accept_kernel(dev, B, mode):
+    from pyabc_tpu_torch.kernels import kernel_accept, kernel_accept_plain
+    from pyabc_tpu_torch.kernels.kernel_accept import accept_uniforms
+
+    _theta, ss, x0, var = _noisy_round(dev, B)
+    g = _gen(dev, 21)
+    valid = torch.rand(B, generator=g, device=dev) > 0.05
+    temp = torch.tensor(300.0, device=dev)
+    pdf_norm = torch.tensor(-48.3, device=dev)
+    kw = dict(stream=_stream(dev, philox.ACCEPT, seed=B), lin=mode == "lin",
+              apply_iw=True)
+    if mode == "transition":
+        kw.update(logpri=torch.randn(B, generator=g, device=dev),
+                  logq=torch.randn(B, generator=g, device=dev))
+    args = (ss, x0, var, temp, pdf_norm, valid)
+    v, a, lw = kernel_accept(*args, **kw)
+    v_r, a_r, lw_r = kernel_accept_plain(*args, **kw)
+    # 15 float32 terms summed in another order: rel 1e-5
+    torch.testing.assert_close(v, v_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(lw, lw_r, rtol=1e-5, atol=1e-5)
+    ratio = ((torch.log(v_r.clamp_min(1e-30)) if mode == "lin" else v_r)
+             - pdf_norm) / temp
+    logu = torch.log(accept_uniforms(kw["stream"], B))
+    clear = (logu - ratio).abs() > 1e-5 * (1 + ratio.abs())
+    assert torch.equal(a[clear], a_r[clear])
+    assert not bool(a[~valid].any())
+
+
+@pytest.mark.parametrize("B,n", SHAPES)
+def test_compact_round_record_mode_kernel(dev, B, n):
+    g = _gen(dev, 6)
+    S, d, rec_cap = 15, 2, 3 * B // 2
+    theta = torch.randn(B, d, generator=g, device=dev)
+    ss = torch.randn(B, S, generator=g, device=dev)
+    dist = torch.randn(B, generator=g, device=dev)
+    logw = torch.randn(B, generator=g, device=dev)
+    logq = torch.randn(B, generator=g, device=dev)
+
+    def bufs():
+        res = {"theta": torch.zeros(n, d, device=dev),
+               "sumstats": torch.zeros(n, S, device=dev),
+               "distance": torch.zeros(n, device=dev),
+               "log_weight": torch.full((n,), -math.inf, device=dev),
+               "slot": torch.full((n,), -1, dtype=torch.int32, device=dev)}
+        rec = {"sumstats": torch.zeros(rec_cap, S, device=dev),
+               "distance": torch.zeros(rec_cap, device=dev),
+               "accepted": torch.zeros(rec_cap, dtype=torch.bool,
+                                       device=dev),
+               "valid": torch.zeros(rec_cap, dtype=torch.bool, device=dev),
+               "theta": torch.zeros(rec_cap, d, device=dev),
+               "logq": torch.zeros(rec_cap, device=dev)}
+        return res, rec
+
+    (rk, ck), (rp, cp) = bufs(), bufs()
+    ctr_k = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctr_p = torch.zeros(4, dtype=torch.int32, device=dev)
+    for _ in range(3):
+        accept = torch.rand(B, generator=g, device=dev) < 0.6
+        valid = torch.rand(B, generator=g, device=dev) < 0.9
+        compact_round(accept, valid, theta, ss, dist, logw, rk, ck, ctr_k,
+                      logq=logq)
+        compact_round_plain(accept, valid, theta, ss, dist, logw, rp, cp,
+                            ctr_p, logq)
+    assert torch.equal(ctr_k, ctr_p)
+    for a, b in [*zip(rk.values(), rp.values()),
+                 *zip(ck.values(), cp.values())]:
+        assert torch.equal(a, b)
+    # the ring keeps the valid lanes of the first 1.5 rounds
+    assert int(ck["valid"].sum()) > B and not bool(ck["valid"].all())
+
+
+def _temp_inputs(dev, n_cap, rec_cap, n_keep, n_valid, seed=0):
+    g = _gen(dev, seed)
+    d = 2
+    k_mask = torch.arange(n_cap, device=dev) < n_keep
+    w = torch.where(k_mask, torch.rand(n_cap, generator=g, device=dev),
+                    torch.zeros(n_cap, device=dev))
+    res_theta = torch.randn(n_cap, d, generator=g, device=dev) * 0.1 + 0.4
+    params = MultivariateNormalTransition.device_fit(
+        res_theta, w / w.sum(), dim=d, scaling=1.0,
+        bandwidth_selector=silverman_rule_of_thumb)
+    rec = {"theta": torch.randn(rec_cap, d, generator=g, device=dev) * 0.2
+           + 0.4,
+           "logq": torch.randn(rec_cap, generator=g, device=dev),
+           "distance": torch.randn(rec_cap, generator=g, device=dev) * 20
+           - 300.0,
+           "valid": torch.arange(rec_cap, device=dev) < n_valid}
+    logq_new = mvn_mixture_logpdf_plain(rec["theta"], params)
+    v = torch.randn(n_cap, generator=g, device=dev) * 15 - 280.0
+
+    def f(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return dict(rec=rec, logq_new=logq_new, res_distance=v, k_mask=k_mask,
+                w_norm=w / w.sum(), pdf_norm=f(-48.3), max_found=f(-60.0),
+                daly_k=f(500.0), temp=f(800.0), acc_rate=f(0.05))
+
+
+SCHEME_CASES = [
+    (("acceptance_rate", 0.3),), (("acceptance_rate", 0.3),
+                                  ("exp_decay_fixed_iter",)),
+    (("poly_decay_fixed_iter", 3.0),), (("exp_decay_fixed_ratio", 0.5,
+                                         1e-4, 0.5),),
+    (("friel_pettitt",),), (("daly", 0.5, 0.1),), (("ess", 0.8),), (),
+]
+
+
+@pytest.mark.parametrize("n_cap,rec_cap,n_keep,n_valid", [
+    (64, 512, 33, 301), (1024, 8192, 1000, 8192)])
+@pytest.mark.parametrize("schemes", SCHEME_CASES)
+@pytest.mark.parametrize("scaled", [None, (10.0, 0.5)])
+def test_temperature_update_kernel(dev, n_cap, rec_cap, n_keep, n_valid,
+                                   schemes, scaled):
+    from pyabc_tpu_torch.epsilon.temperature import TempConfig
+    from pyabc_tpu_torch.kernels import temperature_update
+    from pyabc_tpu_torch.kernels.temperature_update import scheme_tables
+
+    x = _temp_inputs(dev, n_cap, rec_cap, n_keep, n_valid)
+    cfg = TempConfig(schemes=schemes, max_np=8, pdf_max=None, lin=False,
+                     pdf_scaled=scaled, initial=("acceptance_rate", 0.3))
+    kw = dict(x, tables=scheme_tables(schemes, dev), t_next=3, config=cfg)
+    before = temperature_update.launches
+    got = temperature_update.update(**kw)
+    assert temperature_update.launches == before + 1
+    cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+               else v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in kw.items() if k != "tables"}
+    ref = temperature_update.update(tables=scheme_tables(schemes, "cpu"),
+                                    **cpu)
+    got, ref = [float(t) for t in got], [float(t) for t in ref]
+    bisected = any(s[0] in ("acceptance_rate", "ess") for s in schemes)
+    # a bisection step may flip where the rate lies within float32 rounding
+    # of the target: rel 1e-4; the rest rel 1e-6
+    assert got[0] == pytest.approx(ref[0], rel=1e-4 if bisected else 1e-6)
+    assert got[1:] == pytest.approx(ref[1:], rel=1e-6)
+    # the initial temperature from the reservoir as a calibration sample
+    t0 = temperature_update.initial(
+        res_distance=x["res_distance"], k_mask=x["k_mask"],
+        tables=scheme_tables((cfg.initial,), dev), config=cfg)
+    t0_ref = temperature_update.initial(
+        res_distance=x["res_distance"].cpu(), k_mask=x["k_mask"].cpu(),
+        tables=scheme_tables((cfg.initial,), "cpu"), config=cfg)
+    assert float(t0[0]) == pytest.approx(float(t0_ref[0]), rel=1e-4)
+    assert [float(t) for t in t0[1:]] == pytest.approx(
+        [float(t) for t in t0_ref[1:]], rel=1e-6)
+
+
+def test_noisy_runs_on_the_card(dev):
+    """The noisy Gaussian anchor and SIR config 4 (pop 200) through the
+    card's kernels, every plain version unused."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import sir
+
+    abc = pt.ABCSMC(sir.make_sir_model(), sir.default_prior(),
+                    pt.IndependentNormalKernel(var=[100.0] * 15),
+                    population_size=200, eps=pt.Temperature(),
+                    acceptor=pt.StochasticAcceptor(), seed=0, device=dev)
+    abc.MAX_ROUNDS = 1024
+    abc.new("sqlite://", sir.observed_data(seed=11), store_sum_stats=False)
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=8)
+    counts = launch_counts()
+    temps = [float(x) for x in h.get_all_populations()["epsilon"][1:]]
+    assert h.n_populations == 8 and temps[-1] == 1.0
+    assert all(b <= a for a, b in zip(temps, temps[1:]))
+    for k in ("sir_simulate", "kernel_accept", "temperature_update",
+              "compact_round", "mvn_mixture_logpdf", "propose", "mvn_fit",
+              "normalize_quantile", "generation_health", "pack_fetch"):
+        assert counts[k] > 0, k
+    assert counts["pnorm_accept_weight"] == counts["lv_simulate"] == 0
+    df, w = h.get_distribution()
+    for k, true in sir.TRUE_PARS.items():
+        assert abs(float(np.sum(df[k] * w)) - true) < 0.05

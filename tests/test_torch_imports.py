@@ -74,6 +74,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # itself (pyabc_tpu_torch) imports; every submodule was imported
     assert "pyabc_tpu_torch.inference.smc" in res["modules"]
     assert "pyabc_tpu_torch.kernels._build" in res["modules"]
+    # the noisy-ABC slice's modules keep their own copies of what they
+    # need of the JAX package (pdf norms, temperature schemes, SIR)
+    assert {"pyabc_tpu_torch.acceptor.pdf_norm",
+            "pyabc_tpu_torch.distance.kernel",
+            "pyabc_tpu_torch.epsilon.temperature",
+            "pyabc_tpu_torch.kernels.kernel_accept",
+            "pyabc_tpu_torch.kernels.sir_simulate",
+            "pyabc_tpu_torch.kernels.temperature_update",
+            "pyabc_tpu_torch.models.sir"} <= set(res["modules"])
     assert res["loaded"] == []
     # without CUDA the default device raises and names the way out
     assert res["raised"] is not None and "device='cpu'" in res["raised"]

@@ -1,5 +1,6 @@
-"""Port parity: K4 (the Lotka-Volterra RK4 simulator) and the Gaussian
-simulators, on the same numpy parameters and noise as the JAX package."""
+"""Port parity: K4 (the Lotka-Volterra RK4 simulator), K20 (the SIR RK4
+simulator) and the Gaussian simulators, on the same numpy parameters and
+noise as the JAX package."""
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -12,10 +13,13 @@ import torch  # noqa: E402
 
 from pyabc_tpu.models import gaussian as jgauss  # noqa: E402
 from pyabc_tpu.models import lotka_volterra as jlv  # noqa: E402
+from pyabc_tpu.models import sir as jsir  # noqa: E402
 from pyabc_tpu.models.ode import rk4_at_times as jrk4  # noqa: E402
 from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec  # noqa: E402
-from pyabc_tpu_torch.kernels import lv_simulate  # noqa: E402
-from pyabc_tpu_torch.models import gaussian, lotka_volterra  # noqa: E402
+from pyabc_tpu_torch.kernels import lv_simulate, philox  # noqa: E402
+from pyabc_tpu_torch.kernels.sir_simulate import (  # noqa: E402
+    sir_simulate_plain)
+from pyabc_tpu_torch.models import gaussian, lotka_volterra, sir  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -127,3 +131,65 @@ def test_gaussian_models_match_jax():
                                rtol=1e-6)
     assert gaussian.conjugate_posterior(1.0) == jgauss.conjugate_posterior(
         1.0)
+
+
+# ------------------------------------------------------------------- K20
+def _sir_thetas(n=64):
+    """64 thetas: prior draws, the prior's four corners and edge midpoints,
+    and the true parameters."""
+    rng = np.random.default_rng(4)
+    edges = np.array([[0.05, 0.01], [0.05, 0.5], [1.0, 0.01], [1.0, 0.5],
+                      [0.05, 0.2], [1.0, 0.2], [0.4, 0.01], [0.4, 0.5],
+                      [0.4, 0.1]])
+    draws = np.stack([rng.uniform(0.05, 1.0, n - len(edges)),
+                      rng.uniform(0.01, 0.5, n - len(edges))], 1)
+    return np.concatenate([draws, edges]).astype(np.float32)
+
+
+def test_sir_plain_matches_jax():
+    theta = _sir_thetas()
+    jmodel = jsir.make_sir_model()
+    ref = np.asarray(jax.vmap(lambda th: jmodel.sim(
+        jax.random.key(0), th)["infected"])(jnp.asarray(theta)))
+    model = sir.make_sir_model()
+    got = model.simulate(torch.from_numpy(theta)).numpy()
+    assert got.shape == (64, 15) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got[:, 0], np.float32(1.0))
+    # same float32 RK4 operation order over 112 steps, values up to 1e3:
+    # |err| <= 1e-3 + 1e-5 |ref| covers XLA's CPU code generation
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-3)
+    # the round's flat rows are the same numbers (spec {"infected": 15})
+    spec = SumStatSpec({"infected": np.zeros(15)})
+    flat = model.simulate_flat(torch.from_numpy(theta), None, spec).numpy()
+    np.testing.assert_array_equal(flat, got)
+
+
+def test_sir_dt_prior_and_observation_match_jax():
+    model = sir.make_sir_model()
+    ts32 = np.linspace(0.0, 60.0, 15).astype(np.float32)
+    assert model.dt == float((ts32[1] - ts32[0]) / np.float32(8))
+    jprior, prior = jsir.default_prior(), sir.default_prior()
+    assert list(prior.rv_map) == list(jprior.rv_map) == ["beta", "gamma"]
+    for k, rv in prior.rv_map.items():
+        assert (rv.name, (rv.loc, rv.scale)) == (
+            jprior.rv_map[k].name, jprior.rv_map[k].args)
+    assert sir.TRUE_PARS == jsir.TRUE_PARS and sir.Y0 == jsir.Y0
+    # both packages add numpy's noise to their float32 ODE: equal up to
+    # the RK4's rounding
+    np.testing.assert_allclose(sir.observed_data(seed=11)["infected"],
+                               jsir.observed_data(seed=11)["infected"],
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_sir_noise_comes_from_the_philox_stream():
+    theta = torch.from_numpy(_sir_thetas()[-8:])
+    stream = philox.PhiloxStream(5, 2, philox.SIM_NOISE, 256,
+                                 torch.tensor([0, 3, 0, 0],
+                                              dtype=torch.int32))
+    kw = dict(n_obs=15, n_substeps=8, dt=sir.make_sir_model().dt,
+              n_pop=sir.N_POP)
+    clean = sir_simulate_plain(theta, **kw)
+    noisy = sir_simulate_plain(theta, noise_sd=10.0, stream=stream, **kw)
+    z = philox.normals(stream, torch.arange(8), 0, 15)
+    np.testing.assert_allclose((noisy - clean).numpy(), (10.0 * z).numpy(),
+                               rtol=1e-5, atol=1e-4)
