@@ -14,7 +14,11 @@ Phases, one or more lines each:
    shape (d = 1, n_cap = 64, an odd valid count); then K20 (SIR), K21a
    (noise kernel + stochastic accept), K21b (pdf norm + temperature) and
    K6's record mode at the shapes of BASELINE config 4 (B = 4096, n_cap =
-   1024, d = 2, S = 15, the ring 8192 rows) and at a small odd shape; each
+   1024, d = 2, S = 15, the ring 8192 rows) and at a small odd shape; then
+   K20b (the ODE family), K26 (the model step) and the K > 1 modes of K2,
+   K3, K5, K6, K8, K10 and K11 at the shapes of BASELINE config 5 (B =
+   4096, n_cap = 1024, K = 3, d_max = 2, S = 12, a chunk of G = 8) and at
+   a small odd shape (K = 2, d_max = 1, n_cap = 64, 33 kept rows); each
    with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -30,6 +34,9 @@ Phases, one or more lines each:
    Gaussian anchor (x = theta under IndependentNormalKernel(var 0.09),
    Temperature, StochasticAcceptor, pop 1000, 32 seeds) the same way, its
    posterior mean and sd against the exact posterior N(0.7339, 0.2874^2);
+   then the model-selection anchor (the tractable pair at x_obs 0.7, pop
+   600, 6 generations, 16 seeds), the seed mean of P(m = 0) against the
+   exact 0.5529 and the card's against the CPU's;
 4. Lotka-Volterra config 2 (AdaptivePNormDistance(p=2), MedianEpsilon,
    pop 1000, observed_data(seed=0)), 10 generations: throughput, wall time
    and syncs per generation, the epsilon trail and the posterior means.
@@ -47,10 +54,17 @@ Phases, one or more lines each:
    trail, which must end at exactly 1, and posterior means within 3
    posterior sd of the true parameters; once more under torch.profiler;
    and the same seed on the CPU for its first generations' temperatures.
+   Then BASELINE config 5 (the ODE family of K = 3 models at its defaults,
+   observed_ode_family(seed=0, true_model=1), PNormDistance(p=2),
+   MedianEpsilon, pop 1000, 8 generations), counts reset just before and
+   read just after: throughput, syncs, the epsilon trail, the model
+   probabilities and the per-model posterior means; once more under
+   torch.profiler; and the same seed on the CPU, whose first three
+   epsilons must equal the card's within 1e-4 relative.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K11, K20, K21a, K21b) is replaced by a function that raises, so
-none can run on the path unseen.
+kernel (K1-K11, K20, K20b, K21a, K21b, K26 and the K > 1 modes) is
+replaced by a function that raises, so none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -86,6 +100,8 @@ SIR_PATH = ("propose", "mvn_mixture_logpdf", "sir_simulate", "kernel_accept",
             "compact_round", "normalize_quantile", "mvn_fit", "pack_fetch",
             "generation_health", "temperature_update")
 NOISY_KERNELS = ("sir_simulate", "kernel_accept", "temperature_update")
+#: the kernels config 5 (model selection) brought: K20b and K26
+MODEL_KERNELS = ("ode_family_simulate", "model_step")
 #: Random123's known-answer vectors for Philox4x32-10
 PHILOX_KAT = [
     ((0, 0, 0, 0), (0, 0),
@@ -1230,8 +1246,424 @@ def temperature_update_plain_of(inp, schemes, cfg, calibration=False):
         acc_rate=inp["acc_rate"], **kw)
 
 
+# ------------------------------------------------- phase 2, model selection
+#: config 5's shapes: K models, d_max, the ODE family's S, a chunk of G
+K_MODELS, D_MAX_C5, S_C5 = 3, 2, 12
+
+
+def model_priors(dev, K: int, d_max: int):
+    """Stacked priors: the ODE family's (K 3, d_max 2) or, for the small
+    shape, K one-dimensional ones (a uniform and normals)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.core.random_variables import stacked_arrays
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    if (K, d_max) == (K_MODELS, D_MAX_C5):
+        priors = msel.ode_family()[1]
+    else:
+        priors = [pt.Distribution(a=pt.RV("uniform", -1.0, 2.0))] + [
+            pt.Distribution(a=pt.RV("norm", 0.1 * k, 1.0))
+            for k in range(1, K)]
+    return stacked_arrays(priors, dev)
+
+
+def near_step(u, p):
+    """Lanes whose uniform lies within float32 rounding of a step of the
+    inverse CDF over the rows ``p (B, K)`` (or one row): there the kernel
+    and the plain version may take neighbouring models."""
+    import torch
+
+    p = p.expand(u.shape[0], -1)
+    cum = torch.cumsum(p.double(), dim=1)
+    x = u.double()[:, None] * cum[:, -1:]
+    return ((cum - x).abs() <= 1e-5 * cum[:, -1:]).any(dim=1)
+
+
+def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None):
+    """K2's K > 1 mode against its plain version: the model of every lane
+    equal (but where its uniform lies within rounding of a step), theta
+    and logpri as compare_propose."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose
+    from pyabc_tpu_torch.kernels.propose import (categorical_plain,
+                                                 lane_blocks, model_stream,
+                                                 propose_models_plain,
+                                                 uniform_of)
+
+    st = stream_on(dev, philox.PRIOR if params is None
+                   else philox.TRANSITION)
+    got = propose.models(st, B, priors, model_p, params, mpk)
+    ref = propose_models_plain(st, B, priors, model_p, params, mpk)
+    lanes = torch.arange(B, device=dev)
+    w = lane_blocks(model_stream(st), lanes,
+                    torch.zeros((), dtype=torch.int64, device=dev))
+    if params is None:
+        near = near_step(uniform_of(w[0]), model_p[None, :])
+    else:
+        probs = torch.exp(model_p)[None, :]
+        near = near_step(uniform_of(w[0]), probs)
+        anc = categorical_plain(probs.expand(B, -1), uniform_of(w[0]))
+        near |= near_step(uniform_of(w[1]), mpk[anc.long()])
+    th_k, lp_k, v_k, m_k = got
+    th_p, lp_p, v_p, m_p = ref
+    K = priors["loc"].shape[0]
+    lo, hi = priors["loc"][m_p.long()], priors["hi"][m_p.long()]
+    bound_ = ((((th_p - lo).abs() < 1e-4) | ((th_p - hi).abs() < 1e-4))
+              & (priors["kind"][m_p.long()] == 1)).any(dim=1)
+    same_m = m_k == m_p
+    odd = ~same_m | (v_k != v_p) | (
+        (th_k - th_p).abs() - 1e-5 * th_p.abs() > 1e-5).any(dim=1)
+    ok = ~odd & v_p
+    lp_err = float((lp_k - lp_p)[ok].abs().max()) if bool(ok.any()) else 0.
+    err = max(float((th_k - th_p)[~odd].abs().max()), lp_err)
+    padded = torch.arange(th_k.shape[1], device=dev)[None, :] >= \
+        priors["dims"][m_k.long()][:, None]
+    log(f"K2 propose K>1 ({'prior' if params is None else 'transition'}, "
+        f"B={B}, K={K}, d_max={th_k.shape[1]}): max_abs_err={err:.3e} "
+        f"models apart={int((~same_m).sum())} (all near a step: "
+        f"{bool(near[~same_m].all())}), lanes apart={int(odd.sum())} "
+        f"model counts {torch.bincount(m_k.long(), minlength=K).tolist()}")
+    check(bool(near[~same_m].all()) and bool((bound_ | ~same_m)[odd].all())
+          and lp_err <= 1e-5 and bool((th_k[padded] == 0).all()),
+          "K2 K>1 outside: models equal away from a step, theta abs 1e-5 + "
+          "rel 1e-5, logpri abs 1e-5, padded entries exactly 0")
+    return err, got
+
+
+def model_round(dev, B, n, K, d_max, S, n_keep, seed):
+    """One round of a run over K models and the generation step's inputs
+    on its first n rows: K2 (prior mode), K20b (noise on Philox), a
+    reservoir with n_keep kept rows and normalized weights."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    priors = model_priors(dev, K, d_max)
+    prior_p = torch.full((K,), 1.0 / K, device=dev)
+    theta, logpri, _v, m = propose.models(stream_on(dev, philox.PRIOR), B,
+                                          priors, prior_p)
+    fam = msel.ode_family(n_obs=S)[0][0].family
+    sim_kw = dict(n_obs=S, n_substeps=fam.n_substeps, dt=fam.dt, y0=msel.Y0,
+                  noise_sd=fam.noise_sd,
+                  stream=stream_on(dev, philox.SIM_NOISE))
+    k_mask = torch.arange(n, device=dev) < n_keep
+    logw = torch.where(k_mask, torch.randn(n, generator=g, device=dev),
+                       torch.full((n,), -math.inf, device=dev))
+    w = torch.softmax(logw, 0)
+    return dict(priors=priors, prior_p=prior_p, theta=theta, m=m,
+                logpri=logpri, sim_kw=sim_kw, k_mask=k_mask, w=w,
+                res_theta=theta[:n].contiguous(), res_m=m[:n].contiguous(),
+                fitted=torch.ones(K, dtype=torch.bool, device=dev))
+
+
+def model_checks_at(dev, B, n, K, d_max, S, n_keep, seed, timed):
+    """Every K > 1 mode and K20b, K26 against their plain versions on one
+    shape; with ``timed`` also their times and bounds -> results."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (compact_round, compact_round_plain,
+                                         generation_health, philox,
+                                         generation_health_plain, model_step,
+                                         model_step_plain, mvn_fit,
+                                         mvn_mixture_logpdf,
+                                         ode_family_simulate,
+                                         ode_family_simulate_plain,
+                                         pack_fetch, pnorm_accept_weight,
+                                         pnorm_accept_weight_plain, propose)
+    from pyabc_tpu_torch.kernels.mvn_fit import mvn_fit_models_plain
+    from pyabc_tpu_torch.kernels.mvn_logpdf import (
+        mvn_mixture_logpdf_models_plain)
+    from pyabc_tpu_torch.kernels.pack_fetch import pack_models_plain
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+    from pyabc_tpu_torch.transition import (ModelPerturbationKernel,
+                                            silverman_rule_of_thumb)
+
+    x = model_round(dev, B, n, K, d_max, S, n_keep, seed)
+    pri, theta, m = x["priors"], x["theta"], x["m"]
+    res = {}
+    shape = f"B={B}, n_cap={n}, K={K}, d_max={d_max}, S={S}"
+
+    # K2 prior mode
+    p_err, _ = compare_propose_models(dev, B, pri, x["prior_p"])
+
+    # K20b on the round
+    ss_k = ode_family_simulate(theta, m, **x["sim_kw"])
+    ss_p = ode_family_simulate_plain(theta, m, **x["sim_kw"])
+    fin = torch.isfinite(ss_p)
+    check(torch.equal(fin, torch.isfinite(ss_k)), "K20b non-finite lanes "
+          "differ")
+    ode_err = float((ss_k - ss_p).abs()[fin].max())
+    check(bool(((ss_k - ss_p).abs()[fin]
+                <= 1e-4 + 1e-4 * ss_p.abs()[fin]).all()),
+          "K20b outside |err| <= 1e-4 + 1e-4 |x| (FMA contraction over 66 "
+          "RK4 steps; Philox normals within 2e-6)")
+    log(f"K20b ode_family_simulate ({shape}): max_abs_err={ode_err:.3e} "
+        f"non-finite lanes={int((~fin).any(1).sum())}")
+
+    # K26 on the reservoir
+    mpk = torch.as_tensor(ModelPerturbationKernel(K).device_params(),
+                          device=dev)
+    step_in = (x["res_m"], x["w"], x["k_mask"], x["fitted"], mpk)
+    st_k, st_p = model_step(*step_in), model_step_plain(*step_in)
+    check(torch.equal(st_k["counts"], st_p["counts"])
+          and torch.equal(st_k["fitted"], st_p["fitted"]),
+          "K26 counts or fitted differ")
+    step_err = 0.0
+    for key in ("model_probs", "log_model_probs", "matrix",
+                "log_model_factor"):
+        check(within(st_k[key], st_p[key], 1e-7, 1e-5),
+              f"K26 {key} outside rel 1e-5")
+        step_err = max(step_err, float((st_k[key] - st_p[key]).abs()
+                                       .nan_to_num(0.0).max()))
+    log(f"K26 model_step ({shape}, {n_keep} kept): counts "
+        f"{st_k['counts'].tolist()} max_abs_err={step_err:.3e}")
+
+    # K8 per model, one launch
+    dims = [int(v) for v in pri["dims"].tolist()]
+    statics = [dict(scaling=1.0, bandwidth_selector=silverman_rule_of_thumb)
+               ] * K
+    fit_in = (x["res_theta"], x["w"], x["res_m"])
+    # the dims as a device tensor built once, as the run does (a copy to
+    # the card could not be captured in a CUDA graph)
+    fit_kw = dict(dims=dims, statics=statics,
+                  dims_tensor=pri["dims"].to(torch.float32))
+    fit_k = mvn_fit.models(*fit_in, **fit_kw)
+    fit_p = mvn_fit_models_plain(*fit_in, **fit_kw)
+    fit_err = 0.0
+    for k in range(K):
+        one = [{key: v[k] for key, v in f.items() if key != "dims"}
+               for f in (fit_k, fit_p)]
+        fit_err = max(fit_err, compare_fit(*one)[1])
+    log(f"K8 mvn_fit K>1 ({shape}): max_abs_err={fit_err:.3e}")
+
+    # K2 transition mode and K3 on its proposals
+    lmp, matrix = st_k["log_model_probs"], st_k["matrix"]
+    t_err, (q, _lp, q_valid, qm) = compare_propose_models(
+        dev, B, pri, lmp, fit_k, matrix)
+    p_err = max(p_err, t_err)
+    lq_k = mvn_mixture_logpdf.models(q, qm, fit_k)
+    lq_p = mvn_mixture_logpdf_models_plain(q, qm, fit_k)
+    lq_err = float((lq_k - lq_p).abs().max())
+    log(f"K3 mvn_mixture_logpdf K>1 ({shape}): max_abs_err={lq_err:.3e}")
+    check(lq_err <= 1e-3, "K3 K>1 outside |err| <= 1e-3")
+
+    # K5 with the model terms
+    logits = torch.log(x["prior_p"])
+    lmf = st_k["log_model_factor"]
+    qss = ode_family_simulate_plain(q, qm, **x["sim_kw"])
+    eps = torch.nanquantile(torch.linalg.vector_norm(qss - qss[0], dim=1),
+                            0.3)
+    k5_args = (qss, qss[0].contiguous(), torch.ones(S, device=dev), eps,
+               q_valid)
+    k5_kw = dict(p=2.0, logpri=_lp, logq=lq_p, m=qm, model_logits=logits,
+                 log_model_factor=lmf)
+    d_k, a_k, lw_k = pnorm_accept_weight(*k5_args, **k5_kw)
+    d_p, a_p, lw_p = pnorm_accept_weight_plain(*k5_args, **k5_kw)
+    far = (d_p - eps).abs() > 1e-5 * eps.abs()
+    fin = torch.isfinite(lw_p)
+    d_fin = torch.isfinite(d_p)
+    k5_err = max(float(((d_k - d_p).abs() / d_p.abs().clamp_min(1.0))
+                       [d_fin].max()),
+                 float((lw_k - lw_p).abs()[fin].max()) if bool(fin.any())
+                 else 0.0)
+    check(k5_err <= 1e-5 and bool((a_k == a_p)[far].all())
+          and torch.equal(torch.isfinite(lw_k), fin)
+          and torch.equal(torch.isfinite(d_k), d_fin),
+          "K5 K>1 outside rel 1e-5 or flags differ")
+    log(f"K5 pnorm_accept_weight K>1 ({shape}): max_err={k5_err:.3e} "
+        f"accepted={int(a_k.sum())}/{B}")
+
+    # K6 with the model column
+    def buffers():
+        f32 = torch.float32
+        r = {"theta": torch.zeros(n, d_max, device=dev),
+             "sumstats": torch.zeros(n, S, device=dev),
+             "distance": torch.zeros(n, device=dev),
+             "log_weight": torch.full((n,), -math.inf, dtype=f32,
+                                      device=dev),
+             "slot": torch.full((n,), -1, dtype=torch.int32, device=dev),
+             "m": torch.zeros(n, dtype=torch.int32, device=dev)}
+        return r, torch.zeros(4, dtype=torch.int32, device=dev)
+
+    k6_in = (a_k, q_valid, q, qss, d_k, lw_k)
+    (r_k, c_k), (r_p, c_p) = buffers(), buffers()
+    compact_round(*k6_in, r_k, None, c_k, m=qm)
+    compact_round_plain(*k6_in, r_p, None, c_p, m=qm)
+    check(torch.equal(c_k, c_p) and all(
+        torch.equal(r_k[key], r_p[key]) for key in r_k),
+        "K6 with the model column not bit-identical")
+    log(f"K6 compact_round K>1 ({shape}): counters {c_k.tolist()} exact")
+
+    # K10's model column on a chunk of reservoirs
+    ms = [torch.roll(x["res_m"], g).contiguous() for g in range(G_CHUNK)]
+    pk_k = pack_fetch.models(ms, n_keep=n_keep)
+    pk_p = pack_models_plain(ms, n_keep=n_keep)
+    check(torch.equal(pk_k, pk_p), "K10 model column not bit-identical")
+
+    # K11 over the K fits
+    def health_x(kind):
+        nxt = {key: v.clone() for key, v in fit_k.items()}
+        fitted = st_k["fitted"].clone()
+        if kind == "psd":
+            nxt["chol"][K - 1, 0, 0] = math.nan
+        elif kind == "unfitted":
+            nxt["chol"][K - 1, 0, 0] = math.nan
+            fitted[K - 1] = False
+        f = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                   device=dev)
+        return dict(theta=x["res_theta"], k_mask=x["k_mask"], w_norm=x["w"],
+                    d_new=torch.rand(n, device=dev),
+                    n_acc=x["k_mask"].sum(dtype=torch.int32),
+                    n_target=n_keep, acc_rate=f(0.3), trans_params=fit_k,
+                    trans_next=nxt, fitted=x["fitted"], fitted_next=fitted,
+                    eps_g=f(0.5), eps_next=f(0.4), eps_prev=f(1.0),
+                    stall_count=torch.tensor(0, dtype=torch.int32,
+                                             device=dev),
+                    ess_floor=0.0, acc_floor=0.0, stall_window=16,
+                    stall_rtol=1e-6)
+
+    words = {}
+    h_err = 0.0
+    for kind in ("ok", "psd", "unfitted"):
+        h_err = max(h_err, compare_health(health_x(kind)))
+        words[kind] = int(generation_health(**health_x(kind))[0])
+    check(words == {"ok": 0, "psd": 128, "unfitted": 0},
+          f"K11 K>1 words {words}, expected ok 0, psd 128, unfitted 0")
+    log(f"K10 pack_fetch K>1 ({shape}, G={G_CHUNK}): model column "
+        f"bit-identical; K11 generation_health K>1 words {words}")
+    if not timed:
+        return {}
+
+    # times and bounds at config 5's shapes
+    Bf, nf, Kf = float(B), float(n), float(K)
+    steps = (S - 1) * x["sim_kw"]["n_substeps"]
+    res["ode_family_simulate"] = dict(
+        err=ode_err,
+        call_ms=time_ms(lambda: ode_family_simulate(theta, m,
+                                                    **x["sim_kw"]), 50),
+        ms=graph_ms(lambda: ode_family_simulate(theta, m, **x["sim_kw"])),
+        plain_ms=time_ms(lambda: ode_family_simulate_plain(
+            theta, m, **x["sim_kw"]), 3),
+        # 4 right-hand sides (about 5 operations) and the RK4 update (8)
+        # per step; S Philox normals (a 10-round block makes four, ~38
+        # operations each)
+        bound=bound(Bf * (d_max * 4 + 4 + S * 4),
+                    Bf * (steps * (4 * 5 + 12) + S * 38)),
+        library_ms=None)
+    res["model_step"] = dict(
+        err=step_err, call_ms=time_ms(lambda: model_step(*step_in), 50),
+        ms=graph_ms(lambda: model_step(*step_in)),
+        plain_ms=time_ms(lambda: model_step_plain(*step_in), 10),
+        bound=bound(nf * 9 + Kf + Kf * Kf * 4 + Kf * 4 * 5 + Kf * Kf * 4,
+                    nf * 3 + 6 * Kf * Kf),
+        library_ms=None)
+    n_live = float((fit_k["weights"] > 0).sum(dim=1).float().mean())
+    st_t = stream_on(dev, philox.TRANSITION)
+    res["propose_models"] = dict(
+        err=p_err,
+        call_ms=time_ms(lambda: propose.models(st_t, B, pri, lmp, fit_k,
+                                               matrix), 50),
+        ms=graph_ms(lambda: propose.models(st_t, B, pri, lmp, fit_k,
+                                           matrix)),
+        plain_ms=time_ms(lambda: propose_models_plain(st_t, B, pri, lmp,
+                                                      fit_k, matrix), 5),
+        # the model block and one draw (its blocks, search, L z, prior)
+        bound=bound(Kf * (nf * (d_max + 1) + d_max * d_max + 5 * d_max + K
+                          + 2) * 4 + Bf * (d_max * 4 + 4 + 1 + 4),
+                    Bf * (100 * 3 + 4 * Kf + 3 + 14 * d_max
+                          + 2 * math.log2(n) + d_max * (2 * d_max + 9))),
+        library_ms=None)
+    res["mvn_logpdf_models"] = dict(
+        err=lq_err,
+        call_ms=time_ms(lambda: mvn_mixture_logpdf.models(q, qm, fit_k), 50),
+        ms=graph_ms(lambda: mvn_mixture_logpdf.models(q, qm, fit_k)),
+        plain_ms=time_ms(lambda: mvn_mixture_logpdf_models_plain(
+            q, qm, fit_k), 5),
+        bound=bound((Bf * (d_max + 1) + Kf * (nf * (d_max + 2) + d_max
+                                              * d_max + d_max + 2)
+                     + Bf) * 4,
+                    Bf * n_live * (2 * d_max + 8)),
+        library_ms=None)
+    res["pnorm_accept_models"] = dict(
+        err=k5_err,
+        call_ms=time_ms(lambda: pnorm_accept_weight(*k5_args, **k5_kw), 50),
+        ms=graph_ms(lambda: pnorm_accept_weight(*k5_args, **k5_kw)),
+        plain_ms=time_ms(lambda: pnorm_accept_weight_plain(*k5_args,
+                                                           **k5_kw), 20),
+        bound=bound((Bf * S + 2 * S + 1 + 2 * Kf) * 4 + Bf * (1 + 3 * 4)
+                    + Bf * (4 + 1 + 4), Bf * S * 4),
+        library_ms=None)
+    ctr_g = torch.zeros(4, dtype=torch.int32, device=dev)
+    r_g = buffers()[0]
+    kept = int(torch.clamp(c_k[0], max=n))
+    res["compact_round_models"] = dict(
+        err=0.0,
+        call_ms=time_ms(lambda: compact_round(*k6_in, r_g, None,
+                                              torch.zeros_like(ctr_g),
+                                              m=qm), 50),
+        ms=graph_ms(lambda: (ctr_g.zero_(), compact_round(
+            *k6_in, r_g, None, ctr_g, m=qm))),
+        plain_ms=time_ms(lambda: compact_round_plain(
+            *k6_in, buffers()[0], None, torch.zeros_like(ctr_g), m=qm), 10),
+        bound=bound(2 * Bf + kept * (d_max + S + 4) * 4 * 2 + 24, 0.0),
+        library_ms=None)
+    res["mvn_fit_models"] = dict(
+        err=fit_err,
+        call_ms=time_ms(lambda: mvn_fit.models(*fit_in, **fit_kw), 50),
+        ms=graph_ms(lambda: mvn_fit.models(*fit_in, **fit_kw)),
+        plain_ms=time_ms(lambda: mvn_fit_models_plain(*fit_in, **fit_kw),
+                         10),
+        bound=bound(nf * (d_max + 2) * 4 + Kf * (2 * nf * d_max + 3 * nf
+                                                  + 2 * d_max * d_max
+                                                  + d_max + 1) * 4,
+                    Kf * nf * (2 * d_max + 4 * d_max * d_max + 3)),
+        library_ms=None)
+    res["pack_fetch_models"] = dict(
+        err=0.0,
+        call_ms=time_ms(lambda: pack_fetch.models(ms, n_keep=n_keep), 50),
+        ms=graph_ms(lambda: pack_fetch.models(ms, n_keep=n_keep)),
+        plain_ms=time_ms(lambda: pack_models_plain(ms, n_keep=n_keep), 20),
+        bound=bound(G_CHUNK * n_keep * 5, 0.0), library_ms=None)
+    hx = health_x("ok")
+    params = sum(v.numel() for p in (hx["trans_params"], hx["trans_next"])
+                 for v in p.values())
+    res["generation_health_models"] = dict(
+        err=h_err, call_ms=time_ms(lambda: generation_health(**hx), 50),
+        ms=graph_ms(lambda: generation_health(**hx)),
+        plain_ms=time_ms(lambda: generation_health_plain(**hx), 10),
+        bound=bound(nf * d_max * 4 + nf + 2 * nf * 4 + params * 4 + 2 * Kf
+                    + 40, nf * d_max + 4 * nf + params),
+        library_ms=None)
+    return res
+
+
+#: the K > 1 mode of each kernel, by the name of its row in the results
+MODEL_MODES = {"propose": "propose_models",
+               "mvn_mixture_logpdf": "mvn_logpdf_models",
+               "pnorm_accept_weight": "pnorm_accept_models",
+               "compact_round": "compact_round_models",
+               "mvn_fit": "mvn_fit_models",
+               "pack_fetch": "pack_fetch_models",
+               "generation_health": "generation_health_models"}
+
+
+def model_checks(dev) -> dict:
+    """K20b, K26 and the K > 1 modes of K2, K3, K5, K6, K8, K10 and K11 at
+    config 5's shapes (timed) and at a small odd shape (K 2, d_max 1, n_cap
+    64, 33 kept rows)."""
+    res = model_checks_at(dev, B_MAIN, N_CAP_MAIN, K_MODELS, D_MAX_C5, S_C5,
+                          POP, seed=5, timed=True)
+    model_checks_at(dev, 256, 64, 2, 1, S_C5, 33, seed=6, timed=False)
+    return res
+
+
 # ------------------------------------------------------------ phases 3-4
-#: (module, attribute) of the plain version of every kernel, K1-K11
+#: (module, attribute) of the plain version of every kernel, K1-K11,
+#: K20, K20b, K21a, K21b, K26 and the K > 1 modes
 PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
     ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
@@ -1254,6 +1686,18 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.kernel_accept", "kernel_accept_plain"),
     ("pyabc_tpu_torch.kernels.temperature_update",
      "temperature_update_plain"),
+    ("pyabc_tpu_torch.kernels.propose", "propose_models_plain"),
+    ("pyabc_tpu_torch.kernels.propose", "draw_models_plain"),
+    ("pyabc_tpu_torch.kernels.propose", "categorical_plain"),
+    ("pyabc_tpu_torch.kernels.mvn_logpdf",
+     "mvn_mixture_logpdf_models_plain"),
+    ("pyabc_tpu_torch.kernels.mvn_fit", "mvn_fit_models_plain"),
+    ("pyabc_tpu_torch.kernels.pack_fetch", "pack_models_plain"),
+    ("pyabc_tpu_torch.kernels.generation_health",
+     "params_unhealthy_models"),
+    ("pyabc_tpu_torch.kernels.ode_family", "ode_family_simulate_plain"),
+    ("pyabc_tpu_torch.kernels.model_step", "model_step_plain"),
+    ("pyabc_tpu_torch.kernels.model_step", "next_generation_terms"),
 )
 
 
@@ -1710,6 +2154,181 @@ def sir_cpu_trail(card_temps: list[float]) -> None:
           "more than 1e-3")
 
 
+#: the tractable pair anchor: x_obs, pop, generations, seeds, exact P(m=0)
+PAIR_X, PAIR_POP, PAIR_GENS = 0.7, 600, 6
+PAIR_SEEDS = tuple(range(16))
+#: config 5: generations, and the kernels of its path
+C5_GENS = 8
+C5_PATH = ("propose", "mvn_mixture_logpdf", "ode_family_simulate",
+           "pnorm_accept_weight", "compact_round", "normalize_quantile",
+           "mvn_fit", "model_step", "pack_fetch", "generation_health")
+
+
+def pair_run(where, seed):
+    """The tractable pair (two Gaussian user models, sd 0.6 and 1.2) at
+    x_obs PAIR_X."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _an = msel.tractable_pair()
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=PAIR_POP, eps=pt.MedianEpsilon(),
+                    seed=seed, device=where)
+    abc.new("sqlite://", {"x": PAIR_X})
+    return abc.run(max_nr_populations=PAIR_GENS)
+
+
+def pair_anchor(dev) -> None:
+    """The model-selection anchor over PAIR_SEEDS on the card and on the
+    CPU: the seed mean of P(m = 0) against the exact model posterior, and
+    the card's mean against the CPU's."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    exact = float(msel.tractable_pair()[2](PAIR_X)[0])
+    stats = {}
+    for where in (dev, "cpu"):
+        on_card = where == dev
+        p0 = []
+        t0 = time.perf_counter()
+        if on_card:
+            reset_launch_counts()
+        with plain_versions_raise() if on_card else contextlib.nullcontext():
+            for seed in PAIR_SEEDS:
+                h = pair_run(where, seed)
+                check(h.n_populations == PAIR_GENS,
+                      f"tractable pair seed {seed} ({where}) ran "
+                      f"{h.n_populations} generations")
+                p0.append(float(h.get_model_probabilities(h.max_t)["p"]
+                                .get(0, 0.0)))
+        wall = time.perf_counter() - t0
+        if on_card:
+            counts = launch_counts()
+            log(f"tractable pair ({where}): kernel launches {counts}")
+            path = [k for k in C5_PATH if k != "ode_family_simulate"]
+            check(all(counts[k] > 0 for k in path),
+                  "a kernel of the tractable pair's path was never launched")
+        m = float(np.mean(p0))
+        se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
+        stats[where] = (m, se)
+        log(f"tractable pair ({where}, {len(p0)} seeds, x_obs {PAIR_X}, "
+            f"pop {PAIR_POP}, {PAIR_GENS} generations, {wall:.2f} s): mean "
+            f"P(m=0) {m:.4f} se {se:.4f} (exact {exact:.4f}, "
+            f"{(m - exact) / se:+.2f} se); per seed min {min(p0):.4f} max "
+            f"{max(p0):.4f}")
+        if on_card:
+            check(abs(m - exact) < 0.05, "tractable pair: the card's seed "
+                  "mean of P(m=0) is 0.05 or more off the exact posterior")
+    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
+    gap = (m_d - m_c) / math.hypot(se_d, se_c)
+    log(f"tractable pair: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+    check(abs(gap) < 4.0, "tractable pair: card and CPU means differ by >= "
+          "4 standard errors")
+
+
+def config5(where, seed: int = 0):
+    """BASELINE config 5: the ODE family at its defaults (K = 3, n_obs 12,
+    t1 8, 6 substeps, noise sd 0.3), observed_ode_family(seed=0,
+    true_model=1), PNormDistance(p=2), MedianEpsilon, pop 1000."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family()
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    device=where)
+    abc.new("sqlite://", msel.observed_ode_family(seed=0, true_model=1),
+            store_sum_stats=False)
+    return abc
+
+
+def config5_run(dev):
+    """Config 5 on the card, the plain versions set to raise, the launch
+    counts reset just before and read just after -> (counts, eps trail)."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    label = "config 5 (ODE family, K = 3)"
+    abc = config5(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=C5_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    n_gen = len(eps)
+    syncs = abc.sync_ledger.summary()
+    rounds = [g["rounds"] for g in abc.generation_log]
+    evals = sum(g["n_valid"] for g in abc.generation_log)
+    log(f"{label}: pop={POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={POP * n_gen / wall:.1f} "
+        f"wall_s_per_generation={wall / n_gen:.4f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
+        f"evaluations={evals} (rounds {rounds}, {syncs['by_kind']})")
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s")}
+    log(f"{label}: host seconds, rounds + generation steps "
+        f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
+        f"History persist {split['persist_s']:.4f}, other "
+        f"{wall - sum(split.values()):.4f}")
+    probs = h.get_model_probabilities()
+    log(f"{label}: eps trail {[round(e, 5) for e in eps]}")
+    log(f"{label}: model probabilities per generation "
+        f"{np.round(probs.to_numpy(), 4).tolist()}")
+    means = {}
+    for m in h.alive_models():
+        df, w = h.get_distribution(m)
+        means[m] = {k: round(float(np.sum(df[k] * w)), 4)
+                    for k in df.columns}
+    log(f"{label}: per-model posterior means {means} (true model 1 at "
+        f"a 0.4, b 0.5)")
+    log(f"{label}: kernel launches {counts}")
+    check(n_gen == C5_GENS, f"config 5 ran {n_gen} of {C5_GENS} generations")
+    check(all(counts[k] > 0 for k in C5_PATH),
+          "a kernel of the config 5 path was never launched")
+    check(counts["lv_simulate"] == counts["sir_simulate"] ==
+          counts["kernel_accept"] == counts["temperature_update"] ==
+          counts["scale_reduce"] == 0,
+          "a kernel of another path ran on config 5")
+    check(syncs["by_kind"].get("chunk_fetch") == 1
+          and set(syncs["by_kind"]) == {"round_counters", "chunk_fetch"}
+          and syncs["by_kind"]["round_counters"] >= sum(rounds),
+          "config 5: a host read besides the round counters and the fetch")
+    p_last = probs.to_numpy()[-1]
+    check(abs(float(p_last.sum()) - 1.0) < 1e-9 and p_last[0] < 0.9,
+          "config 5: model probabilities do not sum to 1, or the decay "
+          "model dominates")
+    check(all(b < a for a, b in zip(eps, eps[1:])),
+          "config 5 epsilons did not fall under a fixed distance")
+    check(all(math.isfinite(v) for mm in means.values()
+              for v in mm.values()), "non-finite config 5 posterior mean")
+    return counts, eps
+
+
+def config5_cpu_trail(card_eps: list[float]) -> None:
+    """Config 5 with the same seed on the CPU (plain versions, the same
+    Philox streams) for its first three generations: the epsilons must
+    equal the card's within 1e-4 relative."""
+    t0 = time.perf_counter()
+    h = config5("cpu").run(max_nr_populations=3)
+    wall = time.perf_counter() - t0
+    cpu = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_eps, cpu)]
+    log(f"config 5 on the CPU (seed 0, {len(cpu)} generations, {wall:.1f} "
+        f"s): eps trail {[round(e, 5) for e in cpu]}; |card - cpu| / cpu "
+        f"{[float(f'{r:.2e}') for r in rel]}")
+    check(len(rel) == 3 and max(rel) <= 1e-4,
+          "config 5: the CPU's first three epsilons differ from the card's "
+          "by more than 1e-4")
+
+
 def main() -> int:
     import torch
 
@@ -1736,6 +2355,7 @@ def main() -> int:
 
     results = kernel_checks(dev)
     results.update(noisy_checks(dev))
+    results.update(model_checks(dev))
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -1743,6 +2363,7 @@ def main() -> int:
             f"library_ms={r['library_ms']}")
     gaussian_toy(dev)
     noisy_anchor(dev)
+    pair_anchor(dev)
     lotka_volterra(dev, adaptive=False, gens=6)
     counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
     profile_lv(dev)
@@ -1750,13 +2371,18 @@ def main() -> int:
     sir_counts, temps = sir_run(dev)
     profile_run("SIR config 4", sir_config4(dev), SIR_GENS)
     sir_cpu_trail(temps)
+    c5_counts, c5_eps = config5_run(dev)
+    profile_run("config 5", config5(dev), C5_GENS)
+    config5_cpu_trail(c5_eps)
 
     kernels = []
     for k in KERNELS:
         r = results[k.name]
         # each kernel's launches on its slice's main path: LV config 2 for
-        # K1-K11, SIR config 4 for K20, K21a and K21b
-        own = sir_counts if k.name in NOISY_KERNELS else counts
+        # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
+        # and K26
+        own = (sir_counts if k.name in NOISY_KERNELS else c5_counts
+               if k.name in MODEL_KERNELS else counts)
         entry = {
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": own[k.name],
@@ -1764,8 +2390,16 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "launches_by_path": {"lv_config2": counts[k.name],
-                                 "sir_config4": sir_counts[k.name]},
+                                 "sir_config4": sir_counts[k.name],
+                                 "ode_config5": c5_counts[k.name]},
         }
+        if k.name in MODEL_MODES:
+            mode = results[MODEL_MODES[k.name]]
+            entry["k_gt_1_mode"] = {
+                "launches": c5_counts[k.name], "max_abs_err": mode["err"],
+                "ms": mode["ms"], "call_ms": mode["call_ms"],
+                "plain_ms": mode["plain_ms"], "bound_ms": mode["bound"][0],
+                "bound_by": mode["bound"][1], "library_ms": None}
         if k.name == "compact_round":
             rec = results["compact_round_record"]
             entry["record_mode"] = {

@@ -1,5 +1,6 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
-single-model ABC-SMC path, for one NVIDIA H100.
+single-device ABC-SMC path (one model or model selection over several),
+for one NVIDIA H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
@@ -20,7 +21,8 @@ from .inference import ABCSMC, DegenerateRunError
 from .model import TorchModel
 from .populationstrategy import ConstantPopulationSize
 from .storage import History
-from .transition import (MultivariateNormalTransition, scott_rule_of_thumb,
+from .transition import (ModelPerturbationKernel,
+                         MultivariateNormalTransition, scott_rule_of_thumb,
                          silverman_rule_of_thumb)
 
 __all__ = [
@@ -30,7 +32,7 @@ __all__ = [
     "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
     "FrielPettittScheme", "History", "IndependentNormalKernel",
     "ListEpsilon", "ListTemperature", "MedianEpsilon",
-    "MultivariateNormalTransition", "PNormDistance", "ParameterSpace",
+    "ModelPerturbationKernel", "MultivariateNormalTransition", "PNormDistance", "ParameterSpace",
     "PolynomialDecayFixedIterScheme", "Population", "QuantileEpsilon", "RV",
     "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
     "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",

@@ -11,6 +11,7 @@ import torch
 
 from .core.random_variables import Distribution
 from .inference.context import Carry
+from .kernels.model_step import next_generation_terms
 from .utils import resolve_device
 
 #: keys of a fitted MultivariateNormalTransition's device params
@@ -42,6 +43,20 @@ def transition_params(params: dict, device=None) -> dict:
     return out
 
 
+def stacked_transition_params(params_k, device=None) -> dict:
+    """The JAX package's K-tuple of d_max-padded transition params
+    (``pad_transition_params`` or K ``device_fit`` results) -> the port's
+    stacked params (a leading model axis; ``dims (K,)`` float32 from each
+    set's ``dim``)."""
+    device = resolve_device(device)
+    parts = [transition_params(p, "cpu") for p in params_k]
+    out = {k: torch.stack([p[k] for p in parts]).contiguous().to(device)
+           for k in (*TRANSITION_KEYS, "cdf")}
+    out["dims"] = torch.tensor([p["dim"] for p in parts],
+                               dtype=torch.float32, device=device)
+    return out
+
+
 def distance_weights(w, device=None) -> torch.Tensor:
     """A p-norm weight vector (``device_params`` of a PNormDistance)."""
     return _f32(np.ravel(np.asarray(w)), resolve_device(device))
@@ -52,30 +67,47 @@ def prior(spec) -> Distribution:
     return Distribution.from_spec(spec)
 
 
-def carry(jax_carry: tuple, device=None) -> Carry:
+def carry(jax_carry: tuple, device=None, mpk=None) -> Carry:
     """The multigen carry slots this slice uses, from the JAX tuple
     ``(trans_params, log_model_probs, fitted, dist_w, eps, (pdf_norm,
     max_found, daly_k), stopped[, (eps_prev, stall_count)])`` with numpy
-    leaves. Single model: the first transition param set is taken. The
+    leaves. Single model (a one-set tuple): the first transition param set
+    is taken. Several models: the params are stacked, ``fitted`` and
+    ``log_model_probs`` kept as ``(K,)`` vectors, and ``mpk`` (the
+    ModelPerturbationKernel's matrix, required then) gives the masked
+    matrix and the log model factor the next generation proposes with. The
     accept-state slots go to ``pdf_norm``, ``max_found`` and ``daly_k``
     (a noisy-ABC run's norm, largest kernel value and Daly's k; ``eps``
     is then its temperature and ``dist_w`` its kernel's variances); the
     JAX package keeps the running minimum of a complete-history acceptor
     in the first of them, so it also goes to ``hist_min``."""
     device = resolve_device(device)
-    trans, _logp, fitted, dist_w, eps, acc_state = jax_carry[:6]
+    trans, logp, fitted, dist_w, eps, acc_state = jax_carry[:6]
     health = jax_carry[7] if len(jax_carry) > 7 else (np.inf, 0)
-    return Carry(
-        trans_params=transition_params(trans[0], device),
-        fitted=torch.as_tensor(bool(np.asarray(fitted).reshape(-1)[0]),
-                               device=device),
+    common = dict(
         dist_w=distance_weights(dist_w, device),
         eps=_f32(eps, device),
         hist_min=_f32(acc_state[0], device),
         eps_prev=_f32(health[0], device),
         stall_count=torch.as_tensor(np.asarray(health[1], np.int32),
-                                    device=device),
+                                    device=device))
+    if len(trans) > 1:
+        if mpk is None:
+            raise ValueError("a carry over several models needs the "
+                             "perturbation matrix (mpk)")
+        fitted_t = torch.tensor(np.asarray(fitted, bool))
+        logp_t = torch.tensor(np.asarray(logp, np.float32))
+        matrix, log_factor = next_generation_terms(
+            torch.tensor(np.asarray(mpk, np.float32)), fitted_t, logp_t)
+        return Carry(trans_params=stacked_transition_params(trans, device),
+                     fitted=fitted_t.to(device),
+                     log_model_probs=logp_t.to(device),
+                     matrix=matrix.to(device),
+                     log_model_factor=log_factor.to(device), **common)
+    return Carry(
+        trans_params=transition_params(trans[0], device),
+        fitted=torch.as_tensor(bool(np.asarray(fitted).reshape(-1)[0]),
+                               device=device),
         pdf_norm=_f32(acc_state[0], device),
         max_found=_f32(acc_state[1], device),
-        daly_k=_f32(acc_state[2], device),
-    )
+        daly_k=_f32(acc_state[2], device), **common)

@@ -122,3 +122,22 @@ class Distribution:
     def __repr__(self) -> str:
         inner = ", ".join(f"{k}={v!r}" for k, v in self.rv_map.items())
         return f"Distribution({inner})"
+
+
+def stacked_arrays(priors, device) -> dict:
+    """The per-model priors of a run over several models as ``(K, d_max)``
+    arrays for K2 (``Distribution.arrays`` of each, zero-padded past its
+    dim) and ``dims (K,)`` int32: model m's prior log-density runs over
+    its first ``dims[m]`` entries only."""
+    parts = [p.arrays("cpu") for p in priors]
+    d_max = max(p.dim for p in priors)
+
+    def pad(key):
+        rows = [torch.nn.functional.pad(a[key], (0, d_max - a[key].shape[0]))
+                for a in parts]
+        return torch.stack(rows).contiguous().to(device)
+
+    out = {k: pad(k) for k in ("kind", "loc", "scale", "hi", "log_scale")}
+    out["dims"] = torch.tensor([p.dim for p in priors], dtype=torch.int32,
+                               device=device)
+    return out

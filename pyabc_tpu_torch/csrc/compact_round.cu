@@ -15,6 +15,9 @@
 //     log-density of the proposal it was drawn from
 //     (_generation_while(record_proposal=True)); with null pointers the
 //     kernel does exactly the work it did without the mode;
+//   - model column (a run over several models: m and res_m given): the
+//     lane's model index goes to res_m at the lane's reservoir row, like
+//     its slot; with null pointers nothing of it runs;
 //   - counters = [n_acc, r, n_valid, ...] are updated in device memory:
 //     n_acc += count(acc) (lanes dropped past n_cap still count, exactly
 //     like the JAX loop, since gen_ok reads it), r += 1,
@@ -43,11 +46,13 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
                      const float* __restrict__ ss,
                      const float* __restrict__ dist,
                      const float* __restrict__ logw,
-                     const float* __restrict__ logq, int n_cap,
+                     const float* __restrict__ logq,
+                     const int* __restrict__ m, int n_cap,
                      float* __restrict__ res_theta, float* __restrict__ res_ss,
                      float* __restrict__ res_dist,
                      float* __restrict__ res_logw, int* __restrict__ res_slot,
-                     int rec_cap, float* __restrict__ rec_ss,
+                     int* __restrict__ res_m, int rec_cap,
+                     float* __restrict__ rec_ss,
                      float* __restrict__ rec_dist,
                      uint8_t* __restrict__ rec_acc,
                      uint8_t* __restrict__ rec_valid,
@@ -92,6 +97,7 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
       res_dist[p] = dist[i];
       res_logw[p] = logw[i];
       res_slot[p] = slot;
+      if (res_m != nullptr) res_m[p] = m[i];
     }
     if (s_ring[tid] >= 0) {
       const int q = s_ring[tid];
@@ -132,17 +138,19 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
 extern "C" int pyabc_compact_round(
     int B, int S, int d, const uint8_t* accept, const uint8_t* valid,
     const float* theta, const float* ss, const float* dist, const float* logw,
-    const float* logq, int n_cap, float* res_theta, float* res_ss,
-    float* res_dist, float* res_logw, int* res_slot, int rec_cap, float* rec_ss,
-    float* rec_dist, uint8_t* rec_acc, uint8_t* rec_valid, float* rec_theta,
-    float* rec_logq, int* counters, void* stream_ptr) {
+    const float* logq, const int* m, int n_cap, float* res_theta,
+    float* res_ss, float* res_dist, float* res_logw, int* res_slot,
+    int* res_m, int rec_cap, float* rec_ss, float* rec_dist, uint8_t* rec_acc,
+    uint8_t* rec_valid, float* rec_theta, float* rec_logq, int* counters,
+    void* stream_ptr) {
   if ((rec_theta == nullptr) != (rec_logq == nullptr) ||
-      (rec_theta != nullptr && logq == nullptr))
+      (rec_theta != nullptr && logq == nullptr) ||
+      (m == nullptr) != (res_m == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   compact_round_kernel<<<1, kThreads, 0, stream>>>(
-      B, S, d, accept, valid, theta, ss, dist, logw, logq, n_cap, res_theta,
-      res_ss, res_dist, res_logw, res_slot, rec_cap, rec_ss, rec_dist, rec_acc,
-      rec_valid, rec_theta, rec_logq, counters);
+      B, S, d, accept, valid, theta, ss, dist, logw, logq, m, n_cap,
+      res_theta, res_ss, res_dist, res_logw, res_slot, res_m, rec_cap, rec_ss,
+      rec_dist, rec_acc, rec_valid, rec_theta, rec_logq, counters);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // K11 generation_health: the per-generation health word.
 //
 // Replaces: pyabc_tpu/ops/health.py::generation_health (with
-// population_bits, params_unhealthy and eps_stall_update), single model.
+// population_bits, params_unhealthy and eps_stall_update).
 //
 // Over the accepted rows (k_mask) of the reservoir and the two sets of
 // transition parameters (the ones the generation sampled from and the
@@ -20,6 +20,12 @@
 // and the stall recursion: impr = (eps_prev - eps_g) / max(|eps_prev|,
 // 1e-30) (1 when eps_prev is not finite), count = impr < rtol ? count + 1 :
 // 0; window <= 0 turns it off (bit and count 0).
+//
+// K > 1 (n_models > 1, a run over several models, health.py:80-95; the
+// kModels instantiation): every parameter tensor is stacked over the
+// models, fitted / fitted_next hold n_models flags, and bit 7 is set when
+// a FITTED model's slice of either set is bad. n_models = 1 launches the
+// single-model instantiation, whose code is the single-model check alone.
 //
 // Outputs: word (int32), ess (float32), the new stall count (int32). Every
 // input scalar (n_acc, acc_rate, fitted flags, epsilons, stall count) is
@@ -56,23 +62,32 @@ __device__ float block_sum(float v, float* s_warp) {
   return tot;  // valid in thread 0
 }
 
-// true when a value of the set is not finite or its weights sum to <= 0
-__device__ bool params_bad(const ParamSet& p, float* s_warp) {
+// true when a value of the set is not finite or its weights sum to <= 0;
+// kModels: of model `model`'s slice only (each tensor cut into n_models
+// equal slices)
+template <bool kModels>
+__device__ bool params_bad(const ParamSet& p, float* s_warp, int model,
+                           int n_models) {
   int bad = 0;
   for (int t = 0; t < p.count; ++t) {
-    const float* x = p.ptr[t];
-    for (long long i = threadIdx.x; i < p.size[t]; i += kThreads)
+    const long long len = kModels ? p.size[t] / n_models : p.size[t];
+    const float* x = kModels ? p.ptr[t] + model * len : p.ptr[t];
+    for (long long i = threadIdx.x; i < len; i += kThreads)
       if (!isfinite(x[i])) bad = 1;
   }
   float ws = 0.f;
-  const float* w = p.ptr[p.weights];
-  for (long long i = threadIdx.x; i < p.size[p.weights]; i += kThreads)
+  const long long wlen =
+      kModels ? p.size[p.weights] / n_models : p.size[p.weights];
+  const float* w =
+      kModels ? p.ptr[p.weights] + model * wlen : p.ptr[p.weights];
+  for (long long i = threadIdx.x; i < wlen; i += kThreads)
     ws += w[i];
   bad = __syncthreads_or(bad);
   const float tot = block_sum(ws, s_warp);
   return bad || tot <= 0.f;  // valid in thread 0
 }
 
+template <bool kModels>
 __global__ void __launch_bounds__(kThreads)
 generation_health_kernel(const float* __restrict__ theta, int n_cap, int d,
                          const uint8_t* __restrict__ k_mask,
@@ -81,6 +96,7 @@ generation_health_kernel(const float* __restrict__ theta, int n_cap, int d,
                          const int* __restrict__ n_acc,
                          const float* __restrict__ acc_rate,
                          ParamSet params, ParamSet params_next,
+                         int n_models,
                          const uint8_t* __restrict__ fitted,
                          const uint8_t* __restrict__ fitted_next,
                          const float* __restrict__ eps_g,
@@ -109,10 +125,24 @@ generation_health_kernel(const float* __restrict__ theta, int n_cap, int d,
   d_bad = __syncthreads_or(d_bad);
   const float w_sum = block_sum(ws, s_warp);
   const float w2_sum = block_sum(ws2, s_warp);
-  // a never-fitted set is zeros by construction and is not checked
-  const bool fit0 = fitted[0] != 0, fit1 = fitted_next[0] != 0;
-  const bool bad0 = fit0 ? params_bad(params, s_warp) : false;
-  const bool bad1 = fit1 ? params_bad(params_next, s_warp) : false;
+  // a never-fitted set is zeros by construction and is not checked (the
+  // flags are the same for every thread, so the block stays together)
+  bool bad = false;
+  if (!kModels) {
+    const bool fit0 = fitted[0] != 0, fit1 = fitted_next[0] != 0;
+    const bool bad0 = fit0 ? params_bad<false>(params, s_warp, 0, 1) : false;
+    const bool bad1 =
+        fit1 ? params_bad<false>(params_next, s_warp, 0, 1) : false;
+    bad = (fit0 && bad0) || (fit1 && bad1);
+  } else {
+    for (int k = 0; k < n_models; ++k) {
+      if (fitted[k] != 0 && params_bad<true>(params, s_warp, k, n_models))
+        bad = true;
+      if (fitted_next[k] != 0 &&
+          params_bad<true>(params_next, s_warp, k, n_models))
+        bad = true;
+    }
+  }
   if (threadIdx.x != 0) return;
 
   const float ess = 1.f / nan_max(w2_sum, 1e-38f);  // a NaN weight stays
@@ -123,7 +153,7 @@ generation_health_kernel(const float* __restrict__ theta, int n_cap, int d,
   if (n_acc[0] > 0 && w_sum <= 0.f) word |= 1 << 3;
   if (!(ess >= ess_min)) word |= 1 << 4;
   if (acc_floor > 0.f && acc_rate[0] < acc_floor) word |= 1 << 5;
-  if ((fit0 && bad0) || (fit1 && bad1)) word |= 1 << 7;
+  if (bad) word |= 1 << 7;
   if (!isfinite(eps_g[0]) || !isfinite(eps_next[0])) word |= 1 << 8;
   int count = 0;
   if (stall_window > 0) {
@@ -162,18 +192,27 @@ extern "C" int pyabc_generation_health(
     const float* acc_rate, int count0, const void* const* ptrs0,
     const long long* sizes0, int weights0, int count1,
     const void* const* ptrs1, const long long* sizes1, int weights1,
-    const uint8_t* fitted, const uint8_t* fitted_next, const float* eps_g,
-    const float* eps_next, const float* eps_prev, const int* stall_count,
+    int n_models, const uint8_t* fitted, const uint8_t* fitted_next,
+    const float* eps_g, const float* eps_next, const float* eps_prev,
+    const int* stall_count,
     float ess_min, float acc_floor, int stall_window, float stall_rtol,
     int* word_out, float* ess_out, int* stall_out, void* stream_ptr) {
   ParamSet p0, p1;
   if (!fill(&p0, count0, ptrs0, sizes0, weights0) ||
-      !fill(&p1, count1, ptrs1, sizes1, weights1) || n_cap < 0 || d <= 0)
+      !fill(&p1, count1, ptrs1, sizes1, weights1) || n_cap < 0 || d <= 0 ||
+      n_models < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int t = 0; t < count0 + count1; ++t) {
+    const long long size = t < count0 ? sizes0[t] : sizes1[t - count0];
+    if (size % n_models != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  generation_health_kernel<<<1, kThreads, 0, stream>>>(
-      theta, n_cap, d, k_mask, w_norm, d_new, n_acc, acc_rate, p0, p1, fitted,
-      fitted_next, eps_g, eps_next, eps_prev, stall_count, ess_min, acc_floor,
-      stall_window, stall_rtol, word_out, ess_out, stall_out);
+  auto kernel = n_models > 1 ? generation_health_kernel<true>
+                             : generation_health_kernel<false>;
+  kernel<<<1, kThreads, 0, stream>>>(
+      theta, n_cap, d, k_mask, w_norm, d_new, n_acc, acc_rate, p0, p1,
+      n_models, fitted, fitted_next, eps_g, eps_next, eps_prev, stall_count,
+      ess_min, acc_floor, stall_window, stall_rtol, word_out, ess_out,
+      stall_out);
   return static_cast<int>(cudaGetLastError());
 }

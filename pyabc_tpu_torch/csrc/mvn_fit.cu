@@ -21,6 +21,15 @@
 //   quad_i = c_i' P c_i and the ancestor CDF that K2 searches:
 //   cdf = cummax(where(w > 0, cumsum(w), 0)).
 //
+// K > 1 mode (a run over several models, util.py:1908-1948): one launch
+// with a grid of K blocks, block k fitting model k on the shared d_max-
+// padded reservoir with w_k = where(m == k, weights, 0) and model k's dim,
+// scaling and bandwidth rule, into slice k of stacked outputs (thetas
+// (K, n, d), chol (K, d, d), logdet (K,), ...). A model with no weight
+// stays finite: w = 0 / 1e-38, the smart_cov fill and an ESS of 1e38 give
+// a tiny positive covariance (its params are masked out by `fitted`). With
+// m null the launch is the single-model one (one block, model slot 0).
+//
 // Bound on an H100: bytes (n (d + 1) floats in, 2 n d + 3 n out, a few KB
 // at the main-path size), so at n_cap = 1024 the kernel is latency bound.
 // Design: one block (1024 threads; 256 for d > 4, whose accumulators need
@@ -41,6 +50,16 @@ struct FitThreads {
   static constexpr int value = D <= 4 ? 1024 : 256;
 };
 __constant__ float kLadder[3] = {1e-10f, 1e-7f, 1e-4f};
+constexpr int kMaxModels = 8;
+
+// per-model fit statics, passed by value: block k reads slot k
+struct FitModels {
+  int dim[kMaxModels];
+  float scaling[kMaxModels];
+  int selector[kMaxModels];
+  float sel_const[kMaxModels];
+  float sel_exp[kMaxModels];
+};
 
 __device__ __forceinline__ float clamp_min_keep_nan(float x, float lo) {
   return x < lo ? lo : x;  // NaN compares false and stays NaN
@@ -151,14 +170,34 @@ __device__ int chol_guarded(float* cov, float* L, int d, int ld) {
 template <int D>
 __global__ void __launch_bounds__(FitThreads<D>::value)
 mvn_fit_kernel(const float* __restrict__ thetas,
-               const float* __restrict__ weights, int n, int d, int dim,
-               float scaling, int selector, float sel_const, float sel_exp,
+               const float* __restrict__ weights,
+               const int* __restrict__ m, int n, int d, FitModels fm,
                float* __restrict__ th_out, float* __restrict__ w_out,
                float* __restrict__ chol_out, float* __restrict__ prec_out,
                float* __restrict__ center_out, float* __restrict__ thc_out,
                float* __restrict__ quad_out, float* __restrict__ logdet_out,
                float* __restrict__ cdf_out) {
   constexpr int kThreads = FitThreads<D>::value;
+  // model slot of this block: its statics and its slice of every output
+  const int model = blockIdx.x;
+  const int dim = fm.dim[model];
+  const float scaling = fm.scaling[model];
+  const int selector = fm.selector[model];
+  const float sel_const = fm.sel_const[model];
+  const float sel_exp = fm.sel_exp[model];
+  th_out += (size_t)model * n * d;
+  w_out += (size_t)model * n;
+  chol_out += (size_t)model * d * d;
+  prec_out += (size_t)model * d * d;
+  center_out += (size_t)model * d;
+  thc_out += (size_t)model * n * d;
+  quad_out += (size_t)model * n;
+  logdet_out += model;
+  cdf_out += (size_t)model * n;
+  // the block's weights: model `model`'s rows only when m is given
+  auto weight_of = [&](int i) {
+    return (m == nullptr || m[i] == model) ? weights[i] : 0.f;
+  };
   constexpr int kWarps = kThreads / 32;
   __shared__ float s_warp[kWarps * (D + 1)];
   __shared__ float s_part[kThreads];
@@ -172,7 +211,7 @@ mvn_fit_kernel(const float* __restrict__ thetas,
 
   // 1. w = weights / max(sum, 1e-38)
   float ws = 0.f;
-  for (int i = tid; i < n; i += kThreads) ws += weights[i];
+  for (int i = tid; i < n; i += kThreads) ws += weight_of(i);
   ws = clamp_min_keep_nan(block_sum(ws, s_warp), 1e-38f);
 
   // 2. mean = w @ thetas and sum w^2, one block reduction of d + 1 values
@@ -180,7 +219,7 @@ mvn_fit_kernel(const float* __restrict__ thetas,
 #pragma unroll
   for (int k = 0; k <= D; ++k) acc[k] = 0.f;
   for (int i = tid; i < n; i += kThreads) {
-    const float w = weights[i] / ws;
+    const float w = weight_of(i) / ws;
     w_out[i] = w;
 #pragma unroll
     for (int k = 0; k < D; ++k)
@@ -324,14 +363,38 @@ mvn_fit_kernel(const float* __restrict__ thetas,
 }
 
 template <int D>
-void launch(const float* thetas, const float* weights, int n, int d, int dim,
-            float scaling, int selector, float sel_const, float sel_exp,
-            float* th, float* w, float* chol, float* prec, float* center,
-            float* thc, float* quad, float* logdet, float* cdf,
-            cudaStream_t stream) {
-  mvn_fit_kernel<D><<<1, FitThreads<D>::value, 0, stream>>>(
-      thetas, weights, n, d, dim, scaling, selector, sel_const, sel_exp, th,
-      w, chol, prec, center, thc, quad, logdet, cdf);
+void launch(const float* thetas, const float* weights, const int* m,
+            int n_models, int n, int d, const FitModels& fm, float* th,
+            float* w, float* chol, float* prec, float* center, float* thc,
+            float* quad, float* logdet, float* cdf, cudaStream_t stream) {
+  mvn_fit_kernel<D><<<n_models, FitThreads<D>::value, 0, stream>>>(
+      thetas, weights, m, n, d, fm, th, w, chol, prec, center, thc, quad,
+      logdet, cdf);
+}
+
+int launch_fit(const float* thetas, const float* weights, const int* m,
+               int n_models, int n, int d, const FitModels& fm, float* th,
+               float* w, float* chol, float* prec, float* center, float* thc,
+               float* quad, float* logdet, float* cdf, cudaStream_t stream) {
+#define PYABC_FIT(DB)                                                        \
+  launch<DB>(thetas, weights, m, n_models, n, d, fm, th, w, chol, prec,     \
+             center, thc, quad, logdet, cdf, stream)
+  if (d <= 1)
+    PYABC_FIT(1);
+  else if (d <= 2)
+    PYABC_FIT(2);
+  else if (d <= 4)
+    PYABC_FIT(4);
+  else if (d <= 8)
+    PYABC_FIT(8);
+  else if (d <= 16)
+    PYABC_FIT(16);
+  else if (d <= 32)
+    PYABC_FIT(32);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef PYABC_FIT
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void chol_guarded_kernel(const float* cov, int d, float* chol,
@@ -354,27 +417,39 @@ extern "C" int pyabc_mvn_fit(const float* thetas, const float* weights, int n,
                              float* center, float* thc, float* quad,
                              float* logdet, float* cdf, void* stream_ptr) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define PYABC_FIT(DB)                                                       \
-  launch<DB>(thetas, weights, n, d, dim, scaling, selector, sel_const,      \
-             sel_exp, th, w, chol, prec, center, thc, quad, logdet, cdf,   \
-             stream)
-  if (d <= 1)
-    PYABC_FIT(1);
-  else if (d <= 2)
-    PYABC_FIT(2);
-  else if (d <= 4)
-    PYABC_FIT(4);
-  else if (d <= 8)
-    PYABC_FIT(8);
-  else if (d <= 16)
-    PYABC_FIT(16);
-  else if (d <= 32)
-    PYABC_FIT(32);
-  else
+  FitModels fm{};
+  fm.dim[0] = dim;
+  fm.scaling[0] = scaling;
+  fm.selector[0] = selector;
+  fm.sel_const[0] = sel_const;
+  fm.sel_exp[0] = sel_exp;
+  return launch_fit(thetas, weights, nullptr, 1, n, d, fm, th, w, chol, prec,
+                    center, thc, quad, logdet, cdf,
+                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K > 1 mode: m (n,) int32 model of each reservoir row; dims, scaling,
+// selector, sel_const and sel_exp are host arrays of n_models entries;
+// every output is stacked over the models.
+extern "C" int pyabc_mvn_fit_models(
+    const float* thetas, const float* weights, const int* m, int n_models,
+    int n, int d, const int* dims, const float* scaling, const int* selector,
+    const float* sel_const, const float* sel_exp, float* th, float* w,
+    float* chol, float* prec, float* center, float* thc, float* quad,
+    float* logdet, float* cdf, void* stream_ptr) {
+  if (n <= 0 || m == nullptr || n_models < 1 || n_models > kMaxModels)
     return static_cast<int>(cudaErrorInvalidValue);
-#undef PYABC_FIT
-  return static_cast<int>(cudaGetLastError());
+  FitModels fm{};
+  for (int k = 0; k < n_models; ++k) {
+    fm.dim[k] = dims[k];
+    fm.scaling[k] = scaling[k];
+    fm.selector[k] = selector[k];
+    fm.sel_const[k] = sel_const[k];
+    fm.sel_exp[k] = sel_exp[k];
+  }
+  return launch_fit(thetas, weights, m, n_models, n, d, fm, th, w, chol,
+                    prec, center, thc, quad, logdet, cdf,
+                    static_cast<cudaStream_t>(stream_ptr));
 }
 
 // Card check of the ladder alone, on a given d x d matrix.

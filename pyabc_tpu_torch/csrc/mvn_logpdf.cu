@@ -110,6 +110,79 @@ void launch(const float* q, int B, int d, const float* prec,
       q, B, d, prec, center, thetas_c, quad, weights, n, logdet, dim, out);
 }
 
+// K > 1 mode (a run over several models): lane b is scored under the
+// mixture of its own model m[b] (multivariatenormal.py::device_logpdf on
+// model m's d_max-padded params): prec (K, d, d) zero on the padded dims,
+// center (K, d), thetas_c (K, n, d), quad / weights (K, n), logdet and the
+// true dims (K,). Lanes of one warp may belong to different models, so
+// each thread walks its model's n components straight from global memory
+// (3 x 1024 x (d + 2) floats at config 5, held in L1/L2) instead of
+// shared tiles; the arithmetic per component is the single-model one.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+mvn_mixture_logpdf_models_kernel(
+    const float* __restrict__ q, const int* __restrict__ m_lane, int B,
+    int d, const float* __restrict__ prec, const float* __restrict__ center,
+    const float* __restrict__ thetas_c, const float* __restrict__ quad,
+    const float* __restrict__ weights, int n,
+    const float* __restrict__ logdet, const float* __restrict__ dims,
+    float* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int m = m_lane[b];
+  const float* P = prec + (size_t)m * d * d;
+  const float* C = center + (size_t)m * d;
+  const float* TH = thetas_c + (size_t)m * n * d;
+  const float* QD = quad + (size_t)m * n;
+  const float* W = weights + (size_t)m * n;
+  float u[D], pu[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    u[k] = (k < d) ? q[(size_t)b * d + k] - C[k] : 0.f;
+  float upu = 0.f;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      if (i < d && k < d) acc += P[i * d + k] * u[k];
+    pu[i] = acc;
+    upu += u[i] * acc;
+  }
+  const float c0 = dims[m] * PYABC_LOG_2PI + logdet[m];
+  float mx = -INFINITY;
+  float s = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float wj = __ldg(W + j);
+    if (wj == 0.f) continue;
+    float cross = 0.f;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      if (k < d) cross += __ldg(TH + (size_t)j * d + k) * pu[k];
+    const float maha = upu - 2.f * cross + __ldg(QD + j);
+    const float lc = -0.5f * (c0 + maha);
+    if (lc == -INFINITY) continue;
+    if (lc > mx) {
+      s = s * expf(mx - lc) + wj;
+      mx = lc;
+    } else {
+      s += wj * expf(lc - mx);
+    }
+  }
+  out[b] = (s == 0.f) ? -INFINITY : mx + logf(s);
+}
+
+template <int D>
+void launch_models(const float* q, const int* m, int B, int d,
+                   const float* prec, const float* center,
+                   const float* thetas_c, const float* quad,
+                   const float* weights, int n, const float* logdet,
+                   const float* dims, float* out, cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  mvn_mixture_logpdf_models_kernel<D><<<grid, kThreads, 0, stream>>>(
+      q, m, B, d, prec, center, thetas_c, quad, weights, n, logdet, dims, out);
+}
+
 }  // namespace
 
 extern "C" int pyabc_mvn_mixture_logpdf(
@@ -138,5 +211,34 @@ extern "C" int pyabc_mvn_mixture_logpdf(
                dim, out, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K > 1 mode: m (B,) int32 model of each lane, stacked params (see above).
+extern "C" int pyabc_mvn_mixture_logpdf_models(
+    const float* q, const int* m, int B, int d, const float* prec,
+    const float* center, const float* thetas_c, const float* quad,
+    const float* weights, int n, const float* logdet, const float* dims,
+    float* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (B <= 0) return 0;
+#define PYABC_LOGPDF_M(DB)                                                   \
+  launch_models<DB>(q, m, B, d, prec, center, thetas_c, quad, weights, n,   \
+                    logdet, dims, out, stream)
+  if (d <= 1)
+    PYABC_LOGPDF_M(1);
+  else if (d <= 2)
+    PYABC_LOGPDF_M(2);
+  else if (d <= 4)
+    PYABC_LOGPDF_M(4);
+  else if (d <= 8)
+    PYABC_LOGPDF_M(8);
+  else if (d <= 16)
+    PYABC_LOGPDF_M(16);
+  else if (d <= 32)
+    PYABC_LOGPDF_M(32);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef PYABC_LOGPDF_M
   return static_cast<int>(cudaGetLastError());
 }

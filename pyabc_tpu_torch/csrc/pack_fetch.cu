@@ -17,6 +17,10 @@
 // cast. The same float32 multiply and the same casts as the plain version
 // give bit-identical output.
 //
+// models (a run over several models, pack.py:124-125): out[g, i] =
+// (int8) m_g[i], the model index of each kept row; a plain narrowing of
+// int32 indices below 128, bit-exact.
+//
 // Each generation's rows stay in their own reservoir: the kernel reads them
 // through a table of per-generation pointers passed by value (up to
 // kMaxGen per launch; the wrapper launches once per kMaxGen generations),
@@ -39,6 +43,10 @@ struct GenRows {
   const float* a[kMaxGen];  // theta (rows) or sum stats (cast)
   const float* dist[kMaxGen];
   const float* logw[kMaxGen];
+};
+
+struct GenModels {
+  const int* m[kMaxGen];
 };
 
 template <typename T>
@@ -101,6 +109,17 @@ cast_rows_kernel(GenRows src, int n_gen, int n_keep, int S,
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
     const int g = (int)(idx / per_gen);
     out[idx] = narrow<T>(src.a[g][idx - g * per_gen]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_models_kernel(GenModels src, int n_gen, int n_keep,
+                   int8_t* __restrict__ out) {
+  const long long total = (long long)n_keep * n_gen;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const int g = (int)(idx / n_keep);
+    out[idx] = (int8_t)src.m[g][idx - (long long)g * n_keep];
   }
 }
 
@@ -172,5 +191,21 @@ extern "C" int pyabc_cast_rows(int n_gen, const void* const* src_rows,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// models: m is a host array of n_gen device pointers to int32 rows; out
+// (n_gen, n_keep) int8.
+extern "C" int pyabc_pack_models(int n_gen, const void* const* m, int n_keep,
+                                 void* out, void* stream_ptr) {
+  if (n_gen <= 0 || n_gen > kMaxGen || n_keep < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GenModels src;
+  for (int g = 0; g < n_gen; ++g) src.m[g] = static_cast<const int*>(m[g]);
+  const long long total = (long long)n_gen * n_keep;
+  if (total == 0) return 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  pack_models_kernel<<<grid_for(total), kThreads, 0, stream>>>(
+      src, n_gen, n_keep, static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,8 @@
 // Layout of a draw: key = the run's seed (low and high 32-bit words);
 // counter = (lane, draw block, generation, stream tag * max_rounds + round).
 // The tags (kernels/philox.py): 0 calibration, 1 generation-0 prior,
-// 2 transition proposal, 3 simulator noise, 4 the stochastic accept.
+// 2 transition proposal, 3 simulator noise, 4 the stochastic accept, 5 the
+// model index of a run over several models (never drawn with one model).
 // One block gives four 32-bit words. A draw's position therefore depends
 // only on (seed, stream, generation, round, lane, block, word): never on
 // the number of lanes, on which redraw was taken, or on the device.

@@ -8,9 +8,12 @@
 // Per lane b with sum-stat row x (S,):
 //   d = (sum_k (w_k |x_k - x0_k|)^p)^(1/p)   (p = inf: max_k, NaN kept)
 //   accept = valid & (d <= eps) [& (d <= hist_min)]
-//   log w = log_offset + logpri - logq   (transition rounds; log_offset is
-//           log model prior - log model factor), 0 for prior rounds,
-//           -inf where the lane is invalid.
+//   log w = log_offset + logpri - logq   (transition rounds of one model),
+//           0 for prior rounds, -inf where the lane is invalid;
+//   K > 1 (m, model_logits and log_model_factor given, util.py:399-406):
+//   log w = model_logits[m] + logpri - log_model_factor[m] - logq, the two
+//           K-vectors read from device memory by the lane's model m; with
+//           null pointers the kernel does exactly the single-model work.
 // eps and hist_min arrive as device scalars (pointers): the threshold is
 // a device tensor carried from the previous generation, never a host float.
 //
@@ -37,6 +40,9 @@ pnorm_accept_weight_kernel(const float* __restrict__ ss, int B, int S,
                            const float* __restrict__ hist_min,
                            const float* __restrict__ logpri,
                            const float* __restrict__ logq, float log_offset,
+                           const int* __restrict__ m,
+                           const float* __restrict__ model_logits,
+                           const float* __restrict__ log_model_factor,
                            float* __restrict__ d_out,
                            uint8_t* __restrict__ acc_out,
                            float* __restrict__ logw_out) {
@@ -72,7 +78,11 @@ pnorm_accept_weight_kernel(const float* __restrict__ ss, int B, int S,
   float lw = 0.f;
   if (!v)
     lw = -INFINITY;
-  else if (logpri != nullptr)
+  else if (logpri != nullptr && m != nullptr) {
+    const int mi = m[row_i];
+    lw = model_logits[mi] + logpri[row_i] - log_model_factor[mi] -
+         logq[row_i];
+  } else if (logpri != nullptr)
     lw = log_offset + logpri[row_i] - logq[row_i];
   d_out[row_i] = d;
   acc_out[row_i] = a ? 1 : 0;
@@ -84,14 +94,18 @@ pnorm_accept_weight_kernel(const float* __restrict__ ss, int B, int S,
 extern "C" int pyabc_pnorm_accept_weight(
     const float* ss, int B, int S, const float* x0, const float* w, float p,
     const uint8_t* valid, const float* eps, const float* hist_min,
-    const float* logpri, const float* logq, float log_offset, float* d_out,
+    const float* logpri, const float* logq, float log_offset, const int* m,
+    const float* model_logits, const float* log_model_factor, float* d_out,
     uint8_t* acc_out, float* logw_out, void* stream_ptr) {
   if (B <= 0) return 0;
+  if (m != nullptr && (model_logits == nullptr ||
+                       log_model_factor == nullptr || logpri == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows_per_block = kThreads / 32;
   const int grid = (B + rows_per_block - 1) / rows_per_block;
   pnorm_accept_weight_kernel<<<grid, kThreads, 0, stream>>>(
-      ss, B, S, x0, w, p, valid, eps, hist_min, logpri, logq, log_offset,
-      d_out, acc_out, logw_out);
+      ss, B, S, x0, w, p, valid, eps, hist_min, logpri, logq, log_offset, m,
+      model_logits, log_model_factor, d_out, acc_out, logw_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The device side of a fused single-model run
+"""The device side of a fused single-device run
 (``pyabc_tpu/inference/util.py::DeviceContext`` counterpart, main branch).
 
 One generation is a host loop of proposal rounds. Each round runs on the
@@ -26,6 +26,21 @@ temperature on the device. The calibration gives the first norm and
 temperature from its sample through K21b too, so no temperature is ever
 read back to the host. The temperature rides ``Carry.eps``.
 
+A run over several models (K > 1, ``multigen_kernel`` with K models; the
+fused, single-device, non-stochastic path): each lane first draws its model
+on the MODEL stream inside K2 (from the model prior at generation 0 and in
+calibration, else an ancestor model from the last population's model
+probabilities, perturbed by the masked perturbation matrix), then theta
+from that model's prior or fit (stacked ``(K, ...)`` params, theta padded
+to d_max with exact zeros); K3 scores each lane under its own model's
+mixture; the model family's simulator (K20b) or each user model under a
+``torch.where`` simulates; K5 adds the model prior and the log model
+factor to the log weight; K6 keeps each row's model. The generation step
+runs K26 (model probabilities, counts, the fitted mask, and the next
+generation's matrix and log model factor) and the per-model K8 refit, one
+launch over all models. Nothing of it is read by the host before the
+chunk's fetch.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -39,12 +54,17 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import philox
+from ..core.random_variables import stacked_arrays
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
+from ..kernels.model_step import model_step
+from ..kernels.mvn_fit import mvn_fit
+from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
 from ..kernels.propose import N_REDRAWS, propose
 from ..kernels.temperature_update import scheme_tables, temperature_update
+from ..model import simulate_models_flat
 from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
 from ..ops.stats import normalize_log_weights, weighted_quantile
@@ -59,8 +79,8 @@ CALIBRATION_GENERATION = 2 ** 32 - 1
 class Carry:
     """Device state carried from one generation to the next."""
 
-    trans_params: dict
-    fitted: torch.Tensor        # bool ()
+    trans_params: dict          # K > 1: stacked over the models
+    fitted: torch.Tensor        # bool (); K > 1: (K,)
     dist_w: torch.Tensor        # (S,); a stochastic kernel's variances
     eps: torch.Tensor           # () threshold (temperature) of the next
     hist_min: torch.Tensor      # () running min of used epsilons
@@ -70,6 +90,11 @@ class Carry:
     pdf_norm: torch.Tensor | None = None
     max_found: torch.Tensor | None = None
     daly_k: torch.Tensor | None = None
+    # K > 1: the last population's log model probabilities, and for the
+    # next generation the masked perturbation matrix and log model factor
+    log_model_probs: torch.Tensor | None = None   # (K,)
+    matrix: torch.Tensor | None = None            # (K, K)
+    log_model_factor: torch.Tensor | None = None  # (K,)
 
 
 @dataclass
@@ -93,9 +118,14 @@ class DeviceContext:
                  generator: torch.Generator, B: int, n_cap: int,
                  rec_cap: int, max_rounds: int,
                  sync_ledger: SyncLedger | None = None, seed: int = 0,
-                 temp_config=None):
+                 temp_config=None, models=None, priors=None,
+                 model_prior=None, mpk=None, fit_statics=None):
         self.model = model
         self.prior = prior
+        #: K > 1 (model selection): the models; ``_init_models`` takes their
+        #: priors, the model prior, the perturbation matrix and fit statics
+        self.models = list(models) if models is not None else [model]
+        self.K = len(self.models)
         self.distance = distance
         self.acceptor = acceptor
         self.transition = transition
@@ -105,12 +135,15 @@ class DeviceContext:
         #: draws of user simulators (built-in models draw from Philox)
         self.generator = generator
         self.seed = int(seed)
-        self.prior_arrays = prior.arrays(device)
+        if self.K > 1:
+            self._init_models(priors, model_prior, mpk, fit_statics)
+        else:
+            self.prior_arrays = prior.arrays(device)
+            self.d = prior.dim
         #: round counters of the generation in progress (generation_while)
         self.counters = torch.zeros(4, dtype=torch.int32, device=device)
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
         self.max_rounds = int(max_rounds)
-        self.d = prior.dim
         self.S = spec.total_size
         self.sync_ledger = sync_ledger or SyncLedger()
         self.use_hist = bool(getattr(acceptor, "use_complete_history",
@@ -122,6 +155,21 @@ class DeviceContext:
         if self.stochastic:
             self.temp_tables = scheme_tables(temp_config.schemes, device)
             self.init_tables = scheme_tables((temp_config.initial,), device)
+
+    def _init_models(self, priors, model_prior, mpk, fit_statics) -> None:
+        """The K > 1 device constants, built once per run."""
+        dev, f32 = self.device, torch.float32
+        self.priors = list(priors)
+        self.dims = [p.dim for p in self.priors]
+        self.d = max(self.dims)
+        self.prior_arrays = stacked_arrays(self.priors, dev)
+        self.dims_f = torch.tensor([float(x) for x in self.dims], dtype=f32,
+                                   device=dev)
+        p = torch.tensor(model_prior, dtype=torch.float64)
+        self.model_prior = p.to(f32).to(dev)
+        self.model_logits = torch.log(p).to(f32).to(dev)
+        self.mpk = torch.as_tensor(mpk, dtype=f32).contiguous().to(dev)
+        self.fit_statics = list(fit_statics)
 
     # ------------------------------------------------------------ buffers
     def new_reservoir(self) -> dict:
@@ -135,6 +183,8 @@ class DeviceContext:
                                      device=dev),
             "slot": torch.full((self.n_cap,), -1, dtype=torch.int32,
                                device=dev),
+            **({"m": torch.zeros(self.n_cap, dtype=torch.int32, device=dev)}
+               if self.K > 1 else {}),
         }
 
     def new_ring(self) -> dict | None:
@@ -171,8 +221,9 @@ class DeviceContext:
             stream=self.stream(t, philox.SIM_NOISE))
 
     def _accept(self, ss, eps, dist_w, valid, hist_min, pdf_norm, t,
-                logpri=None, logq=None):
-        """K21a (noisy ABC) or K5 -> (distance, accept, log weight)."""
+                logpri=None, logq=None, **model_terms):
+        """K21a (noisy ABC) or K5 -> (distance, accept, log weight); K > 1
+        passes K5 the lanes' models and the two model terms."""
         if self.stochastic:
             return kernel_accept(
                 ss, self.x0, dist_w, eps, pdf_norm, valid,
@@ -182,13 +233,30 @@ class DeviceContext:
                 logpri=logpri, logq=logq)
         return pnorm_accept_weight(
             ss, self.x0, dist_w, eps, valid, p=self.distance.p,
-            hist_min=hist_min, logpri=logpri, logq=logq)
+            hist_min=hist_min, logpri=logpri, logq=logq, **model_terms)
+
+    def _simulate_models(self, theta, m, t: int) -> torch.Tensor:
+        return simulate_models_flat(
+            self.models, theta, m, self.generator, self.spec,
+            stream=self.stream(t, philox.SIM_NOISE))
 
     def lanes_prior(self, eps: torch.Tensor, dist_w: torch.Tensor,
                     hist_min: torch.Tensor | None = None, *, t: int = 0,
                     tag: int = philox.PRIOR,
                     pdf_norm: torch.Tensor | None = None) -> dict:
         """One round proposed from the prior (generation 0, calibration)."""
+        if self.K > 1:
+            # the model from the model prior, then its parameter prior;
+            # the log weight is the acceptance weight alone (_lane_prior)
+            theta, logpri, valid, m = propose.models(
+                self.stream(t, tag), self.B, self.prior_arrays,
+                self.model_prior)
+            ss = self._simulate_models(theta, m, t)
+            d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
+                                           pdf_norm, t)
+            return {"theta": theta, "sumstats": ss, "distance": d,
+                    "accepted": accept, "valid": valid, "log_weight": logw,
+                    "logq": logpri, "m": m}
         theta, logpri, valid = propose(self.stream(t, tag), self.B,
                                        self.prior_arrays)
         ss = self._simulate(theta, t)
@@ -202,10 +270,26 @@ class DeviceContext:
     def lanes_transition(self, params: dict, eps: torch.Tensor,
                          dist_w: torch.Tensor,
                          hist_min: torch.Tensor | None = None, *,
-                         t: int, pdf_norm: torch.Tensor | None = None
-                         ) -> dict:
+                         t: int, pdf_norm: torch.Tensor | None = None,
+                         carry: Carry | None = None) -> dict:
         """One round proposed from the fitted transition (t > 0), with
-        redraws against zero prior mass (K2)."""
+        redraws against zero prior mass (K2). K > 1 takes the model terms
+        from ``carry``."""
+        if self.K > 1:
+            stream = self.stream(t, philox.TRANSITION)
+            theta, logpri, valid, m = propose.models(
+                stream, self.B, self.prior_arrays, carry.log_model_probs,
+                params, carry.matrix)
+            logq = mvn_mixture_logpdf.models(theta, m, params)
+            ss = self._simulate_models(theta, m, t)
+            d, accept, logw = self._accept(
+                ss, eps, dist_w, valid, hist_min, pdf_norm, t,
+                logpri=logpri, logq=logq, m=m,
+                model_logits=self.model_logits,
+                log_model_factor=carry.log_model_factor)
+            return {"theta": theta, "sumstats": ss, "distance": d,
+                    "accepted": accept, "valid": valid, "log_weight": logw,
+                    "logq": logq, "m": m}
         theta, logpri, valid = propose(self.stream(t, philox.TRANSITION),
                                        self.B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
@@ -236,7 +320,8 @@ class DeviceContext:
             compact_round(out["accepted"], out["valid"], out["theta"],
                           out["sumstats"], out["distance"],
                           out["log_weight"], res, rec, counters,
-                          logq=out["logq"] if record else None)
+                          logq=out["logq"] if record else None,
+                          m=out["m"] if self.K > 1 else None)
             host = counters.cpu()
             self.sync_ledger.record("round_counters", host.nbytes)
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
@@ -320,9 +405,21 @@ class DeviceContext:
             eps_next = weighted_quantile(pts, wts, alpha) * multiplier
         else:
             eps_next = eps_g
-        trans_next = self.transition.device_fit(
-            res["theta"], w_norm, dim=self.d, **fit_statics)
-        fitted_next = k_mask.sum() > 0
+        models = {}
+        if self.K > 1:
+            # K26, then the per-model refit (one K8 launch over the models)
+            step = model_step(res["m"], w_norm, k_mask, carry.fitted,
+                              self.mpk)
+            trans_next = mvn_fit.models(
+                res["theta"], w_norm, res["m"], dims=self.dims,
+                statics=self.fit_statics, dims_tensor=self.dims_f)
+            fitted_next = step["fitted"]
+            models = {k: step[k] for k in ("log_model_probs", "matrix",
+                                           "log_model_factor")}
+        else:
+            trans_next = self.transition.device_fit(
+                res["theta"], w_norm, dim=self.d, **fit_statics)
+            fitted_next = k_mask.sum() > 0
         n_acc = counters[N_ACC]
         acc_rate = n_acc.to(torch.float32) / counters[N_VALID].clamp_min(
             1).to(torch.float32)
@@ -332,6 +429,8 @@ class DeviceContext:
                "log_weight": res["log_weight"], "sumstats": res["sumstats"],
                "eps_used": eps_g, "eps_next": eps_next,
                "dist_w_next": dist_w_next}
+        if self.K > 1:
+            out.update(m=res["m"], model_probs=step["model_probs"])
         noisy = {}
         if self.stochastic:
             cfg = self.temp_config
@@ -363,5 +462,5 @@ class DeviceContext:
         nxt = Carry(trans_params=trans_next, fitted=fitted_next,
                     dist_w=dist_w_next, eps=eps_next,
                     hist_min=hist_min_next, eps_prev=eps_prev_n,
-                    stall_count=stall_n, **noisy)
+                    stall_count=stall_n, **noisy, **models)
         return nxt, out

@@ -1,7 +1,11 @@
-"""ABCSMC on the fused single-model path
+"""ABCSMC on the fused single-device path
 (``pyabc_tpu/inference/smc.py::ABCSMC`` counterpart).
 
-``ABCSMC(model, prior, distance, ...).new(db, observed)`` then ``.run()``.
+``ABCSMC(model, prior, distance, ...).new(db, observed)`` then ``.run()``;
+``ABCSMC([m0, m1, ...], [p0, p1, ...], ...)`` selects between models (the
+fused single-device path with one MultivariateNormalTransition per model,
+a model prior and a ModelPerturbationKernel; not with a stochastic
+acceptor, as in the JAX package).
 Generations are grouped into chunks of ``fused_generations``: within a
 chunk the host reads only the per-round counters; the accepted rows of the
 chunk come back in one packed fetch (K10), after which the chunk's
@@ -37,13 +41,15 @@ from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
                                    device_config)
+from ..kernels.mvn_fit import MAX_MODELS
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
 from ..ops.health import decode
-from ..ops.pack import (fetch_dtype_of, pack_rows, pack_sumstats,
-                        unpack_rows)
+from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
+                        pack_sumstats, unpack_rows)
 from ..populationstrategy import ConstantPopulationSize
 from ..storage.history import History
+from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
 from ..utils import not_ported as _not_ported
 from ..utils import pick_batch, pow2_bucket, resolve_device
@@ -92,29 +98,42 @@ class ABCSMC:
                  health_acc_floor: float = 0.0,
                  eps_stall_window: int = 16, eps_stall_rtol: float = 1e-6,
                  device=None):
-        if isinstance(models, Sequence) and not isinstance(models, str):
-            models = list(models)
-            if len(models) != 1:
-                raise _not_ported("model selection (several models)", "9")
-            models = models[0]
-        if isinstance(parameter_priors, Sequence):
-            parameter_priors = list(parameter_priors)
-            if len(parameter_priors) != 1:
-                raise _not_ported("model selection (several priors)", "9")
-            parameter_priors = parameter_priors[0]
-        if not isinstance(models, TorchModel):
-            raise _not_ported(
-                f"a {type(models).__name__} model (only TorchModel runs on "
-                f"the device path; host models need the host samplers)",
-                "16")
-        if not isinstance(parameter_priors, Distribution):
-            raise TypeError("parameter_priors must be a Distribution")
+        models = (list(models) if isinstance(models, Sequence)
+                  and not isinstance(models, str) else [models])
+        parameter_priors = (list(parameter_priors)
+                            if isinstance(parameter_priors, Sequence)
+                            else [parameter_priors])
+        if len(parameter_priors) != len(models):
+            raise ValueError(f"{len(models)} models and "
+                             f"{len(parameter_priors)} priors")
+        for model in models:
+            if not isinstance(model, TorchModel):
+                raise _not_ported(
+                    f"a {type(model).__name__} model (only TorchModel runs "
+                    f"on the device path; host models need the host "
+                    f"samplers)", "16")
+        if not all(isinstance(p, Distribution) for p in parameter_priors):
+            raise TypeError("parameter_priors must be Distributions")
+        #: number of models; K > 1 is model selection
+        self.K = len(models)
+        if self.K > MAX_MODELS:
+            raise ValueError(f"{self.K} models: the kernels take at most "
+                             f"{MAX_MODELS}")
         if summary_statistics is not None:
             raise _not_ported("a host summary_statistics callable", "16")
-        if model_prior is not None or model_perturbation_kernel is not None:
-            raise _not_ported("model priors and model perturbation", "9")
-        if stop_if_only_single_model_alive:
-            raise _not_ported("stop_if_only_single_model_alive", "9")
+        # the model prior (uniform by default) and the perturbation kernel
+        # (probability_to_stay 0.7), as in the JAX package
+        if model_prior is None:
+            self.model_prior_probs = np.full(self.K, 1.0 / self.K)
+        else:
+            self.model_prior_probs = np.asarray(model_prior, np.float64)
+            self.model_prior_probs /= self.model_prior_probs.sum()
+        self.model_perturbation_kernel = (
+            model_perturbation_kernel
+            if model_perturbation_kernel is not None
+            else ModelPerturbationKernel(self.K, probability_to_stay=0.7))
+        self.stop_if_only_single_model_alive = bool(
+            stop_if_only_single_model_alive)
         if sampler is not None:
             raise _not_ported("host samplers", "16")
         if mesh is not None or sharded:
@@ -128,10 +147,12 @@ class ABCSMC:
             raise _not_ported("mid-chunk checkpoints", "8")
         if np.isfinite(max_nr_recorded_particles):
             raise _not_ported("max_nr_recorded_particles", "12")
-        self.model = models
-        self.prior = parameter_priors
-        if len(self.model.space.names) != self.prior.dim:
-            raise ValueError("model and prior disagree in parameter dim")
+        self.models, self.priors = models, parameter_priors
+        self.model, self.prior = models[0], parameter_priors[0]
+        for model, prior in zip(models, parameter_priors):
+            if len(model.space.names) != prior.dim:
+                raise ValueError(f"model {model.name} and its prior "
+                                 f"disagree in parameter dim")
 
         distance = (distance_function if distance_function is not None
                     else PNormDistance(p=2))
@@ -146,6 +167,9 @@ class ABCSMC:
         self.acceptor = acceptor
         #: noisy ABC: a stochastic acceptor, kernel and temperature
         self.stochastic = type(acceptor) is StochasticAcceptor
+        if self.stochastic and self.K > 1:
+            raise ValueError("a StochasticAcceptor runs one model only "
+                             "(the JAX package's fused noisy ABC is K = 1)")
         if self.stochastic:
             # the JAX package's sanity pairing
             if not isinstance(distance, StochasticKernel):
@@ -172,16 +196,18 @@ class ABCSMC:
             raise _not_ported(f"population strategy "
                               f"{type(population_size).__name__}", "12")
         if transitions is None:
-            transitions = MultivariateNormalTransition()
-        if isinstance(transitions, Sequence):
-            transitions = list(transitions)
-            if len(transitions) != 1:
-                raise _not_ported("one transition per model", "9")
-            transitions = transitions[0]
-        if type(transitions) is not MultivariateNormalTransition:
-            raise _not_ported(f"transition {type(transitions).__name__}",
-                              "12")
-        self.transition = transitions
+            transitions = [MultivariateNormalTransition()
+                           for _ in range(self.K)]
+        transitions = (list(transitions) if isinstance(transitions, Sequence)
+                       else [transitions])
+        if len(transitions) != self.K:
+            raise ValueError(f"{len(transitions)} transitions for "
+                             f"{self.K} models")
+        for tr in transitions:
+            if type(tr) is not MultivariateNormalTransition:
+                raise _not_ported(f"transition {type(tr).__name__}", "12")
+        self.transitions = transitions
+        self.transition = transitions[0]
         if fetch_dtype not in ("float16", "bfloat16", "float32"):
             raise ValueError(f"fetch_dtype must be float16/bfloat16/"
                              f"float32, got {fetch_dtype!r}")
@@ -207,10 +233,13 @@ class ABCSMC:
         #: stepping (compute_s), reading (fetch_s, a chunk's share) and
         #: persisting (persist_s); chip_smoke.py reads it
         self.generation_log: list[dict] = []
+        #: K > 1: the newest persisted generation's model probabilities
+        #: (alive models only), as the JAX package's ``_model_probs``
+        self.model_probs: dict[int, float] = {}
 
     @property
     def model_names(self) -> list[str]:
-        return [self.model.name]
+        return [m.name for m in self.models]
 
     # ---------------------------------------------------------- lifecycle
     def new(self, db: str, observed_sum_stat: dict | None = None, *,
@@ -224,7 +253,8 @@ class ABCSMC:
         self.spec = SumStatSpec(self.x_0)
         self.history = History(db, store_sum_stats=store_sum_stats)
         options = dict(meta_info or {})
-        options["parameter_names"] = {0: list(self.prior.space.names)}
+        options["parameter_names"] = {
+            m: list(p.space.names) for m, p in enumerate(self.priors)}
         self.history.store_initial_data(
             gt_model, options, self.x_0, gt_par or {}, self.model_names,
             json.dumps(self.distance_function.get_config()),
@@ -283,13 +313,20 @@ class ABCSMC:
                                     int(n / min_acceptance_rate) // B + 1))
         x0 = torch.as_tensor(self.spec.flatten_host(self.x_0),
                              dtype=torch.float32, device=self.device)
+        models = {}
+        if self.K > 1:
+            models = dict(
+                models=self.models, priors=self.priors,
+                model_prior=self.model_prior_probs,
+                mpk=self.model_perturbation_kernel.device_params(),
+                fit_statics=[tr.fit_statics() for tr in self.transitions])
         return DeviceContext(
             model=self.model, prior=self.prior, distance=d,
             acceptor=self.acceptor, transition=self.transition,
             spec=self.spec, x0=x0, device=self.device,
             generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
             max_rounds=max_rounds, sync_ledger=self.sync_ledger,
-            seed=self.seed, temp_config=temp_config)
+            seed=self.seed, temp_config=temp_config, **models)
 
     def _health_config(self):
         if not self.health_checks:
@@ -342,6 +379,8 @@ class ABCSMC:
             eps_prev=self._scalar(inf),
             stall_count=torch.zeros((), dtype=torch.int32,
                                     device=self.device))
+        if self.K > 1:
+            self._model_carry(carry, ctx)
 
         calib = None
         calib_w = isinstance(d, AdaptivePNormDistance)
@@ -407,7 +446,8 @@ class ABCSMC:
                     def lanes(c=carry, h=hist, tg=tg):
                         return ctx.lanes_transition(
                             c.trans_params, c.eps, c.dist_w, h, t=tg,
-                            pdf_norm=c.pdf_norm)
+                            pdf_norm=c.pdf_norm,
+                            carry=c if self.K > 1 else None)
                 run = ctx.generation_while(lanes, n, eps_at_min=at_min)
                 gen_ok = run.n_acc >= min(n, ctx.n_cap)
                 if not gen_ok:
@@ -443,10 +483,25 @@ class ABCSMC:
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
             chunk_s = time.perf_counter() - t_chunk
-            self._persist_chunk(fetched, host_gen, t, n, chunk_index,
-                                chunk_s, eps_quantile, adaptive)
-            t += len(outs)
+            n_kept, single = self._persist_chunk(
+                fetched, host_gen, t, n, chunk_index, chunk_s, eps_quantile,
+                adaptive)
+            stop = stop or single
+            t += n_kept
             chunk_index += 1
+
+    def _model_carry(self, carry: Carry, ctx: DeviceContext) -> None:
+        """K > 1: stacked never-fitted params and the model terms of the
+        first transition generation's placeholders (generation 0 proposes
+        from the priors and reads none of them)."""
+        dev, f32 = self.device, torch.float32
+        K = self.K
+        carry.trans_params = MultivariateNormalTransition.zero_params_models(
+            K, ctx.n_cap, ctx.d, ctx.dims_f)
+        carry.fitted = torch.zeros(K, dtype=torch.bool, device=dev)
+        carry.log_model_probs = ctx.model_logits.clone()
+        carry.matrix = torch.zeros(K, K, dtype=f32, device=dev)
+        carry.log_model_factor = torch.zeros(K, dtype=f32, device=dev)
 
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
@@ -469,6 +524,11 @@ class ABCSMC:
                 dtype=dtype)
         if adaptive:
             tree["dist_w_next"] = stack("dist_w_next")
+        if "m" in outs[0]:
+            # K > 1: each kept row's model (int8) and the model
+            # probabilities, in the same fetch
+            tree["m"] = pack_models(each("m"), n_keep=n)
+            tree["model_probs"] = stack("model_probs")
         if stochastic:
             for k in ("pdf_norm_next", "max_found_next", "daly_k_next"):
                 tree[k] = stack(k)
@@ -500,7 +560,9 @@ class ABCSMC:
                 for k, v in out.items()}
 
     def _persist_chunk(self, fetched, host_gen, t0, n, chunk_index, chunk_s,
-                       eps_quantile, adaptive) -> None:
+                       eps_quantile, adaptive) -> tuple[int, bool]:
+        """Persist the chunk's generations -> (how many were persisted,
+        whether stop_if_only_single_model_alive stopped the run there)."""
         if "calib_pdf_norm0" in fetched:
             self._mirror_noisy(-1, fetched["calib_pdf_norm0"],
                                fetched["calib_max_found0"],
@@ -510,8 +572,9 @@ class ABCSMC:
                 fetched["calib_w0"], np.float64)
             if eps_quantile and self.eps.requires_calibration():
                 self.eps._values[0] = float(fetched["calib_eps0"])
-        d = self.prior.dim
+        d = max(p.dim for p in self.priors)
         theta, dist, logw = unpack_rows(fetched["rows"], d)
+        spaces = [p.space for p in self.priors]
         for g, info in enumerate(host_gen):
             t = t0 + g
             if "health" in fetched and int(fetched["health"][g]) != 0:
@@ -520,10 +583,12 @@ class ABCSMC:
             ss = None
             if g in fetched["ss_gens"]:
                 ss = fetched["sumstats"][fetched["ss_gens"].index(g)]
+            ms = (fetched["m"][g].astype(np.int32) if "m" in fetched
+                  else np.zeros(n, np.int32))
             pop = Population(
-                ms=np.zeros(n, np.int32), thetas=theta[g],
+                ms=ms, thetas=theta[g],
                 weights=exp_normalize_log_weights(logw[g]),
-                distances=dist[g], sumstats=ss, spaces=[self.prior.space],
+                distances=dist[g], sumstats=ss, spaces=spaces,
                 sumstat_spec=self.spec, model_names=self.model_names)
             telemetry = {
                 "fused_chunk": len(host_gen), "chunk_index": chunk_index,
@@ -556,6 +621,18 @@ class ABCSMC:
             logger.info("t: %d, eps: %.8g, acceptance rate: %.5f (%d "
                         "evaluations)", t, eps_used,
                         info["acceptance_rate"], info["n_valid"])
+            if "model_probs" in fetched:
+                # the host rule of the JAX package (smc.py:1558), read from
+                # the fetched model probabilities; the chunk's later
+                # generations are not persisted
+                self.model_probs = {
+                    m: float(p) for m, p in
+                    enumerate(fetched["model_probs"][g]) if p > 0}
+                if (self.stop_if_only_single_model_alive
+                        and len(self.model_probs) == 1):
+                    logger.info("stopping: single model alive")
+                    return g + 1, True
+        return len(host_gen), False
 
     def _mirror_noisy(self, t, pdf_norm, max_found, temp,
                       daly_k=None) -> None:

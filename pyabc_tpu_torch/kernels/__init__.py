@@ -8,8 +8,10 @@ from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
+from .model_step import model_step, model_step_plain
 from .mvn_fit import mvn_fit, mvn_fit_plain
 from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
+from .ode_family import ode_family_simulate, ode_family_simulate_plain
 from .normalize_quantile import (normalize_log_weights_plain,
                                  normalize_quantile, weighted_quantile_plain)
 from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
@@ -20,11 +22,11 @@ from .sir_simulate import sir_simulate, sir_simulate_plain
 from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
-#: K3-K11, K20, K21a, K21b)
+#: K3-K11, K20, K20b, K21a, K21b, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
-           pack_fetch, generation_health, sir_simulate, kernel_accept,
-           temperature_update)
+           pack_fetch, generation_health, sir_simulate, ode_family_simulate,
+           kernel_accept, temperature_update, model_step)
 
 
 def reset_launch_counts() -> None:
@@ -40,9 +42,11 @@ __all__ = [
     "KERNELS", "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "kernel_accept",
     "kernel_accept_plain", "launch_counts",
-    "lv_simulate", "lv_simulate_plain", "mvn_fit", "mvn_fit_plain",
+    "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
+    "mvn_fit", "mvn_fit_plain",
     "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain",
-    "normalize_log_weights_plain", "normalize_quantile", "pack_fetch",
+    "normalize_log_weights_plain", "normalize_quantile",
+    "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_plain", "reset_launch_counts", "scale_reduce",
     "scale_reduce_plain", "sir_simulate", "sir_simulate_plain",

@@ -36,16 +36,21 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "pyabc_mvn_mixture_logpdf": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _F, _P, _P],
+    "pyabc_mvn_mixture_logpdf_models": [
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pyabc_lv_simulate": [
         _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _P, _P,
         _P],
+    "pyabc_ode_family_simulate": [
+        _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_sir_simulate": [
         _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_pnorm_accept_weight": [
-        _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P],
+        _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
+        _P, _P],
     "pyabc_compact_round": [
-        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-        _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_temperature_update": [
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
         _F, _I, _I, _F, _I, _I, _F, _F, _I, _P, _P, _P],
@@ -55,20 +60,29 @@ SIGNATURES = {
     "pyabc_propose": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _P,
         _I, _P, _P, _P, _P],
+    "pyabc_propose_models": [
+        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
+        _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
     "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],
     "pyabc_mvn_fit": [
         _P, _P, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P],
+    "pyabc_mvn_fit_models": [
+        _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P],
     "pyabc_chol_guarded": [_P, _I, _P, _P, _P, _P],
+    "pyabc_model_step": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_scale_reduce": [
         _P, _I, _I, _P, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _P],
+    "pyabc_pack_models": [_I, _P, _I, _P, _P],
     "pyabc_generation_health": [
-        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P,
-        _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],
+        _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
+        _P, _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -12,8 +12,12 @@ Record mode (a noisy-ABC run, ``_generation_while(record_proposal=True)``):
 the ring also holds ``theta`` and ``logq``, each record's parameters and
 the log-density of the proposal it was drawn from (the prior's in
 generation 0), and the round passes its ``logq``. Without those columns
-the compaction is exactly the plain one. The model index ``m`` of the JAX
-ring is not kept: the port runs one model.
+the compaction is exactly the plain one.
+
+Model column (a run over several models): the reservoir also holds ``m``
+(int32) and the round passes each lane's model; it lands on the lane's
+reservoir row, bit-exact. Without it nothing changes. The record ring
+keeps no model index: nothing on the ported paths reads it.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from .base import Kernel
 
 def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
                         rec: dict | None, counters: torch.Tensor,
-                        logq: torch.Tensor | None = None) -> None:
+                        logq: torch.Tensor | None = None,
+                        m: torch.Tensor | None = None) -> None:
     """Plain PyTorch version (in place)."""
     B = accept.shape[0]
     n_cap = res["distance"].shape[0]
@@ -41,6 +46,8 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
     res["distance"][idx] = dist[write]
     res["log_weight"][idx] = logw[write]
     res["slot"][idx] = slots[write]
+    if m is not None:
+        res["m"][idx] = m[write]
     if rec is not None:
         rec_cap = rec["distance"].shape[0]
         take = valid & (slots < rec_cap)
@@ -64,17 +71,21 @@ class CompactRound(Kernel):
 
     def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
                  rec: dict | None, counters: torch.Tensor,
-                 logq: torch.Tensor | None = None) -> None:
+                 logq: torch.Tensor | None = None,
+                 m: torch.Tensor | None = None) -> None:
         record = rec is not None and "theta" in rec
         if record != (logq is not None):
             raise ValueError(f"{self.name}: a ring with theta/logq columns "
                              f"and the round's logq go together")
+        if ("m" in res) != (m is not None):
+            raise ValueError(f"{self.name}: a reservoir with an m column "
+                             f"and the round's m go together")
         bufs = list(res.values()) + (list(rec.values()) if rec else [])
-        extra = [logq] if logq is not None else []
+        extra = [t for t in (logq, m) if t is not None]
         if self.on_cpu(accept, valid, theta, ss, dist, logw, counters,
                        *bufs, *extra):
             compact_round_plain(accept, valid, theta, ss, dist, logw, res,
-                                rec, counters, logq)
+                                rec, counters, logq, m)
             return
         B, d = theta.shape
         S = ss.shape[1]
@@ -91,6 +102,9 @@ class CompactRound(Kernel):
         self.expect(res["distance"], "res.distance", f32, (n_cap,))
         self.expect(res["log_weight"], "res.log_weight", f32, (n_cap,))
         self.expect(res["slot"], "res.slot", i32, (n_cap,))
+        if m is not None:
+            self.expect(m, "m", i32, (B,))
+            self.expect(res["m"], "res.m", i32, (n_cap,))
         self.expect(counters, "counters", i32, (counters.shape[0],))
         if counters.shape[0] < 3:
             raise ValueError(f"{self.name}: counters need 3 entries")
@@ -113,9 +127,10 @@ class CompactRound(Kernel):
         err = _build.library().pyabc_compact_round(
             B, S, d, accept.data_ptr(), valid.data_ptr(), theta.data_ptr(),
             ss.data_ptr(), dist.data_ptr(), logw.data_ptr(), self.ptr(logq),
-            n_cap, res["theta"].data_ptr(), res["sumstats"].data_ptr(),
-            res["distance"].data_ptr(), res["log_weight"].data_ptr(),
-            res["slot"].data_ptr(), rec_cap, *rec_ptrs, *record_ptrs,
+            self.ptr(m), n_cap, res["theta"].data_ptr(),
+            res["sumstats"].data_ptr(), res["distance"].data_ptr(),
+            res["log_weight"].data_ptr(), res["slot"].data_ptr(),
+            self.ptr(res.get("m")), rec_cap, *rec_ptrs, *record_ptrs,
             counters.data_ptr(), _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1

@@ -1,10 +1,14 @@
 """K11: the per-generation health word.
 
-Counterpart of ``pyabc_tpu/ops/health.py::generation_health`` (single
-model); the CUDA kernel is ``csrc/generation_health.cu``. One int32 bitmask
+Counterpart of ``pyabc_tpu/ops/health.py::generation_health``; the CUDA
+kernel is ``csrc/generation_health.cu``. One int32 bitmask
 per generation, computed on the device from values the generation step
 already holds and read with the chunk's packed fetch (no extra sync). The
 bit layout is the JAX package's. ``ops/health.py`` calls this wrapper.
+
+K > 1 (``fitted`` a ``(K,)`` vector, a run over several models): the
+parameter sets are stacked over the models and the psd check runs over
+each FITTED model's slice (``health.py:80-95``).
 """
 from __future__ import annotations
 
@@ -55,6 +59,18 @@ def params_unhealthy(params: dict, fitted: torch.Tensor) -> torch.Tensor:
     return fitted & (~finite | zero_w)
 
 
+def params_unhealthy_models(params: dict, fitted: torch.Tensor
+                            ) -> torch.Tensor:
+    """K > 1: ``params_unhealthy`` of each model's slice of stacked
+    params, gated by ``fitted (K,)``."""
+    bad = torch.zeros((), dtype=torch.bool, device=fitted.device)
+    for k in range(fitted.shape[0]):
+        one = {key: v[k] for key, v in params.items()
+               if isinstance(v, torch.Tensor)}
+        bad = bad | params_unhealthy(one, fitted[k])
+    return bad
+
+
 def population_bits(theta, k_mask, w_norm, d_new, n_acc, *,
                     ess_floor: float, n_target: int, acc_rate,
                     acc_floor: float):
@@ -101,8 +117,8 @@ def generation_health_plain(*, theta, k_mask, w_norm, d_new, n_acc,
     word, ess = population_bits(
         theta, k_mask, w_norm, d_new, n_acc, ess_floor=ess_floor,
         n_target=n_target, acc_rate=acc_rate, acc_floor=acc_floor)
-    psd_bad = params_unhealthy(trans_params, fitted) \
-        | params_unhealthy(trans_next, fitted_next)
+    check = params_unhealthy if fitted.dim() == 0 else params_unhealthy_models
+    psd_bad = check(trans_params, fitted) | check(trans_next, fitted_next)
     word = word | _bit(psd_bad, BIT_PSD_FAIL)
     eps_bad = ~torch.isfinite(eps_g) | ~torch.isfinite(eps_next)
     word = word | _bit(eps_bad, BIT_EPS_NONFINITE)
@@ -154,19 +170,23 @@ class GenerationHealth(Kernel):
             return generation_health_plain(**kw)
         n_cap, d = theta.shape
         f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        n_models = fitted.shape[0] if fitted.dim() == 1 else 1
         self.expect(theta, "theta", f32, (n_cap, d))
         self.expect(k_mask, "k_mask", b8, (n_cap,))
         self.expect(w_norm, "w_norm", f32, (n_cap,))
         self.expect(d_new, "d_new", f32, (n_cap,))
         for t, what, dt in ((n_acc, "n_acc", i32), (acc_rate, "acc_rate", f32),
-                            (fitted, "fitted", b8),
-                            (fitted_next, "fitted_next", b8),
                             (eps_g, "eps_g", f32), (eps_next, "eps_next", f32),
                             (eps_prev, "eps_prev", f32),
                             (stall_count, "stall_count", i32)):
             if t.dtype != dt or t.numel() != 1:
                 raise TypeError(f"{self.name}: {what} must be one {dt}, got "
                                 f"{t.dtype} {tuple(t.shape)}")
+        for t, what in ((fitted, "fitted"), (fitted_next, "fitted_next")):
+            if t.dtype != b8 or t.numel() != n_models \
+                    or not t.is_contiguous():
+                raise TypeError(f"{self.name}: {what} must hold {n_models} "
+                                f"bool, got {t.dtype} {tuple(t.shape)}")
         set0 = self._param_set(trans_params, "trans_params")
         set1 = self._param_set(trans_next, "trans_next")
         dev = theta.device
@@ -178,7 +198,8 @@ class GenerationHealth(Kernel):
         err = _build.library().pyabc_generation_health(
             theta.data_ptr(), n_cap, d, k_mask.data_ptr(), w_norm.data_ptr(),
             d_new.data_ptr(), n_acc.data_ptr(), acc_rate.data_ptr(),
-            *set0, *set1, fitted.data_ptr(), fitted_next.data_ptr(),
+            *set0, *set1, n_models, fitted.data_ptr(),
+            fitted_next.data_ptr(),
             eps_g.data_ptr(), eps_next.data_ptr(), eps_prev.data_ptr(),
             stall_count.data_ptr(), ess_min, float(acc_floor),
             int(stall_window), float(stall_rtol), word.data_ptr(),

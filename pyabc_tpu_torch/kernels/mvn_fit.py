@@ -6,9 +6,17 @@ CUDA kernel is ``csrc/mvn_fit.cu``. The fitted params are a dict of device
 tensors: ``thetas``, ``weights``, ``chol``, ``prec``, ``center``,
 ``thetas_c``, ``quad``, ``logdet``, the ancestor ``cdf`` that K2 searches
 and the true ``dim`` (a Python float).
+
+K > 1 mode (``mvn_fit.models``, a run over several models,
+``util.py:1908-1948``): model k is refit on the shared d_max-padded
+reservoir with ``w_k = where(m == k, weights, 0)`` and its own dim,
+scaling and bandwidth rule. It is one launch with a grid of K blocks,
+writing stacked params: each tensor with a leading model axis, and
+``dims (K,)`` float32 the models' true dims in place of ``dim``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable
 
 import torch
@@ -101,6 +109,30 @@ def mvn_fit_plain(thetas: torch.Tensor, weights: torch.Tensor, *, dim: int,
     }
 
 
+#: models one launch of the K > 1 mode fits (the kernel's statics table)
+MAX_MODELS = 8
+#: the stacked params' tensors, in the kernel's output order
+STACKED_KEYS = ("thetas", "weights", "chol", "prec", "center", "thetas_c",
+                "quad", "logdet", "cdf")
+
+
+def mvn_fit_models_plain(thetas: torch.Tensor, weights: torch.Tensor,
+                         m: torch.Tensor, *, dims, statics,
+                         dims_tensor: torch.Tensor | None = None) -> dict:
+    """Plain PyTorch version of the K > 1 mode: one ``mvn_fit_plain`` per
+    model on its masked weights, stacked."""
+    fits = [mvn_fit_plain(thetas, torch.where(m == k, weights,
+                                              torch.zeros_like(weights)),
+                          dim=dims[k], **statics[k])
+            for k in range(len(dims))]
+    out = {k: torch.stack([f[k] for f in fits]).contiguous()
+           for k in STACKED_KEYS}
+    out["dims"] = (dims_tensor if dims_tensor is not None else
+                   torch.tensor([float(x) for x in dims],
+                                dtype=torch.float32, device=thetas.device))
+    return out
+
+
 class MvnFit(Kernel):
     name = "mvn_fit"
     source = "pyabc_tpu_torch/csrc/mvn_fit.cu"
@@ -147,6 +179,64 @@ class MvnFit(Kernel):
         _build.check(err, self.name)
         self.launches += 1
         return {**out, "dim": float(dim)}
+
+    def models(self, thetas: torch.Tensor, weights: torch.Tensor,
+               m: torch.Tensor, *, dims, statics,
+               dims_tensor: torch.Tensor | None = None) -> dict:
+        """The K > 1 mode: ``dims`` and ``statics`` (each model's
+        ``scaling`` and ``bandwidth_selector``) are per-model host values;
+        ``dims_tensor`` the models' dims as a float32 device tensor, which
+        the stacked params carry (built once by the caller, so no call
+        copies to the device)."""
+        extra = [dims_tensor] if dims_tensor is not None else []
+        if self.on_cpu(thetas, weights, m, *extra):
+            return mvn_fit_models_plain(thetas, weights, m, dims=dims,
+                                        statics=statics,
+                                        dims_tensor=dims_tensor)
+        n, d = thetas.shape
+        K = len(dims)
+        if d > MAX_DIM or not 0 < K <= MAX_MODELS or len(statics) != K:
+            raise ValueError(f"{self.name}: dim {d} (cap {MAX_DIM}) or "
+                             f"{K} models (cap {MAX_MODELS}) outside the "
+                             f"kernel's range")
+        sel = [SELECTORS.get(getattr(st["bandwidth_selector"], "__name__",
+                                     "")) for st in statics]
+        if None in sel:
+            raise NotImplementedError(
+                f"{self.name}: a bandwidth rule has no kernel (scott or "
+                f"silverman)")
+        f32 = torch.float32
+        self.expect(thetas, "thetas", f32, (n, d))
+        self.expect(weights, "weights", f32, (n,))
+        self.expect(m, "m", torch.int32, (n,))
+        if dims_tensor is None:
+            dims_tensor = torch.tensor([float(x) for x in dims], dtype=f32,
+                                       device=thetas.device)
+        self.expect(dims_tensor, "dims_tensor", f32, (K,))
+        dev = thetas.device
+        shapes = {"thetas": (K, n, d), "weights": (K, n), "chol": (K, d, d),
+                  "prec": (K, d, d), "center": (K, d),
+                  "thetas_c": (K, n, d), "quad": (K, n), "logdet": (K,),
+                  "cdf": (K, n)}
+        out = {k: torch.empty(shapes[k], dtype=f32, device=dev)
+               for k in STACKED_KEYS}
+
+        def arr(ctype, vals):
+            return (ctype * K)(*vals)
+
+        c_int, c_float = ctypes.c_int, ctypes.c_float
+        err = _build.library().pyabc_mvn_fit_models(
+            thetas.data_ptr(), weights.data_ptr(), m.data_ptr(), K, n, d,
+            arr(c_int, [int(x) for x in dims]),
+            arr(c_float, [float(st["scaling"]) for st in statics]),
+            arr(c_int, sel),
+            arr(c_float, [(4 / (x + 2)) ** (1 / (x + 4)) for x in dims]),
+            arr(c_float, [-1.0 / (x + 4) for x in dims]),
+            *(out[k].data_ptr() for k in STACKED_KEYS),
+            _build.stream_ptr(dev))
+        _build.check(err, self.name)
+        self.launches += 1
+        return {**out, "dims": dims_tensor}
 
 
 mvn_fit = MvnFit()

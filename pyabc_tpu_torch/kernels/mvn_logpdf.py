@@ -4,6 +4,11 @@ Counterpart of ``pyabc_tpu/transition/multivariatenormal.py::device_logpdf``
 vmapped over a round. ``params`` is the fitted transition dict
 (``prec``, ``center``, ``thetas_c``, ``quad``, ``weights``, ``logdet``,
 ``dim``); the CUDA kernel is ``csrc/mvn_logpdf.cu``.
+
+K > 1 mode (``mvn_mixture_logpdf.models``): each lane is scored under the
+mixture of its own model, from stacked params (every tensor with a leading
+model axis, ``dims (K,)`` float32 the models' true dims; ``model_params``
+takes one model's slice).
 """
 from __future__ import annotations
 
@@ -42,6 +47,27 @@ def mvn_mixture_logpdf_plain(q: torch.Tensor, params: dict) -> torch.Tensor:
     return weighted_logsumexp(log_comp, params["weights"][None, :])
 
 
+def model_params(params: dict, k: int) -> dict:
+    """Model ``k``'s params out of stacked (K > 1) params: each tensor's
+    slice ``[k]`` and ``dim`` a Python float (a host read of ``dims``, for
+    the CPU and the tests)."""
+    out = {key: v[k] for key, v in params.items()
+           if isinstance(v, torch.Tensor) and key != "dims"}
+    out["dim"] = float(params["dims"][k])
+    return out
+
+
+def mvn_mixture_logpdf_models_plain(q: torch.Tensor, m: torch.Tensor,
+                                    params: dict) -> torch.Tensor:
+    """Plain PyTorch version of the K > 1 mode: every model's mixture on
+    every lane, each lane's own model's kept."""
+    out = torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
+    for k in range(params["dims"].shape[0]):
+        lq = mvn_mixture_logpdf_plain(q, model_params(params, k))
+        out = torch.where(m == k, lq, out)
+    return out
+
+
 class MvnMixtureLogpdf(Kernel):
     name = "mvn_mixture_logpdf"
     source = "pyabc_tpu_torch/csrc/mvn_logpdf.cu"
@@ -70,6 +96,39 @@ class MvnMixtureLogpdf(Kernel):
             params["center"].data_ptr(), params["thetas_c"].data_ptr(),
             params["quad"].data_ptr(), params["weights"].data_ptr(), n,
             params["logdet"].data_ptr(), float(params["dim"]),
+            out.data_ptr(), _build.stream_ptr(q.device))
+        _build.check(err, self.name)
+        self.launches += 1
+        return out
+
+    def models(self, q: torch.Tensor, m: torch.Tensor,
+               params: dict) -> torch.Tensor:
+        """The K > 1 mode: ``(B, d_max)`` queries, their models ``m (B,)``
+        int32 and stacked params -> ``(B,)`` log-density."""
+        keys = ("prec", "center", "thetas_c", "quad", "weights", "logdet",
+                "dims")
+        if self.on_cpu(q, m, *(params[k] for k in keys)):
+            return mvn_mixture_logpdf_models_plain(q, m, params)
+        B, d = q.shape
+        K, n = params["weights"].shape
+        if d > MAX_DIM:
+            raise ValueError(f"{self.name}: dim {d} above the kernel's "
+                             f"register cap {MAX_DIM}")
+        f32 = torch.float32
+        self.expect(q, "q", f32, (B, d))
+        self.expect(m, "m", torch.int32, (B,))
+        self.expect(params["prec"], "prec", f32, (K, d, d))
+        self.expect(params["center"], "center", f32, (K, d))
+        self.expect(params["thetas_c"], "thetas_c", f32, (K, n, d))
+        self.expect(params["quad"], "quad", f32, (K, n))
+        self.expect(params["weights"], "weights", f32, (K, n))
+        self.expect(params["logdet"], "logdet", f32, (K,))
+        self.expect(params["dims"], "dims", f32, (K,))
+        out = torch.empty(B, dtype=f32, device=q.device)
+        err = _build.library().pyabc_mvn_mixture_logpdf_models(
+            q.data_ptr(), m.data_ptr(), B, d,
+            *(params[k].data_ptr() for k in keys[:5]), n,
+            params["logdet"].data_ptr(), params["dims"].data_ptr(),
             out.data_ptr(), _build.stream_ptr(q.device))
         _build.check(err, self.name)
         self.launches += 1

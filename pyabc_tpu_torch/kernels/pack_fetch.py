@@ -8,7 +8,9 @@ in the fetch dtype, the distance rounded DOWN so that the stored invariant
 ``distance <= eps_used`` survives the cast; ``sumstats`` narrows the sum
 stats of the generations History stores. Both take one tensor per
 generation (each generation's reservoir) and read them in place.
-``ops/pack.py`` calls this wrapper.
+``ops/pack.py`` calls this wrapper. A run over several models also packs
+each kept row's model index into one ``(G, n_keep)`` int8 buffer
+(``models``, ``pack_outs(keep_m=True)``), read in the same fetch.
 """
 from __future__ import annotations
 
@@ -54,6 +56,13 @@ def cast_rows_plain(rows: Sequence[torch.Tensor], *, n_keep: int,
     """Plain PyTorch version: G tensors ``(n_cap, S)`` -> ``(G, n_keep, S)``
     in ``dtype``."""
     return torch.stack([r[:n_keep] for r in rows]).to(dtype)
+
+
+def pack_models_plain(ms: Sequence[torch.Tensor], *,
+                      n_keep: int) -> torch.Tensor:
+    """Plain PyTorch version: G int32 tensors ``(n_cap,)`` ->
+    ``(G, n_keep)`` int8."""
+    return torch.stack([m[:n_keep] for m in ms]).to(torch.int8)
 
 
 def _pointers(tensors: Sequence[torch.Tensor]):
@@ -131,6 +140,33 @@ class PackFetch(Kernel):
             part = rows[g0:g0 + MAX_GEN]
             err = lib.pyabc_cast_rows(
                 len(part), _pointers(part), n_keep, S, code,
+                out[g0:g0 + MAX_GEN].data_ptr(), _build.stream_ptr(dev))
+            _build.check(err, self.name)
+            self.launches += 1
+        return out
+
+    def models(self, ms: Sequence[torch.Tensor], *,
+               n_keep: int) -> torch.Tensor:
+        """G reservoirs' int32 model columns -> ``(G, n_keep)`` int8."""
+        ms = list(ms)
+        if self.on_cpu(*ms):
+            return pack_models_plain(ms, n_keep=n_keep)
+        G = len(ms)
+        if not G:
+            raise ValueError(f"{self.name}: no generations")
+        n_cap = ms[0].shape[0]
+        if not 0 <= n_keep <= n_cap:
+            raise ValueError(f"{self.name}: n_keep {n_keep} outside the "
+                             f"reservoir ({n_cap})")
+        for m in ms:
+            self.expect(m, "m", torch.int32, (n_cap,))
+        dev = ms[0].device
+        out = torch.empty(G, n_keep, dtype=torch.int8, device=dev)
+        lib = _build.library()
+        for g0 in range(0, G, MAX_GEN):
+            part = ms[g0:g0 + MAX_GEN]
+            err = lib.pyabc_pack_models(
+                len(part), _pointers(part), n_keep,
                 out[g0:g0 + MAX_GEN].data_ptr(), _build.stream_ptr(dev))
             _build.check(err, self.name)
             self.launches += 1

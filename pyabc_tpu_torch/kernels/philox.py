@@ -31,8 +31,10 @@ TWO_PI_F32 = 6.28318548202514648
 ROUND = 1
 
 #: stream tags: calibration rounds, the generation-0 prior, the transition
-#: proposal, the simulator's noise, the stochastic accept's uniform
-CALIBRATION, PRIOR, TRANSITION, SIM_NOISE, ACCEPT = range(5)
+#: proposal, the simulator's noise, the stochastic accept's uniform, and the
+#: model index of a run over several models (the prior-model draw, the
+#: ancestor model and its perturbation; a single-model run never draws it)
+CALIBRATION, PRIOR, TRANSITION, SIM_NOISE, ACCEPT, MODEL = range(6)
 
 
 @dataclass(frozen=True)

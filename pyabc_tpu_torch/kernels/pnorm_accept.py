@@ -4,6 +4,12 @@ Counterpart of ``pyabc_tpu/distance/pnorm.py::PNormDistance.device_fn`` +
 ``acceptor/acceptor.py::UniformAcceptor.device_fn`` + the log-weight sum of
 ``inference/util.py::_lane_transition``; the CUDA kernel is
 ``csrc/pnorm_accept.cu``.
+
+K > 1 (``m``, ``model_logits`` and ``log_model_factor`` given, a
+transition round of a run over several models): the log weight is
+``model_logits[m] + logpri - log_model_factor[m] - logq``
+(``util.py:399-406``), both K-vectors read on the device by the lane's
+model.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ def pnorm_rows(ss: torch.Tensor, x0: torch.Tensor, w: torch.Tensor,
 
 def pnorm_accept_weight_plain(ss, x0, w, eps, valid, *, p: float,
                               hist_min=None, logpri=None, logq=None,
-                              log_offset: float = 0.0):
+                              log_offset: float = 0.0, m=None,
+                              model_logits=None, log_model_factor=None):
     """Plain PyTorch version -> (distance, accept, log_weight)."""
     d = pnorm_rows(ss, x0, w, p)
     accept = valid & (d <= eps)
@@ -34,6 +41,9 @@ def pnorm_accept_weight_plain(ss, x0, w, eps, valid, *, p: float,
         accept = accept & (d <= hist_min)
     if logpri is None:
         lw = torch.zeros_like(d)
+    elif m is not None:
+        mi = m.long()
+        lw = (model_logits[mi] + logpri - log_model_factor[mi]) - logq
     else:
         lw = log_offset + logpri - logq
     lw = torch.where(valid, lw, torch.full_like(lw, -math.inf))
@@ -46,14 +56,23 @@ class PnormAcceptWeight(Kernel):
     replaces = "pyabc_tpu/distance/pnorm.py:204"
 
     def __call__(self, ss, x0, w, eps, valid, *, p: float, hist_min=None,
-                 logpri=None, logq=None, log_offset: float = 0.0):
-        opt = [t for t in (hist_min, logpri, logq) if t is not None]
+                 logpri=None, logq=None, log_offset: float = 0.0, m=None,
+                 model_logits=None, log_model_factor=None):
+        models = (m, model_logits, log_model_factor)
+        opt = [t for t in (hist_min, logpri, logq, *models)
+               if t is not None]
         if self.on_cpu(ss, x0, w, eps, valid, *opt):
             return pnorm_accept_weight_plain(
                 ss, x0, w, eps, valid, p=p, hist_min=hist_min,
-                logpri=logpri, logq=logq, log_offset=log_offset)
+                logpri=logpri, logq=logq, log_offset=log_offset, m=m,
+                model_logits=model_logits,
+                log_model_factor=log_model_factor)
         if (logpri is None) != (logq is None):
             raise ValueError(f"{self.name}: logpri and logq go together")
+        if any(t is None for t in models) != all(t is None for t in models) \
+                or (m is not None and logpri is None):
+            raise ValueError(f"{self.name}: m, model_logits and "
+                             f"log_model_factor go together, with logpri")
         B, S = ss.shape
         f32 = torch.float32
         self.expect(ss, "ss", f32, (B, S))
@@ -66,6 +85,11 @@ class PnormAcceptWeight(Kernel):
         if logpri is not None:
             self.expect(logpri, "logpri", f32, (B,))
             self.expect(logq, "logq", f32, (B,))
+        if m is not None:
+            K = model_logits.shape[0]
+            self.expect(m, "m", torch.int32, (B,))
+            self.expect(model_logits, "model_logits", f32, (K,))
+            self.expect(log_model_factor, "log_model_factor", f32, (K,))
         dev = ss.device
         d = torch.empty(B, dtype=f32, device=dev)
         accept = torch.empty(B, dtype=torch.bool, device=dev)
@@ -74,8 +98,8 @@ class PnormAcceptWeight(Kernel):
             ss.data_ptr(), B, S, x0.data_ptr(), w.data_ptr(), float(p),
             valid.data_ptr(), eps.data_ptr(), self.ptr(hist_min),
             self.ptr(logpri), self.ptr(logq), float(log_offset),
-            d.data_ptr(), accept.data_ptr(), lw.data_ptr(),
-            _build.stream_ptr(dev))
+            *(self.ptr(t) for t in models), d.data_ptr(),
+            accept.data_ptr(), lw.data_ptr(), _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
         return d, accept, lw

@@ -40,3 +40,26 @@ class TorchModel:
 
     def __repr__(self):
         return f"{type(self).__name__}({self.name!r})"
+
+
+def simulate_models_flat(models, theta: torch.Tensor, m: torch.Tensor,
+                         generator: torch.Generator, spec: SumStatSpec,
+                         stream=None) -> torch.Tensor:
+    """K > 1: ``(B, d_max)`` parameters and each lane's model ``m (B,)``
+    -> ``(B, S)`` flat sum stats with no host read. The models of one
+    built-in family (``family.simulate_flat`` takes ``m``) go through the
+    family's kernel in one launch; otherwise each model simulates every
+    lane on its first ``dim`` parameters and each lane keeps its own
+    model's row (``torch.where``), as ``lax.switch`` under ``vmap`` does."""
+    family = getattr(models[0], "family", None)
+    if family is not None and all(
+            getattr(x, "family", None) is family
+            and getattr(x, "index", None) == k for k, x in enumerate(models)):
+        return family.simulate_flat(theta, m, generator, spec, stream)
+    out = None
+    for k, model in enumerate(models):
+        rows = model.simulate_flat(theta[:, :model.space.dim].contiguous(),
+                                   generator, spec, stream=stream)
+        out = rows if out is None else torch.where((m == k)[:, None], rows,
+                                                   out)
+    return out

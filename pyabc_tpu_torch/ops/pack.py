@@ -4,7 +4,8 @@ queue B).
 Before the once-per-chunk host read, theta, distance and log_weight of the
 accepted rows collapse into one narrowed-dtype ``(G, n_keep, d + 2)``
 buffer; sum stats ship in the same dtype only for the generations History
-stores. The distance rounds DOWN when narrowed, so the stored invariant
+stores, and a run over several models adds each row's model index as
+int8. The distance rounds DOWN when narrowed, so the stored invariant
 ``distance <= eps_used`` survives the cast. Both go through the K10
 wrapper (``kernels/pack_fetch.py``): the CUDA kernel on CUDA tensors, the
 plain version on the CPU.
@@ -18,8 +19,8 @@ import torch
 
 from ..kernels.pack_fetch import cast_monotone_down, pack_fetch
 
-__all__ = ["DTYPES", "cast_monotone_down", "fetch_dtype_of", "pack_rows",
-           "pack_sumstats", "unpack_rows"]
+__all__ = ["DTYPES", "cast_monotone_down", "fetch_dtype_of", "pack_models",
+           "pack_rows", "pack_sumstats", "unpack_rows"]
 
 DTYPES = {
     "float32": torch.float32,
@@ -49,6 +50,12 @@ def pack_sumstats(rows: Sequence[torch.Tensor], *, n_keep: int,
                   dtype: torch.dtype) -> torch.Tensor:
     """G generations of ``(n_cap, S)`` -> ``(G, n_keep, S)`` in ``dtype``."""
     return pack_fetch.sumstats(list(rows), n_keep=n_keep, dtype=dtype)
+
+
+def pack_models(ms: Sequence[torch.Tensor], *, n_keep: int) -> torch.Tensor:
+    """G generations' model columns ``(n_cap,)`` int32 -> ``(G, n_keep)``
+    int8 (a run over several models)."""
+    return pack_fetch.models(list(ms), n_keep=n_keep)
 
 
 def unpack_rows(rows, d: int):

@@ -285,6 +285,42 @@ class History:
         wide.columns.name = None
         return wide.reset_index(drop=True), w / w.sum()
 
+    def get_model_probabilities(self, t: int | None = None) -> pd.DataFrame:
+        """The model probabilities: of generation t (index m, column p),
+        or with t None of every generation (index t, one column per model,
+        0 where a model is dead), as the JAX package's History."""
+        with self._lock:
+            if t is None:
+                df = pd.read_sql_query(
+                    """
+                    SELECT populations.t AS t, models.m AS m,
+                           models.p_model AS p
+                    FROM models JOIN populations
+                      ON models.population_id = populations.id
+                    WHERE populations.abc_smc_id = ? AND populations.t >= 0
+                    """, self._conn, params=(self.id,))
+                return df.pivot(index="t", columns="m",
+                                values="p").fillna(0.0)
+            df = pd.read_sql_query(
+                "SELECT m, p_model AS p FROM models WHERE population_id=?",
+                self._conn, params=(self._pop_id(self._resolve_t(t)),))
+        return df.set_index("m")
+
+    def alive_models(self, t: int | None = None) -> list[int]:
+        """The models with positive probability at t (default: the last
+        generation)."""
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT m FROM models WHERE population_id=? AND p_model>0",
+                (self._pop_id(self._resolve_t(t)),)).fetchall()
+        return [r[0] for r in rows]
+
+    def n_alive_models(self, t: int | None = None) -> int:
+        return len(self.alive_models(t))
+
+    def _resolve_t(self, t: int | None) -> int:
+        return self.max_t if t is None else int(t)
+
     def get_all_populations(self) -> pd.DataFrame:
         with self._lock:
             return pd.read_sql_query(

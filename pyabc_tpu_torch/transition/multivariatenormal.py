@@ -4,7 +4,8 @@
 Params are a dict of device tensors: ``thetas (n, d)``, ``weights (n,)``,
 ``chol``/``prec (d, d)``, ``center (d,)``, ``thetas_c (n, d)``,
 ``quad (n,)``, ``logdet ()``, the ancestor ``cdf (n,)`` and the true
-``dim`` (a Python float). ``device_fit`` is the K8 kernel, ``device_logpdf``
+``dim`` (a Python float). A run over several models stacks one such set
+per model (a leading model axis, ``dims (K,)`` float32 for ``dim``). ``device_fit`` is the K8 kernel, ``device_logpdf``
 the K3 kernel; drawing from the fit is part of the K2 proposal kernel
 (``kernels/propose.py``).
 """
@@ -47,6 +48,17 @@ class MultivariateNormalTransition:
         params = {k: torch.zeros(s, dtype=torch.float32, device=device)
                   for k, s in shapes.items()}
         return {**params, "dim": float(d)}
+
+    @staticmethod
+    def zero_params_models(K: int, n: int, d: int,
+                           dims: torch.Tensor) -> dict:
+        """Placeholder stacked params of K never-fitted models (``dims``
+        the models' dims, a float32 tensor on the run's device)."""
+        one = MultivariateNormalTransition.zero_params(n, d, dims.device)
+        del one["dim"]
+        return {**{k: torch.zeros((K, *v.shape), dtype=v.dtype,
+                                  device=v.device)
+                   for k, v in one.items()}, "dims": dims}
 
     @staticmethod
     def device_fit(thetas: torch.Tensor, weights: torch.Tensor, *, dim: int,

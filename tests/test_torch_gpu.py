@@ -193,8 +193,10 @@ def test_lv_run_on_the_card(dev):
     reset_launch_counts()
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4
-    # every kernel of the LV path (the noisy-ABC kernels are not on it)
-    noisy = ("sir_simulate", "kernel_accept", "temperature_update")
+    # every kernel of the LV path (the noisy-ABC kernels and the model
+    # selection's K20b and K26 are not on it)
+    noisy = ("sir_simulate", "kernel_accept", "temperature_update",
+             "ode_family_simulate", "model_step")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -711,3 +713,267 @@ def test_noisy_runs_on_the_card(dev):
     df, w = h.get_distribution()
     for k, true in sir.TRUE_PARS.items():
         assert abs(float(np.sum(df[k] * w)) - true) < 0.05
+
+
+# --------------------------------------------- model selection (K > 1)
+#: (lanes B, reservoir n_cap, models K, d_max): config 5's and a small odd one
+MODEL_SHAPES = [(4096, 1024, 3, 2), (256, 64, 2, 1)]
+
+
+def _model_priors(dev, K, d_max):
+    from pyabc_tpu_torch.core.random_variables import stacked_arrays
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    if d_max == 2:
+        return stacked_arrays(msel.ode_family()[1][:K], dev)
+    return stacked_arrays(
+        [Distribution(a=RV("uniform", -1.0, 2.0))]
+        + [Distribution(a=RV("norm", 0.1 * k, 1.0)) for k in range(1, K)],
+        dev)
+
+
+def _model_round(dev, B, n, K, d_max, seed=0):
+    """Prior-mode proposals, a reservoir of their first n rows (an odd
+    number kept), its K26 step and the per-model fits."""
+    from pyabc_tpu_torch.kernels.model_step import model_step_plain
+    from pyabc_tpu_torch.kernels.mvn_fit import mvn_fit_models_plain
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+    from pyabc_tpu_torch.transition import ModelPerturbationKernel
+
+    g = _gen(dev, seed)
+    pri = _model_priors(dev, K, d_max)
+    prior_p = torch.full((K,), 1.0 / K, device=dev)
+    theta, _lp, _v, m = propose_models_plain(_stream(dev, philox.PRIOR), B,
+                                             pri, prior_p)
+    n_keep = n - n // 3 - 1
+    k_mask = torch.arange(n, device=dev) < n_keep
+    w = torch.softmax(torch.where(k_mask, torch.randn(n, generator=g,
+                                                      device=dev),
+                                  torch.full((n,), -math.inf, device=dev)),
+                      0)
+    res_theta, res_m = theta[:n].contiguous(), m[:n].contiguous()
+    mpk = torch.as_tensor(ModelPerturbationKernel(K).device_params(),
+                          device=dev)
+    step = model_step_plain(res_m, w, k_mask,
+                            torch.ones(K, dtype=torch.bool, device=dev), mpk)
+    dims = [int(v) for v in pri["dims"].tolist()]
+    statics = [dict(scaling=1.0, bandwidth_selector=silverman_rule_of_thumb)
+               ] * K
+    fits = mvn_fit_models_plain(res_theta, w, res_m, dims=dims,
+                                statics=statics)
+    return dict(pri=pri, prior_p=prior_p, theta=theta, m=m, k_mask=k_mask,
+                w=w, res_theta=res_theta, res_m=res_m, mpk=mpk, step=step,
+                dims=dims, statics=statics, fits=fits, n_keep=n_keep)
+
+
+@pytest.mark.parametrize("B", [256, 4096])
+@pytest.mark.parametrize("noise_sd", [0.0, 0.3])
+def test_ode_family_kernel(dev, B, noise_sd):
+    from pyabc_tpu_torch.kernels import (ode_family_simulate,
+                                         ode_family_simulate_plain)
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    x = _model_round(dev, B, 64, 3, 2)
+    fam = msel.ode_family()[0][0].family
+    kw = dict(n_obs=fam.n_obs, n_substeps=fam.n_substeps, dt=fam.dt,
+              y0=msel.Y0, noise_sd=noise_sd,
+              stream=_stream(dev, philox.SIM_NOISE))
+    before = ode_family_simulate.launches
+    got = ode_family_simulate(x["theta"], x["m"], **kw)
+    assert ode_family_simulate.launches == before + 1
+    ref = ode_family_simulate_plain(x["theta"], x["m"], **kw)
+    # FMA contraction over 66 RK4 steps; Philox normals within 2e-6
+    assert bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+    with pytest.raises(ValueError, match="plain version"):
+        ode_family_simulate(x["theta"], x["m"], noise=torch.zeros_like(ref),
+                            **kw)
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+@pytest.mark.parametrize("case", ["all", "dying", "never_fitted"])
+def test_model_step_kernel(dev, B, n, K, d_max, case):
+    from pyabc_tpu_torch.kernels import model_step, model_step_plain
+
+    x = _model_round(dev, B, n, K, d_max)
+    m, fitted = x["res_m"].clone(), torch.ones(K, dtype=torch.bool,
+                                                device=dev)
+    if case == "dying":
+        m[m == 0] = 1
+    elif case == "never_fitted":
+        fitted[K - 1] = False
+    args = (m, x["w"], x["k_mask"], fitted, x["mpk"])
+    before = model_step.launches
+    got = model_step(*args)
+    assert model_step.launches == before + 1
+    ref = model_step_plain(*args)
+    assert torch.equal(got["counts"], ref["counts"])
+    assert torch.equal(got["fitted"], ref["fitted"])
+    for key in ("model_probs", "log_model_probs", "matrix",
+                "log_model_factor"):
+        # block sums against torch's, in another order
+        torch.testing.assert_close(got[key], ref[key], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+def test_propose_models_kernel(dev, B, n, K, d_max):
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+
+    x = _model_round(dev, B, n, K, d_max)
+    for tag, args in ((philox.PRIOR, (x["prior_p"],)),
+                      (philox.TRANSITION, (x["step"]["log_model_probs"],
+                                           x["fits"], x["step"]["matrix"]))):
+        stream = _stream(dev, tag)
+        before = propose.launches
+        th_k, lp_k, v_k, m_k = propose.models(stream, B, x["pri"], *args)
+        assert propose.launches == before + 1
+        th_p, lp_p, v_p, m_p = propose_models_plain(stream, B, x["pri"],
+                                                    *args)
+        # the model draws are inverse CDFs on the same uniforms
+        assert int((m_k != m_p).sum()) <= 2
+        same = m_k == m_p
+        odd = ~same | (v_k != v_p) | (
+            (th_k - th_p).abs() > 1e-5 + 1e-5 * th_p.abs()).any(dim=1)
+        assert int(odd.sum()) <= max(4, B // 500)
+        ok = ~odd & v_p
+        assert float((lp_k - lp_p)[ok].abs().max()) <= 1e-5
+        pad = torch.arange(d_max, device=dev)[None, :] >= \
+            x["pri"]["dims"][m_k.long()][:, None]
+        assert bool((th_k[pad] == 0).all())
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+def test_mvn_logpdf_models_kernel(dev, B, n, K, d_max):
+    from pyabc_tpu_torch.kernels.mvn_logpdf import (
+        mvn_mixture_logpdf_models_plain)
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+
+    x = _model_round(dev, B, n, K, d_max)
+    q, _lp, _v, qm = propose_models_plain(
+        _stream(dev, philox.TRANSITION), B, x["pri"],
+        x["step"]["log_model_probs"], x["fits"], x["step"]["matrix"])
+    before = mvn_mixture_logpdf.launches
+    got = mvn_mixture_logpdf.models(q, qm, x["fits"])
+    assert mvn_mixture_logpdf.launches == before + 1
+    ref = mvn_mixture_logpdf_models_plain(q, qm, x["fits"])
+    assert float((got - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+def test_pnorm_accept_and_compact_with_models_kernel(dev, B, n, K, d_max):
+    x = _model_round(dev, B, n, K, d_max)
+    g = _gen(dev, 3)
+    S = 12
+    ss = torch.randn(B, S, generator=g, device=dev)
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    logpri = torch.randn(B, generator=g, device=dev)
+    logq = torch.randn(B, generator=g, device=dev)
+    eps = torch.tensor(3.5, device=dev)
+    kw = dict(p=2.0, logpri=logpri, logq=logq, m=x["m"],
+              model_logits=torch.log(x["prior_p"]),
+              log_model_factor=x["step"]["log_model_factor"])
+    args = (ss, torch.zeros(S, device=dev), torch.ones(S, device=dev), eps,
+            valid)
+    d_k, a_k, lw_k = pnorm_accept_weight(*args, **kw)
+    d_p, a_p, lw_p = pnorm_accept_weight_plain(*args, **kw)
+    torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(lw_k, lw_p, rtol=1e-6, atol=1e-6)
+    far = (d_p - eps).abs() > 1e-5
+    assert torch.equal(a_k[far], a_p[far])
+
+    def bufs():
+        return ({"theta": torch.zeros(n, d_max, device=dev),
+                 "sumstats": torch.zeros(n, S, device=dev),
+                 "distance": torch.zeros(n, device=dev),
+                 "log_weight": torch.full((n,), -math.inf, device=dev),
+                 "slot": torch.full((n,), -1, dtype=torch.int32, device=dev),
+                 "m": torch.zeros(n, dtype=torch.int32, device=dev)},
+                torch.zeros(4, dtype=torch.int32, device=dev))
+
+    (r_k, c_k), (r_p, c_p) = bufs(), bufs()
+    inputs = (a_k, valid, x["theta"], ss, d_k, lw_k)
+    before = compact_round.launches
+    compact_round(*inputs, r_k, None, c_k, m=x["m"])
+    assert compact_round.launches == before + 1
+    compact_round_plain(*inputs, r_p, None, c_p, m=x["m"])
+    assert torch.equal(c_k, c_p)
+    for key in r_k:
+        assert torch.equal(r_k[key], r_p[key]), key
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+def test_mvn_fit_models_kernel(dev, B, n, K, d_max):
+    from pyabc_tpu_torch.kernels.mvn_fit import mvn_fit_models_plain
+
+    x = _model_round(dev, B, n, K, d_max)
+    m = x["res_m"].clone()
+    m[m == K - 1] = 0  # the last model has no weight: finite all the same
+    before = mvn_fit.launches
+    got = mvn_fit.models(x["res_theta"], x["w"], m, dims=x["dims"],
+                         statics=x["statics"])
+    assert mvn_fit.launches == before + 1
+    ref = mvn_fit_models_plain(x["res_theta"], x["w"], m, dims=x["dims"],
+                               statics=x["statics"])
+    for key, v in got.items():
+        assert bool(torch.isfinite(v).all()), key
+        torch.testing.assert_close(v, ref[key], rtol=1e-4, atol=1e-5,
+                                   msg=key)
+
+
+@pytest.mark.parametrize("B,n,K,d_max", MODEL_SHAPES)
+def test_pack_and_health_models_kernel(dev, B, n, K, d_max):
+    from pyabc_tpu_torch.kernels.pack_fetch import pack_models_plain
+
+    x = _model_round(dev, B, n, K, d_max)
+    ms = [torch.roll(x["res_m"], g).contiguous() for g in range(8)]
+    before = pack_fetch.launches
+    got = pack_fetch.models(ms, n_keep=x["n_keep"])
+    assert pack_fetch.launches == before + 1
+    assert torch.equal(got, pack_models_plain(ms, n_keep=x["n_keep"]))
+    f = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    for kind, word in (("ok", 0), ("psd", 128), ("unfitted", 0)):
+        nxt = {k: v.clone() for k, v in x["fits"].items()}
+        fitted_next = torch.ones(K, dtype=torch.bool, device=dev)
+        if kind != "ok":
+            nxt["chol"][K - 1, 0, 0] = math.nan
+        if kind == "unfitted":
+            fitted_next[K - 1] = False
+        h = dict(theta=x["res_theta"], k_mask=x["k_mask"], w_norm=x["w"],
+                 d_new=torch.rand(n, device=dev),
+                 n_acc=x["k_mask"].sum(dtype=torch.int32),
+                 n_target=x["n_keep"], acc_rate=f(0.3),
+                 trans_params=x["fits"], trans_next=nxt,
+                 fitted=torch.ones(K, dtype=torch.bool, device=dev),
+                 fitted_next=fitted_next, eps_g=f(0.5), eps_next=f(0.4),
+                 eps_prev=f(1.0),
+                 stall_count=torch.tensor(0, dtype=torch.int32, device=dev),
+                 ess_floor=0.0, acc_floor=0.0, stall_window=16,
+                 stall_rtol=1e-6)
+        w_k, ess_k, _e, _s = generation_health(**h)
+        w_p, ess_p, _e2, _s2 = generation_health_plain(**h)
+        assert int(w_k) == int(w_p) == word, kind
+        torch.testing.assert_close(ess_k, ess_p, rtol=1e-5, atol=0)
+
+
+def test_model_selection_runs_on_the_card(dev):
+    """The ODE family (pop 300) through the card's kernels."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family()
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=300, seed=0, device=dev)
+    abc.new("sqlite://", msel.observed_ode_family(seed=0),
+            store_sum_stats=False)
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=4)
+    counts = launch_counts()
+    assert h.n_populations == 4
+    for k in ("propose", "mvn_mixture_logpdf", "ode_family_simulate",
+              "pnorm_accept_weight", "compact_round", "normalize_quantile",
+              "mvn_fit", "model_step", "pack_fetch", "generation_health"):
+        assert counts[k] > 0, k
+    p = h.get_model_probabilities(h.max_t)["p"]
+    assert float(p.sum()) == pytest.approx(1.0)
+    assert float(p.get(0, 0.0)) < 0.9

@@ -83,6 +83,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pyabc_tpu_torch.kernels.sir_simulate",
             "pyabc_tpu_torch.kernels.temperature_update",
             "pyabc_tpu_torch.models.sir"} <= set(res["modules"])
+    # so do the model-selection slice's (the perturbation kernel, the ODE
+    # family, K20b and K26)
+    assert {"pyabc_tpu_torch.transition.model_perturbation",
+            "pyabc_tpu_torch.models.model_selection",
+            "pyabc_tpu_torch.kernels.ode_family",
+            "pyabc_tpu_torch.kernels.model_step"} <= set(res["modules"])
     assert res["loaded"] == []
     # without CUDA the default device raises and names the way out
     assert res["raised"] is not None and "device='cpu'" in res["raised"]
