@@ -18,7 +18,16 @@ Phases, one or more lines each:
    K20b (the ODE family), K26 (the model step) and the K > 1 modes of K2,
    K3, K5, K6, K8, K10 and K11 at the shapes of BASELINE config 5 (B =
    4096, n_cap = 1024, K = 3, d_max = 2, S = 12, a chunk of G = 8) and at
-   a small odd shape (K = 2, d_max = 1, n_cap = 64, 33 kept rows); each
+   a small odd shape (K = 2, d_max = 1, n_cap = 64, 33 kept rows); then
+   K19 (tau leaping) at BASELINE config 3's round (B = 131072) for
+   birth-death, its midpoint variant and the stochastic LV, every count
+   equal to the plain version's, and card against CPU on 8192 lanes; K20b
+   network (the network SIR) at B = 65536 and with noise; and, after
+   phase 4's config 3 run, K18 (the segmented round) at config 3's round
+   with generation 6's epsilon and at a small odd shape (B = 256, 5
+   segments, 37 live slots), its kept slots, statistics, reservoir, ring
+   and counters bit-identical to the plain version's, with its device time
+   per round on and off beside K19's classic round; each
    with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -61,10 +70,23 @@ Phases, one or more lines each:
    probabilities and the per-model posterior means; once more under
    torch.profiler; and the same seed on the CPU, whose first three
    epsilons must equal the card's within 1e-4 relative.
+   Then BASELINE config 3 as bench.py's early-reject lane runs it (the
+   birth-death model in 10 segments, PNormDistance(p=2), MedianEpsilon,
+   12 generations, chunks of 2; pop cut from 131072 to 16384, see
+   C3_POP) with early reject on and off,
+   counts reset just before: populations bit-identical in every
+   generation, lanes retired, the saved simulation share, accepted
+   particles/s over the late window (acceptance <= 0.01) in turns (on,
+   off, off, on), syncs per generation (on <= off) and the epsilon trail;
+   once more under
+   torch.profiler; the same seed at pop 1024 on the card and the CPU (the
+   first three epsilons within 1e-3 relative); then the scenario zoo's
+   stochastic LV and network SIR (pop 16384, 4 generations) on and off,
+   bit-identical.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K11, K20, K20b, K21a, K21b, K26 and the K > 1 modes) is
-replaced by a function that raises, so none can run on the path unseen.
+kernel (K1-K11, K18, K19, K20, K20b, K21a, K21b, K26 and the K > 1 modes)
+is replaced by a function that raises, so none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -1663,7 +1685,8 @@ def model_checks(dev) -> dict:
 
 # ------------------------------------------------------------ phases 3-4
 #: (module, attribute) of the plain version of every kernel, K1-K11,
-#: K20, K20b, K21a, K21b, K26 and the K > 1 modes
+#: K18, K19, K20, K20b (family and network), K21a, K21b, K26 and the K > 1
+#: modes
 PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
     ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
@@ -1698,6 +1721,12 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.ode_family", "ode_family_simulate_plain"),
     ("pyabc_tpu_torch.kernels.model_step", "model_step_plain"),
     ("pyabc_tpu_torch.kernels.model_step", "next_generation_terms"),
+    ("pyabc_tpu_torch.kernels.philox", "poisson_plain"),
+    ("pyabc_tpu_torch.kernels.tau_leap", "tau_leap_leaps"),
+    ("pyabc_tpu_torch.kernels.tau_leap", "segments_plain"),
+    ("pyabc_tpu_torch.kernels.tau_leap", "tau_leap_plain"),
+    ("pyabc_tpu_torch.kernels.network_sir", "network_sir_plain"),
+    ("pyabc_tpu_torch.kernels.segment_round", "segment_round_plain"),
 )
 
 
@@ -2329,6 +2358,599 @@ def config5_cpu_trail(card_eps: list[float]) -> None:
           "by more than 1e-4")
 
 
+
+# ------------------------------------- tau leap and early reject (PR 5)
+#: BASELINE config 3 as bench.py's gillespie early-reject lane runs it
+#: (bench.py:974-1063, pyabc_tpu/utils/bench_defaults.py:161-164): the
+#: birth-death model in 10 segments, PNormDistance(p=2), MedianEpsilon,
+#: 12 generations, chunks of G = 2, seed 7, cut from pop 131072 to 16384
+#: (B 65536): at 131072 generations 10 and 11 need more than the 256
+#: rounds of 131072 lanes a generation may take, and K3 over the
+#: 131072-row mixture costs tens of ms a round (timed below). The phase-2
+#: rounds of K18 and K19 run at the bench's full B = 131072.
+C3_POP, C3_GENS, C3_SEGS, C3_G, C3_SEED = 16384, 12, 10, 2, 7
+#: the bench's population and lanes a round, where phase 2 checks K18/K19
+C3_BENCH_POP = 131072
+#: the late window: generations at or below this acceptance (the bench's
+#: SCENARIO_LATE_ACC)
+C3_LATE_ACC = 0.01
+#: the scenario zoo's stochastic LV and network SIR lanes
+#: (bench.py:1145-1190): pop 16384, 4 generations, G = 4, seed 5
+ZOO_POP, ZOO_GENS, ZOO_SEED = 16384, 4, 5
+#: a lower count of a Poisson draw's work: one Philox block (about 80
+#: integer operations) and one log (about 20)
+OPS_PER_DRAW = 100
+#: the kernels of config 3's path, with early reject on (K18) and off (K19)
+C3_PATH = ("propose", "mvn_mixture_logpdf", "segment_round", "tau_leap",
+           "pnorm_accept_weight", "compact_round", "normalize_quantile",
+           "mvn_fit", "pack_fetch", "generation_health")
+SEG_KERNELS = ("segment_round", "tau_leap")
+
+
+def equal_nan(a, b) -> bool:
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def seg_inputs(dev, model, prior, obs, B: int, seed: int = 1):
+    """A prior round of a segmented model on the card: theta and valid
+    (K2), the flat spec, the emission map and x0."""
+    import torch
+
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import philox, propose
+
+    spec = SumStatSpec(obs)
+    theta, _lp, valid = propose(stream_on(dev, philox.PRIOR, seed=seed), B,
+                                prior.arrays(dev))
+    x0 = torch.as_tensor(spec.flatten_host(obs), dtype=torch.float32,
+                         device=dev)
+    return dict(theta=theta.contiguous(), valid=valid, spec=spec,
+                imap=model.index_map(spec, dev), x0=x0,
+                stream=stream_on(dev, philox.SIM_NOISE, seed=seed))
+
+
+def k19_checks(dev) -> dict:
+    """K19 against its plain version at config 3's round (B 131072) for
+    birth-death, its midpoint variant and the stochastic LV: every count
+    equal. Then card against CPU on 8192 lanes of the birth-death round:
+    how many lanes differ (a last-bit logf or lgammaf may flip a count)."""
+    from dataclasses import replace
+
+    import torch
+
+    from pyabc_tpu_torch.kernels import tau_leap, tau_leap_plain
+    from pyabc_tpu_torch.kernels.philox import PhiloxStream
+    from pyabc_tpu_torch.models import gillespie as g
+
+    B = C3_BENCH_POP
+    bd = g.make_birth_death_model(segments=C3_SEGS)
+    lvm = g.make_stochastic_lv_model(segments=C3_SEGS)
+    res = None
+    for label, model, prior, obs, mid in (
+            ("birth-death", bd, g.birth_death_prior(),
+             g.observed_birth_death(segments=C3_SEGS), False),
+            ("birth-death midpoint", bd, g.birth_death_prior(),
+             g.observed_birth_death(segments=C3_SEGS), True),
+            ("stochastic LV", lvm, g.stochastic_lv_prior(),
+             g.observed_stochastic_lv(segments=C3_SEGS), False)):
+        x = seg_inputs(dev, model, prior, obs, B)
+        spec = replace(model.chain.kernel[1], midpoint=mid)
+        kw = dict(colmap=x["imap"], width=x["spec"].total_size)
+
+        def run(spec=spec, x=x, kw=kw):
+            return tau_leap(spec, x["theta"], x["stream"], **kw)[0]
+
+        got = run()
+        t0 = time.perf_counter()
+        ref = tau_leap_plain(spec, x["theta"], x["stream"], **kw)[0]
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        lanes = int((~((got == ref) | (torch.isnan(got) & torch.isnan(ref)))
+                     ).any(1).sum())
+        log(f"K19 tau_leap {label} (B={B}, {spec.n_leaps} leaps x "
+            f"{spec.n_rates} channels, {spec.n_seg} segments): lanes "
+            f"differing from the plain version on the card {lanes}; counts "
+            f"up to {float(ref[torch.isfinite(ref)].max()):.0f}")
+        check(lanes == 0, f"K19 {label}: a count differs from the plain "
+              f"version on the card")
+        if res is not None:
+            continue
+        # card against CPU, birth-death, 8192 lanes of the same round
+        n = 8192
+        ctr = x["stream"].counters.cpu()
+        st_cpu = PhiloxStream(x["stream"].seed, x["stream"].generation,
+                              x["stream"].tag, x["stream"].max_rounds, ctr)
+        cpu = tau_leap_plain(spec, x["theta"][:n].cpu(), st_cpu,
+                             colmap=x["imap"].cpu(),
+                             width=x["spec"].total_size)[0]
+        cpu_lanes = int((cpu != got[:n].cpu()).any(1).sum())
+        log(f"K19 card against CPU (birth-death, {n} lanes of the round): "
+            f"{cpu_lanes} lanes differ")
+        draws = B * spec.n_leaps * spec.n_rates
+        res = dict(
+            err=0.0, call_ms=time_ms(run, 10),
+            ms=graph_ms(run, iters=10, replays=3), plain_ms=plain_s * 1e3,
+            bound=bound(B * (2 + x["spec"].total_size) * 4,
+                        draws * OPS_PER_DRAW), library_ms=None,
+            cpu_lanes_differ=cpu_lanes)
+    return res
+
+
+def k20b_network_checks(dev) -> dict:
+    """K20b network at B 65536 (pick_batch(16384)), and with Philox noise
+    at B 4096, against its plain version: within 1e-4 relative."""
+    from dataclasses import replace
+
+    import torch
+
+    from pyabc_tpu_torch.kernels import network_sir, network_sir_plain
+    from pyabc_tpu_torch.models import sir
+    from pyabc_tpu_torch.utils import pick_batch
+
+    B = pick_batch(ZOO_POP)
+    model = sir.make_network_sir_model()
+    x = seg_inputs(dev, model, sir.network_sir_prior(),
+                   sir.observed_network_sir(), B)
+    spec = model.chain.kernel[1]
+
+    def run():
+        return network_sir(spec, x["theta"], x["stream"])[0]
+
+    got = run()
+    t0 = time.perf_counter()
+    ref = network_sir_plain(spec, x["theta"], x["stream"])[0]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    noisy = replace(spec, noise_sd=8.0)
+    th = x["theta"][:4096].contiguous()
+    n_got = network_sir(noisy, th, x["stream"])[0]
+    n_ref = network_sir_plain(noisy, th, x["stream"])[0]
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / ref.abs().clamp_min(1)).max())
+    n_rel = float(((n_got - n_ref).abs() / n_ref.abs().clamp_min(1)).max())
+    log(f"K20b network_sir (B={B}, 8 patches, 16 obs x 4 substeps, 4 "
+        f"segments): max_abs_err={err:.3e} max_rel_err={rel:.3e}; B=4096 "
+        f"with noise max_rel_err={n_rel:.3e}")
+    check(rel <= 1e-4 and n_rel <= 1e-4,
+          "K20b network outside 1e-4 relative of its plain version")
+    steps = spec.n_obs * spec.n_substeps
+    # per RK4 step 4 right-hand sides of 8 patches (about 12 operations a
+    # patch) and the stage and final updates (about 30 a patch)
+    return dict(err=err, call_ms=time_ms(run, 20),
+                ms=graph_ms(run, iters=20, replays=3),
+                plain_ms=plain_s * 1e3,
+                bound=bound(B * (2 + 128) * 4, B * steps * 8 * 78),
+                library_ms=None)
+
+
+def k18_case(dev, model, x, eps, ring_cap: int, label: str):
+    """K18 and its plain version on one round, each followed by K5 and K6
+    (with a ring of the completed slots) into fresh buffers: the kept
+    slots, their statistics, the reservoir, the ring and the counters must
+    be bit-identical."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (compact_round, pnorm_accept_weight,
+                                         segment_round, segment_round_plain)
+
+    B, S = x["theta"].shape[0], x["spec"].total_size
+    w = torch.ones(S, device=dev)
+    kw = dict(imap=x["imap"], x0=x["x0"], w=w, p=2.0, eps=eps, width=S)
+    outs = []
+    for fn in (segment_round, segment_round_plain):
+        ctr = torch.zeros(4, dtype=torch.int64, device=dev)
+        ss, keep = fn(model.segmented, x["theta"], x["valid"], x["stream"],
+                      seg_ctr=ctr, **kw)
+        d, acc, lw = pnorm_accept_weight(ss, x["x0"], w, eps, keep, p=2.0)
+        n_cap = B
+        d_th = x["theta"].shape[1]
+        res = {"theta": torch.zeros(n_cap, d_th, device=dev),
+               "sumstats": torch.zeros(n_cap, S, device=dev),
+               "distance": torch.zeros(n_cap, device=dev),
+               "log_weight": torch.full((n_cap,), -math.inf, device=dev),
+               "slot": torch.full((n_cap,), -1, dtype=torch.int32,
+                                  device=dev)}
+        rec = {"sumstats": torch.zeros(ring_cap, S, device=dev),
+               "distance": torch.zeros(ring_cap, device=dev),
+               "accepted": torch.zeros(ring_cap, dtype=torch.bool,
+                                       device=dev),
+               "valid": torch.zeros(ring_cap, dtype=torch.bool, device=dev)}
+        counters = torch.zeros(4, dtype=torch.int32, device=dev)
+        compact_round(acc, keep, x["theta"], ss, d, lw, res, rec, counters)
+        outs.append((ss, keep, ctr, res, rec, counters))
+    (ss, keep, ctr, res, rec, cnt), (ss_r, keep_r, ctr_r, res_r, rec_r,
+                                     cnt_r) = outs
+    torch.cuda.synchronize()
+    same = (torch.equal(keep, keep_r) and torch.equal(ss[keep], ss_r[keep])
+            and torch.equal(ctr[:3], ctr_r[:3]) and torch.equal(cnt, cnt_r)
+            and all(torch.equal(res[k], res_r[k]) for k in res)
+            and all(torch.equal(rec[k], rec_r[k]) for k in rec))
+    retired, steps, resolved, slots = (int(v) for v in ctr)
+    n_seg = x["imap"].shape[0]
+    log(f"K18 segment_round {label} (B={B}, {n_seg} segments, "
+        f"{int(x['valid'].sum())} valid slots, eps={float(eps):.4g}): "
+        f"retired {retired}, segments stepped {steps} of {B * n_seg}, "
+        f"resolved {resolved}, accepted {int(cnt[0])}, occupancy "
+        f"{steps / max(slots, 1):.4f}; bit-identical to the plain version "
+        f"{same}")
+    check(same, f"K18 {label}: kept slots, statistics, reservoir, ring or "
+          f"counters differ from the plain version")
+    check(retired > 0 and resolved == B and 0 < steps <= slots,
+          f"K18 {label}: counters out of range")
+    return ctr
+
+
+def k18_checks(dev, eps_late: float) -> dict:
+    """K18 against its plain version at config 3's round (B 131072, 10
+    segments) with eps from generation 6 of the config 3 run, then at a
+    small odd shape (B 256, 5 segments, 37 live slots); K18's device time
+    per round on (that eps) and off (eps = inf, every slot runs every
+    segment) beside K19's classic round."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (segment_round, segment_round_plain,
+                                         tau_leap)
+    from pyabc_tpu_torch.kernels.segment_round import THREADS_PER_SM
+    from pyabc_tpu_torch.models import gillespie as g
+
+    B = C3_BENCH_POP
+    model = g.make_birth_death_model(segments=C3_SEGS)
+    x = seg_inputs(dev, model, g.birth_death_prior(),
+                   g.observed_birth_death(segments=C3_SEGS), B, seed=3)
+    eps = torch.tensor(eps_late, dtype=torch.float32, device=dev)
+    ctr = k18_case(dev, model, x, eps, 8192, "config 3 round")
+    small = g.make_birth_death_model(n_leaps=100, n_obs=20, segments=5)
+    xs = seg_inputs(dev, small, g.birth_death_prior(),
+                    g.observed_birth_death(n_leaps=100, n_obs=20,
+                                           segments=5), 256, seed=4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    live = torch.zeros(256, dtype=torch.bool, device=dev)
+    live[torch.randperm(256, generator=gen, device=dev)[:37]] = True
+    xs["valid"] = xs["valid"] & live
+    full = small.chain.kernel[0](small.chain.kernel[1], xs["theta"],
+                                 xs["stream"], colmap=xs["imap"],
+                                 width=20)[0]
+    d = (full - xs["x0"]).square().sum(1).sqrt()
+    k18_case(dev, small, xs, torch.quantile(d[xs["valid"]], 0.5), 256,
+             "small odd shape")
+
+    S = x["spec"].total_size
+    w = torch.ones(S, device=dev)
+    inf = torch.tensor(math.inf, device=dev)
+    scratch = torch.zeros(4, dtype=torch.int64, device=dev)
+
+    def on(e=eps):
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], imap=x["imap"], x0=x["x0"], w=w,
+                             p=2.0, eps=e, width=S, seg_ctr=scratch)
+
+    def classic():
+        return tau_leap(model.chain.kernel[1], x["theta"], x["stream"],
+                        colmap=x["imap"], width=S)
+
+    ms_on = graph_ms(on, iters=10, replays=3)
+    ms_all = graph_ms(lambda: on(inf), iters=10, replays=3)
+    ms_k19 = graph_ms(classic, iters=10, replays=3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"K18 device ms per config 3 round (B={B}, {sms} SMs x "
+        f"{THREADS_PER_SM} threads = {min(B, sms * THREADS_PER_SM)} "
+        f"threads for {B} slots): early reject on {ms_on:.4f} (eps "
+        f"{eps_late:.4g}), K18 at eps = inf {ms_all:.4f}, K19 classic "
+        f"round {ms_k19:.4f}")
+    zoo_round_times(dev)
+    t0 = time.perf_counter()
+    segment_round_plain(model.segmented, x["theta"], x["valid"],
+                        x["stream"], imap=x["imap"], x0=x["x0"], w=w, p=2.0,
+                        eps=eps, width=S,
+                        seg_ctr=torch.zeros(4, dtype=torch.int64,
+                                            device=dev))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    steps = int(ctr[1])
+    spec = model.chain.kernel[1]
+    return dict(err=0.0, call_ms=time_ms(on, 10), ms=ms_on,
+                plain_ms=plain_ms,
+                bound=bound(B * (2 + S) * 4, steps * spec.leaps_per_seg
+                            * spec.n_rates * OPS_PER_DRAW),
+                library_ms=None, ms_eps_inf=ms_all, ms_k19_round=ms_k19)
+
+
+def zoo_round_times(dev) -> None:
+    """K18 at eps = inf (every slot runs every segment) beside the classic
+    round (K19 / K20b network) for the zoo's stochastic LV and network SIR
+    at their round of B 65536: the cost of the segmented form itself."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import segment_round
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import sir
+    from pyabc_tpu_torch.utils import pick_batch
+
+    B = pick_batch(ZOO_POP)
+    inf = torch.tensor(math.inf, device=dev)
+    for label, model, prior, obs in (
+            ("stochastic LV", g.make_stochastic_lv_model(segments=C3_SEGS),
+             g.stochastic_lv_prior(),
+             g.observed_stochastic_lv(segments=C3_SEGS)),
+            ("network SIR", sir.make_network_sir_model(),
+             sir.network_sir_prior(), sir.observed_network_sir())):
+        x = seg_inputs(dev, model, prior, obs, B, seed=5)
+        S = x["spec"].total_size
+        w = torch.ones(S, device=dev)
+        ctr = torch.zeros(4, dtype=torch.int64, device=dev)
+        kern, spec = model.chain.kernel
+        seg_ms = graph_ms(lambda: segment_round(
+            model.segmented, x["theta"], x["valid"], x["stream"],
+            imap=x["imap"], x0=x["x0"], w=w, p=2.0, eps=inf, width=S,
+            seg_ctr=ctr), iters=10, replays=3)
+        classic_ms = graph_ms(lambda: kern(spec, x["theta"], x["stream"],
+                                           colmap=x["imap"], width=S),
+                              iters=10, replays=3)
+        log(f"K18 at eps = inf against the classic round, {label} (B={B}, "
+            f"{spec.n_seg} segments): K18 {seg_ms:.4f} ms, classic "
+            f"{classic_ms:.4f} ms")
+
+
+def seg_run(abc, gens: int, label: str):
+    """One run on the card with the plain versions set to raise -> (History,
+    wall seconds, launch counts of the run)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = launch_counts()
+    return h, wall, {k: after[k] - before[k] for k in after}
+
+
+def populations_identical(h_on, h_off) -> bool:
+    import numpy as np
+
+    if h_on.max_t != h_off.max_t:
+        return False
+    for t in range(h_on.max_t + 1):
+        a, wa = h_on.get_distribution(m=0, t=t)
+        b, wb = h_off.get_distribution(m=0, t=t)
+        da = h_on.get_weighted_distances(t)["distance"].to_numpy()
+        db = h_off.get_weighted_distances(t)["distance"].to_numpy()
+        if not (np.array_equal(a.to_numpy(), b.to_numpy())
+                and np.array_equal(wa, wb) and np.array_equal(da, db)):
+            return False
+    return np.array_equal(h_on.get_all_populations()["epsilon"],
+                          h_off.get_all_populations()["epsilon"])
+
+
+def seg_totals(h) -> dict:
+    tel = [h.get_telemetry(t) for t in range(h.max_t + 1)]
+    return {k: sum(x.get(k, 0) for x in tel)
+            for k in ("retired_early", "seg_steps", "seg_resolved")} | {
+        "occupancy": [x.get("segment_occupancy") for x in tel]}
+
+
+def config3(where, early, pop: int | None = None):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gillespie as g
+
+    abc = pt.ABCSMC(g.make_birth_death_model(segments=C3_SEGS),
+                    g.birth_death_prior(), pt.PNormDistance(p=2),
+                    population_size=pop or C3_POP, eps=pt.MedianEpsilon(),
+                    seed=C3_SEED,
+                    early_reject=early, fused_generations=C3_G, device=where)
+    abc.new("sqlite://", g.observed_birth_death(segments=C3_SEGS),
+            store_sum_stats=False)
+    return abc
+
+
+def chunk_window(abc, pop: int, lo: int, hi: int) -> tuple[float, int]:
+    """(wall seconds, accepted particles) of the chunks lying wholly inside
+    generations lo..hi (bench.py's window)."""
+    chunks: dict = {}
+    for g in abc.generation_log:
+        c = chunks.setdefault(g["chunk_index"], {"ts": [], "s": 0.0})
+        c["ts"].append(g["t"])
+        c["s"] = g["chunk_s"]
+    wall, acc = 0.0, 0
+    for c in chunks.values():
+        if min(c["ts"]) >= lo and max(c["ts"]) <= hi:
+            wall += c["s"]
+            acc += pop * len(c["ts"])
+    return wall, acc
+
+
+#: runs of an on / off comparison, in turns: on, off, off, on
+TURNS = ("auto", False, False, "auto")
+
+
+def config3_run(dev):
+    """Config 3 on the card with early reject on and off in turns (on,
+    off, off, on), the counts reset just before the first and read after
+    each: bit-identical populations, retirements, the late window's
+    accepted particles/s, syncs per generation and the epsilon trail ->
+    (counts of the four runs, eps trail)."""
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = f"config 3 (birth-death, {C3_SEGS} segments)"
+    runs = []
+    reset_launch_counts()
+    for early in TURNS:
+        abc = config3(dev, early)
+        h, wall, counts = seg_run(abc, C3_GENS, label)
+        runs.append((early, abc, h, wall, counts))
+    counts = {k: sum(r[4][k] for r in runs) for k in runs[0][4]}
+    (_e, a_on, h_on, _w, c_on), (_e2, a_off, h_off, _w2, c_off) = runs[:2]
+    n_gen = h_on.max_t + 1
+    eps = [float(e) for e in h_on.get_all_populations()["epsilon"][1:]]
+    same = populations_identical(h_on, h_off)
+    trails = [[float(e) for e in r[2].get_all_populations()["epsilon"][1:]]
+              for r in runs]
+    tot = seg_totals(h_on)
+    saved = 1.0 - tot["seg_steps"] / max(tot["seg_resolved"] * C3_SEGS, 1)
+    acc_off = [g["acceptance_rate"] for g in a_off.generation_log]
+    late = next((t for t, a in enumerate(acc_off) if a <= C3_LATE_ACC),
+                None)
+    pps = {"on": [], "off": [], "late_on": [], "late_off": []}
+    for early, abc, h, wall, _c in runs:
+        tag = "on" if early == "auto" else "off"
+        syncs = abc.sync_ledger.summary()
+        rounds = [g["rounds"] for g in abc.generation_log]
+        wall_1, acc_1 = chunk_window(abc, C3_POP, 1, n_gen - 1)
+        split = {k: sum(g[k] for g in abc.generation_log)
+                 for k in ("compute_s", "fetch_s", "persist_s")}
+        pps[tag].append(acc_1 / max(wall_1, 1e-9))
+        log(f"{label} early reject {tag}: pop={C3_POP} gens={h.max_t + 1} "
+            f"wall_s={wall:.3f} accepted_particles_per_s="
+            f"{C3_POP * (h.max_t + 1) / wall:.1f} (generations 1 on: "
+            f"{pps[tag][-1]:.1f}) syncs_per_generation="
+            f"{syncs['syncs'] / (h.max_t + 1):.2f} rounds {rounds} "
+            f"{syncs['by_kind']}; host seconds, rounds + steps "
+            f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
+            f"persist {split['persist_s']:.3f}")
+        if late is not None:
+            wl, al = chunk_window(abc, C3_POP, late, n_gen - 1)
+            pps["late_" + tag].append(al / max(wl, 1e-9))
+            log(f"{label} early reject {tag}: late window (generations "
+                f"{late}-{n_gen - 1}, acceptance <= {C3_LATE_ACC}) "
+                f"accepted_particles_per_s={pps['late_' + tag][-1]:.1f} "
+                f"over {wl:.3f} s")
+    mean = {k: sum(v) / len(v) for k, v in pps.items() if v}
+    log(f"{label}: mean accepted_particles_per_s over the two runs each, "
+        f"generations 1 on: on {mean['on']:.1f} off {mean['off']:.1f}"
+        + (f"; late window: on {mean['late_on']:.1f} off "
+           f"{mean['late_off']:.1f}" if late is not None else
+           f"; the late window (acceptance <= {C3_LATE_ACC}) was not "
+           f"reached"))
+    log(f"{label}: eps trail {[round(e, 4) for e in eps]}; acceptance "
+        f"{[round(a, 5) for a in acc_off]}")
+    log(f"{label}: populations bit-identical on and off {same}; "
+        f"retired_early {tot['retired_early']}, seg_steps "
+        f"{tot['seg_steps']}, seg_resolved {tot['seg_resolved']}, "
+        f"sim_work_saved_frac {saved:.4f}, segment_occupancy per "
+        f"generation {tot['occupancy']}")
+    log(f"{label}: kernel launches on {c_on} off {c_off}")
+    s_on = a_on.sync_ledger.count / n_gen
+    s_off = a_off.sync_ledger.count / (h_off.max_t + 1)
+    check(n_gen == C3_GENS and h_off.max_t + 1 == C3_GENS,
+          f"config 3 ran {n_gen} / {h_off.max_t + 1} of {C3_GENS} "
+          f"generations")
+    check(same and all(t == trails[0] for t in trails),
+          "config 3: populations differ with early reject on and off")
+    check(tot["retired_early"] > 0, "config 3: no lane retired early")
+    check(all(o is not None and 0 < o <= 1 for o in tot["occupancy"]),
+          "config 3: segment occupancy outside (0, 1]")
+    check(s_on <= s_off, "config 3: more syncs per generation with early "
+          "reject on than off")
+    check(c_on["segment_round"] > 0 and c_off["tau_leap"] > 0
+          and c_off["segment_round"] == 0,
+          "config 3: K18 (on) or K19 (off) was never launched")
+    check(all(counts[k] > 0 for k in C3_PATH),
+          "a kernel of the config 3 path was never launched")
+    check(all(b <= a for a, b in zip(eps, eps[1:])),
+          "config 3 epsilons increased under a fixed distance")
+    return counts, eps
+
+
+def k3_at_bench_pop(dev) -> None:
+    """K3's time for one round at the bench's pop 131072 (B 131072 lanes
+    against a 131072-row mixture, d 2) beside config 3's B 65536 x 16384:
+    why config 3 runs at pop 16384 here."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_mixture_logpdf
+    from pyabc_tpu_torch.transition import MultivariateNormalTransition
+
+    tr = MultivariateNormalTransition()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    for B, n in ((65536, C3_POP), (C3_BENCH_POP, C3_BENCH_POP)):
+        th = torch.randn(n, 2, generator=g, device=dev)
+        params = tr.device_fit(th, torch.full((n,), 1.0 / n, device=dev),
+                               dim=2, **tr.fit_statics())
+        q = torch.randn(B, 2, generator=g, device=dev)
+        ms = time_ms(lambda: mvn_mixture_logpdf(q, params), 3, warmup=1)
+        log(f"K3 mvn_mixture_logpdf at B={B} lanes x n={n} components "
+            f"(d 2): {ms:.3f} ms a round")
+
+
+def config3_cpu_trail(dev) -> None:
+    """The same seed at pop 1024 on the card and on the CPU (plain
+    versions, the same Philox streams), 3 generations with early reject
+    on: the epsilons must agree within 1e-3 relative (a last-bit logf may
+    flip a Poisson count)."""
+    trails = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        h = config3(where, "auto", pop=1024).run(max_nr_populations=3)
+        trails[str(where)] = ([float(e) for e in
+                               h.get_all_populations()["epsilon"][1:]],
+                              time.perf_counter() - t0)
+    card, cpu = trails[str(dev)][0], trails["cpu"][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    log(f"config 3 at pop 1024 (3 generations): card eps {card}, CPU eps "
+        f"{cpu} ({trails['cpu'][1]:.1f} s); |card - cpu| / cpu "
+        f"{[float(f'{r:.2e}') for r in rel]}")
+    check(len(rel) == 3 and max(rel) <= 1e-3,
+          "config 3: the CPU's first three epsilons differ from the card's "
+          "by more than 1e-3")
+
+
+def zoo_runs(dev) -> dict:
+    """The scenario zoo's stochastic LV (10 segments) and network SIR (4
+    segments) lanes, pop 16384, 4 generations, early reject on and off in
+    turns: bit-identical populations -> {name: launch counts of the four
+    runs}."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import sir
+
+    out = {}
+    for name, mk, prior, obs in (
+            ("stochastic_lv",
+             lambda: g.make_stochastic_lv_model(segments=C3_SEGS),
+             g.stochastic_lv_prior(),
+             g.observed_stochastic_lv(segments=C3_SEGS)),
+            ("network_sir", sir.make_network_sir_model,
+             sir.network_sir_prior(), sir.observed_network_sir())):
+        reset_launch_counts()
+        hs, walls, cs = [], [], []
+        for early in TURNS:
+            abc = pt.ABCSMC(mk(), prior, pt.PNormDistance(p=2),
+                            population_size=ZOO_POP, eps=pt.MedianEpsilon(),
+                            seed=ZOO_SEED, early_reject=early,
+                            fused_generations=ZOO_GENS, device=dev)
+            abc.new("sqlite://", obs, store_sum_stats=False)
+            h, wall, c = seg_run(abc, ZOO_GENS, name)
+            hs.append(h)
+            walls.append(wall)
+            cs.append(c)
+        same = populations_identical(hs[0], hs[1])
+        tot = seg_totals(hs[0])
+        n = hs[0].max_t + 1
+        pps = [ZOO_POP * (h.max_t + 1) / w for h, w in zip(hs, walls)]
+        log(f"zoo {name}: pop={ZOO_POP} gens={n} accepted_particles_per_s "
+            f"on {pps[0]:.1f}, {pps[3]:.1f} off {pps[1]:.1f}, {pps[2]:.1f} "
+            f"(in turns: on, off, off, on); bit-identical {same}; "
+            f"retired_early {tot['retired_early']}, occupancy "
+            f"{tot['occupancy']}; launches on {cs[0]}")
+        check(same and n == ZOO_GENS,
+              f"zoo {name}: populations differ with early reject on and off")
+        check(cs[0]["segment_round"] > 0,
+              f"zoo {name}: K18 was never launched")
+        out[name] = {k: sum(c[k] for c in cs) for k in cs[0]}
+    check(out["network_sir"]["network_sir"] > 0,
+          "K20b network was never launched")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2356,11 +2978,8 @@ def main() -> int:
     results = kernel_checks(dev)
     results.update(noisy_checks(dev))
     results.update(model_checks(dev))
-    for name, r in results.items():
-        log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
-            f"plain_ms={r['plain_ms']:.5f} "
-            f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) "
-            f"library_ms={r['library_ms']}")
+    results["tau_leap"] = k19_checks(dev)
+    results["network_sir"] = k20b_network_checks(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
     pair_anchor(dev)
@@ -2374,6 +2993,19 @@ def main() -> int:
     c5_counts, c5_eps = config5_run(dev)
     profile_run("config 5", config5(dev), C5_GENS)
     config5_cpu_trail(c5_eps)
+    c3_counts, c3_eps = config3_run(dev)
+    profile_run("config 3 (early reject on)", config3(dev, "auto"),
+                C3_GENS)
+    config3_cpu_trail(dev)
+    k3_at_bench_pop(dev)
+    zoo = zoo_runs(dev)
+    # K18's phase-2 check takes its eps from generation 6 of config 3
+    results["segment_round"] = k18_checks(dev, c3_eps[6])
+    for name, r in results.items():
+        log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
+            f"plain_ms={r['plain_ms']:.5f} "
+            f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]}) "
+            f"library_ms={r['library_ms']}")
 
     kernels = []
     for k in KERNELS:
@@ -2382,7 +3014,9 @@ def main() -> int:
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
         # and K26
         own = (sir_counts if k.name in NOISY_KERNELS else c5_counts
-               if k.name in MODEL_KERNELS else counts)
+               if k.name in MODEL_KERNELS else c3_counts
+               if k.name in SEG_KERNELS else zoo["network_sir"]
+               if k.name == "network_sir" else counts)
         entry = {
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": own[k.name],
@@ -2391,8 +3025,16 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "launches_by_path": {"lv_config2": counts[k.name],
                                  "sir_config4": sir_counts[k.name],
-                                 "ode_config5": c5_counts[k.name]},
+                                 "ode_config5": c5_counts[k.name],
+                                 "tau_leap_config3": c3_counts[k.name],
+                                 "zoo_stochastic_lv":
+                                     zoo["stochastic_lv"][k.name],
+                                 "zoo_network_sir":
+                                     zoo["network_sir"][k.name]},
         }
+        for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round"):
+            if extra in r:
+                entry[extra] = r[extra]
         if k.name in MODEL_MODES:
             mode = results[MODEL_MODES[k.name]]
             entry["k_gt_1_mode"] = {

@@ -17,6 +17,7 @@
 // The tags (kernels/philox.py): 0 calibration, 1 generation-0 prior,
 // 2 transition proposal, 3 simulator noise, 4 the stochastic accept, 5 the
 // model index of a run over several models (never drawn with one model).
+// K19's Poisson draws (below) sit on the simulator-noise stream.
 // One block gives four 32-bit words. A draw's position therefore depends
 // only on (seed, stream, generation, round, lane, block, word): never on
 // the number of lanes, on which redraw was taken, or on the device.
@@ -97,6 +98,84 @@ __device__ __forceinline__ PhiloxLane philox_lane(uint32_t k0, uint32_t k1,
                                                   uint32_t max_rounds,
                                                   uint32_t round) {
   return PhiloxLane{k0, k1, lane, gen, tag * max_rounds + round};
+}
+
+// ---------------------------------------------------------------- Poisson
+// K19's draw: the algorithm of jax.random.poisson (jax/_src/random.py::
+// _poisson): 0 at lambda = 0; Knuth's product of uniforms below lambda = 10
+// (and for NaN, which returns -1 as in JAX); Hoermann's transformed
+// rejection (PTRS) from 10 up (inf included). Its law is JAX's, its bits
+// are not (the uniforms come from Philox, a declared difference).
+//
+// Uniforms of one draw: draw number `draw` of a lane (a tau leap's channel,
+// leap * n_channels + channel) owns the blocks (draw << 12) | j, j < 4096;
+// uniform i of the draw is word i % 4 of block i / 4. Knuth takes
+// uniform i at its iteration i; PTRS takes uniforms 2j and 2j + 1 at its
+// attempt j. So a draw may use at most kPoissonMaxUniforms = 16384 uniforms
+// (8192 PTRS attempts); at that cap Knuth returns the count it reached and
+// PTRS -1, as JAX's loops do at their (2^31 - 1) cap. Neither cap is
+// reached with any probability a float32 run could see, and the cap keeps a
+// lane from looping without end. The draw number must stay below 2^20.
+//
+// Every product, sum and quotient is written with the _rn intrinsics so
+// nvcc contracts none of them into an FMA: the plain PyTorch twin
+// (kernels/philox.py::poisson_plain) computes each operation on its own, and
+// on the card the two agree on every count. logf and lgammaf are the
+// accurate versions (no --use_fast_math).
+constexpr int kPoissonBlockBits = 12;
+constexpr int kPoissonMaxUniforms = 4 << kPoissonBlockBits;
+
+__device__ __forceinline__ float poisson_knuth(const PhiloxLane& rng,
+                                               uint32_t base, float lam) {
+  float k = 0.f, log_prod = 0.f;
+  Words4 w{};
+  for (int i = 0; i < kPoissonMaxUniforms && log_prod > -lam; ++i) {
+    if ((i & 3) == 0) w = rng.block(base | (uint32_t)(i >> 2));
+    k = __fadd_rn(k, 1.f);
+    log_prod = __fadd_rn(log_prod, logf(uniform_of(word_of(w, i & 3))));
+  }
+  return __fsub_rn(k, 1.f);
+}
+
+__device__ __forceinline__ float poisson_ptrs(const PhiloxLane& rng,
+                                              uint32_t base, float lam) {
+  const float log_lam = logf(lam);
+  const float b = __fadd_rn(0.931f, __fmul_rn(2.53f, sqrtf(lam)));
+  const float a = __fadd_rn(-0.059f, __fmul_rn(0.02483f, b));
+  const float inv_alpha =
+      __fadd_rn(1.1239f, __fdiv_rn(1.1328f, __fsub_rn(b, 3.4f)));
+  const float v_r = __fsub_rn(0.9277f, __fdiv_rn(3.6224f, __fsub_rn(b, 2.f)));
+  const float two_a = __fmul_rn(2.f, a);
+  Words4 w{};
+  for (int j = 0; j < kPoissonMaxUniforms / 2; ++j) {
+    if ((j & 1) == 0) w = rng.block(base | (uint32_t)(j >> 1));
+    const int o = (j & 1) * 2;
+    const float u = __fsub_rn(uniform_of(word_of(w, o)), 0.5f);
+    const float v = uniform_of(word_of(w, o + 1));
+    const float us = __fsub_rn(0.5f, fabsf(u));
+    const float k = floorf(__fadd_rn(
+        __fadd_rn(__fmul_rn(__fadd_rn(__fdiv_rn(two_a, us), b), u), lam),
+        0.43f));
+    const float s = logf(__fdiv_rn(
+        __fmul_rn(v, inv_alpha),
+        __fadd_rn(__fdiv_rn(a, __fmul_rn(us, us)), b)));
+    const float t = __fsub_rn(__fadd_rn(-lam, __fmul_rn(k, log_lam)),
+                              lgammaf(__fadd_rn(k, 1.f)));
+    const bool accept1 = (us >= 0.07f) && (v <= v_r);
+    const bool reject = (k < 0.f) || ((us < 0.013f) && (v > us));
+    const bool accept2 = s <= t;
+    if (accept1 || (!reject && accept2)) return k;
+  }
+  return -1.f;
+}
+
+// One Poisson count (as a float) of rate lam for draw number `draw`.
+__device__ __forceinline__ float poisson(const PhiloxLane& rng, uint32_t draw,
+                                         float lam) {
+  if (lam == 0.f) return 0.f;
+  const uint32_t base = draw << kPoissonBlockBits;
+  if (isnan(lam) || lam < 10.f) return poisson_knuth(rng, base, lam);
+  return poisson_ptrs(rng, base, lam);
 }
 
 }  // namespace pyabc

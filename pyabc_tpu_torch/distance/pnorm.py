@@ -5,7 +5,9 @@ d(x, x0) = (sum_i (w_i |x_i - x0_i|)^p)^(1/p); p = inf gives the max. The
 round's distance, accept test and log-weight run in the K5 kernel
 (``kernels/pnorm_accept.py``); the adaptive refit (the scale over the
 record ring, 1/scale weights, then the reservoir's distances under the new
-weights) is the K9 kernel (``kernels/scale_reduce.py``).
+weights) is the K9 kernel (``kernels/scale_reduce.py``). ``device_bound_fn``
+is the prefix bound that segmented early reject (K18,
+``kernels/segment_round.py``) retires candidates on.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from ..kernels.pnorm_accept import pnorm_rows
 from ..kernels.scale_reduce import scale_reduce
+from ..kernels.segment_round import BOUND_RTOL, bound_fold, bound_limit
 from .scale import device_scale_fn, median_absolute_deviation
 
 
@@ -77,6 +80,38 @@ class PNormDistance:
              w: torch.Tensor) -> torch.Tensor:
         """Plain distances of every row of ``ss`` under weights ``w``."""
         return pnorm_rows(ss, x0, w, self.p)
+
+    #: relative slack of the early-reject comparison: the segmented
+    #: round's prefix sum and K5's full sum round in different orders, so
+    #: a bound within this band of the threshold never retires
+    BOUND_RTOL = BOUND_RTOL
+
+    def device_bound_fn(self, spec=None) -> dict:
+        """The monotone lower bound over sum-stat prefixes that the
+        segmented round (K18) folds: every term of the weighted p-norm is
+        nonnegative, so the p-th-power partial sum (p = inf: the running
+        max) of any prefix lower-bounds the full sum and never decreases.
+        ``init(B)``, ``step(acc, vals, idx, x0, w)`` (``vals`` a segment's
+        ``(B, k)`` block at flat columns ``idx``) and ``exceeds(acc,
+        threshold)``, compared in the p-th-power domain with the slack
+        ``BOUND_RTOL``; K18 computes the same in the same order. The weights
+        are the generation's, the ones the accept test uses. Learned
+        transforms have no such bound in the port (ROADMAP queue A, item
+        14)."""
+        p = self.p
+
+        def init(B: int, device=None) -> torch.Tensor:
+            return torch.zeros(B, dtype=torch.float32, device=device)
+
+        def step(acc, vals, idx, x0, w):
+            idx = torch.as_tensor(idx, dtype=torch.int64, device=acc.device)
+            return bound_fold(acc, vals, x0[idx], w[idx], p)
+
+        def exceeds(acc, threshold):
+            return acc > bound_limit(torch.as_tensor(
+                threshold, dtype=torch.float32, device=acc.device), p)
+
+        return {"init": init, "step": step, "exceeds": exceeds}
 
     def get_config(self) -> dict:
         return {"name": type(self).__name__, "p": self.p}

@@ -16,6 +16,17 @@ import numpy as np
 from ..kernels.scale_reduce import SCALE_NAMES, scale_reduce
 
 
+#: scale functions whose adaptive refit is a reduction over per-column
+#: moments (``pyabc_tpu/ops/scale_reduce.py::SHARDED_SCALE_NAMES``): the
+#: ones the JAX package's segmented engine refits over resolved lanes
+MOMENT_SCALE_NAMES = frozenset({
+    "mean", "bias", "span", "standard_deviation",
+    "root_mean_square_deviation",
+    "mean_absolute_deviation_to_observation",
+    "standard_deviation_to_observation",
+})
+
+
 def median_absolute_deviation(samples, x_0=None):
     med = np.median(samples, axis=0)
     return np.median(np.abs(samples - med), axis=0)

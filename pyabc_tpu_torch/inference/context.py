@@ -41,6 +41,18 @@ generation's matrix and log model factor) and the per-model K8 refit, one
 launch over all models. Nothing of it is read by the host before the
 chunk's fetch.
 
+Segmented early reject (``pyabc_tpu`` ``_generation_while_seg``, one model,
+a fixed p-norm, a uniform acceptor): a round's slots are proposed by K2
+and K3 as above, then K18 takes the simulator's place. It steps each slot
+one segment at a time with the model's built-in step (K19 or K20b), folds
+the p-norm's prefix bound and retires a slot, between segments, once the
+bound proves it rejected; a thread whose slot retires takes the next slot.
+K5 tests the complete slots (its valid mask is K18's ``keep``) and K6
+counts every valid slot as evaluated, so a generation resolves whole
+rounds and its accepted rows, rounds and evaluations equal the classic
+path's. The generation's K18 counters (retired, segments stepped, slots
+resolved, lane-segment slots) stay on the device until the chunk's fetch.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -63,10 +75,12 @@ from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
 from ..kernels.propose import N_REDRAWS, propose
+from ..kernels.segment_round import segment_round
 from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..model import simulate_models_flat
 from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
+from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
 
 #: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps
@@ -108,6 +122,8 @@ class GenerationRun:
     counters: torch.Tensor
     res: dict
     rec: dict | None
+    #: segmented early reject: K18's int64 counters of the generation
+    seg: torch.Tensor | None = None
 
 
 class DeviceContext:
@@ -155,6 +171,10 @@ class DeviceContext:
         if self.stochastic:
             self.temp_tables = scheme_tables(temp_config.schemes, device)
             self.init_tables = scheme_tables((temp_config.initial,), device)
+        #: segmented early reject: ``segment_cfg()``, set by the driver
+        self.seg_cfg: dict | None = None
+        #: K18's counters of the generation in progress
+        self.seg_counters: torch.Tensor | None = None
 
     def _init_models(self, priors, model_prior, mpk, fit_statics) -> None:
         """The K > 1 device constants, built once per run."""
@@ -220,6 +240,24 @@ class DeviceContext:
             theta, self.generator, self.spec,
             stream=self.stream(t, philox.SIM_NOISE))
 
+    def _simulate_accept(self, theta, valid, eps, dist_w, hist_min,
+                         pdf_norm, t, segmented: bool, **terms):
+        """The round's simulator and K5 / K21a -> (sum stats, distance,
+        accept, log weight). ``segmented``: K18 in the simulator's place,
+        its ``keep`` the valid mask of the accept test."""
+        if not segmented:
+            ss = self._simulate(theta, t)
+            return (ss, *self._accept(ss, eps, dist_w, valid, hist_min,
+                                      pdf_norm, t, **terms))
+        cfg = self.seg_cfg
+        ss, keep = segment_round(
+            cfg["seg"], theta, valid, self.stream(t, philox.SIM_NOISE),
+            imap=cfg["index_map"], x0=self.x0, w=dist_w, p=self.distance.p,
+            eps=eps, hist_min=hist_min, width=self.S,
+            seg_ctr=self.seg_counters)
+        return (ss, *self._accept(ss, eps, dist_w, keep, hist_min, pdf_norm,
+                                  t, **terms))
+
     def _accept(self, ss, eps, dist_w, valid, hist_min, pdf_norm, t,
                 logpri=None, logq=None, **model_terms):
         """K21a (noisy ABC) or K5 -> (distance, accept, log weight); K > 1
@@ -243,8 +281,10 @@ class DeviceContext:
     def lanes_prior(self, eps: torch.Tensor, dist_w: torch.Tensor,
                     hist_min: torch.Tensor | None = None, *, t: int = 0,
                     tag: int = philox.PRIOR,
-                    pdf_norm: torch.Tensor | None = None) -> dict:
-        """One round proposed from the prior (generation 0, calibration)."""
+                    pdf_norm: torch.Tensor | None = None,
+                    segmented: bool = False) -> dict:
+        """One round proposed from the prior (generation 0, calibration);
+        ``segmented`` runs K18 in the simulator's place."""
         if self.K > 1:
             # the model from the model prior, then its parameter prior;
             # the log weight is the acceptance weight alone (_lane_prior)
@@ -259,9 +299,8 @@ class DeviceContext:
                     "logq": logpri, "m": m}
         theta, logpri, valid = propose(self.stream(t, tag), self.B,
                                        self.prior_arrays)
-        ss = self._simulate(theta, t)
-        d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
-                                       pdf_norm, t)
+        ss, d, accept, logw = self._simulate_accept(
+            theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented)
         # the record's proposal density: the prior's (K = 1)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
@@ -271,10 +310,11 @@ class DeviceContext:
                          dist_w: torch.Tensor,
                          hist_min: torch.Tensor | None = None, *,
                          t: int, pdf_norm: torch.Tensor | None = None,
-                         carry: Carry | None = None) -> dict:
+                         carry: Carry | None = None,
+                         segmented: bool = False) -> dict:
         """One round proposed from the fitted transition (t > 0), with
         redraws against zero prior mass (K2). K > 1 takes the model terms
-        from ``carry``."""
+        from ``carry``; ``segmented`` runs K18 in the simulator's place."""
         if self.K > 1:
             stream = self.stream(t, philox.TRANSITION)
             theta, logpri, valid, m = propose.models(
@@ -293,10 +333,10 @@ class DeviceContext:
         theta, logpri, valid = propose(self.stream(t, philox.TRANSITION),
                                        self.B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
-        ss = self._simulate(theta, t)
         # K = 1: log model prior = log model factor = 0
-        d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
-                                       pdf_norm, t, logpri=logpri, logq=logq)
+        ss, d, accept, logw = self._simulate_accept(
+            theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
+            logpri=logpri, logq=logq)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
                 "logq": logq}
@@ -331,6 +371,37 @@ class DeviceContext:
                              n_valid=int(host[N_VALID]),
                              eps_at_min=bool(host[EPS_AT_MIN]),
                              counters=counters, res=res, rec=rec)
+
+    # ------------------------------------------- segmented early reject
+    def segment_cfg(self) -> dict:
+        """The segmented round's configuration: the model's protocol and
+        its emission map onto the flat rows. Raises with the blocking
+        reason when the run cannot take it (no uniform protocol, no prefix
+        bound; the driver gates first,
+        ``ABCSMC._early_reject_incapable_reason``)."""
+        reason = uniform_protocol_reason(self.models)
+        if reason is not None:
+            raise ValueError(f"segmented execution unavailable: {reason}")
+        if self.distance.device_bound_fn(self.spec) is None:
+            raise ValueError(
+                "segmented execution unavailable: "
+                f"{type(self.distance).__name__} has no monotone prefix "
+                "bound (device_bound_fn)")
+        return {"seg": self.model.segmented,
+                "index_map": self.model.index_map(self.spec, self.device)}
+
+    def generation_while_seg(self, lanes, n_target: int,
+                             eps_at_min: torch.Tensor | None = None
+                             ) -> GenerationRun:
+        """``generation_while`` with K18's counters for the generation:
+        ``lanes`` proposes its rounds segmented. One counter read per
+        round, as the classic loop; K18 adds none."""
+        self.seg_counters = torch.zeros(4, dtype=torch.int64,
+                                        device=self.device)
+        run = self.generation_while(lanes, n_target, eps_at_min,
+                                    ring=False)
+        run.seg = self.seg_counters
+        return run
 
     def k_mask(self, counters: torch.Tensor, n_target: int) -> torch.Tensor:
         n_keep = torch.clamp(counters[N_ACC], max=n_target)
@@ -431,6 +502,8 @@ class DeviceContext:
                "dist_w_next": dist_w_next}
         if self.K > 1:
             out.update(m=res["m"], model_probs=step["model_probs"])
+        if run.seg is not None:
+            out["seg"] = run.seg
         noisy = {}
         if self.stochastic:
             cfg = self.temp_config

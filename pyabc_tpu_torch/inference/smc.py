@@ -18,6 +18,19 @@ carries the temperature (in epsilon's place; History's ``epsilon`` column
 holds it, as in the JAX package), the pdf norm, the largest kernel value
 found and Daly's k, and the host objects (``acceptor.pdf_norms``,
 ``eps.temperatures``) mirror them after each chunk's fetch.
+
+Segmented early reject (``early_reject="auto"`` or ``True`` with a
+segmented model, ``TorchModel(segmented=...)``: the tau-leap models of
+``models.gillespie`` with ``segments=``, the network SIR): each round's
+simulator call becomes K18, which retires candidates between segments once
+the p-norm's prefix bound proves them rejected. The accepted populations
+are bit-identical with early reject on and off. A configuration the JAX
+package's engine cannot serve takes the classic path (``"auto"``) or raises
+its ``ValueError`` (``True``); one the JAX engine serves but the port does
+not yet (several models, noisy ABC, an adaptive distance, sharded runs)
+raises ``not_ported``. History's telemetry column holds each generation's
+``retired_early``, ``segment_occupancy``, ``seg_steps`` and
+``seg_resolved``.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
 from ..distance.kernel import IndependentNormalKernel, StochasticKernel
 from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
+from ..distance.scale import MOMENT_SCALE_NAMES
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
@@ -45,6 +59,7 @@ from ..kernels.mvn_fit import MAX_MODELS
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
 from ..ops.health import decode
+from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
 from ..populationstrategy import ConstantPopulationSize
@@ -136,13 +151,18 @@ class ABCSMC:
             stop_if_only_single_model_alive)
         if sampler is not None:
             raise _not_ported("host samplers", "16")
-        if mesh is not None or sharded:
-            raise _not_ported("a device mesh or sharded sampling", "15")
-        if early_reject is True:
-            raise _not_ported("segmented early reject", "13")
-        if early_reject not in ("auto", False):
+        if early_reject not in ("auto", True, False):
             raise ValueError(f"early_reject must be 'auto', True or False, "
                              f"got {early_reject!r}")
+        #: segmented early reject: "auto" (on whenever capable), True
+        #: (required: raise with the blocking reason) or False (never)
+        self.early_reject = early_reject
+        segmented = any(getattr(m, "segmented", None) is not None
+                        for m in models)
+        if sharded and segmented and early_reject is not False:
+            raise _not_ported("segmented early reject in a sharded run", "13")
+        if mesh is not None or sharded:
+            raise _not_ported("a device mesh or sharded sampling", "15")
         if checkpoint_path is not None:
             raise _not_ported("mid-chunk checkpoints", "8")
         if np.isfinite(max_nr_recorded_particles):
@@ -328,6 +348,84 @@ class ABCSMC:
             max_rounds=max_rounds, sync_ledger=self.sync_ledger,
             seed=self.seed, temp_config=temp_config, **models)
 
+    # ------------------------------------------------------ early reject
+    def _early_reject_incapable_reason(self, *, adaptive: bool,
+                                       stochastic: bool) -> str | None:
+        """Why the JAX package's segmented engine would not serve this
+        configuration (None = it would), in the JAX package's words: every
+        reason names the path that serves the configuration instead."""
+        reason = uniform_protocol_reason(self.models)
+        if reason is not None:
+            return (f"{reason}; the classic full-trajectory kernel "
+                    f"serves this config — declare "
+                    f"TorchModel(segmented=...) to enable early reject")
+        if self.spec is None:
+            return "no SumStatSpec yet (run not initialized)"
+        d = self.distance_function
+        if stochastic and type(self.eps) is Temperature and any(
+                type(sch).__name__ == "AcceptanceRateScheme"
+                for sch in self.eps._effective_schemes()):
+            return ("the AcceptanceRateScheme reweights the record "
+                    "ring of ALL evaluations, but under early reject "
+                    "the ring holds completed evaluations only — the "
+                    "temperature would be survivor-biased; the classic "
+                    "kernel serves this scheme")
+        if adaptive:
+            scale_name = d.scale_function.__name__
+            if scale_name not in MOMENT_SCALE_NAMES:
+                return (f"adaptive scale function {scale_name!r} has "
+                        f"no moment-decomposable reduction, and under "
+                        f"early reject the completed-only record ring "
+                        f"is survivor-biased — unbiased refits need "
+                        f"per-column moments over resolved lanes; the "
+                        f"classic kernel serves this config (switch to "
+                        f"{', '.join(sorted(MOMENT_SCALE_NAMES))} for "
+                        f"early reject)")
+        for w in getattr(d, "weights", {}).values():
+            if np.any(np.asarray(w) < 0):
+                return ("negative distance weights break the bound's "
+                        "monotonicity; the classic kernel serves them")
+        return None
+
+    def _early_reject_unserved(self, *, adaptive: bool,
+                               stochastic: bool) -> str | None:
+        """A configuration the JAX engine serves and the port's does not
+        yet (ROADMAP queue A, item 13), or None."""
+        if self.K > 1:
+            return "several models (the segmented model family)"
+        if stochastic:
+            return ("noisy ABC (stochastic retirement against the kernel's "
+                    "upper bound)")
+        if adaptive:
+            return ("an adaptive distance (the moment refit over resolved "
+                    "candidates)")
+        if self.device.type == "cuda" and self.model.segmented.kernel is None:
+            return "a segmented model without a built-in CUDA step"
+        return None
+
+    def _segment_gate(self, ctx: DeviceContext, *, adaptive: bool,
+                      stochastic: bool) -> bool:
+        """Decide early reject for this run; True when it is on (and
+        ``ctx.seg_cfg`` is set)."""
+        if self.early_reject is False:
+            return False
+        reason = self._early_reject_incapable_reason(
+            adaptive=adaptive, stochastic=stochastic)
+        if reason is None:
+            unserved = self._early_reject_unserved(adaptive=adaptive,
+                                                   stochastic=stochastic)
+            if unserved is not None:
+                raise _not_ported(f"segmented early reject with {unserved}",
+                                  "13")
+            ctx.seg_cfg = ctx.segment_cfg()
+            return True
+        if self.early_reject is True:
+            raise ValueError(f"early_reject=True unavailable: {reason}")
+        if any(getattr(m, "segmented", None) is not None
+               for m in self.models):
+            logger.info("segmented early reject off: %s", reason)
+        return False
+
     def _health_config(self):
         if not self.health_checks:
             return None
@@ -359,6 +457,8 @@ class ABCSMC:
         stochastic = ctx.stochastic
         d = self.distance_function
         adaptive = bool(getattr(d, "adaptive", False))
+        seg_on = self._segment_gate(ctx, adaptive=adaptive,
+                                    stochastic=stochastic)
         eps_quantile = isinstance(self.eps, QuantileEpsilon)
         statics = dict(
             n_target=n, adaptive=adaptive, eps_quantile=eps_quantile,
@@ -441,14 +541,17 @@ class ABCSMC:
                 if tg == 0:
                     def lanes(c=carry, h=hist):
                         return ctx.lanes_prior(c.eps, c.dist_w, h, t=0,
-                                               pdf_norm=c.pdf_norm)
+                                               pdf_norm=c.pdf_norm,
+                                               segmented=seg_on)
                 else:
                     def lanes(c=carry, h=hist, tg=tg):
                         return ctx.lanes_transition(
                             c.trans_params, c.eps, c.dist_w, h, t=tg,
                             pdf_norm=c.pdf_norm,
-                            carry=c if self.K > 1 else None)
-                run = ctx.generation_while(lanes, n, eps_at_min=at_min)
+                            carry=c if self.K > 1 else None,
+                            segmented=seg_on)
+                run = (ctx.generation_while_seg if seg_on
+                       else ctx.generation_while)(lanes, n, eps_at_min=at_min)
                 gen_ok = run.n_acc >= min(n, ctx.n_cap)
                 if not gen_ok:
                     logger.info("stopping: generation %d incomplete "
@@ -535,6 +638,9 @@ class ABCSMC:
         if "health" in outs[0]:
             tree["health"] = stack("health")
             tree["ess"] = stack("ess")
+        if "seg" in outs[0]:
+            # K18's counters ride the same fetch: no extra sync
+            tree["seg"] = stack("seg")
         if calib is not None:
             tree.update({f"calib_{k}": v for k, v in calib.items()})
         host = self._to_host(tree)
@@ -601,6 +707,14 @@ class ABCSMC:
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])
+            if "seg" in fetched:
+                ret, steps, resolved, slots = (
+                    int(v) for v in fetched["seg"][g])
+                telemetry.update(
+                    retired_early=ret,
+                    segment_occupancy=round(float(occupancy(steps, slots)),
+                                            4),
+                    seg_steps=steps, seg_resolved=resolved)
             t_persist = time.perf_counter()
             self.history.append_population(t, eps_used, pop, info["n_valid"],
                                            self.model_names, telemetry)
@@ -617,7 +731,8 @@ class ABCSMC:
                     fetched["max_found_next"][g], fetched["eps_next"][g],
                     fetched["daly_k_next"][g])
             self.generation_log.append({**info, "eps": eps_used,
-                                        "chunk_s": chunk_s})
+                                        "chunk_s": chunk_s,
+                                        "chunk_index": chunk_index})
             logger.info("t: %d, eps: %.8g, acceptance rate: %.5f (%d "
                         "evaluations)", t, eps_used,
                         info["acceptance_rate"], info["n_valid"])

@@ -9,6 +9,7 @@ from .generation_health import generation_health, generation_health_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
 from .model_step import model_step, model_step_plain
+from .network_sir import network_sir, network_sir_plain
 from .mvn_fit import mvn_fit, mvn_fit_plain
 from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
 from .ode_family import ode_family_simulate, ode_family_simulate_plain
@@ -18,15 +19,18 @@ from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
 from .propose import propose, propose_plain
 from .scale_reduce import scale_reduce, scale_reduce_plain
+from .segment_round import segment_round, segment_round_plain
 from .sir_simulate import sir_simulate, sir_simulate_plain
+from .tau_leap import tau_leap, tau_leap_plain
 from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
-#: K3-K11, K20, K20b, K21a, K21b, K26)
+#: K3-K11, K18, K19, K20, K20b family, K20b network, K21a, K21b, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
-           pack_fetch, generation_health, sir_simulate, ode_family_simulate,
-           kernel_accept, temperature_update, model_step)
+           pack_fetch, generation_health, segment_round, tau_leap,
+           sir_simulate, ode_family_simulate, network_sir, kernel_accept,
+           temperature_update, model_step)
 
 
 def reset_launch_counts() -> None:
@@ -44,12 +48,14 @@ __all__ = [
     "kernel_accept_plain", "launch_counts",
     "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
     "mvn_fit", "mvn_fit_plain",
-    "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain",
+    "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain", "network_sir",
+    "network_sir_plain",
     "normalize_log_weights_plain", "normalize_quantile",
     "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_plain", "reset_launch_counts", "scale_reduce",
-    "scale_reduce_plain", "sir_simulate", "sir_simulate_plain",
+    "scale_reduce_plain", "segment_round", "segment_round_plain",
+    "sir_simulate", "sir_simulate_plain", "tau_leap", "tau_leap_plain",
     "temperature_update", "temperature_update_plain",
     "weighted_quantile_plain",
 ]

@@ -80,6 +80,15 @@ SIGNATURES = {
     "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _P],
     "pyabc_pack_models": [_I, _P, _I, _P, _P],
+    "pyabc_tau_leap": [
+        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
+        _P],
+    "pyabc_network_sir": [
+        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
+        _P],
+    "pyabc_segment_round": [
+        _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P, _P, _P,
+        _U, _U, _U, _U, _U, _P, _P],
     "pyabc_generation_health": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],

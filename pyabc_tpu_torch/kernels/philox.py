@@ -60,13 +60,12 @@ class PhiloxStream:
 
 
 def _mulhilo(m: int, c: torch.Tensor):
-    """(hi, lo) 32-bit words of m * c for c < 2^32 on int64 tensors: c is
-    split into 16-bit halves so no product reaches 2^63."""
-    a = m * (c & 0xFFFF)
-    b = m * (c >> 16)
-    hi = (b + (a >> 16)) >> 16
-    lo = (((b & 0xFFFF) << 16) + a) & MASK32
-    return hi, lo
+    """(hi, lo) 32-bit words of m * c for m, c < 2^32 on int64 tensors. The
+    int64 product wraps modulo 2^64 and so keeps the bits of the unsigned
+    64-bit product: the masks take its two halves (the arithmetic shift's
+    sign extension lies above bit 31 and is masked off)."""
+    prod = m * c
+    return (prod >> 32) & MASK32, prod & MASK32
 
 
 def philox4x32_10(c0, c1, c2, c3, key: tuple[int, int]):
@@ -124,6 +123,118 @@ def normals(stream: PhiloxStream, lanes: torch.Tensor, base: int,
                      box_muller(u[2], u[3], False),
                      box_muller(u[2], u[3], True)], dim=-1)
     return z.reshape(lanes.shape[0], nb * 4)[:, :n]
+
+
+# ---------------------------------------------------------------- Poisson
+#: a Poisson draw owns 2^POISSON_BLOCK_BITS blocks (csrc/philox.cuh)
+POISSON_BLOCK_BITS = 12
+#: the uniforms one draw may use: Knuth's iterations, two per PTRS attempt
+POISSON_MAX_UNIFORMS = 4 << POISSON_BLOCK_BITS
+#: draw numbers of a lane (leap * n_channels + channel) stay below this
+POISSON_MAX_DRAWS = 1 << (32 - POISSON_BLOCK_BITS)
+#: blocks a vectorized pass of the plain sampler takes at once
+_KNUTH_BLOCKS, _PTRS_BLOCKS = 8, 2
+
+
+def poisson_uniforms(stream: PhiloxStream, lanes: torch.Tensor,
+                     draws: torch.Tensor, first_block: int,
+                     n_blocks: int) -> torch.Tensor:
+    """``(N, 4 * n_blocks)`` uniforms of draws ``draws`` of lanes ``lanes``
+    (int64 ``(N,)`` each): uniform i of a draw is word i % 4 of its block
+    (draw << 12) | (i // 4), from block ``first_block`` on."""
+    blk = torch.arange(first_block, first_block + n_blocks,
+                       dtype=torch.int64, device=lanes.device)
+    w = lane_blocks(stream, lanes[:, None],
+                    (draws[:, None] << POISSON_BLOCK_BITS) | blk[None, :])
+    return torch.stack([uniform_of(x) for x in w], dim=-1).reshape(
+        lanes.shape[0], 4 * n_blocks)
+
+
+def _rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
+    """``c / t`` as one rounded division (``c / tensor`` in PyTorch is a
+    reciprocal and a product, two roundings)."""
+    return torch.full_like(t, c) / t
+
+
+def _poisson_knuth(stream, lanes, draws, lam):
+    k = torch.zeros_like(lam)
+    log_prod = torch.zeros_like(lam)
+    i = 0
+    act = log_prod > -lam  # NaN: no iteration, k - 1 = -1 as in JAX
+    while i < POISSON_MAX_UNIFORMS and bool(act.any()):
+        sel = act.nonzero()[:, 0]
+        # a first pass of two blocks serves most small rates
+        nb = 2 if i == 0 else _KNUTH_BLOCKS
+        lu = torch.log(poisson_uniforms(stream, lanes[sel], draws[sel],
+                                        i // 4, nb))
+        kk, lp, lm = k[sel], log_prod[sel], -lam[sel]
+        for j in range(4 * nb):
+            a = lp > lm
+            if j % 4 == 0 and not bool(a.any()):
+                break
+            kk = torch.where(a, kk + 1.0, kk)
+            lp = torch.where(a, lp + lu[:, j], lp)
+        k[sel], log_prod[sel] = kk, lp
+        i += 4 * nb
+        act = log_prod > -lam
+    return k - 1.0
+
+
+def _poisson_ptrs(stream, lanes, draws, lam):
+    log_lam = torch.log(lam)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + _rdiv(1.1328, b - 3.4)
+    v_r = 0.9277 - _rdiv(3.6224, b - 2.0)
+    two_a = 2.0 * a
+    out = torch.full_like(lam, -1.0)
+    todo = torch.ones_like(lam, dtype=torch.bool)
+    j = 0
+    while j < POISSON_MAX_UNIFORMS // 2 and bool(todo.any()):
+        sel = todo.nonzero()[:, 0]
+        uni = poisson_uniforms(stream, lanes[sel], draws[sel], j // 2,
+                               _PTRS_BLOCKS)
+        lm, ll, bb, aa = lam[sel], log_lam[sel], b[sel], a[sel]
+        ia, vr, ta = inv_alpha[sel], v_r[sel], two_a[sel]
+        got = torch.full_like(lm, -1.0)
+        done = torch.zeros_like(lm, dtype=torch.bool)
+        for att in range(2 * _PTRS_BLOCKS):
+            u = uni[:, 2 * att] - 0.5
+            v = uni[:, 2 * att + 1]
+            us = 0.5 - u.abs()
+            k = torch.floor(((ta / us + bb) * u + lm) + 0.43)
+            s = torch.log((v * ia) / (aa / (us * us) + bb))
+            t = (-lm + k * ll) - torch.lgamma(k + 1.0)
+            accept1 = (us >= 0.07) & (v <= vr)
+            reject = (k < 0) | ((us < 0.013) & (v > us))
+            acc = (accept1 | (~reject & (s <= t))) & ~done
+            got = torch.where(acc, k, got)
+            done = done | acc
+        out[sel] = got
+        todo[sel] = ~done
+        j += 2 * _PTRS_BLOCKS
+    return out
+
+
+def poisson_plain(stream: PhiloxStream, lanes: torch.Tensor,
+                  draws: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``philox.cuh::poisson``: float32 Poisson counts of
+    rates ``lam`` for draw ``draws`` of lane ``lanes`` (broadcast) on
+    ``stream`` -- 0 at rate 0, Knuth below 10 and for NaN (-1), PTRS from 10
+    up, each operation rounded on its own as the kernel writes it."""
+    shape = lam.shape
+    lam = lam.to(torch.float32).reshape(-1)
+    lanes = lanes.to(torch.int64).expand(shape).reshape(-1)
+    draws = torch.as_tensor(draws, dtype=torch.int64,
+                            device=lam.device).expand(shape).reshape(-1)
+    out = torch.zeros_like(lam)
+    knuth = (torch.isnan(lam) | (lam < 10.0)) & (lam != 0)
+    ptrs = ~torch.isnan(lam) & (lam >= 10.0)
+    for mask, fn in ((knuth, _poisson_knuth), (ptrs, _poisson_ptrs)):
+        idx = mask.nonzero()[:, 0]
+        if idx.numel():
+            out[idx] = fn(stream, lanes[idx], draws[idx], lam[idx])
+    return out.reshape(shape)
 
 
 def generator_stream(generator: torch.Generator,

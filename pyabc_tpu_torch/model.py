@@ -5,7 +5,8 @@ A ``TorchModel`` wraps a batched simulator
 generation loop flattens its output in SumStatSpec's sorted key order.
 Built-in models may override :meth:`simulate_flat` to produce the flat
 ``(B, S)`` rows directly from a kernel, drawing their noise from the
-round's Philox stream (``stream``) instead of the generator.
+round's Philox stream (``stream``) instead of the generator. A segmented
+model (``segmented=``) simulates through its segment chain.
 """
 from __future__ import annotations
 
@@ -15,22 +16,57 @@ import torch
 
 from .core.parameters import ParameterSpace
 from .core.sumstat_spec import SumStatSpec
+from .kernels.philox import generator_stream
+from .ops.segment import (SegmentedSim, full_sim_from_segments,
+                          index_map_for, simulate_segments_flat)
 
 
 class TorchModel:
-    def __init__(self, sim: Callable, space: ParameterSpace | list[str],
-                 name: str = "torch_model"):
+    """``segmented`` (an ``ops.segment.SegmentedSim``) declares the
+    segmented-simulation protocol, which makes the model eligible for
+    segmented early reject; ``sim`` may then be None, the simulator being
+    the segment chain (``full_sim_from_segments``), so the classic path and
+    the segmented round run the same per-segment step. A user's segments
+    step in torch; the built-in ones (``models.gillespie``,
+    ``models.sir.make_network_sir_model``) name their CUDA kernels."""
+
+    def __init__(self, sim: Callable | None,
+                 space: ParameterSpace | list[str],
+                 name: str = "torch_model", segmented=None):
         if not isinstance(space, ParameterSpace):
             space = ParameterSpace(space)
+        if sim is None:
+            if segmented is None:
+                raise ValueError("TorchModel needs sim or segmented")
+            sim = full_sim_from_segments(segmented)
         self.sim = sim
         self.space = space
         self.name = name
+        #: optional segmented-simulation protocol (early reject)
+        self.segmented = segmented
+        self._imaps: dict = {}
+
+    def index_map(self, spec: SumStatSpec, device,
+                  seg: SegmentedSim | None = None) -> torch.Tensor:
+        """The int32 ``(n_segments, seg_size)`` emission map of ``seg``
+        (default: the model's protocol) onto ``spec``'s flat rows, built
+        once per spec and device."""
+        seg = self.segmented if seg is None else seg
+        key = (id(seg), spec.names, tuple(spec.sizes.values()), str(device))
+        if key not in self._imaps:
+            self._imaps[key] = torch.as_tensor(index_map_for(seg, spec),
+                                               device=device)
+        return self._imaps[key]
 
     def simulate_flat(self, theta: torch.Tensor, generator: torch.Generator,
                       spec: SumStatSpec, stream=None) -> torch.Tensor:
         """``(B, dim)`` parameters -> ``(B, S)`` flat sum stats. A user
         simulator draws from ``generator``; ``stream`` (the round's
-        ``PhiloxStream`` for the simulator noise) is for built-in models."""
+        ``PhiloxStream`` for the simulator noise) is for built-in models
+        and segment chains."""
+        if self.segmented is not None:
+            return self._simulate_chain(self.segmented, theta, generator,
+                                        spec, stream)
         out = self.sim(theta, generator)
         missing = set(spec.names) - set(out)
         if missing:
@@ -38,8 +74,32 @@ class TorchModel:
                            f"{sorted(missing)} of the observed data")
         return spec.flatten(out, theta.shape[0])
 
+    def _simulate_chain(self, seg, theta, generator, spec, stream):
+        if stream is None:
+            stream = generator_stream(generator, theta.device)
+        return simulate_segments_flat(
+            seg, theta, self.index_map(spec, theta.device, seg),
+            spec.total_size, stream)
+
     def __repr__(self):
         return f"{type(self).__name__}({self.name!r})"
+
+
+class ChainModel(TorchModel):
+    """A built-in model whose simulator is a chain of segments run by its
+    kernel (``chain.kernel``); ``segmented`` is set only when the
+    constructor was asked for segments (early reject), else the chain is
+    one segment and serves the classic path alone."""
+
+    def __init__(self, chain: SegmentedSim, space, name: str,
+                 segmented: bool):
+        super().__init__(full_sim_from_segments(chain), space, name,
+                         segmented=chain if segmented else None)
+        self.chain = chain
+
+    def simulate_flat(self, theta, generator, spec, stream=None):
+        return self._simulate_chain(self.chain, theta, generator, spec,
+                                    stream)
 
 
 def simulate_models_flat(models, theta: torch.Tensor, m: torch.Tensor,

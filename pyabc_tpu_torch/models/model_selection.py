@@ -25,6 +25,7 @@ from ..core.sumstat_spec import SumStatSpec
 from ..kernels.ode_family import MODEL_NAMES, ode_family_simulate
 from ..kernels.philox import PhiloxStream, generator_stream
 from ..model import TorchModel
+from ..utils import not_ported
 from .ode import rk4_dt
 
 #: initial state of every model of the family
@@ -121,9 +122,8 @@ def ode_family(n_obs: int = 12, t1: float = 8.0, noise_sd: float = 0.3,
     ``n_obs`` times of [0, t1]: m0 dy = -a y, m1 dy = -a y + b, m2 dy =
     a y (1 - y / k). Returns (models, priors, ts)."""
     if segments is not None:
-        raise NotImplementedError(
-            "ode_family(segments=...) needs the segmented early-reject "
-            "engine (K18, ROADMAP queue B), which is not ported yet")
+        raise not_ported("the segmented ODE family (K18 over several "
+                         "models)", "13")
     family = OdeFamily(n_obs, t1, noise_sd, n_substeps)
     models = [OdeFamilyModel(family, i) for i in range(len(MODEL_NAMES))]
     priors = [

@@ -8,6 +8,11 @@ the observation noise is modelled by a stochastic kernel
 (``IndependentNormalKernel`` + ``StochasticAcceptor`` + ``Temperature``,
 noisy ABC). A proposal round goes through the K20 kernel
 (``kernels/sir_simulate.py``).
+
+``make_network_sir_model`` is the scenario zoo's metapopulation SIR: 8
+ring-coupled patches observed at 16 times (S = 128), built on the segmented
+protocol (4 segments) and run by the K20b network kernel
+(``kernels/network_sir.py``).
 """
 from __future__ import annotations
 
@@ -16,9 +21,11 @@ import torch
 
 from ..core.random_variables import RV, Distribution
 from ..core.sumstat_spec import SumStatSpec
+from ..kernels.network_sir import NetworkSirSpec, network_sir
 from ..kernels.philox import PhiloxStream, generator_stream
 from ..kernels.sir_simulate import sir_rhs, sir_simulate
-from ..model import TorchModel
+from ..model import ChainModel, TorchModel
+from ..ops.segment import spec_protocol
 from .ode import rk4_dt
 
 TRUE_PARS = {"beta": 0.4, "gamma": 0.1}
@@ -26,7 +33,8 @@ N_POP = 1000.0
 Y0 = (N_POP - 1.0, 1.0, 0.0)
 
 __all__ = ["N_POP", "TRUE_PARS", "Y0", "SIRModel", "default_prior",
-           "make_sir_model", "observed_data", "sir_rhs"]
+           "make_network_sir_model", "make_sir_model", "network_sir_prior",
+           "observed_data", "observed_network_sir", "sir_rhs"]
 
 
 class SIRModel(TorchModel):
@@ -88,5 +96,55 @@ def observed_data(seed: int = 0, n_obs: int = 15, t1: float = 60.0,
     theta = torch.tensor([[TRUE_PARS["beta"], TRUE_PARS["gamma"]]],
                          dtype=torch.float32)
     infected = model.simulate(theta)[0].numpy()
+    rng = np.random.default_rng(seed)
+    return {"infected": infected + noise_sd * rng.normal(size=infected.shape)}
+
+
+# --------------------------------------------------------------------------
+# network / metapopulation SIR (the scenario zoo): n_patches coupled SIR
+# compartments integrated together, observing every patch's infected
+# series (S = n_obs * n_patches), built on the segmented protocol.
+# --------------------------------------------------------------------------
+
+def make_network_sir_model(n_patches: int = 8, n_obs: int = 16,
+                           t1: float = 60.0, n_substeps: int = 4,
+                           coupling: float = 0.08, segments: int = 4,
+                           noise_sd: float = 0.0,
+                           name: str = "network_sir") -> ChainModel:
+    """Ring-coupled metapopulation SIR; theta = (beta, gamma) global.
+
+    Patch 0 seeds the epidemic (5 infected of 1000); infection pressure on
+    a patch mixes its prevalence with its ring neighbours' (``coupling``).
+    Returns ``{"infected": (n_obs * n_patches,)}``, time-major, so a
+    trajectory prefix is a flat prefix. ``noise_sd > 0`` adds measurement
+    noise inside the simulator, per segment."""
+    if n_obs % segments:
+        raise ValueError(f"segments={segments} must divide n_obs={n_obs}")
+    spec = NetworkSirSpec(n_patches=int(n_patches), n_obs=int(n_obs),
+                          t1=float(t1), n_substeps=int(n_substeps),
+                          coupling=float(coupling), n_seg=int(segments),
+                          noise_sd=float(noise_sd), n_pop=N_POP)
+    chain = spec_protocol(spec, (("infected", spec.seg_size),), network_sir)
+    return ChainModel(chain, ["beta", "gamma"], name, segmented=True)
+
+
+def network_sir_prior() -> Distribution:
+    return Distribution(
+        beta=RV("uniform", 0.05, 0.95),
+        gamma=RV("uniform", 0.01, 0.49),
+    )
+
+
+def observed_network_sir(seed: int = 0, noise_sd: float = 8.0,
+                         **kwargs) -> dict:
+    """The deterministic network SIR at TRUE_PARS plus iid normal
+    measurement noise from numpy's generator seeded with ``seed``, as the
+    JAX package draws it."""
+    model = make_network_sir_model(**kwargs)
+    theta = torch.tensor([[TRUE_PARS["beta"], TRUE_PARS["gamma"]]],
+                         dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    infected = model.sim(theta, gen)["infected"][0].numpy()
     rng = np.random.default_rng(seed)
     return {"infected": infected + noise_sd * rng.normal(size=infected.shape)}

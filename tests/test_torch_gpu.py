@@ -193,10 +193,12 @@ def test_lv_run_on_the_card(dev):
     reset_launch_counts()
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4
-    # every kernel of the LV path (the noisy-ABC kernels and the model
-    # selection's K20b and K26 are not on it)
+    # every kernel of the LV path (the noisy-ABC kernels, the model
+    # selection's K20b and K26, and config 3's K18, K19 and K20b network
+    # are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
-             "ode_family_simulate", "model_step")
+             "ode_family_simulate", "model_step", "segment_round",
+             "tau_leap", "network_sir")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -977,3 +979,136 @@ def test_model_selection_runs_on_the_card(dev):
     p = h.get_model_probabilities(h.max_t)["p"]
     assert float(p.sum()) == pytest.approx(1.0)
     assert float(p.get(0, 0.0)) < 0.9
+
+
+# ------------------------------------- tau leap and early reject (PR 5)
+def _seg_round(dev, name, B, seed=0):
+    """A prior round of a segmented model on the card: the model, theta,
+    valid, the flat spec and x0 (a trajectory of the model)."""
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import sir
+
+    if name == "bd":
+        model, prior = g.make_birth_death_model(segments=10), \
+            g.birth_death_prior()
+        obs = g.observed_birth_death(segments=10)
+    elif name == "lv":
+        model, prior = g.make_stochastic_lv_model(segments=10), \
+            g.stochastic_lv_prior()
+        obs = g.observed_stochastic_lv(segments=10)
+    else:
+        model, prior = sir.make_network_sir_model(), sir.network_sir_prior()
+        obs = sir.observed_network_sir()
+    spec = SumStatSpec(obs)
+    theta, _lp, valid = propose(_stream(dev, philox.PRIOR, seed=seed), B,
+                                prior.arrays(dev))
+    x0 = torch.as_tensor(spec.flatten_host(obs), dtype=torch.float32,
+                         device=dev)
+    return model, theta.contiguous(), valid, spec, x0
+
+
+def _equal_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("B", [77, 4096])
+@pytest.mark.parametrize("name,midpoint", [("bd", False), ("bd", True),
+                                           ("lv", False)])
+def test_tau_leap_kernel(dev, B, name, midpoint):
+    """K19 against its plain version on the card: every count equal (the
+    kernel rounds each operation on its own, as the plain version does),
+    over the whole range and over a carried sub-range."""
+    from dataclasses import replace
+
+    from pyabc_tpu_torch.kernels import tau_leap, tau_leap_plain
+
+    model, theta, _v, spec, _x0 = _seg_round(dev, name, B)
+    kspec = replace(model.chain.kernel[1], midpoint=midpoint)
+    st = _stream(dev, philox.SIM_NOISE)
+    imap = model.index_map(spec, dev)
+    before = tau_leap.launches
+    got, _ = tau_leap(kspec, theta, st, colmap=imap, width=spec.total_size)
+    assert tau_leap.launches == before + 1
+    ref, _ = tau_leap_plain(kspec, theta, st, colmap=imap,
+                            width=spec.total_size)
+    assert _equal_nan(got, ref)
+    head, x = tau_leap(kspec, theta, st, seg_to=4, return_state=True)
+    tail, _ = tau_leap(kspec, theta, st, state=x, seg_from=4)
+    whole, _ = tau_leap(kspec, theta, st)
+    assert torch.equal(torch.cat([head, tail], dim=1), whole)
+
+
+@pytest.mark.parametrize("B", [77, 4096])
+@pytest.mark.parametrize("noise_sd", [0.0, 5.0])
+def test_network_sir_kernel(dev, B, noise_sd):
+    from dataclasses import replace
+
+    from pyabc_tpu_torch.kernels import network_sir, network_sir_plain
+
+    model, theta, _v, _spec, _x0 = _seg_round(dev, "net", B)
+    kspec = replace(model.chain.kernel[1], noise_sd=noise_sd)
+    st = _stream(dev, philox.SIM_NOISE)
+    got, _ = network_sir(kspec, theta, st)
+    ref, _ = network_sir_plain(kspec, theta, st)
+    assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [256, 4096])
+@pytest.mark.parametrize("name", ["bd", "lv", "net"])
+def test_segment_round_kernel(dev, B, name):
+    """K18 against its plain version on the card: the same kept slots,
+    their statistics bit for bit, the same retired / stepped / resolved
+    counts, and an occupancy in (0, 1]."""
+    from pyabc_tpu_torch.kernels import segment_round, segment_round_plain
+
+    model, theta, valid, spec, x0 = _seg_round(dev, name, B)
+    st = _stream(dev, philox.SIM_NOISE)
+    imap = model.index_map(spec, dev)
+    w = torch.ones_like(x0)
+    full, _ = model.chain.kernel[0](model.chain.kernel[1], theta, st,
+                                    colmap=imap, width=spec.total_size)
+    d = (full - x0).square().sum(1).sqrt()
+    eps = torch.quantile(d[valid], 0.2)
+    kw = dict(imap=imap, x0=x0, w=w, p=2.0, eps=eps,
+              width=spec.total_size)
+    c_got = torch.zeros(4, dtype=torch.int64, device=dev)
+    c_ref = torch.zeros(4, dtype=torch.int64, device=dev)
+    ss, keep = segment_round(model.segmented, theta, valid, st,
+                             seg_ctr=c_got, **kw)
+    ss_r, keep_r = segment_round_plain(model.segmented, theta, valid, st,
+                                       seg_ctr=c_ref, **kw)
+    assert torch.equal(keep, keep_r)
+    assert torch.equal(ss[keep], ss_r[keep])
+    assert torch.equal(c_got[:3], c_ref[:3]) and int(c_got[0]) > 0
+    assert 0 < int(c_got[1]) <= int(c_got[3])
+
+
+def test_early_reject_runs_on_the_card(dev):
+    """Birth-death (segments 10, pop 2000) with early reject on and off on
+    the card: bit-identical populations, K18 and K19 launched."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import gillespie as g
+
+    obs = g.observed_birth_death(segments=10)
+    hs = []
+    reset_launch_counts()
+    for early in ("auto", False):
+        abc = pt.ABCSMC(g.make_birth_death_model(segments=10),
+                        g.birth_death_prior(), pt.PNormDistance(p=2),
+                        population_size=2000, seed=3, early_reject=early,
+                        fused_generations=2, device=dev)
+        abc.new("sqlite://", obs, store_sum_stats=False)
+        hs.append(abc.run(max_nr_populations=5))
+    counts = launch_counts()
+    assert counts["segment_round"] > 0 and counts["tau_leap"] > 0
+    for t in range(5):
+        a, wa = hs[0].get_distribution(m=0, t=t)
+        b, wb = hs[1].get_distribution(m=0, t=t)
+        assert np.array_equal(a.to_numpy(), b.to_numpy())
+        assert np.array_equal(wa, wb)
+    assert sum(hs[0].get_telemetry(t)["retired_early"]
+               for t in range(5)) > 0

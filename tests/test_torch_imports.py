@@ -89,6 +89,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pyabc_tpu_torch.models.model_selection",
             "pyabc_tpu_torch.kernels.ode_family",
             "pyabc_tpu_torch.kernels.model_step"} <= set(res["modules"])
+    # and the tau-leap / early-reject slice's (K18, K19, K20b network)
+    assert {"pyabc_tpu_torch.ops.segment",
+            "pyabc_tpu_torch.models.gillespie",
+            "pyabc_tpu_torch.kernels.tau_leap",
+            "pyabc_tpu_torch.kernels.network_sir",
+            "pyabc_tpu_torch.kernels.segment_round"} <= set(res["modules"])
     assert res["loaded"] == []
     # without CUDA the default device raises and names the way out
     assert res["raised"] is not None and "device='cpu'" in res["raised"]
