@@ -29,6 +29,15 @@ Phases, one or more lines each:
    and counters bit-identical to the plain version's, with its device time
    per round on and off beside K19's classic round; each
    with its largest
+   absolute error; then K12 (the k-NN covariance field) with top-k at
+   n_cap 1024 (k 256), with threshold selection at the scale lane's width
+   (n_cap 16384, k_cap 4096, stride 4), at a small odd shape (n_cap 64,
+   37 valid rows, d 1) and at stride 1, its neighbours and counts bit-equal
+   to the plain version's; K13 (the factorization) over every row and
+   incrementally with a tenth of the rows changed and a rank-1 row on the
+   jitter ladder, n_changed equal; K2's local mode at B 65536, K14's
+   density at 65536 x 16384 (d 4) and K15 (the drift guard and cadence);
+   each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
    events around the same calls made from Python, the wrapper's host work
@@ -82,10 +91,18 @@ Phases, one or more lines each:
    torch.profiler; the same seed at pop 1024 on the card and the CPU (the
    first three epsilons within 1e-3 relative); then the scenario zoo's
    stochastic LV and network SIR (pop 16384, 4 generations) on and off,
-   bit-identical.
+   bit-identical. Then bench.py's scale lane (Lotka-Volterra,
+   AdaptivePNormDistance(p=2), MedianEpsilon, LocalTransition(k_fraction=
+   0.25), pop 16384, 12 generations, G 8, seed 101, the refit cadence
+   auto), counts reset just before: K12-K15 and K2's local mode launched,
+   throughput, wall per generation, syncs (one per round plus one per
+   chunk, nothing else), the epsilon trail, the refit events, rows changed
+   and drift trail, the posterior means; once more under torch.profiler;
+   and the same seed at pop 1024 on the card and the CPU (the first three
+   epsilons within 1e-3 relative).
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K11, K18, K19, K20, K20b, K21a, K21b, K26 and the K > 1 modes)
+kernel (K1-K15, K18, K19, K20, K20b, K21a, K21b, K26 and the K > 1 modes)
 is replaced by a function that raises, so none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
@@ -1727,6 +1744,13 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.tau_leap", "tau_leap_plain"),
     ("pyabc_tpu_torch.kernels.network_sir", "network_sir_plain"),
     ("pyabc_tpu_torch.kernels.segment_round", "segment_round_plain"),
+    ("pyabc_tpu_torch.kernels.local_cov", "local_cov_plain"),
+    ("pyabc_tpu_torch.kernels.local_factor", "local_factor_plain"),
+    ("pyabc_tpu_torch.kernels.local_factor", "device_chol_guarded_batched"),
+    ("pyabc_tpu_torch.kernels.propose", "propose_local_plain"),
+    ("pyabc_tpu_torch.kernels.local_logpdf", "local_logpdf_plain"),
+    ("pyabc_tpu_torch.kernels.proposal_drift", "proposal_drift_plain"),
+    ("pyabc_tpu_torch.kernels.proposal_drift", "device_proposal_drift"),
 )
 
 
@@ -2951,6 +2975,369 @@ def zoo_runs(dev) -> dict:
     return out
 
 
+# -------------------------------------------- LocalTransition, the scale lane
+#: bench.py's scale lane (bench.py:270-330, pyabc_tpu/utils/
+#: bench_defaults.py:37-38): Lotka-Volterra, AdaptivePNormDistance(p=2),
+#: MedianEpsilon, LocalTransition(k_fraction=0.25), pop 16384 (n_cap 16384,
+#: B 65536, k_cap 4096, threshold selection at stride 4, the refit cadence
+#: auto (16, 0.3)), 12 generations, G 8, seed 101, observed_data(seed=123)
+SCALE_POP, SCALE_GENS, SCALE_G, SCALE_SEED = 16384, 12, 8, 101
+#: the kernels LocalTransition brought, and the scale lane's path
+LOCAL_KERNELS = ("local_cov", "local_factor", "propose_local",
+                 "local_logpdf", "proposal_drift")
+SCALE_PATH = ("propose", "lv_simulate", "pnorm_accept_weight",
+              "compact_round", "normalize_quantile", "scale_reduce",
+              "pack_fetch", "generation_health") + LOCAL_KERNELS
+#: the scale lane's lanes a round
+SCALE_B = 65536
+
+
+def row_err(a, b) -> float:
+    """Largest |a - b| of each row over the row's largest |b|."""
+    n = a.shape[0]
+    scale = b.abs().reshape(n, -1).amax(dim=1).clamp_min(1e-30)
+    return float(((a - b).abs().reshape(n, -1).amax(dim=1) / scale).max())
+
+
+def local_population(dev, n: int, d: int, n_valid: int, seed: int = 0):
+    """n LV prior draws (d 4; other d: standard normals) and positive
+    weights on the first n_valid rows."""
+    import torch
+
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = (lv.default_prior().rvs_array(n, g, dev) if d == 4
+         else torch.randn(n, d, generator=g, device=dev))
+    w = torch.rand(n, generator=g, device=dev) + 0.1
+    w[n_valid:] = 0.0
+    return X.contiguous(), (w / w.sum()).contiguous()
+
+
+def k12_case(dev, label, n, d, dim, n_valid, kw, timed):
+    """K12 against its plain version: neighbours and counts bit-equal,
+    covariances within 1e-4 of each row's largest entry."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import local_cov, local_cov_plain
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    X, w = local_population(dev, n, d, n_valid, seed=n + d)
+    cfg = LocalTransition.field_config(n, dim, scaling=1.0, device=dev, **kw)
+    got = local_cov(X, w, want_idx=True, **cfg)
+    t0 = time.perf_counter()
+    ref = local_cov_plain(X, w, want_idx=True, **cfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = (torch.equal(got["cnt"], ref["cnt"])
+            and torch.equal(got["idx"], ref["idx"])
+            and torch.equal(got["thetas"], ref["thetas"]))
+    err = row_err(got["covs"], ref["covs"])
+    err_abs = float((got["covs"] - ref["covs"]).abs().max())
+    cnt = ref["cnt"].to(torch.int64)
+    mode = "top-k" if cfg["topk"] else f"threshold stride {cfg['stride']}"
+    log(f"K12 local_cov {label} (n_cap={n}, d={d}, dim={dim}, {n_valid} "
+        f"valid, k_cap={cfg['k_cap']}, {mode}, "
+        f"{'diff' if cfg['dense'] else 'norm'} form): neighbours and counts "
+        f"equal {same}; counts {int(cnt.min())}-{int(cnt.max())}; "
+        f"covariance error {err:.3e} of the row scale ({err_abs:.3e} abs)")
+    check(same, f"K12 {label}: the selection differs from the plain "
+          f"version")
+    check(err <= 1e-4 and within(got["weights"], ref["weights"], 0.0, 1e-6)
+          and within(got["cdf"], ref["cdf"], 1e-6, 1e-5),
+          f"K12 {label}: covariances, weights or cdf outside tolerance")
+    if not timed:
+        return None
+    m = n if cfg["topk"] else -(-n // cfg["stride"])
+    passes = 32 if cfg["topk"] else 26
+    sel = float(cnt.sum())
+    ops = n * (m * (3 * d + passes + 2)) + sel * 3 * d * d
+    nbytes = (n * (d + 1) + n * (d + 2 + d * d) + n) * 4 + (n + 1) * 4
+    return dict(err=err_abs, plain_ms=plain_s * 1e3,
+                call_ms=time_ms(lambda: local_cov(X, w, **cfg), 5, 1),
+                ms=graph_ms(lambda: local_cov(X, w, **cfg), 5, 3),
+                bound=bound(nbytes, ops), library_ms=None,
+                field=(X, w, cfg))
+
+
+def k12_checks(dev) -> dict:
+    """K12 with top-k at n_cap 1024 (k 256), with threshold at the scale
+    lane's width (n_cap 16384, k_cap 4096, stride 4), at a small odd shape
+    (n_cap 64, 37 valid rows, d 1) and with threshold at stride 1."""
+    k12_case(dev, "top-k", 1024, 4, 4, 1000, dict(k_cap=256), False)
+    res = k12_case(dev, "scale lane", SCALE_POP, 4, 4, SCALE_POP,
+                   dict(k_cap=4096), True)
+    k12_case(dev, "small odd", 64, 1, 1, 37, dict(k_cap=16), False)
+    k12_case(dev, "threshold stride 1", 2048, 3, 2, 2000,
+             dict(k_cap=512, selection="threshold"), False)
+    return res
+
+
+def k13_checks(dev, field) -> dict:
+    """K13 over every row and incrementally with about a tenth of the rows
+    changed and one rank-1 row on the jitter ladder: n_changed equal,
+    factors within float32 tolerance."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import local_cov, local_factor
+    from pyabc_tpu_torch.kernels.local_factor import local_factor_plain
+
+    X, w, cfg = field
+    n, d = X.shape
+    f0 = local_cov(X, w, **cfg)
+    prev, _n = local_factor(f0, None, dim=d, incremental=False)
+    # a tenth of the rows' covariances move (at k = n / 4 every moved
+    # particle is a neighbour of a quarter of the rows, so the field is
+    # perturbed directly), one of them to rank 1, on the jitter ladder
+    f1 = {**f0, "covs": f0["covs"].clone()}
+    f1["covs"][: n // 10] *= 1.01
+    v = torch.tensor([1.0, 2.0, -1.0, 0.5], device=dev)
+    f1["covs"][7] = v[:, None] * v[None, :]
+    out = {}
+    for inc in (False, True):
+        got, n_got = local_factor(f1, prev, dim=d, incremental=inc)
+        t0 = time.perf_counter()
+        ref, n_ref = local_factor_plain(f1, prev, dim=d, incremental=inc)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        ok = torch.arange(n, device=dev) != 7
+        errs = {k: float((got[k] - ref[k]).abs().nan_to_num(0.0).max())
+                for k in ("chols", "logdets", "lconst")}
+        prec_err = row_err(got["precs"][ok], ref["precs"][ok])
+        log(f"K13 local_factor ({'incremental' if inc else 'every row'}, "
+            f"n={n}, d={d}): rows changed {int(n_got)} (plain "
+            f"{int(n_ref)}); abs errors {errs}; precision error "
+            f"{prec_err:.3e} of the row scale (the rank-1 row apart)")
+        check(int(n_got) == int(n_ref) == (n // 10 if inc else n),
+              "K13 n_changed differs from the plain version or from the "
+              "rows changed")
+        check(within(got["chols"], ref["chols"], 1e-5, 1e-4)
+              and prec_err <= 1e-3
+              and within(got["logdets"], ref["logdets"], 1e-3, 1e-4)
+              and bool(torch.isfinite(got["chols"][7]).all()),
+              "K13 factors outside tolerance")
+        out[inc] = (n_got, plain_s, max(errs.values()))
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    kept, n0 = local_factor(local_cov(X, w, flag=flag, **cfg), prev,
+                            dim=d, incremental=True, flag=flag)
+    check(int(n0) == 0 and all(torch.equal(kept[k], prev[k]) for k in
+                               ("thetas", "chols", "precs", "lconst")),
+          "K13 with the flag at 0 did not carry the params forward")
+    covs = f0["covs"]
+
+    def full():
+        return local_factor(f0, None, dim=d, incremental=False)
+
+    nbytes = n * (d * d + 1 + 2 * d * d + 2) * 4
+    return dict(err=out[False][2], plain_ms=out[False][1] * 1e3,
+                call_ms=time_ms(full, 20), ms=graph_ms(full, 20, 3),
+                bound=bound(nbytes, n * 4 * d ** 3),
+                library_ms=time_ms(lambda: torch.linalg.cholesky_ex(covs),
+                                   20),
+                n_changed_incremental=int(out[True][0]))
+
+
+def k14_checks(dev, field) -> dict:
+    """K2's local mode at B 65536 and K14's density at 65536 x 16384 (d 4)
+    against their plain versions, on a fit of the scale lane's width."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (local_logpdf, local_logpdf_plain,
+                                         philox, propose_local,
+                                         propose_local_plain)
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    X, w, cfg = field
+    n, d = X.shape
+    params = LocalTransition.device_fit(
+        X, w, dim=d, **{k: cfg[k] for k in ("scaling", "k_cap")},
+        selection="threshold", k_table=cfg["k_table"])
+    prior = lv.default_prior().arrays(dev)
+    st = stream_on(dev, philox.TRANSITION, gen=3, seed=5)
+    th, lp, valid = propose_local(st, SCALE_B, prior, params)
+    t0 = time.perf_counter()
+    th_r, lp_r, valid_r = propose_local_plain(st, SCALE_B, prior, params)
+    torch.cuda.synchronize()
+    draw_plain_s = time.perf_counter() - t0
+    draw_err = float((th - th_r).abs().max())
+    check(torch.equal(valid, valid_r) and within(th, th_r, 1e-5, 1e-5)
+          and within(lp[valid], lp_r[valid], 1e-5, 1e-5),
+          "K2's local mode differs from its plain version")
+    got = local_logpdf(th, params)
+    t0 = time.perf_counter()
+    ref = local_logpdf_plain(th, params)
+    torch.cuda.synchronize()
+    dens_plain_s = time.perf_counter() - t0
+    dens_err = float((got - ref).abs().nan_to_num(0.0).max())
+    log(f"K2 propose_local (B={SCALE_B}, n={n}, d={d}): theta error "
+        f"{draw_err:.3e}, valid {int(valid.sum())}/{SCALE_B}; K14 "
+        f"local_logpdf ({SCALE_B} x {n}): error {dens_err:.3e}, densities "
+        f"{float(ref.min()):.2f} to {float(ref.max()):.2f}")
+    check(within(got, ref, 1e-4, 1e-5), "K14 differs from its plain "
+          "version beyond 1e-4 + 1e-5 relative")
+    B = SCALE_B
+    draw = dict(
+        err=draw_err, plain_ms=draw_plain_s * 1e3,
+        call_ms=time_ms(lambda: propose_local(st, B, prior, params), 20),
+        ms=graph_ms(lambda: propose_local(st, B, prior, params), 20, 3),
+        bound=bound(n * (1 + d + d * d) * 4 + B * (d + 2) * 4, B * 300),
+        library_ms=None)
+    thc = th.contiguous()
+    dens = dict(
+        err=dens_err, plain_ms=dens_plain_s * 1e3,
+        call_ms=time_ms(lambda: local_logpdf(thc, params), 3, 1),
+        ms=graph_ms(lambda: local_logpdf(thc, params), 3, 2),
+        bound=bound((B * d + n * (d * d + d + 2) + B) * 4,
+                    B * n * (3 * d + 2 * d * d + 4)),
+        library_ms=None)
+    return {"propose_local": draw, "local_logpdf": dens}
+
+
+def k15_checks(dev, field) -> dict:
+    """K15 on two populations of the scale lane's width: drift within 1e-4
+    relative, the cadence's decisions equal."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import proposal_drift, proposal_drift_plain
+
+    X, w, _cfg = field
+    n, d = X.shape
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    err, plain_s = 0.0, 0.0
+    for scale, fitted, gens in ((1.0, True, 0), (1.2, True, 3),
+                                (1.0, False, 0)):
+        kw = dict(dim=d, fitted=torch.tensor(fitted, device=dev),
+                  gens_since=torch.tensor(gens, dtype=torch.int32,
+                                          device=dev),
+                  every=16, thr=0.3, min_count=d + 1)
+        Xn = (X * scale).contiguous()
+        got = proposal_drift(X, w, Xn, w, mask, **kw)
+        t0 = time.perf_counter()
+        ref = proposal_drift_plain(X, w, Xn, w, mask, **kw)
+        torch.cuda.synchronize()
+        plain_s = max(plain_s, time.perf_counter() - t0)
+        err = max(err, float((got["drift"] - ref["drift"]).abs()))
+        check(within(got["drift"], ref["drift"], 1e-5, 1e-4)
+              and all(torch.equal(got[k], ref[k]) for k in
+                      ("refit", "flag", "gens_since", "fitted")),
+              f"K15 differs from its plain version (scale {scale})")
+    log(f"K15 proposal_drift (2 x {n} rows, d={d}): drift error {err:.3e}; "
+        f"decisions equal")
+
+    def run():
+        return proposal_drift(X, w, Xn, w, mask, **kw)
+
+    return dict(err=err, plain_ms=plain_s * 1e3, call_ms=time_ms(run, 50),
+                ms=graph_ms(run), bound=bound(2 * n * (d + 1) * 4 + n,
+                                              2 * n * (3 * d + 1)),
+                library_ms=None)
+
+
+def local_checks(dev) -> dict:
+    """Phase 2 for K12-K15 and K2's local mode."""
+    k12 = k12_checks(dev)
+    field = k12.pop("field")
+    out = {"local_cov": k12, "local_factor": k13_checks(dev, field)}
+    out.update(k14_checks(dev, field))
+    out["proposal_drift"] = k15_checks(dev, field)
+    return out
+
+
+def scale_lane(where, pop: int = SCALE_POP):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=pop,
+                    eps=pt.MedianEpsilon(), seed=SCALE_SEED,
+                    transitions=pt.LocalTransition(k_fraction=0.25),
+                    fused_generations=SCALE_G, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    return abc
+
+
+def scale_lane_run(dev):
+    """The scale lane at full width with the plain versions set to raise,
+    the counts reset just before and read just after -> (launch counts,
+    epsilon trail)."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    label = "scale lane (LV, LocalTransition)"
+    abc = scale_lane(dev)
+    reset_launch_counts()
+    h, wall, counts = seg_run(abc, SCALE_GENS, label)
+    n_gen = h.max_t + 1
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    syncs = abc.sync_ledger.summary()
+    rounds = [g["rounds"] for g in abc.generation_log]
+    chunks = len({g["chunk_index"] for g in abc.generation_log})
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s")}
+    wall_1, acc_1 = chunk_window(abc, SCALE_POP, 1, n_gen - 1)
+    df, w = h.get_distribution()
+    means = {k: float(np.sum(df[k] * w)) for k in lv.TRUE_PARS}
+    ev = abc.refit_events
+    log(f"{label}: pop={SCALE_POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={SCALE_POP * n_gen / wall:.1f} "
+        f"wall_s_per_generation={wall / n_gen:.4f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} (rounds "
+        f"{rounds}, {chunks} chunks, {syncs['by_kind']}); host seconds, "
+        f"rounds + steps {split['compute_s']:.3f}, fetch "
+        f"{split['fetch_s']:.3f}, persist {split['persist_s']:.3f}; "
+        f"chunks wholly in generations 1 on: {acc_1} accepted in "
+        f"{wall_1:.3f} s")
+    log(f"{label}: eps trail {[round(e, 4) for e in eps]}; acceptance "
+        f"{[round(g['acceptance_rate'], 5) for g in abc.generation_log]}")
+    log(f"{label}: refits {[t for t, r, _d, _c in ev if r]} of {len(ev)}; "
+        f"rows changed {[c for _t, _r, _d, c in ev]}; drift "
+        f"{[round(x, 4) for _t, _r, x, _c in ev]}")
+    log(f"{label}: posterior means {means} true {lv.TRUE_PARS}")
+    log(f"{label}: kernel launches {counts}")
+    # one counter read per proposal round (the calibration's too) and one
+    # packed fetch per chunk: the refit cadence adds no host read
+    cal_rounds = syncs["by_kind"].get("round_counters", 0) - sum(rounds)
+    check(n_gen == SCALE_GENS, f"the scale lane ran {n_gen} of "
+          f"{SCALE_GENS} generations")
+    check(syncs["syncs"] == sum(rounds) + cal_rounds + chunks
+          and syncs["by_kind"].get("chunk_fetch", 0) == chunks,
+          "the scale lane read the device outside its rounds and chunks")
+    check(all(counts[k] > 0 for k in SCALE_PATH),
+          "a kernel of the scale lane was never launched")
+    check(all(counts[k] == 0 for k in ("mvn_mixture_logpdf", "mvn_fit")),
+          "an MVN kernel ran on the LocalTransition path")
+    check(len(ev) == n_gen and ev[0][1] and ev[0][3] == SCALE_POP,
+          "the scale lane's first refit is missing or partial")
+    check(all(math.isfinite(v) for v in means.values())
+          and eps[-1] < 0.5 * eps[0], "the scale lane did not converge")
+    return counts, eps
+
+
+def scale_cpu_trail(dev) -> None:
+    """The scale lane's seed at pop 1024 on the card and on the CPU (plain
+    versions, the same Philox streams), 3 generations: the epsilons within
+    1e-3 relative."""
+    trails = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        h = scale_lane(where, pop=1024).run(max_nr_populations=3)
+        trails[str(where)] = ([float(e) for e in
+                               h.get_all_populations()["epsilon"][1:]],
+                              time.perf_counter() - t0)
+    card, cpu = trails[str(dev)][0], trails["cpu"][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    log(f"scale lane at pop 1024 (3 generations): card eps {card}, CPU eps "
+        f"{cpu} ({trails['cpu'][1]:.1f} s); |card - cpu| / cpu "
+        f"{[float(f'{r:.2e}') for r in rel]}")
+    check(len(rel) == 3 and max(rel) <= 1e-3,
+          "scale lane: the CPU's first three epsilons differ from the "
+          "card's by more than 1e-3")
+
+
 def main() -> int:
     import torch
 
@@ -2980,6 +3367,7 @@ def main() -> int:
     results.update(model_checks(dev))
     results["tau_leap"] = k19_checks(dev)
     results["network_sir"] = k20b_network_checks(dev)
+    results.update(local_checks(dev))
     gaussian_toy(dev)
     noisy_anchor(dev)
     pair_anchor(dev)
@@ -2999,6 +3387,10 @@ def main() -> int:
     config3_cpu_trail(dev)
     k3_at_bench_pop(dev)
     zoo = zoo_runs(dev)
+    scale_counts, _scale_eps = scale_lane_run(dev)
+    profile_run("scale lane (LV, LocalTransition)", scale_lane(dev),
+                SCALE_GENS)
+    scale_cpu_trail(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3
     results["segment_round"] = k18_checks(dev, c3_eps[6])
     for name, r in results.items():
@@ -3012,9 +3404,10 @@ def main() -> int:
         r = results[k.name]
         # each kernel's launches on its slice's main path: LV config 2 for
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
-        # and K26
+        # and K26, config 3 for K18 and K19, the scale lane for K12-K15
         own = (sir_counts if k.name in NOISY_KERNELS else c5_counts
-               if k.name in MODEL_KERNELS else c3_counts
+               if k.name in MODEL_KERNELS else scale_counts
+               if k.name in LOCAL_KERNELS else c3_counts
                if k.name in SEG_KERNELS else zoo["network_sir"]
                if k.name == "network_sir" else counts)
         entry = {
@@ -3030,9 +3423,11 @@ def main() -> int:
                                  "zoo_stochastic_lv":
                                      zoo["stochastic_lv"][k.name],
                                  "zoo_network_sir":
-                                     zoo["network_sir"][k.name]},
+                                     zoo["network_sir"][k.name],
+                                 "scale_lane": scale_counts[k.name]},
         }
-        for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round"):
+        for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
+                      "n_changed_incremental"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:

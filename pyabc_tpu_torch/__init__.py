@@ -1,6 +1,7 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
-single-device ABC-SMC path (one model or model selection over several),
-for one NVIDIA H100.
+single-device ABC-SMC path (one model or model selection over several;
+the MVN or, for one model, the local k-NN transition), for one NVIDIA
+H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
@@ -21,7 +22,7 @@ from .inference import ABCSMC, DegenerateRunError
 from .model import TorchModel
 from .populationstrategy import ConstantPopulationSize
 from .storage import History
-from .transition import (ModelPerturbationKernel,
+from .transition import (LocalTransition, ModelPerturbationKernel,
                          MultivariateNormalTransition, scott_rule_of_thumb,
                          silverman_rule_of_thumb)
 
@@ -31,8 +32,9 @@ __all__ = [
     "DegenerateRunError", "Distribution", "Epsilon", "EssScheme",
     "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
     "FrielPettittScheme", "History", "IndependentNormalKernel",
-    "ListEpsilon", "ListTemperature", "MedianEpsilon",
-    "ModelPerturbationKernel", "MultivariateNormalTransition", "PNormDistance", "ParameterSpace",
+    "ListEpsilon", "ListTemperature", "LocalTransition", "MedianEpsilon",
+    "ModelPerturbationKernel", "MultivariateNormalTransition",
+    "PNormDistance", "ParameterSpace",
     "PolynomialDecayFixedIterScheme", "Population", "QuantileEpsilon", "RV",
     "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
     "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",

@@ -11,6 +11,7 @@ import torch
 
 from .core.random_variables import Distribution
 from .inference.context import Carry
+from .kernels.local_factor import lconst_of
 from .kernels.model_step import next_generation_terms
 from .utils import resolve_device
 
@@ -41,6 +42,24 @@ def transition_params(params: dict, device=None) -> dict:
     out["cdf"] = _f32(ancestor_cdf(params["weights"]), device).contiguous()
     out["dim"] = float(np.asarray(params["dim"]))
     return out
+
+
+#: keys of a fitted LocalTransition's device params
+LOCAL_KEYS = ("thetas", "weights", "chols", "precs", "logdets")
+
+
+def local_transition_params(params: dict, device=None) -> dict:
+    """LocalTransition's ``device_params``/``device_fit`` dict -> the
+    port's params: the five tensors, the ancestor ``cdf`` and the port-only
+    per-component constant ``lconst`` (K13's, from the weights and
+    logdets), ``dim`` a Python float."""
+    device = resolve_device(device)
+    out = {k: _f32(params[k], "cpu").contiguous() for k in LOCAL_KEYS}
+    dim = float(np.asarray(params["dim"]))
+    out["cdf"] = _f32(ancestor_cdf(params["weights"]), "cpu")
+    out["lconst"] = lconst_of(out["weights"], out["logdets"], int(dim))
+    return {**{k: v.contiguous().to(device) for k, v in out.items()},
+            "dim": dim}
 
 
 def stacked_transition_params(params_k, device=None) -> dict:

@@ -35,10 +35,12 @@
 // Design: one block (1024 threads; 256 for d > 4, whose accumulators need
 // the registers). The weighted moments are block reductions (the
 // covariance splits its d^2 entries and the rows across the threads),
-// thread 0 runs the d x d ladder Cholesky and the inverse in shared memory
+// thread 0 runs the d x d ladder Cholesky (chol.cuh, shared with K13) and
+// the inverse in shared memory
 // (d <= 32, a few thousand flops at most), all threads write the rows; the
 // cdf is a chunked scan (each thread a contiguous run of rows, a block
 // scan of the run totals), then the same for the running max.
+#include "chol.cuh"
 #include "common.cuh"
 
 namespace {
@@ -49,7 +51,6 @@ template <int D>
 struct FitThreads {
   static constexpr int value = D <= 4 ? 1024 : 256;
 };
-__constant__ float kLadder[3] = {1e-10f, 1e-7f, 1e-4f};
 constexpr int kMaxModels = 8;
 
 // per-model fit statics, passed by value: block k reads slot k
@@ -61,9 +62,8 @@ struct FitModels {
   float sel_exp[kMaxModels];
 };
 
-__device__ __forceinline__ float clamp_min_keep_nan(float x, float lo) {
-  return x < lo ? lo : x;  // NaN compares false and stays NaN
-}
+using pyabc::chol_guarded;
+using pyabc::clamp_min_keep_nan;
 
 __device__ float block_sum(float v, float* s_warp) {
   v = warp_sum(v);
@@ -119,52 +119,6 @@ __device__ float block_exclusive_scan(float v, bool is_max, float* s_warp) {
   const float excl_in_warp = __shfl_up_sync(0xffffffffu, incl, 1);
   const float in_warp = lane > 0 ? excl_in_warp : ident;
   return is_max ? fmaxf(before_warp, in_warp) : before_warp + in_warp;
-}
-
-// Cholesky of the lower triangle of the d x d matrix A (row stride ld)
-// into L; false when a pivot is not positive (L is then NaN on and below
-// the diagonal, 0 above, as jnp.linalg.cholesky's failed factor) or L is
-// not finite.
-__device__ bool cholesky(const float* A, float* L, int d, int ld) {
-  for (int i = 0; i < d; ++i)
-    for (int j = 0; j < d; ++j) L[i * ld + j] = 0.f;
-  for (int j = 0; j < d; ++j) {
-    float s = A[j * ld + j];
-    for (int k = 0; k < j; ++k) s -= L[j * ld + k] * L[j * ld + k];
-    if (!(s > 0.f)) {
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) L[i * ld + k] = k <= i ? NAN : 0.f;
-      return false;
-    }
-    const float ljj = sqrtf(s);
-    L[j * ld + j] = ljj;
-    for (int i = j + 1; i < d; ++i) {
-      float t = A[i * ld + j];
-      for (int k = 0; k < j; ++k) t -= L[i * ld + k] * L[j * ld + k];
-      L[i * ld + j] = t / ljj;
-    }
-  }
-  for (int i = 0; i < d; ++i)
-    for (int j = 0; j < d; ++j)
-      if (!isfinite(L[i * ld + j])) return false;
-  return true;
-}
-
-// The jitter ladder on cov (modified in place into the covariance used).
-// Returns the rung taken (0..3), or 4 when every rung failed (L NaN).
-__device__ int chol_guarded(float* cov, float* L, int d, int ld) {
-  if (cholesky(cov, L, d, ld)) return 0;
-  float tr = 0.f;
-  for (int k = 0; k < d; ++k) tr += cov[k * ld + k];
-  tr = clamp_min_keep_nan(tr / (float)d, 1e-30f);
-  float diag[32];
-  for (int k = 0; k < d; ++k) diag[k] = cov[k * ld + k];
-  for (int r = 0; r < 3; ++r) {
-    const float jit = kLadder[r] * tr;
-    for (int k = 0; k < d; ++k) cov[k * ld + k] = diag[k] + jit;
-    if (cholesky(cov, L, d, ld)) return r + 1;
-  }
-  return 4;
 }
 
 template <int D>

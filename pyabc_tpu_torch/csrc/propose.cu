@@ -13,7 +13,9 @@
 //     first row with cdf > x (upper bound; zero-weight rows repeat the
 //     previous cdf and are never picked; all-zero weights or NaN give the
 //     last row, as torch.searchsorted + clamp does), then
-//     theta = thetas[idx] + chol z with z the normals from block base + 1;
+//     theta = thetas[idx] + chol z with z the normals from block base + 1
+//     (local mode, chol_per_row: LocalTransition's per-row factor
+//     chol[idx], local_transition.py::device_rvs);
 //     the first draw whose prior log-density is finite is kept, else the
 //     last one;
 //   prior (cdf == nullptr): theta_k = loc + scale z_k (norm, normal k from
@@ -59,10 +61,11 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 propose_kernel(int B, int d, int n, const float* __restrict__ cdf,
                const float* __restrict__ thetas,
-               const float* __restrict__ chol, Prior pr, uint32_t k0,
-               uint32_t k1, uint32_t gen, uint32_t tag, uint32_t max_rounds,
-               const int* __restrict__ counters, int n_redraws,
-               float* __restrict__ theta_out, float* __restrict__ logpri_out,
+               const float* __restrict__ chol, int chol_per_row, Prior pr,
+               uint32_t k0, uint32_t k1, uint32_t gen, uint32_t tag,
+               uint32_t max_rounds, const int* __restrict__ counters,
+               int n_redraws, float* __restrict__ theta_out,
+               float* __restrict__ logpri_out,
                uint8_t* __restrict__ valid_out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -107,13 +110,14 @@ propose_kernel(int B, int d, int n, const float* __restrict__ cdf,
 #pragma unroll
       for (int k = 0; k < D; ++k) z[k] = (k < d) ? rng.normal(base + 1, k) : 0.f;
       const float* anc = thetas + (size_t)idx * d;
+      const float* L = chol_per_row ? chol + (size_t)idx * d * d : chol;
 #pragma unroll
       for (int k = 0; k < D; ++k) {
         if (k >= d) break;
         float acc = 0.f;
 #pragma unroll
         for (int m = 0; m < D; ++m)
-          if (m < d) acc += chol[k * d + m] * z[m];
+          if (m < d) acc += L[k * d + m] * z[m];
         th[k] = anc[k] + acc;
         const float part = prior_logpdf_dim(pr, k, th[k]);
         lp = (k == 0) ? part : lp + part;
@@ -131,14 +135,15 @@ propose_kernel(int B, int d, int n, const float* __restrict__ cdf,
 
 template <int D>
 void launch(int B, int d, int n, const float* cdf, const float* thetas,
-            const float* chol, Prior pr, uint32_t k0, uint32_t k1,
+            const float* chol, int chol_per_row, Prior pr, uint32_t k0,
+            uint32_t k1,
             uint32_t gen, uint32_t tag, uint32_t max_rounds,
             const int* counters, int n_redraws, float* theta, float* logpri,
             uint8_t* valid, cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
   propose_kernel<D><<<grid, kThreads, 0, stream>>>(
-      B, d, n, cdf, thetas, chol, pr, k0, k1, gen, tag, max_rounds, counters,
-      n_redraws, theta, logpri, valid);
+      B, d, n, cdf, thetas, chol, chol_per_row, pr, k0, k1, gen, tag,
+      max_rounds, counters, n_redraws, theta, logpri, valid);
 }
 
 // Inverse-CDF categorical draw over K probabilities p[0..K) (p_k = f(k)):
@@ -319,10 +324,12 @@ __global__ void philox_blocks_kernel(const uint32_t* __restrict__ ctr, int N,
 
 }  // namespace
 
+// chol_per_row: 0 for the MVN transition's shared (d, d) factor, 1 for
+// LocalTransition's (n, d, d) factors (K2's local mode).
 extern "C" int pyabc_propose(
     int B, int d, int n, const float* cdf, const float* thetas,
-    const float* chol, const int* kind, const float* loc, const float* scale,
-    const float* hi, const float* log_scale, unsigned k0, unsigned k1,
+    const float* chol, int chol_per_row, const int* kind, const float* loc,
+    const float* scale, const float* hi, const float* log_scale, unsigned k0, unsigned k1,
     unsigned gen, unsigned tag, unsigned max_rounds, const int* counters,
     int n_redraws, float* theta, float* logpri, uint8_t* valid,
     void* stream_ptr) {
@@ -331,8 +338,9 @@ extern "C" int pyabc_propose(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Prior pr{kind, loc, scale, hi, log_scale};
 #define PYABC_PROPOSE(DB)                                                    \
-  launch<DB>(B, d, n, cdf, thetas, chol, pr, k0, k1, gen, tag, max_rounds, \
-             counters, n_redraws, theta, logpri, valid, stream)
+  launch<DB>(B, d, n, cdf, thetas, chol, chol_per_row, pr, k0, k1, gen,   \
+             tag, max_rounds, counters, n_redraws, theta, logpri, valid,  \
+             stream)
   if (d <= 1)
     PYABC_PROPOSE(1);
   else if (d <= 2)

@@ -53,6 +53,15 @@ rounds and its accepted rows, rounds and evaluations equal the classic
 path's. The generation's K18 counters (retired, segments stepped, slots
 resolved, lane-segment slots) stay on the device until the chunk's fetch.
 
+LocalTransition (one model, ``pyabc_tpu`` ``multigen_kernel`` with a
+LocalTransition): a round draws with K2's local mode (each ancestor's own
+Cholesky factor) and scores with K14 (one Gaussian per component, in the
+diff form). The generation step runs K15 (the drift of the accepted
+population against the fitted one and the cadence's refit decision, left
+in device memory), then K12 (the k-NN covariance field) and K13 (the
+factorization, of the changed rows only under the cadence), both of which
+return at once when K15's flag reads 0: the refit costs no host sync.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -74,7 +83,8 @@ from ..kernels.mvn_fit import mvn_fit
 from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
-from ..kernels.propose import N_REDRAWS, propose
+from ..kernels.proposal_drift import proposal_drift
+from ..kernels.propose import N_REDRAWS, propose, propose_local
 from ..kernels.segment_round import segment_round
 from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..model import simulate_models_flat
@@ -82,6 +92,7 @@ from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
 from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
+from ..transition.local_transition import LocalTransition
 
 #: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps
 N_ACC, ROUNDS, N_VALID, EPS_AT_MIN = range(4)
@@ -109,6 +120,8 @@ class Carry:
     log_model_probs: torch.Tensor | None = None   # (K,)
     matrix: torch.Tensor | None = None            # (K, K)
     log_model_factor: torch.Tensor | None = None  # (K,)
+    # LocalTransition: generations since the last refit (the cadence)
+    gens_since: torch.Tensor | None = None        # () int32
 
 
 @dataclass
@@ -175,6 +188,9 @@ class DeviceContext:
         self.seg_cfg: dict | None = None
         #: K18's counters of the generation in progress
         self.seg_counters: torch.Tensor | None = None
+        #: one model under LocalTransition: K2's local mode draws, K14
+        #: scores, K15 then K12 and K13 refit
+        self.local = self.K == 1 and isinstance(transition, LocalTransition)
 
     def _init_models(self, priors, model_prior, mpk, fit_statics) -> None:
         """The K > 1 device constants, built once per run."""
@@ -330,8 +346,9 @@ class DeviceContext:
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
                     "logq": logq, "m": m}
-        theta, logpri, valid = propose(self.stream(t, philox.TRANSITION),
-                                       self.B, self.prior_arrays, params)
+        draw = propose_local if self.local else propose
+        theta, logpri, valid = draw(self.stream(t, philox.TRANSITION),
+                                    self.B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
         # K = 1: log model prior = log model factor = 0
         ss, d, accept, logw = self._simulate_accept(
@@ -371,6 +388,34 @@ class DeviceContext:
                              n_valid=int(host[N_VALID]),
                              eps_at_min=bool(host[EPS_AT_MIN]),
                              counters=counters, res=res, rec=rec)
+
+    def _local_refit(self, carry: Carry, theta: torch.Tensor,
+                     w_norm: torch.Tensor, k_mask: torch.Tensor,
+                     fit_statics: dict, cadence: tuple | None):
+        """LocalTransition's refit (``util.py:1908-1997`` with K = 1): K15
+        measures the drift of the accepted population against the fitted
+        one and decides the refit on the device; K12 and K13 read its flag
+        and return at once when it is 0, so the params carry forward with
+        no host branch. Refit every generation (``cadence`` None) is the
+        full factorization; under the cadence K13 factorizes only the
+        changed rows. Below ``dim + 1`` accepted rows the old params carry
+        forward. -> (params, K15's outputs + ``rows_changed``)."""
+        tr = self.transition
+        every, thr = cadence if cadence is not None else (1, math.inf)
+        dec = proposal_drift(
+            carry.trans_params["thetas"], carry.trans_params["weights"],
+            theta, w_norm, k_mask, dim=self.d, fitted=carry.fitted,
+            gens_since=carry.gens_since, every=every, thr=thr,
+            min_count=tr.device_refit_min_count(self.d))
+        if cadence is None:
+            params = tr.device_fit(theta, w_norm, dim=self.d,
+                                   prev=carry.trans_params,
+                                   flag=dec["flag"], **fit_statics)
+            return params, dec
+        params, rows = tr.device_fit_update(
+            theta, w_norm, carry.trans_params, dim=self.d, flag=dec["flag"],
+            **fit_statics)
+        return params, {**dec, "rows_changed": rows}
 
     # ------------------------------------------- segmented early reject
     def segment_cfg(self) -> dict:
@@ -452,11 +497,12 @@ class DeviceContext:
                         n_target: int, adaptive: bool, eps_quantile: bool,
                         eps_weighted: bool, alpha: float, multiplier: float,
                         fit_statics: dict, health_config: tuple | None,
-                        t: int = 0):
+                        t: int = 0, refit_cadence: tuple | None = None):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute -> quantile
-        epsilon -> MVN refit -> [noisy ABC: K3 over the ring, K21b] ->
-        health word. Returns (carry, outputs)."""
+        epsilon -> MVN refit (LocalTransition: K15's drift and cadence,
+        then K12 and K13 under its flag) -> [noisy ABC: K3 over the ring,
+        K21b] -> health word. Returns (carry, outputs)."""
         res, counters = run.res, run.counters
         k_mask = self.k_mask(counters, n_target)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
@@ -487,6 +533,11 @@ class DeviceContext:
             fitted_next = step["fitted"]
             models = {k: step[k] for k in ("log_model_probs", "matrix",
                                            "log_model_factor")}
+        elif self.local:
+            trans_next, refit = self._local_refit(
+                carry, res["theta"], w_norm, k_mask, fit_statics,
+                refit_cadence)
+            fitted_next = refit["fitted"]
         else:
             trans_next = self.transition.device_fit(
                 res["theta"], w_norm, dim=self.d, **fit_statics)
@@ -504,6 +555,11 @@ class DeviceContext:
             out.update(m=res["m"], model_probs=step["model_probs"])
         if run.seg is not None:
             out["seg"] = run.seg
+        if self.local and refit_cadence is not None:
+            # the refit decision, the drift and the rows K13 factorized
+            # ride the chunk's packed fetch
+            out.update(refit=refit["refit"], drift=refit["drift"],
+                       rows_changed=refit["rows_changed"])
         noisy = {}
         if self.stochastic:
             cfg = self.temp_config
@@ -535,5 +591,6 @@ class DeviceContext:
         nxt = Carry(trans_params=trans_next, fitted=fitted_next,
                     dist_w=dist_w_next, eps=eps_next,
                     hist_min=hist_min_next, eps_prev=eps_prev_n,
-                    stall_count=stall_n, **noisy, **models)
+                    stall_count=stall_n, **noisy, **models,
+                    gens_since=refit["gens_since"] if self.local else None)
         return nxt, out

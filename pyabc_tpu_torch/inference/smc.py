@@ -31,6 +31,17 @@ not yet (several models, noisy ABC, an adaptive distance, sharded runs)
 raises ``not_ported``. History's telemetry column holds each generation's
 ``retired_early``, ``segment_occupancy``, ``seg_steps`` and
 ``seg_resolved``.
+
+LocalTransition (``transitions=LocalTransition(...)``, one model, a
+UniformAcceptor, a p-norm distance, a quantile, list or constant epsilon,
+a constant population): the device fits it in the generation step (K15,
+K12, K13) and proposes from it (K2's local mode, K14). ``refit_every`` and
+``refit_drift_threshold`` set the JAX package's refit cadence (auto: every
+16 generations from a population capacity of 16384, else every
+generation); under it a refit also runs when the drift of the accepted
+population against the fitted one passes the threshold, and
+``refit_events`` and History's telemetry hold each generation's
+``refit``, ``drift`` and ``refit_rows_changed``.
 """
 from __future__ import annotations
 
@@ -64,6 +75,7 @@ from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
 from ..populationstrategy import ConstantPopulationSize
 from ..storage.history import History
+from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
 from ..utils import not_ported as _not_ported
@@ -112,7 +124,8 @@ class ABCSMC:
                  health_checks: bool = True, ess_floor: float = 0.0,
                  health_acc_floor: float = 0.0,
                  eps_stall_window: int = 16, eps_stall_rtol: float = 1e-6,
-                 device=None):
+                 refit_every: int | None = None,
+                 refit_drift_threshold: float = 0.3, device=None):
         models = (list(models) if isinstance(models, Sequence)
                   and not isinstance(models, str) else [models])
         parameter_priors = (list(parameter_priors)
@@ -224,10 +237,20 @@ class ABCSMC:
             raise ValueError(f"{len(transitions)} transitions for "
                              f"{self.K} models")
         for tr in transitions:
-            if type(tr) is not MultivariateNormalTransition:
+            if type(tr) is LocalTransition:
+                self._local_gate(acceptor)
+            elif type(tr) is not MultivariateNormalTransition:
                 raise _not_ported(f"transition {type(tr).__name__}", "12")
         self.transitions = transitions
         self.transition = transitions[0]
+        #: LocalTransition's refit cadence: refit every ``refit_every``
+        #: generations (None: the JAX package's auto rule) or when the
+        #: drift passes ``refit_drift_threshold``
+        self.refit_every = (int(refit_every) if refit_every is not None
+                            else None)
+        self.refit_drift_threshold = float(refit_drift_threshold)
+        #: (t, refit, drift, rows_changed) per generation under the cadence
+        self.refit_events: list[tuple] = []
         if fetch_dtype not in ("float16", "bfloat16", "float32"):
             raise ValueError(f"fetch_dtype must be float16/bfloat16/"
                              f"float32, got {fetch_dtype!r}")
@@ -256,6 +279,29 @@ class ABCSMC:
         #: K > 1: the newest persisted generation's model probabilities
         #: (alive models only), as the JAX package's ``_model_probs``
         self.model_probs: dict[int, float] = {}
+
+    def _local_gate(self, acceptor) -> None:
+        """Raise for a LocalTransition configuration the port does not
+        serve yet (ROADMAP queue A, item 12)."""
+        if self.K > 1:
+            raise _not_ported("LocalTransition with several models", "12")
+        if type(acceptor) is not UniformAcceptor:
+            raise _not_ported(f"LocalTransition with a "
+                              f"{type(acceptor).__name__}", "12")
+
+    def _refit_cadence_cfg(self, n_cap: int) -> tuple | None:
+        """(refit_every, drift_threshold) of LocalTransition's refit
+        cadence, or None (refit every generation): auto is 16 from a
+        population capacity of 16384 (the scale lane), else 1; an MVN
+        transition never takes the cadence."""
+        if type(self.transitions[0]) is not LocalTransition:
+            return None
+        every = self.refit_every
+        if every is None:
+            every = 16 if n_cap >= 16384 else 1
+        if every <= 1:
+            return None
+        return (int(every), float(self.refit_drift_threshold))
 
     @property
     def model_names(self) -> list[str]:
@@ -412,6 +458,9 @@ class ABCSMC:
         reason = self._early_reject_incapable_reason(
             adaptive=adaptive, stochastic=stochastic)
         if reason is None:
+            if type(self.transition) is LocalTransition:
+                raise _not_ported("segmented early reject with "
+                                  "LocalTransition", "12")
             unserved = self._early_reject_unserved(adaptive=adaptive,
                                                    stochastic=stochastic)
             if unserved is not None:
@@ -460,13 +509,24 @@ class ABCSMC:
         seg_on = self._segment_gate(ctx, adaptive=adaptive,
                                     stochastic=stochastic)
         eps_quantile = isinstance(self.eps, QuantileEpsilon)
+        local = type(self.transition) is LocalTransition
+        if local:
+            # the k table goes to the device once per run (K12 reads it)
+            fit_statics = self.transition.fit_statics(n, ctx.d)
+            fit_statics["k_table"] = LocalTransition.field_config(
+                ctx.n_cap, ctx.d, device=self.device,
+                **fit_statics)["k_table"]
+        else:
+            fit_statics = self.transition.fit_statics()
         statics = dict(
             n_target=n, adaptive=adaptive, eps_quantile=eps_quantile,
             eps_weighted=getattr(self.eps, "weighted", True),
             alpha=getattr(self.eps, "alpha", 0.5),
             multiplier=getattr(self.eps, "quantile_multiplier", 1.0),
-            fit_statics=self.transition.fit_statics(),
-            health_config=self._health_config())
+            fit_statics=fit_statics,
+            health_config=self._health_config(),
+            refit_cadence=self._refit_cadence_cfg(ctx.n_cap) if local
+            else None)
         min_eps = self._scalar(minimum_epsilon)
         inf = math.inf
         carry = Carry(
@@ -481,6 +541,10 @@ class ABCSMC:
                                     device=self.device))
         if self.K > 1:
             self._model_carry(carry, ctx)
+        if local:
+            carry.gens_since = torch.zeros((), dtype=torch.int32,
+                                           device=self.device)
+        self.refit_events = []
 
         calib = None
         calib_w = isinstance(d, AdaptivePNormDistance)
@@ -641,6 +705,10 @@ class ABCSMC:
         if "seg" in outs[0]:
             # K18's counters ride the same fetch: no extra sync
             tree["seg"] = stack("seg")
+        if "refit" in outs[0]:
+            # so do LocalTransition's refit decisions, drifts and rows
+            for k in ("refit", "drift", "rows_changed"):
+                tree[k] = stack(k)
         if calib is not None:
             tree.update({f"calib_{k}": v for k, v in calib.items()})
         host = self._to_host(tree)
@@ -707,6 +775,13 @@ class ABCSMC:
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])
+            if "refit" in fetched:
+                event = (t, bool(fetched["refit"][g]),
+                         float(fetched["drift"][g]),
+                         int(fetched["rows_changed"][g]))
+                self.refit_events.append(event)
+                telemetry.update(refit=event[1], drift=round(event[2], 5),
+                                 refit_rows_changed=event[3])
             if "seg" in fetched:
                 ret, steps, resolved, slots = (
                     int(v) for v in fetched["seg"][g])

@@ -7,6 +7,9 @@ package builds nothing: the kernels are compiled at first launch.
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
+from .local_cov import local_cov, local_cov_plain
+from .local_factor import local_factor, local_factor_plain
+from .local_logpdf import local_logpdf, local_logpdf_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
 from .model_step import model_step, model_step_plain
 from .network_sir import network_sir, network_sir_plain
@@ -17,7 +20,9 @@ from .normalize_quantile import (normalize_log_weights_plain,
                                  normalize_quantile, weighted_quantile_plain)
 from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
-from .propose import propose, propose_plain
+from .propose import (propose, propose_local, propose_local_plain,
+                      propose_plain)
+from .proposal_drift import proposal_drift, proposal_drift_plain
 from .scale_reduce import scale_reduce, scale_reduce_plain
 from .segment_round import segment_round, segment_round_plain
 from .sir_simulate import sir_simulate, sir_simulate_plain
@@ -25,10 +30,13 @@ from .tau_leap import tau_leap, tau_leap_plain
 from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
-#: K3-K11, K18, K19, K20, K20b family, K20b network, K21a, K21b, K26)
+#: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
+#: K19, K20, K20b family, K20b network, K21a, K21b, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
-           pack_fetch, generation_health, segment_round, tau_leap,
+           pack_fetch, generation_health, local_cov, local_factor,
+           propose_local, local_logpdf, proposal_drift, segment_round,
+           tau_leap,
            sir_simulate, ode_family_simulate, network_sir, kernel_accept,
            temperature_update, model_step)
 
@@ -45,7 +53,9 @@ def launch_counts() -> dict[str, int]:
 __all__ = [
     "KERNELS", "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "kernel_accept",
-    "kernel_accept_plain", "launch_counts",
+    "kernel_accept_plain", "launch_counts", "local_cov",
+    "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
+    "local_logpdf_plain",
     "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
     "mvn_fit", "mvn_fit_plain",
     "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain", "network_sir",
@@ -53,7 +63,9 @@ __all__ = [
     "normalize_log_weights_plain", "normalize_quantile",
     "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
-    "propose", "propose_plain", "reset_launch_counts", "scale_reduce",
+    "propose", "propose_local", "propose_local_plain", "propose_plain",
+    "proposal_drift", "proposal_drift_plain", "reset_launch_counts",
+    "scale_reduce",
     "scale_reduce_plain", "segment_round", "segment_round_plain",
     "sir_simulate", "sir_simulate_plain", "tau_leap", "tau_leap_plain",
     "temperature_update", "temperature_update_plain",

@@ -58,8 +58,8 @@ SIGNATURES = {
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _U, _U, _U, _U, _U,
         _P, _P, _P, _P, _P],
     "pyabc_propose": [
-        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U, _P,
-        _I, _P, _P, _P, _P],
+        _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U,
+        _P, _I, _P, _P, _P, _P],
     "pyabc_propose_models": [
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
         _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
@@ -89,6 +89,16 @@ SIGNATURES = {
     "pyabc_segment_round": [
         _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P, _P, _P,
         _U, _U, _U, _U, _U, _P, _P],
+    "pyabc_local_cov": [
+        _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _P],
+    "pyabc_local_factor": [
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P],
+    "pyabc_local_logpdf": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "pyabc_proposal_drift": [
+        _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P,
+        _P, _P, _P],
     "pyabc_generation_health": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],

@@ -35,9 +35,9 @@ SELECTORS = {"scott_rule_of_thumb": 0, "silverman_rule_of_thumb": 1}
 def _cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
     """Cholesky factor; where the factorization fails, NaN on and below
     the diagonal and 0 above, as ``jnp.linalg.cholesky`` (no host sync,
-    unlike ``torch.linalg.cholesky``)."""
+    unlike ``torch.linalg.cholesky``); a batch fails row by row."""
     chol, info = torch.linalg.cholesky_ex(a)
-    return torch.where(info == 0, chol,
+    return torch.where((info == 0)[..., None, None], chol,
                        torch.tril(torch.full_like(chol, torch.nan)))
 
 

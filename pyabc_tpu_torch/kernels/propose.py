@@ -17,7 +17,9 @@ Two modes, one thread per lane:
   and blocks from j (1 + nb) + 1 for its d normals (nb = ceil(d / 4));
 - prior (``params`` None): theta from the prior, normals from blocks
   [0, nb), uniforms from word k % 4 of block nb + k // 4; every lane is
-  valid.
+  valid;
+- local (``propose_local``, LocalTransition's fit): the transition mode
+  with each ancestor's own factor, theta = thetas[idx] + chols[idx] z.
 
 The prior is given as ``Distribution.arrays`` (per-dimension kind, loc,
 scale, hi, log_scale). Output: theta ``(B, d)`` float32, the prior
@@ -103,8 +105,9 @@ def _blocks_per_draw(d: int) -> int:
 
 
 def propose_plain(stream: PhiloxStream, B: int, prior: dict,
-                  params: dict | None = None):
-    """Plain PyTorch version -> (theta, logpri, valid)."""
+                  params: dict | None = None, local: bool = False):
+    """Plain PyTorch version -> (theta, logpri, valid); ``local`` draws
+    with the ancestor's own factor ``chols[idx]`` (LocalTransition)."""
     dev = prior["loc"].device
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
     d = prior["kind"].shape[0]
@@ -124,7 +127,9 @@ def propose_plain(stream: PhiloxStream, B: int, prior: dict,
         # all-zero weights leave no row with mass: the clamp takes the last
         idx = torch.searchsorted(cdf, u, right=True).clamp(max=n - 1)
         z = normals(stream, lanes, base + 1, d)
-        draw = thetas[idx] + z @ params["chol"].T
+        draw = thetas[idx] + (
+            torch.einsum("bkl,bl->bk", params["chols"][idx], z) if local
+            else z @ params["chol"].T)
         lp = prior_logpdf_plain(draw, prior)
         if theta is None:
             theta, logpri = draw, lp
@@ -226,10 +231,19 @@ class Propose(Kernel):
 
     def __call__(self, stream: PhiloxStream, B: int, prior: dict,
                  params: dict | None = None):
+        return self._draw(stream, B, prior, params, local=False)
+
+    def _draw(self, stream: PhiloxStream, B: int, prior: dict,
+              params: dict | None, local: bool):
+        """Both single-model modes: the MVN fit's shared ``chol`` or, with
+        ``local``, LocalTransition's per-row ``chols``."""
         keys = ("kind", "loc", "scale", "hi", "log_scale")
+        chol = "chols" if local else "chol"
         pt = [] if params is None else [params[k] for k in
-                                        ("cdf", "thetas", "chol")]
+                                        ("cdf", "thetas", chol)]
         if self.on_cpu(stream.counters, *(prior[k] for k in keys), *pt):
+            if local:
+                return propose_local_plain(stream, B, prior, params)
             return propose_plain(stream, B, prior, params)
         d = prior["kind"].shape[0]
         if d > MAX_DIM:
@@ -247,7 +261,8 @@ class Propose(Kernel):
             n = params["thetas"].shape[0]
             self.expect(params["cdf"], "cdf", f32, (n,))
             self.expect(params["thetas"], "thetas", f32, (n, d))
-            self.expect(params["chol"], "chol", f32, (d, d))
+            self.expect(params[chol], chol, f32,
+                        (n, d, d) if local else (d, d))
             ptrs = [t.data_ptr() for t in pt]
         dev = prior["loc"].device
         theta = torch.empty(B, d, dtype=f32, device=dev)
@@ -255,8 +270,8 @@ class Propose(Kernel):
         valid = torch.empty(B, dtype=torch.bool, device=dev)
         k0, k1 = stream.key
         err = _build.library().pyabc_propose(
-            B, d, n, *ptrs, *(prior[k].data_ptr() for k in keys), k0, k1,
-            stream.generation, stream.tag, stream.max_rounds,
+            B, d, n, *ptrs, int(local), *(prior[k].data_ptr() for k in keys),
+            k0, k1, stream.generation, stream.tag, stream.max_rounds,
             stream.counters.data_ptr(), N_REDRAWS, theta.data_ptr(),
             logpri.data_ptr(), valid.data_ptr(), _build.stream_ptr(dev))
         _build.check(err, self.name)
@@ -313,3 +328,28 @@ class Propose(Kernel):
 
 
 propose = Propose()
+
+
+def propose_local_plain(stream: PhiloxStream, B: int, prior: dict,
+                        params: dict):
+    """Plain PyTorch version of K2's local mode."""
+    return propose_plain(stream, B, prior, params, local=True)
+
+
+class ProposeLocal(Propose):
+    """K2's local mode (K14's draw): the ancestor by inverse CDF over the
+    fit's ``cdf``, exactly as the MVN mode, then ``thetas[idx] +
+    chols[idx] z`` with LocalTransition's per-row factors
+    (``pyabc_tpu/transition/local_transition.py::device_rvs``), the same
+    Philox block layout and the ``N_REDRAWS`` redraws against zero prior
+    mass. The same CUDA kernel as ``propose``, counted on its own."""
+
+    name = "propose_local"
+    replaces = "pyabc_tpu/transition/local_transition.py:432"
+
+    def __call__(self, stream: PhiloxStream, B: int, prior: dict,
+                 params: dict):
+        return self._draw(stream, B, prior, params, local=True)
+
+
+propose_local = ProposeLocal()

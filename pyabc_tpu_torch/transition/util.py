@@ -1,10 +1,14 @@
 """Transition utilities (``pyabc_tpu/transition/util.py`` counterpart):
-bandwidth rules, and the plain device Cholesky with its jitter-escalation
-ladder, which lives beside the K8 kernel in ``kernels/mvn_fit.py``."""
+bandwidth rules, the plain device Cholesky with its jitter-escalation
+ladder (single matrix beside K8 in ``kernels/mvn_fit.py``, batched beside
+K13 in ``kernels/local_factor.py``) and the refit cadence's drift
+statistic (beside K15 in ``kernels/proposal_drift.py``)."""
 from __future__ import annotations
 
+from ..kernels.local_factor import device_chol_guarded_batched  # noqa: F401
 from ..kernels.mvn_fit import (CHOL_JITTER_LADDER,  # noqa: F401
                                device_chol_guarded)
+from ..kernels.proposal_drift import device_proposal_drift  # noqa: F401
 
 
 def scott_rule_of_thumb(n_samples, dimension: int):

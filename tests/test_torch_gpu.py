@@ -1,4 +1,4 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K11, K20, K21a,
+"""Card tests: each hand-written kernel (K2 with K1, K3-K15, K20, K21a,
 K21b and K6's record mode) against its plain PyTorch version on the CUDA
 device, at small shapes and at the main-path shapes of BASELINE configs 2
 and 4. Marked ``gpu``; without a card
@@ -194,11 +194,12 @@ def test_lv_run_on_the_card(dev):
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4
     # every kernel of the LV path (the noisy-ABC kernels, the model
-    # selection's K20b and K26, and config 3's K18, K19 and K20b network
-    # are not on it)
+    # selection's K20b and K26, config 3's K18, K19 and K20b network, and
+    # LocalTransition's K12-K15 are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
-             "tau_leap", "network_sir")
+             "tau_leap", "network_sir", "local_cov", "local_factor",
+             "propose_local", "local_logpdf", "proposal_drift")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -1112,3 +1113,154 @@ def test_early_reject_runs_on_the_card(dev):
         assert np.array_equal(wa, wb)
     assert sum(hs[0].get_telemetry(t)["retired_early"]
                for t in range(5)) > 0
+
+
+# ---------------------------------------------- LocalTransition (K12-K15)
+def _local_population(dev, n, d, n_valid, seed=0):
+    g = _gen(dev, seed)
+    X = torch.randn(n, d, generator=g, device=dev)
+    w = torch.rand(n, generator=g, device=dev) + 0.1
+    w[n_valid:] = 0.0
+    return X.contiguous(), w.contiguous()
+
+
+def within(a, b, atol, rtol):
+    """|a - b| <= atol + rtol |b|, NaN where b is NaN."""
+    if not torch.equal(a.isnan(), b.isnan()):
+        return False
+    fin = ~b.isnan()
+    return bool(((a - b).abs()[fin] <= atol + rtol * b.abs()[fin]).all())
+
+
+def _row_close(a, b, rtol):
+    n = a.shape[0]
+    scale = b.abs().reshape(n, -1).amax(dim=1)
+    err = (a - b).abs().reshape(n, -1).amax(dim=1)
+    return bool((err <= rtol * scale).all())
+
+
+LOCAL_FIELDS = [  # (n_cap, d, dim, n_valid, fit keywords)
+    (1024, 4, 4, 1000, dict(k_cap=256)),
+    (16384, 4, 4, 16384, dict(k_cap=4096)),
+    (64, 1, 1, 37, dict(k_cap=16)),
+    (512, 3, 2, 500, dict(k_cap=128, selection="threshold")),
+]
+
+
+@pytest.mark.parametrize("case", range(len(LOCAL_FIELDS)))
+def test_local_cov_kernel(dev, case):
+    """K12 against its plain version: the same neighbours and counts bit
+    for bit, covariances within 1e-4 of each row's largest entry."""
+    from pyabc_tpu_torch.kernels import local_cov, local_cov_plain
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d, dim, n_valid, kw = LOCAL_FIELDS[case]
+    X, w = _local_population(dev, n, d, n_valid, seed=case)
+    cfg = LocalTransition.field_config(n, dim, scaling=1.0, device=dev, **kw)
+    got = local_cov(X, w, want_idx=True, **cfg)
+    ref = local_cov_plain(X, w, want_idx=True, **cfg)
+    assert torch.equal(got["cnt"], ref["cnt"])
+    assert torch.equal(got["idx"], ref["idx"])
+    assert torch.equal(got["thetas"], ref["thetas"])
+    assert _row_close(got["covs"], ref["covs"], 1e-4)
+    assert within(got["weights"], ref["weights"], 0.0, 1e-6)
+    assert within(got["cdf"], ref["cdf"], 1e-6, 1e-5)
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_local_factor_kernel(dev, incremental):
+    """K13 against its plain version on the same field: n_changed equal,
+    factors within float32 tolerance, a singular row on the ladder."""
+    from pyabc_tpu_torch.kernels import local_cov, local_factor
+    from pyabc_tpu_torch.kernels.local_factor import local_factor_plain
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d = 4096, 4
+    X, w = _local_population(dev, n, d, n)
+    cfg = LocalTransition.field_config(n, d, scaling=1.0, device=dev,
+                                       k_cap=256)
+    field = local_cov(X, w, **cfg)
+    prev, _n = local_factor(field, None, dim=d, incremental=False)
+    field2 = {**field, "covs": field["covs"].clone()}
+    field2["covs"][: n // 10] *= 1.01  # a tenth of the rows change
+    v = torch.tensor([1.0, 2.0, -1.0, 0.5], device=dev)
+    field2["covs"][7] = v[:, None] * v[None, :]  # rank 1: on the ladder
+    got, n_got = local_factor(field2, prev, dim=d, incremental=incremental)
+    ref, n_ref = local_factor_plain(field2, prev, dim=d,
+                                    incremental=incremental)
+    assert int(n_got) == int(n_ref) == (n // 10 if incremental else n)
+    assert within(got["chols"], ref["chols"], 1e-5, 1e-4)
+    assert bool(torch.isfinite(got["chols"][7]).all())
+    # the rank-1 row's precision is ~1e10 and conditioned as badly: its
+    # logdet is held, its precision entries are not
+    ok = torch.arange(n, device=dev) != 7
+    assert _row_close(got["precs"][ok], ref["precs"][ok], 1e-3)
+    assert within(got["logdets"], ref["logdets"], 1e-3, 1e-4)
+    assert within(got["lconst"], ref["lconst"], 1e-3, 1e-4)
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    field3 = local_cov(X, w, flag=flag, **cfg)
+    kept, n0 = local_factor(field3, prev, dim=d, incremental=True, flag=flag)
+    assert int(n0) == 0
+    assert all(torch.equal(kept[k], prev[k]) for k in
+               ("thetas", "weights", "cdf", "chols", "precs", "logdets",
+                "lconst"))
+
+
+def test_local_draw_and_density_kernels(dev):
+    """K2's local mode and K14 against their plain versions."""
+    from pyabc_tpu_torch.kernels import (local_logpdf, local_logpdf_plain,
+                                         propose_local, propose_local_plain)
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d, B = 2048, 4, 8192
+    X, w = _local_population(dev, n, d, n - 48)
+    params = LocalTransition.device_fit(X, w, dim=d, scaling=1.0, k=128)
+    prior = lv.default_prior().arrays(dev)
+    st = _stream(dev, philox.TRANSITION)
+    th, lp, v = propose_local(st, B, prior, params)
+    th_r, lp_r, v_r = propose_local_plain(st, B, prior, params)
+    assert torch.equal(v, v_r)
+    assert within(th, th_r, 1e-5, 1e-5)
+    got = local_logpdf(th, params)
+    ref = local_logpdf_plain(th, params)
+    assert within(got, ref, 1e-4, 1e-5)
+
+
+def test_proposal_drift_kernel(dev):
+    from pyabc_tpu_torch.kernels import proposal_drift, proposal_drift_plain
+
+    X, w = _local_population(dev, 16384, 4, 16000)
+    mask = w > 0
+    for shift, fitted, gens in ((0.0, True, 0), (0.5, True, 3),
+                                (0.0, False, 0)):
+        kw = dict(dim=4, fitted=torch.tensor(fitted, device=dev),
+                  gens_since=torch.tensor(gens, dtype=torch.int32,
+                                          device=dev),
+                  every=16, thr=0.3, min_count=5)
+        got = proposal_drift(X, w, X * (1 + shift), w, mask, **kw)
+        ref = proposal_drift_plain(X, w, X * (1 + shift), w, mask, **kw)
+        assert within(got["drift"], ref["drift"], 1e-5, 1e-4)
+        for k in ("refit", "flag", "gens_since", "fitted"):
+            assert torch.equal(got[k], ref[k]), k
+
+
+def test_local_transition_runs_on_the_card(dev):
+    """The LV model under LocalTransition at pop 2000 with the cadence:
+    K12-K15 and K2's local mode launched, the CPU's first epsilon equal."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=2000,
+                    eps=pt.MedianEpsilon(), seed=101,
+                    transitions=pt.LocalTransition(k_fraction=0.25),
+                    refit_every=3, device=dev)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    h = abc.run(max_nr_populations=5)
+    counts = launch_counts()
+    assert h.n_populations == 5
+    for k in ("local_cov", "local_factor", "propose_local", "local_logpdf",
+              "proposal_drift"):
+        assert counts[k] > 0, k
+    assert [e[1] for e in abc.refit_events][:1] == [True]

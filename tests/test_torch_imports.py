@@ -95,6 +95,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pyabc_tpu_torch.kernels.tau_leap",
             "pyabc_tpu_torch.kernels.network_sir",
             "pyabc_tpu_torch.kernels.segment_round"} <= set(res["modules"])
+    # and LocalTransition's (K12-K15, the selection ops)
+    assert {"pyabc_tpu_torch.ops.select",
+            "pyabc_tpu_torch.transition.local_transition",
+            "pyabc_tpu_torch.kernels.local_cov",
+            "pyabc_tpu_torch.kernels.local_factor",
+            "pyabc_tpu_torch.kernels.local_logpdf",
+            "pyabc_tpu_torch.kernels.proposal_drift"} <= set(res["modules"])
     assert res["loaded"] == []
     # without CUDA the default device raises and names the way out
     assert res["raised"] is not None and "device='cpu'" in res["raised"]
