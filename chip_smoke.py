@@ -22,7 +22,17 @@ Phases, one or more lines each:
    K19 (tau leaping) at BASELINE config 3's round (B = 131072) for
    birth-death, its midpoint variant and the stochastic LV, every count
    equal to the plain version's, and card against CPU on 8192 lanes; K20b
-   network (the network SIR) at B = 65536 and with noise; and, after
+   network (the network SIR) at B = 65536 and with noise; K22's moment
+   fold at config 3's round (B = 65536, S = 20, slots retired at every
+   segment, invalid slots, the record window cut inside the round: counts
+   and extrema equal, sums within 1e-5 relative, the same from run to run)
+   and its finish for all seven moment scales (16384 rows); K18's adaptive
+   mode (its nseg bit-equal to the plain version's) at B = 65536; K18's
+   K > 1 mode over two birth-death models (bit-exact) and over the
+   segmented ODE family at the zoo's round (B = 32768; without noise
+   bit-exact, with it within 1e-5 and a few kept slots at the threshold),
+   its kept rows bit-equal to the family's range kernel, whose chained
+   segments are bit-equal to its full trajectory; and, after
    phase 4's config 3 run, K18 (the segmented round) at config 3's round
    with generation 6's epsilon and at a small odd shape (B = 256, 5
    segments, 37 live slots), its kept slots, statistics, reservoir, ring
@@ -99,11 +109,26 @@ Phases, one or more lines each:
    chunk, nothing else), the epsilon trail, the refit events, rows changed
    and drift trail, the posterior means; once more under torch.profiler;
    and the same seed at pop 1024 on the card and the CPU (the first three
-   epsilons within 1e-3 relative).
+   epsilons within 1e-3 relative). Then the scenario lane's adaptive leg
+   at config 3's shape (AdaptivePNormDistance(p=2,
+   scale_function=standard_deviation), pop 16384, 12 generations, G 2,
+   seed 7) with early reject on, off, off, on, counts reset just before:
+   K22 and K18's adaptive mode launched, wall, particles/s, syncs (the
+   counter reads and chunk fetches only), retired candidates and work
+   saved, the weights trail (a refit every generation), the posterior
+   means on and off; once more under torch.profiler; the bench's own
+   adaptive leg (pop 128, 5 generations, seed 17) on and off against its
+   parity rule (gap < 0.5); and the zoo's model-selection leg
+   (ode_family(segments=4), pop 8192, 3 generations, G 3, seed 5) on,
+   off, off, on, counts reset just before: populations, models, weights
+   and the epsilon trail bit-identical, model probabilities summing to 1,
+   K18's K > 1 mode and the family's range kernel launched; once more
+   under torch.profiler.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K15, K18, K19, K20, K20b, K21a, K21b, K26 and the K > 1 modes)
-is replaced by a function that raises, so none can run on the path unseen.
+kernel (K1-K15, K18, K19, K20, K20b, K21a, K21b, K22, K26 and the K > 1
+modes) is replaced by a function that raises, so none can run on the path
+unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -1438,8 +1463,9 @@ def model_checks_at(dev, B, n, K, d_max, S, n_keep, seed, timed):
     ode_err = float((ss_k - ss_p).abs()[fin].max())
     check(bool(((ss_k - ss_p).abs()[fin]
                 <= 1e-4 + 1e-4 * ss_p.abs()[fin]).all()),
-          "K20b outside |err| <= 1e-4 + 1e-4 |x| (FMA contraction over 66 "
-          "RK4 steps; Philox normals within 2e-6)")
+          "K20b outside |err| <= 1e-4 + 1e-4 |x| (the RK4 rounds each "
+          "operation once, as the plain version; Philox normals within "
+          "2e-6)")
     log(f"K20b ode_family_simulate ({shape}): max_abs_err={ode_err:.3e} "
         f"non-finite lanes={int((~fin).any(1).sum())}")
 
@@ -1701,9 +1727,9 @@ def model_checks(dev) -> dict:
 
 
 # ------------------------------------------------------------ phases 3-4
-#: (module, attribute) of the plain version of every kernel, K1-K11,
-#: K18, K19, K20, K20b (family and network), K21a, K21b, K26 and the K > 1
-#: modes
+#: (module, attribute) of the plain version of every kernel, K1-K15,
+#: K18, K19, K20, K20b (family, segmented family and network), K21a, K21b,
+#: K22, K26 and the K > 1 modes
 PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
     ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
@@ -1751,6 +1777,9 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.local_logpdf", "local_logpdf_plain"),
     ("pyabc_tpu_torch.kernels.proposal_drift", "proposal_drift_plain"),
     ("pyabc_tpu_torch.kernels.proposal_drift", "device_proposal_drift"),
+    ("pyabc_tpu_torch.kernels.moments", "moment_fold_plain"),
+    ("pyabc_tpu_torch.kernels.moments", "moment_finish_plain"),
+    ("pyabc_tpu_torch.kernels.ode_family", "ode_family_segments_plain"),
 )
 
 
@@ -2417,6 +2446,19 @@ def equal_nan(a, b) -> bool:
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
+def abs_err(a, b) -> float:
+    """max |a - b| (0 for no elements), NaN against NaN counted equal and
+    NaN against a number infinite."""
+    import torch
+
+    a, b = a.double(), b.double()
+    if a.numel() == 0:
+        return 0.0
+    both = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both, 0.0, (a - b).abs())
+    return float(torch.nan_to_num(d, nan=math.inf).max())
+
+
 def seg_inputs(dev, model, prior, obs, B: int, seed: int = 1):
     """A prior round of a segmented model on the card: theta and valid
     (K2), the flat spec, the emission map and x0."""
@@ -2720,34 +2762,47 @@ def zoo_round_times(dev) -> None:
 
 def seg_run(abc, gens: int, label: str):
     """One run on the card with the plain versions set to raise -> (History,
-    wall seconds, launch counts of the run)."""
+    wall seconds, launch counts of the run, the kernels' modes as
+    "name:mode")."""
     import torch
 
-    from pyabc_tpu_torch.kernels import launch_counts
+    from pyabc_tpu_torch.kernels import launch_counts, mode_launch_counts
 
-    before = launch_counts()
+    before = launch_counts() | mode_launch_counts()
     torch.cuda.synchronize()
     with plain_versions_raise():
         t0 = time.perf_counter()
         h = abc.run(max_nr_populations=gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    after = launch_counts()
+    after = launch_counts() | mode_launch_counts()
     return h, wall, {k: after[k] - before[k] for k in after}
 
 
-def populations_identical(h_on, h_off) -> bool:
+def populations_identical(h_on, h_off, K: int = 1) -> bool:
+    """Every generation's model probabilities, each alive model's
+    particles and weights, the distances and the epsilon trail equal."""
     import numpy as np
 
     if h_on.max_t != h_off.max_t:
         return False
     for t in range(h_on.max_t + 1):
-        a, wa = h_on.get_distribution(m=0, t=t)
-        b, wb = h_off.get_distribution(m=0, t=t)
-        da = h_on.get_weighted_distances(t)["distance"].to_numpy()
-        db = h_off.get_weighted_distances(t)["distance"].to_numpy()
-        if not (np.array_equal(a.to_numpy(), b.to_numpy())
-                and np.array_equal(wa, wb) and np.array_equal(da, db)):
+        p_on = h_on.get_model_probabilities(t)["p"]
+        if not np.array_equal(p_on.to_numpy(),
+                              h_off.get_model_probabilities(t)["p"]
+                              .to_numpy()):
+            return False
+        for m in range(K):
+            if float(p_on.get(m, 0.0)) == 0.0:
+                continue
+            a, wa = h_on.get_distribution(m=m, t=t)
+            b, wb = h_off.get_distribution(m=m, t=t)
+            if not (np.array_equal(a.to_numpy(), b.to_numpy())
+                    and np.array_equal(wa, wb)):
+                return False
+        if not np.array_equal(
+                h_on.get_weighted_distances(t)["distance"].to_numpy(),
+                h_off.get_weighted_distances(t)["distance"].to_numpy()):
             return False
     return np.array_equal(h_on.get_all_populations()["epsilon"],
                           h_off.get_all_populations()["epsilon"])
@@ -2973,6 +3028,564 @@ def zoo_runs(dev) -> dict:
     check(out["network_sir"]["network_sir"] > 0,
           "K20b network was never launched")
     return out
+
+
+# ------------------------- adaptive early reject and the segmented family
+#: the scenario lane's adaptive leg at config 3's full width (bench.py:
+#: 1255-1295 with config 3's shape): birth-death in 10 segments,
+#: AdaptivePNormDistance(p=2, scale_function=standard_deviation),
+#: MedianEpsilon, pop 16384 (B 65536), 12 generations, G 2, seed 7
+C3A_GENS = 12
+#: the bench's own adaptive leg: pop 128, 5 generations, G 2, seed 17,
+#: its parity rule (posterior-mean gap on / off < 0.5)
+BA_POP, BA_GENS, BA_G, BA_SEED, BA_PARITY = 128, 5, 2, 17, 0.5
+#: the zoo's model-selection leg (bench.py:1189-1194): ode_family(segments
+#: =4), observed_ode_family(seed=0, segments=4), pop 8192, 3 generations,
+#: G 3, seed 5
+ZMS_POP, ZMS_GENS, ZMS_SEED, ZMS_SEGS = 8192, 3, 5, 4
+#: the kernels each leg must launch (with early reject on)
+ADAPTIVE_PATH = C3_PATH + ("moment_fold", "moment_finish", "scale_reduce")
+ZMS_PATH = ("propose", "mvn_mixture_logpdf", "segment_round",
+            "ode_family_segments", "pnorm_accept_weight", "compact_round",
+            "normalize_quantile", "mvn_fit", "pack_fetch",
+            "generation_health", "model_step")
+#: the kernels of this slice, reported from these legs' runs
+PR7_KERNELS = ("moment_fold", "moment_finish")
+ZMS_KERNELS = ("ode_family_segments",)
+#: operations of one RK4 step of the family (4 right-hand sides of at most
+#: 4 operations, the stage updates and the sum) and of one normal draw
+#: (a Philox block, a log, a sqrt and a cos)
+OPS_RK4_FAMILY, OPS_NORMAL = 26, 120
+
+
+def k22_checks(dev) -> dict:
+    """K22's fold at config 3's round (B 65536, S 20, birth-death's
+    emission map in 10 segments) with slots retired at every segment,
+    invalid slots and the record window cut inside the round: counts and
+    extrema equal to the plain version's, sums within 1e-5 relative, and
+    the same from run to run. The finish for all seven moment scales over
+    the block, with 16384 accepted rows: scale within 1e-6 relative,
+    weights and distances within 1e-5."""
+    import torch
+
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import (moment_finish, moment_finish_plain,
+                                         moment_fold, moment_fold_plain)
+    from pyabc_tpu_torch.kernels.moments import SCALE_NAMES, seg_of_columns
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+
+    B, n_rows = 65536, C3_POP
+    model = g.make_birth_death_model(segments=C3_SEGS)
+    spec = SumStatSpec(g.observed_birth_death(segments=C3_SEGS))
+    S = spec.total_size
+    imap = model.index_map(spec, dev)
+    seg_of = torch.as_tensor(seg_of_columns(imap), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    nseg = torch.randint(1, C3_SEGS + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    valid = torch.rand(B, generator=gen, device=dev) > 0.1
+    ss = torch.randn(B, S, generator=gen, device=dev) * 12 + 40
+    ss[seg_of[None, :] >= nseg[:, None]] = math.nan
+    x0 = torch.as_tensor(spec.flatten_host(
+        g.observed_birth_death(segments=C3_SEGS)), dtype=torch.float32,
+        device=dev)
+    ctr = torch.zeros(4, dtype=torch.int32, device=dev)
+    ctr[1] = 3
+    rec_cap = 3 * B + B // 3  # the window ends inside this round
+    kw = dict(rec_cap=rec_cap)
+    blocks = []
+    for fn in (moment_fold, moment_fold, moment_fold_plain):
+        mom = init_moments(S, dev)
+        fn(mom, ss, nseg, valid, seg_of, x0, ctr, **kw)
+        blocks.append(mom)
+    got, again, ref = blocks
+    torch.cuda.synchronize()
+    err = float((got - ref).abs()[:3].max())
+    log(f"K22 moment_fold (B={B}, S={S}, {C3_SEGS} segments, slots "
+        f"retired at every segment, {int((~valid).sum())} invalid, the "
+        f"window at slot {rec_cap - 3 * B} of the round): counts "
+        f"{ref[3].tolist()[:4]}..., max_abs_err={err:.3e}; the same from "
+        f"run to run {torch.equal(got, again)}")
+    check(sorted(nseg.unique().tolist()) == list(range(1, C3_SEGS + 1)),
+          "K22: the fold's slots do not retire at every segment")
+    check(torch.equal(got, again), "K22 fold: sums differ run to run")
+    check(torch.equal(got[3:], ref[3:]),
+          "K22 fold: counts or extrema differ from the plain version")
+    check(within(got[:3], ref[:3], 1e-3, 1e-5),
+          "K22 fold: sums outside 1e-5 relative of the plain version")
+    # the bytes the fold needs at these inputs: valid for the slots in the
+    # window, nseg for the valid ones, the cells it takes
+    cells = int(ref[3].sum())
+    win = min(max(rec_cap - int(ctr[1]) * B, 0), B)
+    n_valid_win = int(valid[:win].sum())
+    mom = got.clone()
+
+    def fold():
+        return moment_fold(mom, ss, nseg, valid, seg_of, x0, ctr, **kw)
+
+    def fold_plain():
+        return moment_fold_plain(mom, ss, nseg, valid, seg_of, x0, ctr,
+                                 **kw)
+
+    fold_res = dict(
+        err=err, call_ms=time_ms(fold, 20), ms=graph_ms(fold, iters=20),
+        plain_ms=time_ms(fold_plain, 10),
+        bound=bound(win + n_valid_win * 4 + cells * 4 + S * 8
+                    + 2 * 6 * S * 4, cells * 8),
+        window_slots=win, cells=cells,
+        library_ms=None)
+    rows = (torch.randn(n_rows, S, generator=gen, device=dev) * 12
+            + 40).contiguous()
+    fin_err = 0.0
+    for name in SCALE_NAMES:
+        fkw = dict(scale_name=name, max_weight_ratio=None, rows=rows, p=2.0)
+        sc, w, d = moment_finish(got, x0, **fkw)
+        sc_r, w_r, d_r = moment_finish_plain(got, x0, **fkw)
+        check(within(sc, sc_r, 0.0, 1e-6),
+              f"K22 finish {name}: scale outside 1e-6 relative")
+        check(within(w, w_r, 0.0, 1e-5) and within(d, d_r, 0.0, 1e-5),
+              f"K22 finish {name}: weights or distances outside 1e-5")
+        fin_err = max(fin_err, float((d - d_r).abs().max()),
+                      float((w - w_r).abs().max()))
+    log(f"K22 moment_finish (S={S}, {n_rows} rows, all seven moment "
+        f"scales): max_abs_err={fin_err:.3e}")
+    fkw = dict(scale_name="standard_deviation", rows=rows, p=2.0)
+    finish_res = dict(
+        err=fin_err,
+        call_ms=time_ms(lambda: moment_finish(got, x0, **fkw), 20),
+        ms=graph_ms(lambda: moment_finish(got, x0, **fkw), iters=20),
+        plain_ms=time_ms(lambda: moment_finish_plain(got, x0, **fkw), 10),
+        bound=bound(7 * S * 4 + n_rows * S * 4 + (2 * S + n_rows) * 4,
+                    3 * n_rows * S + 20 * S),
+        library_ms=None)
+    return {"moment_fold": fold_res, "moment_finish": finish_res}
+
+
+def family_round(dev, B: int, seed: int = 0):
+    """A round of the segmented family: theta (B, 2) with model 0's second
+    entry 0, each lane's model, and a valid mask."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    theta = torch.stack([torch.rand(B, generator=gen, device=dev) + 0.05,
+                         torch.rand(B, generator=gen, device=dev) * 9 + 1],
+                        dim=1)
+    m = torch.randint(0, K_MODELS, (B,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    theta[m == 0, 1] = 0.0
+    valid = torch.rand(B, generator=gen, device=dev) > 0.05
+    return theta.contiguous(), m, valid
+
+
+def k18_mode_checks(dev) -> dict:
+    """K18's adaptive mode (nseg bit-equal to the plain version's) at
+    config 3's round (B 65536) under non-uniform weights; its K > 1 mode
+    over two birth-death models (bit-exact) and over the segmented family
+    at the zoo's round (B 32768): without noise bit-exact, with the
+    family's noise (normals differ in the last bits) the same kept slots
+    but for a few at the threshold, their statistics within 1e-5, and the
+    kept rows bit-equal to the classic range kernel's; the family's range
+    kernel: chained segments bit-equal to the full trajectory, and
+    against its plain version. Timed against the classic round."""
+    from dataclasses import replace
+
+    import torch
+
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import (ode_family_segments,
+                                         ode_family_segments_plain, philox,
+                                         segment_round, segment_round_plain,
+                                         tau_leap)
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import model_selection as msel
+    from pyabc_tpu_torch.ops.segment import spec_protocol
+    from pyabc_tpu_torch.utils import pick_batch
+
+    out = {}
+
+    def ctr():
+        return torch.zeros(4, dtype=torch.int64, device=dev)
+
+    # adaptive mode, birth-death at config 3's round
+    B = pick_batch(C3_POP)
+    model = g.make_birth_death_model(segments=C3_SEGS)
+    x = seg_inputs(dev, model, g.birth_death_prior(),
+                   g.observed_birth_death(segments=C3_SEGS), B, seed=6)
+    S = x["spec"].total_size
+    w = torch.linspace(0.4, 1.6, S, device=dev)
+    full = tau_leap(model.chain.kernel[1], x["theta"], x["stream"],
+                    colmap=x["imap"], width=S)[0]
+    d = (w * (full - x["x0"])).square().sum(1).sqrt()
+    kw = dict(imap=x["imap"], x0=x["x0"], w=w, p=2.0,
+              eps=torch.quantile(d[x["valid"]], 0.05), width=S)
+    c_got, c_ref = ctr(), ctr()
+    ss, keep, nseg = segment_round(model.segmented, x["theta"], x["valid"],
+                                   x["stream"], seg_ctr=c_got,
+                                   return_nseg=True, **kw)
+    t0 = time.perf_counter()
+    ss_r, keep_r, nseg_r = segment_round_plain(
+        model.segmented, x["theta"], x["valid"], x["stream"], seg_ctr=c_ref,
+        return_nseg=True, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hist = torch.bincount(nseg.long(), minlength=C3_SEGS + 1)[1:].tolist()
+    same = (torch.equal(nseg, nseg_r) and torch.equal(keep, keep_r)
+            and equal_nan(ss[keep], ss_r[keep])
+            and torch.equal(c_got[:3], c_ref[:3]))
+    kb = keep & keep_r
+    ad_err = max(abs_err(ss[kb], ss_r[kb]), abs_err(nseg, nseg_r),
+                 abs_err(keep, keep_r))
+    ad_flips = int((keep ^ keep_r).sum())
+    log(f"K18 adaptive mode (birth-death, B={B}, {C3_SEGS} segments): "
+        f"slots by segments simulated {hist}; nseg, kept slots, their "
+        f"statistics and counters bit-identical to the plain version {same}"
+        f", max_abs_err={ad_err:.3e}")
+    check(same, "K18 adaptive mode differs from its plain version")
+    sc = ctr()
+
+    def run_ad(ret=True):
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], seg_ctr=sc, return_nseg=ret, **kw)
+
+    ms_ad = graph_ms(run_ad, iters=10, replays=3)
+    ms_plain_mode = graph_ms(lambda: run_ad(False), iters=10, replays=3)
+    spec = model.chain.kernel[1]
+    out["segment_round_adaptive"] = dict(
+        err=ad_err, keep_flips=ad_flips, call_ms=time_ms(run_ad, 10),
+        ms=ms_ad, plain_ms=plain_ms,
+        bound=bound(B * (2 * 4 + 1 + S * 4 + 1 + 4),
+                    int(c_got[1]) * spec.leaps_per_seg * spec.n_rates
+                    * OPS_PER_DRAW),
+        library_ms=None, ms_without_nseg=ms_plain_mode)
+    log(f"K18 adaptive mode device ms {ms_ad:.4f} (the same round without "
+        f"nseg {ms_plain_mode:.4f})")
+
+    # K > 1 mode: two birth-death models (initial counts 40 and 25)
+    pair = [model, g.make_birth_death_model(x0=25.0, segments=C3_SEGS)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    m2 = torch.randint(0, 2, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    full2 = torch.where((m2 == 0)[:, None], *[
+        tau_leap(mo.chain.kernel[1], x["theta"], x["stream"],
+                 colmap=x["imap"], width=S)[0] for mo in pair])
+    d2 = (full2 - x["x0"]).square().sum(1).sqrt()
+    kw2 = dict(imap=x["imap"], x0=x["x0"], w=torch.ones(S, device=dev),
+               p=2.0, eps=torch.quantile(d2[x["valid"]], 0.05), width=S,
+               m=m2, dims=[2, 2])
+    segs2 = [mo.segmented for mo in pair]
+    c2, c2r = ctr(), ctr()
+    ss2, keep2 = segment_round(segs2, x["theta"], x["valid"], x["stream"],
+                               seg_ctr=c2, **kw2)
+    ss2r, keep2r = segment_round_plain(segs2, x["theta"], x["valid"],
+                                       x["stream"], seg_ctr=c2r, **kw2)
+    same2 = (torch.equal(keep2, keep2r) and equal_nan(ss2[keep2],
+                                                      ss2r[keep2])
+             and equal_nan(ss2[keep2], full2[keep2])
+             and torch.equal(c2[:3], c2r[:3]))
+    log(f"K18 K > 1 mode, two birth-death models (B={B}): retired "
+        f"{int(c2[0])}, occupancy {int(c2[1]) / max(int(c2[3]), 1):.4f}; "
+        f"bit-identical to the plain version and the classic rows {same2}")
+    check(same2 and int(c2[0]) > 0,
+          "K18 K > 1 mode (birth-death pair) differs from its plain version")
+    kb2 = keep2 & keep2r
+    # K > 1 mode's error: the largest over the pair and both family passes,
+    # over the slots both versions keep; the flips beside it
+    kgt1_err = abs_err(ss2[kb2], ss2r[kb2])
+    kgt1_flips = int((keep2 ^ keep2r).sum())
+
+    # K > 1 mode: the segmented ODE family at the zoo's round
+    Bf = pick_batch(ZMS_POP)
+    fam = msel.ode_family(segments=ZMS_SEGS)[0]
+    specs = fam[0].family.specs
+    theta, m, valid = family_round(dev, Bf)
+    st = stream_on(dev, philox.SIM_NOISE)
+    imap = fam[0].index_map(SumStatSpec({"y": [0.0] * 12}), dev)
+    fam_err, fam_flips = 0.0, 0
+    for noise_sd in (0.0, 0.3):
+        sp = [replace(s, noise_sd=noise_sd) for s in specs]
+        segs = [spec_protocol(s, (("y", s.obs_per_seg),),
+                              ode_family_segments) for s in sp]
+        full_f, y_end = ode_family_segments(sp, theta, st, m=m,
+                                            return_state=True)
+        head, y2 = ode_family_segments(sp, theta, st, m=m, seg_to=2,
+                                       return_state=True)
+        tail, y3 = ode_family_segments(sp, theta, st, m=m, state=y2,
+                                       seg_from=2, return_state=True)
+        ref_f, _ = ode_family_segments_plain(sp, theta, st, m=m)
+        chained = (torch.equal(torch.cat([head, tail], dim=1), full_f)
+                   and torch.equal(y3, y_end))
+        x0f = full_f[1].clone()
+        df = (full_f - x0f).square().sum(1).sqrt()
+        kwf = dict(imap=imap, x0=x0f, w=torch.ones(12, device=dev), p=2.0,
+                   eps=torch.quantile(df[valid], 0.1), width=12, m=m,
+                   dims=[1, 2, 2])
+        cf, cfr = ctr(), ctr()
+        ssf, keepf = segment_round(segs, theta, valid, st, seg_ctr=cf,
+                                   **kwf)
+        ssfr, keepfr = segment_round_plain(segs, theta, valid, st,
+                                           seg_ctr=cfr, **kwf)
+        classic = torch.equal(ssf[keepf], full_f[keepf])
+        both = keepf & keepfr
+        flips = int((keepf ^ keepfr).sum())
+        kgt1_err = max(kgt1_err, abs_err(ssf[both], ssfr[both]))
+        kgt1_flips += flips
+        if noise_sd == 0.0:
+            ok = (torch.equal(full_f, ref_f) and torch.equal(keepf, keepfr)
+                  and torch.equal(ssf[keepf], ssfr[keepf])
+                  and torch.equal(cf[:3], cfr[:3]))
+        else:
+            ok = (within(full_f, ref_f, 1e-5, 1e-5) and flips <= 4
+                  and within(ssf[both], ssfr[both], 1e-5, 1e-5))
+            fam_err = float((full_f - ref_f).abs().max())
+            fam_flips = flips
+        log(f"K18 K > 1 mode, ODE family (B={Bf}, {ZMS_SEGS} segments, "
+            f"noise sd {noise_sd}): retired {int(cf[0])}, occupancy "
+            f"{int(cf[1]) / max(int(cf[3]), 1):.4f}, kept {int(keepf.sum())}"
+            f", kept slots differing from the plain version {flips}, "
+            f"max_abs_err over the slots both keep "
+            f"{abs_err(ssf[both], ssfr[both]):.3e}; kept "
+            f"rows equal to the classic range kernel's {classic}; range "
+            f"kernel chained = full {chained}; against the plain version "
+            f"{ok}")
+        check(ok and classic and chained and int(cf[0]) > 0,
+              f"K18 K > 1 mode or the family's range kernel (noise sd "
+              f"{noise_sd}) differs from its plain version")
+    sf = ctr()
+
+    def run_fam():
+        return segment_round(segs, theta, valid, st, seg_ctr=sf, **kwf)
+
+    def run_range():
+        return ode_family_segments(sp, theta, st, m=m)
+
+    steps = int(cf[1])
+    per_seg = sp[0].obs_per_seg * (sp[0].n_substeps * OPS_RK4_FAMILY
+                                   + OPS_NORMAL)
+    ms_fam = graph_ms(run_fam, iters=20, replays=3)
+    out["segment_round_models"] = dict(
+        err=kgt1_err, keep_flips=kgt1_flips, call_ms=time_ms(run_fam, 20),
+        ms=ms_fam,
+        plain_ms=time_ms(lambda: segment_round_plain(
+            segs, theta, valid, st, seg_ctr=ctr(), **kwf), 3),
+        bound=bound(Bf * (2 * 4 + 4 + 1 + 12 * 4 + 1), steps * per_seg),
+        library_ms=None, occupancy=int(cf[1]) / max(int(cf[3]), 1))
+    ms_range = graph_ms(run_range, iters=20, replays=3)
+    out["ode_family_segments"] = dict(
+        err=fam_err, call_ms=time_ms(run_range, 20), ms=ms_range,
+        plain_ms=time_ms(lambda: ode_family_segments_plain(sp, theta, st,
+                                                           m=m), 3),
+        bound=bound(Bf * (2 * 4 + 4 + 12 * 4), Bf * ZMS_SEGS * per_seg),
+        library_ms=None, noisy_keep_flips=fam_flips)
+    log(f"K18 K > 1 device ms per family round (B={Bf}): early reject "
+        f"{ms_fam:.4f}, the classic range kernel {ms_range:.4f}")
+    return out
+
+
+def config3_adaptive(where, early, pop: int | None = None,
+                     gens_g: int = C3_G, seed: int = C3_SEED):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.distance.scale import standard_deviation
+    from pyabc_tpu_torch.models import gillespie as g
+
+    abc = pt.ABCSMC(g.make_birth_death_model(segments=C3_SEGS),
+                    g.birth_death_prior(),
+                    pt.AdaptivePNormDistance(
+                        p=2, scale_function=standard_deviation),
+                    population_size=pop or C3_POP, eps=pt.MedianEpsilon(),
+                    seed=seed, early_reject=early, fused_generations=gens_g,
+                    device=where)
+    abc.new("sqlite://", g.observed_birth_death(segments=C3_SEGS),
+            store_sum_stats=False)
+    return abc
+
+
+def post_means(h, cols=("log_b", "log_d")) -> list[float]:
+    import numpy as np
+
+    df, w = h.get_distribution(m=0, t=h.max_t)
+    return [float(np.sum(df[c] * w)) for c in cols]
+
+
+def sync_check(abc, label: str) -> None:
+    """One counter read per proposal round (the calibration's too) and
+    one packed fetch per chunk: nothing else read the device."""
+    syncs = abc.sync_ledger.summary()
+    rounds = sum(g["rounds"] for g in abc.generation_log)
+    chunks = len({g["chunk_index"] for g in abc.generation_log})
+    by = syncs["by_kind"]
+    cal = by.get("round_counters", 0) - rounds
+    check(set(by) == {"round_counters", "chunk_fetch"}
+          and by["chunk_fetch"] == chunks and 0 <= cal <= 2,
+          f"{label}: a host read besides the round counters and the "
+          f"chunk fetches ({by}, {rounds} rounds, {chunks} chunks)")
+
+
+def adaptive_run(dev) -> dict:
+    """Config 3's shape under the adaptive distance on the card, early
+    reject on, off, off, on, the counts reset just before the first and
+    read after each: wall, particles/s, syncs per generation (the counter
+    reads and the chunk fetches only), retired candidates and work saved,
+    the weights trail (a refit every generation), the posterior means on
+    and off -> the launch counts of the four runs."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = (f"adaptive config 3 (birth-death, {C3_SEGS} segments, "
+             f"AdaptivePNormDistance(standard_deviation))")
+    reset_launch_counts()
+    runs = []
+    for early in TURNS:
+        abc = config3_adaptive(dev, early)
+        h, wall, counts = seg_run(abc, C3A_GENS, label)
+        runs.append((early, abc, h, wall, counts))
+    counts = {k: sum(r[4][k] for r in runs) for k in runs[0][4]}
+    for early, abc, h, wall, c in runs:
+        tag = "on" if early == "auto" else "off"
+        n = h.max_t + 1
+        syncs = abc.sync_ledger.summary()
+        split = {k: sum(g[k] for g in abc.generation_log)
+                 for k in ("compute_s", "fetch_s", "persist_s")}
+        log(f"{label} early reject {tag}: pop={C3_POP} gens={n} wall_s="
+            f"{wall:.3f} accepted_particles_per_s={C3_POP * n / wall:.1f} "
+            f"syncs_per_generation={syncs['syncs'] / n:.2f} rounds "
+            f"{[g['rounds'] for g in abc.generation_log]} "
+            f"{syncs['by_kind']}; host seconds, rounds + steps "
+            f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
+            f"persist {split['persist_s']:.3f}; posterior means "
+            f"(log_b, log_d) {[round(v, 4) for v in post_means(h)]}")
+        sync_check(abc, f"{label} ({tag})")
+        check(n == C3A_GENS, f"{label} ({tag}) ran {n} of {C3A_GENS} "
+              f"generations")
+    (_e, a_on, h_on, _w, c_on), (_e2, _a_off, h_off, _w2, _c_off) = runs[:2]
+    tot = seg_totals(h_on)
+    saved = 1.0 - tot["seg_steps"] / max(tot["seg_resolved"] * C3_SEGS, 1)
+    w = a_on.distance_function.weights
+    trail = [[round(float(v), 4) for v in w[t][:3]] + [
+        round(float(w[t].max() / w[t].min()), 3)] for t in sorted(w)]
+    refit = all(not np.allclose(w[t], w[t - 1]) for t in range(1, C3A_GENS))
+    eps = [round(float(e), 4) for e in h_on.get_all_populations()[
+        "epsilon"][1:]]
+    mean_on = np.mean([post_means(r[2]) for r in runs if r[0]], axis=0)
+    mean_off = np.mean([post_means(r[2]) for r in runs if not r[0]], axis=0)
+    log(f"{label}: retired_early {tot['retired_early']}, seg_steps "
+        f"{tot['seg_steps']}, seg_resolved {tot['seg_resolved']}, "
+        f"sim_work_saved_frac {saved:.4f}, occupancy {tot['occupancy']}; "
+        f"eps trail (on) {eps}")
+    log(f"{label}: weights trail (on; w[0:3] and max / min per generation, "
+        f"calibration first) {trail}; refit every generation {refit}")
+    log(f"{label}: posterior means on {np.round(mean_on, 4).tolist()} off "
+        f"{np.round(mean_off, 4).tolist()} (the two runs each); gap "
+        f"{float(np.abs(mean_on - mean_off).max()):.4f}")
+    log(f"{label}: kernel launches on {c_on}")
+    check(tot["retired_early"] > 0, f"{label}: no candidate retired")
+    check(refit, f"{label}: a generation kept the last weights")
+    check(all(counts[k] > 0 for k in ADAPTIVE_PATH)
+          and counts["segment_round:adaptive"] > 0,
+          f"{label}: a kernel of the path never launched")
+    # the fold (and K18's nseg) only for rounds that start below rec_cap:
+    # each generation's first round at least
+    check(c_on["segment_round:adaptive"] == c_on["moment_fold"]
+          and C3A_GENS <= c_on["moment_fold"] <= c_on["segment_round"]
+          and c_on["moment_finish"] == C3A_GENS,
+          f"{label}: K18's adaptive mode and the fold launched apart, a "
+          f"generation folded no round, or the finish missed one")
+    check(all(math.isfinite(v) for v in list(mean_on) + list(mean_off)),
+          f"{label}: non-finite posterior means")
+    return counts
+
+
+def bench_adaptive_leg(dev) -> None:
+    """bench.py's own adaptive leg (pop 128, 5 generations, G 2, seed 17)
+    on and off: the posterior-mean gap against the bench's parity rule."""
+    import numpy as np
+
+    means, retired = {}, 0
+    for early in ("auto", False):
+        abc = config3_adaptive(dev, early, pop=BA_POP, gens_g=BA_G,
+                               seed=BA_SEED)
+        h, _wall, _c = seg_run(abc, BA_GENS, "bench adaptive leg")
+        means[early] = np.asarray(post_means(h))
+        if early:
+            retired = seg_totals(h)["retired_early"]
+    gap = float(np.abs(means["auto"] - means[False]).max())
+    log(f"bench adaptive leg (pop {BA_POP}, {BA_GENS} generations, seed "
+        f"{BA_SEED}): posterior means on {np.round(means['auto'], 4)} off "
+        f"{np.round(means[False], 4)}, gap {gap:.4f} (the bench's "
+        f"parity_ok: < {BA_PARITY}: {gap < BA_PARITY}); retired_early "
+        f"{retired}")
+    check(retired > 0 and math.isfinite(gap),
+          "bench adaptive leg: nothing retired or a non-finite mean")
+
+
+def zoo_model_selection(where, early):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family(segments=ZMS_SEGS)
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=ZMS_POP, eps=pt.MedianEpsilon(),
+                    seed=ZMS_SEED, early_reject=early,
+                    fused_generations=ZMS_GENS, device=where)
+    abc.new("sqlite://", msel.observed_ode_family(seed=0,
+                                                  segments=ZMS_SEGS),
+            store_sum_stats=False)
+    return abc
+
+
+def zoo_model_selection_run(dev) -> dict:
+    """The zoo's model-selection leg on the card, on, off, off, on, the
+    counts reset just before: populations, weights, models and the epsilon
+    trail bit-identical on and off, model probabilities summing to 1,
+    retired candidates, occupancy, timings -> the launch counts."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = f"zoo model selection (ODE family, {ZMS_SEGS} segments)"
+    reset_launch_counts()
+    hs, walls, cs = [], [], []
+    for early in TURNS:
+        abc = zoo_model_selection(dev, early)
+        h, wall, c = seg_run(abc, ZMS_GENS, label)
+        sync_check(abc, label)
+        hs.append(h)
+        walls.append(wall)
+        cs.append(c)
+    counts = {k: sum(c[k] for c in cs) for k in cs[0]}
+    same = all(populations_identical(hs[0], h, K_MODELS)
+               for h in hs[1:])
+    tot = seg_totals(hs[0])
+    pps = [ZMS_POP * (h.max_t + 1) / w for h, w in zip(hs, walls)]
+    probs = hs[0].get_model_probabilities().to_numpy()
+    log(f"{label}: pop={ZMS_POP} gens={hs[0].max_t + 1} "
+        f"accepted_particles_per_s on {pps[0]:.1f}, {pps[3]:.1f} off "
+        f"{pps[1]:.1f}, {pps[2]:.1f} (in turns: on, off, off, on); wall_s "
+        f"{[round(w, 3) for w in walls]}; bit-identical {same}; "
+        f"retired_early {tot['retired_early']}, occupancy "
+        f"{tot['occupancy']}, seg_steps {tot['seg_steps']} of "
+        f"{tot['seg_resolved'] * ZMS_SEGS}")
+    eps = hs[0].get_all_populations()["epsilon"][1:]
+    log(f"{label}: model probabilities per generation "
+        f"{np.round(probs, 4).tolist()}; eps trail "
+        f"{[round(float(e), 4) for e in eps]}")
+    log(f"{label}: kernel launches on {cs[0]}")
+    check(same and hs[0].max_t + 1 == ZMS_GENS,
+          f"{label}: populations differ with early reject on and off")
+    check(tot["retired_early"] > 0, f"{label}: no candidate retired")
+    check(abs(float(probs[-1].sum()) - 1.0) < 1e-9,
+          f"{label}: model probabilities do not sum to 1")
+    check(all(counts[k] > 0 for k in ZMS_PATH)
+          and cs[0]["segment_round:k_gt_1"] == cs[0]["segment_round"] > 0
+          and cs[1]["segment_round"] == 0
+          and counts["ode_family_simulate"] == 0,
+          f"{label}: a kernel of the path never launched, or K18 ran "
+          f"outside its K > 1 mode")
+    return counts
 
 
 # -------------------------------------------- LocalTransition, the scale lane
@@ -3367,6 +3980,8 @@ def main() -> int:
     results.update(model_checks(dev))
     results["tau_leap"] = k19_checks(dev)
     results["network_sir"] = k20b_network_checks(dev)
+    results.update(k22_checks(dev))
+    results.update(k18_mode_checks(dev))
     results.update(local_checks(dev))
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -3387,6 +4002,13 @@ def main() -> int:
     config3_cpu_trail(dev)
     k3_at_bench_pop(dev)
     zoo = zoo_runs(dev)
+    ad_counts = adaptive_run(dev)
+    profile_run("adaptive config 3 (early reject on)",
+                config3_adaptive(dev, "auto"), C3A_GENS)
+    bench_adaptive_leg(dev)
+    zms_counts = zoo_model_selection_run(dev)
+    profile_run("zoo model selection (early reject on)",
+                zoo_model_selection(dev, "auto"), ZMS_GENS)
     scale_counts, _scale_eps = scale_lane_run(dev)
     profile_run("scale lane (LV, LocalTransition)", scale_lane(dev),
                 SCALE_GENS)
@@ -3409,7 +4031,9 @@ def main() -> int:
                if k.name in MODEL_KERNELS else scale_counts
                if k.name in LOCAL_KERNELS else c3_counts
                if k.name in SEG_KERNELS else zoo["network_sir"]
-               if k.name == "network_sir" else counts)
+               if k.name == "network_sir" else ad_counts
+               if k.name in PR7_KERNELS else zms_counts
+               if k.name in ZMS_KERNELS else counts)
         entry = {
             "name": k.name, "route": k.route, "source": k.source,
             "replaces": k.replaces, "launches": own[k.name],
@@ -3424,10 +4048,13 @@ def main() -> int:
                                      zoo["stochastic_lv"][k.name],
                                  "zoo_network_sir":
                                      zoo["network_sir"][k.name],
-                                 "scale_lane": scale_counts[k.name]},
+                                 "scale_lane": scale_counts[k.name],
+                                 "adaptive_config3": ad_counts[k.name],
+                                 "zoo_model_selection":
+                                     zms_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
-                      "n_changed_incremental"):
+                      "n_changed_incremental", "noisy_keep_flips"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:
@@ -3437,6 +4064,20 @@ def main() -> int:
                 "ms": mode["ms"], "call_ms": mode["call_ms"],
                 "plain_ms": mode["plain_ms"], "bound_ms": mode["bound"][0],
                 "bound_by": mode["bound"][1], "library_ms": None}
+        if k.name == "segment_round":
+            # K18's modes of this slice, their launches from their legs
+            for mode, res_key, runs, key in (
+                    ("adaptive_mode", "segment_round_adaptive", ad_counts,
+                     "segment_round:adaptive"),
+                    ("k_gt_1_mode", "segment_round_models", zms_counts,
+                     "segment_round:k_gt_1")):
+                r = results[res_key]
+                entry[mode] = {
+                    "launches": runs[key], "max_abs_err": r["err"],
+                    "keep_flips": r["keep_flips"],
+                    "ms": r["ms"], "call_ms": r["call_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1], "library_ms": None}
         if k.name == "compact_round":
             rec = results["compact_round_record"]
             entry["record_mode"] = {

@@ -23,40 +23,52 @@
 // rate nor the float32 peak is near. The state stays in a register; the
 // model switch is taken once per lane, outside the step loop.
 //
-// Numerics: nvcc contracts a*b+c into FMA, so each step differs from the
-// unfused PyTorch version in its last bits; the stated tolerance covers it.
+// Numerics: the step is OdeFamilyStep::rk4 (ode_family.cuh), every
+// operation an _rn intrinsic, so nvcc contracts nothing into an FMA and the
+// card rounds each operation once, as the plain PyTorch version does.
+//
+// The segmented family (pyabc_tpu/models/model_selection.py:83-138,
+// ode_family(segments=...)): pyabc_ode_family_segments is its range entry,
+// K19's form (carry, theta, seg_from, seg_to) -> the statistics of those
+// segments, each lane stepping OdeFamilyStep (ode_family.cuh) with its own
+// model's descriptor (models[m[b]], or models[0] when m is nullptr) and
+// writing emitted value k of segment j to out[b, colmap[(j - seg_from) *
+// seg_size + k]]. The classic path and a plain simulate chain every
+// segment in one launch of it; K18 calls the same step one segment at a
+// time, so a candidate that runs to completion gets the same bits on
+// either path. Bound: latency, as above (72 RK4 steps a lane, one
+// dependent chain); the y state and the rates stay in registers.
 #include "common.cuh"
+#include "ode_family.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <int M>
-__device__ __forceinline__ float rhs(float y, float a, float c) {
-  if (M == 0) return -a * y;
-  if (M == 1) return -a * y + c;
-  return a * y * (1.f - y / c);
+// entry t: the state, plus noise_sd times normal number t when noisy
+__device__ __forceinline__ float observe(float y, float noise_sd, int t,
+                                         const pyabc::PhiloxLane& rng) {
+  return noise_sd > 0.f
+             ? __fadd_rn(y, __fmul_rn(noise_sd, rng.normal(0, t)))
+             : y;
 }
 
-template <int M>
-__device__ void integrate(float a, float c, float* row, int n_obs, int n_sub,
-                          float dt, float y0, float noise_sd,
-                          const pyabc::PhiloxLane& rng) {
-  const bool noisy = noise_sd > 0.f;
-  const float h2 = 0.5f * dt;
-  const float h6 = dt / 6.0f;
-  float y = y0;
-  row[0] = noisy ? y + noise_sd * rng.normal(0, 0) : y;
+// one lane: n_obs - 1 intervals of n_sub steps of the family's RK4
+// (OdeFamilyStep::rk4, the step of the segmented family too)
+__device__ void integrate(int variant, float a, float c, float* row,
+                          int n_obs, int n_sub, float dt, float y0,
+                          float noise_sd, const pyabc::PhiloxLane& rng) {
+  pyabc::SegModel md{};
+  md.variant = variant;
+  md.dt = dt;
+  md.h2 = __fmul_rn(0.5f, dt);
+  md.h6 = __fdiv_rn(dt, 6.0f);
+  pyabc::OdeFamilyStep::State st{y0, a, variant == 0 ? 0.f : c};
+  row[0] = observe(st.y, noise_sd, 0, rng);
   for (int t = 1; t < n_obs; ++t) {
-    for (int s = 0; s < n_sub; ++s) {
-      const float k1 = rhs<M>(y, a, c);
-      const float k2 = rhs<M>(y + h2 * k1, a, c);
-      const float k3 = rhs<M>(y + h2 * k2, a, c);
-      const float k4 = rhs<M>(y + dt * k3, a, c);
-      y = y + h6 * (k1 + 2.f * k2 + 2.f * k3 + k4);
-    }
-    row[t] = noisy ? y + noise_sd * rng.normal(0, t) : y;
+    for (int s = 0; s < n_sub; ++s) pyabc::OdeFamilyStep::rk4(md, st);
+    row[t] = observe(st.y, noise_sd, t, rng);
   }
 }
 
@@ -75,21 +87,72 @@ ode_family_kernel(const float* __restrict__ theta,
   if (noise_sd > 0.f)
     rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
                              (uint32_t)counters[1]);
-  float* row = out + (size_t)b * n_obs;
-  switch (m[b]) {
-    case 0:
-      integrate<0>(a, 0.f, row, n_obs, n_sub, dt, y0, noise_sd, rng);
-      break;
-    case 1:
-      integrate<1>(a, c, row, n_obs, n_sub, dt, y0, noise_sd, rng);
-      break;
-    default:
-      integrate<2>(a, c, row, n_obs, n_sub, dt, y0, noise_sd, rng);
-      break;
+  const int variant = m[b] == 0 ? 0 : m[b] == 1 ? 1 : 2;
+  integrate(variant, a, c, out + (size_t)b * n_obs, n_obs, n_sub, dt, y0,
+            noise_sd, rng);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ode_family_segments_kernel(pyabc::SegModels models, int K,
+                           const int* __restrict__ m_lane,
+                           const float* __restrict__ theta, int B,
+                           int stride, const float* __restrict__ y_in,
+                           float* __restrict__ y_out, int seg_from,
+                           int seg_to, const int* __restrict__ colmap,
+                           int width, float* __restrict__ out, uint32_t k0,
+                           uint32_t k1, uint32_t gen, uint32_t tag,
+                           uint32_t max_rounds,
+                           const int* __restrict__ counters) {
+  using Step = pyabc::OdeFamilyStep;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const pyabc::SegModel m =
+      models.m[m_lane != nullptr ? min(max(m_lane[b], 0), K - 1) : 0];
+  Step::State st;
+  Step::init(m, theta + (size_t)b * stride,
+             y_in != nullptr ? y_in + b : nullptr, st);
+  pyabc::PhiloxLane rng{};
+  if (m.noise_sd > 0.f)
+    rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
+                             (uint32_t)counters[1]);
+  float* row = out + (size_t)b * width;
+  for (int seg = seg_from; seg < seg_to; ++seg) {
+    const int* cols = colmap + (size_t)(seg - seg_from) * m.seg_size;
+    Step::step(m, rng, st, seg, [&](int k, float v) { row[cols[k]] = v; });
   }
+  if (y_out != nullptr) Step::store(st, y_out + b);
 }
 
 }  // namespace
+
+// models: K family descriptors (kind kOdeFamily); m: the lanes' models or
+// nullptr (every lane models[0]).
+extern "C" int pyabc_ode_family_segments(
+    const pyabc::SegModel* models, int K, const int* m, const float* theta,
+    int B, int stride, const float* y_in, float* y_out, int seg_from,
+    int seg_to, const int* colmap, int width, float* out, unsigned k0,
+    unsigned k1, unsigned gen, unsigned tag, unsigned max_rounds,
+    const int* counters, void* stream_ptr) {
+  if (B <= 0 || seg_to <= seg_from) return 0;
+  if (models == nullptr || colmap == nullptr || K < 1 || K > pyabc::kMaxModels ||
+      stride < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pyabc::SegModels ms{};
+  for (int k = 0; k < K; ++k) {
+    ms.m[k] = models[k];
+    if (ms.m[k].kind != pyabc::kOdeFamily ||
+        ms.m[k].seg_size != ms.m[0].seg_size ||
+        (ms.m[k].variant != 0 && stride < 2) ||
+        (ms.m[k].noise_sd > 0.f && counters == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int grid = (B + kThreads - 1) / kThreads;
+  ode_family_segments_kernel<<<grid, kThreads, 0, stream>>>(
+      ms, K, m, theta, B, stride, y_in, y_out, seg_from, seg_to, colmap,
+      width, out, k0, k1, gen, tag, max_rounds, counters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int pyabc_ode_family_simulate(
     const float* theta, const int* m, int B, int stride, int n_obs, int n_sub,

@@ -26,9 +26,11 @@
 // selection is 4 histogram passes (blocks of 2048 rows of one column,
 // shared-memory bins, global atomics) and 4 one-block scans; the moments
 // are one block per column; one block finishes the scales and weights;
-// the distances take a warp per row.
+// the distances take a warp per row. The weights and the distances are
+// weights.cuh, shared with K22's finish (moments.cu).
 #include "common.cuh"
 #include "select.cuh"
+#include "weights.cuh"
 
 namespace {
 
@@ -40,35 +42,6 @@ enum ScaleCode {
   kMad = 0, kMeanAd, kStd, kSpan, kMean, kMedian, kBias, kRmsd, kMadObs,
   kMeanAdObs, kCombinedMad, kCombinedMeanAd, kStdObs
 };
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  if (isnan(a) || isnan(b)) return a + b;
-  return fminf(a, b);
-}
-
-__device__ float block_reduce(float v, int op, float* s_warp) {
-  // op 0 sum, 1 max (NaN propagates), 2 min (NaN propagates)
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = op == 0 ? v + o : op == 1 ? nan_max(v, o) : nan_min(v, o);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const float ident = op == 0 ? 0.f : op == 1 ? -INFINITY : INFINITY;
-    v = lane < nw ? s_warp[lane] : ident;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v, off);
-      v = op == 0 ? v + o : op == 1 ? nan_max(v, o) : nan_min(v, o);
-    }
-    if (lane == 0) s_warp[0] = v;
-  }
-  __syncthreads();
-  return s_warp[0];
-}
 
 __global__ void __launch_bounds__(kThreads)
 moments_kernel(const float* __restrict__ samples, int n, int S,
@@ -83,12 +56,12 @@ moments_kernel(const float* __restrict__ samples, int n, int S,
     cnt += 1.f;
     s += x;
     mx = nan_max(mx, x);
-    mn = nan_min(mn, x);
+    mn = pyabc_w::nan_min(mn, x);
   }
-  cnt = block_reduce(cnt, 0, s_warp);
-  s = block_reduce(s, 0, s_warp);
-  mx = block_reduce(mx, 1, s_warp);
-  mn = block_reduce(mn, 2, s_warp);
+  cnt = pyabc_w::block_reduce(cnt, 0, s_warp);
+  s = pyabc_w::block_reduce(s, 0, s_warp);
+  mx = pyabc_w::block_reduce(mx, 1, s_warp);
+  mn = pyabc_w::block_reduce(mn, 2, s_warp);
   const float nf = fmaxf(cnt, 1.f);
   const float mean = s / nf;
   const float xo = x0[c];
@@ -102,10 +75,10 @@ moments_kernel(const float* __restrict__ samples, int n, int S,
     sao += fabsf(dv0);
     so2 += dv0 * dv0;
   }
-  s2 = block_reduce(s2, 0, s_warp);
-  sad = block_reduce(sad, 0, s_warp);
-  sao = block_reduce(sao, 0, s_warp);
-  so2 = block_reduce(so2, 0, s_warp);
+  s2 = pyabc_w::block_reduce(s2, 0, s_warp);
+  sad = pyabc_w::block_reduce(sad, 0, s_warp);
+  sao = pyabc_w::block_reduce(sao, 0, s_warp);
+  so2 = pyabc_w::block_reduce(so2, 0, s_warp);
   if (threadIdx.x == 0) {
     float* m = mom + (size_t)c * kMoments;
     m[0] = mean;
@@ -159,62 +132,9 @@ finish_kernel(int code, int S, const float* __restrict__ med,
               const float* __restrict__ x0, float max_ratio, int normalize,
               float* __restrict__ scale_out, float* __restrict__ w_out) {
   __shared__ float s_warp[32];
-  float wmin = INFINITY;
-  for (int c = threadIdx.x; c < S; c += blockDim.x) {
-    const float sc = scale_of(code, c, med, sel2, mom, x0);
-    scale_out[c] = sc;
-    const float w = sc > 0.f ? 1.f / sc : 0.f;
-    w_out[c] = w;
-    if (w > 0.f) wmin = fminf(wmin, w);
-  }
-  if (max_ratio > 0.f) {
-    wmin = block_reduce(wmin, 2, s_warp);
-    const float cap = wmin * max_ratio;
-    for (int c = threadIdx.x; c < S; c += blockDim.x)
-      w_out[c] = fminf(w_out[c], cap);
-  }
-  if (normalize) {
-    float s = 0.f;
-    for (int c = threadIdx.x; c < S; c += blockDim.x) s += w_out[c];
-    s = block_reduce(s, 0, s_warp);
-    if (s > 0.f) {
-      const float f = (float)S / s;
-      for (int c = threadIdx.x; c < S; c += blockDim.x)
-        w_out[c] = w_out[c] * f;
-    }
-  }
-}
-
-// Weighted p-norm of each row against x0: one warp per row (as K5).
-__global__ void __launch_bounds__(kThreads)
-rows_kernel(const float* __restrict__ rows, int n_rows, int S,
-            const float* __restrict__ x0, const float* __restrict__ w,
-            float p, float* __restrict__ d_out) {
-  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= n_rows) return;
-  const float* row = rows + (size_t)r * S;
-  const bool p_inf = isinf(p);
-  float acc = 0.f;
-  for (int k = lane; k < S; k += 32) {
-    const float diff = w[k] * fabsf(row[k] - x0[k]);
-    if (p_inf)
-      acc = nan_max(acc, diff);
-    else if (p == 1.f)
-      acc += diff;
-    else if (p == 2.f)
-      acc += diff * diff;
-    else
-      acc += powf(diff, p);
-  }
-  acc = p_inf ? warp_nan_max(acc) : warp_sum(acc);
-  if (lane != 0) return;
-  if (p_inf || p == 1.f)
-    d_out[r] = acc;
-  else if (p == 2.f)
-    d_out[r] = sqrtf(acc);
-  else
-    d_out[r] = powf(acc, 1.f / p);
+  pyabc_w::finish_weights(
+      [&](int c) { return scale_of(code, c, med, sel2, mom, x0); }, S,
+      max_ratio, normalize, scale_out, w_out, s_warp);
 }
 
 }  // namespace
@@ -251,10 +171,6 @@ extern "C" int pyabc_scale_reduce(const float* samples, int n, int S,
   finish_kernel<<<1, 1024, 0, stream>>>(code, S, med, sel2, mom, x0,
                                         max_ratio, normalize, scale_out,
                                         w_out);
-  if (rows != nullptr && n_rows > 0) {
-    const int per_block = kThreads / 32;
-    rows_kernel<<<(n_rows + per_block - 1) / per_block, kThreads, 0,
-                  stream>>>(rows, n_rows, S, x0, w_out, p, d_out);
-  }
+  pyabc_w::launch_rows(rows, n_rows, S, x0, w_out, p, d_out, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@
 // (:787) with ops/segment.py::{select_lanes (:174), gather_lanes (:194)}
 // and distance/pnorm.py::PNormDistance.device_bound_fn (:231), for the
 // built-in segmented simulators (K19 birth-death, K19 stochastic LV, K20b
-// network SIR: the template parameter Step).
+// network SIR, K20b's segmented ODE family: the template parameter Step),
+// with the model switch of util.py:774-785 when K > 1.
 //
 // K2 and K3 propose the round's B slots as in a classic round; this kernel
 // takes the simulator's place. T threads (T <= B) share the slots through
@@ -26,6 +27,16 @@
 // all B slots as a classic round does, and the accepted rows, the rounds
 // and n_valid equal the classic path's.
 //
+// Modes. K > 1: m (B,) holds each slot's model (K2's K > 1 mode) and the
+// slot steps with descriptor models[m[slot]] of the K given, all of one
+// kind (the uniform protocol fixes n_seg, seg_size and the layout); K = 1
+// passes m = nullptr. Adaptive: nseg (B,), when given, receives the
+// segments each slot simulated (n_seg for a completed slot, the retiring
+// segment + 1 for a retired one), which K22's fold (moments.cu) reads to
+// take a retired slot's prefix columns; the fold runs after this kernel
+// in the same stream, so the sums do not depend on which thread ran which
+// slot.
+//
 // seg_ctr (int64, accumulated over a generation's rounds): [0] slots
 // retired, [1] segments stepped, [2] slots resolved, [3] lane-segment
 // slots the warps executed (32 x the segments of each warp's busiest
@@ -39,6 +50,7 @@
 #include <cooperative_groups.h>
 
 #include "network_sir.cuh"
+#include "ode_family.cuh"
 #include "tau_leap.cuh"
 
 namespace cg = cooperative_groups;
@@ -46,6 +58,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 128;
+using pyabc::kMaxModels;
+using pyabc::SegModels;
 
 struct Bound {
   const float* x0;
@@ -83,7 +97,9 @@ __device__ __forceinline__ float bound_limit(float thr, float p) {
 
 template <class Step>
 __global__ void __launch_bounds__(kThreads)
-segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
+segment_round_kernel(SegModels models, int K,
+                     const int* __restrict__ m_lane,
+                     const float* __restrict__ theta,
                      int stride, const uint8_t* __restrict__ valid, int B,
                      const int* __restrict__ imap,
                      const float* __restrict__ x0,
@@ -91,7 +107,7 @@ segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
                      const float* __restrict__ eps,
                      const float* __restrict__ hist_min, int S,
                      float* __restrict__ ss, uint8_t* __restrict__ keep,
-                     int* __restrict__ next_slot,
+                     int* __restrict__ nseg, int* __restrict__ next_slot,
                      unsigned long long* __restrict__ seg_ctr, uint32_t k0,
                      uint32_t k1, uint32_t gen, uint32_t tag,
                      uint32_t max_rounds, const int* __restrict__ counters) {
@@ -99,10 +115,11 @@ segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
   if (hist_min != nullptr) thr = fminf(thr, hist_min[0]);
   const Bound bound{x0, w, p, bound_limit(thr, p)};
   const uint32_t round = (uint32_t)counters[1];
-  const int n_seg = m.n_seg, seg_size = m.seg_size;
+  const int n_seg = models.m[0].n_seg, seg_size = models.m[0].seg_size;
   float vals[Step::kMaxSeg];
   typename Step::State st;
   pyabc::PhiloxLane rng{};
+  pyabc::SegModel m = models.m[0];
   int slot = -1, seg = 0;
   bool ok = false;
   float acc = 0.f;
@@ -115,6 +132,8 @@ segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
       if (g.thread_rank() == 0) base = atomicAdd(next_slot, (int)g.size());
       slot = g.shfl(base, 0) + (int)g.thread_rank();
       if (slot >= B) break;
+      if (m_lane != nullptr)
+        m = models.m[min(max(m_lane[slot], 0), K - 1)];
       Step::init(m, theta + (size_t)slot * stride, nullptr, st);
       rng = pyabc::philox_lane(k0, k1, (uint32_t)slot, gen, tag, max_rounds,
                                round);
@@ -133,10 +152,12 @@ segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
     ++steps;
     if (seg >= n_seg) {
       keep[slot] = ok ? 1 : 0;
+      if (nseg != nullptr) nseg[slot] = seg;
       ++resolved;
       slot = -1;
     } else if (!ok || acc > bound.lim) {
       keep[slot] = 0;
+      if (nseg != nullptr) nseg[slot] = seg;
       ++retired;
       ++resolved;
       slot = -1;
@@ -156,49 +177,63 @@ segment_round_kernel(pyabc::SegModel m, const float* __restrict__ theta,
 }
 
 template <class Step>
-int launch(const pyabc::SegModel& m, int threads, const float* theta,
-           int stride, const uint8_t* valid, int B, const int* imap,
-           const float* x0, const float* w, float p, const float* eps,
-           const float* hist_min, int S, float* ss, uint8_t* keep,
-           int* next_slot, unsigned long long* seg_ctr, unsigned k0,
-           unsigned k1, unsigned gen, unsigned tag, unsigned max_rounds,
+int launch(const SegModels& ms, int K, const int* m_lane, int threads,
+           const float* theta, int stride, const uint8_t* valid, int B,
+           const int* imap, const float* x0, const float* w, float p,
+           const float* eps, const float* hist_min, int S, float* ss,
+           uint8_t* keep, int* nseg, int* next_slot,
+           unsigned long long* seg_ctr, unsigned k0, unsigned k1,
+           unsigned gen, unsigned tag, unsigned max_rounds,
            const int* counters, cudaStream_t stream) {
-  if (m.seg_size > Step::kMaxSeg) return static_cast<int>(cudaErrorInvalidValue);
+  if (ms.m[0].seg_size > Step::kMaxSeg)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(next_slot, 0, sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (threads + kThreads - 1) / kThreads;
   segment_round_kernel<Step><<<grid, kThreads, 0, stream>>>(
-      m, theta, stride, valid, B, imap, x0, w, p, eps, hist_min, S, ss, keep,
-      next_slot, seg_ctr, k0, k1, gen, tag, max_rounds, counters);
+      ms, K, m_lane, theta, stride, valid, B, imap, x0, w, p, eps, hist_min,
+      S, ss, keep, nseg, next_slot, seg_ctr, k0, k1, gen, tag, max_rounds,
+      counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// models: K descriptors of one kind; m: the slots' models (nullptr: K = 1);
+// nseg: nullptr, or (B,) for the segments each slot simulated.
 extern "C" int pyabc_segment_round(
-    const pyabc::SegModel* model, int threads, const float* theta,
-    int stride, const uint8_t* valid, int B, const int* imap,
-    const float* x0, const float* w, float p, const float* eps,
-    const float* hist_min, int S, float* ss, uint8_t* keep, int* next_slot,
-    unsigned long long* seg_ctr, unsigned k0, unsigned k1, unsigned gen,
-    unsigned tag, unsigned max_rounds, const int* counters,
-    void* stream_ptr) {
+    const pyabc::SegModel* models, int K, const int* m, int threads,
+    const float* theta, int stride, const uint8_t* valid, int B,
+    const int* imap, const float* x0, const float* w, float p,
+    const float* eps, const float* hist_min, int S, float* ss,
+    uint8_t* keep, int* nseg, int* next_slot, unsigned long long* seg_ctr,
+    unsigned k0, unsigned k1, unsigned gen, unsigned tag,
+    unsigned max_rounds, const int* counters, void* stream_ptr) {
   if (B <= 0) return 0;
-  if (model == nullptr || counters == nullptr || threads <= 0 ||
-      model->n_seg < 1)
+  if (models == nullptr || counters == nullptr || threads <= 0 || K < 1 ||
+      K > kMaxModels || (K > 1 && m == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const pyabc::SegModel m = *model;
+  SegModels ms{};
+  for (int k = 0; k < K; ++k) {
+    ms.m[k] = models[k];
+    if (ms.m[k].kind != ms.m[0].kind || ms.m[k].n_seg != ms.m[0].n_seg ||
+        ms.m[k].seg_size != ms.m[0].seg_size || ms.m[k].n_seg < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define PYABC_SEG_LAUNCH(STEP)                                              \
-  launch<STEP>(m, threads, theta, stride, valid, B, imap, x0, w, p, eps,    \
-               hist_min, S, ss, keep, next_slot, seg_ctr, k0, k1, gen, tag, \
-               max_rounds, counters, stream)
-  if (m.kind == pyabc::kTauLeapBirthDeath)
+#define PYABC_SEG_LAUNCH(STEP)                                               \
+  launch<STEP>(ms, K, m, threads, theta, stride, valid, B, imap, x0, w, p,   \
+               eps, hist_min, S, ss, keep, nseg, next_slot, seg_ctr, k0, k1, \
+               gen, tag, max_rounds, counters, stream)
+  const int kind = ms.m[0].kind;
+  if (kind == pyabc::kTauLeapBirthDeath)
     return PYABC_SEG_LAUNCH(pyabc::TauLeapStep<pyabc::BirthDeath>);
-  if (m.kind == pyabc::kTauLeapLV)
+  if (kind == pyabc::kTauLeapLV)
     return PYABC_SEG_LAUNCH(pyabc::TauLeapStep<pyabc::StochasticLV>);
-  if (m.kind == pyabc::kNetworkSir)
+  if (kind == pyabc::kNetworkSir)
     return PYABC_SEG_LAUNCH(pyabc::NetworkSirStep);
+  if (kind == pyabc::kOdeFamily)
+    return PYABC_SEG_LAUNCH(pyabc::OdeFamilyStep);
 #undef PYABC_SEG_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,9 @@ round's distance, accept test and log-weight run in the K5 kernel
 record ring, 1/scale weights, then the reservoir's distances under the new
 weights) is the K9 kernel (``kernels/scale_reduce.py``). ``device_bound_fn``
 is the prefix bound that segmented early reject (K18,
-``kernels/segment_round.py``) retires candidates on.
+``kernels/segment_round.py``) retires candidates on; under early reject an
+adaptive refit finishes from the moment block of the resolved candidates
+(K22, ``kernels/moments.py``) instead of the record ring.
 """
 from __future__ import annotations
 
@@ -16,10 +18,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..kernels.moments import moment_finish
 from ..kernels.pnorm_accept import pnorm_rows
 from ..kernels.scale_reduce import scale_reduce
 from ..kernels.segment_round import BOUND_RTOL, bound_fold, bound_limit
-from .scale import device_scale_fn, median_absolute_deviation
+from ..ops.scale_reduce import SHARDED_SCALE_NAMES
+from .scale import (builtin_scale_name, device_scale_fn,
+                    median_absolute_deviation)
 
 
 class PNormDistance:
@@ -165,6 +170,26 @@ class AdaptivePNormDistance(PNormDistance):
         ``samples`` under ``valid``, the new weights, and the distances of
         ``rows`` under them -> (weights, distances)."""
         _scale, w, d = self._reduce(samples, valid, x0, rows)
+        return w, d
+
+    def sharded_scale_capable(self) -> bool:
+        """True when the refit has a moment form (the seven names of
+        ``SHARDED_SCALE_NAMES``, a built-in function): the condition for
+        the refit over resolved candidates under early reject."""
+        if not self.adaptive:
+            return False
+        return builtin_scale_name(self.scale_function) in SHARDED_SCALE_NAMES
+
+    def refit_from_moments(self, mom: torch.Tensor, x0: torch.Tensor,
+                           rows: torch.Tensor):
+        """The generation step's refit under early reject in one K22
+        finish: the scale from the ``(6, S)`` moment block, the new
+        weights, and the distances of ``rows`` under them -> (weights,
+        distances)."""
+        _scale, w, d = moment_finish(
+            mom, x0, scale_name=self.scale_function.__name__,
+            max_weight_ratio=self.max_weight_ratio,
+            normalize_weights=self.normalize_weights, rows=rows, p=self.p)
         return w, d
 
     def get_config(self) -> dict:

@@ -16,17 +16,6 @@ import numpy as np
 from ..kernels.scale_reduce import SCALE_NAMES, scale_reduce
 
 
-#: scale functions whose adaptive refit is a reduction over per-column
-#: moments (``pyabc_tpu/ops/scale_reduce.py::SHARDED_SCALE_NAMES``): the
-#: ones the JAX package's segmented engine refits over resolved lanes
-MOMENT_SCALE_NAMES = frozenset({
-    "mean", "bias", "span", "standard_deviation",
-    "root_mean_square_deviation",
-    "mean_absolute_deviation_to_observation",
-    "standard_deviation_to_observation",
-})
-
-
 def median_absolute_deviation(samples, x_0=None):
     med = np.median(samples, axis=0)
     return np.median(np.abs(samples - med), axis=0)
@@ -109,10 +98,15 @@ def _device_scale(name: str, samples, valid, x_0):
 DEVICE_SCALES = {name: partial(_device_scale, name) for name in SCALE_NAMES}
 
 
+def builtin_scale_name(scale_function) -> str | None:
+    """The name of a built-in scale function, or None (a custom function
+    shadowing a built-in name is not the built-in)."""
+    name = getattr(scale_function, "__name__", "")
+    return name if SCALE_FUNCTIONS.get(name) is scale_function else None
+
+
 def device_scale_fn(scale_function):
     """The device twin of a built-in scale function, or None (a custom
     function shadowing a built-in name has no twin)."""
-    name = getattr(scale_function, "__name__", "")
-    if SCALE_FUNCTIONS.get(name) is not scale_function:
-        return None
-    return DEVICE_SCALES[name]
+    name = builtin_scale_name(scale_function)
+    return None if name is None else DEVICE_SCALES[name]

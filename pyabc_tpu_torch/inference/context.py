@@ -41,17 +41,24 @@ generation's matrix and log model factor) and the per-model K8 refit, one
 launch over all models. Nothing of it is read by the host before the
 chunk's fetch.
 
-Segmented early reject (``pyabc_tpu`` ``_generation_while_seg``, one model,
-a fixed p-norm, a uniform acceptor): a round's slots are proposed by K2
-and K3 as above, then K18 takes the simulator's place. It steps each slot
-one segment at a time with the model's built-in step (K19 or K20b), folds
-the p-norm's prefix bound and retires a slot, between segments, once the
-bound proves it rejected; a thread whose slot retires takes the next slot.
-K5 tests the complete slots (its valid mask is K18's ``keep``) and K6
-counts every valid slot as evaluated, so a generation resolves whole
-rounds and its accepted rows, rounds and evaluations equal the classic
-path's. The generation's K18 counters (retired, segments stepped, slots
-resolved, lane-segment slots) stay on the device until the chunk's fetch.
+Segmented early reject (``pyabc_tpu`` ``_generation_while_seg``, a p-norm
+distance, a uniform acceptor): a round's slots are proposed by K2 and K3
+as above, then K18 takes the simulator's place. It steps each slot one
+segment at a time with the model's built-in step (K19 or K20b; K > 1: each
+slot its own model's descriptor), folds the p-norm's prefix bound and
+retires a slot, between segments, once the bound proves it rejected; a
+thread whose slot retires takes the next slot. K5 tests the complete slots
+(its valid mask is K18's ``keep``; K > 1 with the lanes' models and model
+terms) and K6 counts every valid slot as evaluated, so a generation
+resolves whole rounds and its accepted rows, rounds and evaluations equal
+the classic path's. The generation's K18 counters (retired, segments
+stepped, slots resolved, lane-segment slots) stay on the device until the
+chunk's fetch. Under an adaptive distance the record ring would hold
+completed candidates only, so K22 folds every resolved slot's simulated
+columns (a retired slot's prefix, from K18's ``nseg``) into the
+generation's ``(6, S)`` moment block after each round, and the generation
+step finishes the refit from it (K22's finish in K9's place); the
+calibration keeps K9 over its complete prior sample.
 
 LocalTransition (one model, ``pyabc_tpu`` ``multigen_kernel`` with a
 LocalTransition): a round draws with K2's local mode (each ancestor's own
@@ -79,6 +86,7 @@ from ..core.random_variables import stacked_arrays
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.model_step import model_step
+from ..kernels.moments import moment_fold, seg_of_columns
 from ..kernels.mvn_fit import mvn_fit
 from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
@@ -90,6 +98,7 @@ from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..model import simulate_models_flat
 from ..observability.sync import SyncLedger
 from ..ops.health import generation_health
+from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
 from ..transition.local_transition import LocalTransition
@@ -137,6 +146,9 @@ class GenerationRun:
     rec: dict | None
     #: segmented early reject: K18's int64 counters of the generation
     seg: torch.Tensor | None = None
+    #: segmented early reject under an adaptive distance: K22's (6, S)
+    #: moment block of the generation's resolved slots
+    mom: torch.Tensor | None = None
 
 
 class DeviceContext:
@@ -188,6 +200,10 @@ class DeviceContext:
         self.seg_cfg: dict | None = None
         #: K18's counters of the generation in progress
         self.seg_counters: torch.Tensor | None = None
+        #: K22's moment block of the generation in progress (adaptive)
+        self.seg_moments: torch.Tensor | None = None
+        #: the generation's rounds as the host last read them
+        self.rounds_read = 0
         #: one model under LocalTransition: K2's local mode draws, K14
         #: scores, K15 then K12 and K13 refit
         self.local = self.K == 1 and isinstance(transition, LocalTransition)
@@ -257,20 +273,32 @@ class DeviceContext:
             stream=self.stream(t, philox.SIM_NOISE))
 
     def _simulate_accept(self, theta, valid, eps, dist_w, hist_min,
-                         pdf_norm, t, segmented: bool, **terms):
+                         pdf_norm, t, segmented: bool, lane_m=None,
+                         **terms):
         """The round's simulator and K5 / K21a -> (sum stats, distance,
-        accept, log weight). ``segmented``: K18 in the simulator's place,
-        its ``keep`` the valid mask of the accept test."""
+        accept, log weight); ``lane_m``: K > 1, the lanes' models.
+        ``segmented``: K18 in the simulator's place, its ``keep`` the
+        valid mask of the accept test, and under an adaptive distance
+        K22's fold of the round's resolved slots while the round starts
+        below ``rec_cap`` (the rounds the host read: no extra sync)."""
         if not segmented:
-            ss = self._simulate(theta, t)
+            ss = (self._simulate(theta, t) if lane_m is None
+                  else self._simulate_models(theta, lane_m, t))
             return (ss, *self._accept(ss, eps, dist_w, valid, hist_min,
                                       pdf_norm, t, **terms))
         cfg = self.seg_cfg
-        ss, keep = segment_round(
+        fold = (self.seg_moments is not None
+                and self.rounds_read * self.B < self.rec_cap)
+        out = segment_round(
             cfg["seg"], theta, valid, self.stream(t, philox.SIM_NOISE),
             imap=cfg["index_map"], x0=self.x0, w=dist_w, p=self.distance.p,
             eps=eps, hist_min=hist_min, width=self.S,
-            seg_ctr=self.seg_counters)
+            seg_ctr=self.seg_counters, m=lane_m,
+            dims=self.dims if self.K > 1 else None, return_nseg=fold)
+        ss, keep = out[0], out[1]
+        if fold:
+            moment_fold(self.seg_moments, ss, out[2], valid, cfg["seg_of"],
+                        self.x0, self.counters, rec_cap=self.rec_cap)
         return (ss, *self._accept(ss, eps, dist_w, keep, hist_min, pdf_norm,
                                   t, **terms))
 
@@ -307,9 +335,9 @@ class DeviceContext:
             theta, logpri, valid, m = propose.models(
                 self.stream(t, tag), self.B, self.prior_arrays,
                 self.model_prior)
-            ss = self._simulate_models(theta, m, t)
-            d, accept, logw = self._accept(ss, eps, dist_w, valid, hist_min,
-                                           pdf_norm, t)
+            ss, d, accept, logw = self._simulate_accept(
+                theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
+                lane_m=m)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
                     "logq": logpri, "m": m}
@@ -337,10 +365,9 @@ class DeviceContext:
                 stream, self.B, self.prior_arrays, carry.log_model_probs,
                 params, carry.matrix)
             logq = mvn_mixture_logpdf.models(theta, m, params)
-            ss = self._simulate_models(theta, m, t)
-            d, accept, logw = self._accept(
-                ss, eps, dist_w, valid, hist_min, pdf_norm, t,
-                logpri=logpri, logq=logq, m=m,
+            ss, d, accept, logw = self._simulate_accept(
+                theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
+                lane_m=m, logpri=logpri, logq=logq, m=m,
                 model_logits=self.model_logits,
                 log_model_factor=carry.log_model_factor)
             return {"theta": theta, "sumstats": ss, "distance": d,
@@ -372,6 +399,7 @@ class DeviceContext:
         self.counters = counters
         if eps_at_min is not None:
             counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
+        self.rounds_read = 0
         while True:
             out = lanes()
             compact_round(out["accepted"], out["valid"], out["theta"],
@@ -382,6 +410,7 @@ class DeviceContext:
             host = counters.cpu()
             self.sync_ledger.record("round_counters", host.nbytes)
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
+            self.rounds_read = r
             if not (n_acc < n_target and r < self.max_rounds):
                 break
         return GenerationRun(n_acc=n_acc, rounds=r,
@@ -419,11 +448,12 @@ class DeviceContext:
 
     # ------------------------------------------- segmented early reject
     def segment_cfg(self) -> dict:
-        """The segmented round's configuration: the model's protocol and
-        its emission map onto the flat rows. Raises with the blocking
-        reason when the run cannot take it (no uniform protocol, no prefix
-        bound; the driver gates first,
-        ``ABCSMC._early_reject_incapable_reason``)."""
+        """The segmented round's configuration: the models' protocols (one,
+        or K of one layout), their emission map onto the flat rows and its
+        inverse (each column's segment, for K22's fold), and whether an
+        adaptive distance folds moments. Raises with the blocking reason
+        when the run cannot take it (no uniform protocol, no prefix bound;
+        ``ABCSMC._early_reject_incapable_reason`` gates first)."""
         reason = uniform_protocol_reason(self.models)
         if reason is not None:
             raise ValueError(f"segmented execution unavailable: {reason}")
@@ -432,20 +462,27 @@ class DeviceContext:
                 "segmented execution unavailable: "
                 f"{type(self.distance).__name__} has no monotone prefix "
                 "bound (device_bound_fn)")
-        return {"seg": self.model.segmented,
-                "index_map": self.model.index_map(self.spec, self.device)}
+        segs = [m.segmented for m in self.models]
+        imap = self.model.index_map(self.spec, self.device)
+        return {"seg": segs[0] if self.K == 1 else segs, "index_map": imap,
+                "seg_of": torch.as_tensor(seg_of_columns(imap),
+                                          device=self.device),
+                "moments": bool(getattr(self.distance, "adaptive", False))}
 
     def generation_while_seg(self, lanes, n_target: int,
                              eps_at_min: torch.Tensor | None = None
                              ) -> GenerationRun:
-        """``generation_while`` with K18's counters for the generation:
-        ``lanes`` proposes its rounds segmented. One counter read per
-        round, as the classic loop; K18 adds none."""
+        """``generation_while`` with K18's counters for the generation (and
+        K22's moment block under an adaptive distance): ``lanes`` proposes
+        its rounds segmented. One counter read per round, as the classic
+        loop; K18 and K22 add none."""
         self.seg_counters = torch.zeros(4, dtype=torch.int64,
                                         device=self.device)
+        self.seg_moments = (init_moments(self.S, self.device)
+                            if self.seg_cfg["moments"] else None)
         run = self.generation_while(lanes, n_target, eps_at_min,
                                     ring=False)
-        run.seg = self.seg_counters
+        run.seg, run.mom = self.seg_counters, self.seg_moments
         return run
 
     def k_mask(self, counters: torch.Tensor, n_target: int) -> torch.Tensor:
@@ -499,7 +536,8 @@ class DeviceContext:
                         fit_statics: dict, health_config: tuple | None,
                         t: int = 0, refit_cadence: tuple | None = None):
         """Everything between two generations, on the device:
-        normalize -> adaptive reweight + distance recompute -> quantile
+        normalize -> adaptive reweight + distance recompute (K9 over the
+        ring, or K22's finish over the moment block) -> quantile
         epsilon -> MVN refit (LocalTransition: K15's drift and cadence,
         then K12 and K13 under its flag) -> [noisy ABC: K3 over the ring,
         K21b] -> health word. Returns (carry, outputs)."""
@@ -507,7 +545,12 @@ class DeviceContext:
         k_mask = self.k_mask(counters, n_target)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
         eps_g = carry.eps
-        if adaptive:
+        if adaptive and run.mom is not None:
+            # early reject: the refit over every resolved candidate's
+            # simulated columns (K22), not the completed-only ring
+            dist_w_next, d_new = self.distance.refit_from_moments(
+                run.mom, self.x0, res["sumstats"])
+        elif adaptive:
             dist_w_next, d_new = self.distance.refit(
                 run.rec["sumstats"], run.rec["valid"], self.x0,
                 res["sumstats"])

@@ -21,13 +21,18 @@ found and Daly's k, and the host objects (``acceptor.pdf_norms``,
 
 Segmented early reject (``early_reject="auto"`` or ``True`` with a
 segmented model, ``TorchModel(segmented=...)``: the tau-leap models of
-``models.gillespie`` with ``segments=``, the network SIR): each round's
+``models.gillespie`` with ``segments=``, the network SIR, the ODE family
+of ``models.model_selection.ode_family(segments=...)``): each round's
 simulator call becomes K18, which retires candidates between segments once
-the p-norm's prefix bound proves them rejected. The accepted populations
-are bit-identical with early reject on and off. A configuration the JAX
-package's engine cannot serve takes the classic path (``"auto"``) or raises
-its ``ValueError`` (``True``); one the JAX engine serves but the port does
-not yet (several models, noisy ABC, an adaptive distance, sharded runs)
+the p-norm's prefix bound proves them rejected. Under a fixed p-norm the
+accepted populations are bit-identical with early reject on and off, one
+model or several (K > 1: each slot steps its own model). Under an
+adaptive p-norm whose scale has a moment form the refit runs over every
+resolved candidate's simulated columns (K22), as the JAX engine's, so on
+and off agree in law, not in bits. A configuration the JAX package's
+engine cannot serve takes the classic path (``"auto"``) or raises its
+``ValueError`` (``True``); one the JAX engine serves but the port does not
+yet (noisy ABC, a user's segmented model on the card, sharded runs)
 raises ``not_ported``. History's telemetry column holds each generation's
 ``retired_early``, ``segment_occupancy``, ``seg_steps`` and
 ``seg_resolved``.
@@ -61,7 +66,6 @@ from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
 from ..distance.kernel import IndependentNormalKernel, StochasticKernel
 from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
-from ..distance.scale import MOMENT_SCALE_NAMES
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
@@ -70,6 +74,7 @@ from ..kernels.mvn_fit import MAX_MODELS
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
 from ..ops.health import decode
+from ..ops.scale_reduce import SHARDED_SCALE_NAMES
 from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
@@ -416,37 +421,35 @@ class ABCSMC:
                     "the ring holds completed evaluations only — the "
                     "temperature would be survivor-biased; the classic "
                     "kernel serves this scheme")
-        if adaptive:
+        if adaptive and not d.sharded_scale_capable():
             scale_name = d.scale_function.__name__
-            if scale_name not in MOMENT_SCALE_NAMES:
-                return (f"adaptive scale function {scale_name!r} has "
-                        f"no moment-decomposable reduction, and under "
-                        f"early reject the completed-only record ring "
-                        f"is survivor-biased — unbiased refits need "
-                        f"per-column moments over resolved lanes; the "
-                        f"classic kernel serves this config (switch to "
-                        f"{', '.join(sorted(MOMENT_SCALE_NAMES))} for "
-                        f"early reject)")
+            return (f"adaptive scale function {scale_name!r} has "
+                    f"no moment-decomposable reduction, and under "
+                    f"early reject the completed-only record ring "
+                    f"is survivor-biased — unbiased refits need "
+                    f"per-column moments over resolved lanes; the "
+                    f"classic kernel serves this config (switch to "
+                    f"{', '.join(sorted(SHARDED_SCALE_NAMES))} for "
+                    f"early reject)")
         for w in getattr(d, "weights", {}).values():
             if np.any(np.asarray(w) < 0):
                 return ("negative distance weights break the bound's "
                         "monotonicity; the classic kernel serves them")
         return None
 
-    def _early_reject_unserved(self, *, adaptive: bool,
-                               stochastic: bool) -> str | None:
+    def _early_reject_unserved(self, *, stochastic: bool) -> str | None:
         """A configuration the JAX engine serves and the port's does not
         yet (ROADMAP queue A, item 13), or None."""
-        if self.K > 1:
-            return "several models (the segmented model family)"
         if stochastic:
             return ("noisy ABC (stochastic retirement against the kernel's "
                     "upper bound)")
-        if adaptive:
-            return ("an adaptive distance (the moment refit over resolved "
-                    "candidates)")
-        if self.device.type == "cuda" and self.model.segmented.kernel is None:
+        if self.device.type != "cuda":
+            return None
+        kernels = [m.segmented.kernel for m in self.models]
+        if any(k is None for k in kernels):
             return "a segmented model without a built-in CUDA step"
+        if len({k[1].kind for k in kernels}) > 1:
+            return "several segmented models of different built-in steps"
         return None
 
     def _segment_gate(self, ctx: DeviceContext, *, adaptive: bool,
@@ -461,8 +464,7 @@ class ABCSMC:
             if type(self.transition) is LocalTransition:
                 raise _not_ported("segmented early reject with "
                                   "LocalTransition", "12")
-            unserved = self._early_reject_unserved(adaptive=adaptive,
-                                                   stochastic=stochastic)
+            unserved = self._early_reject_unserved(stochastic=stochastic)
             if unserved is not None:
                 raise _not_ported(f"segmented early reject with {unserved}",
                                   "13")

@@ -12,10 +12,13 @@ from .local_factor import local_factor, local_factor_plain
 from .local_logpdf import local_logpdf, local_logpdf_plain
 from .lv_simulate import lv_simulate, lv_simulate_plain
 from .model_step import model_step, model_step_plain
+from .moments import (moment_finish, moment_finish_plain, moment_fold,
+                      moment_fold_plain)
 from .network_sir import network_sir, network_sir_plain
 from .mvn_fit import mvn_fit, mvn_fit_plain
 from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
-from .ode_family import ode_family_simulate, ode_family_simulate_plain
+from .ode_family import (ode_family_segments, ode_family_segments_plain,
+                         ode_family_simulate, ode_family_simulate_plain)
 from .normalize_quantile import (normalize_log_weights_plain,
                                  normalize_quantile, weighted_quantile_plain)
 from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
@@ -31,23 +34,33 @@ from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
-#: K19, K20, K20b family, K20b network, K21a, K21b, K26)
+#: K19, K20, K20b family (unsegmented and segmented), K20b network, K21a,
+#: K21b, K22 fold and finish, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
            propose_local, local_logpdf, proposal_drift, segment_round,
-           tau_leap,
-           sir_simulate, ode_family_simulate, network_sir, kernel_accept,
-           temperature_update, model_step)
+           tau_leap, sir_simulate, ode_family_simulate, ode_family_segments,
+           network_sir, kernel_accept, temperature_update, moment_fold,
+           moment_finish, model_step)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        for mode in getattr(k, "mode_launches", {}):
+            k.mode_launches[mode] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def mode_launch_counts() -> dict[str, int]:
+    """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
+    ``adaptive`` and ``k_gt_1``); each also counts in ``launch_counts``."""
+    return {f"{k.name}:{mode}": n for k in KERNELS
+            for mode, n in getattr(k, "mode_launches", {}).items()}
 
 
 __all__ = [
@@ -58,9 +71,12 @@ __all__ = [
     "local_logpdf_plain",
     "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
     "mvn_fit", "mvn_fit_plain",
+    "mode_launch_counts", "moment_finish", "moment_finish_plain",
+    "moment_fold", "moment_fold_plain",
     "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain", "network_sir",
     "network_sir_plain",
     "normalize_log_weights_plain", "normalize_quantile",
+    "ode_family_segments", "ode_family_segments_plain",
     "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_local", "propose_local_plain", "propose_plain",

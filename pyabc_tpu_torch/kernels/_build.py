@@ -87,8 +87,15 @@ SIGNATURES = {
         _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
         _P],
     "pyabc_segment_round": [
-        _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P, _P, _P,
-        _U, _U, _U, _U, _U, _P, _P],
+        _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P,
+        _P, _P, _P, _U, _U, _U, _U, _U, _P, _P],
+    "pyabc_ode_family_segments": [
+        _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U,
+        _U, _P, _P],
+    "pyabc_moment_fold": [
+        _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P],
+    "pyabc_moment_finish": [
+        _P, _I, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P],
     "pyabc_local_cov": [
         _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _I, _P],

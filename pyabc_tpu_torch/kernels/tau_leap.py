@@ -32,7 +32,9 @@ from .base import Kernel
 from .philox import POISSON_MAX_DRAWS, PhiloxStream, poisson_plain
 
 #: SegModel.kind of the built-in segmented simulators (csrc/seg_model.cuh)
-BIRTH_DEATH, STOCHASTIC_LV, NETWORK_SIR = 0, 1, 2
+BIRTH_DEATH, STOCHASTIC_LV, NETWORK_SIR, ODE_FAMILY = 0, 1, 2, 3
+#: models one segmented launch takes (csrc/seg_model.cuh's kMaxModels)
+MAX_MODELS = 8
 
 
 class SegModelC(ctypes.Structure):
@@ -40,7 +42,7 @@ class SegModelC(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "kind", "midpoint", "n_seg", "seg_size", "leaps_per_seg",
-        "save_every", "obs_per_seg", "n_sub")] + [
+        "save_every", "obs_per_seg", "n_sub", "variant")] + [
         (n, ctypes.c_float) for n in (
             "tau", "half_tau", "x0_0", "x0_1", "dt", "h2", "h6", "n_pop",
             "c_self", "c_half", "seed_i", "noise_sd")]

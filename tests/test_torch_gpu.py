@@ -1,5 +1,5 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K15, K20, K21a,
-K21b and K6's record mode) against its plain PyTorch version on the CUDA
+"""Card tests: each hand-written kernel (K2 with K1, K3-K15, K18-K22 and
+K6's record mode) against its plain PyTorch version on the CUDA
 device, at small shapes and at the main-path shapes of BASELINE configs 2
 and 4. Marked ``gpu``; without a card
 every test skips (the decision is taken in a fixture, so every worker
@@ -194,12 +194,14 @@ def test_lv_run_on_the_card(dev):
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4
     # every kernel of the LV path (the noisy-ABC kernels, the model
-    # selection's K20b and K26, config 3's K18, K19 and K20b network, and
-    # LocalTransition's K12-K15 are not on it)
+    # selection's K20b and K26, config 3's K18, K19 and K20b network,
+    # LocalTransition's K12-K15, the segmented family's K20b and K22 are
+    # not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
-             "propose_local", "local_logpdf", "proposal_drift")
+             "propose_local", "local_logpdf", "proposal_drift",
+             "ode_family_segments", "moment_fold", "moment_finish")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -785,7 +787,8 @@ def test_ode_family_kernel(dev, B, noise_sd):
     got = ode_family_simulate(x["theta"], x["m"], **kw)
     assert ode_family_simulate.launches == before + 1
     ref = ode_family_simulate_plain(x["theta"], x["m"], **kw)
-    # FMA contraction over 66 RK4 steps; Philox normals within 2e-6
+    # the RK4 rounds each operation once, as the plain version does;
+    # Philox normals within 2e-6
     assert bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
     with pytest.raises(ValueError, match="plain version"):
         ode_family_simulate(x["theta"], x["m"], noise=torch.zeros_like(ref),
@@ -1113,6 +1116,258 @@ def test_early_reject_runs_on_the_card(dev):
         assert np.array_equal(wa, wb)
     assert sum(hs[0].get_telemetry(t)["retired_early"]
                for t in range(5)) > 0
+
+
+# ------------------------------- K22, K18's adaptive and K > 1 modes
+def _fold_round(dev, B, S=20, n_seg=10, seed=0):
+    g = _gen(dev, seed)
+    imap = torch.randperm(S, generator=g, device=dev).reshape(
+        n_seg, S // n_seg).to(torch.int32)
+    from pyabc_tpu_torch.kernels.moments import seg_of_columns
+
+    seg_of = torch.as_tensor(seg_of_columns(imap), device=dev)
+    nseg = torch.randint(1, n_seg + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    ss = torch.randn(B, S, generator=g, device=dev) * 3 + 10
+    ss[seg_of[None, :] >= nseg[:, None]] = math.nan
+    x0 = torch.randn(S, generator=g, device=dev) + 10
+    return ss, nseg, valid, seg_of, x0
+
+
+@pytest.mark.parametrize("B", [77, 65536])
+def test_moment_fold_kernel(dev, B):
+    """K22's fold against its plain version over two rounds with the
+    record window cut inside the second: counts and extrema equal, sums
+    within 1e-5 relative (another order); the kernel's sums are the same
+    from run to run."""
+    from pyabc_tpu_torch.kernels import moment_fold, moment_fold_plain
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+
+    outs = []
+    for fn in (moment_fold, moment_fold, moment_fold_plain):
+        mom = init_moments(20, dev)
+        ctr = torch.zeros(4, dtype=torch.int32, device=dev)
+        for r in range(2):
+            ss, nseg, valid, seg_of, x0 = _fold_round(dev, B, seed=r)
+            ctr[1] = r
+            fn(mom, ss, nseg, valid, seg_of, x0, ctr,
+               rec_cap=B + B // 2)
+        outs.append(mom)
+    got, again, ref = outs
+    assert torch.equal(got, again)
+    assert torch.equal(got[3:], ref[3:])
+    assert within(got[:3], ref[:3], 1e-3, 1e-5)
+    assert float(ref[3].max()) < 2 * B
+
+
+@pytest.mark.parametrize("name", ["mean", "bias", "span",
+                                  "standard_deviation",
+                                  "root_mean_square_deviation",
+                                  "mean_absolute_deviation_to_observation",
+                                  "standard_deviation_to_observation"])
+def test_moment_finish_kernel(dev, name):
+    """K22's finish against its plain version: scale within 1e-6
+    relative, weights and distances within 1e-5 (sums in another order)."""
+    from pyabc_tpu_torch.kernels import moment_finish, moment_finish_plain
+    from pyabc_tpu_torch.kernels.moments import moment_fold_plain
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+
+    ss, nseg, valid, seg_of, x0 = _fold_round(dev, 4096)
+    mom = init_moments(20, dev)
+    moment_fold_plain(mom, ss, nseg, valid, seg_of, x0,
+                      torch.zeros(4, dtype=torch.int32, device=dev),
+                      rec_cap=10 ** 6)
+    rows = torch.randn(1000, 20, generator=_gen(dev, 3), device=dev) + 10
+    kw = dict(scale_name=name, max_weight_ratio=4.0, rows=rows, p=2.0)
+    sc, w, d = moment_finish(mom, x0, **kw)
+    sc_r, w_r, d_r = moment_finish_plain(mom, x0, **kw)
+    assert within(sc, sc_r, 0.0, 1e-6)
+    assert within(w, w_r, 0.0, 1e-5) and within(d, d_r, 0.0, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["bd", "lv", "net"])
+def test_segment_round_adaptive_mode(dev, name):
+    """K18's adaptive mode: nseg bit-equal to the plain version's, and the
+    launch counted in the mode."""
+    from pyabc_tpu_torch.kernels import segment_round, segment_round_plain
+
+    model, theta, valid, spec, x0 = _seg_round(dev, name, 4096)
+    st = _stream(dev, philox.SIM_NOISE)
+    imap = model.index_map(spec, dev)
+    w = torch.linspace(0.5, 1.5, spec.total_size, device=dev)
+    full, _ = model.chain.kernel[0](model.chain.kernel[1], theta, st,
+                                    colmap=imap, width=spec.total_size)
+    d = (w * (full - x0)).square().sum(1).sqrt()
+    kw = dict(imap=imap, x0=x0, w=w, p=2.0,
+              eps=torch.quantile(d[valid], 0.3), width=spec.total_size,
+              return_nseg=True)
+    before = segment_round.mode_launches["adaptive"]
+    ss, keep, nseg = segment_round(
+        model.segmented, theta, valid, st,
+        seg_ctr=torch.zeros(4, dtype=torch.int64, device=dev), **kw)
+    assert segment_round.mode_launches["adaptive"] == before + 1
+    _ss, keep_r, nseg_r = segment_round_plain(
+        model.segmented, theta, valid, st,
+        seg_ctr=torch.zeros(4, dtype=torch.int64, device=dev), **kw)
+    assert torch.equal(nseg, nseg_r) and torch.equal(keep, keep_r)
+    assert int((nseg < imap.shape[0]).sum()) > 0
+
+
+def _family_round(dev, B, seed=0):
+    g = _gen(dev, seed)
+    theta = torch.stack([torch.rand(B, generator=g, device=dev) + 0.05,
+                         torch.rand(B, generator=g, device=dev) * 9 + 1],
+                        dim=1)
+    m = torch.randint(0, 3, (B,), generator=g, device=dev,
+                      dtype=torch.int32)
+    theta[m == 0, 1] = 0.0
+    return theta.contiguous(), m
+
+
+@pytest.mark.parametrize("noise_sd", [0.0, 0.3])
+def test_ode_family_segments_kernel(dev, noise_sd):
+    """The segmented family's range kernel: chained segments bit-equal to
+    the full trajectory, and against the plain version bit-equal without
+    noise, within 1e-5 with it (the normals' libm)."""
+    from dataclasses import replace
+
+    from pyabc_tpu_torch.kernels import (ode_family_segments,
+                                         ode_family_segments_plain)
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    specs = [replace(s, noise_sd=noise_sd) for s in
+             msel.ode_family(segments=4)[0][0].family.specs]
+    theta, m = _family_round(dev, 4096)
+    st = _stream(dev, philox.SIM_NOISE)
+    full, y = ode_family_segments(specs, theta, st, m=m, return_state=True)
+    head, y2 = ode_family_segments(specs, theta, st, m=m, seg_to=2,
+                                   return_state=True)
+    tail, y3 = ode_family_segments(specs, theta, st, m=m, state=y2,
+                                   seg_from=2, return_state=True)
+    assert torch.equal(torch.cat([head, tail], dim=1), full)
+    assert torch.equal(y3, y)
+    ref, _ = ode_family_segments_plain(specs, theta, st, m=m)
+    if noise_sd == 0.0:
+        assert torch.equal(full, ref)
+    else:
+        assert within(full, ref, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("case", ["family", "family_noiseless", "bd_pair"])
+def test_segment_round_models_mode(dev, case):
+    """K18's K > 1 mode against its plain version: without noise the kept
+    slots and their statistics bit for bit; the noisy family (its normals
+    differ in the last bits) keeps the same slots but for a few at the
+    threshold, their statistics within 1e-5. Its kept rows equal the
+    classic range kernel's bit for bit."""
+    from dataclasses import replace
+
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import (ode_family_segments, segment_round,
+                                         segment_round_plain, tau_leap)
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    B = 4096
+    st = _stream(dev, philox.SIM_NOISE)
+    if case == "bd_pair":
+        models = [g.make_birth_death_model(segments=10),
+                  g.make_birth_death_model(x0=25.0, segments=10)]
+        spec = SumStatSpec(g.observed_birth_death(segments=10))
+        theta, _lp, valid = propose(_stream(dev, philox.PRIOR), B,
+                                    g.birth_death_prior().arrays(dev))
+        m = torch.randint(0, 2, (B,), generator=_gen(dev), device=dev,
+                          dtype=torch.int32)
+        imap = models[0].index_map(spec, dev)
+        full = torch.where((m == 0)[:, None], *[
+            tau_leap(mo.chain.kernel[1], theta.contiguous(), st,
+                     colmap=imap, width=20)[0] for mo in models])
+        segs = [mo.segmented for mo in models]
+    else:
+        sd = 0.0 if case == "family_noiseless" else 0.3
+        models = msel.ode_family(segments=4, noise_sd=sd)[0]
+        spec = SumStatSpec({"y": np.zeros(12)})
+        theta, m = _family_round(dev, B)
+        valid = torch.rand(B, generator=_gen(dev, 2), device=dev) > 0.05
+        imap = models[0].index_map(spec, dev)
+        full = ode_family_segments(models[0].family.specs, theta, st,
+                                   m=m)[0]
+        segs = [mo.segmented for mo in models]
+    x0 = full[0].clone()
+    w = torch.ones_like(x0)
+    d = (full - x0).square().sum(1).sqrt()
+    kw = dict(imap=imap, x0=x0, w=w, p=2.0,
+              eps=torch.quantile(d[valid], 0.3), width=spec.total_size,
+              m=m, dims=[2] * len(segs))
+    before = segment_round.mode_launches["k_gt_1"]
+    ss, keep = segment_round(segs, theta, valid, st,
+                             seg_ctr=torch.zeros(4, dtype=torch.int64,
+                                                 device=dev), **kw)
+    assert segment_round.mode_launches["k_gt_1"] == before + 1
+    ss_r, keep_r = segment_round_plain(
+        segs, theta, valid, st,
+        seg_ctr=torch.zeros(4, dtype=torch.int64, device=dev), **kw)
+    assert torch.equal(ss[keep], full[keep])
+    assert int((~keep & valid).sum()) > 0
+    if case == "family":
+        both = keep & keep_r
+        assert int((keep ^ keep_r).sum()) <= 4
+        assert within(ss[both], ss_r[both], 1e-5, 1e-5)
+    else:
+        assert torch.equal(keep, keep_r)
+        assert torch.equal(ss[keep], ss_r[keep])
+
+
+def test_adaptive_and_model_early_reject_run_on_the_card(dev):
+    """Birth-death under AdaptivePNormDistance(standard_deviation) and the
+    segmented ODE family, early reject on and off on the card: K22 and
+    K18's two modes launched, the weights refit every generation, the
+    family's populations bit-identical on and off."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.distance.scale import standard_deviation
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    reset_launch_counts()
+    abc = pt.ABCSMC(g.make_birth_death_model(segments=10),
+                    g.birth_death_prior(),
+                    pt.AdaptivePNormDistance(
+                        p=2, scale_function=standard_deviation),
+                    population_size=2000, seed=3, fused_generations=2,
+                    device=dev)
+    abc.new("sqlite://", g.observed_birth_death(segments=10),
+            store_sum_stats=False)
+    h = abc.run(max_nr_populations=4)
+    counts, modes = launch_counts(), mode_launch_counts()
+    assert counts["moment_fold"] > 0 and counts["moment_finish"] > 0
+    # K18 returns nseg exactly for the rounds the fold takes (those that
+    # start below rec_cap)
+    assert modes["segment_round:adaptive"] == counts["moment_fold"]
+    assert 4 <= counts["moment_fold"] <= counts["segment_round"]
+    w = abc.distance_function.weights
+    assert all(not np.allclose(w[t], w[t - 1]) for t in range(1, 5))
+    assert sum(h.get_telemetry(t)["retired_early"] for t in range(4)) > 0
+    obs = msel.observed_ode_family(seed=0, segments=4)
+    hs = []
+    for early in ("auto", False):
+        models, priors, _ts = msel.ode_family(segments=4)
+        abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                        population_size=2000, seed=5, early_reject=early,
+                        fused_generations=3, device=dev)
+        abc.new("sqlite://", obs, store_sum_stats=False)
+        hs.append(abc.run(max_nr_populations=3))
+    assert mode_launch_counts()["segment_round:k_gt_1"] > 0
+    assert launch_counts()["ode_family_segments"] > 0
+    for t in range(3):
+        assert np.array_equal(
+            hs[0].get_model_probabilities(t)["p"].to_numpy(),
+            hs[1].get_model_probabilities(t)["p"].to_numpy())
+        a = hs[0].get_weighted_distances(t)["distance"].to_numpy()
+        b = hs[1].get_weighted_distances(t)["distance"].to_numpy()
+        assert np.array_equal(a, b)
 
 
 # ---------------------------------------------- LocalTransition (K12-K15)

@@ -102,6 +102,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pyabc_tpu_torch.kernels.local_factor",
             "pyabc_tpu_torch.kernels.local_logpdf",
             "pyabc_tpu_torch.kernels.proposal_drift"} <= set(res["modules"])
+    # and adaptive / K > 1 early reject's (K22, its plain moment blocks;
+    # the segmented family's range kernel lives in kernels.ode_family)
+    assert {"pyabc_tpu_torch.ops.scale_reduce",
+            "pyabc_tpu_torch.kernels.moments"} <= set(res["modules"])
     assert res["loaded"] == []
     # without CUDA the default device raises and names the way out
     assert res["raised"] is not None and "device='cpu'" in res["raised"]
