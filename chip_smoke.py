@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (pyabc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--log FILE]
 
-Phases, one or more lines each:
+(``--log FILE`` also appends every line to FILE, for runs whose output is
+cut.) Phases, one or more lines each:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, the compute capability (must be 9.0) and the kernel build;
@@ -47,6 +48,19 @@ Phases, one or more lines each:
    incrementally with a tenth of the rows changed and a rank-1 row on the
    jitter ladder, n_changed equal; K2's local mode at B 65536, K14's
    density at 65536 x 16384 (d 4) and K15 (the drift guard and cadence);
+   K21a/K21c, the accept kernel of every noise family and scale
+   (independent normal, Laplace, binomial, Poisson, negative binomial by
+   size and by mean, the full-covariance normal; SCALE_LIN where the
+   family has it) at config 3's round (B 65536, S 20) and at B 257, S 7:
+   v within rel 1e-5 with its -inf and NaN masks equal, log weights
+   within rel 1e-5, flags equal away from log u; and, after phase 4's
+   noisy config 3 leg, K18's stochastic mode at the bench's config 3
+   round (B 131072, that leg's generation-8 temperature and pdf norm),
+   with the Poisson and Laplace bounds at B 65536 and at a small odd
+   shape, each followed by K21a/K21c and K6's record mode with its ring
+   mask: kept slots, statistics, reservoir, completed ring rows and
+   counters bit-identical, its device time beside the p-norm mode's on
+   the same round;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -123,12 +137,28 @@ Phases, one or more lines each:
    off, off, on, counts reset just before: populations, models, weights
    and the epsilon trail bit-identical, model probabilities summing to 1,
    K18's K > 1 mode and the family's range kernel launched; once more
-   under torch.profiler.
+   under torch.profiler. Then noisy config 3 (the JAX package's noisy
+   early-reject test at config 3's shape: IndependentNormalKernel(var=4),
+   StochasticAcceptor(ScaledPDFNorm), Temperature(ExpDecayFixedIter,
+   T0 = 50), pop 16384, 12 generations, G 2, seed 7) and the same with
+   PoissonKernel() on a Poisson-noised observation, each on, off, off,
+   on, counts reset just before: populations, weights, distances and the
+   temperature trail bit-identical, retired > 0, the trail ending at
+   exactly 1, one counter read per round plus one fetch per chunk; the
+   first once more under torch.profiler. Then the unsegmented legs of the
+   other families (NormalKernel, IndependentLaplaceKernel,
+   BinomialKernel on a binomially thinned observation,
+   NegativeBinomialKernel by size and by mean, PoissonKernel(SCALE_LIN);
+   the birth-death model, Temperature(), StochasticAcceptor(), pop 1000,
+   6 generations, seed 3), counts reset before each: the CPU's first two
+   temperatures within 1e-3 of the card's, the History reopened from its
+   file, and for the unbounded kernels (run on the segmented model under
+   "auto") the early-reject fallback recorded with its reason.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K15, K18, K19, K20, K20b, K21a, K21b, K22, K26 and the K > 1
-modes) is replaced by a function that raises, so none can run on the path
-unseen.
+kernel (K1-K15, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
+K22, K26 and the K > 1 modes) is replaced by a function that raises, so
+none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -137,10 +167,12 @@ nonzero without that line. Without a CUDA device it exits nonzero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor)
@@ -178,8 +210,15 @@ PHILOX_KAT = [
 ]
 
 
+#: a file every line also goes to (``--log``), or None
+LOG_FILE = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(msg + "\n")
 
 
 def card_line() -> str:
@@ -976,7 +1015,7 @@ def sir_inputs(dev, B: int, rounds: int = 1):
     import torch
 
     from pyabc_tpu_torch.kernels import philox, propose, sir_simulate
-    from pyabc_tpu_torch.kernels.kernel_accept import normal_logdensity_rows
+    from pyabc_tpu_torch.kernels.kernel_accept import noise_logdensity_rows
     from pyabc_tpu_torch.models import sir
 
     model = sir.make_sir_model()
@@ -991,7 +1030,7 @@ def sir_inputs(dev, B: int, rounds: int = 1):
     x0 = torch.as_tensor(sir.observed_data(seed=11)["infected"],
                          dtype=torch.float32, device=dev)
     var = torch.full((model.n_obs,), 100.0, device=dev)
-    v = normal_logdensity_rows(ss, x0, var)
+    v = noise_logdensity_rows("independent_normal", ss, x0, var)
     return dict(theta=theta, logpri=logpri, ss=ss, x0=x0, var=var, v=v,
                 kw=kw)
 
@@ -3951,6 +3990,571 @@ def scale_cpu_trail(dev) -> None:
           "card's by more than 1e-3")
 
 
+# ----------------------------------------- the noise models (K21c, K18)
+#: K21c's family checks: (label, kernel factory of S); the independent
+#: normal is K21a, checked above at config 4's shapes, and again here
+NOISE_CASES = (
+    ("independent_normal", lambda pt, S: pt.IndependentNormalKernel(
+        var=4.0)),
+    ("laplace", lambda pt, S: pt.IndependentLaplaceKernel(scale=2.0)),
+    ("binomial", lambda pt, S: pt.BinomialKernel(p=0.9)),
+    ("binomial-lin", lambda pt, S: pt.BinomialKernel(
+        p=0.9, ret_scale="SCALE_LIN")),
+    ("poisson", lambda pt, S: pt.PoissonKernel()),
+    ("poisson-lin", lambda pt, S: pt.PoissonKernel(ret_scale="SCALE_LIN")),
+    ("negbin_size", lambda pt, S: pt.NegativeBinomialKernel(p=0.5)),
+    ("negbin_size-lin", lambda pt, S: pt.NegativeBinomialKernel(
+        p=0.5, ret_scale="SCALE_LIN")),
+    ("negbin_mean", lambda pt, S: pt.NegativeBinomialKernel(
+        p=0.4, parameterization="mean")),
+    ("normal", lambda pt, S: pt.NormalKernel(cov=decay_cov(S))),
+    ("normal-lin", lambda pt, S: pt.NormalKernel(cov=decay_cov(S),
+                                                 ret_scale="SCALE_LIN")),
+)
+#: config 3's round: B 65536 lanes, S 20 statistics
+NOISE_B, NOISE_S = 65536, 20
+#: operations an entry of each family takes (lgammaf, logf about 20-30
+#: each); the full normal takes 2 S for its quadratic form
+NOISE_OPS = {"independent_normal": 25, "laplace": 25, "binomial": 140,
+             "poisson": 55, "negbin_size": 138, "negbin_mean": 140}
+
+
+def decay_cov(S: int):
+    import numpy as np
+
+    i = np.arange(S)
+    return 4.0 * 0.5 ** np.abs(i[:, None] - i[None, :])
+
+
+def noise_inputs(dev, B: int, S: int, seed: int) -> dict:
+    """Count-like rows around an observation (mostly at or above it, with
+    zeros, tiny values, half-integers and a NaN among them)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x0 = torch.round(torch.rand(S, generator=g, device=dev) * 60.0)
+    x0[0], x0[1] = 0.0, 2.5
+    ss = x0 + (torch.randn(B, S, generator=g, device=dev) * 5.0).abs()
+    ss[::97] = 0.0
+    ss[1::97] = 1e-12
+    ss[2::97, :3] = torch.tensor([0.5, 1.5, 2.5], device=dev)
+    ss[3, 4] = math.nan
+    return dict(ss=ss.contiguous(), x0=x0.contiguous(),
+                valid=torch.rand(B, generator=g, device=dev) > 0.05,
+                logpri=torch.randn(B, generator=g, device=dev),
+                logq=torch.randn(B, generator=g, device=dev))
+
+
+def noise_case(dev, label: str, make, x: dict, timed: bool) -> dict:
+    """One family and scale: K21a/K21c against its plain version (v within
+    rel 1e-5 with its -inf and NaN masks equal, the log weight within rel
+    1e-5, the flags equal away from log u)."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import (kernel_accept, kernel_accept_plain,
+                                         philox)
+    from pyabc_tpu_torch.kernels.kernel_accept import accept_uniforms
+
+    B, S = x["ss"].shape
+    kern = make(pt, S)
+    kern.initialize(SumStatSpec({"x": [0.0] * S}))
+    lin = kern.ret_scale == "SCALE_LIN"
+    params = kern.device_params(dev)
+    args = (x["ss"], x["x0"], params)
+    v0 = kernel_accept_plain(*args, torch.tensor(1.0, device=dev),
+                             torch.tensor(0.0, device=dev), x["valid"],
+                             stream=stream_on(dev, philox.ACCEPT), lin=lin,
+                             apply_iw=True, family=kern.family)[0]
+    logv = torch.log(v0.clamp_min(1e-30)) if lin else v0
+    fin = torch.isfinite(logv)
+    pdf_norm = torch.quantile(logv[fin].double(), 0.9).float()
+    temp = torch.tensor(5.0, device=dev)
+    stream = stream_on(dev, philox.ACCEPT)
+    kw = dict(stream=stream, lin=lin, apply_iw=True, logpri=x["logpri"],
+              logq=x["logq"], family=kern.family)
+    full = (*args, temp, pdf_norm, x["valid"])
+    v, a, lw = kernel_accept(*full, **kw)
+    v_r, a_r, lw_r = kernel_accept_plain(*full, **kw)
+    masks = (torch.equal(v.isnan(), v_r.isnan())
+             and torch.equal(v.isneginf(), v_r.isneginf()))
+    f = torch.isfinite(v_r)
+    close = (torch.equal(f, torch.isfinite(v)) and bool(
+        ((v - v_r).abs()[f] <= 1e-5 + 1e-5 * v_r.abs()[f]).all()))
+    fw = torch.isfinite(lw_r)
+    close_w = (torch.equal(fw, torch.isfinite(lw)) and bool(
+        ((lw - lw_r).abs()[fw] <= 1e-5 + 1e-5 * lw_r.abs()[fw]).all()))
+    ratio = ((torch.log(v_r.clamp_min(1e-30)) if lin else v_r)
+             - pdf_norm) / temp
+    logu = torch.log(accept_uniforms(stream, B))
+    clear = ~((logu - ratio).abs() <= 1e-5 * (1 + ratio.abs()))
+    flags = bool(torch.equal(a[clear], a_r[clear]))
+    err = max(abs_err(v[f], v_r[f]), abs_err(lw[fw], lw_r[fw]))
+    log(f"K21c kernel_accept {label} (B={B}, S={S}): max_abs_err={err:.3e} "
+        f"(rel 1e-5 of v: {close}, -inf/NaN masks equal: {masks}, log "
+        f"weights {close_w}, flags equal away from log u: {flags}, "
+        f"{int((a != a_r).sum())} apart); finite v {int(f.sum())}/{B}, "
+        f"accepted {int(a.sum())}")
+    check(masks and close and close_w and flags,
+          f"K21c {label}: kernel and plain version disagree")
+    if not timed:
+        return {}
+    fam = kern.family
+    # read the rows, x0, params, flags, logpri and logq once; write v,
+    # accept and the log weight; per entry the family's operations, per
+    # lane one Philox block (~100 integer operations) and ~20 more
+    nbytes = (B * S * 4 + S * 4 + params.numel() * 4 + B
+              + 2 * B * 4 + B * (4 + 1 + 4))
+    per_entry = 2 * S + 2 if fam == "normal" else NOISE_OPS[fam]
+    return dict(
+        err=err, call_ms=time_ms(lambda: kernel_accept(*full, **kw), 100),
+        ms=graph_ms(lambda: kernel_accept(*full, **kw)),
+        plain_ms=time_ms(lambda: kernel_accept_plain(*full, **kw), 10),
+        bound=bound(nbytes, B * (S * per_entry + 120)), library_ms=None)
+
+
+def k21c_checks(dev) -> dict:
+    """Every noise family and scale against its plain version at config
+    3's round (B 65536, S 20) and at a small odd shape (B 257, S 7); the
+    log-scale form of each family timed -> results keyed
+    "kernel_accept:<family>"."""
+    x = noise_inputs(dev, NOISE_B, NOISE_S, seed=81)
+    xs = noise_inputs(dev, 257, 7, seed=82)
+    results = {}
+    for label, make in NOISE_CASES:
+        r = noise_case(dev, label, make, x, timed=not label.endswith("-lin"))
+        noise_case(dev, label + " (small)", make, xs, timed=False)
+        if r:
+            results["kernel_accept:" + label] = r
+    return results
+
+
+def noisy_round(dev, kernel, B: int, seed: int, segments: int = 10,
+                small: dict | None = None):
+    """A prior round of the birth-death model for K18's stochastic mode,
+    with the kernel initialized on its observation."""
+    from pyabc_tpu_torch.models import gillespie as g
+
+    kw = small or {}
+    model = g.make_birth_death_model(segments=segments, **kw)
+    obs = g.observed_birth_death(segments=segments, **kw)
+    x = seg_inputs(dev, model, g.birth_death_prior(), obs, B, seed=seed)
+    kernel.initialize(x["spec"])
+    return model, x
+
+
+def k18_stochastic_case(dev, model, kernel, x, temp, pdf_norm, label: str):
+    """K18's stochastic mode and its plain version on one round, each
+    followed by K21a/K21c (valid = keep) and K6's record mode with the
+    ring mask into fresh buffers: kept slots, statistics, reservoir, ring
+    and counters must be bit-identical -> K18's counters."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (compact_round, kernel_accept,
+                                         philox, segment_round,
+                                         segment_round_plain)
+
+    B, S = x["theta"].shape[0], x["spec"].total_size
+    params = kernel.device_params(dev)
+    acc = dataclasses.replace(x["stream"], tag=philox.ACCEPT)
+    kw = dict(imap=x["imap"], x0=x["x0"], w=params, p=2.0, eps=temp,
+              width=S, noise=kernel.device_bound_fn(), pdf_norm=pdf_norm,
+              accept=acc)
+    outs = []
+    for fn in (segment_round, segment_round_plain):
+        ctr = torch.zeros(4, dtype=torch.int64, device=dev)
+        ss, keep = fn(model.segmented, x["theta"], x["valid"], x["stream"],
+                      seg_ctr=ctr, **kw)
+        v, a, lw = kernel_accept(ss, x["x0"], params, temp, pdf_norm, keep,
+                                 stream=acc, lin=False, apply_iw=True,
+                                 family=kernel.family)
+        d_th = x["theta"].shape[1]
+        res = {"theta": torch.zeros(B, d_th, device=dev),
+               "sumstats": torch.zeros(B, S, device=dev),
+               "distance": torch.zeros(B, device=dev),
+               "log_weight": torch.full((B,), -math.inf, device=dev),
+               "slot": torch.full((B,), -1, dtype=torch.int32, device=dev)}
+        rec = {"sumstats": torch.zeros(B, S, device=dev),
+               "distance": torch.zeros(B, device=dev),
+               "accepted": torch.zeros(B, dtype=torch.bool, device=dev),
+               "valid": torch.zeros(B, dtype=torch.bool, device=dev),
+               "theta": torch.zeros(B, d_th, device=dev),
+               "logq": torch.zeros(B, device=dev)}
+        counters = torch.zeros(4, dtype=torch.int32, device=dev)
+        compact_round(a, x["valid"], x["theta"], ss, v, lw, res, rec,
+                      counters, logq=torch.zeros(B, device=dev),
+                      ring_valid=keep)
+        # the ring's rows of retired slots hold partial statistics: only
+        # its completed rows are compared
+        outs.append((ss, keep, ctr, res, rec, counters))
+    (ss, keep, ctr, res, rec, cnt), (ss_r, keep_r, ctr_r, res_r, rec_r,
+                                     cnt_r) = outs
+    torch.cuda.synchronize()
+    done = rec["valid"]
+    same = (torch.equal(keep, keep_r) and torch.equal(ss[keep], ss_r[keep])
+            and torch.equal(ctr[:3], ctr_r[:3]) and torch.equal(cnt, cnt_r)
+            and all(torch.equal(res[k], res_r[k]) for k in res)
+            and torch.equal(done, rec_r["valid"])
+            and all(torch.equal(rec[k][done], rec_r[k][done]) for k in rec))
+    retired, steps, resolved, slots = (int(c) for c in ctr)
+    n_seg = x["imap"].shape[0]
+    log(f"K18 segment_round stochastic mode {label} ({kernel.family}, "
+        f"B={B}, {n_seg} segments, {int(x['valid'].sum())} valid slots, "
+        f"T={float(temp):.4g}, pdf_norm={float(pdf_norm):.4g}): retired "
+        f"{retired}, segments stepped {steps} of {B * n_seg}, resolved "
+        f"{resolved}, accepted {int(cnt[0])}, ring rows completed "
+        f"{int(done.sum())}, occupancy {steps / max(slots, 1):.4f}; "
+        f"bit-identical to the plain version {same}")
+    check(same, f"K18 stochastic {label}: kept slots, statistics, "
+          f"reservoir, ring or counters differ from the plain version")
+    check(retired > 0 and resolved == B and 0 < steps <= slots,
+          f"K18 stochastic {label}: counters out of range")
+    return ctr
+
+
+def k18_stochastic_checks(dev, temp_late: float, norm_late: float) -> dict:
+    """K18's stochastic mode against its plain version at the bench's
+    config 3 round (B 131072, 10 segments, the independent normal of the
+    noisy config 3 leg at a late generation's T and pdf norm), with the
+    Poisson and Laplace bounds at B 65536 and at a small odd shape (B 256,
+    5 segments, 37 live slots); its device time beside the p-norm mode's
+    on the same round."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (kernel_accept, philox,
+                                         segment_round, segment_round_plain)
+
+    B = C3_BENCH_POP
+    kern = pt.IndependentNormalKernel(var=4.0)
+    model, x = noisy_round(dev, kern, B, seed=3)
+    temp = torch.tensor(temp_late, dtype=torch.float32, device=dev)
+    norm = torch.tensor(norm_late, dtype=torch.float32, device=dev)
+    ctr = k18_stochastic_case(dev, model, kern, x, temp, norm,
+                              "noisy config 3 round")
+    for label, k in (("poisson", pt.PoissonKernel()),
+                     ("laplace", pt.IndependentLaplaceKernel(scale=2.0))):
+        m2, x2 = noisy_round(dev, k, 65536, seed=5)
+        v = kernel_accept(
+            m2.simulate_flat(x2["theta"], None, x2["spec"],
+                             stream=x2["stream"]),
+            x2["x0"], k.device_params(dev),
+            torch.tensor(math.inf, device=dev),
+            torch.tensor(0.0, device=dev), x2["valid"],
+            stream=dataclasses.replace(x2["stream"], tag=philox.ACCEPT),
+            lin=False, apply_iw=True, family=k.family)[0]
+        n2 = torch.quantile(v[torch.isfinite(v)].double(), 0.9).float()
+        k18_stochastic_case(dev, m2, k, x2, torch.tensor(3.0, device=dev),
+                            n2, f"{label} round")
+    small = dict(n_leaps=100, n_obs=20)
+    ks = pt.IndependentNormalKernel(var=4.0)
+    ms_, xs = noisy_round(dev, ks, 256, seed=4, segments=5, small=small)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    live = torch.zeros(256, dtype=torch.bool, device=dev)
+    live[torch.randperm(256, generator=gen, device=dev)[:37]] = True
+    xs["valid"] = xs["valid"] & live
+    k18_stochastic_case(dev, ms_, ks, xs, torch.tensor(2.0, device=dev),
+                        torch.tensor(float(ks.pdf_max) - 40.0, device=dev),
+                        "small odd shape")
+
+    S = x["spec"].total_size
+    params = kern.device_params(dev)
+    acc = dataclasses.replace(x["stream"], tag=philox.ACCEPT)
+    scratch = torch.zeros(4, dtype=torch.int64, device=dev)
+    kw = dict(imap=x["imap"], x0=x["x0"], w=params, p=2.0, eps=temp,
+              width=S, seg_ctr=scratch, noise=kern.device_bound_fn(),
+              pdf_norm=norm, accept=acc)
+
+    def noisy():
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], **kw)
+
+    d = (model.simulate_flat(x["theta"], None, x["spec"], stream=x["stream"])
+         - x["x0"]).square().sum(1).sqrt()
+    eps_p = torch.quantile(d[x["valid"]], 0.02)
+    w1 = torch.ones(S, device=dev)
+
+    def pnorm():
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], imap=x["imap"], x0=x["x0"], w=w1,
+                             p=2.0, eps=eps_p, width=S, seg_ctr=scratch)
+
+    ms = graph_ms(noisy, iters=10, replays=3)
+    ms_p = graph_ms(pnorm, iters=10, replays=3)
+    ms_again = graph_ms(noisy, iters=10, replays=3)
+    ctr_p = torch.zeros(4, dtype=torch.int64, device=dev)
+    segment_round(model.segmented, x["theta"], x["valid"], x["stream"],
+                  imap=x["imap"], x0=x["x0"], w=w1, p=2.0, eps=eps_p,
+                  width=S, seg_ctr=ctr_p)
+    log(f"K18 device ms per noisy config 3 round (B={B}): stochastic mode "
+        f"{ms:.4f} / {ms_again:.4f} ({int(ctr[1])} segment steps); p-norm "
+        f"mode on the same round {ms_p:.4f} ({int(ctr_p[1])} segment "
+        f"steps, eps at the valid slots' 2 % distance quantile)")
+    t0 = time.perf_counter()
+    segment_round_plain(model.segmented, x["theta"], x["valid"],
+                        x["stream"], **{**kw, "seg_ctr": torch.zeros(
+                            4, dtype=torch.int64, device=dev)})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    spec = model.chain.kernel[1]
+    return dict(err=0.0, call_ms=time_ms(noisy, 10), ms=ms,
+                plain_ms=plain_ms,
+                bound=bound(B * (2 + S) * 4, int(ctr[1]) * spec.leaps_per_seg
+                            * spec.n_rates * OPS_PER_DRAW),
+                library_ms=None, ms_pnorm_mode=ms_p)
+
+
+#: the noisy config 3 legs (the JAX package's noisy early-reject test,
+#: tests/test_segment.py:358-372, at config 3's shape): pop cut to 16384
+#: as config 3's, 12 generations, chunks of 2, seed 7. The norm is
+#: ScaledPDFNorm: under the default max-found norm it is the kernel's
+#: pdf_max, some 100 log units above any simulation's log-density at S =
+#: 20, and T = 1 accepts nothing
+NC3_GENS, NC3_T0 = 12, 50.0
+#: the kernels of the noisy config 3 path with early reject on (K18's
+#: stochastic mode) and off (K19)
+NC3_PATH = ("propose", "mvn_mixture_logpdf", "segment_round", "tau_leap",
+            "kernel_accept", "compact_round", "normalize_quantile",
+            "mvn_fit", "pack_fetch", "generation_health",
+            "temperature_update")
+#: K21a/K21c's rows: each family and the line of its JAX device_fn
+K21C_LINES = (("independent_normal", 176), ("normal", 124),
+              ("laplace", 254), ("binomial", 314), ("poisson", 370),
+              ("negbin_size", 450), ("negbin_mean", 450))
+#: the families of the unsegmented legs: pop 1000, 6 generations
+FAM_POP, FAM_GENS, FAM_SEED = 1000, 6, 3
+
+
+def poisson_observation():
+    """The birth-death observation with Poisson noise (numpy, seed 0)."""
+    import numpy as np
+
+    from pyabc_tpu_torch.models import gillespie as g
+
+    rng = np.random.default_rng(0)
+    return {k: rng.poisson(np.maximum(np.asarray(v), 0.0)).astype(float)
+            for k, v in g.observed_birth_death(segments=C3_SEGS).items()}
+
+
+def noisy_config3(where, early, kind: str, pop: int | None = None):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gillespie as g
+
+    if kind == "poisson":
+        kern, obs = pt.PoissonKernel(), poisson_observation()
+    else:
+        kern = pt.IndependentNormalKernel(var=4.0)
+        obs = g.observed_birth_death(segments=C3_SEGS)
+    abc = pt.ABCSMC(
+        g.make_birth_death_model(segments=C3_SEGS), g.birth_death_prior(),
+        kern, population_size=pop or C3_POP,
+        eps=pt.Temperature(schemes=[pt.ExpDecayFixedIterScheme()],
+                           initial_temperature=NC3_T0),
+        acceptor=pt.StochasticAcceptor(pdf_norm_method=pt.ScaledPDFNorm()),
+        seed=C3_SEED, early_reject=early, fused_generations=C3_G,
+        device=where)
+    abc.new("sqlite://", obs, store_sum_stats=False)
+    return abc
+
+
+def noisy_config3_run(dev, kind: str):
+    """A noisy config 3 leg on the card with early reject on, off, off,
+    on, the counts reset just before the first and read after each:
+    populations, weights, distances and the temperature trail
+    bit-identical, retired > 0, the trail ending at exactly 1, one counter
+    read per round plus one fetch per chunk -> (counts of the four runs,
+    modes, the on-run's temperatures and pdf norms)."""
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = f"noisy config 3 ({kind})"
+    runs = []
+    reset_launch_counts()
+    for early in TURNS:
+        abc = noisy_config3(dev, early, kind)
+        h, wall, counts = seg_run(abc, NC3_GENS, label)
+        runs.append((early, abc, h, wall, counts))
+    counts = {k: sum(r[4][k] for r in runs) for k in runs[0][4]}
+    (_e, a_on, h_on, _w, c_on), (_e2, a_off, h_off, _w2, c_off) = runs[:2]
+    n_gen = h_on.max_t + 1
+    temps = [float(e) for e in h_on.get_all_populations()["epsilon"][1:]]
+    trails = [[float(e) for e in r[2].get_all_populations()["epsilon"][1:]]
+              for r in runs]
+    same = all(populations_identical(h_on, r[2]) for r in runs[1:])
+    tot = seg_totals(h_on)
+    saved = 1.0 - tot["seg_steps"] / max(tot["seg_resolved"] * C3_SEGS, 1)
+    for early, abc, h, wall, _c in runs:
+        tag = "on" if early == "auto" else "off"
+        syncs = abc.sync_ledger.summary()
+        split = {k: sum(g[k] for g in abc.generation_log)
+                 for k in ("compute_s", "fetch_s", "persist_s")}
+        log(f"{label} early reject {tag}: pop={C3_POP} gens={h.max_t + 1} "
+            f"wall_s={wall:.3f} accepted_particles_per_s="
+            f"{C3_POP * (h.max_t + 1) / wall:.1f} syncs_per_generation="
+            f"{syncs['syncs'] / (h.max_t + 1):.2f} rounds "
+            f"{[g['rounds'] for g in abc.generation_log]} "
+            f"{syncs['by_kind']}; host seconds, rounds + steps "
+            f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
+            f"persist {split['persist_s']:.3f}")
+        sync_check(abc, f"{label} {tag}")
+    norms = [a_on.acceptor.pdf_norms[t] for t in sorted(
+        a_on.acceptor.pdf_norms)]
+    log(f"{label}: temperature trail {[round(t, 4) for t in temps]}; pdf "
+        f"norms {[round(v, 3) for v in norms]}; acceptance "
+        f"{[round(g['acceptance_rate'], 5) for g in a_off.generation_log]}")
+    log(f"{label}: populations, weights, distances and the temperature "
+        f"trail bit-identical on and off in every generation {same}; "
+        f"retired_early {tot['retired_early']}, seg_steps "
+        f"{tot['seg_steps']}, seg_resolved {tot['seg_resolved']}, "
+        f"sim_work_saved_frac {saved:.4f}, segment_occupancy per "
+        f"generation {tot['occupancy']}; posterior means on "
+        f"{post_means(h_on)} off {post_means(h_off)}")
+    log(f"{label}: kernel launches on {c_on} off {c_off}")
+    check(n_gen == NC3_GENS and h_off.max_t + 1 == NC3_GENS,
+          f"{label} ran {n_gen} / {h_off.max_t + 1} of {NC3_GENS} "
+          f"generations")
+    check(same and all(t == trails[0] for t in trails),
+          f"{label}: populations differ with early reject on and off")
+    check(temps[-1] == 1.0 and all(b <= a for a, b in zip(temps,
+                                                          temps[1:])),
+          f"{label}: temperature trail not non-increasing to exactly 1")
+    check(tot["retired_early"] > 0, f"{label}: no lane retired early")
+    check(c_on["segment_round:stochastic"] == c_on["segment_round"] > 0
+          and c_off["tau_leap"] > 0 and c_off["segment_round"] == 0,
+          f"{label}: K18's stochastic mode (on) or K19 (off) never ran")
+    fam = a_on.distance_function.family
+    check(c_on[f"kernel_accept:{fam}"] == c_on["kernel_accept"] > 0,
+          f"{label}: the {fam} accept kernel never ran")
+    check(all(counts[k] > 0 for k in NC3_PATH),
+          f"a kernel of the {label} path was never launched")
+    return counts, temps, norms
+
+
+def family_leg(where, kind: str, early="auto"):
+    """An unsegmented noise-model leg: the birth-death model (K19) under
+    the defaults, Temperature() and StochasticAcceptor() (the
+    acceptance-rate and exponential-decay schemes, the max-found norm);
+    the unbounded kernels run the segmented model under "auto", so that
+    the fallback is recorded (K19 serves it all the same)."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gillespie as g
+
+    obs = g.observed_birth_death()
+    segments = C3_SEGS if segments_of(kind) else None
+    if kind == "normal":
+        kern = pt.NormalKernel(cov=decay_cov(20))
+    elif kind == "laplace":
+        kern = pt.IndependentLaplaceKernel(scale=2.0)
+    elif kind == "binomial":
+        kern = pt.BinomialKernel(p=0.9)
+        rng = np.random.default_rng(0)
+        obs = {k: rng.binomial(np.maximum(np.round(np.asarray(v)), 0)
+                               .astype(np.int64), 0.9).astype(float)
+               for k, v in obs.items()}
+    elif kind.startswith("negbin"):
+        kern = (pt.NegativeBinomialKernel(p=0.4, parameterization="mean")
+                if kind == "negbin-mean" else
+                pt.NegativeBinomialKernel(p=0.5))
+    else:
+        kern = pt.PoissonKernel(ret_scale="SCALE_LIN")
+        obs = poisson_observation()
+    if segments is not None:
+        obs = {k: np.asarray(v) for k, v in obs.items()}
+    abc = pt.ABCSMC(
+        g.make_birth_death_model(segments=segments), g.birth_death_prior(),
+        kern, population_size=FAM_POP, eps=pt.Temperature(),
+        acceptor=pt.StochasticAcceptor(), seed=FAM_SEED,
+        early_reject=early, device=where)
+    return abc, obs
+
+
+def segments_of(kind: str) -> bool:
+    """The unbounded kernels' legs run the segmented model (see
+    ``family_leg``)."""
+    return kind in ("normal", "negbin", "negbin-mean", "poisson-lin")
+
+
+FAMILY_LEGS = ("normal", "laplace", "binomial", "negbin", "negbin-mean",
+               "poisson-lin")
+
+
+def family_runs(dev, tmpdir) -> dict:
+    """Each remaining family once on the card (counts reset just before
+    and read just after), its History reopened from its sqlite file, the
+    same seed on the CPU for its first two temperatures (within 1e-3),
+    and the fallback "auto" records for the unbounded kernels ->
+    {leg: launch counts}."""
+    import os
+
+    import torch
+
+    from pyabc_tpu_torch import History
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    out = {}
+    for kind in FAMILY_LEGS:
+        label = f"birth-death, {kind} noise"
+        abc, obs = family_leg(dev, kind)
+        db = os.path.join(tmpdir, f"{kind}.db")
+        abc.new("sqlite:///" + db, obs)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with plain_versions_raise():
+            t0 = time.perf_counter()
+            h = abc.run(max_nr_populations=FAM_GENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts() | mode_launch_counts()
+        temps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+        n0 = abc.generation_log[0]["n_valid"]
+        cpu, _obs = family_leg("cpu", kind)
+        cpu.new("sqlite://", obs)
+        t1 = time.perf_counter()
+        hc = cpu.run(max_nr_populations=FAM_GENS,
+                     max_total_nr_simulations=n0 + 1)
+        cpu_temps = [float(e) for e in
+                     hc.get_all_populations()["epsilon"][1:]]
+        reopened = History("sqlite:///" + db)
+        df, w = reopened.get_distribution(m=0, t=reopened.max_t)
+        fam = abc.distance_function.family
+        syncs = abc.sync_ledger.summary()
+        log(f"{label} ({fam}): pop={FAM_POP} gens={len(temps)} wall_s="
+            f"{wall:.3f} syncs_per_generation="
+            f"{syncs['syncs'] / max(len(temps), 1):.2f} rounds "
+            f"{[g['rounds'] for g in abc.generation_log]}; temperatures "
+            f"{[round(t, 4) for t in temps]}; the CPU's "
+            f"{[round(t, 4) for t in cpu_temps]} "
+            f"({time.perf_counter() - t1:.1f} s); History reopened: "
+            f"{reopened.max_t + 1} generations, {len(df)} particles, "
+            f"weights sum {float(w.sum()):.6f}; fallbacks "
+            f"{abc.capability_fallbacks}")
+        check(len(temps) >= 2 and len(cpu_temps) >= 2 and all(
+            abs(a - b) <= 1e-3 * abs(b)
+            for a, b in zip(temps[:2], cpu_temps[:2])),
+              f"{label}: the CPU's first two temperatures differ from the "
+              f"card's by more than 1e-3")
+        check(reopened.max_t == h.max_t and len(df) == FAM_POP
+              and abs(float(w.sum()) - 1.0) < 1e-6,
+              f"{label}: the History does not reopen whole")
+        check(counts[f"kernel_accept:{fam}"] == counts["kernel_accept"] > 0
+              and counts["segment_round"] == 0 and counts["tau_leap"] > 0,
+              f"{label}: the {fam} accept kernel or K19 never ran")
+        if segments_of(kind):
+            fb = abc.capability_fallbacks
+            check(len(fb) == 1 and fb[0]["gate"] == "early_reject"
+                  and "no monotone log-density upper bound" in fb[0]["reason"]
+                  and h.get_telemetry(0)["capability_fallbacks"] == fb,
+                  f"{label}: the early-reject fallback was not recorded "
+                  f"with the JAX package's reason")
+        out[kind] = counts
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3983,6 +4587,7 @@ def main() -> int:
     results.update(k22_checks(dev))
     results.update(k18_mode_checks(dev))
     results.update(local_checks(dev))
+    results.update(k21c_checks(dev))
     gaussian_toy(dev)
     noisy_anchor(dev)
     pair_anchor(dev)
@@ -4013,8 +4618,19 @@ def main() -> int:
     profile_run("scale lane (LV, LocalTransition)", scale_lane(dev),
                 SCALE_GENS)
     scale_cpu_trail(dev)
-    # K18's phase-2 check takes its eps from generation 6 of config 3
+    nc3 = {kind: noisy_config3_run(dev, kind)
+           for kind in ("independent_normal", "poisson")}
+    profile_run("noisy config 3 (independent normal, early reject on)",
+                noisy_config3(dev, "auto", "independent_normal"), NC3_GENS)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        fam_counts = family_runs(dev, tmpdir)
+    # K18's phase-2 check takes its eps from generation 6 of config 3,
+    # its stochastic mode T and the pdf norm from generation 8 of the
+    # noisy config 3 leg
     results["segment_round"] = k18_checks(dev, c3_eps[6])
+    _c, nc3_temps, nc3_norms = nc3["independent_normal"]
+    results["segment_round:stochastic"] = k18_stochastic_checks(
+        dev, nc3_temps[8], nc3_norms[8])
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -4051,7 +4667,11 @@ def main() -> int:
                                  "scale_lane": scale_counts[k.name],
                                  "adaptive_config3": ad_counts[k.name],
                                  "zoo_model_selection":
-                                     zms_counts[k.name]},
+                                     zms_counts[k.name],
+                                 "noisy_config3_normal":
+                                     nc3["independent_normal"][0][k.name],
+                                 "noisy_config3_poisson":
+                                     nc3["poisson"][0][k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips"):
@@ -4085,6 +4705,38 @@ def main() -> int:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
                 "bound_by": rec["bound"][1], "library_ms": None}
         kernels.append(entry)
+    # K21a/K21c by family and K18's stochastic mode, their launches from
+    # the legs that run them
+    nc3_n, nc3_p = nc3["independent_normal"][0], nc3["poisson"][0]
+    own = {"independent_normal": nc3_n["kernel_accept:independent_normal"],
+           "poisson": (nc3_p["kernel_accept:poisson"]
+                       + fam_counts["poisson-lin"]["kernel_accept:poisson"]),
+           "laplace": fam_counts["laplace"]["kernel_accept:laplace"],
+           "binomial": fam_counts["binomial"]["kernel_accept:binomial"],
+           "negbin_size": fam_counts["negbin"]["kernel_accept:negbin_size"],
+           "negbin_mean": fam_counts["negbin-mean"][
+               "kernel_accept:negbin_mean"],
+           "normal": fam_counts["normal"]["kernel_accept:normal"]}
+    rows = [(f"kernel_accept:{fam}", "pyabc_tpu_torch/csrc/kernel_accept.cu",
+             f"pyabc_tpu/distance/kernel.py:{line}", n)
+            for (fam, line), n in zip(K21C_LINES, (own[f] for f, _l in
+                                                   K21C_LINES))]
+    rows.append(("segment_round:stochastic",
+                 "pyabc_tpu_torch/csrc/segment_round.cu",
+                 "pyabc_tpu/inference/util.py:1118",
+                 nc3_n["segment_round:stochastic"]
+                 + nc3_p["segment_round:stochastic"]))
+    for name, source, replaces, launches in rows:
+        r = results[name]
+        check(launches > 0, f"{name} was never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"ms_pnorm_mode": r["ms_pnorm_mode"]}
+               if "ms_pnorm_mode" in r else {})})
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -4094,4 +4746,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--log" in sys.argv:
+        LOG_FILE = sys.argv[sys.argv.index("--log") + 1]
     sys.exit(main())

@@ -10,7 +10,9 @@ from .acceptor import (ScaledPDFNorm, StochasticAcceptor, UniformAcceptor,
                        pdf_norm_from_kernel, pdf_norm_max_found)
 from .core import RV, Distribution, ParameterSpace, Population
 from .distance import (SCALE_LIN, SCALE_LOG, AdaptivePNormDistance,
-                       IndependentNormalKernel, PNormDistance,
+                       BinomialKernel, IndependentLaplaceKernel,
+                       IndependentNormalKernel, NegativeBinomialKernel,
+                       NormalKernel, PNormDistance, PoissonKernel,
                        StochasticKernel)
 from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
                       Epsilon, EssScheme, ExpDecayFixedIterScheme,
@@ -28,13 +30,14 @@ from .transition import (LocalTransition, ModelPerturbationKernel,
 
 __all__ = [
     "ABCSMC", "AcceptanceRateScheme", "AdaptivePNormDistance",
-    "ConstantEpsilon", "ConstantPopulationSize", "DalyScheme",
-    "DegenerateRunError", "Distribution", "Epsilon", "EssScheme",
-    "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
-    "FrielPettittScheme", "History", "IndependentNormalKernel",
-    "ListEpsilon", "ListTemperature", "LocalTransition", "MedianEpsilon",
-    "ModelPerturbationKernel", "MultivariateNormalTransition",
-    "PNormDistance", "ParameterSpace",
+    "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
+    "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
+    "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
+    "FrielPettittScheme", "History", "IndependentLaplaceKernel",
+    "IndependentNormalKernel", "ListEpsilon", "ListTemperature",
+    "LocalTransition", "MedianEpsilon", "ModelPerturbationKernel",
+    "MultivariateNormalTransition", "NegativeBinomialKernel",
+    "NormalKernel", "PNormDistance", "ParameterSpace", "PoissonKernel",
     "PolynomialDecayFixedIterScheme", "Population", "QuantileEpsilon", "RV",
     "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
     "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",

@@ -130,3 +130,30 @@ def carry(jax_carry: tuple, device=None, mpk=None) -> Carry:
         pdf_norm=_f32(acc_state[0], device),
         max_found=_f32(acc_state[1], device),
         daly_k=_f32(acc_state[2], device), **common)
+
+
+def noise_kernel(kernel):
+    """A JAX package noise kernel -> the port's, built from its constructor
+    arguments (cov, var, scale, p, ret_scale, parameterization, keys), read
+    by attribute: nothing of the JAX package is imported. The port's kernel
+    is initialized by its ``ABCSMC`` as usual."""
+    from .distance import kernel as k
+
+    name = type(kernel).__name__
+    keys = getattr(kernel, "keys", None)
+    ret = getattr(kernel, "ret_scale", k.SCALE_LOG)
+    if name == "NormalKernel":
+        return k.NormalKernel(cov=kernel._cov_arg, ret_scale=ret, keys=keys)
+    if name == "IndependentNormalKernel":
+        return k.IndependentNormalKernel(var=kernel.var, keys=keys)
+    if name == "IndependentLaplaceKernel":
+        return k.IndependentLaplaceKernel(scale=kernel.scale, keys=keys)
+    if name == "BinomialKernel":
+        return k.BinomialKernel(kernel.p, ret_scale=ret, keys=keys)
+    if name == "PoissonKernel":
+        return k.PoissonKernel(ret_scale=ret, keys=keys)
+    if name == "NegativeBinomialKernel":
+        return k.NegativeBinomialKernel(
+            kernel.p, ret_scale=ret, keys=keys,
+            parameterization=kernel.parameterization)
+    raise ValueError(f"no port of the noise kernel {name}")

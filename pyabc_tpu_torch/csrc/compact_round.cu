@@ -15,6 +15,10 @@
 //     log-density of the proposal it was drawn from
 //     (_generation_while(record_proposal=True)); with null pointers the
 //     kernel does exactly the work it did without the mode;
+//   - ring mask (segmented noisy ABC: ring_valid given): the ring row of a
+//     valid lane gets valid = ring_valid[lane] in place of 1, so a slot
+//     that K18 retired is recorded invalid (its statistics are partial),
+//     while n_valid still counts it as evaluated; nullptr: valid = 1;
 //   - model column (a run over several models: m and res_m given): the
 //     lane's model index goes to res_m at the lane's reservoir row, like
 //     its slot; with null pointers nothing of it runs;
@@ -47,7 +51,8 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
                      const float* __restrict__ dist,
                      const float* __restrict__ logw,
                      const float* __restrict__ logq,
-                     const int* __restrict__ m, int n_cap,
+                     const int* __restrict__ m,
+                     const uint8_t* __restrict__ ring_valid, int n_cap,
                      float* __restrict__ res_theta, float* __restrict__ res_ss,
                      float* __restrict__ res_dist,
                      float* __restrict__ res_logw, int* __restrict__ res_slot,
@@ -103,7 +108,7 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
       const int q = s_ring[tid];
       rec_dist[q] = dist[i];
       rec_acc[q] = (uint8_t)a;
-      rec_valid[q] = 1;
+      rec_valid[q] = ring_valid != nullptr ? ring_valid[i] : 1;
       if (record) rec_logq[q] = logq[i];
     }
     const int cnt = min(kThreads, B - start);
@@ -138,7 +143,8 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
 extern "C" int pyabc_compact_round(
     int B, int S, int d, const uint8_t* accept, const uint8_t* valid,
     const float* theta, const float* ss, const float* dist, const float* logw,
-    const float* logq, const int* m, int n_cap, float* res_theta,
+    const float* logq, const int* m, const uint8_t* ring_valid, int n_cap,
+    float* res_theta,
     float* res_ss, float* res_dist, float* res_logw, int* res_slot,
     int* res_m, int rec_cap, float* rec_ss, float* rec_dist, uint8_t* rec_acc,
     uint8_t* rec_valid, float* rec_theta, float* rec_logq, int* counters,
@@ -149,7 +155,8 @@ extern "C" int pyabc_compact_round(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   compact_round_kernel<<<1, kThreads, 0, stream>>>(
-      B, S, d, accept, valid, theta, ss, dist, logw, logq, m, n_cap,
+      B, S, d, accept, valid, theta, ss, dist, logw, logq, m, ring_valid,
+      n_cap,
       res_theta, res_ss, res_dist, res_logw, res_slot, res_m, rec_cap, rec_ss,
       rec_dist, rec_acc, rec_valid, rec_theta, rec_logq, counters);
   return static_cast<int>(cudaGetLastError());

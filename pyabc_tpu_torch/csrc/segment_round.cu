@@ -43,6 +43,19 @@
 // thread), so segment_occupancy = [1] / [3]. The retired rows' unstepped
 // statistics are left as they were: nothing reads them.
 //
+// Noisy mode (a StochasticAcceptor, K = 1; util.py:1115-1134): the Bound
+// template parameter is NoiseBound, an UPPER bound on the noise kernel's
+// log-density (noise.cuh: the independent normal and Laplace start at
+// their pdf_max and subtract each entry's deficit, log-scale binomial and
+// Poisson start at 0 and add their log-pmfs). Slot s's threshold is
+// thr_s = pdf_norm + T log(u_s), u_s the very uniform K21a draws for that
+// row (word 0 of block 0 of philox_lane(accept key, s, gen, ACCEPT,
+// max_rounds, round)); the slot retires when acc < thr_s - (1e-3 + 1e-4
+// |acc|) (_upper_exceeds), so only a slot whose already-drawn accept test
+// cannot pass retires. T = +inf (the calibration) or u_s = 0 never
+// retires: an explicit branch, not inf * 0 arithmetic. T and pdf_norm are
+// device scalars. The p-norm's lower bound is the other Bound, PNormBound.
+//
 // Bound on an H100: operations (the steps' Philox and log work), as K19;
 // the point of the kernel is to do fewer of them. A slot's noise is keyed
 // by the slot, so which thread runs a slot changes no number; only [3]
@@ -50,6 +63,7 @@
 #include <cooperative_groups.h>
 
 #include "network_sir.cuh"
+#include "noise.cuh"
 #include "ode_family.cuh"
 #include "tau_leap.cuh"
 
@@ -61,11 +75,19 @@ constexpr int kThreads = 128;
 using pyabc::kMaxModels;
 using pyabc::SegModels;
 
-struct Bound {
+// the p-norm's lower bound: (w |v - x0|)^p summed per segment (p = inf:
+// the running max), retired above lim = (thr (1 + rtol))^p
+struct PNormBound {
   const float* x0;
   const float* w;
   float p;
   float lim;  // (thr (1 + rtol))^p, or thr (1 + rtol) at p = inf
+
+  __device__ float init() const { return 0.f; }
+  __device__ float threshold(uint32_t /*slot*/, uint32_t /*round*/) const {
+    return lim;
+  }
+  __device__ bool exceeds(float acc, float thr) const { return acc > thr; }
 
   // fold one segment's values (emission order) into acc
   __device__ float fold(float acc, const float* vals, const int* cols,
@@ -88,6 +110,59 @@ struct Bound {
   }
 };
 
+// the accept stream K21a draws each row's uniform from
+struct AcceptStream {
+  uint32_t k0, k1, gen, tag, max_rounds;
+};
+
+// the noise kernel's upper bound on the log-density (noise.cuh), retired
+// against each slot's pre-committed threshold
+struct NoiseBound {
+  const float* x0;
+  const float* par;  // the column's variance, Laplace b or binomial p
+  int family;
+  float init_value;  // pdf_max (normal, Laplace) or 0 (binomial, Poisson)
+  float temp, pdf_norm;
+  AcceptStream acc_stream;
+
+  __device__ float init() const { return init_value; }
+  __device__ float threshold(uint32_t slot, uint32_t round) const {
+    if (!isfinite(temp)) return -INFINITY;  // T = +inf: never retires
+    const float u = pyabc::philox_lane(acc_stream.k0, acc_stream.k1, slot,
+                                       acc_stream.gen, acc_stream.tag,
+                                       acc_stream.max_rounds, round)
+                        .uniform(0, 0);
+    if (u == 0.f) return -INFINITY;  // certainly accepted: never retires
+    return __fadd_rn(pdf_norm, __fmul_rn(temp, logf(u)));
+  }
+  __device__ bool exceeds(float acc, float thr) const {
+    return pyabc::upper_exceeds(acc, thr);
+  }
+  __device__ float fold(float acc, const float* vals, const int* cols,
+                        int n) const {
+    float s = 0.f;
+    for (int k = 0; k < n; ++k) {
+      const int c = cols[k];
+      s = __fadd_rn(s, pyabc::bound_entry(family, vals[k], x0[c], par[c]));
+    }
+    return pyabc::bound_update(family, acc, s);
+  }
+};
+
+// what either bound reads, passed by value; each Bound builds itself from
+// it on the device (the thresholds are device scalars)
+struct BoundArgs {
+  const float* x0;
+  const float* w;         // p-norm weights, or the noise columns' params
+  float p;
+  const float* eps;       // p-norm threshold, or the temperature T
+  const float* hist_min;  // use_complete_history's minimum (p-norm)
+  int noise_family;       // -1: the p-norm bound
+  float noise_init;
+  const float* pdf_norm;
+  AcceptStream acc_stream;
+};
+
 __device__ __forceinline__ float bound_limit(float thr, float p) {
   const float t = __fmul_rn(thr, 1.0001f);
   if (isinf(p) || p == 1.f) return t;
@@ -95,25 +170,32 @@ __device__ __forceinline__ float bound_limit(float thr, float p) {
   return powf(t, p);
 }
 
-template <class Step>
+__device__ __forceinline__ PNormBound make_bound(const BoundArgs& a,
+                                                 PNormBound*) {
+  float thr = a.eps[0];
+  if (a.hist_min != nullptr) thr = fminf(thr, a.hist_min[0]);
+  return PNormBound{a.x0, a.w, a.p, bound_limit(thr, a.p)};
+}
+
+__device__ __forceinline__ NoiseBound make_bound(const BoundArgs& a,
+                                                 NoiseBound*) {
+  return NoiseBound{a.x0,     a.w,           a.noise_family, a.noise_init,
+                    a.eps[0], a.pdf_norm[0], a.acc_stream};
+}
+
+template <class Step, class Bound>
 __global__ void __launch_bounds__(kThreads)
 segment_round_kernel(SegModels models, int K,
                      const int* __restrict__ m_lane,
                      const float* __restrict__ theta,
                      int stride, const uint8_t* __restrict__ valid, int B,
-                     const int* __restrict__ imap,
-                     const float* __restrict__ x0,
-                     const float* __restrict__ w, float p,
-                     const float* __restrict__ eps,
-                     const float* __restrict__ hist_min, int S,
+                     const int* __restrict__ imap, BoundArgs bargs, int S,
                      float* __restrict__ ss, uint8_t* __restrict__ keep,
                      int* __restrict__ nseg, int* __restrict__ next_slot,
                      unsigned long long* __restrict__ seg_ctr, uint32_t k0,
                      uint32_t k1, uint32_t gen, uint32_t tag,
                      uint32_t max_rounds, const int* __restrict__ counters) {
-  float thr = eps[0];
-  if (hist_min != nullptr) thr = fminf(thr, hist_min[0]);
-  const Bound bound{x0, w, p, bound_limit(thr, p)};
+  const Bound bound = make_bound(bargs, static_cast<Bound*>(nullptr));
   const uint32_t round = (uint32_t)counters[1];
   const int n_seg = models.m[0].n_seg, seg_size = models.m[0].seg_size;
   float vals[Step::kMaxSeg];
@@ -122,7 +204,7 @@ segment_round_kernel(SegModels models, int K,
   pyabc::SegModel m = models.m[0];
   int slot = -1, seg = 0;
   bool ok = false;
-  float acc = 0.f;
+  float acc = 0.f, thr = 0.f;
   unsigned steps = 0, retired = 0, resolved = 0;
   while (true) {
     if (slot < 0) {
@@ -139,7 +221,8 @@ segment_round_kernel(SegModels models, int K,
                                round);
       ok = valid[slot] != 0;
       seg = 0;
-      acc = 0.f;
+      acc = bound.init();
+      thr = bound.threshold((uint32_t)slot, round);
     }
     float* row = ss + (size_t)slot * S;
     const int* cols = imap + (size_t)seg * seg_size;
@@ -155,7 +238,7 @@ segment_round_kernel(SegModels models, int K,
       if (nseg != nullptr) nseg[slot] = seg;
       ++resolved;
       slot = -1;
-    } else if (!ok || acc > bound.lim) {
+    } else if (!ok || bound.exceeds(acc, thr)) {
       keep[slot] = 0;
       if (nseg != nullptr) nseg[slot] = seg;
       ++retired;
@@ -176,11 +259,10 @@ segment_round_kernel(SegModels models, int K,
   }
 }
 
-template <class Step>
+template <class Step, class Bound>
 int launch(const SegModels& ms, int K, const int* m_lane, int threads,
            const float* theta, int stride, const uint8_t* valid, int B,
-           const int* imap, const float* x0, const float* w, float p,
-           const float* eps, const float* hist_min, int S, float* ss,
+           const int* imap, const BoundArgs& bargs, int S, float* ss,
            uint8_t* keep, int* nseg, int* next_slot,
            unsigned long long* seg_ctr, unsigned k0, unsigned k1,
            unsigned gen, unsigned tag, unsigned max_rounds,
@@ -190,17 +272,38 @@ int launch(const SegModels& ms, int K, const int* m_lane, int threads,
   cudaError_t err = cudaMemsetAsync(next_slot, 0, sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (threads + kThreads - 1) / kThreads;
-  segment_round_kernel<Step><<<grid, kThreads, 0, stream>>>(
-      ms, K, m_lane, theta, stride, valid, B, imap, x0, w, p, eps, hist_min,
-      S, ss, keep, nseg, next_slot, seg_ctr, k0, k1, gen, tag, max_rounds,
-      counters);
+  segment_round_kernel<Step, Bound><<<grid, kThreads, 0, stream>>>(
+      ms, K, m_lane, theta, stride, valid, B, imap, bargs, S, ss, keep, nseg,
+      next_slot, seg_ctr, k0, k1, gen, tag, max_rounds, counters);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Step>
+int launch_bound(const SegModels& ms, int K, const int* m_lane, int threads,
+                 const float* theta, int stride, const uint8_t* valid, int B,
+                 const int* imap, const BoundArgs& bargs, int S, float* ss,
+                 uint8_t* keep, int* nseg, int* next_slot,
+                 unsigned long long* seg_ctr, unsigned k0, unsigned k1,
+                 unsigned gen, unsigned tag, unsigned max_rounds,
+                 const int* counters, cudaStream_t stream) {
+  if (bargs.noise_family < 0)
+    return launch<Step, PNormBound>(ms, K, m_lane, threads, theta, stride,
+                                    valid, B, imap, bargs, S, ss, keep, nseg,
+                                    next_slot, seg_ctr, k0, k1, gen, tag,
+                                    max_rounds, counters, stream);
+  return launch<Step, NoiseBound>(ms, K, m_lane, threads, theta, stride,
+                                  valid, B, imap, bargs, S, ss, keep, nseg,
+                                  next_slot, seg_ctr, k0, k1, gen, tag,
+                                  max_rounds, counters, stream);
 }
 
 }  // namespace
 
 // models: K descriptors of one kind; m: the slots' models (nullptr: K = 1);
 // nseg: nullptr, or (B,) for the segments each slot simulated.
+// noise_family < 0: the p-norm bound (w the weights, eps the threshold);
+// else the noisy mode (K = 1): w the noise columns' params, eps the
+// temperature, pdf_norm the norm and a* the accept stream.
 extern "C" int pyabc_segment_round(
     const pyabc::SegModel* models, int K, const int* m, int threads,
     const float* theta, int stride, const uint8_t* valid, int B,
@@ -208,10 +311,16 @@ extern "C" int pyabc_segment_round(
     const float* eps, const float* hist_min, int S, float* ss,
     uint8_t* keep, int* nseg, int* next_slot, unsigned long long* seg_ctr,
     unsigned k0, unsigned k1, unsigned gen, unsigned tag,
-    unsigned max_rounds, const int* counters, void* stream_ptr) {
+    unsigned max_rounds, const int* counters, int noise_family,
+    float noise_init, const float* pdf_norm, unsigned ak0, unsigned ak1,
+    unsigned agen, unsigned atag, void* stream_ptr) {
   if (B <= 0) return 0;
   if (models == nullptr || counters == nullptr || threads <= 0 || K < 1 ||
       K > kMaxModels || (K > 1 && m == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (noise_family >= 0 &&
+      (K != 1 || pdf_norm == nullptr ||
+       noise_family > pyabc::kNoisePoisson))
     return static_cast<int>(cudaErrorInvalidValue);
   SegModels ms{};
   for (int k = 0; k < K; ++k) {
@@ -220,11 +329,15 @@ extern "C" int pyabc_segment_round(
         ms.m[k].seg_size != ms.m[0].seg_size || ms.m[k].n_seg < 1)
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  const BoundArgs bargs{x0,           w,          p,
+                        eps,          hist_min,   noise_family,
+                        noise_init,   pdf_norm,
+                        AcceptStream{ak0, ak1, agen, atag, max_rounds}};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-#define PYABC_SEG_LAUNCH(STEP)                                               \
-  launch<STEP>(ms, K, m, threads, theta, stride, valid, B, imap, x0, w, p,   \
-               eps, hist_min, S, ss, keep, nseg, next_slot, seg_ctr, k0, k1, \
-               gen, tag, max_rounds, counters, stream)
+#define PYABC_SEG_LAUNCH(STEP)                                              \
+  launch_bound<STEP>(ms, K, m, threads, theta, stride, valid, B, imap,      \
+                     bargs, S, ss, keep, nseg, next_slot, seg_ctr, k0, k1,  \
+                     gen, tag, max_rounds, counters, stream)
   const int kind = ms.m[0].kind;
   if (kind == pyabc::kTauLeapBirthDeath)
     return PYABC_SEG_LAUNCH(pyabc::TauLeapStep<pyabc::BirthDeath>);

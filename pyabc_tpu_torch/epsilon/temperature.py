@@ -503,8 +503,12 @@ def device_config(eps, kernel, acceptor) -> TempConfig:
     a max-found or ScaledPDFNorm norm without a log file; a ListTemperature
     ladder or a Temperature with min aggregation, monotone decay, no log
     file and device schemes only (the horizon set where a scheme needs
-    it); a fixed-variance stochastic kernel. Anything else raises: there
-    is no host loop to fall back to."""
+    it); a device-compatible noise kernel. Anything else raises: there
+    is no host loop to fall back to. As the JAX package's ``_temp_config``,
+    a SCALE_LIN kernel's ``pdf_max`` goes over as its log and ``lin``
+    reaches K21a/K21c and K21b; a kernel without a (finite) maximum
+    (NegativeBinomialKernel) leaves ``pdf_max`` None, and the norm is then
+    the running maximum found."""
     from ..acceptor.pdf_norm import ScaledPDFNorm, pdf_norm_max_found
     from ..distance.kernel import SCALE_LIN
 

@@ -280,27 +280,36 @@ class DeviceContext:
         ``segmented``: K18 in the simulator's place, its ``keep`` the
         valid mask of the accept test, and under an adaptive distance
         K22's fold of the round's resolved slots while the round starts
-        below ``rec_cap`` (the rounds the host read: no extra sync)."""
+        below ``rec_cap`` (the rounds the host read: no extra sync).
+        Noisy ABC: K18's stochastic mode, with the temperature, the pdf
+        norm and the ACCEPT stream K21a/K21c draws each row's uniform from.
+        The fifth value is K18's ``keep`` (None on the classic path), the
+        record ring's valid mask."""
         if not segmented:
             ss = (self._simulate(theta, t) if lane_m is None
                   else self._simulate_models(theta, lane_m, t))
             return (ss, *self._accept(ss, eps, dist_w, valid, hist_min,
-                                      pdf_norm, t, **terms))
+                                      pdf_norm, t, **terms), None)
         cfg = self.seg_cfg
         fold = (self.seg_moments is not None
                 and self.rounds_read * self.B < self.rec_cap)
+        noisy = {}
+        if self.stochastic:
+            noisy = dict(noise=cfg["bound"], pdf_norm=pdf_norm,
+                         accept=self.stream(t, philox.ACCEPT))
         out = segment_round(
             cfg["seg"], theta, valid, self.stream(t, philox.SIM_NOISE),
-            imap=cfg["index_map"], x0=self.x0, w=dist_w, p=self.distance.p,
-            eps=eps, hist_min=hist_min, width=self.S,
-            seg_ctr=self.seg_counters, m=lane_m,
-            dims=self.dims if self.K > 1 else None, return_nseg=fold)
+            imap=cfg["index_map"], x0=self.x0, w=dist_w,
+            p=getattr(self.distance, "p", 2.0), eps=eps, hist_min=hist_min,
+            width=self.S, seg_ctr=self.seg_counters, m=lane_m,
+            dims=self.dims if self.K > 1 else None, return_nseg=fold,
+            **noisy)
         ss, keep = out[0], out[1]
         if fold:
             moment_fold(self.seg_moments, ss, out[2], valid, cfg["seg_of"],
                         self.x0, self.counters, rec_cap=self.rec_cap)
         return (ss, *self._accept(ss, eps, dist_w, keep, hist_min, pdf_norm,
-                                  t, **terms))
+                                  t, **terms), keep)
 
     def _accept(self, ss, eps, dist_w, valid, hist_min, pdf_norm, t,
                 logpri=None, logq=None, **model_terms):
@@ -312,7 +321,7 @@ class DeviceContext:
                 stream=self.stream(t, philox.ACCEPT),
                 lin=self.temp_config.lin,
                 apply_iw=self.acceptor.apply_importance_weighting,
-                logpri=logpri, logq=logq)
+                logpri=logpri, logq=logq, family=self.distance.family)
         return pnorm_accept_weight(
             ss, self.x0, dist_w, eps, valid, p=self.distance.p,
             hist_min=hist_min, logpri=logpri, logq=logq, **model_terms)
@@ -335,20 +344,20 @@ class DeviceContext:
             theta, logpri, valid, m = propose.models(
                 self.stream(t, tag), self.B, self.prior_arrays,
                 self.model_prior)
-            ss, d, accept, logw = self._simulate_accept(
+            ss, d, accept, logw, keep = self._simulate_accept(
                 theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
                 lane_m=m)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
-                    "logq": logpri, "m": m}
+                    "logq": logpri, "m": m, "ring_valid": keep}
         theta, logpri, valid = propose(self.stream(t, tag), self.B,
                                        self.prior_arrays)
-        ss, d, accept, logw = self._simulate_accept(
+        ss, d, accept, logw, keep = self._simulate_accept(
             theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented)
         # the record's proposal density: the prior's (K = 1)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
-                "logq": logpri}
+                "logq": logpri, "ring_valid": keep}
 
     def lanes_transition(self, params: dict, eps: torch.Tensor,
                          dist_w: torch.Tensor,
@@ -365,25 +374,25 @@ class DeviceContext:
                 stream, self.B, self.prior_arrays, carry.log_model_probs,
                 params, carry.matrix)
             logq = mvn_mixture_logpdf.models(theta, m, params)
-            ss, d, accept, logw = self._simulate_accept(
+            ss, d, accept, logw, keep = self._simulate_accept(
                 theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
                 lane_m=m, logpri=logpri, logq=logq, m=m,
                 model_logits=self.model_logits,
                 log_model_factor=carry.log_model_factor)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
-                    "logq": logq, "m": m}
+                    "logq": logq, "m": m, "ring_valid": keep}
         draw = propose_local if self.local else propose
         theta, logpri, valid = draw(self.stream(t, philox.TRANSITION),
                                     self.B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
         # K = 1: log model prior = log model factor = 0
-        ss, d, accept, logw = self._simulate_accept(
+        ss, d, accept, logw, keep = self._simulate_accept(
             theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
             logpri=logpri, logq=logq)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
-                "logq": logq}
+                "logq": logq, "ring_valid": keep}
 
     # --------------------------------------------------------- generation
     def generation_while(self, lanes, n_target: int,
@@ -406,7 +415,9 @@ class DeviceContext:
                           out["sumstats"], out["distance"],
                           out["log_weight"], res, rec, counters,
                           logq=out["logq"] if record else None,
-                          m=out["m"] if self.K > 1 else None)
+                          m=out["m"] if self.K > 1 else None,
+                          ring_valid=(out.get("ring_valid")
+                                      if rec is not None else None))
             host = counters.cpu()
             self.sync_ledger.record("round_counters", host.nbytes)
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
@@ -453,18 +464,33 @@ class DeviceContext:
         inverse (each column's segment, for K22's fold), and whether an
         adaptive distance folds moments. Raises with the blocking reason
         when the run cannot take it (no uniform protocol, no prefix bound;
-        ``ABCSMC._early_reject_incapable_reason`` gates first)."""
+        ``ABCSMC._early_reject_incapable_reason`` gates first). Under a
+        stochastic acceptor the bound must be an upper log-density bound,
+        under a uniform one a lower distance bound (the JAX package's
+        ``segment_cfg`` soundness gate, both directions); ``bound`` is the
+        noise kernel's bound dict K18's stochastic mode reads."""
         reason = uniform_protocol_reason(self.models)
         if reason is not None:
             raise ValueError(f"segmented execution unavailable: {reason}")
-        if self.distance.device_bound_fn(self.spec) is None:
+        bound = self.distance.device_bound_fn(self.spec)
+        if bound is None:
             raise ValueError(
                 "segmented execution unavailable: "
                 f"{type(self.distance).__name__} has no monotone prefix "
                 "bound (device_bound_fn)")
+        if bool(bound.get("upper", False)) != self.stochastic:
+            direction = ("an upper log-density" if bound.get("upper")
+                         else "a lower distance")
+            need = ("a StochasticAcceptor" if bound.get("upper")
+                    else "a UniformAcceptor")
+            raise ValueError(
+                "segmented execution unavailable: "
+                f"{type(self.distance).__name__} provides {direction} "
+                f"bound, which is only sound under {need}")
         segs = [m.segmented for m in self.models]
         imap = self.model.index_map(self.spec, self.device)
         return {"seg": segs[0] if self.K == 1 else segs, "index_map": imap,
+                "bound": bound if self.stochastic else None,
                 "seg_of": torch.as_tensor(seg_of_columns(imap),
                                           device=self.device),
                 "moments": bool(getattr(self.distance, "adaptive", False))}
@@ -475,13 +501,16 @@ class DeviceContext:
         """``generation_while`` with K18's counters for the generation (and
         K22's moment block under an adaptive distance): ``lanes`` proposes
         its rounds segmented. One counter read per round, as the classic
-        loop; K18 and K22 add none."""
+        loop; K18 and K22 add none. Noisy ABC keeps the record ring (K21b
+        reads it): K6 records each round's rows with valid = K18's keep,
+        so the ring holds completed evaluations only, as the JAX engine's
+        does (``util.py:1086-1107``)."""
         self.seg_counters = torch.zeros(4, dtype=torch.int64,
                                         device=self.device)
         self.seg_moments = (init_moments(self.S, self.device)
                             if self.seg_cfg["moments"] else None)
         run = self.generation_while(lanes, n_target, eps_at_min,
-                                    ring=False)
+                                    ring=self.stochastic)
         run.seg, run.mom = self.seg_counters, self.seg_moments
         return run
 

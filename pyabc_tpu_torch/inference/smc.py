@@ -12,8 +12,10 @@ chunk come back in one packed fetch (K10), after which the chunk's
 generations are persisted to History. The device carries epsilon, distance
 weights and transition parameters between generations and chunks.
 
-Noisy ABC (``IndependentNormalKernel`` + ``StochasticAcceptor`` +
-``Temperature`` or ``ListTemperature``) runs on the same loop: the device
+Noisy ABC (a noise kernel, ``IndependentNormalKernel``, ``NormalKernel``,
+``IndependentLaplaceKernel``, ``BinomialKernel``, ``PoissonKernel`` or
+``NegativeBinomialKernel``, + ``StochasticAcceptor`` + ``Temperature`` or
+``ListTemperature``) runs on the same loop: the device
 carries the temperature (in epsilon's place; History's ``epsilon`` column
 holds it, as in the JAX package), the pdf norm, the largest kernel value
 found and Daly's k, and the host objects (``acceptor.pdf_norms``,
@@ -26,16 +28,21 @@ of ``models.model_selection.ode_family(segments=...)``): each round's
 simulator call becomes K18, which retires candidates between segments once
 the p-norm's prefix bound proves them rejected. Under a fixed p-norm the
 accepted populations are bit-identical with early reject on and off, one
-model or several (K > 1: each slot steps its own model). Under an
+model or several (K > 1: each slot steps its own model). Under a
+``StochasticAcceptor`` (one model) a candidate retires once the noise
+kernel's log-density upper bound proves its pre-committed accept draw
+cannot pass: populations, weights and the temperature trail are
+bit-identical on and off. Under an
 adaptive p-norm whose scale has a moment form the refit runs over every
 resolved candidate's simulated columns (K22), as the JAX engine's, so on
 and off agree in law, not in bits. A configuration the JAX package's
 engine cannot serve takes the classic path (``"auto"``) or raises its
-``ValueError`` (``True``); one the JAX engine serves but the port does not
-yet (noisy ABC, a user's segmented model on the card, sharded runs)
-raises ``not_ported``. History's telemetry column holds each generation's
-``retired_early``, ``segment_occupancy``, ``seg_steps`` and
-``seg_resolved``.
+``ValueError`` (``True``), and ``"auto"`` records the fallback with its
+reason in ``capability_fallbacks`` and the first generation's telemetry;
+one the JAX engine serves but the port does not yet (a user's segmented
+model on the card, sharded runs) raises ``not_ported``. History's
+telemetry column holds each generation's ``retired_early``,
+``segment_occupancy``, ``seg_steps`` and ``seg_resolved``.
 
 LocalTransition (``transitions=LocalTransition(...)``, one model, a
 UniformAcceptor, a p-norm distance, a quantile, list or constant epsilon,
@@ -64,7 +71,10 @@ from ..acceptor.acceptor import StochasticAcceptor, UniformAcceptor
 from ..core.population import Population
 from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
-from ..distance.kernel import IndependentNormalKernel, StochasticKernel
+from ..distance.kernel import (BinomialKernel, IndependentLaplaceKernel,
+                               IndependentNormalKernel,
+                               NegativeBinomialKernel, NormalKernel,
+                               PoissonKernel, StochasticKernel)
 from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
@@ -88,6 +98,11 @@ from ..utils import pick_batch, pow2_bucket, resolve_device
 from .context import Carry, DeviceContext
 
 logger = logging.getLogger("pyabc_tpu_torch.ABCSMC")
+
+#: the noise models the fused noisy path runs (K21a, K21c)
+NOISE_KERNELS = (IndependentNormalKernel, NormalKernel,
+                 IndependentLaplaceKernel, BinomialKernel, PoissonKernel,
+                 NegativeBinomialKernel)
 
 
 class DegenerateRunError(RuntimeError):
@@ -195,7 +210,7 @@ class ABCSMC:
         distance = (distance_function if distance_function is not None
                     else PNormDistance(p=2))
         if type(distance) not in (PNormDistance, AdaptivePNormDistance,
-                                  IndependentNormalKernel):
+                                  *NOISE_KERNELS):
             raise _not_ported(f"distance {type(distance).__name__}", "12")
         self.distance_function = distance
         self.eps = eps if eps is not None else MedianEpsilon()
@@ -273,6 +288,10 @@ class ABCSMC:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
         self.sync_ledger = SyncLedger()
+        #: fast paths the configuration implied and the run could not
+        #: take, ``{"gate", "reason"}`` (the JAX package's
+        #: ``_capability_fallbacks``)
+        self.capability_fallbacks: list[dict] = []
         self.history: History | None = None
         self.x_0: dict | None = None
         self.spec: SumStatSpec | None = None
@@ -351,6 +370,7 @@ class ABCSMC:
         if isinstance(max_walltime, datetime.timedelta):
             max_walltime = max_walltime.total_seconds()
         self.generation_log = []
+        self.capability_fallbacks = []
         self.sync_ledger.reset()
         if minimum_epsilon is None:
             # the JAX package's default: a temperature schedule stops at
@@ -413,6 +433,31 @@ class ABCSMC:
         if self.spec is None:
             return "no SumStatSpec yet (run not initialized)"
         d = self.distance_function
+        bound = d.device_bound_fn(self.spec)
+        if bound is None:
+            if stochastic:
+                return (f"{type(d).__name__} has "
+                        f"no monotone log-density upper bound "
+                        f"(device_bound_fn); the classic kernel serves "
+                        f"it — elementwise-separable kernels "
+                        f"(IndependentNormal/IndependentLaplace, "
+                        f"log-scale Binomial/Poisson) bound soundly")
+            return (f"{type(d).__name__} has no "
+                    f"monotone prefix bound (device_bound_fn); the "
+                    f"classic kernel serves it — p-norm-family "
+                    f"distances bound soundly")
+        upper = bool(bound.get("upper", False))
+        if stochastic and not upper:
+            return (f"{type(d).__name__}'s prefix "
+                    f"bound is a distance LOWER bound; stochastic "
+                    f"retirement needs a log-density UPPER bound "
+                    f"(acceptance provably impossible at the lane's "
+                    f"pre-committed draw) — the classic kernel serves "
+                    f"this config")
+        if not stochastic and upper:
+            return ("a log-density upper bound only decides the "
+                    "StochasticAcceptor's test; deterministic accepts "
+                    "keep the classic kernel")
         if stochastic and type(self.eps) is Temperature and any(
                 type(sch).__name__ == "AcceptanceRateScheme"
                 for sch in self.eps._effective_schemes()):
@@ -437,12 +482,9 @@ class ABCSMC:
                         "monotonicity; the classic kernel serves them")
         return None
 
-    def _early_reject_unserved(self, *, stochastic: bool) -> str | None:
+    def _early_reject_unserved(self) -> str | None:
         """A configuration the JAX engine serves and the port's does not
         yet (ROADMAP queue A, item 13), or None."""
-        if stochastic:
-            return ("noisy ABC (stochastic retirement against the kernel's "
-                    "upper bound)")
         if self.device.type != "cuda":
             return None
         kernels = [m.segmented.kernel for m in self.models]
@@ -464,7 +506,7 @@ class ABCSMC:
             if type(self.transition) is LocalTransition:
                 raise _not_ported("segmented early reject with "
                                   "LocalTransition", "12")
-            unserved = self._early_reject_unserved(stochastic=stochastic)
+            unserved = self._early_reject_unserved()
             if unserved is not None:
                 raise _not_ported(f"segmented early reject with {unserved}",
                                   "13")
@@ -474,7 +516,11 @@ class ABCSMC:
             raise ValueError(f"early_reject=True unavailable: {reason}")
         if any(getattr(m, "segmented", None) is not None
                for m in self.models):
+            # only worth a record when the user built segmented models
+            # (the JAX package's _note_capability_fallback)
             logger.info("segmented early reject off: %s", reason)
+            self.capability_fallbacks.append({"gate": "early_reject",
+                                              "reason": reason})
         return False
 
     def _health_config(self):
@@ -774,6 +820,9 @@ class ABCSMC:
                 "syncs": info["syncs"],
                 "device": str(self.device),
             }
+            if t == 0 and self.capability_fallbacks:
+                telemetry["capability_fallbacks"] = [
+                    dict(f) for f in self.capability_fallbacks]
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])

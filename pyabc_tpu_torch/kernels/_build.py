@@ -49,14 +49,14 @@ SIGNATURES = {
         _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
         _P, _P],
     "pyabc_compact_round": [
-        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_temperature_update": [
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
         _F, _I, _I, _F, _I, _I, _F, _F, _I, _P, _P, _P],
     "pyabc_kernel_accept": [
-        _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _U, _U, _U, _U, _U,
-        _P, _P, _P, _P, _P],
+        _P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _U, _U, _U, _U,
+        _U, _P, _P, _P, _P, _P],
     "pyabc_propose": [
         _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U,
         _P, _I, _P, _P, _P, _P],
@@ -88,7 +88,7 @@ SIGNATURES = {
         _P],
     "pyabc_segment_round": [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P,
-        _P, _P, _P, _U, _U, _U, _U, _U, _P, _P],
+        _P, _P, _P, _U, _U, _U, _U, _U, _P, _I, _F, _P, _U, _U, _U, _U, _P],
     "pyabc_ode_family_segments": [
         _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U,
         _U, _P, _P],

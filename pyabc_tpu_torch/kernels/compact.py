@@ -18,6 +18,11 @@ Model column (a run over several models): the reservoir also holds ``m``
 (int32) and the round passes each lane's model; it lands on the lane's
 reservoir row, bit-exact. Without it nothing changes. The record ring
 keeps no model index: nothing on the ported paths reads it.
+
+Ring mask (segmented noisy ABC): ``ring_valid (B,)`` bool, K18's ``keep``,
+sets each recorded row's ``valid`` in place of True, so the ring holds
+completed evaluations only (the JAX engine's documented behaviour,
+``util.py:1086-1107``) while ``n_valid`` still counts every valid slot.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from .base import Kernel
 def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
                         rec: dict | None, counters: torch.Tensor,
                         logq: torch.Tensor | None = None,
-                        m: torch.Tensor | None = None) -> None:
+                        m: torch.Tensor | None = None,
+                        ring_valid: torch.Tensor | None = None) -> None:
     """Plain PyTorch version (in place)."""
     B = accept.shape[0]
     n_cap = res["distance"].shape[0]
@@ -55,7 +61,8 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
         rec["sumstats"][ridx] = ss[take]
         rec["distance"][ridx] = dist[take]
         rec["accepted"][ridx] = acc[take]
-        rec["valid"][ridx] = True
+        rec["valid"][ridx] = (True if ring_valid is None
+                              else ring_valid[take])
         if "theta" in rec:
             rec["theta"][ridx] = theta[take]
             rec["logq"][ridx] = logq[take]
@@ -72,7 +79,8 @@ class CompactRound(Kernel):
     def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
                  rec: dict | None, counters: torch.Tensor,
                  logq: torch.Tensor | None = None,
-                 m: torch.Tensor | None = None) -> None:
+                 m: torch.Tensor | None = None,
+                 ring_valid: torch.Tensor | None = None) -> None:
         record = rec is not None and "theta" in rec
         if record != (logq is not None):
             raise ValueError(f"{self.name}: a ring with theta/logq columns "
@@ -81,11 +89,11 @@ class CompactRound(Kernel):
             raise ValueError(f"{self.name}: a reservoir with an m column "
                              f"and the round's m go together")
         bufs = list(res.values()) + (list(rec.values()) if rec else [])
-        extra = [t for t in (logq, m) if t is not None]
+        extra = [t for t in (logq, m, ring_valid) if t is not None]
         if self.on_cpu(accept, valid, theta, ss, dist, logw, counters,
                        *bufs, *extra):
             compact_round_plain(accept, valid, theta, ss, dist, logw, res,
-                                rec, counters, logq, m)
+                                rec, counters, logq, m, ring_valid)
             return
         B, d = theta.shape
         S = ss.shape[1]
@@ -105,6 +113,8 @@ class CompactRound(Kernel):
         if m is not None:
             self.expect(m, "m", i32, (B,))
             self.expect(res["m"], "res.m", i32, (n_cap,))
+        if ring_valid is not None:
+            self.expect(ring_valid, "ring_valid", b8, (B,))
         self.expect(counters, "counters", i32, (counters.shape[0],))
         if counters.shape[0] < 3:
             raise ValueError(f"{self.name}: counters need 3 entries")
@@ -127,7 +137,7 @@ class CompactRound(Kernel):
         err = _build.library().pyabc_compact_round(
             B, S, d, accept.data_ptr(), valid.data_ptr(), theta.data_ptr(),
             ss.data_ptr(), dist.data_ptr(), logw.data_ptr(), self.ptr(logq),
-            self.ptr(m), n_cap, res["theta"].data_ptr(),
+            self.ptr(m), self.ptr(ring_valid), n_cap, res["theta"].data_ptr(),
             res["sumstats"].data_ptr(), res["distance"].data_ptr(),
             res["log_weight"].data_ptr(), res["slot"].data_ptr(),
             self.ptr(res.get("m")), rec_cap, *rec_ptrs, *record_ptrs,

@@ -28,7 +28,18 @@ first segment where it would retire: the same statistics for kept slots,
 the same ``keep`` and the same first three counters; its lane-segment
 slots are all ``B * n_segments`` it ran.
 
-Two modes (each also counted in ``mode_launches``):
+Three modes (each also counted in ``mode_launches``):
+
+- stochastic (``noise`` the ``device_bound_fn`` dict of a noise kernel,
+  ``pdf_norm`` the norm, ``accept`` the round's ACCEPT stream; K = 1):
+  ``w`` holds the kernel's per-column parameters and ``eps`` the
+  temperature T. Each slot starts its accumulator at the family's start
+  value and folds each emitted segment in emission order
+  (``kernel_accept.noise_bound_fold``, the upper bound of
+  ``csrc/noise.cuh``); it retires when the accumulator falls below
+  ``thr_s - (1e-3 + 1e-4 |acc|)`` with ``thr_s = pdf_norm + T log(u_s)``,
+  ``u_s`` the uniform K21a/K21c draws for that row on ``accept``. At T =
+  +inf no slot retires;
 
 - adaptive (``return_nseg=True``): the call also returns ``nseg (B,)``
   int32, the segments each slot simulated (``n_segments`` for a completed
@@ -51,6 +62,8 @@ import torch
 from ..utils import not_ported
 from . import _build
 from .base import Kernel
+from .kernel_accept import (BOUND_FAMILIES, FAMILY_CODES, accept_uniforms,
+                            noise_bound_fold, upper_exceeds)
 from .philox import PhiloxStream
 from .tau_leap import MAX_MODELS, SegModelC
 
@@ -92,6 +105,16 @@ def bound_fold(acc, vals, x0, w, p: float) -> torch.Tensor:
     return acc + s
 
 
+def noise_thresholds(temp, pdf_norm, accept: PhiloxStream,
+                     B: int) -> torch.Tensor:
+    """Each slot's log-density threshold ``pdf_norm + T log(u_s)``; -inf
+    (never retire) at T = +inf or u_s = 0."""
+    u = accept_uniforms(accept, B)
+    thr = pdf_norm + temp * torch.log(u)
+    never = ~torch.isfinite(temp) | (u == 0)
+    return torch.where(never, torch.full_like(thr, -float("inf")), thr)
+
+
 def _models_of(seg) -> list:
     return list(seg) if isinstance(seg, (list, tuple)) else [seg]
 
@@ -99,7 +122,8 @@ def _models_of(seg) -> list:
 def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
                         x0, w, p: float, eps, hist_min=None, width: int,
                         seg_ctr, m=None, dims=None,
-                        return_nseg: bool = False):
+                        return_nseg: bool = False, noise=None,
+                        pdf_norm=None, accept: PhiloxStream | None = None):
     """Plain PyTorch version -> (ss ``(B, width)``, keep ``(B,)``[, nseg
     ``(B,)`` int32])."""
     B = theta.shape[0]
@@ -107,13 +131,19 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
     segs = _models_of(seg)
     if len(segs) > 1 and m is None:
         raise ValueError("several segmented models need the slots' m")
-    thr = eps if hist_min is None else torch.minimum(eps, hist_min)
-    lim = bound_limit(thr, p)
+    if noise is not None:
+        family = noise["family"]
+        thr = noise_thresholds(eps, pdf_norm, accept, B)
+        acc = torch.full((B,), noise["init_value"], dtype=torch.float32,
+                         device=theta.device)
+    else:
+        lim = bound_limit(eps if hist_min is None
+                          else torch.minimum(eps, hist_min), p)
+        acc = torch.zeros(B, dtype=torch.float32, device=theta.device)
     carries = [s.init(theta if dims is None
                       else theta[:, :dims[k]].contiguous())
                for k, s in enumerate(segs)]
     ss = torch.zeros(B, width, dtype=torch.float32, device=theta.device)
-    acc = torch.zeros(B, dtype=torch.float32, device=theta.device)
     retired = torch.zeros(B, dtype=torch.bool, device=theta.device)
     steps = torch.full((B,), n_seg, dtype=torch.int64, device=theta.device)
     for j in range(n_seg):
@@ -124,9 +154,14 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
                                                       vals)
         cols = imap[j].long()
         ss[:, cols] = vals
-        acc = bound_fold(acc, vals, x0[cols], w[cols], p)
+        if noise is not None:
+            acc = noise_bound_fold(family, acc, vals, x0[cols], w[cols])
+            exceeds = upper_exceeds(acc, thr)
+        else:
+            acc = bound_fold(acc, vals, x0[cols], w[cols], p)
+            exceeds = acc > lim
         if j < n_seg - 1:
-            now = ~retired & (~valid | (acc > lim))
+            now = ~retired & (~valid | exceeds)
             steps = torch.where(now, j + 1, steps)
             retired = retired | now
     seg_ctr[RETIRED] += retired.sum()
@@ -147,7 +182,7 @@ class SegmentRound(Kernel):
     def __init__(self):
         super().__init__()
         #: launches in the adaptive (nseg) and K > 1 modes
-        self.mode_launches = {"adaptive": 0, "k_gt_1": 0}
+        self.mode_launches = {"adaptive": 0, "k_gt_1": 0, "stochastic": 0}
 
     def __call__(self, seg, theta: torch.Tensor, valid: torch.Tensor,
                  stream: PhiloxStream, *, imap: torch.Tensor,
@@ -155,11 +190,25 @@ class SegmentRound(Kernel):
                  eps: torch.Tensor, hist_min: torch.Tensor | None = None,
                  width: int, seg_ctr: torch.Tensor,
                  m: torch.Tensor | None = None, dims=None,
-                 return_nseg: bool = False):
+                 return_nseg: bool = False, noise: dict | None = None,
+                 pdf_norm: torch.Tensor | None = None,
+                 accept: PhiloxStream | None = None):
         kw = dict(imap=imap, x0=x0, w=w, p=p, eps=eps, hist_min=hist_min,
                   width=width, seg_ctr=seg_ctr, m=m, dims=dims,
-                  return_nseg=return_nseg)
-        opt = [t for t in (hist_min, m) if t is not None]
+                  return_nseg=return_nseg, noise=noise, pdf_norm=pdf_norm,
+                  accept=accept)
+        if noise is not None:
+            if noise["family"] not in BOUND_FAMILIES:
+                raise ValueError(f"{self.name}: no upper bound for the "
+                                 f"{noise['family']} noise family")
+            if pdf_norm is None or accept is None or m is not None \
+                    or hist_min is not None:
+                raise ValueError(f"{self.name}: the stochastic mode takes "
+                                 f"pdf_norm and the accept stream, one "
+                                 f"model and no hist_min")
+        opt = [t for t in (hist_min, m, pdf_norm) if t is not None]
+        if accept is not None:
+            opt.append(accept.counters)
         if self.on_cpu(theta, valid, stream.counters, imap, x0, w, eps,
                        seg_ctr, *opt):
             return segment_round_plain(seg, theta, valid, stream, **kw)
@@ -186,6 +235,12 @@ class SegmentRound(Kernel):
         self.expect(x0, "x0", f32, (width,))
         self.expect(w, "w", f32, (width,))
         self.expect(eps, "eps", f32, ())
+        if noise is not None:
+            self.expect(pdf_norm, "pdf_norm", f32, ())
+            if (accept.counters is not stream.counters
+                    or accept.max_rounds != stream.max_rounds):
+                raise ValueError(f"{self.name}: the accept stream must read "
+                                 f"the round's counters and round budget")
         if hist_min is not None:
             self.expect(hist_min, "hist_min", f32, ())
         self.expect(seg_ctr, "seg_ctr", torch.int64, (4,))
@@ -208,13 +263,22 @@ class SegmentRound(Kernel):
             self.ptr(nseg), next_slot.data_ptr(), seg_ctr.data_ptr(),
             *stream.key,
             stream.generation, stream.tag, stream.max_rounds,
-            stream.counters.data_ptr(), _build.stream_ptr(dev))
+            stream.counters.data_ptr(),
+            -1 if noise is None else FAMILY_CODES[noise["family"]],
+            0.0 if noise is None else float(noise["init_value"]),
+            self.ptr(pdf_norm),
+            *(accept.key if noise is not None else (0, 0)),
+            accept.generation if noise is not None else 0,
+            accept.tag if noise is not None else 0,
+            _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
         if return_nseg:
             self.mode_launches["adaptive"] += 1
         if m is not None:
             self.mode_launches["k_gt_1"] += 1
+        if noise is not None:
+            self.mode_launches["stochastic"] += 1
         return (ss, keep, nseg) if return_nseg else (ss, keep)
 
 

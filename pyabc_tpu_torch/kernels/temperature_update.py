@@ -228,8 +228,11 @@ class TemperatureUpdate(Kernel):
         if config.needs_logq_new and logq_new is None:
             raise ValueError(f"{self.name}: the acceptance-rate scheme "
                              f"needs logq_new")
+        # the ring's proposal densities matter only to the acceptance-rate
+        # scheme's reweighting, the one reader of logq_new
+        rec_logq = rec.get("logq") if logq_new is not None else None
         return self._run(
-            rec["distance"], rec["valid"], rec.get("logq"), logq_new,
+            rec["distance"], rec["valid"], rec_logq, logq_new,
             res_distance, k_mask, w_norm, (pdf_norm, max_found, daly_k, temp,
                                            acc_rate),
             config.schemes, tables, t_next, config, calibration=False)

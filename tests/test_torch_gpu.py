@@ -1519,3 +1519,165 @@ def test_local_transition_runs_on_the_card(dev):
               "proposal_drift"):
         assert counts[k] > 0, k
     assert [e[1] for e in abc.refit_events][:1] == [True]
+
+
+# ------------------------- K21a / K21c by family, K18's stochastic mode
+NOISE_KERNELS = {
+    "independent_normal": lambda pt: pt.IndependentNormalKernel(var=4.0),
+    "laplace": lambda pt: pt.IndependentLaplaceKernel(scale=2.0),
+    "binomial": lambda pt: pt.BinomialKernel(p=0.9),
+    "binomial-lin": lambda pt: pt.BinomialKernel(p=0.9,
+                                                 ret_scale="SCALE_LIN"),
+    "poisson": lambda pt: pt.PoissonKernel(),
+    "poisson-lin": lambda pt: pt.PoissonKernel(ret_scale="SCALE_LIN"),
+    "negbin_size": lambda pt: pt.NegativeBinomialKernel(p=0.5),
+    "negbin_mean": lambda pt: pt.NegativeBinomialKernel(
+        p=0.4, parameterization="mean"),
+    "normal": lambda pt: pt.NormalKernel(cov=np.diag(np.linspace(
+        1.0, 4.0, 20)) + 0.5),
+    "normal-lin": lambda pt: pt.NormalKernel(
+        cov=np.eye(20) * 2.0 + 0.5, ret_scale="SCALE_LIN"),
+}
+
+
+def _noise_round(dev, B, S=20, seed=0):
+    g = _gen(dev, seed)
+    x0 = torch.round(torch.rand(S, generator=g, device=dev) * 40)
+    x0[0], x0[1] = 0.0, 2.5
+    ss = x0 + (torch.randn(B, S, generator=g, device=dev) * 4).abs()
+    ss[::13] = 0.0
+    ss[1::13, :2] = torch.tensor([0.5, 2.5], device=dev)
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    return ss.contiguous(), x0.contiguous(), valid
+
+
+@pytest.mark.parametrize("B", [257, 65536])
+@pytest.mark.parametrize("family", sorted(NOISE_KERNELS))
+def test_noise_accept_kernel(dev, family, B):
+    """K21a/K21c against the plain version: v within rel 1e-5 with the
+    -inf/NaN masks equal, log weights within rel 1e-5, the accept flags
+    equal away from log u."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import kernel_accept, kernel_accept_plain
+    from pyabc_tpu_torch.kernels.kernel_accept import accept_uniforms
+
+    kern = NOISE_KERNELS[family](pt)
+    kern.initialize(SumStatSpec({"x": np.zeros(20)}))
+    ss, x0, valid = _noise_round(dev, B)
+    lin = kern.ret_scale == "SCALE_LIN"
+    stream = _stream(dev, philox.ACCEPT)
+    g = _gen(dev, 5)
+    args = (ss, x0, kern.device_params(dev), torch.tensor(4.0, device=dev),
+            torch.tensor(-30.0, device=dev), valid)
+    kw = dict(stream=stream, lin=lin, apply_iw=True,
+              logpri=torch.randn(B, generator=g, device=dev),
+              logq=torch.randn(B, generator=g, device=dev),
+              family=kern.family)
+    v, a, lw = kernel_accept(*args, **kw)
+    v_r, a_r, lw_r = kernel_accept_plain(*args, **kw)
+    assert torch.equal(v.isnan(), v_r.isnan())
+    assert torch.equal(v.isneginf(), v_r.isneginf())
+    f = torch.isfinite(v_r)
+    torch.testing.assert_close(v[f], v_r[f], rtol=1e-5, atol=1e-5)
+    fw = torch.isfinite(lw_r)
+    assert torch.equal(fw, torch.isfinite(lw))
+    torch.testing.assert_close(lw[fw], lw_r[fw], rtol=1e-5, atol=1e-5)
+    ratio = ((torch.log(v_r.clamp_min(1e-30)) if lin else v_r) + 30.0) / 4
+    logu = torch.log(accept_uniforms(stream, B))
+    clear = ~((logu - ratio).abs() <= 1e-5 * (1 + ratio.abs()))
+    assert torch.equal(a[clear], a_r[clear])
+
+
+def test_normal_kernel_refuses_what_shared_memory_cannot_hold(dev):
+    from pyabc_tpu_torch.kernels import kernel_accept
+    from pyabc_tpu_torch.kernels.kernel_accept import MAX_NORMAL_S
+
+    S = MAX_NORMAL_S + 1
+    ss, x0 = torch.zeros(4, S, device=dev), torch.zeros(S, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel_accept(ss, x0, torch.zeros(S * S + 2, device=dev),
+                      torch.tensor(1.0, device=dev),
+                      torch.tensor(0.0, device=dev),
+                      torch.ones(4, dtype=torch.bool, device=dev),
+                      stream=_stream(dev, philox.ACCEPT), lin=False,
+                      apply_iw=True, family="normal")
+
+
+@pytest.mark.parametrize("family", ["independent_normal", "laplace",
+                                    "binomial", "poisson"])
+def test_segment_round_stochastic_mode(dev, family):
+    """K18's stochastic mode against its plain version on the card: the
+    same kept slots, their statistics and counts bit for bit, retired > 0;
+    at T = +inf only the invalid slots retire."""
+    import dataclasses
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (kernel_accept, segment_round,
+                                         segment_round_plain)
+
+    model, theta, valid, spec, x0 = _seg_round(dev, "bd", 4096)
+    kern = NOISE_KERNELS[family](pt)
+    kern.initialize(spec)
+    st = _stream(dev, philox.SIM_NOISE)
+    acc = dataclasses.replace(st, tag=philox.ACCEPT)
+    imap = model.index_map(spec, dev)
+    params = kern.device_params(dev)
+    full, _ = model.chain.kernel[0](model.chain.kernel[1], theta, st,
+                                    colmap=imap, width=spec.total_size)
+    v = kernel_accept(full, x0, params, torch.tensor(math.inf, device=dev),
+                      torch.tensor(0.0, device=dev), valid, stream=acc,
+                      lin=False, apply_iw=True, family=kern.family)[0]
+    norm = torch.quantile(v[torch.isfinite(v)].double(), 0.9).float()
+    for temp, retire in ((3.0, True), (math.inf, False)):
+        kw = dict(imap=imap, x0=x0, w=params, p=2.0,
+                  eps=torch.tensor(temp, device=dev),
+                  width=spec.total_size, noise=kern.device_bound_fn(),
+                  pdf_norm=norm, accept=acc)
+        c_got = torch.zeros(4, dtype=torch.int64, device=dev)
+        c_ref = torch.zeros(4, dtype=torch.int64, device=dev)
+        ss, keep = segment_round(model.segmented, theta, valid, st,
+                                 seg_ctr=c_got, **kw)
+        ss_r, keep_r = segment_round_plain(model.segmented, theta, valid,
+                                           st, seg_ctr=c_ref, **kw)
+        assert torch.equal(keep, keep_r)
+        assert torch.equal(ss[keep], ss_r[keep])
+        assert torch.equal(c_got[:3], c_ref[:3])
+        if retire:
+            assert int((valid & ~keep).sum()) > 0
+        else:
+            assert torch.equal(keep, valid)
+
+
+def test_noisy_early_reject_runs_on_the_card(dev):
+    """Noisy birth-death (segments 10, pop 2000, IndependentNormalKernel,
+    ScaledPDFNorm) with early reject on and off on the card: bit-identical
+    populations and temperatures, K18's stochastic mode launched."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gillespie as g
+
+    obs = g.observed_birth_death(segments=10)
+    hs = []
+    reset_launch_counts()
+    for early in ("auto", False):
+        abc = pt.ABCSMC(
+            g.make_birth_death_model(segments=10), g.birth_death_prior(),
+            pt.IndependentNormalKernel(var=4.0), population_size=2000,
+            eps=pt.Temperature(schemes=[pt.ExpDecayFixedIterScheme()],
+                               initial_temperature=50.0),
+            acceptor=pt.StochasticAcceptor(pdf_norm_method=pt.ScaledPDFNorm()),
+            seed=3, early_reject=early, fused_generations=2, device=dev)
+        abc.new("sqlite://", obs, store_sum_stats=False)
+        hs.append(abc.run(max_nr_populations=5))
+    assert mode_launch_counts()["segment_round:stochastic"] > 0
+    assert np.array_equal(hs[0].get_all_populations()["epsilon"],
+                          hs[1].get_all_populations()["epsilon"])
+    for t in range(5):
+        a, wa = hs[0].get_distribution(m=0, t=t)
+        b, wb = hs[1].get_distribution(m=0, t=t)
+        assert np.array_equal(a.to_numpy(), b.to_numpy())
+        assert np.array_equal(wa, wb)
+    assert sum(hs[0].get_telemetry(t)["retired_early"]
+               for t in range(5)) > 0

@@ -314,19 +314,17 @@ def test_adaptive_mad_follows_the_jax_reason():
 
 @pytest.mark.parametrize("mode", ["adaptive", "noisy", "models"])
 def test_unserved_modes_raise_not_ported(mode):
-    """Noisy ABC, which the JAX engine serves and the port does not yet,
-    raises not_ported; the two modes K22 and K18's K > 1 mode lifted (a
-    moment scale refit, several segmented models) now run with early
-    reject on and retire candidates."""
+    """The three modes the port once refused and now serves (a moment
+    scale refit with K22, several segmented models with K18's K > 1 mode,
+    noisy ABC with K18's stochastic mode) run with early reject on and
+    retire candidates."""
     if mode == "noisy":
-        abc = _bd_abc(distance=tpt.IndependentNormalKernel(var=[4.0] * 20),
+        abc = _bd_abc(distance=tpt.IndependentNormalKernel(var=[25.0] * 20),
                       eps=tpt.Temperature(
-                          schemes=[ExpDecayFixedIterScheme()]),
-                      acceptor=tpt.StochasticAcceptor())
-        with pytest.raises(NotImplementedError, match="item 13"):
-            abc.run(max_nr_populations=2)
-        return
-    if mode == "adaptive":
+                          schemes=[ExpDecayFixedIterScheme()],
+                          initial_temperature=50.0),
+                      acceptor=tpt.StochasticAcceptor(), early_reject=True)
+    elif mode == "adaptive":
         abc = _bd_abc(distance=tpt.AdaptivePNormDistance(
             p=2, scale_function=standard_deviation), early_reject=True)
     else:

@@ -159,13 +159,11 @@ def test_noise_kernel_and_acceptor_match_jax_on_the_host():
         assert acc.get_epsilon_config(1) == jacc.get_epsilon_config(1)
 
 
-@pytest.mark.parametrize("what", ["callable var", "NormalKernel", "keys"])
+@pytest.mark.parametrize("what", ["callable var", "keys"])
 def test_what_is_not_ported_raises(what):
     with pytest.raises(NotImplementedError, match="item 11"):
         if what == "callable var":
             pt.IndependentNormalKernel(var=lambda par: [1.0])
-        elif what == "NormalKernel":
-            pt.distance.kernel.NormalKernel()
         else:
             pt.IndependentNormalKernel(keys=["x"])
 
@@ -359,3 +357,118 @@ def test_convert_carry_takes_the_noisy_slots():
     assert float(c.daly_k) == 1.75
     assert c.dist_w.tolist() == [np.float32(NOISE_VAR)]
     assert int(c.stall_count) == 1 and float(c.eps_prev) == 3.0
+
+
+# ------------------------------------------------ the other noise models
+C_OBS, A_OBS = (10.0, 6.0, 15.0), (0.3, 0.2, -0.25)
+#: family -> (port kernel, JAX kernel, observation): a three-statistic
+#: model x_i = c_i exp(a_i theta) observed through each noise model
+_COV3 = [[1.0, 0.5, 0.2], [0.5, 1.5, 0.3], [0.2, 0.3, 2.0]]
+FAMILIES = {
+    "normal": (lambda m: m.NormalKernel(cov=_COV3), (11.0, 6.0, 13.0)),
+    "normal-lin": (lambda m: m.NormalKernel(cov=_COV3,
+                                            ret_scale="SCALE_LIN"),
+                   (11.0, 6.0, 13.0)),
+    "laplace": (lambda m: m.IndependentLaplaceKernel(scale=[1.0, 0.8, 1.5]),
+                (11.0, 6.0, 13.0)),
+    "binomial": (lambda m: m.BinomialKernel(p=0.9), (9.0, 5.0, 12.0)),
+    "poisson": (lambda m: m.PoissonKernel(), (11.0, 6.0, 13.0)),
+    "poisson-lin": (lambda m: m.PoissonKernel(ret_scale="SCALE_LIN"),
+                    (11.0, 6.0, 13.0)),
+    "negbin": (lambda m: m.NegativeBinomialKernel(p=0.5), (11.0, 6.0, 13.0)),
+    "negbin-mean": (lambda m: m.NegativeBinomialKernel(
+        p=0.6, parameterization="mean"), (11.0, 6.0, 13.0)),
+}
+
+
+def _family_runs(family, db="sqlite://", pop=200, gens=4, seed=5):
+    make, obs = FAMILIES[family]
+    c, a = np.asarray(C_OBS, np.float32), np.asarray(A_OBS, np.float32)
+    model = pt.TorchModel(
+        lambda theta, gen: {"x": torch.as_tensor(c) * torch.exp(
+            torch.as_tensor(a) * theta[:, :1])}, ["theta"], name="counts")
+    abc = pt.ABCSMC(model, _prior(), make(pt), population_size=pop,
+                    eps=pt.Temperature(schemes=[pt.ExpDecayFixedIterScheme()],
+                                       initial_temperature=20.0),
+                    acceptor=pt.StochasticAcceptor(), seed=seed,
+                    device="cpu")
+    abc.new(db, {"x": np.asarray(obs)})
+    h = abc.run(max_nr_populations=gens)
+
+    @jpt.JaxModel.from_function(["theta"], name="counts")
+    def jmodel(key, theta):
+        return {"x": jnp.asarray(c) * jnp.exp(jnp.asarray(a) * theta[0])}
+
+    jk = make(jkernel)
+    # the JAX fused path reads NormalKernel.device_params before it
+    # initializes the kernel (reference red, ROADMAP queue C): initialize
+    # it first, as its own run later does again
+    jk.initialize(0, None, {"x": np.asarray(obs)})
+    jabc = jpt.ABCSMC(jmodel, jpt.Distribution(theta=jpt.RV("norm", 0.0,
+                                                            1.0)),
+                      jk, population_size=pop,
+                      eps=jpt.Temperature(
+                          schemes=[jtemp.ExpDecayFixedIterScheme()],
+                          initial_temperature=20.0),
+                      acceptor=jpt.StochasticAcceptor(), seed=seed)
+    jabc.new("sqlite://", {"x": np.asarray(obs)})
+    return abc, h, jabc.run(max_nr_populations=gens), jk
+
+
+def _exact_mean(jk, family):
+    """The exact posterior mean of theta on a grid: the N(0, 1) prior
+    times the JAX kernel's host density of the observation."""
+    _make, obs = FAMILIES[family]
+    grid = np.linspace(-6.0, 6.0, 6001)
+    c, a = np.asarray(C_OBS), np.asarray(A_OBS)
+    val = np.array([jk(c * np.exp(a * th), np.asarray(obs)) for th in grid])
+    logp = (np.log(np.maximum(val, 1e-300)) if jk.ret_scale == "SCALE_LIN"
+            else val) - 0.5 * grid ** 2
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mu = float(np.sum(w * grid))
+    return mu, float(np.sqrt(np.sum(w * (grid - mu) ** 2)))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_each_noise_model_runs_the_fused_path_as_jax(family, tmp_path):
+    """A fused noisy run for each noise model in both packages: the
+    temperature trails (exponential decay from T0 = 20 to T = 1) agree
+    within 1e-3 relative, the norms follow the kernel's pdf_max (or the
+    running maximum for the negative binomial), the weighted posterior
+    means at T = 1 lie within 0.25 of each other (pop 200) and the port's
+    near the exact posterior mean (a grid over the JAX kernel's host
+    density), and the port's History opens in the JAX package's."""
+    db = "sqlite:///" + str(tmp_path / "port.db")
+    abc, h, hj, jk = _family_runs(family, db)
+    jh = jpt.History(db)
+    assert jh.max_t == h.max_t
+    np.testing.assert_array_equal(jh.get_all_populations()["epsilon"],
+                                  h.get_all_populations()["epsilon"])
+    df_j, w_j = jh.get_distribution(0, h.max_t)
+    df_t, w_t = h.get_distribution(0, h.max_t)
+    np.testing.assert_array_equal(df_j.to_numpy(), df_t.to_numpy())
+    np.testing.assert_allclose(w_j, w_t, rtol=1e-12)
+    port = [float(x) for x in h.get_all_populations()["epsilon"][1:]]
+    ref = [float(x) for x in hj.get_all_populations()["epsilon"][1:]]
+    assert len(port) == len(ref) == 4 and port[-1] == ref[-1] == 1.0
+    np.testing.assert_allclose(port[:2], ref[:2], rtol=1e-3)
+    np.testing.assert_allclose(port, ref, rtol=1e-3)
+    kern = abc.distance_function
+    norms = list(abc.acceptor.pdf_norms.values())
+    if kern.pdf_max is None:
+        assert all(np.isfinite(norms))
+        assert norms == sorted(norms)  # the running maximum found
+    else:
+        want = (np.log(kern.pdf_max) if kern.ret_scale == "SCALE_LIN"
+                else kern.pdf_max)
+        assert norms == pytest.approx([want] * len(norms), abs=1e-6)
+    mu, _sd = _moments(h)
+    mu_j, _sd_j = _moments(hj, t=hj.max_t)
+    assert abs(mu - mu_j) < 0.25, (mu, mu_j)
+    # and the port's mean within 4 Monte Carlo sd (the exact posterior sd
+    # over the root of the population's ESS) of the exact one
+    mu_x, sd_x = _exact_mean(jk, family)
+    _df, w = h.get_distribution(t=h.max_t)
+    ess = 1.0 / float(np.sum((w / w.sum()) ** 2))
+    assert abs(mu - mu_x) < 4 * sd_x / np.sqrt(ess), (mu, mu_x, sd_x, ess)
