@@ -60,7 +60,14 @@ cut.) Phases, one or more lines each:
    shape, each followed by K21a/K21c and K6's record mode with its ring
    mask: kept slots, statistics, reservoir, completed ring rows and
    counters bit-identical, its device time beside the p-norm mode's on
-   the same round;
+   the same round; K16's four entries (the bootstrap draw, the bootstrap
+   fits, the density CV, the bisection step) at the LV adaptive leg's full
+   shape (n_cap 16384, 10 bootstraps, d 4, the first probe at n = 16384),
+   at config 5's (K = 3, d_max 2, n_cap 4096, one model dead) and at a
+   small odd shape (n_cap 100, 3 bootstraps, d 1, 37 weighted rows): the
+   draw and the bisect step bit-equal, the fit at K8's tolerances, each
+   model's CV within 1e-4 relative and the same from run to run, and a
+   whole bisection ending in the plain entries' state;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -153,10 +160,26 @@ cut.) Phases, one or more lines each:
    6 generations, seed 3), counts reset before each: the CPU's first two
    temperatures within 1e-3 of the card's, the History reopened from its
    file, and for the unbounded kernels (run on the segmented model under
-   "auto") the early-reject fallback recorded with its reason.
+   "auto") the early-reject fallback recorded with its reason. Then the
+   population-size legs, counts reset just before each and each once more
+   under torch.profiler: LV config 2 under AdaptivePopulationSize(start
+   1000, mean_cv 0.05, max 16384, 10 bootstraps), 10 generations, beside
+   it the same run at ConstantPopulationSize(16384) (the same reads a
+   generation: its rounds' counters only), the same leg at mean_cv 0.15
+   with a floor of 1000 (the target met below max_n, so whole
+   bisections run), and config 5 (K = 3) under the first with a cap of
+   4096, 8 generations: the n trail within its bounds and equal to the
+   stored counts, each n_next the next generation's n, K16 launched in
+   every generation but the last, its probes that did work and the CV at
+   max_n per generation, its device ms per generation and per probe,
+   syncs (one counter read a round, one fetch a chunk), the wall; and the
+   Gaussian toy under
+   ListPopulationSize((500, 1000, 2000, 1000, 500)) over 32 seeds, the
+   stored counts equal to the list and the seed mean within 0.03 of the
+   analytic posterior mean.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K15, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
+kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
 K22, K26 and the K > 1 modes) is replaced by a function that raises, so
 none can run on the path unseen.
 
@@ -1819,6 +1842,11 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.moments", "moment_fold_plain"),
     ("pyabc_tpu_torch.kernels.moments", "moment_finish_plain"),
     ("pyabc_tpu_torch.kernels.ode_family", "ode_family_segments_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_draw_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_fit_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_density_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_bisect_plain"),
+    ("pyabc_tpu_torch.transition.util", "device_required_nr"),
 )
 
 
@@ -2041,9 +2069,11 @@ def profile_lv(dev) -> None:
     profile_run("LV config 2", config2(dev), 10)
 
 
-def profile_run(label: str, abc, gens: int) -> None:
+def profile_run(label: str, abc, gens: int) -> dict | None:
     """A run under torch.profiler: the device's busy share of the run's
-    window and the ten device ops that take the most device time."""
+    window and the ten device ops that take the most device time ->
+    {device op name: [total microseconds, count]}, None without device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2082,6 +2112,7 @@ def profile_run(label: str, abc, gens: int) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     log(f"{label} top device ops (name, total ms, count): " + "; ".join(
         f"{name[:70]} {tot / 1e3:.4f} {cnt}" for name, (tot, cnt) in top))
+    return by_name
 
 
 def lv_cpu_trail(card_eps: list[float]) -> None:
@@ -4555,6 +4586,491 @@ def family_runs(dev, tmpdir) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ K16
+#: the LV adaptive leg: LV config 2 (bench.py:119-127) under pyABC's
+#: AdaptivePopulationSize defaults (mean_cv 0.05, 10 bootstraps), capped
+#: at the scale lane's 16384, so every generation's first probe runs at
+#: n = n_cap = 16384
+ADA_START, ADA_MAX, ADA_CV, ADA_BOOT, ADA_GENS = 1000, 16384, 0.05, 10, 10
+#: the same leg at a target the LV posterior reaches below max_n, with the
+#: start size as the floor, so each generation runs a whole bisection
+ADA_CV_REACH, ADA_MIN_REACH = 0.15, 1000
+#: config 5 (the ODE family, K = 3) under an adaptive n
+C5A_START, C5A_MAX, C5A_GENS = 1000, 4096, 8
+#: the toy's list of sizes, one generation each
+LIST_SIZES = (500, 1000, 2000, 1000, 500)
+#: operations of one Philox block (ten rounds: two 32-bit products, two
+#: high halves, three XORs and the key schedule) and of one density term
+#: beyond its 2 d-operation dot product (the Mahalanobis sum, the scale,
+#: the online logsumexp's compare, difference, exp and sum)
+OPS_PER_BLOCK = 100
+K16_OPS_PER_TERM = 8
+#: K16's entries (``BootstrapCV.ENTRIES``)
+K16_ENTRIES = ("draw", "fit", "density", "bisect")
+ADA_PATH = LV_PATH + ("bootstrap_cv",)
+
+
+def k16_inputs(dev, K: int, n_cap: int, d: int, n_live: int, seed: int):
+    """Refit params as the generation step leaves them: K8 over n_cap rows,
+    the first n_live weighted. K = 3 takes config 5's dims (1, 2, 2) on
+    d_max 2 with model 1 dead (no rows), its model probabilities from the
+    weights -> (stacked thetas, weights, cdf; dims; statics; model_p)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_fit
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = {"scaling": 1.0, "bandwidth_selector": silverman_rule_of_thumb}
+    theta = (torch.randn(n_cap, d, generator=gen, device=dev)
+             * torch.linspace(0.5, 2.0, d, device=dev) + 1.0)
+    w = torch.rand(n_cap, generator=gen, device=dev) + 0.1
+    w[n_live:] = 0.0
+    w = w / w.sum()
+    if K == 1:
+        p = mvn_fit(theta, w, dim=d, **st)
+        return ({k: p[k][None].contiguous()
+                 for k in ("thetas", "weights", "cdf")}, [d], [st], None)
+    dims = [1, 2, 2]
+    m = (torch.arange(n_cap, device=dev) % K).to(torch.int32)
+    m[m == 1] = 2
+    theta[m == 0, 1:] = 0.0
+    p = mvn_fit.models(theta, w, m, dims=dims, statics=[st] * K)
+    model_p = torch.stack([w[m == k].sum() for k in range(K)])
+    return ({k: p[k] for k in ("thetas", "weights", "cdf")}, dims,
+            [st] * K, model_p)
+
+
+def required_nr_plain(x, dims, statics, model_p, **kw):
+    """``required_nr`` with the plain version of every entry."""
+    import torch
+
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        MAX_PROBES, bootstrap_bisect_plain, bootstrap_density_plain,
+        bootstrap_draw_plain, bootstrap_fit_plain, n_probes)
+
+    idx, state = bootstrap_draw_plain(
+        x["cdf"], n_boot=kw["n_bootstrap"], seed=kw["seed"],
+        generation=kw["generation"], max_rounds=kw["max_rounds"],
+        min_n=kw["min_n"], max_n=kw["max_n"])
+    cvs = torch.zeros(MAX_PROBES, dtype=torch.float32,
+                      device=x["cdf"].device)
+    for _ in range(n_probes(kw["min_n"], kw["max_n"])):
+        fit = bootstrap_fit_plain(x["thetas"], idx, state, dims=dims,
+                                  statics=statics)
+        part = bootstrap_density_plain(x["thetas"], x["weights"], fit, state)
+        bootstrap_bisect_plain(part, state, cvs, model_p=model_p,
+                               target=kw["target_cv"])
+    return state, cvs
+
+
+def k16_case(dev, label: str, K: int, n_cap: int, d: int, nb: int,
+             n_live: int, timed: bool) -> dict:
+    """K16's four entries against their plain versions at one shape: the
+    draw bit-equal (ancestors and the reset state), the fit at K8's
+    tolerances, each model's CV within 1e-4 relative (and the same from
+    run to run), the bisect step's state and CV bit-equal, and a whole
+    bisection (the kernels against the plain entries) ending at the same
+    n with every probe's CV within 1e-4 relative."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import bootstrap_cv
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        MAX_PROBES, PROBE, bootstrap_bisect_plain, bootstrap_density_plain,
+        bootstrap_draw_plain, bootstrap_fit_plain, n_blocks, n_probes,
+        required_nr)
+
+    x, dims, statics, model_p = k16_inputs(dev, K, n_cap, d, n_live,
+                                           seed=16 + K)
+    dkw = dict(n_boot=nb, seed=5, generation=3, max_rounds=256, min_n=10,
+               max_n=n_cap)
+    idx, state = bootstrap_cv.draw(x["cdf"], **dkw)
+    idx_p, state_p = bootstrap_draw_plain(x["cdf"], **dkw)
+    torch.cuda.synchronize()
+    check(torch.equal(idx, idx_p) and torch.equal(state, state_p),
+          f"K16 draw ({label}): ancestors or state differ from the plain "
+          f"version")
+    alive = [k for k in range(K) if model_p is None or float(model_p[k]) > 0]
+    drawn_dead = torch.gather(x["weights"] <= 0, 1,
+                              idx.reshape(K, -1).long())[alive]
+    check(not bool(drawn_dead.any()),
+          f"K16 draw ({label}): a zero-weight row of a live model drawn")
+    check(int(state[PROBE]) == n_cap, "K16: the first probe is not max_n")
+    fit = bootstrap_cv.fit(x["thetas"], idx, state, dims=dims,
+                           statics=statics)
+    fit_p = bootstrap_fit_plain(x["thetas"], idx, state, dims=dims,
+                                statics=statics)
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for key, (atol, rt) in {"center": (1e-7, 1e-5), "prec": (1e-5, 1e-4),
+                            "logdet": (1e-5, 1e-4),
+                            "quad": (1e-5, 1e-4)}.items():
+        got, ref = fit[key][alive], fit_p[key][alive]
+        check(within(got, ref, atol, rt),
+              f"K16 fit ({label}): {key} outside rel {rt}")
+        diff = (got - ref).abs()
+        err = max(err, float(diff.max()))
+        # relative to the tensor's scale: entries near 0 (the precision's
+        # off-diagonal) carry no relative error of their own
+        rel = max(rel, float(diff.max() / ref.abs().max().clamp_min(1e-30)))
+    scale = 1e-5 * float(fit_p["center"][alive].abs().max())
+    check(within(fit["thetas_c"][alive], fit_p["thetas_c"][alive], scale,
+                 1e-5), f"K16 fit ({label}): centred rows outside the "
+          f"mean's error")
+    part = bootstrap_cv.density(x["thetas"], x["weights"], fit_p, state)
+    again = bootstrap_cv.density(x["thetas"], x["weights"], fit_p, state)
+    part_p = bootstrap_density_plain(x["thetas"], x["weights"], fit_p,
+                                     state)
+    torch.cuda.synchronize()
+    check(torch.equal(part, again), f"K16 density ({label}): sums differ "
+          f"from run to run")
+
+    def cv_of(p):
+        return p[..., 0].sum(1) / p[..., 1].sum(1).clamp_min(1e-38)
+
+    cv_k, cv_p = cv_of(part)[alive], cv_of(part_p)[alive]
+    check(within(cv_k, cv_p, 0.0, 1e-4),
+          f"K16 density ({label}): CV outside 1e-4 relative "
+          f"({cv_k.tolist()} vs {cv_p.tolist()})")
+    check(within(part[..., 1], part_p[..., 1], 1e-7, 1e-5),
+          f"K16 density ({label}): weight sums outside 1e-5 relative")
+    cv_err = float((cv_k - cv_p).abs().max())
+    cv_rel = float(((cv_k - cv_p).abs() / cv_p.abs().clamp_min(1e-30)).max())
+    s_k, s_p = state.clone(), state.clone()
+    c_k = torch.zeros(MAX_PROBES, device=dev)
+    c_p = torch.zeros(MAX_PROBES, device=dev)
+    target = 1.5 * float(cv_of(part_p)[alive].mean())
+    bootstrap_cv.bisect(part, s_k, c_k, model_p=model_p, target=target)
+    bootstrap_bisect_plain(part, s_p, c_p, model_p=model_p, target=target)
+    torch.cuda.synchronize()
+    check(torch.equal(s_k, s_p) and torch.equal(c_k, c_p),
+          f"K16 bisect ({label}): state or CV differ from the plain version")
+    rkw = dict(seed=5, generation=3, max_rounds=256, target_cv=target,
+               min_n=10, max_n=n_cap, n_bootstrap=nb)
+    res = required_nr(x["thetas"], x["weights"], x["cdf"], dims=dims,
+                      statics=statics, model_p=model_p, **rkw)
+    st_p, cvs_p = required_nr_plain(x, dims, statics, model_p, **rkw)
+    torch.cuda.synchronize()
+    probes = int(res["state"][4])
+    check(torch.equal(res["state"], st_p),
+          f"K16 ({label}): the bisection's state {res['state'].tolist()} "
+          f"differs from the plain entries' {st_p.tolist()}")
+    check(within(res["cvs"][:probes], cvs_p[:probes], 1e-7, 1e-4),
+          f"K16 ({label}): a probe's CV outside 1e-4 relative")
+    log(f"K16 bootstrap_cv ({label}: K={K}, n_cap={n_cap}, d={d}, "
+        f"{nb} bootstraps, {n_live} weighted rows): draw bit-equal, fit "
+        f"max_abs_err={err:.3e} max_rel_err={rel:.3e}, CV {cv_k.tolist()} "
+        f"max_rel_err={cv_rel:.3e}, bisect bit-equal; bisection to "
+        f"n={int(res['n_next'])} in {probes} of {n_probes(10, n_cap)} "
+        f"probes (target {target:.5f}), CV trail "
+        f"{[round(v, 5) for v in res['cvs'][:probes].tolist()]}")
+    out = {"errors": {"fit": (err, rel), "density": (cv_err, cv_rel)}}
+    if not timed:
+        return out
+    # timed at the first probe (n = n_cap), the most a probe does
+    n = n_cap
+    live = int((x["weights"] != 0).sum())
+    terms = live * nb * n
+    s0 = state.clone()
+    s_t = state.clone()
+    c_t = torch.zeros(MAX_PROBES, device=dev)
+
+    def step():
+        s_t.copy_(s0)
+        bootstrap_cv.bisect(part, s_t, c_t, model_p=model_p, target=target)
+
+    def step_plain():
+        s_t.copy_(s0)
+        bootstrap_bisect_plain(part, s_t, c_t, model_p=model_p,
+                               target=target)
+
+    calls = {
+        "draw": (lambda: bootstrap_cv.draw(x["cdf"], **dkw),
+                 lambda: bootstrap_draw_plain(x["cdf"], **dkw),
+                 bound((K * n_cap + K * nb * n_cap + 5) * 4,
+                       K * nb * n_cap * (OPS_PER_BLOCK
+                                         + 3 * math.log2(n_cap)))),
+        "fit": (lambda: bootstrap_cv.fit(x["thetas"], idx, state, dims=dims,
+                                         statics=statics),
+                lambda: bootstrap_fit_plain(x["thetas"], idx, state,
+                                            dims=dims, statics=statics),
+                bound((K * n_cap * d + K * nb * n + K * nb * n * (d + 1)
+                       + K * nb * (d * d + d + 1)) * 4,
+                      K * nb * n * (2 * d + 3 * d * d + 2 * d * d + 2 * d))),
+        "density": (lambda: bootstrap_cv.density(x["thetas"], x["weights"],
+                                                 fit, state),
+                    lambda: bootstrap_density_plain(x["thetas"],
+                                                    x["weights"], fit, state),
+                    bound((K * n_cap * (d + 1) + K * nb * n * (d + 1)
+                           + K * nb * (d * d + d + 1)
+                           + K * n_blocks(n_cap) * 2) * 4,
+                          terms * (2 * d + K16_OPS_PER_TERM)
+                          + live * nb * (2 * d * d + 3 * d + 8))),
+        "bisect": (step, step_plain,
+                   bound((K * n_blocks(n_cap) * 2 + 5 + 2) * 4,
+                         2 * K * n_blocks(n_cap) + 4 * K)),
+    }
+    for entry, (fn, plain, bnd) in calls.items():
+        out[entry] = dict(
+            call_ms=time_ms(fn, 10), ms=graph_ms(fn, iters=10, replays=3),
+            plain_ms=time_ms(plain, 2, warmup=1), bound=bnd,
+            library_ms=None)
+        log(f"K16 {entry} ({label}): ms={out[entry]['ms']:.5f} call_ms="
+            f"{out[entry]['call_ms']:.5f} plain_ms="
+            f"{out[entry]['plain_ms']:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]})"
+            + (f", {terms} density terms" if entry == "density" else ""))
+    return out
+
+
+def k16_checks(dev) -> dict:
+    """K16 at the LV adaptive leg's full shape (n_cap 16384, 10
+    bootstraps, d 4; every row weighted: the first probe's n is 16384),
+    at config 5's (K 3, d_max 2, n_cap 4096, one model dead) and at a small
+    odd shape (n_cap 100, 3 bootstraps, d 1, 37 weighted rows)."""
+    full = k16_case(dev, "LV adaptive leg", 1, ADA_MAX, 4, ADA_BOOT,
+                    ADA_MAX, timed=True)
+    k3 = k16_case(dev, "config 5 adaptive leg", 3, C5A_MAX, 2, ADA_BOOT,
+                  C5A_MAX, timed=False)
+    small = k16_case(dev, "small odd shape", 1, 100, 1, 3, 37, timed=False)
+    out = {}
+    for e in K16_ENTRIES:
+        # the draw and the bisect step are bit-equal at every shape; the
+        # fit's error relative to each tensor's scale, the density's that
+        # of the CV, the largest over the three shapes
+        errs = [case["errors"].get(e, (0.0, 0.0))
+                for case in (full, k3, small)]
+        out[f"bootstrap_cv:{e}"] = {**full[e],
+                                    "err": max(a for a, _r in errs),
+                                    "rel": max(r for _a, r in errs)}
+    return out
+
+
+def adaptive_lv(where, mean_cv: float = ADA_CV, min_n: int = 10,
+                population_size=None):
+    """The LV adaptive leg: LV config 2 (bench.py:119-127) with
+    AdaptivePopulationSize(start 1000, mean_cv 0.05, max 16384, 10
+    bootstraps); another target and floor, or another strategy
+    (``population_size``), for the legs beside it."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    aps = population_size or pt.AdaptivePopulationSize(
+        start_nr_particles=ADA_START, mean_cv=mean_cv,
+        max_population_size=ADA_MAX, min_population_size=min_n,
+        n_bootstrap=ADA_BOOT)
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=aps,
+                    eps=pt.MedianEpsilon(), seed=0, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
+    return abc
+
+
+def config5_adaptive(where):
+    """Config 5 (the ODE family, K = 3) with AdaptivePopulationSize(start
+    1000, mean_cv 0.05, max 4096, 10 bootstraps)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family()
+    aps = pt.AdaptivePopulationSize(
+        start_nr_particles=C5A_START, mean_cv=ADA_CV,
+        max_population_size=C5A_MAX, n_bootstrap=ADA_BOOT)
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=aps, eps=pt.MedianEpsilon(), seed=0,
+                    device=where)
+    abc.new("sqlite://", msel.observed_ode_family(seed=0, true_model=1),
+            store_sum_stats=False)
+    return abc
+
+
+def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
+                   hi: int, bisects: bool = False) -> tuple:
+    """One adaptive population-size leg on the card (``make(where)`` builds
+    it), counts reset just before and read just after, then once more
+    under torch.profiler -> (counts, mode counts, n trail, the ABCSMC):
+    the n trail within [lo, hi] and equal to the stored counts, each
+    n_next the next generation's n, K16 launched in every generation but
+    the last, its launches, the probes that did work and the CV at max_n
+    per generation (telemetry), its device ms per generation and per
+    probe that did work, syncs per generation (one counter read a round,
+    one fetch a chunk, nothing else), the wall. ``bisects``: some
+    generation's CV at max_n met the target, so K16 ran a whole bisection
+    there and n fell below max_n."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    abc = make(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    n_gen = h.max_t + 1
+    tel = [h.get_telemetry(t) for t in range(n_gen)]
+    trail = [int(x["n_target"]) for x in tel]
+    nxt = [x.get("n_next") for x in tel]
+    probes = [x.get("k16_probes", 0) for x in tel]
+    cv_max = [round(x["k16_cv_max"], 5) if "k16_cv_max" in x else None
+              for x in tel]
+    stored = h.get_nr_particles_per_population()
+    stored = [int(stored[t]) for t in range(n_gen)]
+    syncs = abc.sync_ledger.summary()
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    k16 = {e: modes[f"bootstrap_cv:{e}"] for e in K16_ENTRIES}
+    log(f"{label}: gens={n_gen} wall_s={wall:.3f} accepted_particles_per_s="
+        f"{sum(trail) / wall:.1f} wall_s_per_generation={wall / n_gen:.4f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
+        f"({syncs['by_kind']}, rounds "
+        f"{[g['rounds'] for g in abc.generation_log]})")
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s")}
+    log(f"{label}: host seconds, rounds + generation steps "
+        f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
+        f"History persist {split['persist_s']:.4f}, other "
+        f"{wall - sum(split.values()):.4f}")
+    log(f"{label}: n trail {trail}, n_next {nxt}, stored counts {stored}; "
+        f"eps trail {[round(e, 5) for e in eps]}")
+    log(f"{label}: K16 launches {k16} ({counts['bootstrap_cv']} in all, "
+        f"{counts['bootstrap_cv'] / n_gen:.1f} per generation); probes that "
+        f"did work per generation {probes}; aggregate CV at max_n per "
+        f"generation {cv_max}; kernel launches {counts}")
+    check(n_gen == gens, f"{label} ran {n_gen} of {gens} generations")
+    check(stored == trail, f"{label}: stored counts {stored} differ from "
+          f"the n trail {trail}")
+    check(all(lo <= n <= hi for n in trail),
+          f"{label}: n outside [{lo}, {hi}]: {trail}")
+    check(all(counts[k] > 0 for k in path),
+          f"{label}: a kernel of the path was never launched")
+    sync_check(abc, label)
+    check(all(nxt[t] == trail[t + 1] for t in range(n_gen - 1))
+          and nxt[-1] == trail[-1],
+          f"{label}: n_next does not become the next generation's n")
+    check(k16["draw"] == n_gen - 1 and k16["fit"] == k16["density"]
+          == k16["bisect"] > 0,
+          f"{label}: K16 did not run once a generation but the last")
+    check(all(p > 0 for p in probes[:-1]) and probes[-1] == 0,
+          f"{label}: K16's probes {probes} (one or more a generation but "
+          f"the last)")
+    if bisects:
+        check(any(p > 1 and n < hi for p, n in zip(probes, nxt)),
+              f"{label}: no generation ran a whole bisection (probes "
+              f"{probes}, n_next {nxt})")
+    by_name = profile_run(f"{label} (profiled)", make(dev), gens)
+    if by_name:
+        k16_ms = sum(v[0] for name, v in by_name.items()
+                     if "boot_" in name) / 1e3
+        log(f"{label}: K16 device ms per generation "
+            f"{k16_ms / max(n_gen - 1, 1):.4f} ({k16_ms:.4f} ms over "
+            f"{n_gen - 1} generations that ran it, {sum(probes)} probes "
+            f"that did work: {k16_ms / max(sum(probes), 1):.4f} ms each, "
+            f"torch.profiler)")
+    return counts, modes, trail, abc
+
+
+def constant_lv_syncs(dev, ada_abc) -> None:
+    """LV config 2 at ConstantPopulationSize(ADA_MAX) for ADA_GENS
+    generations beside the LV adaptive leg: syncs per generation, and in
+    both runs every generation's reads are its rounds' counter reads (the
+    n rides them; K16's answer rides the chunk's fetch), one fetch a
+    chunk, the calibration's reads alike."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+
+    abc = adaptive_lv(dev, population_size=pt.ConstantPopulationSize(
+        ADA_MAX))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = abc.run(max_nr_populations=ADA_GENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(h.max_t + 1 == ADA_GENS,
+          f"constant-n LV ran {h.max_t + 1} of {ADA_GENS} generations")
+    sync_check(abc, "LV config 2 at a constant n")
+    per = {}
+    for name, run in (("constant n", abc), ("adaptive n", ada_abc)):
+        summ, gl = run.sync_ledger.summary(), run.generation_log
+        rounds = sum(g["rounds"] for g in gl)
+        per[name] = summ["by_kind"]["round_counters"] - rounds
+        log(f"syncs, LV config 2 at {name} ({len(gl)} generations): "
+            f"{summ['syncs'] / len(gl):.2f} a generation "
+            f"({summ['by_kind']}, rounds {[g['rounds'] for g in gl]}, "
+            f"reads a generation minus its rounds "
+            f"{[g['syncs'] - g['rounds'] for g in gl]})"
+            + (f", wall_s={wall:.3f}" if run is abc else ""))
+        check(all(g["syncs"] == g["rounds"] for g in gl),
+              f"LV config 2 at {name}: a generation read the device "
+              f"besides its round counters")
+    check(per["constant n"] == per["adaptive n"],
+          f"the calibration's reads differ: {per}")
+
+
+def list_leg(dev) -> tuple[dict, dict, list]:
+    """The Gaussian toy with ListPopulationSize((500, 1000, 2000, 1000,
+    500)) over TOY_SEEDS seeds on the card, counts reset just before the
+    first: the stored counts equal the list in every seed, the seed mean of
+    the posterior means lies within 0.03 of the analytic posterior mean
+    (the toy leg's rule; the seeds' sd is about 0.05 at a last n of 500, so
+    its se is about 0.009) and every seed within 0.25 (5 sd)."""
+    import numpy as np
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gaussian
+
+    mu_true, _sd_true = gaussian.conjugate_posterior(1.0)
+    mus, counts = [], None
+    for seed in TOY_SEEDS:
+        abc = pt.ABCSMC(gaussian.make_mean_only_model(),
+                        gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                        population_size=pt.ListPopulationSize(LIST_SIZES),
+                        eps=pt.MedianEpsilon(), seed=seed, device=dev)
+        abc.new("sqlite://", {"x": 1.0})
+        if seed == 0:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+        with plain_versions_raise():
+            t0 = time.perf_counter()
+            h = abc.run(max_nr_populations=len(LIST_SIZES) + 2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        stored = h.get_nr_particles_per_population()
+        stored = [int(stored[t]) for t in range(h.max_t + 1)]
+        check(stored == list(LIST_SIZES), f"list leg seed {seed}: stored "
+              f"counts {stored} differ from {list(LIST_SIZES)}")
+        df, w = h.get_distribution()
+        mus.append(float(np.sum(df["theta"] * w)))
+        if seed == 0:
+            counts, modes = launch_counts(), mode_launch_counts()
+            syncs = abc.sync_ledger.summary()
+            sync_check(abc, "list leg")
+            log(f"toy ListPopulationSize{LIST_SIZES}: seed 0 wall_s="
+                f"{wall:.3f} syncs_per_generation="
+                f"{syncs['syncs'] / (h.max_t + 1):.2f} ({syncs['by_kind']}), "
+                f"stored counts {stored}, K16 launches "
+                f"{counts['bootstrap_cv']}")
+    mean = float(np.mean(mus))
+    se = float(np.std(mus, ddof=1) / math.sqrt(len(mus)))
+    log(f"toy list leg ({len(mus)} seeds): seed mean {mean:.4f} se "
+        f"{se:.4f} against the analytic {mu_true:.4f} "
+        f"({(mean - mu_true) / se:+.2f} se); per seed min {min(mus):.4f} "
+        f"max {max(mus):.4f}")
+    check(abs(mean - mu_true) < 0.03,
+          "list leg: the seed mean is off the analytic mean by >= 0.03")
+    check(all(abs(m - mu_true) < 0.25 for m in mus),
+          "list leg: a seed's posterior mean is off by >= 0.25")
+    check(counts["bootstrap_cv"] == 0, "list leg: K16 ran on a list")
+    return counts, modes, list(LIST_SIZES)
+
+
 def main() -> int:
     import torch
 
@@ -4588,6 +5104,7 @@ def main() -> int:
     results.update(k18_mode_checks(dev))
     results.update(local_checks(dev))
     results.update(k21c_checks(dev))
+    results.update(k16_checks(dev))
     gaussian_toy(dev)
     noisy_anchor(dev)
     pair_anchor(dev)
@@ -4624,6 +5141,18 @@ def main() -> int:
                 noisy_config3(dev, "auto", "independent_normal"), NC3_GENS)
     with tempfile.TemporaryDirectory() as tmpdir:
         fam_counts = family_runs(dev, tmpdir)
+    ada_counts, ada_modes, _ada_trail, ada_abc = population_leg(
+        dev, "LV adaptive leg", adaptive_lv, ADA_GENS, ADA_PATH, lo=10,
+        hi=ADA_MAX)
+    constant_lv_syncs(dev, ada_abc)
+    reach_counts, reach_modes, _r, _a = population_leg(
+        dev, f"LV adaptive leg at mean_cv {ADA_CV_REACH}",
+        lambda where: adaptive_lv(where, ADA_CV_REACH, ADA_MIN_REACH),
+        ADA_GENS, ADA_PATH, lo=ADA_MIN_REACH, hi=ADA_MAX, bisects=True)
+    c5a_counts, c5a_modes, _c5a_trail, _c5a = population_leg(
+        dev, "config 5 adaptive leg (K = 3)", config5_adaptive, C5A_GENS,
+        C5_PATH + ("bootstrap_cv",), lo=10, hi=C5A_MAX)
+    list_counts, _list_modes, _sizes = list_leg(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -4638,7 +5167,12 @@ def main() -> int:
             f"library_ms={r['library_ms']}")
 
     kernels = []
+    wrapper_of = {k.name: k for k in KERNELS}
+    check(wrapper_of["bootstrap_cv"].ENTRIES == K16_ENTRIES,
+          "K16's entries changed")
     for k in KERNELS:
+        if k.name == "bootstrap_cv":
+            continue  # K16's four entries follow as rows of their own
         r = results[k.name]
         # each kernel's launches on its slice's main path: LV config 2 for
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
@@ -4671,7 +5205,12 @@ def main() -> int:
                                  "noisy_config3_normal":
                                      nc3["independent_normal"][0][k.name],
                                  "noisy_config3_poisson":
-                                     nc3["poisson"][0][k.name]},
+                                     nc3["poisson"][0][k.name],
+                                 "lv_adaptive": ada_counts[k.name],
+                                 "lv_adaptive_reachable":
+                                     reach_counts[k.name],
+                                 "config5_adaptive": c5a_counts[k.name],
+                                 "toy_list": list_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips"):
@@ -4737,6 +5276,25 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **({"ms_pnorm_mode": r["ms_pnorm_mode"]}
                if "ms_pnorm_mode" in r else {})})
+    # K16's entries, their launches from the LV adaptive leg (its main
+    # path) and the config 5 adaptive leg beside them
+    for e in K16_ENTRIES:
+        name = f"bootstrap_cv:{e}"
+        r = results[name]
+        check(ada_modes[name] > 0 and c5a_modes[name] > 0,
+              f"{name} was never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pyabc_tpu_torch/csrc/bootstrap_cv.cu",
+            "replaces": wrapper_of["bootstrap_cv"].ENTRY_REPLACES[e],
+            "launches": ada_modes[name],
+            "max_abs_err": r["err"], "max_rel_err": r["rel"], "ms": r["ms"],
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None,
+            "launches_by_path": {"lv_adaptive": ada_modes[name],
+                                 "lv_adaptive_reachable": reach_modes[name],
+                                 "config5_adaptive": c5a_modes[name]}})
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

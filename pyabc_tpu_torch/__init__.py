@@ -1,7 +1,7 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
 single-device ABC-SMC path (one model or model selection over several;
-the MVN or, for one model, the local k-NN transition), for one NVIDIA
-H100.
+the MVN or, for one model, the local k-NN transition; a constant, listed
+or adaptive population size), for one NVIDIA H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
@@ -22,7 +22,9 @@ from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
                       Temperature, TemperatureScheme)
 from .inference import ABCSMC, DegenerateRunError
 from .model import TorchModel
-from .populationstrategy import ConstantPopulationSize
+from .populationstrategy import (AdaptivePopulationSize,
+                                 ConstantPopulationSize, ListPopulationSize,
+                                 PopulationStrategy)
 from .storage import History
 from .transition import (LocalTransition, ModelPerturbationKernel,
                          MultivariateNormalTransition, scott_rule_of_thumb,
@@ -30,15 +32,18 @@ from .transition import (LocalTransition, ModelPerturbationKernel,
 
 __all__ = [
     "ABCSMC", "AcceptanceRateScheme", "AdaptivePNormDistance",
+    "AdaptivePopulationSize",
     "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
     "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
     "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
     "FrielPettittScheme", "History", "IndependentLaplaceKernel",
-    "IndependentNormalKernel", "ListEpsilon", "ListTemperature",
+    "IndependentNormalKernel", "ListEpsilon", "ListPopulationSize",
+    "ListTemperature",
     "LocalTransition", "MedianEpsilon", "ModelPerturbationKernel",
     "MultivariateNormalTransition", "NegativeBinomialKernel",
     "NormalKernel", "PNormDistance", "ParameterSpace", "PoissonKernel",
-    "PolynomialDecayFixedIterScheme", "Population", "QuantileEpsilon", "RV",
+    "PolynomialDecayFixedIterScheme", "Population", "PopulationStrategy",
+    "QuantileEpsilon", "RV",
     "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
     "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",
     "UniformAcceptor", "pdf_norm_from_kernel", "pdf_norm_max_found",

@@ -157,3 +157,25 @@ def noise_kernel(kernel):
             kernel.p, ret_scale=ret, keys=keys,
             parameterization=kernel.parameterization)
     raise ValueError(f"no port of the noise kernel {name}")
+
+
+def population_strategy(strategy):
+    """A JAX package population strategy -> the port's, built from its
+    attributes (nothing of the JAX package is imported)."""
+    from . import populationstrategy as ps
+
+    name = type(strategy).__name__
+    cal = strategy.nr_calibration_particles
+    if name == "ConstantPopulationSize":
+        return ps.ConstantPopulationSize(strategy.nr_particles,
+                                         nr_calibration_particles=cal)
+    if name == "ListPopulationSize":
+        return ps.ListPopulationSize(strategy.values,
+                                     nr_calibration_particles=cal)
+    if name == "AdaptivePopulationSize":
+        return ps.AdaptivePopulationSize(
+            strategy.start_nr_particles, mean_cv=strategy.mean_cv,
+            max_population_size=strategy.max_population_size,
+            min_population_size=strategy.min_population_size,
+            n_bootstrap=strategy.n_bootstrap, nr_calibration_particles=cal)
+    raise ValueError(f"no port of the population strategy {name}")

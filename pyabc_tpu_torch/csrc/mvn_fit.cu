@@ -36,21 +36,19 @@
 // the registers). The weighted moments are block reductions (the
 // covariance splits its d^2 entries and the rows across the threads),
 // thread 0 runs the d x d ladder Cholesky (chol.cuh, shared with K13) and
-// the inverse in shared memory
-// (d <= 32, a few thousand flops at most), all threads write the rows; the
+// the inverse in shared memory (d <= 32, a few thousand flops at most);
+// steps 1-4 live in mvn_fit.cuh, shared with K16's bootstrap fit. All
+// threads write the rows; the
 // cdf is a chunked scan (each thread a contiguous run of rows, a block
 // scan of the run totals), then the same for the running max.
 #include "chol.cuh"
 #include "common.cuh"
+#include "mvn_fit.cuh"
 
 namespace {
 
-// threads of the one block: 1024 for the dim buckets up to 4, 256 above,
-// where each thread's d + 1 accumulators need more than 64 registers
-template <int D>
-struct FitThreads {
-  static constexpr int value = D <= 4 ? 1024 : 256;
-};
+using pyabc::FitShared;
+using pyabc::FitThreads;
 constexpr int kMaxModels = 8;
 
 // per-model fit statics, passed by value: block k reads slot k
@@ -63,22 +61,6 @@ struct FitModels {
 };
 
 using pyabc::chol_guarded;
-using pyabc::clamp_min_keep_nan;
-
-__device__ float block_sum(float v, float* s_warp) {
-  v = warp_sum(v);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = warp_sum(lane < nw ? s_warp[lane] : 0.f);
-    if (lane == 0) s_warp[0] = v;
-  }
-  __syncthreads();
-  return s_warp[0];
-}
 
 __device__ __forceinline__ float warp_scan_sum(float v) {
   const int lane = threadIdx.x & 31;
@@ -121,6 +103,26 @@ __device__ float block_exclusive_scan(float v, bool is_max, float* s_warp) {
   return is_max ? fmaxf(before_warp, in_warp) : before_warp + in_warp;
 }
 
+// K8's row source: the reservoir rows, model `model`'s weights only when
+// m is given; the normalized weights go to w_out and are read back from it
+struct ReservoirRows {
+  const float* thetas;
+  const float* weights;
+  const int* m;
+  int model, d;
+  float* w_out;
+  __device__ __forceinline__ float raw_weight(int i) const {
+    return (m == nullptr || m[i] == model) ? weights[i] : 0.f;
+  }
+  __device__ __forceinline__ float theta(int i, int k) const {
+    return thetas[(size_t)i * d + k];
+  }
+  __device__ __forceinline__ void put_w(int i, float w) const {
+    w_out[i] = w;
+  }
+  __device__ __forceinline__ float w(int i, float) const { return w_out[i]; }
+};
+
 template <int D>
 __global__ void __launch_bounds__(FitThreads<D>::value)
 mvn_fit_kernel(const float* __restrict__ thetas,
@@ -134,11 +136,6 @@ mvn_fit_kernel(const float* __restrict__ thetas,
   constexpr int kThreads = FitThreads<D>::value;
   // model slot of this block: its statics and its slice of every output
   const int model = blockIdx.x;
-  const int dim = fm.dim[model];
-  const float scaling = fm.scaling[model];
-  const int selector = fm.selector[model];
-  const float sel_const = fm.sel_const[model];
-  const float sel_exp = fm.sel_exp[model];
   th_out += (size_t)model * n * d;
   w_out += (size_t)model * n;
   chol_out += (size_t)model * d * d;
@@ -148,128 +145,26 @@ mvn_fit_kernel(const float* __restrict__ thetas,
   quad_out += (size_t)model * n;
   logdet_out += model;
   cdf_out += (size_t)model * n;
-  // the block's weights: model `model`'s rows only when m is given
-  auto weight_of = [&](int i) {
-    return (m == nullptr || m[i] == model) ? weights[i] : 0.f;
-  };
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float s_warp[kWarps * (D + 1)];
-  __shared__ float s_part[kThreads];
-  __shared__ float s_mean[D + 1];
-  __shared__ float s_cov[D * D];
-  __shared__ float s_L[D * D];
-  __shared__ float s_Linv[D * D];
-  __shared__ float s_prec[D * D];
-  __shared__ float s_vmask[D];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __shared__ FitShared<D, kThreads> sh;
+  const int tid = threadIdx.x;
 
-  // 1. w = weights / max(sum, 1e-38)
-  float ws = 0.f;
-  for (int i = tid; i < n; i += kThreads) ws += weight_of(i);
-  ws = clamp_min_keep_nan(block_sum(ws, s_warp), 1e-38f);
-
-  // 2. mean = w @ thetas and sum w^2, one block reduction of d + 1 values
-  float acc[D + 1];
-#pragma unroll
-  for (int k = 0; k <= D; ++k) acc[k] = 0.f;
-  for (int i = tid; i < n; i += kThreads) {
-    const float w = weight_of(i) / ws;
-    w_out[i] = w;
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      if (k < d) acc[k] += w * thetas[(size_t)i * d + k];
-    acc[D] += w * w;
-  }
-  __syncthreads();  // every thread has read block_sum's s_warp[0]
-#pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) s_warp[warp * (D + 1) + k] = v;
-  }
-  __syncthreads();
-  if (tid <= D) {
-    float s = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) s += s_warp[wi * (D + 1) + tid];
-    s_mean[tid] = s;
-  }
-  if (tid < D) s_vmask[tid] = tid < dim ? 1.f : 0.f;
-  __syncthreads();
-
-  // 3. cov: entry p = k D + l over the rows g, g + G, ... (G row groups
-  // when the threads outnumber the entries, else each thread its entries
-  // over all rows)
-  constexpr int P = D * D;
-  constexpr int G = kThreads >= P ? kThreads / P : 1;
-  for (int t = tid; t < (G > 1 ? kThreads : P); t += kThreads) {
-    const int p = t % P, g = t / P;
-    const int k = p / D, l = p % D;
-    float c = 0.f;
-    if (g < G && k < d && l < d) {
-      const float mk = s_mean[k], ml = s_mean[l];
-      for (int i = g; i < n; i += G) {
-        const float w = w_out[i];
-        const float ck = thetas[(size_t)i * d + k] - mk;
-        const float cl = thetas[(size_t)i * d + l] - ml;
-        c += (ck * w) * cl;
-      }
-    }
-    if (G > 1)
-      s_part[t] = c;
-    else
-      s_cov[p] = c;
-  }
-  __syncthreads();
-  if (G > 1 && tid < P) {
-    float s = 0.f;
-    for (int g = 0; g < G; ++g) s += s_part[g * P + tid];
-    s_cov[tid] = s;
-  }
-  __syncthreads();
-
-  // 4. fill, bandwidth, ladder, inverse, logdet (thread 0, d x d)
+  // 1-4. weights, moments, bandwidth, ladder, precision, logdet
+  const ReservoirRows rows{thetas, weights, m, model, d, w_out};
+  pyabc::fit_params<D, kThreads>(rows, n, d, fm.dim[model],
+                                 fm.scaling[model], fm.selector[model],
+                                 fm.sel_const[model], fm.sel_exp[model], sh);
   if (tid == 0) {
-    float* cov = s_cov;  // row stride D throughout
-    for (int k = 0; k < d; ++k) {
-      const float c = cov[k * D + k];
-      const float fill = fabsf(s_mean[k]) * 1e-4f + 1e-8f;
-      if (c <= 0.f) cov[k * D + k] = c + (fill - c);
-    }
-    const float ess = 1.f / clamp_min_keep_nan(s_mean[D], 1e-38f);
-    float factor = powf(ess, sel_exp);
-    if (selector == 1) factor = sel_const * factor;
-    const float sf = scaling * factor;
-    const float sf2 = sf * sf;
-    for (int k = 0; k < d; ++k)
-      for (int l = 0; l < d; ++l) cov[k * D + l] = cov[k * D + l] * sf2;
-    chol_guarded(cov, s_L, d, D);
-    // L^-1 by forward substitution, then P = L^-T L^-1
-    float* Linv = s_Linv;
-    for (int c = 0; c < d; ++c) {
-      for (int i = 0; i < c; ++i) Linv[i * D + c] = 0.f;
-      Linv[c * D + c] = 1.f / s_L[c * D + c];
-      for (int i = c + 1; i < d; ++i) {
-        float t = 0.f;
-        for (int k = c; k < i; ++k) t += s_L[i * D + k] * Linv[k * D + c];
-        Linv[i * D + c] = -t / s_L[i * D + i];
-      }
-    }
-    float ld = 0.f;
-    for (int k = 0; k < d; ++k)
-      ld += s_vmask[k] * logf(clamp_min_keep_nan(s_L[k * D + k], 1e-38f));
-    logdet_out[0] = 2.f * ld;
+    logdet_out[0] = sh.logdet;
     for (int i = 0; i < d; ++i)
       for (int j = 0; j < d; ++j) {
-        float p = 0.f;
-        for (int k = (i > j ? i : j); k < d; ++k)
-          p += Linv[k * D + i] * Linv[k * D + j];
-        const float outer = s_vmask[i] * s_vmask[j];
-        s_prec[i * D + j] = p * outer;
-        prec_out[i * d + j] = p * outer;
-        chol_out[i * d + j] = s_L[i * D + j] * outer;
+        prec_out[i * d + j] = sh.prec[i * D + j];
+        chol_out[i * d + j] = sh.L[i * D + j] * (sh.vmask[i] * sh.vmask[j]);
       }
-    for (int k = 0; k < d; ++k) center_out[k] = s_mean[k] * s_vmask[k];
+    for (int k = 0; k < d; ++k) center_out[k] = sh.mean[k] * sh.vmask[k];
   }
-  __syncthreads();
+  const float* s_mean = sh.mean;
+  const float* s_vmask = sh.vmask;
+  float* s_warp = sh.warp;
 
   // 5. rows: thetas * vmask, centred rows, quad
   for (int i = tid; i < n; i += kThreads) {
@@ -282,17 +177,7 @@ mvn_fit_kernel(const float* __restrict__ thetas,
       c[k] = th - s_mean[k] * s_vmask[k];
       thc_out[(size_t)i * d + k] = c[k];
     }
-    float q = 0.f;
-#pragma unroll
-    for (int l = 0; l < D; ++l) {
-      if (l >= d) break;
-      float pc = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        if (k < d) pc += c[k] * s_prec[k * D + l];
-      q += pc * c[l];
-    }
-    quad_out[i] = q;
+    quad_out[i] = pyabc::fit_quad<D>(c, sh.prec, d);
   }
 
   // 6. cdf: each thread a contiguous run of rows, sums then running max

@@ -16,7 +16,8 @@
 // counter = (lane, draw block, generation, stream tag * max_rounds + round).
 // The tags (kernels/philox.py): 0 calibration, 1 generation-0 prior,
 // 2 transition proposal, 3 simulator noise, 4 the stochastic accept, 5 the
-// model index of a run over several models (never drawn with one model).
+// model index of a run over several models (never drawn with one model),
+// 6 the bootstrap ancestors of the adaptive population size (K16).
 // K19's Poisson draws (below) sit on the simulator-noise stream.
 // One block gives four 32-bit words. A draw's position therefore depends
 // only on (seed, stream, generation, round, lane, block, word): never on

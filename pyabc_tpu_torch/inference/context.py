@@ -60,6 +60,15 @@ generation's ``(6, S)`` moment block after each round, and the generation
 step finishes the refit from it (K22's finish in K9's place); the
 calibration keeps K9 over its complete prior sample.
 
+An adaptive population size (``multigen_kernel(adaptive_n=...)``): the
+generation's n lives in device memory (``Carry.n_target``) and rides the
+round counters (slot ``N_TARGET``), so the host learns it at the first
+round's read with no extra sync. After the refit K16 draws the bootstrap
+ancestors once and runs a fixed number of probes (the bootstrap fits, the
+density CV, a bisection step); the next n stays in device memory and
+reaches the host in the chunk's fetch. A list of sizes sets the slot from
+the host each generation.
+
 LocalTransition (one model, ``pyabc_tpu`` ``multigen_kernel`` with a
 LocalTransition): a round draws with K2's local mode (each ancestor's own
 Cholesky factor) and scores with K14 (one Gaussian per component, in the
@@ -83,6 +92,7 @@ import torch
 
 from ..kernels import philox
 from ..core.random_variables import stacked_arrays
+from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.model_step import model_step
@@ -103,8 +113,9 @@ from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
 from ..transition.local_transition import LocalTransition
 
-#: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps
-N_ACC, ROUNDS, N_VALID, EPS_AT_MIN = range(4)
+#: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps, and the
+#: generation's target n (the host reads it with the round's counters)
+N_ACC, ROUNDS, N_VALID, EPS_AT_MIN, N_TARGET = range(5)
 #: the generation index of the calibration rounds' draws
 CALIBRATION_GENERATION = 2 ** 32 - 1
 
@@ -131,6 +142,8 @@ class Carry:
     log_model_factor: torch.Tensor | None = None  # (K,)
     # LocalTransition: generations since the last refit (the cadence)
     gens_since: torch.Tensor | None = None        # () int32
+    # an adaptive population size: this generation's n (K16 sets the next)
+    n_target: torch.Tensor | None = None          # () int32
 
 
 @dataclass
@@ -144,6 +157,8 @@ class GenerationRun:
     counters: torch.Tensor
     res: dict
     rec: dict | None
+    #: the generation's target n, as the host read it with the counters
+    n_target: int
     #: segmented early reject: K18's int64 counters of the generation
     seg: torch.Tensor | None = None
     #: segmented early reject under an adaptive distance: K22's (6, S)
@@ -182,7 +197,7 @@ class DeviceContext:
             self.prior_arrays = prior.arrays(device)
             self.d = prior.dim
         #: round counters of the generation in progress (generation_while)
-        self.counters = torch.zeros(4, dtype=torch.int32, device=device)
+        self.counters = torch.zeros(5, dtype=torch.int32, device=device)
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
         self.max_rounds = int(max_rounds)
         self.S = spec.total_size
@@ -395,19 +410,24 @@ class DeviceContext:
                 "logq": logq, "ring_valid": keep}
 
     # --------------------------------------------------------- generation
-    def generation_while(self, lanes, n_target: int,
+    def generation_while(self, lanes, n_target: int | torch.Tensor,
                          eps_at_min: torch.Tensor | None = None,
                          ring: bool = True) -> GenerationRun:
         """Propose rounds until ``n_target`` acceptances or the round
-        budget; one counter read per round. ``ring=False`` skips the
-        record ring (the calibration sample reduces the reservoir)."""
+        budget; one counter read per round. ``n_target`` is a host int or
+        a 0-dim device int32 (an adaptive n): either lands in the counters'
+        ``N_TARGET`` slot, which the first round's read brings to the host.
+        ``ring=False`` skips the record ring (the calibration sample
+        reduces the reservoir)."""
         res = self.new_reservoir()
         rec = self.new_ring() if ring else None
         record = rec is not None and "theta" in rec
-        counters = torch.zeros(4, dtype=torch.int32, device=self.device)
+        counters = torch.zeros(5, dtype=torch.int32, device=self.device)
         self.counters = counters
         if eps_at_min is not None:
             counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
+        counters[N_TARGET] = (n_target if isinstance(n_target, torch.Tensor)
+                              else int(n_target))
         self.rounds_read = 0
         while True:
             out = lanes()
@@ -421,13 +441,15 @@ class DeviceContext:
             host = counters.cpu()
             self.sync_ledger.record("round_counters", host.nbytes)
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
+            n_tgt = int(host[N_TARGET])
             self.rounds_read = r
-            if not (n_acc < n_target and r < self.max_rounds):
+            if not (n_acc < n_tgt and r < self.max_rounds):
                 break
         return GenerationRun(n_acc=n_acc, rounds=r,
                              n_valid=int(host[N_VALID]),
                              eps_at_min=bool(host[EPS_AT_MIN]),
-                             counters=counters, res=res, rec=rec)
+                             counters=counters, res=res, rec=rec,
+                             n_target=n_tgt)
 
     def _local_refit(self, carry: Carry, theta: torch.Tensor,
                      w_norm: torch.Tensor, k_mask: torch.Tensor,
@@ -514,8 +536,10 @@ class DeviceContext:
         run.seg, run.mom = self.seg_counters, self.seg_moments
         return run
 
-    def k_mask(self, counters: torch.Tensor, n_target: int) -> torch.Tensor:
-        n_keep = torch.clamp(counters[N_ACC], max=n_target)
+    def k_mask(self, counters: torch.Tensor) -> torch.Tensor:
+        """The kept rows: the first min(n_acc, n_target), both read from
+        the counters in device memory."""
+        n_keep = torch.minimum(counters[N_ACC], counters[N_TARGET])
         return torch.arange(self.n_cap, device=self.device) < n_keep
 
     def calibrate(self, n_cal: int, dist_w0: torch.Tensor, *,
@@ -529,7 +553,7 @@ class DeviceContext:
             lambda: self.lanes_prior(inf, dist_w0, t=CALIBRATION_GENERATION,
                                      tag=philox.CALIBRATION),
             n_cal, ring=False)
-        mask = self.k_mask(run.counters, n_cal)
+        mask = self.k_mask(run.counters)
         ss = run.res["sumstats"]
         w0, d0 = dist_w0, run.res["distance"]  # K5's distances under w0
         if calib_w:
@@ -555,23 +579,50 @@ class DeviceContext:
             n_cal, ring=False)
         temp0, pdf_norm0, max_found0 = temperature_update.initial(
             res_distance=run.res["distance"],
-            k_mask=self.k_mask(run.counters, n_cal),
+            k_mask=self.k_mask(run.counters),
             tables=self.init_tables, config=self.temp_config)
         return temp0, pdf_norm0, max_found0, run
 
+    def bootstrap_n(self, trans_next: dict, fit_statics: dict, t: int,
+                    adaptive_n: tuple,
+                    model_probs: torch.Tensor | None = None) -> dict:
+        """K16 on the just-refit params (``inference/util.py:2094-2150``):
+        the next generation's n from the bootstrap-CV bisection, as a 0-dim
+        int32 in device memory (``n_next``); K > 1 weights the models' CVs
+        by the new model probabilities. Its ancestors sit on the BOOT
+        stream of generation ``t``."""
+        target_cv, min_n, max_n, n_boot = adaptive_n
+        if self.K > 1:
+            stacked = trans_next
+            dims, statics = self.dims, self.fit_statics
+        else:
+            stacked = {k: trans_next[k][None] for k in ("thetas", "weights",
+                                                         "cdf")}
+            dims, statics = [self.d], [fit_statics]
+        return required_nr(
+            stacked["thetas"], stacked["weights"], stacked["cdf"], dims=dims,
+            statics=statics, seed=self.seed, generation=t,
+            max_rounds=self.max_rounds, target_cv=target_cv, min_n=min_n,
+            max_n=max_n, n_bootstrap=n_boot, model_p=model_probs)
+
     def generation_step(self, carry: Carry, run: GenerationRun, *,
-                        n_target: int, adaptive: bool, eps_quantile: bool,
+                        adaptive: bool, eps_quantile: bool,
                         eps_weighted: bool, alpha: float, multiplier: float,
                         fit_statics: dict, health_config: tuple | None,
-                        t: int = 0, refit_cadence: tuple | None = None):
+                        t: int = 0, refit_cadence: tuple | None = None,
+                        adaptive_n: tuple | None = None, last: bool = False):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute (K9 over the
         ring, or K22's finish over the moment block) -> quantile
         epsilon -> MVN refit (LocalTransition: K15's drift and cadence,
         then K12 and K13 under its flag) -> [noisy ABC: K3 over the ring,
-        K21b] -> health word. Returns (carry, outputs)."""
+        K21b] -> [an adaptive population size: K16, skipped when ``last``
+        (the run stops after this generation, so n stays)] -> health word.
+        The kept rows come from the counters in device memory; the host's
+        read of them (``run.n_target``) scales the health word's ESS floor.
+        Returns (carry, outputs)."""
         res, counters = run.res, run.counters
-        k_mask = self.k_mask(counters, n_target)
+        k_mask = self.k_mask(counters)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
         eps_g = carry.eps
         if adaptive and run.mom is not None:
@@ -632,6 +683,20 @@ class DeviceContext:
             # ride the chunk's packed fetch
             out.update(refit=refit["refit"], drift=refit["drift"],
                        rows_changed=refit["rows_changed"])
+        n_next = carry.n_target
+        if adaptive_n is not None:
+            # K16's answer, the probes that did work and the CV at max_n
+            # (the first probe's) ride the chunk's fetch; a skipped K16
+            # reports 0 probes
+            probes = torch.zeros((), dtype=torch.int32, device=self.device)
+            cv_max = torch.zeros((), dtype=torch.float32, device=self.device)
+            if not last:
+                k16 = self.bootstrap_n(
+                    trans_next, fit_statics, t, adaptive_n,
+                    model_probs=step["model_probs"] if self.K > 1 else None)
+                n_next, probes = k16["n_next"], k16["state"][STEP]
+                cv_max = k16["cvs"][0]
+            out.update(n_next=n_next, k16_probes=probes, k16_cv_max=cv_max)
         noisy = {}
         if self.stochastic:
             cfg = self.temp_config
@@ -652,7 +717,7 @@ class DeviceContext:
             ess_floor, acc_floor, stall_w, stall_rtol = health_config
             word, ess, eps_prev_n, stall_n = generation_health(
                 theta=res["theta"], k_mask=k_mask, w_norm=w_norm,
-                d_new=d_new, n_acc=n_acc, n_target=n_target,
+                d_new=d_new, n_acc=n_acc, n_target=run.n_target,
                 acc_rate=acc_rate, trans_params=carry.trans_params,
                 trans_next=trans_next, fitted=carry.fitted,
                 fitted_next=fitted_next, eps_g=eps_g, eps_next=eps_next,
@@ -664,5 +729,6 @@ class DeviceContext:
                     dist_w=dist_w_next, eps=eps_next,
                     hist_min=hist_min_next, eps_prev=eps_prev_n,
                     stall_count=stall_n, **noisy, **models,
-                    gens_since=refit["gens_since"] if self.local else None)
+                    gens_since=refit["gens_since"] if self.local else None,
+                    n_target=n_next)
         return nxt, out

@@ -54,6 +54,18 @@ generation); under it a refit also runs when the drift of the accepted
 population against the fitted one passes the threshold, and
 ``refit_events`` and History's telemetry hold each generation's
 ``refit``, ``drift`` and ``refit_rows_changed``.
+
+Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
+``ListPopulationSize`` or ``AdaptivePopulationSize`` with a finite
+``max_population_size``; the MVN transition, one model or several): the
+reservoir, the round's lanes and the round cap are sized to the largest n
+(the list's, or ``max(start, max_population_size)``), and each generation
+keeps its own n. Under the adaptive size K16 picks the next n on the device
+after each refit; the host learns it with the next generation's first
+counter read (no extra sync), History's telemetry holds each generation's
+``n_target`` and ``n_next`` (and, where K16 ran, ``k16_probes``, the
+probes that did work, and ``k16_cv_max``, the aggregate CV at max_n), and
+``population_strategy.nr_particles`` mirrors the device's decision.
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
                                    device_config)
+from ..kernels.bootstrap_cv import MAX_BOOTSTRAP
 from ..kernels.mvn_fit import MAX_MODELS
 from ..model import TorchModel
 from ..observability.sync import SyncLedger
@@ -88,7 +101,8 @@ from ..ops.scale_reduce import SHARDED_SCALE_NAMES
 from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
-from ..populationstrategy import ConstantPopulationSize
+from ..populationstrategy import (AdaptivePopulationSize,
+                                  ConstantPopulationSize, ListPopulationSize)
 from ..storage.history import History
 from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
@@ -240,7 +254,9 @@ class ABCSMC:
                                        ConstantEpsilon)):
             raise _not_ported(f"epsilon {type(self.eps).__name__} without "
                               f"a StochasticAcceptor", "11")
-        if isinstance(population_size, ConstantPopulationSize):
+        if isinstance(population_size, (ConstantPopulationSize,
+                                        ListPopulationSize,
+                                        AdaptivePopulationSize)):
             self.population_strategy = population_size
         elif isinstance(population_size, (int, np.integer)):
             self.population_strategy = ConstantPopulationSize(
@@ -248,6 +264,22 @@ class ABCSMC:
         else:
             raise _not_ported(f"population strategy "
                               f"{type(population_size).__name__}", "12")
+        if (isinstance(population_size, AdaptivePopulationSize)
+                and not np.isfinite(population_size.max_population_size)):
+            # the JAX package's fused gate: the buffers are sized to the
+            # cap, so an unbounded growth target takes its host loop
+            raise _not_ported(
+                "AdaptivePopulationSize with an unbounded "
+                "max_population_size (the fused path sizes its buffers to "
+                "the cap; the JAX package serves it on its host loop)", "16")
+        if (isinstance(population_size, AdaptivePopulationSize)
+                and population_size.n_bootstrap > MAX_BOOTSTRAP):
+            # refused before launch, so no generation's work is lost
+            raise _not_ported(
+                f"AdaptivePopulationSize with n_bootstrap "
+                f"{population_size.n_bootstrap} above {MAX_BOOTSTRAP} (K16's "
+                f"density holds one log-density a bootstrap in a thread)",
+                "12")
         if transitions is None:
             transitions = [MultivariateNormalTransition()
                            for _ in range(self.K)]
@@ -258,7 +290,7 @@ class ABCSMC:
                              f"{self.K} models")
         for tr in transitions:
             if type(tr) is LocalTransition:
-                self._local_gate(acceptor)
+                self._local_gate(acceptor, self.population_strategy)
             elif type(tr) is not MultivariateNormalTransition:
                 raise _not_ported(f"transition {type(tr).__name__}", "12")
         self.transitions = transitions
@@ -304,11 +336,15 @@ class ABCSMC:
         #: (alive models only), as the JAX package's ``_model_probs``
         self.model_probs: dict[int, float] = {}
 
-    def _local_gate(self, acceptor) -> None:
+    def _local_gate(self, acceptor, strategy) -> None:
         """Raise for a LocalTransition configuration the port does not
         serve yet (ROADMAP queue A, item 12)."""
         if self.K > 1:
             raise _not_ported("LocalTransition with several models", "12")
+        if not isinstance(strategy, ConstantPopulationSize):
+            # the JAX package refits K12-K14 per bootstrap for its CV
+            raise _not_ported(f"LocalTransition with "
+                              f"{type(strategy).__name__}", "12")
         if type(acceptor) is not UniformAcceptor:
             raise _not_ported(f"LocalTransition with a "
                               f"{type(acceptor).__name__}", "12")
@@ -386,6 +422,28 @@ class ABCSMC:
         return self.history
 
     # ------------------------------------------------------------- setup
+    def _n_max(self) -> int:
+        """The largest n of the run, which sizes the reservoir, the round
+        and the round cap: the list's, or ``max(start,
+        max_population_size)`` of an adaptive size (``smc.py:2183-2201``
+        of the JAX package)."""
+        ps = self.population_strategy
+        if isinstance(ps, ListPopulationSize):
+            return max(ps.values)
+        if isinstance(ps, AdaptivePopulationSize):
+            return max(ps(0), int(ps.max_population_size))
+        return ps(0)
+
+    def _adaptive_n_cfg(self, n_cap: int) -> tuple | None:
+        """K16's ``(mean_cv, min_n, max_n, n_bootstrap)``, max_n the cap
+        clipped to the reservoir, or None without an adaptive size."""
+        ps = self.population_strategy
+        if not isinstance(ps, AdaptivePopulationSize):
+            return None
+        return (float(ps.mean_cv), int(ps.min_population_size),
+                int(min(ps.max_population_size, n_cap)),
+                int(ps.n_bootstrap))
+
     def _build_context(self, n: int, min_acceptance_rate: float):
         d = self.distance_function
         d.initialize(self.spec)
@@ -550,8 +608,10 @@ class ABCSMC:
             self.eps._max_nr_populations = (
                 int(max_nr_populations) if np.isfinite(max_nr_populations)
                 else None)
-        ctx = self._build_context(n, min_acceptance_rate)
+        ctx = self._build_context(self._n_max(), min_acceptance_rate)
         stochastic = ctx.stochastic
+        adaptive_n = self._adaptive_n_cfg(ctx.n_cap)
+        strategy = self.population_strategy
         d = self.distance_function
         adaptive = bool(getattr(d, "adaptive", False))
         seg_on = self._segment_gate(ctx, adaptive=adaptive,
@@ -567,14 +627,14 @@ class ABCSMC:
         else:
             fit_statics = self.transition.fit_statics()
         statics = dict(
-            n_target=n, adaptive=adaptive, eps_quantile=eps_quantile,
+            adaptive=adaptive, eps_quantile=eps_quantile,
             eps_weighted=getattr(self.eps, "weighted", True),
             alpha=getattr(self.eps, "alpha", 0.5),
             multiplier=getattr(self.eps, "quantile_multiplier", 1.0),
             fit_statics=fit_statics,
             health_config=self._health_config(),
             refit_cadence=self._refit_cadence_cfg(ctx.n_cap) if local
-            else None)
+            else None, adaptive_n=adaptive_n)
         min_eps = self._scalar(minimum_epsilon)
         inf = math.inf
         carry = Carry(
@@ -592,6 +652,10 @@ class ABCSMC:
         if local:
             carry.gens_since = torch.zeros((), dtype=torch.int32,
                                            device=self.device)
+        if adaptive_n is not None:
+            # the first generation's n; K16 writes each next one
+            carry.n_target = torch.full((), n, dtype=torch.int32,
+                                        device=self.device)
         self.refit_events = []
 
         calib = None
@@ -632,6 +696,8 @@ class ABCSMC:
                 g_limit = min(g_limit, int(max_nr_populations) - t)
             if isinstance(self.eps, ListEpsilon):
                 g_limit = min(g_limit, len(self.eps.epsilon_values) - t)
+            if isinstance(strategy, ListPopulationSize):
+                g_limit = min(g_limit, len(strategy.values) - t)
             if g_limit <= 0:
                 break
             t_chunk = time.perf_counter()
@@ -662,44 +728,57 @@ class ABCSMC:
                             pdf_norm=c.pdf_norm,
                             carry=c if self.K > 1 else None,
                             segmented=seg_on)
+                # the generation's n: the device's under an adaptive size
+                # (the host reads it with the first round's counters)
+                n_gen = (carry.n_target if adaptive_n is not None
+                         else strategy(tg))
                 run = (ctx.generation_while_seg if seg_on
-                       else ctx.generation_while)(lanes, n, eps_at_min=at_min)
-                gen_ok = run.n_acc >= min(n, ctx.n_cap)
+                       else ctx.generation_while)(lanes, n_gen,
+                                                  eps_at_min=at_min)
+                n_t = run.n_target
+                gen_ok = run.n_acc >= min(n_t, ctx.n_cap)
                 if not gen_ok:
                     logger.info("stopping: generation %d incomplete "
                                 "(n_acc=%d/%d in %d rounds)", tg, run.n_acc,
-                                n, run.rounds)
+                                n_t, run.rounds)
                     stop = True
                     break
-                carry, out = ctx.generation_step(carry, run, t=tg,
+                sims_total += run.n_valid
+                acc_rate = n_t / max(run.n_valid, 1)
+                # every stop rule reads host values of this generation's
+                # counters, so it is known before the step: K16 is skipped
+                # in the generation after which the run stops
+                last = bool(
+                    run.eps_at_min or tg + 1 >= max_nr_populations
+                    or acc_rate < min_acceptance_rate
+                    or sims_total >= max_total_nr_simulations
+                    or (max_walltime is not None
+                        and time.perf_counter() - t_start > max_walltime))
+                carry, out = ctx.generation_step(carry, run, t=tg, last=last,
                                                  **statics)
                 outs.append(out)
-                sims_total += run.n_valid
-                acc_rate = n / max(run.n_valid, 1)
                 host_gen.append({
-                    "t": tg, "rounds": run.rounds, "n_valid": run.n_valid,
+                    "t": tg, "n": n_t, "rounds": run.rounds,
+                    "n_valid": run.n_valid,
                     "n_acc": run.n_acc, "acceptance_rate": acc_rate,
                     "syncs": self.sync_ledger.count - syncs0,
                     "compute_s": time.perf_counter() - t_gen})
-                if (run.eps_at_min or tg + 1 >= max_nr_populations
-                        or acc_rate < min_acceptance_rate
-                        or sims_total >= max_total_nr_simulations
-                        or (max_walltime is not None
-                            and time.perf_counter() - t_start
-                            > max_walltime)):
+                if last:
                     stop = True
                     break
             if not outs:
                 break
             t_fetch = time.perf_counter()
-            fetched = self._fetch_chunk(outs, t, n, fetch_dtype, adaptive,
+            n_keep = max(info["n"] for info in host_gen)
+            fetched = self._fetch_chunk(outs, t, n_keep, fetch_dtype,
+                                        adaptive,
                                         calib if chunk_index == 0 else None,
                                         stochastic)
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
             chunk_s = time.perf_counter() - t_chunk
             n_kept, single = self._persist_chunk(
-                fetched, host_gen, t, n, chunk_index, chunk_s, eps_quantile,
+                fetched, host_gen, t, chunk_index, chunk_s, eps_quantile,
                 adaptive)
             stop = stop or single
             t += n_kept
@@ -721,7 +800,9 @@ class ABCSMC:
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
                      stochastic) -> dict:
-        """Pack the chunk's generations and read them in one sync."""
+        """Pack the chunk's generations and read them in one sync: the
+        first ``n`` rows of each (the chunk's largest n; each generation
+        keeps its own when persisted)."""
         each = lambda k: [o[k] for o in outs]  # noqa: E731
         stack = lambda k: torch.stack(each(k))  # noqa: E731
         tree = {
@@ -757,6 +838,10 @@ class ABCSMC:
             # so do LocalTransition's refit decisions, drifts and rows
             for k in ("refit", "drift", "rows_changed"):
                 tree[k] = stack(k)
+        if "n_next" in outs[0]:
+            # and K16's next n, its probes and its CV at max_n
+            for k in ("n_next", "k16_probes", "k16_cv_max"):
+                tree[k] = stack(k)
         if calib is not None:
             tree.update({f"calib_{k}": v for k, v in calib.items()})
         host = self._to_host(tree)
@@ -781,7 +866,7 @@ class ABCSMC:
         return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
                 for k, v in out.items()}
 
-    def _persist_chunk(self, fetched, host_gen, t0, n, chunk_index, chunk_s,
+    def _persist_chunk(self, fetched, host_gen, t0, chunk_index, chunk_s,
                        eps_quantile, adaptive) -> tuple[int, bool]:
         """Persist the chunk's generations -> (how many were persisted,
         whether stop_if_only_single_model_alive stopped the run there)."""
@@ -798,19 +883,19 @@ class ABCSMC:
         theta, dist, logw = unpack_rows(fetched["rows"], d)
         spaces = [p.space for p in self.priors]
         for g, info in enumerate(host_gen):
-            t = t0 + g
+            t, n = t0 + g, info["n"]
             if "health" in fetched and int(fetched["health"][g]) != 0:
                 raise DegenerateRunError(t, int(fetched["health"][g]))
             eps_used = float(fetched["eps_used"][g])
             ss = None
             if g in fetched["ss_gens"]:
-                ss = fetched["sumstats"][fetched["ss_gens"].index(g)]
-            ms = (fetched["m"][g].astype(np.int32) if "m" in fetched
+                ss = fetched["sumstats"][fetched["ss_gens"].index(g)][:n]
+            ms = (fetched["m"][g][:n].astype(np.int32) if "m" in fetched
                   else np.zeros(n, np.int32))
             pop = Population(
-                ms=ms, thetas=theta[g],
-                weights=exp_normalize_log_weights(logw[g]),
-                distances=dist[g], sumstats=ss, spaces=spaces,
+                ms=ms, thetas=theta[g][:n],
+                weights=exp_normalize_log_weights(logw[g][:n]),
+                distances=dist[g][:n], sumstats=ss, spaces=spaces,
                 sumstat_spec=self.spec, model_names=self.model_names)
             telemetry = {
                 "fused_chunk": len(host_gen), "chunk_index": chunk_index,
@@ -818,7 +903,7 @@ class ABCSMC:
                 "n_evaluations": info["n_valid"],
                 "acceptance_rate": round(info["acceptance_rate"], 6),
                 "syncs": info["syncs"],
-                "device": str(self.device),
+                "device": str(self.device), "n_target": n,
             }
             if t == 0 and self.capability_fallbacks:
                 telemetry["capability_fallbacks"] = [
@@ -833,6 +918,16 @@ class ABCSMC:
                 self.refit_events.append(event)
                 telemetry.update(refit=event[1], drift=round(event[2], 5),
                                  refit_rows_changed=event[3])
+            if "n_next" in fetched:
+                # the device's decision, mirrored into the host strategy
+                n_next = int(fetched["n_next"][g])
+                telemetry["n_next"] = n_next
+                self.population_strategy.nr_particles = n_next
+                probes = int(fetched["k16_probes"][g])
+                if probes:
+                    telemetry.update(
+                        k16_probes=probes,
+                        k16_cv_max=float(fetched["k16_cv_max"][g]))
             if "seg" in fetched:
                 ret, steps, resolved, slots = (
                     int(v) for v in fetched["seg"][g])

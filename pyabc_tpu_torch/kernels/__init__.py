@@ -4,6 +4,9 @@ Each wrapper sends CPU tensors to its plain PyTorch version and launches
 its CUDA kernel (``pyabc_tpu_torch/csrc``) on CUDA tensors. Importing this
 package builds nothing: the kernels are compiled at first launch.
 """
+from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
+                           bootstrap_density_plain, bootstrap_draw_plain,
+                           bootstrap_fit_plain)
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
@@ -34,12 +37,13 @@ from .temperature_update import temperature_update, temperature_update_plain
 
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
-#: K19, K20, K20b family (unsegmented and segmented), K20b network, K21a,
-#: K21b, K22 fold and finish, K26)
+#: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
+#: K21a, K21b, K22 fold and finish, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
-           propose_local, local_logpdf, proposal_drift, segment_round,
+           propose_local, local_logpdf, proposal_drift, bootstrap_cv,
+           segment_round,
            tau_leap, sir_simulate, ode_family_simulate, ode_family_segments,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, model_step)
@@ -58,13 +62,16 @@ def launch_counts() -> dict[str, int]:
 
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
-    ``adaptive`` and ``k_gt_1``); each also counts in ``launch_counts``."""
+    ``adaptive`` and ``k_gt_1``, K16's four entries); each also counts in
+    ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
 
 __all__ = [
-    "KERNELS", "cast_rows_plain", "compact_round", "compact_round_plain",
+    "KERNELS", "bootstrap_bisect_plain", "bootstrap_cv",
+    "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",
+    "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "kernel_accept",
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",

@@ -73,6 +73,14 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P],
     "pyabc_chol_guarded": [_P, _I, _P, _P, _P, _P],
+    "pyabc_boot_draw": [
+        _P, _I, _I, _I, _U, _U, _U, _U, _U, _I, _I, _P, _P, _P],
+    "pyabc_boot_fit": [
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P],
+    "pyabc_boot_density": [
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "pyabc_boot_bisect": [_P, _I, _I, _P, _P, _P, _F, _P],
     "pyabc_model_step": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_scale_reduce": [

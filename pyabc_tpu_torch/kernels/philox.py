@@ -31,10 +31,12 @@ TWO_PI_F32 = 6.28318548202514648
 ROUND = 1
 
 #: stream tags: calibration rounds, the generation-0 prior, the transition
-#: proposal, the simulator's noise, the stochastic accept's uniform, and the
+#: proposal, the simulator's noise, the stochastic accept's uniform, the
 #: model index of a run over several models (the prior-model draw, the
 #: ancestor model and its perturbation; a single-model run never draws it)
-CALIBRATION, PRIOR, TRANSITION, SIM_NOISE, ACCEPT, MODEL = range(6)
+#: and the bootstrap ancestors of the adaptive population size (K16: block
+#: ``(model << 8) | bootstrap`` of lane = slot, at round 0)
+CALIBRATION, PRIOR, TRANSITION, SIM_NOISE, ACCEPT, MODEL, BOOT = range(7)
 
 
 @dataclass(frozen=True)

@@ -328,6 +328,21 @@ class History:
                 "epsilon FROM populations WHERE abc_smc_id=? AND t>=? "
                 "ORDER BY t", self._conn, params=(self.id, PRE_TIME))
 
+    def get_nr_particles_per_population(self) -> pd.Series:
+        """Particles stored per generation (index t, the observed data's
+        t = -1 included), the JAX package's query."""
+        with self._lock:
+            df = pd.read_sql_query(
+                """
+                SELECT populations.t AS t, COUNT(particles.id) AS n
+                FROM populations
+                LEFT JOIN models ON models.population_id = populations.id
+                LEFT JOIN particles ON particles.model_id = models.id
+                WHERE populations.abc_smc_id = ?
+                GROUP BY populations.t ORDER BY populations.t
+                """, self._conn, params=(self.id,))
+        return df.set_index("t")["n"]
+
     def get_weighted_distances(self, t: int | None = None) -> pd.DataFrame:
         t = self.max_t if t is None else t
         with self._lock:

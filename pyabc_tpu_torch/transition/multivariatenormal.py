@@ -5,9 +5,12 @@ Params are a dict of device tensors: ``thetas (n, d)``, ``weights (n,)``,
 ``chol``/``prec (d, d)``, ``center (d,)``, ``thetas_c (n, d)``,
 ``quad (n,)``, ``logdet ()``, the ancestor ``cdf (n,)`` and the true
 ``dim`` (a Python float). A run over several models stacks one such set
-per model (a leading model axis, ``dims (K,)`` float32 for ``dim``). ``device_fit`` is the K8 kernel, ``device_logpdf``
-the K3 kernel; drawing from the fit is part of the K2 proposal kernel
-(``kernels/propose.py``).
+per model (a leading model axis, ``dims (K,)`` float32 for ``dim``).
+``device_fit`` is the K8 kernel, ``device_logpdf`` the K3 kernel; drawing
+from the fit is part of the K2 proposal kernel (``kernels/propose.py``).
+``device_mean_cv`` and ``device_required_nr`` are the bootstrap CV and
+bisection of the adaptive population size on one fit, through K16's
+entries (``kernels/bootstrap_cv.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from ..kernels.mvn_fit import mvn_fit
 from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
 from ..kernels.propose import propose, unbounded_prior
+from . import util
 from .util import scott_rule_of_thumb, silverman_rule_of_thumb
 
 
@@ -84,6 +88,32 @@ class MultivariateNormalTransition:
     def device_logpdf(q: torch.Tensor, params: dict) -> torch.Tensor:
         """``(B, d)`` -> ``(B,)`` mixture log-density (K3)."""
         return mvn_mixture_logpdf(q.contiguous(), params)
+
+    @staticmethod
+    def device_mean_cv(params: dict, idx: torch.Tensor, n, *, dim: int,
+                       scaling: float,
+                       bandwidth_selector: Callable) -> torch.Tensor:
+        """Bootstrap CV of the KDE density at resample size ``n`` on the
+        ancestors ``idx (n_bootstrap, n_cap)`` (``util.device_mean_cv``;
+        the JAX package's static takes a key and draws them itself)."""
+        return util.device_mean_cv(
+            params, idx, n, dim=dim, scaling=scaling,
+            bandwidth_selector=bandwidth_selector)
+
+    @staticmethod
+    def device_required_nr(params: dict, idx: torch.Tensor, *,
+                           target_cv: float, min_n: int, max_n: int,
+                           dim: int, scaling: float,
+                           bandwidth_selector: Callable) -> int:
+        """``AdaptivePopulationSize.update``'s bisection on the bootstrap CV
+        of this fit, the same ancestors for every probe."""
+        def cv_at(n):
+            return MultivariateNormalTransition.device_mean_cv(
+                params, idx, n, dim=dim, scaling=scaling,
+                bandwidth_selector=bandwidth_selector)
+
+        return util.device_required_nr(cv_at, target_cv=target_cv,
+                                       min_n=min_n, max_n=max_n)
 
     def get_config(self) -> dict:
         return {"name": type(self).__name__, "scaling": self.scaling,

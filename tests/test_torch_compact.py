@@ -198,7 +198,7 @@ def test_generation_step_on_a_carry_from_jax():
     ctx.transition = MultivariateNormalTransition()
     run = ctx.generation_while(lanes, n_target)
     nxt, out = ctx.generation_step(
-        carry, run, n_target=n_target, adaptive=False, eps_quantile=True,
+        carry, run, adaptive=False, eps_quantile=True,
         eps_weighted=True, alpha=0.5, multiplier=1.0,
         fit_statics=ctx.transition.fit_statics(),
         health_config=(0.0, 0.0, 16, 1e-6))

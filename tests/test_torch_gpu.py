@@ -1,4 +1,4 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K15, K18-K22 and
+"""Card tests: each hand-written kernel (K2 with K1, K3-K16, K18-K22 and
 K6's record mode) against its plain PyTorch version on the CUDA
 device, at small shapes and at the main-path shapes of BASELINE configs 2
 and 4. Marked ``gpu``; without a card
@@ -195,13 +195,14 @@ def test_lv_run_on_the_card(dev):
     assert h.n_populations == 4
     # every kernel of the LV path (the noisy-ABC kernels, the model
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
-    # LocalTransition's K12-K15, the segmented family's K20b and K22 are
-    # not on it)
+    # LocalTransition's K12-K15, the segmented family's K20b and K22 and
+    # the adaptive population size's K16 are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
              "propose_local", "local_logpdf", "proposal_drift",
-             "ode_family_segments", "moment_fold", "moment_finish")
+             "ode_family_segments", "moment_fold", "moment_finish",
+             "bootstrap_cv")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -320,8 +321,12 @@ def test_normalize_quantile_kernel(dev, n):
 
 
 @pytest.mark.parametrize("n,d,dim", [(64, 1, 1), (1024, 4, 4), (1024, 7, 5),
-                                     (333, 4, 4)])
+                                     (333, 4, 4), (16384, 4, 4),
+                                     (4096, 2, 1)])
 def test_mvn_fit_kernel(dev, n, d, dim):
+    """K8 against its plain version (its moments and factorization live in
+    ``csrc/mvn_fit.cuh``, shared with K16's bootstrap fit: the same
+    tolerances, at the adaptive legs' widths too)."""
     thetas, w, dim = _fit(dev, n, d, seed=n + d, dim=dim)
     for sel in (silverman_rule_of_thumb, scott_rule_of_thumb):
         before = mvn_fit.launches
@@ -1681,3 +1686,137 @@ def test_noisy_early_reject_runs_on_the_card(dev):
         assert np.array_equal(wa, wb)
     assert sum(hs[0].get_telemetry(t)["retired_early"]
                for t in range(5)) > 0
+
+
+# ------------------------------------------------------------------ K16
+#: (K, n_cap, d, bootstraps, weighted rows): the LV adaptive leg's width,
+#: config 5's (three models on d_max 2, model 1 dead) and a small odd one
+K16_SHAPES = [(1, 16384, 4, 10, 16384), (3, 4096, 2, 10, 4096),
+              (1, 100, 1, 3, 37)]
+
+
+def _k16_inputs(dev, K, n_cap, d, n_live):
+    g = _gen(dev, seed=K + n_cap)
+    st = {"scaling": 1.0, "bandwidth_selector": silverman_rule_of_thumb}
+    theta = (torch.randn(n_cap, d, generator=g, device=dev)
+             * torch.linspace(0.5, 2.0, d, device=dev) + 1.0)
+    w = torch.rand(n_cap, generator=g, device=dev) + 0.1
+    w[n_live:] = 0.0
+    w = w / w.sum()
+    if K == 1:
+        p = mvn_fit(theta, w, dim=d, **st)
+        return ({k: p[k][None].contiguous()
+                 for k in ("thetas", "weights", "cdf")}, [d], [st], None)
+    dims = [1, 2, 2]
+    m = (torch.arange(n_cap, device=dev) % K).to(torch.int32)
+    m[m == 1] = 2
+    theta[m == 0, 1:] = 0.0
+    p = mvn_fit.models(theta, w, m, dims=dims, statics=[st] * K)
+    probs = torch.stack([w[m == k].sum() for k in range(K)])
+    return ({k: p[k] for k in ("thetas", "weights", "cdf")}, dims, [st] * K,
+            probs)
+
+
+@pytest.mark.parametrize("K,n_cap,d,nb,n_live", K16_SHAPES)
+def test_bootstrap_cv_kernels(dev, K, n_cap, d, nb, n_live):
+    """K16's four entries against their plain versions: the draw and the
+    reset state bit-equal, the fit at K8's tolerances, each live model's
+    CV within 1e-4 relative and the same from run to run, the bisect step
+    bit-equal, and a whole bisection ending in the same state."""
+    import importlib
+
+    bc = importlib.import_module("pyabc_tpu_torch.kernels.bootstrap_cv")
+    x, dims, statics, probs = _k16_inputs(dev, K, n_cap, d, n_live)
+    alive = [k for k in range(K) if probs is None or float(probs[k]) > 0]
+    dkw = dict(n_boot=nb, seed=5, generation=3, max_rounds=256, min_n=10,
+               max_n=n_cap)
+    before = dict(bc.bootstrap_cv.mode_launches)
+    idx, state = bc.bootstrap_cv.draw(x["cdf"], **dkw)
+    idx_p, state_p = bc.bootstrap_draw_plain(x["cdf"], **dkw)
+    assert torch.equal(idx, idx_p) and torch.equal(state, state_p)
+    fit = bc.bootstrap_cv.fit(x["thetas"], idx, state, dims=dims,
+                              statics=statics)
+    fit_p = bc.bootstrap_fit_plain(x["thetas"], idx, state, dims=dims,
+                                   statics=statics)
+    torch.testing.assert_close(fit["center"][alive], fit_p["center"][alive],
+                               rtol=1e-5, atol=1e-7)
+    for k in ("prec", "logdet", "quad"):
+        torch.testing.assert_close(fit[k][alive], fit_p[k][alive],
+                                   rtol=1e-4, atol=1e-5, msg=k)
+    torch.testing.assert_close(
+        fit["thetas_c"][alive], fit_p["thetas_c"][alive], rtol=1e-5,
+        atol=1e-5 * float(fit_p["center"][alive].abs().max()))
+    part = bc.bootstrap_cv.density(x["thetas"], x["weights"], fit_p, state)
+    again = bc.bootstrap_cv.density(x["thetas"], x["weights"], fit_p, state)
+    part_p = bc.bootstrap_density_plain(x["thetas"], x["weights"], fit_p,
+                                        state)
+    assert torch.equal(part, again)
+
+    def cv_of(p):
+        return p[..., 0].sum(1) / p[..., 1].sum(1).clamp_min(1e-38)
+
+    torch.testing.assert_close(cv_of(part)[alive], cv_of(part_p)[alive],
+                               rtol=1e-4, atol=0.0)
+    target = 1.5 * float(cv_of(part_p)[alive].mean())
+    s_k, s_p = state.clone(), state.clone()
+    c_k = torch.zeros(bc.MAX_PROBES, device=dev)
+    c_p = torch.zeros(bc.MAX_PROBES, device=dev)
+    bc.bootstrap_cv.bisect(part, s_k, c_k, model_p=probs, target=target)
+    bc.bootstrap_bisect_plain(part, s_p, c_p, model_p=probs, target=target)
+    assert torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+    res = bc.required_nr(x["thetas"], x["weights"], x["cdf"], dims=dims,
+                         statics=statics, model_p=probs, seed=5,
+                         generation=3, max_rounds=256, target_cv=target,
+                         min_n=10, max_n=n_cap, n_bootstrap=nb)
+    idx2, st2 = bc.bootstrap_draw_plain(x["cdf"], **dkw)
+    cvs2 = torch.zeros(bc.MAX_PROBES, device=dev)
+    for _ in range(bc.n_probes(10, n_cap)):
+        f2 = bc.bootstrap_fit_plain(x["thetas"], idx2, st2, dims=dims,
+                                    statics=statics)
+        p2 = bc.bootstrap_density_plain(x["thetas"], x["weights"], f2, st2)
+        bc.bootstrap_bisect_plain(p2, st2, cvs2, model_p=probs,
+                                  target=target)
+    assert torch.equal(res["state"], st2)
+    steps = int(st2[bc.STEP])
+    torch.testing.assert_close(res["cvs"][:steps], cvs2[:steps], rtol=1e-4,
+                               atol=1e-7)
+    launched = {e: bc.bootstrap_cv.mode_launches[e] - before[e]
+                for e in bc.BootstrapCV.ENTRIES}
+    probes = bc.n_probes(10, n_cap)
+    assert launched == {"draw": 2, "fit": 1 + probes,
+                        "density": 2 + probes, "bisect": 1 + probes}
+
+
+def test_adaptive_lv_run_on_the_card(dev):
+    """LV config 2 under AdaptivePopulationSize(start 1000, mean_cv 0.05,
+    max 16384, 10 bootstraps), 4 generations on the card: the n trail
+    stays in [10, 16384] and equals the stored counts, K16 ran in every
+    generation but the last, and the host read the device only at the
+    round counters and the chunk's fetch."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (mode_launch_counts,
+                                         reset_launch_counts)
+
+    aps = pt.AdaptivePopulationSize(start_nr_particles=1000, mean_cv=0.05,
+                                    max_population_size=16384,
+                                    n_bootstrap=10)
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=aps,
+                    eps=pt.MedianEpsilon(), seed=0, device=dev)
+    abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=4)
+    tel = [h.get_telemetry(t) for t in range(4)]
+    trail = [x["n_target"] for x in tel]
+    counts = h.get_nr_particles_per_population()
+    assert trail[0] == 1000 and all(10 <= n <= 16384 for n in trail)
+    # K16's probes that did work ride the chunk's fetch into telemetry
+    assert all(x["k16_probes"] >= 1 for x in tel[:3])
+    assert "k16_probes" not in tel[3]
+    assert [int(counts[t]) for t in range(4)] == trail
+    assert aps.nr_particles == trail[-1]
+    assert mode_launch_counts()["bootstrap_cv:draw"] == 3
+    by = abc.sync_ledger.summary()["by_kind"]
+    rounds = sum(g["rounds"] for g in abc.generation_log)
+    assert set(by) == {"round_counters", "chunk_fetch"}
+    assert by["chunk_fetch"] == 1 and 1 <= by["round_counters"] - rounds <= 2
