@@ -67,7 +67,22 @@ cut.) Phases, one or more lines each:
    small odd shape (n_cap 100, 3 bootstraps, d 1, 37 weighted rows): the
    draw and the bisect step bit-equal, the fit at K8's tolerances, each
    model's CV within 1e-4 relative and the same from run to run, and a
-   whole bisection ending in the plain entries' state;
+   whole bisection ending in the plain entries' state; K16's repair case
+   (the model-weighted case of tests/test_torch_population.py with model
+   2's bootstrap of rank 1 at n = 3): each live model's CV and the
+   aggregate finite and within 1e-4 of the plain versions'; K25's accept
+   at the LV aggregated legs' round (B 65536, S 40) for their pair and for
+   2 and 4 sub-distances of mixed p (1, 2, inf, 3): distances and the
+   values mode within 1e-5 relative, flags equal away from eps, log
+   weights equal; K25's refit over the LV adaptive leg's ring (131072 x
+   40, 20000 rows unwritten) and reservoir (16384) for span,
+   standard_deviation and median_absolute_deviation: scales, W and
+   distances within 1e-5, span's and the median's scale bit-equal to the
+   plain scale of the kernel's own values; and, after phase 4's
+   aggregated config 3 leg, K18's aggregate mode at config 3's round
+   (that leg's generation-6 epsilon) and at a small odd shape, kept
+   slots, statistics, reservoir, ring and counters bit-identical, its
+   device time beside the p-norm mode's on the same round;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -176,11 +191,26 @@ cut.) Phases, one or more lines each:
    Gaussian toy under
    ListPopulationSize((500, 1000, 2000, 1000, 500)) over 32 seeds, the
    stored counts equal to the list and the seed mean within 0.03 of the
-   analytic posterior mean.
+   analytic posterior mean. Then the aggregated-distance legs, counts
+   reset just before each and each once more under torch.profiler: LV
+   config 2 under AdaptiveAggregatedDistance([PNormDistance(p=2) on the
+   predators, PNormDistance(p=1) on the prey]), pop 16384, 10
+   generations: K25's accept and refit launched, K5 and K9 not, the
+   weights refit at the calibration and after every generation, wall,
+   syncs (one counter read a round, one fetch a chunk) and the busy
+   share; the same at pop 1024 on the card and the CPU, the weights side
+   by side (the calibration's within 1e-3); LV under
+   tests/test_fused.py:324-345's schedule at LV's labels (float32 fetch,
+   the statistics stored): every stored distance recomputed under its
+   generation's weights within 2e-3 relative; and config 3 under the
+   aggregated pair of tests/test_segment.py:114-121 (weights 0.7, 1.3),
+   early reject on, off, off, on: populations bit-identical, slots
+   retired, the saved share of segment steps, K18's aggregate mode
+   launched.
 
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
-K22, K26 and the K > 1 modes) is replaced by a function that raises, so
+K22, K25, K26 and the K > 1 modes) is replaced by a function that raises, so
 none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
@@ -1847,6 +1877,11 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_density_plain"),
     ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_bisect_plain"),
     ("pyabc_tpu_torch.transition.util", "device_required_nr"),
+    ("pyabc_tpu_torch.kernels.aggregate", "aggregate_accept_weight_plain"),
+    ("pyabc_tpu_torch.kernels.aggregate", "sub_distances_plain"),
+    ("pyabc_tpu_torch.kernels.aggregate", "aggregate_refit_plain"),
+    ("pyabc_tpu_torch.kernels.aggregate", "weight_update_plain"),
+    ("pyabc_tpu_torch.kernels.segment_round", "agg_total"),
 )
 
 
@@ -2661,25 +2696,35 @@ def k20b_network_checks(dev) -> dict:
                 library_ms=None)
 
 
-def k18_case(dev, model, x, eps, ring_cap: int, label: str):
-    """K18 and its plain version on one round, each followed by K5 and K6
-    (with a ring of the completed slots) into fresh buffers: the kept
-    slots, their statistics, the reservoir, the ring and the counters must
-    be bit-identical."""
+def k18_case(dev, model, x, eps, ring_cap: int, label: str, w=None,
+             agg=None):
+    """K18 and its plain version on one round, each followed by K5 (K25
+    under an aggregated distance: ``agg`` its p's, ``w`` its flat params)
+    and K6 (with a ring of the completed slots) into fresh buffers: the
+    kept slots, their statistics, the reservoir, the ring and the counters
+    must be bit-identical."""
     import torch
 
-    from pyabc_tpu_torch.kernels import (compact_round, pnorm_accept_weight,
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         compact_round, pnorm_accept_weight,
                                          segment_round, segment_round_plain)
 
     B, S = x["theta"].shape[0], x["spec"].total_size
-    w = torch.ones(S, device=dev)
-    kw = dict(imap=x["imap"], x0=x["x0"], w=w, p=2.0, eps=eps, width=S)
+    if w is None:
+        w = torch.ones(S, device=dev)
+    kw = dict(imap=x["imap"], x0=x["x0"], w=w, p=2.0, eps=eps, width=S,
+              agg=agg)
     outs = []
     for fn in (segment_round, segment_round_plain):
         ctr = torch.zeros(4, dtype=torch.int64, device=dev)
         ss, keep = fn(model.segmented, x["theta"], x["valid"], x["stream"],
                       seg_ctr=ctr, **kw)
-        d, acc, lw = pnorm_accept_weight(ss, x["x0"], w, eps, keep, p=2.0)
+        if agg is None:
+            d, acc, lw = pnorm_accept_weight(ss, x["x0"], w, eps, keep,
+                                             p=2.0)
+        else:
+            d, acc, lw = aggregate_accept_weight(ss, x["x0"], w, eps, keep,
+                                                 ps=agg)
         n_cap = B
         d_th = x["theta"].shape[1]
         res = {"theta": torch.zeros(n_cap, d_th, device=dev),
@@ -5071,6 +5116,592 @@ def list_leg(dev) -> tuple[dict, dict, list]:
     return counts, modes, list(LIST_SIZES)
 
 
+# ----------------------------------------- aggregated distances (K25)
+#: the LV aggregated legs: LV config 2 (bench.py:119-127) with its distance
+#: swapped for an aggregate of a p 2 norm on the predators and a p 1 norm
+#: on the prey, MedianEpsilon, pop 16384 (the scale lane's and the LV
+#: adaptive leg's, not cut), 10 generations, seed 0
+AGG_POP, AGG_GENS = 16384, 10
+#: the card-and-CPU comparison of the adaptive leg's weight trail: the
+#: plain K3 over 16384 rows would take minutes on the CPU
+AGG_CPU_POP, AGG_CPU_GENS = 1024, 4
+#: the LV path under an aggregated distance: K25's accept in K5's place
+#: and, adaptive, its refit in K9's
+AGG_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+            "aggregate_accept_weight", "compact_round", "normalize_quantile",
+            "mvn_fit", "aggregate_refit", "pack_fetch", "generation_health")
+#: config 3 under the aggregated pair of tests/test_segment.py:114-121
+C3AGG_PATH = ("propose", "mvn_mixture_logpdf", "segment_round", "tau_leap",
+              "aggregate_accept_weight", "compact_round",
+              "normalize_quantile", "mvn_fit", "pack_fetch",
+              "generation_health")
+AGG_KERNELS = ("aggregate_accept_weight", "aggregate_refit")
+#: K25 accept's checks at the LV leg's round (B 65536, S 40): the LV
+#: legs' pair, and 2 and 4 sub-distances of mixed p
+AGG_CASES = {"LV legs' pair (p 2, 1)": None,
+             "2 sub-distances (p 2, inf)": (2.0, math.inf),
+             "4 sub-distances (p 1, 2, inf, 3)": (1.0, 2.0, math.inf, 3.0)}
+#: the refit's scales (the default span first: the LV adaptive leg's)
+AGG_SCALES = ("span", "standard_deviation", "median_absolute_deviation")
+
+
+def lv_subs(pt) -> list:
+    """The LV legs' sub-distances: p 2 on the predators, p 1 on the prey."""
+    return [pt.PNormDistance(p=2, weights={"pred": 1, "prey": 0}),
+            pt.PNormDistance(p=1, weights={"pred": 0, "prey": 1})]
+
+
+def lv_aggregate(where, kind: str, pop: int = AGG_POP):
+    """LV config 2 under ``AdaptiveAggregatedDistance(lv_subs)`` (kind
+    "adaptive") or under tests/test_fused.py:324-345's schedule at LV's
+    labels (kind "schedule", float32 fetch, the statistics stored)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    kw = {}
+    if kind == "adaptive":
+        dist = pt.AdaptiveAggregatedDistance(lv_subs(pt))
+    else:
+        dist = pt.AggregatedDistance(
+            [pt.PNormDistance(p=2, weights={0: {"pred": 1, "prey": 0},
+                                            3: {"pred": 2, "prey": 0}}),
+             pt.PNormDistance(p=1)], weights={0: [1, 1], 2: [4, 0.1]})
+        kw = {"fetch_dtype": "float32"}
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(), dist,
+                    population_size=pop, eps=pt.MedianEpsilon(), seed=0,
+                    device=where, **kw)
+    abc.new("sqlite://", lv.observed_data(seed=0),
+            store_sum_stats=kind == "schedule")
+    return abc
+
+
+def lv_rows(dev, B: int, seed: int):
+    """A prior round of LV config 2 on the card (K2, K4): its (B, 40)
+    statistics, the spec and x0."""
+    import torch
+
+    from pyabc_tpu_torch.core.sumstat_spec import SumStatSpec
+    from pyabc_tpu_torch.kernels import lv_simulate, philox, propose
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    model, prior = lv.make_lv_model(), lv.default_prior()
+    theta = propose(stream_on(dev, philox.PRIOR, seed=seed), B,
+                    prior.arrays(dev))[0]
+    ss = lv_simulate(theta, None, stream=stream_on(dev, philox.SIM_NOISE,
+                                                   seed=seed),
+                     n_obs=model.n_obs, n_substeps=model.n_substeps,
+                     dt=model.dt, y0=lv.Y0, noise_sd=model.noise_sd,
+                     log_parameters=False)
+    obs = lv.observed_data(seed=0)
+    spec = SumStatSpec(obs)
+    x0 = torch.as_tensor(spec.flatten_host(obs), dtype=torch.float32,
+                         device=dev)
+    return ss, spec, x0
+
+
+def k25_checks(dev) -> dict:
+    """K25 against its plain versions. Accept at the LV legs' round (B
+    65536, S 40) for the legs' pair and for 2 and 4 sub-distances of mixed
+    p (random sub weights): distances within 1e-5 relative, flags equal
+    away from eps, log weights equal, the values mode within 1e-5. Refit
+    over the LV adaptive leg's ring (131072 rows, the last 20000 not yet
+    written) and reservoir (16384 rows) for span, standard_deviation and
+    median_absolute_deviation: scales, W and distances within 1e-5 of the
+    plain refit, and the scale bit-equal to the plain scale of the
+    kernel's own values for span and the median."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.distance import scale as scales
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         aggregate_accept_weight_plain,
+                                         aggregate_refit,
+                                         aggregate_refit_plain)
+    from pyabc_tpu_torch.kernels.aggregate import sub_distances_plain
+    from pyabc_tpu_torch.kernels.scale_reduce import SCALES_PLAIN
+    from pyabc_tpu_torch.utils import pick_batch, pow2_bucket
+
+    B = pick_batch(AGG_POP)
+    ss, spec, x0 = lv_rows(dev, B, seed=25)
+    S = spec.total_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    valid = torch.rand(B, generator=gen, device=dev) > 0.05
+    logpri = torch.randn(B, generator=gen, device=dev) - 3.0
+    logq = torch.randn(B, generator=gen, device=dev) - 2.0
+    out = {}
+    for label, ps in AGG_CASES.items():
+        if ps is None:
+            dist = pt.AggregatedDistance(lv_subs(pt))
+        else:
+            subs = [pt.PNormDistance(p=p, weights=torch.rand(
+                S, generator=gen, device=dev).cpu().numpy() + 0.2)
+                for p in ps]
+            dist = pt.AggregatedDistance(
+                subs, weights=torch.rand(len(ps), generator=gen,
+                                         device=dev).cpu().numpy() + 0.5)
+        dist.initialize(spec)
+        params = dist.device_params(0, dev)
+        d_all = aggregate_accept_weight_plain(
+            ss, x0, params, torch.tensor(math.inf, device=dev), valid,
+            ps=dist.ps)[0]
+        eps = torch.quantile(d_all[torch.isfinite(d_all)], 0.5)
+        args = (ss, x0, params, eps, valid)
+        kw = dict(ps=dist.ps, logpri=logpri, logq=logq)
+        d_k, a_k, lw_k = aggregate_accept_weight(*args, **kw)
+        d_p, a_p, lw_p = aggregate_accept_weight_plain(*args, **kw)
+        v_k = aggregate_accept_weight.values(ss, x0, params, ps=dist.ps)
+        v_p = sub_distances_plain(ss, x0, params, dist.ps)
+        torch.cuda.synchronize()
+        far = (d_p - eps).abs() > 1e-5 * eps
+        flags = bool((a_k == a_p)[far].all())
+        err = abs_err(d_k, d_p)
+        log(f"K25 aggregate_accept_weight {label} (B={B}, S={S}): "
+            f"max_abs_err(d)={err:.3e} values mode {abs_err(v_k, v_p):.3e} "
+            f"accepted={int(a_k.sum())} flags equal away from eps {flags}")
+        check(within(d_k, d_p, 0.0, 1e-5) and within(v_k, v_p, 0.0, 1e-5)
+              and flags and torch.equal(lw_k, lw_p),
+              f"K25 accept ({label}): distances or values outside 1e-5 "
+              f"relative, flags or log weights differ")
+        if ps is not None:
+            continue
+        n_sub = len(dist.ps)
+        nbytes = (B * S + S + n_sub * (S + 1)) * 4 + B * (1 + 4 + 4) + 4 \
+            + B * (4 + 1 + 4)
+        out["aggregate_accept_weight"] = dict(
+            err=err, call_ms=time_ms(lambda: aggregate_accept_weight(
+                *args, **kw), 50),
+            ms=graph_ms(lambda: aggregate_accept_weight(*args, **kw)),
+            plain_ms=time_ms(lambda: aggregate_accept_weight_plain(
+                *args, **kw), 10),
+            bound=bound(nbytes, B * S * n_sub * 4), library_ms=None)
+
+    # the refit over the LV adaptive leg's ring and reservoir
+    rec_cap = pow2_bucket(8 * AGG_POP, 256)
+    ring = torch.cat([ss, lv_rows(dev, rec_cap - B, seed=26)[0]])
+    ring_valid = torch.ones(rec_cap, dtype=torch.bool, device=dev)
+    ring_valid[-20000:] = False
+    ring[-20000:] = 1e6  # rows not yet written: the scale must not see them
+    rows = lv_rows(dev, B, seed=27)[0][:AGG_POP].contiguous()
+    fns = {"span": None, "standard_deviation": scales.standard_deviation,
+           "median_absolute_deviation": scales.median_absolute_deviation}
+    for name in AGG_SCALES:
+        kw = {} if fns[name] is None else {"scale_function": fns[name]}
+        dist = pt.AdaptiveAggregatedDistance(lv_subs(pt), **kw)
+        dist.initialize(spec)
+        params = dist.device_params(0, dev)
+        rkw = dict(ps=dist.ps, factors=tuple(dist.factors),
+                   scale_name=name, rows=rows)
+        sc_k, new_k, d_k = aggregate_refit(ring, ring_valid, x0, params,
+                                           **rkw)
+        sc_p, new_p, d_p = aggregate_refit_plain(ring, ring_valid, x0,
+                                                 params, **rkw)
+        vals = aggregate_accept_weight.values(ring, x0, params, ps=dist.ps)
+        own = SCALES_PLAIN[name](vals, ring_valid,
+                                 torch.zeros(2, device=dev))
+        torch.cuda.synchronize()
+        err = max(abs_err(sc_k, sc_p), abs_err(new_k, new_p),
+                  abs_err(d_k, d_p))
+        exact = equal_nan(sc_k, own)
+        log(f"K25 aggregate_refit {name} (ring {rec_cap} x {S}, "
+            f"{int(ring_valid.sum())} valid, reservoir {AGG_POP}): scale "
+            f"{sc_k.tolist()} W {new_k[:2].tolist()} max_abs_err={err:.3e}; "
+            f"scale bit-equal to the plain scale of the kernel's values "
+            f"{exact}")
+        check(within(sc_k, sc_p, 0.0, 1e-5) and within(new_k, new_p, 0.0,
+                                                       1e-5)
+              and within(d_k, d_p, 0.0, 1e-5),
+              f"K25 refit ({name}): scale, W or distances outside 1e-5 "
+              f"relative of the plain refit")
+        if name != "standard_deviation":
+            check(exact, f"K25 refit ({name}): the scale differs from the "
+                  f"plain {name} of the kernel's own values")
+        if name != "span":
+            continue
+        P = params.numel()
+        nbytes = ((rec_cap * S + AGG_POP * S + S + 2 * P) * 4 + rec_cap
+                  + (2 + AGG_POP) * 4)
+        out["aggregate_refit"] = dict(
+            err=err, call_ms=time_ms(lambda: aggregate_refit(
+                ring, ring_valid, x0, params, **rkw), 20),
+            ms=graph_ms(lambda: aggregate_refit(ring, ring_valid, x0,
+                                                params, **rkw), iters=20),
+            plain_ms=time_ms(lambda: aggregate_refit_plain(
+                ring, ring_valid, x0, params, **rkw), 5),
+            bound=bound(nbytes, (rec_cap + AGG_POP) * S * 2 * 4),
+            library_ms=None)
+    return out
+
+
+def k16_repair_inputs(dev):
+    """tests/test_torch_population.py's model-weighted case (n_cap 128,
+    K 3 with dims 1, 2, 2 on d_max 2, model 1 dead, 5 bootstraps) with
+    numpy ancestors, model 2's bootstrap 3 starting at rows 71, 22, 71: at
+    n = 3 two distinct rows in two dimensions, a rank-1 covariance that
+    only the jitter ladder's last rung factorizes."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_fit
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    n_cap, K, nb = 128, 3, 5
+    rng = np.random.default_rng(21)
+    th = (rng.normal(size=(n_cap, 2)) * np.linspace(0.5, 2.0, 2)
+          + 1).astype(np.float32)
+    w = (rng.random(n_cap) + 0.1).astype(np.float32)
+    w = w / w.sum()
+    m = (np.arange(n_cap) % K).astype(np.int32)
+    m[m == 1] = 2
+    th[m == 0, 1] = 0.0
+    st = {"scaling": 1.0, "bandwidth_selector": silverman_rule_of_thumb}
+    fit = mvn_fit.models(torch.from_numpy(th).to(dev),
+                         torch.from_numpy(w).to(dev),
+                         torch.from_numpy(m).to(dev), dims=[1, 2, 2],
+                         statics=[st] * K)
+    draw = np.random.default_rng(5)
+    idx = np.zeros((K, nb, n_cap), np.int32)
+    for k in (0, 2):
+        live = np.flatnonzero(m == k)
+        idx[k] = draw.choice(live, size=(nb, n_cap),
+                             p=w[live] / w[live].sum())
+    idx[2, 3, :3] = (71, 22, 71)
+    probs = torch.tensor([w[m == k].sum() for k in range(K)], device=dev)
+    return fit, torch.from_numpy(idx).to(dev), [1, 2, 2], [st] * K, probs
+
+
+def k16_repair_case(dev) -> None:
+    """The K16 repair case on the card: each live model's CV at n = 3 from
+    the kernels' fit and density and from the plain versions', both
+    finite and within 1e-4 relative (the density alone on the plain fit
+    too), and the aggregate CV of the bisect step from each."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import bootstrap_cv
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        MAX_PROBES, bootstrap_bisect_plain, bootstrap_density_plain,
+        bootstrap_fit_plain)
+
+    fit0, idx, dims, statics, probs = k16_repair_inputs(dev)
+    th, w = fit0["thetas"], fit0["weights"]
+    state = torch.tensor([10, 128, 3, 0, 0], dtype=torch.int32, device=dev)
+    fit_k = bootstrap_cv.fit(th, idx, state, dims=dims, statics=statics)
+    fit_p = bootstrap_fit_plain(th, idx, state, dims=dims, statics=statics)
+    part_k = bootstrap_cv.density(th, w, fit_k, state)
+    part_kp = bootstrap_cv.density(th, w, fit_p, state)
+    part_p = bootstrap_density_plain(th, w, fit_p, state)
+    cvs = {}
+    for tag, part in (("kernels", part_k), ("plain", part_p)):
+        c = torch.zeros(MAX_PROBES, device=dev)
+        (bootstrap_cv.bisect if tag == "kernels" else
+         bootstrap_bisect_plain)(part, state.clone(), c, model_p=probs,
+                                 target=1e9)
+        cvs[tag] = c[0]
+    torch.cuda.synchronize()
+
+    def cv_of(p):
+        return p[..., 0].sum(1) / p[..., 1].sum(1).clamp_min(1e-38)
+
+    alive = [0, 2]
+    ck, ckp, cp = cv_of(part_k)[alive], cv_of(part_kp)[alive], \
+        cv_of(part_p)[alive]
+    log(f"K16 repair case (model 2's bootstrap 3 of rank 1 at n = 3): "
+        f"logdet kernel {float(fit_k['logdet'][2, 3]):.4f} plain "
+        f"{float(fit_p['logdet'][2, 3]):.4f}, precision finite kernel "
+        f"{bool(torch.isfinite(fit_k['prec'][2, 3]).all())} plain "
+        f"{bool(torch.isfinite(fit_p['prec'][2, 3]).all())}; CVs of "
+        f"models 0 and 2: kernels {ck.tolist()}, kernel density on the "
+        f"plain fit {ckp.tolist()}, plain {cp.tolist()}; aggregate "
+        f"kernels {float(cvs['kernels']):.6f} plain "
+        f"{float(cvs['plain']):.6f}")
+    check(bool(torch.isfinite(ck).all() and torch.isfinite(cp).all())
+          and float(cp[1]) > 0,
+          "K16 repair case: a model's CV is not finite (or model 2's 0)")
+    check(within(ckp, cp, 0.0, 1e-4) and within(ck, cp, 0.0, 1e-4)
+          and within(cvs["kernels"], cvs["plain"], 0.0, 1e-4),
+          "K16 repair case: the kernels' CV differs from the plain "
+          "version's by more than 1e-4 relative")
+
+
+def lv_aggregate_leg(dev, kind: str) -> tuple:
+    """An LV aggregated leg on the card, counts reset just before and read
+    just after, then once more under torch.profiler -> (counts, mode
+    counts, the ABCSMC): the path's kernels launched and K5 and K9 not,
+    wall, syncs (one counter read a round, one fetch a chunk: the schedule
+    table is copied to the card, never read), the epsilon trail and the
+    top-level weights per generation. Adaptive: the weights refit at the
+    calibration and after every generation, finite and positive.
+    Schedule: every stored distance recomputed (numpy, float64) from the
+    stored float32 statistics under its generation's weights within 2e-3
+    relative (tests/test_fused.py:271's rule)."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    label = f"LV aggregated {kind} leg"
+    abc = lv_aggregate(dev, kind)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=AGG_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    n_gen = h.max_t + 1
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    dist = abc.distance_function
+    syncs = abc.sync_ledger.summary()
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s")}
+    log(f"{label}: pop={AGG_POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={AGG_POP * n_gen / wall:.1f} "
+        f"wall_s_per_generation={wall / n_gen:.4f} syncs_per_generation="
+        f"{syncs['syncs'] / n_gen:.2f} ({syncs['by_kind']}, rounds "
+        f"{[g['rounds'] for g in abc.generation_log]}); host seconds, "
+        f"rounds + generation steps {split['compute_s']:.4f}, packed fetch "
+        f"{split['fetch_s']:.4f}, History persist {split['persist_s']:.4f}")
+    log(f"{label}: eps trail {[round(e, 6) for e in eps]}")
+    if kind == "adaptive":
+        trail = {t: [round(float(v), 8) for v in dist.weights[t]]
+                 for t in sorted(dist.weights) if t >= 0}
+        log(f"{label}: top-level weights by generation {trail}")
+        check(sorted(trail) == list(range(n_gen + 1))
+              and all(all(math.isfinite(v) and v > 0 for v in w)
+                      for w in trail.values()),
+              f"{label}: the weights were not refit at the calibration and "
+              f"after every generation, or not finite and positive")
+    else:
+        worst, excess = 0.0, -math.inf
+        x0 = np.asarray(abc.spec.flatten_host(abc.x_0), np.float64)
+        for t in range(n_gen):
+            stored = np.sort(h.get_weighted_distances(t)["distance"]
+                             .to_numpy())
+            _w, stats = h.get_weighted_sum_stats(t)
+            params = dist.device_params(t).numpy().astype(np.float64)
+            W, subw = params[:2], params[2:].reshape(2, -1)
+            diff = np.abs(stats.astype(np.float64) - x0)
+            ref = np.sort(W[0] * np.sqrt(((subw[0] * diff) ** 2).sum(1))
+                          + W[1] * (subw[1] * diff).sum(1))
+            gap = np.abs(stored - ref)
+            worst = max(worst, float((gap / np.abs(ref)).max()))
+            excess = max(excess, float(
+                (gap - (2e-3 * np.abs(ref) + 1e-5)).max()))
+        log(f"{label}: stored distances recomputed under each generation's "
+            f"weights, largest relative difference {worst:.3e}")
+        check(excess <= 0.0, f"{label}: a stored distance does not "
+              f"recompute under its generation's weights (rtol 2e-3, atol "
+              f"1e-5)")
+    log(f"{label}: kernel launches {counts}")
+    path = [k for k in AGG_PATH
+            if kind == "adaptive" or k != "aggregate_refit"]
+    check(n_gen == AGG_GENS, f"{label} ran {n_gen} of {AGG_GENS} "
+          f"generations")
+    check(all(counts[k] > 0 for k in path)
+          and counts["pnorm_accept_weight"] == 0
+          and counts["scale_reduce"] == 0
+          and (kind == "adaptive" or counts["aggregate_refit"] == 0),
+          f"{label}: a kernel of the path was never launched, or K5 / K9 "
+          f"ran")
+    sync_check(abc, label)
+    check(all(g["syncs"] == g["rounds"] for g in abc.generation_log),
+          f"{label}: a generation read the device besides its round "
+          f"counters")
+    for t in range(n_gen):
+        dmax = float(h.get_weighted_distances(t)["distance"].max())
+        check(dmax <= eps[t], f"{label}: generation {t} stored a distance "
+              f"{dmax} above its epsilon {eps[t]}")
+    profile_run(f"{label} (profiled)", lv_aggregate(dev, kind), AGG_GENS)
+    return counts, modes, abc
+
+
+def lv_aggregate_cpu_trail(dev) -> None:
+    """The adaptive leg at pop 1024 on the card and on the CPU (the plain
+    versions, the same Philox streams), 4 generations: the top-level
+    weights by generation side by side; the calibration's within 1e-3
+    relative (the prior round's statistics agree to 1e-4)."""
+    trails = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        abc = lv_aggregate(where, "adaptive", pop=AGG_CPU_POP)
+        h = abc.run(max_nr_populations=AGG_CPU_GENS)
+        w = abc.distance_function.weights
+        trails[str(where)] = (
+            {t: [float(v) for v in w[t]] for t in sorted(w) if t >= 0},
+            [float(e) for e in h.get_all_populations()["epsilon"][1:]],
+            time.perf_counter() - t0)
+    card, cpu = trails[str(dev)], trails["cpu"]
+    rel = [max(abs(a - b) / abs(b) for a, b in zip(card[0][t], cpu[0][t]))
+           for t in sorted(cpu[0]) if t in card[0]]
+    log(f"LV aggregated adaptive leg at pop {AGG_CPU_POP} "
+        f"({AGG_CPU_GENS} generations): card weights {card[0]} eps "
+        f"{card[1]}; CPU weights {cpu[0]} eps {cpu[1]} ({cpu[2]:.1f} s); "
+        f"largest |card - cpu| / cpu of the weights by generation "
+        f"{[float(f'{r:.2e}') for r in rel]}")
+    check(rel and rel[0] <= 1e-3, "LV aggregated leg: the calibration's "
+          "weights differ between card and CPU by more than 1e-3")
+
+
+def config3_aggregate(where, early, pop: int | None = None):
+    """Config 3 (birth-death in 10 segments) as ``config3`` runs it, under
+    the aggregated pair of tests/test_segment.py:114-121."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gillespie as g
+
+    dist = pt.AggregatedDistance([pt.PNormDistance(p=2),
+                                  pt.PNormDistance(p=np.inf)],
+                                 weights=[0.7, 1.3])
+    abc = pt.ABCSMC(g.make_birth_death_model(segments=C3_SEGS),
+                    g.birth_death_prior(), dist,
+                    population_size=pop or C3_POP, eps=pt.MedianEpsilon(),
+                    seed=C3_SEED, early_reject=early, fused_generations=C3_G,
+                    device=where)
+    abc.new("sqlite://", g.observed_birth_death(segments=C3_SEGS),
+            store_sum_stats=False)
+    return abc
+
+
+def config3_aggregate_run(dev) -> tuple:
+    """Config 3 under the aggregated pair with early reject on, off, off,
+    on, the counts reset just before the first -> (counts, mode counts,
+    the eps trail): populations bit-identical in every generation, slots
+    retired, the saved share of segment steps, K18's aggregate mode (on)
+    and K19 (off) launched, K5 never, syncs per generation."""
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = "config 3 aggregated (p 2 x 0.7 + p inf x 1.3)"
+    runs = []
+    reset_launch_counts()
+    for early in TURNS:
+        abc = config3_aggregate(dev, early)
+        h, wall, counts = seg_run(abc, C3_GENS, label)
+        runs.append((early, abc, h, wall, counts))
+    counts = {k: sum(r[4][k] for r in runs) for k in runs[0][4]}
+    (_e, a_on, h_on, _w, c_on), (_e2, a_off, h_off, _w2, c_off) = runs[:2]
+    n_gen = h_on.max_t + 1
+    eps = [float(e) for e in h_on.get_all_populations()["epsilon"][1:]]
+    same = (populations_identical(h_on, h_off)
+            and populations_identical(h_on, runs[2][2])
+            and populations_identical(h_on, runs[3][2]))
+    tot = seg_totals(h_on)
+    saved = 1.0 - tot["seg_steps"] / max(tot["seg_resolved"] * C3_SEGS, 1)
+    for early, abc, h, wall, _c in runs:
+        tag = "on" if early == "auto" else "off"
+        syncs = abc.sync_ledger.summary()
+        log(f"{label} early reject {tag}: pop={C3_POP} gens={h.max_t + 1} "
+            f"wall_s={wall:.3f} accepted_particles_per_s="
+            f"{C3_POP * (h.max_t + 1) / wall:.1f} syncs_per_generation="
+            f"{syncs['syncs'] / (h.max_t + 1):.2f} rounds "
+            f"{[g['rounds'] for g in abc.generation_log]}")
+    log(f"{label}: eps trail {[round(e, 4) for e in eps]}; populations "
+        f"bit-identical on and off {same}; retired_early "
+        f"{tot['retired_early']}, seg_steps {tot['seg_steps']}, "
+        f"seg_resolved {tot['seg_resolved']}, sim_work_saved_frac "
+        f"{saved:.4f}, segment_occupancy per generation {tot['occupancy']}")
+    log(f"{label}: kernel launches on {c_on} off {c_off}")
+    check(n_gen == C3_GENS and h_off.max_t + 1 == C3_GENS,
+          f"{label} ran {n_gen} / {h_off.max_t + 1} of {C3_GENS} "
+          f"generations")
+    check(same, f"{label}: populations differ with early reject on and off")
+    check(tot["retired_early"] > 0, f"{label}: no slot retired early")
+    check(c_on["segment_round:aggregate"] > 0 and c_off["tau_leap"] > 0
+          and c_off["segment_round"] == 0
+          and counts["pnorm_accept_weight"] == 0,
+          f"{label}: K18's aggregate mode (on) or K19 (off) was never "
+          f"launched, or K5 ran")
+    check(all(counts[k] > 0 for k in C3AGG_PATH),
+          f"{label}: a kernel of the path was never launched")
+    check(a_on.sync_ledger.count / n_gen
+          <= a_off.sync_ledger.count / (h_off.max_t + 1),
+          f"{label}: more syncs per generation with early reject on")
+    return counts, eps
+
+
+def k18_aggregate_checks(dev, eps_late: float, eps_pnorm: float) -> dict:
+    """K18's aggregate mode against its plain version at config 3's round
+    (B 131072, 10 segments, the aggregated leg's generation-6 epsilon) and
+    at a small odd shape, each followed by K25 and K6: kept slots,
+    statistics, reservoir, ring and counters bit-identical; its device
+    time beside the p-norm mode's on the same round (config 3's own
+    generation-6 epsilon)."""
+    import numpy as np
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import segment_round, segment_round_plain
+    from pyabc_tpu_torch.models import gillespie as g
+
+    B = C3_BENCH_POP
+    model = g.make_birth_death_model(segments=C3_SEGS)
+    x = seg_inputs(dev, model, g.birth_death_prior(),
+                   g.observed_birth_death(segments=C3_SEGS), B, seed=3)
+    dist = pt.AggregatedDistance([pt.PNormDistance(p=2),
+                                  pt.PNormDistance(p=np.inf)],
+                                 weights=[0.7, 1.3])
+    dist.initialize(x["spec"])
+    params = dist.device_params(0, dev)
+    eps = torch.tensor(eps_late, dtype=torch.float32, device=dev)
+    ctr = k18_case(dev, model, x, eps, 8192, "aggregate mode, config 3 "
+                   "round", w=params, agg=dist.ps)
+    small = g.make_birth_death_model(n_leaps=100, n_obs=20, segments=5)
+    xs = seg_inputs(dev, small, g.birth_death_prior(),
+                    g.observed_birth_death(n_leaps=100, n_obs=20,
+                                           segments=5), 256, seed=4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    live = torch.zeros(256, dtype=torch.bool, device=dev)
+    live[torch.randperm(256, generator=gen, device=dev)[:37]] = True
+    xs["valid"] = xs["valid"] & live
+    dist_s = pt.AggregatedDistance([pt.PNormDistance(p=2),
+                                    pt.PNormDistance(p=np.inf)],
+                                   weights=[0.7, 1.3])
+    dist_s.initialize(xs["spec"])
+    full = small.chain.kernel[0](small.chain.kernel[1], xs["theta"],
+                                 xs["stream"], colmap=xs["imap"],
+                                 width=20)[0]
+    dd = (0.7 * (full - xs["x0"]).square().sum(1).sqrt()
+          + 1.3 * (full - xs["x0"]).abs().amax(1))
+    k18_case(dev, small, xs, torch.quantile(dd[xs["valid"]], 0.5), 256,
+             "aggregate mode, small odd shape",
+             w=dist_s.device_params(0, dev), agg=dist_s.ps)
+    S = x["spec"].total_size
+    scratch = torch.zeros(4, dtype=torch.int64, device=dev)
+    ones = torch.ones(S, device=dev)
+    e_pn = torch.tensor(eps_pnorm, dtype=torch.float32, device=dev)
+    kw = dict(imap=x["imap"], x0=x["x0"], p=2.0, width=S, seg_ctr=scratch)
+
+    def on():
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], w=params, eps=eps, agg=dist.ps,
+                             **kw)
+
+    ms_on = graph_ms(on, iters=10, replays=3)
+    ms_pn = graph_ms(lambda: segment_round(
+        model.segmented, x["theta"], x["valid"], x["stream"], w=ones,
+        eps=e_pn, **kw), iters=10, replays=3)
+    log(f"K18 aggregate mode device ms per config 3 round (B={B}): "
+        f"{ms_on:.4f} (eps {eps_late:.4g}); the p-norm mode on the same "
+        f"round {ms_pn:.4f} (config 3's eps {eps_pnorm:.4g})")
+    t0 = time.perf_counter()
+    segment_round_plain(model.segmented, x["theta"], x["valid"],
+                        x["stream"], w=params, eps=eps, agg=dist.ps,
+                        **{**kw, "seg_ctr": torch.zeros(
+                            4, dtype=torch.int64, device=dev)})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    spec = model.chain.kernel[1]
+    return dict(err=0.0, call_ms=time_ms(on, 10), ms=ms_on,
+                plain_ms=plain_ms,
+                bound=bound(B * (2 + S) * 4, int(ctr[1])
+                            * spec.leaps_per_seg * spec.n_rates
+                            * OPS_PER_DRAW),
+                library_ms=None, ms_pnorm_mode=ms_pn)
+
+
 def main() -> int:
     import torch
 
@@ -5105,6 +5736,8 @@ def main() -> int:
     results.update(local_checks(dev))
     results.update(k21c_checks(dev))
     results.update(k16_checks(dev))
+    results.update(k25_checks(dev))
+    k16_repair_case(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
     pair_anchor(dev)
@@ -5153,6 +5786,13 @@ def main() -> int:
         dev, "config 5 adaptive leg (K = 3)", config5_adaptive, C5A_GENS,
         C5_PATH + ("bootstrap_cv",), lo=10, hi=C5A_MAX)
     list_counts, _list_modes, _sizes = list_leg(dev)
+    agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
+    lv_aggregate_cpu_trail(dev)
+    sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
+                                                              "schedule")
+    c3agg_counts, c3agg_eps = config3_aggregate_run(dev)
+    profile_run("config 3 aggregated (early reject on)",
+                config3_aggregate(dev, "auto"), C3_GENS)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -5160,6 +5800,9 @@ def main() -> int:
     _c, nc3_temps, nc3_norms = nc3["independent_normal"]
     results["segment_round:stochastic"] = k18_stochastic_checks(
         dev, nc3_temps[8], nc3_norms[8])
+    # K18's aggregate mode at generation 6 of the aggregated config 3 leg
+    results["segment_round:aggregate"] = k18_aggregate_checks(
+        dev, c3agg_eps[6], c3_eps[6])
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -5176,8 +5819,10 @@ def main() -> int:
         r = results[k.name]
         # each kernel's launches on its slice's main path: LV config 2 for
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
-        # and K26, config 3 for K18 and K19, the scale lane for K12-K15
-        own = (sir_counts if k.name in NOISY_KERNELS else c5_counts
+        # and K26, config 3 for K18 and K19, the scale lane for K12-K15,
+        # the LV aggregated adaptive leg for K25
+        own = (agg_counts if k.name in AGG_KERNELS
+               else sir_counts if k.name in NOISY_KERNELS else c5_counts
                if k.name in MODEL_KERNELS else scale_counts
                if k.name in LOCAL_KERNELS else c3_counts
                if k.name in SEG_KERNELS else zoo["network_sir"]
@@ -5210,7 +5855,13 @@ def main() -> int:
                                  "lv_adaptive_reachable":
                                      reach_counts[k.name],
                                  "config5_adaptive": c5a_counts[k.name],
-                                 "toy_list": list_counts[k.name]},
+                                 "toy_list": list_counts[k.name],
+                                 "lv_aggregate_adaptive":
+                                     agg_counts[k.name],
+                                 "lv_aggregate_schedule":
+                                     sched_counts[k.name],
+                                 "config3_aggregate":
+                                     c3agg_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips"):
@@ -5265,6 +5916,10 @@ def main() -> int:
                  "pyabc_tpu/inference/util.py:1118",
                  nc3_n["segment_round:stochastic"]
                  + nc3_p["segment_round:stochastic"]))
+    rows.append(("segment_round:aggregate",
+                 "pyabc_tpu_torch/csrc/segment_round.cu",
+                 "pyabc_tpu/distance/aggregate.py:85",
+                 c3agg_counts["segment_round:aggregate"]))
     for name, source, replaces, launches in rows:
         r = results[name]
         check(launches > 0, f"{name} was never launched on its path")

@@ -1,7 +1,8 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
 single-device ABC-SMC path (one model or model selection over several;
 the MVN or, for one model, the local k-NN transition; a constant, listed
-or adaptive population size), for one NVIDIA H100.
+or adaptive population size; p-norm, aggregated or noise-model
+distances), for one NVIDIA H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
@@ -9,7 +10,8 @@ hand-written kernels (``csrc/``) are built at first launch.
 from .acceptor import (ScaledPDFNorm, StochasticAcceptor, UniformAcceptor,
                        pdf_norm_from_kernel, pdf_norm_max_found)
 from .core import RV, Distribution, ParameterSpace, Population
-from .distance import (SCALE_LIN, SCALE_LOG, AdaptivePNormDistance,
+from .distance import (SCALE_LIN, SCALE_LOG, AdaptiveAggregatedDistance,
+                       AdaptivePNormDistance, AggregatedDistance,
                        BinomialKernel, IndependentLaplaceKernel,
                        IndependentNormalKernel, NegativeBinomialKernel,
                        NormalKernel, PNormDistance, PoissonKernel,
@@ -31,8 +33,8 @@ from .transition import (LocalTransition, ModelPerturbationKernel,
                          silverman_rule_of_thumb)
 
 __all__ = [
-    "ABCSMC", "AcceptanceRateScheme", "AdaptivePNormDistance",
-    "AdaptivePopulationSize",
+    "ABCSMC", "AcceptanceRateScheme", "AdaptiveAggregatedDistance",
+    "AdaptivePNormDistance", "AdaptivePopulationSize", "AggregatedDistance",
     "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
     "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
     "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",

@@ -81,6 +81,17 @@ def distance_weights(w, device=None) -> torch.Tensor:
     return _f32(np.ravel(np.asarray(w)), resolve_device(device))
 
 
+def aggregated_params(distance, t=None, device=None) -> torch.Tensor:
+    """A JAX ``AggregatedDistance``'s ``device_params(t)`` (``W`` and the
+    sub-distances' weight vectors) -> the port's flat float32 params
+    ``[W (n), w_1 (S), ..., w_n (S)]`` (K25's layout)."""
+    W, subs = distance.device_params(t)
+    flat = np.concatenate([np.asarray(W, np.float32).ravel(),
+                           *(np.asarray(s, np.float32).ravel()
+                             for s in subs)])
+    return torch.tensor(flat, device=resolve_device(device))
+
+
 def prior(spec) -> Distribution:
     """``[(name, "norm"|"uniform", loc, scale), ...]`` -> Distribution."""
     return Distribution.from_spec(spec)

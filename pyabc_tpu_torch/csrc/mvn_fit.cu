@@ -13,9 +13,10 @@
 //   cov + (j tr) I for j = 1e-10, 1e-7, 1e-4 (tr = max(trace / d, 1e-30)):
 //   the first rung whose factor exists (every pivot > 0) and is finite.
 //   a factor that fails is NaN on and below the diagonal (jnp semantics);
-//   prec = L^-T L^-1 from the factor (the plain version inverts the
-//   covariance with inv_ex; both agree wherever a factor exists, and with
-//   no factor the kernel's precision is NaN);
+//   prec = L^-T L^-1 from the factor, in the plain version too: a
+//   covariance that only the ladder's last rung factorizes is singular in
+//   float32, where an LU inverse can come back infinite (with no factor
+//   the precision is NaN);
 //   logdet = 2 sum_{k < dim} log max(L_kk, 1e-38); chol and prec masked to
 //   the real dims; the epilogue writes thetas * vmask, the centred rows,
 //   quad_i = c_i' P c_i and the ancestor CDF that K2 searches:

@@ -7,15 +7,13 @@
 //
 // Per lane b with sum-stat row x (S,):
 //   d = (sum_k (w_k |x_k - x0_k|)^p)^(1/p)   (p = inf: max_k, NaN kept)
-//   accept = valid & (d <= eps) [& (d <= hist_min)]
-//   log w = log_offset + logpri - logq   (transition rounds of one model),
-//           0 for prior rounds, -inf where the lane is invalid;
-//   K > 1 (m, model_logits and log_model_factor given, util.py:399-406):
-//   log w = model_logits[m] + logpri - log_model_factor[m] - logq, the two
-//           K-vectors read from device memory by the lane's model m; with
-//           null pointers the kernel does exactly the single-model work.
-// eps and hist_min arrive as device scalars (pointers): the threshold is
-// a device tensor carried from the previous generation, never a host float.
+// then the accept test and log weight of accept_epilogue.cuh (shared with
+// K25): accept = valid & (d <= eps) [& (d <= hist_min)], the log weight of
+// one model or, with m, model_logits and log_model_factor given (K > 1,
+// util.py:399-406), of the lane's model; with null pointers the kernel
+// does exactly the single-model work. eps and hist_min arrive as device
+// scalars (pointers): the threshold is a device tensor carried from the
+// previous generation, never a host float.
 //
 // Bound on an H100: bytes. One read of the (B, S) sum stats dominates, and
 // the design reads each row once with one warp per lane (32 consecutive
@@ -25,6 +23,7 @@
 // Numerics: p=2 takes sqrtf of the warp-reduced sum; JAX takes
 // pow(sum, 0.5) after a sum in another order, so the two differ by a few
 // ulp and accept flags are compared only where |d - eps| exceeds that.
+#include "accept_epilogue.cuh"
 #include "common.cuh"
 
 namespace {
@@ -35,17 +34,7 @@ __global__ void __launch_bounds__(kThreads)
 pnorm_accept_weight_kernel(const float* __restrict__ ss, int B, int S,
                            const float* __restrict__ x0,
                            const float* __restrict__ w, float p,
-                           const uint8_t* __restrict__ valid,
-                           const float* __restrict__ eps,
-                           const float* __restrict__ hist_min,
-                           const float* __restrict__ logpri,
-                           const float* __restrict__ logq, float log_offset,
-                           const int* __restrict__ m,
-                           const float* __restrict__ model_logits,
-                           const float* __restrict__ log_model_factor,
-                           float* __restrict__ d_out,
-                           uint8_t* __restrict__ acc_out,
-                           float* __restrict__ logw_out) {
+                           const pyabc::AcceptTerms terms) {
   const int row_i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row_i >= B) return;  // whole warps exit together
@@ -72,21 +61,7 @@ pnorm_accept_weight_kernel(const float* __restrict__ ss, int B, int S,
     d = sqrtf(acc);
   else
     d = powf(acc, 1.f / p);
-  const bool v = valid[row_i] != 0;
-  bool a = v && (d <= eps[0]);
-  if (hist_min != nullptr) a = a && (d <= hist_min[0]);
-  float lw = 0.f;
-  if (!v)
-    lw = -INFINITY;
-  else if (logpri != nullptr && m != nullptr) {
-    const int mi = m[row_i];
-    lw = model_logits[mi] + logpri[row_i] - log_model_factor[mi] -
-         logq[row_i];
-  } else if (logpri != nullptr)
-    lw = log_offset + logpri[row_i] - logq[row_i];
-  d_out[row_i] = d;
-  acc_out[row_i] = a ? 1 : 0;
-  logw_out[row_i] = lw;
+  pyabc::accept_epilogue(terms, row_i, d);
 }
 
 }  // namespace
@@ -104,8 +79,12 @@ extern "C" int pyabc_pnorm_accept_weight(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int rows_per_block = kThreads / 32;
   const int grid = (B + rows_per_block - 1) / rows_per_block;
-  pnorm_accept_weight_kernel<<<grid, kThreads, 0, stream>>>(
-      ss, B, S, x0, w, p, valid, eps, hist_min, logpri, logq, log_offset, m,
-      model_logits, log_model_factor, d_out, acc_out, logw_out);
+  const pyabc::AcceptTerms terms{valid,      eps,     hist_min,
+                                 logpri,     logq,    log_offset,
+                                 m,          model_logits,
+                                 log_model_factor,    d_out,
+                                 acc_out,    logw_out};
+  pnorm_accept_weight_kernel<<<grid, kThreads, 0, stream>>>(ss, B, S, x0, w,
+                                                             p, terms);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,15 @@
 // retires: an explicit branch, not inf * 0 arithmetic. T and pdf_norm are
 // device scalars. The p-norm's lower bound is the other Bound, PNormBound.
 //
+// Aggregate mode (an AggregatedDistance of n <= 8 plain p-norms, K25's
+// params [W (n), w_1 (S), ..., w_n (S)]; aggregate.py:85): the Bound is
+// AggBound, whose accumulator holds n per-sub prefix bounds, each folded
+// as PNormBound folds its one (per segment the p_k-th-power sum in
+// emission order, then added; p_k = inf the running max). The slot retires
+// when sum_k W_k acc_k^(1/p_k) (k in order, each step _rn; sqrt at p = 2)
+// exceeds thr (1 + 1e-4): sound while every W_k and w_k is >= 0, which
+// the host gate checks.
+//
 // Bound on an H100: operations (the steps' Philox and log work), as K19;
 // the point of the kernel is to do fewer of them. A slot's noise is keyed
 // by the slot, so which thread runs a slot changes no number; only [3]
@@ -78,6 +87,7 @@ using pyabc::SegModels;
 // the p-norm's lower bound: (w |v - x0|)^p summed per segment (p = inf:
 // the running max), retired above lim = (thr (1 + rtol))^p
 struct PNormBound {
+  using Acc = float;
   const float* x0;
   const float* w;
   float p;
@@ -118,6 +128,7 @@ struct AcceptStream {
 // the noise kernel's upper bound on the log-density (noise.cuh), retired
 // against each slot's pre-committed threshold
 struct NoiseBound {
+  using Acc = float;
   const float* x0;
   const float* par;  // the column's variance, Laplace b or binomial p
   int family;
@@ -149,6 +160,75 @@ struct NoiseBound {
   }
 };
 
+// the aggregated distance's lower bound: n per-sub accumulators
+constexpr int kMaxSub = 8;
+enum AggP { kAggP1 = 0, kAggP2 = 1, kAggPInf = 2, kAggPGen = 3 };
+
+struct AggAcc {
+  float a[kMaxSub];
+};
+
+struct AggBound {
+  using Acc = AggAcc;
+  const float* x0;
+  const float* subw;  // w_1 (S), ..., w_n (S)
+  int S, n;
+  int code[kMaxSub];
+  float p[kMaxSub];
+  float W[kMaxSub];
+  float lim;  // thr (1 + rtol)
+
+  __device__ AggAcc init() const {
+    AggAcc acc;
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j) acc.a[j] = 0.f;
+    return acc;
+  }
+  __device__ float threshold(uint32_t /*slot*/, uint32_t /*round*/) const {
+    return lim;
+  }
+  __device__ bool exceeds(const AggAcc& acc, float thr) const {
+    float total = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j) {
+      if (j >= n) break;
+      const float a = acc.a[j];
+      const float r = code[j] == kAggP2     ? __fsqrt_rn(a)
+                      : code[j] == kAggPGen ? powf(a, 1.f / p[j])
+                                            : a;
+      total = __fadd_rn(total, __fmul_rn(W[j], r));
+    }
+    return total > thr;
+  }
+  __device__ AggAcc fold(AggAcc acc, const float* vals, const int* cols,
+                         int m) const {
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j) {
+      if (j >= n) break;
+      const float* w = subw + (size_t)j * S;
+      if (code[j] == kAggPInf) {
+        for (int k = 0; k < m; ++k) {
+          const int c = cols[k];
+          acc.a[j] = nan_max(acc.a[j],
+                             __fmul_rn(w[c], fabsf(__fsub_rn(vals[k], x0[c]))));
+        }
+        continue;
+      }
+      float s = 0.f;
+      for (int k = 0; k < m; ++k) {
+        const int c = cols[k];
+        const float d = __fmul_rn(w[c], fabsf(__fsub_rn(vals[k], x0[c])));
+        const float t = code[j] == kAggP1   ? d
+                        : code[j] == kAggP2 ? __fmul_rn(d, d)
+                                            : powf(d, p[j]);
+        s = __fadd_rn(s, t);
+      }
+      acc.a[j] = __fadd_rn(acc.a[j], s);
+    }
+    return acc;
+  }
+};
+
 // what either bound reads, passed by value; each Bound builds itself from
 // it on the device (the thresholds are device scalars)
 struct BoundArgs {
@@ -161,6 +241,10 @@ struct BoundArgs {
   float noise_init;
   const float* pdf_norm;
   AcceptStream acc_stream;
+  int width;        // S (the aggregate's sub weights' stride)
+  int agg_n;        // > 0: the aggregate bound over agg_n sub-distances
+  int agg_code[kMaxSub];
+  float agg_p[kMaxSub];
 };
 
 __device__ __forceinline__ float bound_limit(float thr, float p) {
@@ -175,6 +259,25 @@ __device__ __forceinline__ PNormBound make_bound(const BoundArgs& a,
   float thr = a.eps[0];
   if (a.hist_min != nullptr) thr = fminf(thr, a.hist_min[0]);
   return PNormBound{a.x0, a.w, a.p, bound_limit(thr, a.p)};
+}
+
+__device__ __forceinline__ AggBound make_bound(const BoundArgs& a,
+                                               AggBound*) {
+  float thr = a.eps[0];
+  if (a.hist_min != nullptr) thr = fminf(thr, a.hist_min[0]);
+  AggBound b{};
+  b.x0 = a.x0;
+  b.subw = a.w + a.agg_n;
+  b.S = a.width;
+  b.n = a.agg_n;
+#pragma unroll
+  for (int j = 0; j < kMaxSub; ++j) {
+    b.code[j] = a.agg_code[j];
+    b.p[j] = a.agg_p[j];
+    b.W[j] = j < a.agg_n ? a.w[j] : 0.f;
+  }
+  b.lim = __fmul_rn(thr, 1.0001f);
+  return b;
 }
 
 __device__ __forceinline__ NoiseBound make_bound(const BoundArgs& a,
@@ -204,7 +307,8 @@ segment_round_kernel(SegModels models, int K,
   pyabc::SegModel m = models.m[0];
   int slot = -1, seg = 0;
   bool ok = false;
-  float acc = 0.f, thr = 0.f;
+  typename Bound::Acc acc = bound.init();
+  float thr = 0.f;
   unsigned steps = 0, retired = 0, resolved = 0;
   while (true) {
     if (slot < 0) {
@@ -286,6 +390,11 @@ int launch_bound(const SegModels& ms, int K, const int* m_lane, int threads,
                  unsigned long long* seg_ctr, unsigned k0, unsigned k1,
                  unsigned gen, unsigned tag, unsigned max_rounds,
                  const int* counters, cudaStream_t stream) {
+  if (bargs.agg_n > 0)
+    return launch<Step, AggBound>(ms, K, m_lane, threads, theta, stride,
+                                  valid, B, imap, bargs, S, ss, keep, nseg,
+                                  next_slot, seg_ctr, k0, k1, gen, tag,
+                                  max_rounds, counters, stream);
   if (bargs.noise_family < 0)
     return launch<Step, PNormBound>(ms, K, m_lane, threads, theta, stride,
                                     valid, B, imap, bargs, S, ss, keep, nseg,
@@ -303,7 +412,9 @@ int launch_bound(const SegModels& ms, int K, const int* m_lane, int threads,
 // nseg: nullptr, or (B,) for the segments each slot simulated.
 // noise_family < 0: the p-norm bound (w the weights, eps the threshold);
 // else the noisy mode (K = 1): w the noise columns' params, eps the
-// temperature, pdf_norm the norm and a* the accept stream.
+// temperature, pdf_norm the norm and a* the accept stream. agg_n > 0: the
+// aggregate bound (noise_family < 0; w K25's params, agg_codes and agg_ps
+// host arrays of agg_n).
 extern "C" int pyabc_segment_round(
     const pyabc::SegModel* models, int K, const int* m, int threads,
     const float* theta, int stride, const uint8_t* valid, int B,
@@ -313,7 +424,8 @@ extern "C" int pyabc_segment_round(
     unsigned k0, unsigned k1, unsigned gen, unsigned tag,
     unsigned max_rounds, const int* counters, int noise_family,
     float noise_init, const float* pdf_norm, unsigned ak0, unsigned ak1,
-    unsigned agen, unsigned atag, void* stream_ptr) {
+    unsigned agen, unsigned atag, int agg_n, const int* agg_codes,
+    const float* agg_ps, void* stream_ptr) {
   if (B <= 0) return 0;
   if (models == nullptr || counters == nullptr || threads <= 0 || K < 1 ||
       K > kMaxModels || (K > 1 && m == nullptr))
@@ -322,6 +434,10 @@ extern "C" int pyabc_segment_round(
       (K != 1 || pdf_norm == nullptr ||
        noise_family > pyabc::kNoisePoisson))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (agg_n < 0 || agg_n > kMaxSub ||
+      (agg_n > 0 && (noise_family >= 0 || agg_codes == nullptr ||
+                     agg_ps == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   SegModels ms{};
   for (int k = 0; k < K; ++k) {
     ms.m[k] = models[k];
@@ -329,10 +445,18 @@ extern "C" int pyabc_segment_round(
         ms.m[k].seg_size != ms.m[0].seg_size || ms.m[k].n_seg < 1)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BoundArgs bargs{x0,           w,          p,
-                        eps,          hist_min,   noise_family,
-                        noise_init,   pdf_norm,
-                        AcceptStream{ak0, ak1, agen, atag, max_rounds}};
+  BoundArgs bargs{x0,           w,          p,
+                  eps,          hist_min,   noise_family,
+                  noise_init,   pdf_norm,
+                  AcceptStream{ak0, ak1, agen, atag, max_rounds},
+                  S,            agg_n,      {},
+                  {}};
+  for (int j = 0; j < agg_n; ++j) {
+    if (agg_codes[j] < kAggP1 || agg_codes[j] > kAggPGen)
+      return static_cast<int>(cudaErrorInvalidValue);
+    bargs.agg_code[j] = agg_codes[j];
+    bargs.agg_p[j] = agg_ps[j];
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define PYABC_SEG_LAUNCH(STEP)                                              \
   launch_bound<STEP>(ms, K, m, threads, theta, stride, valid, B, imap,      \

@@ -2,7 +2,10 @@
 (``pyabc_tpu/distance/pnorm.py`` counterpart).
 
 d(x, x0) = (sum_i (w_i |x_i - x0_i|)^p)^(1/p); p = inf gives the max. The
-round's distance, accept test and log-weight run in the K5 kernel
+weights may follow a per-generation schedule (``weights={t: ...}``): the
+latest key <= t is in effect at generation t, resolved on the host into
+the ``(S,)`` vector ``device_params(t)``. The round's distance, accept test
+and log-weight run in the K5 kernel
 (``kernels/pnorm_accept.py``); the adaptive refit (the scale over the
 record ring, 1/scale weights, then the reservoir's distances under the new
 weights) is the K9 kernel (``kernels/scale_reduce.py``). ``device_bound_fn``
@@ -27,29 +30,37 @@ from .scale import (builtin_scale_name, device_scale_fn,
                     median_absolute_deviation)
 
 
+def is_schedule(weights) -> bool:
+    """True for a per-generation schedule ``{t: vector or {label: w}}``."""
+    return isinstance(weights, dict) and bool(weights) and all(
+        isinstance(k, (int, np.integer)) for k in weights)
+
+
 class PNormDistance:
     """Fixed-weight weighted p-norm. ``weights`` is a flat vector, a dict
-    keyed by sum-stat label or name, or None (all ones)."""
+    keyed by sum-stat label or name, a per-generation schedule ``{t: vector
+    or {label: w}}`` or None (all ones); ``factors`` (a vector or a label
+    dict) multiply the weights in effect."""
 
-    def __init__(self, p: float = 2.0, weights=None, sumstat=None):
+    def __init__(self, p: float = 2.0, weights=None, factors=None,
+                 sumstat=None):
         if p < 1:
             raise ValueError("p must be >= 1")
         if sumstat is not None:
             raise NotImplementedError(
                 "learned summary statistics are not ported yet (ROADMAP "
                 "queue A, item 14)")
-        if isinstance(weights, dict) and weights and all(
-                isinstance(k, (int, np.integer)) for k in weights):
-            raise NotImplementedError(
-                "per-generation weight schedules are not ported yet "
-                "(ROADMAP queue A, item 12)")
         self.p = float(p)
         self._weights_arg = weights
+        self._factors_arg = factors
         self.spec = None
-        #: host mirror of the weights in effect per generation
+        #: the weights in effect from each generation on (-1: the
+        #: default); the adaptive variant mirrors each refit here
         self.weights: dict[int, np.ndarray] = {}
 
     adaptive = False
+    #: a plain p-norm, not an aggregate of several (K5, not K25)
+    aggregated = False
 
     def requires_calibration(self) -> bool:
         return False
@@ -59,27 +70,65 @@ class PNormDistance:
         w = self._weights_arg
         if w is None:
             return
-        if isinstance(w, dict):
-            vec = np.ones(spec.total_size)
-            labels = spec.labels()
-            for k, v in w.items():
-                if k in labels:
-                    vec[labels.index(k)] = v
-                elif k in spec.names:
-                    off = spec.offsets[k]
-                    vec[off: off + spec.sizes[k]] = v
-                else:
-                    raise KeyError(f"unknown sum-stat label {k!r}")
-            self.weights[-1] = vec
+        if is_schedule(w):
+            for t, wt in w.items():
+                self.weights[int(t)] = self._coerce_weight_vector(wt)
         else:
-            self.weights[-1] = np.ravel(np.asarray(w, np.float64))
+            self.weights[-1] = self._coerce_weight_vector(w)
 
-    def initial_weights(self, device) -> torch.Tensor:
-        """The (S,) float32 device weight vector the run starts with."""
-        w = self.weights.get(-1)
+    def _coerce_weight_vector(self, w) -> np.ndarray:
+        """A flat vector, or a dict keyed by sum-stat label or name (the
+        rest 1), as a float64 vector."""
+        if not isinstance(w, dict):
+            return np.ravel(np.asarray(w, np.float64))
+        spec = self.spec
+        vec = np.ones(spec.total_size)
+        labels = spec.labels()
+        for k, v in w.items():
+            if k in labels:
+                vec[labels.index(k)] = v
+            elif k in spec.names:
+                off = spec.offsets[k]
+                vec[off: off + spec.sizes[k]] = v
+            else:
+                raise KeyError(f"unknown sum-stat label {k!r}")
+        return vec
+
+    def weights_for(self, t: int | None) -> np.ndarray | None:
+        """The weights in effect at generation t: the latest key in [0,
+        t], else the default (-1), else None (all ones)."""
+        if not self.weights:
+            return None
+        if t is not None:
+            past = [s for s in self.weights if 0 <= s <= t]
+            if past:
+                return self.weights[max(past)]
+        return self.weights.get(-1)
+
+    def schedule(self) -> bool:
+        """True when the user's weights change with the generation."""
+        return any(k >= 0 for k in self.weights)
+
+    def device_params(self, t: int | None = None,
+                      device=None) -> torch.Tensor:
+        """The (S,) float32 weights of generation t (factors applied), as
+        the JAX package's ``device_params(t)``."""
+        if self.spec is None:
+            raise RuntimeError("distance not initialized (no SumStatSpec)")
+        w = self.weights_for(t)
         if w is None:
             w = np.ones(self.spec.total_size)
+        if self._factors_arg is not None:
+            w = w * self._coerce_weight_vector(self._factors_arg)
         return torch.as_tensor(np.asarray(w, np.float32), device=device)
+
+    def initial_weights(self, device) -> torch.Tensor:
+        """The device weights the run starts with (generation 0's)."""
+        return self.device_params(0, device)
+
+    def host_weights(self, params) -> np.ndarray:
+        """The host mirror of fetched device weights."""
+        return np.asarray(params, np.float64)
 
     def rows(self, ss: torch.Tensor, x0: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
@@ -165,10 +214,11 @@ class AdaptivePNormDistance(PNormDistance):
         return self._reduce(samples, valid, x0)[0]
 
     def refit(self, samples: torch.Tensor, valid: torch.Tensor,
-              x0: torch.Tensor, rows: torch.Tensor):
+              x0: torch.Tensor, rows: torch.Tensor, params=None):
         """The generation step's refit in one K9 call: the scale over
         ``samples`` under ``valid``, the new weights, and the distances of
-        ``rows`` under them -> (weights, distances)."""
+        ``rows`` under them -> (weights, distances). The weights in effect
+        (``params``) play no part."""
         _scale, w, d = self._reduce(samples, valid, x0, rows)
         return w, d
 

@@ -78,6 +78,16 @@ in device memory), then K12 (the k-NN covariance field) and K13 (the
 factorization, of the changed rows only under the cadence), both of which
 return at once when K15's flag reads 0: the refit costs no host sync.
 
+An aggregated distance (``AggregatedDistance``, a weighted sum of plain
+p-norms): ``Carry.dist_w`` is K25's flat params ``[W, w_1, ..., w_n]`` and
+a round's distance, accept test and log weight come from K25's accept in
+K5's place; under early reject K18 folds one prefix bound a sub-distance
+(its aggregate mode). An adaptive aggregate refits W in the generation
+step, and at calibration, with K25's refit in K9's place: the
+sub-distances of the ring's rows, their column scale, ``W = factors /
+scale`` and the reservoir's distances under it. A user's weight schedule
+arrives as one row of the chunk's table per generation (``dist_w``).
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -92,6 +102,7 @@ import torch
 
 from ..kernels import philox
 from ..core.random_variables import stacked_arrays
+from ..kernels.aggregate import aggregate_accept_weight
 from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
@@ -126,7 +137,9 @@ class Carry:
 
     trans_params: dict          # K > 1: stacked over the models
     fitted: torch.Tensor        # bool (); K > 1: (K,)
-    dist_w: torch.Tensor        # (S,); a stochastic kernel's variances
+    dist_w: torch.Tensor        # (S,); an aggregated distance's flat
+    #                             params (K25); a stochastic kernel's
+    #                             variances
     eps: torch.Tensor           # () threshold (temperature) of the next
     hist_min: torch.Tensor      # () running min of used epsilons
     eps_prev: torch.Tensor      # () health: previous epsilon
@@ -312,6 +325,9 @@ class DeviceContext:
         if self.stochastic:
             noisy = dict(noise=cfg["bound"], pdf_norm=pdf_norm,
                          accept=self.stream(t, philox.ACCEPT))
+        if getattr(self.distance, "aggregated", False):
+            # K18's aggregate mode: dist_w is K25's flat params
+            noisy = dict(agg=self.distance.ps)
         out = segment_round(
             cfg["seg"], theta, valid, self.stream(t, philox.SIM_NOISE),
             imap=cfg["index_map"], x0=self.x0, w=dist_w,
@@ -328,8 +344,9 @@ class DeviceContext:
 
     def _accept(self, ss, eps, dist_w, valid, hist_min, pdf_norm, t,
                 logpri=None, logq=None, **model_terms):
-        """K21a (noisy ABC) or K5 -> (distance, accept, log weight); K > 1
-        passes K5 the lanes' models and the two model terms."""
+        """K21a (noisy ABC), K25 (an aggregated distance; ``dist_w`` its
+        flat params) or K5 -> (distance, accept, log weight); K > 1 passes
+        K5 or K25 the lanes' models and the two model terms."""
         if self.stochastic:
             return kernel_accept(
                 ss, self.x0, dist_w, eps, pdf_norm, valid,
@@ -337,6 +354,10 @@ class DeviceContext:
                 lin=self.temp_config.lin,
                 apply_iw=self.acceptor.apply_importance_weighting,
                 logpri=logpri, logq=logq, family=self.distance.family)
+        if self.distance.aggregated:
+            return aggregate_accept_weight(
+                ss, self.x0, dist_w, eps, valid, ps=self.distance.ps,
+                hist_min=hist_min, logpri=logpri, logq=logq, **model_terms)
         return pnorm_accept_weight(
             ss, self.x0, dist_w, eps, valid, p=self.distance.p,
             hist_min=hist_min, logpri=logpri, logq=logq, **model_terms)
@@ -557,7 +578,8 @@ class DeviceContext:
         ss = run.res["sumstats"]
         w0, d0 = dist_w0, run.res["distance"]  # K5's distances under w0
         if calib_w:
-            w0, d0 = self.distance.refit(ss, mask, self.x0, ss)
+            w0, d0 = self.distance.refit(ss, mask, self.x0, ss,
+                                         params=dist_w0)
         eps0 = None
         if calib_eps:
             eps0 = weighted_quantile(
@@ -631,9 +653,10 @@ class DeviceContext:
             dist_w_next, d_new = self.distance.refit_from_moments(
                 run.mom, self.x0, res["sumstats"])
         elif adaptive:
+            # K9, or K25's refit for an aggregated distance
             dist_w_next, d_new = self.distance.refit(
                 run.rec["sumstats"], run.rec["valid"], self.x0,
-                res["sumstats"])
+                res["sumstats"], params=carry.dist_w)
         else:
             dist_w_next = carry.dist_w
             d_new = res["distance"]

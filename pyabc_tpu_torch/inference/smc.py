@@ -55,6 +55,17 @@ population against the fitted one passes the threshold, and
 ``refit_events`` and History's telemetry hold each generation's
 ``refit``, ``drift`` and ``refit_rows_changed``.
 
+Aggregated distances (``AggregatedDistance`` and
+``AdaptiveAggregatedDistance`` over at most eight plain ``PNormDistance``
+sub-distances, the JAX package's fused-path conditions) run through K25,
+and early reject through K18's aggregate mode (not under an adaptive
+aggregate or negative weights, as in the JAX package). A user's
+per-generation weight schedule (``PNormDistance(weights={t: ...})``, an
+aggregate's top-level or sub-distance schedule) goes to the card as one
+``(G, P)`` table a chunk, copied once and never read back. The measure-list
+distances of the JAX package (``ZScoreDistance``, ``PCADistance``, ...)
+run on its host loop only and raise ``not_ported``.
+
 Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
 ``ListPopulationSize`` or ``AdaptivePopulationSize`` with a finite
 ``max_population_size``; the MVN transition, one model or several): the
@@ -83,6 +94,8 @@ from ..acceptor.acceptor import StochasticAcceptor, UniformAcceptor
 from ..core.population import Population
 from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
+from ..distance.aggregate import (AdaptiveAggregatedDistance,
+                                  AggregatedDistance)
 from ..distance.kernel import (BinomialKernel, IndependentLaplaceKernel,
                                IndependentNormalKernel,
                                NegativeBinomialKernel, NormalKernel,
@@ -113,6 +126,10 @@ from .context import Carry, DeviceContext
 
 logger = logging.getLogger("pyabc_tpu_torch.ABCSMC")
 
+#: the JAX package's DistanceWithMeasureList family: host loop only
+MEASURE_LIST_DISTANCES = ("DistanceWithMeasureList", "ZScoreDistance",
+                          "PCADistance", "RangeEstimatorDistance",
+                          "MinMaxDistance", "PercentileDistance")
 #: the noise models the fused noisy path runs (K21a, K21c)
 NOISE_KERNELS = (IndependentNormalKernel, NormalKernel,
                  IndependentLaplaceKernel, BinomialKernel, PoissonKernel,
@@ -223,7 +240,13 @@ class ABCSMC:
 
         distance = (distance_function if distance_function is not None
                     else PNormDistance(p=2))
+        if type(distance).__name__ in MEASURE_LIST_DISTANCES:
+            # no device twin: the JAX package serves them on its host loop
+            raise _not_ported(f"distance {type(distance).__name__} (the "
+                              f"JAX package's host loop only)", "16")
         if type(distance) not in (PNormDistance, AdaptivePNormDistance,
+                                  AggregatedDistance,
+                                  AdaptiveAggregatedDistance,
                                   *NOISE_KERNELS):
             raise _not_ported(f"distance {type(distance).__name__}", "12")
         self.distance_function = distance
@@ -534,10 +557,28 @@ class ABCSMC:
                     f"classic kernel serves this config (switch to "
                     f"{', '.join(sorted(SHARDED_SCALE_NAMES))} for "
                     f"early reject)")
+        if adaptive and getattr(d, "aggregated", False):
+            return ("adaptive refits under retirement accumulate "
+                    "per-column moments over RAW sum-stat columns; "
+                    "derived record-column transforms "
+                    "(AdaptiveAggregatedDistance sub-distances) "
+                    "read whole rows — the classic kernel serves "
+                    "this config")
         for w in getattr(d, "weights", {}).values():
             if np.any(np.asarray(w) < 0):
                 return ("negative distance weights break the bound's "
                         "monotonicity; the classic kernel serves them")
+        if getattr(d, "aggregated", False):
+            if np.any(np.asarray(d.factors) < 0) or any(
+                np.any(np.asarray(w) < 0) for w in d.weights.values()
+            ) or any(
+                np.any(np.asarray(w) < 0)
+                for sub in d.distances
+                for w in sub.weights.values()
+            ):
+                return ("negative aggregated-distance weights/factors "
+                        "break the bound's monotonicity; the classic "
+                        "kernel serves them")
         return None
 
     def _early_reject_unserved(self) -> str | None:
@@ -659,7 +700,10 @@ class ABCSMC:
         self.refit_events = []
 
         calib = None
-        calib_w = isinstance(d, AdaptivePNormDistance)
+        # the in-kernel scale machinery (K9, K25's refit) is the
+        # calibration fit of an adaptive distance
+        calib_w = isinstance(d, (AdaptivePNormDistance,
+                                 AdaptiveAggregatedDistance))
         calib_eps = self.eps.requires_calibration()
         # a stochastic acceptor always calibrates: the first pdf norm (and
         # the first temperature) come from a prior sample, on the device
@@ -685,6 +729,9 @@ class ABCSMC:
             calib = {"w0": w0, "eps0": carry.eps}
 
         G = self.fused_generations
+        # a user's per-generation weight schedule: each chunk's (G, P)
+        # table of device params goes to the card in one copy
+        weight_sched = not adaptive and self._weight_schedule_fused()
         fetch_dtype = fetch_dtype_of(self.fetch_dtype)
         t = 0
         sims_total = 0
@@ -702,6 +749,8 @@ class ABCSMC:
                 break
             t_chunk = time.perf_counter()
             outs, host_gen = [], []
+            sched = (self._schedule_table(t, g_limit) if weight_sched
+                     else None)
             for g in range(g_limit):
                 tg = t + g
                 t_gen = time.perf_counter()
@@ -716,15 +765,18 @@ class ABCSMC:
                     carry.eps = self._scalar(self.eps(tg))
                 hist = carry.hist_min if ctx.use_hist else None
                 at_min = carry.eps <= min_eps
+                # the generation's distance params: its row of the
+                # schedule table, else the carry's
+                dw = sched[g] if sched is not None else carry.dist_w
                 if tg == 0:
-                    def lanes(c=carry, h=hist):
-                        return ctx.lanes_prior(c.eps, c.dist_w, h, t=0,
+                    def lanes(c=carry, h=hist, dw=dw):
+                        return ctx.lanes_prior(c.eps, dw, h, t=0,
                                                pdf_norm=c.pdf_norm,
                                                segmented=seg_on)
                 else:
-                    def lanes(c=carry, h=hist, tg=tg):
+                    def lanes(c=carry, h=hist, tg=tg, dw=dw):
                         return ctx.lanes_transition(
-                            c.trans_params, c.eps, c.dist_w, h, t=tg,
+                            c.trans_params, c.eps, dw, h, t=tg,
                             pdf_norm=c.pdf_norm,
                             carry=c if self.K > 1 else None,
                             segmented=seg_on)
@@ -783,6 +835,28 @@ class ABCSMC:
             stop = stop or single
             t += n_kept
             chunk_index += 1
+
+    def _weight_schedule_fused(self) -> bool:
+        """True when the (non-adaptive) distance carries a user's
+        per-generation weight schedule (``PNormDistance(weights={t: ...})``,
+        ``AggregatedDistance`` top-level or sub-distance schedules), as
+        the JAX package's twin."""
+        d = self.distance_function
+        if type(d) in (PNormDistance, AggregatedDistance):
+            return d.schedule()
+        return False
+
+    def _schedule_table(self, t0: int, g_limit: int) -> torch.Tensor:
+        """The chunk's ``(G, P)`` float32 table of ``device_params(t0 +
+        g)``, the rows after the chunk's last generation repeating it;
+        one host-to-device copy, nothing read back."""
+        d = self.distance_function
+        last = max(g_limit - 1, 0)
+        table = torch.stack([d.device_params(t0 + min(g, last))
+                             for g in range(self.fused_generations)])
+        if self.device.type != "cuda":
+            return table
+        return table.pin_memory().to(self.device, non_blocking=True)
 
     def _model_carry(self, carry: Carry, ctx: DeviceContext) -> None:
         """K > 1: stacked never-fitted params and the model terms of the
@@ -875,8 +949,8 @@ class ABCSMC:
                                fetched["calib_max_found0"],
                                fetched["calib_temp0"])
         if "calib_w0" in fetched:
-            self.distance_function.weights[0] = np.asarray(
-                fetched["calib_w0"], np.float64)
+            self.distance_function.weights[0] = (
+                self.distance_function.host_weights(fetched["calib_w0"]))
             if eps_quantile and self.eps.requires_calibration():
                 self.eps._values[0] = float(fetched["calib_eps0"])
         d = max(p.dim for p in self.priors)
@@ -944,8 +1018,9 @@ class ABCSMC:
                 self.eps._values[t] = eps_used
                 self.eps._values[t + 1] = float(fetched["eps_next"][g])
             if adaptive:
-                self.distance_function.weights[t + 1] = np.asarray(
-                    fetched["dist_w_next"][g], np.float64)
+                self.distance_function.weights[t + 1] = (
+                    self.distance_function.host_weights(
+                        fetched["dist_w_next"][g]))
             if "pdf_norm_next" in fetched:
                 self._mirror_noisy(
                     t, fetched["pdf_norm_next"][g],

@@ -4,6 +4,9 @@ Each wrapper sends CPU tensors to its plain PyTorch version and launches
 its CUDA kernel (``pyabc_tpu_torch/csrc``) on CUDA tensors. Importing this
 package builds nothing: the kernels are compiled at first launch.
 """
+from .aggregate import (aggregate_accept_weight,
+                        aggregate_accept_weight_plain, aggregate_refit,
+                        aggregate_refit_plain)
 from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_density_plain, bootstrap_draw_plain,
                            bootstrap_fit_plain)
@@ -38,7 +41,7 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
-#: K21a, K21b, K22 fold and finish, K26)
+#: K21a, K21b, K22 fold and finish, K25 accept and refit, K26)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -46,7 +49,8 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            segment_round,
            tau_leap, sir_simulate, ode_family_simulate, ode_family_segments,
            network_sir, kernel_accept, temperature_update, moment_fold,
-           moment_finish, model_step)
+           moment_finish, aggregate_accept_weight, aggregate_refit,
+           model_step)
 
 
 def reset_launch_counts() -> None:
@@ -62,14 +66,16 @@ def launch_counts() -> dict[str, int]:
 
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
-    ``adaptive`` and ``k_gt_1``, K16's four entries); each also counts in
-    ``launch_counts``."""
+    ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's four
+    entries, K25's values mode); each also counts in ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
 
 __all__ = [
-    "KERNELS", "bootstrap_bisect_plain", "bootstrap_cv",
+    "KERNELS", "aggregate_accept_weight", "aggregate_accept_weight_plain",
+    "aggregate_refit", "aggregate_refit_plain", "bootstrap_bisect_plain",
+    "bootstrap_cv",
     "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",
     "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "kernel_accept",

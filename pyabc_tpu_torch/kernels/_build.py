@@ -96,7 +96,14 @@ SIGNATURES = {
         _P],
     "pyabc_segment_round": [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P,
-        _P, _P, _P, _U, _U, _U, _U, _U, _P, _I, _F, _P, _U, _U, _U, _U, _P],
+        _P, _P, _P, _U, _U, _U, _U, _U, _P, _I, _F, _P, _U, _U, _U, _U, _I,
+        _P, _P, _P],
+    "pyabc_aggregate_accept": [
+        _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P,
+        _P, _P, _P, _P, _P],
+    "pyabc_aggregate_refit": [
+        _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P],
     "pyabc_ode_family_segments": [
         _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U,
         _U, _P, _P],

@@ -58,6 +58,16 @@ def device_chol_guarded(cov: torch.Tensor):
     return chol, cov_used, ~torch.isfinite(chol).all()
 
 
+def precision_of_factor(chol: torch.Tensor) -> torch.Tensor:
+    """P = L^-T L^-1 from the factor, as the kernel forms it: a covariance
+    that only the ladder's last rung factorizes is singular in float32, so
+    an LU inverse of it can come back infinite where the factor's inverse
+    stays finite and agrees with the logdet."""
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    linv = torch.linalg.solve_triangular(chol, eye, upper=False)
+    return linv.transpose(-1, -2) @ linv
+
+
 def ancestor_cdf_plain(w: torch.Tensor) -> torch.Tensor:
     """cummax(where(w > 0, cumsum(w), 0)): zero-weight rows (empty
     reservoir slots) repeat the previous row's cdf, so K2's search never
@@ -70,8 +80,8 @@ def ancestor_cdf_plain(w: torch.Tensor) -> torch.Tensor:
 def mvn_fit_plain(thetas: torch.Tensor, weights: torch.Tensor, *, dim: int,
                   scaling: float, bandwidth_selector: Callable) -> dict:
     """Plain PyTorch version: weighted mean/cov (smart_cov guard),
-    bandwidth from the ESS, jitter-ladder Cholesky, precision, logdet, the
-    centred cache and the ancestor cdf."""
+    bandwidth from the ESS, jitter-ladder Cholesky, precision from the
+    factor, logdet, the centred cache and the ancestor cdf."""
     d_max = thetas.shape[1]
     vmask = (torch.arange(d_max, device=thetas.device) < dim).to(
         thetas.dtype)
@@ -87,7 +97,7 @@ def mvn_fit_plain(thetas: torch.Tensor, weights: torch.Tensor, *, dim: int,
     factor = bandwidth_selector(ess, dim)
     cov = cov * (scaling * factor) ** 2
     chol, cov, _bad = device_chol_guarded(cov)
-    prec, _info = torch.linalg.inv_ex(cov)
+    prec = precision_of_factor(chol)
     logdet = 2.0 * (vmask * torch.log(
         torch.diagonal(chol).clamp_min(1e-38))).sum()
     outer = vmask[:, None] * vmask[None, :]

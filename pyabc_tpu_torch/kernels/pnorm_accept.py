@@ -35,7 +35,18 @@ def pnorm_accept_weight_plain(ss, x0, w, eps, valid, *, p: float,
                               log_offset: float = 0.0, m=None,
                               model_logits=None, log_model_factor=None):
     """Plain PyTorch version -> (distance, accept, log_weight)."""
-    d = pnorm_rows(ss, x0, w, p)
+    return accept_epilogue_plain(
+        pnorm_rows(ss, x0, w, p), eps, valid, hist_min=hist_min,
+        logpri=logpri, logq=logq, log_offset=log_offset, m=m,
+        model_logits=model_logits, log_model_factor=log_model_factor)
+
+
+def accept_epilogue_plain(d, eps, valid, *, hist_min=None, logpri=None,
+                          logq=None, log_offset: float = 0.0, m=None,
+                          model_logits=None, log_model_factor=None):
+    """The accept test and log weight of distances ``d`` (the epilogue K5
+    shares with K25, ``csrc/accept_epilogue.cuh``) -> (d, accept,
+    log_weight)."""
     accept = valid & (d <= eps)
     if hist_min is not None:
         accept = accept & (d <= hist_min)
@@ -48,6 +59,31 @@ def pnorm_accept_weight_plain(ss, x0, w, eps, valid, *, p: float,
         lw = log_offset + logpri - logq
     lw = torch.where(valid, lw, torch.full_like(lw, -math.inf))
     return d, accept, lw
+
+
+def expect_terms(kernel: Kernel, B: int, eps, valid, hist_min, logpri, logq,
+                 m, model_logits, log_model_factor) -> None:
+    """Check the epilogue's inputs of a launch over B rows (K5, K25)."""
+    if (logpri is None) != (logq is None):
+        raise ValueError(f"{kernel.name}: logpri and logq go together")
+    models = (m, model_logits, log_model_factor)
+    if any(t is None for t in models) != all(t is None for t in models) \
+            or (m is not None and logpri is None):
+        raise ValueError(f"{kernel.name}: m, model_logits and "
+                         f"log_model_factor go together, with logpri")
+    f32 = torch.float32
+    kernel.expect(eps, "eps", f32, ())
+    kernel.expect(valid, "valid", torch.bool, (B,))
+    if hist_min is not None:
+        kernel.expect(hist_min, "hist_min", f32, ())
+    if logpri is not None:
+        kernel.expect(logpri, "logpri", f32, (B,))
+        kernel.expect(logq, "logq", f32, (B,))
+    if m is not None:
+        K = model_logits.shape[0]
+        kernel.expect(m, "m", torch.int32, (B,))
+        kernel.expect(model_logits, "model_logits", f32, (K,))
+        kernel.expect(log_model_factor, "log_model_factor", f32, (K,))
 
 
 class PnormAcceptWeight(Kernel):
@@ -67,29 +103,12 @@ class PnormAcceptWeight(Kernel):
                 logpri=logpri, logq=logq, log_offset=log_offset, m=m,
                 model_logits=model_logits,
                 log_model_factor=log_model_factor)
-        if (logpri is None) != (logq is None):
-            raise ValueError(f"{self.name}: logpri and logq go together")
-        if any(t is None for t in models) != all(t is None for t in models) \
-                or (m is not None and logpri is None):
-            raise ValueError(f"{self.name}: m, model_logits and "
-                             f"log_model_factor go together, with logpri")
         B, S = ss.shape
         f32 = torch.float32
         self.expect(ss, "ss", f32, (B, S))
         self.expect(x0, "x0", f32, (S,))
         self.expect(w, "w", f32, (S,))
-        self.expect(eps, "eps", f32, ())
-        self.expect(valid, "valid", torch.bool, (B,))
-        if hist_min is not None:
-            self.expect(hist_min, "hist_min", f32, ())
-        if logpri is not None:
-            self.expect(logpri, "logpri", f32, (B,))
-            self.expect(logq, "logq", f32, (B,))
-        if m is not None:
-            K = model_logits.shape[0]
-            self.expect(m, "m", torch.int32, (B,))
-            self.expect(model_logits, "model_logits", f32, (K,))
-            self.expect(log_model_factor, "log_model_factor", f32, (K,))
+        expect_terms(self, B, eps, valid, hist_min, logpri, logq, *models)
         dev = ss.device
         d = torch.empty(B, dtype=f32, device=dev)
         accept = torch.empty(B, dtype=torch.bool, device=dev)

@@ -28,7 +28,13 @@ first segment where it would retire: the same statistics for kept slots,
 the same ``keep`` and the same first three counters; its lane-segment
 slots are all ``B * n_segments`` it ran.
 
-Three modes (each also counted in ``mode_launches``):
+Four modes (each also counted in ``mode_launches``):
+
+- aggregate (``agg`` the sub-distances' p's, ``w`` K25's flat params
+  ``[W (n), w_1 (S), ..., w_n (S)]``, ``aggregate.py:85``): each slot
+  keeps n prefix bounds, each folded as the p-norm's (``bound_fold``), and
+  retires once ``sum_k W_k acc_k^(1/p_k)`` (``agg_total``, k in order)
+  exceeds ``thr (1 + 1e-4)``;
 
 - stochastic (``noise`` the ``device_bound_fn`` dict of a noise kernel,
   ``pdf_norm`` the norm, ``accept`` the round's ACCEPT stream; K = 1):
@@ -61,6 +67,7 @@ import torch
 
 from ..utils import not_ported
 from . import _build
+from .aggregate import MAX_SUB, p_codes
 from .base import Kernel
 from .kernel_accept import (BOUND_FAMILIES, FAMILY_CODES, accept_uniforms,
                             noise_bound_fold, upper_exceeds)
@@ -105,6 +112,18 @@ def bound_fold(acc, vals, x0, w, p: float) -> torch.Tensor:
     return acc + s
 
 
+def agg_total(acc, W, ps) -> torch.Tensor:
+    """``sum_k W_k acc_k^(1/p_k)`` of the aggregate's prefix bounds ``acc
+    (B, n)``, in the order k = 0..n-1 (sqrt at p = 2), as K18 sums it."""
+    total = torch.zeros_like(acc[:, 0])
+    for k, p in enumerate(ps):
+        a = acc[:, k]
+        r = (torch.sqrt(a) if p == 2.0 else a
+             if p == 1.0 or p == float("inf") else torch.pow(a, 1.0 / p))
+        total = total + W[k] * r
+    return total
+
+
 def noise_thresholds(temp, pdf_norm, accept: PhiloxStream,
                      B: int) -> torch.Tensor:
     """Each slot's log-density threshold ``pdf_norm + T log(u_s)``; -inf
@@ -123,7 +142,8 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
                         x0, w, p: float, eps, hist_min=None, width: int,
                         seg_ctr, m=None, dims=None,
                         return_nseg: bool = False, noise=None,
-                        pdf_norm=None, accept: PhiloxStream | None = None):
+                        pdf_norm=None, accept: PhiloxStream | None = None,
+                        agg=None):
     """Plain PyTorch version -> (ss ``(B, width)``, keep ``(B,)``[, nseg
     ``(B,)`` int32])."""
     B = theta.shape[0]
@@ -137,9 +157,13 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
         acc = torch.full((B,), noise["init_value"], dtype=torch.float32,
                          device=theta.device)
     else:
-        lim = bound_limit(eps if hist_min is None
-                          else torch.minimum(eps, hist_min), p)
+        thr = eps if hist_min is None else torch.minimum(eps, hist_min)
+        lim = bound_limit(thr, 1.0 if agg is not None else p)
         acc = torch.zeros(B, dtype=torch.float32, device=theta.device)
+    if agg is not None:
+        n_sub = len(agg)
+        W, subw = w[:n_sub], w[n_sub:].reshape(n_sub, width)
+        acc = torch.zeros(B, n_sub, dtype=torch.float32, device=theta.device)
     carries = [s.init(theta if dims is None
                       else theta[:, :dims[k]].contiguous())
                for k, s in enumerate(segs)]
@@ -157,6 +181,11 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
         if noise is not None:
             acc = noise_bound_fold(family, acc, vals, x0[cols], w[cols])
             exceeds = upper_exceeds(acc, thr)
+        elif agg is not None:
+            acc = torch.stack([bound_fold(acc[:, k], vals, x0[cols],
+                                          subw[k][cols], pk)
+                               for k, pk in enumerate(agg)], 1)
+            exceeds = agg_total(acc, W, agg) > lim
         else:
             acc = bound_fold(acc, vals, x0[cols], w[cols], p)
             exceeds = acc > lim
@@ -182,7 +211,8 @@ class SegmentRound(Kernel):
     def __init__(self):
         super().__init__()
         #: launches in the adaptive (nseg) and K > 1 modes
-        self.mode_launches = {"adaptive": 0, "k_gt_1": 0, "stochastic": 0}
+        self.mode_launches = {"adaptive": 0, "k_gt_1": 0, "stochastic": 0,
+                              "aggregate": 0}
 
     def __call__(self, seg, theta: torch.Tensor, valid: torch.Tensor,
                  stream: PhiloxStream, *, imap: torch.Tensor,
@@ -192,11 +222,15 @@ class SegmentRound(Kernel):
                  m: torch.Tensor | None = None, dims=None,
                  return_nseg: bool = False, noise: dict | None = None,
                  pdf_norm: torch.Tensor | None = None,
-                 accept: PhiloxStream | None = None):
+                 accept: PhiloxStream | None = None, agg=None):
         kw = dict(imap=imap, x0=x0, w=w, p=p, eps=eps, hist_min=hist_min,
                   width=width, seg_ctr=seg_ctr, m=m, dims=dims,
                   return_nseg=return_nseg, noise=noise, pdf_norm=pdf_norm,
-                  accept=accept)
+                  accept=accept, agg=agg)
+        if agg is not None and (noise is not None
+                                or not 0 < len(agg) <= MAX_SUB):
+            raise ValueError(f"{self.name}: the aggregate mode takes 1 to "
+                             f"{MAX_SUB} sub-distances and no noise bound")
         if noise is not None:
             if noise["family"] not in BOUND_FAMILIES:
                 raise ValueError(f"{self.name}: no upper bound for the "
@@ -233,7 +267,9 @@ class SegmentRound(Kernel):
         self.expect(valid, "valid", torch.bool, (B,))
         self.expect(imap, "imap", torch.int32, (spec.n_seg, spec.seg_size))
         self.expect(x0, "x0", f32, (width,))
-        self.expect(w, "w", f32, (width,))
+        n_sub = 0 if agg is None else len(agg)
+        self.expect(w, "w", f32, (n_sub * (width + 1) if agg is not None
+                                  else width,))
         self.expect(eps, "eps", f32, ())
         if noise is not None:
             self.expect(pdf_norm, "pdf_norm", f32, ())
@@ -269,8 +305,8 @@ class SegmentRound(Kernel):
             self.ptr(pdf_norm),
             *(accept.key if noise is not None else (0, 0)),
             accept.generation if noise is not None else 0,
-            accept.tag if noise is not None else 0,
-            _build.stream_ptr(dev))
+            accept.tag if noise is not None else 0, n_sub,
+            *p_codes(agg or ()), _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
         if return_nseg:
@@ -279,6 +315,8 @@ class SegmentRound(Kernel):
             self.mode_launches["k_gt_1"] += 1
         if noise is not None:
             self.mode_launches["stochastic"] += 1
+        if agg is not None:
+            self.mode_launches["aggregate"] += 1
         return (ss, keep, nseg) if return_nseg else (ss, keep)
 
 

@@ -354,6 +354,26 @@ class History:
                 WHERE models.population_id = ?
                 """, self._conn, params=(self._pop_id(t),))
 
+    def get_weighted_sum_stats(self, t: int | None = None
+                               ) -> tuple[np.ndarray, np.ndarray]:
+        """(weights, flat sum stats (n, S)) of generation t's particles,
+        as the JAX package's; raises where none were stored."""
+        t = self.max_t if t is None else t
+        with self._lock:
+            df = pd.read_sql_query(
+                """
+                SELECT particles.w * models.p_model AS w,
+                       samples.value AS blob
+                FROM models
+                JOIN particles ON particles.model_id = models.id
+                JOIN samples ON samples.particle_id = particles.id
+                WHERE models.population_id = ? AND samples.name = '__flat__'
+                """, self._conn, params=(self._pop_id(t),))
+        if len(df) == 0:
+            raise ValueError(f"no sum stats stored for generation {t}")
+        return (np.asarray(df["w"], np.float64),
+                np.stack([np_from_bytes(b) for b in df["blob"]]))
+
     def get_telemetry(self, t: int | None = None) -> dict:
         t = self.max_t if t is None else t
         with self._lock:

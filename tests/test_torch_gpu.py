@@ -1,5 +1,5 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K16, K18-K22 and
-K6's record mode) against its plain PyTorch version on the CUDA
+"""Card tests: each hand-written kernel (K2 with K1, K3-K16, K18-K22, K25
+and K6's record mode) against its plain PyTorch version on the CUDA
 device, at small shapes and at the main-path shapes of BASELINE configs 2
 and 4. Marked ``gpu``; without a card
 every test skips (the decision is taken in a fixture, so every worker
@@ -195,14 +195,15 @@ def test_lv_run_on_the_card(dev):
     assert h.n_populations == 4
     # every kernel of the LV path (the noisy-ABC kernels, the model
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
-    # LocalTransition's K12-K15, the segmented family's K20b and K22 and
-    # the adaptive population size's K16 are not on it)
+    # LocalTransition's K12-K15, the segmented family's K20b and K22, the
+    # adaptive population size's K16 and the aggregated distances' K25 are
+    # not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
              "propose_local", "local_logpdf", "proposal_drift",
              "ode_family_segments", "moment_fold", "moment_finish",
-             "bootstrap_cv")
+             "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -1820,3 +1821,232 @@ def test_adaptive_lv_run_on_the_card(dev):
     rounds = sum(g["rounds"] for g in abc.generation_log)
     assert set(by) == {"round_counters", "chunk_fetch"}
     assert by["chunk_fetch"] == 1 and 1 <= by["round_counters"] - rounds <= 2
+
+
+# ------------------------------------------- K25 and K16's repair case
+#: the sub-distances' p's of the K25 cells: 2 and 4, mixed
+AGG_PS = [(2.0, math.inf), (1.0, 2.0, math.inf, 3.0)]
+
+
+def _agg_params(dev, ps, S, seed=0):
+    g = _gen(dev, seed)
+    W = torch.rand(len(ps), generator=g, device=dev) + 0.5
+    subs = torch.rand(len(ps), S, generator=g, device=dev) + 0.2
+    return torch.cat([W, subs.reshape(-1)]).contiguous()
+
+
+@pytest.mark.parametrize("B", [77, 65536])
+@pytest.mark.parametrize("ps", AGG_PS)
+def test_aggregate_accept_kernel(dev, B, ps):
+    """K25's accept against its plain version: distances and the values
+    mode within 1e-5 relative, flags equal away from eps, log weights
+    equal (K5's epilogue), with use_complete_history's minimum."""
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         aggregate_accept_weight_plain)
+    from pyabc_tpu_torch.kernels.aggregate import sub_distances_plain
+
+    S = 40
+    g = _gen(dev, 1)
+    ss = torch.randn(B, S, generator=g, device=dev) * 3.0
+    ss[B // 2] = float("nan")
+    x0 = torch.randn(S, generator=g, device=dev)
+    params = _agg_params(dev, ps, S)
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    logpri = torch.randn(B, generator=g, device=dev) - 3.0
+    logq = torch.randn(B, generator=g, device=dev) - 2.0
+    d_all = aggregate_accept_weight_plain(
+        ss, x0, params, torch.tensor(math.inf, device=dev), valid, ps=ps)[0]
+    fin = d_all[torch.isfinite(d_all)]
+    eps, hist = torch.quantile(fin, 0.6), torch.quantile(fin, 0.4)
+    kw = dict(ps=ps, hist_min=hist, logpri=logpri, logq=logq)
+    d, a, lw = aggregate_accept_weight(ss, x0, params, eps, valid, **kw)
+    d_r, a_r, lw_r = aggregate_accept_weight_plain(ss, x0, params, eps,
+                                                   valid, **kw)
+    torch.testing.assert_close(d, d_r, rtol=1e-5, atol=0.0, equal_nan=True)
+    far = (d_r - hist).abs() > 1e-5 * hist
+    assert torch.equal(a[far], a_r[far])
+    assert torch.equal(lw, lw_r)
+    vals = aggregate_accept_weight.values(ss, x0, params, ps=ps)
+    torch.testing.assert_close(vals, sub_distances_plain(ss, x0, params, ps),
+                               rtol=1e-5, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", ["span", "standard_deviation",
+                                  "median_absolute_deviation"])
+def test_aggregate_refit_kernel(dev, name):
+    """K25's refit against its plain version over a ring with unwritten
+    rows: scales, W and the reservoir's distances within 1e-5 relative;
+    the scale of span and of the median bit-equal to the plain scale of
+    the kernel's own values."""
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         aggregate_refit,
+                                         aggregate_refit_plain)
+    from pyabc_tpu_torch.kernels.scale_reduce import SCALES_PLAIN
+
+    S, n, ps = 40, 8192, (2.0, 1.0, math.inf)
+    g = _gen(dev, 2)
+    ring = torch.randn(n, S, generator=g, device=dev) * 2.0
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[-1000:] = False
+    ring[-1000:] = 1e6
+    x0 = torch.randn(S, generator=g, device=dev)
+    rows = torch.randn(1024, S, generator=g, device=dev)
+    params = _agg_params(dev, ps, S, seed=3)
+    kw = dict(ps=ps, factors=(1.0, 2.5, 0.5), scale_name=name, rows=rows)
+    sc, new, d = aggregate_refit(ring, valid, x0, params, **kw)
+    sc_r, new_r, d_r = aggregate_refit_plain(ring, valid, x0, params, **kw)
+    torch.testing.assert_close(sc, sc_r, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(new, new_r, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(d, d_r, rtol=1e-5, atol=0.0)
+    assert torch.equal(new[3:], params[3:])
+    if name != "standard_deviation":
+        vals = aggregate_accept_weight.values(ring, x0, params, ps=ps)
+        assert torch.equal(sc, SCALES_PLAIN[name](
+            vals, valid, torch.zeros(3, device=dev)))
+
+
+@pytest.mark.parametrize("B", [256, 4096])
+def test_segment_round_aggregate_mode(dev, B):
+    """K18's aggregate mode against its plain version (birth-death, the
+    pair of tests/test_segment.py:114): the same kept slots, their
+    statistics bit for bit, the same counters."""
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight_plain,
+                                         segment_round, segment_round_plain)
+
+    model, theta, valid, spec, x0 = _seg_round(dev, "bd", B)
+    st = _stream(dev, philox.SIM_NOISE)
+    imap = model.index_map(spec, dev)
+    S = spec.total_size
+    params = torch.cat([torch.tensor([0.7, 1.3], device=dev),
+                        torch.ones(2 * S, device=dev)])
+    ps = (2.0, math.inf)
+    full, _ = model.chain.kernel[0](model.chain.kernel[1], theta, st,
+                                    colmap=imap, width=S)
+    d = aggregate_accept_weight_plain(
+        full, x0, params, torch.tensor(math.inf, device=dev), valid,
+        ps=ps)[0]
+    eps = torch.quantile(d[valid], 0.2)
+    kw = dict(imap=imap, x0=x0, w=params, p=2.0, eps=eps, width=S, agg=ps)
+    c_got = torch.zeros(4, dtype=torch.int64, device=dev)
+    c_ref = torch.zeros(4, dtype=torch.int64, device=dev)
+    ss, keep = segment_round(model.segmented, theta, valid, st,
+                             seg_ctr=c_got, **kw)
+    ss_r, keep_r = segment_round_plain(model.segmented, theta, valid, st,
+                                       seg_ctr=c_ref, **kw)
+    assert torch.equal(keep, keep_r)
+    assert torch.equal(ss[keep], ss_r[keep])
+    assert torch.equal(c_got[:3], c_ref[:3]) and int(c_got[0]) > 0
+    retired = valid & ~keep
+    assert not bool((d[retired] <= eps).any())
+
+
+def test_aggregate_runs_on_the_card(dev):
+    """LV under the adaptive aggregate and under an aggregated schedule
+    (pop 1000, 3 generations), and birth-death under the fixed pair with
+    early reject on and off: K25's accept and refit and K18's aggregate
+    mode launched, K5 and K9 not, populations bit-identical on and off,
+    one counter read a round and one fetch a chunk."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gillespie as gl
+
+    subs = [pt.PNormDistance(p=2, weights={"pred": 1, "prey": 0}),
+            pt.PNormDistance(p=1, weights={"pred": 0, "prey": 1})]
+    for dist in (pt.AdaptiveAggregatedDistance(subs),
+                 pt.AggregatedDistance(
+                     [pt.PNormDistance(p=2, weights={0: {"pred": 1,
+                                                         "prey": 0},
+                                                     2: {"pred": 2,
+                                                         "prey": 0}}),
+                      pt.PNormDistance(p=1)], weights={0: [1, 1],
+                                                       1: [4, 0.1]})):
+        abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(), dist,
+                        population_size=1000, eps=pt.MedianEpsilon(),
+                        seed=0, device=dev)
+        abc.new("sqlite://", lv.observed_data(seed=0),
+                store_sum_stats=False)
+        reset_launch_counts()
+        h = abc.run(max_nr_populations=3)
+        counts = launch_counts()
+        assert h.max_t == 2
+        assert counts["aggregate_accept_weight"] > 0
+        assert counts["pnorm_accept_weight"] == counts["scale_reduce"] == 0
+        assert (counts["aggregate_refit"] > 0) == dist.adaptive
+        by = abc.sync_ledger.summary()["by_kind"]
+        assert set(by) == {"round_counters", "chunk_fetch"}
+        assert all(g["syncs"] == g["rounds"] for g in abc.generation_log)
+    obs = gl.observed_birth_death(segments=10)
+    pops = []
+    for early in ("auto", False):
+        abc = pt.ABCSMC(gl.make_birth_death_model(segments=10),
+                        gl.birth_death_prior(),
+                        pt.AggregatedDistance([pt.PNormDistance(p=2),
+                                               pt.PNormDistance(p=np.inf)],
+                                              weights=[0.7, 1.3]),
+                        population_size=2000, eps=pt.MedianEpsilon(),
+                        seed=7, early_reject=early, fused_generations=2,
+                        device=dev)
+        abc.new("sqlite://", obs, store_sum_stats=False)
+        reset_launch_counts()
+        h = abc.run(max_nr_populations=4)
+        modes = mode_launch_counts()
+        assert (modes["segment_round:aggregate"] > 0) == (early == "auto")
+        pops.append([h.get_distribution(0, t)[0].to_numpy()
+                     for t in range(4)])
+    assert all(np.array_equal(a, b) for a, b in zip(*pops))
+
+
+def _k16_repair_inputs(dev):
+    """tests/test_torch_population.py's model-weighted case (n_cap 128, K
+    3, dims 1, 2, 2, model 1 dead) with numpy ancestors, model 2's
+    bootstrap 3 starting at rows 71, 22, 71 (rank 1 at n = 3)."""
+    n_cap, K, nb = 128, 3, 5
+    rng = np.random.default_rng(21)
+    th = (rng.normal(size=(n_cap, 2)) * np.linspace(0.5, 2.0, 2)
+          + 1).astype(np.float32)
+    w = (rng.random(n_cap) + 0.1).astype(np.float32)
+    w = w / w.sum()
+    m = (np.arange(n_cap) % K).astype(np.int32)
+    m[m == 1] = 2
+    th[m == 0, 1] = 0.0
+    st = {"scaling": 1.0, "bandwidth_selector": silverman_rule_of_thumb}
+    fit = mvn_fit.models(torch.from_numpy(th).to(dev),
+                         torch.from_numpy(w).to(dev),
+                         torch.from_numpy(m).to(dev), dims=[1, 2, 2],
+                         statics=[st] * K)
+    draw = np.random.default_rng(5)
+    idx = np.zeros((K, nb, n_cap), np.int32)
+    for k in (0, 2):
+        live = np.flatnonzero(m == k)
+        idx[k] = draw.choice(live, size=(nb, n_cap),
+                             p=w[live] / w[live].sum())
+    idx[2, 3, :3] = (71, 22, 71)
+    return fit, torch.from_numpy(idx).to(dev), [st] * K
+
+
+def test_k16_rank_deficient_bootstrap(dev):
+    """The K16 repair case: model 2's rank-1 bootstrap at n = 3. The
+    kernels' fit and density give each live model's CV finite and within
+    1e-4 relative of the plain versions'."""
+    import importlib
+
+    bc = importlib.import_module("pyabc_tpu_torch.kernels.bootstrap_cv")
+    fit0, idx, statics = _k16_repair_inputs(dev)
+    th, w = fit0["thetas"], fit0["weights"]
+    state = torch.tensor([10, 128, 3, 0, 0], dtype=torch.int32, device=dev)
+    fit = bc.bootstrap_cv.fit(th, idx, state, dims=[1, 2, 2],
+                              statics=statics)
+    fit_p = bc.bootstrap_fit_plain(th, idx, state, dims=[1, 2, 2],
+                                   statics=statics)
+    assert bool(torch.isfinite(fit_p["prec"][2, 3]).all())
+
+    def cv_of(p):
+        return (p[..., 0].sum(1) / p[..., 1].sum(1).clamp_min(1e-38))[[0, 2]]
+
+    cv = cv_of(bc.bootstrap_cv.density(th, w, fit, state))
+    cv_p = cv_of(bc.bootstrap_density_plain(th, w, fit_p, state))
+    assert bool(torch.isfinite(cv).all()) and float(cv_p[1]) > 0
+    torch.testing.assert_close(cv, cv_p, rtol=1e-4, atol=0.0)

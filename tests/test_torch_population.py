@@ -154,6 +154,40 @@ def test_model_weighted_cv_matches_jax(n):
     assert float(cvs[0]) == pytest.approx(ref, rel=CV_RTOL)
 
 
+def test_rank_deficient_bootstrap_cv_matches_jax():
+    """One model (K = 1) in two dimensions at n = 3, where a bootstrap
+    draws two distinct rows: its covariance has rank 1 and only the jitter
+    ladder's last rung factorizes it. The precision comes from that factor
+    (an LU inverse of the float32-singular covariance is infinite), so the
+    densities stay finite and the CV is the JAX package's finite one."""
+    n_cap, nb, n = 128, 5, 3
+    th, w = _population(21, n_cap, 2, n_cap)
+    m = (np.arange(n_cap) % 3).astype(np.int32)
+    m[m == 1] = 2
+    wk = np.where(m == 2, w, 0.0).astype(np.float32)
+    jp = _jax_fit(th, wk / wk.sum(), 2)
+    key = jax.random.fold_in(jax.random.PRNGKey(5), 2)
+    idx = _jax_indices(jp, key, nb)
+    assert min(len(np.unique(b[:n])) for b in idx) == 2  # rank 1
+    ref = float(jutil.device_mean_cv(JMVN, jp, key, jnp.asarray(n), dim=2,
+                                     n_bootstrap=nb, **J_STATICS))
+    assert np.isfinite(ref) and ref > 0
+    params = convert.transition_params(
+        {k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    idx_t = torch.from_numpy(idx)
+    got = float(MultivariateNormalTransition.device_mean_cv(
+        params, idx_t, n, dim=2, **STATICS))
+    assert got == pytest.approx(ref, rel=CV_RTOL)
+    state = torch.tensor([10, n_cap, n, 0, 0], dtype=torch.int32)
+    fit = bc.bootstrap_cv.fit(params["thetas"][None], idx_t[None], state,
+                              dims=[2], statics=[STATICS])
+    assert bool(torch.isfinite(fit["prec"]).all())
+    part = bc.bootstrap_cv.density(params["thetas"][None],
+                                   params["weights"][None], fit, state)
+    cv = float(part[0, :, 0].sum() / part[0, :, 1].sum())
+    assert cv == pytest.approx(ref, rel=CV_RTOL)
+
+
 # -------------------------------------------------------- the bisection
 def _sqrt_cv(n):
     return 1.0 / np.sqrt(np.float32(max(int(n), 1)))
