@@ -2,9 +2,12 @@
 """Smoke run of the PyTorch / CUDA port (pyabc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--log FILE]
+    python3 chip_smoke.py --k2-turns PARENT_DIR
 
 (``--log FILE`` also appends every line to FILE, for runs whose output is
-cut.) Phases, one or more lines each:
+cut. ``--k2-turns`` measures only K2 against another tree's (say the
+parent commit's), whose ``pyabc_tpu_torch`` lies in PARENT_DIR: register
+counts and its LV config 2 time in turns.) Phases, one or more lines each:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, the compute capability (must be 9.0) and the kernel build;
@@ -82,7 +85,18 @@ cut.) Phases, one or more lines each:
    aggregated config 3 leg, K18's aggregate mode at config 3's round
    (that leg's generation-6 epsilon) and at a small odd shape, kept
    slots, statistics, reservoir, ring and counters bit-identical, its
-   device time beside the p-norm mode's on the same round;
+   device time beside the p-norm mode's on the same round; K2's family
+   mode (B 65536): every prior family of the JAX package and
+   LowerBoundDecorator as a 1-D prior, its draws within abs 1e-5 + rel
+   1e-5 of the plain version's (lanes apart counted, at most 1e-3 of
+   them), its log-densities within abs 1e-5 + rel 1e-5 with equal -inf
+   masks, the card's draws against scipy's law (KS under its 0.001
+   critical value, the pmf within 4 se), the decorator's draws above the
+   bound, the transition mode scoring points inside, on and outside each
+   support, the LV families leg's 4-D prior in both modes and in the
+   local mode at its shapes (a fit of 16384 rows) and the K > 1 mode over
+   two models of other families; each family's prior-mode time beside one torch.distributions
+   sample + log_prob;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -100,7 +114,13 @@ cut.) Phases, one or more lines each:
    posterior mean and sd against the exact posterior N(0.7339, 0.2874^2);
    then the model-selection anchor (the tractable pair at x_obs 0.7, pop
    600, 6 generations, 16 seeds), the seed mean of P(m = 0) against the
-   exact 0.5529 and the card's against the CPU's;
+   exact 0.5529 and the card's against the CPU's; then the noisy anchor
+   under each prior of ANCHOR_FAMILIES (lognorm, expon, gamma, beta,
+   laplace, cauchy, t, truncnorm, a norm bounded at 0), 24 seeds on the
+   card and the first 12 on the CPU: the temperature trails end at
+   exactly 1, the
+   card's seed mean of the posterior mean within 4 se of the quadrature
+   posterior's and of the CPU's;
 4. Lotka-Volterra config 2 (AdaptivePNormDistance(p=2), MedianEpsilon,
    pop 1000, observed_data(seed=0)), 10 generations: throughput, wall time
    and syncs per generation, the epsilon trail and the posterior means.
@@ -206,7 +226,20 @@ cut.) Phases, one or more lines each:
    aggregated pair of tests/test_segment.py:114-121 (weights 0.7, 1.3),
    early reject on, off, off, on: populations bit-identical, slots
    retired, the saved share of segment steps, K18's aggregate mode
-   launched.
+   launched. Then this slice's main leg, LV config 2 on the JAX package's
+   observation under the family prior (gamma, lognorm, truncnorm, a norm
+   bounded at 0), pop 16384, 10 generations, counts reset just before:
+   every K2 launch in its family mode, the epsilon trail falling, the
+   posterior means, the transition lanes whose redraws all left the
+   prior's support, syncs, the wall split (compute, fetch, the loop's
+   wait on the History writer, the writer thread's time, the final
+   flush), K2's device ms a round under torch.profiler; the same at pop
+   1024 on the card and the CPU (the first two epsilons within 1e-3
+   relative); the tractable pair with a gamma prior on its second
+   model over 8 seeds, card and CPU, against the exact model posterior;
+   and config 3 and the LV families leg with the History writer and with
+   synchronous appends, in turns (writer, sync, sync, writer), the wall
+   and its split each.
 
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
@@ -223,6 +256,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -336,6 +370,24 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def wall_split(abc) -> dict:
+    """A run's host seconds: rounds and generation steps (compute_s), the
+    packed fetch (fetch_s), the loop's wait on the History (persist_s:
+    handing each generation to the writer thread), the writer thread's own
+    time on the appends (write_s, beside the loop's time) and the final
+    drain in run() (flush_s)."""
+    split = {k: sum(g[k] for g in abc.generation_log)
+             for k in ("compute_s", "fetch_s", "persist_s", "write_s")}
+    split["flush_s"] = abc.flush_s
+    return split
+
+
+def held_s(split: dict) -> float:
+    """The seconds of a split that held the calling thread."""
+    return sum(split[k] for k in ("compute_s", "fetch_s", "persist_s",
+                                  "flush_s"))
 
 
 # ------------------------------------------------------------ phase 2
@@ -1435,10 +1487,12 @@ def near_step(u, p):
     return ((cum - x).abs() <= 1e-5 * cum[:, -1:]).any(dim=1)
 
 
-def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None):
+def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None,
+                           lp_rtol: float = 0.0):
     """K2's K > 1 mode against its plain version: the model of every lane
     equal (but where its uniform lies within rounding of a step), theta
-    and logpri as compare_propose."""
+    and logpri as compare_propose (logpri within 1e-5 + ``lp_rtol``
+    relative: the families' lgamma terms run to hundreds)."""
     import torch
 
     from pyabc_tpu_torch.kernels import philox, propose
@@ -1472,6 +1526,8 @@ def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None):
         (th_k - th_p).abs() - 1e-5 * th_p.abs() > 1e-5).any(dim=1)
     ok = ~odd & v_p
     lp_err = float((lp_k - lp_p)[ok].abs().max()) if bool(ok.any()) else 0.
+    lp_out = (float(((lp_k - lp_p).abs() - lp_rtol * lp_p.abs())[ok].max())
+              if bool(ok.any()) else 0.0)
     err = max(float((th_k - th_p)[~odd].abs().max()), lp_err)
     padded = torch.arange(th_k.shape[1], device=dev)[None, :] >= \
         priors["dims"][m_k.long()][:, None]
@@ -1481,9 +1537,10 @@ def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None):
         f"{bool(near[~same_m].all())}), lanes apart={int(odd.sum())} "
         f"model counts {torch.bincount(m_k.long(), minlength=K).tolist()}")
     check(bool(near[~same_m].all()) and bool((bound_ | ~same_m)[odd].all())
-          and lp_err <= 1e-5 and bool((th_k[padded] == 0).all()),
+          and lp_out <= 1e-5 and bool((th_k[padded] == 0).all()),
           "K2 K>1 outside: models equal away from a step, theta abs 1e-5 + "
-          "rel 1e-5, logpri abs 1e-5, padded entries exactly 0")
+          "rel 1e-5, logpri abs 1e-5 (+ rel lp_rtol), padded entries "
+          "exactly 0")
     return err, got
 
 
@@ -2046,12 +2103,13 @@ def lotka_volterra(dev, adaptive: bool, gens: int):
         f"wall_s_per_generation={wall / n_gen:.4f} "
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
         f"(rounds {rounds}, {syncs['by_kind']})")
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     log(f"{label}: host seconds, rounds + generation steps "
         f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
-        f"History persist {split['persist_s']:.4f}, other "
-        f"{wall - sum(split.values()):.4f}")
+        f"History wait {split['persist_s']:.4f}, writer "
+        f"{split['write_s']:.4f}, final flush {split['flush_s']:.4f}, "
+        f"other "
+        f"{wall - held_s(split):.4f}")
     log(f"{label}: eps trail {[round(e, 4) for e in eps]}")
     log(f"{label}: posterior means {means} true {lv.TRUE_PARS}")
     log(f"{label}: kernel launches {counts}")
@@ -2166,14 +2224,16 @@ def lv_cpu_trail(card_eps: list[float]) -> None:
         f"apart by more than 1e-3: {parted}")
 
 
-def anchor_run(where, seed):
+def anchor_run(where, seed, rv=None):
     """The noisy Gaussian anchor: x = theta (a one-line user model),
-    prior N(0, 1), IndependentNormalKernel(var 0.09), x_obs 0.8."""
+    prior N(0, 1) (or ``rv``), IndependentNormalKernel(var 0.09), x_obs
+    0.8."""
     import pyabc_tpu_torch as pt
 
     model = pt.TorchModel(lambda theta, gen: {"x": theta[:, 0]}, ["theta"],
                           name="det")
-    abc = pt.ABCSMC(model, pt.Distribution(theta=pt.RV("norm", 0.0, 1.0)),
+    rv = pt.RV("norm", 0.0, 1.0) if rv is None else rv
+    abc = pt.ABCSMC(model, pt.Distribution(theta=rv),
                     pt.IndependentNormalKernel(var=[0.09]),
                     population_size=POP, eps=pt.Temperature(),
                     acceptor=pt.StochasticAcceptor(), seed=seed,
@@ -2290,12 +2350,13 @@ def sir_run(dev):
         f"wall_s_per_generation={wall / n_gen:.4f} "
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
         f"evaluations={evals} (rounds {rounds}, {syncs['by_kind']})")
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     log(f"{label}: host seconds, rounds + generation steps "
         f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
-        f"History persist {split['persist_s']:.4f}, other "
-        f"{wall - sum(split.values()):.4f}")
+        f"History wait {split['persist_s']:.4f}, writer "
+        f"{split['write_s']:.4f}, final flush {split['flush_s']:.4f}, "
+        f"other "
+        f"{wall - held_s(split):.4f}")
     norms = sorted(set(round(v, 4) for v in abc.acceptor.pdf_norms.values()))
     log(f"{label}: temperature trail {[round(t, 4) for t in temps]}; pdf "
         f"norms {norms}")
@@ -2459,12 +2520,13 @@ def config5_run(dev):
         f"wall_s_per_generation={wall / n_gen:.4f} "
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
         f"evaluations={evals} (rounds {rounds}, {syncs['by_kind']})")
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     log(f"{label}: host seconds, rounds + generation steps "
         f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
-        f"History persist {split['persist_s']:.4f}, other "
-        f"{wall - sum(split.values()):.4f}")
+        f"History wait {split['persist_s']:.4f}, writer "
+        f"{split['write_s']:.4f}, final flush {split['flush_s']:.4f}, "
+        f"other "
+        f"{wall - held_s(split):.4f}")
     probs = h.get_model_probabilities()
     log(f"{label}: eps trail {[round(e, 5) for e in eps]}")
     log(f"{label}: model probabilities per generation "
@@ -2997,8 +3059,7 @@ def config3_run(dev):
         syncs = abc.sync_ledger.summary()
         rounds = [g["rounds"] for g in abc.generation_log]
         wall_1, acc_1 = chunk_window(abc, C3_POP, 1, n_gen - 1)
-        split = {k: sum(g[k] for g in abc.generation_log)
-                 for k in ("compute_s", "fetch_s", "persist_s")}
+        split = wall_split(abc)
         pps[tag].append(acc_1 / max(wall_1, 1e-9))
         log(f"{label} early reject {tag}: pop={C3_POP} gens={h.max_t + 1} "
             f"wall_s={wall:.3f} accepted_particles_per_s="
@@ -3007,7 +3068,8 @@ def config3_run(dev):
             f"{syncs['syncs'] / (h.max_t + 1):.2f} rounds {rounds} "
             f"{syncs['by_kind']}; host seconds, rounds + steps "
             f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
-            f"persist {split['persist_s']:.3f}")
+            f"History wait {split['persist_s']:.3f}, writer "
+            f"{split['write_s']:.3f}, final flush {split['flush_s']:.3f}")
         if late is not None:
             wl, al = chunk_window(abc, C3_POP, late, n_gen - 1)
             pps["late_" + tag].append(al / max(wl, 1e-9))
@@ -3563,15 +3625,16 @@ def adaptive_run(dev) -> dict:
         tag = "on" if early == "auto" else "off"
         n = h.max_t + 1
         syncs = abc.sync_ledger.summary()
-        split = {k: sum(g[k] for g in abc.generation_log)
-                 for k in ("compute_s", "fetch_s", "persist_s")}
+        split = wall_split(abc)
         log(f"{label} early reject {tag}: pop={C3_POP} gens={n} wall_s="
             f"{wall:.3f} accepted_particles_per_s={C3_POP * n / wall:.1f} "
             f"syncs_per_generation={syncs['syncs'] / n:.2f} rounds "
             f"{[g['rounds'] for g in abc.generation_log]} "
             f"{syncs['by_kind']}; host seconds, rounds + steps "
             f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
-            f"persist {split['persist_s']:.3f}; posterior means "
+            f"History wait {split['persist_s']:.3f}, writer "
+            f"{split['write_s']:.3f}, final flush {split['flush_s']:.3f}; "
+            f"posterior means "
             f"(log_b, log_d) {[round(v, 4) for v in post_means(h)]}")
         sync_check(abc, f"{label} ({tag})")
         check(n == C3A_GENS, f"{label} ({tag}) ran {n} of {C3A_GENS} "
@@ -4004,8 +4067,7 @@ def scale_lane_run(dev):
     syncs = abc.sync_ledger.summary()
     rounds = [g["rounds"] for g in abc.generation_log]
     chunks = len({g["chunk_index"] for g in abc.generation_log})
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     wall_1, acc_1 = chunk_window(abc, SCALE_POP, 1, n_gen - 1)
     df, w = h.get_distribution()
     means = {k: float(np.sum(df[k] * w)) for k in lv.TRUE_PARS}
@@ -4016,7 +4078,9 @@ def scale_lane_run(dev):
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} (rounds "
         f"{rounds}, {chunks} chunks, {syncs['by_kind']}); host seconds, "
         f"rounds + steps {split['compute_s']:.3f}, fetch "
-        f"{split['fetch_s']:.3f}, persist {split['persist_s']:.3f}; "
+        f"{split['fetch_s']:.3f}, History wait {split['persist_s']:.3f}, "
+        f"writer {split['write_s']:.3f}, final flush "
+        f"{split['flush_s']:.3f}; "
         f"chunks wholly in generations 1 on: {acc_1} accepted in "
         f"{wall_1:.3f} s")
     log(f"{label}: eps trail {[round(e, 4) for e in eps]}; acceptance "
@@ -4221,16 +4285,18 @@ def noisy_round(dev, kernel, B: int, seed: int, segments: int = 10,
     return model, x
 
 
-def k18_stochastic_case(dev, model, kernel, x, temp, pdf_norm, label: str):
+def k18_stochastic_case(dev, model, kernel, x, temp, pdf_norm, label: str,
+                        ring: dict | None = None):
     """K18's stochastic mode and its plain version on one round, each
     followed by K21a/K21c (valid = keep) and K6's record mode with the
     ring mask into fresh buffers: kept slots, statistics, reservoir, ring
-    and counters must be bit-identical -> K18's counters."""
+    and counters must be bit-identical -> K18's counters. With ``ring``,
+    K6's ring-mask mode on the round is timed into it."""
     import torch
 
-    from pyabc_tpu_torch.kernels import (compact_round, kernel_accept,
-                                         philox, segment_round,
-                                         segment_round_plain)
+    from pyabc_tpu_torch.kernels import (compact_round, compact_round_plain,
+                                         kernel_accept, philox,
+                                         segment_round, segment_round_plain)
 
     B, S = x["theta"].shape[0], x["spec"].total_size
     params = kernel.device_params(dev)
@@ -4259,12 +4325,14 @@ def k18_stochastic_case(dev, model, kernel, x, temp, pdf_norm, label: str):
                "theta": torch.zeros(B, d_th, device=dev),
                "logq": torch.zeros(B, device=dev)}
         counters = torch.zeros(4, dtype=torch.int32, device=dev)
-        compact_round(a, x["valid"], x["theta"], ss, v, lw, res, rec,
-                      counters, logq=torch.zeros(B, device=dev),
+        k6_args = (a, x["valid"], x["theta"], ss, v, lw, res, rec)
+        compact_round(*k6_args, counters, logq=torch.zeros(B, device=dev),
                       ring_valid=keep)
         # the ring's rows of retired slots hold partial statistics: only
         # its completed rows are compared
         outs.append((ss, keep, ctr, res, rec, counters))
+        if fn is segment_round:
+            k6_card = (k6_args, keep)
     (ss, keep, ctr, res, rec, cnt), (ss_r, keep_r, ctr_r, res_r, rec_r,
                                      cnt_r) = outs
     torch.cuda.synchronize()
@@ -4287,6 +4355,32 @@ def k18_stochastic_case(dev, model, kernel, x, temp, pdf_norm, label: str):
           f"reservoir, ring or counters differ from the plain version")
     check(retired > 0 and resolved == B and 0 < steps <= slots,
           f"K18 stochastic {label}: counters out of range")
+    if ring is not None:
+        args, keep = k6_card
+        logq = torch.zeros(B, device=dev)
+        ctr_g = torch.zeros(4, dtype=torch.int32, device=dev)
+        a, valid = args[0], args[1]
+        n_res = min(int((a & valid).sum()), B)
+        n_ring = int(valid.sum())
+        d_th = x["theta"].shape[1]
+        # the flags and the mask read once, each kept row's statistics,
+        # distance, theta and weight, each ring row's logq; both written
+        nbytes = (3 * B + n_res * (d_th + S + 3) * 4 * 2
+                  + n_ring * ((S + 1 + d_th + 1) * 4 * 2 + 2) + 2 * 3 * 4)
+        ring.update(
+            ms=graph_ms(lambda: (ctr_g.zero_(), compact_round(
+                *args, ctr_g, logq=logq, ring_valid=keep))),
+            call_ms=time_ms(lambda: compact_round(
+                *args, torch.zeros(4, dtype=torch.int32, device=dev),
+                logq=logq, ring_valid=keep), 50),
+            plain_ms=time_ms(lambda: compact_round_plain(
+                *args, torch.zeros(4, dtype=torch.int32, device=dev),
+                logq, ring_valid=keep), 10),
+            bound=bound(nbytes, 0.0))
+        log(f"K6 compact_round ring mask ({label}, B={B}, S={S}): "
+            f"ms={ring['ms']:.5f} call_ms={ring['call_ms']:.5f} plain_ms="
+            f"{ring['plain_ms']:.4f} bound_ms={ring['bound'][0]:.6f} "
+            f"({ring['bound'][1]})")
     return ctr
 
 
@@ -4308,8 +4402,9 @@ def k18_stochastic_checks(dev, temp_late: float, norm_late: float) -> dict:
     model, x = noisy_round(dev, kern, B, seed=3)
     temp = torch.tensor(temp_late, dtype=torch.float32, device=dev)
     norm = torch.tensor(norm_late, dtype=torch.float32, device=dev)
+    ring = {}
     ctr = k18_stochastic_case(dev, model, kern, x, temp, norm,
-                              "noisy config 3 round")
+                              "noisy config 3 round", ring=ring)
     for label, k in (("poisson", pt.PoissonKernel()),
                      ("laplace", pt.IndependentLaplaceKernel(scale=2.0))):
         m2, x2 = noisy_round(dev, k, 65536, seed=5)
@@ -4380,7 +4475,8 @@ def k18_stochastic_checks(dev, temp_late: float, norm_late: float) -> dict:
                 plain_ms=plain_ms,
                 bound=bound(B * (2 + S) * 4, int(ctr[1]) * spec.leaps_per_seg
                             * spec.n_rates * OPS_PER_DRAW),
-                library_ms=None, ms_pnorm_mode=ms_p)
+                library_ms=None, ms_pnorm_mode=ms_p,
+                k6_ring_mask={k: v for k, v in ring.items()})
 
 
 #: the noisy config 3 legs (the JAX package's noisy early-reject test,
@@ -4464,8 +4560,7 @@ def noisy_config3_run(dev, kind: str):
     for early, abc, h, wall, _c in runs:
         tag = "on" if early == "auto" else "off"
         syncs = abc.sync_ledger.summary()
-        split = {k: sum(g[k] for g in abc.generation_log)
-                 for k in ("compute_s", "fetch_s", "persist_s")}
+        split = wall_split(abc)
         log(f"{label} early reject {tag}: pop={C3_POP} gens={h.max_t + 1} "
             f"wall_s={wall:.3f} accepted_particles_per_s="
             f"{C3_POP * (h.max_t + 1) / wall:.1f} syncs_per_generation="
@@ -4473,7 +4568,8 @@ def noisy_config3_run(dev, kind: str):
             f"{[g['rounds'] for g in abc.generation_log]} "
             f"{syncs['by_kind']}; host seconds, rounds + steps "
             f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
-            f"persist {split['persist_s']:.3f}")
+            f"History wait {split['persist_s']:.3f}, writer "
+            f"{split['write_s']:.3f}, final flush {split['flush_s']:.3f}")
         sync_check(abc, f"{label} {tag}")
     norms = [a_on.acceptor.pdf_norms[t] for t in sorted(
         a_on.acceptor.pdf_norms)]
@@ -4973,12 +5069,13 @@ def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
         f"({syncs['by_kind']}, rounds "
         f"{[g['rounds'] for g in abc.generation_log]})")
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     log(f"{label}: host seconds, rounds + generation steps "
         f"{split['compute_s']:.4f}, packed fetch {split['fetch_s']:.4f}, "
-        f"History persist {split['persist_s']:.4f}, other "
-        f"{wall - sum(split.values()):.4f}")
+        f"History wait {split['persist_s']:.4f}, writer "
+        f"{split['write_s']:.4f}, final flush {split['flush_s']:.4f}, "
+        f"other "
+        f"{wall - held_s(split):.4f}")
     log(f"{label}: n trail {trail}, n_next {nxt}, stored counts {stored}; "
         f"eps trail {[round(e, 5) for e in eps]}")
     log(f"{label}: K16 launches {k16} ({counts['bootstrap_cv']} in all, "
@@ -5454,15 +5551,16 @@ def lv_aggregate_leg(dev, kind: str) -> tuple:
     eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
     dist = abc.distance_function
     syncs = abc.sync_ledger.summary()
-    split = {k: sum(g[k] for g in abc.generation_log)
-             for k in ("compute_s", "fetch_s", "persist_s")}
+    split = wall_split(abc)
     log(f"{label}: pop={AGG_POP} gens={n_gen} wall_s={wall:.3f} "
         f"accepted_particles_per_s={AGG_POP * n_gen / wall:.1f} "
         f"wall_s_per_generation={wall / n_gen:.4f} syncs_per_generation="
         f"{syncs['syncs'] / n_gen:.2f} ({syncs['by_kind']}, rounds "
         f"{[g['rounds'] for g in abc.generation_log]}); host seconds, "
         f"rounds + generation steps {split['compute_s']:.4f}, packed fetch "
-        f"{split['fetch_s']:.4f}, History persist {split['persist_s']:.4f}")
+        f"{split['fetch_s']:.4f}, History wait {split['persist_s']:.4f}, "
+        f"writer {split['write_s']:.4f}, final flush "
+        f"{split['flush_s']:.4f}")
     log(f"{label}: eps trail {[round(e, 6) for e in eps]}")
     if kind == "adaptive":
         trail = {t: [round(float(v), 8) for v in dist.weights[t]]
@@ -5702,6 +5800,676 @@ def k18_aggregate_checks(dev, eps_late: float, eps_pnorm: float) -> dict:
                 library_ms=None, ms_pnorm_mode=ms_pn)
 
 
+# ------------------------------------------------- phase 2, prior families
+#: K2's family mode: B lanes (LV at pop 16384, ``utils.pick_batch``) and
+#: the reservoir of its transition mode
+FAM_B, FAM_N = 65536, 16384
+#: one 1-D prior of every family, and the decorator, as (label, spec):
+#: spec is (family, *args) or ("bound", (family, *args), bound)
+FAMILY_CASES = (
+    ("norm", ("norm", 0.5, 2.0)), ("uniform", ("uniform", -1.0, 3.0)),
+    ("lognorm", ("lognorm", 0.5, 0.0, 1.5)), ("expon", ("expon", 0.2, 1.5)),
+    ("gamma", ("gamma", 2.0, 0.0, 0.5)), ("gamma a<1", ("gamma", 0.3)),
+    ("beta", ("beta", 2.0, 3.0, -1.0, 3.0)),
+    ("beta small", ("beta", 0.2, 0.3)),
+    ("laplace", ("laplace", 0.0, 1.0)), ("cauchy", ("cauchy", 0.0, 1.0)),
+    ("t", ("t", 3.0, 0.0, 1.0)), ("truncnorm", ("truncnorm", -1.0, 2.0,
+                                                  0.0, 1.0)),
+    ("randint", ("randint", 2, 9)), ("binom", ("binom", 20, 0.3)),
+    ("binom btrs", ("binom", 100, 0.7)), ("poisson", ("poisson", 3.0)),
+    ("poisson ptrs", ("poisson", 40.0)), ("nbinom", ("nbinom", 5.0, 0.4)),
+    ("bound", ("bound", ("norm", 0.1, 0.1), 0.0)))
+#: the KS statistic's critical value at level 0.001 is KS_C / sqrt(B)
+KS_C = 1.9495
+
+
+def family_rv(spec):
+    import pyabc_tpu_torch as pt
+
+    if spec[0] == "bound":
+        return pt.LowerBoundDecorator(pt.RV(*spec[1]), spec[2])
+    return pt.RV(*spec)
+
+
+def scipy_law(spec):
+    """The frozen scipy law of a case (a decorated norm: the truncated
+    normal above its bound, the redraws' law up to Phi(lo)^9)."""
+    import scipy.stats as st
+
+    if spec[0] == "bound":
+        _f, loc, scale = spec[1]
+        return st.truncnorm((spec[2] - loc) / scale, math.inf, loc, scale)
+    return getattr(st, spec[0])(*spec[1:])
+
+
+def law_check(x, spec) -> tuple[bool, str]:
+    """The card's draws against scipy: the KS statistic under its 0.001
+    critical value (continuous), the pmf on the support points of mass
+    >= 1e-3 within 4 standard errors (discrete)."""
+    import numpy as np
+    import scipy.stats as st
+
+    law = scipy_law(spec)
+    B = x.shape[0]
+    if spec[0] in ("randint", "binom", "poisson", "nbinom"):
+        ks = np.arange(int(law.ppf(1e-4)), int(law.ppf(1 - 1e-4)) + 1)
+        pmf = law.pmf(ks)
+        ks, pmf = ks[pmf >= 1e-3], pmf[pmf >= 1e-3]
+        emp = np.array([(x == k).mean() for k in ks])
+        worst = float(np.max(np.abs(emp - pmf)
+                             / np.sqrt(pmf * (1 - pmf) / B)))
+        return (worst < 4.0 and bool(np.all(x == np.round(x))),
+                f"pmf on {len(ks)} points worst {worst:.2f} se")
+    stat = float(st.kstest(x, law.cdf).statistic)
+    crit = KS_C / math.sqrt(B)
+    return stat < crit, f"KS {stat:.5f} (critical {crit:.5f})"
+
+
+def family_points(spec):
+    """Points for the log-density: inside, each boundary, outside, far
+    tails, off-integer points of the discrete families, 0."""
+    import numpy as np
+
+    law = scipy_law(spec)
+    lo, hi = law.support()
+    inner = law.ppf(np.linspace(0.001, 0.999, 61))
+    pts = [inner, [lo, hi, 0.0, -1e-3, 1e-3, -50.0, 50.0, -1e4, 1e4, 0.5,
+                   2.5, 7.25]]
+    for b in (lo, hi):
+        if np.isfinite(b):
+            pts.append([b - 0.25, b + 0.25, np.nextafter(b, -np.inf),
+                        np.nextafter(b, np.inf)])
+    p = np.concatenate([np.asarray(v, np.float64) for v in pts])
+    return np.unique(p[np.isfinite(p)].astype(np.float32))
+
+
+def point_fit(dev, pts):
+    """A transition fit whose draws are its rows exactly (zero factor):
+    K2's transition mode then scores every point of ``pts (n, d)``."""
+    import torch
+
+    n, d = pts.shape
+    w = torch.full((n,), 1.0 / n, device=dev)
+    return {"thetas": pts.contiguous(), "cdf": torch.cumsum(w, 0),
+            "chol": torch.zeros(d, d, device=dev)}
+
+
+def compare_k2_family(label, stream, B, prior, params=None):
+    """K2 against its plain version on one prior: lanes whose theta or
+    valid differ (continuous: beyond abs 1e-5 + rel 1e-5; discrete: at
+    all) and the log-densities of the others within abs 1e-5 + rel 1e-5,
+    their -inf masks equal -> (max abs error, lanes apart, card theta)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import propose, propose_plain
+
+    th_k, lp_k, v_k = propose(stream, B, prior, params)
+    th_p, lp_p, v_p = propose_plain(stream, B, prior, params)
+    torch.cuda.synchronize()
+    apart = (v_k != v_p) | ((th_k - th_p).abs() > 1e-5 + 1e-5 * th_p.abs()
+                            ).any(dim=1)
+    ok = ~apart
+    fin = torch.isfinite(lp_p) & ok
+    masks_equal = bool(torch.equal(torch.isfinite(lp_k)[ok],
+                                   torch.isfinite(lp_p)[ok]))
+    rel = ((lp_k - lp_p).abs() - 1e-5 * lp_p.abs())[fin]
+    lp_ok = masks_equal and (not bool(fin.any())
+                             or float(rel.max()) <= 1e-5)
+    err = max(float((th_k - th_p)[ok].abs().max()) if bool(ok.any())
+              else 0.0,
+              float((lp_k - lp_p)[fin].abs().max()) if bool(fin.any())
+              else 0.0)
+    n_apart = int(apart.sum())
+    log(f"K2 families ({label}, {'prior' if params is None else 'scores'}"
+        f", B={B}): max_abs_err={err:.3e} lanes apart={n_apart} "
+        f"-inf masks equal={masks_equal} finite logpri "
+        f"{int(torch.isfinite(lp_k).sum())}/{B}")
+    check(lp_ok and n_apart <= B // 1000,
+          f"K2 families ({label}): log-densities outside abs 1e-5 + rel "
+          f"1e-5 or -inf masks apart, or over 1e-3 of the lanes apart")
+    return err, n_apart, th_k
+
+
+def library_family(spec, dev, B):
+    """One torch.distributions sample((B,)) + log_prob on the card for a
+    case, where torch has the family (else None)."""
+    import torch
+    import torch.distributions as D
+
+    if spec[0] == "bound":
+        return None
+    f, a = spec[0], [torch.tensor(float(v), device=dev) for v in spec[1:]]
+    make = {"norm": lambda: D.Normal(*a), "uniform":
+            lambda: D.Uniform(a[0], a[0] + a[1]),
+            "lognorm": lambda: D.LogNormal(torch.log(a[2]), a[0]),
+            "expon": lambda: D.Exponential(1.0 / a[1]),
+            "gamma": lambda: D.Gamma(a[0], 1.0 / (a[2] if len(a) > 2
+                                                  else torch.ones_like(a[0]))),
+            "beta": lambda: D.Beta(a[0], a[1]), "laplace":
+            lambda: D.Laplace(*a), "cauchy": lambda: D.Cauchy(*a),
+            "t": lambda: D.StudentT(*a), "binom":
+            lambda: D.Binomial(a[0], a[1]), "poisson": lambda: D.Poisson(a[0]),
+            "nbinom": lambda: D.NegativeBinomial(a[0], 1.0 - a[1])}
+    if f not in make:
+        return None
+    dist = make[f]()
+
+    def call():
+        return dist.log_prob(dist.sample((B,)))
+    return time_ms(call, 20)
+
+
+def k2_family_bound(prior, B, params=None):
+    """Least time of a K2 family call: the table and the outputs once
+    (bytes), one Philox block (~100 integer operations) per draw sequence
+    and ~30 operations per log-density term (operations); the fewest a
+    draw could need, so a lower bound."""
+    d = prior["kind"].shape[-1]
+    nbytes = d * 4 * 11 + B * (d * 4 + 5)
+    ops = B * d * 30
+    if params is None:
+        ops += B * d * 100
+    else:
+        n = params["thetas"].shape[0]
+        nbytes += n * (d + 1) * 4 + d * d * 4
+        ops += B * (100 * (1 + (d + 3) // 4) + 2 * math.ceil(math.log2(n))
+                    + d * (2 * d + 1))
+    return bound(nbytes, ops)
+
+
+def lv_family_prior():
+    """The LV leg's prior over TRUE_PARS (1.0, 0.1, 1.5, 0.075): a gamma,
+    a lognorm, a truncnorm and a norm bounded below at 0."""
+    import pyabc_tpu_torch as pt
+
+    return pt.Distribution(
+        alpha=pt.RV("gamma", 2.0, 0.0, 0.75),
+        beta=pt.RV("lognorm", 0.8, 0.0, 0.12),
+        gamma=pt.RV("truncnorm", -1.5, 1.5, 1.5, 1.0),
+        delta=pt.LowerBoundDecorator(pt.RV("norm", 0.1, 0.1), 0.0))
+
+
+def family_model_priors(dev):
+    """Two models of other families (K2's K > 1 mode): the LV leg's
+    gamma and lognorm against a truncnorm, a bounded norm and a poisson."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.core.random_variables import stacked_arrays
+
+    return stacked_arrays([
+        pt.Distribution(a=pt.RV("gamma", 2.0, 0.0, 0.75),
+                        b=pt.RV("lognorm", 0.8, 0.0, 0.12)),
+        pt.Distribution(a=pt.RV("truncnorm", -1.5, 1.5, 1.5, 1.0),
+                        b=pt.LowerBoundDecorator(pt.RV("norm", 0.1, 0.1),
+                                                 0.0),
+                        c=pt.RV("poisson", 3.0))], dev)
+
+
+def k2_family_checks(dev) -> dict:
+    """K2's family mode against its plain version on the card: every
+    family (and the decorator) as a 1-D prior in the prior mode (draws,
+    their law against scipy, log-densities) and in the transition mode on
+    points inside, on and outside the support; the LV leg's 4-D prior in
+    both modes and the local mode at the leg's shapes (B 65536, a fit of
+    16384 rows); the K > 1 mode over two models of other families; and
+    whether a norm prior draws the same bits in kernel and plain version
+    (logged)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mvn_fit, philox, propose, propose_plain
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    B = FAM_B
+    errs, apart_total = [], 0
+    lib = {}
+    for label, spec in FAMILY_CASES:
+        prior = pt_prior(spec).arrays(dev)
+        err, apart, th = compare_k2_family(
+            label, stream_on(dev, philox.PRIOR, seed=11), B, prior)
+        errs.append(err)
+        apart_total += apart
+        case_err = err
+        x = th[:, 0].double().cpu().numpy()
+        ok, stat = law_check(x, spec)
+        above = spec[0] != "bound" or bool((th[:, 0] > spec[2]).all())
+        log(f"K2 families ({label}): card draws against scipy: {stat}, "
+            f"ok={ok}" + ("" if spec[0] != "bound" else
+                          f"; all above the bound {above}"))
+        check(ok and above, f"K2 families ({label}): the card's draws fail "
+              f"the law check")
+        pts = torch.from_numpy(family_points(spec)).to(dev)[:, None]
+        err, apart, _ = compare_k2_family(
+            label, stream_on(dev, philox.TRANSITION, seed=12), B, prior,
+            point_fit(dev, pts))
+        errs.append(err)
+        apart_total += apart
+        st0 = stream_on(dev, philox.PRIOR)
+        lib[label] = dict(
+            ms=graph_ms(lambda: propose(st0, B, prior)),
+            call_ms=time_ms(lambda: propose(st0, B, prior), 20),
+            plain_ms=time_ms(lambda: propose_plain(st0, B, prior), 2, 1),
+            bound=k2_family_bound(prior, B),
+            library_ms=library_family(spec, dev, B),
+            err=max(case_err, err))
+    log("K2 families, prior mode at B 65536 (device ms, call ms, plain ms, "
+        "bound ms, library: one torch.distributions sample + log_prob, "
+        "max abs error): " + "; ".join(
+            f"{k} {v['ms']:.5f} {v['call_ms']:.5f} {v['plain_ms']:.3f} "
+            f"{v['bound'][0]:.6f} ({v['bound'][1]}) {v['library_ms']} "
+            f"{v['err']:.2e}" for k, v in lib.items()))
+    # the LV leg's prior at its shapes, both modes
+    lvp = lv_family_prior()
+    prior = lvp.arrays(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    X = lvp.rvs_array(FAM_N, g, dev)
+    w = torch.rand(FAM_N, generator=g, device=dev) + 0.1
+    params = mvn_fit(X.contiguous(), (w / w.sum()).contiguous(), dim=4,
+                     scaling=1.0, bandwidth_selector=silverman_rule_of_thumb)
+    st_p = stream_on(dev, philox.PRIOR, seed=13)
+    st_t = stream_on(dev, philox.TRANSITION, seed=13)
+    for st, p in ((st_p, None), (st_t, params)):
+        err, apart, _ = compare_k2_family("LV prior", st, B, prior, p)
+        errs.append(err)
+        apart_total += apart
+    # K2's local mode (LocalTransition's per-row factors) under the prior
+    from pyabc_tpu_torch.kernels import propose_local, propose_local_plain
+
+    n = params["thetas"].shape[0]
+    local = {"thetas": params["thetas"], "cdf": params["cdf"],
+             "chols": params["chol"].expand(n, 4, 4).contiguous()}
+    th_k, lp_k, v_k = propose_local(st_t, B, prior, local)
+    th_p, lp_p, v_p = propose_local_plain(st_t, B, prior, local)
+    apart = (v_k != v_p) | ((th_k - th_p).abs() > 1e-5 + 1e-5 * th_p.abs()
+                            ).any(dim=1)
+    fin = ~apart & torch.isfinite(lp_p)
+    lp_out = float(((lp_k - lp_p).abs() - 1e-5 * lp_p.abs())[fin].max())
+    errs.append(float((lp_k - lp_p)[fin].abs().max()))
+    apart_total += int(apart.sum())
+    log(f"K2 families (LV prior, local mode, B={B}): lanes apart "
+        f"{int(apart.sum())}, logpri beyond rel 1e-5 by {lp_out:.3e}")
+    check(int(apart.sum()) <= B // 1000 and lp_out <= 1e-5,
+          "K2 families: the local mode disagrees with its plain version")
+    # K > 1: two models of other families, prior and transition modes
+    priors = family_model_priors(dev)
+    model_p = torch.tensor([0.4, 0.6], device=dev)
+    err, _got = compare_propose_models(dev, B, priors, model_p,
+                                       lp_rtol=1e-5)
+    errs.append(err)
+    K, d = priors["loc"].shape
+    Xs = torch.stack([torch.where(
+        torch.arange(d, device=dev) < priors["dims"][m],
+        torch.cat([lvp.rvs_array(FAM_N, g, dev)[:, :2],
+                   torch.rand(FAM_N, 1, generator=g, device=dev) * 3],
+                  dim=1), 0.0) for m in range(K)])
+    chol = torch.stack([torch.eye(d, device=dev) * 0.1] * K)
+    wk = torch.full((K, FAM_N), 1.0 / FAM_N, device=dev)
+    mparams = {"thetas": Xs.contiguous(), "cdf": torch.cumsum(wk, 1),
+               "chol": chol}
+    mpk = torch.tensor([[0.7, 0.3], [0.3, 0.7]], device=dev)
+    err, _got = compare_propose_models(
+        dev, B, priors, torch.log(model_p), mparams, mpk, lp_rtol=1e-5)
+    errs.append(err)
+    # norm and uniform draw the same bits in both versions
+    legacy = pt_prior(("norm", 0.5, 2.0)).arrays(dev)
+    st = stream_on(dev, philox.PRIOR, seed=3)
+    same = torch.equal(propose(st, B, legacy)[0],
+                       propose_plain(st, B, legacy)[0])
+    log(f"K2 families: lanes apart over every comparison {apart_total}; "
+        f"a norm prior bit-equal kernel and plain {same}")
+    return {"propose:families": dict(
+        err=max(errs), lanes_apart=apart_total,
+        call_ms=time_ms(lambda: propose(st_t, B, prior, params), 50),
+        ms=graph_ms(lambda: propose(st_t, B, prior, params)),
+        ms_prior_mode=graph_ms(lambda: propose(st_p, B, prior)),
+        plain_ms=time_ms(lambda: propose_plain(st_t, B, prior, params), 3),
+        bound=k2_family_bound(prior, B, params), library_ms=None,
+        by_family={k: v for k, v in lib.items()}, fit_rows=n)}
+
+
+def pt_prior(spec):
+    import pyabc_tpu_torch as pt
+
+    return pt.Distribution(x=family_rv(spec))
+
+
+# ------------------------------------------------- phase 3, family anchors
+#: the noisy anchor's priors of this slice; the exact posterior is the
+#: quadrature of prior x N(0.8; theta, 0.09)
+ANCHOR_FAMILIES = (
+    ("lognorm", ("lognorm", 0.5, 0.0, 1.0)), ("expon", ("expon", 0.0, 1.0)),
+    ("gamma", ("gamma", 2.0, 0.0, 0.5)),
+    ("beta", ("beta", 2.0, 2.0, -1.0, 3.0)),
+    ("laplace", ("laplace", 0.0, 1.0)), ("cauchy", ("cauchy", 0.0, 1.0)),
+    ("t", ("t", 3.0, 0.0, 1.0)),
+    ("truncnorm", ("truncnorm", -1.0, 2.0, 0.0, 1.0)),
+    ("bound", ("bound", ("norm", 0.0, 1.0), 0.0)))
+#: the card runs every seed, the CPU the first 12 (the same Philox
+#: streams: its runs repeat the card's seeds)
+FAMILY_ANCHOR_SEEDS = tuple(range(24))
+FAMILY_ANCHOR_CPU_SEEDS = 12
+
+
+def anchor_exact(spec) -> tuple[float, float]:
+    """The anchor's exact posterior mean and sd under a prior: 1-D
+    quadrature of prior x N(0.8; theta, 0.09) with numpy."""
+    import numpy as np
+
+    grid = np.linspace(-40.0, 40.0, 800001)
+    post = scipy_law(spec).pdf(grid) * np.exp(
+        -0.5 * (grid - 0.8) ** 2 / 0.09)
+    post /= post.sum()
+    mu = float(np.sum(post * grid))
+    return mu, float(np.sqrt(np.sum(post * (grid - mu) ** 2)))
+
+
+def family_anchor(dev) -> dict:
+    """The noisy anchor with each prior of ANCHOR_FAMILIES over
+    FAMILY_ANCHOR_SEEDS on the card and the first FAMILY_ANCHOR_CPU_SEEDS
+    of them on the CPU: every temperature trail falls to exactly 1, the
+    card's seed mean of the posterior mean lies within 4 se of the exact
+    one and of the CPU's (se not below the posterior sd over sqrt(pop x
+    seeds), which no population of POP particles beats) -> K2's launches
+    in each prior's card runs."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    reset_launch_counts()
+    counts, per_family = None, {}
+    for label, spec in ANCHOR_FAMILIES:
+        mu_x, sd_x = anchor_exact(spec)
+        stats = {}
+        for where in (dev, "cpu"):
+            on_card = where == dev
+            seeds = (FAMILY_ANCHOR_SEEDS if on_card else
+                     FAMILY_ANCHOR_SEEDS[:FAMILY_ANCHOR_CPU_SEEDS])
+            floor = sd_x / math.sqrt(POP * len(seeds))
+            mus = []
+            t0 = time.perf_counter()
+            with (plain_versions_raise() if on_card
+                  else contextlib.nullcontext()):
+                for seed in seeds:
+                    h = anchor_run(where, seed, family_rv(spec))
+                    temps = [float(x) for x in
+                             h.get_all_populations()["epsilon"][1:]]
+                    check(temps[-1] == 1.0 and all(
+                        b <= a for a, b in zip(temps, temps[1:])),
+                        f"family anchor {label} seed {seed} ({where}): "
+                        f"temperature trail {temps} does not fall to "
+                        f"exactly 1")
+                    df, w = h.get_distribution()
+                    mus.append(float(np.sum(w * np.asarray(df["theta"]))))
+            if on_card:
+                before = counts["propose"] if counts else 0
+                counts = launch_counts()
+                per_family[label] = counts["propose"] - before
+            m = float(np.mean(mus))
+            se = max(float(np.std(mus, ddof=1)
+                           / math.sqrt(len(mus))), floor)
+            stats[where] = (m, se)
+            log(f"family anchor {label} ({where}, {len(mus)} seeds, "
+                f"{time.perf_counter() - t0:.2f} s): mean of posterior "
+                f"means {m:.4f} se {se:.4f} (exact {mu_x:.4f} sd "
+                f"{sd_x:.4f}, {(m - mu_x) / se:+.2f} se)")
+        (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
+        gap = (m_d - m_c) / math.hypot(se_d, se_c)
+        log(f"family anchor {label}: card - cpu {m_d - m_c:+.4f} "
+            f"({gap:+.2f} se)")
+        check(abs(m_d - mu_x) < 4 * se_d and abs(gap) < 4.0,
+              f"family anchor {label}: the card's seed mean is 4 se or "
+              f"more off the exact posterior or the CPU's")
+    modes = mode_launch_counts()
+    log(f"family anchors (card): kernel launches {counts}; K2 family mode "
+        f"{modes['propose:families']}; K2 launches by prior {per_family}")
+    check(modes["propose:families"] > 0,
+          "the family anchors did not go through K2's family mode")
+    return per_family
+
+
+# ------------------------------------------------- phase 4, LV families
+LVF_POP, LVF_GENS, LVF_CPU_POP = 16384, 10, 1024
+#: pyabc_tpu.models.lotka_volterra.observed_data(seed=123) (the JAX
+#: package's observation of bench.py's LV config 2), float32
+LV_JAX_OBS = {
+    "pred": (4.608597278594971, 2.4729645252227783, 3.2468624114990234,
+             8.328254699707031, 22.590049743652344, 19.18699836730957,
+             9.812862396240234, 4.360836982727051, 3.12898588180542,
+             3.569758892059326, 9.00464916229248, 22.214160919189453,
+             18.8114013671875, 8.418645858764648, 4.610804557800293,
+             3.200216054916382, 4.565954685211182, 9.360992431640625,
+             22.76430892944336, 16.70180320739746),
+    "prey": (9.754532814025879, 15.66331672668457, 26.728429794311523,
+             40.037601470947266, 26.819276809692383, 10.259720802307129,
+             7.612084865570068, 10.16415023803711, 16.997831344604492,
+             29.602169036865234, 40.77849197387695, 25.188800811767578,
+             9.96183967590332, 7.5912041664123535, 11.173686981201172,
+             17.612316131591797, 29.83941650390625, 40.5467414855957,
+             23.76477813720703, 10.14520263671875)}
+
+
+def lv_family(where, pop: int | None = None, seed: int = 0):
+    """LV config 2 (bench.py:119-127: AdaptivePNormDistance(p=2),
+    MedianEpsilon, the JAX package's observation) under lv_family_prior."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv_family_prior(),
+                    pt.AdaptivePNormDistance(p=2),
+                    population_size=LVF_POP if pop is None else pop,
+                    eps=pt.MedianEpsilon(), seed=seed, device=where)
+    abc.new("sqlite://", {k: np.asarray(v, np.float32)
+                          for k, v in LV_JAX_OBS.items()},
+            store_sum_stats=False)
+    return abc
+
+
+def lv_family_leg(dev) -> tuple[dict, dict]:
+    """Phase 4's main leg: LV config 2 under the family prior at pop 16384,
+    10 generations, on the card -> (launch counts, mode launch counts)."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+    from pyabc_tpu_torch.utils import pick_batch
+
+    label = "LV families leg"
+    abc = lv_family(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=LVF_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    n_gen = len(eps)
+    syncs = abc.sync_ledger.summary()
+    B = pick_batch(LVF_POP)
+    gl = abc.generation_log
+    spent = [g["rounds"] * B - g["n_valid"] for g in gl[1:]]
+    df, w = h.get_distribution()
+    means = {k: float(np.sum(df[k] * w)) for k in lv.TRUE_PARS}
+    split = wall_split(abc)
+    waited = split["persist_s"] + split["flush_s"]
+    log(f"{label}: pop={LVF_POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={LVF_POP * n_gen / wall:.1f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
+        f"({syncs['by_kind']}, rounds {[g['rounds'] for g in gl]})")
+    log(f"{label}: wall split: compute (rounds + generation steps) "
+        f"{split['compute_s']:.4f} s, fetch {split['fetch_s']:.4f} s, "
+        f"History wait {split['persist_s']:.4f} s, writer "
+        f"{split['write_s']:.4f} s (its own thread), final flush "
+        f"{split['flush_s']:.4f} s, other {wall - held_s(split):.4f} s; "
+        f"History wait + final flush {waited:.4f} s = {waited / wall:.3f} "
+        f"of the wall")
+    log(f"{label}: eps trail {[round(e, 4) for e in eps]}")
+    log(f"{label}: posterior means {means} true {lv.TRUE_PARS}")
+    log(f"{label}: transition lanes whose {4} redraws all fell outside the "
+        f"prior, per generation {spent} ({sum(spent)} of "
+        f"{sum(g['rounds'] * B for g in gl[1:])})")
+    log(f"{label}: kernel launches {counts}; K2 family mode "
+        f"{modes['propose:families']}")
+    check(n_gen == LVF_GENS, f"{label} ran {n_gen} of {LVF_GENS} "
+          f"generations")
+    check(eps[-1] < 0.5 * eps[0], f"{label}: the epsilon trail did not "
+          f"fall")
+    check(all(counts[k] > 0 for k in LV_PATH), f"{label}: a kernel of the "
+          f"path was never launched")
+    check(modes["propose:families"] == counts["propose"],
+          f"{label}: a K2 launch outside its family mode")
+    check(all(math.isfinite(v) for v in means.values()),
+          f"{label}: non-finite posterior mean")
+    for t in range(n_gen):
+        dmax = float(h.get_weighted_distances(t)["distance"].max())
+        check(dmax <= eps[t], f"{label}: generation {t} stored a distance "
+              f"{dmax} above its epsilon {eps[t]}")
+    by_name = profile_run(f"{label} (profiled)", lv_family(dev), LVF_GENS)
+    if by_name:
+        k2 = [v for k, v in by_name.items() if "propose_kernel" in k]
+        tot, cnt = sum(v[0] for v in k2), sum(v[1] for v in k2)
+        log(f"{label}: K2 device ms a round {tot / 1e3 / max(cnt, 1):.5f} "
+            f"({cnt} launches)")
+    return counts, modes
+
+
+def lv_family_cpu_trail(dev) -> None:
+    """The LV families leg at pop 1024 on the card and on the CPU (the
+    plain versions, the same Philox streams): the first two epsilons within
+    1e-3 relative."""
+    trails = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        h = lv_family(where, LVF_CPU_POP).run(max_nr_populations=4)
+        trails[where] = [float(e) for e in
+                         h.get_all_populations()["epsilon"][1:]]
+        log(f"LV families leg at pop {LVF_CPU_POP} ({where}, "
+            f"{time.perf_counter() - t0:.1f} s): eps trail "
+            f"{[round(e, 5) for e in trails[where]]}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(trails[dev], trails["cpu"])]
+    log(f"LV families leg at pop {LVF_CPU_POP}: |card - cpu| / cpu per "
+        f"generation {[float(f'{r:.2e}') for r in rel]}")
+    check(max(rel[:2]) <= 1e-3, "LV families leg: the card's first two "
+          "epsilons are more than 1e-3 off the CPU's")
+
+
+@contextlib.contextmanager
+def sync_history():
+    """Runs inside append each generation synchronously, in the loop (the
+    History's writer thread never starts), as before the writer came."""
+    from pyabc_tpu_torch.storage.history import History
+
+    saved = History.start_async_writer
+    History.start_async_writer = lambda self: None
+    try:
+        yield
+    finally:
+        History.start_async_writer = saved
+
+
+def writer_turns(dev) -> None:
+    """The History writer against synchronous appends within one call:
+    config 3 (early reject on; compute and persistence of one size) and
+    the LV families leg (an idle card), in turns writer, sync, sync,
+    writer: the wall and its split for each."""
+    import torch
+
+    for label, make, gens in (
+            ("config 3", lambda: config3(dev, "auto"), C3_GENS),
+            ("LV families leg", lambda: lv_family(dev), LVF_GENS)):
+        walls = {"writer": [], "sync": []}
+        for mode in ("writer", "sync", "sync", "writer"):
+            abc = make()
+            torch.cuda.synchronize()
+            with (sync_history() if mode == "sync"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                abc.run(max_nr_populations=gens)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            split = wall_split(abc)
+            walls[mode].append(wall)
+            log(f"History {mode} turn, {label}: wall {wall:.3f} s; compute "
+                f"{split['compute_s']:.3f}, fetch {split['fetch_s']:.3f}, "
+                f"History wait {split['persist_s']:.3f} (sync: the appends "
+                f"themselves), writer {split['write_s']:.3f}, final flush "
+                f"{split['flush_s']:.3f}")
+        log(f"History writer against sync, {label}: walls writer "
+            f"{[round(w, 3) for w in walls['writer']]} sync "
+            f"{[round(w, 3) for w in walls['sync']]}")
+
+
+#: the tractable pair with model 1's prior a gamma (K2's K > 1 family mode)
+FAMILY_PAIR_SEEDS = tuple(range(8))
+
+
+def family_pair_run(where, seed):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _an = msel.tractable_pair()
+    priors = [priors[0], pt.Distribution(theta=pt.RV("gamma", 2.0, 0.0,
+                                                     0.5))]
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=PAIR_POP, eps=pt.MedianEpsilon(),
+                    seed=seed, device=where)
+    abc.new("sqlite://", {"x": PAIR_X})
+    return abc.run(max_nr_populations=PAIR_GENS)
+
+
+def family_pair(dev) -> None:
+    """K > 1 with two models of different families: the tractable pair's
+    N(0, 1) model against a gamma(2, 0, 0.5) one, on the card and the CPU;
+    the seed mean of P(m = 0) against the exact model posterior (1-D
+    quadrature of each model's evidence at PAIR_X)."""
+    import numpy as np
+    import scipy.stats as st
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    grid = np.linspace(-30.0, 30.0, 600001)
+    evid = [float(np.sum(law.pdf(grid) * st.norm(grid, sd).pdf(PAIR_X)))
+            for law, sd in ((st.norm(0, 1), 0.6), (st.gamma(2, 0, 0.5),
+                                                   1.2))]
+    exact = evid[0] / sum(evid)
+    stats = {}
+    for where in (dev, "cpu"):
+        on_card = where == dev
+        p0 = []
+        t0 = time.perf_counter()
+        if on_card:
+            reset_launch_counts()
+        with plain_versions_raise() if on_card else contextlib.nullcontext():
+            for seed in FAMILY_PAIR_SEEDS:
+                h = family_pair_run(where, seed)
+                p0.append(float(h.get_model_probabilities(h.max_t)["p"]
+                                .get(0, 0.0)))
+        if on_card:
+            modes = mode_launch_counts()
+            log(f"family pair ({where}): kernel launches {launch_counts()}"
+                f"; K2 family mode {modes['propose:families']}")
+            check(modes["propose:families"] > 0, "the family pair did not "
+                  "go through K2's family mode")
+        m = float(np.mean(p0))
+        se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
+        stats[where] = (m, se)
+        log(f"family pair ({where}, {len(p0)} seeds, "
+            f"{time.perf_counter() - t0:.2f} s): mean P(m=0) {m:.4f} se "
+            f"{se:.4f} (exact {exact:.4f})")
+    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
+    gap = (m_d - m_c) / max(math.hypot(se_d, se_c), 1e-3)
+    log(f"family pair: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+    check(abs(m_d - exact) < 0.05 and abs(gap) < 4.0, "family pair: the "
+          "card's P(m=0) is 0.05 or more off the exact model posterior or "
+          "4 se off the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -5737,9 +6505,11 @@ def main() -> int:
     results.update(k21c_checks(dev))
     results.update(k16_checks(dev))
     results.update(k25_checks(dev))
+    results.update(k2_family_checks(dev))
     k16_repair_case(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
+    fam_launches = family_anchor(dev)
     pair_anchor(dev)
     lotka_volterra(dev, adaptive=False, gens=6)
     counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
@@ -5793,6 +6563,10 @@ def main() -> int:
     c3agg_counts, c3agg_eps = config3_aggregate_run(dev)
     profile_run("config 3 aggregated (early reject on)",
                 config3_aggregate(dev, "auto"), C3_GENS)
+    lvf_counts, lvf_modes = lv_family_leg(dev)
+    lv_family_cpu_trail(dev)
+    family_pair(dev)
+    writer_turns(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -5861,7 +6635,8 @@ def main() -> int:
                                  "lv_aggregate_schedule":
                                      sched_counts[k.name],
                                  "config3_aggregate":
-                                     c3agg_counts[k.name]},
+                                     c3agg_counts[k.name],
+                                 "lv_families": lvf_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips"):
@@ -5930,7 +6705,36 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **({"ms_pnorm_mode": r["ms_pnorm_mode"]}
-               if "ms_pnorm_mode" in r else {})})
+               if "ms_pnorm_mode" in r else {}),
+            **({"k6_ring_mask": {
+                "ms": r["k6_ring_mask"]["ms"],
+                "call_ms": r["k6_ring_mask"]["call_ms"],
+                "plain_ms": r["k6_ring_mask"]["plain_ms"],
+                "bound_ms": r["k6_ring_mask"]["bound"][0],
+                "bound_by": r["k6_ring_mask"]["bound"][1]}}
+               if "k6_ring_mask" in r else {})})
+    # K2's family mode, its launches from the LV families leg (this
+    # slice's main path)
+    r = results["propose:families"]
+    check(lvf_modes["propose:families"] > 0,
+          "propose:families was never launched on its path")
+    kernels.append({
+        "name": "propose:families", "route": "cuda",
+        "source": "pyabc_tpu_torch/csrc/propose.cu",
+        "replaces": "pyabc_tpu/core/random_variables.py:161",
+        "launches": lvf_modes["propose:families"], "max_abs_err": r["err"],
+        "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": r["library_ms"], "ms_prior_mode": r["ms_prior_mode"],
+        "lanes_apart": r["lanes_apart"],
+        "by_family": {k: {"ms": v["ms"], "call_ms": v["call_ms"],
+                          "plain_ms": v["plain_ms"],
+                          "bound_ms": v["bound"][0],
+                          "bound_by": v["bound"][1],
+                          "library_ms": v["library_ms"],
+                          "max_abs_err": v["err"],
+                          "launches": fam_launches.get(k)}
+                      for k, v in r["by_family"].items()}})
     # K16's entries, their launches from the LV adaptive leg (its main
     # path) and the config 5 adaptive leg beside them
     for e in K16_ENTRIES:
@@ -5958,7 +6762,81 @@ def main() -> int:
     return 0
 
 
+def k2_time(root: str) -> dict:
+    """K2's device ms on LV config 2's default prior (norm/uniform) for
+    the package under ``root``: transition and prior modes at B 4096 (a
+    fit of 1024 rows) and B 65536 (16384 rows), with a hash of the prior
+    draws' bits."""
+    sys.path.insert(0, root)
+    import torch
+
+    from pyabc_tpu_torch.kernels import _build, mvn_fit, philox, propose
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+    from pyabc_tpu_torch.transition import silverman_rule_of_thumb
+
+    t0 = time.perf_counter()
+    _build.library()
+    dev = torch.device("cuda", 0)
+    out = {"root": root, "build_s": round(time.perf_counter() - t0, 2)}
+    prior = lv.default_prior().arrays(dev)
+    for B, n in ((4096, 1024), (65536, 16384)):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        X = lv.default_prior().rvs_array(n, g, dev).contiguous()
+        w = torch.rand(n, generator=g, device=dev) + 0.1
+        params = mvn_fit(X, (w / w.sum()).contiguous(), dim=4, scaling=1.0,
+                         bandwidth_selector=silverman_rule_of_thumb)
+        st_t = stream_on(dev, philox.TRANSITION, gen=2)
+        st_p = stream_on(dev, philox.PRIOR, gen=2)
+        th = propose(st_p, B, prior)[0]
+        bits = th.view(torch.int32).long()
+        out[f"B{B}"] = {
+            "transition_ms": graph_ms(lambda: propose(st_t, B, prior,
+                                                      params)),
+            "prior_ms": graph_ms(lambda: propose(st_p, B, prior)),
+            "prior_bits_hash": int((bits * torch.arange(
+                1, bits.numel() + 1, device=dev).view_as(bits)).sum())}
+    return out
+
+
+def k2_turns(parent: str) -> int:
+    """K2 against another tree's on one card: each tree's propose.cu
+    register counts (``nvcc -Xptxas -v``), then K2's LV config 2 time in
+    turns (parent, this tree, this tree, parent), each a process of its
+    own (``--k2-time``). ``parent`` holds the parent's pyabc_tpu_torch."""
+    import re
+
+    for label, root in (("this tree", "."), ("parent", parent)):
+        src = os.path.join(root, "pyabc_tpu_torch", "csrc", "propose.cu")
+        r = subprocess.run(
+            ["/usr/local/cuda/bin/nvcc", *"-gencode arch=compute_90a,"
+             "code=sm_90a -O3 -std=c++17 -Xptxas -v -c".split(), src, "-o",
+             os.path.join(tempfile.mkdtemp(), "propose.o")],
+            capture_output=True, text=True)
+        check(r.returncode == 0, f"nvcc {src}: {r.stderr[-2000:]}")
+        name = None
+        for line in r.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = re.sub(r".*_cu_[0-9a-f]+", "", m.group(1))[:40]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                log(f"registers ({label}) {name}: {m.group(1)}")
+                name = None
+    for root in (parent, ".", ".", parent):
+        r = subprocess.run([sys.executable, __file__, "--k2-time", root],
+                           capture_output=True, text=True)
+        log(r.stdout.strip() or r.stderr[-2000:])
+    return 0
+
+
 if __name__ == "__main__":
     if "--log" in sys.argv:
         LOG_FILE = sys.argv[sys.argv.index("--log") + 1]
+    if "--k2-time" in sys.argv:
+        print(json.dumps(k2_time(sys.argv[sys.argv.index("--k2-time")
+                                          + 1])))
+        sys.exit(0)
+    if "--k2-turns" in sys.argv:
+        sys.exit(k2_turns(sys.argv[sys.argv.index("--k2-turns") + 1]))
     sys.exit(main())

@@ -1,5 +1,6 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
-single-device ABC-SMC path (one model or model selection over several;
+single-device ABC-SMC path (one model or model selection over several,
+with priors of every family of the JAX package;
 the MVN or, for one model, the local k-NN transition; a constant, listed
 or adaptive population size; p-norm, aggregated or noise-model
 distances), for one NVIDIA H100.
@@ -9,7 +10,8 @@ hand-written kernels (``csrc/``) are built at first launch.
 """
 from .acceptor import (ScaledPDFNorm, StochasticAcceptor, UniformAcceptor,
                        pdf_norm_from_kernel, pdf_norm_max_found)
-from .core import RV, Distribution, ParameterSpace, Population
+from .core import (RV, Distribution, LowerBoundDecorator, ParameterSpace,
+                   Population, RVBase, RVDecorator, ScipyRV)
 from .distance import (SCALE_LIN, SCALE_LOG, AdaptiveAggregatedDistance,
                        AdaptivePNormDistance, AggregatedDistance,
                        BinomialKernel, IndependentLaplaceKernel,
@@ -41,12 +43,14 @@ __all__ = [
     "FrielPettittScheme", "History", "IndependentLaplaceKernel",
     "IndependentNormalKernel", "ListEpsilon", "ListPopulationSize",
     "ListTemperature",
-    "LocalTransition", "MedianEpsilon", "ModelPerturbationKernel",
+    "LocalTransition", "LowerBoundDecorator", "MedianEpsilon",
+    "ModelPerturbationKernel",
     "MultivariateNormalTransition", "NegativeBinomialKernel",
     "NormalKernel", "PNormDistance", "ParameterSpace", "PoissonKernel",
     "PolynomialDecayFixedIterScheme", "Population", "PopulationStrategy",
-    "QuantileEpsilon", "RV",
-    "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "StochasticAcceptor",
+    "QuantileEpsilon", "RV", "RVBase", "RVDecorator",
+    "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "ScipyRV",
+    "StochasticAcceptor",
     "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",
     "UniformAcceptor", "pdf_norm_from_kernel", "pdf_norm_max_found",
     "scott_rule_of_thumb", "silverman_rule_of_thumb",

@@ -9,11 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.random_variables import Distribution
+from .core.random_variables import RV, Distribution, LowerBoundDecorator
 from .inference.context import Carry
 from .kernels.local_factor import lconst_of
 from .kernels.model_step import next_generation_terms
-from .utils import resolve_device
+from .utils import not_ported, resolve_device
 
 #: keys of a fitted MultivariateNormalTransition's device params
 TRANSITION_KEYS = ("thetas", "weights", "chol", "prec", "center",
@@ -95,6 +95,34 @@ def aggregated_params(distance, t=None, device=None) -> torch.Tensor:
 def prior(spec) -> Distribution:
     """``[(name, "norm"|"uniform", loc, scale), ...]`` -> Distribution."""
     return Distribution.from_spec(spec)
+
+
+def _rv_from_jax(rv, key: str):
+    kind = type(rv).__name__
+    if kind == "LowerBoundDecorator":
+        if type(rv.component).__name__ != "RV":
+            raise not_ported(f"prior component {key!r}: a "
+                             f"LowerBoundDecorator around a "
+                             f"{type(rv.component).__name__}", "16")
+        return LowerBoundDecorator(_rv_from_jax(rv.component, key),
+                                   rv.bound)
+    if kind != "RV":
+        raise not_ported(f"prior component {key!r}: a host-only {kind}",
+                         "16")
+    params = tuple(rv._params)
+    if rv.name == "lognorm":
+        s, scale = params
+        params = (s, 0.0, scale)
+    return RV(rv.name, *params)
+
+
+def prior_from_jax(distribution) -> Distribution:
+    """The port's Distribution of a JAX ``Distribution``: each ``RV`` from
+    its family and canonical parameters (``rv.name``, ``rv._params``), a
+    ``LowerBoundDecorator`` from its ``bound`` and ``component``; a nested
+    decorator, a ``ScipyRV`` or a user ``RVBase`` raise (host-only)."""
+    return Distribution(**{k: _rv_from_jax(rv, k)
+                           for k, rv in distribution.rv_map.items()})
 
 
 def carry(jax_carry: tuple, device=None, mpk=None) -> Carry:

@@ -352,9 +352,13 @@ class ABCSMC:
         self.spec: SumStatSpec | None = None
         #: per-generation host record of the last run: t, eps, rounds,
         #: evaluations, syncs and the host seconds spent proposing and
-        #: stepping (compute_s), reading (fetch_s, a chunk's share) and
-        #: persisting (persist_s); chip_smoke.py reads it
+        #: stepping (compute_s), reading (fetch_s, a chunk's share), handing
+        #: the generation to the History's writer (persist_s: the loop's
+        #: wait) and the writer thread's own time on it (write_s);
+        #: chip_smoke.py reads it
         self.generation_log: list[dict] = []
+        #: seconds ``run()`` waited at its end for the writer to drain
+        self.flush_s = 0.0
         #: K > 1: the newest persisted generation's model probabilities
         #: (alive models only), as the JAX package's ``_model_probs``
         self.model_probs: dict[int, float] = {}
@@ -435,13 +439,19 @@ class ABCSMC:
             # the JAX package's default: a temperature schedule stops at
             # T = 1 (the exact posterior), a threshold runs to the others
             minimum_epsilon = 1.0 if type(self.eps) is Temperature else 0.0
+        w0 = len(self.history.write_seconds)
         self._run_fused(
             minimum_epsilon=float(minimum_epsilon),
             max_nr_populations=max_nr_populations,
             min_acceptance_rate=float(min_acceptance_rate),
             max_total_nr_simulations=max_total_nr_simulations,
             max_walltime=max_walltime)
+        t_flush = time.perf_counter()
         self.history.done()
+        self.flush_s = time.perf_counter() - t_flush
+        written = dict(self.history.write_seconds[w0:])
+        for entry in self.generation_log:
+            entry["write_s"] = written.get(entry["t"], 0.0)
         return self.history
 
     # ------------------------------------------------------------- setup
@@ -638,9 +648,28 @@ class ABCSMC:
                             device=self.device)
 
     # -------------------------------------------------------- the loop
-    def _run_fused(self, *, minimum_epsilon, max_nr_populations,
-                   min_acceptance_rate, max_total_nr_simulations,
-                   max_walltime) -> None:
+    def _run_fused(self, **kw) -> None:
+        """The chunk loop, its generations persisted on the History's
+        writer thread: the host path of a chunk is the fetch and a hand-over
+        per generation, and the sqlite writes overlap the next chunk's
+        device work. A failed loop drains what it handed over before the
+        error propagates; ``run()``'s ``history.done()`` drains the rest."""
+        self.history.start_async_writer()
+        try:
+            self._run_chunks(**kw)
+        except BaseException:
+            try:
+                self.history.flush()
+            except Exception:
+                # the loop's error propagates; the write error stays on
+                # the writer (re-raised by done()/close())
+                logger.exception("the History writer also failed while "
+                                 "draining")
+            raise
+
+    def _run_chunks(self, *, minimum_epsilon, max_nr_populations,
+                    min_acceptance_rate, max_total_nr_simulations,
+                    max_walltime) -> None:
         t_start = time.perf_counter()
         n = self.population_strategy(0)
         if type(self.eps) is Temperature:
@@ -966,6 +995,9 @@ class ABCSMC:
                 ss = fetched["sumstats"][fetched["ss_gens"].index(g)][:n]
             ms = (fetched["m"][g][:n].astype(np.int32) if "m" in fetched
                   else np.zeros(n, np.int32))
+            # the writer thread holds the population until it is written;
+            # it views none of the chunk's pinned buffers: unpack_rows
+            # copies, and Population casts the sum stats to float64
             pop = Population(
                 ms=ms, thetas=theta[g][:n],
                 weights=exp_normalize_log_weights(logw[g][:n]),
@@ -1011,8 +1043,9 @@ class ABCSMC:
                                             4),
                     seg_steps=steps, seg_resolved=resolved)
             t_persist = time.perf_counter()
-            self.history.append_population(t, eps_used, pop, info["n_valid"],
-                                           self.model_names, telemetry)
+            self.history.append_population_async(
+                t, eps_used, pop, info["n_valid"], self.model_names,
+                telemetry)
             info = {**info, "persist_s": time.perf_counter() - t_persist}
             if eps_quantile:
                 self.eps._values[t] = eps_used

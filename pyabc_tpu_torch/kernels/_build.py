@@ -58,11 +58,11 @@ SIGNATURES = {
         _P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _U, _U, _U, _U,
         _U, _P, _P, _P, _P, _P],
     "pyabc_propose": [
-        _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _U, _U, _U, _U, _U,
-        _P, _I, _P, _P, _P, _P],
+        _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _U, _U, _U,
+        _U, _U, _P, _I, _P, _P, _P, _P],
     "pyabc_propose_models": [
-        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
-        _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
+        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+        _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
     "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],

@@ -3,16 +3,20 @@ counterpart, sqlite row store only).
 
 The schema and the row layout are the JAX package's, so a database the
 port writes opens in ``pyabc_tpu.History`` with the same populations,
-weights and epsilons. Appends are synchronous: the port reads the device
-once per chunk and persists the chunk's generations right after.
+weights and epsilons. A run appends its generations on a writer thread
+(``start_async_writer`` / ``append_population_async``, the JAX package's
+``_AsyncWriter``): the loop hands each generation over and goes on, and
+``done()`` drains the queue before ``run()`` returns.
 """
 from __future__ import annotations
 
 import datetime
 import io
 import json
+import queue
 import sqlite3
 import threading
+import time
 
 import numpy as np
 import pandas as pd
@@ -92,6 +96,59 @@ def _db_path(db: str) -> str:
     return db
 
 
+class _AsyncWriter:
+    """One daemon thread draining queued db writes in order (the JAX
+    package's ``_AsyncWriter``, without its transient-retry policy and its
+    backlog gauge). A worker exception is sticky: it is re-raised on the
+    next submit, flush or close, and after it the queued work drains
+    without executing, so nothing commits on top of a failed write.
+    Each executed write appends (label, seconds on the writer's clock) to
+    ``seconds``."""
+
+    def __init__(self, seconds: list):
+        self._queue: queue.Queue = queue.Queue()
+        self._error: BaseException | None = None
+        self.seconds = seconds
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                self._queue.task_done()
+                return
+            label, fn, args, kwargs = item
+            try:
+                if self._error is None:
+                    t0 = time.perf_counter()
+                    fn(*args, **kwargs)
+                    self.seconds.append((label, time.perf_counter() - t0))
+            except BaseException as exc:  # noqa: BLE001 - surfaced later
+                self._error = exc
+            finally:
+                self._queue.task_done()
+
+    def _check(self) -> None:
+        if self._error is not None:
+            raise self._error
+
+    def submit(self, label, fn, *args, **kwargs) -> None:
+        self._check()
+        self._queue.put((label, fn, args, kwargs))
+
+    def flush(self) -> None:
+        """Block until everything queued so far is written."""
+        self._queue.join()
+        self._check()
+
+    def close(self) -> None:
+        self._queue.join()
+        self._queue.put(None)
+        self._thread.join(timeout=30)
+        self._check()
+
+
 class History:
     """One run's record in a sqlite database (``sqlite:///path`` or
     ``sqlite://`` for memory)."""
@@ -105,6 +162,9 @@ class History:
         self._conn.executescript(_SCHEMA)
         self._conn.commit()
         self.id = _id if _id is not None else self._latest_id()
+        self._writer: _AsyncWriter | None = None
+        #: (t, seconds) of every append the writer thread executed
+        self.write_seconds: list[tuple] = []
 
     def _latest_id(self) -> int | None:
         return self._conn.execute("SELECT MAX(id) FROM abc_smc").fetchone()[0]
@@ -228,6 +288,26 @@ class History:
                     [(pid, "__flat__", np_to_bytes(population.sumstats[i]))
                      for pid, i in zip(pids, idxs)])
         self._conn.commit()
+
+    # ------------------------------------------------------- async writing
+    def start_async_writer(self) -> _AsyncWriter:
+        if self._writer is None:
+            self._writer = _AsyncWriter(self.write_seconds)
+        return self._writer
+
+    def append_population_async(self, t: int, *args, **kwargs) -> None:
+        """Queue an append on the writer thread (synchronous when no
+        writer is active). The population's arrays must not change until
+        it is written."""
+        if self._writer is None:
+            self.append_population(t, *args, **kwargs)
+            return
+        self._writer.submit(int(t), self.append_population, t, *args,
+                            **kwargs)
+
+    def flush(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
 
     # ------------------------------------------------------------ queries
     def _pop_id(self, t: int) -> int | None:
@@ -393,13 +473,24 @@ class History:
                 """, (self._pop_id(PRE_TIME),)).fetchall()
         return {name: np_from_bytes(blob) for name, blob in rows}
 
+    def _retire_writer(self) -> None:
+        """Drain the writer and end its thread; re-raises a deferred write
+        error."""
+        if self._writer is not None:
+            writer, self._writer = self._writer, None
+            writer.close()
+
     def done(self) -> None:
+        self._retire_writer()
         with self._lock:
             self._conn.commit()
 
     def close(self) -> None:
-        with self._lock:
-            self._conn.close()
+        try:
+            self._retire_writer()
+        finally:
+            with self._lock:
+                self._conn.close()
 
     def __repr__(self):
         return f"History({self.db!r}, id={self.id})"

@@ -299,6 +299,93 @@ def test_propose_kernel(dev, B, n, d):
         assert float((lp_k - lp_p)[ok].abs().max()) <= 1e-5
 
 
+#: K2's family mode: one prior of each family (and the decorator)
+FAMILY_SPECS = [("lognorm", 0.5, 0.0, 1.5), ("expon", 0.2, 1.5),
+                ("gamma", 2.0, 0.0, 0.5), ("gamma", 0.3),
+                ("beta", 0.2, 0.3), ("laplace", 0.0, 1.0),
+                ("cauchy", 0.0, 1.0), ("t", 3.0, 0.0, 1.0),
+                ("truncnorm", -1.0, 2.0, 0.0, 1.0), ("randint", 2, 9),
+                ("binom", 20, 0.3), ("binom", 100, 0.7), ("poisson", 40.0),
+                ("nbinom", 5.0, 0.4), ("bound",)]
+
+
+@pytest.mark.parametrize("spec", FAMILY_SPECS, ids=lambda s: "-".join(
+    map(str, s)))
+@pytest.mark.parametrize("B", [257, 65536])
+def test_propose_family_kernel(dev, spec, B):
+    """K2's family mode against its plain version: prior-mode draws within
+    abs 1e-5 + rel 1e-5 on all but 1e-3 of the lanes, log-densities within
+    abs 1e-5 + rel 1e-5 with equal -inf masks, and the transition mode
+    over points inside and outside the support."""
+    from pyabc_tpu_torch import LowerBoundDecorator
+
+    rv = (LowerBoundDecorator(RV("norm", 0.1, 0.1), 0.0)
+          if spec[0] == "bound" else RV(*spec))
+    prior = Distribution(x=rv).arrays(dev)
+    pts = torch.linspace(-3.0, 12.0, 301, device=dev)[:, None]
+    w = torch.full((301,), 1.0 / 301, device=dev)
+    fit = {"thetas": pts.contiguous(), "cdf": torch.cumsum(w, 0),
+           "chol": torch.zeros(1, 1, device=dev)}
+    for tag, p in ((philox.PRIOR, None), (philox.TRANSITION, fit)):
+        stream = _stream(dev, tag)
+        before = propose.mode_launches["families"]
+        th_k, lp_k, v_k = propose(stream, B, prior, p)
+        assert propose.mode_launches["families"] == before + 1
+        th_p, lp_p, v_p = propose_plain(stream, B, prior, p)
+        apart = (v_k != v_p) | ((th_k - th_p).abs()
+                                > 1e-5 + 1e-5 * th_p.abs()).any(dim=1)
+        assert int(apart.sum()) <= max(1, B // 1000)
+        ok = ~apart
+        assert torch.equal(torch.isfinite(lp_k)[ok],
+                           torch.isfinite(lp_p)[ok])
+        fin = ok & torch.isfinite(lp_p)
+        torch.testing.assert_close(lp_k[fin], lp_p[fin], rtol=1e-5,
+                                   atol=1e-5)
+    if spec[0] == "bound":
+        th = propose(_stream(dev, philox.PRIOR), B, prior)[0]
+        assert bool((th > 0).all())
+
+
+def test_propose_local_family_kernel(dev):
+    """K2's local mode under the LV families leg's prior: theta, valid and
+    the log-densities as the plain version's."""
+    from pyabc_tpu_torch import LowerBoundDecorator
+    from pyabc_tpu_torch.kernels import propose_local, propose_local_plain
+
+    prior = Distribution(
+        a=RV("gamma", 2.0, 0.0, 0.75), b=RV("lognorm", 0.8, 0.0, 0.12),
+        c=RV("truncnorm", -1.5, 1.5, 1.5, 1.0),
+        d=LowerBoundDecorator(RV("norm", 0.1, 0.1), 0.0)).arrays(dev)
+    g = _gen(dev, 3)
+    n, B = 1024, 65536
+    thetas = torch.rand(n, 4, generator=g, device=dev) * 2
+    w = torch.full((n,), 1.0 / n, device=dev)
+    params = {"thetas": thetas, "cdf": torch.cumsum(w, 0),
+              "chols": torch.eye(4, device=dev).expand(n, 4, 4).mul(0.2)
+              .contiguous()}
+    stream = _stream(dev, philox.TRANSITION)
+    th_k, lp_k, v_k = propose_local(stream, B, prior, params)
+    th_p, lp_p, v_p = propose_local_plain(stream, B, prior, params)
+    apart = (v_k != v_p) | ((th_k - th_p).abs()
+                            > 1e-5 + 1e-5 * th_p.abs()).any(dim=1)
+    assert int(apart.sum()) <= B // 1000
+    fin = ~apart & torch.isfinite(lp_p)
+    torch.testing.assert_close(lp_k[fin], lp_p[fin], rtol=1e-5, atol=1e-5)
+
+
+def test_propose_legacy_priors_skip_the_family_mode(dev):
+    """A norm/uniform prior runs the kernel's first code, outside the
+    family mode, and draws what its plain version draws."""
+    prior = lv.default_prior().arrays(dev)
+    assert not prior["families"]
+    stream = _stream(dev, philox.PRIOR)
+    before = propose.mode_launches["families"]
+    th_k = propose(stream, 4096, prior)[0]
+    assert propose.mode_launches["families"] == before
+    torch.testing.assert_close(th_k, propose_plain(stream, 4096, prior)[0],
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("n", [64, 1024, 5000])
 def test_normalize_quantile_kernel(dev, n):
     g = _gen(dev, n)
