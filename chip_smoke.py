@@ -96,7 +96,25 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    support, the LV families leg's 4-D prior in both modes and in the
    local mode at its shapes (a fit of 16384 rows) and the K > 1 mode over
    two models of other families; each family's prior-mode time beside one torch.distributions
-   sample + log_prob;
+   sample + log_prob; K23's fit at the learned-statistics leg's width
+   (n_cap 16384, 9731 kept rows of simulated network SIR statistics, S
+   128, C' 2), at n 300 with 211 kept (S 6) and at C' 8: W, b, mu, sd
+   within 1e-4 relative, the flags equal, the same run to run, a poisoned
+   row keeping the old parameters; K23's transform and accept at B 65536,
+   S 128 for p 2, 1 and inf: rows and distances within 1e-5 of their
+   scale, flags equal away from eps, log weights equal, the values mode
+   bit-equal to the accept; K18's transformed operands on the network
+   SIR's map and on a map of one row a segment (a null space before the
+   end): At bit-equal, null counts equal, projectors within 1e-5; and,
+   after phase 4's learned leg, K18's transformed mode at that leg's round
+   (B 65536, the transform it ended with, where nothing can retire) and
+   at config 3's round under a C' 8 transform (B 131072, 10 segments of 2
+   values: the last three segments leave a null space, so slots retire),
+   each at the 30 % quantile of its round's transformed distances and
+   followed by K23's accept and K6: kept slots, statistics, reservoir,
+   ring and counters bit-identical, slots accepted, at config 3's round
+   valid slots retired; at the leg's round its device time beside K18's p-norm
+   mode and K20b's unsegmented round on the same slots;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -239,11 +257,32 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    model over 8 seeds, card and CPU, against the exact model posterior;
    and config 3 and the LV families leg with the History writer and with
    synchronous appends, in turns (writer, sync, sync, writer), the wall
-   and its split each.
+   and its split each. Then the learned-statistics leg (bench.py:1196-1253:
+   the network SIR at 8 patches x 16 observations, S 128 in 4 segments,
+   PNormDistance(p=2) through PredictorSumstat(LinearPredictor(alpha=1)),
+   MedianEpsilon, seed 11, chunks of 2; pop 16384 where the bench's CPU
+   leg takes 256, 10 generations), counts reset just before: every kernel
+   of the path launched (K23's fit, transform and accept, K18's
+   transformed mode and operands), the boundary refits at each chunk's
+   last generation, History rows 128 wide at generation 0 and 2 after,
+   one counter read a round and one fetch a chunk; the same with early
+   reject off (bit-identical populations, every slot resolved, the
+   retired slots and the saved share) and under plain PNormDistance(p=2)
+   (fetch bytes a particle at least 2 times the learned run's); once more
+   under torch.profiler for K23's and K18's device ms a generation; both
+   learned legs at pop 1024 on the card and the CPU (the adaptive leg's
+   second epsilon held on a CPU run fed the card's calibration weights
+   and distances, the CPU's own with its weights one ulp up and down
+   reported); the adaptive form (AdaptivePNormDistance(p=2) through the
+   same statistic, the classic kernel, its C'-wide weight trail); and the
+   accuracy setting of tests/test_sumstat_device.py:497-540 over 16
+   seeds, the seed means of the learned RMSE and of its gap to the
+   identity's against the JAX package's over the same seeds.
 
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
-K22, K25, K26 and the K > 1 modes) is replaced by a function that raises, so
+K22, K23, K25, K26 and the K > 1 modes) is replaced by a function that
+raises, so
 none can run on the path unseen.
 
 Before the last line it prints one JSON object with every kernel's numbers;
@@ -1878,7 +1917,7 @@ def model_checks(dev) -> dict:
 # ------------------------------------------------------------ phases 3-4
 #: (module, attribute) of the plain version of every kernel, K1-K15,
 #: K18, K19, K20, K20b (family, segmented family and network), K21a, K21b,
-#: K22, K26 and the K > 1 modes
+#: K22, K23, K26 and the K > 1 modes
 PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
     ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
@@ -1939,6 +1978,13 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.aggregate", "aggregate_refit_plain"),
     ("pyabc_tpu_torch.kernels.aggregate", "weight_update_plain"),
     ("pyabc_tpu_torch.kernels.segment_round", "agg_total"),
+    ("pyabc_tpu_torch.kernels.ridge_fit", "ridge_fit_plain"),
+    ("pyabc_tpu_torch.kernels.linear_sumstat", "transform_rows_plain"),
+    ("pyabc_tpu_torch.kernels.linear_sumstat", "linear_values_plain"),
+    ("pyabc_tpu_torch.kernels.linear_sumstat", "linear_accept_plain"),
+    ("pyabc_tpu_torch.kernels.linear_bound", "linear_bound_plain"),
+    ("pyabc_tpu_torch.kernels.segment_round", "lin_bound_fold"),
+    ("pyabc_tpu_torch.kernels.segment_round", "lin_exceeds"),
 )
 
 
@@ -6470,6 +6516,720 @@ def family_pair(dev) -> None:
           "4 se off the CPU's")
 
 
+# ---------------------------------------------- learned summary statistics
+#: the learned-statistics leg (bench.py:1196-1253): the network SIR at 8
+#: patches x 16 observations (S 128 raw statistics in 4 segments) under
+#: PNormDistance(p=2, sumstat=PredictorSumstat(LinearPredictor(alpha=1))),
+#: MedianEpsilon, seed 11, chunks of 2; pop 16384 (B 65536) where the
+#: bench's CPU-sized leg takes 256, 10 generations
+LS_SHAPE = {"n_patches": 8, "n_obs": 16}
+LS_POP, LS_GENS, LS_SEED, LS_G, LS_ALPHA = 16384, 10, 11, 2, 1.0
+LS_CPU_POP = 1024
+#: the accuracy check (tests/test_sumstat_device.py:497-540): noise 30 in
+#: the model and the observation, pop 256, 8 generations, the JAX test's
+#: seed 19 and the 15 after it
+LS_ACC_NOISE, LS_ACC_POP, LS_ACC_GENS = 30.0, 256, 8
+LS_ACC_SEEDS = tuple(range(19, 35))
+#: the JAX package in that setting over LS_ACC_SEEDS on the CPU, from
+#: ``python tests/test_torch_sumstat_runs.py``: the seed mean and sd of
+#: the learned statistic's RMSE and of its gap to the identity's (learned
+#: minus identity), and the seeds
+LS_ACC_JAX = {"learned": (0.0679, 0.0420), "gap": (0.0666, 0.0419), "n": 16}
+#: K23's and K18's transformed operands: this slice's kernels, and the
+#: path of the leg with early reject on (generation 0 and the calibration
+#: run K20b and K5 on the raw statistics)
+LS_KERNELS = ("ridge_fit", "linear_accept", "linear_bound")
+LS_PATH = ("propose", "mvn_mixture_logpdf", "network_sir",
+           "pnorm_accept_weight", "segment_round", "compact_round",
+           "normalize_quantile", "mvn_fit", "pack_fetch",
+           "generation_health") + LS_KERNELS
+
+
+def ls_rows(dev, B: int, seed: int):
+    """A prior round of the leg's network SIR simulated on the card: theta
+    (B, 2), the raw statistics (B, 128), the spec, x0 and the emission
+    map."""
+    from pyabc_tpu_torch.models import sir
+
+    model = sir.make_network_sir_model(**LS_SHAPE)
+    x = seg_inputs(dev, model, sir.network_sir_prior(),
+                   sir.observed_network_sir(**LS_SHAPE), B, seed=seed)
+    x["ss"] = model.simulate_flat(x["theta"], None, x["spec"],
+                                  stream=x["stream"]).contiguous()
+    x["model"] = model
+    return x
+
+
+def k23_fit_case(dev, label, x, y, w, ctr, old, need, timed) -> dict:
+    """K23's fit and its plain version on one problem: W, b, mu, sd
+    within 1e-4 relative (atol 1e-5), the flags equal, the same from run
+    to run, a poisoned row keeping the old parameters."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import ridge_fit, ridge_fit_plain
+
+    kw = dict(alpha=LS_ALPHA, need=need)
+    got, flags = ridge_fit(x, y, w, ctr, old, **kw)
+    ref, rflags = ridge_fit_plain(x, y, w, ctr, old, **kw)
+    again, _f = ridge_fit(x, y, w, ctr, old, **kw)
+    bad = x.clone()
+    bad[1, 2] = float("nan")
+    kept, kflags = ridge_fit(bad, y, w, ctr, old, **kw)
+    torch.cuda.synchronize()
+    err = max(abs_err(got[k], ref[k]) for k in got)
+    ok = (all(within(got[k], ref[k], 1e-5, 1e-4) for k in got)
+          and flags.tolist() == rflags.tolist() == [1, 1])
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    poisoned = (kflags.tolist() == [0, 1]
+                and all(torch.equal(kept[k], old[k]) for k in old))
+    n_keep = int(min(int(ctr[0]), int(ctr[4])))
+    S, C = x.shape[1], y.shape[1]
+    log(f"K23 ridge_fit {label} (n_cap {x.shape[0]}, {n_keep} kept, S {S}, "
+        f"C' {C}): max_abs_err={err:.3e} (W max "
+        f"{float(got['W'].abs().max()):.3e}); "
+        f"within rel 1e-4 {ok}; the same run to run {same}; a poisoned row "
+        f"keeps the old parameters {poisoned}")
+    check(ok and same and poisoned, f"K23 fit {label}: outside 1e-4 of the "
+          f"plain fit, not repeatable, or a poisoned row was taken")
+    if not timed:
+        return {}
+    nbytes = (n_keep * (S + C + 1) + 2 * (S * C + C + 2 * S)) * 4 + 20 + 8
+    flops = 2 * n_keep * S * (S + C) + 3 * n_keep * S + S ** 3 / 3 \
+        + 2 * S * S * C
+    return dict(err=err, call_ms=time_ms(lambda: ridge_fit(
+        x, y, w, ctr, old, **kw), 20),
+        ms=graph_ms(lambda: ridge_fit(x, y, w, ctr, old, **kw), iters=10,
+                    replays=3),
+        plain_ms=time_ms(lambda: ridge_fit_plain(x, y, w, ctr, old, **kw),
+                         5),
+        bound=bound(nbytes, flops), library_ms=None)
+
+
+def k23_checks(dev) -> tuple[dict, dict]:
+    """K23 (fit, transform and accept) and K18's transformed operands
+    against their plain versions -> (results, the fitted transform of the
+    leg's rows). The fit at n_cap 16384, S 128, C' 2 with 9731 kept rows
+    of simulated network SIR statistics, at n 300 with 211 kept (S 6, C'
+    2) and at S 128 with C' 8; the transform and accept at B 65536, S 128
+    (p 2; p 1 and inf once); the projectors on the network SIR's map (4
+    segments, C' 2) and on a map of one row a segment (C' 3, a true null
+    space before the end)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (linear_accept, linear_accept_plain,
+                                         linear_bound, linear_bound_plain,
+                                         pnorm_accept_weight, transform_rows,
+                                         transform_rows_plain)
+    from pyabc_tpu_torch.kernels.ridge_fit import N_ACC, N_TARGET
+    from pyabc_tpu_torch.utils import pick_batch
+
+    out = {}
+    B = pick_batch(LS_POP)
+    x = ls_rows(dev, B, seed=41)
+    S = x["spec"].total_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+
+    def problem(n_cap, n_keep, C, rows=None, theta=None):
+        ctr = torch.zeros(5, dtype=torch.int32, device=dev)
+        ctr[N_ACC], ctr[N_TARGET] = n_keep + 5, n_keep
+        if rows is None:
+            rows = x["ss"][:n_cap]
+            theta = x["theta"][:n_cap]
+        if theta.shape[1] < C:  # more targets: noisy mixes of theta
+            mix = torch.randn(theta.shape[1], C, generator=gen, device=dev)
+            theta = theta @ mix + 0.01 * torch.randn(
+                n_cap, C, generator=gen, device=dev)
+        w = torch.rand(n_cap, generator=gen, device=dev) + 0.1
+        w[n_keep:] = 0.0
+        Sx = rows.shape[1]
+        old = {"W": torch.zeros(Sx, C, device=dev),
+               "b": torch.zeros(C, device=dev),
+               "mu": torch.zeros(Sx, device=dev),
+               "sd": torch.ones(Sx, device=dev)}
+        return (rows.contiguous(), theta[:, :C].contiguous(), w, ctr, old)
+
+    main = problem(LS_POP, 9731, 2)
+    out["ridge_fit"] = k23_fit_case(dev, "main shape", *main, need=S + 2,
+                                    timed=True)
+    odd_rows = (torch.randn(300, 6, generator=gen, device=dev)
+                * torch.arange(1, 7, device=dev) + 40.0)
+    odd_theta = odd_rows[:, :2] * 0.05 + 0.1 * torch.randn(
+        300, 2, generator=gen, device=dev)
+    k23_fit_case(dev, "small odd shape",
+                 *problem(300, 211, 2, odd_rows, odd_theta), need=8,
+                 timed=False)
+    k23_fit_case(dev, "C' 8", *problem(LS_POP, 9731, 8), need=S + 2,
+                 timed=False)
+    from pyabc_tpu_torch.kernels import ridge_fit
+
+    params, _fl = ridge_fit(*main, alpha=LS_ALPHA, need=S + 2)
+
+    # the transform and the accept over a round of the leg
+    ss, x0 = x["ss"], x["x0"]
+    w = torch.ones(2, device=dev)
+    valid = torch.rand(B, generator=gen, device=dev) > 0.05
+    logpri = torch.randn(B, generator=gen, device=dev) - 3.0
+    logq = torch.randn(B, generator=gen, device=dev) - 2.0
+    rows = transform_rows(ss, params)
+    rows_r = transform_rows_plain(ss, params)
+    scale = float(rows_r.abs().max())
+    r_err = abs_err(rows, rows_r)
+    check(within(rows, rows_r, 1e-5 * scale, 1e-5),
+          "K23 transform outside 1e-5 of the plain version")
+    inf = torch.tensor(math.inf, device=dev)
+    for p in (2.0, 1.0, math.inf):
+        d_all = linear_accept_plain(ss, x0, params, w, inf, valid, p=p)[0]
+        eps = torch.quantile(d_all, 0.3)
+        args = (ss, x0, params, w, eps, valid)
+        kw = dict(p=p, logpri=logpri, logq=logq)
+        d_k, a_k, lw_k = linear_accept(*args, **kw)
+        d_p, a_p, lw_p = linear_accept_plain(*args, **kw)
+        v_k = linear_accept.values(ss, x0, params, w, p=p)
+        torch.cuda.synchronize()
+        dscale = float(d_p.abs().max())
+        far = (d_p - eps).abs() > 1e-5 * dscale
+        flags = bool((a_k == a_p)[far].all())
+        err = abs_err(d_k, d_p)
+        log(f"K23 linear_accept p={p} (B={B}, S={S}, C' 2): "
+            f"max_abs_err(d)={err:.3e} (d up to {dscale:.3e}), transformed "
+            f"rows {r_err:.3e} (up to {scale:.3e}), accepted "
+            f"{int(a_k.sum())}, flags equal away from eps {flags}, values "
+            f"mode bit-equal {torch.equal(v_k, d_k)}")
+        check(within(d_k, d_p, 1e-5 * dscale, 1e-5) and flags
+              and torch.equal(lw_k, lw_p) and torch.equal(v_k, d_k),
+              f"K23 accept (p {p}): distances outside 1e-5, flags or log "
+              f"weights differ, or the values mode differs")
+        if p != 2.0:
+            continue
+        # ss, x0, the transform, w and eps read; logpri, logq, valid read
+        # and d, accept, log weight written a lane
+        nbytes = (B * S + S + S * 2 + 2 + 2 * S + 2 + 1) * 4 + B * 18
+        out["linear_accept"] = dict(
+            err=err, call_ms=time_ms(lambda: linear_accept(*args, **kw), 50),
+            ms=graph_ms(lambda: linear_accept(*args, **kw)),
+            plain_ms=time_ms(lambda: linear_accept_plain(*args, **kw), 10),
+            bound=bound(nbytes, B * S * (2 + 2 * 2) + B * 8),
+            library_ms=None,
+            transform_ms=graph_ms(lambda: transform_rows(ss, params)),
+            transform_err=r_err,
+            # K5 on the same raw rows: the accept without the transform
+            k5_ms=graph_ms(lambda: pnorm_accept_weight(
+                ss, x0, torch.ones(S, device=dev), eps, valid, p=2.0,
+                logpri=logpri, logq=logq)))
+
+    # the projectors: the network SIR's map, and one row a segment
+    imap = x["imap"]
+    bp = linear_bound(w, params, imap)
+    bp_r = linear_bound_plain(w, params, imap)
+    cases = [("network SIR map", bp, bp_r, imap)]
+    W3 = torch.randn(6, 3, generator=gen, device=dev)
+    p3 = {"W": W3, "sd": torch.rand(6, generator=gen, device=dev) + 0.5}
+    imap3 = torch.arange(6, device=dev, dtype=torch.int32).view(6, 1)
+    w3 = torch.rand(3, generator=gen, device=dev) + 0.5
+    cases.append(("one row a segment, C' 3", linear_bound(w3, p3, imap3),
+                  linear_bound_plain(w3, p3, imap3), imap3))
+    for label, got, ref, im in cases:
+        torch.cuda.synchronize()
+        counts = torch.diagonal(got["proj"], dim1=1, dim2=2).sum(1).round()
+        rcounts = torch.diagonal(ref["proj"], dim1=1, dim2=2).sum(1).round()
+        err = abs_err(got["proj"], ref["proj"])
+        ok = (torch.equal(got["At"], ref["At"])
+              and torch.equal(counts, rcounts) and err <= 1e-5)
+        log(f"K18 linear_bound {label} ({im.shape[0]} segments): null "
+            f"counts {counts.int().tolist()} (plain "
+            f"{rcounts.int().tolist()}), projectors max_abs_err={err:.3e}; "
+            f"At bit-equal {torch.equal(got['At'], ref['At'])}")
+        check(ok, f"K18 transformed operands ({label}) differ from the "
+              f"plain version")
+        if label == "network SIR map":
+            n_seg = im.shape[0]
+            suffix = sum((n_seg - j) * im.shape[1] for j in range(n_seg))
+            out["linear_bound"] = dict(
+                err=err, call_ms=time_ms(lambda: linear_bound(w, params,
+                                                              imap), 50),
+                ms=graph_ms(lambda: linear_bound(w, params, imap)),
+                plain_ms=time_ms(lambda: linear_bound_plain(w, params, imap),
+                                 5),
+                bound=bound((S * 2 * 2 + S + 2 + S + (n_seg + 1) * 4) * 4,
+                            suffix * 4 * 2 + S * 4), library_ms=None)
+    return out, params
+
+
+def learned(where, kind: str = "linear", early="auto",
+            pop: int | None = None, seed: int = LS_SEED,
+            noise: float = 0.0):
+    """The leg's ABCSMC on ``where``: ``kind`` linear (PNormDistance(p=2)
+    through the learned statistic), adaptive (AdaptivePNormDistance(p=2)
+    through it) or identity (PNormDistance(p=2) on the raw statistics)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import sir
+
+    ss = pt.PredictorSumstat(pt.LinearPredictor(alpha=LS_ALPHA))
+    dist = {"linear": lambda: pt.PNormDistance(p=2, sumstat=ss),
+            "adaptive": lambda: pt.AdaptivePNormDistance(p=2, sumstat=ss),
+            "identity": lambda: pt.PNormDistance(p=2)}[kind]()
+    abc = pt.ABCSMC(sir.make_network_sir_model(**LS_SHAPE, noise_sd=noise),
+                    sir.network_sir_prior(), dist,
+                    population_size=pop or LS_POP, eps=pt.MedianEpsilon(),
+                    seed=seed, fused_generations=LS_G, early_reject=early,
+                    device=where)
+    abc.new("sqlite://", sir.observed_network_sir(**LS_SHAPE,
+                                                  noise_sd=noise or 8.0))
+    return abc
+
+
+def ls_report(label, abc, h, wall) -> dict:
+    """The numbers of one leg run: fetch bytes a particle, syncs, the
+    trail, the posterior means against TRUE_PARS, the wall split."""
+    import numpy as np
+
+    from pyabc_tpu_torch.models import sir
+
+    syncs = abc.sync_ledger.summary()
+    n_gen = h.max_t + 1
+    pop = abc.population_strategy(0)
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    df, w = h.get_distribution()
+    means = {k: float(np.sum(df[k] * w)) for k in sir.TRUE_PARS}
+    rounds = [g["rounds"] for g in abc.generation_log]
+    fetch = syncs["bytes"].get("chunk_fetch", 0) / (pop * n_gen)
+    split = wall_split(abc)
+    waited = split["persist_s"] + split["flush_s"]
+    log(f"{label}: pop={pop} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={pop * n_gen / wall:.1f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
+        f"({syncs['by_kind']}, rounds {rounds}); fetch bytes a particle "
+        f"{fetch:.2f}")
+    log(f"{label}: wall split: compute {split['compute_s']:.4f} s, fetch "
+        f"{split['fetch_s']:.4f} s, History wait {split['persist_s']:.4f} "
+        f"s, writer {split['write_s']:.4f} s (its own thread), final flush "
+        f"{split['flush_s']:.4f} s; History wait + final flush "
+        f"{waited / wall:.3f} of the wall")
+    log(f"{label}: eps trail {[round(e, 5) for e in eps]}; posterior means "
+        f"{ {k: round(v, 4) for k, v in means.items()} } true "
+        f"{sir.TRUE_PARS}")
+    check(n_gen == LS_GENS, f"{label} ran {n_gen} of {LS_GENS} generations")
+    check(all(math.isfinite(v) for v in means.values()),
+          f"{label}: non-finite posterior mean")
+    return {"fetch": fetch, "eps": eps, "rounds": rounds, "syncs": syncs,
+            "means": means}
+
+
+def learned_leg(dev) -> tuple[dict, dict, dict]:
+    """Phase 4's learned-statistics leg on the card, the counts reset just
+    before its first run -> (launch counts, mode counts, the fitted
+    transform the run ended with). The learned run (early reject
+    on), then the same with early reject off, and the identity run: fetch
+    bytes a particle (at least 2 times fewer), the refits that fired,
+    syncs (one counter read a round, one fetch a chunk), populations
+    bit-identical on and off, every slot resolved, retired slots and the
+    saved share; then once more under torch.profiler for K23's and K18's
+    device ms a generation."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.utils import pick_batch
+
+    label = "learned-statistics leg (network SIR, S 128, linear)"
+    abc = learned(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=LS_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    rep = ls_report(label, abc, h, wall)
+    fitted = abc.distance_function.sumstat.predictor.device_params(dev)
+    tel = [h.get_telemetry(t) for t in range(h.max_t + 1)]
+    refits = [t for t, x in enumerate(tel) if x.get("sumstat_refit")]
+    fit_ok = [x.get("sumstat_fit_ok") for x in tel if "sumstat_refit" in x]
+    widths = [h.get_weighted_sum_stats(t)[1].shape[1] for t in (0, 1)]
+    log(f"{label}: boundary refits at generations {refits} (finite "
+        f"{fit_ok}), predictor fitted last for t = "
+        f"{abc.distance_function.sumstat._last_fit_t}; History rows "
+        f"{widths[0]} wide at generation 0, {widths[1]} after; telemetry "
+        f"{tel[0].get('sumstat')}")
+    log(f"{label}: kernel launches {counts}; K18 transformed mode "
+        f"{modes['segment_round:linear']}, K23 transform "
+        f"{modes['linear_accept:transform']}, values "
+        f"{modes['linear_accept:values']}")
+    n_chunks = 1 + -(-(LS_GENS - 1) // LS_G)
+    by = rep["syncs"]["by_kind"]
+    check(set(by) == {"round_counters", "chunk_fetch"}
+          and 1 <= by["round_counters"] - sum(rep["rounds"]) <= 2
+          and by["chunk_fetch"] == n_chunks,
+          f"{label}: a host read beyond one a round (the calibration's "
+          f"too) and one a chunk: {by}")
+    check(refits == boundaries(LS_GENS, LS_G) and all(fit_ok),
+          f"{label}: the boundary refits were {refits} ({fit_ok})")
+    check(widths == [128, 2], f"{label}: History rows {widths} wide")
+    check(all(counts[k] > 0 for k in LS_PATH)
+          and modes["segment_round:linear"] > 0,
+          f"{label}: a kernel of the path was never launched")
+    runs = {"on": (h, rep)}
+    for kind, early in (("linear", False), ("identity", "auto")):
+        a = learned(dev, kind, early)
+        with plain_versions_raise():
+            t0 = time.perf_counter()
+            hh = a.run(max_nr_populations=LS_GENS)
+            torch.cuda.synchronize()
+            w_ = time.perf_counter() - t0
+        tag = "early reject off" if kind == "linear" else "identity"
+        runs[tag] = (hh, ls_report(f"{label.replace('linear', kind)} "
+                                   f"{tag}", a, hh, w_))
+    same = populations_identical(h, runs["early reject off"][0])
+    tot = seg_totals(h)
+    saved = 1.0 - tot["seg_steps"] / max(tot["seg_resolved"] * 4, 1)
+    lanes = sum(rep["rounds"][1:]) * pick_batch(LS_POP)
+    ratio = runs["identity"][1]["fetch"] / rep["fetch"]
+    log(f"{label}: early reject on and off bit-identical {same}; retired "
+        f"{tot['retired_early']}, seg_resolved {tot['seg_resolved']} of "
+        f"{lanes} slots, sim_work_saved_frac {saved:.4f}; fetch bytes a "
+        f"particle identity {runs['identity'][1]['fetch']:.2f} learned "
+        f"{rep['fetch']:.2f}: {ratio:.2f} times fewer")
+    check(same, f"{label}: populations differ with early reject on and off")
+    check(tot["seg_resolved"] == lanes, f"{label}: {tot['seg_resolved']} of "
+          f"{lanes} slots resolved")
+    check(ratio >= 2.0, f"{label}: fetch bytes a particle only {ratio:.2f} "
+          f"times fewer than the identity run's")
+    by_name = profile_run(f"{label} (profiled)", learned(dev), LS_GENS)
+    if by_name:
+        for name, keys in (("K23 fit", ("ridge_",)),
+                           ("K23 transform and accept", ("linear_accept",
+                                                         "linear_transform")),
+                           ("K18 transformed operands", ("linear_bound",)),
+                           ("K18 rounds", ("segment_round",))):
+            v = [t for k, t in by_name.items() if any(s in k for s in keys)]
+            tot_ms = sum(t[0] for t in v) / 1e3
+            log(f"{label}: {name} device ms a generation "
+                f"{tot_ms / LS_GENS:.5f} ({sum(t[1] for t in v)} launches)")
+    return counts, modes, fitted
+
+
+def boundaries(gens: int, G: int) -> list[int]:
+    """The chunks' last generations after generation 0's own chunk: where
+    K23's fit runs."""
+    out, t = [], 1
+    while t < gens:
+        t += min(G, gens - t)
+        out.append(t - 1)
+    return out
+
+
+def learned_adaptive_leg(dev) -> None:
+    """The adaptive form at the leg's shape (the classic kernel, as the
+    JAX package gates it): the C'-wide weight trail, one counter read a
+    round, one fetch a chunk and the seed's read."""
+    import torch
+
+    label = "learned-statistics adaptive leg (network SIR, S 128)"
+    abc = learned(dev, "adaptive")
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=LS_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = ls_report(label, abc, h, wall)
+    wts = abc.distance_function.weights
+    trail = {t: [round(float(v), 4) for v in wts[t]] for t in sorted(wts)}
+    log(f"{label}: weights trail {trail}; fallbacks "
+        f"{abc.capability_fallbacks}")
+    by = rep["syncs"]["by_kind"]
+    check(all(len(wts[t]) == 2 for t in range(1, LS_GENS)),
+          f"{label}: the weights after generation 0 are not C' wide")
+    check(set(by) == {"round_counters", "chunk_fetch", "sumstat_seed"}
+          and by["sumstat_seed"] == 1
+          and 1 <= by["round_counters"] - sum(rep["rounds"]) <= 2,
+          f"{label}: host reads {by}")
+
+
+def calibration_hook(dist, feed=None, nudge: float = 0.0) -> dict:
+    """Wrap an adaptive distance's first refit of a run (the calibration's
+    weights and distances) once -> the dict the hook fills with what the
+    run then used. ``feed``: (w, d) taken in their place (another run's
+    calibration); ``nudge``: the weights moved one ulp towards +inf (1) or
+    -inf (-1), the distances kept."""
+    import torch
+
+    seen, orig = {}, dist.refit
+
+    def refit(*args, **kwargs):
+        del dist.refit  # once: the generations' refits are the method's
+        w, d = orig(*args, **kwargs)
+        if feed is not None:
+            w, d = feed[0].to(w.device), feed[1].to(d.device)
+        if nudge:
+            w = torch.nextafter(w, torch.full_like(w, nudge * math.inf))
+        seen["w"], seen["d"] = w.clone(), d.clone()
+        return w, d
+
+    dist.refit = refit
+    return seen
+
+
+def learned_cpu_trail(dev) -> None:
+    """Both learned legs at pop 1024 on the card and on the CPU (the plain
+    versions, the same Philox streams): the first two epsilons within 1e-3
+    relative. The adaptive leg's calibration weights are float32 sums that
+    the card and the CPU add in other orders, and they decide which
+    candidates at generation 0's threshold are kept, whose rows seed the
+    transform. So its generation 0 is held within 1e-3, and its generation
+    1 is held on a CPU run fed the card's calibration weights and
+    distances; the CPU's own generation 1, and the CPU's with its
+    calibration weights one ulp up and one ulp down, are reported beside
+    it."""
+    def trail(h):
+        return [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    def fmt(r):
+        return [float(f"{v:.2e}") for v in r]
+
+    for kind in ("linear", "adaptive"):
+        trails, card_cal = {}, None
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            abc = learned(where, kind, pop=LS_CPU_POP)
+            if kind == "adaptive" and where == dev:
+                card_cal = calibration_hook(abc.distance_function)
+            trails[where] = trail(abc.run(max_nr_populations=3))
+            log(f"learned-statistics {kind} leg at pop {LS_CPU_POP} "
+                f"({where}, {time.perf_counter() - t0:.1f} s): eps trail "
+                f"{[round(e, 5) for e in trails[where]]}")
+        r = rel(trails[dev], trails["cpu"])
+        log(f"learned-statistics {kind} leg at pop {LS_CPU_POP}: |card - "
+            f"cpu| / cpu per generation {fmt(r)}")
+        held = 2 if kind == "linear" else 1
+        check(max(r[:held]) <= 1e-3, f"learned {kind} leg: the card's "
+              f"first {held} epsilons are more than 1e-3 off the CPU's")
+        if kind == "linear":
+            continue
+        runs = {}
+        for label, kw in (("fed the card's calibration",
+                           {"feed": (card_cal["w"], card_cal["d"])}),
+                          ("calibration weights +1 ulp", {"nudge": 1.0}),
+                          ("calibration weights -1 ulp", {"nudge": -1.0})):
+            abc = learned("cpu", kind, pop=LS_CPU_POP)
+            calibration_hook(abc.distance_function, **kw)
+            runs[label] = trail(abc.run(max_nr_populations=3))
+            log(f"learned-statistics adaptive leg at pop {LS_CPU_POP} (cpu, "
+                f"{label}): eps trail "
+                f"{[round(e, 5) for e in runs[label]]}; against the card "
+                f"{fmt(rel(trails[dev], runs[label]))}, against the cpu's "
+                f"own {fmt(rel(runs[label], trails['cpu']))}")
+        fed = rel(trails[dev], runs["fed the card's calibration"])
+        check(max(fed[:2]) <= 1e-3, "learned adaptive leg: the CPU fed the "
+              "card's calibration is more than 1e-3 off the card in its "
+              "first two epsilons")
+
+
+def learned_accuracy(dev) -> None:
+    """tests/test_sumstat_device.py:497-540's setting on the card (noise 30
+    in the model and the observation, pop 256, 8 generations) over
+    LS_ACC_SEEDS: each seed's posterior-mean RMSE against TRUE_PARS under
+    the identity and under the learned statistic. The JAX suite's rule
+    (learned at most the identity's + 0.02) holds at its seed 19 by the
+    draw: over these seeds the JAX package meets it on 3 of 16
+    (``tests/test_torch_sumstat_runs.py``'s main). The check holds the
+    card's seed means of the learned RMSE and of its gap to the identity's
+    within 3 standard errors of the JAX package's over the same seeds
+    (LS_ACC_JAX; two samples, other random streams), and reports seed 19's
+    pair and the rule's verdict seed by seed."""
+    import numpy as np
+
+    from pyabc_tpu_torch.models import sir
+
+    t0 = time.perf_counter()
+    rmse = {"identity": [], "linear": []}
+    for seed in LS_ACC_SEEDS:
+        for kind in rmse:
+            abc = learned(dev, kind, pop=LS_ACC_POP, seed=seed,
+                          noise=LS_ACC_NOISE)
+            with plain_versions_raise():
+                h = abc.run(max_nr_populations=LS_ACC_GENS)
+            df, w = h.get_distribution(0, h.max_t)
+            err = [float(np.sum(df[k] * w)) - v for k, v in
+                   sir.TRUE_PARS.items()]
+            rmse[kind].append(float(np.sqrt(np.mean(np.square(err)))))
+    lin, ident = np.array(rmse["linear"]), np.array(rmse["identity"])
+    card = {"learned": lin, "gap": lin - ident}
+    j_n = LS_ACC_JAX["n"]
+    log(f"learned-statistics accuracy (noise {LS_ACC_NOISE}, pop "
+        f"{LS_ACC_POP}, {LS_ACC_GENS} generations, seeds "
+        f"{LS_ACC_SEEDS[0]}-{LS_ACC_SEEDS[-1]}, "
+        f"{time.perf_counter() - t0:.1f} s): identity RMSE per seed "
+        f"{[round(float(v), 4) for v in ident]}; learned "
+        f"{[round(float(v), 4) for v in lin]}")
+    for key, vals in card.items():
+        j_mean, j_sd = LS_ACC_JAX[key]
+        se = math.sqrt(vals.var(ddof=1) / len(vals) + j_sd ** 2 / j_n)
+        z = (vals.mean() - j_mean) / se
+        log(f"learned-statistics accuracy, {key} RMSE: card mean "
+            f"{vals.mean():.4f} sd {vals.std(ddof=1):.4f} over {len(vals)} "
+            f"seeds; the JAX package {j_mean:.4f} sd {j_sd:.4f} over {j_n} "
+            f"(CPU); se {se:.4f}, limit +-{3 * se:.4f}, {z:+.2f} se")
+        check(abs(z) <= 3.0, f"learned statistics: the card's {key} RMSE "
+              f"seed mean is more than 3 se off the JAX package's")
+    met = card["gap"] <= 0.02
+    log(f"learned-statistics accuracy: seed {LS_ACC_SEEDS[0]}: learned "
+        f"{lin[0]:.4f} identity {ident[0]:.4f}; the JAX suite's rule met on "
+        f"{int(met.sum())} of {len(lin)} seeds {met.astype(int).tolist()} "
+        f"(the JAX package: 3 of 16)")
+
+
+def lin_round_case(dev, model, x, params: dict, label: str,
+                   ring_cap: int) -> tuple:
+    """K18's transformed mode and its plain version on one round, at eps
+    the 30 % quantile of the round's transformed distances, each followed
+    by K23's accept and K6 into fresh buffers: kept slots, statistics,
+    reservoir, ring and counters bit-identical, some slots accepted ->
+    (the operands, eps, the counters)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (compact_round, linear_accept,
+                                         linear_bound, segment_round,
+                                         segment_round_plain)
+
+    B, d_th = x["theta"].shape
+    S, C = params["W"].shape
+    w = torch.ones(C, device=dev)
+    bp = linear_bound(w, params, x["imap"])
+    kw = dict(imap=x["imap"], x0=x["x0"], w=w, p=2.0, width=S, lin=bp)
+    full, _k = segment_round(
+        model.segmented, x["theta"], x["valid"], x["stream"],
+        eps=torch.tensor(math.inf, device=dev),
+        seg_ctr=torch.zeros(4, dtype=torch.int64, device=dev), **kw)
+    d_full = linear_accept.values(full, x["x0"], params, w, p=2.0)
+    eps = torch.quantile(d_full[x["valid"]], 0.3)
+    outs = []
+    for fn in (segment_round, segment_round_plain):
+        ctr = torch.zeros(4, dtype=torch.int64, device=dev)
+        ss, keep = fn(model.segmented, x["theta"], x["valid"], x["stream"],
+                      eps=eps, seg_ctr=ctr, **kw)
+        d, acc, lw = linear_accept(ss, x["x0"], params, w, eps, keep, p=2.0)
+        res = {"theta": torch.zeros(B, d_th, device=dev),
+               "sumstats": torch.zeros(B, S, device=dev),
+               "distance": torch.zeros(B, device=dev),
+               "log_weight": torch.full((B,), -math.inf, device=dev),
+               "slot": torch.full((B,), -1, dtype=torch.int32, device=dev)}
+        rec = {"sumstats": torch.zeros(ring_cap, S, device=dev),
+               "distance": torch.zeros(ring_cap, device=dev),
+               "accepted": torch.zeros(ring_cap, dtype=torch.bool,
+                                       device=dev),
+               "valid": torch.zeros(ring_cap, dtype=torch.bool, device=dev)}
+        counters = torch.zeros(4, dtype=torch.int32, device=dev)
+        compact_round(acc, keep, x["theta"], ss, d, lw, res, rec, counters)
+        outs.append((ss, keep, ctr, res, rec, counters))
+    (ss, keep, ctr, res, rec, cnt), (ss_r, keep_r, ctr_r, res_r, rec_r,
+                                     cnt_r) = outs
+    torch.cuda.synchronize()
+    same = (torch.equal(keep, keep_r) and torch.equal(ss[keep], ss_r[keep])
+            and torch.equal(ctr[:3], ctr_r[:3]) and torch.equal(cnt, cnt_r)
+            and all(torch.equal(res[k], res_r[k]) for k in res)
+            and all(torch.equal(rec[k], rec_r[k]) for k in rec))
+    retired, steps, resolved, _slots = (int(v) for v in ctr)
+    invalid = int((~x["valid"]).sum())
+    n_seg = x["imap"].shape[0]
+    null = torch.diagonal(bp["proj"], dim1=1, dim2=2).sum(1).round()
+    log(f"K18 segment_round transformed mode, {label} (B={B}, {n_seg} "
+        f"segments, S {S}, C' {C}, eps={float(eps):.4g}): retired {retired} "
+        f"({invalid} of them invalid draws), segments stepped {steps} of "
+        f"{B * n_seg}, resolved {resolved}, accepted {int(cnt[0])}; null "
+        f"counts {null.int().tolist()}; bit-identical to the plain version "
+        f"{same}")
+    check(same and resolved == B and int(cnt[0]) > 0,
+          f"K18 transformed mode ({label}): kept slots, statistics, "
+          f"reservoir, ring or counters differ from the plain version, or "
+          f"nothing was accepted")
+    return kw, eps, ctr
+
+
+def k18_linear_checks(dev, params: dict) -> dict:
+    """K18's transformed mode against its plain version: at the learned
+    leg's round (B 65536, the fitted transform the leg ended with), where
+    every segment's 32 rows span C' = 2 and nothing retires, and at config
+    3's birth-death round (B 131072, 10 segments of 2 values) under a C' 8
+    transform, so that the last three segments' rows leave a null space
+    and slots retire on v^T P_j v; its device time at the leg's round
+    beside K18's p-norm mode and K20b's unsegmented round on the same
+    slots: what the engine costs when it retires nothing."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (network_sir, segment_round,
+                                         segment_round_plain)
+    from pyabc_tpu_torch.models import gillespie as g
+    from pyabc_tpu_torch.utils import pick_batch
+
+    B = pick_batch(LS_POP)
+    x = ls_rows(dev, B, seed=43)
+    model, S = x["model"], x["spec"].total_size
+    kw, eps, ctr = lin_round_case(dev, model, x, params, "the leg's round",
+                                  8192)
+    steps = int(ctr[1])
+    bd = g.make_birth_death_model(segments=C3_SEGS)
+    xb = seg_inputs(dev, bd, g.birth_death_prior(),
+                    g.observed_birth_death(segments=C3_SEGS), C3_BENCH_POP,
+                    seed=44)
+    Sb, gen = xb["spec"].total_size, torch.Generator(device=dev)
+    gen.manual_seed(44)
+    pb = {"W": torch.randn(Sb, 8, generator=gen, device=dev),
+          "b": torch.zeros(8, device=dev), "mu": xb["x0"].clone(),
+          "sd": xb["x0"].abs().clamp(min=1.0)}
+    kw_b, eps_b, ctr_b = lin_round_case(dev, bd, xb, pb,
+                                        "config 3's round, C' 8", 8192)
+    check(int(ctr_b[0]) > int((~xb["valid"]).sum()),
+          "K18 transformed mode: no valid slot retired at config 3's round "
+          "under C' 8")
+    scratch = torch.zeros(4, dtype=torch.int64, device=dev)
+    ones = torch.ones(S, device=dev)
+    e_inf = torch.tensor(math.inf, device=dev)
+    ms_bd = {label: graph_ms(lambda e=e: segment_round(
+        bd.segmented, xb["theta"], xb["valid"], xb["stream"], eps=e,
+        seg_ctr=scratch, **kw_b), iters=10, replays=3)
+        for label, e in (("eps", eps_b), ("inf", e_inf))}
+    log(f"K18 transformed mode device ms per config 3 round under C' 8 "
+        f"(B={C3_BENCH_POP}): {ms_bd['eps']:.4f} at eps "
+        f"{float(eps_b):.4g} ({int(ctr_b[1])} segment steps), "
+        f"{ms_bd['inf']:.4f} at eps = inf "
+        f"({C3_BENCH_POP * C3_SEGS} steps)")
+
+    def on():
+        return segment_round(model.segmented, x["theta"], x["valid"],
+                             x["stream"], eps=eps, seg_ctr=scratch, **kw)
+
+    ms_on = graph_ms(on, iters=10, replays=3)
+    ms_pn = graph_ms(lambda: segment_round(
+        model.segmented, x["theta"], x["valid"], x["stream"], imap=x["imap"],
+        x0=x["x0"], w=ones, p=2.0, eps=e_inf, width=S, seg_ctr=scratch),
+        iters=10, replays=3)
+    spec = model.chain.kernel[1]
+    ms_net = graph_ms(lambda: network_sir(spec, x["theta"], x["stream"]),
+                      iters=10, replays=3)
+    log(f"K18 transformed mode device ms per round (B={B}): {ms_on:.4f}; "
+        f"K18's p-norm mode on the same slots (eps inf, nothing retires) "
+        f"{ms_pn:.4f}; K20b's unsegmented network round {ms_net:.4f}")
+    t0 = time.perf_counter()
+    segment_round_plain(model.segmented, x["theta"], x["valid"], x["stream"],
+                        eps=eps, seg_ctr=torch.zeros(4, dtype=torch.int64,
+                                                     device=dev), **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_steps = spec.n_obs * spec.n_substeps
+    return dict(err=0.0, call_ms=time_ms(on, 10), ms=ms_on,
+                plain_ms=plain_ms,
+                bound=bound(B * (2 + S) * 4, B * n_steps * 8 * 78
+                            * steps / (B * 4)),
+                library_ms=None, ms_pnorm_mode=ms_pn, ms_k20b_round=ms_net,
+                ms_config3_c8=ms_bd["eps"],
+                ms_config3_c8_eps_inf=ms_bd["inf"])
+
+
 def main() -> int:
     import torch
 
@@ -6506,6 +7266,7 @@ def main() -> int:
     results.update(k16_checks(dev))
     results.update(k25_checks(dev))
     results.update(k2_family_checks(dev))
+    results.update(k23_checks(dev)[0])
     k16_repair_case(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -6567,6 +7328,10 @@ def main() -> int:
     lv_family_cpu_trail(dev)
     family_pair(dev)
     writer_turns(dev)
+    ls_counts, ls_modes, ls_params = learned_leg(dev)
+    learned_cpu_trail(dev)
+    learned_adaptive_leg(dev)
+    learned_accuracy(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -6577,6 +7342,9 @@ def main() -> int:
     # K18's aggregate mode at generation 6 of the aggregated config 3 leg
     results["segment_round:aggregate"] = k18_aggregate_checks(
         dev, c3agg_eps[6], c3_eps[6])
+    # K18's transformed mode at the learned leg's round, with the
+    # transform that leg ended with, and at config 3's round under C' 8
+    results["segment_round:linear"] = k18_linear_checks(dev, ls_params)
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -6594,8 +7362,10 @@ def main() -> int:
         # each kernel's launches on its slice's main path: LV config 2 for
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
         # and K26, config 3 for K18 and K19, the scale lane for K12-K15,
-        # the LV aggregated adaptive leg for K25
-        own = (agg_counts if k.name in AGG_KERNELS
+        # the LV aggregated adaptive leg for K25, the learned-statistics
+        # leg for K23 and K18's transformed operands
+        own = (ls_counts if k.name in LS_KERNELS
+               else agg_counts if k.name in AGG_KERNELS
                else sir_counts if k.name in NOISY_KERNELS else c5_counts
                if k.name in MODEL_KERNELS else scale_counts
                if k.name in LOCAL_KERNELS else c3_counts
@@ -6636,10 +7406,13 @@ def main() -> int:
                                      sched_counts[k.name],
                                  "config3_aggregate":
                                      c3agg_counts[k.name],
-                                 "lv_families": lvf_counts[k.name]},
+                                 "lv_families": lvf_counts[k.name],
+                                 "learned_network_sir":
+                                     ls_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
-                      "n_changed_incremental", "noisy_keep_flips"):
+                      "n_changed_incremental", "noisy_keep_flips",
+                      "transform_ms", "transform_err", "k5_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:
@@ -6695,6 +7468,10 @@ def main() -> int:
                  "pyabc_tpu_torch/csrc/segment_round.cu",
                  "pyabc_tpu/distance/aggregate.py:85",
                  c3agg_counts["segment_round:aggregate"]))
+    rows.append(("segment_round:linear",
+                 "pyabc_tpu_torch/csrc/segment_round.cu",
+                 "pyabc_tpu/ops/fit.py:240",
+                 ls_modes["segment_round:linear"]))
     for name, source, replaces, launches in rows:
         r = results[name]
         check(launches > 0, f"{name} was never launched on its path")
@@ -6704,8 +7481,8 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            **({"ms_pnorm_mode": r["ms_pnorm_mode"]}
-               if "ms_pnorm_mode" in r else {}),
+            **{k: r[k] for k in ("ms_pnorm_mode", "ms_k20b_round")
+               if k in r},
             **({"k6_ring_mask": {
                 "ms": r["k6_ring_mask"]["ms"],
                 "call_ms": r["k6_ring_mask"]["call_ms"],

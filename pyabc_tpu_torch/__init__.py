@@ -3,7 +3,8 @@ single-device ABC-SMC path (one model or model selection over several,
 with priors of every family of the JAX package;
 the MVN or, for one model, the local k-NN transition; a constant, listed
 or adaptive population size; p-norm, aggregated or noise-model
-distances), for one NVIDIA H100.
+distances, the p-norms also through linear learned summary statistics),
+for one NVIDIA H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
 hand-written kernels (``csrc/``) are built at first launch.
@@ -26,10 +27,13 @@ from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
                       Temperature, TemperatureScheme)
 from .inference import ABCSMC, DegenerateRunError
 from .model import TorchModel
+from .predictor import (GPPredictor, LassoPredictor, LinearPredictor,
+                        MLPPredictor, ModelSelectionPredictor, Predictor)
 from .populationstrategy import (AdaptivePopulationSize,
                                  ConstantPopulationSize, ListPopulationSize,
                                  PopulationStrategy)
 from .storage import History
+from .sumstat import IdentitySumstat, PredictorSumstat, Sumstat
 from .transition import (LocalTransition, ModelPerturbationKernel,
                          MultivariateNormalTransition, scott_rule_of_thumb,
                          silverman_rule_of_thumb)
@@ -40,18 +44,21 @@ __all__ = [
     "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
     "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
     "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
-    "FrielPettittScheme", "History", "IndependentLaplaceKernel",
+    "FrielPettittScheme", "GPPredictor", "History", "IdentitySumstat",
+    "IndependentLaplaceKernel", "LassoPredictor", "LinearPredictor",
     "IndependentNormalKernel", "ListEpsilon", "ListPopulationSize",
     "ListTemperature",
-    "LocalTransition", "LowerBoundDecorator", "MedianEpsilon",
-    "ModelPerturbationKernel",
+    "LocalTransition", "LowerBoundDecorator", "MLPPredictor",
+    "MedianEpsilon", "ModelPerturbationKernel", "ModelSelectionPredictor",
     "MultivariateNormalTransition", "NegativeBinomialKernel",
     "NormalKernel", "PNormDistance", "ParameterSpace", "PoissonKernel",
     "PolynomialDecayFixedIterScheme", "Population", "PopulationStrategy",
+    "Predictor", "PredictorSumstat",
     "QuantileEpsilon", "RV", "RVBase", "RVDecorator",
     "SCALE_LIN", "SCALE_LOG", "ScaledPDFNorm", "ScipyRV",
     "StochasticAcceptor",
-    "StochasticKernel", "Temperature", "TemperatureScheme", "TorchModel",
+    "StochasticKernel", "Sumstat", "Temperature", "TemperatureScheme",
+    "TorchModel",
     "UniformAcceptor", "pdf_norm_from_kernel", "pdf_norm_max_found",
     "scott_rule_of_thumb", "silverman_rule_of_thumb",
 ]

@@ -218,3 +218,39 @@ def population_strategy(strategy):
             min_population_size=strategy.min_population_size,
             n_bootstrap=strategy.n_bootstrap, nr_calibration_particles=cal)
     raise ValueError(f"no port of the population strategy {name}")
+
+
+def predictor_from_jax(predictor):
+    """A fitted (or unfitted) JAX ``LinearPredictor`` -> the port's, its
+    ``alpha``, ``normalize`` and fitted ``_W``, ``_b``, ``_mu``, ``_sd``
+    carried across as float64 numpy (read by attribute: nothing of the JAX
+    package is imported)."""
+    from .predictor import LinearPredictor
+
+    name = type(predictor).__name__
+    if name != "LinearPredictor":
+        raise not_ported(f"carrying a {name} across (the linear plan "
+                         f"only)", "14")
+    out = LinearPredictor(alpha=predictor.alpha,
+                          normalize=predictor.normalize)
+    for key in ("_W", "_b", "_mu", "_sd"):
+        value = getattr(predictor, key)
+        setattr(out, key,
+                None if value is None else np.asarray(value, np.float64))
+    return out
+
+
+def sumstat_from_jax(sumstat):
+    """A JAX ``PredictorSumstat`` -> the port's, with its predictor carried
+    across (``predictor_from_jax``) and its ``_out_dim`` and
+    ``_last_fit_t``: its host ``predict`` and ``device_params`` serve as
+    the JAX one's. ``ABCSMC`` refuses a fitted statistic before launch
+    (ROADMAP queue A, item 14)."""
+    from .sumstat import PredictorSumstat
+
+    out = PredictorSumstat(predictor_from_jax(sumstat.predictor),
+                           normalize_labels=sumstat.normalize_labels,
+                           fit_every=sumstat.fit_every,
+                           min_samples=sumstat.min_samples)
+    out._out_dim, out._last_fit_t = sumstat._out_dim, sumstat._last_fit_t
+    return out

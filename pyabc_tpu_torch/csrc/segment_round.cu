@@ -65,6 +65,18 @@
 // exceeds thr (1 + 1e-4): sound while every W_k and w_k is >= 0, which
 // the host gate checks.
 //
+// Transformed mode (a fitted linear learned statistic under a plain
+// PNormDistance(p = 2); pyabc_tpu/ops/fit.py::linear_bound_fns :240 via
+// distance/pnorm.py::_transformed_bound_fn :279): the Bound is LinBound,
+// whose accumulator is the C' (<= 8) partial transformed difference v and
+// the segments folded. Each segment adds (v_k - x0[c_k]) At[c_k, :] over
+// its values in emission order (a segment's sum first, then added, each
+// step _rn), At the (S, C') coefficient rows linear_bound.cu prepares once
+// a generation; the slot retires when v^T P_j v (P_j the suffix Gram's
+// null-space projector after j segments, j clamped to n_seg; the inner
+// sums in order) exceeds (thr (1 + 1e-4))^2. Exact as a bound: while the
+// remaining rows of At span the C' space P_j = 0 and nothing retires.
+//
 // Bound on an H100: operations (the steps' Philox and log work), as K19;
 // the point of the kernel is to do fewer of them. A slot's noise is keyed
 // by the slot, so which thread runs a slot changes no number; only [3]
@@ -229,6 +241,73 @@ struct AggBound {
   }
 };
 
+// the transformed-space bound of a fitted linear learned statistic (p = 2)
+constexpr int kMaxLin = 8;
+
+struct LinAcc {
+  float v[kMaxLin];
+  int n;  // segments folded
+};
+
+struct LinBound {
+  using Acc = LinAcc;
+  const float* x0;
+  const float* At;    // (S, C)
+  const float* proj;  // (n_proj, C, C)
+  int C, n_proj;
+  float lim;  // (thr (1 + rtol))^2
+
+  __device__ LinAcc init() const {
+    LinAcc acc;
+#pragma unroll
+    for (int a = 0; a < kMaxLin; ++a) acc.v[a] = 0.f;
+    acc.n = 0;
+    return acc;
+  }
+  __device__ float threshold(uint32_t /*slot*/, uint32_t /*round*/) const {
+    return lim;
+  }
+  __device__ bool exceeds(const LinAcc& acc, float thr) const {
+    const int j = min(max(acc.n, 0), n_proj - 1);
+    const float* P = proj + (size_t)j * C * C;
+    float q = 0.f;
+#pragma unroll
+    for (int a = 0; a < kMaxLin; ++a) {
+      if (a >= C) break;
+      float pv = 0.f;
+#pragma unroll
+      for (int b = 0; b < kMaxLin; ++b) {
+        if (b >= C) break;
+        pv = __fadd_rn(pv, __fmul_rn(P[a * C + b], acc.v[b]));
+      }
+      q = __fadd_rn(q, __fmul_rn(acc.v[a], pv));
+    }
+    return q > thr;
+  }
+  __device__ LinAcc fold(LinAcc acc, const float* vals, const int* cols,
+                         int m) const {
+    float contrib[kMaxLin];
+#pragma unroll
+    for (int a = 0; a < kMaxLin; ++a) contrib[a] = 0.f;
+    for (int k = 0; k < m; ++k) {
+      const int c = cols[k];
+      const float diff = __fsub_rn(vals[k], x0[c]);
+#pragma unroll
+      for (int a = 0; a < kMaxLin; ++a) {
+        if (a >= C) break;
+        contrib[a] = __fadd_rn(contrib[a], __fmul_rn(diff, At[c * C + a]));
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kMaxLin; ++a) {
+      if (a >= C) break;
+      acc.v[a] = __fadd_rn(acc.v[a], contrib[a]);
+    }
+    acc.n += 1;
+    return acc;
+  }
+};
+
 // what either bound reads, passed by value; each Bound builds itself from
 // it on the device (the thresholds are device scalars)
 struct BoundArgs {
@@ -245,6 +324,9 @@ struct BoundArgs {
   int agg_n;        // > 0: the aggregate bound over agg_n sub-distances
   int agg_code[kMaxSub];
   float agg_p[kMaxSub];
+  int lin_c;              // > 0: the transformed bound (w is At (S, lin_c))
+  const float* lin_proj;  // (n_seg + 1, lin_c, lin_c)
+  int lin_nproj;
 };
 
 __device__ __forceinline__ float bound_limit(float thr, float p) {
@@ -278,6 +360,14 @@ __device__ __forceinline__ AggBound make_bound(const BoundArgs& a,
   }
   b.lim = __fmul_rn(thr, 1.0001f);
   return b;
+}
+
+__device__ __forceinline__ LinBound make_bound(const BoundArgs& a,
+                                               LinBound*) {
+  float thr = a.eps[0];
+  if (a.hist_min != nullptr) thr = fminf(thr, a.hist_min[0]);
+  return LinBound{a.x0,    a.w,           a.lin_proj,
+                  a.lin_c, a.lin_nproj,   bound_limit(thr, 2.f)};
 }
 
 __device__ __forceinline__ NoiseBound make_bound(const BoundArgs& a,
@@ -390,6 +480,11 @@ int launch_bound(const SegModels& ms, int K, const int* m_lane, int threads,
                  unsigned long long* seg_ctr, unsigned k0, unsigned k1,
                  unsigned gen, unsigned tag, unsigned max_rounds,
                  const int* counters, cudaStream_t stream) {
+  if (bargs.lin_c > 0)
+    return launch<Step, LinBound>(ms, K, m_lane, threads, theta, stride,
+                                  valid, B, imap, bargs, S, ss, keep, nseg,
+                                  next_slot, seg_ctr, k0, k1, gen, tag,
+                                  max_rounds, counters, stream);
   if (bargs.agg_n > 0)
     return launch<Step, AggBound>(ms, K, m_lane, threads, theta, stride,
                                   valid, B, imap, bargs, S, ss, keep, nseg,
@@ -414,7 +509,9 @@ int launch_bound(const SegModels& ms, int K, const int* m_lane, int threads,
 // else the noisy mode (K = 1): w the noise columns' params, eps the
 // temperature, pdf_norm the norm and a* the accept stream. agg_n > 0: the
 // aggregate bound (noise_family < 0; w K25's params, agg_codes and agg_ps
-// host arrays of agg_n).
+// host arrays of agg_n). lin_c > 0: the transformed bound (noise_family <
+// 0, agg_n 0, p 2; w the (S, lin_c) rows At, lin_proj the (n_seg + 1,
+// lin_c, lin_c) projectors).
 extern "C" int pyabc_segment_round(
     const pyabc::SegModel* models, int K, const int* m, int threads,
     const float* theta, int stride, const uint8_t* valid, int B,
@@ -425,7 +522,8 @@ extern "C" int pyabc_segment_round(
     unsigned max_rounds, const int* counters, int noise_family,
     float noise_init, const float* pdf_norm, unsigned ak0, unsigned ak1,
     unsigned agen, unsigned atag, int agg_n, const int* agg_codes,
-    const float* agg_ps, void* stream_ptr) {
+    const float* agg_ps, int lin_c, const float* lin_proj,
+    void* stream_ptr) {
   if (B <= 0) return 0;
   if (models == nullptr || counters == nullptr || threads <= 0 || K < 1 ||
       K > kMaxModels || (K > 1 && m == nullptr))
@@ -437,6 +535,9 @@ extern "C" int pyabc_segment_round(
   if (agg_n < 0 || agg_n > kMaxSub ||
       (agg_n > 0 && (noise_family >= 0 || agg_codes == nullptr ||
                      agg_ps == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lin_c < 0 || lin_c > kMaxLin ||
+      (lin_c > 0 && (noise_family >= 0 || agg_n > 0 || lin_proj == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   SegModels ms{};
   for (int k = 0; k < K; ++k) {
@@ -450,7 +551,8 @@ extern "C" int pyabc_segment_round(
                   noise_init,   pdf_norm,
                   AcceptStream{ak0, ak1, agen, atag, max_rounds},
                   S,            agg_n,      {},
-                  {}};
+                  {},           lin_c,      lin_proj,
+                  ms.m[0].n_seg + 1};
   for (int j = 0; j < agg_n; ++j) {
     if (agg_codes[j] < kAggP1 || agg_codes[j] > kAggPGen)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -54,6 +54,11 @@ class AggregatedDistance:
                     f"a {type(d).__name__} sub-distance of an aggregated "
                     f"distance (the fused path serves plain PNormDistance "
                     f"sub-distances)", "12")
+            if d.sumstat is not None:
+                # the JAX package's fused gate refuses it too
+                raise not_ported("a sub-distance with a learned sumstat of "
+                                 "an aggregated distance (the JAX "
+                                 "package's host loop only)", "14")
         n = len(self.distances)
         if not 0 < n <= MAX_SUB:
             raise not_ported(f"an aggregated distance of {n} sub-distances "

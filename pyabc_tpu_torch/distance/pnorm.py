@@ -13,6 +13,14 @@ is the prefix bound that segmented early reject (K18,
 ``kernels/segment_round.py``) retires candidates on; under early reject an
 adaptive refit finishes from the moment block of the resolved candidates
 (K22, ``kernels/moments.py``) instead of the record ring.
+
+Learned statistics (``sumstat=PredictorSumstat(LinearPredictor(...))``):
+the identity until the host seed fit after generation 0, then the fitted
+linear transform; ``device_params`` is then ``{"w": (C',), "ss": the
+transform}`` and the accept runs through K23 (``kernels/linear_sumstat.py``).
+The adaptive variant refits its weights in the transformed space (K9 over
+the transformed record ring). Under a plain p = 2 norm the prefix bound is
+the transformed one of K18 (``kernels/linear_bound.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..kernels.linear_bound import linear_bound
 from ..kernels.moments import moment_finish
 from ..kernels.pnorm_accept import pnorm_rows
 from ..kernels.scale_reduce import scale_reduce
@@ -46,11 +55,10 @@ class PNormDistance:
                  sumstat=None):
         if p < 1:
             raise ValueError("p must be >= 1")
-        if sumstat is not None:
-            raise NotImplementedError(
-                "learned summary statistics are not ported yet (ROADMAP "
-                "queue A, item 14)")
         self.p = float(p)
+        #: a learned summary-statistic transform applied to x and x0
+        #: before the norm (``sumstat/``), or None
+        self.sumstat = sumstat
         self._weights_arg = weights
         self._factors_arg = factors
         self.spec = None
@@ -109,18 +117,33 @@ class PNormDistance:
         """True when the user's weights change with the generation."""
         return any(k >= 0 for k in self.weights)
 
-    def device_params(self, t: int | None = None,
-                      device=None) -> torch.Tensor:
-        """The (S,) float32 weights of generation t (factors applied), as
-        the JAX package's ``device_params(t)``."""
+    def _feature_dim(self) -> int:
+        S = self.spec.total_size
+        return self.sumstat.out_dim(S) if self.sumstat is not None else S
+
+    def fitted_transform(self) -> bool:
+        """True once a learned transform is fitted (the weights then live in
+        its C'-dimensional feature space)."""
+        return self.sumstat is not None and self.sumstat.predictor.fitted
+
+    def device_params(self, t: int | None = None, device=None):
+        """The float32 weights of generation t (factors applied), as the
+        JAX package's ``device_params(t)``: ``(S,)``, or under a fitted
+        learned transform ``{"w": (C',), "ss": its parameters}`` (weights
+        of another width than C' give way to ones, as the JAX package's
+        host call does)."""
         if self.spec is None:
             raise RuntimeError("distance not initialized (no SumStatSpec)")
+        dim = self._feature_dim()
         w = self.weights_for(t)
-        if w is None:
-            w = np.ones(self.spec.total_size)
+        if w is None or (self.fitted_transform() and w.shape != (dim,)):
+            w = np.ones(dim)
         if self._factors_arg is not None:
             w = w * self._coerce_weight_vector(self._factors_arg)
-        return torch.as_tensor(np.asarray(w, np.float32), device=device)
+        w = torch.as_tensor(np.asarray(w, np.float32), device=device)
+        if not self.fitted_transform():
+            return w
+        return {"w": w, "ss": self.sumstat.device_params(device)}
 
     def initial_weights(self, device) -> torch.Tensor:
         """The device weights the run starts with (generation 0's)."""
@@ -149,9 +172,13 @@ class PNormDistance:
         ``(B, k)`` block at flat columns ``idx``) and ``exceeds(acc,
         threshold)``, compared in the p-th-power domain with the slack
         ``BOUND_RTOL``; K18 computes the same in the same order. The weights
-        are the generation's, the ones the accept test uses. Learned
-        transforms have no such bound in the port (ROADMAP queue A, item
-        14)."""
+        are the generation's, the ones the accept test uses.
+
+        A learned transform mixes the columns, so the partial p-sum is no
+        bound; for a linear plan under a plain p = 2 norm the transformed
+        bound is (``_transformed_bound_fn``), else None."""
+        if self.sumstat is not None:
+            return self._transformed_bound_fn()
         p = self.p
 
         def init(B: int, device=None) -> torch.Tensor:
@@ -167,8 +194,53 @@ class PNormDistance:
 
         return {"init": init, "step": step, "exceeds": exceeds}
 
+    def _transformed_bound_fn(self) -> dict | None:
+        """The projector bound of a linear learned transform at p = 2
+        (``pyabc_tpu/distance/pnorm.py:279-303``): ``{"linear": True,
+        "prepare": K18's per-generation operands}``, or None (an adaptive
+        distance, another p, another predictor). The JAX package also
+        waits for the fit; the port decides before generation 0 and folds
+        the bound from generation 1, once the seed fit has run."""
+        from ..predictor import LinearPredictor
+        from ..sumstat import PredictorSumstat
+
+        if type(self) is not PNormDistance or self.p != 2.0:
+            return None
+        ss = self.sumstat
+        if not isinstance(ss, PredictorSumstat) or not isinstance(
+                ss.predictor, LinearPredictor):
+            return None
+        return {"linear": True, "prepare": linear_bound}
+
+    def _sumstat_config(self) -> dict | None:
+        """The learned-transform stack as the JAX package's config names
+        it: predictor type, scalar hyperparameters, the fitted C'."""
+        ss = self.sumstat
+        if ss is None:
+            return None
+        cfg = {"name": type(ss).__name__}
+        pred = getattr(ss, "predictor", None)
+        if pred is not None:
+            pcfg = {"name": type(pred).__name__}
+            for attr in ("alpha", "lr", "n_steps", "hidden", "n_iter"):
+                val = getattr(pred, attr, None)
+                if isinstance(val, (int, float)):
+                    pcfg[attr] = val
+                elif isinstance(val, (tuple, list)):
+                    pcfg[attr] = tuple(val)
+            pcfg["fitted"] = bool(pred.fitted)
+            cfg["predictor"] = pcfg
+        if getattr(ss, "_out_dim", None) is not None:
+            cfg["out_dim"] = int(ss._out_dim)
+        if getattr(ss, "fit_every", None) is not None:
+            cfg["fit_every"] = int(ss.fit_every)
+        return cfg
+
     def get_config(self) -> dict:
-        return {"name": type(self).__name__, "p": self.p}
+        cfg = {"name": type(self).__name__, "p": self.p}
+        if self.sumstat is not None:
+            cfg["sumstat"] = self._sumstat_config()
+        return cfg
 
     def __repr__(self):
         return f"{type(self).__name__}(p={self.p})"
@@ -243,7 +315,7 @@ class AdaptivePNormDistance(PNormDistance):
         return w, d
 
     def get_config(self) -> dict:
-        return {"name": type(self).__name__, "p": self.p,
+        return {**super().get_config(),
                 "scale_function": self.scale_function.__name__}
 
     def __repr__(self):

@@ -88,6 +88,21 @@ sub-distances of the ring's rows, their column scale, ``W = factors /
 scale`` and the reservoir's distances under it. A user's weight schedule
 arrives as one row of the chunk's table per generation (``dist_w``).
 
+Learned statistics (``PNormDistance`` or ``AdaptivePNormDistance`` with
+``sumstat=PredictorSumstat(LinearPredictor(...))``, the linear plan of
+``pyabc_tpu`` ``multigen_kernel(sumstat_fit=...)``): once the host seed fit
+after generation 0 has run, ``Carry.dist_w`` is ``{"w": (C',), "ss": the
+transform}`` and a round's accept is K23's (``linear_accept``: x and x0
+through the transform, then K5's p-norm and epilogue); under early reject
+K18 folds the transformed bound (its ``LinBound``) on operands K18's
+prepare kernel forms once a generation. At a chunk's boundary generation
+the generation step runs K23's fit (``ridge_fit``: the decision, the fit
+and its finite guard on the device), then under an adaptive distance K9
+over the record ring transformed by the new parameters, else K23's values
+mode over the reservoir, so the epsilon quantile is taken in the new
+feature space; the generation's rows are transformed under the parameters
+they were accepted with for the fetch (C' wide).
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -106,6 +121,7 @@ from ..kernels.aggregate import aggregate_accept_weight
 from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
+from ..kernels.linear_sumstat import linear_accept, transform_rows
 from ..kernels.model_step import model_step
 from ..kernels.moments import moment_fold, seg_of_columns
 from ..kernels.mvn_fit import mvn_fit
@@ -114,6 +130,7 @@ from ..kernels.philox import PhiloxStream
 from ..kernels.pnorm_accept import pnorm_accept_weight
 from ..kernels.proposal_drift import proposal_drift
 from ..kernels.propose import N_REDRAWS, propose, propose_local
+from ..kernels.ridge_fit import ridge_fit
 from ..kernels.segment_round import segment_round
 from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..model import simulate_models_flat
@@ -131,6 +148,16 @@ N_ACC, ROUNDS, N_VALID, EPS_AT_MIN, N_TARGET = range(5)
 CALIBRATION_GENERATION = 2 ** 32 - 1
 
 
+def quantile_epsilon(d, k_mask, w_norm, weighted: bool, alpha: float,
+                     multiplier: float) -> torch.Tensor:
+    """The next epsilon from the kept rows' distances: their (weighted)
+    alpha-quantile times ``multiplier`` (K7)."""
+    pts = torch.where(k_mask, d, torch.full_like(d, math.inf))
+    wts = (torch.where(k_mask, w_norm, torch.zeros_like(w_norm)) if weighted
+           else k_mask.to(torch.float32))
+    return weighted_quantile(pts, wts, alpha) * multiplier
+
+
 @dataclass
 class Carry:
     """Device state carried from one generation to the next."""
@@ -139,7 +166,8 @@ class Carry:
     fitted: torch.Tensor        # bool (); K > 1: (K,)
     dist_w: torch.Tensor        # (S,); an aggregated distance's flat
     #                             params (K25); a stochastic kernel's
-    #                             variances
+    #                             variances; a fitted learned statistic's
+    #                             {"w": (C',), "ss": the transform}
     eps: torch.Tensor           # () threshold (temperature) of the next
     hist_min: torch.Tensor      # () running min of used epsilons
     eps_prev: torch.Tensor      # () health: previous epsilon
@@ -232,6 +260,8 @@ class DeviceContext:
         self.seg_moments: torch.Tensor | None = None
         #: the generation's rounds as the host last read them
         self.rounds_read = 0
+        #: K18's transformed-bound operands of the generation in progress
+        self.lin_bp: dict | None = None
         #: one model under LocalTransition: K2's local mode draws, K14
         #: scores, K15 then K12 and K13 refit
         self.local = self.K == 1 and isinstance(transition, LocalTransition)
@@ -328,9 +358,16 @@ class DeviceContext:
         if getattr(self.distance, "aggregated", False):
             # K18's aggregate mode: dist_w is K25's flat params
             noisy = dict(agg=self.distance.ps)
+        w = dist_w
+        if isinstance(dist_w, dict):
+            # K18's transformed mode, its operands formed once a generation
+            if self.lin_bp is None:
+                self.lin_bp = cfg["prepare"](dist_w["w"], dist_w["ss"],
+                                             cfg["index_map"])
+            noisy, w = dict(lin=self.lin_bp), dist_w["w"]
         out = segment_round(
             cfg["seg"], theta, valid, self.stream(t, philox.SIM_NOISE),
-            imap=cfg["index_map"], x0=self.x0, w=dist_w,
+            imap=cfg["index_map"], x0=self.x0, w=w,
             p=getattr(self.distance, "p", 2.0), eps=eps, hist_min=hist_min,
             width=self.S, seg_ctr=self.seg_counters, m=lane_m,
             dims=self.dims if self.K > 1 else None, return_nseg=fold,
@@ -354,6 +391,12 @@ class DeviceContext:
                 lin=self.temp_config.lin,
                 apply_iw=self.acceptor.apply_importance_weighting,
                 logpri=logpri, logq=logq, family=self.distance.family)
+        if isinstance(dist_w, dict):
+            # a fitted learned statistic: K23's transform and accept
+            return linear_accept(
+                ss, self.x0, dist_w["ss"], dist_w["w"], eps, valid,
+                p=self.distance.p, hist_min=hist_min, logpri=logpri,
+                logq=logq)
         if self.distance.aggregated:
             return aggregate_accept_weight(
                 ss, self.x0, dist_w, eps, valid, ps=self.distance.ps,
@@ -534,6 +577,7 @@ class DeviceContext:
         imap = self.model.index_map(self.spec, self.device)
         return {"seg": segs[0] if self.K == 1 else segs, "index_map": imap,
                 "bound": bound if self.stochastic else None,
+                "prepare": bound.get("prepare"),
                 "seg_of": torch.as_tensor(seg_of_columns(imap),
                                           device=self.device),
                 "moments": bool(getattr(self.distance, "adaptive", False))}
@@ -552,6 +596,7 @@ class DeviceContext:
                                         device=self.device)
         self.seg_moments = (init_moments(self.S, self.device)
                             if self.seg_cfg["moments"] else None)
+        self.lin_bp = None
         run = self.generation_while(lanes, n_target, eps_at_min,
                                     ring=self.stochastic)
         run.seg, run.mom = self.seg_counters, self.seg_moments
@@ -627,12 +672,86 @@ class DeviceContext:
             max_rounds=self.max_rounds, target_cv=target_cv, min_n=min_n,
             max_n=max_n, n_bootstrap=n_boot, model_p=model_probs)
 
+    def _sumstat_step(self, dist_w: dict, run: GenerationRun, k_mask,
+                      w_norm, *, adaptive: bool, plan: dict | None):
+        """A fitted learned statistic's part of the generation step
+        (``util.py:1777-1862, 2051-2066``) -> (the next ``{"w", "ss"}``,
+        the distances the epsilon quantile reads, outputs for the fetch).
+        ``plan`` (the boundary generation): K23's fit on the reservoir, its
+        decision and finite guard on the device. Then, adaptive: the record
+        ring transformed by the new parameters and K9's refit over it (x0
+        and the reservoir transformed too); else after a fit the
+        reservoir's distances recomputed under the new parameters (K23's
+        values mode). The fetch's rows: the generation's transformed under
+        the parameters it was accepted with."""
+        res = run.res
+        ss_used, w_used = dist_w["ss"], dist_w["w"]
+        ss_next = ss_used
+        out = {"sumstats": transform_rows(res["sumstats"], ss_used)}
+        if plan is not None:
+            w_fit = torch.where(k_mask, torch.exp(w_norm),
+                                torch.zeros_like(w_norm))
+            ss_next, flags = ridge_fit(
+                res["sumstats"], res["theta"][:, :plan["out_dim"]]
+                .contiguous(), w_fit, run.counters, ss_used,
+                alpha=plan["alpha"], need=plan["need"])
+            out.update(ss_fit=ss_next, fit_flags=flags)
+        if adaptive:
+            w_next, d_new = self._learned_refit(run.rec, res["sumstats"],
+                                                ss_next)
+        elif plan is not None:
+            w_next = w_used
+            d_new = linear_accept.values(res["sumstats"], self.x0, ss_next,
+                                         w_used, p=self.distance.p)
+        else:
+            w_next, d_new = w_used, res["distance"]
+        return {"w": w_next, "ss": ss_next}, d_new, out
+
+    def _learned_refit(self, rec: dict, rows, params: dict):
+        """An adaptive distance's refit in a learned feature space: K9 over
+        the record ring, x0 and ``rows`` transformed by ``params`` (K23)
+        -> (weights, the distances of ``rows``)."""
+        return self.distance.refit(
+            transform_rows(rec["sumstats"], params), rec["valid"],
+            transform_rows(self.x0[None], params)[0],
+            transform_rows(rows, params))
+
+    def seed_transform(self, carry: Carry, out: dict, params: dict, *,
+                       adaptive: bool, eps_quantile: bool,
+                       eps_weighted: bool, alpha: float,
+                       multiplier: float) -> None:
+        """After the host seed fit of generation 0 (``smc.py:1502-1530`` of
+        the JAX package: the predictor's update, then an adaptive
+        distance's weights in the new feature space, the population's
+        distances recomputed in it, the epsilon update on them): the same
+        on the device from generation 0's step outputs ``out`` and the
+        fitted transform ``params``. ``carry`` gets ``dist_w = {"w", "ss"}``
+        and the new epsilon; the health word's epsilon recursion restarts,
+        as the JAX package's first fused chunk does."""
+        dev = self.device
+        rows = out["sumstats"]
+        if adaptive:
+            w, d_new = self._learned_refit(out["rec"], rows, params)
+        else:
+            w = self.distance.device_params(1, dev)["w"]
+            d_new = linear_accept.values(rows, self.x0, params, w,
+                                         p=self.distance.p)
+        carry.dist_w = {"w": w, "ss": params}
+        if eps_quantile:
+            carry.eps = quantile_epsilon(d_new, out["k_mask"], out["w_norm"],
+                                         eps_weighted, alpha, multiplier)
+        carry.eps_prev = torch.full((), math.inf, dtype=torch.float32,
+                                    device=dev)
+        carry.stall_count = torch.zeros((), dtype=torch.int32, device=dev)
+
     def generation_step(self, carry: Carry, run: GenerationRun, *,
                         adaptive: bool, eps_quantile: bool,
                         eps_weighted: bool, alpha: float, multiplier: float,
                         fit_statics: dict, health_config: tuple | None,
                         t: int = 0, refit_cadence: tuple | None = None,
-                        adaptive_n: tuple | None = None, last: bool = False):
+                        adaptive_n: tuple | None = None, last: bool = False,
+                        sumstat_fit: dict | None = None,
+                        keep_inputs: bool = False):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute (K9 over the
         ring, or K22's finish over the moment block) -> quantile
@@ -642,12 +761,22 @@ class DeviceContext:
         (the run stops after this generation, so n stays)] -> health word.
         The kept rows come from the counters in device memory; the host's
         read of them (``run.n_target``) scales the health word's ESS floor.
-        Returns (carry, outputs)."""
+        A fitted learned statistic (``carry.dist_w`` a dict) runs K23's fit
+        first when ``sumstat_fit`` holds the plan (the chunk's last
+        generation), then the refit or the recompute in the new feature
+        space (``_sumstat_step``). ``keep_inputs`` adds the kept-row mask, the
+        normalized log weights and the record ring to the outputs (the seed
+        fit reads them). Returns (carry, outputs)."""
         res, counters = run.res, run.counters
         k_mask = self.k_mask(counters)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
         eps_g = carry.eps
-        if adaptive and run.mom is not None:
+        learned = {}
+        if isinstance(carry.dist_w, dict):
+            dist_w_next, d_new, learned = self._sumstat_step(
+                carry.dist_w, run, k_mask, w_norm, adaptive=adaptive,
+                plan=sumstat_fit)
+        elif adaptive and run.mom is not None:
             # early reject: the refit over every resolved candidate's
             # simulated columns (K22), not the completed-only ring
             dist_w_next, d_new = self.distance.refit_from_moments(
@@ -661,11 +790,8 @@ class DeviceContext:
             dist_w_next = carry.dist_w
             d_new = res["distance"]
         if eps_quantile:
-            pts = torch.where(k_mask, d_new, torch.full_like(d_new,
-                                                             math.inf))
-            wts = (torch.where(k_mask, w_norm, torch.zeros_like(w_norm))
-                   if eps_weighted else k_mask.to(torch.float32))
-            eps_next = weighted_quantile(pts, wts, alpha) * multiplier
+            eps_next = quantile_epsilon(d_new, k_mask, w_norm, eps_weighted,
+                                        alpha, multiplier)
         else:
             eps_next = eps_g
         models = {}
@@ -696,7 +822,9 @@ class DeviceContext:
         out = {"theta": res["theta"], "distance": res["distance"],
                "log_weight": res["log_weight"], "sumstats": res["sumstats"],
                "eps_used": eps_g, "eps_next": eps_next,
-               "dist_w_next": dist_w_next}
+               "dist_w_next": dist_w_next, **learned}
+        if keep_inputs:
+            out.update(k_mask=k_mask, w_norm=w_norm, rec=run.rec)
         if self.K > 1:
             out.update(m=res["m"], model_probs=step["model_probs"])
         if run.seg is not None:

@@ -66,6 +66,24 @@ aggregate's top-level or sub-distance schedule) goes to the card as one
 distances of the JAX package (``ZScoreDistance``, ``PCADistance``, ...)
 run on its host loop only and raise ``not_ported``.
 
+Learned summary statistics (``PNormDistance(p, sumstat=PredictorSumstat(
+LinearPredictor(...)))`` or the same ``AdaptivePNormDistance``; one model,
+a uniform acceptor; the JAX package's device-fit plan ``linear``):
+generation 0 runs on the raw statistics as a chunk of its own (the
+predictor is unfitted, the transform the identity; its rows fetched in
+float32), then the host fits the predictor on it in float64
+(``PredictorSumstat.update``), and on the device an adaptive distance
+refits its weights in the new feature space and generation 0's distances
+are recomputed there for the next epsilon. From generation 1 the fitted
+transform rides the device carry: every accept runs through it (K23), each
+chunk's last generation refits it on the device (K23's fit, no host read)
+and the fetch ships the C'-wide transformed rows; the host mirrors each
+boundary fit into the predictor after the chunk's fetch. Under early
+reject a plain p = 2 norm folds the transformed bound (K18's LinBound).
+The MLP plan, the host-refit mode (Lasso, GP, model-selection predictors,
+``IdentitySumstat``, ``fit_every`` other than 1) and several models raise
+``not_ported`` with the JAX package's reason where it gives one.
+
 Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
 ``ListPopulationSize`` or ``AdaptivePopulationSize`` with a finite
 ``max_population_size``; the MVN transition, one model or several): the
@@ -114,9 +132,12 @@ from ..ops.scale_reduce import SHARDED_SCALE_NAMES
 from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
+from ..kernels.linear_sumstat import MAX_C as MAX_LEARNED
 from ..populationstrategy import (AdaptivePopulationSize,
                                   ConstantPopulationSize, ListPopulationSize)
 from ..storage.history import History
+from ..sumstat import (device_fit_plan, mirror_fitted_params,
+                       seed_params_ready)
 from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
@@ -249,6 +270,7 @@ class ABCSMC:
                                   AdaptiveAggregatedDistance,
                                   *NOISE_KERNELS):
             raise _not_ported(f"distance {type(distance).__name__}", "12")
+        self._sumstat_gate(distance, parameter_priors)
         self.distance_function = distance
         self.eps = eps if eps is not None else MedianEpsilon()
         acceptor = acceptor if acceptor is not None else UniformAcceptor()
@@ -362,6 +384,32 @@ class ABCSMC:
         #: K > 1: the newest persisted generation's model probabilities
         #: (alive models only), as the JAX package's ``_model_probs``
         self.model_probs: dict[int, float] = {}
+
+    def _sumstat_gate(self, distance, priors) -> None:
+        """Raise before any launch for learned statistics the port does not
+        serve yet (ROADMAP queue A, item 14), with the JAX package's reason
+        where it gives one."""
+        if getattr(distance, "sumstat", None) is None:
+            return
+        if self.K > 1:
+            raise _not_ported("learned summary statistics with several "
+                              "models", "14")
+        d_max = max(p.dim for p in priors)
+        plan, reason = device_fit_plan(distance, total_size=0, d_max=d_max)
+        if plan is None:
+            raise _not_ported(f"learned summary statistics in the JAX "
+                              f"package's host-refit mode ({reason})", "14")
+        if plan["kind"] != "linear":
+            raise _not_ported("the MLP plan of learned summary statistics "
+                              "(MLPPredictor's in-kernel Adam steps)", "14")
+        if d_max > MAX_LEARNED:
+            raise _not_ported(f"learned summary statistics of {d_max} "
+                              f"features (K23's transform keeps at most "
+                              f"{MAX_LEARNED})", "14")
+        if (distance._weights_arg is not None
+                or distance._factors_arg is not None):
+            raise _not_ported("user weights or factors with learned "
+                              "summary statistics", "14")
 
     def _local_gate(self, acceptor, strategy) -> None:
         """Raise for a LocalTransition configuration the port does not
@@ -678,6 +726,7 @@ class ABCSMC:
             self.eps._max_nr_populations = (
                 int(max_nr_populations) if np.isfinite(max_nr_populations)
                 else None)
+        plan = self._sumstat_plan(n)
         ctx = self._build_context(self._n_max(), min_acceptance_rate)
         stochastic = ctx.stochastic
         adaptive_n = self._adaptive_n_cfg(ctx.n_cap)
@@ -755,7 +804,9 @@ class ABCSMC:
             carry.dist_w = w0
             if eps0 is not None:
                 carry.eps = eps0
-            calib = {"w0": w0, "eps0": carry.eps}
+            # the host mirrors the weights only where the calibration
+            # refit them
+            calib = {"eps0": carry.eps, **({"w0": w0} if calib_w else {})}
 
         G = self.fused_generations
         # a user's per-generation weight schedule: each chunk's (G, P)
@@ -767,7 +818,9 @@ class ABCSMC:
         chunk_index = 0
         stop = False
         while not stop:
-            g_limit = G
+            # learned statistics: generation 0 is a chunk of its own (the
+            # host seed fit follows it)
+            g_limit = 1 if plan is not None and t == 0 else G
             if np.isfinite(max_nr_populations):
                 g_limit = min(g_limit, int(max_nr_populations) - t)
             if isinstance(self.eps, ListEpsilon):
@@ -797,11 +850,14 @@ class ABCSMC:
                 # the generation's distance params: its row of the
                 # schedule table, else the carry's
                 dw = sched[g] if sched is not None else carry.dist_w
+                # learned statistics run generation 0 on the raw statistics
+                # unsegmented (the JAX package samples it on the host)
+                seg_g = seg_on and not (plan is not None and tg == 0)
                 if tg == 0:
-                    def lanes(c=carry, h=hist, dw=dw):
+                    def lanes(c=carry, h=hist, dw=dw, seg=seg_g):
                         return ctx.lanes_prior(c.eps, dw, h, t=0,
                                                pdf_norm=c.pdf_norm,
-                                               segmented=seg_on)
+                                               segmented=seg)
                 else:
                     def lanes(c=carry, h=hist, tg=tg, dw=dw):
                         return ctx.lanes_transition(
@@ -813,7 +869,7 @@ class ABCSMC:
                 # (the host reads it with the first round's counters)
                 n_gen = (carry.n_target if adaptive_n is not None
                          else strategy(tg))
-                run = (ctx.generation_while_seg if seg_on
+                run = (ctx.generation_while_seg if seg_g
                        else ctx.generation_while)(lanes, n_gen,
                                                   eps_at_min=at_min)
                 n_t = run.n_target
@@ -835,8 +891,10 @@ class ABCSMC:
                     or sims_total >= max_total_nr_simulations
                     or (max_walltime is not None
                         and time.perf_counter() - t_start > max_walltime))
-                carry, out = ctx.generation_step(carry, run, t=tg, last=last,
-                                                 **statics)
+                carry, out = ctx.generation_step(
+                    carry, run, t=tg, last=last,
+                    sumstat_fit=plan if g == g_limit - 1 else None,
+                    keep_inputs=plan is not None and tg == 0, **statics)
                 outs.append(out)
                 host_gen.append({
                     "t": tg, "n": n_t, "rounds": run.rounds,
@@ -851,19 +909,78 @@ class ABCSMC:
                 break
             t_fetch = time.perf_counter()
             n_keep = max(info["n"] for info in host_gen)
-            fetched = self._fetch_chunk(outs, t, n_keep, fetch_dtype,
-                                        adaptive,
+            # generation 0's raw rows seed the learned fit: float32
+            dtype = (torch.float32 if plan is not None and t == 0
+                     else fetch_dtype)
+            fetched = self._fetch_chunk(outs, t, n_keep, dtype, adaptive,
                                         calib if chunk_index == 0 else None,
-                                        stochastic)
+                                        stochastic, seed=plan is not None
+                                        and t == 0)
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
             chunk_s = time.perf_counter() - t_chunk
             n_kept, single = self._persist_chunk(
                 fetched, host_gen, t, chunk_index, chunk_s, eps_quantile,
-                adaptive)
+                adaptive, plan)
             stop = stop or single
+            if plan is not None and t == 0 and not stop:
+                self._seed_fit(ctx, carry, outs[0], fetched, host_gen[0],
+                               statics)
             t += n_kept
             chunk_index += 1
+
+    def _sumstat_plan(self, n0: int) -> dict | None:
+        """The learned statistic's device-fit plan for this run (None
+        without one). Generation 0 runs under the identity, so the
+        predictor must start unfitted. Raises before launch when it was
+        fitted already (by the user, by ``convert.sumstat_from_jax`` or by
+        an earlier run: the JAX package would transform the calibration
+        and generation 0 with it and refit on its ``fit_every`` cadence)
+        or when generation 0's population cannot seed the fit (the JAX
+        package then falls back to its host-refit path)."""
+        d = self.distance_function
+        ss = getattr(d, "sumstat", None)
+        if ss is None:
+            return None
+        if ss.predictor.fitted or ss._last_fit_t is not None:
+            raise _not_ported(
+                "learned summary statistics whose predictor is fitted "
+                "before the run (generation 0 under that transform)", "14")
+        plan, _reason = device_fit_plan(
+            d, total_size=self.spec.total_size, d_max=self.prior.dim)
+        if n0 < plan["need"]:
+            raise _not_ported(
+                f"learned summary statistics whose generation-0 seed fit "
+                f"cannot run ({n0} particles, {plan['need']} needed; the "
+                f"JAX package's host-refit path)", "14")
+        return plan
+
+    def _seed_fit(self, ctx: DeviceContext, carry: Carry, out: dict,
+                  fetched: dict, info: dict, statics: dict) -> None:
+        """The host seed fit after generation 0 (``PredictorSumstat.update(
+        1, population)`` on its raw rows, float64), then on the device the
+        weights and distances in the new feature space and the next
+        epsilon (``DeviceContext.seed_transform``). An adaptive distance's
+        new weights are read back once for the host mirror."""
+        d, n = self.distance_function, info["n"]
+        theta, _dist, logw = unpack_rows(fetched["rows"], self.prior.dim)
+        pop = Population(
+            ms=np.zeros(n, np.int32), thetas=theta[0][:n],
+            weights=exp_normalize_log_weights(logw[0][:n]),
+            distances=_dist[0][:n], sumstats=fetched["sumstats"][0][:n],
+            spaces=[self.prior.space], sumstat_spec=self.spec,
+            model_names=self.model_names)
+        d.sumstat.update(1, pop)
+        if not seed_params_ready(d):
+            raise RuntimeError("the generation-0 seed fit did not run")
+        ctx.seed_transform(
+            carry, out, d.sumstat.device_params(self.device),
+            **{k: statics[k] for k in ("adaptive", "eps_quantile",
+                                       "eps_weighted", "alpha",
+                                       "multiplier")})
+        if statics["adaptive"]:
+            d.weights[1] = d.host_weights(
+                self._to_host({"w": carry.dist_w["w"]}, "sumstat_seed")["w"])
 
     def _weight_schedule_fused(self) -> bool:
         """True when the (non-adaptive) distance carries a user's
@@ -902,10 +1019,12 @@ class ABCSMC:
 
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
-                     stochastic) -> dict:
+                     stochastic, seed: bool = False) -> dict:
         """Pack the chunk's generations and read them in one sync: the
         first ``n`` rows of each (the chunk's largest n; each generation
-        keeps its own when persisted)."""
+        keeps its own when persisted). ``seed``: generation 0 of learned
+        statistics, whose raw rows ride the fetch whatever History
+        stores."""
         each = lambda k: [o[k] for o in outs]  # noqa: E731
         stack = lambda k: torch.stack(each(k))  # noqa: E731
         tree = {
@@ -916,13 +1035,21 @@ class ABCSMC:
             "eps_next": stack("eps_next"),
         }
         ss_gens = [g for g in range(len(outs))
-                   if self.history.wants_sum_stats(t0 + g)]
+                   if seed or self.history.wants_sum_stats(t0 + g)]
         if ss_gens:
             tree["sumstats"] = pack_sumstats(
                 [outs[g]["sumstats"] for g in ss_gens], n_keep=n,
                 dtype=dtype)
         if adaptive:
-            tree["dist_w_next"] = stack("dist_w_next")
+            # learned statistics: the feature weights of {"w", "ss"}
+            tree["dist_w_next"] = torch.stack([
+                dw["w"] if isinstance(dw, dict) else dw
+                for dw in each("dist_w_next")])
+        if "ss_fit" in outs[-1]:
+            # the boundary generation's fitted transform and K23's flags
+            tree.update({f"ss_fit_{k}": v
+                         for k, v in outs[-1]["ss_fit"].items()})
+            tree["fit_flags"] = outs[-1]["fit_flags"]
         if "m" in outs[0]:
             # K > 1: each kept row's model (int8) and the model
             # probabilities, in the same fetch
@@ -951,8 +1078,9 @@ class ABCSMC:
         host["ss_gens"] = ss_gens
         return host
 
-    def _to_host(self, tree: dict) -> dict:
-        """One device -> host read of every tensor of ``tree``."""
+    def _to_host(self, tree: dict, kind: str = "chunk_fetch") -> dict:
+        """One device -> host read of every tensor of ``tree``, recorded in
+        the sync ledger as ``kind``."""
         out, nbytes = {}, 0
         cuda = self.device.type == "cuda"
         for k, v in tree.items():
@@ -965,12 +1093,13 @@ class ABCSMC:
             nbytes += v.numel() * v.element_size()
         if cuda:
             torch.cuda.current_stream(self.device).synchronize()
-        self.sync_ledger.record("chunk_fetch", nbytes)
+        self.sync_ledger.record(kind, nbytes)
         return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
                 for k, v in out.items()}
 
     def _persist_chunk(self, fetched, host_gen, t0, chunk_index, chunk_s,
-                       eps_quantile, adaptive) -> tuple[int, bool]:
+                       eps_quantile, adaptive,
+                       plan: dict | None = None) -> tuple[int, bool]:
         """Persist the chunk's generations -> (how many were persisted,
         whether stop_if_only_single_model_alive stopped the run there)."""
         if "calib_pdf_norm0" in fetched:
@@ -980,8 +1109,9 @@ class ABCSMC:
         if "calib_w0" in fetched:
             self.distance_function.weights[0] = (
                 self.distance_function.host_weights(fetched["calib_w0"]))
-            if eps_quantile and self.eps.requires_calibration():
-                self.eps._values[0] = float(fetched["calib_eps0"])
+        if ("calib_eps0" in fetched and eps_quantile
+                and self.eps.requires_calibration()):
+            self.eps._values[0] = float(fetched["calib_eps0"])
         d = max(p.dim for p in self.priors)
         theta, dist, logw = unpack_rows(fetched["rows"], d)
         spaces = [p.space for p in self.priors]
@@ -1014,6 +1144,9 @@ class ABCSMC:
             if t == 0 and self.capability_fallbacks:
                 telemetry["capability_fallbacks"] = [
                     dict(f) for f in self.capability_fallbacks]
+            if plan is not None:
+                telemetry.update(self._sumstat_telemetry(
+                    fetched, t, g == len(host_gen) - 1, plan))
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])
@@ -1077,6 +1210,30 @@ class ABCSMC:
                     logger.info("stopping: single model alive")
                     return g + 1, True
         return len(host_gen), False
+
+    def _sumstat_telemetry(self, fetched, t, boundary, plan) -> dict:
+        """Learned statistics' telemetry of generation t, and the mirror of
+        a boundary fit: the first generation gets the JAX package's
+        ``sumstat`` block (``smc.py:1841-1864``); a boundary generation
+        whose fit ran (K23's own flag, fetched with the chunk) mirrors the
+        fetched parameters into the predictor (``_last_fit_t = t + 1``)
+        and reports the fit's finite flag."""
+        tel = {}
+        if t == 0:
+            tel["sumstat"] = {
+                "mode": "device", "transform": type(
+                    self.distance_function.sumstat).__name__,
+                "dim_raw": int(self.spec.total_size), "kind": plan["kind"],
+                "dim_reduced": int(plan["out_dim"]),
+                "need": int(plan["need"])}
+        if boundary and "fit_flags" in fetched and fetched["fit_flags"][1]:
+            mirror_fitted_params(
+                self.distance_function,
+                {k: fetched[f"ss_fit_{k}"] for k in ("W", "b", "mu", "sd")},
+                t + 1)
+            tel.update(sumstat_refit=True,
+                       sumstat_fit_ok=bool(fetched["fit_flags"][0]))
+        return tel
 
     def _mirror_noisy(self, t, pdf_norm, max_found, temp,
                       daly_k=None) -> None:

@@ -16,6 +16,10 @@ from .kernel_accept import kernel_accept, kernel_accept_plain
 from .local_cov import local_cov, local_cov_plain
 from .local_factor import local_factor, local_factor_plain
 from .local_logpdf import local_logpdf, local_logpdf_plain
+from .linear_bound import linear_bound, linear_bound_plain
+from .linear_sumstat import (linear_accept, linear_accept_plain,
+                             linear_values_plain, transform_rows,
+                             transform_rows_plain)
 from .lv_simulate import lv_simulate, lv_simulate_plain
 from .model_step import model_step, model_step_plain
 from .moments import (moment_finish, moment_finish_plain, moment_fold,
@@ -31,6 +35,7 @@ from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
 from .propose import (propose, propose_local, propose_local_plain,
                       propose_plain)
+from .ridge_fit import ridge_fit, ridge_fit_plain
 from .proposal_drift import proposal_drift, proposal_drift_plain
 from .scale_reduce import scale_reduce, scale_reduce_plain
 from .segment_round import segment_round, segment_round_plain
@@ -41,7 +46,8 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: every kernel wrapper, in the order of ROADMAP queue B (K2 with K1,
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
-#: K21a, K21b, K22 fold and finish, K25 accept and refit, K26)
+#: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
+#: transform and K18's transformed operands)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -50,7 +56,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            tau_leap, sir_simulate, ode_family_simulate, ode_family_segments,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
-           model_step)
+           model_step, ridge_fit, linear_accept, linear_bound)
 
 
 def reset_launch_counts() -> None:
@@ -67,7 +73,8 @@ def launch_counts() -> dict[str, int]:
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
     ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's four
-    entries, K25's values mode); each also counts in ``launch_counts``."""
+    entries, K25's values mode, K23's transform and values entries); each
+    also counts in ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
@@ -82,6 +89,8 @@ __all__ = [
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
     "local_logpdf_plain",
+    "linear_accept", "linear_accept_plain", "linear_bound",
+    "linear_bound_plain", "linear_values_plain",
     "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
     "mvn_fit", "mvn_fit_plain",
     "mode_launch_counts", "moment_finish", "moment_finish_plain",
@@ -94,9 +103,10 @@ __all__ = [
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_local", "propose_local_plain", "propose_plain",
     "proposal_drift", "proposal_drift_plain", "reset_launch_counts",
+    "ridge_fit", "ridge_fit_plain",
     "scale_reduce",
     "scale_reduce_plain", "segment_round", "segment_round_plain",
     "sir_simulate", "sir_simulate_plain", "tau_leap", "tau_leap_plain",
-    "temperature_update", "temperature_update_plain",
-    "weighted_quantile_plain",
+    "temperature_update", "temperature_update_plain", "transform_rows",
+    "transform_rows_plain", "weighted_quantile_plain",
 ]

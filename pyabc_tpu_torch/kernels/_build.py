@@ -97,7 +97,15 @@ SIGNATURES = {
     "pyabc_segment_round": [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P,
         _P, _P, _P, _U, _U, _U, _U, _U, _P, _I, _F, _P, _U, _U, _U, _U, _I,
-        _P, _P, _P],
+        _P, _P, _I, _P, _P],
+    "pyabc_ridge_fit": [
+        _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P],
+    "pyabc_linear_transform": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "pyabc_linear_accept": [
+        _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P,
+        _F, _P, _P, _P, _P],
+    "pyabc_linear_bound": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "pyabc_aggregate_accept": [
         _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P,
         _P, _P, _P, _P, _P],

@@ -47,6 +47,13 @@ Four modes (each also counted in ``mode_launches``):
   ``u_s`` the uniform K21a/K21c draws for that row on ``accept``. At T =
   +inf no slot retires;
 
+- transformed (``lin`` the ``{"At", "proj"}`` of ``kernels/linear_bound.py``
+  for a fitted linear learned statistic, p = 2, K = 1; ``w`` unread):
+  each slot folds the partial transformed difference ``v`` (``C'``
+  floats, ``lin_bound_fold``: a segment's ``(v_k - x0[c_k]) At[c_k]`` in
+  emission order, then added) and retires once ``v^T P_j v`` (``j`` the
+  segments folded, ``lin_exceeds``) exceeds ``(thr (1 + 1e-4))^2``;
+
 - adaptive (``return_nseg=True``): the call also returns ``nseg (B,)``
   int32, the segments each slot simulated (``n_segments`` for a completed
   slot, the retiring segment + 1 for a retired one), which K22's fold
@@ -79,6 +86,8 @@ BOUND_RTOL = 1e-4
 #: threads K18 runs per SM (fewer threads than slots: a freed thread takes
 #: the next slot)
 THREADS_PER_SM = 512
+#: the widest learned feature vector the transformed mode folds
+MAX_LIN = 8
 #: SEG_CTR layout
 RETIRED, SEG_STEPS, RESOLVED, LANE_SLOTS = range(4)
 
@@ -124,6 +133,31 @@ def agg_total(acc, W, ps) -> torch.Tensor:
     return total
 
 
+def lin_bound_fold(acc, vals, x0, At) -> torch.Tensor:
+    """Fold one segment's values ``(B, k)`` (``x0`` ``(k,)`` and ``At``
+    ``(k, C')``: that segment's columns) into the partial transformed
+    difference ``acc`` ``(B, C')``: per feature the sum over the block in
+    order, then added, as K18's LinBound."""
+    contrib = torch.zeros_like(acc)
+    for k in range(vals.shape[1]):
+        diff = vals[:, k] - x0[k]
+        contrib = contrib + diff[:, None] * At[k][None, :]
+    return acc + contrib
+
+
+def lin_exceeds(acc, P, lim) -> torch.Tensor:
+    """``v^T P v > lim`` per slot, the sums in K18's order (``P`` the
+    ``(C', C')`` projector after the segments folded)."""
+    C = acc.shape[1]
+    q = torch.zeros_like(acc[:, 0])
+    for a in range(C):
+        pv = torch.zeros_like(q)
+        for b in range(C):
+            pv = pv + P[a, b] * acc[:, b]
+        q = q + acc[:, a] * pv
+    return q > lim
+
+
 def noise_thresholds(temp, pdf_norm, accept: PhiloxStream,
                      B: int) -> torch.Tensor:
     """Each slot's log-density threshold ``pdf_norm + T log(u_s)``; -inf
@@ -143,7 +177,7 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
                         seg_ctr, m=None, dims=None,
                         return_nseg: bool = False, noise=None,
                         pdf_norm=None, accept: PhiloxStream | None = None,
-                        agg=None):
+                        agg=None, lin=None):
     """Plain PyTorch version -> (ss ``(B, width)``, keep ``(B,)``[, nseg
     ``(B,)`` int32])."""
     B = theta.shape[0]
@@ -164,6 +198,10 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
         n_sub = len(agg)
         W, subw = w[:n_sub], w[n_sub:].reshape(n_sub, width)
         acc = torch.zeros(B, n_sub, dtype=torch.float32, device=theta.device)
+    if lin is not None:
+        lim = bound_limit(thr, 2.0)
+        acc = torch.zeros(B, lin["At"].shape[1], dtype=torch.float32,
+                          device=theta.device)
     carries = [s.init(theta if dims is None
                       else theta[:, :dims[k]].contiguous())
                for k, s in enumerate(segs)]
@@ -181,6 +219,9 @@ def segment_round_plain(seg, theta, valid, stream: PhiloxStream, *, imap,
         if noise is not None:
             acc = noise_bound_fold(family, acc, vals, x0[cols], w[cols])
             exceeds = upper_exceeds(acc, thr)
+        elif lin is not None:
+            acc = lin_bound_fold(acc, vals, x0[cols], lin["At"][cols])
+            exceeds = lin_exceeds(acc, lin["proj"][min(j + 1, n_seg)], lim)
         elif agg is not None:
             acc = torch.stack([bound_fold(acc[:, k], vals, x0[cols],
                                           subw[k][cols], pk)
@@ -212,7 +253,7 @@ class SegmentRound(Kernel):
         super().__init__()
         #: launches in the adaptive (nseg) and K > 1 modes
         self.mode_launches = {"adaptive": 0, "k_gt_1": 0, "stochastic": 0,
-                              "aggregate": 0}
+                              "aggregate": 0, "linear": 0}
 
     def __call__(self, seg, theta: torch.Tensor, valid: torch.Tensor,
                  stream: PhiloxStream, *, imap: torch.Tensor,
@@ -222,11 +263,16 @@ class SegmentRound(Kernel):
                  m: torch.Tensor | None = None, dims=None,
                  return_nseg: bool = False, noise: dict | None = None,
                  pdf_norm: torch.Tensor | None = None,
-                 accept: PhiloxStream | None = None, agg=None):
+                 accept: PhiloxStream | None = None, agg=None,
+                 lin: dict | None = None):
         kw = dict(imap=imap, x0=x0, w=w, p=p, eps=eps, hist_min=hist_min,
                   width=width, seg_ctr=seg_ctr, m=m, dims=dims,
                   return_nseg=return_nseg, noise=noise, pdf_norm=pdf_norm,
-                  accept=accept, agg=agg)
+                  accept=accept, agg=agg, lin=lin)
+        if lin is not None and (noise is not None or agg is not None
+                                or m is not None or p != 2.0):
+            raise ValueError(f"{self.name}: the transformed mode takes one "
+                             f"model, p = 2 and no other bound")
         if agg is not None and (noise is not None
                                 or not 0 < len(agg) <= MAX_SUB):
             raise ValueError(f"{self.name}: the aggregate mode takes 1 to "
@@ -241,6 +287,8 @@ class SegmentRound(Kernel):
                                  f"pdf_norm and the accept stream, one "
                                  f"model and no hist_min")
         opt = [t for t in (hist_min, m, pdf_norm) if t is not None]
+        if lin is not None:
+            opt += [lin["At"], lin["proj"]]
         if accept is not None:
             opt.append(accept.counters)
         if self.on_cpu(theta, valid, stream.counters, imap, x0, w, eps,
@@ -268,8 +316,19 @@ class SegmentRound(Kernel):
         self.expect(imap, "imap", torch.int32, (spec.n_seg, spec.seg_size))
         self.expect(x0, "x0", f32, (width,))
         n_sub = 0 if agg is None else len(agg)
-        self.expect(w, "w", f32, (n_sub * (width + 1) if agg is not None
-                                  else width,))
+        lin_c = 0
+        if lin is not None:
+            lin_c = lin["At"].shape[1]
+            if not 0 < lin_c <= MAX_LIN:
+                raise ValueError(f"{self.name}: the transformed mode takes "
+                                 f"at most {MAX_LIN} features")
+            self.expect(lin["At"], "At", f32, (width, lin_c))
+            self.expect(lin["proj"], "proj", f32,
+                        (spec.n_seg + 1, lin_c, lin_c))
+            w = lin["At"]
+        else:
+            self.expect(w, "w", f32, (n_sub * (width + 1) if agg is not None
+                                      else width,))
         self.expect(eps, "eps", f32, ())
         if noise is not None:
             self.expect(pdf_norm, "pdf_norm", f32, ())
@@ -306,7 +365,9 @@ class SegmentRound(Kernel):
             *(accept.key if noise is not None else (0, 0)),
             accept.generation if noise is not None else 0,
             accept.tag if noise is not None else 0, n_sub,
-            *p_codes(agg or ()), _build.stream_ptr(dev))
+            *p_codes(agg or ()), lin_c,
+            self.ptr(lin["proj"] if lin is not None else None),
+            _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
         if return_nseg:
@@ -317,6 +378,8 @@ class SegmentRound(Kernel):
             self.mode_launches["stochastic"] += 1
         if agg is not None:
             self.mode_launches["aggregate"] += 1
+        if lin is not None:
+            self.mode_launches["linear"] += 1
         return (ss, keep, nseg) if return_nseg else (ss, keep)
 
 

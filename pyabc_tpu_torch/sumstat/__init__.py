@@ -1,0 +1,6 @@
+"""Summary-statistic transforms (``pyabc_tpu/sumstat/`` counterpart)."""
+from .base import IdentitySumstat, PredictorSumstat, Sumstat
+from .device import device_fit_plan, mirror_fitted_params, seed_params_ready
+
+__all__ = ["IdentitySumstat", "PredictorSumstat", "Sumstat",
+           "device_fit_plan", "mirror_fitted_params", "seed_params_ready"]

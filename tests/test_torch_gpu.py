@@ -196,14 +196,15 @@ def test_lv_run_on_the_card(dev):
     # every kernel of the LV path (the noisy-ABC kernels, the model
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
     # LocalTransition's K12-K15, the segmented family's K20b and K22, the
-    # adaptive population size's K16 and the aggregated distances' K25 are
-    # not on it)
+    # adaptive population size's K16, the aggregated distances' K25 and the
+    # learned statistics' K23 and K18 operands are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
              "propose_local", "local_logpdf", "proposal_drift",
              "ode_family_segments", "moment_fold", "moment_finish",
-             "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit")
+             "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
+             "ridge_fit", "linear_accept", "linear_bound")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -2137,3 +2138,217 @@ def test_k16_rank_deficient_bootstrap(dev):
     cv_p = cv_of(bc.bootstrap_density_plain(th, w, fit_p, state))
     assert bool(torch.isfinite(cv).all()) and float(cv_p[1]) > 0
     torch.testing.assert_close(cv, cv_p, rtol=1e-4, atol=0.0)
+
+
+def _learned_fit_inputs(dev, n_cap, S, C, n_keep, seed=0):
+    """Reservoir-like rows for K23's fit: S statistics with counts in the
+    thousands (a network SIR's scale), C' thetas, weights, the counters."""
+    g = _gen(dev, seed)
+    theta = torch.rand(n_cap, C, generator=g, device=dev)
+    mix = torch.randn(C, S, generator=g, device=dev)
+    x = (theta @ mix * 300.0 + 2000.0
+         + 30.0 * torch.randn(n_cap, S, generator=g, device=dev))
+    w = torch.rand(n_cap, generator=g, device=dev) + 0.1
+    w[n_keep:] = 0.0
+    ctr = torch.zeros(5, dtype=torch.int32, device=dev)
+    ctr[0], ctr[4] = n_keep + 17, n_keep
+    old = {"W": torch.zeros(S, C, device=dev),
+           "b": torch.zeros(C, device=dev),
+           "mu": torch.zeros(S, device=dev),
+           "sd": torch.ones(S, device=dev)}
+    return x.contiguous(), theta.contiguous(), w, ctr, old
+
+
+@pytest.mark.parametrize("n_cap,S,C,n_keep", [(300, 6, 2, 211),
+                                              (16384, 128, 2, 9731),
+                                              (4096, 128, 8, 3001)])
+def test_ridge_fit_kernel(dev, n_cap, S, C, n_keep):
+    """K23's fit against its plain version: W, b, mu, sd within 1e-4
+    relative (both solve in float64), the flags equal, the same from run
+    to run; a poisoned row keeps the old parameters."""
+    from pyabc_tpu_torch.kernels import ridge_fit, ridge_fit_plain
+
+    x, y, w, ctr, old = _learned_fit_inputs(dev, n_cap, S, C, n_keep)
+    before = ridge_fit.launches
+    got, flags = ridge_fit(x, y, w, ctr, old, alpha=1.0, need=S + 2)
+    assert ridge_fit.launches == before + 1
+    ref, rflags = ridge_fit_plain(x, y, w, ctr, old, alpha=1.0, need=S + 2)
+    assert flags.tolist() == rflags.tolist() == [1, 1]
+    for k in ("W", "b", "mu", "sd"):
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-5)
+    again, _f = ridge_fit(x, y, w, ctr, old, alpha=1.0, need=S + 2)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    x[3, 1] = float("nan")
+    kept, kflags = ridge_fit(x, y, w, ctr, old, alpha=1.0, need=S + 2)
+    assert kflags.tolist() == [0, 1]
+    assert all(torch.equal(kept[k], old[k]) for k in old)
+    skip, sflags = ridge_fit(x, y, w, ctr, old, alpha=1.0, need=n_keep + 1)
+    assert sflags.tolist() == [1, 0]
+    assert all(torch.equal(skip[k], old[k]) for k in old)
+
+
+@pytest.mark.parametrize("B,S,C", [(257, 7, 3), (65536, 128, 2)])
+@pytest.mark.parametrize("p", [1.0, 2.0, math.inf])
+def test_linear_accept_kernel(dev, B, S, C, p):
+    """K23's transform and accept against the plain versions: rows and
+    distances within 1e-5 of the feature scale, flags equal away from
+    eps, log weights equal; the values mode bit-equal to the accept's."""
+    from pyabc_tpu_torch.kernels import (linear_accept, linear_accept_plain,
+                                         transform_rows,
+                                         transform_rows_plain)
+
+    g = _gen(dev, B)
+    params = {"W": torch.randn(S, C, generator=g, device=dev) * 0.05,
+              "b": torch.randn(C, generator=g, device=dev),
+              "mu": torch.full((S,), 2000.0, device=dev),
+              "sd": torch.rand(S, generator=g, device=dev) * 300 + 100}
+    x0 = 2000.0 + 300.0 * torch.randn(S, generator=g, device=dev)
+    ss = (x0 + 300.0 * torch.randn(B, S, generator=g, device=dev))
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    logpri = torch.randn(B, generator=g, device=dev)
+    logq = torch.randn(B, generator=g, device=dev)
+    rows = transform_rows(ss, params)
+    rows_r = transform_rows_plain(ss, params)
+    scale = float(rows_r.abs().max())
+    torch.testing.assert_close(rows, rows_r, rtol=1e-5, atol=1e-5 * scale)
+    d_r = linear_accept_plain(ss, x0, params, w,
+                              torch.tensor(math.inf, device=dev), valid,
+                              p=p)[0]
+    eps = torch.quantile(d_r, 0.4)
+    got = linear_accept(ss, x0, params, w, eps, valid, p=p, logpri=logpri,
+                        logq=logq)
+    ref = linear_accept_plain(ss, x0, params, w, eps, valid, p=p,
+                              logpri=logpri, logq=logq)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5,
+                               atol=1e-5 * scale)
+    far = (ref[0] - eps).abs() > 1e-4 * scale
+    assert torch.equal(got[1][far], ref[1][far])
+    assert torch.equal(got[2], ref[2])
+    assert torch.equal(linear_accept.values(ss, x0, params, w, p=p), got[0])
+
+
+@pytest.mark.parametrize("case", ["network map", "one row a segment"])
+def test_linear_bound_kernel(dev, case):
+    """K18's transformed operands against the plain version (float64
+    eigh): At bit-equal, null counts equal, projectors within 1e-5."""
+    from pyabc_tpu_torch.kernels import linear_bound, linear_bound_plain
+
+    g = _gen(dev, 3)
+    n_seg, seg, C = (4, 32, 2) if case == "network map" else (6, 1, 3)
+    S = n_seg * seg
+    imap = torch.randperm(S, generator=g, device=dev).view(
+        n_seg, seg).to(torch.int32).contiguous()
+    params = {"W": torch.randn(S, C, generator=g, device=dev),
+              "sd": torch.rand(S, generator=g, device=dev) + 0.5}
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    got = linear_bound(w, params, imap)
+    ref = linear_bound_plain(w, params, imap)
+    assert torch.equal(got["At"], ref["At"])
+    counts = torch.diagonal(got["proj"], dim1=1, dim2=2).sum(1).round()
+    rcounts = torch.diagonal(ref["proj"], dim1=1, dim2=2).sum(1).round()
+    assert torch.equal(counts, rcounts)
+    torch.testing.assert_close(got["proj"], ref["proj"], rtol=0, atol=1e-5)
+    if case == "one row a segment":
+        assert int(counts[-2]) == C - 1 and int(counts[-1]) == C
+
+
+@pytest.mark.parametrize("B", [256, 65536])
+@pytest.mark.parametrize("name", ["sir", "bd"])
+def test_segment_round_linear_mode(dev, name, B):
+    """K18's transformed mode against its plain version: the same kept
+    slots, their statistics bit for bit, the same counters, some slots
+    accepted. On the network SIR's round (C' 2, 32 values a segment)
+    nothing can retire; on config 3's birth-death round (10 segments of 2
+    values) under a C' 8 transform the last three segments' rows leave a
+    null space, and valid slots retire."""
+    from pyabc_tpu_torch.kernels import (linear_accept_plain, linear_bound,
+                                         segment_round, segment_round_plain)
+
+    model, theta, valid, spec, x0 = _seg_round(dev, name, B)
+    st = _stream(dev, philox.SIM_NOISE)
+    imap = model.index_map(spec, dev)
+    S = spec.total_size
+    g = _gen(dev, 5)
+    if name == "sir":
+        C = 2
+        params = {"W": torch.randn(S, C, generator=g, device=dev) * 1e-3,
+                  "b": torch.zeros(C, device=dev), "mu": x0.clone(),
+                  "sd": torch.full((S,), 50.0, device=dev)}
+    else:
+        C = 8
+        params = {"W": torch.randn(S, C, generator=g, device=dev),
+                  "b": torch.zeros(C, device=dev), "mu": x0.clone(),
+                  "sd": x0.abs().clamp(min=1.0)}
+    w = torch.ones(C, device=dev)
+    bp = linear_bound(w, params, imap)
+    kw = dict(imap=imap, x0=x0, w=w, p=2.0, width=S, lin=bp)
+    inf = torch.tensor(math.inf, device=dev)
+    full, _k = segment_round_plain(
+        model.segmented, theta, valid, st, eps=inf,
+        seg_ctr=torch.zeros(4, dtype=torch.int64, device=dev), **kw)
+    d = linear_accept_plain(full, x0, params, w, inf, valid, p=2.0)[0]
+    eps = torch.quantile(d[valid], 0.3)
+    c_got = torch.zeros(4, dtype=torch.int64, device=dev)
+    c_ref = torch.zeros(4, dtype=torch.int64, device=dev)
+    ss, keep = segment_round(model.segmented, theta, valid, st, eps=eps,
+                             seg_ctr=c_got, **kw)
+    ss_r, keep_r = segment_round_plain(model.segmented, theta, valid, st,
+                                       eps=eps, seg_ctr=c_ref, **kw)
+    assert torch.equal(keep, keep_r)
+    assert torch.equal(ss[keep], ss_r[keep])
+    assert torch.equal(c_got[:3], c_ref[:3])
+    assert not bool((d[valid & ~keep] <= eps).any())
+    assert bool((keep & (d <= eps)).any())
+    if name == "bd":
+        assert int(c_got[0]) > int((~valid).sum())
+
+
+def test_learned_statistics_run_on_the_card(dev):
+    """The network SIR (8 patches, the kernel's, x 8 observations: S 64)
+    under the linear learned statistic,
+    early reject on and off, and the adaptive form: K23's fit, transform
+    and accept and K18's transformed mode launched, populations
+    bit-identical on and off, the fetch C' wide after generation 0, one
+    counter read a round and one fetch a chunk (and the seed's read
+    under the adaptive distance)."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import sir
+
+    shape = dict(n_patches=8, n_obs=8)
+    pops = []
+    for early in ("auto", False):
+        abc = pt.ABCSMC(
+            sir.make_network_sir_model(**shape), sir.network_sir_prior(),
+            pt.PNormDistance(p=2, sumstat=pt.PredictorSumstat(
+                pt.LinearPredictor(alpha=1.0))), population_size=1000,
+            eps=pt.MedianEpsilon(), seed=11, fused_generations=2,
+            early_reject=early, device=dev)
+        abc.new("sqlite://", sir.observed_network_sir(**shape))
+        reset_launch_counts()
+        h = abc.run(max_nr_populations=5)
+        counts, modes = launch_counts(), mode_launch_counts()
+        assert h.n_populations == 5
+        assert counts["ridge_fit"] == 2 and counts["linear_accept"] > 0
+        assert (modes["segment_round:linear"] > 0) == (early == "auto")
+        assert (counts["linear_bound"] > 0) == (early == "auto")
+        assert h.get_weighted_sum_stats(1)[1].shape[1] == 2
+        by = abc.sync_ledger.summary()["by_kind"]
+        assert set(by) == {"round_counters", "chunk_fetch"}
+        pops.append([h.get_distribution(0, t)[0].to_numpy()
+                     for t in range(5)])
+    assert all(np.array_equal(a, b) for a, b in zip(*pops))
+    abc = pt.ABCSMC(
+        sir.make_network_sir_model(**shape), sir.network_sir_prior(),
+        pt.AdaptivePNormDistance(p=2, sumstat=pt.PredictorSumstat(
+            pt.LinearPredictor(alpha=1.0))), population_size=1000,
+        eps=pt.MedianEpsilon(), seed=11, fused_generations=2, device=dev)
+    abc.new("sqlite://", sir.observed_network_sir(**shape))
+    h = abc.run(max_nr_populations=4)
+    assert h.n_populations == 4
+    assert abc.distance_function.weights[3].shape == (2,)
+    assert abc.sync_ledger.summary()["by_kind"]["sumstat_seed"] == 1
