@@ -277,11 +277,25 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    same statistic, the classic kernel, its C'-wide weight trail); and the
    accuracy setting of tests/test_sumstat_device.py:497-540 over 16
    seeds, the seed means of the learned RMSE and of its gap to the
-   identity's against the JAX package's over the same seeds.
+   identity's against the JAX package's over the same seeds. Then this
+   slice's main leg, the same network SIR under PNormDistance(p=2)
+   through PredictorSumstat(MLPPredictor()) (hidden (64, 64), 400 seed
+   steps, 100 a boundary), pop 16384, 10 generations, counts reset just
+   before: K23's MLP fit (the seed fit and each boundary) and transform
+   launched, the refit generations, History rows 128 then 2 wide, one
+   counter read a round, one fetch a chunk and the seed fit's read; early
+   reject auto (off, with the JAX package's reason) bit-identical to off;
+   fetch bytes a particle at least 2 times fewer than the identity run's;
+   once more under torch.profiler for K23's MLP fit and transform device
+   ms; and at pop 1024 on the card and the CPU: generation 0's epsilon
+   within 1e-3, the seed fits' predictions on held-out rows within 1e-2
+   of their sd, generation 1's epsilon within 1e-3 on a CPU run fed the
+   card's seed fit.
 
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
-K22, K23, K25, K26 and the K > 1 modes) is replaced by a function that
+K22, K23 linear and MLP, K25, K26 and the K > 1 modes) is replaced by a
+function that
 raises, so
 none can run on the path unseen.
 
@@ -1985,6 +1999,11 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.linear_bound", "linear_bound_plain"),
     ("pyabc_tpu_torch.kernels.segment_round", "lin_bound_fold"),
     ("pyabc_tpu_torch.kernels.segment_round", "lin_exceeds"),
+    ("pyabc_tpu_torch.kernels.mlp_fit", "mlp_fit_plain"),
+    ("pyabc_tpu_torch.kernels.mlp_fit", "mlp_gradient_plain"),
+    ("pyabc_tpu_torch.kernels.mlp_sumstat", "transform_rows_plain"),
+    ("pyabc_tpu_torch.kernels.mlp_sumstat", "mlp_values_plain"),
+    ("pyabc_tpu_torch.kernels.mlp_sumstat", "mlp_accept_plain"),
 )
 
 
@@ -6620,7 +6639,7 @@ def k23_checks(dev) -> tuple[dict, dict]:
                                          linear_bound, linear_bound_plain,
                                          pnorm_accept_weight, transform_rows,
                                          transform_rows_plain)
-    from pyabc_tpu_torch.kernels.ridge_fit import N_ACC, N_TARGET
+    from pyabc_tpu_torch.ops.fit import N_ACC, N_TARGET
     from pyabc_tpu_torch.utils import pick_batch
 
     out = {}
@@ -6761,13 +6780,18 @@ def learned(where, kind: str = "linear", early="auto",
             noise: float = 0.0):
     """The leg's ABCSMC on ``where``: ``kind`` linear (PNormDistance(p=2)
     through the learned statistic), adaptive (AdaptivePNormDistance(p=2)
-    through it) or identity (PNormDistance(p=2) on the raw statistics)."""
+    through it), mlp (PNormDistance(p=2) through an MLPPredictor at its
+    defaults) or identity (PNormDistance(p=2) on the raw statistics)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import sir
 
-    ss = pt.PredictorSumstat(pt.LinearPredictor(alpha=LS_ALPHA))
-    dist = {"linear": lambda: pt.PNormDistance(p=2, sumstat=ss),
-            "adaptive": lambda: pt.AdaptivePNormDistance(p=2, sumstat=ss),
+    def lin():
+        return pt.PredictorSumstat(pt.LinearPredictor(alpha=LS_ALPHA))
+
+    dist = {"linear": lambda: pt.PNormDistance(p=2, sumstat=lin()),
+            "adaptive": lambda: pt.AdaptivePNormDistance(p=2, sumstat=lin()),
+            "mlp": lambda: pt.PNormDistance(p=2, sumstat=pt.PredictorSumstat(
+                pt.MLPPredictor())),
             "identity": lambda: pt.PNormDistance(p=2)}[kind]()
     abc = pt.ABCSMC(sir.make_network_sir_model(**LS_SHAPE, noise_sd=noise),
                     sir.network_sir_prior(), dist,
@@ -6816,10 +6840,11 @@ def ls_report(label, abc, h, wall) -> dict:
             "means": means}
 
 
-def learned_leg(dev) -> tuple[dict, dict, dict]:
+def learned_leg(dev) -> tuple[dict, dict, dict, float]:
     """Phase 4's learned-statistics leg on the card, the counts reset just
     before its first run -> (launch counts, mode counts, the fitted
-    transform the run ended with). The learned run (early reject
+    transform the run ended with, the identity run's fetch bytes a
+    particle). The learned run (early reject
     on), then the same with early reject off, and the identity run: fetch
     bytes a particle (at least 2 times fewer), the refits that fired,
     syncs (one counter read a round, one fetch a chunk), populations
@@ -6907,7 +6932,7 @@ def learned_leg(dev) -> tuple[dict, dict, dict]:
             tot_ms = sum(t[0] for t in v) / 1e3
             log(f"{label}: {name} device ms a generation "
                 f"{tot_ms / LS_GENS:.5f} ({sum(t[1] for t in v)} launches)")
-    return counts, modes, fitted
+    return counts, modes, fitted, runs["identity"][1]["fetch"]
 
 
 def boundaries(gens: int, G: int) -> list[int]:
@@ -7230,6 +7255,446 @@ def k18_linear_checks(dev, params: dict) -> dict:
                 ms_config3_c8_eps_inf=ms_bd["inf"])
 
 
+#: this slice's leg: the learned leg's network SIR under MLPPredictor() at
+#: its defaults (hidden (64, 64), 400 seed steps, lr 1e-3; the device-fit
+#: plan's 100 steps a boundary)
+MLP_KERNELS = ("mlp_fit", "mlp_accept")
+MLP_PATH = ("propose", "mvn_mixture_logpdf", "network_sir",
+            "pnorm_accept_weight", "compact_round", "normalize_quantile",
+            "mvn_fit", "pack_fetch", "generation_health") + MLP_KERNELS
+MLP_HIDDEN, MLP_SEED_STEPS, MLP_STEPS, MLP_LR = (64, 64), 400, 100, 1e-3
+
+
+def mlp_step_flops(n: int, sizes) -> float:
+    """A fit step's operations on n rows: the forward and the weight
+    gradient of every layer and the backward of every layer but the first
+    (a multiply-add 2), tanh' and the head's gradient."""
+    mm = [fi * fo for fi, fo in zip(sizes[:-1], sizes[1:])]
+    return 2 * n * (2 * sum(mm) + sum(mm[1:])) + 4 * n * sum(sizes[1:])
+
+
+def mlp_start(dev, sizes, seed: int) -> dict:
+    """An MLP transform to start a fit from: MLPPredictor's seeded He init
+    (its layers views of one packed buffer), mu 0, sd 1, ymu 0, ysd 1."""
+    import pyabc_tpu_torch as pt
+
+    return pt.MLPPredictor(seed=seed).init_params(sizes, dev)
+
+
+def k23_mlp_case(dev, label, x, y, w, ctr, old, need, *, seed_fit=False,
+                 timed=False) -> dict:
+    """K23's MLP fit and its plain version on one problem (a boundary fit
+    of MLP_STEPS steps, or with ``seed_fit`` the seed fit's MLP_SEED_STEPS
+    on rows already standardized): the gradient at the start within 1e-4
+    relative (1e-5 of its scale absolute), the fit's loss within 1e-3
+    relative (the seed fit's 400 steps within 1e-2: where a gradient entry
+    is near 0, Adam's step is about lr times its sign, which the order of
+    a sum can flip, and over 400 steps the parameters part by about lr;
+    5.6e-3 on an H100 80GB HBM3), mu, sd, ymu, ysd within 1e-5, the
+    flags equal, the same bits run to run, a poisoned row and a fit below
+    ``need`` keeping the old parameters."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import mlp_fit, mlp_fit_plain
+    from pyabc_tpu_torch.kernels.mlp_fit import mlp_gradient_plain
+    from pyabc_tpu_torch.ops.fit import (MLP_KEYS, fit_decision,
+                                         mlp_fit_rows, mlp_layout,
+                                         mlp_loss_grad, mlp_sizes,
+                                         param_leaves)
+
+    std = not seed_fit
+    steps = MLP_SEED_STEPS if seed_fit else MLP_STEPS
+    kw = dict(lr=MLP_LR, n_steps=steps, standardize=std)
+    g_k = mlp_fit.gradient(x, y, w, ctr, old, need=need, standardize=std)
+    g_p = mlp_gradient_plain(x, y, w, ctr, old, need=need, standardize=std)
+    got, flags = mlp_fit(x, y, w, ctr, old, need=need, **kw)
+    ref, rflags = mlp_fit_plain(x, y, w, ctr, old, need=need, **kw)
+    again, _f = mlp_fit(x, y, w, ctr, old, need=need, **kw)
+    bad = x.clone()
+    bad[1, 2] = float("nan")
+    kept, kflags = mlp_fit(bad, y, w, ctr, old, need=need, **kw)
+    n_keep = int(min(int(ctr[0]), int(ctr[4])))
+    skip, sflags = mlp_fit(x, y, w, ctr, old, need=n_keep + 1, **kw)
+    torch.cuda.synchronize()
+    gscale = float(g_p.abs().max())
+    g_err = abs_err(g_k, g_p)
+    g_ok = within(g_k, g_p, 1e-5 * gscale, 1e-4)
+    mask, _fit = fit_decision(ctr, x.shape[0], need)
+    rows = mlp_fit_rows(old, x, y, w, mask, std)[:4]
+    loss_k = float(mlp_loss_grad(got["layers"], *rows)[0])
+    loss_p = float(mlp_loss_grad(ref["layers"], *rows)[0])
+    loss0 = float(mlp_loss_grad(old["layers"], *rows)[0])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    stats_ok = all(within(got[k], ref[k], 1e-6, 1e-5) for k in MLP_KEYS)
+    err = max(abs_err(a, b) for a, b in zip(param_leaves(got),
+                                            param_leaves(ref)))
+    same = all(torch.equal(a, b) for a, b in zip(param_leaves(got),
+                                                 param_leaves(again)))
+    olds = param_leaves(old)
+    poisoned = (kflags.tolist() == [0, 1]
+                and all(torch.equal(a, b) for a, b in
+                        zip(param_leaves(kept), olds)))
+    below = (sflags.tolist() == [1, 0]
+             and all(torch.equal(a, b) for a, b in
+                     zip(param_leaves(skip), olds)))
+    flags_ok = flags.tolist() == rflags.tolist() == [1, 1]
+    sizes = mlp_sizes(old["layers"])
+    loss_tol = 1e-2 if seed_fit else 1e-3
+    log(f"K23 mlp_fit {label} (n_cap {x.shape[0]}, {n_keep} kept, sizes "
+        f"{sizes}, {steps} steps): gradient max_abs_err={g_err:.3e} (scale "
+        f"{gscale:.3e}) within rel 1e-4 {g_ok}; loss {loss0:.6f} -> "
+        f"{loss_k:.6f} (plain {loss_p:.6f}, rel {loss_rel:.2e}, held to "
+        f"{loss_tol:.0e}); "
+        f"parameters max_abs_err={err:.3e}; mu, sd, ymu, ysd within 1e-5 "
+        f"{stats_ok}; flags {flags.tolist()} (plain {rflags.tolist()}); the "
+        f"same run to run {same}; a poisoned row keeps the old parameters "
+        f"{poisoned}; below need {below}")
+    check(g_ok and loss_rel <= loss_tol and loss_k < loss0 and stats_ok
+          and flags_ok and same and poisoned and below,
+          f"K23 MLP fit {label}: the gradient, the loss, the flags, the "
+          f"repeat or the guard differ from the plain version's")
+    if not timed:
+        return {}
+    P = mlp_layout(sizes)[1]
+    S, C = sizes[0], sizes[-1]
+    nbytes = n_keep * (S + C + 1) * 4 + 2 * (P + 2 * S + 2 * C) * 4 + 28
+    flops = steps * (mlp_step_flops(n_keep, sizes) + 12 * P)
+    out = dict(err=err, gradient_err=g_err, loss_rel=loss_rel,
+               bound=bound(nbytes, flops), library_ms=None,
+               call_ms=time_ms(lambda: mlp_fit(x, y, w, ctr, old, need=need,
+                                               **kw), 3),
+               ms=graph_ms(lambda: mlp_fit(x, y, w, ctr, old, need=need,
+                                           **kw), iters=2, replays=3),
+               plain_ms=time_ms(lambda: mlp_fit_plain(
+                   x, y, w, ctr, old, need=need, **kw), 1, warmup=1))
+    log(f"K23 mlp_fit {label}: ms={out['ms']:.5f} call_ms="
+        f"{out['call_ms']:.5f} plain_ms={out['plain_ms']:.5f} bound_ms="
+        f"{out['bound'][0]:.6f} ({out['bound'][1]}; {flops:.4e} "
+        f"operations)")
+    return out
+
+
+def k23_mlp_checks(dev) -> dict:
+    """K23's MLP fit and transform against their plain versions on the
+    card. The fit: a boundary fit at the MLP leg's width (n_cap 16384, 9731
+    kept rows of simulated network SIR statistics, S 128, hidden (64, 64),
+    C' 2), at a small odd shape (300 rows, 211 kept, S 6, hidden (8, 8))
+    and at C' 8 under three hidden layers of odd widths; the seed fit
+    (16384 rows, all kept, 400 steps on rows standardized in float64). The
+    transform and accept at B 65536, S 128 (p 2, 1 and inf) under the
+    boundary fit's transform."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (mlp_accept, mlp_accept_plain,
+                                         mlp_fit, mlp_transform_rows,
+                                         mlp_transform_rows_plain)
+    from pyabc_tpu_torch.ops.fit import N_ACC, N_TARGET
+    from pyabc_tpu_torch.utils import pick_batch
+
+    B = pick_batch(LS_POP)
+    x = ls_rows(dev, B, seed=43)
+    S = x["spec"].total_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+
+    def problem(n_cap, n_keep, C, rows=None, theta=None):
+        ctr = torch.zeros(5, dtype=torch.int32, device=dev)
+        ctr[N_ACC], ctr[N_TARGET] = n_keep + 5, n_keep
+        if rows is None:
+            rows, theta = x["ss"][:n_cap], x["theta"][:n_cap]
+        if theta.shape[1] < C:  # more targets: noisy nonlinear mixes
+            mix = torch.randn(theta.shape[1], C, generator=gen, device=dev)
+            theta = torch.sin(theta @ mix) + 0.01 * torch.randn(
+                n_cap, C, generator=gen, device=dev)
+        w = torch.rand(n_cap, generator=gen, device=dev) + 0.1
+        w[n_keep:] = 0.0
+        return rows.contiguous(), theta[:, :C].contiguous(), w, ctr
+
+    out = {}
+    main = problem(LS_POP, 9731, 2)
+    start = mlp_start(dev, (S, *MLP_HIDDEN, 2), seed=0)
+    out["mlp_fit"] = k23_mlp_case(dev, "boundary fit, main shape", *main,
+                                  start, S + 2, timed=True)
+    odd_rows = (torch.randn(300, 6, generator=gen, device=dev)
+                * torch.arange(1, 7, device=dev) + 40.0)
+    odd_theta = torch.tanh(odd_rows[:, :2] * 0.05 - 2.0) + 0.1 * torch.randn(
+        300, 2, generator=gen, device=dev)
+    k23_mlp_case(dev, "boundary fit, small odd shape",
+                 *problem(300, 211, 2, odd_rows, odd_theta),
+                 mlp_start(dev, (6, 8, 8, 2), seed=1), 8)
+    k23_mlp_case(dev, "boundary fit, C' 8, hidden (40, 24, 12)",
+                 *problem(LS_POP, 9731, 8),
+                 mlp_start(dev, (S, 40, 24, 12, 8), seed=2), S + 2)
+    # the seed fit: all rows, standardized on the host in float64
+    xs64 = x["ss"][:LS_POP].double()
+    ys64 = x["theta"][:LS_POP].double()
+    xs = ((xs64 - xs64.mean(0)) / xs64.std(0, unbiased=False).clamp_min(
+        1e-12)).float().contiguous()
+    ys = ((ys64 - ys64.mean(0)) / ys64.std(0, unbiased=False)).float()
+    ctr = torch.tensor([LS_POP, 0, 0, 0, LS_POP], dtype=torch.int32,
+                       device=dev)
+    wts = torch.rand(LS_POP, generator=gen, device=dev) + 0.5
+    seed = k23_mlp_case(dev, "seed fit", xs, ys.contiguous(), wts, ctr,
+                        start, 0, seed_fit=True, timed=True)
+    out["mlp_fit"].update(seed_ms=seed["ms"], seed_call_ms=seed["call_ms"],
+                          seed_bound_ms=seed["bound"][0],
+                          seed_plain_ms=seed["plain_ms"])
+
+    # the transform and the accept over a round of the leg, under the
+    # main boundary fit's transform
+    params, _fl = mlp_fit(*main, start, lr=MLP_LR, n_steps=MLP_STEPS,
+                          need=S + 2)
+    ss, x0 = x["ss"], x["x0"]
+    w = torch.ones(2, device=dev)
+    valid = torch.rand(B, generator=gen, device=dev) > 0.05
+    logpri = torch.randn(B, generator=gen, device=dev) - 3.0
+    logq = torch.randn(B, generator=gen, device=dev) - 2.0
+    rows = mlp_transform_rows(ss, params)
+    rows_r = mlp_transform_rows_plain(ss, params)
+    torch.cuda.synchronize()
+    scale = float(rows_r.abs().max())
+    r_err = abs_err(rows, rows_r)
+    check(within(rows, rows_r, 1e-5 * scale, 1e-5),
+          "K23 MLP transform outside 1e-5 of the plain version")
+    inf = torch.tensor(math.inf, device=dev)
+    sizes = (S, *MLP_HIDDEN, 2)
+    mm = sum(fi * fo for fi, fo in zip(sizes[:-1], sizes[1:]))
+    P = mm + sum(sizes[1:])
+    for p in (2.0, 1.0, math.inf):
+        d_all = mlp_accept_plain(ss, x0, params, w, inf, valid, p=p)[0]
+        eps = torch.quantile(d_all, 0.3)
+        args = (ss, x0, params, w, eps, valid)
+        kw = dict(p=p, logpri=logpri, logq=logq)
+        d_k, a_k, lw_k = mlp_accept(*args, **kw)
+        d_p, a_p, lw_p = mlp_accept_plain(*args, **kw)
+        v_k = mlp_accept.values(ss, x0, params, w, p=p)
+        torch.cuda.synchronize()
+        dscale = float(d_p.abs().max())
+        far = (d_p - eps).abs() > 1e-5 * dscale
+        flags = bool((a_k == a_p)[far].all())
+        err = abs_err(d_k, d_p)
+        log(f"K23 mlp_accept p={p} (B={B}, sizes {sizes}): "
+            f"max_abs_err(d)={err:.3e} (d up to {dscale:.3e}), transformed "
+            f"rows {r_err:.3e} (up to {scale:.3e}), accepted "
+            f"{int(a_k.sum())}, flags equal away from eps {flags}, values "
+            f"mode bit-equal {torch.equal(v_k, d_k)}")
+        check(within(d_k, d_p, 1e-5 * dscale, 1e-5) and flags
+              and torch.equal(lw_k, lw_p) and torch.equal(v_k, d_k),
+              f"K23 MLP accept (p {p}): distances outside 1e-5, flags or "
+              f"log weights differ, or the values mode differs")
+        if p != 2.0:
+            continue
+        # the rows, x0 and the transform read; logpri, logq, valid read
+        # and d, accept, log weight written a lane
+        nbytes = (B * S + S + P + 2 * S + 4 + 2 + 1) * 4 + B * 18
+        out["mlp_accept"] = dict(
+            err=err, call_ms=time_ms(lambda: mlp_accept(*args, **kw), 20),
+            ms=graph_ms(lambda: mlp_accept(*args, **kw), iters=10),
+            plain_ms=time_ms(lambda: mlp_accept_plain(*args, **kw), 5),
+            bound=bound(nbytes, 2 * (B + 1) * mm), library_ms=None,
+            transform_ms=graph_ms(lambda: mlp_transform_rows(ss, params),
+                                  iters=10),
+            transform_call_ms=time_ms(
+                lambda: mlp_transform_rows(ss, params), 20),
+            transform_err=r_err)
+        r = out["mlp_accept"]
+        log(f"K23 mlp_accept p=2: ms={r['ms']:.5f} call_ms="
+            f"{r['call_ms']:.5f} plain_ms={r['plain_ms']:.5f} transform_ms="
+            f"{r['transform_ms']:.5f} bound_ms={r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+    return out
+
+
+def learned_mlp_leg(dev, ident_fetch: float) -> tuple[dict, dict]:
+    """Phase 4's MLP leg on the card (this slice's main path), the counts
+    reset just before its first run -> (launch counts, mode counts). The
+    network SIR of the learned leg under PNormDistance(p=2) through
+    PredictorSumstat(MLPPredictor()): every kernel of the path launched
+    (K23's MLP fit once for the seed and at each boundary, its transform,
+    accept and values entries), the boundary refits, History rows 128 then
+    2 wide, one counter read a round, one fetch a chunk and the seed fit's
+    read, the seed fit's ms; early reject auto (off with the JAX package's
+    reason) against off: bit-identical; fetch bytes a particle at least 2
+    times fewer than the identity run's; then once more under
+    torch.profiler for K23's MLP fit and transform device ms."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    label = "learned-statistics MLP leg (network SIR, S 128, hidden (64, 64))"
+    abc = learned(dev, "mlp")
+    pred = abc.distance_function.sumstat.predictor
+    seed_ms, fit = [], pred.fit
+
+    def timed_fit(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        seed_ms.append(1e3 * (time.perf_counter() - t0))
+
+    pred.fit = timed_fit
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=LS_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    rep = ls_report(label, abc, h, wall)
+    tel = [h.get_telemetry(t) for t in range(h.max_t + 1)]
+    refits = [t for t, x in enumerate(tel) if x.get("sumstat_refit")]
+    fit_ok = [x.get("sumstat_fit_ok") for x in tel if "sumstat_refit" in x]
+    widths = [h.get_weighted_sum_stats(t)[1].shape[1] for t in (0, 1)]
+    fallbacks = [f["reason"] for f in abc.capability_fallbacks
+                 if f["gate"] == "early_reject"]
+    log(f"{label}: seed fit {seed_ms[0]:.3f} ms on the host's clock "
+        f"({MLP_SEED_STEPS} steps on generation 0's {LS_POP} rows); "
+        f"boundary refits at generations {refits} (finite {fit_ok}), "
+        f"predictor fitted last for t = "
+        f"{abc.distance_function.sumstat._last_fit_t}; History rows "
+        f"{widths[0]} wide at generation 0, {widths[1]} after; telemetry "
+        f"{tel[0].get('sumstat')}; early reject: {fallbacks}")
+    log(f"{label}: kernel launches {counts}; K23 MLP transform "
+        f"{modes['mlp_accept:transform']}, values "
+        f"{modes['mlp_accept:values']}")
+    n_chunks = 1 + -(-(LS_GENS - 1) // LS_G)
+    by = rep["syncs"]["by_kind"]
+    check(set(by) == {"round_counters", "chunk_fetch", "sumstat_train_fetch"}
+          and by["sumstat_train_fetch"] == 1
+          and 1 <= by["round_counters"] - sum(rep["rounds"]) <= 2
+          and by["chunk_fetch"] == n_chunks,
+          f"{label}: a host read beyond one a round, one a chunk and the "
+          f"seed fit's: {by}")
+    check(refits == boundaries(LS_GENS, LS_G) and all(fit_ok),
+          f"{label}: the boundary refits were {refits} ({fit_ok})")
+    check(widths == [128, 2] and tel[0]["sumstat"]["kind"] == "mlp",
+          f"{label}: History rows {widths} wide, telemetry "
+          f"{tel[0].get('sumstat')}")
+    check(all(counts[k] > 0 for k in MLP_PATH)
+          and counts["mlp_fit"] == 1 + len(refits)
+          and modes["mlp_accept:transform"] > 0
+          and modes["mlp_accept:values"] > 0,
+          f"{label}: a kernel of the path was never launched")
+    check(len(fallbacks) == 1
+          and "no monotone prefix bound" in fallbacks[0],
+          f"{label}: early reject not refused with the JAX package's "
+          f"reason: {fallbacks}")
+    off = learned(dev, "mlp", False)
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h_off = off.run(max_nr_populations=LS_GENS)
+        torch.cuda.synchronize()
+        wall_off = time.perf_counter() - t0
+    ls_report(f"{label} early reject off", off, h_off, wall_off)
+    same = populations_identical(h, h_off)
+    ratio = ident_fetch / rep["fetch"]
+    log(f"{label}: early reject auto and off bit-identical {same}; fetch "
+        f"bytes a particle identity {ident_fetch:.2f} MLP "
+        f"{rep['fetch']:.2f}: {ratio:.2f} times fewer")
+    check(same, f"{label}: populations differ with early reject auto and "
+          f"off")
+    check(ratio >= 2.0, f"{label}: fetch bytes a particle only {ratio:.2f} "
+          f"times fewer than the identity run's")
+    by_name = profile_run(f"{label} (profiled)", learned(dev, "mlp"),
+                          LS_GENS)
+    if by_name:
+        for name, keys in (("K23 MLP fit (seed and boundaries)",
+                            ("mlp_step", "mlp_adam", "mlp_init", "mlp_wsum",
+                             "mlp_guard", "col_")),
+                           ("K23 MLP transform and accept",
+                            ("mlp_transform", "mlp_accept")),
+                           ("K20b rounds", ("network_sir",))):
+            v = [t for k, t in by_name.items() if any(s in k for s in keys)]
+            tot_ms = sum(t[0] for t in v) / 1e3
+            log(f"{label}: {name} device ms a generation "
+                f"{tot_ms / LS_GENS:.5f} ({sum(t[1] for t in v)} launches)")
+    return counts, modes
+
+
+def learned_mlp_cpu_trail(dev) -> None:
+    """The MLP leg at pop 1024 on the card and on the CPU (the plain
+    versions, the same Philox streams): generation 0's epsilon within
+    1e-3 relative; the two seed fits' predictions on 512 held-out prior
+    simulations within 1e-2 of their sd, as the root mean square of the
+    difference over the rows (400 Adam steps in other summation orders on
+    statistics 1e-4 apart; the largest difference of a row is reported
+    beside it: it grows with the rows taken, 1.04e-2 at 512 on an H100
+    80GB HBM3); and generation 1's epsilon within 1e-3 on a CPU run fed the
+    card's seed fit (Adam amplifies an ulp, so the CPU's own seed fit is
+    reported beside it, not held)."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+
+    def trail(h):
+        return [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    def snapshot(pred, store):
+        fit = pred.fit
+
+        def wrapped(*args, **kwargs):
+            fit(*args, **kwargs)
+            store["_params"] = [{k: v.copy() for k, v in layer.items()}
+                                for layer in pred._params]
+            for k in ("_mu", "_sd", "_ymu", "_ysd"):
+                store[k] = getattr(pred, k).copy()
+
+        pred.fit = wrapped
+
+    trails, seeds = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        abc = learned(where, "mlp", pop=LS_CPU_POP)
+        seeds[where] = {}
+        snapshot(abc.distance_function.sumstat.predictor, seeds[where])
+        trails[where] = trail(abc.run(max_nr_populations=3))
+        log(f"learned-statistics MLP leg at pop {LS_CPU_POP} ({where}, "
+            f"{time.perf_counter() - t0:.1f} s): eps trail "
+            f"{[round(e, 5) for e in trails[where]]}")
+    r = rel(trails[dev], trails["cpu"])
+    held = ls_rows(dev, 512, seed=77)["ss"].cpu().numpy()
+    preds = {}
+    for where, snap in seeds.items():
+        p = pt.MLPPredictor()
+        for k, v in snap.items():
+            setattr(p, k, v)
+        preds[where] = p.predict(held)
+    diff = preds[dev] - preds["cpu"]
+    sd = preds["cpu"].std(0)
+    gap = (np.sqrt(np.mean(diff ** 2, 0)) / sd).max()
+    gap_max = (np.abs(diff).max(0) / sd).max()
+    abc = learned("cpu", "mlp", pop=LS_CPU_POP)
+    pred = abc.distance_function.sumstat.predictor
+
+    def fed(*_args, **_kwargs):
+        for k, v in seeds[dev].items():
+            setattr(pred, k, v)
+
+    pred.fit = fed
+    fed_trail = trail(abc.run(max_nr_populations=3))
+    rf = rel(trails[dev], fed_trail)
+    log(f"learned-statistics MLP leg at pop {LS_CPU_POP}: |card - cpu| / "
+        f"cpu per generation {[float(f'{v:.2e}') for v in r]}; the seed "
+        f"fits' predictions on 512 held-out rows {gap:.3e} of their sd "
+        f"(root mean square; the largest row {gap_max:.3e}); a "
+        f"CPU run fed the card's seed fit: eps trail "
+        f"{[round(e, 5) for e in fed_trail]}, against the card "
+        f"{[float(f'{v:.2e}') for v in rf]}")
+    check(r[0] <= 1e-3, "learned MLP leg: the card's generation-0 epsilon "
+          "is more than 1e-3 off the CPU's")
+    check(gap <= 1e-2, "learned MLP leg: the card's and the CPU's seed fits "
+          "predict more than 1e-2 of an sd apart on held-out rows")
+    check(max(rf[:2]) <= 1e-3, "learned MLP leg: the CPU fed the card's "
+          "seed fit is more than 1e-3 off the card in its first two "
+          "epsilons")
+
+
 def main() -> int:
     import torch
 
@@ -7267,6 +7732,7 @@ def main() -> int:
     results.update(k25_checks(dev))
     results.update(k2_family_checks(dev))
     results.update(k23_checks(dev)[0])
+    results.update(k23_mlp_checks(dev))
     k16_repair_case(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -7328,10 +7794,12 @@ def main() -> int:
     lv_family_cpu_trail(dev)
     family_pair(dev)
     writer_turns(dev)
-    ls_counts, ls_modes, ls_params = learned_leg(dev)
+    ls_counts, ls_modes, ls_params, ident_fetch = learned_leg(dev)
     learned_cpu_trail(dev)
     learned_adaptive_leg(dev)
     learned_accuracy(dev)
+    mlp_counts, _mlp_modes = learned_mlp_leg(dev, ident_fetch)
+    learned_mlp_cpu_trail(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -7364,7 +7832,8 @@ def main() -> int:
         # and K26, config 3 for K18 and K19, the scale lane for K12-K15,
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands
-        own = (ls_counts if k.name in LS_KERNELS
+        own = (mlp_counts if k.name in MLP_KERNELS
+               else ls_counts if k.name in LS_KERNELS
                else agg_counts if k.name in AGG_KERNELS
                else sir_counts if k.name in NOISY_KERNELS else c5_counts
                if k.name in MODEL_KERNELS else scale_counts
@@ -7408,11 +7877,16 @@ def main() -> int:
                                      c3agg_counts[k.name],
                                  "lv_families": lvf_counts[k.name],
                                  "learned_network_sir":
-                                     ls_counts[k.name]},
+                                     ls_counts[k.name],
+                                 "learned_mlp_network_sir":
+                                     mlp_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
-                      "transform_ms", "transform_err", "k5_ms"):
+                      "transform_ms", "transform_err", "k5_ms",
+                      "transform_call_ms", "gradient_err", "loss_rel",
+                      "seed_ms", "seed_call_ms", "seed_bound_ms",
+                      "seed_plain_ms", "launches_seed_fit"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:

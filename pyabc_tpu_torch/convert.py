@@ -221,19 +221,33 @@ def population_strategy(strategy):
 
 
 def predictor_from_jax(predictor):
-    """A fitted (or unfitted) JAX ``LinearPredictor`` -> the port's, its
-    ``alpha``, ``normalize`` and fitted ``_W``, ``_b``, ``_mu``, ``_sd``
-    carried across as float64 numpy (read by attribute: nothing of the JAX
-    package is imported)."""
-    from .predictor import LinearPredictor
+    """A fitted (or unfitted) JAX ``LinearPredictor`` or ``MLPPredictor``
+    -> the port's, read by attribute (nothing of the JAX package is
+    imported): the linear one's ``alpha``, ``normalize`` and fitted ``_W``,
+    ``_b``, ``_mu``, ``_sd`` as float64 numpy; the MLP's ``hidden``,
+    ``n_steps``, ``lr``, ``seed``, its layers ``_params`` (a list of
+    ``{"w", "b"}``) as float32 numpy and ``_mu``, ``_sd``, ``_ymu``,
+    ``_ysd`` as float64 numpy (the host fit's types)."""
+    from .predictor import LinearPredictor, MLPPredictor
 
     name = type(predictor).__name__
-    if name != "LinearPredictor":
-        raise not_ported(f"carrying a {name} across (the linear plan "
-                         f"only)", "14")
-    out = LinearPredictor(alpha=predictor.alpha,
-                          normalize=predictor.normalize)
-    for key in ("_W", "_b", "_mu", "_sd"):
+    if name == "MLPPredictor":
+        out = MLPPredictor(hidden=predictor.hidden,
+                           n_steps=predictor.n_steps, lr=predictor.lr,
+                           seed=predictor.seed)
+        if predictor._params is not None:
+            out._params = [{k: np.asarray(layer[k], np.float32)
+                            for k in ("w", "b")}
+                           for layer in predictor._params]
+        keys = ("_mu", "_sd", "_ymu", "_ysd")
+    elif name == "LinearPredictor":
+        out = LinearPredictor(alpha=predictor.alpha,
+                              normalize=predictor.normalize)
+        keys = ("_W", "_b", "_mu", "_sd")
+    else:
+        raise not_ported(f"carrying a {name} across (the linear and MLP "
+                         f"plans only)", "14")
+    for key in keys:
         value = getattr(predictor, key)
         setattr(out, key,
                 None if value is None else np.asarray(value, np.float64))

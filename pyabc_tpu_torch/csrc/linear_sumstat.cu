@@ -21,19 +21,21 @@
 //   values mode (terms null): the distances only, for the reservoir's
 //       recompute after a refit; bit-equal to the accept's distances under
 //       the same parameters.
-// p = 1, 2, inf (NaN kept) or general, as pnorm_accept.cu.
+// p = 1, 2, inf (NaN kept) or general, as pnorm_accept.cu
+// (feature_pnorm.cuh, shared with the MLP transform).
 //
 // Bound on an H100: bytes, one read of the (B, S) statistics; W, b, mu,
 // sd (a few KB) stay in L1/L2. C' <= 8 (the accumulators live in
 // registers).
 #include "accept_epilogue.cuh"
 #include "common.cuh"
+#include "feature_pnorm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 8;
+constexpr int kMaxC = kMaxFeatures;
 
 // the transform of one row by one warp; every lane returns all C values
 __device__ __forceinline__ void lin_row(const float* __restrict__ row,
@@ -101,28 +103,7 @@ linear_accept_kernel(const float* __restrict__ ss, int B, int S, int C,
   float s[kMaxC];
   lin_row(ss + (size_t)row_i * S, S, C, W, b, mu, sd, s);
   if ((threadIdx.x & 31) != 0) return;
-  const bool p_inf = isinf(p);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    if (c >= C) break;
-    const float diff = __fmul_rn(w[c], fabsf(__fsub_rn(s[c], s0[c])));
-    if (p_inf)
-      acc = nan_max(acc, diff);
-    else if (p == 1.f)
-      acc = __fadd_rn(acc, diff);
-    else if (p == 2.f)
-      acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-    else
-      acc = __fadd_rn(acc, powf(diff, p));
-  }
-  float d;
-  if (p_inf || p == 1.f)
-    d = acc;
-  else if (p == 2.f)
-    d = __fsqrt_rn(acc);
-  else
-    d = powf(acc, 1.f / p);
+  const float d = feature_pnorm(s, s0, w, C, p);
   if (values)
     terms.d_out[row_i] = d;
   else

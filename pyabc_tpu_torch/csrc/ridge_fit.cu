@@ -7,10 +7,10 @@
 // calls them at a chunk's last active generation.
 //
 // The decision is read from the round counters in device memory, with no
-// host read: n_keep = min(n_acc, n_target), the kept rows are the first
-// n_keep, gen_ok = n_acc >= min(n_target, n_cap), and the fit runs when
-// gen_ok and n_keep >= need. Otherwise every pass returns at once and the
-// last one copies the old parameters.
+// host read (fit_common.cuh, shared with the MLP fit): the kept rows are
+// the first n_keep = min(n_acc, n_target). A fit that does not run
+// returns from every pass at once, and the last one copies the old
+// parameters.
 //
 // Passes (a stream of six launches, each a fixed order of sums, so a run
 // repeats bit for bit; no float atomics):
@@ -44,35 +44,17 @@
 // the reads of x (n S floats, twice) come next. The design keeps every
 // partial sum in float64 and the factorization in one block: simple and
 // exact first.
-#include "common.cuh"
+#include "fit_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;       // rows a block of passes 1-2 sums
+using fit::decide;
+using fit::Decision;
+using fit::kRows;  // rows a block of passes 1-2 sums
+using fit::kThreads;
+using fit::warp_sum_f64;
 constexpr int kGramRows = 1024;  // rows a block of pass 3 sums
 constexpr int kTile = 32;
-constexpr int kNAcc = 0, kNTarget = 4;
-
-__device__ __forceinline__ double warp_sum_f64(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-struct Decision {
-  int n_keep;
-  bool fit;
-};
-
-__device__ __forceinline__ Decision decide(const int* counters, int n_cap,
-                                           int need) {
-  const int n_acc = counters[kNAcc], n_tgt = counters[kNTarget];
-  const int n_keep = min(n_acc, n_tgt);
-  const bool gen_ok = n_acc >= min(n_tgt, n_cap);
-  return Decision{n_keep, gen_ok && n_keep >= need};
-}
 
 // pass 1: per chunk, thread q < S the column sum of x, q == S the weights'
 // sum, S < q <= S + C the weighted sum of y's column q - S - 1
@@ -129,43 +111,6 @@ ridge_sums_finish_kernel(const double* __restrict__ part, int n_cap, int S,
       mu[q] = (float)(s / n);
     else
       fin[2 + q - S - 1] = s * (n / fmax(sw, 1e-30)) / n;  // ym
-  }
-}
-
-// pass 2: per chunk, the column sums of (x - mu)^2
-__global__ void __launch_bounds__(kThreads)
-ridge_dev_kernel(const float* __restrict__ x, int n_cap, int S,
-                 const int* __restrict__ counters, int need,
-                 const float* __restrict__ mu, double* __restrict__ part) {
-  const Decision dec = decide(counters, n_cap, need);
-  if (!dec.fit) return;
-  const int r0 = blockIdx.x * kRows;
-  if (r0 >= dec.n_keep) return;
-  const int r1 = min(r0 + kRows, dec.n_keep);
-  for (int q = threadIdx.x; q < S; q += blockDim.x) {
-    const double m = (double)mu[q];
-    double s = 0.0;
-    for (int r = r0; r < r1; ++r) {
-      const double d = (double)x[(size_t)r * S + q] - m;
-      s += d * d;
-    }
-    part[(size_t)blockIdx.x * S + q] = s;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-ridge_dev_finish_kernel(const double* __restrict__ part, int n_cap, int S,
-                        const int* __restrict__ counters, int need,
-                        const double* __restrict__ fin,
-                        float* __restrict__ sd) {
-  const Decision dec = decide(counters, n_cap, need);
-  if (!dec.fit) return;
-  const int chunks = (dec.n_keep + kRows - 1) / kRows;
-  for (int q = threadIdx.x; q < S; q += blockDim.x) {
-    double s = 0.0;
-    for (int k = 0; k < chunks; ++k) s += part[(size_t)k * S + q];
-    const float v = (float)sqrt(s / fin[0]);
-    sd[q] = v > 1e-12f ? v : 1.f;
   }
 }
 
@@ -376,29 +321,10 @@ extern "C" int pyabc_ridge_fit(
   const size_t smem = sizeof(double) * (size_t)S * (S + C + 1);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   // the solve's dynamic shared memory may use what the block's opt-in
-  // limit leaves beside its static variables; raised once (the first
-  // launch is never inside a graph capture: the wrapper's first call runs
-  // eagerly)
-  static int smem_max = -1;
-  if (smem_max < 0) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncGetAttributes(&fa, ridge_solve_kernel);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ridge_solve_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 optin - (int)fa.sharedSizeBytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // leave no error for the next launch's check
-      return static_cast<int>(err);
-    }
-    smem_max = optin - (int)fa.sharedSizeBytes;
-  }
+  // limit leaves beside its static variables
+  static int smem_cached = -1;
+  const int smem_max = fit::raise_smem(ridge_solve_kernel, &smem_cached);
+  if (smem_max < 0) return -smem_max;
   if ((long long)smem > smem_max)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (n_cap + kRows - 1) / kRows;
@@ -408,10 +334,11 @@ extern "C" int pyabc_ridge_fit(
                                                      counters, need, part1);
   ridge_sums_finish_kernel<<<1, kThreads, 0, stream>>>(
       part1, n_cap, S, C, counters, need, mu, fin);
-  ridge_dev_kernel<<<chunks, kThreads, 0, stream>>>(x, n_cap, S, counters,
-                                                    need, mu, part1);
-  ridge_dev_finish_kernel<<<1, kThreads, 0, stream>>>(part1, n_cap, S,
-                                                      counters, need, fin, sd);
+  fit::col_dev_kernel<<<chunks, kThreads, 0, stream>>>(x, n_cap, S,
+                                                       counters, need, mu,
+                                                       part1);
+  fit::col_sd_kernel<<<1, kThreads, 0, stream>>>(part1, n_cap, S, counters,
+                                                 need, sd);
   const dim3 grid((S + kTile - 1) / kTile, (S + C + kTile - 1) / kTile,
                   gchunks);
   ridge_gram_kernel<<<grid, kThreads, 0, stream>>>(

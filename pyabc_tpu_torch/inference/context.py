@@ -89,19 +89,22 @@ scale`` and the reservoir's distances under it. A user's weight schedule
 arrives as one row of the chunk's table per generation (``dist_w``).
 
 Learned statistics (``PNormDistance`` or ``AdaptivePNormDistance`` with
-``sumstat=PredictorSumstat(LinearPredictor(...))``, the linear plan of
-``pyabc_tpu`` ``multigen_kernel(sumstat_fit=...)``): once the host seed fit
-after generation 0 has run, ``Carry.dist_w`` is ``{"w": (C',), "ss": the
-transform}`` and a round's accept is K23's (``linear_accept``: x and x0
-through the transform, then K5's p-norm and epilogue); under early reject
-K18 folds the transformed bound (its ``LinBound``) on operands K18's
-prepare kernel forms once a generation. At a chunk's boundary generation
-the generation step runs K23's fit (``ridge_fit``: the decision, the fit
-and its finite guard on the device), then under an adaptive distance K9
-over the record ring transformed by the new parameters, else K23's values
-mode over the reservoir, so the epsilon quantile is taken in the new
-feature space; the generation's rows are transformed under the parameters
-they were accepted with for the fetch (C' wide).
+``sumstat=PredictorSumstat(LinearPredictor(...))`` or ``MLPPredictor``,
+the linear and MLP plans of ``pyabc_tpu``
+``multigen_kernel(sumstat_fit=...)``): once the host seed fit after
+generation 0 has run, ``Carry.dist_w`` is ``{"w": (C',), "ss": the
+transform}`` and a round's accept is K23's for the plan's kind
+(``linear_accept`` or ``mlp_accept``: x and x0 through the transform, then
+K5's p-norm and epilogue); under early reject (the linear plan only) K18
+folds the transformed bound (its ``LinBound``) on operands K18's prepare
+kernel forms once a generation. At a chunk's boundary generation the
+generation step runs K23's fit (``ridge_fit``, or ``mlp_fit``'s
+warm-started Adam steps: the decision, the fit and its finite guard on
+the device), then under an adaptive distance K9 over the record ring
+transformed by the new parameters, else K23's values mode over the
+reservoir, so the epsilon quantile is taken in the new feature space; the
+generation's rows are transformed under the parameters they were accepted
+with for the fetch (C' wide).
 
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
@@ -122,6 +125,9 @@ from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.linear_sumstat import linear_accept, transform_rows
+from ..kernels.mlp_fit import mlp_fit
+from ..kernels.mlp_sumstat import mlp_accept
+from ..kernels.mlp_sumstat import transform_rows as mlp_transform_rows
 from ..kernels.model_step import model_step
 from ..kernels.moments import moment_fold, seg_of_columns
 from ..kernels.mvn_fit import mvn_fit
@@ -146,6 +152,9 @@ from ..transition.local_transition import LocalTransition
 N_ACC, ROUNDS, N_VALID, EPS_AT_MIN, N_TARGET = range(5)
 #: the generation index of the calibration rounds' draws
 CALIBRATION_GENERATION = 2 ** 32 - 1
+#: K23's (accept, transform) entries by the device-fit plan's kind
+LEARNED_KERNELS = {"linear": (linear_accept, transform_rows),
+                   "mlp": (mlp_accept, mlp_transform_rows)}
 
 
 def quantile_epsilon(d, k_mask, w_norm, weighted: bool, alpha: float,
@@ -262,6 +271,9 @@ class DeviceContext:
         self.rounds_read = 0
         #: K18's transformed-bound operands of the generation in progress
         self.lin_bp: dict | None = None
+        #: a fitted learned statistic's K23 entries (accept, transform), by
+        #: the plan's kind (``seed_transform``)
+        self.learned: tuple | None = None
         #: one model under LocalTransition: K2's local mode draws, K14
         #: scores, K15 then K12 and K13 refit
         self.local = self.K == 1 and isinstance(transition, LocalTransition)
@@ -393,7 +405,7 @@ class DeviceContext:
                 logpri=logpri, logq=logq, family=self.distance.family)
         if isinstance(dist_w, dict):
             # a fitted learned statistic: K23's transform and accept
-            return linear_accept(
+            return self.learned[0](
                 ss, self.x0, dist_w["ss"], dist_w["w"], eps, valid,
                 p=self.distance.p, hist_min=hist_min, logpri=logpri,
                 logq=logq)
@@ -685,24 +697,30 @@ class DeviceContext:
         values mode). The fetch's rows: the generation's transformed under
         the parameters it was accepted with."""
         res = run.res
+        accept, transform = self.learned
         ss_used, w_used = dist_w["ss"], dist_w["w"]
         ss_next = ss_used
-        out = {"sumstats": transform_rows(res["sumstats"], ss_used)}
+        out = {"sumstats": transform(res["sumstats"], ss_used)}
         if plan is not None:
             w_fit = torch.where(k_mask, torch.exp(w_norm),
                                 torch.zeros_like(w_norm))
-            ss_next, flags = ridge_fit(
-                res["sumstats"], res["theta"][:, :plan["out_dim"]]
-                .contiguous(), w_fit, run.counters, ss_used,
-                alpha=plan["alpha"], need=plan["need"])
+            args = (res["sumstats"], res["theta"][:, :plan["out_dim"]]
+                    .contiguous(), w_fit, run.counters, ss_used)
+            if plan["kind"] == "mlp":
+                ss_next, flags = mlp_fit(*args, lr=plan["lr"],
+                                         n_steps=plan["n_steps"],
+                                         need=plan["need"])
+            else:
+                ss_next, flags = ridge_fit(*args, alpha=plan["alpha"],
+                                           need=plan["need"])
             out.update(ss_fit=ss_next, fit_flags=flags)
         if adaptive:
             w_next, d_new = self._learned_refit(run.rec, res["sumstats"],
                                                 ss_next)
         elif plan is not None:
             w_next = w_used
-            d_new = linear_accept.values(res["sumstats"], self.x0, ss_next,
-                                         w_used, p=self.distance.p)
+            d_new = accept.values(res["sumstats"], self.x0, ss_next, w_used,
+                                  p=self.distance.p)
         else:
             w_next, d_new = w_used, res["distance"]
         return {"w": w_next, "ss": ss_next}, d_new, out
@@ -711,13 +729,13 @@ class DeviceContext:
         """An adaptive distance's refit in a learned feature space: K9 over
         the record ring, x0 and ``rows`` transformed by ``params`` (K23)
         -> (weights, the distances of ``rows``)."""
+        transform = self.learned[1]
         return self.distance.refit(
-            transform_rows(rec["sumstats"], params), rec["valid"],
-            transform_rows(self.x0[None], params)[0],
-            transform_rows(rows, params))
+            transform(rec["sumstats"], params), rec["valid"],
+            transform(self.x0[None], params)[0], transform(rows, params))
 
     def seed_transform(self, carry: Carry, out: dict, params: dict, *,
-                       adaptive: bool, eps_quantile: bool,
+                       kind: str, adaptive: bool, eps_quantile: bool,
                        eps_weighted: bool, alpha: float,
                        multiplier: float) -> None:
         """After the host seed fit of generation 0 (``smc.py:1502-1530`` of
@@ -725,17 +743,19 @@ class DeviceContext:
         distance's weights in the new feature space, the population's
         distances recomputed in it, the epsilon update on them): the same
         on the device from generation 0's step outputs ``out`` and the
-        fitted transform ``params``. ``carry`` gets ``dist_w = {"w", "ss"}``
-        and the new epsilon; the health word's epsilon recursion restarts,
-        as the JAX package's first fused chunk does."""
+        fitted transform ``params`` of the plan's ``kind`` (whose K23
+        entries serve the rest of the run). ``carry`` gets ``dist_w = {"w",
+        "ss"}`` and the new epsilon; the health word's epsilon recursion
+        restarts, as the JAX package's first fused chunk does."""
         dev = self.device
+        self.learned = LEARNED_KERNELS[kind]
         rows = out["sumstats"]
         if adaptive:
             w, d_new = self._learned_refit(out["rec"], rows, params)
         else:
             w = self.distance.device_params(1, dev)["w"]
-            d_new = linear_accept.values(rows, self.x0, params, w,
-                                         p=self.distance.p)
+            d_new = self.learned[0].values(rows, self.x0, params, w,
+                                           p=self.distance.p)
         carry.dist_w = {"w": w, "ss": params}
         if eps_quantile:
             carry.eps = quantile_epsilon(d_new, out["k_mask"], out["w_norm"],

@@ -67,21 +67,25 @@ distances of the JAX package (``ZScoreDistance``, ``PCADistance``, ...)
 run on its host loop only and raise ``not_ported``.
 
 Learned summary statistics (``PNormDistance(p, sumstat=PredictorSumstat(
-LinearPredictor(...)))`` or the same ``AdaptivePNormDistance``; one model,
-a uniform acceptor; the JAX package's device-fit plan ``linear``):
+LinearPredictor(...)))``, the same with ``MLPPredictor(...)``, or either
+under ``AdaptivePNormDistance``; one model, a uniform acceptor; the JAX
+package's device-fit plans ``linear`` and ``mlp``):
 generation 0 runs on the raw statistics as a chunk of its own (the
 predictor is unfitted, the transform the identity; its rows fetched in
 float32), then the host fits the predictor on it in float64
-(``PredictorSumstat.update``), and on the device an adaptive distance
-refits its weights in the new feature space and generation 0's distances
-are recomputed there for the next epsilon. From generation 1 the fitted
+(``PredictorSumstat.update``; the MLP standardizes on the host and runs its
+Adam steps through K23's MLP fit on the card), and on the device an
+adaptive distance refits its weights in the new feature space and
+generation 0's distances are recomputed there for the next epsilon. From generation 1 the fitted
 transform rides the device carry: every accept runs through it (K23), each
 chunk's last generation refits it on the device (K23's fit, no host read)
 and the fetch ships the C'-wide transformed rows; the host mirrors each
 boundary fit into the predictor after the chunk's fetch. Under early
-reject a plain p = 2 norm folds the transformed bound (K18's LinBound).
-The MLP plan, the host-refit mode (Lasso, GP, model-selection predictors,
-``IdentitySumstat``, ``fit_every`` other than 1) and several models raise
+reject a linear plan with a plain p = 2 norm folds the transformed bound
+(K18's LinBound); an MLP transform has no such bound and keeps the
+classic kernel, as in the JAX package. The host-refit mode (Lasso, GP,
+model-selection predictors, ``IdentitySumstat``, ``fit_every`` other than
+1), an MLP beyond the kernels' caps and several models raise
 ``not_ported`` with the JAX package's reason where it gives one.
 
 Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
@@ -133,6 +137,8 @@ from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
 from ..kernels.linear_sumstat import MAX_C as MAX_LEARNED
+from ..kernels.mlp_fit import check_caps as check_mlp_caps
+from ..ops.fit import pack_layers, unpack_layers
 from ..populationstrategy import (AdaptivePopulationSize,
                                   ConstantPopulationSize, ListPopulationSize)
 from ..storage.history import History
@@ -399,9 +405,6 @@ class ABCSMC:
         if plan is None:
             raise _not_ported(f"learned summary statistics in the JAX "
                               f"package's host-refit mode ({reason})", "14")
-        if plan["kind"] != "linear":
-            raise _not_ported("the MLP plan of learned summary statistics "
-                              "(MLPPredictor's in-kernel Adam steps)", "14")
         if d_max > MAX_LEARNED:
             raise _not_ported(f"learned summary statistics of {d_max} "
                               f"features (K23's transform keeps at most "
@@ -925,7 +928,7 @@ class ABCSMC:
             stop = stop or single
             if plan is not None and t == 0 and not stop:
                 self._seed_fit(ctx, carry, outs[0], fetched, host_gen[0],
-                               statics)
+                               statics, plan["kind"])
             t += n_kept
             chunk_index += 1
 
@@ -948,6 +951,9 @@ class ABCSMC:
                 "before the run (generation 0 under that transform)", "14")
         plan, _reason = device_fit_plan(
             d, total_size=self.spec.total_size, d_max=self.prior.dim)
+        if plan["kind"] == "mlp":
+            check_mlp_caps((self.spec.total_size, *ss.predictor.hidden,
+                            plan["out_dim"]))
         if n0 < plan["need"]:
             raise _not_ported(
                 f"learned summary statistics whose generation-0 seed fit "
@@ -956,12 +962,15 @@ class ABCSMC:
         return plan
 
     def _seed_fit(self, ctx: DeviceContext, carry: Carry, out: dict,
-                  fetched: dict, info: dict, statics: dict) -> None:
+                  fetched: dict, info: dict, statics: dict,
+                  kind: str) -> None:
         """The host seed fit after generation 0 (``PredictorSumstat.update(
         1, population)`` on its raw rows, float64), then on the device the
         weights and distances in the new feature space and the next
         epsilon (``DeviceContext.seed_transform``). An adaptive distance's
-        new weights are read back once for the host mirror."""
+        new weights are read back once for the host mirror. The predictor
+        trains on this run's device and records a read of its result in
+        this run's ledger."""
         d, n = self.distance_function, info["n"]
         theta, _dist, logw = unpack_rows(fetched["rows"], self.prior.dim)
         pop = Population(
@@ -970,11 +979,13 @@ class ABCSMC:
             distances=_dist[0][:n], sumstats=fetched["sumstats"][0][:n],
             spaces=[self.prior.space], sumstat_spec=self.spec,
             model_names=self.model_names)
+        pred = d.sumstat.predictor
+        pred.device, pred.sync_ledger = self.device, self.sync_ledger
         d.sumstat.update(1, pop)
         if not seed_params_ready(d):
             raise RuntimeError("the generation-0 seed fit did not run")
         ctx.seed_transform(
-            carry, out, d.sumstat.device_params(self.device),
+            carry, out, d.sumstat.device_params(self.device), kind=kind,
             **{k: statics[k] for k in ("adaptive", "eps_quantile",
                                        "eps_weighted", "alpha",
                                        "multiplier")})
@@ -1046,9 +1057,12 @@ class ABCSMC:
                 dw["w"] if isinstance(dw, dict) else dw
                 for dw in each("dist_w_next")])
         if "ss_fit" in outs[-1]:
-            # the boundary generation's fitted transform and K23's flags
-            tree.update({f"ss_fit_{k}": v
-                         for k, v in outs[-1]["ss_fit"].items()})
+            # the boundary generation's fitted transform (an MLP's layers
+            # packed) and K23's flags
+            fit = dict(outs[-1]["ss_fit"])
+            if "layers" in fit:
+                fit["layers"] = pack_layers(fit["layers"])
+            tree.update({f"ss_fit_{k}": v for k, v in fit.items()})
             tree["fit_flags"] = outs[-1]["fit_flags"]
         if "m" in outs[0]:
             # K > 1: each kept row's model (int8) and the model
@@ -1227,10 +1241,16 @@ class ABCSMC:
                 "dim_reduced": int(plan["out_dim"]),
                 "need": int(plan["need"])}
         if boundary and "fit_flags" in fetched and fetched["fit_flags"][1]:
-            mirror_fitted_params(
-                self.distance_function,
-                {k: fetched[f"ss_fit_{k}"] for k in ("W", "b", "mu", "sd")},
-                t + 1)
+            keys = [k[len("ss_fit_"):] for k in fetched
+                    if k.startswith("ss_fit_")]
+            ssp = {k: fetched[f"ss_fit_{k}"] for k in keys}
+            if "layers" in ssp:
+                pred = self.distance_function.sumstat.predictor
+                sizes = (self.spec.total_size, *pred.hidden,
+                         plan["out_dim"])
+                ssp["layers"] = unpack_layers(
+                    torch.from_numpy(ssp["layers"]), sizes)
+            mirror_fitted_params(self.distance_function, ssp, t + 1)
             tel.update(sumstat_refit=True,
                        sumstat_fit_ok=bool(fetched["fit_flags"][0]))
         return tel

@@ -21,6 +21,10 @@ from .linear_sumstat import (linear_accept, linear_accept_plain,
                              linear_values_plain, transform_rows,
                              transform_rows_plain)
 from .lv_simulate import lv_simulate, lv_simulate_plain
+from .mlp_fit import mlp_fit, mlp_fit_plain
+from .mlp_sumstat import mlp_accept, mlp_accept_plain, mlp_values_plain
+from .mlp_sumstat import transform_rows as mlp_transform_rows
+from .mlp_sumstat import transform_rows_plain as mlp_transform_rows_plain
 from .model_step import model_step, model_step_plain
 from .moments import (moment_finish, moment_finish_plain, moment_fold,
                       moment_fold_plain)
@@ -47,7 +51,7 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
-#: transform and K18's transformed operands)
+#: transform and K18's transformed operands, K23's MLP fit and transform)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -56,7 +60,8 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            tau_leap, sir_simulate, ode_family_simulate, ode_family_segments,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
-           model_step, ridge_fit, linear_accept, linear_bound)
+           model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
+           mlp_accept)
 
 
 def reset_launch_counts() -> None:
@@ -73,8 +78,8 @@ def launch_counts() -> dict[str, int]:
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
     ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's four
-    entries, K25's values mode, K23's transform and values entries); each
-    also counts in ``launch_counts``."""
+    entries, K25's values mode, K23's transform and values entries, linear
+    and MLP); each also counts in ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
@@ -91,7 +96,10 @@ __all__ = [
     "local_logpdf_plain",
     "linear_accept", "linear_accept_plain", "linear_bound",
     "linear_bound_plain", "linear_values_plain",
-    "lv_simulate", "lv_simulate_plain", "model_step", "model_step_plain",
+    "lv_simulate", "lv_simulate_plain", "mlp_accept", "mlp_accept_plain",
+    "mlp_fit", "mlp_fit_plain", "mlp_transform_rows",
+    "mlp_transform_rows_plain", "mlp_values_plain", "model_step",
+    "model_step_plain",
     "mvn_fit", "mvn_fit_plain",
     "mode_launch_counts", "moment_finish", "moment_finish_plain",
     "moment_fold", "moment_fold_plain",

@@ -106,6 +106,13 @@ SIGNATURES = {
         _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P,
         _F, _P, _P, _P, _P],
     "pyabc_linear_bound": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "pyabc_mlp_fit": [
+        _P, _P, _P, _I, _P, _I, _P, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "pyabc_mlp_transform": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "pyabc_mlp_accept": [
+        _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
+        _P, _P, _F, _P, _P, _P, _P],
     "pyabc_aggregate_accept": [
         _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P,
         _P, _P, _P, _P, _P],

@@ -22,14 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.fit import LINEAR_KEYS, keep_if_finite
+from ..ops.fit import LINEAR_KEYS, fit_decision, fit_outcome, keep_if_finite
 from ..ops.fit import ridge_fit as fit_rows
 from ..utils import not_ported
 from . import _build
 from .base import Kernel
 
-#: the counters' slots the decision reads (``inference/context.py``)
-N_ACC, N_TARGET = 0, 4
 #: the widest fit: the float64 factorization of (S, S + C') in one block's
 #: shared memory (the H100's 227 KB less 1 KB for the block's static
 #: variables)
@@ -49,15 +47,9 @@ def fits_in_block(S: int, C: int) -> bool:
 def ridge_fit_plain(x, y, w, counters, old: dict, *, alpha: float,
                     need: int):
     """Plain PyTorch version -> (params, flags)."""
-    n_cap = x.shape[0]
-    n_acc, n_tgt = counters[N_ACC], counters[N_TARGET]
-    n_keep = torch.minimum(n_acc, n_tgt)
-    mask = torch.arange(n_cap, device=x.device) < n_keep
-    fit = (n_acc >= torch.clamp(n_tgt, max=n_cap)) & (n_keep >= need)
+    mask, fit = fit_decision(counters, x.shape[0], need)
     new, ok = keep_if_finite(fit_rows(x, y, w, mask, alpha), old)
-    params = {k: torch.where(fit, new[k], old[k]) for k in LINEAR_KEYS}
-    ok = torch.where(fit, ok, torch.ones_like(ok))
-    return params, torch.stack([ok, fit]).to(torch.int32)
+    return fit_outcome(new, ok, fit, old)
 
 
 class RidgeFit(Kernel):

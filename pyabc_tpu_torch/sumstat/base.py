@@ -4,9 +4,10 @@ counterpart).
 A Sumstat maps the flat raw statistics of a particle to the features the
 distance compares. ``PredictorSumstat`` learns that map (Fearnhead-Prangle:
 s(x) = E[theta | x]): until its first fit it is the identity, then the
-fitted predictor. The port runs the linear plan: the host seed fit after
-generation 0 (``update``), then K23's refit on the card at each chunk's
-boundary, its parameters mirrored back here after the chunk's fetch
+fitted predictor. The port runs the linear and the MLP plans: the host
+seed fit after generation 0 (``update``; the MLP's Adam steps run on the
+card), then K23's refit on the card at each chunk's boundary, its
+parameters mirrored back here after the chunk's fetch
 (``sumstat/device.py::mirror_fitted_params``).
 """
 from __future__ import annotations

@@ -2,9 +2,10 @@
 (``pyabc_tpu/sumstat/device.py`` counterpart).
 
 :func:`device_fit_plan` resolves the static plan K23 runs (``linear`` for
-``LinearPredictor``) or the JAX package's reason why the configuration
-stays on its host-refit path, word for word; the port has no host-refit
-path yet and raises ``not_ported`` with that reason.
+``LinearPredictor``, ``mlp`` for ``MLPPredictor``) or the JAX package's
+reason why the configuration stays on its host-refit path, word for word;
+the port has no host-refit path yet and raises ``not_ported`` with that
+reason.
 :func:`mirror_fitted_params` writes a boundary fit, fetched with its
 chunk, back into the host predictor.
 """
@@ -23,7 +24,8 @@ def device_fit_plan(distance, *, total_size: int, d_max: int,
     """``(plan, None)`` when K23 can own the boundary refit, else ``(None,
     reason)``. The plan is static (predictor type and hyperparameters): its
     ``kind``, ``out_dim`` (the fit's C' = d_max), ``need`` (the rows a fit
-    needs) and, for the linear plan, ``alpha``."""
+    needs) and the linear plan's ``alpha`` or the MLP plan's ``lr`` and
+    ``n_steps`` (at most 100 a boundary)."""
     sumstat = getattr(distance, "sumstat", None)
     if sumstat is None:
         return None, "distance has no learned sumstat transform"
@@ -89,13 +91,22 @@ def seed_params_ready(distance) -> bool:
 
 
 def mirror_fitted_params(distance, ssp_host: dict, t: int) -> None:
-    """Write a boundary fit's fetched parameters (numpy float32 ``{"W",
-    "b", "mu", "sd"}``) into the host ``LinearPredictor``, as float32:
-    ``device_params()`` then gives back the very tensors the card carried.
-    ``t`` becomes the predictor's ``_last_fit_t``."""
+    """Write a boundary fit's fetched parameters (numpy float32: ``{"W",
+    "b", "mu", "sd"}`` of a ``LinearPredictor``, ``{"layers": [{"w", "b"},
+    ...], "mu", "sd", "ymu", "ysd"}`` of an ``MLPPredictor``) into the host
+    predictor, as float32: ``device_params()`` then gives back the very
+    tensors the card carried. ``t`` becomes the predictor's
+    ``_last_fit_t``."""
     sumstat = distance.sumstat
     pred = sumstat.predictor
-    for key in ("W", "b", "mu", "sd"):
+    if isinstance(pred, MLPPredictor):
+        pred._params = [{k: np.asarray(layer[k], np.float32)
+                         for k in ("w", "b")}
+                        for layer in ssp_host["layers"]]
+        keys, out = ("mu", "sd", "ymu", "ysd"), "ymu"
+    else:
+        keys, out = ("W", "b", "mu", "sd"), "b"
+    for key in keys:
         setattr(pred, f"_{key}", np.asarray(ssp_host[key], np.float32))
-    sumstat._out_dim = int(np.asarray(ssp_host["b"]).shape[-1])
+    sumstat._out_dim = int(np.asarray(ssp_host[out]).shape[-1])
     sumstat._last_fit_t = int(t)

@@ -197,14 +197,16 @@ def test_lv_run_on_the_card(dev):
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
     # LocalTransition's K12-K15, the segmented family's K20b and K22, the
     # adaptive population size's K16, the aggregated distances' K25 and the
-    # learned statistics' K23 and K18 operands are not on it)
+    # learned statistics' K23 (linear and MLP) and K18 operands are not on
+    # it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
              "propose_local", "local_logpdf", "proposal_drift",
              "ode_family_segments", "moment_fold", "moment_finish",
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
-             "ridge_fit", "linear_accept", "linear_bound")
+             "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
+             "mlp_accept")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -2347,6 +2349,167 @@ def test_learned_statistics_run_on_the_card(dev):
         pt.AdaptivePNormDistance(p=2, sumstat=pt.PredictorSumstat(
             pt.LinearPredictor(alpha=1.0))), population_size=1000,
         eps=pt.MedianEpsilon(), seed=11, fused_generations=2, device=dev)
+    abc.new("sqlite://", sir.observed_network_sir(**shape))
+    h = abc.run(max_nr_populations=4)
+    assert h.n_populations == 4
+    assert abc.distance_function.weights[3].shape == (2,)
+    assert abc.sync_ledger.summary()["by_kind"]["sumstat_seed"] == 1
+
+
+def _mlp_params(dev, sizes, seed=0):
+    """A seeded MLP transform (MLPPredictor's init) as the kernels take
+    it: the layers views of one packed buffer, mu 0, sd 1, ymu 0, ysd 1."""
+    import pyabc_tpu_torch as pt
+
+    return pt.MLPPredictor(seed=seed).init_params(sizes, dev)
+
+
+def _param_leaves(params):
+    from pyabc_tpu_torch.ops.fit import param_leaves
+
+    return param_leaves(params)
+
+
+@pytest.mark.parametrize("n_cap,sizes,n_keep", [
+    (300, (6, 8, 8, 2), 211), (16384, (128, 64, 64, 2), 9731),
+    (4096, (128, 40, 24, 12, 8), 3001)])
+def test_mlp_fit_kernel(dev, n_cap, sizes, n_keep):
+    """K23's MLP fit against its plain version: the gradient within 1e-4
+    relative (1e-5 of its scale absolute), the loss after 100 steps within
+    1e-3 relative, mu, sd, ymu, ysd within 1e-5, the flags equal, the same
+    bits run to run; a poisoned row and a fit below need keep the old
+    parameters."""
+    from pyabc_tpu_torch.kernels import mlp_fit, mlp_fit_plain
+    from pyabc_tpu_torch.kernels.mlp_fit import mlp_gradient_plain
+    from pyabc_tpu_torch.ops.fit import (MLP_KEYS, fit_decision,
+                                         mlp_fit_rows, mlp_loss_grad)
+
+    S, C = sizes[0], sizes[-1]
+    x, theta, w, ctr, _old = _learned_fit_inputs(dev, n_cap, S, C, n_keep)
+    y = torch.sin(3.0 * theta).contiguous()
+    old = _mlp_params(dev, sizes)
+    kw = dict(lr=1e-3, n_steps=100, need=S + 2)
+    g_k = mlp_fit.gradient(x, y, w, ctr, old, need=S + 2)
+    g_p = mlp_gradient_plain(x, y, w, ctr, old, need=S + 2)
+    torch.testing.assert_close(g_k, g_p, rtol=1e-4,
+                               atol=1e-5 * float(g_p.abs().max()))
+    before = mlp_fit.launches
+    got, flags = mlp_fit(x, y, w, ctr, old, **kw)
+    assert mlp_fit.launches == before + 1
+    ref, rflags = mlp_fit_plain(x, y, w, ctr, old, **kw)
+    assert flags.tolist() == rflags.tolist() == [1, 1]
+    for k in MLP_KEYS:
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
+    mask, _fit = fit_decision(ctr, n_cap, S + 2)
+    rows = mlp_fit_rows(old, x, y, w, mask)[:4]
+    loss_k = float(mlp_loss_grad(got["layers"], *rows)[0])
+    loss_p = float(mlp_loss_grad(ref["layers"], *rows)[0])
+    assert loss_k < float(mlp_loss_grad(old["layers"], *rows)[0])
+    assert abs(loss_k - loss_p) <= 1e-3 * loss_p
+    again, _f = mlp_fit(x, y, w, ctr, old, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(_param_leaves(got),
+                                                 _param_leaves(again)))
+    x[3, 1] = float("nan")
+    kept, kflags = mlp_fit(x, y, w, ctr, old, **kw)
+    assert kflags.tolist() == [0, 1]
+    assert all(torch.equal(a, b) for a, b in zip(_param_leaves(kept),
+                                                 _param_leaves(old)))
+    skip, sflags = mlp_fit(x, y, w, ctr, old, lr=1e-3, n_steps=100,
+                           need=n_keep + 1)
+    assert sflags.tolist() == [1, 0]
+    assert all(torch.equal(a, b) for a, b in zip(_param_leaves(skip),
+                                                 _param_leaves(old)))
+
+
+@pytest.mark.parametrize("B,sizes", [(257, (7, 8, 3)),
+                                     (65536, (128, 64, 64, 2))])
+@pytest.mark.parametrize("p", [1.0, 2.0, math.inf])
+def test_mlp_accept_kernel(dev, B, sizes, p):
+    """K23's MLP transform and accept against the plain versions: rows and
+    distances within 1e-5 of the feature scale, flags equal away from
+    eps, log weights equal; the values mode bit-equal to the accept's."""
+    from pyabc_tpu_torch.kernels import (mlp_accept, mlp_accept_plain,
+                                         mlp_transform_rows,
+                                         mlp_transform_rows_plain)
+
+    S, C = sizes[0], sizes[-1]
+    g = _gen(dev, B)
+    params = _mlp_params(dev, sizes, seed=B)
+    params["mu"] = torch.randn(S, generator=g, device=dev)
+    params["sd"] = torch.rand(S, generator=g, device=dev) + 0.5
+    params["ysd"] = torch.rand(C, generator=g, device=dev) + 0.5
+    x0 = torch.randn(S, generator=g, device=dev)
+    ss = (x0 + torch.randn(B, S, generator=g, device=dev)).contiguous()
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    logpri = torch.randn(B, generator=g, device=dev)
+    logq = torch.randn(B, generator=g, device=dev)
+    rows = mlp_transform_rows(ss, params)
+    rows_r = mlp_transform_rows_plain(ss, params)
+    scale = float(rows_r.abs().max())
+    torch.testing.assert_close(rows, rows_r, rtol=1e-5, atol=1e-5 * scale)
+    inf = torch.tensor(math.inf, device=dev)
+    d_r = mlp_accept_plain(ss, x0, params, w, inf, valid, p=p)[0]
+    eps = torch.quantile(d_r, 0.4)
+    got = mlp_accept(ss, x0, params, w, eps, valid, p=p, logpri=logpri,
+                     logq=logq)
+    ref = mlp_accept_plain(ss, x0, params, w, eps, valid, p=p,
+                           logpri=logpri, logq=logq)
+    dscale = float(ref[0].abs().max())
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5,
+                               atol=1e-5 * dscale)
+    far = (ref[0] - eps).abs() > 1e-5 * dscale
+    assert torch.equal(got[1][far], ref[1][far])
+    assert torch.equal(got[2], ref[2])
+    assert torch.equal(mlp_accept.values(ss, x0, params, w, p=p), got[0])
+
+
+def test_mlp_learned_statistics_run_on_the_card(dev):
+    """The network SIR (8 patches x 8 observations: S 64) under the MLP
+    learned statistic (hidden (32, 32), 200 seed steps): K23's MLP fit at
+    the seed and each boundary, its transform, accept and values entries
+    launched, early reject auto off and bit-identical to off, the fetch
+    C' wide after generation 0, one counter read a round, one fetch a
+    chunk and the seed fit's read; the adaptive form too."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import sir
+
+    shape = dict(n_patches=8, n_obs=8)
+    pops = []
+    for early in ("auto", False):
+        abc = pt.ABCSMC(
+            sir.make_network_sir_model(**shape), sir.network_sir_prior(),
+            pt.PNormDistance(p=2, sumstat=pt.PredictorSumstat(
+                pt.MLPPredictor(hidden=(32, 32), n_steps=200))),
+            population_size=1000, eps=pt.MedianEpsilon(), seed=11,
+            fused_generations=2, early_reject=early, device=dev)
+        abc.new("sqlite://", sir.observed_network_sir(**shape))
+        reset_launch_counts()
+        h = abc.run(max_nr_populations=5)
+        counts, modes = launch_counts(), mode_launch_counts()
+        assert h.n_populations == 5
+        assert counts["mlp_fit"] == 3 and counts["segment_round"] == 0
+        assert modes["mlp_accept:transform"] > 0
+        assert modes["mlp_accept:values"] > 0
+        assert counts["mlp_accept"] > (modes["mlp_accept:transform"]
+                                       + modes["mlp_accept:values"])
+        assert h.get_weighted_sum_stats(1)[1].shape[1] == 2
+        by = abc.sync_ledger.summary()["by_kind"]
+        assert set(by) == {"round_counters", "chunk_fetch",
+                           "sumstat_train_fetch"}
+        pops.append([h.get_distribution(0, t)[0].to_numpy()
+                     for t in range(5)])
+    assert all(np.array_equal(a, b) for a, b in zip(*pops))
+    abc = pt.ABCSMC(
+        sir.make_network_sir_model(**shape), sir.network_sir_prior(),
+        pt.AdaptivePNormDistance(p=2, sumstat=pt.PredictorSumstat(
+            pt.MLPPredictor(hidden=(32, 32), n_steps=200))),
+        population_size=1000, eps=pt.MedianEpsilon(), seed=11,
+        fused_generations=2, device=dev)
     abc.new("sqlite://", sir.observed_network_sir(**shape))
     h = abc.run(max_nr_populations=4)
     assert h.n_populations == 4

@@ -180,7 +180,12 @@ def test_plain_draws_follow_the_law(case):
 def test_norm_uniform_draws_keep_their_bits():
     """Norm and uniform keep their blocks: the plain draws of a mixed
     norm/uniform prior are the values they had before the other families
-    came, bit for bit."""
+    came. Three rows are pinned bit for bit; the Philox words the 4096
+    lanes read are pinned as integers, the uniform dimensions bit for bit
+    against numpy's float32 over those words, and the normal dimensions and
+    the log-densities within a few float32 ulps of a float64 numpy
+    Box-Muller and log-density over the same words (PyTorch does not
+    promise its CPU log, cos and sin to the bit across machines)."""
     prior = tpt.Distribution(
         a=tpt.RV("norm", 0.5, 2.0), b=tpt.RV("uniform", -1.0, 3.0),
         c=tpt.RV("uniform", 0.0, 1.0), d=tpt.RV("norm", -3.0, 0.1),
@@ -202,8 +207,44 @@ def test_norm_uniform_draws_keep_their_bits():
     assert [[v.hex() for v in row] for row in
             theta[:3].double().tolist()] == want
     th, lp, _v = kprop.propose_plain(stream, 4096, prior)
-    assert th.double().sum().item().hex() == "0x1.93a0177130000p+11"
-    assert lp.double().sum().item().hex() == "-0x1.a321c67240000p+12"
+    # d = 5: the normals from blocks 0 and 1, the uniforms from blocks 2
+    # and 3 (word k % 4 of block 2 + k // 4 for dimension k)
+    words = torch.stack(philox.lane_blocks(
+        stream, torch.arange(4096)[:, None], torch.arange(4)[None, :]), -1)
+    assert words[0].reshape(-1).tolist() == [
+        3786625806, 1410928205, 1001691917, 2168253033, 1352456638,
+        3005295402, 61820846, 2935097805, 950233546, 2966770536,
+        2386838920, 3173116770, 3919816182, 3775558147, 1963455768,
+        148739992]
+    assert int(words.sum()) == 140947446865563
+    w = words.numpy()
+    u = ((w >> 9).astype(np.float64) + 0.5) * 2.0 ** -23  # exact in float32
+    loc, scale = (prior[k].numpy() for k in ("loc", "scale"))
+    th = th.numpy()
+    # the uniforms: word 1 and 2 of block 2, word 0 of block 3, float32
+    for k, (blk, wd) in ((1, (2, 1)), (2, (2, 2)), (4, (3, 0))):
+        ref = loc[k] + scale[k] * u[:, blk, wd].astype(np.float32)
+        assert np.array_equal(th[:, k], ref.astype(np.float32))
+    # the normals: block 0's pair 0 (cos) and pair 1 (sin); the angle is
+    # the float32 product of 2 pi in float32 and the uniform, as the draw
+    two_pi = np.float32(philox.TWO_PI_F32)
+    for k, pair, trig in ((0, 0, np.cos), (3, 1, np.sin)):
+        u1, u2 = u[:, 0, 2 * pair], u[:, 0, 2 * pair + 1]
+        angle = (two_pi * u2.astype(np.float32)).astype(np.float64)
+        z = np.sqrt(-2.0 * np.log(u1)) * trig(angle)
+        ref = loc[k] + scale[k] * z
+        tol = (2 * np.spacing(np.abs(ref).astype(np.float32))
+               + 8 * 2.0 ** -23 * scale[k] * np.abs(z))
+        assert (np.abs(th[:, k] - ref) <= tol).all(), k
+    # the log-densities of the drawn values, float64
+    x = th.astype(np.float64)
+    terms = np.stack(
+        [-0.5 * ((x[:, k] - loc[k]) / scale[k]) ** 2 - np.log(scale[k])
+         - 0.5 * np.log(2 * np.pi) if k in (0, 3)
+         else np.full(len(x), -np.log(scale[k])) for k in range(5)], 1)
+    ref = terms.sum(1)
+    tol = 8 * 2.0 ** -23 * np.abs(terms).sum(1)
+    assert (np.abs(lp.numpy() - ref) <= tol).all()
 
 
 def test_draw_layout_is_disjoint():

@@ -349,9 +349,11 @@ def _port_plan(sumstat):
 
 
 #: each predictor or transform the port refuses, with a fragment of the
-#: JAX package's reason (None: the JAX package fuses it, the port not yet)
+#: JAX package's reason (None: the JAX package fuses it, the port not yet:
+#: an MLP wider than K23's MLP kernels hold, refused when the run starts)
 REFUSED = {
-    "MLPPredictor": (lambda m: m.PredictorSumstat(m.MLPPredictor()), None),
+    "MLPPredictor": (lambda m: m.PredictorSumstat(m.MLPPredictor(
+        hidden=(256,))), None),
     "LassoPredictor": (lambda m: m.PredictorSumstat(m.LassoPredictor()),
                        "ISTA proximal loop"),
     "GPPredictor": (lambda m: m.PredictorSumstat(m.GPPredictor()),
@@ -374,9 +376,11 @@ def test_refusals_carry_the_jax_reason(what):
     assert (jplan is None) == (tplan is None) == (fragment is not None)
     assert treason == jreason
     with pytest.raises(NotImplementedError, match="item 14") as err:
-        tpt.ABCSMC(tg.make_birth_death_model(), tg.birth_death_prior(),
-                   tpt.PNormDistance(p=2, sumstat=make(tpt)),
-                   population_size=64, device="cpu")
+        abc = tpt.ABCSMC(tg.make_birth_death_model(), tg.birth_death_prior(),
+                         tpt.PNormDistance(p=2, sumstat=make(tpt)),
+                         population_size=64, device="cpu")
+        abc.new("sqlite://", tg.observed_birth_death())
+        abc.run(max_nr_populations=1)
     if fragment is not None:
         assert fragment in str(err.value)
 
@@ -436,6 +440,11 @@ GATES = {
         "AdaptivePNormDistance has no monotone prefix bound"),
     "linear p 1": (lambda m: m.PNormDistance(
         p=1, sumstat=m.PredictorSumstat(m.LinearPredictor())),
+        "PNormDistance has no monotone prefix bound"),
+    # an MLP transform mixes the columns with no per-prefix bound: the
+    # JAX gate's device_bound_fn answer comes before its MLP branch
+    "mlp p 2": (lambda m: m.PNormDistance(
+        p=2, sumstat=m.PredictorSumstat(m.MLPPredictor())),
         "PNormDistance has no monotone prefix bound"),
 }
 
