@@ -114,7 +114,14 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    followed by K23's accept and K6: kept slots, statistics, reservoir,
    ring and counters bit-identical, slots accepted, at config 3's round
    valid slots retired; at the leg's round its device time beside K18's p-norm
-   mode and K20b's unsegmented round on the same slots;
+   mode and K20b's unsegmented round on the same slots; the GP kernel
+   (the host-refit mode's GPPredictor transform) over a round of the GP
+   leg (B 65536, S 128) under a GPPredictor() fit on 16384 of its rows
+   (cap 512, C' 2) for p 2, 1 and inf, a fit on 300 rows (212 padded
+   points) and a fit to 8 targets: rows and distances within 1e-5 of
+   their scale (sum |k a| + |ymu|), flags equal away from eps, log
+   weights equal, the values mode bit-equal to the accept, the same bits
+   run to run;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -290,11 +297,27 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    ms; and at pop 1024 on the card and the CPU: generation 0's epsilon
    within 1e-3, the seed fits' predictions on held-out rows within 1e-2
    of their sd, generation 1's epsilon within 1e-3 on a CPU run fed the
-   card's seed fit.
+   card's seed fit. Then this slice's legs, the host-refit mode on the
+   same network SIR (pop 16384, 10 generations, early reject auto: off
+   with the JAX package's reason): the GP leg (GPPredictor()), counts
+   reset just before, every kernel of its path launched, the GP kernel's
+   values mode once a boundary, once more under torch.profiler for the GP
+   kernel's device ms; the Lasso leg, the model-selection leg
+   ([LinearPredictor(alpha=1), GPPredictor()]) and the fit_every 3 linear
+   leg: each its boundary fits where the cadence puts them, History rows
+   128 wide throughout, telemetry mode host, one counter read a round and
+   one fetch a chunk, the refit generations, trail, posterior means, wall
+   split and syncs a generation; IdentitySumstat() bit-identical to
+   PNormDistance(p=2) fetching float32 (populations, weights, distances,
+   the trail and History rows); and the GP leg at pop 1024 on the card and
+   the CPU: generation 0's epsilon within 1e-6, the first boundary fit's
+   parameters within 1e-6 of their largest value (the kernel system's
+   weights within 1e-3), generations 1 and 2 within 1e-3.
 
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
-K22, K23 linear and MLP, K25, K26 and the K > 1 modes) is replaced by a
+K22, K23 linear and MLP, the GP transform, K25, K26 and the K > 1
+modes) is replaced by a
 function that
 raises, so
 none can run on the path unseen.
@@ -2004,6 +2027,9 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.mlp_sumstat", "transform_rows_plain"),
     ("pyabc_tpu_torch.kernels.mlp_sumstat", "mlp_values_plain"),
     ("pyabc_tpu_torch.kernels.mlp_sumstat", "mlp_accept_plain"),
+    ("pyabc_tpu_torch.kernels.gp_sumstat", "transform_rows_plain"),
+    ("pyabc_tpu_torch.kernels.gp_sumstat", "gp_values_plain"),
+    ("pyabc_tpu_torch.kernels.gp_sumstat", "gp_accept_plain"),
 )
 
 
@@ -6777,27 +6803,41 @@ def k23_checks(dev) -> tuple[dict, dict]:
 
 def learned(where, kind: str = "linear", early="auto",
             pop: int | None = None, seed: int = LS_SEED,
-            noise: float = 0.0):
+            noise: float = 0.0, fetch_dtype: str = "float16"):
     """The leg's ABCSMC on ``where``: ``kind`` linear (PNormDistance(p=2)
     through the learned statistic), adaptive (AdaptivePNormDistance(p=2)
     through it), mlp (PNormDistance(p=2) through an MLPPredictor at its
-    defaults) or identity (PNormDistance(p=2) on the raw statistics)."""
+    defaults), identity (PNormDistance(p=2) on the raw statistics), or one
+    of the host-refit mode's: gp, lasso (the predictor at its defaults),
+    model selection (LinearPredictor(alpha=1) and GPPredictor()),
+    fit_every 3 (the linear statistic refit every third generation of the
+    JAX package's count) and identity statistic (IdentitySumstat())."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import sir
 
     def lin():
         return pt.PredictorSumstat(pt.LinearPredictor(alpha=LS_ALPHA))
 
+    def learned_by(pred, **kw):
+        return pt.PNormDistance(p=2, sumstat=pt.PredictorSumstat(pred, **kw))
+
     dist = {"linear": lambda: pt.PNormDistance(p=2, sumstat=lin()),
             "adaptive": lambda: pt.AdaptivePNormDistance(p=2, sumstat=lin()),
-            "mlp": lambda: pt.PNormDistance(p=2, sumstat=pt.PredictorSumstat(
-                pt.MLPPredictor())),
-            "identity": lambda: pt.PNormDistance(p=2)}[kind]()
+            "mlp": lambda: learned_by(pt.MLPPredictor()),
+            "identity": lambda: pt.PNormDistance(p=2),
+            "gp": lambda: learned_by(pt.GPPredictor()),
+            "lasso": lambda: learned_by(pt.LassoPredictor()),
+            "model selection": lambda: learned_by(pt.ModelSelectionPredictor(
+                [pt.LinearPredictor(alpha=LS_ALPHA), pt.GPPredictor()])),
+            "fit_every 3": lambda: learned_by(
+                pt.LinearPredictor(alpha=LS_ALPHA), fit_every=3),
+            "identity statistic": lambda: pt.PNormDistance(
+                p=2, sumstat=pt.IdentitySumstat())}[kind]()
     abc = pt.ABCSMC(sir.make_network_sir_model(**LS_SHAPE, noise_sd=noise),
                     sir.network_sir_prior(), dist,
                     population_size=pop or LS_POP, eps=pt.MedianEpsilon(),
                     seed=seed, fused_generations=LS_G, early_reject=early,
-                    device=where)
+                    fetch_dtype=fetch_dtype, device=where)
     abc.new("sqlite://", sir.observed_network_sir(**LS_SHAPE,
                                                   noise_sd=noise or 8.0))
     return abc
@@ -7695,6 +7735,319 @@ def learned_mlp_cpu_trail(dev) -> None:
           "epsilons")
 
 
+# ------------------------------------------- the host-refit mode (GP)
+#: this slice's kernel, and the path of the GP leg (generation 0 and the
+#: calibration run K5 on the raw statistics; early reject off)
+GP_KERNELS = ("gp_accept",)
+GP_PATH = ("propose", "mvn_mixture_logpdf", "network_sir",
+           "pnorm_accept_weight", "compact_round", "normalize_quantile",
+           "mvn_fit", "pack_fetch", "generation_health") + GP_KERNELS
+#: the host-refit legs: kind -> the generations whose boundary fit ran
+#: (chunks of 2 after generation 0's own, 10 generations: a boundary after
+#: generations 0, 2, 4, 6, 8, the last chunk none; fit_every 3 counts in
+#: the JAX package's t, 1, 3, 5, 7, 9: fits at 1, 5, 9)
+HOST_LEGS = {"gp": [0, 2, 4, 6, 8], "lasso": [0, 2, 4, 6, 8],
+             "model selection": [0, 2, 4, 6, 8], "fit_every 3": [0, 4, 8],
+             "identity statistic": []}
+#: the kernel each leg's transform runs (K5 after the identity's none)
+HOST_KERNEL = {"gp": "gp_accept", "lasso": "linear_accept",
+               "fit_every 3": "linear_accept",
+               "identity statistic": "pnorm_accept_weight"}
+
+
+def gp_fit(x: dict, n: int, C: int, seed: int, dev):
+    """A GPPredictor() fitted on the host (the host-refit mode's fit) to n
+    rows of a simulated round of the leg's network SIR (C' 2: theta; more:
+    noisy nonlinear mixes of it) -> its device parameters."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+
+    rows = x["ss"][:n].double().cpu().numpy()
+    theta = x["theta"][:n].double().cpu().numpy()
+    if C > theta.shape[1]:
+        rng = np.random.default_rng(seed)
+        theta = np.sin(theta @ rng.normal(size=(theta.shape[1], C))) \
+            + 0.01 * rng.normal(size=(n, C))
+    gp = pt.GPPredictor(seed=seed)
+    gp.fit(rows, theta[:, :C])
+    return gp.device_params(dev), gp
+
+
+def gp_case(dev, label, x, params, gen, ps, timed) -> dict:
+    """The GP kernel against its plain version on one transform: the
+    transform of the round's rows, then the accept for each p of ``ps``:
+    rows and distances within 1e-5 of their scale (sum |k a| + |ymu|, the
+    sum cancelling at a small alpha), flags equal away from eps, log
+    weights equal, the values mode bit-equal to the accept's, the same
+    bits run to run; timed: device ms (a CUDA graph), call ms, the plain
+    version's ms, the bound."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (gp_accept, gp_accept_plain,
+                                         gp_transform_rows,
+                                         gp_transform_rows_plain)
+    from pyabc_tpu_torch.kernels.gp_sumstat import (distance_scale,
+                                                    transform_scale)
+
+    ss, x0 = x["ss"], x["x0"]
+    B, S = ss.shape
+    cap, C = params["a"].shape
+    n_eff = int((params["a"] != 0).any(1).nonzero().max()) + 1
+    w = torch.ones(C, device=dev)
+    valid = torch.rand(B, generator=gen, device=dev) > 0.05
+    logpri = torch.randn(B, generator=gen, device=dev) - 3.0
+    logq = torch.randn(B, generator=gen, device=dev) - 2.0
+    rows = gp_transform_rows(ss, params)
+    rows_r = gp_transform_rows_plain(ss, params)
+    scale = transform_scale(ss, params).float()
+    torch.cuda.synchronize()
+    r_err = abs_err(rows, rows_r)
+    r_rel = float(((rows - rows_r).abs() / scale).max())
+    check(bool(((rows - rows_r).abs() <= 1e-5 * scale).all()),
+          f"GP transform ({label}) outside 1e-5 of its scale")
+    inf = torch.tensor(math.inf, device=dev)
+    out = None
+    for p in ps:
+        d_all = gp_accept_plain(ss, x0, params, w, inf, valid, p=p)[0]
+        eps = torch.quantile(d_all, 0.3)
+        args = (ss, x0, params, w, eps, valid)
+        kw = dict(p=p, logpri=logpri, logq=logq)
+        d_k, a_k, lw_k = gp_accept(*args, **kw)
+        d_p, a_p, lw_p = gp_accept_plain(*args, **kw)
+        v_k = gp_accept.values(ss, x0, params, w, p=p)
+        again = gp_accept(*args, **kw)
+        dscale = distance_scale(ss, x0, params, w).float()
+        torch.cuda.synchronize()
+        far = (d_p - eps).abs() > 1e-5 * dscale
+        flags = bool((a_k == a_p)[far].all())
+        err = abs_err(d_k, d_p)
+        d_rel = float(((d_k - d_p).abs() / dscale).max())
+        repeat = all(torch.equal(a, b) for a, b in zip((d_k, a_k, lw_k),
+                                                       again))
+        log(f"GP gp_accept {label} p={p} (B={B}, S {S}, cap {cap} with "
+            f"{n_eff} points, C' {C}): max_abs_err(d)={err:.3e} ({d_rel:.2e} "
+            f"of its scale), transformed rows {r_err:.3e} ({r_rel:.2e} of "
+            f"their scale, up to {float(scale.max()):.3e}), accepted "
+            f"{int(a_k.sum())}, flags equal away from eps {flags}, values "
+            f"mode bit-equal {torch.equal(v_k, d_k)}, the same bits run to "
+            f"run {repeat}")
+        check(bool(((d_k - d_p).abs() <= 1e-5 * dscale).all()) and flags
+              and torch.equal(lw_k, lw_p) and torch.equal(v_k, d_k)
+              and repeat,
+              f"GP accept ({label}, p {p}): distances outside 1e-5 of their "
+              f"scale, flags or log weights differ, the values mode differs "
+              f"or a repeat differs")
+        if not (timed and p == 2.0):
+            continue
+        # the rows and x0, the transform (its used points) read; logpri,
+        # logq, valid read and d, accept, log weight written a lane; a
+        # pair's S differences, S fused square-adds, the exponent's
+        # division and exp, C' multiply-adds, over the used points
+        nbytes = ((B + 1) * S + n_eff * (S + C) + 2 * S + C + 1 + C) * 4 \
+            + B * 18
+        flops = (B + 1) * n_eff * (3 * S + 2 + 2 * C)
+        out = dict(
+            err=err, rel_err=d_rel,
+            call_ms=time_ms(lambda: gp_accept(*args, **kw), 20),
+            ms=graph_ms(lambda: gp_accept(*args, **kw), iters=10),
+            plain_ms=time_ms(lambda: gp_accept_plain(*args, **kw), 3),
+            bound=bound(nbytes, flops), library_ms=None,
+            transform_ms=graph_ms(lambda: gp_transform_rows(ss, params),
+                                  iters=10),
+            transform_call_ms=time_ms(lambda: gp_transform_rows(ss, params),
+                                      20),
+            transform_err=r_err)
+        log(f"GP gp_accept {label} p=2: ms={out['ms']:.5f} call_ms="
+            f"{out['call_ms']:.5f} plain_ms={out['plain_ms']:.5f} "
+            f"transform_ms={out['transform_ms']:.5f} bound_ms="
+            f"{out['bound'][0]:.6f} ({out['bound'][1]}; {flops:.4e} "
+            f"operations)")
+    return out
+
+
+def gp_checks(dev) -> dict:
+    """The GP kernel against its plain version on the card, over a round
+    of the GP leg (B 65536 simulated network SIR rows, S 128): a
+    GPPredictor() fit on 16384 of them (cap 512, C' 2) for p 2, 1 and inf
+    (timed at p 2); a fit on 300 rows (below cap: 212 zero-padded points)
+    and a fit to 8 targets (C' 8), each at p 2."""
+    import torch
+
+    from pyabc_tpu_torch.utils import pick_batch
+
+    B = pick_batch(LS_POP)
+    x = ls_rows(dev, B, seed=47)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    main, _gp = gp_fit(x, LS_POP, 2, 3, dev)
+    out = {"gp_accept": gp_case(dev, "main shape", x, main, gen,
+                                (2.0, 1.0, math.inf), timed=True)}
+    small, _gp = gp_fit(x, 300, 2, 4, dev)
+    gp_case(dev, "below cap", x, small, gen, (2.0,), timed=False)
+    wide, _gp = gp_fit(x, LS_POP, 8, 5, dev)
+    gp_case(dev, "C' 8", x, wide, gen, (2.0,), timed=False)
+    return out
+
+
+def host_leg(dev, kind: str, label: str):
+    """One host-refit leg at the learned leg's width, the counts reset just
+    before it -> (launch counts, mode counts, the run, its History, its
+    report): every generation, the boundary fits where the cadence puts
+    them, History rows 128 wide throughout, telemetry mode host, early
+    reject off with the JAX package's reason, one counter read a round
+    and one fetch a chunk, the transform's kernel launched; the refit
+    generations, the trail, the posterior means, the wall split and the
+    syncs a generation logged."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    abc = learned(dev, kind)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=LS_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, modes = launch_counts(), mode_launch_counts()
+    rep = ls_report(label, abc, h, wall)
+    tel = [h.get_telemetry(t) for t in range(h.max_t + 1)]
+    refits = [t for t, x in enumerate(tel) if x.get("sumstat_refit")]
+    widths = {h.get_weighted_sum_stats(t)[1].shape[1]
+              for t in range(h.max_t + 1)}
+    gates = {f["gate"]: f["reason"] for f in abc.capability_fallbacks}
+    pred = getattr(abc.distance_function.sumstat, "predictor", None)
+    chosen = type(getattr(pred, "chosen", None)).__name__
+    log(f"{label}: boundary fits at generations {refits}; History rows "
+        f"{sorted(widths)} wide; telemetry {tel[0].get('sumstat')}; "
+        f"distance_changed at "
+        f"{[t for t, x in enumerate(tel) if x.get('distance_changed')]}; "
+        f"fallbacks {gates}" + (f"; the winner {chosen}"
+                                if kind == "model selection" else ""))
+    log(f"{label}: kernel launches {counts}; GP transform "
+        f"{modes['gp_accept:transform']}, values {modes['gp_accept:values']}")
+    n_chunks = 1 + -(-(LS_GENS - 1) // LS_G)
+    by = rep["syncs"]["by_kind"]
+    check(set(by) == {"round_counters", "chunk_fetch"}
+          and 1 <= by["round_counters"] - sum(rep["rounds"]) <= 2
+          and by["chunk_fetch"] == n_chunks,
+          f"{label}: a host read beyond one a round and one a chunk: {by}")
+    check(refits == HOST_LEGS[kind],
+          f"{label}: the boundary fits were at {refits}")
+    check(widths == {128} and tel[0]["sumstat"]["mode"] == "host",
+          f"{label}: History rows {widths} wide, telemetry "
+          f"{tel[0].get('sumstat')}")
+    check("sumstat_device" in gates and "early_reject" in gates
+          and counts["segment_round"] == 0,
+          f"{label}: the host-refit mode or early reject's refusal not "
+          f"recorded: {gates}")
+    kernel = HOST_KERNEL.get(kind, "gp_accept" if chosen == "GPPredictor"
+                             else "linear_accept")
+    check(counts[kernel] > 0, f"{label}: {kernel} was never launched")
+    return counts, modes, abc, h, rep
+
+
+def host_refit_legs(dev) -> dict:
+    """Phase 4's host-refit legs (this slice's main path): the GP leg, the
+    counts reset just before it (its counts are the GP kernel's launches),
+    with every kernel of its path launched and its values mode at each
+    boundary, once more under torch.profiler; then the Lasso, model
+    selection and fit_every 3 legs; then IdentitySumstat() against the
+    plain PNormDistance(p=2) fetching float32: populations, weights,
+    distances and the trail bit-identical -> the GP leg's launch counts."""
+    import numpy as np
+
+    gp_counts, gp_modes, _abc, _h, _rep = host_leg(
+        dev, "gp", "host-refit GP leg (network SIR, S 128, cap 512)")
+    check(all(gp_counts[k] > 0 for k in GP_PATH)
+          and gp_modes["gp_accept:values"] == len(HOST_LEGS["gp"])
+          and gp_modes["gp_accept:transform"] == 0,
+          "GP leg: a kernel of the path was never launched, or the values "
+          "mode ran other than once a boundary")
+    by_name = profile_run("host-refit GP leg (profiled)", learned(dev, "gp"),
+                          LS_GENS)
+    if by_name:
+        for name, keys in (("GP transform and accept", ("gp_",)),
+                           ("K20b rounds", ("network_sir",))):
+            v = [t for k, t in by_name.items() if any(s in k for s in keys)]
+            tot_ms = sum(t[0] for t in v) / 1e3
+            log(f"host-refit GP leg: {name} device ms a generation "
+                f"{tot_ms / LS_GENS:.5f} ({sum(t[1] for t in v)} launches)")
+    for kind in ("lasso", "model selection", "fit_every 3"):
+        host_leg(dev, kind, f"host-refit {kind} leg (network SIR, S 128)")
+    _c, _m, _a, h_id, _r = host_leg(
+        dev, "identity statistic",
+        "host-refit IdentitySumstat() leg (network SIR, S 128)")
+    plain = learned(dev, "identity", fetch_dtype="float32")
+    with plain_versions_raise():
+        h_plain = plain.run(max_nr_populations=LS_GENS)
+    rows = all(np.array_equal(h_id.get_weighted_sum_stats(t)[1],
+                              h_plain.get_weighted_sum_stats(t)[1])
+               for t in range(LS_GENS))
+    same = populations_identical(h_id, h_plain)
+    log(f"host-refit IdentitySumstat() leg: populations, weights, distances "
+        f"and the trail bit-identical to PNormDistance(p=2) fetching "
+        f"float32 {same}, History rows too {rows}")
+    check(same and rows, "IdentitySumstat() leg: not bit-identical to the "
+          "plain p-norm")
+    return gp_counts
+
+
+def gp_cpu_trail(dev) -> None:
+    """The GP leg at pop 1024 on the card and on the CPU (the plain
+    versions, the same Philox streams): generation 0's epsilon within 1e-6
+    relative; the first boundary fit's parameters (the host's, on each
+    run's fetched generation 0) within 1e-6 of their largest value (the
+    weights a of the kernel system within 1e-3: the solve's condition
+    amplifies a row's last bits) and the subsample's length scale within
+    1e-6; generations 1 and 2's epsilons within 1e-3."""
+    import numpy as np
+
+    trails, fits = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        abc = learned(where, "gp", pop=LS_CPU_POP)
+        pred = abc.distance_function.sumstat.predictor
+        fit, snap = pred.fit, {}
+
+        def wrapped(*args, _fit=fit, _pred=pred, _snap=snap, **kwargs):
+            _fit(*args, **kwargs)
+            if not _snap:
+                _snap.update({k: np.copy(getattr(_pred, k)) for k in (
+                    "_X", "_alpha_w", "_ls", "_mu", "_sd", "_ymu")})
+
+        pred.fit = wrapped
+        h = abc.run(max_nr_populations=3)
+        trails[where] = [float(e) for e in
+                         h.get_all_populations()["epsilon"][1:]]
+        fits[where] = snap
+        log(f"host-refit GP leg at pop {LS_CPU_POP} ({where}, "
+            f"{time.perf_counter() - t0:.1f} s): eps trail "
+            f"{[round(e, 5) for e in trails[where]]}")
+    r = [abs(a - b) / abs(b) for a, b in zip(trails[dev], trails["cpu"])]
+    gaps = {k: float(np.abs(fits[dev][k] - fits["cpu"][k]).max()
+                     / max(np.abs(fits["cpu"][k]).max(), 1e-30))
+            for k in fits["cpu"]}
+    exact = all(np.array_equal(fits[dev][k], fits["cpu"][k])
+                for k in fits["cpu"])
+    log(f"host-refit GP leg at pop {LS_CPU_POP}: |card - cpu| / cpu per "
+        f"generation {[float(f'{v:.2e}') for v in r]}; the first boundary "
+        f"fit's parameters bit-equal {exact}, largest differences of each "
+        f"(of its largest value) "
+        f"{ {k: float(f'{v:.2e}') for k, v in gaps.items()} }")
+    check(r[0] <= 1e-6, "GP leg: the card's generation-0 epsilon is more "
+          "than 1e-6 off the CPU's")
+    check(all(v <= 1e-6 for k, v in gaps.items() if k != "_alpha_w")
+          and gaps["_alpha_w"] <= 1e-3,
+          f"GP leg: the card's and the CPU's first boundary fits differ: "
+          f"{gaps}")
+    check(max(r[1:3]) <= 1e-3, "GP leg: the card's generations 1-2 are "
+          "more than 1e-3 off the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -7733,6 +8086,7 @@ def main() -> int:
     results.update(k2_family_checks(dev))
     results.update(k23_checks(dev)[0])
     results.update(k23_mlp_checks(dev))
+    results.update(gp_checks(dev))
     k16_repair_case(dev)
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -7800,6 +8154,8 @@ def main() -> int:
     learned_accuracy(dev)
     mlp_counts, _mlp_modes = learned_mlp_leg(dev, ident_fetch)
     learned_mlp_cpu_trail(dev)
+    gp_counts = host_refit_legs(dev)
+    gp_cpu_trail(dev)
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -7831,8 +8187,10 @@ def main() -> int:
         # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
         # and K26, config 3 for K18 and K19, the scale lane for K12-K15,
         # the LV aggregated adaptive leg for K25, the learned-statistics
-        # leg for K23 and K18's transformed operands
-        own = (mlp_counts if k.name in MLP_KERNELS
+        # leg for K23 and K18's transformed operands, the MLP leg for K23's
+        # MLP kernels, the host-refit GP leg for the GP transform
+        own = (gp_counts if k.name in GP_KERNELS
+               else mlp_counts if k.name in MLP_KERNELS
                else ls_counts if k.name in LS_KERNELS
                else agg_counts if k.name in AGG_KERNELS
                else sir_counts if k.name in NOISY_KERNELS else c5_counts
@@ -7879,14 +8237,16 @@ def main() -> int:
                                  "learned_network_sir":
                                      ls_counts[k.name],
                                  "learned_mlp_network_sir":
-                                     mlp_counts[k.name]},
+                                     mlp_counts[k.name],
+                                 "host_refit_gp_network_sir":
+                                     gp_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
                       "transform_ms", "transform_err", "k5_ms",
                       "transform_call_ms", "gradient_err", "loss_rel",
                       "seed_ms", "seed_call_ms", "seed_bound_ms",
-                      "seed_plain_ms", "launches_seed_fit"):
+                      "seed_plain_ms", "launches_seed_fit", "rel_err"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:

@@ -221,16 +221,31 @@ def population_strategy(strategy):
 
 
 def predictor_from_jax(predictor):
-    """A fitted (or unfitted) JAX ``LinearPredictor`` or ``MLPPredictor``
-    -> the port's, read by attribute (nothing of the JAX package is
-    imported): the linear one's ``alpha``, ``normalize`` and fitted ``_W``,
-    ``_b``, ``_mu``, ``_sd`` as float64 numpy; the MLP's ``hidden``,
-    ``n_steps``, ``lr``, ``seed``, its layers ``_params`` (a list of
-    ``{"w", "b"}``) as float32 numpy and ``_mu``, ``_sd``, ``_ymu``,
-    ``_ysd`` as float64 numpy (the host fit's types)."""
-    from .predictor import LinearPredictor, MLPPredictor
+    """A fitted (or unfitted) JAX predictor -> the port's, read by
+    attribute (nothing of the JAX package is imported): a
+    ``LinearPredictor``'s or ``LassoPredictor``'s ``alpha``, ``normalize``
+    (a Lasso's ``n_iter``) and fitted ``_W``, ``_b``, ``_mu``, ``_sd`` as
+    float64 numpy; an ``MLPPredictor``'s ``hidden``, ``n_steps``, ``lr``,
+    ``seed``, its layers ``_params`` (a list of ``{"w", "b"}``) as float32
+    numpy and ``_mu``, ``_sd``, ``_ymu``, ``_ysd`` as float64 numpy (the
+    host fit's types); a ``GPPredictor``'s ``length_scale``, ``alpha``,
+    ``cap``, ``seed`` and fitted ``_X``, ``_alpha_w``, ``_mu``, ``_sd``,
+    ``_ymu`` (float64) and ``_ls`` (a float); a
+    ``ModelSelectionPredictor``'s ``split``, ``seed`` and candidates, each
+    carried across, and its winner ``chosen`` (the carried candidate at
+    the same place)."""
+    from .predictor import (GPPredictor, LassoPredictor, LinearPredictor,
+                            MLPPredictor, ModelSelectionPredictor)
 
     name = type(predictor).__name__
+    if name == "ModelSelectionPredictor":
+        cands = [predictor_from_jax(p) for p in predictor.predictors]
+        out = ModelSelectionPredictor(cands, split=predictor.split,
+                                      seed=predictor.seed)
+        if predictor.chosen is not None:
+            out.chosen = cands[[id(p) for p in predictor.predictors].index(
+                id(predictor.chosen))]
+        return out
     if name == "MLPPredictor":
         out = MLPPredictor(hidden=predictor.hidden,
                            n_steps=predictor.n_steps, lr=predictor.lr,
@@ -240,13 +255,22 @@ def predictor_from_jax(predictor):
                             for k in ("w", "b")}
                            for layer in predictor._params]
         keys = ("_mu", "_sd", "_ymu", "_ysd")
+    elif name == "GPPredictor":
+        out = GPPredictor(length_scale=predictor.length_scale,
+                          alpha=predictor.alpha, cap=predictor.cap,
+                          seed=predictor.seed)
+        out._ls = None if predictor._ls is None else float(predictor._ls)
+        keys = ("_X", "_alpha_w", "_mu", "_sd", "_ymu")
+    elif name == "LassoPredictor":
+        out = LassoPredictor(alpha=predictor.alpha, n_iter=predictor.n_iter,
+                             normalize=predictor.normalize)
+        keys = ("_W", "_b", "_mu", "_sd")
     elif name == "LinearPredictor":
         out = LinearPredictor(alpha=predictor.alpha,
                               normalize=predictor.normalize)
         keys = ("_W", "_b", "_mu", "_sd")
     else:
-        raise not_ported(f"carrying a {name} across (the linear and MLP "
-                         f"plans only)", "14")
+        raise not_ported(f"carrying a {name} across", "14")
     for key in keys:
         value = getattr(predictor, key)
         setattr(out, key,
@@ -259,9 +283,13 @@ def sumstat_from_jax(sumstat):
     across (``predictor_from_jax``) and its ``_out_dim`` and
     ``_last_fit_t``: its host ``predict`` and ``device_params`` serve as
     the JAX one's. ``ABCSMC`` refuses a fitted statistic before launch
-    (ROADMAP queue A, item 14)."""
-    from .sumstat import PredictorSumstat
+    (ROADMAP queue A, item 14). A JAX ``IdentitySumstat`` -> the port's
+    with the same functions (they must take torch tensors on the card, as
+    the JAX package's take ``jnp`` arrays)."""
+    from .sumstat import IdentitySumstat, PredictorSumstat
 
+    if type(sumstat).__name__ == "IdentitySumstat":
+        return IdentitySumstat(trafos=sumstat.trafos)
     out = PredictorSumstat(predictor_from_jax(sumstat.predictor),
                            normalize_labels=sumstat.normalize_labels,
                            fit_every=sumstat.fit_every,

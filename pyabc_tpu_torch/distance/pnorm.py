@@ -20,7 +20,11 @@ linear transform; ``device_params`` is then ``{"w": (C',), "ss": the
 transform}`` and the accept runs through K23 (``kernels/linear_sumstat.py``).
 The adaptive variant refits its weights in the transformed space (K9 over
 the transformed record ring). Under a plain p = 2 norm the prefix bound is
-the transformed one of K18 (``kernels/linear_bound.py``).
+the transformed one of K18 (``kernels/linear_bound.py``). The host-refit
+mode's statistics (Lasso, GP and model-selection predictors,
+``IdentitySumstat``, ``fit_every``) take the same ``{"w", "ss"}`` form
+once they transform; the weights are then ``_feature_dim()`` wide (C', or
+S times the number of an ``IdentitySumstat``'s functions).
 """
 from __future__ import annotations
 
@@ -122,9 +126,10 @@ class PNormDistance:
         return self.sumstat.out_dim(S) if self.sumstat is not None else S
 
     def fitted_transform(self) -> bool:
-        """True once a learned transform is fitted (the weights then live in
-        its C'-dimensional feature space)."""
-        return self.sumstat is not None and self.sumstat.predictor.fitted
+        """True once the summary statistic transforms the rows (a fitted
+        predictor, an ``IdentitySumstat`` with functions): the weights then
+        live in its feature space, ``_feature_dim()`` wide."""
+        return self.sumstat is not None and self.sumstat.transforms
 
     def device_params(self, t: int | None = None, device=None):
         """The float32 weights of generation t (factors applied), as the

@@ -106,6 +106,17 @@ reservoir, so the epsilon quantile is taken in the new feature space; the
 generation's rows are transformed under the parameters they were accepted
 with for the fetch (C' wide).
 
+The host-refit mode (``host_refit``; Lasso, GP and model-selection
+predictors, ``IdentitySumstat``, ``fit_every``): the rounds run the
+current transform's kind (``LEARNED_KERNELS``: K23's linear or MLP
+transform, the GP kernel, or K5 after an ``IdentitySumstat``'s functions,
+which transform from the calibration on), the parameters stay constant
+inside a chunk (an adaptive distance refits its weights over the
+transformed ring, as in the JAX kernel), the fetch ships raw rows, and
+after a host fit ``boundary_transform`` moves the carry to the new
+parameters: the weights (over the accepted rows at a later boundary), the
+distances and the epsilon.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * max_rounds +
 round), the round read on the device from the counters. Calibration runs
@@ -123,6 +134,8 @@ from ..core.random_variables import stacked_arrays
 from ..kernels.aggregate import aggregate_accept_weight
 from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
+from ..kernels.gp_sumstat import gp_accept
+from ..kernels.gp_sumstat import transform_rows as gp_transform_rows
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.linear_sumstat import linear_accept, transform_rows
 from ..kernels.mlp_fit import mlp_fit
@@ -145,6 +158,7 @@ from ..ops.health import generation_health
 from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
+from ..sumstat.base import expand_rows, identity_accept
 from ..transition.local_transition import LocalTransition
 
 #: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps, and the
@@ -152,9 +166,14 @@ from ..transition.local_transition import LocalTransition
 N_ACC, ROUNDS, N_VALID, EPS_AT_MIN, N_TARGET = range(5)
 #: the generation index of the calibration rounds' draws
 CALIBRATION_GENERATION = 2 ** 32 - 1
-#: K23's (accept, transform) entries by the device-fit plan's kind
+#: the (accept, transform) entries of a transform kind: K23's linear and
+#: MLP ones (the device-fit plans, and the host-refit mode's linear, Lasso
+#: and MLP predictors), the GP kernel's, and an ``IdentitySumstat``'s
+#: functions before K5
 LEARNED_KERNELS = {"linear": (linear_accept, transform_rows),
-                   "mlp": (mlp_accept, mlp_transform_rows)}
+                   "mlp": (mlp_accept, mlp_transform_rows),
+                   "gp": (gp_accept, gp_transform_rows),
+                   "identity": (identity_accept, expand_rows)}
 
 
 def quantile_epsilon(d, k_mask, w_norm, weighted: bool, alpha: float,
@@ -271,9 +290,13 @@ class DeviceContext:
         self.rounds_read = 0
         #: K18's transformed-bound operands of the generation in progress
         self.lin_bp: dict | None = None
-        #: a fitted learned statistic's K23 entries (accept, transform), by
-        #: the plan's kind (``seed_transform``)
+        #: a transforming statistic's entries (accept, transform), by its
+        #: kind (``LEARNED_KERNELS``; set by ``boundary_transform``, or
+        #: before the calibration for an ``IdentitySumstat``'s functions)
         self.learned: tuple | None = None
+        #: the host-refit mode: the fetch ships raw rows, the transform's
+        #: parameters change only at a boundary's host fit
+        self.host_refit = False
         #: one model under LocalTransition: K2's local mode draws, K14
         #: scores, K15 then K12 and K13 refit
         self.local = self.K == 1 and isinstance(transition, LocalTransition)
@@ -634,7 +657,11 @@ class DeviceContext:
         mask = self.k_mask(run.counters)
         ss = run.res["sumstats"]
         w0, d0 = dist_w0, run.res["distance"]  # K5's distances under w0
-        if calib_w:
+        if calib_w and isinstance(dist_w0, dict):
+            # an IdentitySumstat's functions: the scale in their space
+            w, d0 = self._feature_refit(ss, mask, ss, dist_w0["ss"])
+            w0 = {"w": w, "ss": dist_w0["ss"]}
+        elif calib_w:
             w0, d0 = self.distance.refit(ss, mask, self.x0, ss,
                                          params=dist_w0)
         eps0 = None
@@ -695,12 +722,14 @@ class DeviceContext:
         and the reservoir transformed too); else after a fit the
         reservoir's distances recomputed under the new parameters (K23's
         values mode). The fetch's rows: the generation's transformed under
-        the parameters it was accepted with."""
+        the parameters it was accepted with (the host-refit mode ships the
+        raw rows)."""
         res = run.res
         accept, transform = self.learned
         ss_used, w_used = dist_w["ss"], dist_w["w"]
         ss_next = ss_used
-        out = {"sumstats": transform(res["sumstats"], ss_used)}
+        out = ({} if self.host_refit
+               else {"sumstats": transform(res["sumstats"], ss_used)})
         if plan is not None:
             w_fit = torch.where(k_mask, torch.exp(w_norm),
                                 torch.zeros_like(w_norm))
@@ -715,8 +744,9 @@ class DeviceContext:
                                            need=plan["need"])
             out.update(ss_fit=ss_next, fit_flags=flags)
         if adaptive:
-            w_next, d_new = self._learned_refit(run.rec, res["sumstats"],
-                                                ss_next)
+            w_next, d_new = self._feature_refit(
+                run.rec["sumstats"], run.rec["valid"], res["sumstats"],
+                ss_next)
         elif plan is not None:
             w_next = w_used
             d_new = accept.values(res["sumstats"], self.x0, ss_next, w_used,
@@ -725,38 +755,54 @@ class DeviceContext:
             w_next, d_new = w_used, res["distance"]
         return {"w": w_next, "ss": ss_next}, d_new, out
 
-    def _learned_refit(self, rec: dict, rows, params: dict):
-        """An adaptive distance's refit in a learned feature space: K9 over
-        the record ring, x0 and ``rows`` transformed by ``params`` (K23)
-        -> (weights, the distances of ``rows``)."""
+    def _feature_refit(self, samples, valid, rows, params: dict | None):
+        """An adaptive distance's refit in the transform's feature space:
+        K9 over ``samples`` under ``valid``, x0 and ``rows`` transformed by
+        ``params`` (None: the raw statistics) -> (weights, the distances
+        of ``rows``)."""
+        if params is None:
+            return self.distance.refit(samples, valid, self.x0, rows)
         transform = self.learned[1]
         return self.distance.refit(
-            transform(rec["sumstats"], params), rec["valid"],
+            transform(samples, params), valid,
             transform(self.x0[None], params)[0], transform(rows, params))
 
-    def seed_transform(self, carry: Carry, out: dict, params: dict, *,
-                       kind: str, adaptive: bool, eps_quantile: bool,
-                       eps_weighted: bool, alpha: float,
-                       multiplier: float) -> None:
-        """After the host seed fit of generation 0 (``smc.py:1502-1530`` of
+    def boundary_transform(self, carry: Carry, out: dict,
+                           params: dict | None, *, kind: str, ring: bool,
+                           t_next: int, adaptive: bool, eps_quantile: bool,
+                           eps_weighted: bool, alpha: float,
+                           multiplier: float) -> None:
+        """A boundary's adaptation after a host fit (``smc.py:1481-1533`` of
         the JAX package: the predictor's update, then an adaptive
         distance's weights in the new feature space, the population's
         distances recomputed in it, the epsilon update on them): the same
-        on the device from generation 0's step outputs ``out`` and the
-        fitted transform ``params`` of the plan's ``kind`` (whose K23
-        entries serve the rest of the run). ``carry`` gets ``dist_w = {"w",
-        "ss"}`` and the new epsilon; the health word's epsilon recursion
-        restarts, as the JAX package's first fused chunk does."""
+        on the device from the outputs ``out`` of the generation before
+        generation ``t_next`` (its raw rows, kept-row mask and normalized
+        log weights; ``keep_inputs``) and the transform's parameters
+        ``params`` of ``kind`` (None: the raw statistics), whose entries
+        serve the rounds from then on. An adaptive distance refits over the
+        record ring (``ring``: after generation 0, as the JAX package's
+        generation-0 update reads every record) or over the accepted rows
+        alone (a later boundary, the JAX package's declared deviation,
+        ``dispatch.py:890-893``). ``carry`` gets ``dist_w = {"w", "ss"}``
+        (the raw weights without a transform) and the new epsilon; the
+        health word's epsilon recursion restarts, as a chunk the JAX
+        package rebuilds from the host does."""
         dev = self.device
-        self.learned = LEARNED_KERNELS[kind]
+        if params is not None:
+            self.learned = LEARNED_KERNELS[kind]
         rows = out["sumstats"]
         if adaptive:
-            w, d_new = self._learned_refit(out["rec"], rows, params)
+            samples, valid = ((out["rec"]["sumstats"], out["rec"]["valid"])
+                              if ring else (rows, out["k_mask"]))
+            w, d_new = self._feature_refit(samples, valid, rows, params)
         else:
-            w = self.distance.device_params(1, dev)["w"]
-            d_new = self.learned[0].values(rows, self.x0, params, w,
-                                           p=self.distance.p)
-        carry.dist_w = {"w": w, "ss": params}
+            w = self.distance.device_params(t_next, dev)
+            w = w if params is None else w["w"]
+            accept = identity_accept if params is None else self.learned[0]
+            d_new = accept.values(rows, self.x0, params, w,
+                                  p=self.distance.p)
+        carry.dist_w = w if params is None else {"w": w, "ss": params}
         if eps_quantile:
             carry.eps = quantile_epsilon(d_new, out["k_mask"], out["w_norm"],
                                          eps_weighted, alpha, multiplier)
@@ -785,8 +831,9 @@ class DeviceContext:
         first when ``sumstat_fit`` holds the plan (the chunk's last
         generation), then the refit or the recompute in the new feature
         space (``_sumstat_step``). ``keep_inputs`` adds the kept-row mask, the
-        normalized log weights and the record ring to the outputs (the seed
-        fit reads them). Returns (carry, outputs)."""
+        normalized log weights and the record ring to the outputs (a
+        boundary's host fit and ``boundary_transform`` read them). Returns
+        (carry, outputs)."""
         res, counters = run.res, run.counters
         k_mask = self.k_mask(counters)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)

@@ -83,10 +83,28 @@ and the fetch ships the C'-wide transformed rows; the host mirrors each
 boundary fit into the predictor after the chunk's fetch. Under early
 reject a linear plan with a plain p = 2 norm folds the transformed bound
 (K18's LinBound); an MLP transform has no such bound and keeps the
-classic kernel, as in the JAX package. The host-refit mode (Lasso, GP,
-model-selection predictors, ``IdentitySumstat``, ``fit_every`` other than
-1), an MLP beyond the kernels' caps and several models raise
-``not_ported`` with the JAX package's reason where it gives one.
+classic kernel, as in the JAX package.
+
+Every other learned statistic of one model runs the JAX package's
+host-refit mode (``LassoPredictor``, ``GPPredictor``,
+``ModelSelectionPredictor``, ``IdentitySumstat(trafos=...)``,
+``fit_every`` other than 1, a generation 0 below the seed fit's rows):
+generation 0 is a chunk of its own, every fetch ships raw float32 rows
+(History stores them), and at each chunk's boundary the host builds the
+chunk's last population and calls ``PredictorSumstat.update(t, pop)`` with
+the JAX package's ``t`` (the next chunk's first generation). Where the
+transform changed, or under an adaptive distance after generation 0, the
+device takes the new parameters, refits an adaptive distance's weights in
+their space over the accepted rows (over the record ring after generation
+0), recomputes the population's distances and takes the next epsilon on
+them (``DeviceContext.boundary_transform``); otherwise the chunk's own
+carry goes on. Inside a chunk the transform's parameters stay constant
+and the rounds run its kind's kernel (K23's linear or MLP transform, the
+GP kernel, K5 after an ``IdentitySumstat``'s functions); early reject
+stays off with the JAX package's reason and History's telemetry says
+``mode: "host"``. A predictor fitted before the run, more than eight
+parameters, a shape beyond the transform kernels and several models
+raise ``not_ported``.
 
 Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
 ``ListPopulationSize`` or ``AdaptivePopulationSize`` with a finite
@@ -137,19 +155,20 @@ from ..ops.segment import occupancy, uniform_protocol_reason
 from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
 from ..kernels.linear_sumstat import MAX_C as MAX_LEARNED
-from ..kernels.mlp_fit import check_caps as check_mlp_caps
 from ..ops.fit import pack_layers, unpack_layers
 from ..populationstrategy import (AdaptivePopulationSize,
                                   ConstantPopulationSize, ListPopulationSize)
 from ..storage.history import History
-from ..sumstat import (device_fit_plan, mirror_fitted_params,
-                       seed_params_ready)
+from ..sumstat import (PredictorSumstat, device_fit_plan,
+                       host_caps_reason, mirror_fitted_params,
+                       transform_kind)
+from ..sumstat.device import candidates
 from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
 from ..utils import not_ported as _not_ported
 from ..utils import pick_batch, pow2_bucket, resolve_device
-from .context import Carry, DeviceContext
+from .context import LEARNED_KERNELS, Carry, DeviceContext
 
 logger = logging.getLogger("pyabc_tpu_torch.ABCSMC")
 
@@ -390,22 +409,27 @@ class ABCSMC:
         #: K > 1: the newest persisted generation's model probabilities
         #: (alive models only), as the JAX package's ``_model_probs``
         self.model_probs: dict[int, float] = {}
+        #: the host-refit mode of this run's learned statistic (``{"reason":
+        #: why no device-fit plan serves it, "seeds": whether generation 0
+        #: reaches the first fit}``), None otherwise (``_sumstat_plan``)
+        self._sumstat_host: dict | None = None
 
     def _sumstat_gate(self, distance, priors) -> None:
-        """Raise before any launch for learned statistics the port does not
-        serve yet (ROADMAP queue A, item 14), with the JAX package's reason
-        where it gives one."""
-        if getattr(distance, "sumstat", None) is None:
+        """Raise before any launch for a summary statistic the port does
+        not serve yet (ROADMAP queue A, item 14): several models, more
+        parameters than the learned transforms keep, a statistic or a
+        predictor with no transform kernel, user weights or factors."""
+        ss = getattr(distance, "sumstat", None)
+        if ss is None:
             return
         if self.K > 1:
             raise _not_ported("learned summary statistics with several "
                               "models", "14")
         d_max = max(p.dim for p in priors)
-        plan, reason = device_fit_plan(distance, total_size=0, d_max=d_max)
-        if plan is None:
-            raise _not_ported(f"learned summary statistics in the JAX "
-                              f"package's host-refit mode ({reason})", "14")
-        if d_max > MAX_LEARNED:
+        reason = host_caps_reason(ss, None, d_max)
+        if reason is not None:
+            raise _not_ported(f"learned summary statistics: {reason}", "14")
+        if isinstance(ss, PredictorSumstat) and d_max > MAX_LEARNED:
             raise _not_ported(f"learned summary statistics of {d_max} "
                               f"features (K23's transform keeps at most "
                               f"{MAX_LEARNED})", "14")
@@ -576,6 +600,11 @@ class ABCSMC:
             return "no SumStatSpec yet (run not initialized)"
         d = self.distance_function
         bound = d.device_bound_fn(self.spec)
+        host = self._sumstat_host
+        if bound is not None and host is not None and not host["seeds"]:
+            # the JAX package gates after its generation-0 fit, and a
+            # predictor generation 0 did not fit has no bound
+            bound = None
         if bound is None:
             if stochastic:
                 return (f"{type(d).__name__} has "
@@ -600,6 +629,12 @@ class ABCSMC:
             return ("a log-density upper bound only decides the "
                     "StochasticAcceptor's test; deterministic accepts "
                     "keep the classic kernel")
+        if host is not None:
+            return (f"learned summary statistics without a device-"
+                    f"fit plan mix trajectory entries across the "
+                    f"prefix with host-refit parameters — no sound "
+                    f"per-segment bound ({host['reason']}); the "
+                    f"classic kernel serves this config")
         if stochastic and type(self.eps) is Temperature and any(
                 type(sch).__name__ == "AcceptanceRateScheme"
                 for sch in self.eps._effective_schemes()):
@@ -729,8 +764,12 @@ class ABCSMC:
             self.eps._max_nr_populations = (
                 int(max_nr_populations) if np.isfinite(max_nr_populations)
                 else None)
-        plan = self._sumstat_plan(n)
+        plan, host = self._sumstat_plan(n)
+        #: learned statistics of either mode: generation 0 is a chunk of
+        #: its own, fetched in float32
+        learned = plan is not None or host is not None
         ctx = self._build_context(self._n_max(), min_acceptance_rate)
+        ctx.host_refit = host is not None
         stochastic = ctx.stochastic
         adaptive_n = self._adaptive_n_cfg(ctx.n_cap)
         strategy = self.population_strategy
@@ -778,6 +817,10 @@ class ABCSMC:
             # the first generation's n; K16 writes each next one
             carry.n_target = torch.full((), n, dtype=torch.int32,
                                         device=self.device)
+        if isinstance(carry.dist_w, dict):
+            # an IdentitySumstat's functions transform from the calibration
+            # on
+            ctx.learned = LEARNED_KERNELS[transform_kind(d.sumstat)]
         self.refit_events = []
 
         calib = None
@@ -809,9 +852,25 @@ class ABCSMC:
                 carry.eps = eps0
             # the host mirrors the weights only where the calibration
             # refit them
+            if isinstance(w0, dict):
+                w0 = w0["w"]
             calib = {"eps0": carry.eps, **({"w0": w0} if calib_w else {})}
 
         G = self.fused_generations
+
+        def chunk_limit(t: int) -> int:
+            """The generations of the chunk that starts at ``t``: learned
+            statistics run generation 0 as a chunk of its own (the host
+            fit follows it)."""
+            g = 1 if learned and t == 0 else G
+            if np.isfinite(max_nr_populations):
+                g = min(g, int(max_nr_populations) - t)
+            if isinstance(self.eps, ListEpsilon):
+                g = min(g, len(self.eps.epsilon_values) - t)
+            if isinstance(strategy, ListPopulationSize):
+                g = min(g, len(strategy.values) - t)
+            return g
+
         # a user's per-generation weight schedule: each chunk's (G, P)
         # table of device params goes to the card in one copy
         weight_sched = not adaptive and self._weight_schedule_fused()
@@ -821,15 +880,7 @@ class ABCSMC:
         chunk_index = 0
         stop = False
         while not stop:
-            # learned statistics: generation 0 is a chunk of its own (the
-            # host seed fit follows it)
-            g_limit = 1 if plan is not None and t == 0 else G
-            if np.isfinite(max_nr_populations):
-                g_limit = min(g_limit, int(max_nr_populations) - t)
-            if isinstance(self.eps, ListEpsilon):
-                g_limit = min(g_limit, len(self.eps.epsilon_values) - t)
-            if isinstance(strategy, ListPopulationSize):
-                g_limit = min(g_limit, len(strategy.values) - t)
+            g_limit = chunk_limit(t)
             if g_limit <= 0:
                 break
             t_chunk = time.perf_counter()
@@ -855,7 +906,7 @@ class ABCSMC:
                 dw = sched[g] if sched is not None else carry.dist_w
                 # learned statistics run generation 0 on the raw statistics
                 # unsegmented (the JAX package samples it on the host)
-                seg_g = seg_on and not (plan is not None and tg == 0)
+                seg_g = seg_on and not (learned and tg == 0)
                 if tg == 0:
                     def lanes(c=carry, h=hist, dw=dw, seg=seg_g):
                         return ctx.lanes_prior(c.eps, dw, h, t=0,
@@ -894,10 +945,15 @@ class ABCSMC:
                     or sims_total >= max_total_nr_simulations
                     or (max_walltime is not None
                         and time.perf_counter() - t_start > max_walltime))
+                # the inputs a host fit's boundary step reads: generation
+                # 0's under a device-fit plan, each chunk's last in the
+                # host-refit mode
                 carry, out = ctx.generation_step(
                     carry, run, t=tg, last=last,
                     sumstat_fit=plan if g == g_limit - 1 else None,
-                    keep_inputs=plan is not None and tg == 0, **statics)
+                    keep_inputs=((plan is not None and tg == 0)
+                                 or (host is not None and g == g_limit - 1)),
+                    **statics)
                 outs.append(out)
                 host_gen.append({
                     "t": tg, "n": n_t, "rounds": run.rounds,
@@ -912,86 +968,168 @@ class ABCSMC:
                 break
             t_fetch = time.perf_counter()
             n_keep = max(info["n"] for info in host_gen)
-            # generation 0's raw rows seed the learned fit: float32
-            dtype = (torch.float32 if plan is not None and t == 0
+            # the raw rows a host fit reads ride the fetch in float32:
+            # generation 0's under a plan, the last generation's of every
+            # chunk in the host-refit mode (which fetches float32 only)
+            raw_fit = (plan is not None and t == 0) or host is not None
+            dtype = (torch.float32 if raw_fit or (learned and t == 0)
                      else fetch_dtype)
             fetched = self._fetch_chunk(outs, t, n_keep, dtype, adaptive,
                                         calib if chunk_index == 0 else None,
-                                        stochastic, seed=plan is not None
-                                        and t == 0)
+                                        stochastic, raw_gen=len(outs) - 1
+                                        if raw_fit else None)
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
+            # a host fit's boundary (a plan's seed fit after generation 0,
+            # the host-refit mode's after every chunk): the fit before the
+            # chunk's last generation is persisted (the host-refit mode's
+            # telemetry records it), the device step after
+            boundary, boundary_tel = False, None
+            if (raw_fit and not stop and chunk_limit(t + len(outs)) > 0):
+                boundary, boundary_tel = self._host_update(fetched, host_gen,
+                                                           t, adaptive)
+                if plan is not None and not boundary:
+                    raise RuntimeError("the generation-0 seed fit did not "
+                                       "run")
             chunk_s = time.perf_counter() - t_chunk
             n_kept, single = self._persist_chunk(
                 fetched, host_gen, t, chunk_index, chunk_s, eps_quantile,
-                adaptive, plan)
+                adaptive, plan, host, boundary_tel if host else None)
             stop = stop or single
-            if plan is not None and t == 0 and not stop:
-                self._seed_fit(ctx, carry, outs[0], fetched, host_gen[0],
-                               statics, plan["kind"])
+            if boundary:
+                self._host_transform(ctx, carry, outs[-1], t + n_kept - 1,
+                                     statics)
             t += n_kept
             chunk_index += 1
 
-    def _sumstat_plan(self, n0: int) -> dict | None:
-        """The learned statistic's device-fit plan for this run (None
-        without one). Generation 0 runs under the identity, so the
-        predictor must start unfitted. Raises before launch when it was
-        fitted already (by the user, by ``convert.sumstat_from_jax`` or by
-        an earlier run: the JAX package would transform the calibration
-        and generation 0 with it and refit on its ``fit_every`` cadence)
-        or when generation 0's population cannot seed the fit (the JAX
-        package then falls back to its host-refit path)."""
+    def _sumstat_plan(self, n0: int) -> tuple[dict | None, dict | None]:
+        """The learned statistic's modes for this run -> (the device-fit
+        plan, the host-refit mode), at most one of them set (both None
+        without a statistic). Generation 0 runs under the identity, so a
+        predictor must start unfitted: one fitted already (by the user, by
+        ``convert.sumstat_from_jax`` or by an earlier run: the JAX package
+        would transform the calibration and generation 0 with it and refit
+        on its ``fit_every`` cadence) raises before launch, as does a shape
+        beyond the transform kernels. A configuration without a plan, or
+        whose generation 0 cannot seed the plan's fit, runs the host-refit
+        mode, recorded as the JAX package does (the ``sumstat_device``
+        capability fallback with its reason)."""
+        self._sumstat_host = None
         d = self.distance_function
         ss = getattr(d, "sumstat", None)
         if ss is None:
-            return None
-        if ss.predictor.fitted or ss._last_fit_t is not None:
+            return None, None
+        if isinstance(ss, PredictorSumstat) and (
+                ss.predictor.fitted or ss._last_fit_t is not None):
             raise _not_ported(
                 "learned summary statistics whose predictor is fitted "
                 "before the run (generation 0 under that transform)", "14")
-        plan, _reason = device_fit_plan(
-            d, total_size=self.spec.total_size, d_max=self.prior.dim)
-        if plan["kind"] == "mlp":
-            check_mlp_caps((self.spec.total_size, *ss.predictor.hidden,
-                            plan["out_dim"]))
-        if n0 < plan["need"]:
-            raise _not_ported(
-                f"learned summary statistics whose generation-0 seed fit "
-                f"cannot run ({n0} particles, {plan['need']} needed; the "
-                f"JAX package's host-refit path)", "14")
-        return plan
+        S = self.spec.total_size
+        reason = host_caps_reason(ss, S, self.prior.dim)
+        if reason is not None:
+            raise _not_ported(reason, "14")
+        plan, reason = device_fit_plan(d, total_size=S,
+                                       d_max=self.prior.dim)
+        if plan is not None and n0 < plan["need"]:
+            plan, reason = None, (
+                "the generation-0 host fit did not seed the "
+                "predictor (min_samples not reached), so the "
+                "carried parameter structure and C' dimension are "
+                "unfixed; the host-refit path serves this run")
+        if plan is not None:
+            return plan, None
+        logger.info("device-native sumstat fit off: %s", reason)
+        self.capability_fallbacks.append({"gate": "sumstat_device",
+                                          "reason": reason})
+        self._sumstat_host = {
+            "reason": reason,
+            "seeds": isinstance(ss, PredictorSumstat) and n0 >= ss.need(S)}
+        return None, self._sumstat_host
 
-    def _seed_fit(self, ctx: DeviceContext, carry: Carry, out: dict,
-                  fetched: dict, info: dict, statics: dict,
-                  kind: str) -> None:
-        """The host seed fit after generation 0 (``PredictorSumstat.update(
-        1, population)`` on its raw rows, float64), then on the device the
-        weights and distances in the new feature space and the next
-        epsilon (``DeviceContext.seed_transform``). An adaptive distance's
-        new weights are read back once for the host mirror. The predictor
-        trains on this run's device and records a read of its result in
+    def _bind_predictor(self, sumstat) -> None:
+        """A fit that trains on the device (an MLP's, a model selection's
+        MLP candidate's) runs on this run's device and records its read in
         this run's ledger."""
-        d, n = self.distance_function, info["n"]
-        theta, _dist, logw = unpack_rows(fetched["rows"], self.prior.dim)
-        pop = Population(
-            ms=np.zeros(n, np.int32), thetas=theta[0][:n],
-            weights=exp_normalize_log_weights(logw[0][:n]),
-            distances=_dist[0][:n], sumstats=fetched["sumstats"][0][:n],
+        for pred in {id(p): p for p in [getattr(sumstat, "predictor", None),
+                                        *candidates(sumstat)]
+                     if p is not None}.values():
+            pred.device, pred.sync_ledger = self.device, self.sync_ledger
+
+    def _population(self, fetched: dict, g: int, n: int) -> Population:
+        """Generation g of a fetched chunk as a host population (the raw
+        statistics of a generation whose rows rode the fetch)."""
+        theta, dist, logw = unpack_rows(fetched["rows"], self.prior.dim)
+        return Population(
+            ms=np.zeros(n, np.int32), thetas=theta[g][:n],
+            weights=exp_normalize_log_weights(logw[g][:n]),
+            distances=dist[g][:n],
+            sumstats=fetched["sumstats"][fetched["ss_gens"].index(g)][:n],
             spaces=[self.prior.space], sumstat_spec=self.spec,
             model_names=self.model_names)
-        pred = d.sumstat.predictor
-        pred.device, pred.sync_ledger = self.device, self.sync_ledger
-        d.sumstat.update(1, pop)
-        if not seed_params_ready(d):
-            raise RuntimeError("the generation-0 seed fit did not run")
-        ctx.seed_transform(
-            carry, out, d.sumstat.device_params(self.device), kind=kind,
-            **{k: statics[k] for k in ("adaptive", "eps_quantile",
-                                       "eps_weighted", "alpha",
-                                       "multiplier")})
+
+    @staticmethod
+    def _eps_statics(statics: dict) -> dict:
+        return {k: statics[k] for k in ("adaptive", "eps_quantile",
+                                        "eps_weighted", "alpha",
+                                        "multiplier")}
+
+    def _mirror_boundary_weights(self, carry: Carry, t: int,
+                                 kind: str) -> None:
+        """One read of a boundary's adaptive weights into ``weights[t]``."""
+        w = (carry.dist_w["w"] if isinstance(carry.dist_w, dict)
+             else carry.dist_w)
+        d = self.distance_function
+        d.weights[t] = d.host_weights(self._to_host({"w": w}, kind)["w"])
+
+    def _host_update(self, fetched: dict, host_gen: list, t0: int,
+                     adaptive: bool) -> tuple[bool, dict]:
+        """The host part of a boundary after a chunk (``dispatch.py:880-905``
+        of the JAX package; a device-fit plan's seed fit after generation
+        0): ``update(t, pop)`` on the chunk's last population, its raw rows
+        in float64, at the JAX package's ``t`` (the next chunk's first
+        generation; ``fit_every`` counts in it) -> (whether the device step
+        follows: the transform changed, or an adaptive distance refits at
+        a boundary after generation 0 as the JAX package's always does,
+        the telemetry of the chunk's last generation in the host-refit
+        mode: ``sumstat_refit`` where the fit ran, and the JAX package's
+        ``distance_changed`` at a boundary after generation 0). A
+        generation whose health word failed is left to the persist, which
+        raises for it. The predictor trains on this run's device and
+        records a read of its result in this run's ledger."""
+        g = len(host_gen) - 1
+        t_last = t0 + g
+        if "health" in fetched and int(fetched["health"][g]) != 0:
+            return False, {}
+        ss = self.distance_function.sumstat
+        self._bind_predictor(ss)
+        changed = ss.update(t_last + 1, self._population(
+            fetched, g, host_gen[g]["n"]))
+        tel = {"sumstat_refit": True} if changed else {}
+        if t_last > 0:
+            tel["distance_changed"] = True
+        return changed or (adaptive and t_last > 0), tel
+
+    def _host_transform(self, ctx: DeviceContext, carry: Carry, out: dict,
+                        t_last: int, statics: dict) -> None:
+        """The device part of a host fit's boundary after generation
+        ``t_last``: the statistic's current transform (a new fit's, or the
+        one in effect) goes to the card, with the adaptive weights refit in
+        its space (over the record ring after generation 0, over the
+        accepted rows later), the distances and the epsilon
+        (``DeviceContext.boundary_transform``); an adaptive distance's
+        weights are read back once for the host mirror (``sumstat_seed``
+        after generation 0, ``sumstat_boundary`` later). The kind may
+        change (a model selection's winner): the rounds then run the new
+        kind's kernel."""
+        ss = self.distance_function.sumstat
+        ctx.boundary_transform(
+            carry, out, ss.device_params(self.device),
+            kind=transform_kind(ss), ring=t_last == 0, t_next=t_last + 1,
+            **self._eps_statics(statics))
         if statics["adaptive"]:
-            d.weights[1] = d.host_weights(
-                self._to_host({"w": carry.dist_w["w"]}, "sumstat_seed")["w"])
+            self._mirror_boundary_weights(
+                carry, t_last + 1,
+                "sumstat_seed" if t_last == 0 else "sumstat_boundary")
 
     def _weight_schedule_fused(self) -> bool:
         """True when the (non-adaptive) distance carries a user's
@@ -1030,12 +1168,13 @@ class ABCSMC:
 
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
-                     stochastic, seed: bool = False) -> dict:
+                     stochastic, raw_gen: int | None = None) -> dict:
         """Pack the chunk's generations and read them in one sync: the
         first ``n`` rows of each (the chunk's largest n; each generation
-        keeps its own when persisted). ``seed``: generation 0 of learned
-        statistics, whose raw rows ride the fetch whatever History
-        stores."""
+        keeps its own when persisted). ``raw_gen``: the generation whose
+        raw rows a host fit reads (generation 0 under a device-fit plan,
+        each chunk's last in the host-refit mode), on the fetch whatever
+        History stores."""
         each = lambda k: [o[k] for o in outs]  # noqa: E731
         stack = lambda k: torch.stack(each(k))  # noqa: E731
         tree = {
@@ -1046,7 +1185,7 @@ class ABCSMC:
             "eps_next": stack("eps_next"),
         }
         ss_gens = [g for g in range(len(outs))
-                   if seed or self.history.wants_sum_stats(t0 + g)]
+                   if g == raw_gen or self.history.wants_sum_stats(t0 + g)]
         if ss_gens:
             tree["sumstats"] = pack_sumstats(
                 [outs[g]["sumstats"] for g in ss_gens], n_keep=n,
@@ -1112,10 +1251,13 @@ class ABCSMC:
                 for k, v in out.items()}
 
     def _persist_chunk(self, fetched, host_gen, t0, chunk_index, chunk_s,
-                       eps_quantile, adaptive,
-                       plan: dict | None = None) -> tuple[int, bool]:
+                       eps_quantile, adaptive, plan: dict | None = None,
+                       host: dict | None = None,
+                       boundary_tel: dict | None = None) -> tuple[int, bool]:
         """Persist the chunk's generations -> (how many were persisted,
-        whether stop_if_only_single_model_alive stopped the run there)."""
+        whether stop_if_only_single_model_alive stopped the run there).
+        ``boundary_tel``: the telemetry of a host-refit boundary, on the
+        chunk's last generation."""
         if "calib_pdf_norm0" in fetched:
             self._mirror_noisy(-1, fetched["calib_pdf_norm0"],
                                fetched["calib_max_found0"],
@@ -1161,6 +1303,10 @@ class ABCSMC:
             if plan is not None:
                 telemetry.update(self._sumstat_telemetry(
                     fetched, t, g == len(host_gen) - 1, plan))
+            elif host is not None and t == 0:
+                telemetry["sumstat"] = self._host_sumstat_block()
+            if boundary_tel and g == len(host_gen) - 1:
+                telemetry.update(boundary_tel)
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])
@@ -1254,6 +1400,17 @@ class ABCSMC:
             tel.update(sumstat_refit=True,
                        sumstat_fit_ok=bool(fetched["fit_flags"][0]))
         return tel
+
+    def _host_sumstat_block(self) -> dict:
+        """The host-refit mode's ``sumstat`` telemetry of generation 0 (the
+        JAX package's ``_sumstat_telemetry`` without a plan): the mode,
+        the statistic, S and, once a fit fixed it, C'."""
+        ss = self.distance_function.sumstat
+        block = {"mode": "host", "transform": type(ss).__name__,
+                 "dim_raw": int(self.spec.total_size)}
+        if getattr(ss, "_out_dim", None):
+            block["dim_reduced"] = int(ss._out_dim)
+        return block
 
     def _mirror_noisy(self, t, pdf_norm, max_found, temp,
                       daly_k=None) -> None:

@@ -12,6 +12,9 @@ from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_fit_plain)
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
+from .gp_sumstat import gp_accept, gp_accept_plain, gp_values_plain
+from .gp_sumstat import transform_rows as gp_transform_rows
+from .gp_sumstat import transform_rows_plain as gp_transform_rows_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
 from .local_cov import local_cov, local_cov_plain
 from .local_factor import local_factor, local_factor_plain
@@ -51,7 +54,8 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K3-K11, K12, K13, K14's draw (K2's local mode) and density, K15, K18,
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
-#: transform and K18's transformed operands, K23's MLP fit and transform)
+#: transform and K18's transformed operands, K23's MLP fit and transform,
+#: the GP transform)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -61,7 +65,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
-           mlp_accept)
+           mlp_accept, gp_accept)
 
 
 def reset_launch_counts() -> None:
@@ -79,7 +83,8 @@ def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
     ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's four
     entries, K25's values mode, K23's transform and values entries, linear
-    and MLP); each also counts in ``launch_counts``."""
+    and MLP, and the GP transform's); each also counts in
+    ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
@@ -90,7 +95,9 @@ __all__ = [
     "bootstrap_cv",
     "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",
     "cast_rows_plain", "compact_round", "compact_round_plain",
-    "generation_health", "generation_health_plain", "kernel_accept",
+    "generation_health", "generation_health_plain", "gp_accept",
+    "gp_accept_plain", "gp_transform_rows", "gp_transform_rows_plain",
+    "gp_values_plain", "kernel_accept",
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
     "local_logpdf_plain",

@@ -113,6 +113,11 @@ SIGNATURES = {
     "pyabc_mlp_accept": [
         _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
         _P, _P, _F, _P, _P, _P, _P],
+    "pyabc_gp_transform": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _P],
+    "pyabc_gp_accept": [
+        _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _P,
+        _P, _P, _P, _P, _F, _P, _P, _P, _P],
     "pyabc_aggregate_accept": [
         _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P,
         _P, _P, _P, _P, _P],

@@ -32,6 +32,10 @@ boundary fit of warm-started full-batch Adam steps
 package's structure ``{"layers": [{"w", "b"}, ...], "mu", "sd", "ymu",
 "ysd"}``; the kernels read the layers packed in that order
 (:func:`pack_layers`).
+
+The GP transform of the host-refit mode (:func:`gp_predict`,
+``GPPredictor.device_predict``) runs on the card as the GP kernel
+(``kernels/gp_sumstat.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ NULL_EIG_RTOL = 1e-6
 LINEAR_KEYS = ("W", "b", "mu", "sd")
 #: the keys of an MLP transform's parameters beside its ``layers``
 MLP_KEYS = ("mu", "sd", "ymu", "ysd")
+#: the keys of a GP transform's parameters (``GPPredictor.device_params``)
+GP_KEYS = ("X", "a", "ls", "mu", "sd", "ymu")
 #: Adam's constants (``pyabc_tpu/ops/fit.py::mlp_fit_steps``, optax's
 #: defaults)
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -159,6 +165,28 @@ def linear_predict(x: torch.Tensor, params: dict) -> torch.Tensor:
     b; (n, S) -> (n, C') or (S,) -> (C',)."""
     xs = (x - params["mu"]) / params["sd"]
     return xs @ params["W"] + params["b"]
+
+
+#: the (rows, cap, S) differences :func:`gp_predict` forms at once, at most
+GP_CHUNK_ELEMS = 1 << 24
+
+
+def gp_predict(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """``GPPredictor.device_predict`` over rows: ``xs = (x - mu) / sd``,
+    ``k_j = exp(-sum_s (xs_s - X_js)^2 / (2 ls^2))``, then ``k @ a + ymu``;
+    (n, S) -> (n, C') or (S,) -> (C',). The squared distances are summed
+    from direct differences, a block of rows at a time."""
+    single = x.dim() == 1
+    xs = (x.reshape(-1, x.shape[-1]) - params["mu"]) / params["sd"]
+    X, a = params["X"], params["a"]
+    two_ls2 = 2 * params["ls"] ** 2
+    step = max(1, GP_CHUNK_ELEMS // max(X.numel(), 1))
+    out = torch.cat([
+        torch.exp(-((xs[i:i + step, None, :] - X[None]) ** 2).sum(-1)
+                  / two_ls2) @ a
+        for i in range(0, xs.shape[0], step)]
+        or [xs.new_zeros(0, a.shape[1])]) + params["ymu"]
+    return out[0] if single else out
 
 
 def bound_rows(w: torch.Tensor, params: dict) -> torch.Tensor:

@@ -9,10 +9,16 @@ and from then on K23 refits it on the card at each chunk's boundary
 transform to the kernels as float32 tensors. ``MLPPredictor`` is the
 nonlinear regression: its seed fit standardizes on the host in float64 and
 runs its Adam steps through K23's MLP fit (``kernels/mlp_fit.py``) on
-``device``, the card unless the CPU is asked for. The other predictors of
-the JAX package can be constructed, and ``ABCSMC`` refuses them with the
-JAX package's reason: the host-refit mode (Lasso, GP, model selection) is
-not ported yet (ROADMAP queue A, item 14).
+``device``, the card unless the CPU is asked for.
+
+The host-refit mode's predictors fit on the host in float64 numpy, the
+JAX package's ``fit`` line for line, so the same rows give the same
+parameters in both packages: ``LassoPredictor`` (ISTA; the linear
+transform, K23's), ``GPPredictor`` (RBF kernel ridge on a seeded
+subsample of at most ``cap`` rows, zero-padded to ``cap``; its transform
+is the GP kernel, ``kernels/gp_sumstat.py``) and
+``ModelSelectionPredictor`` (the validation split, the candidates' fits,
+the winner refit on every row; its transform is the winner's).
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ import math
 import numpy as np
 import torch
 
-from ..ops.fit import (MLP_KEYS, SD_FLOOR, linear_predict, mlp_forward,
-                       mlp_layout, mlp_predict, mlp_sizes, unpack_layers)
+from ..ops.fit import (GP_KEYS, MLP_KEYS, SD_FLOOR, gp_predict,
+                       linear_predict, mlp_forward, mlp_layout, mlp_predict,
+                       mlp_sizes, unpack_layers)
 from ..utils import not_ported, resolve_device
 
 
@@ -122,8 +129,9 @@ class LinearPredictor(Predictor):
 
 
 class LassoPredictor(LinearPredictor):
-    """L1-regularized linear regression (the JAX package fits it by ISTA on
-    the host, in its host-refit mode)."""
+    """L1-regularized linear regression by ISTA on the host (float64, the
+    JAX package's proximal gradient solve; the weights ``w`` play no part,
+    as there). Its transform is the linear one (K23)."""
 
     def __init__(self, alpha: float = 0.01, n_iter: int = 500,
                  normalize: bool = True):
@@ -131,7 +139,34 @@ class LassoPredictor(LinearPredictor):
         self.n_iter = int(n_iter)
 
     def fit(self, x, y, w=None):
-        raise not_ported("the host fit of LassoPredictor", "14")
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        if y.ndim == 1:
+            y = y[:, None]
+        n, S = x.shape
+        if self.normalize:
+            self._mu, self._sd = _standardize_fit(x)
+        else:
+            self._mu, self._sd = np.zeros(S), np.ones(S)
+        xs = (x - self._mu) / self._sd
+        ym = y.mean(axis=0)
+        yc = y - ym
+        # ISTA: step 1/L with L = largest eigenvalue of X'X/n
+        gram = xs.T @ xs / n
+        L = float(np.linalg.eigvalsh(gram)[-1]) + 1e-12
+        step = 1.0 / L
+        W = np.zeros((S, yc.shape[1]))
+        thr = self.alpha * step
+        xty = xs.T @ yc / n
+        for _ in range(self.n_iter):
+            grad = gram @ W - xty
+            W = W - step * grad
+            W = np.sign(W) * np.maximum(np.abs(W) - thr, 0.0)
+        self._W = W
+        self._b = ym
+
+    def __repr__(self):
+        return f"LassoPredictor(alpha={self.alpha}, n_iter={self.n_iter})"
 
 
 class MLPPredictor(Predictor):
@@ -241,7 +276,14 @@ class MLPPredictor(Predictor):
 
 
 class GPPredictor(Predictor):
-    """RBF kernel-ridge regression (the JAX package's host-refit mode)."""
+    """RBF kernel-ridge regression, the exact GP mean (the JAX package's
+    ``GPPredictor``). ``fit`` subsamples at most ``cap`` rows with
+    ``np.random.default_rng(seed)``, standardizes them, takes the length
+    scale from the median heuristic (or ``length_scale``), solves ``(K +
+    alpha I) a = y - ymu`` in float64 and zero-pads ``X`` and ``a`` to
+    ``cap`` rows (a padded row has ``a`` = 0 exactly: it adds nothing).
+    The transform ``k(xs, X) @ a + ymu`` runs in the GP kernel
+    (``kernels/gp_sumstat.py``)."""
 
     def __init__(self, length_scale: float | None = None,
                  alpha: float = 1e-4, cap: int = 512, seed: int = 0):
@@ -249,13 +291,136 @@ class GPPredictor(Predictor):
         self.alpha = float(alpha)
         self.cap = int(cap)
         self.seed = int(seed)
+        self._X = None        # (cap, S) padded
+        self._alpha_w = None  # (cap, d) padded
+        self._ls = None
+        self._mu = self._sd = None
+        self._ymu = None
+
+    @property
+    def fitted(self) -> bool:
+        return self._X is not None
+
+    def fit(self, x, y, w=None):
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        if y.ndim == 1:
+            y = y[:, None]
+        rng = np.random.default_rng(self.seed)
+        n = len(x)
+        if n > self.cap:
+            idx = rng.choice(n, self.cap, replace=False)
+            x, y = x[idx], y[idx]
+            n = self.cap
+        self._mu, self._sd = _standardize_fit(x)
+        xs = (x - self._mu) / self._sd
+        self._ymu = y.mean(axis=0)
+        yc = y - self._ymu
+        if self.length_scale is None:
+            # median heuristic on pairwise distances
+            d2 = ((xs[:, None] - xs[None, :]) ** 2).sum(-1)
+            med = np.median(d2[d2 > 0]) if (d2 > 0).any() else 1.0
+            self._ls = float(np.sqrt(med / 2.0) + 1e-12)
+        else:
+            self._ls = float(self.length_scale)
+        K = np.exp(-((xs[:, None] - xs[None, :]) ** 2).sum(-1)
+                   / (2 * self._ls**2))
+        a = np.linalg.solve(K + self.alpha * np.eye(n), yc)
+        # zero-pad to the static cap (alpha rows of 0 contribute nothing)
+        S, d = xs.shape[1], yc.shape[1]
+        Xp = np.zeros((self.cap, S))
+        ap = np.zeros((self.cap, d))
+        Xp[:n] = xs
+        ap[:n] = a
+        self._X, self._alpha_w = Xp, ap
+
+    def predict(self, x):
+        x = np.asarray(x, np.float64)
+        single = x.ndim == 1
+        xs = (np.atleast_2d(x) - self._mu) / self._sd
+        K = np.exp(-((xs[:, None] - self._X[None, :]) ** 2).sum(-1)
+                   / (2 * self._ls**2))
+        out = K @ self._alpha_w + self._ymu
+        return out[0] if single else out
+
+    def device_params(self, device=None) -> dict:
+        """The fitted transform as float32 tensors ``{"X": (cap, S), "a":
+        (cap, C'), "ls": (), "mu", "sd": (S,), "ymu": (C',)}``
+        (contiguous)."""
+        return {k: torch.as_tensor(np.asarray(getattr(self, attr),
+                                              np.float32),
+                                   device=device).contiguous()
+                for k, attr in zip(GP_KEYS, ("_X", "_alpha_w", "_ls", "_mu",
+                                             "_sd", "_ymu"))}
+
+    @staticmethod
+    def device_predict(x: torch.Tensor, params: dict) -> torch.Tensor:
+        """Plain transform of rows: ``k(xs, X) @ a + ymu``."""
+        return gp_predict(x, params)
+
+    def __repr__(self):
+        return (f"GPPredictor(length_scale={self.length_scale}, "
+                f"alpha={self.alpha}, cap={self.cap})")
 
 
 class ModelSelectionPredictor(Predictor):
     """Picks the best of several predictors by validation MSE (the JAX
-    package's host-refit mode)."""
+    package's ``ModelSelectionPredictor``): a seeded permutation holds out
+    ``split`` of the rows, each candidate fits on the rest and is scored
+    on them (a candidate whose fit raises is skipped and named in the
+    error when all fail), and the winner is refit on every row. Its
+    transform, device parameters and kind are the winner's, so the kind
+    may change from one fit to the next."""
 
     def __init__(self, predictors: list, split: float = 0.2, seed: int = 0):
         self.predictors = list(predictors)
         self.split = float(split)
         self.seed = int(seed)
+        self.chosen: Predictor | None = None
+
+    @property
+    def fitted(self) -> bool:
+        return self.chosen is not None and self.chosen.fitted
+
+    def fit(self, x, y, w=None):
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        if y.ndim == 1:
+            y = y[:, None]
+        rng = np.random.default_rng(self.seed)
+        n = len(x)
+        perm = rng.permutation(n)
+        n_val = max(int(n * self.split), 1)
+        val, train = perm[:n_val], perm[n_val:]
+        best, best_mse = None, np.inf
+        skipped: list[str] = []
+        for p in self.predictors:
+            try:
+                p.fit(x[train], y[train],
+                      None if w is None else np.asarray(w)[train])
+                mse = float(np.mean((p.predict(x[val]) - y[val]) ** 2))
+            except Exception as err:
+                # a singular fit disqualifies a candidate, never silently:
+                # the trace goes into the all-candidates-failed error
+                skipped.append(f"{type(p).__name__}: {err!r}")
+                continue
+            if mse < best_mse:
+                best, best_mse = p, mse
+        if best is None:
+            raise RuntimeError(
+                "no predictor could be fit; candidates failed with: "
+                + "; ".join(skipped))
+        best.fit(x, y, w)  # refit the winner on everything
+        self.chosen = best
+
+    def predict(self, x):
+        return self.chosen.predict(x)
+
+    def device_params(self, device=None) -> dict:
+        return self.chosen.device_params(device)
+
+    def device_predict(self, x: torch.Tensor, params: dict) -> torch.Tensor:
+        return self.chosen.device_predict(x, params)
+
+    def __repr__(self):
+        return f"ModelSelectionPredictor({self.predictors!r})"

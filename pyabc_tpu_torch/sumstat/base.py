@@ -8,19 +8,40 @@ fitted predictor. The port runs the linear and the MLP plans: the host
 seed fit after generation 0 (``update``; the MLP's Adam steps run on the
 card), then K23's refit on the card at each chunk's boundary, its
 parameters mirrored back here after the chunk's fetch
-(``sumstat/device.py::mirror_fitted_params``).
+(``sumstat/device.py::mirror_fitted_params``). Every other configuration
+runs the JAX package's host-refit mode: ``update`` at each chunk's
+boundary on the chunk's last population, the fitted transform's kernel
+in the rounds in between (``sumstat/device.py::transform_kind``).
+
+``IdentitySumstat(trafos=...)`` expands the raw rows through the user's
+elementwise functions on the card (torch tensors in, torch tensors out,
+as the JAX package traces its user's ``jnp`` callables), then K5 runs on
+the expanded rows (:data:`identity_accept`).
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
+from ..kernels.pnorm_accept import pnorm_accept_weight
 from ..predictor import Predictor
 
 
 class Sumstat:
     """The identity."""
+
+    @property
+    def transforms(self) -> bool:
+        """True when the transform is not the identity (the distance's
+        weights then live in its feature space, ``device_params`` gives
+        its parameters)."""
+        return False
+
+    def device_params(self, device=None) -> dict | None:
+        """The transform's device parameters, None for the identity."""
+        return None
 
     def update(self, t: int, population=None) -> bool:
         """Refit on a generation's population; True if the transform
@@ -44,6 +65,14 @@ class IdentitySumstat(Sumstat):
 
     def __init__(self, trafos: Sequence[Callable] | None = None):
         self.trafos = list(trafos) if trafos is not None else None
+
+    @property
+    def transforms(self) -> bool:
+        return bool(self.trafos)
+
+    def device_params(self, device=None) -> dict | None:
+        """``{"trafos": the user's functions}``, None without them."""
+        return {"trafos": tuple(self.trafos)} if self.trafos else None
 
     def out_dim(self, in_dim: int) -> int:
         return in_dim * (len(self.trafos) if self.trafos else 1)
@@ -73,6 +102,10 @@ class PredictorSumstat(Sumstat):
         self.min_samples = min_samples
         self._out_dim: int | None = None
         self._last_fit_t: int | None = None
+
+    @property
+    def transforms(self) -> bool:
+        return self.predictor.fitted
 
     def out_dim(self, in_dim: int) -> int:
         return self._out_dim if self._out_dim is not None else in_dim
@@ -114,3 +147,36 @@ class PredictorSumstat(Sumstat):
 
     def __repr__(self):
         return f"PredictorSumstat({self.predictor!r})"
+
+
+def expand_rows(x: torch.Tensor, params: dict | None) -> torch.Tensor:
+    """``IdentitySumstat``'s transform of rows: the user's functions side
+    by side, ``(n, S)`` -> ``(n, S k)`` (the rows themselves without
+    them)."""
+    if not params:
+        return x
+    return torch.cat([torch.as_tensor(tr(x)) for tr in params["trafos"]],
+                     dim=-1).to(torch.float32).contiguous()
+
+
+class IdentityAccept:
+    """The accept of the ``identity`` kind: x and x0 through the user's
+    functions, then K5 on the expanded rows (K5's launches count).
+    ``values`` gives the distances alone."""
+
+    def __call__(self, ss, x0, params, w, eps, valid, *, p: float,
+                 hist_min=None, logpri=None, logq=None):
+        return pnorm_accept_weight(
+            expand_rows(ss, params), expand_rows(x0[None], params)[0], w, eps,
+            valid, p=p, hist_min=hist_min, logpri=logpri, logq=logq)
+
+    @staticmethod
+    def values(ss, x0, params, w, *, p: float) -> torch.Tensor:
+        valid = torch.ones(ss.shape[0], dtype=torch.bool, device=ss.device)
+        eps = torch.zeros((), dtype=torch.float32, device=ss.device)
+        return pnorm_accept_weight(
+            expand_rows(ss, params), expand_rows(x0[None], params)[0], w, eps,
+            valid, p=p)[0]
+
+
+identity_accept = IdentityAccept()

@@ -4,8 +4,9 @@
 :func:`device_fit_plan` resolves the static plan K23 runs (``linear`` for
 ``LinearPredictor``, ``mlp`` for ``MLPPredictor``) or the JAX package's
 reason why the configuration stays on its host-refit path, word for word;
-the port has no host-refit path yet and raises ``not_ported`` with that
-reason.
+the port serves that path too (``ABCSMC``'s host-refit mode).
+:func:`transform_kind` names the kernel of a host-refit run's current
+transform, :func:`host_caps_reason` a predictor beyond those kernels.
 :func:`mirror_fitted_params` writes a boundary fit, fetched with its
 chunk, back into the host predictor.
 """
@@ -15,7 +16,70 @@ import numpy as np
 
 from ..predictor import (GPPredictor, LassoPredictor, LinearPredictor,
                          MLPPredictor, ModelSelectionPredictor)
-from .base import PredictorSumstat
+from .base import IdentitySumstat, PredictorSumstat, Sumstat
+
+#: the predictors the host-refit mode fits (``ModelSelectionPredictor``
+#: over any of them)
+HOST_PREDICTORS = (LinearPredictor, MLPPredictor, GPPredictor)
+
+
+def transform_kind(sumstat) -> str:
+    """The transform kernel a host-refit run's statistic needs now:
+    ``linear`` (a fitted ``LinearPredictor`` or ``LassoPredictor``),
+    ``mlp``, ``gp``, or ``identity`` (an ``IdentitySumstat``, or a
+    predictor not fitted yet); a ``ModelSelectionPredictor`` gives its
+    winner's."""
+    if not isinstance(sumstat, PredictorSumstat):
+        return "identity"
+    pred = sumstat.predictor
+    if isinstance(pred, ModelSelectionPredictor):
+        pred = pred.chosen
+    if pred is None or not pred.fitted:
+        return "identity"
+    if isinstance(pred, GPPredictor):
+        return "gp"
+    if isinstance(pred, MLPPredictor):
+        return "mlp"
+    return "linear"
+
+
+def candidates(sumstat) -> list:
+    """The predictors a statistic may fit: a model selection's candidates,
+    else its predictor (none for a fixed transform)."""
+    if not isinstance(sumstat, PredictorSumstat):
+        return []
+    pred = sumstat.predictor
+    if isinstance(pred, ModelSelectionPredictor):
+        return list(pred.predictors)
+    return [pred]
+
+
+def host_caps_reason(sumstat, S: int | None, C: int) -> str | None:
+    """Why the host-refit mode cannot serve ``sumstat`` over ``S`` raw
+    statistics and ``C`` parameters (None: it can): a statistic or a
+    predictor the port has no transform kernel for, or a shape beyond the
+    MLP's or the GP's kernels (``S`` None: the types alone, before the
+    run knows its statistics)."""
+    from ..kernels.gp_sumstat import caps_reason as gp_caps
+    from ..kernels.mlp_fit import caps_reason as mlp_caps
+
+    if type(sumstat) not in (Sumstat, IdentitySumstat, PredictorSumstat):
+        return f"summary statistic {type(sumstat).__name__}"
+    for pred in candidates(sumstat):
+        if (not isinstance(pred, HOST_PREDICTORS)
+                or isinstance(pred, ModelSelectionPredictor)):
+            return f"predictor {type(pred).__name__}"
+        if S is None:
+            continue
+        if isinstance(pred, GPPredictor):
+            reason = gp_caps(S, C)
+        elif isinstance(pred, MLPPredictor):
+            reason = mlp_caps((S, *pred.hidden, C))
+        else:
+            reason = None
+        if reason is not None:
+            return reason
+    return None
 
 
 def device_fit_plan(distance, *, total_size: int, d_max: int,

@@ -196,9 +196,9 @@ def test_lv_run_on_the_card(dev):
     # every kernel of the LV path (the noisy-ABC kernels, the model
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
     # LocalTransition's K12-K15, the segmented family's K20b and K22, the
-    # adaptive population size's K16, the aggregated distances' K25 and the
-    # learned statistics' K23 (linear and MLP) and K18 operands are not on
-    # it)
+    # adaptive population size's K16, the aggregated distances' K25, the
+    # learned statistics' K23 (linear and MLP) and K18 operands and the
+    # host-refit mode's GP transform are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -206,7 +206,7 @@ def test_lv_run_on_the_card(dev):
              "ode_family_segments", "moment_fold", "moment_finish",
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
-             "mlp_accept")
+             "mlp_accept", "gp_accept")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -2515,3 +2515,117 @@ def test_mlp_learned_statistics_run_on_the_card(dev):
     assert h.n_populations == 4
     assert abc.distance_function.weights[3].shape == (2,)
     assert abc.sync_ledger.summary()["by_kind"]["sumstat_seed"] == 1
+
+
+def _gp_params(dev, S, C, n, cap, seed, alpha=1e-4):
+    """A GP fitted on the host to n rows (n below cap pads), on ``dev``."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, S)) * 2.0 + 5.0
+    y = np.tanh(x[:, :C] * 0.3) + 0.05 * rng.normal(size=(n, C))
+    gp = pt.GPPredictor(alpha=alpha, cap=cap, seed=seed)
+    gp.fit(x, y)
+    return gp.device_params(dev), x
+
+
+@pytest.mark.parametrize("B,S,C,n,cap", [(257, 7, 3, 50, 64),
+                                         (65536, 128, 2, 16384, 512),
+                                         (4099, 128, 8, 300, 512)])
+@pytest.mark.parametrize("p", [1.0, 2.0, math.inf])
+def test_gp_accept_kernel(dev, B, S, C, n, cap, p):
+    """The GP transform and accept against the plain versions: rows and
+    distances within 1e-5 of their scale (sum |k a| + |ymu|: the sum
+    cancels at a small alpha), flags equal away from eps, log weights
+    equal; the values mode bit-equal to the accept's, the same bits run
+    to run."""
+    from pyabc_tpu_torch.kernels import (gp_accept, gp_accept_plain,
+                                         gp_transform_rows,
+                                         gp_transform_rows_plain)
+    from pyabc_tpu_torch.kernels.gp_sumstat import (distance_scale,
+                                                    transform_scale)
+
+    params, x = _gp_params(dev, S, C, n, cap, seed=B)
+    g = _gen(dev, B)
+    base = torch.as_tensor(x[:1], dtype=torch.float32, device=dev)
+    x0 = (base[0] + 0.5 * torch.randn(S, generator=g, device=dev))
+    ss = (base + 2.0 * torch.randn(B, S, generator=g, device=dev))
+    ss = ss.contiguous()
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    valid = torch.rand(B, generator=g, device=dev) > 0.1
+    logpri = torch.randn(B, generator=g, device=dev)
+    logq = torch.randn(B, generator=g, device=dev)
+    rows = gp_transform_rows(ss, params)
+    scale = transform_scale(ss, params).to(torch.float32)
+    assert ((rows - gp_transform_rows_plain(ss, params)).abs()
+            <= 1e-5 * scale).all()
+    inf = torch.tensor(math.inf, device=dev)
+    d_r = gp_accept_plain(ss, x0, params, w, inf, valid, p=p)[0]
+    eps = torch.quantile(d_r, 0.4)
+    got = gp_accept(ss, x0, params, w, eps, valid, p=p, logpri=logpri,
+                    logq=logq)
+    ref = gp_accept_plain(ss, x0, params, w, eps, valid, p=p,
+                          logpri=logpri, logq=logq)
+    dscale = distance_scale(ss, x0, params, w).to(torch.float32)
+    assert ((got[0] - ref[0]).abs() <= 1e-5 * dscale).all()
+    far = (ref[0] - eps).abs() > 1e-5 * dscale
+    assert torch.equal(got[1][far], ref[1][far])
+    assert torch.equal(got[2], ref[2])
+    assert torch.equal(gp_accept.values(ss, x0, params, w, p=p), got[0])
+    again = gp_accept(ss, x0, params, w, eps, valid, p=p, logpri=logpri,
+                      logq=logq)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", ["gp", "lasso", "model selection",
+                                  "fit_every 3", "identity functions"])
+def test_host_refit_run_on_the_card(dev, kind):
+    """The network SIR (8 patches x 8 observations: S 64) in the host-refit
+    mode: every generation runs, the fits land at the boundaries the
+    cadence sets, the rounds launch the kind's kernel (the GP kernel, K23's
+    linear transform, K5 after the functions), History rows stay S wide,
+    and the reads are one a round and one a chunk."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import sir
+
+    shape = dict(n_patches=8, n_obs=8)
+    ss = {"gp": lambda: pt.PredictorSumstat(pt.GPPredictor(alpha=0.1)),
+          "lasso": lambda: pt.PredictorSumstat(pt.LassoPredictor(
+              alpha=0.001)),
+          "model selection": lambda: pt.PredictorSumstat(
+              pt.ModelSelectionPredictor([pt.LinearPredictor(alpha=1.0),
+                                          pt.GPPredictor(alpha=0.1)])),
+          "fit_every 3": lambda: pt.PredictorSumstat(
+              pt.LinearPredictor(alpha=1.0), fit_every=3),
+          "identity functions": lambda: pt.IdentitySumstat(
+              trafos=[lambda x: x, torch.abs])}[kind]()
+    abc = pt.ABCSMC(sir.make_network_sir_model(**shape),
+                    sir.network_sir_prior(), pt.PNormDistance(p=2,
+                                                              sumstat=ss),
+                    population_size=1000, eps=pt.MedianEpsilon(), seed=11,
+                    fused_generations=2, device=dev)
+    abc.new("sqlite://", sir.observed_network_sir(**shape))
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=6)
+    counts = launch_counts()
+    assert h.n_populations == 6
+    tel = [h.get_telemetry(t) for t in range(6)]
+    assert tel[0]["sumstat"]["mode"] == "host"
+    refits = [t for t in range(6) if tel[t].get("sumstat_refit")]
+    want = {"fit_every 3": [0, 4], "identity functions": []}.get(kind,
+                                                                  [0, 2, 4])
+    assert refits == want
+    assert all(h.get_weighted_sum_stats(t)[1].shape[1] == 64
+               for t in range(6))
+    if kind == "gp":
+        assert counts["gp_accept"] > 0 and counts["linear_accept"] == 0
+    if kind in ("lasso", "fit_every 3"):
+        assert counts["linear_accept"] > 0 and counts["gp_accept"] == 0
+    if kind == "identity functions":
+        assert counts["pnorm_accept_weight"] > 0
+    assert counts["segment_round"] == 0
+    by = abc.sync_ledger.summary()["by_kind"]
+    assert set(by) == {"round_counters", "chunk_fetch"}

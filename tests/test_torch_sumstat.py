@@ -348,9 +348,10 @@ def _port_plan(sumstat):
     return tdevice.device_fit_plan(d, total_size=16, d_max=2)
 
 
-#: each predictor or transform the port refuses, with a fragment of the
+#: each configuration without a device-fit plan, with a fragment of the
 #: JAX package's reason (None: the JAX package fuses it, the port not yet:
-#: an MLP wider than K23's MLP kernels hold, refused when the run starts)
+#: an MLP wider than K23's MLP kernels hold, refused when the run starts);
+#: the others run the host-refit mode and record the reason
 REFUSED = {
     "MLPPredictor": (lambda m: m.PredictorSumstat(m.MLPPredictor(
         hidden=(256,))), None),
@@ -370,19 +371,30 @@ REFUSED = {
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_refusals_carry_the_jax_reason(what):
+    """The port's plan and reason equal the JAX package's. A configuration
+    the JAX package serves on its host-refit path runs the port's
+    host-refit mode, which records that reason as the JAX package does
+    (the ``sumstat_device`` capability fallback, in generation 0's
+    telemetry); the too-wide MLP stays refused before launch."""
     make, fragment = REFUSED[what]
     jplan, jreason = _jax_plan(make(jpt))
     tplan, treason = _port_plan(make(tpt))
     assert (jplan is None) == (tplan is None) == (fragment is not None)
     assert treason == jreason
-    with pytest.raises(NotImplementedError, match="item 14") as err:
-        abc = tpt.ABCSMC(tg.make_birth_death_model(), tg.birth_death_prior(),
-                         tpt.PNormDistance(p=2, sumstat=make(tpt)),
-                         population_size=64, device="cpu")
-        abc.new("sqlite://", tg.observed_birth_death())
-        abc.run(max_nr_populations=1)
-    if fragment is not None:
-        assert fragment in str(err.value)
+    if fragment is None:
+        with pytest.raises(NotImplementedError, match="item 14"):
+            _seg_abc(tpt, tpt.PNormDistance(p=2, sumstat=make(tpt))).run(
+                max_nr_populations=1)
+        return
+    assert fragment in jreason
+    abc = _seg_abc(tpt, tpt.PNormDistance(p=2, sumstat=make(tpt)))
+    h = abc.run(max_nr_populations=2)
+    assert h.n_populations == 2
+    fallback = {"gate": "sumstat_device", "reason": jreason}
+    assert fallback in abc.capability_fallbacks
+    tel = h.get_telemetry(0)
+    assert fallback in tel["capability_fallbacks"]
+    assert tel["sumstat"]["mode"] == "host"
 
 
 def test_linear_plan_and_several_models():
