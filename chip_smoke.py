@@ -73,7 +73,16 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    whole bisection ending in the plain entries' state; K16's repair case
    (the model-weighted case of tests/test_torch_population.py with model
    2's bootstrap of rank 1 at n = 3): each live model's CV and the
-   aggregate finite and within 1e-4 of the plain versions'; K25's accept
+   aggregate finite and within 1e-4 of the plain versions'; K16's
+   LocalTransition mode (the gather, the bootstrap fits by K12 and K13,
+   the local density) at the LV local adaptive leg's shape (n_cap 16384,
+   10 bootstraps, d 4, k_cap 4096, threshold at stride 4), at config 5's
+   (K 3, k_cap 1024, one model dead) and at small shapes with whole
+   bisections: the gather bit-equal, two fits a model at K12's and K13's
+   tolerances, the CV within 1e-4 relative, each log-density bit-equal
+   to K14's on the same fit; K2's and K14's K > 1 local modes, K15's
+   K > 1 mode, K12 and K13 per model and K26 under K15's fitted mask at
+   config 5's shapes (n_cap 4096, one model dead); K25's accept
    at the LV aggregated legs' round (B 65536, S 40) for their pair and for
    2 and 4 sub-distances of mixed p (1, 2, inf, 3): distances and the
    values mode within 1e-5 relative, flags equal away from eps, log
@@ -132,13 +141,15 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    same function, that call's time. Philox4x32-10 (K1) is held to
    Random123's known-answer vectors on the card;
 3. the Gaussian conjugate toy (pop 1000, 6 generations, 32 seeds) on the
-   card and on the CPU, the mean of its posterior means against the
+   card and the first 16 of them on the CPU, the mean of its posterior
+   means against the
    analytic posterior mean and the card's against the CPU's; then the noisy
    Gaussian anchor (x = theta under IndependentNormalKernel(var 0.09),
    Temperature, StochasticAcceptor, pop 1000, 32 seeds) the same way, its
    posterior mean and sd against the exact posterior N(0.7339, 0.2874^2);
    then the model-selection anchor (the tractable pair at x_obs 0.7, pop
-   600, 6 generations, 16 seeds), the seed mean of P(m = 0) against the
+   600, 6 generations, 16 seeds on the card, the first 8 on the CPU), the
+   seed mean of P(m = 0) against the
    exact 0.5529 and the card's against the CPU's; then the noisy anchor
    under each prior of ANCHOR_FAMILIES (lognorm, expon, gamma, beta,
    laplace, cauchy, t, truncnorm, a norm bounded at 0), 24 seeds on the
@@ -236,10 +247,25 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    Gaussian toy under
    ListPopulationSize((500, 1000, 2000, 1000, 500)) over 32 seeds, the
    stored counts equal to the list and the seed mean within 0.03 of the
-   analytic posterior mean. Then the aggregated-distance legs, counts
+   analytic posterior mean. Then LocalTransition under population sizes
+   and over several models (K16's LocalTransition mode, K2's and K14's
+   K > 1 local modes, K15, K12 and K13 per model), counts reset just
+   before each leg and each once more under torch.profiler: the LV local
+   adaptive leg (the scale lane's LocalTransition(k_fraction=0.25) under
+   the LV adaptive leg's strategy: n_cap 16384, k_cap 4096, threshold at
+   stride 4), again at mean_cv 0.15 with a floor of 1000 (whole
+   bisections), config 5 with three LocalTransition()s under its adaptive
+   strategy (the same checks as the population-size legs, K16's local
+   gather, density and bisect once a probe and ten K12 and K13 launches a
+   probe, no MVN kernel), both at pop 1024 on the card and the CPU (the
+   first two epsilons within 1e-3), the tractable pair with two
+   LocalTransitions over 16 seeds (card mean within 0.05 of the exact
+   0.5529 and 4 se of the CPU's) and the toy's list under
+   LocalTransition(k_fraction=0.3) over 16 seeds (counts equal, the seed
+   mean within 0.05). Then the aggregated-distance legs, counts
    reset just before each and each once more under torch.profiler: LV
    config 2 under AdaptiveAggregatedDistance([PNormDistance(p=2) on the
-   predators, PNormDistance(p=1) on the prey]), pop 16384, 10
+   predators, PNormDistance(p=1) on the prey]), pop 16384, 8
    generations: K25's accept and refit launched, K5 and K9 not, the
    weights refit at the calibration and after every generation, wall,
    syncs (one counter read a round, one fetch a chunk) and the busy
@@ -253,7 +279,7 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    retired, the saved share of segment steps, K18's aggregate mode
    launched. Then this slice's main leg, LV config 2 on the JAX package's
    observation under the family prior (gamma, lognorm, truncnorm, a norm
-   bounded at 0), pop 16384, 10 generations, counts reset just before:
+   bounded at 0), pop 16384, 8 generations, counts reset just before:
    every K2 launch in its family mode, the epsilon trail falling, the
    posterior means, the transition lanes whose redraws all left the
    prior's support, syncs, the wall split (compute, fetch, the loop's
@@ -268,7 +294,7 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    the network SIR at 8 patches x 16 observations, S 128 in 4 segments,
    PNormDistance(p=2) through PredictorSumstat(LinearPredictor(alpha=1)),
    MedianEpsilon, seed 11, chunks of 2; pop 16384 where the bench's CPU
-   leg takes 256, 10 generations), counts reset just before: every kernel
+   leg takes 256, 8 generations), counts reset just before: every kernel
    of the path launched (K23's fit, transform and accept, K18's
    transformed mode and operands), the boundary refits at each chunk's
    last generation, History rows 128 wide at generation 0 and 2 after,
@@ -287,7 +313,7 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    identity's against the JAX package's over the same seeds. Then this
    slice's main leg, the same network SIR under PNormDistance(p=2)
    through PredictorSumstat(MLPPredictor()) (hidden (64, 64), 400 seed
-   steps, 100 a boundary), pop 16384, 10 generations, counts reset just
+   steps, 100 a boundary), pop 16384, 8 generations, counts reset just
    before: K23's MLP fit (the seed fit and each boundary) and transform
    launched, the refit generations, History rows 128 then 2 wide, one
    counter read a round, one fetch a chunk and the seed fit's read; early
@@ -298,7 +324,7 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    within 1e-3, the seed fits' predictions on held-out rows within 1e-2
    of their sd, generation 1's epsilon within 1e-3 on a CPU run fed the
    card's seed fit. Then this slice's legs, the host-refit mode on the
-   same network SIR (pop 16384, 10 generations, early reject auto: off
+   same network SIR (pop 16384, 8 generations, early reject auto: off
    with the JAX package's reason): the GP leg (GPPredictor()), counts
    reset just before, every kernel of its path launched, the GP kernel's
    values mode once a boundary, once more under torch.profiler for the GP
@@ -315,9 +341,9 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    weights within 1e-3), generations 1 and 2 within 1e-3.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K16, K18 and its modes, K19, K20, K20b, K21a, K21b, K21c,
-K22, K23 linear and MLP, the GP transform, K25, K26 and the K > 1
-modes) is replaced by a
+kernel (K1-K16 with K16's LocalTransition mode, K18 and its modes,
+K19, K20, K20b, K21a, K21b, K21c, K22, K23 linear and MLP, the GP
+transform, K25, K26 and the K > 1 modes) is replaced by a
 function that
 raises, so
 none can run on the path unseen.
@@ -1564,14 +1590,15 @@ def near_step(u, p):
 
 
 def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None,
-                           lp_rtol: float = 0.0):
+                           lp_rtol: float = 0.0, local: bool = False):
     """K2's K > 1 mode against its plain version: the model of every lane
     equal (but where its uniform lies within rounding of a step), theta
     and logpri as compare_propose (logpri within 1e-5 + ``lp_rtol``
-    relative: the families' lgamma terms run to hundreds)."""
+    relative: the families' lgamma terms run to hundreds); ``local``: its
+    K > 1 local mode on stacked LocalTransition params."""
     import torch
 
-    from pyabc_tpu_torch.kernels import philox, propose
+    from pyabc_tpu_torch.kernels import philox, propose, propose_local
     from pyabc_tpu_torch.kernels.propose import (categorical_plain,
                                                  lane_blocks, model_stream,
                                                  propose_models_plain,
@@ -1579,8 +1606,10 @@ def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None,
 
     st = stream_on(dev, philox.PRIOR if params is None
                    else philox.TRANSITION)
-    got = propose.models(st, B, priors, model_p, params, mpk)
-    ref = propose_models_plain(st, B, priors, model_p, params, mpk)
+    got = (propose_local if local else propose).models(st, B, priors,
+                                                       model_p, params, mpk)
+    ref = propose_models_plain(st, B, priors, model_p, params, mpk,
+                               local=local)
     lanes = torch.arange(B, device=dev)
     w = lane_blocks(model_stream(st), lanes,
                     torch.zeros((), dtype=torch.int64, device=dev))
@@ -1607,7 +1636,8 @@ def compare_propose_models(dev, B, priors, model_p, params=None, mpk=None,
     err = max(float((th_k - th_p)[~odd].abs().max()), lp_err)
     padded = torch.arange(th_k.shape[1], device=dev)[None, :] >= \
         priors["dims"][m_k.long()][:, None]
-    log(f"K2 propose K>1 ({'prior' if params is None else 'transition'}, "
+    log(f"K2 propose{' local' if local else ''} K>1 "
+        f"({'prior' if params is None else 'transition'}, "
         f"B={B}, K={K}, d_max={th_k.shape[1]}): max_abs_err={err:.3e} "
         f"models apart={int((~same_m).sum())} (all near a step: "
         f"{bool(near[~same_m].all())}), lanes apart={int(odd.sum())} "
@@ -1954,7 +1984,7 @@ def model_checks(dev) -> dict:
 # ------------------------------------------------------------ phases 3-4
 #: (module, attribute) of the plain version of every kernel, K1-K15,
 #: K18, K19, K20, K20b (family, segmented family and network), K21a, K21b,
-#: K22, K23, K26 and the K > 1 modes
+#: K22, K23, K26, K16 (both modes) and the K > 1 modes
 PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.philox", "philox4x32_10"),
     ("pyabc_tpu_torch.kernels.propose", "propose_plain"),
@@ -2009,6 +2039,13 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_fit_plain"),
     ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_density_plain"),
     ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_bisect_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "bootstrap_local_gather_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv",
+     "bootstrap_local_density_plain"),
+    ("pyabc_tpu_torch.kernels.bootstrap_cv", "cv_partial_plain"),
+    ("pyabc_tpu_torch.kernels.local_logpdf", "local_logpdf_models_plain"),
+    ("pyabc_tpu_torch.kernels.proposal_drift",
+     "proposal_drift_models_plain"),
     ("pyabc_tpu_torch.transition.util", "device_required_nr"),
     ("pyabc_tpu_torch.kernels.aggregate", "aggregate_accept_weight_plain"),
     ("pyabc_tpu_torch.kernels.aggregate", "sub_distances_plain"),
@@ -2253,11 +2290,13 @@ def profile_lv(dev) -> None:
     profile_run("LV config 2", config2(dev), 10)
 
 
-def profile_run(label: str, abc, gens: int) -> dict | None:
+def profile_run(label: str, abc, gens: int,
+                spans_out: list | None = None) -> dict | None:
     """A run under torch.profiler: the device's busy share of the run's
     window and the ten device ops that take the most device time ->
     {device op name: [total microseconds, count]}, None without device
-    activity."""
+    activity. ``spans_out`` receives every device op as (start, end, name)
+    in microseconds, in order of start."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2276,6 +2315,8 @@ def profile_run(label: str, abc, gens: int) -> dict | None:
         log(f"{label} under torch.profiler: device busy share not "
             f"measured (the profiler recorded no device activity)")
         return
+    if spans_out is not None:
+        spans_out.extend(spans)
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     by_name: dict[str, list] = {}
     for start, end, name in spans:
@@ -2501,70 +2542,104 @@ C5_GENS = 8
 C5_PATH = ("propose", "mvn_mixture_logpdf", "ode_family_simulate",
            "pnorm_accept_weight", "compact_round", "normalize_quantile",
            "mvn_fit", "model_step", "pack_fetch", "generation_health")
+#: K12's and K13's device ops (their names in torch.profiler's trace)
+K12_K13_DEVICE_OPS = ("local_prep_kernel", "local_field_kernel",
+                      "local_factor_kernel")
+#: the tractable pair's path with a LocalTransition for each model
+LOCAL_MODELS_PATH = ("propose", "propose_local", "local_logpdf",
+                     "pnorm_accept_weight", "compact_round",
+                     "normalize_quantile", "proposal_drift", "local_cov",
+                     "local_factor", "model_step", "pack_fetch",
+                     "generation_health", "propose_local:models",
+                     "local_logpdf:models", "proposal_drift:models",
+                     "local_cov:models", "local_factor:models")
 
 
-def pair_run(where, seed):
+def pair_abc(where, seed, local: bool = False):
     """The tractable pair (two Gaussian user models, sd 0.6 and 1.2) at
-    x_obs PAIR_X."""
+    x_obs PAIR_X; ``local``: each model with a LocalTransition()."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import model_selection as msel
 
     models, priors, _an = msel.tractable_pair()
+    kw = ({"transitions": [pt.LocalTransition(), pt.LocalTransition()]}
+          if local else {})
     abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
                     population_size=PAIR_POP, eps=pt.MedianEpsilon(),
-                    seed=seed, device=where)
+                    seed=seed, device=where, **kw)
     abc.new("sqlite://", {"x": PAIR_X})
-    return abc.run(max_nr_populations=PAIR_GENS)
+    return abc
 
 
-def pair_anchor(dev) -> None:
+def pair_run(where, seed, local: bool = False):
+    return pair_abc(where, seed, local).run(max_nr_populations=PAIR_GENS)
+
+
+def pair_anchor(dev, local: bool = False) -> dict | None:
     """The model-selection anchor over PAIR_SEEDS on the card and on the
     CPU: the seed mean of P(m = 0) against the exact model posterior, and
-    the card's mean against the CPU's."""
+    the card's mean against the CPU's; ``local``: each model with a
+    LocalTransition (K2's and K14's K > 1 local modes, the per-model
+    K12, K13 and K15) -> the card's launch and mode counts (``local``)."""
     import numpy as np
+    import torch
 
-    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
     from pyabc_tpu_torch.models import model_selection as msel
 
     exact = float(msel.tractable_pair()[2](PAIR_X)[0])
     stats = {}
+    name = "tractable pair, local" if local else "tractable pair"
+    counts = None
     for where in (dev, "cpu"):
         on_card = where == dev
         p0 = []
         t0 = time.perf_counter()
         if on_card:
+            torch.cuda.synchronize()
             reset_launch_counts()
         with plain_versions_raise() if on_card else contextlib.nullcontext():
             for seed in PAIR_SEEDS:
-                h = pair_run(where, seed)
+                h = pair_run(where, seed, local=local)
                 check(h.n_populations == PAIR_GENS,
-                      f"tractable pair seed {seed} ({where}) ran "
+                      f"{name} seed {seed} ({where}) ran "
                       f"{h.n_populations} generations")
                 p0.append(float(h.get_model_probabilities(h.max_t)["p"]
                                 .get(0, 0.0)))
         wall = time.perf_counter() - t0
         if on_card:
-            counts = launch_counts()
-            log(f"tractable pair ({where}): kernel launches {counts}")
-            path = [k for k in C5_PATH if k != "ode_family_simulate"]
+            counts = launch_counts() | mode_launch_counts()
+            log(f"{name} ({where}): kernel launches {counts}")
+            path = ([k for k in C5_PATH if k != "ode_family_simulate"]
+                    if not local else LOCAL_MODELS_PATH)
             check(all(counts[k] > 0 for k in path),
-                  "a kernel of the tractable pair's path was never launched")
+                  f"a kernel of the {name}'s path was never launched")
+            if local:
+                check(counts["mvn_fit"] == counts["mvn_mixture_logpdf"]
+                      == 0, f"{name}: an MVN kernel ran")
         m = float(np.mean(p0))
         se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
         stats[where] = (m, se)
-        log(f"tractable pair ({where}, {len(p0)} seeds, x_obs {PAIR_X}, "
+        log(f"{name} ({where}, {len(p0)} seeds, x_obs {PAIR_X}, "
             f"pop {PAIR_POP}, {PAIR_GENS} generations, {wall:.2f} s): mean "
             f"P(m=0) {m:.4f} se {se:.4f} (exact {exact:.4f}, "
             f"{(m - exact) / se:+.2f} se); per seed min {min(p0):.4f} max "
             f"{max(p0):.4f}")
         if on_card:
-            check(abs(m - exact) < 0.05, "tractable pair: the card's seed "
+            check(abs(m - exact) < 0.05, f"{name}: the card's seed "
                   "mean of P(m=0) is 0.05 or more off the exact posterior")
     (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
     gap = (m_d - m_c) / math.hypot(se_d, se_c)
-    log(f"tractable pair: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
-    check(abs(gap) < 4.0, "tractable pair: card and CPU means differ by >= "
+    log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+    check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= "
           "4 standard errors")
+    if local:
+        abc = pair_abc(dev, 0, local=True)
+        profile_run(f"{name} (seed 0, profiled)", abc, PAIR_GENS)
+        sync_check(abc, name)
+        log(f"{name} (seed 0): wall split {wall_split(abc)}")
+    return counts
 
 
 def config5(where, seed: int = 0):
@@ -4831,14 +4906,44 @@ ADA_CV_REACH, ADA_MIN_REACH = 0.15, 1000
 C5A_START, C5A_MAX, C5A_GENS = 1000, 4096, 8
 #: the toy's list of sizes, one generation each
 LIST_SIZES = (500, 1000, 2000, 1000, 500)
+#: seeds of the toy's list under LocalTransition
+LIST_LOCAL_SEEDS = 16
+#: the local adaptive legs' paths (the kernels each must launch)
+LOCAL_ADA_PATH = ("propose", "propose_local", "local_logpdf", "lv_simulate",
+                  "pnorm_accept_weight", "compact_round",
+                  "normalize_quantile", "scale_reduce", "pack_fetch",
+                  "generation_health", "local_cov", "local_factor",
+                  "proposal_drift", "bootstrap_cv")
+LOCAL_C5A_PATH = ("propose", "propose_local", "local_logpdf",
+                  "ode_family_simulate", "pnorm_accept_weight",
+                  "compact_round", "normalize_quantile", "local_cov",
+                  "local_factor", "proposal_drift", "model_step",
+                  "pack_fetch", "generation_health", "bootstrap_cv")
+#: the K > 1 local modes, each a row of the kernels line: (mode key,
+#: source, the TPU program it replaces)
+LOCAL_MODE_ROWS = (
+    ("propose_local:models", "pyabc_tpu_torch/csrc/propose.cu",
+     "pyabc_tpu/transition/local_transition.py:432"),
+    ("local_logpdf:models", "pyabc_tpu_torch/csrc/local_logpdf.cu",
+     "pyabc_tpu/transition/local_transition.py:442"),
+    ("proposal_drift:models", "pyabc_tpu_torch/csrc/proposal_drift.cu",
+     "pyabc_tpu/inference/util.py:1958"),
+    ("local_cov:models", "pyabc_tpu_torch/csrc/local_cov.cu",
+     "pyabc_tpu/inference/util.py:1908"),
+    ("local_factor:models", "pyabc_tpu_torch/csrc/local_factor.cu",
+     "pyabc_tpu/inference/util.py:1908"))
+LOCAL_MODES = tuple(name for name, _s, _l in LOCAL_MODE_ROWS)
 #: operations of one Philox block (ten rounds: two 32-bit products, two
 #: high halves, three XORs and the key schedule) and of one density term
 #: beyond its 2 d-operation dot product (the Mahalanobis sum, the scale,
 #: the online logsumexp's compare, difference, exp and sum)
 OPS_PER_BLOCK = 100
 K16_OPS_PER_TERM = 8
-#: K16's entries (``BootstrapCV.ENTRIES``)
+#: K16's entries (``BootstrapCV.ENTRIES``): the MVN's, then
+#: LocalTransition's (its fit is K12 and K13, counted in their
+#: ``bootstrap`` mode)
 K16_ENTRIES = ("draw", "fit", "density", "bisect")
+K16_LOCAL_ENTRIES = ("local_gather", "local_density")
 ADA_PATH = LV_PATH + ("bootstrap_cv",)
 
 
@@ -5079,45 +5184,54 @@ def k16_checks(dev) -> dict:
 
 
 def adaptive_lv(where, mean_cv: float = ADA_CV, min_n: int = 10,
-                population_size=None):
+                population_size=None, local: bool = False,
+                start: int = ADA_START, cap: int = ADA_MAX):
     """The LV adaptive leg: LV config 2 (bench.py:119-127) with
     AdaptivePopulationSize(start 1000, mean_cv 0.05, max 16384, 10
     bootstraps); another target and floor, or another strategy
-    (``population_size``), for the legs beside it."""
+    (``population_size``), for the legs beside it. ``local``: the scale
+    lane's LocalTransition(k_fraction=0.25) (the LV local adaptive leg)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import lotka_volterra as lv
 
     aps = population_size or pt.AdaptivePopulationSize(
-        start_nr_particles=ADA_START, mean_cv=mean_cv,
-        max_population_size=ADA_MAX, min_population_size=min_n,
+        start_nr_particles=start, mean_cv=mean_cv,
+        max_population_size=cap, min_population_size=min_n,
         n_bootstrap=ADA_BOOT)
+    kw = ({"transitions": pt.LocalTransition(k_fraction=0.25)} if local
+          else {})
     abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
                     pt.AdaptivePNormDistance(p=2), population_size=aps,
-                    eps=pt.MedianEpsilon(), seed=0, device=where)
+                    eps=pt.MedianEpsilon(), seed=0, device=where, **kw)
     abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
     return abc
 
 
-def config5_adaptive(where):
+def config5_adaptive(where, local: bool = False, start: int = C5A_START,
+                     cap: int = C5A_MAX):
     """Config 5 (the ODE family, K = 3) with AdaptivePopulationSize(start
-    1000, mean_cv 0.05, max 4096, 10 bootstraps)."""
+    1000, mean_cv 0.05, max 4096, 10 bootstraps); ``local``: a
+    LocalTransition() for each model (the config 5 local adaptive leg)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import model_selection as msel
 
     models, priors, _ts = msel.ode_family()
     aps = pt.AdaptivePopulationSize(
-        start_nr_particles=C5A_START, mean_cv=ADA_CV,
-        max_population_size=C5A_MAX, n_bootstrap=ADA_BOOT)
+        start_nr_particles=start, mean_cv=ADA_CV,
+        max_population_size=cap, n_bootstrap=ADA_BOOT)
+    kw = ({"transitions": [pt.LocalTransition()] * len(models)} if local
+          else {})
     abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
                     population_size=aps, eps=pt.MedianEpsilon(), seed=0,
-                    device=where)
+                    device=where, **kw)
     abc.new("sqlite://", msel.observed_ode_family(seed=0, true_model=1),
             store_sum_stats=False)
     return abc
 
 
 def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
-                   hi: int, bisects: bool = False) -> tuple:
+                   hi: int, bisects: bool = False,
+                   local_fits: tuple | None = None) -> tuple:
     """One adaptive population-size leg on the card (``make(where)`` builds
     it), counts reset just before and read just after, then once more
     under torch.profiler -> (counts, mode counts, n trail, the ABCSMC):
@@ -5128,7 +5242,9 @@ def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
     probe that did work, syncs per generation (one counter read a round,
     one fetch a chunk, nothing else), the wall. ``bisects``: some
     generation's CV at max_n met the target, so K16 ran a whole bisection
-    there and n fell below max_n."""
+    there and n fell below max_n. ``local_fits`` (K, n_bootstrap): the
+    leg runs LocalTransition, so K16 takes its LocalTransition mode (the
+    gather, K12 and K13 per bootstrap, the local density, the bisect)."""
     import torch
 
     from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
@@ -5154,7 +5270,10 @@ def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
     stored = [int(stored[t]) for t in range(n_gen)]
     syncs = abc.sync_ledger.summary()
     eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
-    k16 = {e: modes[f"bootstrap_cv:{e}"] for e in K16_ENTRIES}
+    k16 = {e: modes[f"bootstrap_cv:{e}"]
+           for e in K16_ENTRIES + K16_LOCAL_ENTRIES}
+    probe_entries = (("local_gather", "local_density") if local_fits
+                     else ("fit", "density"))
     log(f"{label}: gens={n_gen} wall_s={wall:.3f} accepted_particles_per_s="
         f"{sum(trail) / wall:.1f} wall_s_per_generation={wall / n_gen:.4f} "
         f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} "
@@ -5184,9 +5303,19 @@ def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
     check(all(nxt[t] == trail[t + 1] for t in range(n_gen - 1))
           and nxt[-1] == trail[-1],
           f"{label}: n_next does not become the next generation's n")
-    check(k16["draw"] == n_gen - 1 and k16["fit"] == k16["density"]
-          == k16["bisect"] > 0,
-          f"{label}: K16 did not run once a generation but the last")
+    check(k16["draw"] == n_gen - 1 and k16["bisect"] > 0
+          and all(k16[e] == k16["bisect"] for e in probe_entries)
+          and all(v == 0 for e, v in k16.items()
+                  if e not in probe_entries + ("draw", "bisect")),
+          f"{label}: K16 did not run its mode once a generation but the "
+          f"last ({k16})")
+    if local_fits:
+        K, nb = local_fits
+        boot = modes["local_cov:bootstrap"]
+        check(boot == k16["bisect"] * K * nb
+              and modes["local_factor:bootstrap"] == boot,
+              f"{label}: K16's K12 and K13 launches ({boot}) are not "
+              f"{K * nb} a probe")
     check(all(p > 0 for p in probes[:-1]) and probes[-1] == 0,
           f"{label}: K16's probes {probes} (one or more a generation but "
           f"the last)")
@@ -5194,15 +5323,37 @@ def population_leg(dev, label: str, make, gens: int, path, *, lo: int,
         check(any(p > 1 and n < hi for p, n in zip(probes, nxt)),
               f"{label}: no generation ran a whole bisection (probes "
               f"{probes}, n_next {nxt})")
-    by_name = profile_run(f"{label} (profiled)", make(dev), gens)
+    spans: list = []
+    by_name = profile_run(f"{label} (profiled)", make(dev), gens, spans)
     if by_name:
         k16_ms = sum(v[0] for name, v in by_name.items()
                      if "boot_" in name) / 1e3
+        share = ""
+        if local_fits:
+            # K12 and K13 serve both the refit and K16's bootstrap fits: a
+            # probe's fits are the device ops between its gather and its
+            # bisect (one stream, launched in order), the refit's lie
+            # outside those windows
+            fits, other, inside = 0.0, 0.0, False
+            for start, end, name in spans:
+                if "boot_gather_kernel" in name:
+                    inside = True
+                if inside and "boot_" not in name:
+                    if any(f in name for f in K12_K13_DEVICE_OPS):
+                        fits += (end - start) / 1e3
+                    else:
+                        other += (end - start) / 1e3
+                if "boot_bisect_kernel" in name:
+                    inside = False
+            share = (f"; K16's own kernels {k16_ms:.4f} ms, K12 and K13 of "
+                     f"its bootstrap fits {fits:.4f} ms, other device ops "
+                     f"inside its probes {other:.4f} ms")
+            k16_ms += fits + other
         log(f"{label}: K16 device ms per generation "
             f"{k16_ms / max(n_gen - 1, 1):.4f} ({k16_ms:.4f} ms over "
             f"{n_gen - 1} generations that ran it, {sum(probes)} probes "
             f"that did work: {k16_ms / max(sum(probes), 1):.4f} ms each, "
-            f"torch.profiler)")
+            f"torch.profiler{share})")
     return counts, modes, trail, abc
 
 
@@ -5244,13 +5395,15 @@ def constant_lv_syncs(dev, ada_abc) -> None:
           f"the calibration's reads differ: {per}")
 
 
-def list_leg(dev) -> tuple[dict, dict, list]:
+def list_leg(dev, local: bool = False) -> tuple[dict, dict, list]:
     """The Gaussian toy with ListPopulationSize((500, 1000, 2000, 1000,
     500)) over TOY_SEEDS seeds on the card, counts reset just before the
     first: the stored counts equal the list in every seed, the seed mean of
     the posterior means lies within 0.03 of the analytic posterior mean
     (the toy leg's rule; the seeds' sd is about 0.05 at a last n of 500, so
-    its se is about 0.009) and every seed within 0.25 (5 sd)."""
+    its se is about 0.009) and every seed within 0.25 (5 sd). ``local``:
+    LocalTransition(k_fraction=0.3) over the first 16 seeds, the seed mean
+    within 0.05 (the se about 0.013)."""
     import numpy as np
     import torch
 
@@ -5261,11 +5414,15 @@ def list_leg(dev) -> tuple[dict, dict, list]:
 
     mu_true, _sd_true = gaussian.conjugate_posterior(1.0)
     mus, counts = [], None
-    for seed in TOY_SEEDS:
+    seeds = TOY_SEEDS[:LIST_LOCAL_SEEDS] if local else TOY_SEEDS
+    kw = ({"transitions": pt.LocalTransition(k_fraction=0.3)} if local
+          else {})
+    name = "list leg, local" if local else "list leg"
+    for seed in seeds:
         abc = pt.ABCSMC(gaussian.make_mean_only_model(),
                         gaussian.mean_only_prior(), pt.PNormDistance(p=2),
                         population_size=pt.ListPopulationSize(LIST_SIZES),
-                        eps=pt.MedianEpsilon(), seed=seed, device=dev)
+                        eps=pt.MedianEpsilon(), seed=seed, device=dev, **kw)
         abc.new("sqlite://", {"x": 1.0})
         if seed == 0:
             torch.cuda.synchronize()
@@ -5277,39 +5434,672 @@ def list_leg(dev) -> tuple[dict, dict, list]:
             wall = time.perf_counter() - t0
         stored = h.get_nr_particles_per_population()
         stored = [int(stored[t]) for t in range(h.max_t + 1)]
-        check(stored == list(LIST_SIZES), f"list leg seed {seed}: stored "
+        check(stored == list(LIST_SIZES), f"{name} seed {seed}: stored "
               f"counts {stored} differ from {list(LIST_SIZES)}")
         df, w = h.get_distribution()
         mus.append(float(np.sum(df["theta"] * w)))
         if seed == 0:
             counts, modes = launch_counts(), mode_launch_counts()
             syncs = abc.sync_ledger.summary()
-            sync_check(abc, "list leg")
-            log(f"toy ListPopulationSize{LIST_SIZES}: seed 0 wall_s="
+            sync_check(abc, name)
+            log(f"toy ListPopulationSize{LIST_SIZES}"
+                f"{', LocalTransition' if local else ''}: seed 0 wall_s="
                 f"{wall:.3f} syncs_per_generation="
                 f"{syncs['syncs'] / (h.max_t + 1):.2f} ({syncs['by_kind']}), "
                 f"stored counts {stored}, K16 launches "
-                f"{counts['bootstrap_cv']}")
+                f"{counts['bootstrap_cv']}; kernel launches {counts}")
     mean = float(np.mean(mus))
     se = float(np.std(mus, ddof=1) / math.sqrt(len(mus)))
-    log(f"toy list leg ({len(mus)} seeds): seed mean {mean:.4f} se "
+    log(f"toy {name} ({len(mus)} seeds): seed mean {mean:.4f} se "
         f"{se:.4f} against the analytic {mu_true:.4f} "
         f"({(mean - mu_true) / se:+.2f} se); per seed min {min(mus):.4f} "
         f"max {max(mus):.4f}")
-    check(abs(mean - mu_true) < 0.03,
-          "list leg: the seed mean is off the analytic mean by >= 0.03")
+    lim = 0.05 if local else 0.03
+    check(abs(mean - mu_true) < lim,
+          f"{name}: the seed mean is off the analytic mean by >= {lim}")
     check(all(abs(m - mu_true) < 0.25 for m in mus),
-          "list leg: a seed's posterior mean is off by >= 0.25")
-    check(counts["bootstrap_cv"] == 0, "list leg: K16 ran on a list")
+          f"{name}: a seed's posterior mean is off by >= 0.25")
+    check(counts["bootstrap_cv"] == 0, f"{name}: K16 ran on a list")
+    if local:
+        check(all(counts[k] > 0 for k in LOCAL_KERNELS)
+              and counts["mvn_fit"] == 0,
+              f"{name}: LocalTransition's kernels did not serve the run")
+        abc = pt.ABCSMC(gaussian.make_mean_only_model(),
+                        gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                        population_size=pt.ListPopulationSize(LIST_SIZES),
+                        eps=pt.MedianEpsilon(), seed=0, device=dev, **kw)
+        abc.new("sqlite://", {"x": 1.0})
+        profile_run(f"toy {name} (seed 0, profiled)", abc,
+                    len(LIST_SIZES) + 2)
+        log(f"toy {name} (seed 0): wall split {wall_split(abc)}")
     return counts, modes, list(LIST_SIZES)
+
+
+# ------------------- LocalTransition under population sizes and K > 1
+#: the LV local adaptive leg: the scale lane's LocalTransition(k_fraction
+#: 0.25) under the LV adaptive leg's AdaptivePopulationSize (start 1000,
+#: mean_cv 0.05, max 16384, 10 bootstraps): n_cap 16384, k_cap 4096,
+#: threshold selection at stride 4, the refit cadence auto (16, 0.3)
+LOCAL_ADA_STATICS = {"scaling": 1.0, "k_cap": 4096, "k_fixed": -1,
+                     "k_fraction": 0.25, "k_max": None,
+                     "selection": "auto"}
+#: config 5's LocalTransition() at its cap of 4096: k_cap 1024 (threshold
+#: selection, stride 1)
+C5_LOCAL_STATICS = {"scaling": 1.0, "k_cap": 1024, "k_fixed": -1,
+                    "k_fraction": 0.25, "k_max": None, "selection": "auto"}
+#: bootstrap fits of a probe whose K12 and K13 the phase-2 check holds
+#: against their plain versions (the plain K12 takes about 1.5 s at 16384
+#: rows)
+K16_LOCAL_FITS_CHECKED = 2
+#: operations of one local density pair beyond its d subtractions: the
+#: d (d + 1) fmas of the Mahalanobis form, the constant's fma, the exp and
+#: the online logsumexp's compare, difference and sum
+LOCAL_PAIR_OPS = 6
+#: the LV and config 5 local adaptive legs' card-against-CPU size
+LOCAL_CPU_POP = 1024
+
+
+def local_refit(dev, K: int, n_cap: int, d: int, n_live: int, seed: int,
+                statics: dict):
+    """LocalTransition's refit params as the generation step leaves them
+    (K12 and K13 over n_cap rows, the first n_live weighted). K = 3 takes
+    config 5's dims (1, 2, 2) on d_max 2 with model 1 dead (its never-fitted
+    placeholder) -> (stacked params, dims, each model's K12 arguments,
+    model_p or None)."""
+    import torch
+
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    theta = (torch.randn(n_cap, d, generator=gen, device=dev)
+             * torch.linspace(0.5, 2.0, d, device=dev) + 1.0)
+    w = torch.rand(n_cap, generator=gen, device=dev) + 0.1
+    w[n_live:] = 0.0
+    w = w / w.sum()
+    dims = [d] if K == 1 else [1, 2, 2]
+    configs = [LocalTransition.field_config(n_cap, dk, device=dev,
+                                            **statics) for dk in dims]
+    if K == 1:
+        p = LocalTransition.device_fit(theta, w, dim=d, **statics,
+                                       k_table=configs[0]["k_table"])
+        return ({k: p[k][None].contiguous() for k in p if k != "dim"},
+                dims, configs, None)
+    m = (torch.arange(n_cap, device=dev) % K).to(torch.int32)
+    m[m == 1] = 2
+    theta[m == 0, 1:] = 0.0
+    dims_f = torch.tensor([float(x) for x in dims], device=dev)
+    prev = LocalTransition.zero_params_models(K, n_cap, d, dims_f)
+    w_models = torch.stack([torch.where(m == k, w, torch.zeros_like(w))
+                            for k in range(K)]).contiguous()
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    params, _rows = LocalTransition.device_fit_models(
+        theta, w_models, prev, flags, dims=dims, configs=configs,
+        incremental=False)
+    model_p = torch.stack([w[m == k].sum() for k in range(K)])
+    return params, dims, configs, model_p
+
+
+def local_fit_plain_of(rows, boot_w, kb: int, dim: int, config: dict):
+    """The plain K12 and K13 of bootstrap fit kb (its own field)."""
+    from pyabc_tpu_torch.kernels.local_cov import local_cov_plain
+    from pyabc_tpu_torch.kernels.local_factor import local_factor_plain
+
+    field = local_cov_plain(rows[kb], boot_w, **config)
+    params, _n = local_factor_plain(field, None, dim=dim, incremental=False)
+    return {**params, "covs": field["covs"], "cnt": field["cnt"]}
+
+
+def k16_local_bound(K, nb, n, d, live, configs, cnt_sum):
+    """Bounds of a probe's entries at n: the gather (bytes), the K nb K12
+    fits (their distance, bisection and covariance operations, as the
+    phase-2 K12 bound counts them; ``cnt_sum`` the neighbours selected),
+    the K nb K13 factorizations (bytes) and the local density (operations:
+    live nb n pairs) -> (gather, K12, K13, density)."""
+    gather = bound((K * nb * n * (1 + 2 * d) + n + 6) * 4, 0)
+    ops = nbytes = 0.0
+    for cfg in configs:
+        m = n if cfg["topk"] else -(-n // cfg["stride"])
+        passes = 32 if cfg["topk"] else 26
+        ops += nb * n * m * (3 * d + passes + 2)
+        nbytes += nb * (n * (d + 1) + n * (d + 2 + d * d) + 2 * n + 1) * 4
+    cov = bound(nbytes, ops + cnt_sum * 3 * d * d)
+    factor = bound(len(configs) * nb * n * (d * d + 1 + 2 * d * d + 2) * 4,
+                   len(configs) * nb * n * 4 * d ** 3)
+    dens = bound((K * n * (d + 1) + K * nb * n * (d + d * d + 2)
+                  + K * n_blocks_of(n) * 2) * 4,
+                 live * nb * n * (d + 2 * d * (d + 1) + LOCAL_PAIR_OPS))
+    return gather, cov, factor, dens
+
+
+def fit_parts(rows, boot_w, go, fits, dims, configs, kbs):
+    """The K12 and K13 launches of the fits ``kbs`` (model k of fit kb is
+    kb // nb), each on its own, into ``fits``' views -> (K12's call, K13's
+    call)."""
+    from pyabc_tpu_torch.kernels import local_cov, local_factor
+
+    nb = rows.shape[0] // len(dims)
+    field_keys = ("thetas", "weights", "cdf", "covs", "cnt")
+
+    def cov():
+        for kb in kbs:
+            local_cov(rows[kb], boot_w, flag=go, mode="bootstrap",
+                      out={key: fits[key][kb] for key in field_keys},
+                      **configs[kb // nb])
+
+    def factor():
+        for kb in kbs:
+            local_factor({key: fits[key][kb] for key in field_keys}, None,
+                         dim=int(dims[kb // nb]), incremental=False,
+                         flag=go, mode="bootstrap",
+                         out={key: fits[key][kb] for key in
+                              ("chols", "precs", "logdets", "lconst")})
+
+    return cov, factor
+
+
+def n_blocks_of(n: int) -> int:
+    from pyabc_tpu_torch.kernels.bootstrap_cv import n_blocks
+
+    return n_blocks(n)
+
+
+def k16_local_case(dev, label: str, K: int, n_cap: int, d: int, nb: int,
+                   n_live: int, statics: dict, timed: bool,
+                   whole: bool) -> dict:
+    """K16's LocalTransition mode against its plain versions at one shape:
+    the gather bit-equal, the first K16_LOCAL_FITS_CHECKED bootstrap fits of
+    each live model (K12 and K13 in their bootstrap mode) at the phase-2
+    K12 and K13 tolerances, the local density's CV within 1e-4 relative
+    (the same sums run to run) and each particle's log-density under a
+    bootstrap fit bit-equal to K14's on the same mixture; with ``whole`` a
+    whole bisection (the kernels against the plain entries) ends at the
+    same n with every probe's CV within 1e-4 relative."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import bootstrap_cv, local_logpdf
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        MAX_PROBES, bootstrap_bisect_plain, bootstrap_draw_plain,
+        bootstrap_local_density_plain, bootstrap_local_gather_plain,
+        local_fit, local_fit_buffers, n_probes, required_nr)
+
+    x, dims, configs, model_p = local_refit(dev, K, n_cap, d, n_live,
+                                            seed=31 + K, statics=statics)
+    alive = [k for k in range(K) if model_p is None or float(model_p[k]) > 0]
+    idx, state = bootstrap_cv.draw(x["cdf"], n_boot=nb, seed=5,
+                                   generation=3, max_rounds=256, min_n=10,
+                                   max_n=n_cap)
+    rows, boot_w, go = bootstrap_cv.local_gather(x["thetas"], idx, state)
+    rows_p, boot_w_p, go_p = bootstrap_local_gather_plain(x["thetas"], idx,
+                                                          state)
+    torch.cuda.synchronize()
+    check(torch.equal(rows, rows_p) and torch.equal(boot_w, boot_w_p)
+          and int(go) == int(go_p) == 1,
+          f"K16 local gather ({label}) differs from its plain version")
+    fits = local_fit(rows, boot_w, go, state,
+                     local_fit_buffers(K, nb, n_cap, d, dev), dims=dims,
+                     configs=configs)
+    torch.cuda.synchronize()
+    fit_err = fit_rel = cov_abs = 0.0
+    t0 = time.perf_counter()
+    for k in alive:
+        for b in range(min(nb, K16_LOCAL_FITS_CHECKED)):
+            kb = k * nb + b
+            ref = local_fit_plain_of(rows, boot_w, kb, dims[k], configs[k])
+            cov_abs = max(cov_abs, float((fits["covs"][kb] - ref["covs"])
+                                         .abs().max()))
+            got = {key: fits[key][kb] for key in ref if key != "dim"}
+            same = (torch.equal(got["cnt"], ref["cnt"])
+                    and torch.equal(got["thetas"], ref["thetas"]))
+            cov_err = row_err(got["covs"], ref["covs"])
+            live = ref["weights"] > 0
+            prec_err = row_err(got["precs"][live], ref["precs"][live])
+            check(same and cov_err <= 1e-4
+                  and within(got["chols"], ref["chols"], 1e-5, 1e-4)
+                  and prec_err <= 1e-3
+                  and within(got["lconst"][live], ref["lconst"][live], 1e-4,
+                             1e-4),
+                  f"K16 local fit ({label}, model {k}, bootstrap {b}): "
+                  f"selection equal {same}, covariance error {cov_err:.3e} "
+                  f"of the row scale, precision {prec_err:.3e}")
+            fit_err = max(fit_err, float((got["chols"] - ref["chols"])
+                                         .abs().max()))
+            fit_rel = max(fit_rel, cov_err, prec_err)
+    fit_plain_s = time.perf_counter() - t0
+    part, ld = bootstrap_cv.local_density(x["thetas"], x["weights"], fits,
+                                          state, want_ld=True)
+    again = bootstrap_cv.local_density(x["thetas"], x["weights"], fits,
+                                       state)
+    part_p = bootstrap_local_density_plain(x["thetas"], x["weights"], fits,
+                                           state)
+    torch.cuda.synchronize()
+    check(torch.equal(part, again), f"K16 local density ({label}): sums "
+          f"differ from run to run")
+
+    def cv_of(p):
+        return p[..., 0].sum(1) / p[..., 1].sum(1).clamp_min(1e-38)
+
+    cv_k, cv_p = cv_of(part)[alive], cv_of(part_p)[alive]
+    check(within(cv_k, cv_p, 0.0, 1e-4)
+          and within(part[..., 1], part_p[..., 1], 1e-7, 1e-5),
+          f"K16 local density ({label}): CV outside 1e-4 relative "
+          f"({cv_k.tolist()} vs {cv_p.tolist()})")
+    cv_err = float((cv_k - cv_p).abs().max())
+    cv_rel = float(((cv_k - cv_p).abs() / cv_p.abs().clamp_min(1e-30)).max())
+    # each live particle's log-density under a bootstrap fit is K14's on
+    # that fit, bit for bit (the tile loop of csrc/local_mix.cuh)
+    for k in alive:
+        live = x["weights"][k] > 0
+        for b in range(min(nb, 2)):
+            kb = k * nb + b
+            k14 = local_logpdf(x["thetas"][k].contiguous(), {
+                key: fits[key][kb] for key in ("thetas", "precs", "lconst",
+                                               "weights")})
+            check(torch.equal(ld[kb][live], k14[live]),
+                  f"K16 local density ({label}, model {k}, bootstrap "
+                  f"{b}): a log-density differs from K14's on the same "
+                  f"mixture")
+    out = {"errors": {"local_gather": (0.0, 0.0),
+                      "local_density": (cv_err, cv_rel),
+                      "local_cov:bootstrap": (cov_abs, fit_rel),
+                      "local_factor:bootstrap": (fit_err, fit_rel)}}
+    probes_done = None
+    if whole:
+        target = 1.5 * float(cv_of(part_p)[alive].mean())
+        rkw = dict(seed=5, generation=3, max_rounds=256, target_cv=target,
+                   min_n=10, max_n=n_cap, n_bootstrap=nb)
+        res = required_nr(x["thetas"], x["weights"], x["cdf"], dims=dims,
+                          statics=None, model_p=model_p, local=configs,
+                          **rkw)
+        idx_p, st_p = bootstrap_draw_plain(
+            x["cdf"], n_boot=nb, seed=5, generation=3, max_rounds=256,
+            min_n=10, max_n=n_cap)
+        cvs_p = torch.zeros(MAX_PROBES, device=dev)
+        fits_p = local_fit_buffers(K, nb, n_cap, d, dev)
+        for _ in range(n_probes(10, n_cap)):
+            r_p, w_p, _g = bootstrap_local_gather_plain(x["thetas"], idx_p,
+                                                        st_p)
+            if not int(st_p[3]):
+                for k in range(K):
+                    for b in range(nb):
+                        f = local_fit_plain_of(r_p, w_p, k * nb + b,
+                                               dims[k], configs[k])
+                        for key in ("thetas", "precs", "lconst",
+                                    "weights"):
+                            fits_p[key][k * nb + b].copy_(f[key])
+            pp = bootstrap_local_density_plain(x["thetas"], x["weights"],
+                                               fits_p, st_p)
+            bootstrap_bisect_plain(pp, st_p, cvs_p, model_p=model_p,
+                                   target=target)
+        torch.cuda.synchronize()
+        probes_done = int(res["state"][4])
+        check(torch.equal(res["state"], st_p),
+              f"K16 local ({label}): the bisection's state "
+              f"{res['state'].tolist()} differs from the plain entries' "
+              f"{st_p.tolist()}")
+        check(within(res["cvs"][:probes_done], cvs_p[:probes_done], 1e-7,
+                     1e-4), f"K16 local ({label}): a probe's CV outside "
+              f"1e-4 relative")
+    log(f"K16 LocalTransition mode ({label}: K={K}, n_cap={n_cap}, d={d}, "
+        f"{nb} bootstraps, {n_live} weighted rows, k_cap "
+        f"{configs[0]['k_cap']}, "
+        f"{'top-k' if configs[0]['topk'] else 'threshold'} stride "
+        f"{configs[0]['stride']}): gather bit-equal; fits (K12, K13 of "
+        f"{min(nb, K16_LOCAL_FITS_CHECKED)} bootstraps a model) chols "
+        f"max_abs_err={fit_err:.3e}, covariance/precision error "
+        f"{fit_rel:.3e} of the row scale; CV {cv_k.tolist()} max_rel_err="
+        f"{cv_rel:.3e}; log-densities bit-equal to K14's"
+        + (f"; whole bisection to n={int(res['n_next'])} in {probes_done} "
+           f"probes, state equal to the plain entries'" if whole else ""))
+    if not timed:
+        return out
+    live = int((x["weights"] != 0).sum())
+    cnt_sum = float(fits["cnt"].to(torch.float64).sum())
+    b_g, b_c, b_f, b_d = k16_local_bound(K, nb, n_cap, d, live, configs,
+                                         cnt_sum)
+    gather = lambda: bootstrap_cv.local_gather(  # noqa: E731
+        x["thetas"], idx, state)
+    gather_p = lambda: bootstrap_local_gather_plain(  # noqa: E731
+        x["thetas"], idx, state)
+    cov, factor = fit_parts(rows, boot_w, go, fits, dims, configs,
+                            range(K * nb))
+    dens = lambda: bootstrap_cv.local_density(  # noqa: E731
+        x["thetas"], x["weights"], fits, state)
+    dens_p = lambda: bootstrap_local_density_plain(  # noqa: E731
+        x["thetas"], x["weights"], fits, state)
+    # the plain fits' time scaled from the fits checked to the probe's
+    fit_plain_ms = (fit_plain_s * 1e3 * K * nb
+                    / max(len(alive) * min(nb, K16_LOCAL_FITS_CHECKED), 1))
+    calls = {
+        "local_gather": (gather, time_ms(gather_p, 2, warmup=1), b_g),
+        "local_cov:bootstrap": (cov, fit_plain_ms, b_c),
+        "local_factor:bootstrap": (factor, None, b_f),
+        "local_density": (dens, time_ms(dens_p, 2, warmup=1), b_d)}
+    for entry, (fn, plain_ms, bnd) in calls.items():
+        out[entry] = dict(call_ms=time_ms(fn, 3, warmup=1),
+                          ms=graph_ms(fn, iters=3, replays=2),
+                          plain_ms=plain_ms, bound=bnd, library_ms=None)
+    # the plain K12 and K13 ran as one: their time splits as the kernels'
+    share = out["local_factor:bootstrap"]["ms"] / max(
+        out["local_factor:bootstrap"]["ms"]
+        + out["local_cov:bootstrap"]["ms"], 1e-9)
+    out["local_factor:bootstrap"]["plain_ms"] = fit_plain_ms * share
+    out["local_cov:bootstrap"]["plain_ms"] = fit_plain_ms * (1 - share)
+    for entry, r in out.items():
+        if entry == "errors":
+            continue
+        log(f"K16 {entry} ({label}): ms={r['ms']:.5f} call_ms="
+            f"{r['call_ms']:.5f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+            + (f", {live * nb * n_cap} density pairs"
+               if entry == "local_density" else "")
+            + (f", {K * nb} launches"
+               if entry.endswith(":bootstrap") else ""))
+    probe = sum(out[e]["ms"] for e in calls)
+    out["probe_ms"] = probe
+    log(f"K16 LocalTransition mode ({label}): device ms per probe at n = "
+        f"n_cap (gather, fits, density; the bisect step apart) "
+        f"{probe:.4f}")
+    return out
+
+
+def k16_local_checks(dev) -> dict:
+    """K16's LocalTransition mode at the LV local adaptive leg's full shape
+    (n_cap 16384, 10 bootstraps, d 4, k_cap 4096, threshold at stride 4;
+    every row weighted: the first probe's n is 16384), at config 5's (K 3,
+    d_max 2, n_cap 4096, k_cap 1024, one model dead) and at a small odd
+    shape (n_cap 100, 3 bootstraps, d 1, 37 weighted rows, a whole
+    bisection), and a whole bisection at n_cap 512 (K 3)."""
+    full = k16_local_case(dev, "LV local adaptive leg", 1, ADA_MAX, 4,
+                          ADA_BOOT, ADA_MAX, LOCAL_ADA_STATICS, timed=True,
+                          whole=False)
+    k3 = k16_local_case(dev, "config 5 local adaptive leg", 3, C5A_MAX, 2,
+                        ADA_BOOT, C5A_MAX, C5_LOCAL_STATICS, timed=False,
+                        whole=False)
+    small = k16_local_case(dev, "small odd shape", 1, 100, 1, 3, 37,
+                           dict(LOCAL_ADA_STATICS, k_cap=10), timed=False,
+                           whole=True)
+    k3_small = k16_local_case(dev, "K 3 at n_cap 512", 3, 512, 2, 4, 512,
+                              dict(C5_LOCAL_STATICS, k_cap=128),
+                              timed=False, whole=True)
+    out = {}
+    for e in ("local_gather", "local_density", "local_cov:bootstrap",
+              "local_factor:bootstrap"):
+        errs = [case["errors"][e] for case in (full, k3, small, k3_small)]
+        name = e if ":" in e else f"bootstrap_cv:{e}"
+        out[name] = {**full[e], "err": max(a for a, _r in errs),
+                     "rel": max(r for _a, r in errs),
+                     "probe_ms": full["probe_ms"]}
+    return out
+
+
+def local_models_checks(dev) -> dict:
+    """LocalTransition over config 5's models at its shapes (K 3, d_max 2,
+    n_cap 4096, B of a round at n 4096, model 1 dead): K15's K > 1 mode
+    (drift 1e-5 + 1e-4 relative, decisions and masked weights equal), the
+    per-model K12 and K13 (selections equal, covariances 1e-4 of the row
+    scale, factors as phase 2's, a flagged-off model's params carried
+    bit for bit, rows factorized equal), K2's K > 1 local mode (models
+    equal away from a CDF step, theta 1e-5 + 1e-5 relative), K14's K > 1
+    mode (1e-4 + 1e-5 relative) and K26 with K15's fitted mask, each timed
+    -> results keyed "name:models"."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (local_cov, local_factor,
+                                         local_logpdf, model_step,
+                                         model_step_plain, philox,
+                                         proposal_drift, propose_local)
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+    from pyabc_tpu_torch.kernels.bootstrap_cv import local_fit_buffers
+    from pyabc_tpu_torch.kernels.local_cov import local_cov_plain
+    from pyabc_tpu_torch.kernels.local_factor import local_factor_plain
+    from pyabc_tpu_torch.kernels.local_logpdf import (
+        local_logpdf_models_plain)
+    from pyabc_tpu_torch.kernels.proposal_drift import (
+        proposal_drift_models_plain)
+    from pyabc_tpu_torch.transition import LocalTransition
+    from pyabc_tpu_torch.utils import pick_batch
+
+    K, d, n = K_MODELS, D_MAX_C5, C5A_MAX
+    B = pick_batch(n)
+    x = model_round(dev, B, n, K, d, S_C5, n_keep=n - 96, seed=41)
+    m = x["res_m"].clone()
+    m[m == 1] = 2
+    theta = x["res_theta"].clone()
+    theta[m == 0, 1:] = 0.0
+    dims = [1, 2, 2]
+    dims_f = torch.tensor([float(v) for v in dims], device=dev)
+    configs = [LocalTransition.field_config(n, dk, device=dev,
+                                            **C5_LOCAL_STATICS)
+               for dk in dims]
+    mins = [dk + 1 for dk in dims]
+    zero = LocalTransition.zero_params_models(K, n, d, dims_f)
+    g0 = torch.zeros((), dtype=torch.int32, device=dev)
+    unfit = torch.zeros(K, dtype=torch.bool, device=dev)
+    dec0 = proposal_drift.models(zero["thetas"], zero["weights"], theta,
+                                 x["w"], x["k_mask"], m, dims=dims,
+                                 fitted=unfit, gens_since=g0, every=16,
+                                 thr=0.3, min_counts=mins)
+    prev, _r = LocalTransition.device_fit_models(
+        theta, dec0["w_models"], zero, dec0["flag"], dims=dims,
+        configs=configs, incremental=False)
+    check(dec0["flag"].tolist() == [1, 0, 1], "K15 K > 1: the first "
+          "decision does not refit the live models")
+    # the next generation: the population moved, model 1 still dead
+    theta1 = (theta * 1.05).contiguous()
+    kw = dict(dims=dims, fitted=dec0["fitted"], gens_since=g0, every=16,
+              thr=0.3, min_counts=mins)
+    args = (prev["thetas"], prev["weights"], theta1, x["w"], x["k_mask"], m)
+    dec = proposal_drift.models(*args, **kw)
+    dec_p = proposal_drift_models_plain(*args, **kw)
+    torch.cuda.synchronize()
+    drift_err = float((dec["drift"] - dec_p["drift"]).abs())
+    check(within(dec["drift"], dec_p["drift"], 1e-5, 1e-4)
+          and all(torch.equal(dec[k], dec_p[k]) for k in
+                  ("refit", "flag", "gens_since", "fitted", "w_models")),
+          f"K15 K > 1 differs from its plain version (drift "
+          f"{float(dec['drift'])} vs {float(dec_p['drift'])})")
+    out = {}
+    timed = lambda fn: (time_ms(fn, 20), graph_ms(fn, 20, 3))  # noqa: E731
+    t0 = time.perf_counter()
+    proposal_drift_models_plain(*args, **kw)
+    torch.cuda.synchronize()
+    call, ms = timed(lambda: proposal_drift.models(*args, **kw))
+    out["proposal_drift:models"] = dict(
+        err=drift_err, call_ms=call, ms=ms,
+        plain_ms=(time.perf_counter() - t0) * 1e3,
+        bound=bound((K * n * (d + 1) + n * (d + 2) + 2 * n + K * n) * 4,
+                    2 * K * 2 * n * (3 * d + 1)),
+        library_ms=None)
+    log(f"K15 proposal_drift K>1 (K={K}, n={n}, d_max={d}): drift "
+        f"{float(dec['drift']):.5f} error {drift_err:.3e}; refit "
+        f"{bool(dec['refit'])}, flags {dec['flag'].tolist()}, fitted "
+        f"{dec['fitted'].tolist()}; decisions and masked weights equal")
+    # the per-model refit: a refit of every row (flags forced on where the
+    # model has rows) and, with the decision's flags, incrementally
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    errs = {}
+    for inc in (False, True):
+        got, rows = LocalTransition.device_fit_models(
+            theta1, dec["w_models"], prev, flags, dims=dims,
+            configs=configs, incremental=inc)
+        t0 = time.perf_counter()
+        rows_p = 0
+        for k in range(K):
+            prev_k = {key: prev[key][k].clone() for key in prev
+                      if key != "dims"}
+            field = local_cov_plain(theta1, dec["w_models"][k], **configs[k])
+            ref, nch = local_factor_plain(field, prev_k, dim=dims[k],
+                                          incremental=inc, flag=flags[k])
+            rows_p += int(nch)
+            if k == 1:
+                check(all(torch.equal(got[key][1], prev[key][1]) for key in
+                          ("thetas", "weights", "cdf", "chols", "precs",
+                           "logdets", "lconst")),
+                      "K12/K13 K > 1: a flagged-off model's params are not "
+                      "carried forward")
+                continue
+            live = ref["weights"] > 0
+            errs[(inc, k)] = (
+                float((got["chols"][k] - ref["chols"]).abs().max()),
+                row_err(got["precs"][k][live], ref["precs"][live]))
+            check(torch.equal(got["thetas"][k], ref["thetas"])
+                  and within(got["chols"][k], ref["chols"], 1e-5, 1e-4)
+                  and errs[(inc, k)][1] <= 1e-3
+                  and within(got["logdets"][k], ref["logdets"], 1e-3, 1e-4),
+                  f"K12/K13 K > 1 (model {k}, incremental {inc}) outside "
+                  f"tolerance")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(int(rows) == rows_p, f"K13 K > 1: rows factorized {int(rows)} "
+              f"differ from the plain versions' {rows_p}")
+        log(f"K12/K13 K>1 (incremental {inc}, n={n}, dims {dims}, k_cap "
+            f"{configs[0]['k_cap']}): rows factorized {int(rows)}; chols "
+            f"and precisions errors {errs}")
+    # each model's K12 then K13, on their own (the refit of every row)
+    bufs = local_fit_buffers(K, 1, n, d, dev)
+    fld = {key: bufs[key] for key in ("thetas", "weights", "cdf", "covs",
+                                      "cnt")}
+    fac = {key: bufs[key] for key in ("chols", "precs", "logdets",
+                                      "lconst")}
+
+    def cov():
+        for k in range(K):
+            local_cov(theta1, dec["w_models"][k], flag=flags[k],
+                      mode="models",
+                      out={key: v[k] for key, v in fld.items()},
+                      **configs[k])
+
+    def factor():
+        for k in range(K):
+            local_factor({key: v[k] for key, v in fld.items()},
+                         {key: prev[key][k] for key in prev
+                          if key != "dims"}, dim=dims[k],
+                         incremental=False, flag=flags[k], mode="models",
+                         out={key: v[k] for key, v in fac.items()})
+
+    cov()
+    cnt = float(fld["cnt"][[0, 2]].to(torch.float64).sum())
+    _g, b_cov, b_fac, _d = k16_local_bound(
+        2, 1, n, d, 0, [configs[0], configs[2]], cnt)
+    share = {}
+    for name, fn, bnd in (("local_cov:models", cov, b_cov),
+                          ("local_factor:models", factor, b_fac)):
+        call, ms = timed(fn)
+        share[name] = ms
+        out[name] = dict(err=max(v[0] for v in errs.values()),
+                         rel=max(v[1] for v in errs.values()), call_ms=call,
+                         ms=ms, bound=bnd, library_ms=None)
+    tot = max(sum(share.values()), 1e-9)
+    for name in share:
+        # the plain K12 and K13 ran as one: their time splits as the
+        # kernels'
+        out[name]["plain_ms"] = plain_s * 1e3 * share[name] / tot
+    # K26 under K15's fitted mask
+    mpk = _mpk(dev, K)
+    step = model_step(m, x["w"], x["k_mask"], dec0["fitted"], mpk,
+                      fitted_next=dec["fitted"])
+    step_p = model_step_plain(m, x["w"], x["k_mask"], dec0["fitted"], mpk,
+                              fitted_next=dec["fitted"])
+    torch.cuda.synchronize()
+    check(torch.equal(step["fitted"], dec["fitted"])
+          and torch.equal(step["counts"], step_p["counts"])
+          and within(step["matrix"], step_p["matrix"], 1e-7, 1e-5)
+          and within(step["log_model_factor"].exp(),
+                     step_p["log_model_factor"].exp(), 1e-7, 1e-5),
+          "K26 with K15's fitted mask differs from its plain version")
+    # K2's K > 1 local mode and K14's K > 1 mode on these fits
+    log_p = step["log_model_probs"]
+    err, got_draw = compare_propose_models(dev, B, x["priors"], log_p,
+                                           prev, step["matrix"],
+                                           local=True)
+    th_k, _lp, _v, m_k = got_draw
+    st = stream_on(dev, philox.TRANSITION)
+    out["propose_local:models"] = dict(
+        err=err, **dict(zip(("call_ms", "ms"), timed(
+            lambda: propose_local.models(st, B, x["priors"], log_p, prev,
+                                         step["matrix"])))),
+        plain_ms=time_ms(lambda: propose_models_plain(
+            st, B, x["priors"], log_p, prev, step["matrix"], local=True),
+            2, 1),
+        bound=bound(K * n * (1 + d + d * d) * 4 + B * (d + 3) * 4,
+                    B * 300), library_ms=None)
+    q = th_k.contiguous()
+    got = local_logpdf.models(q, m_k, prev)
+    t0 = time.perf_counter()
+    ref = local_logpdf_models_plain(q, m_k, prev)
+    torch.cuda.synchronize()
+    dens_plain_s = time.perf_counter() - t0
+    dens_err = float((got - ref).abs().nan_to_num(0.0).max())
+    check(within(got, ref, 1e-4, 1e-5), "K14 K > 1 differs from its plain "
+          "version beyond 1e-4 + 1e-5 relative")
+    live = (prev["weights"] > 0).sum(1).to(torch.float64)
+    pairs = float(live[m_k.long()].sum())
+    call, ms = timed(lambda: local_logpdf.models(q, m_k, prev))
+    out["local_logpdf:models"] = dict(
+        err=dens_err, call_ms=call, ms=ms, plain_ms=dens_plain_s * 1e3,
+        bound=bound((B * (d + 1) + K * n * (d * d + d + 2) + B) * 4,
+                    pairs * (3 * d + 2 * d * d + 4)), library_ms=None)
+    log(f"K14 local_logpdf K>1 ({B} lanes x K={K} fits of {n}): error "
+        f"{dens_err:.3e}, {pairs:.0f} live lane-component pairs; K2 local "
+        f"K>1 theta error {err:.3e}")
+    for name, r in out.items():
+        log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound'][0]:.6f} "
+            f"({r['bound'][1]})")
+    return out
+
+
+def _mpk(dev, K: int):
+    """The ModelPerturbationKernel's matrix of K models (probability 0.7 to
+    stay), as the runs use it."""
+    import torch
+
+    from pyabc_tpu_torch.transition import ModelPerturbationKernel
+
+    return torch.as_tensor(ModelPerturbationKernel(K, 0.7).device_params(),
+                           dtype=torch.float32, device=dev)
+
+
+def local_adaptive_cpu_trails(dev) -> None:
+    """The LV and config 5 local adaptive legs at LOCAL_CPU_POP (start and
+    cap) on the card (every plain version raising) and on the CPU (plain
+    versions, the same Philox streams), two generations: the first two
+    epsilons within 1e-3 relative."""
+    for label, make in (
+            ("LV local adaptive", lambda where: adaptive_lv(
+                where, local=True, start=LOCAL_CPU_POP,
+                cap=LOCAL_CPU_POP)),
+            ("config 5 local adaptive", lambda where: config5_adaptive(
+                where, local=True, start=LOCAL_CPU_POP,
+                cap=LOCAL_CPU_POP))):
+        trails = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            abc = make(where)
+            with (plain_versions_raise() if where == dev
+                  else contextlib.nullcontext()):
+                h = abc.run(max_nr_populations=2)
+            trails[str(where)] = ([float(e) for e in
+                                   h.get_all_populations()["epsilon"][1:]],
+                                  time.perf_counter() - t0)
+        card, cpu = trails[str(dev)][0], trails["cpu"][0]
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        log(f"{label} at pop {LOCAL_CPU_POP} (2 generations): card eps "
+            f"{card}, CPU eps {cpu} ({trails['cpu'][1]:.1f} s); |card - "
+            f"cpu| / cpu {[float(f'{r:.2e}') for r in rel]}")
+        check(len(rel) == 2 and max(rel) <= 1e-3,
+              f"{label}: the CPU's first two epsilons differ from the "
+              f"card's by more than 1e-3")
 
 
 # ----------------------------------------- aggregated distances (K25)
 #: the LV aggregated legs: LV config 2 (bench.py:119-127) with its distance
 #: swapped for an aggregate of a p 2 norm on the predators and a p 1 norm
 #: on the prey, MedianEpsilon, pop 16384 (the scale lane's and the LV
-#: adaptive leg's, not cut), 10 generations, seed 0
-AGG_POP, AGG_GENS = 16384, 10
+#: adaptive leg's, not cut), 8 generations (cut for the script's time
+#: limit), seed 0
+AGG_POP, AGG_GENS = 16384, 8
 #: the card-and-CPU comparison of the adaptive leg's weight trail: the
 #: plain K3 over 16384 rows would take minutes on the CPU
 AGG_CPU_POP, AGG_CPU_GENS = 1024, 4
@@ -6319,7 +7109,9 @@ def family_anchor(dev) -> dict:
 
 
 # ------------------------------------------------- phase 4, LV families
-LVF_POP, LVF_GENS, LVF_CPU_POP = 16384, 10, 1024
+#: pop 16384, 8 generations (cut for the script's time limit), the CPU
+#: trail at pop 1024
+LVF_POP, LVF_GENS, LVF_CPU_POP = 16384, 8, 1024
 #: pyabc_tpu.models.lotka_volterra.observed_data(seed=123) (the JAX
 #: package's observation of bench.py's LV config 2), float32
 LV_JAX_OBS = {
@@ -6359,7 +7151,7 @@ def lv_family(where, pop: int | None = None, seed: int = 0):
 
 def lv_family_leg(dev) -> tuple[dict, dict]:
     """Phase 4's main leg: LV config 2 under the family prior at pop 16384,
-    10 generations, on the card -> (launch counts, mode launch counts)."""
+    LVF_GENS generations, on the card -> (launch counts, mode launch counts)."""
     import numpy as np
     import torch
 
@@ -6566,9 +7358,10 @@ def family_pair(dev) -> None:
 #: patches x 16 observations (S 128 raw statistics in 4 segments) under
 #: PNormDistance(p=2, sumstat=PredictorSumstat(LinearPredictor(alpha=1))),
 #: MedianEpsilon, seed 11, chunks of 2; pop 16384 (B 65536) where the
-#: bench's CPU-sized leg takes 256, 10 generations
+#: bench's CPU-sized leg takes 256, 8 generations (cut for the script's
+#: time limit; the MLP and host-refit legs alike)
 LS_SHAPE = {"n_patches": 8, "n_obs": 16}
-LS_POP, LS_GENS, LS_SEED, LS_G, LS_ALPHA = 16384, 10, 11, 2, 1.0
+LS_POP, LS_GENS, LS_SEED, LS_G, LS_ALPHA = 16384, 8, 11, 2, 1.0
 LS_CPU_POP = 1024
 #: the accuracy check (tests/test_sumstat_device.py:497-540): noise 30 in
 #: the model and the observation, pop 256, 8 generations, the JAX test's
@@ -7743,11 +8536,11 @@ GP_PATH = ("propose", "mvn_mixture_logpdf", "network_sir",
            "pnorm_accept_weight", "compact_round", "normalize_quantile",
            "mvn_fit", "pack_fetch", "generation_health") + GP_KERNELS
 #: the host-refit legs: kind -> the generations whose boundary fit ran
-#: (chunks of 2 after generation 0's own, 10 generations: a boundary after
-#: generations 0, 2, 4, 6, 8, the last chunk none; fit_every 3 counts in
-#: the JAX package's t, 1, 3, 5, 7, 9: fits at 1, 5, 9)
-HOST_LEGS = {"gp": [0, 2, 4, 6, 8], "lasso": [0, 2, 4, 6, 8],
-             "model selection": [0, 2, 4, 6, 8], "fit_every 3": [0, 4, 8],
+#: (chunks of 2 after generation 0's own, LS_GENS 8: a boundary after
+#: generations 0, 2, 4, 6, the last chunk none; fit_every 3 counts in the
+#: JAX package's t, 1, 3, 5, 7: fits at 1, 5)
+HOST_LEGS = {"gp": [0, 2, 4, 6], "lasso": [0, 2, 4, 6],
+             "model selection": [0, 2, 4, 6], "fit_every 3": [0, 4],
              "identity statistic": []}
 #: the kernel each leg's transform runs (K5 after the identity's none)
 HOST_KERNEL = {"gp": "gp_accept", "lasso": "linear_accept",
@@ -8068,6 +8861,11 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} capability {cap}")
     check(cap == (9, 0), f"compute capability {cap}, expected (9, 0)")
     t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        # where the script's time goes: seconds since the build began
+        log(f"time: {phase} done at {time.perf_counter() - t0:.1f} s")
+
     _build.library()
     log(f"kernel build+load {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
@@ -8080,18 +8878,25 @@ def main() -> int:
     results.update(k22_checks(dev))
     results.update(k18_mode_checks(dev))
     results.update(local_checks(dev))
+    mark("phase 2 through K12-K15")
     results.update(k21c_checks(dev))
     results.update(k16_checks(dev))
+    results.update(k16_local_checks(dev))
+    results.update(local_models_checks(dev))
+    mark("phase 2 through K16 and the K > 1 local modes")
     results.update(k25_checks(dev))
     results.update(k2_family_checks(dev))
+    mark("phase 2 through K25 and K2's families")
     results.update(k23_checks(dev)[0])
     results.update(k23_mlp_checks(dev))
     results.update(gp_checks(dev))
     k16_repair_case(dev)
+    mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
     fam_launches = family_anchor(dev)
     pair_anchor(dev)
+    mark("anchors (toy, noisy, families, pair)")
     lotka_volterra(dev, adaptive=False, gens=6)
     counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
     profile_lv(dev)
@@ -8102,6 +8907,7 @@ def main() -> int:
     c5_counts, c5_eps = config5_run(dev)
     profile_run("config 5", config5(dev), C5_GENS)
     config5_cpu_trail(c5_eps)
+    mark("LV config 2, SIR config 4, config 5")
     c3_counts, c3_eps = config3_run(dev)
     profile_run("config 3 (early reject on)", config3(dev, "auto"),
                 C3_GENS)
@@ -8119,12 +8925,14 @@ def main() -> int:
     profile_run("scale lane (LV, LocalTransition)", scale_lane(dev),
                 SCALE_GENS)
     scale_cpu_trail(dev)
+    mark("config 3, zoo, adaptive config 3, scale lane")
     nc3 = {kind: noisy_config3_run(dev, kind)
            for kind in ("independent_normal", "poisson")}
     profile_run("noisy config 3 (independent normal, early reject on)",
                 noisy_config3(dev, "auto", "independent_normal"), NC3_GENS)
     with tempfile.TemporaryDirectory() as tmpdir:
         fam_counts = family_runs(dev, tmpdir)
+    mark("noisy legs")
     ada_counts, ada_modes, _ada_trail, ada_abc = population_leg(
         dev, "LV adaptive leg", adaptive_lv, ADA_GENS, ADA_PATH, lo=10,
         hi=ADA_MAX)
@@ -8137,6 +8945,34 @@ def main() -> int:
         dev, "config 5 adaptive leg (K = 3)", config5_adaptive, C5A_GENS,
         C5_PATH + ("bootstrap_cv",), lo=10, hi=C5A_MAX)
     list_counts, _list_modes, _sizes = list_leg(dev)
+    mark("population-size legs")
+    # LocalTransition under adaptive and listed sizes and over several
+    # models: K16's LocalTransition mode, K2's and K14's K > 1 local modes
+    lla_counts, lla_modes, _t, _a = population_leg(
+        dev, "LV local adaptive leg",
+        lambda where: adaptive_lv(where, local=True), ADA_GENS,
+        LOCAL_ADA_PATH, lo=10, hi=ADA_MAX, local_fits=(1, ADA_BOOT))
+    llr_counts, llr_modes, _t, _a = population_leg(
+        dev, f"LV local adaptive leg at mean_cv {ADA_CV_REACH}",
+        lambda where: adaptive_lv(where, ADA_CV_REACH, ADA_MIN_REACH,
+                                  local=True),
+        ADA_GENS, LOCAL_ADA_PATH, lo=ADA_MIN_REACH, hi=ADA_MAX,
+        bisects=True, local_fits=(1, ADA_BOOT))
+    c5l_counts, c5l_modes, _t, _a = population_leg(
+        dev, "config 5 local adaptive leg (K = 3)",
+        lambda where: config5_adaptive(where, local=True), C5A_GENS,
+        LOCAL_C5A_PATH, lo=10, hi=C5A_MAX, local_fits=(3, ADA_BOOT))
+    for label, runs in (("LV local adaptive leg", lla_counts),
+                        ("config 5 local adaptive leg", c5l_counts)):
+        check(runs["mvn_fit"] == runs["mvn_mixture_logpdf"] == 0,
+              f"{label}: an MVN kernel ran on the LocalTransition path")
+    check(all(c5l_modes[k] > 0 for k in LOCAL_MODES),
+          f"config 5 local adaptive leg: a K > 1 local mode never "
+          f"launched ({ {k: c5l_modes[k] for k in LOCAL_MODES} })")
+    local_adaptive_cpu_trails(dev)
+    pair_local = pair_anchor(dev, local=True)
+    list_local, _m, _s = list_leg(dev, local=True)
+    mark("local legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -8148,6 +8984,7 @@ def main() -> int:
     lv_family_cpu_trail(dev)
     family_pair(dev)
     writer_turns(dev)
+    mark("aggregated legs, family legs, writer turns")
     ls_counts, ls_modes, ls_params, ident_fetch = learned_leg(dev)
     learned_cpu_trail(dev)
     learned_adaptive_leg(dev)
@@ -8156,6 +8993,7 @@ def main() -> int:
     learned_mlp_cpu_trail(dev)
     gp_counts = host_refit_legs(dev)
     gp_cpu_trail(dev)
+    mark("learned-statistics legs")
     # K18's phase-2 check takes its eps from generation 6 of config 3,
     # its stochastic mode T and the pdf norm from generation 8 of the
     # noisy config 3 leg
@@ -8169,6 +9007,7 @@ def main() -> int:
     # K18's transformed mode at the learned leg's round, with the
     # transform that leg ended with, and at config 3's round under C' 8
     results["segment_round:linear"] = k18_linear_checks(dev, ls_params)
+    mark("K18's checks")
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -8177,8 +9016,8 @@ def main() -> int:
 
     kernels = []
     wrapper_of = {k.name: k for k in KERNELS}
-    check(wrapper_of["bootstrap_cv"].ENTRIES == K16_ENTRIES,
-          "K16's entries changed")
+    check(wrapper_of["bootstrap_cv"].ENTRIES
+          == K16_ENTRIES + K16_LOCAL_ENTRIES, "K16's entries changed")
     for k in KERNELS:
         if k.name == "bootstrap_cv":
             continue  # K16's four entries follow as rows of their own
@@ -8239,7 +9078,15 @@ def main() -> int:
                                  "learned_mlp_network_sir":
                                      mlp_counts[k.name],
                                  "host_refit_gp_network_sir":
-                                     gp_counts[k.name]},
+                                     gp_counts[k.name],
+                                 "lv_local_adaptive": lla_counts[k.name],
+                                 "lv_local_adaptive_reachable":
+                                     llr_counts[k.name],
+                                 "config5_local_adaptive":
+                                     c5l_counts[k.name],
+                                 "tractable_pair_local":
+                                     pair_local[k.name],
+                                 "toy_list_local": list_local[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
@@ -8365,6 +9212,40 @@ def main() -> int:
             "launches_by_path": {"lv_adaptive": ada_modes[name],
                                  "lv_adaptive_reachable": reach_modes[name],
                                  "config5_adaptive": c5a_modes[name]}})
+    # K16's LocalTransition mode (its gather and density, and the K12 and
+    # K13 launches of its bootstrap fits), launches from the LV local
+    # adaptive leg; the K > 1 local modes from the config 5 local adaptive
+    # leg
+    local_rows = [
+        (f"bootstrap_cv:{e}", "pyabc_tpu_torch/csrc/bootstrap_cv.cu",
+         wrapper_of["bootstrap_cv"].ENTRY_REPLACES[e], lla_modes, llr_modes,
+         c5l_modes) for e in K16_LOCAL_ENTRIES]
+    local_rows += [
+        ("local_cov:bootstrap", "pyabc_tpu_torch/csrc/local_cov.cu",
+         "pyabc_tpu/transition/util.py:173", lla_modes, llr_modes,
+         c5l_modes),
+        ("local_factor:bootstrap", "pyabc_tpu_torch/csrc/local_factor.cu",
+         "pyabc_tpu/transition/util.py:173", lla_modes, llr_modes,
+         c5l_modes)]
+    for name, src, line in LOCAL_MODE_ROWS:
+        local_rows.append((name, src, line, c5l_modes, None, None))
+    for name, source, replaces, own, reach, c5 in local_rows:
+        r = results[name]
+        check(own[name] > 0, f"{name} was never launched on its path")
+        by_path = {"lv_local_adaptive" if reach is not None
+                   else "config5_local_adaptive": own[name]}
+        if reach is not None:
+            by_path.update(lv_local_adaptive_reachable=reach[name],
+                           config5_local_adaptive=c5[name])
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": own[name],
+            "max_abs_err": r["err"], "max_rel_err": r.get("rel"),
+            "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"probe_ms": r["probe_ms"]} if "probe_ms" in r else {}),
+            "launches_by_path": by_path})
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

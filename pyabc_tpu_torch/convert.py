@@ -76,6 +76,26 @@ def stacked_transition_params(params_k, device=None) -> dict:
     return out
 
 
+def stacked_local_transition_params(params_k, device=None) -> dict:
+    """The JAX package's K-tuple of LocalTransition params (K
+    ``device_fit`` results on the d_max-wide reservoir) -> the port's
+    stacked params (a leading model axis, each set's ``cdf`` and ``lconst``
+    as ``local_transition_params`` adds them; ``dims (K,)`` float32 from
+    each set's ``dim``)."""
+    device = resolve_device(device)
+    parts = [local_transition_params(p, "cpu") for p in params_k]
+    out = {k: torch.stack([p[k] for p in parts]).contiguous().to(device)
+           for k in (*LOCAL_KEYS, "cdf", "lconst")}
+    out["dims"] = torch.tensor([p["dim"] for p in parts],
+                               dtype=torch.float32, device=device)
+    return out
+
+
+def _local(params: dict) -> bool:
+    """True for a LocalTransition's params (per-row factors)."""
+    return "chols" in params
+
+
 def distance_weights(w, device=None) -> torch.Tensor:
     """A p-norm weight vector (``device_params`` of a PNormDistance)."""
     return _f32(np.ravel(np.asarray(w)), resolve_device(device))
@@ -130,7 +150,9 @@ def carry(jax_carry: tuple, device=None, mpk=None) -> Carry:
     ``(trans_params, log_model_probs, fitted, dist_w, eps, (pdf_norm,
     max_found, daly_k), stopped[, (eps_prev, stall_count)])`` with numpy
     leaves. Single model (a one-set tuple): the first transition param set
-    is taken. Several models: the params are stacked, ``fitted`` and
+    is taken (a LocalTransition's, with ``chols``, through
+    ``local_transition_params``). Several models: the params are stacked
+    (``stacked_local_transition_params`` for LocalTransitions), ``fitted`` and
     ``log_model_probs`` kept as ``(K,)`` vectors, and ``mpk`` (the
     ModelPerturbationKernel's matrix, required then) gives the masked
     matrix and the log model factor the next generation proposes with. The
@@ -157,13 +179,17 @@ def carry(jax_carry: tuple, device=None, mpk=None) -> Carry:
         logp_t = torch.tensor(np.asarray(logp, np.float32))
         matrix, log_factor = next_generation_terms(
             torch.tensor(np.asarray(mpk, np.float32)), fitted_t, logp_t)
-        return Carry(trans_params=stacked_transition_params(trans, device),
+        stack = (stacked_local_transition_params if _local(trans[0])
+                 else stacked_transition_params)
+        return Carry(trans_params=stack(trans, device),
                      fitted=fitted_t.to(device),
                      log_model_probs=logp_t.to(device),
                      matrix=matrix.to(device),
                      log_model_factor=log_factor.to(device), **common)
+    one = (local_transition_params if _local(trans[0])
+           else transition_params)
     return Carry(
-        trans_params=transition_params(trans[0], device),
+        trans_params=one(trans[0], device),
         fitted=torch.as_tensor(bool(np.asarray(fitted).reshape(-1)[0]),
                                device=device),
         pdf_norm=_f32(acc_state[0], device),

@@ -47,7 +47,34 @@
 // shared memory, which every thread of the block reads as a broadcast;
 // the per-bootstrap log-densities stay in a local array (n_boot <= 32).
 // A simple kernel, not a fast one: no tensor cores, one particle a thread.
+//
+// LocalTransition mode (device_mean_cv over local_transition.py::device_fit
+// :329 and device_logpdf :442, as util.py:2094-2150 calls them with a
+// LocalTransition): the draw and the bisect step are the ones above; each
+// probe's fit and density take two more entries around K12 and K13:
+// - local gather (one thread per model, bootstrap and slot): rows[k nb + b,
+//   i] = thetas[k, idx[k, b, i]] and the bootstrap weights boot_w[i] = i <
+//   n ? 1 / max(n, 1) : 0 (all 0 once done), and go = !done, the flag the
+//   probe's K12 and K13 launches read (local_cov.cu, local_factor.cu: a flag
+//   of 0 returns at once and, without previous params, writes nothing). The
+//   host launches K12 then K13 (the full factorization) for each model and
+//   bootstrap on these rows, each fit's params kept in (K nb, n_cap, ...)
+//   buffers: a bootstrap's k is K12's own, from the n rows of weight > 0
+//   (the float64 k table, as the refit's).
+// - local density (one thread per fitted particle j of model k, as the MVN
+//   density): ld_b = the log-density of x_j under bootstrap b's mixture
+//   through local_mix.cuh (the tile loop of K14, so bit-equal to K14 on the
+//   same mixture; its components past n have weight 0), over the first n
+//   components only; then the CV and the block sums exactly as above. The
+//   JAX package's constants log(1/n) sit inside lconst here and cancel in
+//   the shift by the per-point maximum as there.
+// Bound of the local density: operations, K n_live n_boot n pairs of
+// (2 d^2 + 2 d + 2 fmas and one exp): at the LV adaptive leg (n 16384, 10
+// bootstraps, d 4) 2.7e9 pairs, about 2 ms at 67 TFLOP/s. Each thread keeps
+// its n_boot log-densities in a local array (n_boot <= 32), the components
+// stream through shared-memory tiles of 128 (d 4).
 #include "common.cuh"
+#include "local_mix.cuh"
 #include "mvn_fit.cuh"
 #include "philox.cuh"
 
@@ -329,6 +356,96 @@ __global__ void boot_bisect_kernel(const float* __restrict__ partial, int K,
   state[kStep] = step + 1;
 }
 
+// The rows and bootstrap weights of a probe's LocalTransition fits, and
+// the flag (go = !done) their K12 and K13 launches read.
+__global__ void boot_gather_kernel(const float* __restrict__ thetas,
+                                   const int* __restrict__ idx,
+                                   const int* __restrict__ state, int K,
+                                   int nb, int n_cap, int d,
+                                   float* __restrict__ rows,
+                                   float* __restrict__ boot_w,
+                                   int* __restrict__ go) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool done = state[kDone] != 0;
+  if (t == 0) go[0] = done ? 0 : 1;
+  const int n = max(0, min(state[kProbe], n_cap));
+  if (t < n_cap)
+    boot_w[t] = (!done && t < n) ? 1.f / (float)max(n, 1) : 0.f;
+  if (done || t >= (long long)K * nb * n_cap) return;
+  const int k = (int)(t / n_cap) / nb;
+  const float* src = thetas + ((size_t)k * n_cap + idx[t]) * d;
+  float* dst = rows + (size_t)t * d;
+  for (int q = 0; q < d; ++q) dst[q] = src[q];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDensityThreads)
+boot_local_density_kernel(const float* __restrict__ thetas,
+                          const float* __restrict__ weights,
+                          const int* __restrict__ state, int nb, int n_cap,
+                          int d, const float* __restrict__ fth,
+                          const float* __restrict__ fprec,
+                          const float* __restrict__ flconst,
+                          const float* __restrict__ fw,
+                          float* __restrict__ partial,
+                          float* __restrict__ ld_out) {
+  constexpr int T = kDensityThreads;
+  if (state[kDone]) return;
+  const int n = max(0, min(state[kProbe], n_cap));
+  const int k = blockIdx.y, tid = threadIdx.x;
+  const int j = blockIdx.x * T + tid;
+  const float w = j < n_cap ? weights[(size_t)k * n_cap + j] : 0.f;
+  const bool live = w != 0.f;
+  __shared__ pyabc::MixTile<D> sh;
+  __shared__ float s_red[2 * T];
+  float wcv = 0.f;
+  if (__syncthreads_or(live)) {
+    float x[D];
+#pragma unroll
+    for (int q = 0; q < D; ++q)
+      x[q] = (live && q < d) ? thetas[((size_t)k * n_cap + j) * d + q] : 0.f;
+    float ld[kMaxBoot];
+    for (int b = 0; b < nb; ++b) {
+      const size_t c0 = (size_t)(k * nb + b) * n_cap;
+      ld[b] = pyabc::local_mix_logpdf<D>(x, live, fth + c0 * d,
+                                         fprec + c0 * d * d, flconst + c0,
+                                         fw + c0, n, d, sh);
+      if (ld_out != nullptr && live) ld_out[c0 + j] = ld[b];
+    }
+    if (live) {
+      float m = -INFINITY;
+      for (int b = 0; b < nb; ++b) m = nan_max(m, ld[b]);
+      float mean = 0.f;
+      for (int b = 0; b < nb; ++b) mean += expf(ld[b] - m);
+      mean = mean / (float)nb;
+      float var = 0.f;
+      for (int b = 0; b < nb; ++b) {
+        const float e = expf(ld[b] - m) - mean;
+        var += e * e;
+      }
+      const float sd = sqrtf(var / (float)nb);
+      const float cv = mean > 0.f ? sd / mean : 0.f;
+      wcv = w * cv;
+    }
+  }
+  // a fixed tree per block: the same sums from run to run
+  s_red[tid] = wcv;
+  s_red[T + tid] = w;
+  __syncthreads();
+  for (int stride = T / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+      s_red[tid] += s_red[tid + stride];
+      s_red[T + tid] += s_red[T + tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    float* out = partial + ((size_t)k * gridDim.x + blockIdx.x) * 2;
+    out[0] = s_red[0];
+    out[1] = s_red[T];
+  }
+}
+
 template <int D>
 void fit_launch(const float* thetas, const int* idx, const int* state,
                 int blocks, int nb, int n_cap, int d, const BootModels& bm,
@@ -454,5 +571,54 @@ extern "C" int pyabc_boot_bisect(const float* partial, int K, int nblk,
     return static_cast<int>(cudaErrorInvalidValue);
   boot_bisect_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
       partial, K, nblk, model_p, state, cvs, target);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// LocalTransition mode. thetas (K, n_cap, d), idx (K, nb, n_cap) and the
+// state -> rows (K nb, n_cap, d), boot_w (n_cap,), go (1 int32).
+extern "C" int pyabc_boot_local_gather(const float* thetas, const int* idx,
+                                       const int* state, int K, int nb,
+                                       int n_cap, int d, float* rows,
+                                       float* boot_w, int* go,
+                                       void* stream_ptr) {
+  if (!shape_ok(K, nb, n_cap, d) || d > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = (long long)K * nb * n_cap;
+  const int threads = 256;
+  const int blocks = (int)((total + threads - 1) / threads);
+  boot_gather_kernel<<<blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream_ptr)>>>(
+      thetas, idx, state, K, nb, n_cap, d, rows, boot_w, go);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// thetas (K, n_cap, d) and weights (K, n_cap) of the refit; the bootstrap
+// fits' thetas (K nb, n_cap, d), precs (K nb, n_cap, d, d), lconst and
+// weights (K nb, n_cap); partial (K, ceil(n_cap / 256), 2); ld nullable
+// (K nb, n_cap): each live particle's log-density under each fit.
+extern "C" int pyabc_boot_local_density(
+    const float* thetas, const float* weights, const int* state, int K,
+    int nb, int n_cap, int d, const float* fth, const float* fprec,
+    const float* flconst, const float* fw, float* partial, float* ld,
+    void* stream_ptr) {
+  if (!shape_ok(K, nb, n_cap, d) || d > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const dim3 grid((n_cap + kDensityThreads - 1) / kDensityThreads, K);
+#define PYABC_BOOT_LOCAL(DB)                                                \
+  boot_local_density_kernel<DB><<<grid, kDensityThreads, 0, stream>>>(     \
+      thetas, weights, state, nb, n_cap, d, fth, fprec, flconst, fw,       \
+      partial, ld)
+  if (d <= 1)
+    PYABC_BOOT_LOCAL(1);
+  else if (d <= 2)
+    PYABC_BOOT_LOCAL(2);
+  else if (d <= 4)
+    PYABC_BOOT_LOCAL(4);
+  else if (d <= 8)
+    PYABC_BOOT_LOCAL(8);
+  else
+    PYABC_BOOT_LOCAL(16);
+#undef PYABC_BOOT_LOCAL
   return static_cast<int>(cudaGetLastError());
 }

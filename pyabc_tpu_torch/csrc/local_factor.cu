@@ -10,7 +10,9 @@
 // One thread per row i of the (n, d, d) field K12 wrote:
 //   - refit flag 0 (K15's cadence decision, read from device memory): the
 //     previous params are copied verbatim (thetas, weights, cdf, chols,
-//     precs, logdets, lconst) and the row counts as unchanged;
+//     precs, logdets, lconst) and the row counts as unchanged; without
+//     previous params (K16's bootstrap fits, whose flag is "the bisection
+//     is not done") nothing is written;
 //   - incremental: the row is changed when max |cov - Lp Lp^T| over the
 //     real block exceeds REUSE_RTOL max(sum of the real diagonal / dim,
 //     1e-30), Lp the previous factor (Lp Lp^T summed in index order with
@@ -64,6 +66,7 @@ local_factor_kernel(int n, int d, int dim, const float* __restrict__ covs,
   if (i >= n) return;
   const size_t dd = (size_t)d * d;
   if (flag != nullptr && flag[0] == 0) {
+    if (prev.chols == nullptr) return;
     for (int k = 0; k < d; ++k)
       thetas[(size_t)i * d + k] = prev.thetas[(size_t)i * d + k];
     weights[i] = prev.weights[i];
@@ -138,7 +141,8 @@ local_factor_kernel(int n, int d, int dim, const float* __restrict__ covs,
 
 // covs (n, d, d) from K12; thetas, weights and cdf are K12's outputs, read
 // here for w and overwritten from prev when the flag is 0; prev_* the
-// carried params (all may be null when flag is null and incremental 0);
+// carried params (all may be null when incremental is 0: a flag of 0 then
+// writes nothing);
 // n_changed (1 int32) zeroed by the caller.
 extern "C" int pyabc_local_factor(
     int n, int d, int dim, const float* covs, const float* prev_thetas,
@@ -149,7 +153,7 @@ extern "C" int pyabc_local_factor(
     float* cdf, float* chols, float* precs, float* logdets, float* lconst,
     int* n_changed, void* stream_ptr) {
   if (n <= 0 || d <= 0 || d > 16 || dim <= 0 || dim > d ||
-      ((incremental || flag != nullptr) && prev_chols == nullptr))
+      (incremental && prev_chols == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Prev prev{prev_thetas, prev_weights, prev_cdf, prev_chols,

@@ -2,7 +2,8 @@
 // mixture, one Gaussian per component with its own precision.
 //
 // Replaces: pyabc_tpu/transition/local_transition.py::device_logpdf
-// (vmapped over a round's lanes; the plain twin is kernels/local_logpdf.py).
+// (vmapped over a round's lanes; the plain twin is kernels/local_logpdf.py),
+// and its K > 1 use through inference/util.py::_switch_propose_sim (:415).
 //
 // Math, in the DIFF form the JAX code keeps on purpose (expanding the
 // quadratic around a shared centre, as K3 does, cancels catastrophically
@@ -19,19 +20,25 @@
 //
 // Design (as K3): one thread per query lane keeps q in registers; the
 // block stages tiles of components (theta, P, lconst, w) in shared memory
-// and every thread runs an online max/sum logsumexp over all n. The
-// precision tile is d^2 floats a component, so the dim buckets stop at
-// D = 16 and the tile shrinks as D grows (512 / D components).
+// and every thread runs an online max/sum logsumexp over all n
+// (local_mix.cuh, shared with K16's local density). The precision tile is
+// d^2 floats a component, so the dim buckets stop at D = 16 and the tile
+// shrinks as D grows (512 / D components).
+//
+// K > 1 mode (a run over several models, each with its own LocalTransition
+// fit; the plain twin is kernels/local_logpdf.py::local_logpdf_models_plain):
+// params stacked (K, n, ...), each lane scored under its own model m_b's
+// mixture. The block walks the models its lanes hold (a block-wide vote
+// skips the others) and stages each one's tiles; a lane computes only
+// under its own model, so a block spends K tile passes where one model
+// would spend one (a simple kernel: sorting lanes by model would remove
+// the idle share).
 #include "common.cuh"
+#include "local_mix.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-template <int D>
-struct Tile {
-  static constexpr int value = 512 / D;
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -41,87 +48,68 @@ local_logpdf_kernel(const float* __restrict__ q, int B, int d,
                     const float* __restrict__ lconst,
                     const float* __restrict__ weights, int n,
                     float* __restrict__ out) {
-  constexpr int T = Tile<D>::value;
-  __shared__ float s_th[T * D];
-  __shared__ float s_p[T * D * D];
-  __shared__ float s_c[T];
-  __shared__ float s_w[T];
+  __shared__ pyabc::MixTile<D> sh;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = b < B;
   float qv[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) qv[k] = (live && k < d) ? q[(size_t)b * d + k] : 0.f;
-
-  float m = -INFINITY;  // running max of lc over nonzero-weight components
-  float s = 0.f;        // running sum of exp(lc_j - m)
-  for (int base = 0; base < n; base += T) {
-    const int cnt = min(T, n - base);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < cnt * D; idx += kThreads) {
-      const int j = idx / D, k = idx - j * D;
-      s_th[idx] = k < d ? thetas[(size_t)(base + j) * d + k] : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < cnt * D * D; idx += kThreads) {
-      const int j = idx / (D * D), e = idx - j * (D * D);
-      const int k = e / D, l = e - k * D;
-      s_p[idx] = (k < d && l < d)
-                     ? precs[(size_t)(base + j) * d * d + k * d + l]
-                     : 0.f;
-    }
-    for (int j = threadIdx.x; j < cnt; j += kThreads) {
-      s_c[j] = lconst[base + j];
-      s_w[j] = weights[base + j];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < cnt; ++j) {
-      if (!(s_w[j] > 0.f)) continue;
-      float df[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) df[k] = qv[k] - s_th[j * D + k];
-      const float* P = s_p + j * D * D;
-      float maha = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        float pk = 0.f;
-#pragma unroll
-        for (int l = 0; l < D; ++l) pk += P[k * D + l] * df[l];
-        maha += df[k] * pk;
-      }
-      const float lc = s_c[j] - 0.5f * maha;
-      if (lc == -INFINITY) continue;
-      if (lc > m) {
-        s = s * expf(m - lc) + 1.f;
-        m = lc;
-      } else {
-        s += expf(lc - m);  // NaN lc propagates through s
-      }
-    }
-  }
-  if (live) out[b] = (s == 0.f) ? -INFINITY : m + logf(s);
+  const float v = pyabc::local_mix_logpdf<D>(qv, live, thetas, precs, lconst,
+                                             weights, n, d, sh);
+  if (live) out[b] = v;
 }
 
 template <int D>
-void launch(const float* q, int B, int d, const float* thetas,
-            const float* precs, const float* lconst, const float* weights,
-            int n, float* out, cudaStream_t stream) {
-  const int grid = (B + kThreads - 1) / kThreads;
-  local_logpdf_kernel<D><<<grid, kThreads, 0, stream>>>(
-      q, B, d, thetas, precs, lconst, weights, n, out);
+__global__ void __launch_bounds__(kThreads)
+local_logpdf_models_kernel(const float* __restrict__ q,
+                           const int* __restrict__ m, int B, int d, int K,
+                           const float* __restrict__ thetas,
+                           const float* __restrict__ precs,
+                           const float* __restrict__ lconst,
+                           const float* __restrict__ weights, int n,
+                           float* __restrict__ out) {
+  __shared__ pyabc::MixTile<D> sh;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = b < B;
+  const int mb = live ? m[b] : -1;
+  float qv[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) qv[k] = (live && k < d) ? q[(size_t)b * d + k] : 0.f;
+  float v = -INFINITY;
+  for (int k = 0; k < K; ++k) {
+    const bool mine = mb == k;
+    if (!__syncthreads_or(mine)) continue;
+    const size_t c0 = (size_t)k * n;
+    const float r = pyabc::local_mix_logpdf<D>(
+        qv, mine, thetas + c0 * d, precs + c0 * d * d, lconst + c0,
+        weights + c0, n, d, sh);
+    if (mine) v = r;
+  }
+  if (live) out[b] = v;
 }
 
-}  // namespace
+template <int D>
+void launch(const float* q, const int* m, int B, int d, int K,
+            const float* thetas, const float* precs, const float* lconst,
+            const float* weights, int n, float* out, cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  if (m == nullptr)
+    local_logpdf_kernel<D><<<grid, kThreads, 0, stream>>>(
+        q, B, d, thetas, precs, lconst, weights, n, out);
+  else
+    local_logpdf_models_kernel<D><<<grid, kThreads, 0, stream>>>(
+        q, m, B, d, K, thetas, precs, lconst, weights, n, out);
+}
 
-extern "C" int pyabc_local_logpdf(const float* q, int B, int d,
-                                  const float* thetas, const float* precs,
-                                  const float* lconst, const float* weights,
-                                  int n, float* out, void* stream_ptr) {
+int dispatch(const float* q, const int* m, int B, int d, int K,
+             const float* thetas, const float* precs, const float* lconst,
+             const float* weights, int n, float* out, void* stream_ptr) {
   if (B <= 0) return 0;
-  if (n <= 0 || d <= 0 || d > 16)
+  if (n <= 0 || d <= 0 || d > 16 || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define PYABC_LOCAL_LOGPDF(DB) \
-  launch<DB>(q, B, d, thetas, precs, lconst, weights, n, out, stream)
+  launch<DB>(q, m, B, d, K, thetas, precs, lconst, weights, n, out, stream)
   if (d <= 1)
     PYABC_LOCAL_LOGPDF(1);
   else if (d <= 2)
@@ -134,4 +122,25 @@ extern "C" int pyabc_local_logpdf(const float* q, int B, int d,
     PYABC_LOCAL_LOGPDF(16);
 #undef PYABC_LOCAL_LOGPDF
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int pyabc_local_logpdf(const float* q, int B, int d,
+                                  const float* thetas, const float* precs,
+                                  const float* lconst, const float* weights,
+                                  int n, float* out, void* stream_ptr) {
+  return dispatch(q, nullptr, B, d, 1, thetas, precs, lconst, weights, n,
+                  out, stream_ptr);
+}
+
+// K > 1: q (B, d) and m (B,) int32; thetas (K, n, d), precs (K, n, d, d),
+// lconst and weights (K, n).
+extern "C" int pyabc_local_logpdf_models(
+    const float* q, const int* m, int B, int d, int K, const float* thetas,
+    const float* precs, const float* lconst, const float* weights, int n,
+    float* out, void* stream_ptr) {
+  if (m == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, m, B, d, K, thetas, precs, lconst, weights, n, out,
+                  stream_ptr);
 }

@@ -12,7 +12,10 @@
 // Over the reservoir rows i (model m_i, normalized weight w_i, kept k_i):
 //   model_probs[k]  = sum_i [k_i and m_i == k] w_i
 //   counts[k]       = #{i : k_i and m_i == k}
-//   fitted_next[k]  = counts[k] > 0 | (fitted[k] & counts[k] > 0)
+//   fitted_next[k]  = counts[k] > 0 | (fitted[k] & counts[k] > 0), or the
+//                     given fitted_next (LocalTransition over several
+//                     models: K15's, util.py:1944-1948 with the refit
+//                     minimum dim + 1; null for the MVN transition)
 //   log_probs[k]    = model_probs[k] > 0 ? log(max(p, 1e-38)) : -inf
 //   matrix[a][b]    = mpk[a][b] fitted_next[b] / row sum (0 for a row
 //                     whose sum is 0)
@@ -41,6 +44,7 @@ model_step_kernel(int n, int K, const int* __restrict__ m,
                   const uint8_t* __restrict__ k_mask,
                   const uint8_t* __restrict__ fitted,
                   const float* __restrict__ mpk,
+                  const uint8_t* __restrict__ fitted_given,
                   float* __restrict__ probs_out,
                   float* __restrict__ log_probs_out,
                   int* __restrict__ counts_out,
@@ -92,7 +96,9 @@ model_step_kernel(int n, int K, const int* __restrict__ m,
       p += s_w[wi][k];
       c += s_c[wi][k];
     }
-    fit[k] = c > 0 || (fitted[k] != 0 && c > 0);
+    fit[k] = fitted_given != nullptr
+                 ? fitted_given[k] != 0
+                 : (c > 0 || (fitted[k] != 0 && c > 0));
     lp[k] = p > 0.f ? logf(fmaxf(p, 1e-38f)) : -INFINITY;
     probs_out[k] = p;
     counts_out[k] = c;
@@ -125,14 +131,15 @@ model_step_kernel(int n, int K, const int* __restrict__ m,
 extern "C" int pyabc_model_step(int n, int K, const int* m,
                                 const float* w_norm, const uint8_t* k_mask,
                                 const uint8_t* fitted, const float* mpk,
-                                float* probs, float* log_probs, int* counts,
+                                const uint8_t* fitted_given, float* probs,
+                                float* log_probs, int* counts,
                                 uint8_t* fitted_next, float* matrix,
                                 float* log_factor, void* stream_ptr) {
   if (n < 0 || K < 1 || K > kMaxModels)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   model_step_kernel<<<1, kThreads, 0, stream>>>(
-      n, K, m, w_norm, k_mask, fitted, mpk, probs, log_probs, counts,
-      fitted_next, matrix, log_factor);
+      n, K, m, w_norm, k_mask, fitted, mpk, fitted_given, probs, log_probs,
+      counts, fitted_next, matrix, log_factor);
   return static_cast<int>(cudaGetLastError());
 }

@@ -548,14 +548,17 @@ __device__ __forceinline__ int categorical(int K, float u, P p) {
 // 1 the perturbed model from row m_anc of the masked matrix mpk. The theta
 // draws then follow the single-model layout on the lane's own stream with
 // nb = ceil(d_max / 4), from model m's prior or from model m's fit
-// (cdf (K, n), thetas (K, n, d), chol (K, d, d)).
+// (cdf (K, n), thetas (K, n, d), chol (K, d, d)). With chol_per_row (K2's
+// K > 1 local mode, each model a LocalTransition fit: local_transition.py::
+// device_rvs :432 through _switch_propose_sim :415), chol is (K, n, d, d)
+// and the ancestor's own factor chol[m, idx] perturbs it.
 template <int D, bool FAM>
 __global__ void __launch_bounds__(kThreads)
 propose_models_kernel(int B, int K, int d, int n,
                       const float* __restrict__ cdf,
                       const float* __restrict__ thetas,
-                      const float* __restrict__ chol, Prior pr,
-                      const int* __restrict__ dims,
+                      const float* __restrict__ chol, int chol_per_row,
+                      Prior pr, const int* __restrict__ dims,
                       const float* __restrict__ model_p,
                       const float* __restrict__ mpk, uint32_t k0, uint32_t k1,
                       uint32_t gen, uint32_t tag, uint32_t model_tag,
@@ -605,7 +608,7 @@ propose_models_kernel(int B, int K, int d, int n,
     }
   } else {
     const float* cdf_m = cdf + (size_t)m * n;
-    const float* chol_m = chol + (size_t)m * d * d;
+    const float* chol_m = chol + (chol_per_row ? 0 : (size_t)m * d * d);
     const float total = cdf_m[n - 1];
     const float below = nextafterf(total, 0.f);
     for (int j = 0; j < n_redraws; ++j) {
@@ -629,13 +632,15 @@ propose_models_kernel(int B, int K, int d, int n,
       for (int k = 0; k < D; ++k)
         z[k] = (k < d) ? rng.normal(base + 1, k) : 0.f;
       const float* anc = thetas + ((size_t)m * n + idx) * d;
+      const float* L =
+          chol_per_row ? chol + ((size_t)m * n + idx) * d * d : chol_m;
 #pragma unroll
       for (int k = 0; k < D; ++k) {
         if (k >= dim) break;
         float acc = 0.f;
 #pragma unroll
         for (int l = 0; l < D; ++l)
-          if (l < d) acc += chol_m[k * d + l] * z[l];
+          if (l < d) acc += L[k * d + l] * z[l];
         th[k] = anc[k] + acc;
         const float part = prior_logpdf_dim<FAM>(pm, k, th[k]);
         lp = (k == 0) ? part : lp + part;
@@ -654,7 +659,8 @@ propose_models_kernel(int B, int K, int d, int n,
 
 template <int D, bool FAM>
 void launch_models(int B, int K, int d, int n, const float* cdf,
-                   const float* thetas, const float* chol, Prior pr,
+                   const float* thetas, const float* chol, int chol_per_row,
+                   Prior pr,
                    const int* dims, const float* model_p, const float* mpk,
                    uint32_t k0, uint32_t k1, uint32_t gen, uint32_t tag,
                    uint32_t model_tag, uint32_t max_rounds,
@@ -663,8 +669,9 @@ void launch_models(int B, int K, int d, int n, const float* cdf,
                    cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
   propose_models_kernel<D, FAM><<<grid, kThreads, 0, stream>>>(
-      B, K, d, n, cdf, thetas, chol, pr, dims, model_p, mpk, k0, k1, gen, tag,
-      model_tag, max_rounds, counters, n_redraws, theta, logpri, valid, m);
+      B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk, k0,
+      k1, gen, tag, model_tag, max_rounds, counters, n_redraws, theta, logpri,
+      valid, m);
 }
 
 // Known-answer check of philox.cuh: words, uniforms and the four
@@ -733,13 +740,16 @@ extern "C" int pyabc_propose(
 
 // K > 1 mode: model_p is the model prior (prior mode, cdf null) or the
 // log model probabilities (transition mode, with mpk the masked (K, K)
-// perturbation matrix); m receives each lane's model index.
+// perturbation matrix); m receives each lane's model index. chol_per_row:
+// 0 for the models' MVN factors (K, d, d), 1 for LocalTransition's (K, n,
+// d, d) (K2's K > 1 local mode).
 extern "C" int pyabc_propose_models(
     int B, int K, int d, int n, const float* cdf, const float* thetas,
-    const float* chol, const int* kind, const float* loc, const float* scale,
-    const float* hi, const float* log_scale, const float* par, int families,
-    const int* dims, const float* model_p, const float* mpk, unsigned k0,
-    unsigned k1, unsigned gen, unsigned tag, unsigned model_tag,
+    const float* chol, int chol_per_row, const int* kind, const float* loc,
+    const float* scale, const float* hi, const float* log_scale,
+    const float* par, int families, const int* dims, const float* model_p,
+    const float* mpk, unsigned k0, unsigned k1, unsigned gen, unsigned tag,
+    unsigned model_tag,
     unsigned max_rounds, const int* counters, int n_redraws, float* theta,
     float* logpri, uint8_t* valid, int* m, void* stream_ptr) {
   if (B <= 0) return 0;
@@ -749,9 +759,9 @@ extern "C" int pyabc_propose_models(
   const Prior pr{kind, loc, scale, hi, log_scale, par};
 #define PYABC_PROPOSE_M(DB)                                                 \
   (families ? launch_models<DB, true> : launch_models<DB, false>)(         \
-      B, K, d, n, cdf, thetas, chol, pr, dims, model_p, mpk, k0, k1, gen,  \
-      tag, model_tag, max_rounds, counters, n_redraws, theta, logpri,      \
-      valid, m, stream)
+      B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk, \
+      k0, k1, gen, tag, model_tag, max_rounds, counters, n_redraws, theta, \
+      logpri, valid, m, stream)
   if (d <= 1)
     PYABC_PROPOSE_M(1);
   else if (d <= 2)

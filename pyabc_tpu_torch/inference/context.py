@@ -69,14 +69,23 @@ density CV, a bisection step); the next n stays in device memory and
 reaches the host in the chunk's fetch. A list of sizes sets the slot from
 the host each generation.
 
-LocalTransition (one model, ``pyabc_tpu`` ``multigen_kernel`` with a
-LocalTransition): a round draws with K2's local mode (each ancestor's own
-Cholesky factor) and scores with K14 (one Gaussian per component, in the
-diff form). The generation step runs K15 (the drift of the accepted
-population against the fitted one and the cadence's refit decision, left
-in device memory), then K12 (the k-NN covariance field) and K13 (the
-factorization, of the changed rows only under the cadence), both of which
-return at once when K15's flag reads 0: the refit costs no host sync.
+LocalTransition (``pyabc_tpu`` ``multigen_kernel`` with a LocalTransition):
+a round draws with K2's local mode (each ancestor's own Cholesky factor)
+and scores with K14 (one Gaussian per component, in the diff form). The
+generation step runs K15 (the drift of the accepted population against
+the fitted one and the cadence's refit decision, left in device memory),
+then K12 (the k-NN covariance field) and K13 (the factorization, of the
+changed rows only under the cadence), both of which return at once when
+K15's flag reads 0: the refit costs no host sync. Over several models
+(identical LocalTransitions) K2 and K14 take their K > 1 local modes on
+stacked params, K15 decides per model (each model's drift, the maximum,
+the forced refit of a model with rows and no fit) and writes each model's
+masked weights, K12 and K13 run once per model under that model's flag
+(its k from its own count), and K26 masks the perturbation matrix with
+K15's fitted mask. Under an adaptive population size K16 takes its
+LocalTransition mode: each probe gathers the resampled rows, refits them
+with K12 and K13 (their flag: the bisection is not done) and scores the
+fitted particles under every refit.
 
 An aggregated distance (``AggregatedDistance``, a weighted sum of plain
 p-norms): ``Carry.dist_w`` is K25's flat params ``[W, w_1, ..., w_n]`` and
@@ -138,6 +147,7 @@ from ..kernels.gp_sumstat import gp_accept
 from ..kernels.gp_sumstat import transform_rows as gp_transform_rows
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.linear_sumstat import linear_accept, transform_rows
+from ..kernels.local_logpdf import local_logpdf
 from ..kernels.mlp_fit import mlp_fit
 from ..kernels.mlp_sumstat import mlp_accept
 from ..kernels.mlp_sumstat import transform_rows as mlp_transform_rows
@@ -244,7 +254,8 @@ class DeviceContext:
                  rec_cap: int, max_rounds: int,
                  sync_ledger: SyncLedger | None = None, seed: int = 0,
                  temp_config=None, models=None, priors=None,
-                 model_prior=None, mpk=None, fit_statics=None):
+                 model_prior=None, mpk=None, fit_statics=None,
+                 local_statics=None):
         self.model = model
         self.prior = prior
         #: K > 1 (model selection): the models; ``_init_models`` takes their
@@ -297,9 +308,19 @@ class DeviceContext:
         #: the host-refit mode: the fetch ships raw rows, the transform's
         #: parameters change only at a boundary's host fit
         self.host_refit = False
-        #: one model under LocalTransition: K2's local mode draws, K14
-        #: scores, K15 then K12 and K13 refit
-        self.local = self.K == 1 and isinstance(transition, LocalTransition)
+        #: LocalTransition (every model's the same configuration): K2's
+        #: local mode draws, K14 scores, K15 then K12 and K13 refit with each
+        #: model's K12 arguments (``local_configs``, from the models'
+        #: ``fit_statics`` and k tables: ``local_statics``)
+        self.local = isinstance(transition, LocalTransition)
+        self.local_statics = local_statics
+        self.local_configs = None
+        if self.local:
+            dims = self.dims if self.K > 1 else [self.d]
+            self.local_configs = [
+                LocalTransition.field_config(self.n_cap, dim, device=device,
+                                             **st)
+                for dim, st in zip(dims, local_statics)]
 
     def _init_models(self, priors, model_prior, mpk, fit_statics) -> None:
         """The K > 1 device constants, built once per run."""
@@ -484,10 +505,12 @@ class DeviceContext:
         from ``carry``; ``segmented`` runs K18 in the simulator's place."""
         if self.K > 1:
             stream = self.stream(t, philox.TRANSITION)
-            theta, logpri, valid, m = propose.models(
+            draw = propose_local if self.local else propose
+            theta, logpri, valid, m = draw.models(
                 stream, self.B, self.prior_arrays, carry.log_model_probs,
                 params, carry.matrix)
-            logq = mvn_mixture_logpdf.models(theta, m, params)
+            logq = (local_logpdf if self.local
+                    else mvn_mixture_logpdf).models(theta, m, params)
             ss, d, accept, logw, keep = self._simulate_accept(
                 theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
                 lane_m=m, logpri=logpri, logq=logq, m=m,
@@ -552,17 +575,34 @@ class DeviceContext:
 
     def _local_refit(self, carry: Carry, theta: torch.Tensor,
                      w_norm: torch.Tensor, k_mask: torch.Tensor,
-                     fit_statics: dict, cadence: tuple | None):
-        """LocalTransition's refit (``util.py:1908-1997`` with K = 1): K15
-        measures the drift of the accepted population against the fitted
-        one and decides the refit on the device; K12 and K13 read its flag
-        and return at once when it is 0, so the params carry forward with
-        no host branch. Refit every generation (``cadence`` None) is the
-        full factorization; under the cadence K13 factorizes only the
-        changed rows. Below ``dim + 1`` accepted rows the old params carry
-        forward. -> (params, K15's outputs + ``rows_changed``)."""
+                     fit_statics: dict, cadence: tuple | None,
+                     m: torch.Tensor | None = None):
+        """LocalTransition's refit (``util.py:1908-1997``): K15 measures
+        the drift of the accepted population against the fitted one and
+        decides the refit on the device; K12 and K13 read its flag and
+        return at once when it is 0, so the params carry forward with no
+        host branch. Refit every generation (``cadence`` None) is the full
+        factorization; under the cadence K13 factorizes only the changed
+        rows. Below ``dim + 1`` accepted rows the old params carry forward.
+        Several models (``m`` the rows' models): K15's K > 1 mode decides
+        per model, then each model's K12 and K13 under its own flag (the
+        rows changed summed over the models). -> (params, K15's outputs +
+        ``rows_changed``)."""
         tr = self.transition
         every, thr = cadence if cadence is not None else (1, math.inf)
+        if self.K > 1:
+            dec = proposal_drift.models(
+                carry.trans_params["thetas"], carry.trans_params["weights"],
+                theta, w_norm, k_mask, m, dims=self.dims,
+                fitted=carry.fitted, gens_since=carry.gens_since,
+                every=every, thr=thr,
+                min_counts=[tr.device_refit_min_count(x)
+                            for x in self.dims])
+            params, rows = tr.device_fit_models(
+                theta, dec["w_models"], carry.trans_params, dec["flag"],
+                dims=self.dims, configs=self.local_configs,
+                incremental=cadence is not None)
+            return params, {**dec, "rows_changed": rows}
         dec = proposal_drift(
             carry.trans_params["thetas"], carry.trans_params["weights"],
             theta, w_norm, k_mask, dim=self.d, fitted=carry.fitted,
@@ -696,7 +736,8 @@ class DeviceContext:
         the next generation's n from the bootstrap-CV bisection, as a 0-dim
         int32 in device memory (``n_next``); K > 1 weights the models' CVs
         by the new model probabilities. Its ancestors sit on the BOOT
-        stream of generation ``t``."""
+        stream of generation ``t``. LocalTransition takes K16's
+        LocalTransition mode with each model's K12 arguments."""
         target_cv, min_n, max_n, n_boot = adaptive_n
         if self.K > 1:
             stacked = trans_next
@@ -709,7 +750,8 @@ class DeviceContext:
             stacked["thetas"], stacked["weights"], stacked["cdf"], dims=dims,
             statics=statics, seed=self.seed, generation=t,
             max_rounds=self.max_rounds, target_cv=target_cv, min_n=min_n,
-            max_n=max_n, n_bootstrap=n_boot, model_p=model_probs)
+            max_n=max_n, n_bootstrap=n_boot, model_p=model_probs,
+            local=self.local_configs)
 
     def _sumstat_step(self, dist_w: dict, run: GenerationRun, k_mask,
                       w_norm, *, adaptive: bool, plan: dict | None):
@@ -862,7 +904,18 @@ class DeviceContext:
         else:
             eps_next = eps_g
         models = {}
-        if self.K > 1:
+        if self.K > 1 and self.local:
+            # K15's per-model decisions, each model's K12 and K13, then K26
+            # with K15's fitted mask (the refit minimum of dim + 1 rows)
+            trans_next, refit = self._local_refit(
+                carry, res["theta"], w_norm, k_mask, fit_statics,
+                refit_cadence, m=res["m"])
+            fitted_next = refit["fitted"]
+            step = model_step(res["m"], w_norm, k_mask, carry.fitted,
+                              self.mpk, fitted_next=fitted_next)
+            models = {k: step[k] for k in ("log_model_probs", "matrix",
+                                           "log_model_factor")}
+        elif self.K > 1:
             # K26, then the per-model refit (one K8 launch over the models)
             step = model_step(res["m"], w_norm, k_mask, carry.fitted,
                               self.mpk)

@@ -358,10 +358,11 @@ class ABCSMC:
         if len(transitions) != self.K:
             raise ValueError(f"{len(transitions)} transitions for "
                              f"{self.K} models")
+        if any(type(tr) is LocalTransition for tr in transitions):
+            self._local_gate(acceptor, transitions)
         for tr in transitions:
-            if type(tr) is LocalTransition:
-                self._local_gate(acceptor, self.population_strategy)
-            elif type(tr) is not MultivariateNormalTransition:
+            if type(tr) not in (LocalTransition,
+                                MultivariateNormalTransition):
                 raise _not_ported(f"transition {type(tr).__name__}", "12")
         self.transitions = transitions
         self.transition = transitions[0]
@@ -438,15 +439,28 @@ class ABCSMC:
             raise _not_ported("user weights or factors with learned "
                               "summary statistics", "14")
 
-    def _local_gate(self, acceptor, strategy) -> None:
+    #: the LocalTransition settings the models of one run must share
+    LOCAL_SHARED = ("scaling", "k", "k_fraction", "k_max", "selection")
+
+    def _local_gate(self, acceptor, transitions) -> None:
         """Raise for a LocalTransition configuration the port does not
-        serve yet (ROADMAP queue A, item 12)."""
-        if self.K > 1:
-            raise _not_ported("LocalTransition with several models", "12")
-        if not isinstance(strategy, ConstantPopulationSize):
-            # the JAX package refits K12-K14 per bootstrap for its CV
-            raise _not_ported(f"LocalTransition with "
-                              f"{type(strategy).__name__}", "12")
+        serve: models whose transitions differ (type or ``LOCAL_SHARED``
+        setting: the JAX package's per-model refits share one traced
+        configuration, ``smc.py:1621-1639``, so it runs them on its host
+        loop, ROADMAP item 16), or an acceptor other than the uniform one
+        (queue A, item 12). A constant, listed or bounded adaptive size and
+        several models are served (an unbounded adaptive size is refused
+        with the strategy)."""
+        first = transitions[0]
+        for tr in transitions:
+            if type(tr) is not LocalTransition or any(
+                    getattr(tr, a) != getattr(first, a)
+                    for a in self.LOCAL_SHARED):
+                raise _not_ported(
+                    "LocalTransition with several models whose transitions "
+                    "differ (the fused path refits every model with one "
+                    "configuration; the JAX package serves them on its "
+                    "host loop)", "16")
         if type(acceptor) is not UniformAcceptor:
             raise _not_ported(f"LocalTransition with a "
                               f"{type(acceptor).__name__}", "12")
@@ -571,12 +585,21 @@ class ABCSMC:
         x0 = torch.as_tensor(self.spec.flatten_host(self.x_0),
                              dtype=torch.float32, device=self.device)
         models = {}
+        local = type(self.transition) is LocalTransition
+        if local:
+            # each model's neighbour rule at the run's largest n (JAX
+            # smc.py:2344-2368 with n_max, :2795); the context builds each
+            # model's k table once
+            models["local_statics"] = [
+                tr.fit_statics(n, p.dim)
+                for tr, p in zip(self.transitions, self.priors)]
         if self.K > 1:
-            models = dict(
+            models.update(
                 models=self.models, priors=self.priors,
                 model_prior=self.model_prior_probs,
                 mpk=self.model_perturbation_kernel.device_params(),
-                fit_statics=[tr.fit_statics() for tr in self.transitions])
+                fit_statics=(models.get("local_statics") if local else
+                             [tr.fit_statics() for tr in self.transitions]))
         return DeviceContext(
             model=self.model, prior=self.prior, distance=d,
             acceptor=self.acceptor, transition=self.transition,
@@ -780,11 +803,10 @@ class ABCSMC:
         eps_quantile = isinstance(self.eps, QuantileEpsilon)
         local = type(self.transition) is LocalTransition
         if local:
-            # the k table goes to the device once per run (K12 reads it)
-            fit_statics = self.transition.fit_statics(n, ctx.d)
-            fit_statics["k_table"] = LocalTransition.field_config(
-                ctx.n_cap, ctx.d, device=self.device,
-                **fit_statics)["k_table"]
+            # the neighbour rule at the run's largest n, with the k table
+            # the context put on the device once (K12 reads it)
+            fit_statics = {**ctx.local_statics[0],
+                           "k_table": ctx.local_configs[0]["k_table"]}
         else:
             fit_statics = self.transition.fit_statics()
         statics = dict(
@@ -1159,8 +1181,10 @@ class ABCSMC:
         from the priors and reads none of them)."""
         dev, f32 = self.device, torch.float32
         K = self.K
-        carry.trans_params = MultivariateNormalTransition.zero_params_models(
-            K, ctx.n_cap, ctx.d, ctx.dims_f)
+        cls = (LocalTransition if ctx.local
+               else MultivariateNormalTransition)
+        carry.trans_params = cls.zero_params_models(K, ctx.n_cap, ctx.d,
+                                                    ctx.dims_f)
         carry.fitted = torch.zeros(K, dtype=torch.bool, device=dev)
         carry.log_model_probs = ctx.model_logits.clone()
         carry.matrix = torch.zeros(K, K, dtype=f32, device=dev)

@@ -9,7 +9,8 @@ from .aggregate import (aggregate_accept_weight,
                         aggregate_refit_plain)
 from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_density_plain, bootstrap_draw_plain,
-                           bootstrap_fit_plain)
+                           bootstrap_fit_plain, bootstrap_local_density_plain,
+                           bootstrap_local_gather_plain)
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
 from .gp_sumstat import gp_accept, gp_accept_plain, gp_values_plain
@@ -18,7 +19,8 @@ from .gp_sumstat import transform_rows_plain as gp_transform_rows_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
 from .local_cov import local_cov, local_cov_plain
 from .local_factor import local_factor, local_factor_plain
-from .local_logpdf import local_logpdf, local_logpdf_plain
+from .local_logpdf import (local_logpdf, local_logpdf_models_plain,
+                           local_logpdf_plain)
 from .linear_bound import linear_bound, linear_bound_plain
 from .linear_sumstat import (linear_accept, linear_accept_plain,
                              linear_values_plain, transform_rows,
@@ -43,7 +45,8 @@ from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
 from .propose import (propose, propose_local, propose_local_plain,
                       propose_plain)
 from .ridge_fit import ridge_fit, ridge_fit_plain
-from .proposal_drift import proposal_drift, proposal_drift_plain
+from .proposal_drift import (proposal_drift, proposal_drift_models_plain,
+                             proposal_drift_plain)
 from .scale_reduce import scale_reduce, scale_reduce_plain
 from .segment_round import segment_round, segment_round_plain
 from .sir_simulate import sir_simulate, sir_simulate_plain
@@ -81,10 +84,11 @@ def launch_counts() -> dict[str, int]:
 
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
-    ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's four
+    ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's six
     entries, K25's values mode, K23's transform and values entries, linear
-    and MLP, and the GP transform's); each also counts in
-    ``launch_counts``."""
+    and MLP, the GP transform's, and LocalTransition's: K2's and K14's K >
+    1 ``models`` modes, K15's, and K12's and K13's ``models`` and
+    ``bootstrap`` launches); each also counts in ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
@@ -94,13 +98,14 @@ __all__ = [
     "aggregate_refit", "aggregate_refit_plain", "bootstrap_bisect_plain",
     "bootstrap_cv",
     "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",
+    "bootstrap_local_density_plain", "bootstrap_local_gather_plain",
     "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "gp_accept",
     "gp_accept_plain", "gp_transform_rows", "gp_transform_rows_plain",
     "gp_values_plain", "kernel_accept",
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
-    "local_logpdf_plain",
+    "local_logpdf_models_plain", "local_logpdf_plain",
     "linear_accept", "linear_accept_plain", "linear_bound",
     "linear_bound_plain", "linear_values_plain",
     "lv_simulate", "lv_simulate_plain", "mlp_accept", "mlp_accept_plain",
@@ -117,7 +122,8 @@ __all__ = [
     "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",
     "propose", "propose_local", "propose_local_plain", "propose_plain",
-    "proposal_drift", "proposal_drift_plain", "reset_launch_counts",
+    "proposal_drift", "proposal_drift_models_plain", "proposal_drift_plain",
+    "reset_launch_counts",
     "ridge_fit", "ridge_fit_plain",
     "scale_reduce",
     "scale_reduce_plain", "segment_round", "segment_round_plain",

@@ -61,8 +61,8 @@ SIGNATURES = {
         _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _U, _U, _U,
         _U, _U, _P, _I, _P, _P, _P, _P],
     "pyabc_propose_models": [
-        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-        _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
+        _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+        _P, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
     "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],
@@ -81,8 +81,11 @@ SIGNATURES = {
     "pyabc_boot_density": [
         _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_boot_bisect": [_P, _I, _I, _P, _P, _P, _F, _P],
+    "pyabc_boot_local_gather": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "pyabc_boot_local_density": [
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_model_step": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_scale_reduce": [
         _P, _I, _I, _P, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
@@ -138,9 +141,14 @@ SIGNATURES = {
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P],
     "pyabc_local_logpdf": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "pyabc_local_logpdf_models": [
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "pyabc_proposal_drift": [
         _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P,
         _P, _P, _P],
+    "pyabc_proposal_drift_models": [
+        _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P],
     "pyabc_generation_health": [
         _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I,
         _P, _P, _P, _P, _P, _P, _F, _F, _I, _F, _P, _P, _P, _P],

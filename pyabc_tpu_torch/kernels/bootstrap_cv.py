@@ -5,8 +5,8 @@ Counterpart of ``pyabc_tpu/transition/util.py::{device_mean_cv,
 device_required_nr}`` with ``MultivariateNormalTransition``'s statics
 (``multivariatenormal.py:222, :236``), as ``inference/util.py:2094-2150``
 calls them after the refit; the CUDA kernels are ``csrc/bootstrap_cv.cu``.
-One wrapper with four entries, each counted in ``launches`` and in
-``mode_launches``:
+One wrapper with six entries, each counted in ``launches`` and in
+``mode_launches``; the MVN transition's four:
 
 - ``draw``: the bootstrap ancestors ``(K, n_boot, n_cap)`` int32 from the
   BOOT Philox stream by inverse CDF on each model's ancestor ``cdf`` (K8's),
@@ -23,6 +23,24 @@ probes of fit, density and bisect; the result stays in device memory. A
 probe whose state reads done does nothing, so no host read is needed.
 The ancestors follow the law of ``jax.random.categorical``, not its bits
 (a declared difference, as for every stream of the port).
+
+LocalTransition's mode (``device_mean_cv`` over ``LocalTransition``'s
+``device_fit`` and ``device_logpdf``): the same draw and bisect, and per
+probe
+
+- ``local_gather``: each model's and bootstrap's resampled rows
+  ``thetas[k][idx[k, b]]`` into ``(K nb, n_cap, d)``, the bootstrap weights
+  (1/n on the first n, read from the state) and ``go`` (int32: not done);
+- ``local_fit`` (no kernel of its own): K12 then K13 (the full
+  factorization) for each model and bootstrap on those rows, each reading
+  ``go`` as its refit flag, so a finished probe does nothing; the fits
+  stay in stacked buffers (``local_fit_buffers``). K12 and K13 count these
+  launches in their ``mode_launches["bootstrap"]``;
+- ``local_density``: each fitted particle's log-density under every
+  bootstrap fit (K14's tile loop, ``csrc/local_mix.cuh``), their CV and
+  the same ``partial (K, blocks, 2)`` as ``density``.
+
+``local_probe`` composes the three for one probe.
 """
 from __future__ import annotations
 
@@ -34,6 +52,9 @@ import torch
 
 from . import _build
 from .base import Kernel
+from .local_cov import local_cov
+from .local_factor import local_factor
+from .local_logpdf import local_logpdf_plain
 from .mvn_fit import MAX_DIM, MAX_MODELS, SELECTORS, mvn_fit_plain
 from .philox import BOOT, MASK32, philox4x32_10, uniform_of
 
@@ -46,6 +67,8 @@ MAX_PROBES = 32
 DENSITY_THREADS = 256
 #: the bisection state: lo, hi, the probe's n, done, probes taken
 LO, HI, PROBE, DONE, STEP = range(5)
+#: dims LocalTransition's mode takes (K12-K14's buckets)
+MAX_LOCAL_DIM = 16
 
 
 def n_probes(min_n: int, max_n: int) -> int:
@@ -143,7 +166,6 @@ def bootstrap_density_plain(thetas: torch.Tensor, weights: torch.Tensor,
     if done:
         return partial
     n = max(0, min(n, n_cap))
-    pad = nblk * DENSITY_THREADS - n_cap
     for k in range(K):
         ld = torch.empty(nb, n_cap, dtype=torch.float32,
                          device=thetas.device)
@@ -157,16 +179,94 @@ def bootstrap_density_plain(thetas: torch.Tensor, weights: torch.Tensor,
                         + quad[None, :])
                 ld[b, j0:j0 + chunk] = (-0.5 * fit["logdet"][k, b]
                                         + torch.logsumexp(-0.5 * maha, 1))
-        dens = torch.exp(ld - ld.max(0, keepdim=True).values)
-        mean = dens.mean(0)
-        std = dens.std(0, unbiased=False)
-        cv = torch.where(mean > 0, std / mean, torch.zeros_like(mean))
-        w = weights[k]
-        wcv = torch.where(w != 0, w * cv, torch.zeros_like(w))
-        both = torch.nn.functional.pad(torch.stack([wcv, w], 1),
-                                       (0, 0, 0, pad))
-        partial[k] = both.reshape(nblk, DENSITY_THREADS, 2).sum(1)
+        partial[k] = cv_partial_plain(ld, weights[k])
     return partial
+
+
+def cv_partial_plain(ld: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per fitted particle the CV over the bootstraps of its densities
+    ``ld (nb, n_cap)`` shifted by their maximum (std / mean, ddof 0, 0
+    where the mean is not > 0), then ``w cv`` and ``w`` summed over each
+    block of 256 particles -> ``(blocks, 2)``."""
+    n_cap = ld.shape[1]
+    nblk = n_blocks(n_cap)
+    dens = torch.exp(ld - ld.max(0, keepdim=True).values)
+    mean = dens.mean(0)
+    std = dens.std(0, unbiased=False)
+    cv = torch.where(mean > 0, std / mean, torch.zeros_like(mean))
+    wcv = torch.where(w != 0, w * cv, torch.zeros_like(w))
+    both = torch.nn.functional.pad(torch.stack([wcv, w], 1),
+                                   (0, 0, 0, nblk * DENSITY_THREADS - n_cap))
+    return both.reshape(nblk, DENSITY_THREADS, 2).sum(1)
+
+
+def _local_shapes(K: int, nb: int, n_cap: int, d: int) -> dict:
+    """The stacked buffers of a probe's LocalTransition fits."""
+    kb = K * nb
+    return {"thetas": (kb, n_cap, d), "weights": (kb, n_cap),
+            "cdf": (kb, n_cap), "covs": (kb, n_cap, d, d),
+            "cnt": (kb, n_cap), "chols": (kb, n_cap, d, d),
+            "precs": (kb, n_cap, d, d), "logdets": (kb, n_cap),
+            "lconst": (kb, n_cap)}
+
+
+def local_fit_buffers(K: int, nb: int, n_cap: int, d: int, device) -> dict:
+    """Zeroed buffers for K nb LocalTransition fits of n_cap rows (K12's
+    field and K13's factors), reused by every probe of a bisection."""
+    return {k: torch.zeros(s, dtype=torch.int32 if k == "cnt"
+                           else torch.float32, device=device)
+            for k, s in _local_shapes(K, nb, n_cap, d).items()}
+
+
+def bootstrap_local_gather_plain(thetas: torch.Tensor, idx: torch.Tensor,
+                                 state: torch.Tensor):
+    """Plain PyTorch version of the gather -> (rows (K nb, n_cap, d),
+    boot_w (n_cap,), go (int32))."""
+    K, nb, n_cap = idx.shape
+    d = thetas.shape[2]
+    _lo, _hi, n, done, _s = (int(v) for v in state.tolist())
+    n = max(0, min(n, n_cap))
+    rows = torch.zeros(K * nb, n_cap, d, dtype=thetas.dtype,
+                       device=thetas.device)
+    boot_w = torch.zeros(n_cap, dtype=torch.float32, device=thetas.device)
+    if not done:
+        for k in range(K):
+            rows[k * nb:(k + 1) * nb] = thetas[k][idx[k].long()]
+        one = torch.ones((), dtype=torch.float32, device=thetas.device)
+        boot_w[:n] = one / torch.full_like(one, float(max(n, 1)))
+    go = torch.tensor(0 if done else 1, dtype=torch.int32,
+                      device=thetas.device)
+    return rows, boot_w, go
+
+
+def bootstrap_local_density_plain(thetas: torch.Tensor,
+                                  weights: torch.Tensor, fits: dict,
+                                  state: torch.Tensor,
+                                  want_ld: bool = False):
+    """Plain PyTorch version of the local density + CV -> partial (K,
+    blocks, 2) [and ld (K nb, n_cap), 0 where a particle has no weight]:
+    each fitted particle's log-density under each bootstrap's mixture (K14's
+    plain version), then ``cv_partial_plain``."""
+    K, n_cap, _d = thetas.shape
+    nb = fits["thetas"].shape[0] // K
+    partial = torch.zeros(K, n_blocks(n_cap), 2, dtype=torch.float32,
+                          device=thetas.device)
+    ld_all = torch.zeros(K * nb, n_cap, dtype=torch.float32,
+                         device=thetas.device)
+    if int(state[DONE]):
+        return (partial, ld_all) if want_ld else partial
+    for k in range(K):
+        ld = torch.stack([local_logpdf_plain(
+            thetas[k], {key: fits[key][k * nb + b] for key in
+                        ("thetas", "precs", "lconst", "weights")})
+            for b in range(nb)])
+        live = weights[k] != 0
+        ld_all[k * nb:(k + 1) * nb] = torch.where(live, ld,
+                                                  torch.zeros_like(ld))
+        partial[k] = cv_partial_plain(torch.where(live, ld,
+                                                  torch.zeros_like(ld)),
+                                      weights[k])
+    return (partial, ld_all) if want_ld else partial
 
 
 def bootstrap_bisect_plain(partial: torch.Tensor, state: torch.Tensor,
@@ -224,14 +324,18 @@ class BootstrapCV(Kernel):
     name = "bootstrap_cv"
     source = "pyabc_tpu_torch/csrc/bootstrap_cv.cu"
     replaces = "pyabc_tpu/transition/util.py:150"
-    #: the four entries, as ``mode_launches`` counts them
-    ENTRIES = ("draw", "fit", "density", "bisect")
+    #: the entries, as ``mode_launches`` counts them: the MVN's four and
+    #: LocalTransition's gather and density
+    ENTRIES = ("draw", "fit", "density", "bisect", "local_gather",
+               "local_density")
     #: each entry's TPU counterpart
     ENTRY_REPLACES = {
         "draw": "pyabc_tpu/transition/util.py:164",
         "fit": "pyabc_tpu/transition/util.py:172",
         "density": "pyabc_tpu/transition/util.py:150",
-        "bisect": "pyabc_tpu/transition/util.py:189"}
+        "bisect": "pyabc_tpu/transition/util.py:189",
+        "local_gather": "pyabc_tpu/transition/util.py:167",
+        "local_density": "pyabc_tpu/transition/util.py:176"}
 
     def __init__(self):
         super().__init__()
@@ -364,26 +468,141 @@ class BootstrapCV(Kernel):
         self._launched(err, "bisect")
 
 
+    def local_gather(self, thetas: torch.Tensor, idx: torch.Tensor,
+                     state: torch.Tensor):
+        """LocalTransition's mode: ``thetas (K, n_cap, d)`` of the refit and
+        the ancestors ``idx (K, nb, n_cap)`` -> (rows ``(K nb, n_cap, d)``,
+        the bootstrap weights ``(n_cap,)``, ``go`` int32: the probe's K12
+        and K13 flag)."""
+        if self.on_cpu(thetas, idx, state):
+            return bootstrap_local_gather_plain(thetas, idx, state)
+        K, nb, n = idx.shape
+        d = thetas.shape[2]
+        if d > MAX_LOCAL_DIM or not 0 < K <= MAX_MODELS:
+            raise ValueError(f"{self.name}: dim {d} (cap {MAX_LOCAL_DIM}) "
+                             f"or {K} models (cap {MAX_MODELS})")
+        f32 = torch.float32
+        self.expect(thetas, "thetas", f32, (K, n, d))
+        self.expect(idx, "idx", torch.int32, (K, nb, n))
+        self._state_ok(state)
+        dev = thetas.device
+        rows = torch.empty(K * nb, n, d, dtype=f32, device=dev)
+        boot_w = torch.empty(n, dtype=f32, device=dev)
+        go = torch.empty((), dtype=torch.int32, device=dev)
+        err = _build.library().pyabc_boot_local_gather(
+            thetas.data_ptr(), idx.data_ptr(), state.data_ptr(), K, nb, n, d,
+            rows.data_ptr(), boot_w.data_ptr(), go.data_ptr(),
+            _build.stream_ptr(dev))
+        self._launched(err, "local_gather")
+        return rows, boot_w, go
+
+    def local_density(self, thetas: torch.Tensor, weights: torch.Tensor,
+                      fits: dict, state: torch.Tensor,
+                      want_ld: bool = False):
+        """LocalTransition's mode: ``thetas (K, n_cap, d)``, ``weights (K,
+        n_cap)`` of the refit and the probe's bootstrap fits (stacked ``(K
+        nb, n_cap, ...)``) -> ``partial (K, blocks, 2)``; with ``want_ld``
+        also each live particle's log-densities ``(K nb, n_cap)`` (a check
+        entry; 0 where a particle has no weight on the plain version, not
+        written on the card)."""
+        keys = ("thetas", "precs", "lconst", "weights")
+        if self.on_cpu(thetas, weights, state, *(fits[k] for k in keys)):
+            return bootstrap_local_density_plain(thetas, weights, fits,
+                                                 state, want_ld)
+        K, n, d = thetas.shape
+        kb = fits["thetas"].shape[0]
+        if d > MAX_LOCAL_DIM or kb % K or not 0 < kb // K <= MAX_BOOTSTRAP:
+            raise ValueError(f"{self.name}: dim {d} (cap {MAX_LOCAL_DIM}) "
+                             f"or {kb} fits over {K} models")
+        f32 = torch.float32
+        self.expect(thetas, "thetas", f32, (K, n, d))
+        self.expect(weights, "weights", f32, (K, n))
+        self._state_ok(state)
+        shapes = _local_shapes(K, kb // K, n, d)
+        for key in keys:
+            self.expect(fits[key], key, f32, shapes[key])
+        dev = thetas.device
+        partial = torch.empty(K, n_blocks(n), 2, dtype=f32, device=dev)
+        ld = (torch.zeros(kb, n, dtype=f32, device=dev) if want_ld
+              else None)
+        err = _build.library().pyabc_boot_local_density(
+            thetas.data_ptr(), weights.data_ptr(), state.data_ptr(), K,
+            kb // K, n, d, *(fits[k].data_ptr() for k in keys),
+            partial.data_ptr(), self.ptr(ld), _build.stream_ptr(dev))
+        self._launched(err, "local_density")
+        return (partial, ld) if want_ld else partial
+
+
 bootstrap_cv = BootstrapCV()
+
+
+def local_fit(rows: torch.Tensor, boot_w: torch.Tensor, go: torch.Tensor,
+              state: torch.Tensor, fits: dict, *, dims, configs) -> dict:
+    """A probe's LocalTransition fits: for model k and bootstrap b, K12
+    then K13 (every row factorized) on ``rows[k nb + b]`` with the
+    bootstrap weights, both reading ``go``, into ``fits``' views
+    (``local_fit_buffers``); ``configs[k]`` is model k's K12 arguments
+    (``LocalTransition.field_config``). On the CPU a finished probe
+    returns at once (a host read costs nothing there)."""
+    K = len(dims)
+    nb = rows.shape[0] // K
+    if rows.device.type == "cpu" and int(state[DONE]):
+        return fits
+    for k in range(K):
+        for b in range(nb):
+            kb = k * nb + b
+            field = local_cov(
+                rows[kb], boot_w, flag=go, mode="bootstrap",
+                out={key: fits[key][kb] for key in ("thetas", "weights",
+                                                    "cdf", "covs", "cnt")},
+                **configs[k])
+            local_factor(
+                field, None, dim=int(dims[k]), incremental=False, flag=go,
+                mode="bootstrap",
+                out={key: fits[key][kb] for key in ("chols", "precs",
+                                                    "logdets", "lconst")})
+    return fits
+
+
+def local_probe(thetas: torch.Tensor, weights: torch.Tensor,
+                idx: torch.Tensor, state: torch.Tensor, fits: dict, *,
+                dims, configs) -> torch.Tensor:
+    """One probe of LocalTransition's mode at the state's n: the gather,
+    K12 and K13 for every model and bootstrap (``local_fit``), the local
+    density -> the ``(K, blocks, 2)`` partial sums the bisect reads."""
+    rows, boot_w, go = bootstrap_cv.local_gather(thetas, idx, state)
+    local_fit(rows, boot_w, go, state, fits, dims=dims, configs=configs)
+    return bootstrap_cv.local_density(thetas, weights, fits, state)
 
 
 def required_nr(thetas: torch.Tensor, weights: torch.Tensor,
                 cdf: torch.Tensor, *, dims, statics, seed: int,
                 generation: int, max_rounds: int, target_cv: float,
                 min_n: int, max_n: int, n_bootstrap: int,
-                model_p: torch.Tensor | None = None) -> dict:
+                model_p: torch.Tensor | None = None,
+                local: list | None = None) -> dict:
     """K16 on stacked refit params (``thetas (K, n_cap, d)``, ``weights``
     and ``cdf (K, n_cap)``): one draw, then a fixed number of probes ->
     ``n_next`` (a 0-dim int32 view of the state, in device memory), the
-    ``state`` and each probe's aggregate CV (``cvs``)."""
+    ``state`` and each probe's aggregate CV (``cvs``). ``local``: each
+    model's K12 arguments (``LocalTransition.field_config``; ``statics``
+    unused) for LocalTransition's mode (gather, K12 and K13, local
+    density, bisect)."""
     idx, state = bootstrap_cv.draw(
         cdf, n_boot=n_bootstrap, seed=seed, generation=generation,
         max_rounds=max_rounds, min_n=min_n, max_n=max_n)
     cvs = torch.zeros(MAX_PROBES, dtype=torch.float32, device=thetas.device)
+    fits = (None if local is None else local_fit_buffers(
+        len(dims), n_bootstrap, thetas.shape[1], thetas.shape[2],
+        thetas.device))
     for _ in range(n_probes(min_n, max_n)):
-        fit = bootstrap_cv.fit(thetas, idx, state, dims=dims,
-                               statics=statics)
-        partial = bootstrap_cv.density(thetas, weights, fit, state)
+        if local is None:
+            fit = bootstrap_cv.fit(thetas, idx, state, dims=dims,
+                                   statics=statics)
+            partial = bootstrap_cv.density(thetas, weights, fit, state)
+        else:
+            partial = local_probe(thetas, weights, idx, state, fits,
+                                  dims=dims, configs=local)
         bootstrap_cv.bisect(partial, state, cvs, model_p=model_p,
                             target=target_cv)
     return {"n_next": state[HI], "state": state, "cvs": cvs, "idx": idx}

@@ -23,6 +23,12 @@ for top-k, the realized count for threshold) and, with ``want_idx``,
 past its count (buf = k_cap, or ceil(k_cap / stride) for threshold). With
 a refit ``flag`` (int32 on the device) that reads 0 the kernel writes
 nothing and K13 carries the previous params forward.
+
+``out`` (optional) holds the output tensors to write (``thetas``,
+``weights``, ``cdf``, ``covs``, ``cnt``): views of stacked buffers, as the
+per-model refit of a run over several models and K16's bootstrap fits
+keep one fit per model or bootstrap. ``mode`` names such a caller in
+``mode_launches`` (``"models"``, ``"bootstrap"``).
 """
 from __future__ import annotations
 
@@ -116,9 +122,11 @@ def local_cov_plain(thetas: torch.Tensor, weights: torch.Tensor, *,
                     dim: int, scaling: float, k_table: torch.Tensor,
                     k_cap: int, topk: bool, stride: int, dense: bool,
                     want_idx: bool = False,
-                    flag: torch.Tensor | None = None) -> dict:
+                    flag: torch.Tensor | None = None,
+                    out: dict | None = None) -> dict:
     """Plain PyTorch version (``flag`` is the kernel's; the plain version
-    computes the field whatever it reads)."""
+    computes the field whatever it reads, and copies it into ``out``'s
+    tensors where given)."""
     del flag
     n, d = thetas.shape
     dev = thetas.device
@@ -163,28 +171,48 @@ def local_cov_plain(thetas: torch.Tensor, weights: torch.Tensor, *,
         covs[r0:r1] = cov * outer + diag[:, :, None] * eye
         cnts[r0:r1] = cnt
         idxs[r0:r1] = idx
-    out = {"thetas": X.contiguous(), "weights": w.contiguous(),
+    res = {"thetas": X.contiguous(), "weights": w.contiguous(),
            "cdf": ancestor_cdf_plain(w).contiguous(), "covs": covs,
            "cnt": cnts}
     if want_idx:
-        out["idx"] = idxs
-    return out
+        res["idx"] = idxs
+    if out is not None:
+        for k, v in out.items():
+            v.copy_(res[k])
+        res.update(out)
+    return res
+
+
+def _field_shapes(n: int, d: int) -> dict:
+    """The output tensors of a field and their shapes."""
+    return {"thetas": (n, d), "weights": (n,), "cdf": (n,),
+            "covs": (n, d, d), "cnt": (n,)}
 
 
 class LocalCov(Kernel):
     name = "local_cov"
     source = "pyabc_tpu_torch/csrc/local_cov.cu"
     replaces = "pyabc_tpu/transition/local_transition.py:144"
+    #: callers counted on their own, each also in ``launches``
+    MODES = ("models", "bootstrap")
+
+    def __init__(self):
+        super().__init__()
+        self.mode_launches = {m: 0 for m in self.MODES}
 
     def __call__(self, thetas: torch.Tensor, weights: torch.Tensor, *,
                  dim: int, scaling: float, k_table: torch.Tensor,
                  k_cap: int, topk: bool, stride: int, dense: bool,
                  want_idx: bool = False,
-                 flag: torch.Tensor | None = None) -> dict:
+                 flag: torch.Tensor | None = None, out: dict | None = None,
+                 mode: str | None = None) -> dict:
         kw = dict(dim=dim, scaling=scaling, k_table=k_table, k_cap=k_cap,
                   topk=topk, stride=stride, dense=dense, want_idx=want_idx,
-                  flag=flag)
+                  flag=flag, out=out)
         extra = [] if flag is None else [flag]
+        if mode is not None and mode not in self.MODES:
+            raise ValueError(f"{self.name}: mode {mode!r} not one of "
+                             f"{self.MODES}")
         if self.on_cpu(thetas, weights, k_table, *extra):
             return local_cov_plain(thetas, weights, **kw)
         n, d = thetas.shape
@@ -208,11 +236,16 @@ class LocalCov(Kernel):
                 f"slots exceed a block's shared memory ({MAX_SMEM_BYTES} "
                 f"bytes)")
         dev = thetas.device
-        out = {"thetas": torch.empty(n, d, dtype=f32, device=dev),
-               "weights": torch.empty(n, dtype=f32, device=dev),
-               "cdf": torch.empty(n, dtype=f32, device=dev),
-               "covs": torch.empty(n, d, d, dtype=f32, device=dev),
-               "cnt": torch.empty(n, dtype=i32, device=dev)}
+        shapes = _field_shapes(n, d)
+        given = out or {}
+        out = {}
+        for k, shape in shapes.items():
+            dt = i32 if k == "cnt" else f32
+            if k in given:
+                self.expect(given[k], f"out.{k}", dt, shape)
+                out[k] = given[k]
+            else:
+                out[k] = torch.empty(shape, dtype=dt, device=dev)
         if want_idx:
             out["idx"] = torch.empty(n, buf, dtype=i32, device=dev)
         norms = None if dense else torch.empty(n, dtype=f32, device=dev)
@@ -230,6 +263,8 @@ class LocalCov(Kernel):
             _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] += 1
         return out
 
 

@@ -16,7 +16,15 @@ health word; K14 skips w = 0), and ``dim``. Incremental: a row whose
 covariance is within ``REUSE_RTOL`` (relative to its mean real diagonal)
 of ``chol_prev chol_prev^T`` keeps its previous factors; otherwise every
 row is factorized. A refit ``flag`` (int32 on the device) that reads 0
-carries ``prev`` forward verbatim with n_changed 0.
+carries ``prev`` forward verbatim with n_changed 0; without ``prev`` (K16's
+bootstrap fits, whose flag is "the bisection is not done") the kernel then
+writes nothing.
+
+``out`` (optional) holds the factor tensors to write (``chols``, ``precs``,
+``logdets``, ``lconst``), views of stacked buffers; ``n_changed`` a 0-dim
+int32 the kernel adds its count to (one counter over the models of a run
+over several models); ``mode`` names the caller in ``mode_launches``
+(``"models"``, ``"bootstrap"``).
 """
 from __future__ import annotations
 
@@ -98,8 +106,34 @@ def lconst_of(w: torch.Tensor, logdets: torch.Tensor, dim: int):
 
 def local_factor_plain(field: dict, prev: dict | None, *, dim: int,
                        incremental: bool,
-                       flag: torch.Tensor | None = None):
-    """Plain PyTorch version -> (params, n_changed)."""
+                       flag: torch.Tensor | None = None,
+                       out: dict | None = None,
+                       n_changed: torch.Tensor | None = None):
+    """Plain PyTorch version -> (params, n_changed); a flag without
+    ``prev`` is ignored (the field is factorized whatever it reads)."""
+    flagged = flag is not None and prev is not None
+    res, count = _local_factor_plain(field, prev, dim=dim,
+                                     incremental=incremental,
+                                     flag=flag if flagged else None)
+    if flagged:
+        # as the kernel: the field's thetas, weights and cdf are the params'
+        # and take the carried ones when the flag reads 0
+        for k in ("thetas", "weights", "cdf"):
+            field[k].copy_(res[k])
+            res[k] = field[k]
+    if out is not None:
+        for k, v in out.items():
+            v.copy_(res[k])
+        res.update(out)
+    if n_changed is not None:
+        n_changed.add_(count.to(n_changed.dtype))
+        count = n_changed
+    return res, count
+
+
+def _local_factor_plain(field: dict, prev: dict | None, *, dim: int,
+                        incremental: bool,
+                        flag: torch.Tensor | None = None):
     covs, w = field["covs"], field["weights"]
     n, d, _ = covs.shape
     if prev is None:
@@ -123,22 +157,39 @@ def local_factor_plain(field: dict, prev: dict | None, *, dim: int,
     return {**params, "dim": float(dim)}, n_changed
 
 
+#: the factor tensors K13 writes
+FACTOR_KEYS = ("chols", "precs", "logdets", "lconst")
+
+
 class LocalFactor(Kernel):
     name = "local_factor"
     source = "pyabc_tpu_torch/csrc/local_factor.cu"
     replaces = "pyabc_tpu/transition/local_transition.py:309"
+    #: callers counted on their own, each also in ``launches``
+    MODES = ("models", "bootstrap")
+
+    def __init__(self):
+        super().__init__()
+        self.mode_launches = {m: 0 for m in self.MODES}
 
     def __call__(self, field: dict, prev: dict | None, *, dim: int,
-                 incremental: bool, flag: torch.Tensor | None = None):
-        if (incremental or flag is not None) and prev is None:
-            raise ValueError(f"{self.name}: an incremental or flagged refit "
-                             f"needs the previous params")
+                 incremental: bool, flag: torch.Tensor | None = None,
+                 out: dict | None = None,
+                 n_changed: torch.Tensor | None = None,
+                 mode: str | None = None):
+        if incremental and prev is None:
+            raise ValueError(f"{self.name}: an incremental refit needs the "
+                             f"previous params")
+        if mode is not None and mode not in self.MODES:
+            raise ValueError(f"{self.name}: mode {mode!r} not one of "
+                             f"{self.MODES}")
         ins = [field[k] for k in ("thetas", "weights", "cdf", "covs")]
         prev_t = [] if prev is None else [prev[k] for k in PARAM_KEYS]
-        extra = [] if flag is None else [flag]
+        extra = [t for t in (flag, n_changed) if t is not None]
         if self.on_cpu(*ins, *prev_t, *extra):
             return local_factor_plain(field, prev, dim=dim,
-                                      incremental=incremental, flag=flag)
+                                      incremental=incremental, flag=flag,
+                                      out=out, n_changed=n_changed)
         n, d, _ = field["covs"].shape
         if d > MAX_DIM:
             raise ValueError(f"{self.name}: dim {d} above the kernel's "
@@ -156,9 +207,18 @@ class LocalFactor(Kernel):
         if flag is not None:
             self.expect(flag, "flag", torch.int32, ())
         dev = field["covs"].device
-        out = {k: torch.empty(shapes[k], dtype=f32, device=dev)
-               for k in ("chols", "precs", "logdets", "lconst")}
-        n_changed = torch.zeros((), dtype=torch.int32, device=dev)
+        given = out or {}
+        out = {}
+        for k in FACTOR_KEYS:
+            if k in given:
+                self.expect(given[k], f"out.{k}", f32, shapes[k])
+                out[k] = given[k]
+            else:
+                out[k] = torch.empty(shapes[k], dtype=f32, device=dev)
+        if n_changed is None:
+            n_changed = torch.zeros((), dtype=torch.int32, device=dev)
+        else:
+            self.expect(n_changed, "n_changed", torch.int32, ())
         prev_ptrs = ([None] * 7 if prev is None
                      else [prev[k].data_ptr() for k in PARAM_KEYS])
         err = _build.library().pyabc_local_factor(
@@ -166,11 +226,12 @@ class LocalFactor(Kernel):
             int(bool(incremental)), REUSE_RTOL, self.ptr(flag),
             field["thetas"].data_ptr(), field["weights"].data_ptr(),
             field["cdf"].data_ptr(),
-            *(out[k].data_ptr() for k in ("chols", "precs", "logdets",
-                                          "lconst")),
+            *(out[k].data_ptr() for k in FACTOR_KEYS),
             n_changed.data_ptr(), _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] += 1
         params = {"thetas": field["thetas"], "weights": field["weights"],
                   "cdf": field["cdf"], **out, "dim": float(dim)}
         return params, n_changed

@@ -53,6 +53,12 @@ model m's fit (stacked ``(K, ...)`` params) draws theta as above, with
 returns the model index ``m (B,)`` int32. The categorical draws are
 inverse CDFs on the probabilities: the law of ``jax.random.categorical``,
 not its bits (a declared difference).
+
+K > 1 local mode (``propose_local.models``, each model a LocalTransition
+fit: ``local_transition.py::device_rvs`` through ``_switch_propose_sim``):
+the K > 1 mode with model m's per-row factors, theta = thetas[m, idx] +
+chols[m, idx] z (stacked ``chols (K, n, d, d)``); counted as
+``propose_local``'s launches and in its ``mode_launches["models"]``.
 """
 from __future__ import annotations
 
@@ -539,9 +545,11 @@ def draw_models_plain(stream: PhiloxStream, B: int, model_p: torch.Tensor,
 
 def propose_models_plain(stream: PhiloxStream, B: int, priors: dict,
                          model_p: torch.Tensor, params: dict | None = None,
-                         mpk: torch.Tensor | None = None):
+                         mpk: torch.Tensor | None = None,
+                         local: bool = False):
     """Plain PyTorch version of the K > 1 mode -> (theta, logpri, valid,
-    m). ``priors`` is ``random_variables.stacked_arrays``."""
+    m). ``priors`` is ``random_variables.stacked_arrays``; ``local`` draws
+    with the ancestor's own factor ``chols[m, idx]``."""
     dev = priors["loc"].device
     K, d = priors["loc"].shape
     m = draw_models_plain(stream, B, model_p,
@@ -568,8 +576,8 @@ def propose_models_plain(stream: PhiloxStream, B: int, priors: dict,
         idx = (cdf <= u[:, None]).sum(dim=1).clamp(max=n - 1)
         idx = torch.where(torch.isnan(u), n - 1, idx)
         z = normals(stream, lanes, base + 1, d)
-        draw = thetas[m, idx] + torch.einsum("bkl,bl->bk",
-                                             params["chol"][m], z)
+        chol = params["chols"][m, idx] if local else params["chol"][m]
+        draw = thetas[m, idx] + torch.einsum("bkl,bl->bk", chol, z)
         draw = torch.where(real, draw, 0.0)
         lp = prior_logpdf_plain(draw, lane_prior, real)
         if theta is None:
@@ -661,13 +669,22 @@ class Propose(Kernel):
                model_p: torch.Tensor, params: dict | None = None,
                mpk: torch.Tensor | None = None):
         """The K > 1 mode -> (theta ``(B, d_max)``, logpri, valid, m)."""
+        return self._models(stream, B, priors, model_p, params, mpk,
+                            local=False)
+
+    def _models(self, stream: PhiloxStream, B: int, priors: dict,
+                model_p: torch.Tensor, params: dict | None,
+                mpk: torch.Tensor | None, local: bool):
+        """Both K > 1 modes: the models' MVN factors ``chol (K, d, d)``
+        or, with ``local``, LocalTransition's ``chols (K, n, d, d)``."""
         keys = PRIOR_KEYS + ("dims",)
+        chol = "chols" if local else "chol"
         pt = [] if params is None else [params[k] for k in
-                                        ("cdf", "thetas", "chol")] + [mpk]
+                                        ("cdf", "thetas", chol)] + [mpk]
         if self.on_cpu(stream.counters, model_p,
                        *(priors[k] for k in keys), *pt):
             return propose_models_plain(stream, B, priors, model_p, params,
-                                        mpk)
+                                        mpk, local=local)
         K, d = priors["loc"].shape
         if d > MAX_DIM:
             raise ValueError(f"{self.name}: dim {d} above the kernel's "
@@ -687,7 +704,8 @@ class Propose(Kernel):
             n = params["thetas"].shape[1]
             self.expect(params["cdf"], "cdf", f32, (K, n))
             self.expect(params["thetas"], "thetas", f32, (K, n, d))
-            self.expect(params["chol"], "chol", f32, (K, d, d))
+            self.expect(params[chol], chol, f32,
+                        (K, n, d, d) if local else (K, d, d))
             self.expect(mpk, "mpk", f32, (K, K))
             ptrs = [t.data_ptr() for t in pt]
         dev = priors["loc"].device
@@ -697,7 +715,7 @@ class Propose(Kernel):
         m = torch.empty(B, dtype=i32, device=dev)
         k0, k1 = stream.key
         err = _build.library().pyabc_propose_models(
-            B, K, d, n, *ptrs[:3],
+            B, K, d, n, *ptrs[:3], int(local),
             *(priors[k].data_ptr() for k in PRIOR_KEYS),
             int(families(priors)), priors["dims"].data_ptr(),
             model_p.data_ptr(), ptrs[3], k0, k1, stream.generation,
@@ -706,6 +724,8 @@ class Propose(Kernel):
             m.data_ptr(), _build.stream_ptr(dev))
         _build.check(err, self.name)
         self._count(priors)
+        if local:
+            self.mode_launches["models"] += 1
         return theta, logpri, valid, m
 
 
@@ -729,9 +749,24 @@ class ProposeLocal(Propose):
     name = "propose_local"
     replaces = "pyabc_tpu/transition/local_transition.py:432"
 
+    def __init__(self):
+        super().__init__()
+        #: the K > 1 local mode's launches (``"propose_local:models"``)
+        self.mode_launches["models"] = 0
+
     def __call__(self, stream: PhiloxStream, B: int, prior: dict,
                  params: dict):
         return self._draw(stream, B, prior, params, local=True)
+
+    def models(self, stream: PhiloxStream, B: int, priors: dict,
+               model_p: torch.Tensor, params: dict,
+               mpk: torch.Tensor):
+        """K2's K > 1 local mode: the lane's model as ``propose.models``
+        draws it, then the ancestor from that model's ``cdf`` and theta =
+        thetas[m, idx] + chols[m, idx] z with the N_REDRAWS redraws against
+        that model's prior -> (theta ``(B, d_max)``, logpri, valid, m)."""
+        return self._models(stream, B, priors, model_p, params, mpk,
+                            local=True)
 
 
 propose_local = ProposeLocal()

@@ -11,8 +11,13 @@ density K14 (``kernels/local_logpdf.py``).
 Params are a dict of device tensors: ``thetas (n, d)``, ``weights (n,)``,
 ``chols``/``precs (n, d, d)``, ``logdets (n,)``, the ancestor ``cdf (n,)``,
 the per-component constant ``lconst (n,)`` and the true ``dim`` (a Python
-float). As for the MVN transition, the host ``fit``/``pdf`` are not
-ported: the fused path fits on the device.
+float). A run over several models stacks them (a leading model axis,
+``dims (K,)`` float32 in place of ``dim``), refits each model with its own
+K12 and K13 launches over its masked weights (``device_fit_models``), draws
+with K2's K > 1 local mode and scores with K14's K > 1 mode. The bootstrap
+CV of an adaptive population size is K16's LocalTransition mode
+(``kernels/bootstrap_cv.py::local_probe``). As for the MVN transition, the host ``fit``/``pdf``
+are not ported: the fused path fits on the device.
 """
 from __future__ import annotations
 
@@ -78,7 +83,8 @@ class LocalTransition:
         return int(np.clip(k, dim + 1, n))
 
     def fit_statics(self, n: int, dim: int) -> dict:
-        """The fit's static configuration for a population of n: the k
+        """The fit's static configuration for a population of at most n
+        (the run's largest: the schedule's or the adaptive cap's): the k
         bound at n (the per-generation k comes from the valid count on the
         device), the neighbour rule and the selection."""
         return {"scaling": self.scaling, "k_cap": self._effective_k(n, dim),
@@ -95,6 +101,18 @@ class LocalTransition:
         params = {k: torch.zeros(shapes[k], dtype=torch.float32,
                                  device=device) for k in PARAM_KEYS}
         return {**params, "dim": float(d)}
+
+    @staticmethod
+    def zero_params_models(K: int, n: int, d: int,
+                           dims: torch.Tensor) -> dict:
+        """Stacked placeholder params of K never-fitted transitions
+        (``dims`` the models' dims, a float32 tensor on the run's
+        device)."""
+        one = LocalTransition.zero_params(n, d, dims.device)
+        del one["dim"]
+        return {**{k: torch.zeros((K, *v.shape), dtype=v.dtype,
+                                  device=v.device)
+                   for k, v in one.items()}, "dims": dims}
 
     @staticmethod
     def field_config(n_cap: int, dim: int, *, scaling: float,
@@ -156,6 +174,44 @@ class LocalTransition:
                               **statics))
         return local_factor(field, prev, dim=dim, incremental=True,
                             flag=flag)
+
+    @staticmethod
+    def device_fit_models(thetas: torch.Tensor, w_models: torch.Tensor,
+                          prev: dict, flags: torch.Tensor, *, dims,
+                          configs, incremental: bool):
+        """The refit of a run over several models (``util.py:1908-1948``):
+        for model k one K12 launch over its masked weights ``w_models[k]``
+        and one K13 launch (every row, or the changed rows when
+        ``incremental``), both reading model k's refit flag ``flags[k]``
+        (K15's: the cadence's decision and at least dim + 1 accepted rows;
+        0 carries model k's params forward), written into new stacked
+        buffers -> (stacked params, rows factorized over the models).
+        ``configs[k]`` is model k's K12 arguments (``field_config``)."""
+        K, n = w_models.shape
+        d = thetas.shape[1]
+        dev = thetas.device
+        f32 = torch.float32
+        shapes = {"thetas": (K, n, d), "weights": (K, n), "cdf": (K, n),
+                  "covs": (K, n, d, d), "cnt": (K, n),
+                  "chols": (K, n, d, d), "precs": (K, n, d, d),
+                  "logdets": (K, n), "lconst": (K, n)}
+        buf = {k: torch.empty(s, dtype=torch.int32 if k == "cnt" else f32,
+                              device=dev) for k, s in shapes.items()}
+        n_changed = torch.zeros((), dtype=torch.int32, device=dev)
+        for k in range(K):
+            prev_k = {key: prev[key][k] for key in PARAM_KEYS}
+            field = local_cov(
+                thetas, w_models[k], flag=flags[k], mode="models",
+                out={key: buf[key][k] for key in ("thetas", "weights",
+                                                  "cdf", "covs", "cnt")},
+                **configs[k])
+            local_factor(
+                field, prev_k, dim=int(dims[k]), incremental=incremental,
+                flag=flags[k], n_changed=n_changed, mode="models",
+                out={key: buf[key][k] for key in ("chols", "precs",
+                                                  "logdets", "lconst")})
+        params = {k: buf[k] for k in PARAM_KEYS}
+        return {**params, "dims": prev["dims"]}, n_changed
 
     @staticmethod
     def device_rvs(params: dict, n: int, stream: PhiloxStream,

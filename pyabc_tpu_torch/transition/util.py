@@ -51,8 +51,9 @@ def device_mean_cv(params: dict, idx: torch.Tensor, n, *, dim: int,
     their CV std / mean (ddof 0) is taken where the mean is positive, and
     the CVs are averaged with the fitted weights. ``idx`` is
     ``(n_bootstrap, n_cap)``: K16's draw, or any other. The JAX package's
-    twin is generic over the transition class; here it is the MVN's (K16
-    with LocalTransition is in ROADMAP)."""
+    twin is generic over the transition class; here it is the MVN's
+    (LocalTransition's is ``kernels/bootstrap_cv.py::local_probe``, K16's
+    LocalTransition mode)."""
     n = int(n)
     state = torch.tensor([n, n, n, 0, 0], dtype=torch.int32,
                          device=params["thetas"].device)

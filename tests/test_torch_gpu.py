@@ -1874,8 +1874,10 @@ def test_bootstrap_cv_kernels(dev, K, n_cap, d, nb, n_live):
     launched = {e: bc.bootstrap_cv.mode_launches[e] - before[e]
                 for e in bc.BootstrapCV.ENTRIES}
     probes = bc.n_probes(10, n_cap)
+    # the MVN path launches none of LocalTransition's entries
     assert launched == {"draw": 2, "fit": 1 + probes,
-                        "density": 2 + probes, "bisect": 1 + probes}
+                        "density": 2 + probes, "bisect": 1 + probes,
+                        "local_gather": 0, "local_density": 0}
 
 
 def test_adaptive_lv_run_on_the_card(dev):
@@ -2629,3 +2631,184 @@ def test_host_refit_run_on_the_card(dev, kind):
     assert counts["segment_round"] == 0
     by = abc.sync_ledger.summary()["by_kind"]
     assert set(by) == {"round_counters", "chunk_fetch"}
+
+
+# ---------- LocalTransition under population sizes and over several models
+def _local_k16_inputs(dev, K, n_cap, d, n_live, k_cap, seed=0):
+    """Refit params of K models (dims 1, 2, 2 for K 3, model 1 the
+    never-fitted placeholder) and each model's K12 arguments."""
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    X, w = _local_population(dev, n_cap, d, n_live, seed=seed)
+    w = w / w.sum()
+    dims = [d] if K == 1 else [1, 2, 2]
+    cfgs = [LocalTransition.field_config(n_cap, dk, scaling=1.0, device=dev,
+                                         k_cap=k_cap) for dk in dims]
+    if K == 1:
+        p = LocalTransition.device_fit(X, w, dim=d, scaling=1.0,
+                                       k_cap=k_cap,
+                                       k_table=cfgs[0]["k_table"])
+        return {k: v[None].contiguous() for k, v in p.items()
+                if k != "dim"}, dims, cfgs, None
+    m = (torch.arange(n_cap, device=dev) % K).to(torch.int32)
+    m[m == 1] = 2
+    X[m == 0, 1:] = 0.0
+    dims_f = torch.tensor([float(x) for x in dims], device=dev)
+    zero = LocalTransition.zero_params_models(K, n_cap, d, dims_f)
+    w_models = torch.stack([torch.where(m == k, w, torch.zeros_like(w))
+                            for k in range(K)]).contiguous()
+    flags = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    params, _r = LocalTransition.device_fit_models(
+        X, w_models, zero, flags, dims=dims, configs=cfgs,
+        incremental=False)
+    probs = torch.stack([w[m == k].sum() for k in range(K)])
+    return params, dims, cfgs, probs
+
+
+@pytest.mark.parametrize("K,n_cap,d,nb,n_live,k_cap", [
+    (1, 100, 1, 3, 37, 10), (1, 2048, 4, 4, 2048, 512),
+    (3, 512, 2, 4, 512, 128)])
+def test_k16_local_mode_kernels(dev, K, n_cap, d, nb, n_live, k_cap):
+    """K16's LocalTransition mode: the gather bit-equal, the bootstrap fits
+    (K12 and K13 in their bootstrap mode) as the plain versions', the local
+    density's CV within 1e-4 relative and its log-densities bit-equal to
+    K14's on each fit, a done probe writing nothing, and a whole bisection
+    ending where the plain entries end."""
+    from pyabc_tpu_torch.kernels import (bootstrap_cv, local_cov,
+                                         local_factor, local_logpdf)
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        MAX_PROBES, bootstrap_local_density_plain,
+        bootstrap_local_gather_plain, local_fit, local_fit_buffers,
+        n_probes, required_nr)
+    from pyabc_tpu_torch.kernels.local_cov import local_cov_plain
+    from pyabc_tpu_torch.kernels.local_factor import local_factor_plain
+
+    x, dims, cfgs, probs = _local_k16_inputs(dev, K, n_cap, d, n_live,
+                                             k_cap)
+    idx, state = bootstrap_cv.draw(x["cdf"], n_boot=nb, seed=5,
+                                   generation=3, max_rounds=256, min_n=10,
+                                   max_n=n_cap)
+    rows, boot_w, go = bootstrap_cv.local_gather(x["thetas"], idx, state)
+    rows_p, boot_w_p, go_p = bootstrap_local_gather_plain(x["thetas"], idx,
+                                                          state)
+    assert torch.equal(rows, rows_p) and torch.equal(boot_w, boot_w_p)
+    assert int(go) == int(go_p) == 1
+    before = (local_cov.mode_launches["bootstrap"],
+              local_factor.mode_launches["bootstrap"])
+    fits = local_fit(rows, boot_w, go, state,
+                     local_fit_buffers(K, nb, n_cap, d, dev), dims=dims,
+                     configs=cfgs)
+    assert (local_cov.mode_launches["bootstrap"] - before[0]
+            == local_factor.mode_launches["bootstrap"] - before[1]
+            == K * nb)
+    alive = [k for k in range(K) if probs is None or float(probs[k]) > 0]
+    for k in alive:
+        kb = k * nb
+        field = local_cov_plain(rows[kb], boot_w, **cfgs[k])
+        ref, _n = local_factor_plain(field, None, dim=dims[k],
+                                     incremental=False)
+        assert torch.equal(fits["cnt"][kb], field["cnt"])
+        assert _row_close(fits["covs"][kb], field["covs"], 1e-4)
+        assert within(fits["chols"][kb], ref["chols"], 1e-5, 1e-4)
+    part, ld = bootstrap_cv.local_density(x["thetas"], x["weights"], fits,
+                                          state, want_ld=True)
+    part_p = bootstrap_local_density_plain(x["thetas"], x["weights"], fits,
+                                           state)
+    cv = part[..., 0].sum(1) / part[..., 1].sum(1).clamp_min(1e-38)
+    cv_p = part_p[..., 0].sum(1) / part_p[..., 1].sum(1).clamp_min(1e-38)
+    assert within(cv[alive], cv_p[alive], 0.0, 1e-4)
+    for k in alive:
+        live = x["weights"][k] > 0
+        k14 = local_logpdf(x["thetas"][k].contiguous(), {
+            key: fits[key][k * nb] for key in ("thetas", "precs", "lconst",
+                                               "weights")})
+        assert torch.equal(ld[k * nb][live], k14[live])
+    done = state.clone()
+    done[3] = 1
+    r2, w2, g2 = bootstrap_cv.local_gather(x["thetas"], idx, done)
+    assert int(g2) == 0 and float(w2.abs().sum()) == 0.0
+    spare = local_fit_buffers(K, nb, n_cap, d, dev)
+    local_fit(r2, w2, g2, done, spare, dims=dims, configs=cfgs)
+    assert all(float(v.abs().sum()) == 0 for v in spare.values())
+    # a whole bisection: kernels against the plain entries
+    target = 1.5 * float(cv_p[alive].mean())
+    res = required_nr(x["thetas"], x["weights"], x["cdf"], dims=dims,
+                      statics=None, seed=5, generation=3, max_rounds=256,
+                      target_cv=target, min_n=10, max_n=n_cap,
+                      n_bootstrap=nb, model_p=probs, local=cfgs)
+    st = state.clone()
+    st.copy_(torch.tensor([10, n_cap, n_cap, 0, 0], dtype=torch.int32))
+    cvs = torch.zeros(MAX_PROBES, device=dev)
+    fp = local_fit_buffers(K, nb, n_cap, d, dev)
+    for _ in range(n_probes(10, n_cap)):
+        r_p, w_p, _g = bootstrap_local_gather_plain(x["thetas"], idx, st)
+        if not int(st[3]):
+            for kb in range(K * nb):
+                fld = local_cov_plain(r_p[kb], w_p, **cfgs[kb // nb])
+                f, _n = local_factor_plain(fld, None, dim=dims[kb // nb],
+                                           incremental=False)
+                for key in ("thetas", "precs", "lconst", "weights"):
+                    fp[key][kb].copy_(f[key])
+        pp = bootstrap_local_density_plain(x["thetas"], x["weights"], fp, st)
+        bootstrap_cv.bisect(pp, st, cvs, model_p=probs, target=target)
+    assert torch.equal(res["state"], st)
+
+
+@pytest.mark.parametrize("B", [257, 8192])
+def test_local_k_gt_1_modes(dev, B):
+    """K2's and K14's K > 1 local modes, K15's K > 1 mode and the per-model
+    K12 and K13 against their plain versions (config 5's dims, model 1
+    dead)."""
+    from pyabc_tpu_torch import RV, Distribution
+    from pyabc_tpu_torch.core.random_variables import stacked_arrays
+    from pyabc_tpu_torch.kernels import (local_logpdf, proposal_drift,
+                                         propose_local)
+    from pyabc_tpu_torch.kernels.local_logpdf import (
+        local_logpdf_models_plain)
+    from pyabc_tpu_torch.kernels.proposal_drift import (
+        proposal_drift_models_plain)
+    from pyabc_tpu_torch.kernels.propose import propose_models_plain
+
+    K, n, d = 3, 1024, 2
+    params, dims, cfgs, probs = _local_k16_inputs(dev, K, n, d, n, 256)
+    priors = stacked_arrays(
+        [Distribution(a=RV("norm", 0.0, 3.0)),
+         Distribution(a=RV("norm", 0.0, 3.0), b=RV("uniform", -5.0, 10.0)),
+         Distribution(a=RV("norm", 0.0, 3.0), k=RV("norm", 1.0, 3.0))],
+        dev)
+    log_p = torch.log(probs.clamp_min(1e-38))
+    mpk = torch.tensor([[0.7, 0.15, 0.15], [0.15, 0.7, 0.15],
+                        [0.15, 0.15, 0.7]], device=dev)
+    mpk[:, 1] = 0.0
+    mpk = (mpk / mpk.sum(1, keepdim=True)).contiguous()
+    stream = _stream(dev, philox.TRANSITION)
+    th_k, lp_k, v_k, m_k = propose_local.models(stream, B, priors, log_p,
+                                                params, mpk)
+    th_p, lp_p, v_p, m_p = propose_models_plain(stream, B, priors, log_p,
+                                                params, mpk, local=True)
+    same = m_k == m_p
+    assert int((~same).sum()) <= B // 1000 and not bool((m_k == 1).any())
+    ok = same & v_p & v_k
+    assert within(th_k[ok], th_p[ok], 1e-5, 1e-5)
+    got = local_logpdf.models(th_k, m_k, params)
+    ref = local_logpdf_models_plain(th_k, m_k, params)
+    assert within(got, ref, 1e-4, 1e-5)
+    g = _gen(dev, 9)
+    theta = (params["thetas"][0] * 1.1 + 0.01 * torch.randn(
+        n, d, generator=g, device=dev)).contiguous()
+    m = (torch.arange(n, device=dev) % K).to(torch.int32)
+    m[m == 1] = 2
+    theta[m == 0, 1:] = 0.0
+    w = torch.full((n,), 1.0 / n, device=dev)
+    k_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    kw = dict(dims=dims, fitted=torch.tensor([True, False, True],
+                                             device=dev),
+              gens_since=torch.tensor(3, dtype=torch.int32, device=dev),
+              every=4, thr=0.3, min_counts=[x + 1 for x in dims])
+    dk = proposal_drift.models(params["thetas"], params["weights"], theta,
+                               w, k_mask, m, **kw)
+    dp = proposal_drift_models_plain(params["thetas"], params["weights"],
+                                     theta, w, k_mask, m, **kw)
+    assert within(dk["drift"], dp["drift"], 1e-5, 1e-4)
+    for key in ("refit", "flag", "gens_since", "fitted", "w_models"):
+        assert torch.equal(dk[key], dp[key]), key

@@ -575,10 +575,14 @@ def test_gates_of_what_is_not_ported():
                    eps=tpt.Temperature(), acceptor=tpt.StochasticAcceptor(),
                    device="cpu")
     # the segmented family builds (K18 steps it under early reject); a
-    # LocalTransition over several models is still to port
+    # LocalTransition over several models runs, but under segmented early
+    # reject it is still to port
     seg_models, seg_priors, _ts = tmsel.ode_family(segments=4)
     assert all(m.segmented is not None for m in seg_models)
+    abc = tpt.ABCSMC(seg_models, seg_priors,
+                     transitions=[tpt.LocalTransition() for _ in seg_models],
+                     population_size=64, device="cpu")
+    abc.new("sqlite://", tmsel.observed_ode_family(seed=0, true_model=1,
+                                                   segments=4))
     with pytest.raises(NotImplementedError, match="item 12"):
-        tpt.ABCSMC(seg_models, seg_priors,
-                   transitions=[tpt.LocalTransition() for _ in seg_models],
-                   device="cpu")
+        abc.run(max_nr_populations=2)

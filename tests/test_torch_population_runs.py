@@ -300,14 +300,21 @@ def test_what_is_not_ported_raises(what):
     elif what == "other":
         kw["population_size"] = object()
         match = "population strategy object.*item 12"
-    else:
-        kw["population_size"] = (
-            tpt.AdaptivePopulationSize(150, max_population_size=600)
-            if what == "local_adaptive" else tpt.ListPopulationSize([100]))
+    elif what == "local_adaptive":
+        # a bounded adaptive size runs LocalTransition (K16's local mode);
+        # an unbounded one is refused with the strategy, as for the MVN
+        kw["population_size"] = tpt.AdaptivePopulationSize(150)
         kw["transitions"] = tpt.LocalTransition()
-        name = ("AdaptivePopulationSize" if what == "local_adaptive"
-                else "ListPopulationSize")
-        match = f"LocalTransition with {name}.*item 12"
+        match = "unbounded max_population_size.*item 16"
+    else:
+        # a list runs LocalTransition; models whose LocalTransitions differ
+        # take the JAX package's host loop
+        kw["population_size"] = tpt.ListPopulationSize([100])
+        kw["transitions"] = [tpt.LocalTransition(k_fraction=0.25),
+                             tpt.LocalTransition(k_fraction=0.5)]
+        model, prior = [model, model], [prior, prior]
+        match = "LocalTransition with several models whose transitions " \
+                "differ.*item 16"
     with pytest.raises(NotImplementedError, match=match):
         tpt.ABCSMC(model, prior, tpt.PNormDistance(p=2), device="cpu", **kw)
 
