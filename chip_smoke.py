@@ -130,7 +130,14 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    points) and a fit to 8 targets: rows and distances within 1e-5 of
    their scale (sum |k a| + |ymu|), flags equal away from eps, log
    weights equal, the values mode bit-equal to the accept, the same bits
-   run to run;
+   run to run; K17 (GridSearchCV's cross-validated scaling) at LV config
+   2's shape (n 1000, d 4, 5 scalings, cv 5), at n_cap 16384, on two fold
+   tables (1500 rows of 2048; 4 rows, fewer fold ids than cv), K = 3 at
+   config 5's shape and a small odd shape: the scores within 1e-4
+   relative and the same bits run to run, the winner equal where the two
+   best scores differ by more than 1e-4 relative, the params at K8's
+   tolerances; K14 over a pop-16384 noisy run's record ring (131072 x
+   16384, d 4) within 1e-4 + 1e-5 relative;
    each with its largest
    absolute error, its device time ("ms": back-to-back
    calls replayed from one CUDA graph), its time per call ("call_ms": CUDA
@@ -338,10 +345,32 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    the trail and History rows); and the GP leg at pop 1024 on the card and
    the CPU: generation 0's epsilon within 1e-6, the first boundary fit's
    parameters within 1e-6 of their largest value (the kernel system's
-   weights within 1e-3), generations 1 and 2 within 1e-3.
+   weights within 1e-3), generations 1 and 2 within 1e-3. Then GridSearchCV
+   and LocalTransition's last modes, counts reset just before each leg:
+   LV config 2 with GridSearchCV(MVN, scalings 0.25-4, cv 5) at the scale
+   lane's width (pop 16384, 8 generations; K17 every generation in K8's
+   place, the winner trail, syncs, once more under torch.profiler for
+   K17's device ms a generation); the toy's list under GridSearchCV over
+   16 seeds (counts equal to the list, K17 on each generation's fold
+   table); the tractable pair with two GridSearchCVs over 8 seeds (card
+   mean within 0.05 of the exact 0.5529 and 4 se of the CPU's); the noisy
+   anchor with a LocalTransition over 16 seeds (within 4 se of the exact
+   mean and of the CPU's); SIR config 4 with a LocalTransition (the trail
+   ending at exactly 1, one K14 ring pass a generation, the first two
+   temperatures within 1e-3 of the CPU's); config 3 with a LocalTransition
+   on, off, off, on (8 generations) and its K = 2 pair on and off (pop
+   4096): bit-identical.
+
+The anchors' CPU references (the toy, the noisy anchor with and without a
+LocalTransition, the nine prior families, the tractable pair in its three
+kinds, SIR config 4 with a LocalTransition) run in a process of their
+own (``--cpu-refs DIR``, started after the build, half the host's
+threads, no card visible), beside the card phases; the comparisons with
+them run after the card phases, and a failed or missing reference fails
+the run. ``time:`` lines mark each phase.
 
 While the card runs of phases 3 and 4 go, the plain version of every
-kernel (K1-K16 with K16's LocalTransition mode, K18 and its modes,
+kernel (K1-K16 with K16's LocalTransition mode, K17, K18 and its modes,
 K19, K20, K20b, K21a, K21b, K21c, K22, K23 linear and MLP, the GP
 transform, K25, K26 and the K > 1 modes) is replaced by a
 function that
@@ -354,6 +383,7 @@ nonzero without that line. Without a CUDA device it exits nonzero at once.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -2067,6 +2097,9 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.gp_sumstat", "transform_rows_plain"),
     ("pyabc_tpu_torch.kernels.gp_sumstat", "gp_values_plain"),
     ("pyabc_tpu_torch.kernels.gp_sumstat", "gp_accept_plain"),
+    ("pyabc_tpu_torch.kernels.grid_search", "grid_search_cv_plain"),
+    ("pyabc_tpu_torch.kernels.grid_search", "grid_search_cv_models_plain"),
+    ("pyabc_tpu_torch.kernels.grid_search", "fold_scores_plain"),
 )
 
 
@@ -2092,56 +2125,192 @@ def plain_versions_raise():
             setattr(mod, attr, fn)
 
 
+# ------------------------------------------ the CPU reference process
+#: the share of the host's threads the CPU reference process takes: half
+#: of them (the card's process drives the card from one thread and keeps
+#: the other half)
+REF_THREADS = max(1, (os.cpu_count() or 2) // 2)
+#: the CPU references, run in this order by one process of their own
+#: (``--cpu-refs DIR``) beside the card's phases: name -> a function of no
+#: argument returning a JSON-able result (filled below, as each is defined)
+CPU_REF_JOBS: dict = {}
+#: the comparisons that read a CPU reference, run after the card's phases
+PENDING: list = []
+REFS = None
+
+
+def cpu_ref(fn):
+    """Register ``fn`` as a CPU reference job, run in definition order."""
+    CPU_REF_JOBS[fn.__name__] = fn
+    return fn
+
+
+class CpuRefs:
+    """The CPU reference process: started after the kernel build, on the
+    CPU only (no card visible to it) with REF_THREADS threads; each job's
+    result lands in its own JSON file, which ``get`` waits for. A failed
+    job (its traceback in ``<name>.err``) or a process that ends without a
+    result fails the run."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_refs_")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(REF_THREADS),
+                   MKL_NUM_THREADS=str(REF_THREADS))
+        self.log = open(os.path.join(self.dir, "log.txt"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-refs",
+             self.dir], env=env, stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.t0 = time.perf_counter()
+        log(f"CPU reference process started (pid {self.proc.pid}, "
+            f"{REF_THREADS} of {os.cpu_count()} host threads, jobs "
+            f"{list(CPU_REF_JOBS)})")
+
+    def _tail(self) -> str:
+        self.log.flush()
+        with open(os.path.join(self.dir, "log.txt")) as f:
+            return f.read()[-4000:]
+
+    def get(self, name: str):
+        path = os.path.join(self.dir, name + ".json")
+        err = os.path.join(self.dir, name + ".err")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if os.path.exists(err):
+                with open(err) as f:
+                    raise AssertionError(f"CPU reference {name} failed:\n"
+                                         f"{f.read()[-4000:]}")
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"the CPU reference process ended (code "
+                    f"{self.proc.returncode}) without {name}:\n"
+                    f"{self._tail()}")
+            time.sleep(0.2)
+        with open(path) as f:
+            out = json.load(f)
+        log(f"CPU reference {name}: {out['wall_s']:.1f} s in its process, "
+            f"waited {time.perf_counter() - t0:.1f} s for it")
+        return out
+
+    def close(self, ok: bool) -> None:
+        """Wait for the process (every job read), or stop it on a failed
+        run; either way no process stays behind."""
+        if ok:
+            code = self.proc.wait(timeout=600)
+            check(code == 0, f"the CPU reference process exited {code}:\n"
+                  f"{self._tail()}")
+            log(f"CPU reference process: all {len(CPU_REF_JOBS)} jobs in "
+                f"{time.perf_counter() - self.t0:.1f} s")
+        elif self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def cpu_refs_main(out_dir: str) -> int:
+    """The CPU reference process: every job in order, each result written
+    whole (a temporary file renamed), a failure's traceback to
+    ``<name>.err``."""
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(REF_THREADS)
+    for name, fn in CPU_REF_JOBS.items():
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except BaseException:
+            with open(os.path.join(out_dir, name + ".err"), "w") as f:
+                f.write(traceback.format_exc())
+            return 1
+        out["wall_s"] = time.perf_counter() - t0
+        tmp = os.path.join(out_dir, name + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(out, f)
+        os.replace(tmp, os.path.join(out_dir, name + ".json"))
+        log(f"{name}: {out['wall_s']:.1f} s")
+    return 0
+
+
+def finish_references() -> None:
+    """The comparisons with the CPU references, in the order the card's
+    phases queued them."""
+    while PENDING:
+        PENDING.pop(0)()
+
+
+def toy_stats(where) -> dict:
+    """The conjugate toy over TOY_SEEDS on one device -> each seed's
+    posterior mean and least ESS, the lowest ESS (value, seed,
+    generation) and the wall."""
+    from pyabc_tpu_torch.models import gaussian
+
+    mu_true, sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
+    mus, ess_min = [], []
+    t0 = time.perf_counter()
+    lowest = run_toy_seeds(where, mus, ess_min, mu_true, sd_true,
+                           where != "cpu")
+    return {"mus": mus, "ess_min": ess_min, "lowest": list(lowest),
+            "wall": time.perf_counter() - t0}
+
+
+@cpu_ref
+def toy_cpu() -> dict:
+    return toy_stats("cpu")
+
+
 def gaussian_toy(dev) -> None:
     """The conjugate toy over TOY_SEEDS seeds on the card and, as the
     reference, on the CPU (plain versions: the same Philox proposals, the
-    simulator's noise from another generator)."""
+    simulator's noise from another generator; in the CPU reference
+    process)."""
     import numpy as np
 
     from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
     from pyabc_tpu_torch.models import gaussian
 
-    mu_true, sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
-    means = {}
-    for where in (dev, "cpu"):
-        mus, ess_min = [], []
-        t0 = time.perf_counter()
-        on_card = where == dev
-        guard = plain_versions_raise() if on_card else contextlib.nullcontext()
-        if on_card:
-            reset_launch_counts()
-        with guard:
-            lowest = run_toy_seeds(where, mus, ess_min, mu_true, sd_true,
-                                   on_card)
-        if on_card:
-            counts = launch_counts()
-            log(f"gaussian toy ({where}): kernel launches {counts}")
-            toy_path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
-                        "compact_round", "normalize_quantile", "mvn_fit",
-                        "pack_fetch", "generation_health")
-            check(all(counts[k] > 0 for k in toy_path),
-                  "a kernel of the Gaussian toy's path was never launched")
-        wall = time.perf_counter() - t0
+    mu_true, _sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
+    reset_launch_counts()
+    with plain_versions_raise():
+        card = toy_stats(dev)
+    counts = launch_counts()
+    log(f"gaussian toy ({dev}): kernel launches {counts}")
+    toy_path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
+                "compact_round", "normalize_quantile", "mvn_fit",
+                "pack_fetch", "generation_health")
+    check(all(counts[k] > 0 for k in toy_path),
+          "a kernel of the Gaussian toy's path was never launched")
+
+    def summary(where, st):
+        mus, ess_min, lowest = st["mus"], st["ess_min"], st["lowest"]
         m = float(np.mean(mus))
         se = float(np.std(mus, ddof=1) / math.sqrt(len(mus)))
-        means[where] = (m, se)
-        log(f"gaussian toy ({where}, {len(mus)} seeds, {wall:.2f} s): mean "
-            f"of posterior means {m:.4f} se {se:.4f} (analytic {mu_true:.4f},"
-            f" {(m - mu_true) / se:+.2f} se); per seed min {min(mus):.4f} "
-            f"max {max(mus):.4f}; least ESS over the generations, lowest "
-            f"seed {min(ess_min):.1f} median seed "
+        log(f"gaussian toy ({where}, {len(mus)} seeds, {st['wall']:.2f} s): "
+            f"mean of posterior means {m:.4f} se {se:.4f} (analytic "
+            f"{mu_true:.4f}, {(m - mu_true) / se:+.2f} se); per seed min "
+            f"{min(mus):.4f} max {max(mus):.4f}; least ESS over the "
+            f"generations, lowest seed {min(ess_min):.1f} median seed "
             f"{float(np.median(ess_min)):.1f}")
         log(f"gaussian toy ({where}): lowest ESS {lowest[0]:.1f} at seed "
             f"{lowest[1]} generation {lowest[2]}")
-    (m_d, se_d), (m_c, se_c) = means[dev], means["cpu"]
-    gap_se = (m_d - m_c) / math.hypot(se_d, se_c)
-    log(f"gaussian toy: card - cpu {m_d - m_c:+.4f} ({gap_se:+.2f} se)")
+        return m, se
+
+    m_d, se_d = summary(dev, card)
     # the seed mean's standard error is about 0.008 (sd ~0.045 over 32
     # seeds), so a bias of 0.03 in the device path lies ~4 se out
     check(abs(m_d - mu_true) < 0.03,
           "gaussian toy mean over seeds off the analytic mean by >= 0.03")
-    check(abs(gap_se) < 4.0, "gaussian toy: card and CPU means differ by "
-          ">= 4 standard errors")
+
+    def compare():
+        m_c, se_c = summary("cpu", REFS.get("toy_cpu"))
+        gap_se = (m_d - m_c) / math.hypot(se_d, se_c)
+        log(f"gaussian toy: card - cpu {m_d - m_c:+.4f} ({gap_se:+.2f} se)")
+        check(abs(gap_se) < 4.0, "gaussian toy: card and CPU means differ "
+              "by >= 4 standard errors")
+
+    PENDING.append(compare)
 
 
 def toy_run(where, seed):
@@ -2356,93 +2525,134 @@ def lv_cpu_trail(card_eps: list[float]) -> None:
         f"apart by more than 1e-3: {parted}")
 
 
-def anchor_run(where, seed, rv=None):
+def anchor_run(where, seed, rv=None, local: bool = False):
     """The noisy Gaussian anchor: x = theta (a one-line user model),
     prior N(0, 1) (or ``rv``), IndependentNormalKernel(var 0.09), x_obs
-    0.8."""
+    0.8; ``local``: with a LocalTransition()."""
     import pyabc_tpu_torch as pt
 
     model = pt.TorchModel(lambda theta, gen: {"x": theta[:, 0]}, ["theta"],
                           name="det")
     rv = pt.RV("norm", 0.0, 1.0) if rv is None else rv
+    kw = {"transitions": pt.LocalTransition()} if local else {}
     abc = pt.ABCSMC(model, pt.Distribution(theta=rv),
                     pt.IndependentNormalKernel(var=[0.09]),
                     population_size=POP, eps=pt.Temperature(),
                     acceptor=pt.StochasticAcceptor(), seed=seed,
-                    device=where)
+                    device=where, **kw)
     abc.new("sqlite://", {"x": 0.8})
     return abc.run(max_nr_populations=7)
 
 
-def noisy_anchor(dev) -> None:
-    """The anchor over TOY_SEEDS on the card and on the CPU: the seed
-    means of the posterior mean and sd against the exact posterior, and
-    the card's mean against the CPU's."""
+#: the noisy anchor with a LocalTransition: seeds on the card and the CPU
+NOISY_LOCAL_SEEDS = tuple(range(16))
+
+
+def noisy_stats(where, local: bool = False) -> dict:
+    """The anchor over TOY_SEEDS (``local``: NOISY_LOCAL_SEEDS with a
+    LocalTransition) on one device: every temperature trail falls to
+    exactly 1 -> each seed's posterior mean and sd, the trails, the
+    wall."""
     import numpy as np
 
-    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    mus, sds, trails = [], [], []
+    t0 = time.perf_counter()
+    for seed in (NOISY_LOCAL_SEEDS if local else TOY_SEEDS):
+        h = anchor_run(where, seed, local=local)
+        temps = [float(x) for x in h.get_all_populations()["epsilon"][1:]]
+        check(temps[-1] == 1.0 and all(
+            b <= a for a, b in zip(temps, temps[1:])),
+            f"noisy anchor seed {seed} ({where}): temperature trail "
+            f"{temps} does not fall to exactly 1")
+        df, w = h.get_distribution()
+        x = np.asarray(df["theta"])
+        mu = float(np.sum(w * x))
+        mus.append(mu)
+        sds.append(float(np.sqrt(np.sum(w * (x - mu) ** 2))))
+        trails.append(temps)
+    return {"mus": mus, "sds": sds, "trails": trails,
+            "wall": time.perf_counter() - t0}
+
+
+@cpu_ref
+def noisy_cpu() -> dict:
+    return noisy_stats("cpu")
+
+
+def noisy_anchor(dev, local: bool = False) -> dict:
+    """The anchor over TOY_SEEDS on the card and on the CPU (the CPU
+    reference process): the seed means of the posterior mean and sd
+    against the exact posterior, and the card's mean against the CPU's.
+    ``local``: with a LocalTransition over NOISY_LOCAL_SEEDS (K2's local
+    mode, K14 on the rounds and over the record ring, K15, K12, K13), the
+    card's mean within 4 se of the exact posterior and of the CPU's ->
+    the card's launch and mode counts."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
 
     var = 1.0 / (1.0 + 1.0 / 0.09)
     mu_true, sd_true = var * 0.8 / 0.09, math.sqrt(var)
-    stats = {}
-    for where in (dev, "cpu"):
-        on_card = where == dev
-        mus, sds, trails = [], [], []
-        t0 = time.perf_counter()
-        if on_card:
-            reset_launch_counts()
-        with plain_versions_raise() if on_card else contextlib.nullcontext():
-            for seed in TOY_SEEDS:
-                h = anchor_run(where, seed)
-                temps = [float(x) for x in
-                         h.get_all_populations()["epsilon"][1:]]
-                check(temps[-1] == 1.0 and all(
-                    b <= a for a, b in zip(temps, temps[1:])),
-                    f"noisy anchor seed {seed} ({where}): temperature "
-                    f"trail {temps} does not fall to exactly 1")
-                df, w = h.get_distribution()
-                x = np.asarray(df["theta"])
-                mu = float(np.sum(w * x))
-                mus.append(mu)
-                sds.append(float(np.sqrt(np.sum(w * (x - mu) ** 2))))
-                trails.append(temps)
-        wall = time.perf_counter() - t0
-        if on_card:
-            counts = launch_counts()
-            log(f"noisy anchor ({where}): kernel launches {counts}")
-            path = [k for k in SIR_PATH if k != "sir_simulate"]
-            check(all(counts[k] > 0 for k in path),
-                  "a kernel of the noisy anchor's path was never launched")
+    name = "noisy anchor, local" if local else "noisy anchor"
+    reset_launch_counts()
+    with plain_versions_raise():
+        card = noisy_stats(dev, local)
+    counts = launch_counts() | mode_launch_counts()
+    log(f"{name} ({dev}): kernel launches {counts}")
+    path = [k for k in SIR_PATH if k != "sir_simulate"]
+    if local:
+        path = [k for k in path if k not in ("mvn_mixture_logpdf",
+                                             "mvn_fit")] + list(LOCAL_KERNELS)
+        check(counts["mvn_fit"] == counts["mvn_mixture_logpdf"] == 0,
+              f"{name}: an MVN kernel ran")
+    check(all(counts[k] > 0 for k in path),
+          f"a kernel of the {name}'s path was never launched")
+
+    def summary(where, st):
+        mus = st["mus"]
         m, se = float(np.mean(mus)), float(np.std(mus, ddof=1)
                                            / math.sqrt(len(mus)))
-        m_sd = float(np.mean(sds))
-        stats[where] = (m, se)
-        log(f"noisy anchor ({where}, {len(mus)} seeds, {wall:.2f} s): mean "
+        m_sd = float(np.mean(st["sds"]))
+        log(f"{name} ({where}, {len(mus)} seeds, {st['wall']:.2f} s): mean "
             f"of posterior means {m:.4f} se {se:.4f} (exact {mu_true:.4f}, "
             f"{(m - mu_true) / se:+.2f} se); mean posterior sd {m_sd:.4f} "
             f"(exact {sd_true:.4f}); seed 0 temperatures "
-            f"{[round(t, 4) for t in trails[0]]}; generations per seed "
-            f"{sorted(set(len(t) for t in trails))}")
-        if on_card:
-            check(abs(m - mu_true) < 0.02 and abs(m_sd - sd_true) < 0.02,
-                  "noisy anchor: the card's seed mean of the posterior "
-                  "mean or sd is 0.02 or more off the exact posterior")
-    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
-    gap = (m_d - m_c) / math.hypot(se_d, se_c)
-    log(f"noisy anchor: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
-    check(abs(gap) < 4.0, "noisy anchor: card and CPU means differ by >= 4 "
-          "standard errors")
+            f"{[round(t, 4) for t in st['trails'][0]]}; generations per "
+            f"seed {sorted(set(len(t) for t in st['trails']))}")
+        return m, se, m_sd
+
+    m_d, se_d, sd_d = summary(dev, card)
+    if local:
+        check(abs(m_d - mu_true) < 4 * se_d, f"{name}: the card's seed mean "
+              f"is 4 se or more off the exact posterior")
+    else:
+        check(abs(m_d - mu_true) < 0.02 and abs(sd_d - sd_true) < 0.02,
+              "noisy anchor: the card's seed mean of the posterior mean or "
+              "sd is 0.02 or more off the exact posterior")
+
+    def compare():
+        m_c, se_c, _sd = summary(
+            "cpu", REFS.get("noisy_local_cpu" if local else "noisy_cpu"))
+        gap = (m_d - m_c) / math.hypot(se_d, se_c)
+        log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+        check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= 4 "
+              "standard errors")
+
+    PENDING.append(compare)
+    return counts
 
 
-def sir_config4(where, seed: int = 0, **run_kw):
+def sir_config4(where, seed: int = 0, local: bool = False):
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import sir
 
+    kw = {"transitions": pt.LocalTransition()} if local else {}
     abc = pt.ABCSMC(sir.make_sir_model(), sir.default_prior(),
                     pt.IndependentNormalKernel(var=[100.0] * 15),
                     population_size=POP, eps=pt.Temperature(),
                     acceptor=pt.StochasticAcceptor(), seed=seed,
-                    device=where)
+                    device=where, **kw)
     abc.MAX_ROUNDS = SIR_MAX_ROUNDS
     abc.new("sqlite://", sir.observed_data(seed=11), store_sum_stats=False)
     return abc
@@ -2555,15 +2765,28 @@ LOCAL_MODELS_PATH = ("propose", "propose_local", "local_logpdf",
                      "local_cov:models", "local_factor:models")
 
 
-def pair_abc(where, seed, local: bool = False):
+#: the tractable pair with two GridSearchCVs (the JAX suite's cv 4 and
+#: grid): its seeds on the card and the CPU
+PAIR_GRID_SEEDS = tuple(range(8))
+PAIR_GRID = (0.5, 1.0, 2.0)
+
+
+def pair_abc(where, seed, kind: str = "mvn"):
     """The tractable pair (two Gaussian user models, sd 0.6 and 1.2) at
-    x_obs PAIR_X; ``local``: each model with a LocalTransition()."""
+    x_obs PAIR_X; ``kind`` "local": each model with a LocalTransition(),
+    "grid": with a GridSearchCV over PAIR_GRID, cv 4."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import model_selection as msel
 
     models, priors, _an = msel.tractable_pair()
-    kw = ({"transitions": [pt.LocalTransition(), pt.LocalTransition()]}
-          if local else {})
+    kw = {}
+    if kind == "local":
+        kw["transitions"] = [pt.LocalTransition(), pt.LocalTransition()]
+    elif kind == "grid":
+        kw["transitions"] = [
+            pt.GridSearchCV(pt.MultivariateNormalTransition(),
+                            {"scaling": list(PAIR_GRID)}, cv=4)
+            for _ in range(2)]
     abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
                     population_size=PAIR_POP, eps=pt.MedianEpsilon(),
                     seed=seed, device=where, **kw)
@@ -2571,16 +2794,51 @@ def pair_abc(where, seed, local: bool = False):
     return abc
 
 
-def pair_run(where, seed, local: bool = False):
-    return pair_abc(where, seed, local).run(max_nr_populations=PAIR_GENS)
+def pair_stats(where, kind: str = "mvn") -> dict:
+    """The pair over its seeds on one device -> each seed's P(m = 0) and
+    the wall."""
+    p0 = []
+    t0 = time.perf_counter()
+    for seed in (PAIR_GRID_SEEDS if kind == "grid" else PAIR_SEEDS):
+        h = pair_abc(where, seed, kind).run(max_nr_populations=PAIR_GENS)
+        check(h.n_populations == PAIR_GENS,
+              f"tractable pair ({kind}) seed {seed} ({where}) ran "
+              f"{h.n_populations} generations")
+        p0.append(float(h.get_model_probabilities(h.max_t)["p"]
+                        .get(0, 0.0)))
+    return {"p0": p0, "wall": time.perf_counter() - t0}
 
 
-def pair_anchor(dev, local: bool = False) -> dict | None:
+@cpu_ref
+def pair_cpu() -> dict:
+    return pair_stats("cpu")
+
+
+@cpu_ref
+def pair_local_cpu() -> dict:
+    return pair_stats("cpu", "local")
+
+
+@cpu_ref
+def pair_grid_cpu() -> dict:
+    return pair_stats("cpu", "grid")
+
+
+#: the K > 1 path of each pair kind (K26 and the K > 1 modes)
+PAIR_GRID_PATH = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
+                  "compact_round", "normalize_quantile", "grid_search_cv",
+                  "model_step", "pack_fetch", "generation_health",
+                  "grid_search_cv:models")
+
+
+def pair_anchor(dev, kind: str = "mvn") -> dict | None:
     """The model-selection anchor over PAIR_SEEDS on the card and on the
-    CPU: the seed mean of P(m = 0) against the exact model posterior, and
-    the card's mean against the CPU's; ``local``: each model with a
-    LocalTransition (K2's and K14's K > 1 local modes, the per-model
-    K12, K13 and K15) -> the card's launch and mode counts (``local``)."""
+    CPU (the CPU reference process): the seed mean of P(m = 0) against the
+    exact model posterior (within 0.05), and the card's mean against the
+    CPU's (within 4 se); ``kind`` "local": each model with a
+    LocalTransition (K2's and K14's K > 1 local modes, the per-model K12,
+    K13 and K15), "grid": with a GridSearchCV over PAIR_GRID_SEEDS (K17's
+    K > 1 mode) -> the card's launch and mode counts."""
     import numpy as np
     import torch
 
@@ -2589,53 +2847,51 @@ def pair_anchor(dev, local: bool = False) -> dict | None:
     from pyabc_tpu_torch.models import model_selection as msel
 
     exact = float(msel.tractable_pair()[2](PAIR_X)[0])
-    stats = {}
-    name = "tractable pair, local" if local else "tractable pair"
-    counts = None
-    for where in (dev, "cpu"):
-        on_card = where == dev
-        p0 = []
-        t0 = time.perf_counter()
-        if on_card:
-            torch.cuda.synchronize()
-            reset_launch_counts()
-        with plain_versions_raise() if on_card else contextlib.nullcontext():
-            for seed in PAIR_SEEDS:
-                h = pair_run(where, seed, local=local)
-                check(h.n_populations == PAIR_GENS,
-                      f"{name} seed {seed} ({where}) ran "
-                      f"{h.n_populations} generations")
-                p0.append(float(h.get_model_probabilities(h.max_t)["p"]
-                                .get(0, 0.0)))
-        wall = time.perf_counter() - t0
-        if on_card:
-            counts = launch_counts() | mode_launch_counts()
-            log(f"{name} ({where}): kernel launches {counts}")
-            path = ([k for k in C5_PATH if k != "ode_family_simulate"]
-                    if not local else LOCAL_MODELS_PATH)
-            check(all(counts[k] > 0 for k in path),
-                  f"a kernel of the {name}'s path was never launched")
-            if local:
-                check(counts["mvn_fit"] == counts["mvn_mixture_logpdf"]
-                      == 0, f"{name}: an MVN kernel ran")
+    name = {"mvn": "tractable pair", "local": "tractable pair, local",
+            "grid": "tractable pair, GridSearchCV"}[kind]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        card = pair_stats(dev, kind)
+    counts = launch_counts() | mode_launch_counts()
+    log(f"{name} ({dev}): kernel launches {counts}")
+    path = {"mvn": [k for k in C5_PATH if k != "ode_family_simulate"],
+            "local": LOCAL_MODELS_PATH, "grid": PAIR_GRID_PATH}[kind]
+    check(all(counts[k] > 0 for k in path),
+          f"a kernel of the {name}'s path was never launched")
+    if kind == "local":
+        check(counts["mvn_fit"] == counts["mvn_mixture_logpdf"] == 0,
+              f"{name}: an MVN kernel ran")
+    if kind == "grid":
+        check(counts["mvn_fit"] == 0, f"{name}: K8 ran in K17's place")
+
+    def summary(where, st):
+        p0 = st["p0"]
         m = float(np.mean(p0))
         se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
-        stats[where] = (m, se)
-        log(f"{name} ({where}, {len(p0)} seeds, x_obs {PAIR_X}, "
-            f"pop {PAIR_POP}, {PAIR_GENS} generations, {wall:.2f} s): mean "
-            f"P(m=0) {m:.4f} se {se:.4f} (exact {exact:.4f}, "
+        log(f"{name} ({where}, {len(p0)} seeds, x_obs {PAIR_X}, pop "
+            f"{PAIR_POP}, {PAIR_GENS} generations, {st['wall']:.2f} s): "
+            f"mean P(m=0) {m:.4f} se {se:.4f} (exact {exact:.4f}, "
             f"{(m - exact) / se:+.2f} se); per seed min {min(p0):.4f} max "
             f"{max(p0):.4f}")
-        if on_card:
-            check(abs(m - exact) < 0.05, f"{name}: the card's seed "
-                  "mean of P(m=0) is 0.05 or more off the exact posterior")
-    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
-    gap = (m_d - m_c) / math.hypot(se_d, se_c)
-    log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
-    check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= "
-          "4 standard errors")
-    if local:
-        abc = pair_abc(dev, 0, local=True)
+        return m, se
+
+    m_d, se_d = summary(dev, card)
+    check(abs(m_d - exact) < 0.05, f"{name}: the card's seed mean of "
+          "P(m=0) is 0.05 or more off the exact posterior")
+
+    def compare():
+        m_c, se_c = summary("cpu", REFS.get(
+            {"mvn": "pair_cpu", "local": "pair_local_cpu",
+             "grid": "pair_grid_cpu"}[kind]))
+        gap = (m_d - m_c) / math.hypot(se_d, se_c)
+        log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+        check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= "
+              "4 standard errors")
+
+    PENDING.append(compare)
+    if kind != "mvn":
+        abc = pair_abc(dev, 0, kind)
         profile_run(f"{name} (seed 0, profiled)", abc, PAIR_GENS)
         sync_check(abc, name)
         log(f"{name} (seed 0): wall split {wall_split(abc)}")
@@ -3158,15 +3414,28 @@ def seg_totals(h) -> dict:
         "occupancy": [x.get("segment_occupancy") for x in tel]}
 
 
-def config3(where, early, pop: int | None = None):
+def config3(where, early, pop: int | None = None, local: bool = False,
+            pair: bool = False):
+    """Config 3 (``local``: with a LocalTransition; ``pair``: beside a
+    second birth-death model of initial count 25, each with its own
+    transition)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import gillespie as g
 
-    abc = pt.ABCSMC(g.make_birth_death_model(segments=C3_SEGS),
-                    g.birth_death_prior(), pt.PNormDistance(p=2),
+    models = g.make_birth_death_model(segments=C3_SEGS)
+    priors = g.birth_death_prior()
+    tr = pt.LocalTransition if local else pt.MultivariateNormalTransition
+    kw = {"transitions": tr()} if local else {}
+    if pair:
+        models = [models, g.make_birth_death_model(segments=C3_SEGS, x0=25.0,
+                                                   name="bd25")]
+        priors = [priors, g.birth_death_prior()]
+        kw = {"transitions": [tr(), tr()]}
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
                     population_size=pop or C3_POP, eps=pt.MedianEpsilon(),
                     seed=C3_SEED,
-                    early_reject=early, fused_generations=C3_G, device=where)
+                    early_reject=early, fused_generations=C3_G, device=where,
+                    **kw)
     abc.new("sqlite://", g.observed_birth_death(segments=C3_SEGS),
             store_sum_stats=False)
     return abc
@@ -4908,6 +5177,8 @@ C5A_START, C5A_MAX, C5A_GENS = 1000, 4096, 8
 LIST_SIZES = (500, 1000, 2000, 1000, 500)
 #: seeds of the toy's list under LocalTransition
 LIST_LOCAL_SEEDS = 16
+#: the grid of the toy's list under GridSearchCV (the JAX suite's)
+LIST_GRID = (0.25, 1.0, 2.25)
 #: the local adaptive legs' paths (the kernels each must launch)
 LOCAL_ADA_PATH = ("propose", "propose_local", "local_logpdf", "lv_simulate",
                   "pnorm_accept_weight", "compact_round",
@@ -5395,15 +5666,17 @@ def constant_lv_syncs(dev, ada_abc) -> None:
           f"the calibration's reads differ: {per}")
 
 
-def list_leg(dev, local: bool = False) -> tuple[dict, dict, list]:
+def list_leg(dev, kind: str = "mvn") -> tuple[dict, dict, list]:
     """The Gaussian toy with ListPopulationSize((500, 1000, 2000, 1000,
     500)) over TOY_SEEDS seeds on the card, counts reset just before the
     first: the stored counts equal the list in every seed, the seed mean of
     the posterior means lies within 0.03 of the analytic posterior mean
     (the toy leg's rule; the seeds' sd is about 0.05 at a last n of 500, so
-    its se is about 0.009) and every seed within 0.25 (5 sd). ``local``:
-    LocalTransition(k_fraction=0.3) over the first 16 seeds, the seed mean
-    within 0.05 (the se about 0.013)."""
+    its se is about 0.009) and every seed within 0.25 (5 sd). ``kind``
+    "local": LocalTransition(k_fraction=0.3) over the first 16 seeds, the
+    seed mean within 0.05 (the se about 0.013); "grid": GridSearchCV over
+    LIST_GRID with cv 5 over the first 16 seeds (K17 on each generation's
+    fold table), within 0.05."""
     import numpy as np
     import torch
 
@@ -5412,12 +5685,17 @@ def list_leg(dev, local: bool = False) -> tuple[dict, dict, list]:
                                          reset_launch_counts)
     from pyabc_tpu_torch.models import gaussian
 
+    local = kind == "local"
     mu_true, _sd_true = gaussian.conjugate_posterior(1.0)
     mus, counts = [], None
-    seeds = TOY_SEEDS[:LIST_LOCAL_SEEDS] if local else TOY_SEEDS
+    seeds = TOY_SEEDS[:LIST_LOCAL_SEEDS] if kind != "mvn" else TOY_SEEDS
     kw = ({"transitions": pt.LocalTransition(k_fraction=0.3)} if local
+          else {"transitions": pt.GridSearchCV(
+              pt.MultivariateNormalTransition(),
+              {"scaling": list(LIST_GRID)}, cv=5)} if kind == "grid"
           else {})
-    name = "list leg, local" if local else "list leg"
+    name = {"mvn": "list leg", "local": "list leg, local",
+            "grid": "list leg, GridSearchCV"}[kind]
     for seed in seeds:
         abc = pt.ABCSMC(gaussian.make_mean_only_model(),
                         gaussian.mean_only_prior(), pt.PNormDistance(p=2),
@@ -5443,7 +5721,7 @@ def list_leg(dev, local: bool = False) -> tuple[dict, dict, list]:
             syncs = abc.sync_ledger.summary()
             sync_check(abc, name)
             log(f"toy ListPopulationSize{LIST_SIZES}"
-                f"{', LocalTransition' if local else ''}: seed 0 wall_s="
+                f"{'' if kind == 'mvn' else ', ' + kind}: seed 0 wall_s="
                 f"{wall:.3f} syncs_per_generation="
                 f"{syncs['syncs'] / (h.max_t + 1):.2f} ({syncs['by_kind']}), "
                 f"stored counts {stored}, K16 launches "
@@ -5454,12 +5732,16 @@ def list_leg(dev, local: bool = False) -> tuple[dict, dict, list]:
         f"{se:.4f} against the analytic {mu_true:.4f} "
         f"({(mean - mu_true) / se:+.2f} se); per seed min {min(mus):.4f} "
         f"max {max(mus):.4f}")
-    lim = 0.05 if local else 0.03
+    lim = 0.05 if kind != "mvn" else 0.03
     check(abs(mean - mu_true) < lim,
           f"{name}: the seed mean is off the analytic mean by >= {lim}")
     check(all(abs(m - mu_true) < 0.25 for m in mus),
           f"{name}: a seed's posterior mean is off by >= 0.25")
     check(counts["bootstrap_cv"] == 0, f"{name}: K16 ran on a list")
+    if kind == "grid":
+        check(counts["grid_search_cv"] == len(LIST_SIZES)
+              and counts["mvn_fit"] == 0,
+              f"{name}: K17 did not refit every generation in K8's place")
     if local:
         check(all(counts[k] > 0 for k in LOCAL_KERNELS)
               and counts["mvn_fit"] == 0,
@@ -7043,68 +7325,89 @@ def anchor_exact(spec) -> tuple[float, float]:
     return mu, float(np.sqrt(np.sum(post * (grid - mu) ** 2)))
 
 
+def family_stats(where, seeds, families=ANCHOR_FAMILIES) -> dict:
+    """The anchor under each prior of ``families`` over ``seeds`` on one
+    device, every temperature trail falling to exactly 1 -> each
+    family's posterior means and wall."""
+    import numpy as np
+
+    out = {}
+    for label, spec in families:
+        mus = []
+        t0 = time.perf_counter()
+        for seed in seeds:
+            h = anchor_run(where, seed, family_rv(spec))
+            temps = [float(x) for x in
+                     h.get_all_populations()["epsilon"][1:]]
+            check(temps[-1] == 1.0 and all(
+                b <= a for a, b in zip(temps, temps[1:])),
+                f"family anchor {label} seed {seed} ({where}): "
+                f"temperature trail {temps} does not fall to exactly 1")
+            df, w = h.get_distribution()
+            mus.append(float(np.sum(w * np.asarray(df["theta"]))))
+        out[label] = {"mus": mus, "wall": time.perf_counter() - t0}
+    return out
+
+
+@cpu_ref
+def families_cpu() -> dict:
+    return family_stats("cpu",
+                        FAMILY_ANCHOR_SEEDS[:FAMILY_ANCHOR_CPU_SEEDS])
+
+
 def family_anchor(dev) -> dict:
     """The noisy anchor with each prior of ANCHOR_FAMILIES over
     FAMILY_ANCHOR_SEEDS on the card and the first FAMILY_ANCHOR_CPU_SEEDS
-    of them on the CPU: every temperature trail falls to exactly 1, the
-    card's seed mean of the posterior mean lies within 4 se of the exact
-    one and of the CPU's (se not below the posterior sd over sqrt(pop x
-    seeds), which no population of POP particles beats) -> K2's launches
-    in each prior's card runs."""
+    of them on the CPU (the CPU reference process): every temperature
+    trail falls to exactly 1, the card's seed mean of the posterior mean
+    lies within 4 se of the exact one and of the CPU's (se not below the
+    posterior sd over sqrt(pop x seeds), which no population of POP
+    particles beats) -> K2's launches in each prior's card runs."""
     import numpy as np
 
     from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
                                          reset_launch_counts)
 
     reset_launch_counts()
-    counts, per_family = None, {}
+    per_family, card = {}, {}
     for label, spec in ANCHOR_FAMILIES:
-        mu_x, sd_x = anchor_exact(spec)
-        stats = {}
-        for where in (dev, "cpu"):
-            on_card = where == dev
-            seeds = (FAMILY_ANCHOR_SEEDS if on_card else
-                     FAMILY_ANCHOR_SEEDS[:FAMILY_ANCHOR_CPU_SEEDS])
-            floor = sd_x / math.sqrt(POP * len(seeds))
-            mus = []
-            t0 = time.perf_counter()
-            with (plain_versions_raise() if on_card
-                  else contextlib.nullcontext()):
-                for seed in seeds:
-                    h = anchor_run(where, seed, family_rv(spec))
-                    temps = [float(x) for x in
-                             h.get_all_populations()["epsilon"][1:]]
-                    check(temps[-1] == 1.0 and all(
-                        b <= a for a, b in zip(temps, temps[1:])),
-                        f"family anchor {label} seed {seed} ({where}): "
-                        f"temperature trail {temps} does not fall to "
-                        f"exactly 1")
-                    df, w = h.get_distribution()
-                    mus.append(float(np.sum(w * np.asarray(df["theta"]))))
-            if on_card:
-                before = counts["propose"] if counts else 0
-                counts = launch_counts()
-                per_family[label] = counts["propose"] - before
-            m = float(np.mean(mus))
-            se = max(float(np.std(mus, ddof=1)
-                           / math.sqrt(len(mus))), floor)
-            stats[where] = (m, se)
-            log(f"family anchor {label} ({where}, {len(mus)} seeds, "
-                f"{time.perf_counter() - t0:.2f} s): mean of posterior "
-                f"means {m:.4f} se {se:.4f} (exact {mu_x:.4f} sd "
-                f"{sd_x:.4f}, {(m - mu_x) / se:+.2f} se)")
-        (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
-        gap = (m_d - m_c) / math.hypot(se_d, se_c)
-        log(f"family anchor {label}: card - cpu {m_d - m_c:+.4f} "
-            f"({gap:+.2f} se)")
-        check(abs(m_d - mu_x) < 4 * se_d and abs(gap) < 4.0,
-              f"family anchor {label}: the card's seed mean is 4 se or "
-              f"more off the exact posterior or the CPU's")
+        before = launch_counts()["propose"]
+        with plain_versions_raise():
+            card.update(family_stats(dev, FAMILY_ANCHOR_SEEDS,
+                                     ((label, spec),)))
+        per_family[label] = launch_counts()["propose"] - before
+    counts = launch_counts()
     modes = mode_launch_counts()
     log(f"family anchors (card): kernel launches {counts}; K2 family mode "
         f"{modes['propose:families']}; K2 launches by prior {per_family}")
     check(modes["propose:families"] > 0,
           "the family anchors did not go through K2's family mode")
+
+    def summary(where, label, st, mu_x, sd_x):
+        mus = st["mus"]
+        floor = sd_x / math.sqrt(POP * len(mus))
+        m = float(np.mean(mus))
+        se = max(float(np.std(mus, ddof=1) / math.sqrt(len(mus))), floor)
+        log(f"family anchor {label} ({where}, {len(mus)} seeds, "
+            f"{st['wall']:.2f} s): mean of posterior means {m:.4f} se "
+            f"{se:.4f} (exact {mu_x:.4f} sd {sd_x:.4f}, "
+            f"{(m - mu_x) / se:+.2f} se)")
+        return m, se
+
+    def compare():
+        cpu = REFS.get("families_cpu")
+        for label, spec in ANCHOR_FAMILIES:
+            mu_x, sd_x = anchor_exact(spec)
+            m_d, se_d = summary(dev, label, card[label], mu_x, sd_x)
+            m_c, se_c = summary("cpu", label, cpu[label], mu_x, sd_x)
+            gap = (m_d - m_c) / math.hypot(se_d, se_c)
+            log(f"family anchor {label}: card - cpu {m_d - m_c:+.4f} "
+                f"({gap:+.2f} se)")
+            check(abs(m_d - mu_x) < 4 * se_d and abs(gap) < 4.0,
+                  f"family anchor {label}: the card's seed mean is 4 se or "
+                  f"more off the exact posterior or the CPU's")
+
+    PENDING.append(compare)
     return per_family
 
 
@@ -8841,6 +9144,421 @@ def gp_cpu_trail(dev) -> None:
           "more than 1e-3 off the CPU's")
 
 
+# ------------------------------------------- K17, and K14 on the ring
+#: the LV GridSearchCV leg's grid and fold count
+K17_GRID, K17_CV = (0.25, 0.5, 1.0, 2.0, 4.0), 5
+#: operations of one (held-out row, component, scaling) term beyond the
+#: maha: the scaled exponent, the online log-sum-exp (an exp counted as
+#: one)
+K17_TERM_OPS = 8
+
+
+def k17_inputs(dev, n_cap: int, n_live: int, dims, seed: int):
+    """Rows (LV prior draws at d 4, else standard normals; K > 1 each row
+    zero-padded past its model's dim), positive normalized weights on the
+    first ``n_live`` rows, and each row's model (K > 1)."""
+    import torch
+
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    d, K = max(dims), len(dims)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    X = (lv.default_prior().rvs_array(n_cap, g, dev) if d == 4
+         else torch.randn(n_cap, d, generator=g, device=dev))
+    w = torch.rand(n_cap, generator=g, device=dev) + 0.1
+    w[n_live:] = 0.0
+    m = None
+    if K > 1:
+        m = torch.randint(0, K, (n_cap,), generator=g, device=dev,
+                          dtype=torch.int32)
+        dim_of = torch.tensor(dims, device=dev)[m.long()]
+        X = torch.where(torch.arange(d, device=dev)[None, :]
+                        < dim_of[:, None], X, torch.zeros_like(X))
+    return X.contiguous(), (w / w.sum()).contiguous(), m
+
+
+def k17_bound(folds, w, m, dims, n_folds: int, C: int):
+    """K17's least time: the held-out pairs these inputs need (each test
+    row of positive weight against each train row of positive weight of
+    its fold and model), d + 2 (d^2 + d) operations a pair and
+    K17_TERM_OPS a scaling, beside the fold fits' moments; the bytes read
+    and written once."""
+    n, d, K = w.shape[0], max(dims), len(dims)
+    pairs = 0
+    for k in range(K):
+        live = w > 0 if m is None else (w > 0) & (m == k)
+        total = int(live.sum())
+        for f in range(n_folds):
+            test = int((live & (folds == f)).sum())
+            pairs += test * (total - test)
+    ops = (pairs * (d + 2 * (d * d + d) + K17_TERM_OPS * C)
+           + K * n_folds * n * (2 * d + 2 * d * d))
+    nbytes = (n * d + 3 * n + K * (2 * n * d + 3 * n + 2 * d * d + d + 1)
+              + K * C + K) * 4
+    return bound(nbytes, ops), pairs
+
+
+def k17_case(dev, label: str, n_cap: int, n_live: int, dims, scalings,
+             cv: int, n_rows: int | None = None, timed: bool = False,
+             seed: int = 0):
+    """K17 against its plain version: the scores within 1e-4 relative
+    (the same bits from run to run), the winner equal wherever the two
+    best scores differ by more than 1e-4 relative, the params at K8's
+    tolerances. ``n_rows``: a list generation's fold table (that n's fold
+    ids, ``cv`` folds), else a constant n's (``min(cv, n_live)``)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (grid_search_cv,
+                                         grid_search_cv_models_plain,
+                                         grid_search_cv_plain)
+    from pyabc_tpu_torch.kernels.mvn_fit import STACKED_KEYS
+    from pyabc_tpu_torch.transition import fold_ids, silverman_rule_of_thumb
+
+    K, d = len(dims), max(dims)
+    X, w, m = k17_inputs(dev, n_cap, n_live, dims, seed)
+    rows = n_live if n_rows is None else n_rows
+    folds = torch.as_tensor(fold_ids(rows, cv, n_cap), device=dev)
+    F = cv if n_rows is not None else min(cv, rows)
+    sel = silverman_rule_of_thumb
+    if K == 1:
+        kw = dict(n_folds=F, dim=d, scalings=scalings, bandwidth_selector=sel)
+
+        def run():
+            return grid_search_cv(X, w, folds, **kw)
+
+        def plain():
+            return grid_search_cv_plain(X, w, folds, **kw)
+    else:
+        # the stacked params' dims built once, outside any graph capture
+        kw = dict(n_folds=F, dims=list(dims), scalings=scalings,
+                  selectors=[sel] * K, dims_tensor=torch.tensor(
+                      [float(x) for x in dims], device=dev))
+
+        def run():
+            return grid_search_cv.models(X, w, m, folds, **kw)
+
+        def plain():
+            return grid_search_cv_models_plain(X, w, m, folds, **kw)
+    got, scores, best = run()
+    _again, scores2, _b = run()
+    ref, ref_scores, ref_best = plain()
+    check(torch.equal(scores, scores2), f"K17 {label}: the scores changed "
+          f"bits from run to run")
+    scores, ref_scores = scores.reshape(K, -1), ref_scores.reshape(K, -1)
+    best, ref_best = best.reshape(K), ref_best.reshape(K)
+    scale = float(ref_scores.abs().max())
+    rel = float(((scores - ref_scores).abs() / ref_scores.abs().clamp_min(
+        1e-30)).max())
+    check(within(scores, ref_scores, 1e-4 * scale, 1e-4),
+          f"K17 {label}: scores outside 1e-4 relative ({rel:.3e})")
+    err = float((scores - ref_scores).abs().max())
+    fit_err = 0.0
+    for k in range(K):
+        top = torch.sort(ref_scores[k], descending=True).values
+        clear = (len(top) < 2
+                 or float(top[0] - top[1]) > 1e-4 * float(top[0].abs()))
+        if clear:
+            check(int(best[k]) == int(ref_best[k]),
+                  f"K17 {label}: model {k}'s winner {int(best[k])} against "
+                  f"the plain version's {int(ref_best[k])}")
+        if int(best[k]) == int(ref_best[k]):
+            pick = ((lambda p: p) if K == 1 else
+                    (lambda p: {key: p[key][k] for key in STACKED_KEYS}))
+            fit_err = max(fit_err, compare_fit(pick(got), pick(ref))[1])
+    (bound_ms, bound_by), pairs = k17_bound(folds, w, m, dims, F,
+                                            len(scalings))
+    log(f"K17 grid_search_cv {label} (n_cap={n_cap}, {n_live} weighted, "
+        f"d={d}, K={K}, {len(scalings)} scalings, {F} folds, {pairs} "
+        f"held-out pairs): scores rel err {rel:.3e} (abs {err:.3e}), "
+        f"winners {best.tolist()} (plain {ref_best.tolist()}), params "
+        f"abs err {fit_err:.3e}; the same bits run to run")
+    if not timed:
+        return None
+    return dict(err=max(err, fit_err), rel_err=rel,
+                plain_ms=time_ms(plain, 2, 1),
+                call_ms=time_ms(run, 5, 1), ms=graph_ms(run, 5, 3),
+                bound=(bound_ms, bound_by), library_ms=None)
+
+
+def k17_checks(dev) -> dict:
+    """K17 at LV config 2's shape (n 1000, d 4, 5 scalings, cv 5), at
+    n_cap 16384 (the LV GridSearchCV leg), on fold tables (a list
+    generation of 1500 rows in 2048, and of 4 rows at d 1: fewer fold ids
+    than cv), K = 3 at config 5's shape (d_max 2, dims 1, 2, 2) and a small odd
+    shape (n_cap 64, 37 rows, d 1, 3 scalings, cv 3)."""
+    out = {"grid_search_cv:config2": k17_case(
+        dev, "LV config 2", 1024, 1000, [4], K17_GRID, K17_CV, timed=True)}
+    out["grid_search_cv"] = k17_case(dev, "n_cap 16384", 16384, 16384, [4],
+                                     K17_GRID, K17_CV, timed=True, seed=1)
+    out["grid_search_cv:fold_table"] = k17_case(
+        dev, "fold table", 2048, 1500, [4], K17_GRID, K17_CV, n_rows=1500,
+        timed=True, seed=2)
+    k17_case(dev, "fold table of 4 rows", 2048, 4, [1], K17_GRID, K17_CV,
+             n_rows=4, seed=3)
+    out["grid_search_cv:models"] = k17_case(
+        dev, "K = 3 (config 5)", 1024, 1000, [1, 2, 2], K17_GRID, K17_CV,
+        timed=True, seed=4)
+    k17_case(dev, "small odd", 64, 37, [1], (0.5, 1.0, 2.0), 3, seed=5)
+    return out
+
+
+#: the record ring of a pop-16384 noisy run: 8 n_cap rows
+RING_ROWS = 8 * 16384
+
+
+def k14_ring_checks(dev) -> dict:
+    """K14 over the record ring of a pop-16384 noisy run (131072 rows, 40 %
+    of them unwritten zeros) under a LocalTransition fit of 16384 rows
+    (d 4), against its plain version within 1e-4 + 1e-5 relative."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import local_logpdf, local_logpdf_plain
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d, B = 16384, 4, RING_ROWS
+    X, w = local_population(dev, n, d, n, seed=16)
+    cfg = LocalTransition.field_config(n, d, scaling=1.0, device=dev,
+                                       k_cap=4096)
+    params = LocalTransition.device_fit(
+        X, w, dim=d, **{k: cfg[k] for k in ("scaling", "k_cap")},
+        selection="threshold", k_table=cfg["k_table"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    ring = lv.default_prior().rvs_array(B, g, dev)
+    ring[int(0.6 * B):] = 0.0
+    ring = ring.contiguous()
+    got = local_logpdf(ring, params)
+    t0 = time.perf_counter()
+    ref = local_logpdf_plain(ring, params)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = float((got - ref).abs().nan_to_num(0.0).max())
+    log(f"K14 local_logpdf over the ring ({B} x {n}, d {d}): error "
+        f"{err:.3e}, densities {float(ref.min()):.2f} to "
+        f"{float(ref.max()):.2f}")
+    check(within(got, ref, 1e-4, 1e-5), "K14 over the ring differs from "
+          "its plain version beyond 1e-4 + 1e-5 relative")
+    return {"local_logpdf:ring": dict(
+        err=err, plain_ms=plain_s * 1e3,
+        call_ms=time_ms(lambda: local_logpdf(ring, params), 3, 1),
+        ms=graph_ms(lambda: local_logpdf(ring, params), 2, 2),
+        bound=bound((B * d + n * (d * d + d + 2) + B) * 4,
+                    B * n * (3 * d + 2 * d * d + 4)),
+        library_ms=None)}
+
+
+# ------------------ GridSearchCV legs; LocalTransition, noisy and segmented
+#: LV config 2 with GridSearchCV: the scale lane's width (pop 16384, seed
+#: 101, the JAX observation of seed 123, chunks of 8), 8 generations
+LVG_POP, LVG_GENS = 16384, 8
+#: K17's device ops (torch.profiler's names; K8's fit of the full data is
+#: mvn_fit_kernel, which no other kernel launches on this leg)
+K17_DEVICE_OPS = ("fold_lists_kernel", "fold_fit_kernel", "score_kernel",
+                  "fold_sum_kernel", "finish_kernel", "mvn_fit_kernel")
+LVG_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+            "pnorm_accept_weight", "compact_round", "normalize_quantile",
+            "grid_search_cv", "scale_reduce", "pack_fetch",
+            "generation_health")
+#: config 3 with LocalTransitions: generations (cut from 12 for the
+#: script's time limit) and the K = 2 pair's pop and generations
+C3L_GENS, C3P_POP, C3P_GENS = 8, 4096, 6
+
+
+def lv_grid(where, pop: int = LVG_POP):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=pop,
+                    eps=pt.MedianEpsilon(), seed=SCALE_SEED,
+                    transitions=pt.GridSearchCV(
+                        pt.MultivariateNormalTransition(),
+                        {"scaling": list(K17_GRID)}, cv=K17_CV),
+                    fused_generations=SCALE_G, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    return abc
+
+
+def lv_grid_leg(dev) -> dict:
+    """LV config 2 with GridSearchCV(MVN, K17_GRID, cv 5) at the scale
+    lane's width, counts reset just before: K17 launched every generation
+    in K8's place, the winner trail (each a scaling of the grid), syncs
+    (one read a round, one fetch a chunk), the epsilon trail falling, the
+    wall; once more under torch.profiler for K17's device ms a generation
+    -> the launch counts."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    label = "LV config 2, GridSearchCV"
+    abc = lv_grid(dev)
+    reset_launch_counts()
+    h, wall, counts = seg_run(abc, LVG_GENS, label)
+    n_gen = h.max_t + 1
+    eps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    trail = [h.get_telemetry(t)["gridsearch_scaling"] for t in range(n_gen)]
+    df, w = h.get_distribution()
+    means = {k: float(np.sum(df[k] * w)) for k in lv.TRUE_PARS}
+    syncs = abc.sync_ledger.summary()
+    rounds = [g["rounds"] for g in abc.generation_log]
+    log(f"{label}: pop={LVG_POP} gens={n_gen} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={LVG_POP * n_gen / wall:.1f} "
+        f"wall_s_per_generation={wall / n_gen:.4f} "
+        f"syncs_per_generation={syncs['syncs'] / n_gen:.2f} (rounds "
+        f"{rounds}, {syncs['by_kind']}); wall split {wall_split(abc)}")
+    log(f"{label}: winner trail {trail} (grid {list(K17_GRID)}, cv "
+        f"{K17_CV}); eps trail {[round(e, 4) for e in eps]}; posterior "
+        f"means {means} true {lv.TRUE_PARS}")
+    log(f"{label}: kernel launches {counts}")
+    check(n_gen == LVG_GENS, f"{label} ran {n_gen} of {LVG_GENS} "
+          f"generations")
+    check(counts["grid_search_cv"] == n_gen and counts["mvn_fit"] == 0,
+          f"{label}: K17 did not refit every generation in K8's place")
+    check(all(counts[k] > 0 for k in LVG_PATH),
+          f"a kernel of the {label}'s path was never launched")
+    check(all(s in K17_GRID for s in trail), f"{label}: a winner outside "
+          f"the grid")
+    check(eps[-1] < eps[0] and all(math.isfinite(v)
+                                   for v in means.values()),
+          f"{label}: the epsilon trail did not fall, or a mean is not "
+          f"finite")
+    sync_check(abc, label)
+    by_name = profile_run(f"{label} (profiled)", lv_grid(dev), LVG_GENS)
+    if by_name:
+        k17 = {k: v for k, v in by_name.items()
+               if any(op in k for op in K17_DEVICE_OPS)}
+        tot = sum(v[0] for v in k17.values()) / 1e3
+        log(f"{label}: K17's device ms a generation {tot / LVG_GENS:.4f} "
+            f"({ {k[:40]: round(v[0] / 1e3, 4) for k, v in k17.items()} })")
+    return counts
+
+
+def sir_local_stats(where) -> dict:
+    """SIR config 4 with a LocalTransition: the card's run to its eight
+    generations, or the CPU's first generations (cut at 30000
+    evaluations) -> the temperature trail and the wall."""
+    t0 = time.perf_counter()
+    kw = ({"max_total_nr_simulations": 30_000} if where == "cpu" else {})
+    abc = sir_config4(where, local=True)
+    h = abc.run(max_nr_populations=SIR_GENS, **kw)
+    return {"temps": [float(e) for e in
+                      h.get_all_populations()["epsilon"][1:]],
+            "wall": time.perf_counter() - t0}
+
+
+@cpu_ref
+def noisy_local_cpu() -> dict:
+    return noisy_stats("cpu", local=True)
+
+
+@cpu_ref
+def sir_local_cpu() -> dict:
+    return sir_local_stats("cpu")
+
+
+def sir_local_run(dev) -> dict:
+    """SIR config 4 with a LocalTransition on the card, counts reset just
+    before: the trail ends at exactly T = 1, K14's ring passes (K14's
+    launches beyond one a transition round) one a generation, and the
+    first two temperatures within 1e-3 of the CPU's (the CPU reference
+    process) -> the launch counts."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    label = "SIR config 4, LocalTransition"
+    abc = sir_config4(dev, local=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=SIR_GENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = launch_counts() | mode_launch_counts()
+    temps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+    rounds = [g["rounds"] for g in abc.generation_log]
+    ring = counts["local_logpdf"] - sum(rounds[1:])
+    counts["local_logpdf:ring"] = ring
+    log(f"{label}: pop={POP} gens={len(temps)} wall_s={wall:.3f} rounds "
+        f"{rounds}; temperature trail {[round(t, 4) for t in temps]}; K14 "
+        f"ring passes {ring}; wall split {wall_split(abc)}")
+    log(f"{label}: kernel launches {counts}")
+    check(temps[-1] == 1.0 and all(b <= a for a, b in zip(temps, temps[1:])),
+          f"{label}: the temperature trail does not fall to exactly 1")
+    check(ring == len(temps), f"{label}: {ring} ring passes for "
+          f"{len(temps)} generations")
+    check(all(counts[k] > 0 for k in LOCAL_KERNELS + NOISY_KERNELS)
+          and counts["mvn_fit"] == counts["mvn_mixture_logpdf"] == 0,
+          f"{label}: a kernel of its path never launched, or an MVN one "
+          f"did")
+    sync_check(abc, label)
+
+    def compare():
+        cpu = REFS.get("sir_local_cpu")["temps"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(temps, cpu)]
+        log(f"{label} on the CPU ({len(cpu)} generations): temperatures "
+            f"{[round(t, 4) for t in cpu]}; |card - cpu| / cpu "
+            f"{[float(f'{r:.2e}') for r in rel]}")
+        check(len(rel) >= 2 and max(rel[:2]) <= 1e-3,
+              f"{label}: the CPU's first two temperatures differ from the "
+              f"card's by more than 1e-3")
+
+    PENDING.append(compare)
+    return counts
+
+
+def config3_local_run(dev) -> dict:
+    """Config 3 with a LocalTransition, early reject on, off, off, on
+    (C3L_GENS generations at pop C3_POP), counts reset just before:
+    populations, weights, distances and trails bit-identical, slots
+    retired, K18 and LocalTransition's kernels launched, no MVN kernel;
+    then the K = 2 pair (a second birth-death model of initial count 25,
+    pop C3P_POP, C3P_GENS generations) on and off, bit-identical -> the
+    launch counts of the four single-model runs."""
+    from pyabc_tpu_torch.kernels import reset_launch_counts
+
+    label = "config 3, LocalTransition"
+    reset_launch_counts()
+    runs = []
+    for early in TURNS:
+        abc = config3(dev, early, local=True)
+        h, wall, c = seg_run(abc, C3L_GENS, label)
+        runs.append((h, wall, c))
+        log(f"{label} early reject {'on' if early else 'off'}: wall_s="
+            f"{wall:.3f} rounds {[g['rounds'] for g in abc.generation_log]}"
+            f"; {seg_totals(h)}")
+    counts = {k: sum(r[2][k] for r in runs) for k in runs[0][2]}
+    same = all(populations_identical(runs[0][0], r[0]) for r in runs[1:])
+    tot = seg_totals(runs[0][0])
+    log(f"{label}: bit-identical in turns {same}; retired "
+        f"{tot['retired_early']}; kernel launches {counts}")
+    check(same, f"{label}: populations differ with early reject on and off")
+    check(tot["retired_early"] > 0, f"{label}: no slot retired")
+    check(all(counts[k] > 0 for k in LOCAL_KERNELS + ("segment_round",
+                                                      "tau_leap"))
+          and counts["mvn_fit"] == counts["mvn_mixture_logpdf"] == 0,
+          f"{label}: a kernel of its path never launched, or an MVN one "
+          f"did")
+    pair = []
+    for early in ("auto", False):
+        abc = config3(dev, early, pop=C3P_POP, local=True, pair=True)
+        h, wall, c = seg_run(abc, C3P_GENS, label + " (K = 2)")
+        pair.append(h)
+        log(f"{label} (K = 2) early reject {'on' if early else 'off'}: "
+            f"wall_s={wall:.3f}; {seg_totals(h)}; launches {c}")
+    same2 = populations_identical(*pair, K=2)
+    log(f"{label} (K = 2): bit-identical on and off {same2}")
+    check(same2 and seg_totals(pair[0])["retired_early"] > 0,
+          f"{label} (K = 2): populations differ on and off, or nothing "
+          f"retired")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -8869,6 +9587,10 @@ def main() -> int:
     _build.library()
     log(f"kernel build+load {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds:.2f} s)")
+    global REFS
+    REFS = CpuRefs()
+    # a failed run stops the reference process too
+    atexit.register(REFS.close, False)
 
     results = kernel_checks(dev)
     results.update(noisy_checks(dev))
@@ -8891,6 +9613,8 @@ def main() -> int:
     results.update(k23_mlp_checks(dev))
     results.update(gp_checks(dev))
     k16_repair_case(dev)
+    results.update(k17_checks(dev))
+    results.update(k14_ring_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -8970,9 +9694,18 @@ def main() -> int:
           f"config 5 local adaptive leg: a K > 1 local mode never "
           f"launched ({ {k: c5l_modes[k] for k in LOCAL_MODES} })")
     local_adaptive_cpu_trails(dev)
-    pair_local = pair_anchor(dev, local=True)
-    list_local, _m, _s = list_leg(dev, local=True)
+    pair_local = pair_anchor(dev, "local")
+    list_local, _m, _s = list_leg(dev, "local")
     mark("local legs")
+    # GridSearchCV (K17) in its three modes; LocalTransition under a
+    # StochasticAcceptor (K14 over the record ring) and under early reject
+    lvg_counts = lv_grid_leg(dev)
+    list_grid, _m, _s = list_leg(dev, "grid")
+    pair_grid = pair_anchor(dev, "grid")
+    noisy_local = noisy_anchor(dev, local=True)
+    sir_local = sir_local_run(dev)
+    c3l_counts = config3_local_run(dev)
+    mark("GridSearchCV legs, LocalTransition's noisy and segmented legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -9008,6 +9741,9 @@ def main() -> int:
     # transform that leg ended with, and at config 3's round under C' 8
     results["segment_round:linear"] = k18_linear_checks(dev, ls_params)
     mark("K18's checks")
+    finish_references()
+    REFS.close(True)
+    mark("CPU references compared")
     for name, r in results.items():
         log(f"{name}: ms={r['ms']:.5f} call_ms={r['call_ms']:.5f} "
             f"plain_ms={r['plain_ms']:.5f} "
@@ -9028,7 +9764,8 @@ def main() -> int:
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (gp_counts if k.name in GP_KERNELS
+        own = (lvg_counts if k.name == "grid_search_cv"
+               else gp_counts if k.name in GP_KERNELS
                else mlp_counts if k.name in MLP_KERNELS
                else ls_counts if k.name in LS_KERNELS
                else agg_counts if k.name in AGG_KERNELS
@@ -9086,7 +9823,13 @@ def main() -> int:
                                      c5l_counts[k.name],
                                  "tractable_pair_local":
                                      pair_local[k.name],
-                                 "toy_list_local": list_local[k.name]},
+                                 "toy_list_local": list_local[k.name],
+                                 "lv_grid": lvg_counts[k.name],
+                                 "toy_list_grid": list_grid[k.name],
+                                 "tractable_pair_grid": pair_grid[k.name],
+                                 "noisy_anchor_local": noisy_local[k.name],
+                                 "sir_config4_local": sir_local[k.name],
+                                 "config3_local": c3l_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
@@ -9117,6 +9860,13 @@ def main() -> int:
                     "ms": r["ms"], "call_ms": r["call_ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1], "library_ms": None}
+        if k.name == "grid_search_cv":
+            # K17 at LV config 2's shape (n 1000), beside the leg's 16384
+            c2 = results["grid_search_cv:config2"]
+            entry["lv_config2_shape"] = {
+                "max_abs_err": c2["err"], "ms": c2["ms"],
+                "call_ms": c2["call_ms"], "plain_ms": c2["plain_ms"],
+                "bound_ms": c2["bound"][0], "bound_by": c2["bound"][1]}
         if k.name == "compact_round":
             rec = results["compact_round_record"]
             entry["record_mode"] = {
@@ -9229,6 +9979,29 @@ def main() -> int:
          c5l_modes)]
     for name, src, line in LOCAL_MODE_ROWS:
         local_rows.append((name, src, line, c5l_modes, None, None))
+    # K17's fold-table (list) and K > 1 rows, their launches from the toy's
+    # list and the tractable pair under GridSearchCV; K14 over the record
+    # ring, its ring passes from SIR config 4 with a LocalTransition
+    for name, source, replaces, launches in (
+            ("grid_search_cv:fold_table",
+             "pyabc_tpu_torch/csrc/grid_search_cv.cu",
+             "pyabc_tpu/transition/grid_search.py:119",
+             list_grid["grid_search_cv"]),
+            ("grid_search_cv:models",
+             "pyabc_tpu_torch/csrc/grid_search_cv.cu",
+             "pyabc_tpu/transition/grid_search.py:119",
+             pair_grid["grid_search_cv:models"]),
+            ("local_logpdf:ring", "pyabc_tpu_torch/csrc/local_logpdf.cu",
+             "pyabc_tpu/transition/local_transition.py:442",
+             sir_local["local_logpdf:ring"])):
+        r = results[name]
+        check(launches > 0, f"{name} was never launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     for name, source, replaces, own, reach, c5 in local_rows:
         r = results[name]
         check(own[name] > 0, f"{name} was never launched on its path")
@@ -9329,6 +10102,8 @@ if __name__ == "__main__":
         print(json.dumps(k2_time(sys.argv[sys.argv.index("--k2-time")
                                           + 1])))
         sys.exit(0)
+    if "--cpu-refs" in sys.argv:
+        sys.exit(cpu_refs_main(sys.argv[sys.argv.index("--cpu-refs") + 1]))
     if "--k2-turns" in sys.argv:
         sys.exit(k2_turns(sys.argv[sys.argv.index("--k2-turns") + 1]))
     sys.exit(main())

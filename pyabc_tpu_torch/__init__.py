@@ -1,7 +1,8 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu's fused
 single-device ABC-SMC path (one model or model selection over several,
 with priors of every family of the JAX package;
-the MVN or, for one model, the local k-NN transition; a constant, listed
+the MVN transition, its cross-validated scaling (GridSearchCV) or the
+local k-NN transition; a constant, listed
 or adaptive population size; p-norm, aggregated or noise-model
 distances, the p-norms also through linear learned summary statistics),
 for one NVIDIA H100.
@@ -34,7 +35,8 @@ from .populationstrategy import (AdaptivePopulationSize,
                                  PopulationStrategy)
 from .storage import History
 from .sumstat import IdentitySumstat, PredictorSumstat, Sumstat
-from .transition import (LocalTransition, ModelPerturbationKernel,
+from .transition import (GridSearchCV, LocalTransition,
+                         ModelPerturbationKernel,
                          MultivariateNormalTransition, scott_rule_of_thumb,
                          silverman_rule_of_thumb)
 
@@ -44,7 +46,7 @@ __all__ = [
     "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
     "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
     "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
-    "FrielPettittScheme", "GPPredictor", "History", "IdentitySumstat",
+    "FrielPettittScheme", "GPPredictor", "GridSearchCV", "History", "IdentitySumstat",
     "IndependentLaplaceKernel", "LassoPredictor", "LinearPredictor",
     "IndependentNormalKernel", "ListEpsilon", "ListPopulationSize",
     "ListTemperature",

@@ -126,10 +126,19 @@ after a host fit ``boundary_transform`` moves the carry to the new
 parameters: the weights (over the accepted rows at a later boundary), the
 distances and the epsilon.
 
+A GridSearchCV (one model or several, a constant or listed size) refits
+with K17 in K8's place: the fold fits, the held-out scores of every
+candidate scaling, the winner and the full fit scaled by it, on the
+generation's fold ids (a constant n's built once, a list's from the
+chunk's table); proposals and densities are the MVN path's (K2, K3), and
+the winner rides the chunk's fetch.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
-key = the seed, counter = (lane, block, generation, tag * max_rounds +
-round), the round read on the device from the counters. Calibration runs
-as generation -1 (2^32 - 1), so its draws never meet generation 0's.
+key = the seed, counter = (lane, block, generation, tag * stride_rounds +
+round), the round read on the device from the counters; the stride is the
+run's MAX_ROUNDS, which a stop rule that lowers the round bound leaves
+alone. Calibration runs as generation -1 (2^32 - 1), so its draws never
+meet generation 0's.
 """
 from __future__ import annotations
 
@@ -145,6 +154,7 @@ from ..kernels.bootstrap_cv import STEP, required_nr
 from ..kernels.compact import compact_round
 from ..kernels.gp_sumstat import gp_accept
 from ..kernels.gp_sumstat import transform_rows as gp_transform_rows
+from ..kernels.grid_search import grid_search_cv
 from ..kernels.kernel_accept import kernel_accept
 from ..kernels.linear_sumstat import linear_accept, transform_rows
 from ..kernels.local_logpdf import local_logpdf
@@ -255,7 +265,7 @@ class DeviceContext:
                  sync_ledger: SyncLedger | None = None, seed: int = 0,
                  temp_config=None, models=None, priors=None,
                  model_prior=None, mpk=None, fit_statics=None,
-                 local_statics=None):
+                 local_statics=None, stride_rounds: int | None = None):
         self.model = model
         self.prior = prior
         #: K > 1 (model selection): the models; ``_init_models`` takes their
@@ -279,7 +289,12 @@ class DeviceContext:
         #: round counters of the generation in progress (generation_while)
         self.counters = torch.zeros(5, dtype=torch.int32, device=device)
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
+        #: the loop's round bound (a stop rule may lower it) and the
+        #: Philox counter's round stride (the run's MAX_ROUNDS, which no
+        #: stop rule changes, so a rule moves no draw)
         self.max_rounds = int(max_rounds)
+        self.stride_rounds = int(stride_rounds if stride_rounds is not None
+                                 else max_rounds)
         self.S = spec.total_size
         self.sync_ledger = sync_ledger or SyncLedger()
         self.use_hist = bool(getattr(acceptor, "use_complete_history",
@@ -378,7 +393,7 @@ class DeviceContext:
     def stream(self, t: int, tag: int) -> PhiloxStream:
         """The Philox stream ``tag`` of generation ``t`` for the rounds of
         the generation in progress."""
-        return PhiloxStream(self.seed, t, tag, self.max_rounds,
+        return PhiloxStream(self.seed, t, tag, self.stride_rounds,
                             self.counters)
 
     def _simulate(self, theta: torch.Tensor, t: int) -> torch.Tensor:
@@ -749,7 +764,7 @@ class DeviceContext:
         return required_nr(
             stacked["thetas"], stacked["weights"], stacked["cdf"], dims=dims,
             statics=statics, seed=self.seed, generation=t,
-            max_rounds=self.max_rounds, target_cv=target_cv, min_n=min_n,
+            max_rounds=self.stride_rounds, target_cv=target_cv, min_n=min_n,
             max_n=max_n, n_bootstrap=n_boot, model_p=model_probs,
             local=self.local_configs)
 
@@ -859,7 +874,8 @@ class DeviceContext:
                         t: int = 0, refit_cadence: tuple | None = None,
                         adaptive_n: tuple | None = None, last: bool = False,
                         sumstat_fit: dict | None = None,
-                        keep_inputs: bool = False):
+                        keep_inputs: bool = False,
+                        folds: tuple | None = None):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute (K9 over the
         ring, or K22's finish over the moment block) -> quantile
@@ -874,8 +890,11 @@ class DeviceContext:
         generation), then the refit or the recompute in the new feature
         space (``_sumstat_step``). ``keep_inputs`` adds the kept-row mask, the
         normalized log weights and the record ring to the outputs (a
-        boundary's host fit and ``boundary_transform`` read them). Returns
-        (carry, outputs)."""
+        boundary's host fit and ``boundary_transform`` read them).
+        ``folds``: a GridSearchCV's ``(fold ids (n_cap,) int32, number of
+        folds)`` of this generation; K17 then refits in K8's place (K > 1:
+        its K > 1 mode after K26) and its winner rides the outputs
+        (``cv_best``). Returns (carry, outputs)."""
         res, counters = run.res, run.counters
         k_mask = self.k_mask(counters)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
@@ -916,12 +935,22 @@ class DeviceContext:
             models = {k: step[k] for k in ("log_model_probs", "matrix",
                                            "log_model_factor")}
         elif self.K > 1:
-            # K26, then the per-model refit (one K8 launch over the models)
+            # K26, then the per-model refit (one K8 launch over the models;
+            # a GridSearchCV's one K17 launch)
             step = model_step(res["m"], w_norm, k_mask, carry.fitted,
                               self.mpk)
-            trans_next = mvn_fit.models(
-                res["theta"], w_norm, res["m"], dims=self.dims,
-                statics=self.fit_statics, dims_tensor=self.dims_f)
+            if folds is not None:
+                trans_next, _scores, cv_best = grid_search_cv.models(
+                    res["theta"], w_norm, res["m"], folds[0],
+                    n_folds=folds[1], dims=self.dims,
+                    scalings=self.fit_statics[0]["scalings"],
+                    selectors=[st["bandwidth_selector"]
+                               for st in self.fit_statics],
+                    dims_tensor=self.dims_f)
+            else:
+                trans_next = mvn_fit.models(
+                    res["theta"], w_norm, res["m"], dims=self.dims,
+                    statics=self.fit_statics, dims_tensor=self.dims_f)
             fitted_next = step["fitted"]
             models = {k: step[k] for k in ("log_model_probs", "matrix",
                                            "log_model_factor")}
@@ -930,6 +959,12 @@ class DeviceContext:
                 carry, res["theta"], w_norm, k_mask, fit_statics,
                 refit_cadence)
             fitted_next = refit["fitted"]
+        elif folds is not None:
+            trans_next, _scores, cv_best = grid_search_cv(
+                res["theta"], w_norm, folds[0], n_folds=folds[1], dim=self.d,
+                scalings=fit_statics["scalings"],
+                bandwidth_selector=fit_statics["bandwidth_selector"])
+            fitted_next = k_mask.sum() > 0
         else:
             trans_next = self.transition.device_fit(
                 res["theta"], w_norm, dim=self.d, **fit_statics)
@@ -949,6 +984,8 @@ class DeviceContext:
             out.update(m=res["m"], model_probs=step["model_probs"])
         if run.seg is not None:
             out["seg"] = run.seg
+        if folds is not None:
+            out["cv_best"] = cv_best
         if self.local and refit_cadence is not None:
             # the refit decision, the drift and the rows K13 factorized
             # ride the chunk's packed fetch

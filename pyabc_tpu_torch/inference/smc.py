@@ -44,10 +44,13 @@ model on the card, sharded runs) raises ``not_ported``. History's
 telemetry column holds each generation's ``retired_early``,
 ``segment_occupancy``, ``seg_steps`` and ``seg_resolved``.
 
-LocalTransition (``transitions=LocalTransition(...)``, one model, a
-UniformAcceptor, a p-norm distance, a quantile, list or constant epsilon,
-a constant population): the device fits it in the generation step (K15,
-K12, K13) and proposes from it (K2's local mode, K14). ``refit_every`` and
+LocalTransition (``transitions=LocalTransition(...)``; one model or
+several sharing one configuration; a constant, listed or bounded adaptive
+population; under a StochasticAcceptor at a constant population, where
+the record ring's densities under the refit are K14's; under segmented
+early reject, K18 stepping the slots K2's local mode proposed): the device
+fits it in the generation step (K15, K12, K13) and proposes from it (K2's
+local mode, K14). ``refit_every`` and
 ``refit_drift_threshold`` set the JAX package's refit cadence (auto: every
 16 generations from a population capacity of 16384, else every
 generation); under it a refit also runs when the drift of the accepted
@@ -106,6 +109,16 @@ stays off with the JAX package's reason and History's telemetry says
 parameters, a shape beyond the transform kernels and several models
 raise ``not_ported``.
 
+GridSearchCV (``transitions=GridSearchCV(MultivariateNormalTransition(),
+{"scaling": [...]}, cv=...)``; a constant or listed population, one
+model or several with one grid; the JAX package's fused gate,
+``smc.py:1651-1695``): K17 refits in K8's place, choosing the scaling by
+the held-out log-density of ``cv`` folds (a list's fold ids ride each
+chunk as one ``(G, n_cap)`` table), and the chosen scaling lands in each
+generation's telemetry (``gridsearch_scaling``). Proposals are the MVN
+transition's. A stop rule (``min_acceptance_rate``) lowers the round bound
+only: the Philox counter's round stride stays the run's ``MAX_ROUNDS``.
+
 Population sizes (``population_size=`` an int, ``ConstantPopulationSize``,
 ``ListPopulationSize`` or ``AdaptivePopulationSize`` with a finite
 ``max_population_size``; the MVN transition, one model or several): the
@@ -163,6 +176,7 @@ from ..sumstat import (PredictorSumstat, device_fit_plan,
                        host_caps_reason, mirror_fitted_params,
                        transform_kind)
 from ..sumstat.device import candidates
+from ..transition.grid_search import GridSearchCV, fold_ids
 from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
@@ -360,8 +374,10 @@ class ABCSMC:
                              f"{self.K} models")
         if any(type(tr) is LocalTransition for tr in transitions):
             self._local_gate(acceptor, transitions)
+        if any(type(tr) is GridSearchCV for tr in transitions):
+            self._grid_gate(acceptor, transitions)
         for tr in transitions:
-            if type(tr) not in (LocalTransition,
+            if type(tr) not in (LocalTransition, GridSearchCV,
                                 MultivariateNormalTransition):
                 raise _not_ported(f"transition {type(tr).__name__}", "12")
         self.transitions = transitions
@@ -447,10 +463,12 @@ class ABCSMC:
         serve: models whose transitions differ (type or ``LOCAL_SHARED``
         setting: the JAX package's per-model refits share one traced
         configuration, ``smc.py:1621-1639``, so it runs them on its host
-        loop, ROADMAP item 16), or an acceptor other than the uniform one
-        (queue A, item 12). A constant, listed or bounded adaptive size and
-        several models are served (an unbounded adaptive size is refused
-        with the strategy)."""
+        loop, ROADMAP item 16), or a StochasticAcceptor under a size that
+        is not constant (the JAX package's stochastic gate,
+        ``smc.py:2288-2293``, item 16). A constant, listed or bounded
+        adaptive size, several models and, at a constant size, a
+        StochasticAcceptor are served (an unbounded adaptive size is
+        refused with the strategy)."""
         first = transitions[0]
         for tr in transitions:
             if type(tr) is not LocalTransition or any(
@@ -461,9 +479,70 @@ class ABCSMC:
                     "differ (the fused path refits every model with one "
                     "configuration; the JAX package serves them on its "
                     "host loop)", "16")
-        if type(acceptor) is not UniformAcceptor:
-            raise _not_ported(f"LocalTransition with a "
-                              f"{type(acceptor).__name__}", "12")
+        if (type(acceptor) is StochasticAcceptor and not isinstance(
+                self.population_strategy, ConstantPopulationSize)):
+            # the JAX package's stochastic gate (smc.py:2288-2293)
+            raise _not_ported(
+                "LocalTransition with a StochasticAcceptor and a population "
+                "size that is not constant (the static neighbour count k "
+                "needs a constant population size; the JAX package serves "
+                "it on its host loop)", "16")
+
+    def _grid_gate(self, acceptor, transitions) -> None:
+        """Raise for a GridSearchCV configuration the JAX package's fused
+        gate (``smc.py:1651-1695``) sends to its host loop (ROADMAP item
+        16), with that gate's reason: an adaptive population size, a list
+        with a generation below ``cv`` rows, several models whose
+        transitions are not one GridSearchCV configuration, a grid other
+        than positive scalings, a degenerate ``cv``, an estimator other
+        than the MVN transition; a StochasticAcceptor (the JAX package's
+        stochastic gate admits only MVN and LocalTransition, item 11); or
+        a grid or fold count beyond K17's caps (item 12)."""
+        from ..kernels.grid_search import MAX_FOLDS, MAX_SCALINGS
+
+        first = transitions[0]
+        ps = self.population_strategy
+
+        def host(reason):
+            return _not_ported(f"GridSearchCV: {reason} (the JAX package "
+                               f"serves it on its host loop)", "16")
+
+        if any(type(tr) is not GridSearchCV or tr.param_grid
+               != first.param_grid or tr.cv != first.cv
+               or type(tr.estimator) is not type(first.estimator)
+               for tr in transitions):
+            raise host("several models whose transitions are not one "
+                       "GridSearchCV configuration (per-model refits share "
+                       "one traced device_fit configuration)")
+        if type(acceptor) is StochasticAcceptor:
+            raise _not_ported(
+                "GridSearchCV with a StochasticAcceptor (the JAX package's "
+                "fused noisy ABC admits only the MVN transition and "
+                "LocalTransition)", "11")
+        if isinstance(ps, AdaptivePopulationSize):
+            raise host("an AdaptivePopulationSize (its mean_cv delegates to "
+                       "the winning estimator chosen per generation, which "
+                       "has no chunk-constant static config)")
+        if isinstance(ps, ListPopulationSize) and min(ps.values) < first.cv:
+            raise host(f"a ListPopulationSize with a generation below cv = "
+                       f"{first.cv} rows (fold semantics would differ from "
+                       f"the host's)")
+        grid = first.param_grid
+        if (set(grid) != {"scaling"} or not grid["scaling"]
+                or any(s <= 0 for s in grid["scaling"])):
+            raise host("a grid other than positive scalings (a non-positive "
+                       "candidate would NaN the in-kernel scores; the host "
+                       "path survives such grids)")
+        if first.cv < 2 or first.cv > ps(0):
+            raise host(f"cv = {first.cv} outside [2, n(0)] (degenerate fold "
+                       f"counts behave differently on the host)")
+        if type(first.estimator) is not MultivariateNormalTransition:
+            raise host(f"a {type(first.estimator).__name__} estimator")
+        if len(grid["scaling"]) > MAX_SCALINGS or first.cv > MAX_FOLDS:
+            raise _not_ported(
+                f"GridSearchCV with {len(grid['scaling'])} scalings or cv "
+                f"{first.cv} (K17 keeps at most {MAX_SCALINGS} scalings and "
+                f"{MAX_FOLDS} folds)", "12")
 
     def _refit_cadence_cfg(self, n_cap: int) -> tuple | None:
         """(refit_every, drift_threshold) of LocalTransition's refit
@@ -605,7 +684,8 @@ class ABCSMC:
             acceptor=self.acceptor, transition=self.transition,
             spec=self.spec, x0=x0, device=self.device,
             generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
-            max_rounds=max_rounds, sync_ledger=self.sync_ledger,
+            max_rounds=max_rounds, stride_rounds=self.MAX_ROUNDS,
+            sync_ledger=self.sync_ledger,
             seed=self.seed, temp_config=temp_config, **models)
 
     # ------------------------------------------------------ early reject
@@ -721,9 +801,6 @@ class ABCSMC:
         reason = self._early_reject_incapable_reason(
             adaptive=adaptive, stochastic=stochastic)
         if reason is None:
-            if type(self.transition) is LocalTransition:
-                raise _not_ported("segmented early reject with "
-                                  "LocalTransition", "12")
             unserved = self._early_reject_unserved()
             if unserved is not None:
                 raise _not_ported(f"segmented early reject with {unserved}",
@@ -809,6 +886,14 @@ class ABCSMC:
                            "k_table": ctx.local_configs[0]["k_table"]}
         else:
             fit_statics = self.transition.fit_statics()
+        #: GridSearchCV: the fold ids of a constant n, built once (a list
+        #: of sizes ships a table each chunk, ``_fold_table``)
+        grid = type(self.transition) is GridSearchCV
+        folds = None
+        if grid and not isinstance(strategy, ListPopulationSize):
+            folds = (self._device_rows(torch.from_numpy(
+                fold_ids(min(n, ctx.n_cap), self.transition.cv, ctx.n_cap))),
+                     min(self.transition.cv, n))
         statics = dict(
             adaptive=adaptive, eps_quantile=eps_quantile,
             eps_weighted=getattr(self.eps, "weighted", True),
@@ -909,6 +994,8 @@ class ABCSMC:
             outs, host_gen = [], []
             sched = (self._schedule_table(t, g_limit) if weight_sched
                      else None)
+            fold_table = (self._fold_table(t, g_limit, ctx.n_cap)
+                          if grid and folds is None else None)
             for g in range(g_limit):
                 tg = t + g
                 t_gen = time.perf_counter()
@@ -975,6 +1062,8 @@ class ABCSMC:
                     sumstat_fit=plan if g == g_limit - 1 else None,
                     keep_inputs=((plan is not None and tg == 0)
                                  or (host is not None and g == g_limit - 1)),
+                    folds=(folds if fold_table is None else
+                           (fold_table[g], self.transition.cv)),
                     **statics)
                 outs.append(out)
                 host_gen.append({
@@ -1169,11 +1258,27 @@ class ABCSMC:
         one host-to-device copy, nothing read back."""
         d = self.distance_function
         last = max(g_limit - 1, 0)
-        table = torch.stack([d.device_params(t0 + min(g, last))
-                             for g in range(self.fused_generations)])
+        return self._device_rows(torch.stack([
+            d.device_params(t0 + min(g, last))
+            for g in range(self.fused_generations)]))
+
+    def _device_rows(self, table: torch.Tensor) -> torch.Tensor:
+        """A host table on the run's device: one pinned, non-blocking copy,
+        nothing read back."""
         if self.device.type != "cuda":
             return table
         return table.pin_memory().to(self.device, non_blocking=True)
+
+    def _fold_table(self, t0: int, g_limit: int, n_cap: int) -> torch.Tensor:
+        """GridSearchCV under a ListPopulationSize: the chunk's ``(G,
+        n_cap)`` int32 fold ids, row g the fixed-seed rule over generation
+        ``t0 + g``'s n, the rows after the chunk's last generation repeating
+        it (the JAX package's ``fold_sched``, ``smc.py:2893-2905``)."""
+        last = max(g_limit - 1, 0)
+        ps, cv = self.population_strategy, self.transition.cv
+        return self._device_rows(torch.from_numpy(np.stack([
+            fold_ids(min(ps(t0 + min(g, last)), n_cap), cv, n_cap)
+            for g in range(self.fused_generations)])))
 
     def _model_carry(self, carry: Carry, ctx: DeviceContext) -> None:
         """K > 1: stacked never-fitted params and the model terms of the
@@ -1245,6 +1350,9 @@ class ABCSMC:
             # so do LocalTransition's refit decisions, drifts and rows
             for k in ("refit", "drift", "rows_changed"):
                 tree[k] = stack(k)
+        if "cv_best" in outs[0]:
+            # and K17's winning scaling (each model's under K > 1)
+            tree["cv_best"] = stack("cv_best")
         if "n_next" in outs[0]:
             # and K16's next n, its probes and its CV at max_n
             for k in ("n_next", "k16_probes", "k16_cv_max"):
@@ -1341,6 +1449,13 @@ class ABCSMC:
                 self.refit_events.append(event)
                 telemetry.update(refit=event[1], drift=round(event[2], 5),
                                  refit_rows_changed=event[3])
+            if "cv_best" in fetched:
+                # the scaling K17 picked (per model under K > 1)
+                scal = self.transition.scalings
+                best = np.atleast_1d(fetched["cv_best"][g])
+                chosen = [scal[int(b)] for b in best]
+                telemetry["gridsearch_scaling"] = (
+                    chosen if self.K > 1 else chosen[0])
             if "n_next" in fetched:
                 # the device's decision, mirrored into the host strategy
                 n_next = int(fetched["n_next"][g])

@@ -14,6 +14,8 @@ from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
 from .compact import compact_round, compact_round_plain
 from .generation_health import generation_health, generation_health_plain
 from .gp_sumstat import gp_accept, gp_accept_plain, gp_values_plain
+from .grid_search import (grid_search_cv, grid_search_cv_models_plain,
+                          grid_search_cv_plain)
 from .gp_sumstat import transform_rows as gp_transform_rows
 from .gp_sumstat import transform_rows_plain as gp_transform_rows_plain
 from .kernel_accept import kernel_accept, kernel_accept_plain
@@ -58,7 +60,7 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
-#: the GP transform)
+#: the GP transform, K17)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -68,7 +70,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
-           mlp_accept, gp_accept)
+           mlp_accept, gp_accept, grid_search_cv)
 
 
 def reset_launch_counts() -> None:
@@ -88,7 +90,8 @@ def mode_launch_counts() -> dict[str, int]:
     entries, K25's values mode, K23's transform and values entries, linear
     and MLP, the GP transform's, and LocalTransition's: K2's and K14's K >
     1 ``models`` modes, K15's, and K12's and K13's ``models`` and
-    ``bootstrap`` launches); each also counts in ``launch_counts``."""
+    ``bootstrap`` launches, K17's K > 1 ``models`` mode); each also counts
+    in ``launch_counts``."""
     return {f"{k.name}:{mode}": n for k in KERNELS
             for mode, n in getattr(k, "mode_launches", {}).items()}
 
@@ -102,7 +105,8 @@ __all__ = [
     "cast_rows_plain", "compact_round", "compact_round_plain",
     "generation_health", "generation_health_plain", "gp_accept",
     "gp_accept_plain", "gp_transform_rows", "gp_transform_rows_plain",
-    "gp_values_plain", "kernel_accept",
+    "gp_values_plain", "grid_search_cv", "grid_search_cv_models_plain",
+    "grid_search_cv_plain", "kernel_accept",
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
     "local_logpdf_models_plain", "local_logpdf_plain",

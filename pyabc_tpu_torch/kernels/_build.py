@@ -73,6 +73,9 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P, _P, _P],
     "pyabc_chol_guarded": [_P, _I, _P, _P, _P, _P],
+    "pyabc_grid_search_cv": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_boot_draw": [
         _P, _I, _I, _I, _U, _U, _U, _U, _U, _I, _I, _P, _P, _P],
     "pyabc_boot_fit": [

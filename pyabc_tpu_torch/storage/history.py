@@ -92,7 +92,7 @@ def _db_path(db: str) -> str:
     if "://" in db:
         raise NotImplementedError(
             f"History url {db!r}: only sqlite is ported (ROADMAP queue A, "
-            f"item 17)")
+            f"item 6)")
     return db
 
 

@@ -1,4 +1,4 @@
-"""Card tests: each hand-written kernel (K2 with K1, K3-K16, K18-K22, K25
+"""Card tests: each hand-written kernel (K2 with K1, K3-K22, K25
 and K6's record mode) against its plain PyTorch version on the CUDA
 device, at small shapes and at the main-path shapes of BASELINE configs 2
 and 4. Marked ``gpu``; without a card
@@ -197,8 +197,8 @@ def test_lv_run_on_the_card(dev):
     # selection's K20b and K26, config 3's K18, K19 and K20b network,
     # LocalTransition's K12-K15, the segmented family's K20b and K22, the
     # adaptive population size's K16, the aggregated distances' K25, the
-    # learned statistics' K23 (linear and MLP) and K18 operands and the
-    # host-refit mode's GP transform are not on it)
+    # learned statistics' K23 (linear and MLP) and K18 operands, the
+    # host-refit mode's GP transform and GridSearchCV's K17 are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -206,7 +206,7 @@ def test_lv_run_on_the_card(dev):
              "ode_family_segments", "moment_fold", "moment_finish",
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
-             "mlp_accept", "gp_accept")
+             "mlp_accept", "gp_accept", "grid_search_cv")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -2812,3 +2812,144 @@ def test_local_k_gt_1_modes(dev, B):
     assert within(dk["drift"], dp["drift"], 1e-5, 1e-4)
     for key in ("refit", "flag", "gens_since", "fitted", "w_models"):
         assert torch.equal(dk[key], dp[key]), key
+
+
+def _grid_inputs(dev, n_cap, n, dims, seed):
+    g = _gen(dev, seed)
+    d, K = max(dims), len(dims)
+    X = torch.randn(n_cap, d, generator=g, device=dev) * 0.7 + 1.0
+    w = torch.rand(n_cap, generator=g, device=dev) + 0.1
+    w[n:] = 0.0
+    m = None
+    if K > 1:
+        m = torch.randint(0, K, (n_cap,), generator=g, device=dev,
+                          dtype=torch.int32)
+        dim_of = torch.tensor(dims, device=dev)[m.long()]
+        X = torch.where(torch.arange(d, device=dev)[None, :]
+                        < dim_of[:, None], X, torch.zeros_like(X))
+    return X.contiguous(), (w / w.sum()).contiguous(), m
+
+
+@pytest.mark.parametrize("n_cap,n,dims,cv,table", [
+    (64, 37, (1,), 3, False), (1024, 1000, (4,), 5, False),
+    (2048, 1500, (4,), 5, True), (2048, 4, (1,), 5, True),
+    (1024, 1000, (1, 2, 2), 5, False)])
+def test_grid_search_cv_kernel(dev, n_cap, n, dims, cv, table):
+    """K17 (one model, a fold table, K > 1) against its plain version:
+    scores within 1e-4 relative and the same bits run to run, the winner
+    equal where the two best scores differ by more than 1e-4 relative, the
+    params at K8's tolerances (rtol 1e-4, atol 1e-5; prec 1e-4 of its
+    largest entry)."""
+    from pyabc_tpu_torch.kernels import (grid_search_cv,
+                                         grid_search_cv_models_plain,
+                                         grid_search_cv_plain)
+    from pyabc_tpu_torch.kernels.mvn_fit import STACKED_KEYS
+    from pyabc_tpu_torch.transition import fold_ids
+
+    X, w, m = _grid_inputs(dev, n_cap, n, dims, seed=n_cap + n)
+    folds = torch.as_tensor(fold_ids(n, cv, n_cap), device=dev)
+    F = cv if table else min(cv, n)
+    scal = (0.25, 0.5, 1.0, 2.0, 4.0)
+    K = len(dims)
+    if K == 1:
+        kw = dict(n_folds=F, dim=dims[0], scalings=scal,
+                  bandwidth_selector=silverman_rule_of_thumb)
+        before = grid_search_cv.launches
+        got, s, b = grid_search_cv(X, w, folds, **kw)
+        assert grid_search_cv.launches == before + 1
+        _g2, s2, _b2 = grid_search_cv(X, w, folds, **kw)
+        ref, rs, rb = grid_search_cv_plain(X, w, folds, **kw)
+        got, ref = [got], [ref]
+    else:
+        kw = dict(n_folds=F, dims=list(dims), scalings=scal,
+                  selectors=[silverman_rule_of_thumb] * K)
+        before = grid_search_cv.mode_launches["models"]
+        gp, s, b = grid_search_cv.models(X, w, m, folds, **kw)
+        assert grid_search_cv.mode_launches["models"] == before + 1
+        _g2, s2, _b2 = grid_search_cv.models(X, w, m, folds, **kw)
+        rp, rs, rb = grid_search_cv_models_plain(X, w, m, folds, **kw)
+        got = [{k: gp[k][i] for k in STACKED_KEYS} for i in range(K)]
+        ref = [{k: rp[k][i] for k in STACKED_KEYS} for i in range(K)]
+    assert torch.equal(s, s2)
+    s, rs, b, rb = (s.reshape(K, -1), rs.reshape(K, -1), b.reshape(K),
+                    rb.reshape(K))
+    assert within(s, rs, 1e-4 * float(rs.abs().max()), 1e-4)
+    for k in range(K):
+        top = torch.sort(rs[k], descending=True).values
+        if float(top[0] - top[1]) > 1e-4 * float(top[0].abs()):
+            assert int(b[k]) == int(rb[k])
+        if int(b[k]) != int(rb[k]):
+            continue
+        for key in ("thetas", "weights", "center", "cdf", "chol", "logdet",
+                    "quad"):
+            assert within(got[k][key], ref[k][key], 1e-5, 1e-4), key
+        assert _row_close(got[k]["prec"], ref[k]["prec"], 1e-4)
+
+
+def test_local_logpdf_over_the_ring(dev):
+    """K14 at the record ring's shape of a pop-16384 noisy run (131072
+    rows, 40 % unwritten zeros) under a LocalTransition fit of 16384 rows
+    (d 4): within 1e-4 + 1e-5 relative of its plain version."""
+    from pyabc_tpu_torch.kernels import local_logpdf, local_logpdf_plain
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d, B = 16384, 4, 131072
+    g = _gen(dev, 16)
+    X = lv.default_prior().rvs_array(n, g, dev).contiguous()
+    w = torch.rand(n, generator=g, device=dev) + 0.1
+    w = (w / w.sum()).contiguous()
+    cfg = LocalTransition.field_config(n, d, scaling=1.0, device=dev,
+                                       k_cap=4096)
+    params = LocalTransition.device_fit(
+        X, w, dim=d, scaling=1.0, k_cap=cfg["k_cap"], selection="threshold",
+        k_table=cfg["k_table"])
+    ring = lv.default_prior().rvs_array(B, g, dev)
+    ring[int(0.6 * B):] = 0.0
+    ring = ring.contiguous()
+    assert within(local_logpdf(ring, params),
+                  local_logpdf_plain(ring, params), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["constant", "list", "models"])
+def test_grid_search_runs_on_the_card(dev, mode):
+    """ABCSMC with GridSearchCV on the card in each mode: K17 launched
+    every generation (its K > 1 mode for the pair), K8 never, the winner in
+    the grid."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (grid_search_cv, launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gaussian
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    def grid():
+        return pt.GridSearchCV(pt.MultivariateNormalTransition(),
+                               {"scaling": [0.5, 1.0, 2.0]}, cv=4)
+
+    reset_launch_counts()
+    if mode == "models":
+        models, priors, _an = msel.tractable_pair()
+        abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                        population_size=400, eps=pt.MedianEpsilon(),
+                        transitions=[grid(), grid()], device=dev)
+        obs = {"x": 0.7}
+    else:
+        ps = (300 if mode == "constant"
+              else pt.ListPopulationSize([200, 260, 150, 220]))
+        abc = pt.ABCSMC(gaussian.make_mean_only_model(),
+                        gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                        population_size=ps, eps=pt.MedianEpsilon(),
+                        fused_generations=3, transitions=grid(), device=dev)
+        obs = {"x": 1.0}
+    abc.new("sqlite://", obs)
+    h = abc.run(max_nr_populations=4)
+    counts = launch_counts()
+    assert counts["grid_search_cv"] == 4 and counts["mvn_fit"] == 0
+    if mode == "models":
+        assert grid_search_cv.mode_launches["models"] == 4
+    if mode == "list":
+        sizes = h.get_nr_particles_per_population()
+        assert [int(v) for v in sizes[sizes.index >= 0]] == [200, 260, 150,
+                                                             220]
+    for t in range(4):
+        chosen = h.get_telemetry(t)["gridsearch_scaling"]
+        assert set(np.atleast_1d(chosen)) <= {0.5, 1.0, 2.0}

@@ -429,30 +429,32 @@ def test_what_stays_unported_raises(what):
         kw["population_size"] = tpt.AdaptivePopulationSize(150)
         match = "unbounded max_population_size.*item 16"
     elif what == "stochastic":
-        # noisy ABC runs one model: the LocalTransition refusal is K = 1's
+        # noisy ABC runs one model at a constant size; a list of sizes
+        # takes the JAX package's host loop (its stochastic gate)
         with pytest.raises(NotImplementedError,
                            match="LocalTransition with a StochasticAcceptor"
-                                 ".*item 12"):
+                                 ".*constant population size.*item 16"):
             tpt.ABCSMC(gaussian.make_mean_only_model(),
                        gaussian.mean_only_prior(),
                        tpt.IndependentNormalKernel(var=[0.1]),
+                       population_size=tpt.ListPopulationSize([100, 200]),
                        eps=tpt.Temperature(),
                        acceptor=tpt.StochasticAcceptor(),
                        transitions=tpt.LocalTransition(), device="cpu")
         return
     else:
+        # segmented early reject runs two LocalTransitions; a sharded
+        # segmented run stays unported, as with the MVN transition
         seg = [gillespie.make_birth_death_model(n_leaps=100, n_obs=20,
                                                 segments=5, x0=x0)
                for x0 in (10, 20)]
-        abc = tpt.ABCSMC(seg, [gillespie.birth_death_prior()] * 2,
-                         tpt.PNormDistance(p=2), population_size=64,
-                         eps=tpt.MedianEpsilon(), device="cpu", **kw)
-        abc.new("sqlite://", gillespie.observed_birth_death(
-            n_leaps=100, n_obs=20, segments=5))
         with pytest.raises(NotImplementedError,
-                           match="segmented early reject with "
-                                 "LocalTransition.*item 12"):
-            abc.run(max_nr_populations=2)
+                           match="segmented early reject in a sharded "
+                                 "run.*item 13"):
+            tpt.ABCSMC(seg, [gillespie.birth_death_prior()] * 2,
+                       tpt.PNormDistance(p=2), population_size=64,
+                       eps=tpt.MedianEpsilon(), sharded=True, device="cpu",
+                       **kw)
         return
     with pytest.raises(NotImplementedError, match=match):
         tpt.ABCSMC(models, priors, tpt.PNormDistance(p=2), device="cpu",

@@ -575,8 +575,9 @@ def test_gates_of_what_is_not_ported():
                    eps=tpt.Temperature(), acceptor=tpt.StochasticAcceptor(),
                    device="cpu")
     # the segmented family builds (K18 steps it under early reject); a
-    # LocalTransition over several models runs, but under segmented early
-    # reject it is still to port
+    # LocalTransition over several models runs under segmented early
+    # reject too (K18 after K2's K > 1 local mode), but a sharded
+    # segmented run is still to port
     seg_models, seg_priors, _ts = tmsel.ode_family(segments=4)
     assert all(m.segmented is not None for m in seg_models)
     abc = tpt.ABCSMC(seg_models, seg_priors,
@@ -584,5 +585,9 @@ def test_gates_of_what_is_not_ported():
                      population_size=64, device="cpu")
     abc.new("sqlite://", tmsel.observed_ode_family(seed=0, true_model=1,
                                                    segments=4))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        abc.run(max_nr_populations=2)
+    h = abc.run(max_nr_populations=2)
+    assert h.n_populations == 2 and "retired_early" in h.get_telemetry(1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tpt.ABCSMC(seg_models, seg_priors,
+                   transitions=[tpt.LocalTransition() for _ in seg_models],
+                   sharded=True, device="cpu")
