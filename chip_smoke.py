@@ -2100,6 +2100,8 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.grid_search", "grid_search_cv_plain"),
     ("pyabc_tpu_torch.kernels.grid_search", "grid_search_cv_models_plain"),
     ("pyabc_tpu_torch.kernels.grid_search", "fold_scores_plain"),
+    ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_simulate_plain"),
+    ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_noise_plain"),
 )
 
 
@@ -2780,7 +2782,9 @@ def pair_abc(where, seed, kind: str = "mvn"):
 
     models, priors, _an = msel.tractable_pair()
     kw = {}
-    if kind == "local":
+    if kind == "host":
+        kw["fused_generations"] = 1
+    elif kind == "local":
         kw["transitions"] = [pt.LocalTransition(), pt.LocalTransition()]
     elif kind == "grid":
         kw["transitions"] = [
@@ -2799,7 +2803,8 @@ def pair_stats(where, kind: str = "mvn") -> dict:
     the wall."""
     p0 = []
     t0 = time.perf_counter()
-    for seed in (PAIR_GRID_SEEDS if kind == "grid" else PAIR_SEEDS):
+    for seed in {"grid": PAIR_GRID_SEEDS, "host": HL_PAIR_SEEDS}.get(
+            kind, PAIR_SEEDS):
         h = pair_abc(where, seed, kind).run(max_nr_populations=PAIR_GENS)
         check(h.n_populations == PAIR_GENS,
               f"tractable pair ({kind}) seed {seed} ({where}) ran "
@@ -9559,6 +9564,539 @@ def config3_local_run(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------- the host loop
+#: BASELINE config 1 on the per-generation host loop: the 2-parameter
+#: Gaussian (``make_gaussian_model``, 10 draws a lane, K4's Gaussian kernel),
+#: its default prior, a p = 2 norm and MedianEpsilon at X1_OBS; pop 16384,
+#: 8 generations. Its card-against-CPU check runs pop 1024 over two
+#: generations.
+X1_OBS = {"mean": 0.4, "std": 1.1}
+X1_POP, X1_GENS, X1_SEED = 16384, 8, 3
+X1_CMP_POP, X1_CMP_GENS = 1024, 2
+#: the Gaussian kernel's phase-2 shape: B lanes of n draws
+GAUSS_B, GAUSS_N = 65536, 10
+#: LV config 2 through BatchedSampler() on the host loop
+HL_LV_POP, HL_LV_GENS = 16384, 8
+#: the tractable pair through the host loop (its CPU side in the
+#: reference process)
+HL_PAIR_SEEDS = tuple(range(8))
+#: the kernels of the host loop's rounds (the per-round mode adds K26's
+#: round kernel, the fused sampler K6)
+X1_PATH = ("propose", "mvn_mixture_logpdf", "gaussian_simulate",
+           "pnorm_accept_weight")
+HL_LV_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+              "pnorm_accept_weight", "compact_round", "scale_reduce")
+HL_KERNELS = ("gaussian_simulate",)
+#: the host-loop modes of config 1 (ABCSMC arguments)
+X1_MODES = {"pipelined": dict(fused_generations=1),
+            "speculative": dict(fused_generations=1),
+            "serial": dict(fused_generations=1, pipeline=False),
+            "rounds": "BatchedSampler(fused=False)",
+            "fused": {}}
+
+
+def config1(where, seed: int = X1_SEED, pop: int = X1_POP,
+            mode: str = "pipelined"):
+    """BASELINE config 1 under ``mode``: the pipelined host loop (with a
+    speculative round every generation after the second: ``speculative``),
+    the serial loop, the per-round mode, or the fused chunk loop."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gaussian
+
+    kw = X1_MODES[mode]
+    if mode == "rounds":
+        kw = {"sampler": pt.BatchedSampler(fused=False)}
+    abc = pt.ABCSMC(gaussian.make_gaussian_model(), gaussian.default_prior(),
+                    pt.PNormDistance(p=2), population_size=pop,
+                    eps=pt.MedianEpsilon(), seed=seed, device=where, **kw)
+    if mode == "speculative":
+        # the loop speculates after a strategy update slower than this
+        abc.speculation_min_adapt_s = 0.0
+    abc.new("sqlite://", X1_OBS, store_sum_stats=False)
+    return abc
+
+
+def gaussian_checks(dev) -> dict:
+    """K4's Gaussian kernel against its plain version on the same Philox
+    words: prior draws of config 1, B 65536 lanes of 10 draws; within rel
+    1e-6 of each lane's scale |mu| + |sigma|."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        gaussian_simulate, gaussian_simulate_plain)
+    from pyabc_tpu_torch.models import gaussian
+
+    B, n = GAUSS_B, GAUSS_N
+    theta = propose(stream_on(dev, philox.PRIOR), B,
+                    gaussian.default_prior().arrays(dev))[0]
+    sim = stream_on(dev, philox.SIM_NOISE)
+    k = gaussian_simulate(theta, n=n, stream=sim)
+    p = gaussian_simulate_plain(theta, n=n, stream=sim)
+    torch.cuda.synchronize()
+    scale = (theta[:, 0].abs() + theta[:, 1].abs())[:, None]
+    err = float((k - p).abs().max())
+    rel = float(((k - p).abs() / scale).max())
+    log(f"K4 gaussian_simulate (B {B}, n {n}): max_abs_err={err:.3e} "
+        f"max_rel_err_of_scale={rel:.3e}")
+    check(bool(torch.isfinite(k).all()) and rel <= 1e-6,
+          "K4 gaussian_simulate outside rel 1e-6 of |mu| + |sigma|")
+    # an observation of the mean or the std alone: one column a row
+    for columns in ((0, -1), (-1, 0), (1, 0)):
+        kc = gaussian_simulate(theta, n=n, stream=sim, columns=columns)
+        pc = gaussian_simulate_plain(theta, n=n, stream=sim, columns=columns)
+        rc = float(((kc - pc).abs() / scale).max())
+        log(f"K4 gaussian_simulate columns {columns}: shape "
+            f"{tuple(kc.shape)} max_rel_err_of_scale={rc:.3e}")
+        check(kc.shape == pc.shape and rc <= 1e-6, f"K4 gaussian_simulate "
+              f"with columns {columns} disagrees with its plain version")
+    nb = (n + 3) // 4
+    # theta read, the rows written; a Philox block 100 operations, a
+    # Box-Muller pair's normal about 25, the two moments 6 a draw
+    nbytes = B * 2 * 4 + B * 2 * 4 + 5 * 4
+    flops = B * (nb * 100 + n * (25 + 6) + 4)
+    return {"gaussian_simulate": dict(
+        err=err, rel_err=rel,
+        call_ms=time_ms(lambda: gaussian_simulate(theta, n=n, stream=sim),
+                        50),
+        ms=graph_ms(lambda: gaussian_simulate(theta, n=n, stream=sim)),
+        plain_ms=time_ms(lambda: gaussian_simulate_plain(theta, n=n,
+                                                         stream=sim), 5),
+        bound=bound(nbytes, flops), library_ms=None)}
+
+
+def round_plain(ctx, mode: str, dyn: dict, key, B: int) -> dict:
+    """Config 1's round of ``mode`` composed of the plain versions (K2,
+    K3, K4's Gaussian, K5) on the card's tensors."""
+    import torch
+
+    from pyabc_tpu_torch.core.random import CALIBRATION_GENERATION
+    from pyabc_tpu_torch.kernels import philox
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        gaussian_simulate_plain)
+    from pyabc_tpu_torch.kernels.mvn_logpdf import mvn_mixture_logpdf_plain
+    from pyabc_tpu_torch.kernels.pnorm_accept import (
+        pnorm_accept_weight_plain)
+    from pyabc_tpu_torch.kernels.propose import propose_plain
+
+    ctr = torch.zeros(5, dtype=torch.int32, device=ctx.device)
+    ctr[1] = key.round
+
+    def st(tag):
+        return philox.PhiloxStream(ctx.seed, key.generation, tag,
+                                   ctx.stride_rounds, ctr)
+
+    if mode == "transition":
+        theta, logpri, valid = propose_plain(st(philox.TRANSITION), B,
+                                             ctx.prior_arrays,
+                                             dyn["trans_params"])
+        logq = mvn_mixture_logpdf_plain(theta, dyn["trans_params"])
+    else:
+        tag = (philox.CALIBRATION if key.generation == CALIBRATION_GENERATION
+               else philox.PRIOR)
+        theta, logpri, valid = propose_plain(st(tag), B, ctx.prior_arrays)
+        logq = logpri
+    ss = gaussian_simulate_plain(theta, n=GAUSS_N, stream=st(
+        philox.SIM_NOISE))
+    if mode == "calibration":
+        zero = torch.zeros(B, dtype=torch.float32, device=ctx.device)
+        return {"theta": theta, "sumstats": ss, "distance": zero,
+                "accepted": valid, "valid": valid, "log_weight": zero,
+                "logq": logq}
+    terms = dict(logpri=logpri, logq=logq) if mode == "transition" else {}
+    d, acc, lw = pnorm_accept_weight_plain(ss, ctx.x0, dyn["dist_w"],
+                                           dyn["eps"], valid, p=2.0,
+                                           **terms)
+    return {"theta": theta, "sumstats": ss, "distance": d, "accepted": acc,
+            "valid": valid, "log_weight": lw, "logq": logq}
+
+
+#: the lane kernels of one config 1 round of K26's round kernel, by mode
+ROUND_LANES = {"prior": ("propose", "gaussian_simulate",
+                         "pnorm_accept_weight"),
+               "calibration": ("propose", "gaussian_simulate"),
+               "transition": ("propose", "mvn_mixture_logpdf",
+                              "gaussian_simulate", "pnorm_accept_weight")}
+
+
+def round_device_ops(ctx, key, B: int, mode: str, dyn: dict) -> None:
+    """One round of ``mode`` under torch.profiler: the wrappers' counts
+    rise by one for each lane kernel of the mode and by nothing else, and
+    the device runs exactly that many kernels (memory copies aside), so
+    the round launches no PyTorch kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyabc_tpu_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctx.round(key, B, mode, dyn)
+        torch.cuda.synchronize()
+    after = launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    log(f"K26 round kernel, {mode} mode: lane launches {delta}; device ops "
+        f"{len(names)}, kernels {len(kernels)} "
+        f"{sorted({n[:40] for n in kernels})}"
+        + ("" if names else " (the profiler recorded no device op: the "
+           "kernel count not measured)"))
+    check(delta == {k: 1 for k in ROUND_LANES[mode]},
+          f"K26 round kernel's {mode} round launched {delta}")
+    check(not names or len(kernels) == len(ROUND_LANES[mode]),
+          f"K26 round kernel's {mode} round ran {len(kernels)} device "
+          f"kernels for {len(ROUND_LANES[mode])} lane launches")
+
+
+def round_checks(dev) -> dict:
+    """K26's round kernel in each mode against its plain versions on
+    config 1 at the main path's round (pop 16384, B 65536): the prior
+    round at the median distance of a first prior round, the calibration
+    round, and a transition round from the host fit of that round's 16384
+    nearest rows at their median. theta and the rows within 1e-5 + 1e-5
+    |x|, distances within 1e-6 + 1e-5 |x|, flags equal away from eps, log
+    weights and proposal densities within 1e-4 + 1e-5 |x| (-inf where the
+    plain version's is). Each mode's round once more under the profiler:
+    its lane kernels and no other device kernel. The round is a composite
+    of its lane kernels: its time is theirs, back to back."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.core.random import RoundKey, generation_key
+
+    abc = config1(dev)
+    ctx = abc._build_context(X1_POP, 0.0)
+    B = abc.sampler._pick_B(X1_POP)
+    _m, dyn_inf = ctx.build_dyn_args(t=0, eps_value=math.inf)
+    first = ctx.round(RoundKey(0, 0), B, "prior", dyn_inf)
+    d0 = first["distance"].cpu().numpy()
+    near = np.argsort(d0)[:X1_POP]
+    eps0 = float(np.median(d0))
+    abc.transitions[0].fit(first["theta"].cpu().numpy()[near],
+                           np.full(X1_POP, 1.0 / X1_POP))
+    eps1 = float(np.median(d0[near]))
+    cases = {
+        "prior": (RoundKey(0, 1), ctx.build_dyn_args(t=0, eps_value=eps0)),
+        "calibration": (RoundKey(generation_key(-1), 0), ("prior", dyn_inf)),
+        "transition": (RoundKey(1, 2), ctx.build_dyn_args(
+            t=1, eps_value=eps1, model_probabilities={0: 1.0},
+            transitions=abc.transitions))}
+    worst = 0.0
+    for mode, (key, (_mm, dyn)) in cases.items():
+        k = ctx.round(key, B, mode, dyn)
+        p = round_plain(ctx, mode, dyn, key, B)
+        torch.cuda.synchronize()
+        eps = dyn["eps"]
+        parts = {"theta": within(k["theta"], p["theta"], 1e-5, 1e-5),
+                 "sumstats": within(k["sumstats"], p["sumstats"], 1e-5,
+                                    1e-5),
+                 "distance": within(k["distance"], p["distance"], 1e-6,
+                                    1e-5),
+                 "valid": bool(torch.equal(k["valid"], p["valid"]))}
+        far = (p["distance"] - eps).abs() > 1e-6 + 1e-5 * eps.abs()
+        parts["accepted"] = bool((k["accepted"] == p["accepted"])[far].all())
+        for name in ("log_weight", "logq"):
+            a, b = k[name], p[name]
+            fin = torch.isfinite(b)
+            parts[name] = bool(torch.equal(torch.isfinite(a), fin)) and bool(
+                ((a - b).abs()[fin] <= 1e-4 + 1e-5 * b.abs()[fin]).all())
+        errs = {n: float((k[n] - p[n]).abs()[torch.isfinite(p[n])].max())
+                for n in ("theta", "sumstats", "distance", "log_weight",
+                          "logq")}
+        err = max(errs.values())
+        worst = max(worst, err)
+        log(f"K26 round kernel, {mode} mode (B {B}): max_abs_err={err:.3e} "
+            f"by output { {n: f'{e:.2e}' for n, e in errs.items()} }; "
+            f"within tolerance {parts}; accepted "
+            f"{int(k['accepted'].sum())} of {B}, "
+            f"{int((k['accepted'] != p['accepted']).sum())} flags apart")
+        check(all(parts.values()), f"K26 round kernel's {mode} round "
+              f"disagrees with its plain versions ({parts})")
+        round_device_ops(ctx, key, B, mode, dyn)
+    key, (_mm, dyn) = cases["transition"]
+
+    def fn(key, dyn):
+        return ctx.round(key, B, "transition", dyn)
+
+    params = dyn["trans_params"]
+    n_live = int((params["weights"] > 0).sum())
+    # the round's inputs (the fit, the prior, x0, w) read once and its
+    # outputs (theta, rows, distance, flags, log weight, logq) written once;
+    # K2 a Philox block of the ancestor and one of the normals a lane, K3
+    # (2 d + 8) a lane and component, the simulator 3 blocks and 10 normals,
+    # K5 4 a statistic
+    d, S, n_fit = 2, 2, params["thetas"].shape[0]
+    nbytes = (n_fit * (2 * d + 3) * 4 + 2 * d * d * 4 + B * (
+        d * 4 + S * 4 + 4 + 1 + 1 + 4 + 4))
+    flops = B * (2 * 100 + n_live * (2 * d + 8)
+                 + 3 * 100 + GAUSS_N * 31 + 4 * S)
+    return {"round_kernel": dict(
+        err=worst, call_ms=time_ms(lambda: fn(key, dyn), 20),
+        ms=graph_ms(lambda: fn(key, dyn), iters=10),
+        plain_ms=time_ms(lambda: round_plain(ctx, "transition", dyn, key,
+                                             B), 3),
+        bound=bound(nbytes, flops), library_ms=None)}
+
+
+def host_loop_run(abc, gens: int, label: str, path) -> tuple:
+    """One host-loop run on the card, the counts set to 0 just before it
+    and read just after, the plain versions set to raise -> (History, wall,
+    the launch counts with the run's rounds of K26's round kernel, the
+    reads of their outputs)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by = abc.sync_ledger.summary()["by_kind"]
+    counts = launch_counts() | {"round_kernel": by.get("round_fetch", 0)
+                                + by.get("speculative_fetch", 0)}
+    check(h.n_populations == gens,
+          f"{label}: {h.n_populations} of {gens} generations")
+    missing = [k for k in path if counts[k] == 0]
+    check(not missing, f"{label}: {missing} never launched on its path")
+    return h, wall, counts
+
+
+def host_summary(abc, h, wall: float, label: str) -> dict:
+    """The leg's wall split, its syncs by kind and a generation, the
+    speculative round's accepted lanes and the epsilon trail."""
+    log_ = abc.generation_log
+    gens = len(log_)
+    by = abc.sync_ledger.summary()["by_kind"]
+    split = {k: round(sum(g.get(k, 0.0) for g in log_), 4)
+             for k in ("sample_s", "adapt_s", "persist_s", "write_s")}
+    split["flush_s"] = round(abc.flush_s, 4)
+    spec = [g.get("speculative_accepted", 0) for g in log_]
+    eps = [round(float(e), 5) for e in
+           h.get_all_populations().query("t >= 0")["epsilon"]]
+    log(f"{label}: wall {wall:.3f} s for {gens} generations "
+        f"({sum(g['n'] for g in log_) / wall:.0f} accepted particles/s); "
+        f"split {split}; syncs {abc.sync_ledger.count} "
+        f"({abc.sync_ledger.count / gens:.2f} a generation) {by}; rounds "
+        f"{[g['rounds'] for g in log_]}; speculative accepts {spec}; eps "
+        f"{eps}")
+    return {"wall": wall, "by_kind": by, "spec": spec, "eps": eps}
+
+
+def config1_legs(dev) -> dict:
+    """Config 1 at pop 16384 over 8 generations on the card: the pipelined
+    host loop as a user gets it (``speculation_min_adapt_s`` 0.25 s, which
+    this configuration's strategy updates stay below, so it does not
+    speculate), the same with the speculative round forced every
+    generation after the second (a non-default setting), the per-round
+    mode (K26's round kernel every round) and the fused chunk loop as the
+    yardstick, each with the counts reset just before it; then each once
+    more under torch.profiler for the card's busy share. The syncs: one
+    counter read a round and one collect a generation (a speculative round
+    one read more) on the pipelined loop, one read a round in the
+    per-round mode, and no other host read -> each mode's launch counts
+    (``round_kernel``: the rounds of K26's round kernel, each its lane
+    kernels' launches)."""
+    out = {}
+    for mode, label in (
+            ("pipelined", "config 1, pipelined host loop (default)"),
+            ("speculative", "config 1, pipelined host loop, speculation "
+                            "forced (non-default)"),
+            ("rounds", "config 1, per-round host loop"),
+            ("fused", "config 1, fused chunk loop")):
+        abc = config1(dev, mode=mode)
+        path = X1_PATH + (("compact_round",) if mode != "rounds" else ()) \
+            + (("round_kernel",) if mode in ("speculative", "rounds")
+               else ())
+        h, wall, counts = host_loop_run(abc, X1_GENS, label, path)
+        log(f"{label} ({dev}): kernel launches {counts}")
+        st = host_summary(abc, h, wall, label) if mode != "fused" else None
+        by = abc.sync_ledger.summary()["by_kind"]
+        rounds = sum(g["rounds"] for g in abc.generation_log)
+        if mode == "rounds":
+            # the calibration's rounds are K26's too; each round one K2 and
+            # one K4 launch
+            check(set(by) == {"round_fetch"}
+                  and by["round_fetch"] >= rounds,
+                  f"{label}: a host read besides one a round ({by})")
+            check(counts["propose"] == counts["gaussian_simulate"]
+                  == by["round_fetch"],
+                  f"{label}: {by['round_fetch']} rounds but K2 "
+                  f"{counts['propose']} and K4 {counts['gaussian_simulate']} "
+                  f"launches")
+        elif mode == "pipelined":
+            spec_s = [g.get("speculative_accepted", 0)
+                      for g in abc.generation_log]
+            check(set(by) <= {"round_counters", "generation_collect",
+                              "speculative_fetch"}
+                  and by["generation_collect"] == X1_GENS + 1,
+                  f"{label}: the reads are not a counter read a round and "
+                  f"a collect a generation ({by})")
+            log(f"{label}: speculative rounds "
+                f"{by.get('speculative_fetch', 0)}, accepts {spec_s}")
+        elif mode == "speculative":
+            # every generation but the first two speculates
+            n_spec = X1_GENS - 2
+            check(set(by) <= {"round_counters", "generation_collect",
+                              "speculative_fetch"}
+                  and by["generation_collect"] == X1_GENS + 1
+                  and by.get("speculative_fetch", 0) == n_spec
+                  and counts["round_kernel"] == n_spec,
+                  f"{label}: the reads are not a counter read a round, a "
+                  f"collect a generation and one a speculative round "
+                  f"({by})")
+            check(sum(st["spec"]) > 0, f"{label}: no speculative lane was "
+                  f"accepted")
+        else:
+            sync_check(abc, label)
+            log(f"{label}: wall {wall:.3f} s, split {wall_split(abc)}, "
+                f"syncs {abc.sync_ledger.count / X1_GENS:.2f} a generation")
+        out[mode] = counts
+        profile_run(f"{label} (profiled)", config1(dev, mode=mode), X1_GENS)
+    return out
+
+
+def config1_mean_only(dev) -> None:
+    """Config 1's model observed through its mean alone (pop 4096, 3
+    generations, the pipelined loop): every round simulates through K4's
+    Gaussian kernel, one column a row, with the plain versions set to
+    raise."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gaussian
+
+    abc = pt.ABCSMC(gaussian.make_gaussian_model(), gaussian.default_prior(),
+                    pt.PNormDistance(p=2), population_size=4096,
+                    eps=pt.MedianEpsilon(), seed=X1_SEED, device=dev,
+                    fused_generations=1)
+    abc.new("sqlite://", {"mean": X1_OBS["mean"]}, store_sum_stats=False)
+    label = "config 1, mean observed alone"
+    h, wall, counts = host_loop_run(abc, 3, label, X1_PATH)
+    rounds = sum(g["rounds"] for g in abc.generation_log)
+    df, w = h.get_distribution(0, h.max_t)
+    mu = float(np.sum(df["mu"] * w))
+    log(f"{label}: wall {wall:.3f} s, rounds {rounds}, K4 launches "
+        f"{counts['gaussian_simulate']}, posterior mean of mu {mu:.4f}")
+    check(counts["gaussian_simulate"] >= rounds > 0 and abs(mu - 0.4) < 0.3,
+          f"{label}: K4 did not simulate every round, or the posterior "
+          f"mean of mu {mu:.4f} is 0.3 or more off the observed mean")
+
+
+def config1_cpu_check(dev) -> None:
+    """Card against CPU at pop 1024 over two generations, the pipelined
+    loop and the per-round mode: the same Philox streams, so the epsilon
+    trails and the posterior means agree within 1e-3."""
+    import numpy as np
+
+    def run(where, mode):
+        h = config1(where, pop=X1_CMP_POP, mode=mode).run(
+            max_nr_populations=X1_CMP_GENS)
+        eps = h.get_all_populations().query("t >= 0")["epsilon"].to_numpy()
+        df, w = h.get_distribution(0, h.max_t)
+        return np.concatenate([eps, [np.sum(df["mu"] * w),
+                                     np.sum(df["sigma"] * w)]])
+
+    for mode in ("pipelined", "rounds"):
+        with plain_versions_raise():
+            card = run(dev, mode)
+        cpu = run("cpu", mode)
+        rel = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-12)
+        log(f"config 1 ({mode}) card against CPU at pop {X1_CMP_POP}: eps "
+            f"and posterior means card {np.round(card, 5).tolist()} cpu "
+            f"{np.round(cpu, 5).tolist()}; rel {np.round(rel, 7).tolist()}")
+        check(bool(np.all(rel <= 1e-3)), f"config 1 ({mode}): card and CPU "
+              f"apart by more than 1e-3")
+
+
+def host_lv_leg(dev) -> dict:
+    """LV config 2 (AdaptivePNormDistance, MedianEpsilon) through
+    ``BatchedSampler()`` on the host loop, pop 16384, 8 generations: each
+    generation's record ring reduced on the card (K9 in the collect's
+    place of a read), so the reads are a counter read a round and a collect
+    a generation -> its launch counts."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(p=2), population_size=HL_LV_POP,
+                    eps=pt.MedianEpsilon(), sampler=pt.BatchedSampler(),
+                    fused_generations=1, seed=0, device=dev)
+    abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
+    label = "LV config 2, host loop"
+    h, wall, counts = host_loop_run(abc, HL_LV_GENS, label, HL_LV_PATH)
+    log(f"{label} ({dev}): kernel launches {counts}")
+    host_summary(abc, h, wall, label)
+    by = abc.sync_ledger.summary()["by_kind"]
+    check(set(by) == {"round_counters", "generation_collect"}
+          and counts["scale_reduce"] == HL_LV_GENS,
+          f"{label}: the ring was read or not reduced once a generation "
+          f"({by}, K9 {counts['scale_reduce']})")
+    check(sorted(abc.distance_function.weights) == list(range(
+        HL_LV_GENS + 1)), f"{label}: a generation's weights are missing")
+    return counts
+
+
+@cpu_ref
+def pair_host_cpu() -> dict:
+    return pair_stats("cpu", "host")
+
+
+def pair_host_loop(dev) -> dict:
+    """The tractable pair through the pipelined host loop over
+    HL_PAIR_SEEDS on the card (the plain versions set to raise) and on the
+    CPU (the reference process): the seed mean of P(m = 0) within 0.05 of
+    the exact 0.5529 and within 4 se of the CPU's -> the card's counts."""
+    import numpy as np
+    import torch
+
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    exact = float(msel.tractable_pair()[2](PAIR_X)[0])
+    name = "tractable pair, host loop"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with plain_versions_raise():
+        card = pair_stats(dev, "host")
+    counts = launch_counts()
+    log(f"{name} ({dev}): kernel launches {counts}")
+    path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
+            "compact_round")
+    check(all(counts[k] > 0 for k in path),
+          f"a kernel of the {name}'s path was never launched")
+
+    def summary(where, st):
+        p0 = st["p0"]
+        m = float(np.mean(p0))
+        se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
+        log(f"{name} ({where}, {len(p0)} seeds, pop {PAIR_POP}, {PAIR_GENS} "
+            f"generations, {st['wall']:.2f} s): mean P(m=0) {m:.4f} se "
+            f"{se:.4f} (exact {exact:.4f}, {(m - exact) / se:+.2f} se)")
+        return m, se
+
+    m_d, se_d = summary(dev, card)
+    check(abs(m_d - exact) < 0.05, f"{name}: the card's seed mean of "
+          "P(m=0) is 0.05 or more off the exact posterior")
+
+    def compare():
+        m_c, se_c = summary("cpu", REFS.get("pair_host_cpu"))
+        gap = (m_d - m_c) / math.hypot(se_d, se_c)
+        log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+        check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= 4 "
+              f"standard errors")
+
+    PENDING.append(compare)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -9615,6 +10153,8 @@ def main() -> int:
     k16_repair_case(dev)
     results.update(k17_checks(dev))
     results.update(k14_ring_checks(dev))
+    results.update(gaussian_checks(dev))
+    results.update(round_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -9706,6 +10246,14 @@ def main() -> int:
     sir_local = sir_local_run(dev)
     c3l_counts = config3_local_run(dev)
     mark("GridSearchCV legs, LocalTransition's noisy and segmented legs")
+    # the per-generation host loop: config 1 (K4's Gaussian kernel, K26's
+    # round kernel), LV config 2 and the tractable pair
+    x1 = config1_legs(dev)
+    config1_mean_only(dev)
+    config1_cpu_check(dev)
+    hl_lv = host_lv_leg(dev)
+    hl_pair = pair_host_loop(dev)
+    mark("host-loop legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -9764,7 +10312,8 @@ def main() -> int:
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (lvg_counts if k.name == "grid_search_cv"
+        own = (x1["pipelined"] if k.name in HL_KERNELS
+               else lvg_counts if k.name == "grid_search_cv"
                else gp_counts if k.name in GP_KERNELS
                else mlp_counts if k.name in MLP_KERNELS
                else ls_counts if k.name in LS_KERNELS
@@ -9829,7 +10378,16 @@ def main() -> int:
                                  "tractable_pair_grid": pair_grid[k.name],
                                  "noisy_anchor_local": noisy_local[k.name],
                                  "sir_config4_local": sir_local[k.name],
-                                 "config3_local": c3l_counts[k.name]},
+                                 "config3_local": c3l_counts[k.name],
+                                 "config1_host_loop":
+                                     x1["pipelined"][k.name],
+                                 "config1_speculation_forced":
+                                     x1["speculative"][k.name],
+                                 "config1_per_round": x1["rounds"][k.name],
+                                 "config1_fused": x1["fused"][k.name],
+                                 "lv_config2_host_loop": hl_lv[k.name],
+                                 "tractable_pair_host_loop":
+                                     hl_pair[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
@@ -10019,6 +10577,26 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **({"probe_ms": r["probe_ms"]} if "probe_ms" in r else {}),
             "launches_by_path": by_path})
+    # K26's round kernel: a composite of its lane kernels (K2, K3, K4's
+    # Gaussian kernel, K5), which count their own launches in their rows;
+    # its "launches" are the rounds of the per-round mode of config 1 (and
+    # the forced speculative rounds beside them), read off the sync ledger
+    r = results["round_kernel"]
+    check(x1["rounds"]["round_kernel"] > 0,
+          "round_kernel was never run on its path")
+    kernels.append({
+        "name": "round_kernel", "route": "cuda",
+        "source": "pyabc_tpu_torch/inference/context.py",
+        "replaces": "pyabc_tpu/inference/util.py:453",
+        "composite": True, "launched_as": list(ROUND_LANES["transition"]),
+        "launches": x1["rounds"]["round_kernel"], "max_abs_err": r["err"],
+        "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": r["library_ms"],
+        "launches_by_path": {
+            "config1_per_round": x1["rounds"]["round_kernel"],
+            "config1_speculation_forced":
+                x1["speculative"]["round_kernel"]}})
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

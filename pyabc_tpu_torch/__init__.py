@@ -8,7 +8,10 @@ distances, the p-norms also through linear learned summary statistics),
 for one NVIDIA H100.
 
 Entry points run on the CUDA card unless ``device="cpu"`` is passed; the
-hand-written kernels (``csrc/``) are built at first launch.
+hand-written kernels (``csrc/``) are built at first launch. Generations
+run as fused chunks on the card, or on the per-generation host loop
+(``fused_generations=1``, ``BatchedSampler(fused=False)``) with the
+adaptation between generations on the host.
 """
 from .acceptor import (ScaledPDFNorm, StochasticAcceptor, UniformAcceptor,
                        pdf_norm_from_kernel, pdf_norm_max_found)
@@ -33,6 +36,7 @@ from .predictor import (GPPredictor, LassoPredictor, LinearPredictor,
 from .populationstrategy import (AdaptivePopulationSize,
                                  ConstantPopulationSize, ListPopulationSize,
                                  PopulationStrategy)
+from .sampler import BatchedSampler
 from .storage import History
 from .sumstat import IdentitySumstat, PredictorSumstat, Sumstat
 from .transition import (GridSearchCV, LocalTransition,
@@ -43,6 +47,7 @@ from .transition import (GridSearchCV, LocalTransition,
 __all__ = [
     "ABCSMC", "AcceptanceRateScheme", "AdaptiveAggregatedDistance",
     "AdaptivePNormDistance", "AdaptivePopulationSize", "AggregatedDistance",
+    "BatchedSampler",
     "BinomialKernel", "ConstantEpsilon", "ConstantPopulationSize",
     "DalyScheme", "DegenerateRunError", "Distribution", "Epsilon",
     "EssScheme", "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",

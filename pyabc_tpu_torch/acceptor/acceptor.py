@@ -22,6 +22,37 @@ class UniformAcceptor:
 
     def __init__(self, use_complete_history: bool = False):
         self.use_complete_history = bool(use_complete_history)
+        #: the host loop's threshold trail (``note_epsilon``)
+        self._eps_history: dict[int, float] = {}
+
+    # the per-generation host loop's lifecycle (``pyabc_tpu/acceptor/
+    # acceptor.py:44-53, :97-112``)
+    def initialize(self, t, get_weighted_distances=None,
+                   distance_function=None, x_0=None) -> None:
+        pass
+
+    def update(self, t, get_weighted_distances=None, prev_temp=None,
+               acceptance_rate=None) -> None:
+        pass
+
+    def get_epsilon_config(self, t: int) -> dict:
+        return {}
+
+    def note_epsilon(self, t: int, eps_value: float,
+                     distance_changed: bool) -> None:
+        """Record the threshold used at generation t; after a distance
+        change the earlier thresholds no longer compare, so the trail
+        restarts."""
+        if distance_changed:
+            self._eps_history.clear()
+        self._eps_history[t] = float(eps_value)
+
+    def historic_min(self, t: int | None) -> float:
+        """The smallest threshold before generation t (``use_complete_
+        history``'s second test), +inf without one."""
+        vals = [e for s, e in self._eps_history.items()
+                if t is None or s < t]
+        return min(vals) if vals else np.inf
 
     def get_config(self) -> dict:
         return {"name": type(self).__name__}

@@ -54,5 +54,19 @@ class Population:
     def get_alive_models(self) -> list[int]:
         return [int(m) for m in np.unique(self.ms)]
 
+    def get_distribution(self, m: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """Model m's parameters ``(n_m, dim_m)`` and its weights normalized
+        within the model (the host fit's input)."""
+        mask = self.ms == m
+        if not mask.any():
+            raise KeyError(f"no particles for model {m}")
+        w = self.weights[mask]
+        return self.thetas[mask][:, : self.spaces[m].dim], w / w.sum()
+
+    def get_weighted_distances(self) -> dict:
+        """``{"distance", "w"}``: the distances and the population's
+        normalized weights (an epsilon's host update reads them)."""
+        return {"distance": self.distances, "w": self.weights}
+
     def __repr__(self):
         return f"Population(n={len(self)}, models={self.get_alive_models()})"

@@ -560,8 +560,10 @@ propose_models_kernel(int B, int K, int d, int n,
                       const float* __restrict__ chol, int chol_per_row,
                       Prior pr, const int* __restrict__ dims,
                       const float* __restrict__ model_p,
-                      const float* __restrict__ mpk, uint32_t k0, uint32_t k1,
-                      uint32_t gen, uint32_t tag, uint32_t model_tag,
+                      const float* __restrict__ mpk,
+                      const float* __restrict__ model_lp, uint32_t k0,
+                      uint32_t k1, uint32_t gen, uint32_t tag,
+                      uint32_t model_tag,
                       uint32_t max_rounds, const int* __restrict__ counters,
                       int n_redraws, float* __restrict__ theta_out,
                       float* __restrict__ logpri_out,
@@ -652,7 +654,9 @@ propose_models_kernel(int B, int K, int d, int n,
 #pragma unroll
   for (int k = 0; k < D; ++k)
     if (k < d) theta_out[(size_t)b * d + k] = k < dim ? th[k] : 0.f;
-  logpri_out[b] = lp;
+  // with model_lp (prior mode): the proposal's log density, the lane's
+  // model's log prior added to its parameter prior's
+  logpri_out[b] = model_lp != nullptr ? model_lp[m] + lp : lp;
   valid_out[b] = valid ? 1 : 0;
   m_out[b] = m;
 }
@@ -662,16 +666,17 @@ void launch_models(int B, int K, int d, int n, const float* cdf,
                    const float* thetas, const float* chol, int chol_per_row,
                    Prior pr,
                    const int* dims, const float* model_p, const float* mpk,
-                   uint32_t k0, uint32_t k1, uint32_t gen, uint32_t tag,
+                   const float* model_lp, uint32_t k0, uint32_t k1,
+                   uint32_t gen, uint32_t tag,
                    uint32_t model_tag, uint32_t max_rounds,
                    const int* counters, int n_redraws, float* theta,
                    float* logpri, uint8_t* valid, int* m,
                    cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
   propose_models_kernel<D, FAM><<<grid, kThreads, 0, stream>>>(
-      B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk, k0,
-      k1, gen, tag, model_tag, max_rounds, counters, n_redraws, theta, logpri,
-      valid, m);
+      B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk,
+      model_lp, k0, k1, gen, tag, model_tag, max_rounds, counters, n_redraws,
+      theta, logpri, valid, m);
 }
 
 // Known-answer check of philox.cuh: words, uniforms and the four
@@ -742,26 +747,30 @@ extern "C" int pyabc_propose(
 // log model probabilities (transition mode, with mpk the masked (K, K)
 // perturbation matrix); m receives each lane's model index. chol_per_row:
 // 0 for the models' MVN factors (K, d, d), 1 for LocalTransition's (K, n,
-// d, d) (K2's K > 1 local mode).
+// d, d) (K2's K > 1 local mode). model_lp (prior mode only, else null): the
+// (K,) log model prior, added to each lane's logpri (the round kernel's
+// proposal density, util.py::_lane_prior :335).
 extern "C" int pyabc_propose_models(
     int B, int K, int d, int n, const float* cdf, const float* thetas,
     const float* chol, int chol_per_row, const int* kind, const float* loc,
     const float* scale, const float* hi, const float* log_scale,
     const float* par, int families, const int* dims, const float* model_p,
-    const float* mpk, unsigned k0, unsigned k1, unsigned gen, unsigned tag,
+    const float* mpk, const float* model_lp, unsigned k0, unsigned k1,
+    unsigned gen, unsigned tag,
     unsigned model_tag,
     unsigned max_rounds, const int* counters, int n_redraws, float* theta,
     float* logpri, uint8_t* valid, int* m, void* stream_ptr) {
   if (B <= 0) return 0;
-  if (K < 1 || (cdf != nullptr && (n <= 0 || mpk == nullptr)))
+  if (K < 1 || (cdf != nullptr && (n <= 0 || mpk == nullptr ||
+                                   model_lp != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Prior pr{kind, loc, scale, hi, log_scale, par};
 #define PYABC_PROPOSE_M(DB)                                                 \
   (families ? launch_models<DB, true> : launch_models<DB, false>)(         \
       B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk, \
-      k0, k1, gen, tag, model_tag, max_rounds, counters, n_redraws, theta, \
-      logpri, valid, m, stream)
+      model_lp, k0, k1, gen, tag, model_tag, max_rounds, counters,         \
+      n_redraws, theta, logpri, valid, m, stream)
   if (d <= 1)
     PYABC_PROPOSE_M(1);
   else if (d <= 2)

@@ -106,6 +106,37 @@ class PNormDistance:
                 raise KeyError(f"unknown sum-stat label {k!r}")
         return vec
 
+    # ------------------------------------------- the host loop's lifecycle
+    def configure_sampler(self, sampler) -> None:
+        """A fixed p-norm needs no records."""
+
+    def host_initialize(self, t: int, get_all_sum_stats=None,
+                        x_0=None) -> None:
+        """The per-generation host loop's ``initialize`` (``pnorm.py:67``
+        of the JAX package) after ``initialize(spec)``: nothing to fit."""
+
+    def update(self, t: int, get_all_sum_stats=None,
+               population=None) -> bool:
+        """The host loop's update after generation t - 1 -> whether the
+        distance changed (a fixed p-norm never does)."""
+        return False
+
+    def host_batch(self, ss_mat: np.ndarray, x0_flat: np.ndarray,
+                   t: int | None = None) -> np.ndarray:
+        """The distances of the rows of an ``(n, S)`` matrix under the
+        weights of generation t, in float64 numpy."""
+        ss_mat = np.asarray(ss_mat, np.float64)
+        x0f = np.asarray(x0_flat, np.float64)
+        w = self.weights_for(t)
+        if w is None:
+            w = np.ones_like(x0f)
+        if self._factors_arg is not None:
+            w = w * self._coerce_weight_vector(self._factors_arg)
+        diff = w[None, :] * np.abs(ss_mat - x0f[None, :])
+        if np.isinf(self.p):
+            return np.max(diff, axis=1)
+        return np.sum(diff ** self.p, axis=1) ** (1.0 / self.p)
+
     def weights_for(self, t: int | None) -> np.ndarray | None:
         """The weights in effect at generation t: the latest key in [0,
         t], else the default (-1), else None (all ones)."""
@@ -274,6 +305,8 @@ class AdaptivePNormDistance(PNormDistance):
         self.adaptive = bool(adaptive)
         self.normalize_weights = bool(normalize_weights)
         self.max_weight_ratio = max_weight_ratio
+        #: the observed row (float64) the host loop's scale functions read
+        self._x_0: np.ndarray | None = None
 
     def requires_calibration(self) -> bool:
         return True
@@ -298,6 +331,62 @@ class AdaptivePNormDistance(PNormDistance):
         (``params``) play no part."""
         _scale, w, d = self._reduce(samples, valid, x0, rows)
         return w, d
+
+    def configure_sampler(self, sampler) -> None:
+        """The refit reads every evaluation: the sampler records them."""
+        if self.adaptive:
+            sampler.sample_factory.record_rejected = True
+
+    def host_initialize(self, t: int, get_all_sum_stats=None,
+                        x_0=None) -> None:
+        """The host loop's ``initialize`` (``pnorm.py:381``): the weights
+        of generation t fitted on the calibration sample."""
+        self._x_0 = None if x_0 is None else np.asarray(x_0, np.float64)
+        if get_all_sum_stats is not None:
+            self._fit(t, get_all_sum_stats())
+
+    def update(self, t: int, get_all_sum_stats=None,
+               population=None) -> bool:
+        """The host loop's refit of the weights of generation t over
+        generation t - 1's records (``pnorm.py:388``)."""
+        if not self.adaptive or get_all_sum_stats is None:
+            return False
+        self._fit(t, get_all_sum_stats())
+        return True
+
+    def _fit(self, t: int, samples) -> None:
+        """``weights[t]`` = 1/scale over the records, the largest ratio
+        clipped and the mean normalized to 1 (``pnorm.py:552-577``). A ring
+        left on the card is reduced there (K9): the generation's own scale
+        where it came with the collect, else one K9 launch and a read of
+        the ``(S,)`` scale; a host matrix takes the numpy scale function."""
+        from ..observability.sync import to_host
+        from ..sampler.base import DeviceRecords
+
+        if isinstance(samples, DeviceRecords) and samples.scale is not None:
+            scale = np.asarray(samples.scale, np.float64)
+        elif isinstance(samples, DeviceRecords):
+            dev = samples.sumstats_dev.device
+            x0 = torch.as_tensor(self._x_0, dtype=torch.float32).to(dev)
+            scale = to_host({"scale": self.scale(
+                samples.sumstats_dev, samples.valid_dev, x0)},
+                samples.sync_ledger, "scale_fetch")["scale"].astype(
+                    np.float64)
+        else:
+            samples = np.asarray(samples, np.float64)
+            try:
+                scale = self.scale_function(samples, self._x_0)
+            except TypeError:
+                scale = self.scale_function(samples)
+            scale = np.asarray(scale, np.float64)
+        w = np.zeros_like(scale)
+        pos = scale > 0
+        w[pos] = 1.0 / scale[pos]
+        if self.max_weight_ratio is not None and pos.any():
+            w = np.minimum(w, w[pos].min() * self.max_weight_ratio)
+        if self.normalize_weights and w.sum() > 0:
+            w = w * (w.size / w.sum())
+        self.weights[int(t)] = w
 
     def sharded_scale_capable(self) -> bool:
         """True when the refit has a moment form (the seven names of

@@ -133,6 +133,13 @@ generation's fold ids (a constant n's built once, a list's from the
 chunk's table); proposals and densities are the MVN path's (K2, K3), and
 the winner rides the chunk's fetch.
 
+The per-generation host loop's samplers run a generation at their own
+sizes (``dispatch_generation``: B, the reservoir, the ring and the round
+bound given per call) on arguments built from the host's fits
+(``build_dyn_args``), or one round at a time with no compaction (K26's
+round kernel, ``round`` and ``run_round``: K2, K3, the simulator, K5,
+and one read of the round's outputs).
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * stride_rounds +
 round), the round read on the device from the counters; the stride is the
@@ -144,10 +151,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from ..kernels import philox
+from ..core.random import CALIBRATION_GENERATION, RoundKey
 from ..core.random_variables import stacked_arrays
 from ..kernels.aggregate import aggregate_accept_weight
 from ..kernels.bootstrap_cv import STEP, required_nr
@@ -173,19 +183,18 @@ from ..kernels.ridge_fit import ridge_fit
 from ..kernels.segment_round import segment_round
 from ..kernels.temperature_update import scheme_tables, temperature_update
 from ..model import simulate_models_flat
-from ..observability.sync import SyncLedger
+from ..observability.sync import SyncLedger, to_host
 from ..ops.health import generation_health
 from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
 from ..ops.stats import normalize_log_weights, weighted_quantile
 from ..sumstat.base import expand_rows, identity_accept
 from ..transition.local_transition import LocalTransition
+from ..utils import pow2_bucket
 
 #: counters vector layout: n_acc, rounds, n_valid, eps <= min_eps, and the
 #: generation's target n (the host reads it with the round's counters)
 N_ACC, ROUNDS, N_VALID, EPS_AT_MIN, N_TARGET = range(5)
-#: the generation index of the calibration rounds' draws
-CALIBRATION_GENERATION = 2 ** 32 - 1
 #: the (accept, transform) entries of a transform kind: K23's linear and
 #: MLP ones (the device-fit plans, and the host-refit mode's linear, Lasso
 #: and MLP predictors), the GP kernel's, and an ``IdentitySumstat``'s
@@ -255,6 +264,41 @@ class GenerationRun:
     mom: torch.Tensor | None = None
 
 
+@dataclass
+class RoundResult:
+    """Host copy of one round of B lanes (``util.py::RoundResult``)."""
+
+    ms: np.ndarray
+    thetas: np.ndarray
+    sumstats: np.ndarray
+    distances: np.ndarray
+    accepted: np.ndarray
+    valid: np.ndarray
+    log_weights: np.ndarray
+    #: each lane's proposal log-density
+    logqs: np.ndarray | None = None
+
+
+#: the round kernel's modes and the outputs of a round
+ROUND_MODES = ("prior", "transition", "calibration")
+ROUND_KEYS = ("m", "theta", "sumstats", "distance", "accepted", "valid",
+              "log_weight", "logq")
+#: a round's K > 1 model terms (``build_dyn_args``)
+MODEL_TERMS = ("log_model_probs", "matrix", "log_model_factor")
+#: the stacked (K > 1) MVN params K2 and K3 read
+STACKED_PARAMS = ("thetas", "weights", "chol", "prec", "center", "thetas_c",
+                  "quad", "logdet", "cdf")
+
+
+def host_tensor(x, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: for the card one pinned, non-blocking
+    copy (the host does not wait), else the tensor itself."""
+    x = torch.as_tensor(x)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 class DeviceContext:
     N_REDRAWS = N_REDRAWS
 
@@ -288,6 +332,10 @@ class DeviceContext:
             self.d = prior.dim
         #: round counters of the generation in progress (generation_while)
         self.counters = torch.zeros(5, dtype=torch.int32, device=device)
+        #: K26's round kernel: every round's counters (``_round_counters``)
+        #: and the calibration's zero lanes a B, each made once
+        self._round_table = None
+        self._zero_lanes: dict = {}
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
         #: the loop's round bound (a stop rule may lower it) and the
         #: Philox counter's round stride (the run's MAX_ROUNDS, which no
@@ -353,40 +401,39 @@ class DeviceContext:
         self.fit_statics = list(fit_statics)
 
     # ------------------------------------------------------------ buffers
-    def new_reservoir(self) -> dict:
+    def new_reservoir(self, n_cap: int | None = None) -> dict:
+        """The slot-ordered reservoir of ``n_cap`` rows (the context's by
+        default; a host sampler's generation brings its own)."""
         dev, f32 = self.device, torch.float32
+        n_cap = self.n_cap if n_cap is None else int(n_cap)
         return {
-            "theta": torch.zeros(self.n_cap, self.d, dtype=f32, device=dev),
-            "sumstats": torch.zeros(self.n_cap, self.S, dtype=f32,
-                                    device=dev),
-            "distance": torch.zeros(self.n_cap, dtype=f32, device=dev),
-            "log_weight": torch.full((self.n_cap,), -math.inf, dtype=f32,
+            "theta": torch.zeros(n_cap, self.d, dtype=f32, device=dev),
+            "sumstats": torch.zeros(n_cap, self.S, dtype=f32, device=dev),
+            "distance": torch.zeros(n_cap, dtype=f32, device=dev),
+            "log_weight": torch.full((n_cap,), -math.inf, dtype=f32,
                                      device=dev),
-            "slot": torch.full((self.n_cap,), -1, dtype=torch.int32,
-                               device=dev),
-            **({"m": torch.zeros(self.n_cap, dtype=torch.int32, device=dev)}
+            "slot": torch.full((n_cap,), -1, dtype=torch.int32, device=dev),
+            **({"m": torch.zeros(n_cap, dtype=torch.int32, device=dev)}
                if self.K > 1 else {}),
         }
 
-    def new_ring(self) -> dict | None:
+    def new_ring(self, rec_cap: int | None = None) -> dict | None:
         """The record ring; a noisy-ABC run's also keeps each record's
         theta and proposal log-density (``record_proposal``)."""
-        if self.rec_cap <= 0:
+        rec_cap = self.rec_cap if rec_cap is None else int(rec_cap)
+        if rec_cap <= 0:
             return None
         dev, f32 = self.device, torch.float32
         ring = {
-            "sumstats": torch.zeros(self.rec_cap, self.S, dtype=f32,
-                                    device=dev),
-            "distance": torch.zeros(self.rec_cap, dtype=f32, device=dev),
-            "accepted": torch.zeros(self.rec_cap, dtype=torch.bool,
-                                    device=dev),
-            "valid": torch.zeros(self.rec_cap, dtype=torch.bool,
-                                 device=dev),
+            "sumstats": torch.zeros(rec_cap, self.S, dtype=f32, device=dev),
+            "distance": torch.zeros(rec_cap, dtype=f32, device=dev),
+            "accepted": torch.zeros(rec_cap, dtype=torch.bool, device=dev),
+            "valid": torch.zeros(rec_cap, dtype=torch.bool, device=dev),
         }
         if self.stochastic:
-            ring["theta"] = torch.zeros(self.rec_cap, self.d, dtype=f32,
+            ring["theta"] = torch.zeros(rec_cap, self.d, dtype=f32,
                                         device=dev)
-            ring["logq"] = torch.zeros(self.rec_cap, dtype=f32, device=dev)
+            ring["logq"] = torch.zeros(rec_cap, dtype=f32, device=dev)
         return ring
 
     # -------------------------------------------------------------- lanes
@@ -485,22 +532,26 @@ class DeviceContext:
                     hist_min: torch.Tensor | None = None, *, t: int = 0,
                     tag: int = philox.PRIOR,
                     pdf_norm: torch.Tensor | None = None,
-                    segmented: bool = False) -> dict:
+                    segmented: bool = False, B: int | None = None,
+                    model_logq: bool = False) -> dict:
         """One round proposed from the prior (generation 0, calibration);
-        ``segmented`` runs K18 in the simulator's place."""
+        ``segmented`` runs K18 in the simulator's place; ``B`` lanes (the
+        context's by default); ``model_logq`` (K > 1): logq adds the
+        lane's model's log prior (K2 forms it)."""
+        B = self.B if B is None else int(B)
         if self.K > 1:
             # the model from the model prior, then its parameter prior;
             # the log weight is the acceptance weight alone (_lane_prior)
             theta, logpri, valid, m = propose.models(
-                self.stream(t, tag), self.B, self.prior_arrays,
-                self.model_prior)
+                self.stream(t, tag), B, self.prior_arrays, self.model_prior,
+                model_logits=self.model_logits if model_logq else None)
             ss, d, accept, logw, keep = self._simulate_accept(
                 theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented,
                 lane_m=m)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
                     "logq": logpri, "m": m, "ring_valid": keep}
-        theta, logpri, valid = propose(self.stream(t, tag), self.B,
+        theta, logpri, valid = propose(self.stream(t, tag), B,
                                        self.prior_arrays)
         ss, d, accept, logw, keep = self._simulate_accept(
             theta, valid, eps, dist_w, hist_min, pdf_norm, t, segmented)
@@ -514,15 +565,18 @@ class DeviceContext:
                          hist_min: torch.Tensor | None = None, *,
                          t: int, pdf_norm: torch.Tensor | None = None,
                          carry: Carry | None = None,
-                         segmented: bool = False) -> dict:
+                         segmented: bool = False,
+                         B: int | None = None) -> dict:
         """One round proposed from the fitted transition (t > 0), with
         redraws against zero prior mass (K2). K > 1 takes the model terms
-        from ``carry``; ``segmented`` runs K18 in the simulator's place."""
+        from ``carry``; ``segmented`` runs K18 in the simulator's place;
+        ``B`` lanes (the context's by default)."""
+        B = self.B if B is None else int(B)
         if self.K > 1:
             stream = self.stream(t, philox.TRANSITION)
             draw = propose_local if self.local else propose
             theta, logpri, valid, m = draw.models(
-                stream, self.B, self.prior_arrays, carry.log_model_probs,
+                stream, B, self.prior_arrays, carry.log_model_probs,
                 params, carry.matrix)
             logq = (local_logpdf if self.local
                     else mvn_mixture_logpdf).models(theta, m, params)
@@ -536,7 +590,7 @@ class DeviceContext:
                     "logq": logq, "m": m, "ring_valid": keep}
         draw = propose_local if self.local else propose
         theta, logpri, valid = draw(self.stream(t, philox.TRANSITION),
-                                    self.B, self.prior_arrays, params)
+                                    B, self.prior_arrays, params)
         logq = self.transition.device_logpdf(theta, params)
         # K = 1: log model prior = log model factor = 0
         ss, d, accept, logw, keep = self._simulate_accept(
@@ -549,15 +603,20 @@ class DeviceContext:
     # --------------------------------------------------------- generation
     def generation_while(self, lanes, n_target: int | torch.Tensor,
                          eps_at_min: torch.Tensor | None = None,
-                         ring: bool = True) -> GenerationRun:
+                         ring: bool = True, *, n_cap: int | None = None,
+                         rec_cap: int | None = None,
+                         max_rounds: int | None = None) -> GenerationRun:
         """Propose rounds until ``n_target`` acceptances or the round
         budget; one counter read per round. ``n_target`` is a host int or
         a 0-dim device int32 (an adaptive n): either lands in the counters'
         ``N_TARGET`` slot, which the first round's read brings to the host.
         ``ring=False`` skips the record ring (the calibration sample
-        reduces the reservoir)."""
-        res = self.new_reservoir()
-        rec = self.new_ring() if ring else None
+        reduces the reservoir). ``n_cap``, ``rec_cap`` and ``max_rounds``
+        default to the context's (a host sampler's generation brings its
+        own)."""
+        res = self.new_reservoir(n_cap)
+        rec = self.new_ring(rec_cap) if ring else None
+        max_rounds = self.max_rounds if max_rounds is None else max_rounds
         record = rec is not None and "theta" in rec
         counters = torch.zeros(5, dtype=torch.int32, device=self.device)
         self.counters = counters
@@ -580,13 +639,200 @@ class DeviceContext:
             n_acc, r = int(host[N_ACC]), int(host[ROUNDS])
             n_tgt = int(host[N_TARGET])
             self.rounds_read = r
-            if not (n_acc < n_tgt and r < self.max_rounds):
+            if not (n_acc < n_tgt and r < max_rounds):
                 break
         return GenerationRun(n_acc=n_acc, rounds=r,
                              n_valid=int(host[N_VALID]),
                              eps_at_min=bool(host[EPS_AT_MIN]),
                              counters=counters, res=res, rec=rec,
                              n_target=n_tgt)
+
+    # ------------------------------------------------ K26's round kernel
+    def round(self, key: RoundKey, B: int, mode: str, dyn: dict) -> dict:
+        """K26's round kernel (``util.py::DeviceContext.round_kernel``
+        ``:453``): proposes, simulates and tests one round of ``B`` lanes
+        with no compaction -> the lanes' device tensors ``m`` (K > 1),
+        ``theta``, ``sumstats``, ``distance``, ``accepted``, ``valid``,
+        ``log_weight`` and ``logq``. A composite: its launches are the
+        round's lane kernels, each counted by its own wrapper (K2 with K1
+        inline, K3 in ``"transition"`` mode, the simulator, and K5 but in
+        ``"calibration"`` mode: accepted = valid, distance and log weight
+        0), with no other operation on the card. ``key`` is a
+        ``RoundKey``: the round draws where ``generation_while``'s round of
+        that index of that generation word draws."""
+        if mode not in ROUND_MODES:
+            raise ValueError(f"round mode {mode!r}: one of {ROUND_MODES}")
+        self.counters = self._round_counters(int(key.round))
+        return self._round_lanes(mode, dyn, int(key.generation), int(B))
+
+    def _round_counters(self, r: int) -> torch.Tensor:
+        """Round ``r``'s counters (only ``ROUNDS`` set): a row of a table of
+        every round, brought to the device once in one copy, which the
+        lane kernels only read."""
+        if not 0 <= r < self.stride_rounds:
+            raise ValueError(f"round {r} outside [0, {self.stride_rounds})")
+        if self._round_table is None:
+            table = np.zeros((self.stride_rounds, 5), np.int32)
+            table[:, ROUNDS] = np.arange(self.stride_rounds)
+            self._round_table = host_tensor(table, self.device)
+        return self._round_table[r]
+
+    def _round_lanes(self, mode: str, dyn: dict, gen: int, B: int) -> dict:
+        """One round of ``mode`` at the generation word ``gen`` on the
+        counters of ``self.counters`` (``build_dyn_args``'s ``dyn``); a
+        K > 1 prior round's logq is the proposal's density, the model
+        prior's logit added (``_lane_prior``)."""
+        tag = (philox.CALIBRATION if gen == CALIBRATION_GENERATION
+               else philox.PRIOR)
+        if mode == "transition":
+            # K > 1: the model terms lanes_transition reads off a carry
+            terms = (SimpleNamespace(**{k: dyn[k] for k in MODEL_TERMS})
+                     if self.K > 1 else None)
+            out = self.lanes_transition(
+                dyn["trans_params"], dyn["eps"], dyn["dist_w"],
+                dyn["hist_min"], t=gen, carry=terms, B=B)
+        elif mode == "prior":
+            out = self.lanes_prior(dyn["eps"], dyn["dist_w"],
+                                   dyn["hist_min"], t=gen, tag=tag, B=B,
+                                   model_logq=True)
+        else:
+            out = self._lanes_calibration(gen, tag, B)
+        return {k: out[k] for k in ROUND_KEYS if k in out}
+
+    def _lanes_calibration(self, gen: int, tag: int, B: int) -> dict:
+        """``_lane_calibration`` (``util.py:352-363``): a prior draw and the
+        simulator, no accept test; accepted is the valid mask itself and
+        the distance and log weight one zero vector a B, made once."""
+        stream = self.stream(gen, tag)
+        if self.K > 1:
+            theta, logq, valid, m = propose.models(
+                stream, B, self.prior_arrays, self.model_prior,
+                model_logits=self.model_logits)
+            ss = self._simulate_models(theta, m, gen)
+        else:
+            theta, logq, valid = propose(stream, B, self.prior_arrays)
+            ss, m = self._simulate(theta, gen), None
+        if B not in self._zero_lanes:
+            self._zero_lanes[B] = host_tensor(np.zeros(B, np.float32),
+                                              self.device)
+        zero = self._zero_lanes[B]
+        out = {"theta": theta, "sumstats": ss, "distance": zero,
+               "accepted": valid, "valid": valid, "log_weight": zero,
+               "logq": logq}
+        if m is not None:
+            out["m"] = m
+        return out
+
+    def run_round(self, key: RoundKey, B: int, mode: str,
+                  dyn: dict) -> RoundResult:
+        """One round and its one host read (``util.py::run_round``
+        ``:3287``): the round's outputs reach the host in pinned buffers
+        behind one wait, recorded as ``round_fetch``."""
+        out = self.round(key, B, mode, dyn)
+        host = to_host(out, self.sync_ledger, "round_fetch")
+        return RoundResult(
+            ms=(host["m"].astype(np.int32) if "m" in host
+                else np.zeros(B, np.int32)),
+            thetas=host["theta"].astype(np.float64),
+            sumstats=host["sumstats"].astype(np.float64),
+            distances=host["distance"].astype(np.float64),
+            accepted=host["accepted"].astype(bool),
+            valid=host["valid"].astype(bool),
+            log_weights=host["log_weight"].astype(np.float64),
+            logqs=host["logq"].astype(np.float64))
+
+    def dispatch_generation(self, key: int, B: int, mode: str, dyn: dict, *,
+                            n_cap: int, rec_cap: int, max_rounds: int,
+                            n_target: int | None = None) -> dict:
+        """One whole generation at a host sampler's sizes
+        (``util.py::dispatch_generation`` ``:1266``): ``generation_while``
+        over rounds of ``mode`` at the generation word ``key``, B lanes, an
+        ``n_cap`` reservoir and an ``rec_cap`` record ring (none below 2),
+        one counter read a round. Returns the round counters as the host
+        read them (``n_acc``, ``rounds``, ``n_valid``) and the device
+        tensors (the reservoir, the ring as ``rec_*``); under an adaptive
+        distance also the ring's scale ``rec_scale`` (K9 on the card, the
+        JAX kernel's ``device_record_reduce``), so the ring itself need not
+        be read."""
+        n_target = n_cap if n_target is None else min(int(n_target), n_cap)
+        ring = rec_cap > 1
+        if n_target <= 0:
+            # a speculative round filled the generation: no round runs
+            run = GenerationRun(
+                n_acc=0, rounds=0, n_valid=0, eps_at_min=False, counters=None,
+                res=self.new_reservoir(n_cap),
+                rec=self.new_ring(rec_cap) if ring else None, n_target=0)
+        else:
+            run = self.generation_while(
+                lambda: self._round_lanes(mode, dyn, int(key), int(B)),
+                n_target, ring=ring, n_cap=n_cap,
+                rec_cap=rec_cap if ring else 0, max_rounds=max_rounds)
+        out = {"n_acc": run.n_acc, "rounds": run.rounds,
+               "n_valid": run.n_valid, **run.res}
+        if run.rec is not None:
+            out.update({f"rec_{k}": v for k, v in run.rec.items()})
+            if getattr(self.distance, "adaptive", False):
+                out["rec_scale"] = self.distance.scale(
+                    run.rec["sumstats"], run.rec["valid"], self.x0)
+        return out
+
+    def build_dyn_args(self, *, t: int, eps_value: float,
+                       model_probabilities: dict | None = None,
+                       transitions=None, model_perturbation_kernel=None,
+                       hist_min: float | None = None) -> tuple[str, dict]:
+        """(mode, the round's device arguments) of generation t
+        (``util.py::build_dyn_args`` ``:3302-3345``): eps, the distance's
+        weights of generation t and, under ``use_complete_history``, the
+        acceptor's running minimum; from t > 0 the host-fitted transitions'
+        params padded to the power-of-two bucket of the largest fit
+        (``device_params``), and under K > 1 the perturbation matrix masked
+        to the fitted models with renormalized rows, the log model factor
+        and the log model probabilities (K2's and K5's model terms). Every
+        tensor goes to the card in a pinned, non-blocking copy: no read."""
+        dev = self.device
+        dyn = {"eps": host_tensor(np.float32(eps_value), dev),
+               "dist_w": host_tensor(self.distance.device_params(t), dev),
+               "hist_min": (host_tensor(np.float32(hist_min), dev)
+                            if self.use_hist else None)}
+        if t == 0 or transitions is None:
+            return "prior", dyn
+        fitted = np.asarray([tr.X is not None for tr in transitions], bool)
+        n_fit = pow2_bucket(max(len(tr.X) for tr in transitions
+                                if tr.X is not None))
+        if self.K == 1:
+            params = transitions[0].device_params(n_fit, self.d)
+            dyn["trans_params"] = {k: host_tensor(v, dev) if k != "dim"
+                                   else v for k, v in params.items()}
+            return "transition", dyn
+        probs = np.zeros(self.K)
+        for m, p in model_probabilities.items():
+            probs[int(m)] = p
+        matrix = np.asarray(model_perturbation_kernel.device_params(),
+                            np.float64)
+        # never-fitted models cannot propose: mask and renormalize the rows
+        matrix = matrix * fitted[None, :]
+        row_sums = matrix.sum(axis=1, keepdims=True)
+        matrix = np.where(row_sums > 0, matrix / np.where(
+            row_sums > 0, row_sums, 1.0), 0.0)
+        with np.errstate(divide="ignore"):
+            log_model_factor = np.log(probs @ matrix)
+            log_model_probs = np.log(probs)
+        ref = next(tr for tr in transitions if tr.X is not None)
+        per_model = [tr.device_params(n_fit, self.d) if tr.X is not None
+                     else {k: np.zeros_like(v) for k, v in ref.device_params(
+                         n_fit, self.d).items() if k != "dim"}
+                     for tr in transitions]
+        stacked = {k: host_tensor(np.stack([pm[k] for pm in per_model]), dev)
+                   for k in STACKED_PARAMS}
+        stacked["dims"] = self.dims_f
+        dyn.update(
+            trans_params=stacked,
+            log_model_probs=host_tensor(log_model_probs.astype(np.float32),
+                                        dev),
+            matrix=host_tensor(matrix.astype(np.float32), dev),
+            log_model_factor=host_tensor(
+                log_model_factor.astype(np.float32), dev))
+        return "transition", dyn
 
     def _local_refit(self, carry: Carry, theta: torch.Tensor,
                      w_norm: torch.Tensor, k_mask: torch.Tensor,

@@ -130,14 +130,27 @@ counter read (no extra sync), History's telemetry holds each generation's
 ``n_target`` and ``n_next`` (and, where K16 ran, ``k16_probes``, the
 probes that did work, and ``k16_cv_max``, the aggregate CV at max_n), and
 ``population_strategy.nr_particles`` mirrors the device's decision.
+
+The per-generation host loop (``fused_generations=1`` or
+``sampler=BatchedSampler(fused=False)``, the JAX package's routing): the
+sampler runs each generation's rounds on the card and the host adapts
+between generations in float64 numpy (the transitions' fits, the
+distance's, epsilon's, acceptor's and population size's updates), after a
+host calibration through the sampler. Under a fused sampler and
+``pipeline`` (the default) the loop is ``inference/dispatch.py``'s
+pipelined one, else the serial ``_serial_generation_loop``; a
+configuration it does not serve raises ``not_ported`` with its item
+(``_host_loop_gate``).
 """
 from __future__ import annotations
 
+import copy
 import datetime
 import json
 import logging
 import math
 import time
+from types import SimpleNamespace
 from typing import Sequence
 
 import numpy as np
@@ -145,6 +158,7 @@ import torch
 
 from ..acceptor.acceptor import StochasticAcceptor, UniformAcceptor
 from ..core.population import Population
+from ..core.random import generation_key
 from ..core.random_variables import Distribution
 from ..core.sumstat_spec import SumStatSpec
 from ..distance.aggregate import (AdaptiveAggregatedDistance,
@@ -161,7 +175,7 @@ from ..epsilon.temperature import (ListTemperature, Temperature,
 from ..kernels.bootstrap_cv import MAX_BOOTSTRAP
 from ..kernels.mvn_fit import MAX_MODELS
 from ..model import TorchModel
-from ..observability.sync import SyncLedger
+from ..observability.sync import SyncLedger, to_host
 from ..ops.health import decode
 from ..ops.scale_reduce import SHARDED_SCALE_NAMES
 from ..ops.segment import occupancy, uniform_protocol_reason
@@ -171,6 +185,7 @@ from ..kernels.linear_sumstat import MAX_C as MAX_LEARNED
 from ..ops.fit import pack_layers, unpack_layers
 from ..populationstrategy import (AdaptivePopulationSize,
                                   ConstantPopulationSize, ListPopulationSize)
+from ..sampler import BatchedSampler, exp_normalize_log_weights
 from ..storage.history import History
 from ..sumstat import (PredictorSumstat, device_fit_plan,
                        host_caps_reason, mirror_fitted_params,
@@ -180,9 +195,10 @@ from ..transition.grid_search import GridSearchCV, fold_ids
 from ..transition.local_transition import LocalTransition
 from ..transition.model_perturbation import ModelPerturbationKernel
 from ..transition.multivariatenormal import MultivariateNormalTransition
+from ..transition.util import NotEnoughParticles
 from ..utils import not_ported as _not_ported
 from ..utils import pick_batch, pow2_bucket, resolve_device
-from .context import LEARNED_KERNELS, Carry, DeviceContext
+from .context import LEARNED_KERNELS, Carry, DeviceContext, host_tensor
 
 logger = logging.getLogger("pyabc_tpu_torch.ABCSMC")
 
@@ -207,16 +223,6 @@ class DegenerateRunError(RuntimeError):
             f"(ROADMAP queue A, item 8)")
 
 
-def exp_normalize_log_weights(log_w) -> np.ndarray:
-    """Stable exp of relative log weights: -inf gives 0, an all-non-finite
-    input degrades to uniform weights."""
-    log_w = np.asarray(log_w, np.float64)
-    finite = np.isfinite(log_w)
-    if finite.any():
-        return np.where(finite, np.exp(log_w - log_w[finite].max()), 0.0)
-    return np.ones_like(log_w)
-
-
 class ABCSMC:
     #: proposal rounds a generation may take before it counts as failed
     MAX_ROUNDS = 256
@@ -236,7 +242,8 @@ class ABCSMC:
                  health_acc_floor: float = 0.0,
                  eps_stall_window: int = 16, eps_stall_rtol: float = 1e-6,
                  refit_every: int | None = None,
-                 refit_drift_threshold: float = 0.3, device=None):
+                 refit_drift_threshold: float = 0.3, pipeline: bool = True,
+                 device=None):
         models = (list(models) if isinstance(models, Sequence)
                   and not isinstance(models, str) else [models])
         parameter_priors = (list(parameter_priors)
@@ -273,8 +280,18 @@ class ABCSMC:
             else ModelPerturbationKernel(self.K, probability_to_stay=0.7))
         self.stop_if_only_single_model_alive = bool(
             stop_if_only_single_model_alive)
-        if sampler is not None:
-            raise _not_ported("host samplers", "16")
+        if sampler is not None and not isinstance(sampler, BatchedSampler):
+            raise _not_ported(f"the {type(sampler).__name__} sampler (only "
+                              f"BatchedSampler drives the card)", "16")
+        #: the sampler of the per-generation host loop (the JAX package's
+        #: default, ``smc.py:504-509``)
+        self.sampler = sampler if sampler is not None else BatchedSampler()
+        #: the host loop pipelines a fused sampler's generations and
+        #: speculates an eps = +inf round (``inference/dispatch.py``)
+        self.pipeline = bool(pipeline)
+        #: the slowest strategy update (seconds) after which the pipelined
+        #: loop speculates the next generation's first round
+        self.speculation_min_adapt_s = 0.25
         if early_reject not in ("auto", True, False):
             raise ValueError(f"early_reject must be 'auto', True or False, "
                              f"got {early_reject!r}")
@@ -395,6 +412,8 @@ class ABCSMC:
                              f"float32, got {fetch_dtype!r}")
         self.fetch_dtype = fetch_dtype
         self.fused_generations = max(int(fused_generations), 1)
+        if self.host_loop:
+            self._host_loop_gate(early_reject)
         self.health_checks = bool(health_checks)
         self.ess_floor = float(ess_floor)
         self.health_acc_floor = float(health_acc_floor)
@@ -544,6 +563,45 @@ class ABCSMC:
                 f"{first.cv} (K17 keeps at most {MAX_SCALINGS} scalings and "
                 f"{MAX_FOLDS} folds)", "12")
 
+    @property
+    def host_loop(self) -> bool:
+        """True when the run takes the per-generation host loop, as the
+        JAX package routes it (``smc.py:1323-1340``, ``_fused_chunk_capable``
+        ``:1595-1600``): ``fused_generations`` 1 or a
+        ``BatchedSampler(fused=False)``. The loop is pipelined under a
+        fused sampler and ``pipeline=True``, else serial."""
+        return self.fused_generations <= 1 or not self.sampler.fused
+
+    def _host_loop_gate(self, early_reject) -> None:
+        """Raise for a configuration the port's host loop does not serve
+        (it serves the MVN transition, one model or several with the stock
+        perturbation kernel, every prior family, a plain or adaptive
+        p-norm, a constant, list, quantile or median epsilon, the uniform
+        acceptor and a constant or listed size), with the item of ROADMAP
+        queue A that brings it."""
+        def refuse(what, item):
+            return _not_ported(f"{what} on the per-generation host loop",
+                               item)
+
+        for tr in self.transitions:
+            if type(tr) is not MultivariateNormalTransition:
+                raise refuse(f"a {type(tr).__name__}", "11")
+        if self.stochastic or isinstance(self.eps, (Temperature,
+                                                    ListTemperature)):
+            raise refuse("a StochasticAcceptor or a temperature", "11")
+        d = self.distance_function
+        if getattr(d, "sumstat", None) is not None:
+            raise refuse("learned summary statistics", "14")
+        if type(d) not in (PNormDistance, AdaptivePNormDistance):
+            raise refuse(f"distance {type(d).__name__}", "12")
+        if isinstance(self.population_strategy, AdaptivePopulationSize):
+            raise refuse("an AdaptivePopulationSize", "16")
+        if early_reject is True:
+            raise refuse("segmented early reject", "13")
+        if type(self.model_perturbation_kernel) is not \
+                ModelPerturbationKernel:
+            raise refuse("a custom model perturbation kernel", "16")
+
     def _refit_cadence_cfg(self, n_cap: int) -> tuple | None:
         """(refit_every, drift_threshold) of LocalTransition's refit
         cadence, or None (refit every generation): auto is 16 from a
@@ -608,7 +666,7 @@ class ABCSMC:
             # T = 1 (the exact posterior), a threshold runs to the others
             minimum_epsilon = 1.0 if type(self.eps) is Temperature else 0.0
         w0 = len(self.history.write_seconds)
-        self._run_fused(
+        (self._run_host if self.host_loop else self._run_fused)(
             minimum_epsilon=float(minimum_epsilon),
             max_nr_populations=max_nr_populations,
             min_acceptance_rate=float(min_acceptance_rate),
@@ -840,9 +898,16 @@ class ABCSMC:
         per generation, and the sqlite writes overlap the next chunk's
         device work. A failed loop drains what it handed over before the
         error propagates; ``run()``'s ``history.done()`` drains the rest."""
+        self._drained(self._run_chunks, **kw)
+
+    def _run_host(self, **kw) -> None:
+        """The per-generation host loop, persisted as the chunk loop is."""
+        self._drained(self._host_generations, **kw)
+
+    def _drained(self, loop, **kw) -> None:
         self.history.start_async_writer()
         try:
-            self._run_chunks(**kw)
+            loop(**kw)
         except BaseException:
             try:
                 self.history.flush()
@@ -891,9 +956,9 @@ class ABCSMC:
         grid = type(self.transition) is GridSearchCV
         folds = None
         if grid and not isinstance(strategy, ListPopulationSize):
-            folds = (self._device_rows(torch.from_numpy(
-                fold_ids(min(n, ctx.n_cap), self.transition.cv, ctx.n_cap))),
-                     min(self.transition.cv, n))
+            folds = (host_tensor(torch.from_numpy(fold_ids(
+                min(n, ctx.n_cap), self.transition.cv, ctx.n_cap)),
+                self.device), min(self.transition.cv, n))
         statics = dict(
             adaptive=adaptive, eps_quantile=eps_quantile,
             eps_weighted=getattr(self.eps, "weighted", True),
@@ -1113,6 +1178,276 @@ class ABCSMC:
             t += n_kept
             chunk_index += 1
 
+    # ------------------------------------------------ the host loop
+    def _host_generations(self, *, minimum_epsilon, max_nr_populations,
+                          min_acceptance_rate, max_total_nr_simulations,
+                          max_walltime) -> None:
+        """The per-generation host loop (``smc.py:1290-1340`` of the JAX
+        package): the host calibration, then the pipelined loop under a
+        fused sampler and ``pipeline``, else the serial loop. Every
+        adaptation between generations runs on the host; the rounds run on
+        the card through the sampler."""
+        self._t_start = time.perf_counter()
+        ctx = self._build_context(self._n_max(), min_acceptance_rate)
+        # round r of a generation draws at the Philox round r of its
+        # generation word: the stride must cover the sampler's rounds
+        ctx.stride_rounds = max(self.MAX_ROUNDS, self.sampler.max_rounds)
+        self._host_ctx = ctx
+        self.sampler.sync_ledger = self.sync_ledger
+        self._model_probs: dict[int, float] = {}
+        self.model_probs = {}
+        self._initialize_components(max_nr_populations)
+        self.distance_function.configure_sampler(self.sampler)
+        self.eps.configure_sampler(self.sampler)
+        stops = dict(minimum_epsilon=minimum_epsilon,
+                     max_nr_populations=max_nr_populations,
+                     min_acceptance_rate=min_acceptance_rate,
+                     max_total_nr_simulations=max_total_nr_simulations,
+                     max_walltime=max_walltime)
+        if self.pipeline and self.sampler.fused:
+            from .dispatch import run_pipelined
+
+            run_pipelined(self, **stops)
+        else:
+            self._serial_generation_loop(**stops)
+
+    def _x0_flat(self) -> np.ndarray:
+        return np.asarray(self.spec.flatten_host(self.x_0), np.float64)
+
+    def _initialize_components(self, max_nr_populations) -> None:
+        """The host calibration and ``initialize`` at t = 0 of the
+        distance, acceptor and epsilon (``smc.py:3770``): where one needs a
+        sample, a prior round at eps = +inf through the sampler (the
+        calibration generation word), the adaptive weights fitted on it
+        and its distances under them for the epsilon."""
+        d = self.distance_function
+        x0 = self._x0_flat()
+        calib_distances = None
+        if d.requires_calibration() or self.eps.requires_calibration():
+            ps = self.population_strategy
+            n_calib = ps.nr_calibration_particles or ps(0)
+            sample = self.sampler.sample_until_n_accepted(
+                n_calib, self._generation_spec(0, calibration=True), -1,
+                all_accepted=True)
+            all_ss = self._all_sumstats_provider(sample)
+            d.host_initialize(0, all_ss, x0)
+            calib_distances = d.host_batch(np.asarray(all_ss(), np.float64),
+                                           x0, 0)
+        else:
+            d.host_initialize(0, None, x0)
+
+        def get_wd():
+            n = len(calib_distances)
+            return {"distance": calib_distances, "w": np.full(n, 1.0 / n)}
+
+        self.acceptor.initialize(0, distance_function=d, x_0=self.x_0)
+        self.eps.initialize(
+            0, get_weighted_distances=(get_wd if calib_distances is not None
+                                       else None),
+            max_nr_populations=(int(max_nr_populations)
+                                if np.isfinite(max_nr_populations)
+                                else None),
+            acceptor_config=self.acceptor.get_epsilon_config(0))
+
+    def _generation_spec(self, t: int, *, calibration: bool = False):
+        """The device part of generation t's spec (``smc.py:709``): its
+        generation word, the round mode and the round's device arguments
+        (``DeviceContext.build_dyn_args``)."""
+        ctx = self._host_ctx
+        use_hist = ctx.use_hist
+        if calibration:
+            mode, dyn = ctx.build_dyn_args(t=0, eps_value=math.inf,
+                                           hist_min=math.inf)
+        else:
+            mode, dyn = ctx.build_dyn_args(
+                t=t, eps_value=self.eps(t),
+                model_probabilities=self._model_probs if t > 0 else None,
+                transitions=self.transitions if t > 0 else None,
+                model_perturbation_kernel=self.model_perturbation_kernel,
+                hist_min=(self.acceptor.historic_min(t) if use_hist
+                          else None))
+        return SimpleNamespace(t=t, device=ctx, mode=mode, dyn=dyn,
+                               gen_key=generation_key(-1 if calibration
+                                                      else t))
+
+    def _sample_to_population(self, sample) -> Population:
+        return Population(
+            ms=sample.ms, thetas=sample.thetas, weights=sample.weights,
+            distances=sample.distances, sumstats=sample.sumstats,
+            spaces=[p.space for p in self.priors], sumstat_spec=self.spec,
+            model_names=self.model_names)
+
+    @staticmethod
+    def _all_records_provider(sample):
+        """() -> ``{"distance", "accepted"}`` over every recorded
+        evaluation (``smc.py:793``), or None where the sampler kept no
+        records; an epsilon's update may read it."""
+        def provider():
+            if sample.all_distances is None:
+                return None
+            return {"distance": sample.all_distances,
+                    "accepted": sample.all_accepted}
+
+        return provider
+
+    @staticmethod
+    def _all_sumstats_provider(sample):
+        """() -> the recorded statistics for an adaptive distance: the ring
+        left on the card (reduced there), the records read, or the
+        accepted rows without records."""
+        def provider():
+            if sample.device_records is not None:
+                return sample.device_records
+            if sample.all_sumstats is not None:
+                return sample.all_sumstats
+            return sample.sumstats
+
+        return provider
+
+    def _fit_transitions(self, pop: Population) -> None:
+        for m in pop.get_alive_models():
+            X, w = pop.get_distribution(m)
+            try:
+                self.transitions[m].fit(X, w)
+            except NotEnoughParticles:
+                logger.warning("not enough particles to fit the transition "
+                               "of model %d", m)
+
+    def _recompute_distances(self, pop: Population, t: int) -> None:
+        """After a distance change the accepted distances under the new
+        weights, for the epsilon's update (History keeps the old ones)."""
+        pop.distances = self.distance_function.host_batch(
+            pop.sumstats, self._x0_flat(), t)
+
+    def _adapt_proposal(self, pop: Population) -> None:
+        """The proposal's part: model probabilities and the transitions'
+        host fits (the pipelined loop speculates after it)."""
+        probs = pop.model_probabilities_array()
+        self._model_probs = {m: float(probs[m])
+                             for m in pop.get_alive_models()}
+        self.model_probs = dict(self._model_probs)
+        self._fit_transitions(pop)
+
+    def _adapt_strategies(self, t, sample, pop, current_eps,
+                          acceptance_rate) -> bool:
+        """The distance's, acceptor's, epsilon's and population size's
+        updates."""
+        changed = self.distance_function.update(
+            t + 1, get_all_sum_stats=self._all_sumstats_provider(sample),
+            population=pop)
+        if changed:
+            self._recompute_distances(pop, t + 1)
+        self.acceptor.update(t + 1, get_weighted_distances=(
+            pop.get_weighted_distances), prev_temp=current_eps,
+            acceptance_rate=acceptance_rate)
+        self.eps.update(
+            t + 1, get_weighted_distances=pop.get_weighted_distances,
+            get_all_records=self._all_records_provider(sample),
+            acceptance_rate=acceptance_rate,
+            acceptor_config=self.acceptor.get_epsilon_config(t + 1))
+        alive = pop.get_alive_models()
+        self.population_strategy.update(
+            [self.transitions[m] for m in alive],
+            np.asarray([self._model_probs[m] for m in alive]), t)
+        return bool(changed)
+
+    def _check_stop(self, t, current_eps, acceptance_rate, sims_total, *,
+                    minimum_epsilon, max_nr_populations, min_acceptance_rate,
+                    max_total_nr_simulations, max_walltime) -> bool:
+        """The stop rules after generation t (``smc.py:1535``)."""
+        if current_eps <= minimum_epsilon:
+            logger.info("stopping: eps=%.8g <= minimum_epsilon", current_eps)
+            return True
+        if t + 1 >= max_nr_populations:
+            logger.info("stopping: max_nr_populations reached")
+            return True
+        if acceptance_rate < min_acceptance_rate:
+            logger.info("stopping: acceptance rate below minimum")
+            return True
+        if sims_total >= max_total_nr_simulations:
+            logger.info("stopping: max_total_nr_simulations reached")
+            return True
+        if (max_walltime is not None
+                and time.perf_counter() - self._t_start > max_walltime):
+            logger.info("stopping: max_walltime reached")
+            return True
+        if (self.stop_if_only_single_model_alive
+                and len(self._model_probs) == 1 and self.K > 1):
+            logger.info("stopping: single model alive")
+            return True
+        return False
+
+    def _host_persist(self, t, eps, pop, nr_evals, telemetry: dict) -> float:
+        """Hand generation t to the History's writer -> the seconds the
+        loop waited. The writer gets its own view of the population, whose
+        distances the adaptation may rebind."""
+        t0 = time.perf_counter()
+        self.history.append_population_async(
+            t, eps, copy.copy(pop), nr_evals, self.model_names,
+            {"device": str(self.device), **telemetry})
+        return time.perf_counter() - t0
+
+    def _serial_generation_loop(self, **stops) -> None:
+        """One generation at a time (``smc.py:1373``): sample through the
+        sampler, persist, adapt on the host, check the stop rules."""
+        t, sims_total, distance_changed = 0, 0, False
+        while True:
+            current_eps = self.eps(t)
+            self.acceptor.note_epsilon(t, current_eps, distance_changed)
+            n_t = self.population_strategy(t)
+            mar = stops["min_acceptance_rate"]
+            max_eval = n_t / mar if mar > 0 else np.inf
+            syncs0 = self.sync_ledger.count
+            t_gen0 = time.perf_counter()
+            sample = self.sampler.sample_until_n_accepted(
+                n_t, self._generation_spec(t), t, max_eval=max_eval)
+            sample_s = time.perf_counter() - t_gen0
+            if sample.n_accepted < n_t:
+                logger.info("stopping: only %d/%d accepted within budget",
+                            sample.n_accepted, n_t)
+                break
+            pop = self._sample_to_population(sample)
+            nr_evals = self.sampler.nr_evaluations_
+            sims_total += nr_evals
+            acceptance_rate = n_t / nr_evals
+            persist_s = self._host_persist(
+                t, current_eps, pop, nr_evals,
+                {"sample_s": round(sample_s, 4),
+                 "n_evaluations": int(nr_evals),
+                 "rounds": self.sampler.rounds_, "n_target": int(n_t)})
+            t_adapt0 = time.perf_counter()
+            # the adaptation after generation t (smc.py:1481-1533)
+            self._adapt_proposal(pop)
+            distance_changed = self._adapt_strategies(
+                t, sample, pop, current_eps, acceptance_rate)
+            adapt_s = time.perf_counter() - t_adapt0
+            syncs = self.sync_ledger.count - syncs0
+            self.history.update_telemetry(t, {
+                "adapt_s": round(adapt_s, 4),
+                "persist_s": round(persist_s, 4),
+                "acceptance_rate": round(acceptance_rate, 6),
+                "distance_changed": bool(distance_changed),
+                "syncs": syncs})
+            self._log_generation(t, current_eps, n_t, nr_evals,
+                                 acceptance_rate, syncs, sample_s, adapt_s,
+                                 persist_s)
+            if self._check_stop(t, current_eps, acceptance_rate, sims_total,
+                                **stops):
+                break
+            t += 1
+
+    def _log_generation(self, t, eps, n, nr_evals, acceptance_rate, syncs,
+                        sample_s, adapt_s, persist_s, **extra) -> None:
+        logger.info("t: %d, eps: %.8g, acceptance rate: %.5f (%d "
+                    "evaluations)", t, eps, acceptance_rate, nr_evals)
+        self.generation_log.append({
+            "t": t, "eps": float(eps), "n": int(n),
+            "rounds": self.sampler.rounds_, "n_valid": int(nr_evals),
+            "acceptance_rate": acceptance_rate, "syncs": syncs,
+            "sample_s": sample_s, "adapt_s": adapt_s,
+            "compute_s": sample_s + adapt_s, "persist_s": persist_s,
+            **extra})
+
     def _sumstat_plan(self, n0: int) -> tuple[dict | None, dict | None]:
         """The learned statistic's modes for this run -> (the device-fit
         plan, the host-refit mode), at most one of them set (both None
@@ -1258,16 +1593,9 @@ class ABCSMC:
         one host-to-device copy, nothing read back."""
         d = self.distance_function
         last = max(g_limit - 1, 0)
-        return self._device_rows(torch.stack([
+        return host_tensor(torch.stack([
             d.device_params(t0 + min(g, last))
-            for g in range(self.fused_generations)]))
-
-    def _device_rows(self, table: torch.Tensor) -> torch.Tensor:
-        """A host table on the run's device: one pinned, non-blocking copy,
-        nothing read back."""
-        if self.device.type != "cuda":
-            return table
-        return table.pin_memory().to(self.device, non_blocking=True)
+            for g in range(self.fused_generations)]), self.device)
 
     def _fold_table(self, t0: int, g_limit: int, n_cap: int) -> torch.Tensor:
         """GridSearchCV under a ListPopulationSize: the chunk's ``(G,
@@ -1276,9 +1604,9 @@ class ABCSMC:
         it (the JAX package's ``fold_sched``, ``smc.py:2893-2905``)."""
         last = max(g_limit - 1, 0)
         ps, cv = self.population_strategy, self.transition.cv
-        return self._device_rows(torch.from_numpy(np.stack([
+        return host_tensor(torch.from_numpy(np.stack([
             fold_ids(min(ps(t0 + min(g, last)), n_cap), cv, n_cap)
-            for g in range(self.fused_generations)])))
+            for g in range(self.fused_generations)])), self.device)
 
     def _model_carry(self, carry: Carry, ctx: DeviceContext) -> None:
         """K > 1: stacked never-fitted params and the model terms of the
@@ -1366,21 +1694,7 @@ class ABCSMC:
     def _to_host(self, tree: dict, kind: str = "chunk_fetch") -> dict:
         """One device -> host read of every tensor of ``tree``, recorded in
         the sync ledger as ``kind``."""
-        out, nbytes = {}, 0
-        cuda = self.device.type == "cuda"
-        for k, v in tree.items():
-            if cuda:
-                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                h.copy_(v, non_blocking=True)
-            else:
-                h = v.detach().clone()
-            out[k] = h
-            nbytes += v.numel() * v.element_size()
-        if cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-        self.sync_ledger.record(kind, nbytes)
-        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
-                for k, v in out.items()}
+        return to_host(tree, self.sync_ledger, kind)
 
     def _persist_chunk(self, fetched, host_gen, t0, chunk_index, chunk_s,
                        eps_quantile, adaptive, plan: dict | None = None,

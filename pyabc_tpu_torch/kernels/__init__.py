@@ -12,6 +12,7 @@ from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_fit_plain, bootstrap_local_density_plain,
                            bootstrap_local_gather_plain)
 from .compact import compact_round, compact_round_plain
+from .gaussian_simulate import gaussian_simulate, gaussian_simulate_plain
 from .generation_health import generation_health, generation_health_plain
 from .gp_sumstat import gp_accept, gp_accept_plain, gp_values_plain
 from .grid_search import (grid_search_cv, grid_search_cv_models_plain,
@@ -60,7 +61,7 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
-#: the GP transform, K17)
+#: the GP transform, K17, K4's Gaussian simulator)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -70,7 +71,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
-           mlp_accept, gp_accept, grid_search_cv)
+           mlp_accept, gp_accept, grid_search_cv, gaussian_simulate)
 
 
 def reset_launch_counts() -> None:
@@ -103,6 +104,7 @@ __all__ = [
     "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",
     "bootstrap_local_density_plain", "bootstrap_local_gather_plain",
     "cast_rows_plain", "compact_round", "compact_round_plain",
+    "gaussian_simulate", "gaussian_simulate_plain",
     "generation_health", "generation_health_plain", "gp_accept",
     "gp_accept_plain", "gp_transform_rows", "gp_transform_rows_plain",
     "gp_values_plain", "grid_search_cv", "grid_search_cv_models_plain",

@@ -43,6 +43,8 @@ SIGNATURES = {
         _P],
     "pyabc_ode_family_simulate": [
         _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
+    "pyabc_gaussian_simulate": [_P, _I, _I, _I, _U, _U, _U, _U, _U, _P, _I,
+                                _I, _I, _P, _P],
     "pyabc_sir_simulate": [
         _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_pnorm_accept_weight": [
@@ -62,7 +64,7 @@ SIGNATURES = {
         _U, _U, _P, _I, _P, _P, _P, _P],
     "pyabc_propose_models": [
         _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-        _P, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
+        _P, _P, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
     "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],

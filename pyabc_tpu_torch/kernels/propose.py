@@ -546,10 +546,12 @@ def draw_models_plain(stream: PhiloxStream, B: int, model_p: torch.Tensor,
 def propose_models_plain(stream: PhiloxStream, B: int, priors: dict,
                          model_p: torch.Tensor, params: dict | None = None,
                          mpk: torch.Tensor | None = None,
-                         local: bool = False):
+                         local: bool = False,
+                         model_logits: torch.Tensor | None = None):
     """Plain PyTorch version of the K > 1 mode -> (theta, logpri, valid,
     m). ``priors`` is ``random_variables.stacked_arrays``; ``local`` draws
-    with the ancestor's own factor ``chols[m, idx]``."""
+    with the ancestor's own factor ``chols[m, idx]``; ``model_logits``
+    (prior mode) adds the lane's model's log prior to its logpri."""
     dev = priors["loc"].device
     K, d = priors["loc"].shape
     m = draw_models_plain(stream, B, model_p,
@@ -561,8 +563,10 @@ def propose_models_plain(stream: PhiloxStream, B: int, priors: dict,
     if params is None:
         theta = torch.where(real, prior_draw_plain(stream, lanes, lane_prior,
                                                    d), 0.0)
-        return (theta.contiguous(),
-                prior_logpdf_plain(theta, lane_prior, real),
+        logpri = prior_logpdf_plain(theta, lane_prior, real)
+        if model_logits is not None:
+            logpri = model_logits[m] + logpri
+        return (theta.contiguous(), logpri,
                 torch.ones(B, dtype=torch.bool, device=dev),
                 m.to(torch.int32))
     cdf, thetas = params["cdf"][m], params["thetas"]
@@ -667,24 +671,34 @@ class Propose(Kernel):
 
     def models(self, stream: PhiloxStream, B: int, priors: dict,
                model_p: torch.Tensor, params: dict | None = None,
-               mpk: torch.Tensor | None = None):
-        """The K > 1 mode -> (theta ``(B, d_max)``, logpri, valid, m)."""
+               mpk: torch.Tensor | None = None,
+               model_logits: torch.Tensor | None = None):
+        """The K > 1 mode -> (theta ``(B, d_max)``, logpri, valid, m). In
+        the prior mode ``model_logits`` (the ``(K,)`` log model prior)
+        makes logpri the proposal's log density, the lane's model's log
+        prior added (K26's prior and calibration rounds)."""
         return self._models(stream, B, priors, model_p, params, mpk,
-                            local=False)
+                            local=False, model_logits=model_logits)
 
     def _models(self, stream: PhiloxStream, B: int, priors: dict,
                 model_p: torch.Tensor, params: dict | None,
-                mpk: torch.Tensor | None, local: bool):
+                mpk: torch.Tensor | None, local: bool,
+                model_logits: torch.Tensor | None = None):
         """Both K > 1 modes: the models' MVN factors ``chol (K, d, d)``
         or, with ``local``, LocalTransition's ``chols (K, n, d, d)``."""
+        if model_logits is not None and params is not None:
+            raise ValueError(f"{self.name}: model_logits is the prior "
+                             "mode's")
         keys = PRIOR_KEYS + ("dims",)
         chol = "chols" if local else "chol"
         pt = [] if params is None else [params[k] for k in
                                         ("cdf", "thetas", chol)] + [mpk]
+        ml = [] if model_logits is None else [model_logits]
         if self.on_cpu(stream.counters, model_p,
-                       *(priors[k] for k in keys), *pt):
+                       *(priors[k] for k in keys), *pt, *ml):
             return propose_models_plain(stream, B, priors, model_p, params,
-                                        mpk, local=local)
+                                        mpk, local=local,
+                                        model_logits=model_logits)
         K, d = priors["loc"].shape
         if d > MAX_DIM:
             raise ValueError(f"{self.name}: dim {d} above the kernel's "
@@ -696,6 +710,8 @@ class Propose(Kernel):
         self.expect(priors["par"], "priors.par", f32, (K, d, 6))
         self.expect(priors["dims"], "priors.dims", i32, (K,))
         self.expect(model_p, "model_p", f32, (K,))
+        if model_logits is not None:
+            self.expect(model_logits, "model_logits", f32, (K,))
         self.expect(stream.counters, "counters", i32,
                     (stream.counters.shape[0],))
         n = 0
@@ -718,7 +734,9 @@ class Propose(Kernel):
             B, K, d, n, *ptrs[:3], int(local),
             *(priors[k].data_ptr() for k in PRIOR_KEYS),
             int(families(priors)), priors["dims"].data_ptr(),
-            model_p.data_ptr(), ptrs[3], k0, k1, stream.generation,
+            model_p.data_ptr(), ptrs[3],
+            None if model_logits is None else model_logits.data_ptr(), k0,
+            k1, stream.generation,
             stream.tag, MODEL, stream.max_rounds, stream.counters.data_ptr(),
             N_REDRAWS, theta.data_ptr(), logpri.data_ptr(), valid.data_ptr(),
             m.data_ptr(), _build.stream_ptr(dev))

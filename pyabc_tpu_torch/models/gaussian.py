@@ -1,11 +1,20 @@
 """Conjugate Gaussian toy models (``pyabc_tpu/models/gaussian.py``
-counterpart): the correctness anchor with a closed-form posterior."""
+counterpart): the correctness anchor with a closed-form posterior.
+
+``make_gaussian_model`` (BASELINE config 1) simulates a proposal round
+through K4's Gaussian kernel (``kernels/gaussian_simulate.py``), its
+normals drawn from the round's Philox stream; ``make_mean_only_model``
+stays a user-style model drawing from the run's generator.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..core.random_variables import RV, Distribution
+from ..core.sumstat_spec import SumStatSpec
+from ..kernels.gaussian_simulate import gaussian_simulate
+from ..kernels.philox import PhiloxStream, generator_stream
 from ..model import TorchModel
 
 PRIOR_MU_SD = 1.0
@@ -21,16 +30,41 @@ def gaussian_sim(theta: torch.Tensor, z: torch.Tensor) -> dict:
     return {"mean": x.mean(dim=1), "std": x.std(dim=1, correction=0)}
 
 
+class GaussianModel(TorchModel):
+    """theta = (mu, sigma) -> mean and std of n iid N(mu, sigma) draws;
+    every simulation, a round's rows and a user's call alike, is K4's
+    Gaussian kernel, which writes the observed statistics in spec order."""
+
+    def __init__(self, n: int = NOISE_N, name: str = "gaussian"):
+        self.n = int(n)
+        super().__init__(self._sim_dict, ["mu", "sigma"], name=name)
+
+    def _sim_dict(self, theta, generator):
+        rows = gaussian_simulate(
+            theta.contiguous(), n=self.n,
+            stream=generator_stream(generator, theta.device))
+        return {"mean": rows[:, 0], "std": rows[:, 1]}
+
+    def simulate_flat(self, theta, generator, spec: SumStatSpec,
+                      stream: PhiloxStream | None = None):
+        missing = set(spec.names) - {"mean", "std"}
+        if missing:
+            raise KeyError(f"{self.name}: simulator output lacks "
+                           f"{sorted(missing)} of the observed data")
+        if any(spec.sizes[k] != 1 for k in spec.names):
+            raise ValueError(f"{self.name}: mean and std are scalars, the "
+                             f"observation has {dict(spec.shapes)}")
+        if stream is None:
+            stream = generator_stream(generator, theta.device)
+        columns = tuple(spec.offsets.get(k, -1) for k in ("mean", "std"))
+        return gaussian_simulate(theta.contiguous(), n=self.n, stream=stream,
+                                 columns=columns)
+
+
 def make_gaussian_model(n: int = NOISE_N, name: str = "gaussian"
-                        ) -> TorchModel:
+                        ) -> GaussianModel:
     """theta = (mu, sigma); returns mean/std of n iid N(mu, sigma) draws."""
-
-    def sim(theta, generator):
-        z = torch.randn(theta.shape[0], n, generator=generator,
-                        device=theta.device)
-        return gaussian_sim(theta, z)
-
-    return TorchModel(sim, ["mu", "sigma"], name=name)
+    return GaussianModel(n, name)
 
 
 def default_prior() -> Distribution:

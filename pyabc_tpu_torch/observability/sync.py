@@ -10,6 +10,8 @@ from __future__ import annotations
 import threading
 from collections import Counter
 
+import torch
+
 
 class SyncLedger:
     def __init__(self):
@@ -37,3 +39,27 @@ class SyncLedger:
         with self._lock:
             self._counts.clear()
             self._bytes.clear()
+
+
+def to_host(tree: dict, ledger: SyncLedger, kind: str) -> dict:
+    """One device -> host read of every tensor of ``tree``: non-blocking
+    copies into pinned buffers behind one event, then one wait on it,
+    recorded in ``ledger`` as ``kind`` -> numpy arrays (bfloat16 widened to
+    float32)."""
+    out, nbytes, cuda = {}, 0, None
+    for k, v in tree.items():
+        if v.device.type == "cuda":
+            cuda = v.device
+            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            h.copy_(v, non_blocking=True)
+        else:
+            h = v.detach().clone()
+        out[k] = h
+        nbytes += v.numel() * v.element_size()
+    if cuda is not None:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(cuda))
+        done.synchronize()
+    ledger.record(kind, nbytes)
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in out.items()}

@@ -309,6 +309,28 @@ class History:
         if self._writer is not None:
             self._writer.flush()
 
+    def update_telemetry(self, t: int, values: dict) -> None:
+        """Merge ``values`` into generation t's telemetry (queued behind its
+        append when the writer runs)."""
+        if self._writer is None:
+            self._update_telemetry(t, values)
+            return
+        self._writer.submit(f"telemetry {int(t)}", self._update_telemetry,
+                            t, values)
+
+    def _update_telemetry(self, t: int, values: dict) -> None:
+        with self._lock:
+            pop_id = self._pop_id(t)
+            row = self._conn.execute(
+                "SELECT telemetry FROM populations WHERE id=?",
+                (pop_id,)).fetchone()
+            tel = json.loads(row[0]) if row and row[0] else {}
+            tel.update(values)
+            self._conn.execute(
+                "UPDATE populations SET telemetry=? WHERE id=?",
+                (json.dumps(tel), pop_id))
+            self._conn.commit()
+
     # ------------------------------------------------------------ queries
     def _pop_id(self, t: int) -> int | None:
         row = self._conn.execute(

@@ -2,11 +2,13 @@
 bandwidth rules, the plain device Cholesky with its jitter-escalation
 ladder (single matrix beside K8 in ``kernels/mvn_fit.py``, batched beside
 K13 in ``kernels/local_factor.py``), the refit cadence's drift
-statistic (beside K15 in ``kernels/proposal_drift.py``) and the bootstrap
+statistic (beside K15 in ``kernels/proposal_drift.py``), the bootstrap
 CV and bisection of the adaptive population size (K16's entries, in
-``kernels/bootstrap_cv.py``)."""
+``kernels/bootstrap_cv.py``) and the host loop's weighted covariance
+``smart_cov``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels.bootstrap_cv import (DONE, HI, MAX_PROBES, PROBE,
@@ -15,6 +17,32 @@ from ..kernels.local_factor import device_chol_guarded_batched  # noqa: F401
 from ..kernels.mvn_fit import (CHOL_JITTER_LADDER,  # noqa: F401
                                device_chol_guarded)
 from ..kernels.proposal_drift import device_proposal_drift  # noqa: F401
+
+
+class NotEnoughParticles(Exception):
+    """A host fit was given no particles."""
+
+
+def smart_cov(X: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Weighted covariance robust to degenerate input (float64 numpy,
+    the host fit's): a zero-variance direction gets a small positive
+    diagonal, one particle or a non-finite result a small isotropic
+    covariance."""
+    X = np.asarray(X, np.float64)
+    w = np.asarray(w, np.float64)
+    w = w / w.sum()
+    mean = w @ X
+    centered = X - mean
+    cov = (centered * w[:, None]).T @ centered
+    d = X.shape[1]
+    if len(X) == 1 or not np.all(np.isfinite(cov)):
+        cov = np.eye(d) * 1e-4
+    diag = np.diag(cov).copy()
+    bad = diag <= 0
+    if bad.any():
+        fill = np.abs(mean) * 1e-4 + 1e-8
+        cov[np.diag_indices(d)] = np.where(bad, fill, diag)
+    return cov
 
 
 def scott_rule_of_thumb(n_samples, dimension: int):

@@ -198,7 +198,8 @@ def test_lv_run_on_the_card(dev):
     # LocalTransition's K12-K15, the segmented family's K20b and K22, the
     # adaptive population size's K16, the aggregated distances' K25, the
     # learned statistics' K23 (linear and MLP) and K18 operands, the
-    # host-refit mode's GP transform and GridSearchCV's K17 are not on it)
+    # host-refit mode's GP transform, GridSearchCV's K17 and config 1's
+    # Gaussian simulator are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -206,7 +207,8 @@ def test_lv_run_on_the_card(dev):
              "ode_family_segments", "moment_fold", "moment_finish",
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
-             "mlp_accept", "gp_accept", "grid_search_cv")
+             "mlp_accept", "gp_accept", "grid_search_cv",
+             "gaussian_simulate")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -2953,3 +2955,174 @@ def test_grid_search_runs_on_the_card(dev, mode):
     for t in range(4):
         chosen = h.get_telemetry(t)["gridsearch_scaling"]
         assert set(np.atleast_1d(chosen)) <= {0.5, 1.0, 2.0}
+
+
+# ---------------------------------------------- the host loop (K4, K26)
+@pytest.mark.parametrize("B,n", [(1, 10), (777, 3), (65536, 10), (4096, 13)])
+def test_gaussian_simulate_kernel(dev, B, n):
+    """K4's Gaussian kernel against its plain version on the same Philox
+    words: within rel 1e-6 of each lane's |mu| + |sigma|."""
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        gaussian_simulate, gaussian_simulate_plain)
+    from pyabc_tpu_torch.models import gaussian
+
+    theta = propose(_stream(dev, philox.PRIOR), B,
+                    gaussian.default_prior().arrays(dev))[0]
+    sim = _stream(dev, philox.SIM_NOISE)
+    got = gaussian_simulate(theta, n=n, stream=sim)
+    ref = gaussian_simulate_plain(theta, n=n, stream=sim)
+    scale = (theta[:, 0].abs() + theta[:, 1].abs())[:, None]
+    assert torch.isfinite(got).all()
+    assert float(((got - ref).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("columns", [(0, 1), (0, -1), (-1, 0), (1, 0)])
+def test_gaussian_simulate_columns(dev, columns):
+    """K4's Gaussian kernel writes the observed statistics in spec order
+    (an observed mean or std alone is one column) as its plain version
+    does, within rel 1e-6 of |mu| + |sigma|."""
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        gaussian_simulate, gaussian_simulate_plain)
+    from pyabc_tpu_torch.models import gaussian
+
+    theta = propose(_stream(dev, philox.PRIOR), 5000,
+                    gaussian.default_prior().arrays(dev))[0]
+    sim = _stream(dev, philox.SIM_NOISE)
+    got = gaussian_simulate(theta, n=10, stream=sim, columns=columns)
+    ref = gaussian_simulate_plain(theta, n=10, stream=sim, columns=columns)
+    scale = (theta[:, 0].abs() + theta[:, 1].abs())[:, None]
+    assert got.shape == ref.shape == (5000, sum(c >= 0 for c in columns))
+    assert float(((got - ref).abs() / scale).max()) <= 1e-6
+
+
+def test_mean_only_observation_on_the_card(dev):
+    """Config 1's model observed through its mean alone: every round on
+    the card simulates through K4's Gaussian kernel (one column a row)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.models import gaussian
+
+    abc = pt.ABCSMC(gaussian.make_gaussian_model(), gaussian.default_prior(),
+                    pt.PNormDistance(p=2), population_size=500, seed=1,
+                    fused_generations=1, device=dev)
+    abc.new("sqlite://", {"mean": 0.4})
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=3)
+    rounds = sum(g["rounds"] for g in abc.generation_log)
+    assert h.max_t == 2
+    assert launch_counts()["gaussian_simulate"] >= rounds > 0
+    df, w = h.get_distribution(0, h.max_t)
+    assert abs(float(np.sum(df["mu"] * w)) - 0.4) < 0.3
+
+
+def _device_kernels(fn) -> list | None:
+    """The device kernels ``fn`` launches, from torch.profiler (memory
+    copies left out); None when the profiler records no device op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not names:
+        return None
+    return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+
+
+#: the lane kernels of one config 1 round in each mode
+ROUND_LANES = {"prior": ("propose", "gaussian_simulate",
+                         "pnorm_accept_weight"),
+               "calibration": ("propose", "gaussian_simulate"),
+               "transition": ("propose", "mvn_mixture_logpdf",
+                              "gaussian_simulate", "pnorm_accept_weight")}
+
+
+@pytest.mark.parametrize("mode", ["prior", "calibration", "transition"])
+def test_round_kernel_modes_on_the_card(dev, mode):
+    """K26's round kernel launches its lane kernels once each and no
+    other device kernel (the wrappers' counts; the profiler's device ops
+    where it records them), and matches the same round on the CPU (the
+    same Philox words): theta, rows and distances within 1e-5 + 1e-5 |x|,
+    flags equal away from eps."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.core.random import RoundKey, generation_key
+    from pyabc_tpu_torch.kernels import launch_counts
+    from pyabc_tpu_torch.models import gaussian
+
+    B, out = 4096, {}
+    for where in (dev, torch.device("cpu")):
+        abc = pt.ABCSMC(gaussian.make_gaussian_model(),
+                        gaussian.default_prior(), pt.PNormDistance(p=2),
+                        population_size=1000, fused_generations=1, seed=3,
+                        device=where)
+        abc.new("sqlite://", {"mean": 0.4, "std": 1.1})
+        ctx = abc._build_context(1000, 0.0)
+        rng = np.random.default_rng(0)
+        abc.transitions[0].fit(
+            np.stack([rng.normal(0.4, 0.3, 500),
+                      rng.uniform(0.5, 1.3, 500)], 1), np.full(500, 0.002))
+        if mode == "transition":
+            _m, dyn = ctx.build_dyn_args(t=1, eps_value=0.6,
+                                         model_probabilities={0: 1.0},
+                                         transitions=abc.transitions)
+            key = RoundKey(1, 2)
+        else:
+            _m, dyn = ctx.build_dyn_args(t=0, eps_value=0.9)
+            key = RoundKey(generation_key(-1) if mode == "calibration"
+                           else 0, 1)
+        res = ctx.round(key, B, mode, dyn)
+        out[where.type] = {k: v.cpu() for k, v in res.items()}
+        if where.type == "cuda":
+            before = launch_counts()
+            ops = _device_kernels(lambda: ctx.round(key, B, mode, dyn))
+            after = launch_counts()
+            delta = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            assert delta == {k: 1 for k in ROUND_LANES[mode]}
+            assert ops is None or len(ops) == len(ROUND_LANES[mode]), ops
+    a, b = out["cuda"], out["cpu"]
+    for k in ("theta", "sumstats", "distance"):
+        assert torch.allclose(a[k], b[k], atol=1e-5, rtol=1e-5), k
+    far = (b["distance"] - 0.9 if mode != "transition"
+           else b["distance"] - 0.6).abs() > 1e-4
+    assert torch.equal(a["accepted"][far], b["accepted"][far])
+    assert torch.equal(a["valid"], b["valid"])
+
+
+@pytest.mark.parametrize("mode", ["pipelined", "serial", "rounds"])
+def test_host_loop_runs_on_the_card(dev, mode):
+    """Config 1 on the card's host loop: the generations run, the reads
+    are the host loop's budget and K4's Gaussian kernel simulates every
+    round."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (gaussian_simulate, launch_counts,
+                                         reset_launch_counts)
+    from pyabc_tpu_torch.models import gaussian
+
+    kw = {"pipelined": dict(fused_generations=1),
+          "serial": dict(fused_generations=1, pipeline=False),
+          "rounds": dict(sampler=pt.BatchedSampler(fused=False))}[mode]
+    abc = pt.ABCSMC(gaussian.make_gaussian_model(), gaussian.default_prior(),
+                    pt.PNormDistance(p=2), population_size=800, seed=2,
+                    device=dev, **kw)
+    abc.new("sqlite://", {"mean": 0.4, "std": 1.1})
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=4)
+    assert h.max_t == 3
+    counts = launch_counts()
+    by = abc.sync_ledger.summary()["by_kind"]
+    rounds = sum(g["rounds"] for g in abc.generation_log)
+    assert counts["gaussian_simulate"] >= rounds > 0
+    assert gaussian_simulate.launches == counts["gaussian_simulate"]
+    if mode == "rounds":
+        # a round (the calibration's too) is one K2 and one K4 launch
+        assert set(by) == {"round_fetch"}
+        assert by["round_fetch"] == counts["propose"] == counts[
+            "gaussian_simulate"]
+    else:
+        assert set(by) == {"round_counters", "generation_collect"}
+        assert by["generation_collect"] == 5

@@ -168,7 +168,7 @@ def test_run_flushes_before_a_loop_error_propagates(tmp_path, monkeypatch):
     db = "sqlite:///" + str(tmp_path / "loop.db")
     abc = tpt.ABCSMC(gaussian.make_mean_only_model(),
                      gaussian.mean_only_prior(), population_size=32, seed=1,
-                     fused_generations=1, device="cpu")
+                     fused_generations=2, device="cpu")
     abc.new(db, {"x": 1.0})
     real_append = tpt.History.append_population
 
@@ -182,7 +182,7 @@ def test_run_flushes_before_a_loop_error_propagates(tmp_path, monkeypatch):
 
     def fetch(*args, **kwargs):
         calls.append(1)
-        if len(calls) == 3:
+        if len(calls) == 2:
             raise RuntimeError("device lost")
         return real_fetch(*args, **kwargs)
 
