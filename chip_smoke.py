@@ -359,11 +359,29 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    ending at exactly 1, one K14 ring pass a generation, the first two
    temperatures within 1e-3 of the CPU's); config 3 with a LocalTransition
    on, off, off, on (8 generations) and its K = 2 pair on and off (pop
-   4096): bit-identical.
+   4096): bit-identical. Then sharded fused sampling on 8 virtual shards
+   (K24a-d), counts reset just before each leg: phase 2's K24a (K6's
+   shard mode, plain and feature rows, rounds until every shard is
+   finished), K24b (the shard mask), K24c (K10's merge mode over a chunk
+   of 8 generations, a constant n and a list) and K24d's fold and finish
+   against their plain versions at the LV sharded leg's shapes (B 65536
+   on 8 shards, n_cap 16384, S 40); LV with the JAX mesh lane's
+   configuration (bench.py:1749-1753, pop 16384, sharded=8, G 8, 9
+   generations) beside the same seed unsharded: 16384 rows every
+   generation, the refit at generations 0 and 8 only, posterior means
+   within 0.2 of the unsharded run's, a read a round and a fetch a chunk,
+   once more under torch.profiler; LV under
+   AdaptivePNormDistance(standard_deviation) and a listed size, sharded:
+   the weights refit every generation, its listed n, card and CPU within
+   1e-3 over two generations at pop 1024; the Gaussian toy at pop 300
+   (uneven quotas): 300 rows, the mean within 0.25 of the conjugate one;
+   the tractable pair sharded over 8 seeds (within 0.05 of the exact
+   0.5529, 4 se of the CPU's).
 
 The anchors' CPU references (the toy, the noisy anchor with and without a
-LocalTransition, the nine prior families, the tractable pair in its three
-kinds, SIR config 4 with a LocalTransition) run in a process of their
+LocalTransition, the nine prior families, the tractable pair in its four
+kinds, SIR config 4 with a LocalTransition, the LV adaptive sharded
+trail) run in a process of their
 own (``--cpu-refs DIR``, started after the build, half the host's
 threads, no card visible), beside the card phases; the comparisons with
 them run after the card phases, and a failed or missing reference fails
@@ -372,7 +390,7 @@ the run. ``time:`` lines mark each phase.
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16 with K16's LocalTransition mode, K17, K18 and its modes,
 K19, K20, K20b, K21a, K21b, K21c, K22, K23 linear and MLP, the GP
-transform, K25, K26 and the K > 1 modes) is replaced by a
+transform, K24a-d, K25, K26 and the K > 1 modes) is replaced by a
 function that
 raises, so
 none can run on the path unseen.
@@ -2022,6 +2040,13 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.lv_simulate", "lv_simulate_plain"),
     ("pyabc_tpu_torch.kernels.pnorm_accept", "pnorm_accept_weight_plain"),
     ("pyabc_tpu_torch.kernels.compact", "compact_round_plain"),
+    ("pyabc_tpu_torch.kernels.compact", "compact_shards_plain"),
+    ("pyabc_tpu_torch.kernels.compact", "dfeat_rows"),
+    ("pyabc_tpu_torch.kernels.shard", "shard_mask_plain"),
+    ("pyabc_tpu_torch.kernels.pack_fetch", "merged_rows"),
+    ("pyabc_tpu_torch.kernels.moments", "moment_fold_shards_plain"),
+    ("pyabc_tpu_torch.kernels.moments", "moment_finish_shards_plain"),
+    ("pyabc_tpu_torch.kernels.moments", "feature_distances"),
     ("pyabc_tpu_torch.kernels.normalize_quantile",
      "normalize_log_weights_plain"),
     ("pyabc_tpu_torch.kernels.normalize_quantile", "weighted_quantile_plain"),
@@ -2791,6 +2816,8 @@ def pair_abc(where, seed, kind: str = "mvn"):
             pt.GridSearchCV(pt.MultivariateNormalTransition(),
                             {"scaling": list(PAIR_GRID)}, cv=4)
             for _ in range(2)]
+    elif kind == "sharded":
+        kw["sharded"] = 8
     abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
                     population_size=PAIR_POP, eps=pt.MedianEpsilon(),
                     seed=seed, device=where, **kw)
@@ -2803,8 +2830,8 @@ def pair_stats(where, kind: str = "mvn") -> dict:
     the wall."""
     p0 = []
     t0 = time.perf_counter()
-    for seed in {"grid": PAIR_GRID_SEEDS, "host": HL_PAIR_SEEDS}.get(
-            kind, PAIR_SEEDS):
+    for seed in {"grid": PAIR_GRID_SEEDS, "host": HL_PAIR_SEEDS,
+                 "sharded": PAIR_SHARDED_SEEDS}.get(kind, PAIR_SEEDS):
         h = pair_abc(where, seed, kind).run(max_nr_populations=PAIR_GENS)
         check(h.n_populations == PAIR_GENS,
               f"tractable pair ({kind}) seed {seed} ({where}) ran "
@@ -2827,6 +2854,11 @@ def pair_local_cpu() -> dict:
 @cpu_ref
 def pair_grid_cpu() -> dict:
     return pair_stats("cpu", "grid")
+
+
+@cpu_ref
+def pair_sharded_cpu() -> dict:
+    return pair_stats("cpu", "sharded")
 
 
 #: the K > 1 path of each pair kind (K26 and the K > 1 modes)
@@ -2853,7 +2885,8 @@ def pair_anchor(dev, kind: str = "mvn") -> dict | None:
 
     exact = float(msel.tractable_pair()[2](PAIR_X)[0])
     name = {"mvn": "tractable pair", "local": "tractable pair, local",
-            "grid": "tractable pair, GridSearchCV"}[kind]
+            "grid": "tractable pair, GridSearchCV",
+            "sharded": "tractable pair, 8 shards"}[kind]
     torch.cuda.synchronize()
     reset_launch_counts()
     with plain_versions_raise():
@@ -2861,7 +2894,10 @@ def pair_anchor(dev, kind: str = "mvn") -> dict | None:
     counts = launch_counts() | mode_launch_counts()
     log(f"{name} ({dev}): kernel launches {counts}")
     path = {"mvn": [k for k in C5_PATH if k != "ode_family_simulate"],
-            "local": LOCAL_MODELS_PATH, "grid": PAIR_GRID_PATH}[kind]
+            "local": LOCAL_MODELS_PATH, "grid": PAIR_GRID_PATH,
+            "sharded": [k for k in C5_PATH if k != "ode_family_simulate"]
+            + ["compact_round:shards", "shard_mask",
+               "pack_fetch:merge"]}[kind]
     check(all(counts[k] > 0 for k in path),
           f"a kernel of the {name}'s path was never launched")
     if kind == "local":
@@ -2888,14 +2924,14 @@ def pair_anchor(dev, kind: str = "mvn") -> dict | None:
     def compare():
         m_c, se_c = summary("cpu", REFS.get(
             {"mvn": "pair_cpu", "local": "pair_local_cpu",
-             "grid": "pair_grid_cpu"}[kind]))
+             "grid": "pair_grid_cpu", "sharded": "pair_sharded_cpu"}[kind]))
         gap = (m_d - m_c) / math.hypot(se_d, se_c)
         log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
         check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= "
               "4 standard errors")
 
     PENDING.append(compare)
-    if kind != "mvn":
+    if kind not in ("mvn", "sharded"):
         abc = pair_abc(dev, 0, kind)
         profile_run(f"{name} (seed 0, profiled)", abc, PAIR_GENS)
         sync_check(abc, name)
@@ -9723,24 +9759,38 @@ def round_device_ops(ctx, key, B: int, mode: str, dyn: dict) -> None:
     """One round of ``mode`` under torch.profiler: the wrappers' counts
     rise by one for each lane kernel of the mode and by nothing else, and
     the device runs exactly that many kernels (memory copies aside), so
-    the round launches no PyTorch kernel."""
+    the round launches no PyTorch kernel. The profiler can drop an event
+    of its window (one card run missed a round's first kernel, its launch
+    counted): a kernel count below the lanes is taken again, at most
+    twice; one above them fails at once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pyabc_tpu_torch.kernels import launch_counts
 
+    def profiled() -> list:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ctx.round(key, B, mode, dyn)
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    def kernels_of(names: list) -> list:
+        return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+
     torch.cuda.synchronize()
     before = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ctx.round(key, B, mode, dyn)
-        torch.cuda.synchronize()
+    names = profiled()
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    kernels = kernels_of(names)
+    for _ in range(2):
+        if not names or len(kernels) >= len(ROUND_LANES[mode]):
+            break
+        names = profiled()
+        kernels = kernels_of(names)
     log(f"K26 round kernel, {mode} mode: lane launches {delta}; device ops "
         f"{len(names)}, kernels {len(kernels)} "
         f"{sorted({n[:40] for n in kernels})}"
@@ -10097,6 +10147,443 @@ def pair_host_loop(dev) -> dict:
     return counts
 
 
+# ----------------------------------------- sharded fused sampling (K24)
+#: the LV sharded legs: the JAX mesh lane's LV configuration
+#: (bench.py:1749-1753: make_lv_model, default_prior, PNormDistance(p=2),
+#: MedianEpsilon, observed_data(seed=123)) at pop 16384 on 8 virtual shards,
+#: G 8, 9 generations, seed 7; beside it the same seed unsharded
+SH_N, SH_POP, SH_G, SH_GENS, SH_SEED = 8, 16384, 8, 9, 7
+#: the adaptive leg's list (tests/test_sharded.py:355-374's [pop, pop - 28,
+#: pop, pop - 60, pop, pop] at pop 128, scaled to the LV width) and the
+#: same at pop 1024 for the card against the CPU over two generations
+SH_AD_SIZES = [16384, 12800, 16384, 8704, 16384, 16384]
+SH_AD_CPU_SIZES = [1024, 800, 1024, 544, 1024, 1024]
+#: the mesh lane holds a mesh run bit-equal to the virtual shards; the
+#: sharded reduction against the unsharded one is held to
+#: tests/test_sharded.py's statistical rule: posterior means within 0.2
+SH_POST_RULE = 0.2
+SH_TOY_POP, SH_TOY_GENS = 300, 6
+PAIR_SHARDED_SEEDS = tuple(range(8))
+#: the kernels of the LV sharded leg's path (the host calibration's
+#: compaction is K6's unsharded round) and of the adaptive leg's
+SH_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+           "pnorm_accept_weight", "compact_round", "compact_round:shards",
+           "shard_mask", "normalize_quantile", "mvn_fit", "pack_fetch",
+           "pack_fetch:merge", "generation_health")
+SH_AD_PATH = SH_PATH + ("moment_fold:shards", "moment_finish:shards")
+SHARD_KERNELS = ("shard_mask",)
+
+
+def shard_checks(dev) -> dict:
+    """K24a-d against their plain versions at the LV sharded leg's shapes
+    (B 65536 lanes on 8 shards of 8192, n_cap 16384 on 8 blocks of 2048,
+    d 4, S 40; the chunk's 8 generations of 16384 rows for K24c) -> their
+    results."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (compact_round, moment_finish,
+                                         moment_fold, pack_fetch, shard_mask,
+                                         shard_mask_plain)
+    from pyabc_tpu_torch.kernels.compact import compact_shards_plain
+    from pyabc_tpu_torch.kernels.moments import (moment_finish_shards_plain,
+                                                 moment_fold_shards_plain)
+    from pyabc_tpu_torch.kernels.pack_fetch import (cast_rows_plain,
+                                                    pack_models_plain,
+                                                    pack_rows_plain)
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+    from pyabc_tpu_torch.ops.shard import merge_index
+
+    n, B, n_cap, d, S = SH_N, 65536, SH_POP, 4, 40
+    B_loc, cap_loc = B // n, n_cap // n
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+    out = {}
+
+    def lanes(seed):
+        g.manual_seed(seed)
+        return (torch.rand(B, generator=g, device=dev) < 0.3,
+                torch.rand(B, generator=g, device=dev) < 0.99,
+                torch.randn(B, d, generator=g, device=dev),
+                torch.randn(B, S, generator=g, device=dev) * 30.0 + 50.0,
+                torch.rand(B, generator=g, device=dev),
+                torch.randn(B, generator=g, device=dev))
+
+    def state(feat):
+        res = {"theta": torch.zeros(n_cap, d, device=dev),
+               "sumstats": torch.zeros(n_cap, S, device=dev),
+               "distance": torch.zeros(n_cap, device=dev),
+               "log_weight": torch.full((n_cap,), -math.inf, device=dev),
+               "slot": torch.full((n_cap,), -1, dtype=torch.int32,
+                                  device=dev)}
+        if feat:
+            res["dfeat"] = torch.zeros(n_cap, S, device=dev)
+        buf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
+        buf[4] = SH_POP
+        return res, buf
+
+    x0 = torch.randn(S, generator=g, device=dev) * 30.0 + 50.0
+    # K24a: rounds until every shard is finished, in both modes
+    err, same = 0.0, True
+    for feat in (False, True):
+        (res_k, buf_k), (res_p, buf_p) = state(feat), state(feat)
+        for r in range(12):
+            x = lanes(100 + r)
+            for res, buf, fn in ((res_k, buf_k, compact_round.shards),
+                                 (res_p, buf_p, compact_shards_plain)):
+                fn(*x, res, buf[:5], buf[5:].view(n, 4), n_shards=n,
+                   max_rounds=10, x0=x0)
+        torch.cuda.synchronize()
+        same = same and bool(torch.equal(buf_k, buf_p))
+        for k in res_k:
+            same = same and bool(torch.equal(res_k[k], res_p[k]))
+            fin = torch.isfinite(res_p[k].float())
+            err = max(err, float((res_k[k].float() - res_p[k].float())
+                                 [fin].abs().max()))
+        log(f"K24a compact_round shard mode ({'feature' if feat else 'plain'}"
+            f" rows, 12 rounds): table {buf_k[5:].view(n, 4)[:, :3].tolist()}"
+            f" bit-exact={same}")
+    check(same, "K24a: reservoir, table or counters not bit-identical")
+    x = lanes(100)
+    acc, valid = x[0] & x[1], x[1]
+    written = sum(min(int(acc[s * B_loc:(s + 1) * B_loc].sum()), cap_loc)
+                  for s in range(n))
+    nbytes = (B + int(valid.sum()) + written * ((d + S + 2) * 4 * 2 + 4)
+              + 2 * 16 * n + 2 * 20)
+    res_g, buf_g = state(False)
+    buf0 = buf_g.clone()
+    res_f, buf_f = state(True)
+
+    def k24a(res, buf):
+        buf.copy_(buf0)
+        compact_round.shards(*x, res, buf[:5], buf[5:].view(n, 4),
+                             n_shards=n, max_rounds=10, x0=x0)
+
+    res_t, buf_t = state(False)
+    out["compact_round:shards"] = dict(
+        err=err, call_ms=time_ms(lambda: k24a(res_g, buf_g), 50),
+        # the table is reset before each replayed launch (one 0.2 kB copy
+        # in the graph), so every launch compacts a first round
+        ms=graph_ms(lambda: k24a(res_g, buf_g)),
+        ms_feature_mode=graph_ms(lambda: k24a(res_f, buf_f)),
+        plain_ms=time_ms(lambda: (buf_t.copy_(buf0), compact_shards_plain(
+            *x, res_t, buf_t[:5], buf_t[5:].view(n, 4), n_shards=n,
+            max_rounds=10, x0=x0)), 3),
+        bound=bound(nbytes, 0.0), library_ms=None)
+
+    # K24b on the table K24a left
+    counters, table = buf_k[:5], buf_k[5:].view(n, 4)
+    got = shard_mask(counters, table, n_shards=n, cap_loc=cap_loc)
+    ref = shard_mask_plain(counters, table, n_shards=n, cap_loc=cap_loc)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
+    log(f"K24b shard_mask: summary {got[2].tolist()} bit-exact={same}")
+    check(same, "K24b: quotas, mask or totals differ from the plain version")
+    out["shard_mask"] = dict(
+        err=0.0,
+        call_ms=time_ms(lambda: shard_mask(counters, table, n_shards=n,
+                                           cap_loc=cap_loc), 50),
+        ms=graph_ms(lambda: shard_mask(counters, table, n_shards=n,
+                                       cap_loc=cap_loc)),
+        plain_ms=time_ms(lambda: shard_mask_plain(
+            counters, table, n_shards=n, cap_loc=cap_loc), 10),
+        bound=bound(16 * n + 20 + n_cap + 4 * n + 24, 0.0), library_ms=None)
+
+    # K24c: a chunk of G generations merged (a constant n; a list beside)
+    G = 8
+    th = [torch.randn(n_cap, d, generator=g, device=dev) for _ in range(G)]
+    di = [torch.rand(n_cap, generator=g, device=dev) for _ in range(G)]
+    lw = [torch.randn(n_cap, generator=g, device=dev) for _ in range(G)]
+    ss = [torch.randn(n_cap, S, generator=g, device=dev) for _ in range(G)]
+    ms = [torch.randint(0, 3, (n_cap,), generator=g, device=dev,
+                        dtype=torch.int32) for _ in range(G)]
+    same = True
+    for ns in ([SH_POP] * G, [v for v in SH_AD_SIZES + SH_AD_SIZES[:2]]):
+        merge, n_keep = (ns, n, cap_loc), max(ns)
+        f16 = torch.float16
+        same = same and bool(torch.equal(
+            pack_fetch.rows(th, di, lw, n_keep=n_keep, dtype=f16,
+                            merge=merge),
+            pack_rows_plain(th, di, lw, n_keep=n_keep, dtype=f16,
+                            merge=merge)))
+        same = same and bool(torch.equal(
+            pack_fetch.sumstats(ss[:2], n_keep=n_keep, dtype=f16,
+                                merge=(ns[:2], n, cap_loc)),
+            cast_rows_plain(ss[:2], n_keep=n_keep, dtype=f16,
+                            merge=(ns[:2], n, cap_loc))))
+        same = same and bool(torch.equal(
+            pack_fetch.models(ms, n_keep=n_keep, merge=merge),
+            pack_models_plain(ms, n_keep=n_keep, merge=merge)))
+    log(f"K24c pack_fetch merge mode (G {G}, n {SH_POP} and the adaptive "
+        f"leg's list, float16): bit-exact={same}")
+    check(same, "K24c: the merged fetch differs from the plain gather")
+    merge = ([SH_POP] * G, n, cap_loc)
+    idx = torch.as_tensor(merge_index(SH_POP, n, cap_loc).astype("int64"),
+                          device=dev)
+    src = torch.cat([torch.stack(th), torch.stack(di)[..., None],
+                     torch.stack(lw)[..., None]], -1)
+    out["pack_fetch:merge"] = dict(
+        err=0.0,
+        call_ms=time_ms(lambda: pack_fetch.rows(
+            th, di, lw, n_keep=SH_POP, dtype=torch.float16, merge=merge),
+            50),
+        ms=graph_ms(lambda: pack_fetch.rows(
+            th, di, lw, n_keep=SH_POP, dtype=torch.float16, merge=merge)),
+        plain_ms=time_ms(lambda: pack_rows_plain(
+            th, di, lw, n_keep=SH_POP, dtype=torch.float16, merge=merge), 5),
+        bound=bound(G * SH_POP * (d + 2) * (4 + 2), 0.0),
+        # one torch.index_select of the stacked rows (float32, no cast)
+        library_ms=graph_ms(lambda: torch.index_select(src, 1, idx)))
+
+    # K24d: the fold of a first round of every shard, then the finish
+    x = lanes(300)
+    rec_loc = 16384  # the leg's per-shard ring window (8 x 16384 // 8)
+    ctr = torch.zeros(5, dtype=torch.int32, device=dev)
+    ctr[4] = SH_POP
+    tab = torch.zeros(n, 4, dtype=torch.int32, device=dev)
+    tab[3, 0] = SH_POP // n  # one shard finished: it folds nothing
+    mom0 = init_moments(S, dev).expand(n, -1, -1).contiguous()
+    runs = []
+    for _ in range(2):
+        mom = mom0.clone()
+        moment_fold.shards(mom, x[3], x[1], x0, ctr, tab, n_shards=n,
+                           rec_cap=rec_loc, max_rounds=10)
+        runs.append(mom)
+    ref = moment_fold_shards_plain(mom0.clone(), x[3], x[1], x0, ctr, tab,
+                                   n_shards=n, rec_cap=rec_loc,
+                                   max_rounds=10)
+    torch.cuda.synchronize()
+    got = runs[0]
+    rel = float(((got[:, :3] - ref[:, :3]).abs()
+                 / ref[:, :3].abs().clamp_min(1e-30)).max())
+    same = (bool(torch.equal(runs[0], runs[1]))
+            and bool(torch.equal(got[:, 3:], ref[:, 3:]))
+            and bool(torch.equal(got[3], mom0[3])))
+    log(f"K24d moment fold shard mode: counts and extrema equal, the same "
+        f"bits run to run, a finished shard untouched={same}, sums rel "
+        f"{rel:.2e}")
+    check(same and rel <= 1e-5, "K24d fold: counts/extrema differ, the "
+          "bits change run to run, or sums off by more than 1e-5")
+    mom_g = mom0.clone()
+    n_take = int(x[1][(torch.arange(B, device=dev) // B_loc) != 3].sum())
+    out["moment_fold:shards"] = dict(
+        err=float((got - ref)[torch.isfinite(ref)].abs().max()), rel=rel,
+        call_ms=time_ms(lambda: moment_fold.shards(
+            mom_g, x[3], x[1], x0, ctr, tab, n_shards=n, rec_cap=rec_loc,
+            max_rounds=10), 50),
+        # the blocks are reset before each replayed launch (one copy)
+        ms=graph_ms(lambda: (mom_g.copy_(mom0), moment_fold.shards(
+            mom_g, x[3], x[1], x0, ctr, tab, n_shards=n, rec_cap=rec_loc,
+            max_rounds=10))),
+        plain_ms=time_ms(lambda: moment_fold_shards_plain(
+            mom0.clone(), x[3], x[1], x0, ctr, tab, n_shards=n,
+            rec_cap=rec_loc, max_rounds=10), 5),
+        bound=bound(B + n_take * S * 4 + 2 * mom0.numel() * 4 + S * 4,
+                    0.0), library_ms=None)
+    feat = (x[3][:n_cap] - x0).abs() ** 2
+    got = moment_finish.shards(got, x0, feat, scale_name="standard_deviation")
+    ref = moment_finish_shards_plain(ref, x0, feat,
+                                     scale_name="standard_deviation")
+    rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+              for a, b in zip(got, ref))
+    log(f"K24d moment finish shard mode (standard_deviation, {n_cap} rows): "
+        f"scale, weights, distances rel {rel:.2e}")
+    check(rel <= 1e-5, "K24d finish: scale, weights or distances off by "
+          "more than 1e-5 relative")
+    out["moment_finish:shards"] = dict(
+        err=max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+        rel=rel,
+        call_ms=time_ms(lambda: moment_finish.shards(
+            runs[0], x0, feat, scale_name="standard_deviation"), 50),
+        ms=graph_ms(lambda: moment_finish.shards(
+            runs[0], x0, feat, scale_name="standard_deviation")),
+        plain_ms=time_ms(lambda: moment_finish_shards_plain(
+            runs[0], x0, feat, scale_name="standard_deviation"), 10),
+        bound=bound(mom0.numel() * 4 + n_cap * S * 4 + n_cap * 4 + 3 * S * 4,
+                    2.0 * n_cap * S), library_ms=None)
+    return out
+
+
+def lv_sharded(where, sharded, pop=SH_POP, seed=SH_SEED):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.PNormDistance(p=2), population_size=pop,
+                    eps=pt.MedianEpsilon(), seed=seed, sharded=sharded,
+                    fused_generations=SH_G, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    return abc
+
+
+def sharded_run(dev, abc, gens, label, path) -> tuple:
+    """``host_loop_run`` with the kernels' mode counts (K24a, K24c and
+    K24d are modes of K6, K10 and K22) -> (History, wall, counts); logs
+    the throughput, the syncs a generation and holds the sync budget: a
+    read a round, a fetch a chunk, the host calibration's round and
+    collect."""
+    from pyabc_tpu_torch.kernels import mode_launch_counts
+
+    h, wall, counts = host_loop_run(abc, gens, label,
+                                    [k for k in path if ":" not in k])
+    counts = counts | mode_launch_counts()
+    missing = [k for k in path if counts[k] == 0]
+    check(not missing, f"{label}: {missing} never launched on its path")
+    n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
+    syncs = abc.sync_ledger.summary()
+    rounds = [g["rounds"] for g in abc.generation_log]
+    chunks = len({g["chunk_index"] for g in abc.generation_log})
+    report = abc.sync_ledger.budget_report(rounds=sum(rounds), chunks=chunks,
+                                           slack=2)
+    log(f"{label} ({dev}): gens={len(n)} wall_s={wall:.3f} "
+        f"accepted_particles_per_s={sum(n) / wall:.1f} "
+        f"syncs_per_generation={syncs['syncs'] / len(n):.2f} (rounds "
+        f"{rounds}, {syncs['by_kind']}); wall split {wall_split(abc)}")
+    log(f"{label}: kernel launches {counts}")
+    check(report["ok"] and syncs["by_kind"].get("chunk_fetch") == chunks,
+          f"{label}: a read beyond one a round and one a chunk ({report})")
+    return h, wall, counts
+
+
+def lv_sharded_leg(dev) -> dict:
+    """The LV sharded leg and the same seed unsharded: every generation
+    16384 rows, the refit at the chunk cadence only (generations 0 and
+    8), the posterior means within SH_POST_RULE of the unsharded run's ->
+    the sharded run's launch and mode counts."""
+    import numpy as np
+
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = lv_sharded(dev, SH_N)
+    h, _wall, counts = sharded_run(dev, abc, SH_GENS, "LV sharded (8 shards)",
+                                   SH_PATH)
+    n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
+    flags = [e[1] for e in abc.refit_events]
+    log(f"LV sharded: rows per generation {n}, refit flags {flags}, K8 "
+        f"launches {counts['mvn_fit']}")
+    check(n == [SH_POP] * SH_GENS, "LV sharded: a generation without 16384 "
+          "rows")
+    want = [t % SH_G == 0 for t in range(SH_GENS)]
+    check(flags == want and counts["mvn_fit"] == sum(want),
+          "LV sharded: the refit off the chunk cadence")
+    h_u, _w, _c = sharded_run(dev, lv_sharded(dev, None), SH_GENS,
+                              "LV unsharded (the same seed)",
+                              [k for k in SH_PATH if ":" not in k
+                               and k != "shard_mask"])
+
+    def means(hh):
+        df, w = hh.get_distribution(0, hh.max_t)
+        return {k: float(np.sum(df[k] * w)) for k in lv.TRUE_PARS}
+
+    m_s, m_u = means(h), means(h_u)
+    gap = max(abs(m_s[k] - m_u[k]) for k in m_s)
+    log(f"LV sharded: posterior means {m_s}, unsharded {m_u}, largest "
+        f"gap {gap:.4f} (rule {SH_POST_RULE})")
+    check(gap <= SH_POST_RULE, "LV sharded: posterior means off the "
+          "unsharded run's")
+    profile_run("LV sharded (8 shards, profiled)", lv_sharded(dev, SH_N),
+                SH_GENS)
+    return counts
+
+
+def lv_adaptive_sharded(where, sizes, seed=SH_SEED):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.distance.scale import standard_deviation
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(),
+                    pt.AdaptivePNormDistance(
+                        p=2, scale_function=standard_deviation),
+                    population_size=pt.ListPopulationSize(sizes),
+                    eps=pt.MedianEpsilon(), seed=seed, sharded=SH_N,
+                    fused_generations=3, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    return abc
+
+
+def lv_adaptive_sharded_trail(where) -> dict:
+    """The adaptive leg at pop 1024 over two generations -> its epsilons
+    and weights."""
+    abc = lv_adaptive_sharded(where, SH_AD_CPU_SIZES)
+    h = abc.run(max_nr_populations=2)
+    eps = [float(e) for e in h.get_all_populations().query(
+        "t >= 0")["epsilon"]]
+    w = {str(t): [float(v) for v in ws]
+         for t, ws in abc.distance_function.weights.items()}
+    return {"eps": eps, "w": w}
+
+
+@cpu_ref
+def lv_adaptive_sharded_cpu() -> dict:
+    return lv_adaptive_sharded_trail("cpu")
+
+
+def lv_adaptive_sharded_leg(dev) -> dict:
+    """The adaptive sharded leg: the weights refit every generation, each
+    generation its listed n, K24d's fold and finish on the path; card and
+    CPU within 1e-3 over two generations at pop 1024 -> its counts."""
+    import numpy as np
+
+    abc = lv_adaptive_sharded(dev, SH_AD_SIZES)
+    gens = len(SH_AD_SIZES)
+    h, _wall, counts = sharded_run(dev, abc, gens,
+                                   "LV adaptive sharded (8 shards, list)",
+                                   SH_AD_PATH)
+    n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
+    w = abc.distance_function.weights
+    moved = [not np.array_equal(w[t], w[t - 1]) for t in range(1, gens + 1)]
+    log(f"LV adaptive sharded: rows {n}, weights refit {moved}, w[1] "
+        f"{np.round(w[1], 4).tolist()[:4]}..., w[2] "
+        f"{np.round(w[2], 4).tolist()[:4]}...")
+    check(n == SH_AD_SIZES and all(moved),
+          "LV adaptive sharded: a generation off its listed n or weights "
+          "not refit")
+    card = lv_adaptive_sharded_trail(dev)
+
+    def compare():
+        cpu = REFS.get("lv_adaptive_sharded_cpu")
+        e_rel = max(abs(a - b) / abs(b) for a, b in zip(card["eps"],
+                                                         cpu["eps"]))
+        w_rel = max(float(np.max(np.abs(np.subtract(card["w"][t],
+                                                    cpu["w"][t]))
+                                 / np.abs(cpu["w"][t])))
+                    for t in cpu["w"])
+        log(f"LV adaptive sharded, pop 1024: card eps {card['eps']}, cpu "
+            f"{cpu['eps']}; largest relative gaps eps {e_rel:.2e}, weights "
+            f"{w_rel:.2e}")
+        check(len(card["eps"]) == len(cpu["eps"]) == 2
+              and e_rel <= 1e-3 and w_rel <= 1e-3,
+              "LV adaptive sharded: card and CPU apart by more than 1e-3")
+
+    PENDING.append(compare)
+    return counts
+
+
+def toy_sharded(dev) -> None:
+    """The Gaussian toy at pop 300 (uneven quotas 38 and 37) on 8 shards:
+    300 rows every generation, the posterior mean within 0.25 of the
+    conjugate answer."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gaussian
+
+    mu_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)[0]
+    abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=0.5),
+                    gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                    population_size=SH_TOY_POP, eps=pt.MedianEpsilon(),
+                    seed=31, sharded=SH_N, fused_generations=3, device=dev)
+    abc.new("sqlite://", {"x": 1.0})
+    h, _wall, _c = sharded_run(
+        dev, abc, SH_TOY_GENS, "gaussian toy sharded (pop 300)",
+        ("propose", "compact_round:shards", "shard_mask", "pack_fetch:merge"))
+    n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
+    df, w = h.get_distribution(0, h.max_t)
+    mu = float(np.sum(df["theta"] * w))
+    log(f"gaussian toy sharded: rows {n}, posterior mean {mu:.4f} "
+        f"(conjugate {mu_true:.4f})")
+    check(n == [SH_TOY_POP] * SH_TOY_GENS and abs(mu - mu_true) <= 0.25,
+          "gaussian toy sharded: rows off 300 or the mean off by > 0.25")
+
+
 def main() -> int:
     import torch
 
@@ -10155,6 +10642,7 @@ def main() -> int:
     results.update(k14_ring_checks(dev))
     results.update(gaussian_checks(dev))
     results.update(round_checks(dev))
+    results.update(shard_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -10254,6 +10742,12 @@ def main() -> int:
     hl_lv = host_lv_leg(dev)
     hl_pair = pair_host_loop(dev)
     mark("host-loop legs")
+    # sharded fused sampling on 8 virtual shards (K24a-d)
+    lvs_counts = lv_sharded_leg(dev)
+    lvas_counts = lv_adaptive_sharded_leg(dev)
+    toy_sharded(dev)
+    pair_sh = pair_anchor(dev, "sharded")
+    mark("sharded legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -10312,7 +10806,8 @@ def main() -> int:
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (x1["pipelined"] if k.name in HL_KERNELS
+        own = (lvs_counts if k.name in SHARD_KERNELS
+               else x1["pipelined"] if k.name in HL_KERNELS
                else lvg_counts if k.name == "grid_search_cv"
                else gp_counts if k.name in GP_KERNELS
                else mlp_counts if k.name in MLP_KERNELS
@@ -10387,7 +10882,11 @@ def main() -> int:
                                  "config1_fused": x1["fused"][k.name],
                                  "lv_config2_host_loop": hl_lv[k.name],
                                  "tractable_pair_host_loop":
-                                     hl_pair[k.name]},
+                                     hl_pair[k.name],
+                                 "lv_sharded": lvs_counts[k.name],
+                                 "lv_adaptive_sharded": lvas_counts[k.name],
+                                 "tractable_pair_sharded":
+                                     pair_sh[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
@@ -10461,6 +10960,20 @@ def main() -> int:
                  "pyabc_tpu_torch/csrc/segment_round.cu",
                  "pyabc_tpu/ops/fit.py:240",
                  ls_modes["segment_round:linear"]))
+    # K24's modes of K6, K10 and K22: K24a and K24c from the LV sharded
+    # leg, K24d from the LV adaptive sharded leg (its only path)
+    rows += [("compact_round:shards", "pyabc_tpu_torch/csrc/compact_round.cu",
+              "pyabc_tpu/inference/util.py:493",
+              lvs_counts["compact_round:shards"]),
+             ("pack_fetch:merge", "pyabc_tpu_torch/csrc/pack_fetch.cu",
+              "pyabc_tpu/ops/pack.py:105",
+              lvs_counts["pack_fetch:merge"]),
+             ("moment_fold:shards", "pyabc_tpu_torch/csrc/moments.cu",
+              "pyabc_tpu/ops/scale_reduce.py:67",
+              lvas_counts["moment_fold:shards"]),
+             ("moment_finish:shards", "pyabc_tpu_torch/csrc/moments.cu",
+              "pyabc_tpu/inference/util.py:2672",
+              lvas_counts["moment_finish:shards"])]
     for name, source, replaces, launches in rows:
         r = results[name]
         check(launches > 0, f"{name} was never launched on its path")
@@ -10470,8 +10983,8 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("ms_pnorm_mode", "ms_k20b_round")
-               if k in r},
+            **{k: r[k] for k in ("ms_pnorm_mode", "ms_k20b_round",
+                                 "ms_feature_mode", "rel") if k in r},
             **({"k6_ring_mask": {
                 "ms": r["k6_ring_mask"]["ms"],
                 "call_ms": r["k6_ring_mask"]["call_ms"],

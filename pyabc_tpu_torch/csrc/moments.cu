@@ -31,6 +31,22 @@
 // accepted rows under them. The scales are written with the _rn
 // intrinsics: one rounding per operation, as the plain version's.
 //
+// Shard mode (K24d, sharded fused sampling under an adaptive distance):
+// replaces accumulate_moments per shard in the vmapped _generation_while
+// (pyabc_tpu/inference/util.py:2404-2420 with moment_cfg), combine_moments
+// over the shards and the dfeat recompute (:2672-2700). The fold gives
+// each (column, shard) one block: a shard that is finished (its n_acc at
+// its quota of counters[4], or its rounds at max_rounds; read before the
+// round's compaction) folds nothing; else its valid lanes of the round
+// whose local slot rounds * B_loc + b is below rec_cap take their whole
+// row, reduced by a fixed tree and added to that shard's (6, S) block of
+// the (n, 6, S) array: the same data gives the same bits. The finish
+// combines the shards in shard order (sums in order 0..n-1, extrema
+// merged) into a (6, S) block, runs the finish below on it, and
+// recomputes each reservoir row's distance from its stored feature row
+// (|x - x0|^p, written by K24a) as (sum_c w_c^p f_c)^(1/p) (max_c w_c f_c
+// at p = inf), the JAX package's declared floating-point form.
+//
 // Bound on an H100: bytes. The fold needs valid for the round's slots
 // below rec_cap, nseg for the valid ones, and the 4 bytes of each cell it
 // takes (a retired slot's prefix only): at most B x S floats and B x 5
@@ -174,7 +190,139 @@ finish_kernel(int code, int S, const float* __restrict__ mom,
       normalize, scale_out, w_out, s_warp);
 }
 
+__device__ __forceinline__ int shard_running(const int* counters,
+                                              const int* table, int s,
+                                              int n_shards, int max_rounds) {
+  const int n_tgt = counters[4];
+  const int quota = n_tgt / n_shards + (s < n_tgt % n_shards ? 1 : 0);
+  return table[4 * s] < quota && table[4 * s + 1] < max_rounds;
+}
+
+// grid (S, n_shards): block (c, s) folds column c of shard s's lanes
+__global__ void __launch_bounds__(kThreads)
+fold_shards_kernel(float* __restrict__ mom, const float* __restrict__ ss,
+                   int B_loc, int S, const uint8_t* __restrict__ valid,
+                   const float* __restrict__ x0,
+                   const int* __restrict__ counters,
+                   const int* __restrict__ table, int n_shards,
+                   long long rec_cap, int max_rounds) {
+  __shared__ float s_warp[32];
+  const int c = blockIdx.x, s = blockIdx.y;
+  if (!shard_running(counters, table, s, n_shards, max_rounds)) return;
+  const long long first = (long long)table[4 * s + 1] * B_loc;
+  const int hi = (int)min((long long)B_loc, max(rec_cap - first, 0LL));
+  const size_t lane0 = (size_t)s * B_loc;
+  const float xo = x0[c];
+  float sm = 0.f, sq = 0.f, ad = 0.f, cnt = 0.f, mx = -INFINITY,
+        mn = INFINITY;
+  for (int b = (int)threadIdx.x; b < hi; b += blockDim.x) {
+    if (!valid[lane0 + b]) continue;
+    const float x = ss[(lane0 + b) * S + c];
+    sm += x;
+    sq += x * x;
+    ad += fabsf(x - xo);
+    cnt += 1.f;
+    mx = nan_max(mx, x);
+    mn = pyabc_w::nan_min(mn, x);
+  }
+  sm = pyabc_w::block_reduce(sm, 0, s_warp);
+  sq = pyabc_w::block_reduce(sq, 0, s_warp);
+  ad = pyabc_w::block_reduce(ad, 0, s_warp);
+  cnt = pyabc_w::block_reduce(cnt, 0, s_warp);
+  mx = pyabc_w::block_reduce(mx, 1, s_warp);
+  mn = pyabc_w::block_reduce(mn, 2, s_warp);
+  if (threadIdx.x != 0) return;
+  float* out = mom + (size_t)s * kRows * S + c;
+  out[0] = out[0] + sm;
+  out[S] = out[S] + sq;
+  out[2 * S] = out[2 * S] + ad;
+  out[3 * S] = out[3 * S] + cnt;
+  out[4 * S] = nan_max(out[4 * S], mx);
+  out[5 * S] = pyabc_w::nan_min(out[5 * S], mn);
+}
+
+// one thread a column: the shards' blocks merged in shard order
+__global__ void __launch_bounds__(kThreads)
+combine_shards_kernel(const float* __restrict__ parts, int n_shards, int S,
+                      float* __restrict__ mom) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= S) return;
+  for (int r = 0; r < kRows; ++r) {
+    float acc = parts[(size_t)r * S + c];
+    for (int s = 1; s < n_shards; ++s) {
+      const float v = parts[((size_t)s * kRows + r) * S + c];
+      acc = r < 4 ? acc + v : r == 4 ? nan_max(acc, v)
+                                     : pyabc_w::nan_min(acc, v);
+    }
+    mom[(size_t)r * S + c] = acc;
+  }
+}
+
+// one warp a row: (sum_c w_c^p f_c)^(1/p), max_c w_c f_c at p = inf
+__global__ void __launch_bounds__(kThreads)
+feature_rows_kernel(const float* __restrict__ feat, int n_rows, int S,
+                    const float* __restrict__ w, float p,
+                    float* __restrict__ d_out) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= n_rows) return;
+  const float* row = feat + (size_t)r * S;
+  const bool p_inf = isinf(p);
+  float acc = 0.f;
+  for (int k = lane; k < S; k += 32) {
+    const float wk = w[k];
+    if (p_inf) {
+      acc = nan_max(acc, wk * row[k]);
+    } else {
+      const float wp = p == 2.f ? wk * wk : p == 1.f ? wk : powf(wk, p);
+      acc += wp * row[k];
+    }
+  }
+  acc = p_inf ? warp_nan_max(acc) : warp_sum(acc);
+  if (lane != 0) return;
+  d_out[r] = p_inf || p == 1.f ? acc
+             : p == 2.f        ? sqrtf(acc)
+                               : powf(acc, 1.f / p);
+}
+
 }  // namespace
+
+// mom: n_shards x 6 x S, folded in place.
+extern "C" int pyabc_moment_fold_shards(float* mom, const float* ss,
+                                        int n_shards, int B_loc, int S,
+                                        const uint8_t* valid, const float* x0,
+                                        const int* counters, const int* table,
+                                        long long rec_cap, int max_rounds,
+                                        void* stream_ptr) {
+  if (n_shards <= 0 || B_loc <= 0 || S <= 0 || n_shards > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  fold_shards_kernel<<<dim3(S, n_shards), kThreads, 0, stream>>>(
+      mom, ss, B_loc, S, valid, x0, counters, table, n_shards, rec_cap,
+      max_rounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// parts: n_shards x 6 x S; mom_out: 6 x S of scratch (the combined block).
+extern "C" int pyabc_moment_finish_shards(
+    const float* parts, int n_shards, int S, const float* x0, int code,
+    float max_ratio, int normalize, const float* feat, int n_rows, float p,
+    float* mom_out, float* scale_out, float* w_out, float* d_out,
+    void* stream_ptr) {
+  if (n_shards <= 0 || S <= 0 || code < 0 || code > kStdObs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  combine_shards_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(parts, n_shards, S, mom_out);
+  finish_kernel<<<1, 1024, 0, stream>>>(code, S, mom_out, x0, max_ratio,
+                                        normalize, scale_out, w_out);
+  if (feat != nullptr && n_rows > 0) {
+    const int per_block = kThreads / 32;
+    feature_rows_kernel<<<(n_rows + per_block - 1) / per_block, kThreads, 0,
+                          stream>>>(feat, n_rows, S, w_out, p, d_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // part: parts x 6 x S floats of scratch.
 extern "C" int pyabc_moment_fold(float* mom, const float* ss, int B, int S,

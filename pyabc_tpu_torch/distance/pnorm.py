@@ -408,6 +408,22 @@ class AdaptivePNormDistance(PNormDistance):
             normalize_weights=self.normalize_weights, rows=rows, p=self.p)
         return w, d
 
+    def refit_sharded(self, mom: torch.Tensor, x0: torch.Tensor,
+                      feat: torch.Tensor):
+        """The sharded generation step's refit in one K24d finish
+        (``pyabc_tpu`` ``device_sharded_reduce`` and the ``combine`` of
+        ``device_sharded_dfeat``, ``pnorm.py:447-491``): the ``(n, 6, S)``
+        shard blocks combined in shard order, the scale, the new weights,
+        and the distances of the reservoir's feature rows ``feat`` (``|x -
+        x0|^p``, K24a's at accept time) under them as ``(sum w^p
+        f)^(1/p)``, the JAX package's declared floating-point form ->
+        (weights, distances)."""
+        _scale, w, d = moment_finish.shards(
+            mom, x0, feat, scale_name=builtin_scale_name(self.scale_function),
+            max_weight_ratio=self.max_weight_ratio,
+            normalize_weights=self.normalize_weights, p=self.p)
+        return w, d
+
     def get_config(self) -> dict:
         return {**super().get_config(),
                 "scale_function": self.scale_function.__name__}

@@ -140,6 +140,21 @@ bound given per call) on arguments built from the host's fits
 round kernel, ``round`` and ``run_round``: K2, K3, the simulator, K5,
 and one read of the round's outputs).
 
+Sharded sampling (``ABCSMC(..., sharded=n)`` without a mesh, the JAX
+package's virtual shards, ``util.py::_multigen_sharded``): the round's B
+lanes and the reservoir split into n shards (the lane-key reduction, lane
+i keeping its Philox stream). Each round K24a compacts every running
+shard's lanes into its own reservoir block up to its quota
+(``generation_while_sharded``), under an adaptive distance after K24d's
+fold of the shard's moment block; the host reads the ``(n, 4)`` counter
+table once a round and stops when every shard is finished. K24b then
+writes the quotas, the kept-row mask over the shard-blocked layout and the
+generation's totals, which the generation step reads in place of the
+first-n mask; an adaptive distance refits from the combined moment blocks
+and recomputes the distances from the stored feature rows (K24d's finish);
+the MVN refit follows the chunk cadence the caller decides. The chunk's
+fetch merges the rows into dense order (K24c).
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * stride_rounds +
 round), the round read on the device from the counters; the stride is the
@@ -173,6 +188,7 @@ from ..kernels.mlp_sumstat import mlp_accept
 from ..kernels.mlp_sumstat import transform_rows as mlp_transform_rows
 from ..kernels.model_step import model_step
 from ..kernels.moments import moment_fold, seg_of_columns
+from ..kernels.shard import shard_mask
 from ..kernels.mvn_fit import mvn_fit
 from ..kernels.mvn_logpdf import mvn_mixture_logpdf
 from ..kernels.philox import PhiloxStream
@@ -187,6 +203,7 @@ from ..observability.sync import SyncLedger, to_host
 from ..ops.health import generation_health
 from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
+from ..ops.shard import shard_quota_host
 from ..ops.stats import normalize_log_weights, weighted_quantile
 from ..sumstat.base import expand_rows, identity_accept
 from ..transition.local_transition import LocalTransition
@@ -260,8 +277,13 @@ class GenerationRun:
     #: segmented early reject: K18's int64 counters of the generation
     seg: torch.Tensor | None = None
     #: segmented early reject under an adaptive distance: K22's (6, S)
-    #: moment block of the generation's resolved slots
+    #: moment block of the generation's resolved slots; a sharded one's
+    #: (n, 6, S) shard blocks (K24d)
     mom: torch.Tensor | None = None
+    #: sharded: K24b's kept rows over the shard-blocked reservoir, and
+    #: whether every shard met its quota (the host's reading of the table)
+    k_mask: torch.Tensor | None = None
+    gen_ok: bool | None = None
 
 
 @dataclass
@@ -309,7 +331,8 @@ class DeviceContext:
                  sync_ledger: SyncLedger | None = None, seed: int = 0,
                  temp_config=None, models=None, priors=None,
                  model_prior=None, mpk=None, fit_statics=None,
-                 local_statics=None, stride_rounds: int | None = None):
+                 local_statics=None, stride_rounds: int | None = None,
+                 n_shards: int | None = None):
         self.model = model
         self.prior = prior
         #: K > 1 (model selection): the models; ``_init_models`` takes their
@@ -337,6 +360,13 @@ class DeviceContext:
         self._round_table = None
         self._zero_lanes: dict = {}
         self.B, self.n_cap, self.rec_cap = int(B), int(n_cap), int(rec_cap)
+        #: sharded sampling: the number of shards (None: unsharded); the
+        #: record-ring window ``rec_cap`` is then a shard's
+        self.n_shards = int(n_shards) if n_shards else None
+        if self.n_shards and (self.B % self.n_shards
+                              or self.n_cap % self.n_shards):
+            raise ValueError(f"{self.n_shards} shards must divide B "
+                             f"{self.B} and n_cap {self.n_cap}")
         #: the loop's round bound (a stop rule may lower it) and the
         #: Philox counter's round stride (the run's MAX_ROUNDS, which no
         #: stop rule changes, so a rule moves no draw)
@@ -646,6 +676,65 @@ class DeviceContext:
                              eps_at_min=bool(host[EPS_AT_MIN]),
                              counters=counters, res=res, rec=rec,
                              n_target=n_tgt)
+
+    def generation_while_sharded(self, lanes, n_target: int,
+                                 eps_at_min: torch.Tensor | None = None, *,
+                                 adaptive: bool = False) -> GenerationRun:
+        """One sharded generation (the JAX package's vmapped per-shard
+        ``_generation_while``, ``util.py:2404-2420``): rounds of the global
+        B lanes until every shard has met its quota of ``n_target`` or
+        used ``max_rounds`` rounds. Each round, under an adaptive distance
+        K24d folds the running shards' rows into their ``(n, 6, S)``
+        moment blocks, then K24a compacts them into their reservoir blocks
+        (with the distance-feature rows); the host reads the generation's
+        counters and the ``(n, 4)`` table in one copy, the round's only
+        sync. K24b then forms the kept-row mask and the totals on the
+        device. There is no record ring: the moment blocks replace it."""
+        n = self.n_shards
+        dev = self.device
+        res = self.new_reservoir()
+        if adaptive:
+            res["dfeat"] = torch.zeros(self.n_cap, self.S,
+                                       dtype=torch.float32, device=dev)
+        buf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
+        counters, table = buf[:5], buf[5:].view(n, 4)
+        self.counters = counters
+        if eps_at_min is not None:
+            counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
+        counters[N_TARGET] = int(n_target)
+        mom = (init_moments(self.S, dev).expand(n, -1, -1).contiguous()
+               if adaptive else None)
+        quota = shard_quota_host(n_target, n)
+        p = float(getattr(self.distance, "p", 2.0))
+        self.rounds_read = 0
+        while True:
+            out = lanes()
+            if mom is not None:
+                moment_fold.shards(mom, out["sumstats"], out["valid"],
+                                   self.x0, counters, table, n_shards=n,
+                                   rec_cap=self.rec_cap,
+                                   max_rounds=self.max_rounds)
+            compact_round.shards(
+                out["accepted"], out["valid"], out["theta"], out["sumstats"],
+                out["distance"], out["log_weight"], res, counters, table,
+                n_shards=n, max_rounds=self.max_rounds,
+                m=out["m"] if self.K > 1 else None, x0=self.x0, p=p)
+            host = buf.cpu()
+            self.sync_ledger.record("round_counters", host.nbytes)
+            tab = host[5:].view(n, 4).numpy()
+            self.rounds_read = int(host[ROUNDS])
+            if ((tab[:, 0] >= quota) | (tab[:, 1] >= self.max_rounds)).all():
+                break
+        cap_loc = self.n_cap // n
+        _quota, k_mask, summary = shard_mask(counters, table, n_shards=n,
+                                             cap_loc=cap_loc)
+        return GenerationRun(
+            n_acc=int(tab[:, 0].sum()), rounds=int(tab[:, 1].max()),
+            n_valid=int(tab[:, 2].sum()),
+            eps_at_min=bool(host[EPS_AT_MIN]), counters=summary[:5],
+            res=res, rec=None, n_target=int(host[N_TARGET]), mom=mom,
+            k_mask=k_mask,
+            gen_ok=bool((tab[:, 0] >= np.minimum(quota, cap_loc)).all()))
 
     # ------------------------------------------------ K26's round kernel
     def round(self, key: RoundKey, B: int, mode: str, dyn: dict) -> dict:
@@ -1121,7 +1210,7 @@ class DeviceContext:
                         adaptive_n: tuple | None = None, last: bool = False,
                         sumstat_fit: dict | None = None,
                         keep_inputs: bool = False,
-                        folds: tuple | None = None):
+                        folds: tuple | None = None, refit: bool = True):
         """Everything between two generations, on the device:
         normalize -> adaptive reweight + distance recompute (K9 over the
         ring, or K22's finish over the moment block) -> quantile
@@ -1140,9 +1229,12 @@ class DeviceContext:
         ``folds``: a GridSearchCV's ``(fold ids (n_cap,) int32, number of
         folds)`` of this generation; K17 then refits in K8's place (K > 1:
         its K > 1 mode after K26) and its winner rides the outputs
-        (``cv_best``). Returns (carry, outputs)."""
+        (``cv_best``). ``refit=False`` (sharded sampling's cadence, decided
+        by the caller) keeps the MVN params of the carry: no K8 launch.
+        Returns (carry, outputs)."""
         res, counters = run.res, run.counters
-        k_mask = self.k_mask(counters)
+        k_mask = run.k_mask if run.k_mask is not None else self.k_mask(
+            counters)
         w_norm = normalize_log_weights(res["log_weight"], k_mask)
         eps_g = carry.eps
         learned = {}
@@ -1150,6 +1242,11 @@ class DeviceContext:
             dist_w_next, d_new, learned = self._sumstat_step(
                 carry.dist_w, run, k_mask, w_norm, adaptive=adaptive,
                 plan=sumstat_fit)
+        elif adaptive and self.n_shards:
+            # sharded: the shards' moment blocks combined in shard order,
+            # the distances from the stored feature rows (K24d)
+            dist_w_next, d_new = self.distance.refit_sharded(
+                run.mom, self.x0, res["dfeat"])
         elif adaptive and run.mom is not None:
             # early reject: the refit over every resolved candidate's
             # simulated columns (K22), not the completed-only ring
@@ -1193,10 +1290,12 @@ class DeviceContext:
                     selectors=[st["bandwidth_selector"]
                                for st in self.fit_statics],
                     dims_tensor=self.dims_f)
-            else:
+            elif refit:
                 trans_next = mvn_fit.models(
                     res["theta"], w_norm, res["m"], dims=self.dims,
                     statics=self.fit_statics, dims_tensor=self.dims_f)
+            else:
+                trans_next = carry.trans_params
             fitted_next = step["fitted"]
             models = {k: step[k] for k in ("log_model_probs", "matrix",
                                            "log_model_factor")}
@@ -1212,8 +1311,9 @@ class DeviceContext:
                 bandwidth_selector=fit_statics["bandwidth_selector"])
             fitted_next = k_mask.sum() > 0
         else:
-            trans_next = self.transition.device_fit(
-                res["theta"], w_norm, dim=self.d, **fit_statics)
+            trans_next = (self.transition.device_fit(
+                res["theta"], w_norm, dim=self.d, **fit_statics) if refit
+                else carry.trans_params)
             fitted_next = k_mask.sum() > 0
         n_acc = counters[N_ACC]
         acc_rate = n_acc.to(torch.float32) / counters[N_VALID].clamp_min(

@@ -40,7 +40,7 @@ engine cannot serve takes the classic path (``"auto"``) or raises its
 ``ValueError`` (``True``), and ``"auto"`` records the fallback with its
 reason in ``capability_fallbacks`` and the first generation's telemetry;
 one the JAX engine serves but the port does not yet (a user's segmented
-model on the card, sharded runs) raises ``not_ported``. History's
+model on the card, a sharded run) raises ``not_ported``. History's
 telemetry column holds each generation's ``retired_early``,
 ``segment_occupancy``, ``seg_steps`` and ``seg_resolved``.
 
@@ -131,6 +131,23 @@ counter read (no extra sync), History's telemetry holds each generation's
 probes that did work, and ``k16_cv_max``, the aggregate CV at max_n), and
 ``population_strategy.nr_particles`` mirrors the device's decision.
 
+Sharded sampling (``sharded=n``, n a power of two, without a ``mesh``:
+the JAX package's virtual shards, the reduction its mesh runs are held
+to): each generation's lanes and reservoir split into n shards, each shard
+compacting its own lanes up to its quota of the generation's n (K24a),
+kept rows from K24b's mask, the chunk's rows merged into dense order in
+the fetch (K24c). The calibration runs on the host through the sampler;
+the MVN proposal refits at the chunk cadence (``refit_every``, default
+``fused_generations``, and the run's first generation; History's telemetry
+holds each generation's ``refit``); an ``AdaptivePNormDistance`` whose
+scale has a moment form refits from per-shard moment blocks (K24d). One
+model or several, a constant or listed size, a ``PNormDistance`` or such
+an adaptive distance, a quantile epsilon and the ``UniformAcceptor`` run
+sharded; every other configuration the JAX package shards raises
+``not_ported`` naming itself, and one it does not shard raises its
+``ValueError``. ``sharded=True``, ``None`` or ``1`` is unsharded, as the
+JAX package without a mesh.
+
 The per-generation host loop (``fused_generations=1`` or
 ``sampler=BatchedSampler(fused=False)``, the JAX package's routing): the
 sampler runs each generation's rounds on the card and the host adapts
@@ -167,7 +184,8 @@ from ..distance.kernel import (BinomialKernel, IndependentLaplaceKernel,
                                IndependentNormalKernel,
                                NegativeBinomialKernel, NormalKernel,
                                PoissonKernel, StochasticKernel)
-from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
+from ..distance.pnorm import (AdaptivePNormDistance, PNormDistance,
+                              is_schedule)
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
@@ -298,12 +316,12 @@ class ABCSMC:
         #: segmented early reject: "auto" (on whenever capable), True
         #: (required: raise with the blocking reason) or False (never)
         self.early_reject = early_reject
-        segmented = any(getattr(m, "segmented", None) is not None
-                        for m in models)
-        if sharded and segmented and early_reject is not False:
-            raise _not_ported("segmented early reject in a sharded run", "13")
-        if mesh is not None or sharded:
-            raise _not_ported("a device mesh or sharded sampling", "15")
+        if mesh is not None:
+            raise _not_ported("a device mesh (sharded=<power of two> "
+                              "without a mesh runs the same reduction on "
+                              "virtual shards)", "15")
+        #: sharded sampling as asked (``_sharded_n`` resolves it)
+        self.sharded = sharded
         if checkpoint_path is not None:
             raise _not_ported("mid-chunk checkpoints", "8")
         if np.isfinite(max_nr_recorded_particles):
@@ -449,6 +467,98 @@ class ABCSMC:
         #: why no device-fit plan serves it, "seeds": whether generation 0
         #: reaches the first fit}``), None otherwise (``_sumstat_plan``)
         self._sumstat_host: dict | None = None
+        #: the shard count of a sharded run, None unsharded
+        self.sharded_n = self._sharded_n()
+
+    def _sharded_n(self) -> int | None:
+        """The shard count of ``sharded`` (``pyabc_tpu`` ``smc.py:1740-1800``
+        without a mesh): an int n > 1 shards over n virtual shards; ``True``,
+        ``None``, ``False``, 0 and 1 run unsharded. A count the JAX package
+        cannot shard raises its ``ValueError``; a configuration it shards
+        and the port does not yet raises ``not_ported``."""
+        s = self.sharded
+        if s is None or isinstance(s, bool) or int(s) <= 1:
+            return None
+        n = int(s)
+        reason = self._sharded_incapable_reason(n)
+        if reason is not None:
+            raise ValueError(f"sharded fused sampling unavailable: {reason}")
+        if self.early_reject is not False and any(
+                getattr(m, "segmented", None) is not None
+                for m in self.models):
+            raise _not_ported("segmented early reject in a sharded run", "13")
+        unserved = self._sharded_unserved()
+        if unserved is not None:
+            raise _not_ported(f"sharded sampling with {unserved}", "15")
+        return n
+
+    def _sharded_incapable_reason(self, n_shards: int) -> str | None:
+        """Why the JAX package's sharded kernel cannot serve this
+        configuration (None = it can), in its words (``smc.py:1866-1935``);
+        a learned statistic without an adaptive distance the port refuses
+        in ``_sharded_unserved``."""
+        if self.host_loop:
+            return ("config cannot run fused chunks, so there is no "
+                    "multigen kernel to shard; the per-generation host "
+                    "loops serve it (see _fused_chunk_capable for the "
+                    "fused feature set)")
+        d = self.distance_function
+        adaptive = bool(getattr(d, "adaptive", False))
+        if getattr(d, "sumstat", None) is not None and adaptive:
+            return ("adaptive scale refits compose with learned "
+                    "summary statistics on the UNSHARDED device-fit "
+                    "path only (the scale must refit AFTER the "
+                    "transform, in the new feature space — a "
+                    "replicated post-collective stage the sharded "
+                    "kernel does not run); the replicated GSPMD path "
+                    "serves this config")
+        if (isinstance(d, (AdaptivePNormDistance, AdaptiveAggregatedDistance))
+                and adaptive and not d.sharded_scale_capable()):
+            scale_name = getattr(
+                getattr(d, "scale_function", None), "__name__",
+                repr(getattr(d, "scale_function", None)))
+            return (f"adaptive scale function {scale_name!r} has no "
+                    f"moment-decomposable sharded reduction (median-"
+                    f"based and custom scales need the full cross-shard "
+                    f"record ring); the replicated GSPMD path serves "
+                    f"this config — switch to a decomposable "
+                    f"scale_function "
+                    f"({', '.join(sorted(SHARDED_SCALE_NAMES))}) to "
+                    f"shard")
+        if n_shards & (n_shards - 1):
+            return (f"shard count {n_shards} is not a power of two "
+                    f"(lane batches and reservoir capacities are "
+                    f"power-of-two buckets); the GSPMD path serves this "
+                    f"config — pass sharded=<power of two> (or a pow2 "
+                    f"mesh) to shard")
+        n_cap = pow2_bucket(self._n_max(), 64)
+        if n_cap % n_shards:
+            return (f"population capacity {n_cap} is not "
+                    f"divisible by {n_shards} shards; the GSPMD path "
+                    f"serves this config — pick a shard count dividing "
+                    f"the pow2 population bucket to shard")
+        return None
+
+    def _sharded_unserved(self) -> str | None:
+        """A configuration the JAX package shards and the port does not
+        yet (ROADMAP queue A, item 15), named, or None."""
+        d = self.distance_function
+        if self.stochastic or isinstance(self.eps, (Temperature,
+                                                    ListTemperature)):
+            return "a StochasticAcceptor or a temperature"
+        if getattr(d, "sumstat", None) is not None:
+            return "learned summary statistics"
+        if isinstance(d, (AggregatedDistance, AdaptiveAggregatedDistance)):
+            return (f"an {type(d).__name__} (K25's sharded twins, "
+                    f"pyabc_tpu/distance/aggregate.py:298, :330)")
+        if isinstance(self.population_strategy, AdaptivePopulationSize):
+            return "an AdaptivePopulationSize"
+        for tr in self.transitions:
+            if type(tr) in (GridSearchCV, LocalTransition):
+                return f"a {type(tr).__name__}"
+        if is_schedule(getattr(d, "_weights_arg", None)):
+            return "a user weight schedule"
+        return None
 
     def _sumstat_gate(self, distance, priors) -> None:
         """Raise before any launch for a summary statistic the port does
@@ -713,7 +823,12 @@ class ABCSMC:
             temp_config = device_config(self.eps, d, self.acceptor)
         n_cap = pow2_bucket(n, 64)
         B = pick_batch(n)
-        rec_cap = (pow2_bucket(max(8 * n_cap, 1), 256)
+        n_sh = self.sharded_n or 1
+        # sharded: every shard a whole lane block (B and n_sh are powers of
+        # two) and the record window a shard's, so the shards together
+        # record as many evaluations as one ring (smc.py:2700-2714)
+        B = max(B, n_sh)
+        rec_cap = (pow2_bucket(max(8 * n_cap // n_sh, 1), 256)
                    if adaptive or self.stochastic else 0)
         max_rounds = self.MAX_ROUNDS
         if min_acceptance_rate > 0:
@@ -744,7 +859,8 @@ class ABCSMC:
             generator=self.generator, B=B, n_cap=n_cap, rec_cap=rec_cap,
             max_rounds=max_rounds, stride_rounds=self.MAX_ROUNDS,
             sync_ledger=self.sync_ledger,
-            seed=self.seed, temp_config=temp_config, **models)
+            seed=self.seed, temp_config=temp_config,
+            n_shards=self.sharded_n, **models)
 
     # ------------------------------------------------------ early reject
     def _early_reject_incapable_reason(self, *, adaptive: bool,
@@ -1008,7 +1124,16 @@ class ABCSMC:
             if n_cal > ctx.n_cap:
                 raise ValueError(f"nr_calibration_particles {n_cal} exceeds "
                                  f"the reservoir ({ctx.n_cap})")
-        if stochastic:
+        sharded = self.sharded_n is not None
+        if sharded and (calib_w or calib_eps):
+            # sharded chunks calibrate on the host, through the sampler
+            # (the JAX package's _fused_calibration_cfg is None, smc.py:
+            # 2153-2157): the weights and epsilon of generation 0 reach
+            # the card as the carry's
+            self._host_calibration(ctx, max_nr_populations)
+            carry.dist_w = d.device_params(0, self.device)
+            carry.eps = self._scalar(self.eps(0))
+        elif stochastic:
             temp0, pdf0, mf0, _run = ctx.calibrate_stochastic(
                 int(n_cal), carry.dist_w)
             carry.eps, carry.daly_k = temp0, temp0
@@ -1047,6 +1172,14 @@ class ABCSMC:
         # table of device params goes to the card in one copy
         weight_sched = not adaptive and self._weight_schedule_fused()
         fetch_dtype = fetch_dtype_of(self.fetch_dtype)
+        # sharded: the MVN refit at the chunk cadence, decided on the host
+        # (smc.py:2739-2748, util.py:2785-2794): the run's first generation
+        # and whenever refit_every generations have passed since the last
+        # (the drift guard off); a model without a fit is never proposed,
+        # so no later generation brings one its first rows
+        refit_every = max(int(self.refit_every if self.refit_every is not None
+                              else G), 1)
+        gens_since = 0
         t = 0
         sims_total = 0
         chunk_index = 0
@@ -1097,11 +1230,16 @@ class ABCSMC:
                 # (the host reads it with the first round's counters)
                 n_gen = (carry.n_target if adaptive_n is not None
                          else strategy(tg))
-                run = (ctx.generation_while_seg if seg_g
-                       else ctx.generation_while)(lanes, n_gen,
-                                                  eps_at_min=at_min)
+                if sharded:
+                    run = ctx.generation_while_sharded(
+                        lanes, n_gen, eps_at_min=at_min, adaptive=adaptive)
+                else:
+                    run = (ctx.generation_while_seg if seg_g
+                           else ctx.generation_while)(lanes, n_gen,
+                                                      eps_at_min=at_min)
                 n_t = run.n_target
-                gen_ok = run.n_acc >= min(n_t, ctx.n_cap)
+                gen_ok = (run.gen_ok if run.gen_ok is not None
+                          else run.n_acc >= min(n_t, ctx.n_cap))
                 if not gen_ok:
                     logger.info("stopping: generation %d incomplete "
                                 "(n_acc=%d/%d in %d rounds)", tg, run.n_acc,
@@ -1119,6 +1257,10 @@ class ABCSMC:
                     or sims_total >= max_total_nr_simulations
                     or (max_walltime is not None
                         and time.perf_counter() - t_start > max_walltime))
+                refit = True
+                if sharded:
+                    refit = tg == 0 or gens_since + 1 >= refit_every
+                    gens_since = 0 if refit else gens_since + 1
                 # the inputs a host fit's boundary step reads: generation
                 # 0's under a device-fit plan, each chunk's last in the
                 # host-refit mode
@@ -1129,14 +1271,15 @@ class ABCSMC:
                                  or (host is not None and g == g_limit - 1)),
                     folds=(folds if fold_table is None else
                            (fold_table[g], self.transition.cv)),
-                    **statics)
+                    refit=refit, **statics)
                 outs.append(out)
                 host_gen.append({
                     "t": tg, "n": n_t, "rounds": run.rounds,
                     "n_valid": run.n_valid,
                     "n_acc": run.n_acc, "acceptance_rate": acc_rate,
                     "syncs": self.sync_ledger.count - syncs0,
-                    "compute_s": time.perf_counter() - t_gen})
+                    "compute_s": time.perf_counter() - t_gen,
+                    **({"refit": refit} if sharded else {})})
                 if last:
                     stop = True
                     break
@@ -1150,10 +1293,13 @@ class ABCSMC:
             raw_fit = (plan is not None and t == 0) or host is not None
             dtype = (torch.float32 if raw_fit or (learned and t == 0)
                      else fetch_dtype)
+            # sharded: each generation's kept rows merged into dense order
+            merge = (([info["n"] for info in host_gen], self.sharded_n,
+                      ctx.n_cap // self.sharded_n) if sharded else None)
             fetched = self._fetch_chunk(outs, t, n_keep, dtype, adaptive,
                                         calib if chunk_index == 0 else None,
                                         stochastic, raw_gen=len(outs) - 1
-                                        if raw_fit else None)
+                                        if raw_fit else None, merge=merge)
             for info in host_gen:
                 info["fetch_s"] = (time.perf_counter() - t_fetch) / len(outs)
             # a host fit's boundary (a plan's seed fit after generation 0,
@@ -1213,6 +1359,16 @@ class ABCSMC:
 
     def _x0_flat(self) -> np.ndarray:
         return np.asarray(self.spec.flatten_host(self.x_0), np.float64)
+
+    def _host_calibration(self, ctx: DeviceContext,
+                          max_nr_populations) -> None:
+        """A sharded run's calibration on the host (the JAX package runs
+        ``_initialize_components`` before its sharded chunks, ``smc.py:
+        1306-1316``): the prior sample through the sampler on ``ctx`` (one
+        collect, the sync budget's O(1)), then ``initialize`` at t = 0."""
+        self._host_ctx = ctx
+        self.sampler.sync_ledger = self.sync_ledger
+        self._initialize_components(max_nr_populations)
 
     def _initialize_components(self, max_nr_populations) -> None:
         """The host calibration and ``initialize`` at t = 0 of the
@@ -1625,19 +1781,23 @@ class ABCSMC:
 
     # ------------------------------------------------------ fetch/persist
     def _fetch_chunk(self, outs, t0, n, dtype, adaptive, calib,
-                     stochastic, raw_gen: int | None = None) -> dict:
+                     stochastic, raw_gen: int | None = None,
+                     merge=None) -> dict:
         """Pack the chunk's generations and read them in one sync: the
         first ``n`` rows of each (the chunk's largest n; each generation
         keeps its own when persisted). ``raw_gen``: the generation whose
         raw rows a host fit reads (generation 0 under a device-fit plan,
         each chunk's last in the host-refit mode), on the fetch whatever
-        History stores."""
+        History stores. ``merge`` (sharded: the generations' n, the shards
+        and a shard's rows) gathers each generation's kept rows from the
+        shard-blocked reservoir in dense order (K24c)."""
         each = lambda k: [o[k] for o in outs]  # noqa: E731
         stack = lambda k: torch.stack(each(k))  # noqa: E731
         tree = {
             # K10 reads each generation's reservoir in place
             "rows": pack_rows(each("theta"), each("distance"),
-                              each("log_weight"), n_keep=n, dtype=dtype),
+                              each("log_weight"), n_keep=n, dtype=dtype,
+                              merge=merge),
             "eps_used": stack("eps_used"),
             "eps_next": stack("eps_next"),
         }
@@ -1646,7 +1806,8 @@ class ABCSMC:
         if ss_gens:
             tree["sumstats"] = pack_sumstats(
                 [outs[g]["sumstats"] for g in ss_gens], n_keep=n,
-                dtype=dtype)
+                dtype=dtype, merge=None if merge is None else (
+                    [merge[0][g] for g in ss_gens], *merge[1:]))
         if adaptive:
             # learned statistics: the feature weights of {"w", "ss"}
             tree["dist_w_next"] = torch.stack([
@@ -1663,7 +1824,7 @@ class ABCSMC:
         if "m" in outs[0]:
             # K > 1: each kept row's model (int8) and the model
             # probabilities, in the same fetch
-            tree["m"] = pack_models(each("m"), n_keep=n)
+            tree["m"] = pack_models(each("m"), n_keep=n, merge=merge)
             tree["model_probs"] = stack("model_probs")
         if stochastic:
             for k in ("pdf_norm_next", "max_found_next", "daly_k_next"):
@@ -1756,10 +1917,16 @@ class ABCSMC:
             if "health" in fetched:
                 telemetry["health"] = int(fetched["health"][g])
                 telemetry["ess"] = float(fetched["ess"][g])
+            event = None
             if "refit" in fetched:
                 event = (t, bool(fetched["refit"][g]),
                          float(fetched["drift"][g]),
                          int(fetched["rows_changed"][g]))
+            elif "refit" in info:
+                # sharded sampling's cadence, decided on the host; no drift
+                # guard and no incremental factorization
+                event = (t, info["refit"], 0.0, 0)
+            if event is not None:
                 self.refit_events.append(event)
                 telemetry.update(refit=event[1], drift=round(event[2], 5),
                                  refit_rows_changed=event[3])

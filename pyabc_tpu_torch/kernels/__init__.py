@@ -52,6 +52,7 @@ from .proposal_drift import (proposal_drift, proposal_drift_models_plain,
                              proposal_drift_plain)
 from .scale_reduce import scale_reduce, scale_reduce_plain
 from .segment_round import segment_round, segment_round_plain
+from .shard import shard_mask, shard_mask_plain
 from .sir_simulate import sir_simulate, sir_simulate_plain
 from .tau_leap import tau_leap, tau_leap_plain
 from .temperature_update import temperature_update, temperature_update_plain
@@ -61,7 +62,8 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
-#: the GP transform, K17, K4's Gaussian simulator)
+#: the GP transform, K17, K4's Gaussian simulator, K24b's shard mask; K24a,
+#: K24c and K24d are the shard and merge modes of K6, K10 and K22)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -71,7 +73,8 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            network_sir, kernel_accept, temperature_update, moment_fold,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
-           mlp_accept, gp_accept, grid_search_cv, gaussian_simulate)
+           mlp_accept, gp_accept, grid_search_cv, gaussian_simulate,
+           shard_mask)
 
 
 def reset_launch_counts() -> None:
@@ -117,7 +120,7 @@ __all__ = [
     "lv_simulate", "lv_simulate_plain", "mlp_accept", "mlp_accept_plain",
     "mlp_fit", "mlp_fit_plain", "mlp_transform_rows",
     "mlp_transform_rows_plain", "mlp_values_plain", "model_step",
-    "model_step_plain",
+    "model_step_plain", "shard_mask", "shard_mask_plain",
     "mvn_fit", "mvn_fit_plain",
     "mode_launch_counts", "moment_finish", "moment_finish_plain",
     "moment_fold", "moment_fold_plain",

@@ -53,6 +53,10 @@ SIGNATURES = {
     "pyabc_compact_round": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "pyabc_compact_shards": [
+        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _F, _I, _P, _P, _P],
+    "pyabc_shard_mask": [_I, _I, _P, _P, _P, _P, _P, _P],
     "pyabc_temperature_update": [
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
         _F, _I, _I, _F, _I, _I, _F, _F, _I, _P, _P, _P],
@@ -93,9 +97,9 @@ SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_scale_reduce": [
         _P, _I, _I, _P, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P],
-    "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _P],
-    "pyabc_pack_models": [_I, _P, _I, _P, _P],
+    "pyabc_pack_rows": [_I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+    "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
+    "pyabc_pack_models": [_I, _P, _I, _P, _I, _I, _P, _P],
     "pyabc_tau_leap": [
         _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
         _P],
@@ -137,6 +141,10 @@ SIGNATURES = {
         _U, _P, _P],
     "pyabc_moment_fold": [
         _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P],
+    "pyabc_moment_fold_shards": [
+        _P, _P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    "pyabc_moment_finish_shards": [
+        _P, _I, _I, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P, _P],
     "pyabc_moment_finish": [
         _P, _I, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P],
     "pyabc_local_cov": [

@@ -23,21 +23,56 @@ Ring mask (segmented noisy ABC): ``ring_valid (B,)`` bool, K18's ``keep``,
 sets each recorded row's ``valid`` in place of True, so the ring holds
 completed evaluations only (the JAX engine's documented behaviour,
 ``util.py:1086-1107``) while ``n_valid`` still counts every valid slot.
+
+Shard mode (K24a, ``compact_round.shards``; sharded fused sampling,
+``ABCSMC(..., sharded=n)``): the vmapped per-shard round step of
+``_generation_while`` under ``local_generation`` (``util.py:2404-2420``).
+The round's B lanes and the reservoir split into n shards; shard s, unless
+it is finished (its accepted count at its quota of ``counters[N_TARGET]``,
+or its rounds at ``max_rounds``), compacts its lanes ``[s*B_loc,
+(s+1)*B_loc)`` into its rows ``[s*cap_loc, (s+1)*cap_loc)`` in local slot
+order and updates its row ``[n_acc, rounds, n_valid, -]`` of the int32
+``(n, 4)`` counter table; ``counters[ROUNDS]`` (the round the lanes draw
+at) goes up by one. A reservoir with a ``dfeat`` column (an adaptive
+distance) also gets each written row's distance features ``|x - x0|^p``.
+Counted in ``mode_launches["shards"]``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..ops.shard import shard_quota
 from . import _build
 from .base import Kernel
+
+#: counters layout slots the shard mode reads and writes
+ROUNDS, N_TARGET = 1, 4
+
+
+def dfeat_rows(ss: torch.Tensor, x0: torch.Tensor, p: float) -> torch.Tensor:
+    """Distance features ``|x - x0|^p`` of rows (``pyabc_tpu``
+    ``AdaptivePNormDistance.device_sharded_dfeat``'s ``row``), in the
+    kernel's arithmetic: one multiply at p = 2, ``|x - x0|`` at p = 1 or
+    inf."""
+    diff = (ss - x0[None, :]).abs()
+    if p == 2:
+        return diff * diff
+    if p == 1 or math.isinf(p):
+        return diff
+    return diff ** p
 
 
 def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
                         rec: dict | None, counters: torch.Tensor,
                         logq: torch.Tensor | None = None,
                         m: torch.Tensor | None = None,
-                        ring_valid: torch.Tensor | None = None) -> None:
-    """Plain PyTorch version (in place)."""
+                        ring_valid: torch.Tensor | None = None,
+                        x0: torch.Tensor | None = None,
+                        p: float = 2.0) -> None:
+    """Plain PyTorch version (in place); a reservoir with a ``dfeat``
+    column gets the written rows' distance features against ``x0``."""
     B = accept.shape[0]
     n_cap = res["distance"].shape[0]
     acc = accept & valid
@@ -54,6 +89,8 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
     res["slot"][idx] = slots[write]
     if m is not None:
         res["m"][idx] = m[write]
+    if "dfeat" in res:
+        res["dfeat"][idx] = dfeat_rows(ss[write], x0, p)
     if rec is not None:
         rec_cap = rec["distance"].shape[0]
         take = valid & (slots < rec_cap)
@@ -71,10 +108,39 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
     counters[2] += valid.sum(dtype=torch.int32)
 
 
+def compact_shards_plain(accept, valid, theta, ss, dist, logw, res: dict,
+                         counters: torch.Tensor, table: torch.Tensor, *,
+                         n_shards: int, max_rounds: int,
+                         m: torch.Tensor | None = None,
+                         x0: torch.Tensor | None = None,
+                         p: float = 2.0) -> None:
+    """Plain PyTorch version of the shard mode (in place): each running
+    shard's block through the plain round, its table row as its
+    counters."""
+    B_loc = accept.shape[0] // n_shards
+    cap_loc = res["distance"].shape[0] // n_shards
+    quota = shard_quota(counters[N_TARGET], n_shards)
+    counters[ROUNDS] += 1
+    for s in range(n_shards):
+        if (int(table[s, 0]) >= int(quota[s])
+                or int(table[s, 1]) >= max_rounds):
+            continue  # finished: its block and row stay as they are
+        lanes = slice(s * B_loc, (s + 1) * B_loc)
+        block = {k: v[s * cap_loc:(s + 1) * cap_loc] for k, v in res.items()}
+        compact_round_plain(accept[lanes], valid[lanes], theta[lanes],
+                            ss[lanes], dist[lanes], logw[lanes], block, None,
+                            table[s], m=None if m is None else m[lanes],
+                            x0=x0, p=p)
+
+
 class CompactRound(Kernel):
     name = "compact_round"
     source = "pyabc_tpu_torch/csrc/compact_round.cu"
     replaces = "pyabc_tpu/inference/util.py:563"
+
+    def __init__(self):
+        super().__init__()
+        self.mode_launches = {"shards": 0}
 
     def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
                  rec: dict | None, counters: torch.Tensor,
@@ -144,6 +210,67 @@ class CompactRound(Kernel):
             counters.data_ptr(), _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1
+
+    def shards(self, accept, valid, theta, ss, dist, logw, res: dict,
+               counters: torch.Tensor, table: torch.Tensor, *, n_shards: int,
+               max_rounds: int, m: torch.Tensor | None = None,
+               x0: torch.Tensor | None = None, p: float = 2.0) -> None:
+        """K24a, the shard mode (in place): ``res`` the shard-blocked
+        reservoir (with ``m`` under K > 1 and ``dfeat`` under an adaptive
+        distance, which reads ``x0`` and ``p``), ``counters`` the
+        generation's ``(5,)``, ``table`` the ``(n_shards, 4)`` rows."""
+        if ("m" in res) != (m is not None):
+            raise ValueError(f"{self.name}: a reservoir with an m column "
+                             f"and the round's m go together")
+        feat = "dfeat" in res
+        if feat and x0 is None:
+            raise ValueError(f"{self.name}: distance features need x0")
+        extra = [t for t in (m, x0) if t is not None]
+        if self.on_cpu(accept, valid, theta, ss, dist, logw, counters, table,
+                       *res.values(), *extra):
+            compact_shards_plain(accept, valid, theta, ss, dist, logw, res,
+                                 counters, table, n_shards=n_shards,
+                                 max_rounds=max_rounds, m=m, x0=x0, p=p)
+            return
+        B, d = theta.shape
+        S = ss.shape[1]
+        n_cap = res["distance"].shape[0]
+        if n_shards <= 0 or B % n_shards or n_cap % n_shards:
+            raise ValueError(f"{self.name}: {n_shards} shards must divide "
+                             f"B {B} and the reservoir {n_cap}")
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        self.expect(accept, "accept", b8, (B,))
+        self.expect(valid, "valid", b8, (B,))
+        self.expect(theta, "theta", f32, (B, d))
+        self.expect(ss, "ss", f32, (B, S))
+        self.expect(dist, "dist", f32, (B,))
+        self.expect(logw, "logw", f32, (B,))
+        self.expect(res["theta"], "res.theta", f32, (n_cap, d))
+        self.expect(res["sumstats"], "res.sumstats", f32, (n_cap, S))
+        self.expect(res["distance"], "res.distance", f32, (n_cap,))
+        self.expect(res["log_weight"], "res.log_weight", f32, (n_cap,))
+        self.expect(res["slot"], "res.slot", i32, (n_cap,))
+        if m is not None:
+            self.expect(m, "m", i32, (B,))
+            self.expect(res["m"], "res.m", i32, (n_cap,))
+        if feat:
+            self.expect(res["dfeat"], "res.dfeat", f32, (n_cap, S))
+            self.expect(x0, "x0", f32, (S,))
+        self.expect(counters, "counters", i32, (5,))
+        self.expect(table, "table", i32, (n_shards, 4))
+        err = _build.library().pyabc_compact_shards(
+            n_shards, B // n_shards, S, d, accept.data_ptr(),
+            valid.data_ptr(), theta.data_ptr(), ss.data_ptr(),
+            dist.data_ptr(), logw.data_ptr(), self.ptr(m), n_cap // n_shards,
+            res["theta"].data_ptr(), res["sumstats"].data_ptr(),
+            res["distance"].data_ptr(), res["log_weight"].data_ptr(),
+            res["slot"].data_ptr(), self.ptr(res.get("m")),
+            self.ptr(res.get("dfeat")), self.ptr(x0 if feat else None),
+            float(p), int(max_rounds), counters.data_ptr(), table.data_ptr(),
+            _build.stream_ptr(theta.device))
+        _build.check(err, self.name)
+        self.launches += 1
+        self.mode_launches["shards"] += 1
 
 
 compact_round = CompactRound()

@@ -11,14 +11,24 @@ generation (each generation's reservoir) and read them in place.
 ``ops/pack.py`` calls this wrapper. A run over several models also packs
 each kept row's model index into one ``(G, n_keep)`` int8 buffer
 (``models``, ``pack_outs(keep_m=True)``), read in the same fetch.
+
+Merge mode (K24c, sharded fused sampling; ``merge=(ns, n_shards,
+cap_loc)`` on any of the three, counted in ``mode_launches["merge"]``):
+``pack_outs(merge_index=)`` (``pack.py:105-110``). Each generation's
+reservoir is shard-blocked; its kept rows come out in dense accepted order,
+row i < n_g from the gather of ``ops/shard.py::merge_index(n_g, n_shards,
+cap_loc)`` (the kernel computes it from n_g), row i >= n_g (a listed
+size's smaller generation) from row i.
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
+from ..ops.shard import merge_index
 from . import _build
 from .base import Kernel
 
@@ -39,40 +49,77 @@ def cast_monotone_down(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.where(over, down.to(dtype), cast)
 
 
+def merged_rows(x: torch.Tensor, n_keep: int, merge) -> torch.Tensor:
+    """``(G, n_cap, ...)`` -> ``(G, n_keep, ...)``: the first n_keep rows,
+    or under ``merge = (ns, n_shards, cap_loc)`` generation g's kept rows
+    in dense order (``merge_index``), then its rows n_g..n_keep."""
+    if merge is None:
+        return x[:, :n_keep]
+    ns, n_shards, cap_loc = merge
+    idx = [torch.from_numpy(np.concatenate([
+        merge_index(n, n_shards, cap_loc),
+        np.arange(n, n_keep, dtype=np.int32)]).astype(np.int64))
+        for n in ns]
+    return torch.stack([x[g][i.to(x.device)] for g, i in enumerate(idx)])
+
+
 def pack_rows_plain(theta: Sequence[torch.Tensor],
                     distance: Sequence[torch.Tensor],
                     log_weight: Sequence[torch.Tensor], *, n_keep: int,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, merge=None) -> torch.Tensor:
     """Plain PyTorch version: G tensors each of ``(n_cap, d)``,
     ``(n_cap,)``, ``(n_cap,)`` -> ``(G, n_keep, d + 2)`` in ``dtype``."""
-    th, dist, lw = (torch.stack(list(x))[:, :n_keep]
+    th, dist, lw = (merged_rows(torch.stack(list(x)), n_keep, merge)
                     for x in (theta, distance, log_weight))
     return torch.cat([th.to(dtype), cast_monotone_down(dist[..., None], dtype),
                       lw[..., None].to(dtype)], dim=-1)
 
 
 def cast_rows_plain(rows: Sequence[torch.Tensor], *, n_keep: int,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, merge=None) -> torch.Tensor:
     """Plain PyTorch version: G tensors ``(n_cap, S)`` -> ``(G, n_keep, S)``
     in ``dtype``."""
-    return torch.stack([r[:n_keep] for r in rows]).to(dtype)
+    return merged_rows(torch.stack(list(rows)), n_keep, merge).to(dtype)
 
 
-def pack_models_plain(ms: Sequence[torch.Tensor], *,
-                      n_keep: int) -> torch.Tensor:
+def pack_models_plain(ms: Sequence[torch.Tensor], *, n_keep: int,
+                      merge=None) -> torch.Tensor:
     """Plain PyTorch version: G int32 tensors ``(n_cap,)`` ->
     ``(G, n_keep)`` int8."""
-    return torch.stack([m[:n_keep] for m in ms]).to(torch.int8)
+    return merged_rows(torch.stack(list(ms)), n_keep, merge).to(torch.int8)
 
 
 def _pointers(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _merge_args(merge, part: slice, G: int, n_keep: int, n_cap: int):
+    """The C arguments (sizes array, shards, cap_loc) of a launch over the
+    generations ``part``: nullptr, 0, 0 without a merge."""
+    if merge is None:
+        return None, 0, 0
+    ns, n_shards, cap_loc = merge
+    if len(ns) != G or n_shards * cap_loc != n_cap or any(
+            not 0 <= n <= n_keep for n in ns):
+        raise ValueError(f"pack_fetch: merge {merge} does not fit {G} "
+                         f"generations of {n_cap} rows, n_keep {n_keep}")
+    part_ns = [int(n) for n in ns[part]]
+    return (ctypes.c_int * len(part_ns))(*part_ns), int(n_shards), int(cap_loc)
+
+
 class PackFetch(Kernel):
     name = "pack_fetch"
     source = "pyabc_tpu_torch/csrc/pack_fetch.cu"
     replaces = "pyabc_tpu/ops/pack.py:78"
+
+    def __init__(self):
+        super().__init__()
+        self.mode_launches = {"merge": 0}
+
+    def _count(self, merge) -> None:
+        self.launches += 1
+        if merge is not None:
+            self.mode_launches["merge"] += 1
 
     def _code(self, dtype: torch.dtype) -> int:
         try:
@@ -84,12 +131,12 @@ class PackFetch(Kernel):
     def rows(self, theta: Sequence[torch.Tensor],
              distance: Sequence[torch.Tensor],
              log_weight: Sequence[torch.Tensor], *, n_keep: int,
-             dtype: torch.dtype) -> torch.Tensor:
+             dtype: torch.dtype, merge=None) -> torch.Tensor:
         theta, distance, log_weight = (list(theta), list(distance),
                                        list(log_weight))
         if self.on_cpu(*theta, *distance, *log_weight):
             return pack_rows_plain(theta, distance, log_weight,
-                                   n_keep=n_keep, dtype=dtype)
+                                   n_keep=n_keep, dtype=dtype, merge=merge)
         G = len(theta)
         if not G or len(distance) != G or len(log_weight) != G:
             raise ValueError(f"{self.name}: give theta, distance and "
@@ -113,16 +160,18 @@ class PackFetch(Kernel):
             err = lib.pyabc_pack_rows(
                 k, _pointers(theta[part]), _pointers(distance[part]),
                 _pointers(log_weight[part]), n_keep, d, code,
+                *_merge_args(merge, part, G, n_keep, n_cap),
                 out[part].data_ptr(), _build.stream_ptr(dev))
             _build.check(err, self.name)
-            self.launches += 1
+            self._count(merge)
         return out
 
     def sumstats(self, rows: Sequence[torch.Tensor], *, n_keep: int,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, merge=None) -> torch.Tensor:
         rows = list(rows)
         if self.on_cpu(*rows):
-            return cast_rows_plain(rows, n_keep=n_keep, dtype=dtype)
+            return cast_rows_plain(rows, n_keep=n_keep, dtype=dtype,
+                                   merge=merge)
         G = len(rows)
         if not G:
             raise ValueError(f"{self.name}: no generations")
@@ -140,17 +189,19 @@ class PackFetch(Kernel):
             part = rows[g0:g0 + MAX_GEN]
             err = lib.pyabc_cast_rows(
                 len(part), _pointers(part), n_keep, S, code,
+                *_merge_args(merge, slice(g0, g0 + MAX_GEN), G, n_keep,
+                             n_cap),
                 out[g0:g0 + MAX_GEN].data_ptr(), _build.stream_ptr(dev))
             _build.check(err, self.name)
-            self.launches += 1
+            self._count(merge)
         return out
 
-    def models(self, ms: Sequence[torch.Tensor], *,
-               n_keep: int) -> torch.Tensor:
+    def models(self, ms: Sequence[torch.Tensor], *, n_keep: int,
+               merge=None) -> torch.Tensor:
         """G reservoirs' int32 model columns -> ``(G, n_keep)`` int8."""
         ms = list(ms)
         if self.on_cpu(*ms):
-            return pack_models_plain(ms, n_keep=n_keep)
+            return pack_models_plain(ms, n_keep=n_keep, merge=merge)
         G = len(ms)
         if not G:
             raise ValueError(f"{self.name}: no generations")
@@ -167,9 +218,11 @@ class PackFetch(Kernel):
             part = ms[g0:g0 + MAX_GEN]
             err = lib.pyabc_pack_models(
                 len(part), _pointers(part), n_keep,
+                *_merge_args(merge, slice(g0, g0 + MAX_GEN), G, n_keep,
+                             n_cap),
                 out[g0:g0 + MAX_GEN].data_ptr(), _build.stream_ptr(dev))
             _build.check(err, self.name)
-            self.launches += 1
+            self._count(merge)
         return out
 
 

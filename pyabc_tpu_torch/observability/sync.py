@@ -35,6 +35,20 @@ class SyncLedger:
                     "by_kind": dict(self._counts),
                     "bytes": dict(self._bytes)}
 
+    def budget_report(self, *, rounds: int, chunks: int,
+                      slack: int = 8) -> dict:
+        """The port's sync budget (``pyabc_tpu``'s ``syncs_per_run <=
+        chunks + O(1)``, with the round loop on the host): one counter
+        read a round, a sharded round's included (its ``(n, 4)`` table
+        rides the same read), one packed fetch a chunk, and ``slack``
+        reads of O(1) (a host calibration's collect, a boundary's
+        reads) -> ``{"ok", "syncs", "rounds", "chunks", "by_kind"}``."""
+        with self._lock:
+            syncs = sum(self._counts.values())
+            by_kind = dict(self._counts)
+        return {"ok": syncs <= rounds + chunks + slack, "syncs": syncs,
+                "rounds": rounds, "chunks": chunks, "by_kind": by_kind}
+
     def reset(self) -> None:
         with self._lock:
             self._counts.clear()

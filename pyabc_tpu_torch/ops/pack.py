@@ -38,24 +38,27 @@ def fetch_dtype_of(name: str) -> torch.dtype:
 
 
 def pack_rows(theta, distance, log_weight, *, n_keep: int,
-              dtype: torch.dtype) -> torch.Tensor:
+              dtype: torch.dtype, merge=None) -> torch.Tensor:
     """G generations of ``(n_cap, d)``, ``(n_cap,)``, ``(n_cap,)`` (a
     sequence of tensors or one stacked tensor each) -> ``(G, n_keep, d +
-    2)`` in ``dtype``."""
+    2)`` in ``dtype``; ``merge = (ns, n_shards, cap_loc)`` gathers each
+    generation's kept rows from a shard-blocked reservoir (K24c)."""
     return pack_fetch.rows(list(theta), list(distance), list(log_weight),
-                           n_keep=n_keep, dtype=dtype)
+                           n_keep=n_keep, dtype=dtype, merge=merge)
 
 
 def pack_sumstats(rows: Sequence[torch.Tensor], *, n_keep: int,
-                  dtype: torch.dtype) -> torch.Tensor:
+                  dtype: torch.dtype, merge=None) -> torch.Tensor:
     """G generations of ``(n_cap, S)`` -> ``(G, n_keep, S)`` in ``dtype``."""
-    return pack_fetch.sumstats(list(rows), n_keep=n_keep, dtype=dtype)
+    return pack_fetch.sumstats(list(rows), n_keep=n_keep, dtype=dtype,
+                               merge=merge)
 
 
-def pack_models(ms: Sequence[torch.Tensor], *, n_keep: int) -> torch.Tensor:
+def pack_models(ms: Sequence[torch.Tensor], *, n_keep: int,
+                merge=None) -> torch.Tensor:
     """G generations' model columns ``(n_cap,)`` int32 -> ``(G, n_keep)``
     int8 (a run over several models)."""
-    return pack_fetch.models(list(ms), n_keep=n_keep)
+    return pack_fetch.models(list(ms), n_keep=n_keep, merge=merge)
 
 
 def unpack_rows(rows, d: int):

@@ -453,7 +453,7 @@ def test_what_stays_unported_raises(what):
                                  "run.*item 13"):
             tpt.ABCSMC(seg, [gillespie.birth_death_prior()] * 2,
                        tpt.PNormDistance(p=2), population_size=64,
-                       eps=tpt.MedianEpsilon(), sharded=True, device="cpu",
+                       eps=tpt.MedianEpsilon(), sharded=8, device="cpu",
                        **kw)
         return
     with pytest.raises(NotImplementedError, match=match):

@@ -172,5 +172,5 @@ def test_unserved_modes_keep_the_mvn_paths_refusal():
     with pytest.raises(NotImplementedError,
                        match="segmented early reject in a sharded run.*13"):
         tpt.ABCSMC(_bd(), tg.birth_death_prior(), tpt.PNormDistance(p=2),
-                   transitions=tpt.LocalTransition(), sharded=True,
+                   transitions=tpt.LocalTransition(), sharded=8,
                    device="cpu")

@@ -590,4 +590,4 @@ def test_gates_of_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 13"):
         tpt.ABCSMC(seg_models, seg_priors,
                    transitions=[tpt.LocalTransition() for _ in seg_models],
-                   sharded=True, device="cpu")
+                   sharded=8, device="cpu")
