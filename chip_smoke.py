@@ -2106,6 +2106,8 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.aggregate", "sub_distances_plain"),
     ("pyabc_tpu_torch.kernels.aggregate", "aggregate_refit_plain"),
     ("pyabc_tpu_torch.kernels.aggregate", "weight_update_plain"),
+    ("pyabc_tpu_torch.kernels.aggregate", "combine_plain"),
+    ("pyabc_tpu_torch.kernels.aggregate", "aggregate_finish_shards_plain"),
     ("pyabc_tpu_torch.kernels.segment_round", "agg_total"),
     ("pyabc_tpu_torch.kernels.ridge_fit", "ridge_fit_plain"),
     ("pyabc_tpu_torch.kernels.linear_sumstat", "transform_rows_plain"),
@@ -6452,10 +6454,13 @@ def lv_subs(pt) -> list:
             pt.PNormDistance(p=1, weights={"pred": 0, "prey": 1})]
 
 
-def lv_aggregate(where, kind: str, pop: int = AGG_POP):
+def lv_aggregate(where, kind: str, pop: int = AGG_POP,
+                 sharded: int | None = None, G: int | None = None,
+                 seed: int = 0, refit_every: int | None = None):
     """LV config 2 under ``AdaptiveAggregatedDistance(lv_subs)`` (kind
     "adaptive") or under tests/test_fused.py:324-345's schedule at LV's
-    labels (kind "schedule", float32 fetch, the statistics stored)."""
+    labels (kind "schedule", float32 fetch, the statistics stored);
+    ``sharded`` shards, ``G`` generations a chunk (the default else)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import lotka_volterra as lv
 
@@ -6468,9 +6473,12 @@ def lv_aggregate(where, kind: str, pop: int = AGG_POP):
                                             3: {"pred": 2, "prey": 0}}),
              pt.PNormDistance(p=1)], weights={0: [1, 1], 2: [4, 0.1]})
         kw = {"fetch_dtype": "float32"}
+    if G is not None:
+        kw["fused_generations"] = G
     abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(), dist,
-                    population_size=pop, eps=pt.MedianEpsilon(), seed=0,
-                    device=where, **kw)
+                    population_size=pop, eps=pt.MedianEpsilon(), seed=seed,
+                    sharded=sharded, refit_every=refit_every, device=where,
+                    **kw)
     abc.new("sqlite://", lv.observed_data(seed=0),
             store_sum_stats=kind == "schedule")
     return abc
@@ -6776,26 +6784,7 @@ def lv_aggregate_leg(dev, kind: str) -> tuple:
               f"{label}: the weights were not refit at the calibration and "
               f"after every generation, or not finite and positive")
     else:
-        worst, excess = 0.0, -math.inf
-        x0 = np.asarray(abc.spec.flatten_host(abc.x_0), np.float64)
-        for t in range(n_gen):
-            stored = np.sort(h.get_weighted_distances(t)["distance"]
-                             .to_numpy())
-            _w, stats = h.get_weighted_sum_stats(t)
-            params = dist.device_params(t).numpy().astype(np.float64)
-            W, subw = params[:2], params[2:].reshape(2, -1)
-            diff = np.abs(stats.astype(np.float64) - x0)
-            ref = np.sort(W[0] * np.sqrt(((subw[0] * diff) ** 2).sum(1))
-                          + W[1] * (subw[1] * diff).sum(1))
-            gap = np.abs(stored - ref)
-            worst = max(worst, float((gap / np.abs(ref)).max()))
-            excess = max(excess, float(
-                (gap - (2e-3 * np.abs(ref) + 1e-5)).max()))
-        log(f"{label}: stored distances recomputed under each generation's "
-            f"weights, largest relative difference {worst:.3e}")
-        check(excess <= 0.0, f"{label}: a stored distance does not "
-              f"recompute under its generation's weights (rtol 2e-3, atol "
-              f"1e-5)")
+        schedule_recompute_check(abc, h, label)
     log(f"{label}: kernel launches {counts}")
     path = [k for k in AGG_PATH
             if kind == "adaptive" or k != "aggregate_refit"]
@@ -6817,6 +6806,33 @@ def lv_aggregate_leg(dev, kind: str) -> tuple:
               f"{dmax} above its epsilon {eps[t]}")
     profile_run(f"{label} (profiled)", lv_aggregate(dev, kind), AGG_GENS)
     return counts, modes, abc
+
+
+def schedule_recompute_check(abc, h, label: str) -> None:
+    """Every stored distance of the schedule leg recomputed (numpy,
+    float64) from the stored float32 statistics under its generation's
+    weights within 2e-3 relative (tests/test_fused.py:271's rule)."""
+    import numpy as np
+
+    dist = abc.distance_function
+    worst, excess = 0.0, -math.inf
+    x0 = np.asarray(abc.spec.flatten_host(abc.x_0), np.float64)
+    for t in range(h.max_t + 1):
+        stored = np.sort(h.get_weighted_distances(t)["distance"].to_numpy())
+        _w, stats = h.get_weighted_sum_stats(t)
+        params = dist.device_params(t).numpy().astype(np.float64)
+        W, subw = params[:2], params[2:].reshape(2, -1)
+        diff = np.abs(stats.astype(np.float64) - x0)
+        ref = np.sort(W[0] * np.sqrt(((subw[0] * diff) ** 2).sum(1))
+                      + W[1] * (subw[1] * diff).sum(1))
+        gap = np.abs(stored - ref)
+        worst = max(worst, float((gap / np.abs(ref)).max()))
+        excess = max(excess, float(
+            (gap - (2e-3 * np.abs(ref) + 1e-5)).max()))
+    log(f"{label}: stored distances recomputed under each generation's "
+        f"weights, largest relative difference {worst:.3e}")
+    check(excess <= 0.0, f"{label}: a stored distance does not recompute "
+          f"under its generation's weights (rtol 2e-3, atol 1e-5)")
 
 
 def lv_aggregate_cpu_trail(dev) -> None:
@@ -10414,12 +10430,13 @@ def lv_sharded(where, sharded, pop=SH_POP, seed=SH_SEED):
     return abc
 
 
-def sharded_run(dev, abc, gens, label, path) -> tuple:
+def sharded_run(dev, abc, gens, label, path, slack: int = 2) -> tuple:
     """``host_loop_run`` with the kernels' mode counts (K24a, K24c and
     K24d are modes of K6, K10 and K22) -> (History, wall, counts); logs
     the throughput, the syncs a generation and holds the sync budget: a
     read a round, a fetch a chunk, the host calibration's round and
-    collect."""
+    collect (``slack`` reads of O(1); 3 with an adaptive aggregate's
+    calibration refit read)."""
     from pyabc_tpu_torch.kernels import mode_launch_counts
 
     h, wall, counts = host_loop_run(abc, gens, label,
@@ -10432,7 +10449,7 @@ def sharded_run(dev, abc, gens, label, path) -> tuple:
     rounds = [g["rounds"] for g in abc.generation_log]
     chunks = len({g["chunk_index"] for g in abc.generation_log})
     report = abc.sync_ledger.budget_report(rounds=sum(rounds), chunks=chunks,
-                                           slack=2)
+                                           slack=slack)
     log(f"{label} ({dev}): gens={len(n)} wall_s={wall:.3f} "
         f"accepted_particles_per_s={sum(n) / wall:.1f} "
         f"syncs_per_generation={syncs['syncs'] / len(n):.2f} (rounds "
@@ -10584,6 +10601,432 @@ def toy_sharded(dev) -> None:
           "gaussian toy sharded: rows off 300 or the mean off by > 0.25")
 
 
+# ----------------------- sharded aggregated distances (K25's sharded twins)
+#: the LV aggregated sharded legs: the LV aggregated legs (lv_aggregate:
+#: make_lv_model, lv_subs, MedianEpsilon, pop 16384, seed 0, AGG_GENS
+#: generations) on 8 virtual shards in chunks of 3; the adaptive one beside
+#: the same seed unsharded at the same G
+AGG_SH_G = 3
+#: the adaptive sharded leg on the card and on the CPU
+AGG_SH_CPU_POP, AGG_SH_CPU_GENS = 1024, 2
+#: the unsharded seeds beside the adaptive sharded leg. The span weights
+#: of LV's sub-distances jump by orders of magnitude from generation to
+#: generation (ROADMAP queue C) and follow the records, so they follow the
+#: proposal: at the chunk cadence (the MVN refit at generations 0, 3 and
+#: 6 only) a sharded run's weights, and so its target, can drift from the
+#: unsharded run's, which refits every generation. The leg reports the
+#: cadence run's gap to the same seed and to these seeds' envelope, and
+#: holds tests/test_sharded.py's rule (posterior means within 0.2 of the
+#: same seed unsharded) on the same sharded run with the MVN refit every
+#: generation (refit_every=1: the unsharded run's law, the shard quotas
+#: the only difference). A seed whose run stops early is reported and left
+#: out of the envelope (a record with a non-finite sub-distance makes the
+#: span, and so W, 0 in both packages; the epsilon then reaches 0)
+AGG_SH_SEEDS = (0, 1, 2, 3)
+#: the kernels of the LV aggregated sharded legs (the host calibration's
+#: compaction is K6's unsharded round; the adaptive leg's calibration refit
+#: is K25's refit)
+AGG_SH_PATH = ("propose", "mvn_mixture_logpdf", "lv_simulate",
+               "aggregate_accept_weight", "compact_round",
+               "compact_round:shards", "shard_mask", "normalize_quantile",
+               "mvn_fit", "pack_fetch", "pack_fetch:merge",
+               "generation_health")
+AGG_SH_AD_PATH = AGG_SH_PATH + (
+    "aggregate_refit", "aggregate_accept_weight:value_rows",
+    "moment_fold:shards", "compact_round:given_rows",
+    "aggregate_finish:shards")
+AGG_SH_KERNELS = ("aggregate_finish",)
+#: the finish's check: the LV leg's 8 shards and 16384 rows, 4
+#: sub-distances of mixed p
+AGG_SH_PS = (1.0, 2.0, math.inf, 3.0)
+
+
+def agg_shard_checks(dev) -> dict:
+    """K25's sharded twins at the LV aggregated sharded leg's shapes (B
+    65536 lanes on 8 shards, S 40, n_cap 16384 on 8 blocks of 2048): the
+    accept's value rows bit-equal to its values mode with the accept
+    unchanged (the legs' pair and 4 sub-distances of mixed p), K24a's
+    given-rows mode bit-exact against its plain version, K24d's fold on
+    the value columns (counts and extrema equal, sums rel 1e-5), K25's
+    sharded finish (W and distances rel 1e-5 of the plain version, the
+    same bits run to run) -> their results."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         aggregate_finish, compact_round,
+                                         moment_fold)
+    from pyabc_tpu_torch.kernels.aggregate import (
+        aggregate_accept_weight_plain, aggregate_finish_shards_plain,
+        sub_distances_plain)
+    from pyabc_tpu_torch.kernels.compact import compact_shards_plain
+    from pyabc_tpu_torch.kernels.moments import moment_fold_shards_plain
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+    from pyabc_tpu_torch.utils import pick_batch
+
+    n, n_cap = SH_N, AGG_POP
+    B = pick_batch(AGG_POP)
+    B_loc, cap_loc = B // n, n_cap // n
+    ss, spec, x0 = lv_rows(dev, B, seed=19)
+    S = spec.total_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    valid = torch.rand(B, generator=g, device=dev) > 0.05
+    logpri = torch.randn(B, generator=g, device=dev) - 3.0
+    logq = torch.randn(B, generator=g, device=dev) - 2.0
+    out = {}
+    cases = {"LV legs' pair (p 2, 1)": None, "4 sub-distances": AGG_SH_PS}
+    for label, ps in cases.items():
+        if ps is None:
+            dist = pt.AdaptiveAggregatedDistance(lv_subs(pt))
+        else:
+            dist = pt.AdaptiveAggregatedDistance([pt.PNormDistance(
+                p=p, weights=torch.rand(S, generator=g, device=dev).cpu()
+                .numpy() + 0.2) for p in ps])
+        dist.initialize(spec)
+        params = dist.device_params(0, dev)
+        n_sub = len(dist.ps)
+        d_all = sub_distances_plain(ss, x0, params, dist.ps).sum(1)
+        eps = torch.quantile(d_all[torch.isfinite(d_all)], 0.5)
+        args = (ss, x0, params, eps, valid)
+        kw = dict(ps=dist.ps, logpri=logpri, logq=logq)
+        d_v, a_v, lw_v, vals = aggregate_accept_weight.value_rows(*args,
+                                                                  **kw)
+        d_k, a_k, lw_k = aggregate_accept_weight(*args, **kw)
+        v_k = aggregate_accept_weight.values(ss, x0, params, ps=dist.ps)
+        v_p = sub_distances_plain(ss, x0, params, dist.ps)
+        torch.cuda.synchronize()
+        same = (torch.equal(vals, v_k) and torch.equal(d_v, d_k)
+                and torch.equal(a_v, a_k) and torch.equal(lw_v, lw_k))
+        err = abs_err(vals, v_p)
+        log(f"K25 value-rows mode {label} (B={B}, S={S}): values bit-equal "
+            f"to the values mode and the accept unchanged {same}, "
+            f"max_abs_err against the plain values {err:.3e}")
+        check(same and within(vals, v_p, 0.0, 1e-5),
+              f"K25 value rows ({label}): not the values mode's bits, the "
+              f"accept changed, or off the plain values by more than 1e-5")
+        if ps is not None:
+            continue
+        nbytes = ((B * S + S + n_sub * (S + 1)) * 4 + B * (1 + 4 + 4) + 4
+                  + B * (4 + 1 + 4) + B * n_sub * 4)
+        out["aggregate_accept_weight:value_rows"] = dict(
+            err=err, call_ms=time_ms(lambda: aggregate_accept_weight
+                                     .value_rows(*args, **kw), 50),
+            ms=graph_ms(lambda: aggregate_accept_weight.value_rows(*args,
+                                                                   **kw)),
+            ms_accept_alone=graph_ms(lambda: aggregate_accept_weight(*args,
+                                                                     **kw)),
+            plain_ms=time_ms(lambda: (aggregate_accept_weight_plain(
+                *args, **kw), sub_distances_plain(ss, x0, params,
+                                                  dist.ps)), 10),
+            bound=bound(nbytes, B * S * n_sub * 4), library_ms=None)
+        lv_vals, lv_dist, lv_params = vals, dist, params
+
+    # K24a's given-rows mode: rounds until every shard is finished
+    n_sub = len(lv_dist.ps)
+
+    def lanes(seed):
+        g.manual_seed(seed)
+        theta = torch.randn(B, 4, generator=g, device=dev)
+        sums = lv_rows(dev, B, seed=seed)[0]
+        f = sub_distances_plain(sums, x0, lv_params, lv_dist.ps)
+        return (torch.rand(B, generator=g, device=dev) < 0.3,
+                torch.rand(B, generator=g, device=dev) < 0.99, theta, sums,
+                torch.rand(B, generator=g, device=dev),
+                torch.randn(B, generator=g, device=dev)), f
+
+    def state():
+        res = {"theta": torch.zeros(n_cap, 4, device=dev),
+               "sumstats": torch.zeros(n_cap, S, device=dev),
+               "distance": torch.zeros(n_cap, device=dev),
+               "log_weight": torch.full((n_cap,), -math.inf, device=dev),
+               "slot": torch.full((n_cap,), -1, dtype=torch.int32,
+                                  device=dev),
+               "dfeat": torch.zeros(n_cap, n_sub, device=dev)}
+        buf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
+        buf[4] = AGG_POP
+        return res, buf
+
+    (res_k, buf_k), (res_p, buf_p) = state(), state()
+    for r in range(12):
+        x, f = lanes(200 + r)
+        for res, buf, fn in ((res_k, buf_k, compact_round.shards),
+                             (res_p, buf_p, compact_shards_plain)):
+            fn(*x, res, buf[:5], buf[5:].view(n, 4), n_shards=n,
+               max_rounds=10, feat_rows=f)
+    torch.cuda.synchronize()
+    same = torch.equal(buf_k, buf_p) and all(
+        torch.equal(res_k[k], res_p[k]) for k in res_k)
+    log(f"K24a given-rows mode (F {n_sub}, 12 rounds): table "
+        f"{buf_k[5:].view(n, 4)[:, :3].tolist()} bit-exact={same}")
+    check(same, "K24a given rows: reservoir, feature rows, table or "
+          "counters not bit-identical to the plain version")
+    x, f = lanes(200)
+    acc = x[0] & x[1]
+    written = sum(min(int(acc[s * B_loc:(s + 1) * B_loc].sum()), cap_loc)
+                  for s in range(n))
+    nbytes = (B + int(x[1].sum()) + written * ((4 + S + 2 + n_sub) * 4 * 2
+                                               + 4)
+              + 2 * 16 * n + 2 * 20)
+    res_g, buf_g = state()
+    buf0 = buf_g.clone()
+
+    def k24a(res, buf):
+        buf.copy_(buf0)
+        compact_round.shards(*x, res, buf[:5], buf[5:].view(n, 4),
+                             n_shards=n, max_rounds=10, feat_rows=f)
+
+    res_t, buf_t = state()
+    out["compact_round:given_rows"] = dict(
+        err=0.0, call_ms=time_ms(lambda: k24a(res_g, buf_g), 50),
+        ms=graph_ms(lambda: k24a(res_g, buf_g)),
+        plain_ms=time_ms(lambda: (buf_t.copy_(buf0), compact_shards_plain(
+            *x, res_t, buf_t[:5], buf_t[5:].view(n, 4), n_shards=n,
+            max_rounds=10, feat_rows=f)), 3),
+        bound=bound(nbytes, 0.0), library_ms=None)
+
+    # K24d's fold on the value columns of a first round of every shard
+    zeros = torch.zeros(n_sub, device=dev)
+    rec_loc = 16384  # the leg's per-shard ring window (8 x 16384 // 8)
+    ctr = torch.zeros(5, dtype=torch.int32, device=dev)
+    ctr[4] = AGG_POP
+    tab = torch.zeros(n, 4, dtype=torch.int32, device=dev)
+    tab[5, 0] = AGG_POP // n  # one shard finished: it folds nothing
+    mom0 = init_moments(n_sub, dev).expand(n, -1, -1).contiguous()
+    runs = []
+    for _ in range(2):
+        mom = mom0.clone()
+        moment_fold.shards(mom, lv_vals, valid, zeros, ctr, tab, n_shards=n,
+                           rec_cap=rec_loc, max_rounds=10)
+        runs.append(mom)
+    ref = moment_fold_shards_plain(mom0.clone(), lv_vals, valid, zeros, ctr,
+                                   tab, n_shards=n, rec_cap=rec_loc,
+                                   max_rounds=10)
+    torch.cuda.synchronize()
+    got = runs[0]
+    rel = float(((got[:, :3] - ref[:, :3]).abs()
+                 / ref[:, :3].abs().clamp_min(1e-30)).max())
+    same = (torch.equal(runs[0], runs[1])
+            and torch.equal(got[:, 3:], ref[:, 3:])
+            and torch.equal(got[5], mom0[5]))
+    log(f"K24d fold on the value columns (F {n_sub}): counts and extrema "
+        f"equal, the same bits run to run, a finished shard untouched="
+        f"{same}, sums rel {rel:.2e}")
+    check(same and rel <= 1e-5, "K24d fold on the value columns: counts or "
+          "extrema differ, the bits change run to run, or sums off by more "
+          "than 1e-5")
+    mom_g = mom0.clone()
+    n_take = int(valid[(torch.arange(B, device=dev) // B_loc) != 5].sum())
+    out["moment_fold:value_columns"] = dict(
+        err=float((got - ref)[torch.isfinite(ref)].abs().max()), rel=rel,
+        call_ms=time_ms(lambda: moment_fold.shards(
+            mom_g, lv_vals, valid, zeros, ctr, tab, n_shards=n,
+            rec_cap=rec_loc, max_rounds=10), 50),
+        ms=graph_ms(lambda: (mom_g.copy_(mom0), moment_fold.shards(
+            mom_g, lv_vals, valid, zeros, ctr, tab, n_shards=n,
+            rec_cap=rec_loc, max_rounds=10))),
+        plain_ms=time_ms(lambda: moment_fold_shards_plain(
+            mom0.clone(), lv_vals, valid, zeros, ctr, tab, n_shards=n,
+            rec_cap=rec_loc, max_rounds=10), 5),
+        bound=bound(B + n_take * n_sub * 4 + 2 * mom0.numel() * 4
+                    + n_sub * 4, 0.0), library_ms=None)
+
+    # K25's sharded finish: 8 blocks of 4 mixed-p value columns, 16384 rows
+    dist = pt.AdaptiveAggregatedDistance([pt.PNormDistance(p=p)
+                                          for p in AGG_SH_PS])
+    dist.initialize(spec)
+    params = dist.device_params(0, dev)
+    n_sub = len(AGG_SH_PS)
+    vals = sub_distances_plain(lv_rows(dev, B, seed=23)[0], x0, params,
+                               dist.ps)
+    mom = init_moments(n_sub, dev).expand(n, -1, -1).contiguous()
+    moment_fold_shards_plain(mom, vals, valid, torch.zeros(n_sub, device=dev),
+                             ctr, torch.zeros(n, 4, dtype=torch.int32,
+                                              device=dev),
+                             n_shards=n, rec_cap=rec_loc, max_rounds=10)
+    feat = vals[:n_cap].contiguous()
+    fac = (1.0, 0.5, 2.0, 1.0)
+    for name in ("span", "standard_deviation", "mean"):
+        kw = dict(factors=fac, scale_name=name)
+        a = aggregate_finish.shards(mom, feat, params, **kw)
+        b = aggregate_finish.shards(mom, feat, params, **kw)
+        p_ = aggregate_finish_shards_plain(mom, feat, params, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        rel = max(float(((u - v).abs() / v.abs().clamp_min(1e-30)).max())
+                  for u, v in zip(a, p_))
+        log(f"K25 sharded finish ({name}, {n} shards, {n_cap} rows, "
+            f"p {AGG_SH_PS}): scale {a[0].tolist()} W {a[1][:n_sub].tolist()}"
+            f" rel {rel:.2e} against the plain version, the same bits run to "
+            f"run {same}, sub weights copied "
+            f"{torch.equal(a[1][n_sub:], params[n_sub:])}")
+        check(same and rel <= 1e-5
+              and torch.equal(a[1][n_sub:], params[n_sub:]),
+              f"K25 sharded finish ({name}): W or distances off the plain "
+              f"version by more than 1e-5, bits that change run to run, or "
+              f"sub weights not copied")
+        if name != "span":
+            continue
+        kw_span = kw
+        err = max(float((u - v).abs().max()) for u, v in zip(a, p_))
+        out["aggregate_finish"] = dict(
+            err=err, rel=rel,
+            call_ms=time_ms(lambda: aggregate_finish.shards(
+                mom, feat, params, **kw_span), 50),
+            ms=graph_ms(lambda: aggregate_finish.shards(mom, feat, params,
+                                                        **kw_span)),
+            plain_ms=time_ms(lambda: aggregate_finish_shards_plain(
+                mom, feat, params, **kw_span), 10),
+            # the value rows read and the distances written; the blocks
+            # and the params are a few kB beside them
+            bound=bound(n_cap * n_sub * 4 + n_cap * 4
+                        + mom.numel() * 4 + 2 * params.numel() * 4,
+                        2.0 * n_cap * n_sub), library_ms=None)
+    return out
+
+
+def lv_aggregate_sharded_leg(dev, kind: str) -> dict:
+    """An LV aggregated leg on 8 shards (``sharded_run``: counts set to 0
+    just before and read just after, the plain versions set to raise, the
+    sync budget held: a read a round, a fetch a chunk, the calibration's
+    round, collect and, adaptive, the one read of its K25 refit's W) ->
+    its launch and mode counts. Adaptive: the top-level weight trail, a
+    refit every generation, the posterior means beside the same seed
+    unsharded at the same G and AGG_SH_SEEDS' envelope, and within
+    SH_POST_RULE of the same seed with the MVN refit every generation.
+    Schedule: the stored distances recomputed under each generation's
+    weights."""
+    import numpy as np
+
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    label = f"LV aggregated {kind} sharded (8 shards, G {AGG_SH_G})"
+    abc = lv_aggregate(dev, kind, sharded=SH_N, G=AGG_SH_G)
+    path = AGG_SH_AD_PATH if kind == "adaptive" else AGG_SH_PATH
+    h, _wall, counts = sharded_run(dev, abc, AGG_GENS, label, path,
+                                   slack=3 if kind == "adaptive" else 2)
+    n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
+    check(n == [AGG_POP] * AGG_GENS, f"{label}: a generation off {AGG_POP} "
+          f"rows")
+    check(all(g["syncs"] == g["rounds"] for g in abc.generation_log),
+          f"{label}: a generation read the device besides its round "
+          f"counters")
+    if kind == "schedule":
+        schedule_recompute_check(abc, h, label)
+        check(counts["aggregate_refit"] == 0
+              and counts["aggregate_finish"] == 0
+              and counts["moment_fold"] == 0,
+              f"{label}: an adaptive kernel ran under a fixed schedule")
+        return counts
+    w = abc.distance_function.weights
+    trail = {t: [round(float(v), 8) for v in w[t]] for t in sorted(w)
+             if t >= 0}
+    moved = [not np.array_equal(w[t], w[t - 1])
+             for t in range(1, AGG_GENS + 1)]
+    log(f"{label}: top-level weights by generation {trail}, refit every "
+        f"generation {all(moved)} ({counts['aggregate_finish:shards']} "
+        f"sharded finishes)")
+    check(sorted(trail) == list(range(AGG_GENS + 1)) and all(moved)
+          and counts["aggregate_finish:shards"] == AGG_GENS
+          and counts["aggregate_refit"] == 1,
+          f"{label}: the weights were not refit at the calibration (K25's "
+          f"refit) and after every generation (its sharded finish)")
+
+    def means(hh):
+        df, ww = hh.get_distribution(0, hh.max_t)
+        return {k: float(np.sum(df[k] * ww)) for k in lv.TRUE_PARS}
+
+    def reference_run(seed, refit_every=None, sharded=None):
+        abc_u = lv_aggregate(dev, kind, G=AGG_SH_G, seed=seed,
+                             sharded=sharded, refit_every=refit_every)
+        with plain_versions_raise():
+            t0 = time.perf_counter()
+            h_u = abc_u.run(max_nr_populations=AGG_GENS)
+            wall = time.perf_counter() - t0
+        w_u = abc_u.distance_function.weights
+        eps_u = [float(e) for e in h_u.get_all_populations()["epsilon"][1:]]
+        log(f"LV aggregated {kind} (seed {seed}, sharded {sharded}, "
+            f"refit_every {refit_every}, G {AGG_SH_G}): {h_u.n_populations} "
+            f"generations, wall_s={wall:.3f}, eps {eps_u}, last weights "
+            f"{w_u[max(w_u)].tolist()}")
+        return means(h_u) if h_u.n_populations == AGG_GENS else None
+
+    m_u = {seed: reference_run(seed) for seed in AGG_SH_SEEDS}
+    m_u = {seed: m for seed, m in m_u.items() if m is not None}
+    m_s = means(h)
+    m_1 = reference_run(0, refit_every=1, sharded=SH_N)
+    check(0 in m_u and m_1 is not None, f"{label}: seed 0 stopped early "
+          f"unsharded or sharded with refit_every=1")
+    ms = list(m_u.values())
+
+    def gap(m, ref):
+        return max(abs(m[k] - ref[k]) for k in m)
+
+    def outside(m):
+        return max(max(min(r[k] for r in ms) - m[k],
+                       m[k] - max(r[k] for r in ms), 0.0) for k in m)
+
+    log(f"{label}: posterior means {m_s}; with refit_every=1 {m_1}; "
+        f"unsharded, by seed: {m_u}; largest gap to the same seed "
+        f"{gap(m_s, m_u[0]):.4f} at the chunk cadence, "
+        f"{gap(m_1, m_u[0]):.4f} with refit_every=1 "
+        f"(tests/test_sharded.py's rule {SH_POST_RULE}, held on the "
+        f"latter); largest distance outside the unsharded seeds' envelope "
+        f"{outside(m_s):.4f} and {outside(m_1):.4f}")
+    check(gap(m_1, m_u[0]) <= SH_POST_RULE, f"{label}: with the MVN refit "
+          f"every generation, posterior means off the unsharded run's")
+    return counts
+
+
+def lv_aggregate_sharded_trail(where, raising: bool = False) -> dict:
+    """The adaptive sharded leg at pop 1024 over two generations (the run,
+    not the observation's simulation, under ``plain_versions_raise`` when
+    ``raising``) -> its epsilons and weights."""
+    abc = lv_aggregate(where, "adaptive", pop=AGG_SH_CPU_POP, sharded=SH_N,
+                       G=AGG_SH_G)
+    with plain_versions_raise() if raising else contextlib.nullcontext():
+        h = abc.run(max_nr_populations=AGG_SH_CPU_GENS)
+    eps = [float(e) for e in h.get_all_populations().query(
+        "t >= 0")["epsilon"]]
+    w = {str(t): [float(v) for v in ws]
+         for t, ws in abc.distance_function.weights.items() if t >= 0}
+    return {"eps": eps, "w": w}
+
+
+@cpu_ref
+def lv_aggregate_sharded_cpu() -> dict:
+    return lv_aggregate_sharded_trail("cpu")
+
+
+def lv_aggregate_sharded_card_cpu(dev) -> None:
+    """The adaptive sharded leg at pop 1024, two generations, on the card
+    (the plain versions set to raise) and on the CPU: weights and epsilons
+    within 1e-3 relative."""
+    import numpy as np
+
+    card = lv_aggregate_sharded_trail(dev, raising=True)
+
+    def compare():
+        cpu = REFS.get("lv_aggregate_sharded_cpu")
+        e_rel = max(abs(a - b) / abs(b) for a, b in zip(card["eps"],
+                                                         cpu["eps"]))
+        w_rel = max(float(np.max(np.abs(np.subtract(card["w"][t],
+                                                    cpu["w"][t]))
+                                 / np.abs(cpu["w"][t])))
+                    for t in cpu["w"])
+        log(f"LV aggregated adaptive sharded, pop {AGG_SH_CPU_POP}: card "
+            f"eps {card['eps']} weights {card['w']}; cpu eps {cpu['eps']} "
+            f"weights {cpu['w']}; largest relative gaps eps {e_rel:.2e}, "
+            f"weights {w_rel:.2e}")
+        check(len(card["eps"]) == len(cpu["eps"]) == AGG_SH_CPU_GENS
+              and sorted(card["w"]) == sorted(cpu["w"])
+              and e_rel <= 1e-3 and w_rel <= 1e-3,
+              "LV aggregated adaptive sharded: card and CPU apart by more "
+              "than 1e-3")
+
+    PENDING.append(compare)
+
+
 def main() -> int:
     import torch
 
@@ -10643,6 +11086,7 @@ def main() -> int:
     results.update(gaussian_checks(dev))
     results.update(round_checks(dev))
     results.update(shard_checks(dev))
+    results.update(agg_shard_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -10748,6 +11192,11 @@ def main() -> int:
     toy_sharded(dev)
     pair_sh = pair_anchor(dev, "sharded")
     mark("sharded legs")
+    # aggregated distances and user schedules on 8 shards (K25's twins)
+    agg_sh_counts = lv_aggregate_sharded_leg(dev, "adaptive")
+    sched_sh_counts = lv_aggregate_sharded_leg(dev, "schedule")
+    lv_aggregate_sharded_card_cpu(dev)
+    mark("aggregated sharded legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -10806,7 +11255,8 @@ def main() -> int:
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (lvs_counts if k.name in SHARD_KERNELS
+        own = (agg_sh_counts if k.name in AGG_SH_KERNELS
+               else lvs_counts if k.name in SHARD_KERNELS
                else x1["pipelined"] if k.name in HL_KERNELS
                else lvg_counts if k.name == "grid_search_cv"
                else gp_counts if k.name in GP_KERNELS
@@ -10886,14 +11336,18 @@ def main() -> int:
                                  "lv_sharded": lvs_counts[k.name],
                                  "lv_adaptive_sharded": lvas_counts[k.name],
                                  "tractable_pair_sharded":
-                                     pair_sh[k.name]},
+                                     pair_sh[k.name],
+                                 "lv_aggregate_sharded":
+                                     agg_sh_counts[k.name],
+                                 "lv_schedule_sharded":
+                                     sched_sh_counts[k.name]},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
                       "transform_ms", "transform_err", "k5_ms",
                       "transform_call_ms", "gradient_err", "loss_rel",
                       "seed_ms", "seed_call_ms", "seed_bound_ms",
-                      "seed_plain_ms", "launches_seed_fit", "rel_err"):
+                      "seed_plain_ms", "launches_seed_fit", "rel_err", "rel"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:
@@ -10974,6 +11428,19 @@ def main() -> int:
              ("moment_finish:shards", "pyabc_tpu_torch/csrc/moments.cu",
               "pyabc_tpu/inference/util.py:2672",
               lvas_counts["moment_finish:shards"])]
+    # K25's sharded twins' modes, their launches from the LV aggregated
+    # sharded leg (every fold launch of that leg is on the value columns)
+    rows += [("aggregate_accept_weight:value_rows",
+              "pyabc_tpu_torch/csrc/aggregate.cu",
+              "pyabc_tpu/distance/aggregate.py:315",
+              agg_sh_counts["aggregate_accept_weight:value_rows"]),
+             ("compact_round:given_rows",
+              "pyabc_tpu_torch/csrc/compact_round.cu",
+              "pyabc_tpu/inference/util.py:590",
+              agg_sh_counts["compact_round:given_rows"]),
+             ("moment_fold:value_columns", "pyabc_tpu_torch/csrc/moments.cu",
+              "pyabc_tpu/ops/scale_reduce.py:67",
+              agg_sh_counts["moment_fold:shards"])]
     for name, source, replaces, launches in rows:
         r = results[name]
         check(launches > 0, f"{name} was never launched on its path")
@@ -10984,7 +11451,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("ms_pnorm_mode", "ms_k20b_round",
-                                 "ms_feature_mode", "rel") if k in r},
+                                 "ms_feature_mode", "ms_accept_alone",
+                                 "rel") if k in r},
             **({"k6_ring_mask": {
                 "ms": r["k6_ring_mask"]["ms"],
                 "call_ms": r["k6_ring_mask"]["call_ms"],

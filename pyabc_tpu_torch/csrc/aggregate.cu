@@ -32,14 +32,31 @@
 //      W'_k = factors_k / max(scale_k, 1e-38) where scale_k > 0, else 0
 //      (no clip, no normalization: device_weight_update), and one warp a
 //      reservoir row writes its aggregated distance under W'.
+// - sharded finish (pyabc_aggregate_finish_shards; sharded fused sampling
+//   under an AdaptiveAggregatedDistance, replacing combine_moments and
+//   scale_from_moments of pyabc_tpu/ops/scale_reduce.py:102, :115 over
+//   device_sharded_reduce's value columns (aggregate.py:298), then
+//   device_weight_update (:351) and device_sharded_dfeat's combine (:345)):
+//   1. moments.cuh's combine of the n shards' (6, n_sub) moment blocks of
+//      the value columns, in shard order;
+//   2. one launch: every thread finishes the n_sub scales from the
+//      combined block against a zero observation (moments.cuh's scale_of)
+//      and W' as in step 3 above; block 0 writes the scale and params_out
+//      (the sub weights copied), and one thread a reservoir row writes
+//      sum_k W'_k f_k of its stored value row f (K24a's copy of the accept's
+//      values) with combine below: the distance K25's accept gives that row
+//      under W', bit for bit.
 //
 // Bound on an H100: bytes. The accept reads the (B, S) sum stats once (the
 // sub weights, n S floats, stay in L1/L2); the refit reads the ring once
 // (131072 x 40 floats, 21 MB, at the LV leg's size), vals n times for the
-// scale and the reservoir once. A simple kernel: no shared-memory staging,
-// the n sub-norms unrolled over registers.
+// scale and the reservoir once; the sharded finish reads the blocks and
+// the (n_cap, n) value rows once and writes n_cap distances (0.2 MB at the
+// LV leg's size): a few microseconds of launches. A simple kernel: no
+// shared-memory staging, the n sub-norms unrolled over registers.
 #include "accept_epilogue.cuh"
 #include "common.cuh"
+#include "moments.cuh"
 #include "weights.cuh"
 
 // K9's entry (scale_reduce.cu), linked into the same library
@@ -186,6 +203,41 @@ finish_kernel(const float* __restrict__ rows, int n_rows, int S,
   if ((threadIdx.x & 31) == 0) d_out[row_i] = combine(W, d, sn.n);
 }
 
+// the sharded finish: each thread finishes W' from the combined block;
+// block 0 writes the scale and the new params, a thread a row its distance
+__global__ void __launch_bounds__(kThreads)
+finish_shards_kernel(const float* __restrict__ mom, int n_sub, int S,
+                     int code, const SubNorms sn,
+                     const float* __restrict__ params,
+                     const float* __restrict__ feat, int n_rows,
+                     float* __restrict__ scale_out,
+                     float* __restrict__ params_out,
+                     float* __restrict__ d_out) {
+  float sc[kMaxSub], W[kMaxSub];
+#pragma unroll
+  for (int j = 0; j < kMaxSub; ++j) {
+    sc[j] = j < n_sub ? pyabc_m::scale_of(code, j, n_sub, mom, 0.f) : 0.f;
+    W[j] = sc[j] > 0.f ? __fmul_rn(1.f / fmaxf(sc[j], 1e-38f), sn.factor[j])
+                       : 0.f;
+  }
+  if (blockIdx.x == 0) {
+    const int P = n_sub + n_sub * S;
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      float v = params[i];
+#pragma unroll
+      for (int j = 0; j < kMaxSub; ++j)
+        if (j == i && j < n_sub) v = W[j];
+      params_out[i] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxSub; ++j)
+      if (j == (int)threadIdx.x && j < n_sub) scale_out[j] = sc[j];
+  }
+  const int row_i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row_i >= n_rows) return;
+  d_out[row_i] = combine(W, feat + (size_t)row_i * n_sub, n_sub);
+}
+
 bool norms_of(int n_sub, const int* codes, const float* ps,
               const float* factors, SubNorms* sn) {
   if (n_sub < 1 || n_sub > kMaxSub || codes == nullptr || ps == nullptr)
@@ -276,5 +328,32 @@ extern "C" int pyabc_aggregate_refit(
   finish_kernel<<<warps_grid(n_rows > 0 ? n_rows : 1), kThreads, 0,
                   stream>>>(rows, n_rows, S, x0, params, sn, scale,
                             params_out, d_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// parts (n_shards, 6, n_sub) the shards' moment blocks of the value
+// columns; scale_code moments.cu's code (0 mean ... 6); factors a host
+// array of n_sub; params (n_sub + n_sub S,) the params in effect (their sub
+// weights are copied); feat (n_rows, n_sub) the reservoir's value rows;
+// mom_out (6, n_sub) scratch -> scale_out (n_sub,), params_out, d_out
+// (n_rows,).
+extern "C" int pyabc_aggregate_finish_shards(
+    const float* parts, int n_shards, int n_sub, int S, int scale_code,
+    const float* factors, const float* params, const float* feat,
+    int n_rows, float* mom_out, float* scale_out, float* params_out,
+    float* d_out, void* stream_ptr) {
+  if (n_shards <= 0 || n_sub < 1 || n_sub > kMaxSub || S <= 0 ||
+      factors == nullptr || scale_code < 0 || scale_code > pyabc_m::kStdObs ||
+      n_rows < 0 || (n_rows > 0 && (feat == nullptr || d_out == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SubNorms sn{};
+  sn.n = n_sub;
+  for (int j = 0; j < n_sub; ++j) sn.factor[j] = factors[j];
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  pyabc_m::combine_shards(parts, n_shards, n_sub, mom_out, stream);
+  const int blocks = n_rows > 0 ? (n_rows + kThreads - 1) / kThreads : 1;
+  finish_shards_kernel<<<blocks, kThreads, 0, stream>>>(
+      mom_out, n_sub, S, scale_code, sn, params, feat, n_rows, scale_out,
+      params_out, d_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,8 +43,13 @@
 // counters[1], the round the lanes of the next round draw at. Under an
 // adaptive distance each written row also gets its distance-feature row
 // |x - x0|^p (x*x at p = 2, |x - x0| at p = 1 or inf), which the moment
-// finish reads back (K24d). There is no record ring: the sharded adaptive
-// refit folds moments instead (K24d's fold).
+// finish reads back (K24d). Given-rows feature mode (feat_rows non-null,
+// an adaptive aggregated distance): the feature row is the lane's F given
+// values (K25's sub-distances of the round, pyabc_tpu/inference/util.py:
+// 590-595 with device_sharded_dfeat's row, aggregate.py:340-343), copied
+// bit for bit into the (n_cap, F) feature rows in place of |x - x0|^p.
+// There is no record ring: the sharded adaptive refit folds moments
+// instead (K24d's fold).
 //
 // Bound on an H100: bytes (each lane's row is read once, each accepted or
 // recorded row written once). The design is deliberately simple and
@@ -84,7 +89,8 @@ __device__ void compact_lanes(
     float* __restrict__ res_ss, float* __restrict__ res_dist,
     float* __restrict__ res_logw, int* __restrict__ res_slot,
     int* __restrict__ res_m, float* __restrict__ res_feat,
-    const float* __restrict__ x0, float p, int rec_cap,
+    const float* __restrict__ x0, float p,
+    const float* __restrict__ feat_rows, int F, int rec_cap,
     float* __restrict__ rec_ss, float* __restrict__ rec_dist,
     uint8_t* __restrict__ rec_acc, uint8_t* __restrict__ rec_valid,
     float* __restrict__ rec_theta, float* __restrict__ rec_logq,
@@ -143,11 +149,19 @@ __device__ void compact_lanes(
       const int q = s_pos[j];
       if (q >= 0) {
         res_ss[(size_t)q * S + k] = val;
-        if (res_feat != nullptr)
+        if (res_feat != nullptr && feat_rows == nullptr)
           res_feat[(size_t)q * S + k] = dist_feature(val, x0[k], p);
       }
       const int g = s_ring[j];
       if (g >= 0) rec_ss[(size_t)g * S + k] = val;
+    }
+    if (res_feat != nullptr && feat_rows != nullptr) {
+      for (int idx = tid; idx < cnt * F; idx += kThreads) {
+        const int j = idx / F, k = idx - j * F;
+        const int q = s_pos[j];
+        if (q >= 0)
+          res_feat[(size_t)q * F + k] = feat_rows[(row0 + j) * F + k];
+      }
     }
     for (int idx = tid; idx < cnt * d; idx += kThreads) {
       const int j = idx / d, k = idx - j * d;
@@ -188,9 +202,9 @@ compact_round_kernel(int B, int S, int d, const uint8_t* __restrict__ accept,
   int taken, n_valid;
   compact_lanes(0, B, S, d, r, n_acc0, n_cap, accept, valid, theta, ss,
                 dist, logw, logq, m, ring_valid, res_theta, res_ss, res_dist,
-                res_logw, res_slot, res_m, nullptr, nullptr, 2.f, rec_cap,
-                rec_ss, rec_dist, rec_acc, rec_valid, rec_theta, rec_logq,
-                taken, n_valid);
+                res_logw, res_slot, res_m, nullptr, nullptr, 2.f, nullptr, 0,
+                rec_cap, rec_ss, rec_dist, rec_acc, rec_valid, rec_theta,
+                rec_logq, taken, n_valid);
   if (threadIdx.x == 0) {
     counters[0] = n_acc0 + taken;
     counters[1] = r + 1;
@@ -215,7 +229,9 @@ compact_shards_kernel(int n_shards, int B_loc, int S, int d,
                       float* __restrict__ res_logw,
                       int* __restrict__ res_slot, int* __restrict__ res_m,
                       float* __restrict__ res_feat,
-                      const float* __restrict__ x0, float p, int max_rounds,
+                      const float* __restrict__ x0, float p,
+                      const float* __restrict__ feat_rows, int F,
+                      int max_rounds,
                       int* __restrict__ counters, int* __restrict__ table) {
   const int s = blockIdx.x;
   if (s == 0 && threadIdx.x == 0) counters[1] += 1;
@@ -231,9 +247,9 @@ compact_shards_kernel(int n_shards, int B_loc, int S, int d,
                 theta, ss, dist, logw, nullptr, m, nullptr, res_theta + o * d,
                 res_ss + o * S, res_dist + o, res_logw + o, res_slot + o,
                 res_m != nullptr ? res_m + o : nullptr,
-                res_feat != nullptr ? res_feat + o * S : nullptr, x0, p, 0,
-                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, taken,
-                n_valid);
+                res_feat != nullptr ? res_feat + o * F : nullptr, x0, p,
+                feat_rows, F, 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, taken, n_valid);
   if (threadIdx.x == 0) {
     row[0] = n_acc0 + taken;
     row[1] = r + 1;
@@ -271,15 +287,19 @@ extern "C" int pyabc_compact_shards(
     const float* dist, const float* logw, const int* m, int cap_loc,
     float* res_theta, float* res_ss, float* res_dist, float* res_logw,
     int* res_slot, int* res_m, float* res_feat, const float* x0, float p,
-    int max_rounds, int* counters, int* table, void* stream_ptr) {
+    const float* feat_rows, int F, int max_rounds, int* counters, int* table,
+    void* stream_ptr) {
+  // the feature rows: |x - x0|^p (F = S, x0 given) or the given rows
+  const bool given = feat_rows != nullptr;
   if (n_shards <= 0 || B_loc <= 0 || cap_loc <= 0 ||
       (m == nullptr) != (res_m == nullptr) ||
-      (res_feat != nullptr && x0 == nullptr))
+      (res_feat != nullptr && !given && (x0 == nullptr || F != S)) ||
+      (given && (res_feat == nullptr || F <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   compact_shards_kernel<<<n_shards, kThreads, 0, stream>>>(
       n_shards, B_loc, S, d, accept, valid, theta, ss, dist, logw, m,
       cap_loc, res_theta, res_ss, res_dist, res_logw, res_slot, res_m,
-      res_feat, x0, p, max_rounds, counters, table);
+      res_feat, x0, p, feat_rows, F, max_rounds, counters, table);
   return static_cast<int>(cudaGetLastError());
 }

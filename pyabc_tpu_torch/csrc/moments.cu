@@ -24,11 +24,11 @@
 // that change from run to run; here the sums depend on the data only. The
 // round index is read on the device: the fold costs no host read.
 //
-// Finish: one block turns the block into the (S,) scale (n = max(count,
-// 1), mean = sum / n, the one-pass variance max(E[x^2] - mean^2, 0) of
-// the JAX package), then weights.cuh's weights (1 / scale, the
-// max_weight_ratio clip, mean 1) and the weighted p-norm distances of the
-// accepted rows under them. The scales are written with the _rn
+// Finish: one block turns the block into the (S,) scale (moments.cuh's
+// scale_of: n = max(count, 1), mean = sum / n, the one-pass variance
+// max(E[x^2] - mean^2, 0) of the JAX package), then weights.cuh's weights
+// (1 / scale, the max_weight_ratio clip, mean 1) and the weighted p-norm
+// distances of the accepted rows under them. The scales are written with the _rn
 // intrinsics: one rounding per operation, as the plain version's.
 //
 // Shard mode (K24d, sharded fused sampling under an adaptive distance):
@@ -54,18 +54,15 @@
 // past the window. Pass 1 reads each column strided, so the card fetches
 // whole sectors of the rows and again from L2 for each column a sector
 // holds. The finish reads the (6, S) block and the rows (n_cap x S).
-#include "weights.cuh"
+#include "moments.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 6;
-constexpr int kRoundsCounter = 1;  // counters layout: n_acc, rounds, ...
+using pyabc_m::kRows;
+using pyabc_m::kStdObs;
 
-// scale codes: the order of pyabc_tpu_torch/kernels/moments.py
-enum MomentScale {
-  kMean = 0, kBias, kSpan, kStd, kRmsd, kMeanAdObs, kStdObs
-};
+constexpr int kThreads = 256;
+constexpr int kRoundsCounter = 1;  // counters layout: n_acc, rounds, ...
 
 __global__ void __launch_bounds__(kThreads)
 fold_part_kernel(const float* __restrict__ ss, int B, int S,
@@ -141,53 +138,14 @@ fold_add_kernel(float* __restrict__ mom, int S,
   mom[5 * S + c] = pyabc_w::nan_min(mom[5 * S + c], mn);
 }
 
-// max(v, 0) with NaN kept (jnp.maximum)
-__device__ __forceinline__ float clamp0(float v) {
-  return isnan(v) ? v : fmaxf(v, 0.f);
-}
-
-__device__ float scale_of(int code, int c, int S, const float* mom,
-                          const float* x0) {
-  const float s = mom[c], sq = mom[S + c], ad = mom[2 * S + c];
-  const float cnt = mom[3 * S + c];
-  const float n = isnan(cnt) ? cnt : fmaxf(cnt, 1.f);
-  const float mean = __fdiv_rn(s, n);
-  const float xo = x0[c];
-  const float var =
-      clamp0(__fsub_rn(__fdiv_rn(sq, n), __fmul_rn(mean, mean)));
-  switch (code) {
-    case kMean:
-      return mean;
-    case kBias:
-      return fabsf(__fsub_rn(mean, xo));
-    case kSpan:
-      return __fsub_rn(mom[4 * S + c], mom[5 * S + c]);
-    case kStd:
-      return __fsqrt_rn(var);
-    case kRmsd: {
-      const float d = __fsub_rn(mean, xo);
-      return __fsqrt_rn(__fadd_rn(__fmul_rn(d, d), var));
-    }
-    case kMeanAdObs:
-      return __fdiv_rn(ad, n);
-    case kStdObs: {
-      const float num =
-          __fadd_rn(__fsub_rn(sq, __fmul_rn(__fmul_rn(2.f, xo), s)),
-                    __fmul_rn(__fmul_rn(cnt, xo), xo));
-      return __fsqrt_rn(clamp0(__fdiv_rn(num, n)));
-    }
-  }
-  return NAN;
-}
-
 __global__ void __launch_bounds__(1024)
 finish_kernel(int code, int S, const float* __restrict__ mom,
               const float* __restrict__ x0, float max_ratio, int normalize,
               float* __restrict__ scale_out, float* __restrict__ w_out) {
   __shared__ float s_warp[32];
   pyabc_w::finish_weights(
-      [&](int c) { return scale_of(code, c, S, mom, x0); }, S, max_ratio,
-      normalize, scale_out, w_out, s_warp);
+      [&](int c) { return pyabc_m::scale_of(code, c, S, mom, x0[c]); }, S,
+      max_ratio, normalize, scale_out, w_out, s_warp);
 }
 
 __device__ __forceinline__ int shard_running(const int* counters,
@@ -239,23 +197,6 @@ fold_shards_kernel(float* __restrict__ mom, const float* __restrict__ ss,
   out[3 * S] = out[3 * S] + cnt;
   out[4 * S] = nan_max(out[4 * S], mx);
   out[5 * S] = pyabc_w::nan_min(out[5 * S], mn);
-}
-
-// one thread a column: the shards' blocks merged in shard order
-__global__ void __launch_bounds__(kThreads)
-combine_shards_kernel(const float* __restrict__ parts, int n_shards, int S,
-                      float* __restrict__ mom) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= S) return;
-  for (int r = 0; r < kRows; ++r) {
-    float acc = parts[(size_t)r * S + c];
-    for (int s = 1; s < n_shards; ++s) {
-      const float v = parts[((size_t)s * kRows + r) * S + c];
-      acc = r < 4 ? acc + v : r == 4 ? nan_max(acc, v)
-                                     : pyabc_w::nan_min(acc, v);
-    }
-    mom[(size_t)r * S + c] = acc;
-  }
 }
 
 // one warp a row: (sum_c w_c^p f_c)^(1/p), max_c w_c f_c at p = inf
@@ -312,8 +253,7 @@ extern "C" int pyabc_moment_finish_shards(
   if (n_shards <= 0 || S <= 0 || code < 0 || code > kStdObs)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  combine_shards_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0,
-                          stream>>>(parts, n_shards, S, mom_out);
+  pyabc_m::combine_shards(parts, n_shards, S, mom_out, stream);
   finish_kernel<<<1, 1024, 0, stream>>>(code, S, mom_out, x0, max_ratio,
                                         normalize, scale_out, w_out);
   if (feat != nullptr && n_rows > 0) {

@@ -17,7 +17,17 @@ each refit (without the factors), as the JAX package's does.
 
 Served as in the JAX package's fused path: plain ``PNormDistance``
 sub-distances, at most ``MAX_SUB`` of them; an adaptive aggregate with a
-built-in one-argument scale and no sub-distance schedule. The distances of
+built-in one-argument scale and no sub-distance schedule.
+
+Sharded sampling (``ABCSMC(..., sharded=n)``): a fixed or scheduled
+aggregate runs as unsharded; an adaptive one whose scale has a moment form
+(``sharded_scale_capable``: span, mean or standard deviation) folds each
+shard's value columns, the ``n`` sub-distances of every ring-eligible
+evaluation, into a ``(6, n)`` moment block (K24d's fold over K25's value
+rows), stores each accepted row's value row (K24a's given-rows mode) and
+refits from the combined blocks (``refit_sharded``: K25's sharded finish).
+Its first weights come from the calibration's prior sample through K25's
+refit (``host_initialize``). The distances of
 the JAX package's ``DistanceWithMeasureList`` family (``ZScoreDistance``,
 ``PCADistance``, ``RangeEstimatorDistance``, ``MinMaxDistance``,
 ``PercentileDistance``) run on its host loop only and are not ported.
@@ -29,7 +39,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..kernels.aggregate import MAX_SUB, aggregate_refit
+from ..kernels.aggregate import MAX_SUB, aggregate_finish, aggregate_refit
 from ..kernels.segment_round import BOUND_RTOL, agg_total, bound_fold
 from ..ops.scale_reduce import SHARDED_SCALE_NAMES
 from ..utils import not_ported
@@ -86,6 +96,26 @@ class AggregatedDistance:
         self.spec = spec
         for d in self.distances:
             d.initialize(spec)
+
+    def _feature_dim(self) -> int:
+        """The width of a row's distance features in a sharded run: its
+        ``n`` sub-distances (a p-norm's is S)."""
+        return len(self.distances)
+
+    def host_initialize(self, t: int, get_all_sum_stats=None,
+                        x_0=None, device=None, sync_ledger=None) -> None:
+        """``initialize`` at t of the host calibration (``aggregate.py:43``
+        of the JAX package): the plain sub-distances fit nothing."""
+
+    def host_batch(self, ss_mat: np.ndarray, x0_flat: np.ndarray,
+                   t: int | None = None) -> np.ndarray:
+        """The distances of the rows of an ``(n, S)`` matrix under the
+        weights of generation t, in float64 numpy (the JAX package's
+        ``__call__``)."""
+        W = self._weights_for(t) * self.factors
+        vals = np.stack([d.host_batch(ss_mat, x0_flat, t)
+                         for d in self.distances], 1)
+        return vals @ np.asarray(W, np.float64)
 
     def _weights_for(self, t: int | None) -> np.ndarray:
         """The top-level weights in effect at generation t (latest key in
@@ -204,6 +234,30 @@ class AdaptiveAggregatedDistance(AggregatedDistance):
     def requires_calibration(self) -> bool:
         return True
 
+    def host_initialize(self, t: int, get_all_sum_stats=None,
+                        x_0=None, device=None, sync_ledger=None) -> None:
+        """The weights of generation t fitted on the calibration sample
+        (``aggregate.py:160-196`` of the JAX package) through one K25
+        refit on ``device`` (the run's): ``W = factors / scale`` of the
+        sub-distances' values over the sample's rows (sent there in one
+        copy), read back in one ``scale_fetch`` recorded in
+        ``sync_ledger``. The host mirror keeps W without the factors."""
+        from ..observability.sync import SyncLedger, to_host
+
+        if get_all_sum_stats is None:
+            return
+        ring = torch.as_tensor(np.asarray(get_all_sum_stats(), np.float32),
+                               device=device)
+        valid = torch.ones(ring.shape[0], dtype=torch.bool,
+                           device=ring.device)
+        x0 = torch.as_tensor(np.asarray(x_0, np.float32), device=ring.device)
+        params, _d = self.refit(ring, valid, x0, None,
+                                self.device_params(t, ring.device))
+        new = to_host({"w": params[:len(self.distances)]},
+                      sync_ledger if sync_ledger is not None
+                      else SyncLedger(), "scale_fetch")["w"]
+        self.weights[int(t)] = self.host_weights(new)
+
     def device_scale_impl(self) -> str | None:
         """The name of the built-in one-argument scale K25's refit runs, or
         None where only the JAX package's host loop can run it (a custom
@@ -214,11 +268,22 @@ class AdaptiveAggregatedDistance(AggregatedDistance):
         name = builtin_scale_name(self.scale_function)
         return None if name in _TWO_ARG_SCALES else name
 
+    def _subs_device_constant(self) -> bool:
+        """True when every sub-distance is a plain, generation-constant
+        ``PNormDistance`` (``aggregate.py:231-241`` of the JAX package):
+        the sharded refit copies the sub weights of the params in
+        effect."""
+        return all(type(d) is PNormDistance and d.sumstat is None
+                   and not is_schedule(d._weights_arg)
+                   for d in self.distances)
+
     def sharded_scale_capable(self) -> bool:
-        """True when the scale has a moment form (the JAX package's gate
-        for a refit over resolved candidates); an aggregate then still
-        reads whole rows, which the early-reject gate refuses."""
-        return self.device_scale_impl() in SHARDED_SCALE_NAMES
+        """The JAX package's gate (``aggregate.py:287``): adaptive, the
+        sub-distances constant, and a built-in one-argument scale with a
+        moment form (span, mean, standard deviation). Under early reject an
+        aggregate still reads whole rows, which that gate refuses."""
+        return (self.adaptive and self._subs_device_constant()
+                and self.device_scale_impl() in SHARDED_SCALE_NAMES)
 
     def refit(self, samples: torch.Tensor, valid: torch.Tensor,
               x0: torch.Tensor, rows: torch.Tensor, params: torch.Tensor):
@@ -229,6 +294,22 @@ class AdaptiveAggregatedDistance(AggregatedDistance):
             samples, valid, x0, params, ps=self.ps,
             factors=tuple(float(f) for f in self.factors),
             scale_name=self.device_scale_impl(), rows=rows)
+        return new, d
+
+    def refit_sharded(self, mom: torch.Tensor, x0: torch.Tensor,
+                      feat: torch.Tensor, params: torch.Tensor):
+        """The sharded generation step's refit in one K25 sharded finish
+        (the JAX package's ``device_sharded_reduce``, ``device_weight_update``
+        and ``device_sharded_dfeat``'s ``combine``, ``aggregate.py:298-362``,
+        as ``util.py:2670-2700`` runs them): the ``(n, 6, n_sub)`` shard
+        blocks of the value columns combined in shard order, the scale
+        against a zero observation (``x0`` plays no part), ``W = factors /
+        scale``, the sub weights of ``params`` (the params in effect)
+        kept, and the distances of the reservoir's value rows ``feat``
+        (K24a's) under the new W -> (params, distances)."""
+        _scale, new, d = aggregate_finish.shards(
+            mom, feat, params, factors=tuple(float(f) for f in self.factors),
+            scale_name=self.device_scale_impl())
         return new, d
 
     def __repr__(self):

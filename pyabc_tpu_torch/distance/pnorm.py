@@ -111,9 +111,10 @@ class PNormDistance:
         """A fixed p-norm needs no records."""
 
     def host_initialize(self, t: int, get_all_sum_stats=None,
-                        x_0=None) -> None:
+                        x_0=None, device=None, sync_ledger=None) -> None:
         """The per-generation host loop's ``initialize`` (``pnorm.py:67``
-        of the JAX package) after ``initialize(spec)``: nothing to fit."""
+        of the JAX package) after ``initialize(spec)``: nothing to fit
+        (the run's ``device`` and ``sync_ledger`` play no part)."""
 
     def update(self, t: int, get_all_sum_stats=None,
                population=None) -> bool:
@@ -338,9 +339,11 @@ class AdaptivePNormDistance(PNormDistance):
             sampler.sample_factory.record_rejected = True
 
     def host_initialize(self, t: int, get_all_sum_stats=None,
-                        x_0=None) -> None:
+                        x_0=None, device=None, sync_ledger=None) -> None:
         """The host loop's ``initialize`` (``pnorm.py:381``): the weights
-        of generation t fitted on the calibration sample."""
+        of generation t fitted on the calibration sample (a ring left on
+        the card is reduced there; ``device`` and ``sync_ledger`` play no
+        part)."""
         self._x_0 = None if x_0 is None else np.asarray(x_0, np.float64)
         if get_all_sum_stats is not None:
             self._fit(t, get_all_sum_stats())
@@ -409,7 +412,7 @@ class AdaptivePNormDistance(PNormDistance):
         return w, d
 
     def refit_sharded(self, mom: torch.Tensor, x0: torch.Tensor,
-                      feat: torch.Tensor):
+                      feat: torch.Tensor, params=None):
         """The sharded generation step's refit in one K24d finish
         (``pyabc_tpu`` ``device_sharded_reduce`` and the ``combine`` of
         ``device_sharded_dfeat``, ``pnorm.py:447-491``): the ``(n, 6, S)``
@@ -417,7 +420,8 @@ class AdaptivePNormDistance(PNormDistance):
         and the distances of the reservoir's feature rows ``feat`` (``|x -
         x0|^p``, K24a's at accept time) under them as ``(sum w^p
         f)^(1/p)``, the JAX package's declared floating-point form ->
-        (weights, distances)."""
+        (weights, distances). The weights in effect (``params``) play no
+        part."""
         _scale, w, d = moment_finish.shards(
             mom, x0, feat, scale_name=builtin_scale_name(self.scale_function),
             max_weight_ratio=self.max_weight_ratio,

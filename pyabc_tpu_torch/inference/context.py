@@ -153,7 +153,13 @@ generation's totals, which the generation step reads in place of the
 first-n mask; an adaptive distance refits from the combined moment blocks
 and recomputes the distances from the stored feature rows (K24d's finish);
 the MVN refit follows the chunk cadence the caller decides. The chunk's
-fetch merges the rows into dense order (K24c).
+fetch merges the rows into dense order (K24c). Under an adaptive
+aggregated distance the columns are the n sub-distances: K25's accept
+writes each lane's values beside its distance (its value-rows mode, the
+lanes' ``vals``), K24d folds them against a zero observation, K24a stores
+an accepted lane's as its feature row (its given-rows mode), and K25's
+sharded finish refits W and recomputes the distances; a fixed or
+scheduled aggregate runs as unsharded.
 
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * stride_rounds +
@@ -392,6 +398,10 @@ class DeviceContext:
         self.seg_moments: torch.Tensor | None = None
         #: the generation's rounds as the host last read them
         self.rounds_read = 0
+        #: a sharded adaptive aggregate's generation: K25's accept also
+        #: writes the round's (B, n) sub-distances (``lane_values``)
+        self.value_rows = False
+        self.lane_values = None
         #: K18's transformed-bound operands of the generation in progress
         self.lin_bp: dict | None = None
         #: a transforming statistic's entries (accept, transform), by its
@@ -545,6 +555,15 @@ class DeviceContext:
                 ss, self.x0, dist_w["ss"], dist_w["w"], eps, valid,
                 p=self.distance.p, hist_min=hist_min, logpri=logpri,
                 logq=logq)
+        if self.distance.aggregated and self.value_rows:
+            # K25's value-rows mode: the sub-distances it summed, for K24d's
+            # fold and K24a's feature rows
+            d, accept, logw, self.lane_values = (
+                aggregate_accept_weight.value_rows(
+                    ss, self.x0, dist_w, eps, valid, ps=self.distance.ps,
+                    hist_min=hist_min, logpri=logpri, logq=logq,
+                    **model_terms))
+            return d, accept, logw
         if self.distance.aggregated:
             return aggregate_accept_weight(
                 ss, self.x0, dist_w, eps, valid, ps=self.distance.ps,
@@ -580,7 +599,8 @@ class DeviceContext:
                 lane_m=m)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
-                    "logq": logpri, "m": m, "ring_valid": keep}
+                    "logq": logpri, "m": m, "ring_valid": keep,
+                    **self._values_of_round()}
         theta, logpri, valid = propose(self.stream(t, tag), B,
                                        self.prior_arrays)
         ss, d, accept, logw, keep = self._simulate_accept(
@@ -588,7 +608,8 @@ class DeviceContext:
         # the record's proposal density: the prior's (K = 1)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
-                "logq": logpri, "ring_valid": keep}
+                "logq": logpri, "ring_valid": keep,
+                **self._values_of_round()}
 
     def lanes_transition(self, params: dict, eps: torch.Tensor,
                          dist_w: torch.Tensor,
@@ -617,7 +638,8 @@ class DeviceContext:
                 log_model_factor=carry.log_model_factor)
             return {"theta": theta, "sumstats": ss, "distance": d,
                     "accepted": accept, "valid": valid, "log_weight": logw,
-                    "logq": logq, "m": m, "ring_valid": keep}
+                    "logq": logq, "m": m, "ring_valid": keep,
+                    **self._values_of_round()}
         draw = propose_local if self.local else propose
         theta, logpri, valid = draw(self.stream(t, philox.TRANSITION),
                                     B, self.prior_arrays, params)
@@ -628,7 +650,17 @@ class DeviceContext:
             logpri=logpri, logq=logq)
         return {"theta": theta, "sumstats": ss, "distance": d,
                 "accepted": accept, "valid": valid, "log_weight": logw,
-                "logq": logq, "ring_valid": keep}
+                "logq": logq, "ring_valid": keep,
+                **self._values_of_round()}
+
+    def _values_of_round(self) -> dict:
+        """``{"vals": the round's (B, n) sub-distances}`` in a sharded
+        adaptive aggregate's generation (K25's value-rows mode), else
+        nothing."""
+        if not self.value_rows:
+            return {}
+        vals, self.lane_values = self.lane_values, None
+        return {"vals": vals}
 
     # --------------------------------------------------------- generation
     def generation_while(self, lanes, n_target: int | torch.Tensor,
@@ -689,42 +721,59 @@ class DeviceContext:
         (with the distance-feature rows); the host reads the generation's
         counters and the ``(n, 4)`` table in one copy, the round's only
         sync. K24b then forms the kept-row mask and the totals on the
-        device. There is no record ring: the moment blocks replace it."""
+        device. There is no record ring: the moment blocks replace it.
+        Under an adaptive aggregated distance the fold's and the feature
+        rows' columns are the lanes' sub-distances (``vals``, K25's
+        value-rows mode), folded against a zero observation (the JAX
+        package's ``x0_cols``, ``aggregate.py:323``)."""
         n = self.n_shards
         dev = self.device
         res = self.new_reservoir()
+        values = adaptive and self.distance.aggregated
+        # the columns of the fold and of the feature rows: S statistics,
+        # or an aggregate's n sub-distances
+        F = self.distance._feature_dim() if values else self.S
+        x0_cols = (torch.zeros(F, dtype=torch.float32, device=dev) if values
+                   else self.x0)
         if adaptive:
-            res["dfeat"] = torch.zeros(self.n_cap, self.S,
-                                       dtype=torch.float32, device=dev)
+            res["dfeat"] = torch.zeros(self.n_cap, F, dtype=torch.float32,
+                                       device=dev)
         buf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
         counters, table = buf[:5], buf[5:].view(n, 4)
         self.counters = counters
         if eps_at_min is not None:
             counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
         counters[N_TARGET] = int(n_target)
-        mom = (init_moments(self.S, dev).expand(n, -1, -1).contiguous()
+        mom = (init_moments(F, dev).expand(n, -1, -1).contiguous()
                if adaptive else None)
         quota = shard_quota_host(n_target, n)
         p = float(getattr(self.distance, "p", 2.0))
         self.rounds_read = 0
-        while True:
-            out = lanes()
-            if mom is not None:
-                moment_fold.shards(mom, out["sumstats"], out["valid"],
-                                   self.x0, counters, table, n_shards=n,
-                                   rec_cap=self.rec_cap,
-                                   max_rounds=self.max_rounds)
-            compact_round.shards(
-                out["accepted"], out["valid"], out["theta"], out["sumstats"],
-                out["distance"], out["log_weight"], res, counters, table,
-                n_shards=n, max_rounds=self.max_rounds,
-                m=out["m"] if self.K > 1 else None, x0=self.x0, p=p)
-            host = buf.cpu()
-            self.sync_ledger.record("round_counters", host.nbytes)
-            tab = host[5:].view(n, 4).numpy()
-            self.rounds_read = int(host[ROUNDS])
-            if ((tab[:, 0] >= quota) | (tab[:, 1] >= self.max_rounds)).all():
-                break
+        self.value_rows = values
+        try:
+            while True:
+                out = lanes()
+                cols = out["vals"] if values else out["sumstats"]
+                if mom is not None:
+                    moment_fold.shards(mom, cols, out["valid"], x0_cols,
+                                       counters, table, n_shards=n,
+                                       rec_cap=self.rec_cap,
+                                       max_rounds=self.max_rounds)
+                compact_round.shards(
+                    out["accepted"], out["valid"], out["theta"],
+                    out["sumstats"], out["distance"], out["log_weight"], res,
+                    counters, table, n_shards=n, max_rounds=self.max_rounds,
+                    m=out["m"] if self.K > 1 else None, x0=self.x0, p=p,
+                    feat_rows=cols if values else None)
+                host = buf.cpu()
+                self.sync_ledger.record("round_counters", host.nbytes)
+                tab = host[5:].view(n, 4).numpy()
+                self.rounds_read = int(host[ROUNDS])
+                if ((tab[:, 0] >= quota)
+                        | (tab[:, 1] >= self.max_rounds)).all():
+                    break
+        finally:
+            self.value_rows = False
         cap_loc = self.n_cap // n
         _quota, k_mask, summary = shard_mask(counters, table, n_shards=n,
                                              cap_loc=cap_loc)
@@ -1244,9 +1293,10 @@ class DeviceContext:
                 plan=sumstat_fit)
         elif adaptive and self.n_shards:
             # sharded: the shards' moment blocks combined in shard order,
-            # the distances from the stored feature rows (K24d)
+            # the distances from the stored feature rows (K24d's finish, or
+            # K25's sharded finish for an aggregated distance)
             dist_w_next, d_new = self.distance.refit_sharded(
-                run.mom, self.x0, res["dfeat"])
+                run.mom, self.x0, res["dfeat"], params=carry.dist_w)
         elif adaptive and run.mom is not None:
             # early reject: the refit over every resolved candidate's
             # simulated columns (K22), not the completed-only ring

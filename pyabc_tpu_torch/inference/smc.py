@@ -140,10 +140,14 @@ the fetch (K24c). The calibration runs on the host through the sampler;
 the MVN proposal refits at the chunk cadence (``refit_every``, default
 ``fused_generations``, and the run's first generation; History's telemetry
 holds each generation's ``refit``); an ``AdaptivePNormDistance`` whose
-scale has a moment form refits from per-shard moment blocks (K24d). One
-model or several, a constant or listed size, a ``PNormDistance`` or such
-an adaptive distance, a quantile epsilon and the ``UniformAcceptor`` run
-sharded; every other configuration the JAX package shards raises
+scale has a moment form refits from per-shard moment blocks (K24d), an
+``AdaptiveAggregatedDistance`` whose scale has one from per-shard blocks
+of its sub-distances (K25's value rows and sharded finish, K24a's given
+rows), its first weights from the calibration sample through K25's
+refit. One model or several, a constant or listed size, a
+``PNormDistance`` (a weight schedule too), an aggregated distance (fixed,
+scheduled or adaptive as above) or such an adaptive p-norm, a quantile
+epsilon and the ``UniformAcceptor`` run sharded; every other configuration the JAX package shards raises
 ``not_ported`` naming itself, and one it does not shard raises its
 ``ValueError``. ``sharded=True``, ``None`` or ``1`` is unsharded, as the
 JAX package without a mesh.
@@ -184,8 +188,7 @@ from ..distance.kernel import (BinomialKernel, IndependentLaplaceKernel,
                                IndependentNormalKernel,
                                NegativeBinomialKernel, NormalKernel,
                                PoissonKernel, StochasticKernel)
-from ..distance.pnorm import (AdaptivePNormDistance, PNormDistance,
-                              is_schedule)
+from ..distance.pnorm import AdaptivePNormDistance, PNormDistance
 from ..epsilon.base import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                             QuantileEpsilon)
 from ..epsilon.temperature import (ListTemperature, Temperature,
@@ -548,16 +551,11 @@ class ABCSMC:
             return "a StochasticAcceptor or a temperature"
         if getattr(d, "sumstat", None) is not None:
             return "learned summary statistics"
-        if isinstance(d, (AggregatedDistance, AdaptiveAggregatedDistance)):
-            return (f"an {type(d).__name__} (K25's sharded twins, "
-                    f"pyabc_tpu/distance/aggregate.py:298, :330)")
         if isinstance(self.population_strategy, AdaptivePopulationSize):
             return "an AdaptivePopulationSize"
         for tr in self.transitions:
             if type(tr) in (GridSearchCV, LocalTransition):
                 return f"a {type(tr).__name__}"
-        if is_schedule(getattr(d, "_weights_arg", None)):
-            return "a user weight schedule"
         return None
 
     def _sumstat_gate(self, distance, priors) -> None:
@@ -1129,7 +1127,9 @@ class ABCSMC:
             # sharded chunks calibrate on the host, through the sampler
             # (the JAX package's _fused_calibration_cfg is None, smc.py:
             # 2153-2157): the weights and epsilon of generation 0 reach
-            # the card as the carry's
+            # the card as the carry's; an adaptive aggregate's W come from
+            # the prior sample through K25's refit on the card
+            # (AdaptiveAggregatedDistance.host_initialize)
             self._host_calibration(ctx, max_nr_populations)
             carry.dist_w = d.device_params(0, self.device)
             carry.eps = self._scalar(self.eps(0))
@@ -1386,7 +1386,8 @@ class ABCSMC:
                 n_calib, self._generation_spec(0, calibration=True), -1,
                 all_accepted=True)
             all_ss = self._all_sumstats_provider(sample)
-            d.host_initialize(0, all_ss, x0)
+            d.host_initialize(0, all_ss, x0, device=self.device,
+                              sync_ledger=self.sync_ledger)
             calib_distances = d.host_batch(np.asarray(all_ss(), np.float64),
                                            x0, 0)
         else:

@@ -5,7 +5,8 @@ its CUDA kernel (``pyabc_tpu_torch/csrc``) on CUDA tensors. Importing this
 package builds nothing: the kernels are compiled at first launch.
 """
 from .aggregate import (aggregate_accept_weight,
-                        aggregate_accept_weight_plain, aggregate_refit,
+                        aggregate_accept_weight_plain, aggregate_finish,
+                        aggregate_finish_shards_plain, aggregate_refit,
                         aggregate_refit_plain)
 from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_density_plain, bootstrap_draw_plain,
@@ -62,8 +63,9 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K16, K19, K20, K20b family (unsegmented and segmented), K20b network,
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
-#: the GP transform, K17, K4's Gaussian simulator, K24b's shard mask; K24a,
-#: K24c and K24d are the shard and merge modes of K6, K10 and K22)
+#: the GP transform, K17, K4's Gaussian simulator, K24b's shard mask, K25's
+#: sharded finish; K24a, K24c and K24d are the shard and merge modes of
+#: K6, K10 and K22)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -74,7 +76,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
            mlp_accept, gp_accept, grid_search_cv, gaussian_simulate,
-           shard_mask)
+           shard_mask, aggregate_finish)
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +93,8 @@ def launch_counts() -> dict[str, int]:
 def mode_launch_counts() -> dict[str, int]:
     """Launches in a kernel's modes, keyed ``"name:mode"`` (K18's
     ``adaptive``, ``k_gt_1``, ``stochastic`` and ``aggregate``, K16's six
-    entries, K25's values mode, K23's transform and values entries, linear
+    entries, K25's values and value-rows modes and its sharded finish,
+    K24a's shard and given-rows modes, K23's transform and values entries, linear
     and MLP, the GP transform's, and LocalTransition's: K2's and K14's K >
     1 ``models`` modes, K15's, and K12's and K13's ``models`` and
     ``bootstrap`` launches, K17's K > 1 ``models`` mode); each also counts
@@ -102,6 +105,7 @@ def mode_launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS", "aggregate_accept_weight", "aggregate_accept_weight_plain",
+    "aggregate_finish", "aggregate_finish_shards_plain",
     "aggregate_refit", "aggregate_refit_plain", "bootstrap_bisect_plain",
     "bootstrap_cv",
     "bootstrap_density_plain", "bootstrap_draw_plain", "bootstrap_fit_plain",

@@ -55,7 +55,7 @@ SIGNATURES = {
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_compact_shards": [
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-        _P, _P, _P, _F, _I, _P, _P, _P],
+        _P, _P, _P, _F, _P, _I, _I, _P, _P, _P],
     "pyabc_shard_mask": [_I, _I, _P, _P, _P, _P, _P, _P],
     "pyabc_temperature_update": [
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
@@ -136,6 +136,8 @@ SIGNATURES = {
     "pyabc_aggregate_refit": [
         _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
         _P, _P, _P, _P, _P],
+    "pyabc_aggregate_finish_shards": [
+        _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_ode_family_segments": [
         _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U,
         _U, _P, _P],

@@ -34,8 +34,11 @@ or its rounds at ``max_rounds``), compacts its lanes ``[s*B_loc,
 order and updates its row ``[n_acc, rounds, n_valid, -]`` of the int32
 ``(n, 4)`` counter table; ``counters[ROUNDS]`` (the round the lanes draw
 at) goes up by one. A reservoir with a ``dfeat`` column (an adaptive
-distance) also gets each written row's distance features ``|x - x0|^p``.
-Counted in ``mode_launches["shards"]``.
+distance) also gets each written row's distance features ``|x - x0|^p``,
+or, given ``feat_rows (B, F)`` (an adaptive aggregated distance: K25's
+sub-distances of the round), the lane's F given values, bit for bit, into
+an ``(n_cap, F)`` ``dfeat``. Counted in ``mode_launches["shards"]``, the
+given-rows launches also in ``mode_launches["given_rows"]``.
 """
 from __future__ import annotations
 
@@ -70,9 +73,11 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
                         m: torch.Tensor | None = None,
                         ring_valid: torch.Tensor | None = None,
                         x0: torch.Tensor | None = None,
-                        p: float = 2.0) -> None:
+                        p: float = 2.0,
+                        feat_rows: torch.Tensor | None = None) -> None:
     """Plain PyTorch version (in place); a reservoir with a ``dfeat``
-    column gets the written rows' distance features against ``x0``."""
+    column gets the written rows' distance features against ``x0``, or
+    their rows of ``feat_rows``."""
     B = accept.shape[0]
     n_cap = res["distance"].shape[0]
     acc = accept & valid
@@ -90,7 +95,8 @@ def compact_round_plain(accept, valid, theta, ss, dist, logw, res: dict,
     if m is not None:
         res["m"][idx] = m[write]
     if "dfeat" in res:
-        res["dfeat"][idx] = dfeat_rows(ss[write], x0, p)
+        res["dfeat"][idx] = (dfeat_rows(ss[write], x0, p) if feat_rows is None
+                             else feat_rows[write])
     if rec is not None:
         rec_cap = rec["distance"].shape[0]
         take = valid & (slots < rec_cap)
@@ -113,7 +119,8 @@ def compact_shards_plain(accept, valid, theta, ss, dist, logw, res: dict,
                          n_shards: int, max_rounds: int,
                          m: torch.Tensor | None = None,
                          x0: torch.Tensor | None = None,
-                         p: float = 2.0) -> None:
+                         p: float = 2.0,
+                         feat_rows: torch.Tensor | None = None) -> None:
     """Plain PyTorch version of the shard mode (in place): each running
     shard's block through the plain round, its table row as its
     counters."""
@@ -130,7 +137,8 @@ def compact_shards_plain(accept, valid, theta, ss, dist, logw, res: dict,
         compact_round_plain(accept[lanes], valid[lanes], theta[lanes],
                             ss[lanes], dist[lanes], logw[lanes], block, None,
                             table[s], m=None if m is None else m[lanes],
-                            x0=x0, p=p)
+                            x0=x0, p=p, feat_rows=None if feat_rows is None
+                            else feat_rows[lanes])
 
 
 class CompactRound(Kernel):
@@ -140,7 +148,8 @@ class CompactRound(Kernel):
 
     def __init__(self):
         super().__init__()
-        self.mode_launches = {"shards": 0}
+        #: shard-mode launches, and those of them with given feature rows
+        self.mode_launches = {"shards": 0, "given_rows": 0}
 
     def __call__(self, accept, valid, theta, ss, dist, logw, res: dict,
                  rec: dict | None, counters: torch.Tensor,
@@ -214,23 +223,29 @@ class CompactRound(Kernel):
     def shards(self, accept, valid, theta, ss, dist, logw, res: dict,
                counters: torch.Tensor, table: torch.Tensor, *, n_shards: int,
                max_rounds: int, m: torch.Tensor | None = None,
-               x0: torch.Tensor | None = None, p: float = 2.0) -> None:
+               x0: torch.Tensor | None = None, p: float = 2.0,
+               feat_rows: torch.Tensor | None = None) -> None:
         """K24a, the shard mode (in place): ``res`` the shard-blocked
         reservoir (with ``m`` under K > 1 and ``dfeat`` under an adaptive
-        distance, which reads ``x0`` and ``p``), ``counters`` the
-        generation's ``(5,)``, ``table`` the ``(n_shards, 4)`` rows."""
+        distance, which reads ``x0`` and ``p``, or the rows of ``feat_rows
+        (B, F)`` where given), ``counters`` the generation's ``(5,)``,
+        ``table`` the ``(n_shards, 4)`` rows."""
         if ("m" in res) != (m is not None):
             raise ValueError(f"{self.name}: a reservoir with an m column "
                              f"and the round's m go together")
         feat = "dfeat" in res
-        if feat and x0 is None:
+        if feat_rows is not None and not feat:
+            raise ValueError(f"{self.name}: given feature rows need a "
+                             f"dfeat column")
+        if feat and feat_rows is None and x0 is None:
             raise ValueError(f"{self.name}: distance features need x0")
-        extra = [t for t in (m, x0) if t is not None]
+        extra = [t for t in (m, x0, feat_rows) if t is not None]
         if self.on_cpu(accept, valid, theta, ss, dist, logw, counters, table,
                        *res.values(), *extra):
             compact_shards_plain(accept, valid, theta, ss, dist, logw, res,
                                  counters, table, n_shards=n_shards,
-                                 max_rounds=max_rounds, m=m, x0=x0, p=p)
+                                 max_rounds=max_rounds, m=m, x0=x0, p=p,
+                                 feat_rows=feat_rows)
             return
         B, d = theta.shape
         S = ss.shape[1]
@@ -253,7 +268,12 @@ class CompactRound(Kernel):
         if m is not None:
             self.expect(m, "m", i32, (B,))
             self.expect(res["m"], "res.m", i32, (n_cap,))
-        if feat:
+        F = S
+        if feat_rows is not None:
+            F = feat_rows.shape[1] if feat_rows.dim() == 2 else 0
+            self.expect(feat_rows, "feat_rows", f32, (B, F))
+            self.expect(res["dfeat"], "res.dfeat", f32, (n_cap, F))
+        elif feat:
             self.expect(res["dfeat"], "res.dfeat", f32, (n_cap, S))
             self.expect(x0, "x0", f32, (S,))
         self.expect(counters, "counters", i32, (5,))
@@ -265,12 +285,16 @@ class CompactRound(Kernel):
             res["theta"].data_ptr(), res["sumstats"].data_ptr(),
             res["distance"].data_ptr(), res["log_weight"].data_ptr(),
             res["slot"].data_ptr(), self.ptr(res.get("m")),
-            self.ptr(res.get("dfeat")), self.ptr(x0 if feat else None),
-            float(p), int(max_rounds), counters.data_ptr(), table.data_ptr(),
+            self.ptr(res.get("dfeat")),
+            self.ptr(x0 if feat and feat_rows is None else None), float(p),
+            self.ptr(feat_rows), F, int(max_rounds), counters.data_ptr(),
+            table.data_ptr(),
             _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1
         self.mode_launches["shards"] += 1
+        if feat_rows is not None:
+            self.mode_launches["given_rows"] += 1
 
 
 compact_round = CompactRound()

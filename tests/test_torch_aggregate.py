@@ -458,10 +458,18 @@ def test_measure_list_distances_refused():
 
 
 def test_sharded_refused():
+    """A fixed aggregate now shards; an adaptive one whose scale has no
+    moment form is refused with the JAX package's ValueError."""
     d = tpt.AggregatedDistance([tpt.PNormDistance(p=2),
                                 tpt.PNormDistance(p=1)])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tpt.ABCSMC(tlv.make_lv_model(), tlv.default_prior(), d,
+    abc = tpt.ABCSMC(tlv.make_lv_model(), tlv.default_prior(), d,
+                     population_size=64, sharded=4, device="cpu")
+    assert abc.sharded_n == 4
+    ad = tpt.AdaptiveAggregatedDistance(
+        [tpt.PNormDistance(p=2), tpt.PNormDistance(p=1)],
+        scale_function=tscale.median_absolute_deviation)
+    with pytest.raises(ValueError, match="moment-decomposable"):
+        tpt.ABCSMC(tlv.make_lv_model(), tlv.default_prior(), ad,
                    population_size=64, sharded=4, device="cpu")
 
 

@@ -200,7 +200,8 @@ def test_lv_run_on_the_card(dev):
     # adaptive population size's K16, the aggregated distances' K25, the
     # learned statistics' K23 (linear and MLP) and K18 operands, the
     # host-refit mode's GP transform, GridSearchCV's K17, config 1's
-    # Gaussian simulator and sharded sampling's K24b are not on it)
+    # Gaussian simulator, sharded sampling's K24b and K25's sharded finish
+    # are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -209,7 +210,7 @@ def test_lv_run_on_the_card(dev):
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
              "mlp_accept", "gp_accept", "grid_search_cv",
-             "gaussian_simulate", "shard_mask")
+             "gaussian_simulate", "shard_mask", "aggregate_finish")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -3331,3 +3332,188 @@ def test_sharded_lv_runs_on_the_card(dev):
     assert counts["shard_mask"] == 4
     assert counts["pack_fetch:merge"] > 0
     assert counts["mvn_fit"] == 2
+
+
+# ------------------------------------------------ K25's sharded twins
+AGG_SH_PS = {"pair": (2.0, 1.0), "mixed": (1.0, 2.0, math.inf, 3.0)}
+
+
+@pytest.mark.parametrize("B,S", [(257, 7), (65536, 40)])
+@pytest.mark.parametrize("ps", sorted(AGG_SH_PS))
+def test_aggregate_value_rows_kernel(dev, B, S, ps):
+    """K25's value-rows mode: the values bit-equal to its values mode and
+    within 1e-5 of the plain version, the accept's outputs those of the
+    accept alone, one value-rows launch counted."""
+    from pyabc_tpu_torch.kernels import aggregate_accept_weight
+    from pyabc_tpu_torch.kernels.aggregate import sub_distances_plain
+
+    ps = AGG_SH_PS[ps]
+    x = _shard_round(dev, B, S, 2, 11)
+    x0 = torch.randn(S, generator=_gen(dev, 12), device=dev)
+    params = _agg_params(dev, ps, S, seed=13)
+    eps = torch.tensor(10.0, device=dev)
+    before = aggregate_accept_weight.mode_launches["value_rows"]
+    d, acc, lw, vals = aggregate_accept_weight.value_rows(
+        x["ss"], x0, params, eps, x["valid"], ps=ps)
+    assert aggregate_accept_weight.mode_launches["value_rows"] == before + 1
+    d0, acc0, lw0 = aggregate_accept_weight(x["ss"], x0, params, eps,
+                                            x["valid"], ps=ps)
+    v = aggregate_accept_weight.values(x["ss"], x0, params, ps=ps)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, v)
+    assert torch.equal(d, d0) and torch.equal(acc, acc0)
+    assert torch.equal(lw, lw0)
+    ref = sub_distances_plain(x["ss"], x0, params, ps)
+    assert torch.allclose(vals, ref, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("B,n_cap,n,n_target", [
+    (256, 128, 8, 100), (65536, 16384, 8, 16384)])
+@pytest.mark.parametrize("F", [2, 4])
+def test_compact_shards_given_rows_kernel(dev, B, n_cap, n, n_target, F):
+    """K24a's given-rows mode over rounds until every shard is finished:
+    reservoir, the (n_cap, F) feature rows, table and counters bit-exact
+    against the plain version; the given-rows launches counted."""
+    from pyabc_tpu_torch.kernels.compact import compact_shards_plain
+
+    d, S = 4, 20
+    states = []
+    for _ in range(2):
+        res, buf = _shard_state(dev, n_cap, d, S, n, n_target, False, False)
+        res["dfeat"] = torch.zeros(n_cap, F, device=dev)
+        states.append((res, buf))
+    (res_k, buf_k), (res_p, buf_p) = states
+    before = compact_round.mode_launches["given_rows"]
+    for r in range(12):
+        x = _shard_round(dev, B, S, d, 40 + r)
+        f = torch.rand(B, F, generator=_gen(dev, 80 + r), device=dev)
+        args = (x["accept"], x["valid"], x["theta"], x["ss"], x["dist"],
+                x["logw"])
+        compact_round.shards(*args, res_k, buf_k[:5], buf_k[5:].view(n, 4),
+                             n_shards=n, max_rounds=10, feat_rows=f)
+        compact_shards_plain(*args, res_p, buf_p[:5], buf_p[5:].view(n, 4),
+                             n_shards=n, max_rounds=10, feat_rows=f)
+    assert compact_round.mode_launches["given_rows"] == before + 12
+    torch.cuda.synchronize()
+    assert torch.equal(buf_k, buf_p)
+    for k in res_k:
+        assert torch.equal(res_k[k], res_p[k]), k
+
+
+@pytest.mark.parametrize("F", [2, 4])
+def test_moment_fold_on_value_columns_kernel(dev, F):
+    """K24d's fold with F value columns and a zero centre: counts and
+    extrema equal, sums within 1e-5 relative, the same bits run to run."""
+    from pyabc_tpu_torch.kernels import moment_fold
+    from pyabc_tpu_torch.kernels.moments import moment_fold_shards_plain
+    from pyabc_tpu_torch.ops.scale_reduce import init_moments
+
+    B, n = 65536, 8
+    vals = torch.rand(B, F, generator=_gen(dev, 21), device=dev) * 50.0
+    valid = torch.rand(B, generator=_gen(dev, 22), device=dev) < 0.95
+    zeros = torch.zeros(F, device=dev)
+    counters = torch.tensor([0, 0, 0, 0, 16384], dtype=torch.int32,
+                            device=dev)
+    table = torch.zeros(n, 4, dtype=torch.int32, device=dev)
+    table[2, 0] = 2048  # shard 2 finished
+    mom0 = init_moments(F, dev).expand(n, -1, -1).contiguous()
+    outs = []
+    for _ in range(2):
+        mom = mom0.clone()
+        moment_fold.shards(mom, vals, valid, zeros, counters, table,
+                           n_shards=n, rec_cap=16384, max_rounds=10)
+        outs.append(mom)
+    ref = moment_fold_shards_plain(mom0.clone(), vals, valid, zeros,
+                                   counters, table, n_shards=n,
+                                   rec_cap=16384, max_rounds=10)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0][:, 3:], ref[:, 3:])
+    assert torch.equal(outs[0][2], mom0[2])
+    assert torch.allclose(outs[0][:, :3], ref[:, :3], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("name", MOMENT_SCALES)
+@pytest.mark.parametrize("ps", sorted(AGG_SH_PS))
+def test_aggregate_finish_shards_kernel(dev, name, ps):
+    """K25's sharded finish: scale, W and distances within 1e-5 relative
+    of the plain version, the sub weights copied, the same bits run to
+    run, each distance K25's accept distance of its row under the new W
+    bit for bit."""
+    from pyabc_tpu_torch.kernels import (aggregate_accept_weight,
+                                         aggregate_finish)
+    from pyabc_tpu_torch.kernels.aggregate import (
+        aggregate_finish_shards_plain)
+    from pyabc_tpu_torch.ops.scale_reduce import (accumulate_moments,
+                                                  init_moments)
+
+    ps = AGG_SH_PS[ps]
+    n, S, rows, n_sub = 8, 40, 16384, len(ps)
+    g = _gen(dev, 31)
+    ss = torch.randn(rows, S, generator=g, device=dev) * 3.0
+    x0 = torch.randn(S, generator=g, device=dev)
+    params = _agg_params(dev, ps, S, seed=32)
+    feat = aggregate_accept_weight.values(ss, x0, params, ps=ps)
+    zeros = torch.zeros(n_sub, device=dev)
+    mom = torch.stack([accumulate_moments(
+        init_moments(n_sub, dev), feat[s * 2048:(s + 1) * 2048],
+        torch.rand(2048, generator=g, device=dev) < 0.9, zeros)
+        for s in range(n)])
+    fac = tuple(1.0 / (1 + k) for k in range(n_sub))
+    a = aggregate_finish.shards(mom, feat, params, factors=fac,
+                                scale_name=name)
+    b = aggregate_finish.shards(mom, feat, params, factors=fac,
+                                scale_name=name)
+    ref = aggregate_finish_shards_plain(mom, feat, params, factors=fac,
+                                        scale_name=name)
+    d_acc = aggregate_accept_weight(
+        ss, x0, a[1], torch.tensor(math.inf, device=dev),
+        torch.ones(rows, dtype=torch.bool, device=dev), ps=ps)[0]
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    for u, v in zip(a, ref):
+        assert torch.allclose(u, v, rtol=1e-5, atol=1e-30)
+    assert torch.equal(a[1][n_sub:], params[n_sub:])
+    assert torch.equal(a[2], d_acc)
+
+
+@pytest.mark.parametrize("kind", ["adaptive", "schedule"])
+def test_sharded_aggregate_lv_runs_on_the_card(dev, kind):
+    """LV config 2 under the LV legs' adaptive aggregate, and under a
+    fixed aggregate's schedule, at pop 4096 on 8 shards: every generation
+    keeps its rows; adaptive: the value rows, the given-rows compaction,
+    the fold on the value columns and the sharded finish launch, one
+    finish a generation, the weights refit every generation."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    subs = [pt.PNormDistance(p=2, weights={"pred": 1, "prey": 0}),
+            pt.PNormDistance(p=1, weights={"pred": 0, "prey": 1})]
+    dist = (pt.AdaptiveAggregatedDistance(subs) if kind == "adaptive" else
+            pt.AggregatedDistance(subs, weights={0: [1, 1], 2: [4, 0.1]}))
+    abc = pt.ABCSMC(lv.make_lv_model(), lv.default_prior(), dist,
+                    population_size=4096, eps=pt.MedianEpsilon(), seed=0,
+                    sharded=8, fused_generations=3, device=dev)
+    abc.new("sqlite://", lv.observed_data(seed=0), store_sum_stats=False)
+    reset_launch_counts()
+    h = abc.run(max_nr_populations=4)
+    counts = launch_counts() | mode_launch_counts()
+    assert h.max_t == 3
+    assert all(h.get_nr_particles_per_population()[t] == 4096
+               for t in range(4))
+    assert counts["compact_round:shards"] > 0
+    assert counts["pnorm_accept_weight"] == 0
+    if kind == "schedule":
+        assert counts["aggregate_finish"] == 0
+        assert counts["aggregate_accept_weight:value_rows"] == 0
+        return
+    assert counts["aggregate_finish:shards"] == 4
+    assert counts["aggregate_accept_weight:value_rows"] > 0
+    assert (counts["compact_round:given_rows"]
+            == counts["compact_round:shards"])
+    assert counts["moment_fold:shards"] > 0
+    w = abc.distance_function.weights
+    assert sorted(t for t in w if t >= 0) == list(range(5))
+    assert all(not np.array_equal(w[t], w[t - 1]) for t in range(1, 5))

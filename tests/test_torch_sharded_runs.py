@@ -248,10 +248,6 @@ def _unserved():
         "learned summary statistics": dict(
             distance_function=tpt.PNormDistance(
                 p=2, sumstat=tpt.PredictorSumstat(tpt.LinearPredictor()))),
-        "an AggregatedDistance": dict(distance_function=(
-            tpt.AggregatedDistance([pn, tpt.PNormDistance(p=1)]))),
-        "an AdaptiveAggregatedDistance": dict(distance_function=(
-            tpt.AdaptiveAggregatedDistance([pn, tpt.PNormDistance(p=1)]))),
         "an AdaptivePopulationSize": dict(
             population_size=tpt.AdaptivePopulationSize(
                 64, max_population_size=128)),
@@ -259,8 +255,6 @@ def _unserved():
             tpt.MultivariateNormalTransition(), {"scaling": [0.5, 1.0]},
             cv=3)),
         "a LocalTransition": dict(transitions=tpt.LocalTransition()),
-        "a user weight schedule": dict(distance_function=tpt.PNormDistance(
-            p=2, weights={0: [1.0], 1: [2.0]})),
     }, model, prior
 
 
@@ -275,6 +269,31 @@ def test_unserved_configurations_are_not_ported(what):
     with pytest.raises(NotImplementedError,
                        match=f"sharded sampling with {what}.*item 15"):
         tpt.ABCSMC(model, prior, sharded=8, device="cpu", **kw)
+
+
+def _now_served():
+    """The configurations of the JAX suite's
+    ``test_previously_gated_configs_now_shard`` that the port once refused
+    (``tests/test_sharded.py:715-745``)."""
+    pn = tpt.PNormDistance(p=2)
+    return {
+        "an AggregatedDistance": lambda: tpt.AggregatedDistance(
+            [pn, tpt.PNormDistance(p=1)]),
+        "an AdaptiveAggregatedDistance": lambda: (
+            tpt.AdaptiveAggregatedDistance([pn, tpt.PNormDistance(p=1)])),
+        "a user weight schedule": lambda: tpt.PNormDistance(
+            p=2, weights={0: [1.0], 1: [2.0]}),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_now_served()))
+def test_previously_unserved_configurations_now_shard(what):
+    """An aggregated distance, fixed or adaptive, and a user weight
+    schedule resolve the shard count, as in the JAX package."""
+    abc = tpt.ABCSMC(gaussian.make_mean_only_model(),
+                     gaussian.mean_only_prior(), _now_served()[what](),
+                     population_size=64, sharded=8, device="cpu")
+    assert abc.sharded_n == 8
 
 
 def test_mesh_and_segmented_early_reject_are_not_ported():
