@@ -7,7 +7,9 @@
 (``--log FILE`` also appends every line to FILE, for runs whose output is
 cut. ``--k2-turns`` measures only K2 against another tree's (say the
 parent commit's), whose ``pyabc_tpu_torch`` lies in PARENT_DIR: register
-counts and its LV config 2 time in turns.) Phases, one or more lines each:
+counts and its LV config 2 time in turns. ``--mesh-rank RANK WIDTH RDV OUT
+DEVICE LEG...`` is one rank of a mesh leg, started by the script itself.)
+Phases, one or more lines each:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA
    versions, the compute capability (must be 9.0) and the kernel build;
@@ -376,7 +378,22 @@ counts and its LV config 2 time in turns.) Phases, one or more lines each:
    1e-3 over two generations at pop 1024; the Gaussian toy at pop 300
    (uneven quotas): 300 rows, the mean within 0.25 of the conjugate one;
    the tractable pair sharded over 8 seeds (within 0.05 of the exact
-   0.5529, 4 se of the CPU's).
+   0.5529, 4 se of the CPU's). Then the device mesh (K24e and the lane
+   base of K2 and K4): phase 2's K24e pack and unpack, bit-exact against
+   their plain twin at the LV mesh leg's shapes (n_cap 16384 on 8 shards,
+   S 40) at widths 2 and 4, and K2, K4's LV and Gaussian kernels over
+   each rank's lanes [a, b) of B 65536 with the lane base a, bit-equal to
+   rows [a, b) of the whole round's launch; then the mesh legs, each rank
+   a process on the one card (``--mesh-rank``, a file:// rendezvous, Gloo,
+   every rank with its plain versions set to raise and its counts reset
+   just before its run, each joined with a time limit): LV (pop 16384, 8
+   generations, sharded=8, G 3, seed 0) at widths 2 and 4, the LV
+   adaptive sharded leg's list at width 4 and config 1's Gaussian (pop
+   16384, 8 generations) at width 2; every primary's History (epsilons,
+   thetas, weights, distances) bit-identical to the same configuration's
+   virtual-shard run on the card, every rank's to the primary's, one
+   gather a generation; per rank the rounds a generation, gathers, bytes,
+   staging and Gloo ms a gather and wall.
 
 The anchors' CPU references (the toy, the noisy anchor with and without a
 LocalTransition, the nine prior families, the tractable pair in its four
@@ -390,7 +407,7 @@ the run. ``time:`` lines mark each phase.
 While the card runs of phases 3 and 4 go, the plain version of every
 kernel (K1-K16 with K16's LocalTransition mode, K17, K18 and its modes,
 K19, K20, K20b, K21a, K21b, K21c, K22, K23 linear and MLP, the GP
-transform, K24a-d, K25, K26 and the K > 1 modes) is replaced by a
+transform, K24a-e, K25, K26 and the K > 1 modes) is replaced by a
 function that
 raises, so
 none can run on the path unseen.
@@ -411,6 +428,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor)
 #: FLOP/s, the rates the kernels' bounds are taken against
@@ -833,7 +851,7 @@ def redraws_taken(stream, B, prior_arrays, params):
 
     n, d = params["thetas"].shape
     nb = (d + 3) // 4
-    lanes = torch.arange(B, device=params["cdf"].device)
+    lanes = philox.lanes(stream, B)
     cdf = params["cdf"]
     total = cdf[-1]
     taken = torch.zeros(B, dtype=torch.int64, device=cdf.device)
@@ -847,6 +865,16 @@ def redraws_taken(stream, B, prior_arrays, params):
         taken += (~done).long()
         done |= torch.isfinite(prior_logpdf_plain(th, prior_arrays))
     return taken
+
+
+def k2_per_draw(n: int, d: int) -> int:
+    """K2's operations a draw over an ``n``-row fit in ``d`` dimensions:
+    1 + nb Philox blocks (~100 integer operations each), the uniform and d
+    Box-Muller normals, the binary search, theta + L z and the prior
+    log-density."""
+    nb = (d + 3) // 4
+    return (100 * (1 + nb) + 3 + 14 * d + 2 * math.ceil(math.log2(n))
+            + d * (2 * d + 1) + 8 * d)
 
 
 def compare_propose(dev, params, prior_arrays, B, tag):
@@ -885,13 +913,8 @@ def k2_checks(dev, params, prior_arrays, B) -> dict:
                               philox.TRANSITION))
     st = stream_on(dev, philox.TRANSITION)
     n, d = params["thetas"].shape
-    nb = (d + 3) // 4
     draws = float(redraws_taken(st, B, prior_arrays, params).sum())
-    # per draw: 1 + nb Philox blocks (~100 integer operations each), the
-    # uniform and d Box-Muller normals, the binary search, theta + L z and
-    # the prior log-density
-    per_draw = (100 * (1 + nb) + 3 + 14 * d + 2 * math.ceil(math.log2(n))
-                + d * (2 * d + 1) + 8 * d)
+    per_draw = k2_per_draw(n, d)
     nbytes = (n + n * d + d * d + 5 * d + 1) * 4 + B * (d * 4 + 4 + 1)
     log(f"K2 propose: {draws / B:.3f} draws per lane on these inputs")
     return dict(
@@ -2129,6 +2152,8 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.grid_search", "fold_scores_plain"),
     ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_simulate_plain"),
     ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_noise_plain"),
+    ("pyabc_tpu_torch.kernels.mesh_pack", "mesh_pack_plain"),
+    ("pyabc_tpu_torch.kernels.mesh_pack", "mesh_unpack_plain"),
 )
 
 
@@ -3614,26 +3639,37 @@ def k3_at_bench_pop(dev) -> None:
             f"(d 2): {ms:.3f} ms a round")
 
 
+def config3_trail(where) -> list[float]:
+    """Config 3 at pop 1024, 3 generations with early reject on -> its
+    epsilons."""
+    h = config3(where, "auto", pop=1024).run(max_nr_populations=3)
+    return [float(e) for e in h.get_all_populations()["epsilon"][1:]]
+
+
+@cpu_ref
+def config3_cpu() -> dict:
+    return {"eps": config3_trail("cpu")}
+
+
 def config3_cpu_trail(dev) -> None:
     """The same seed at pop 1024 on the card and on the CPU (plain
-    versions, the same Philox streams), 3 generations with early reject
-    on: the epsilons must agree within 1e-3 relative (a last-bit logf may
-    flip a Poisson count)."""
-    trails = {}
-    for where in (dev, "cpu"):
-        t0 = time.perf_counter()
-        h = config3(where, "auto", pop=1024).run(max_nr_populations=3)
-        trails[str(where)] = ([float(e) for e in
-                               h.get_all_populations()["epsilon"][1:]],
-                              time.perf_counter() - t0)
-    card, cpu = trails[str(dev)][0], trails["cpu"][0]
-    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
-    log(f"config 3 at pop 1024 (3 generations): card eps {card}, CPU eps "
-        f"{cpu} ({trails['cpu'][1]:.1f} s); |card - cpu| / cpu "
-        f"{[float(f'{r:.2e}') for r in rel]}")
-    check(len(rel) == 3 and max(rel) <= 1e-3,
-          "config 3: the CPU's first three epsilons differ from the card's "
-          "by more than 1e-3")
+    versions, the same Philox streams, the CPU's in the reference
+    process), 3 generations with early reject on: the epsilons must agree
+    within 1e-3 relative (a last-bit logf may flip a Poisson count)."""
+    card = config3_trail(dev)
+
+    def compare():
+        ref = REFS.get("config3_cpu")
+        cpu = ref["eps"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        log(f"config 3 at pop 1024 (3 generations): card eps {card}, CPU "
+            f"eps {cpu} ({ref['wall_s']:.1f} s); |card - cpu| / cpu "
+            f"{[float(f'{r:.2e}') for r in rel]}")
+        check(len(rel) == 3 and max(rel) <= 1e-3,
+              "config 3: the CPU's first three epsilons differ from the "
+              "card's by more than 1e-3")
+
+    PENDING.append(compare)
 
 
 def zoo_runs(dev) -> dict:
@@ -5132,12 +5168,36 @@ FAMILY_LEGS = ("normal", "laplace", "binomial", "negbin", "negbin-mean",
                "poisson-lin")
 
 
+def family_cpu_temps(kind: str) -> list[float]:
+    """A family leg's first two temperatures on the CPU: generation 0 alone
+    gives its evaluations n0, then the run stops once it has made more
+    than n0 (after generation 1) under the card leg's horizon."""
+    first, _obs = family_leg("cpu", kind)
+    first.new("sqlite://", _obs)
+    first.run(max_nr_populations=FAM_GENS, max_total_nr_simulations=1)
+    n0 = first.generation_log[0]["n_valid"]
+    cpu, obs = family_leg("cpu", kind)
+    cpu.new("sqlite://", obs)
+    hc = cpu.run(max_nr_populations=FAM_GENS, max_total_nr_simulations=n0 + 1)
+    return [float(e) for e in hc.get_all_populations()["epsilon"][1:]]
+
+
+@cpu_ref
+def families_cpu_temps() -> dict:
+    out = {}
+    for kind in FAMILY_LEGS:
+        t0 = time.perf_counter()
+        out[kind] = {"temps": family_cpu_temps(kind),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
 def family_runs(dev, tmpdir) -> dict:
     """Each remaining family once on the card (counts reset just before
     and read just after), its History reopened from its sqlite file, the
-    same seed on the CPU for its first two temperatures (within 1e-3),
-    and the fallback "auto" records for the unbounded kernels ->
-    {leg: launch counts}."""
+    same seed on the CPU (in the reference process) for its first two
+    temperatures (within 1e-3), and the fallback "auto" records for the
+    unbounded kernels -> {leg: launch counts}."""
     import os
 
     import torch
@@ -5161,14 +5221,6 @@ def family_runs(dev, tmpdir) -> dict:
             wall = time.perf_counter() - t0
         counts = launch_counts() | mode_launch_counts()
         temps = [float(e) for e in h.get_all_populations()["epsilon"][1:]]
-        n0 = abc.generation_log[0]["n_valid"]
-        cpu, _obs = family_leg("cpu", kind)
-        cpu.new("sqlite://", obs)
-        t1 = time.perf_counter()
-        hc = cpu.run(max_nr_populations=FAM_GENS,
-                     max_total_nr_simulations=n0 + 1)
-        cpu_temps = [float(e) for e in
-                     hc.get_all_populations()["epsilon"][1:]]
         reopened = History("sqlite:///" + db)
         df, w = reopened.get_distribution(m=0, t=reopened.max_t)
         fam = abc.distance_function.family
@@ -5177,17 +5229,24 @@ def family_runs(dev, tmpdir) -> dict:
             f"{wall:.3f} syncs_per_generation="
             f"{syncs['syncs'] / max(len(temps), 1):.2f} rounds "
             f"{[g['rounds'] for g in abc.generation_log]}; temperatures "
-            f"{[round(t, 4) for t in temps]}; the CPU's "
-            f"{[round(t, 4) for t in cpu_temps]} "
-            f"({time.perf_counter() - t1:.1f} s); History reopened: "
+            f"{[round(t, 4) for t in temps]}; History reopened: "
             f"{reopened.max_t + 1} generations, {len(df)} particles, "
             f"weights sum {float(w.sum()):.6f}; fallbacks "
             f"{abc.capability_fallbacks}")
-        check(len(temps) >= 2 and len(cpu_temps) >= 2 and all(
-            abs(a - b) <= 1e-3 * abs(b)
-            for a, b in zip(temps[:2], cpu_temps[:2])),
-              f"{label}: the CPU's first two temperatures differ from the "
-              f"card's by more than 1e-3")
+
+        def compare(kind=kind, label=label, temps=temps):
+            ref = REFS.get("families_cpu_temps")[kind]
+            cpu_temps = ref["temps"]
+            log(f"{label}: the CPU's temperatures "
+                f"{[round(t, 4) for t in cpu_temps]} ({ref['s']:.1f} s), "
+                f"the card's {[round(t, 4) for t in temps[:2]]}")
+            check(len(temps) >= 2 and len(cpu_temps) >= 2 and all(
+                abs(a - b) <= 1e-3 * abs(b)
+                for a, b in zip(temps[:2], cpu_temps[:2])),
+                  f"{label}: the CPU's first two temperatures differ from "
+                  f"the card's by more than 1e-3")
+
+        PENDING.append(compare)
         check(reopened.max_t == h.max_t and len(df) == FAM_POP
               and abs(float(w.sum()) - 1.0) < 1e-6,
               f"{label}: the History does not reopen whole")
@@ -7665,11 +7724,27 @@ def family_pair_run(where, seed):
     return abc.run(max_nr_populations=PAIR_GENS)
 
 
+def family_pair_p0(where) -> list[float]:
+    """P(m = 0) of the family pair's last generation, each seed."""
+    out = []
+    for seed in FAMILY_PAIR_SEEDS:
+        h = family_pair_run(where, seed)
+        out.append(float(h.get_model_probabilities(h.max_t)["p"]
+                         .get(0, 0.0)))
+    return out
+
+
+@cpu_ref
+def family_pair_cpu() -> dict:
+    return {"p0": family_pair_p0("cpu")}
+
+
 def family_pair(dev) -> None:
     """K > 1 with two models of different families: the tractable pair's
-    N(0, 1) model against a gamma(2, 0, 0.5) one, on the card and the CPU;
-    the seed mean of P(m = 0) against the exact model posterior (1-D
-    quadrature of each model's evidence at PAIR_X)."""
+    N(0, 1) model against a gamma(2, 0, 0.5) one, on the card and the CPU
+    (in the reference process); the seed mean of P(m = 0) against the
+    exact model posterior (1-D quadrature of each model's evidence at
+    PAIR_X)."""
     import numpy as np
     import scipy.stats as st
 
@@ -7681,36 +7756,36 @@ def family_pair(dev) -> None:
             for law, sd in ((st.norm(0, 1), 0.6), (st.gamma(2, 0, 0.5),
                                                    1.2))]
     exact = evid[0] / sum(evid)
-    stats = {}
-    for where in (dev, "cpu"):
-        on_card = where == dev
-        p0 = []
-        t0 = time.perf_counter()
-        if on_card:
-            reset_launch_counts()
-        with plain_versions_raise() if on_card else contextlib.nullcontext():
-            for seed in FAMILY_PAIR_SEEDS:
-                h = family_pair_run(where, seed)
-                p0.append(float(h.get_model_probabilities(h.max_t)["p"]
-                                .get(0, 0.0)))
-        if on_card:
-            modes = mode_launch_counts()
-            log(f"family pair ({where}): kernel launches {launch_counts()}"
-                f"; K2 family mode {modes['propose:families']}")
-            check(modes["propose:families"] > 0, "the family pair did not "
-                  "go through K2's family mode")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with plain_versions_raise():
+        p0_card = family_pair_p0(dev)
+    modes = mode_launch_counts()
+    log(f"family pair ({dev}): kernel launches {launch_counts()}"
+        f"; K2 family mode {modes['propose:families']}")
+    check(modes["propose:families"] > 0, "the family pair did not "
+          "go through K2's family mode")
+    card_s = time.perf_counter() - t0
+
+    def stats(where, p0, secs):
         m = float(np.mean(p0))
         se = float(np.std(p0, ddof=1) / math.sqrt(len(p0)))
-        stats[where] = (m, se)
-        log(f"family pair ({where}, {len(p0)} seeds, "
-            f"{time.perf_counter() - t0:.2f} s): mean P(m=0) {m:.4f} se "
-            f"{se:.4f} (exact {exact:.4f})")
-    (m_d, se_d), (m_c, se_c) = stats[dev], stats["cpu"]
-    gap = (m_d - m_c) / max(math.hypot(se_d, se_c), 1e-3)
-    log(f"family pair: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
-    check(abs(m_d - exact) < 0.05 and abs(gap) < 4.0, "family pair: the "
-          "card's P(m=0) is 0.05 or more off the exact model posterior or "
-          "4 se off the CPU's")
+        log(f"family pair ({where}, {len(p0)} seeds, {secs:.2f} s): mean "
+            f"P(m=0) {m:.4f} se {se:.4f} (exact {exact:.4f})")
+        return m, se
+
+    m_d, se_d = stats(dev, p0_card, card_s)
+
+    def compare():
+        ref = REFS.get("family_pair_cpu")
+        m_c, se_c = stats("cpu", ref["p0"], ref["wall_s"])
+        gap = (m_d - m_c) / max(math.hypot(se_d, se_c), 1e-3)
+        log(f"family pair: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
+        check(abs(m_d - exact) < 0.05 and abs(gap) < 4.0, "family pair: "
+              "the card's P(m=0) is 0.05 or more off the exact model "
+              "posterior or 4 se off the CPU's")
+
+    PENDING.append(compare)
 
 
 # ---------------------------------------------- learned summary statistics
@@ -11027,6 +11102,439 @@ def lv_aggregate_sharded_card_cpu(dev) -> None:
     PENDING.append(compare)
 
 
+# ------------------------------------------------ the device mesh (K24e)
+#: the mesh legs on the one card, each rank a process over Gloo (a file://
+#: rendezvous): the LV mesh leg (the LV sharded leg's model, prior,
+#: distance and observation at pop 16384, 8 generations, 8 shards, G 3,
+#: seed 0) at widths 2 and 4, the LV adaptive sharded leg (its list) at
+#: width 4 and config 1's Gaussian (K4's Gaussian kernel's lane base) at
+#: width 2; each primary's History bit for bit the virtual shards' run of
+#: the same configuration on this card
+MESH_POP, MESH_GENS, MESH_G, MESH_SEED = 16384, 8, 3, 0
+MESH_GROUPS = {2: ("lv", "gauss"), 4: ("lv", "lv_adaptive")}
+#: seconds a group of ranks may take, its start included
+MESH_JOIN_S = 300.0
+#: the kernels of the LV mesh leg's path beyond the sharded leg's, and the
+#: lane-base modes (the K2 and K4 launches of the ranks past the first)
+MESH_KERNELS = ("mesh_pack", "mesh_unpack")
+MESH_PATH = SH_PATH + MESH_KERNELS
+LANE_BASE_ROWS = (
+    ("propose:lane_base", "pyabc_tpu_torch/csrc/propose.cu",
+     "pyabc_tpu/inference/util.py:335", "lv"),
+    ("lv_simulate:lane_base", "pyabc_tpu_torch/csrc/lv_rk4.cu",
+     "pyabc_tpu/models/ode.py:104", "lv"),
+    ("gaussian_simulate:lane_base", "pyabc_tpu_torch/csrc/gaussian.cu",
+     "pyabc_tpu/models/gaussian.py:20", "gauss"))
+
+
+def history_arrays(h, K: int = 1) -> dict:
+    """A History's epsilon trail and every generation's thetas, weights
+    and distances (``tests/test_sharded.py::_history_arrays``, each
+    model's)."""
+    import numpy as np
+
+    pops = h.get_all_populations().query("t >= 0")
+    out = {"eps": pops["epsilon"].to_numpy()}
+    for t in pops["t"]:
+        t = int(t)
+        for m in range(K):
+            df, w = h.get_distribution(m, t)
+            out[f"theta_{m}_{t}"] = df.to_numpy()
+            out[f"w_{m}_{t}"] = np.asarray(w)
+        out[f"d_{t}"] = h.get_weighted_distances(t)["distance"].to_numpy()
+    return out
+
+
+def mesh_leg_abc(leg: str, where, mesh=None):
+    """The mesh legs' configurations (``mesh=None``: the virtual shards)
+    -> (ABCSMC, generations)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.distance.scale import standard_deviation
+    from pyabc_tpu_torch.models import gaussian
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    if leg == "gauss":
+        abc = pt.ABCSMC(gaussian.make_gaussian_model(),
+                        gaussian.default_prior(), pt.PNormDistance(p=2),
+                        population_size=X1_POP, eps=pt.MedianEpsilon(),
+                        seed=X1_SEED, mesh=mesh, sharded=SH_N,
+                        fused_generations=MESH_G, device=where)
+        abc.new("sqlite://", X1_OBS, store_sum_stats=False)
+        return abc, MESH_GENS
+    adaptive = leg == "lv_adaptive"
+    abc = pt.ABCSMC(
+        lv.make_lv_model(), lv.default_prior(),
+        pt.AdaptivePNormDistance(p=2, scale_function=standard_deviation)
+        if adaptive else pt.PNormDistance(p=2),
+        population_size=(pt.ListPopulationSize(SH_AD_SIZES) if adaptive
+                         else MESH_POP),
+        eps=pt.MedianEpsilon(), seed=SH_SEED if adaptive else MESH_SEED,
+        mesh=mesh, sharded=SH_N, fused_generations=MESH_G, device=where)
+    abc.new("sqlite://", lv.observed_data(seed=123), store_sum_stats=False)
+    return abc, len(SH_AD_SIZES) if adaptive else MESH_GENS
+
+
+def mesh_run(abc, gens: int) -> tuple:
+    """One run with the counts set to 0 just before it and read just
+    after, the plain versions set to raise -> (History, wall, counts)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
+
+    card = abc.device.type == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    sync()
+    reset_launch_counts()
+    with plain_versions_raise() if card else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=gens)
+        sync()
+        wall = time.perf_counter() - t0
+    return h, wall, launch_counts() | mode_launch_counts()
+
+
+def mesh_rank_main(rank: int, width: int, rdv: str, out: str, where: str,
+                   legs: list[str]) -> int:
+    """A rank of a mesh leg (``--mesh-rank``): joins the group, runs its
+    legs on the parent's device (the card: every plain version set to
+    raise) and leaves each leg's History arrays, counts, mesh block,
+    ledger and wall in ``out/rank<rank>.pkl``."""
+    import pickle
+
+    import torch
+
+    from pyabc_tpu_torch.parallel import distributed as pdist
+
+    dev = torch.device(where)
+    pdist.initialize(f"file://{rdv}", num_processes=width, process_id=rank,
+                     timeout=MESH_JOIN_S)
+    try:
+        mesh = pdist.global_mesh(dev.type)
+        results = {}
+        for leg in legs:
+            abc, gens = mesh_leg_abc(leg, dev, mesh)
+            h, wall, counts = mesh_run(abc, gens)
+            results[leg] = {"arrays": history_arrays(h, abc.K),
+                            "counts": counts, "mesh": abc.mesh_snapshot(),
+                            "ledger": abc.sync_ledger.summary(),
+                            "wall": wall, "gens": len(abc.generation_log)}
+        with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_spawn(dev, width: int, legs, tmp: str) -> tuple[list, Path]:
+    """Start the ranks of one width (a fresh file:// rendezvous) -> (their
+    processes, their output directory)."""
+    out = Path(tmp) / f"w{width}"
+    out.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(width), str(out / "rendezvous"), str(out), str(dev),
+         *legs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(width)]
+    return procs, out
+
+
+def mesh_join(width: int, procs: list, out: Path,
+              deadline: float) -> list[dict]:
+    """Join the ranks of one width by ``deadline`` (the host's clock): a
+    late or failed rank fails the script (the caller kills what is left)
+    -> each rank's results."""
+    import pickle
+
+    logs = [""] * width
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 0.1))[0]
+    except subprocess.TimeoutExpired:
+        check(False, f"mesh width {width}: a rank is late after "
+              f"{MESH_JOIN_S} s")
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            log(f"mesh width {width} rank {r} output:\n{logs[r][-4000:]}")
+        check(p.returncode == 0, f"mesh width {width}: rank {r} exited "
+              f"{p.returncode}")
+    res = []
+    for r in range(width):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def mesh_legs(dev) -> dict:
+    """The mesh legs: every width's group of ranks started at once, the
+    virtual-shard references run on the card while they start, then each
+    group joined; every primary's History (epsilons, thetas, weights,
+    distances of every generation) bit for bit the reference's, every
+    rank's the primary's, K24e and the lane-base modes launched ->
+    {(leg, width): the ranks' summed counts}. The groups share the card
+    and the host, so their walls and Gloo times are readings of a shared
+    machine."""
+    import numpy as np
+
+    def same(a, b) -> bool:
+        return set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        groups = {w: mesh_spawn(dev, w, legs, tmp)
+                  for w, legs in MESH_GROUPS.items()}
+        try:
+            refs = {}
+            for leg in sorted({lg for legs in MESH_GROUPS.values()
+                               for lg in legs}):
+                abc, gens = mesh_leg_abc(leg, dev)
+                h, wall, _c = mesh_run(abc, gens)
+                refs[leg] = history_arrays(h, abc.K)
+                log(f"mesh reference {leg} (8 virtual shards): {gens} "
+                    f"generations, wall_s={wall:.3f}")
+            deadline = t0 + MESH_JOIN_S
+            results = {w: mesh_join(w, procs, path, deadline)
+                       for w, (procs, path) in groups.items()}
+        finally:
+            for procs, _path in groups.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+        log(f"mesh groups {list(MESH_GROUPS)} ran side by side in "
+            f"{time.perf_counter() - t0:.1f} s (start included)")
+        for width, legs in MESH_GROUPS.items():
+            res = results[width]
+            for leg in legs:
+                prim = res[0][leg]
+                for r, rr in enumerate(res):
+                    x = rr[leg]
+                    m, led = x["mesh"], x["ledger"]
+                    gens = x["gens"]
+                    log(f"mesh {leg} width {width} rank {r}: wall_s="
+                        f"{x['wall']:.3f} rounds a generation "
+                        f"{m['rounds_per_generation']} gathers a generation "
+                        f"{led['by_kind'].get('mesh_gather', 0) / gens:.2f}"
+                        f" bytes a gather {m['bytes_per_gather']:.0f} "
+                        f"staging ms a gather {m['stage_ms_per_gather']:.4f}"
+                        f" Gloo ms a gather {m['gloo_ms_per_gather']:.4f} "
+                        f"syncs {led['by_kind']}")
+                    check(m["gathers"] == gens == led["by_kind"].get(
+                        "mesh_gather"), f"mesh {leg} width {width} rank {r}:"
+                        f" not one gather a generation")
+                    check(same(x["arrays"], prim["arrays"]),
+                          f"mesh {leg} width {width}: rank {r}'s History is "
+                          f"not the primary's")
+                ok = same(prim["arrays"], refs[leg])
+                log(f"mesh {leg} width {width}: the primary's History "
+                    f"bit-identical to the virtual shards': {ok}")
+                check(ok, f"mesh {leg} width {width}: the primary's History "
+                      f"is not the virtual shards' bit for bit")
+                counts = {k: sum(rr[leg]["counts"][k] for rr in res)
+                          for k in prim["counts"]}
+                path = (MESH_PATH if leg == "lv" else
+                        SH_AD_PATH + MESH_KERNELS if leg == "lv_adaptive"
+                        else ("propose", "gaussian_simulate")
+                        + MESH_KERNELS)
+                path += tuple(n for n, _s, _r, lg in LANE_BASE_ROWS
+                              if lg == leg or (leg == "lv_adaptive"
+                                               and lg == "lv"))
+                missing = [k for k in path if counts[k] == 0]
+                check(not missing, f"mesh {leg} width {width}: {missing} "
+                      f"never launched on its path")
+                log(f"mesh {leg} width {width}: launches (all ranks) "
+                    f"{ {k: counts[k] for k in path} }")
+                out[leg, width] = counts
+    return out
+
+
+def mesh_checks(dev) -> dict:
+    """K24e's pack and unpack against their plain twin at the LV mesh
+    leg's shapes (n_cap 16384 on 8 shards, d 4; widths 2 and 4, the
+    adaptive leg's feature rows and moment blocks of S 40 too; no leg
+    stores its statistics, so none gathers them), bit-exact; K2
+    (transition mode, a fit of 16384 rows), K4's LV and Gaussian kernels
+    over each rank's lanes [a, b) of B 65536 with the lane base a, bit for
+    bit rows [a, b) of the whole round's launch -> their results (timed at
+    width 2, the LV leg's non-adaptive pieces)."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (gaussian_simulate, lv_simulate,
+                                         mesh_pack, mesh_unpack, philox,
+                                         propose)
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        gaussian_simulate_plain)
+    from pyabc_tpu_torch.kernels.lv_simulate import lv_simulate_plain
+    from pyabc_tpu_torch.kernels.mesh_pack import (mesh_pack_plain,
+                                                   mesh_unpack_plain)
+    from pyabc_tpu_torch.kernels.propose import propose_plain
+    from pyabc_tpu_torch.models import gaussian
+    from pyabc_tpu_torch.models import lotka_volterra as lv
+
+    g = torch.Generator(device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def pieces(w, adaptive, seed):
+        g.manual_seed(seed)
+        v, R = SH_N // w, MESH_POP // w
+        p = [torch.randint(0, 99, (5,), generator=g, **i32),
+             torch.randint(0, 2, (1,), generator=g, **i32),
+             torch.randint(0, 2048, (v * 4,), generator=g, **i32),
+             torch.randint(-1, 1 << 20, (R,), generator=g, **i32),
+             torch.randn(R, 4, generator=g, device=dev),
+             torch.rand(R, generator=g, device=dev),
+             torch.randn(R, generator=g, device=dev)]
+        p[-1][:5] = -math.inf
+        if adaptive:
+            p += [torch.rand(R, 40, generator=g, device=dev),
+                  torch.randn(v, 6, 40, generator=g, device=dev)]
+        return p
+
+    def dsts(p, w):
+        return [None, None] + [torch.empty((w * t.shape[0], *t.shape[1:]),
+                                           dtype=t.dtype, device=dev)
+                               for t in p[2:]]
+
+    out = {}
+    timed = {}
+    for w in (2, 4):
+        for adaptive in (False, True):
+            ranks = [pieces(w, adaptive, 10 * w + r) for r in range(w)]
+            bufs = [mesh_pack(p) for p in ranks]
+            ok = all(torch.equal(b, mesh_pack_plain(p))
+                     for b, p in zip(bufs, ranks))
+            buf = torch.stack(bufs)
+            lens = [t.numel() for t in ranks[0]]
+            got, want = dsts(ranks[0], w), dsts(ranks[0], w)
+            mesh_unpack(buf, got, lens)
+            mesh_unpack_plain(buf, want, lens)
+            torch.cuda.synchronize()
+            ok = ok and all(torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip(got[2:], want[2:]))
+            log(f"K24e mesh pack/unpack (width {w}, "
+                f"{'adaptive' if adaptive else 'plain'} pieces, "
+                f"{sum(lens)} words a rank): bit-exact={ok}")
+            check(ok, f"K24e at width {w}: pack or unpack not bit-exact")
+            if not adaptive:
+                timed[w] = (ranks, buf, lens, got)
+    res = {}
+    for w, (ranks, buf, lens, got) in timed.items():
+        p0, W = ranks[0], sum(lens)
+        res[w] = dict(
+            pack_ms=graph_ms(lambda: mesh_pack(p0)),
+            pack_call_ms=time_ms(lambda: mesh_pack(p0), 50),
+            pack_plain_ms=time_ms(lambda: mesh_pack_plain(p0), 20),
+            pack_library_ms=time_ms(lambda: torch.cat(
+                [t.reshape(-1).view(torch.int32) if t.dtype != torch.int32
+                 else t.reshape(-1) for t in p0]), 20),
+            unpack_ms=graph_ms(lambda: mesh_unpack(buf, got, lens)),
+            unpack_call_ms=time_ms(lambda: mesh_unpack(buf, got, lens), 50),
+            unpack_plain_ms=time_ms(lambda: mesh_unpack_plain(buf, got,
+                                                              lens), 20),
+            # each word read once and written once
+            pack_bound=bound(2 * 4 * W, 0.0),
+            unpack_bound=bound(2 * 4 * w * (W - 6), 0.0))
+        x = res[w]
+        log(f"K24e width {w}: pack {x['pack_ms']:.5f} ms (call "
+            f"{x['pack_call_ms']:.5f}, plain {x['pack_plain_ms']:.5f}, "
+            f"torch.cat {x['pack_library_ms']:.5f}, bound "
+            f"{x['pack_bound'][0]:.6f}); unpack {x['unpack_ms']:.5f} ms "
+            f"(call {x['unpack_call_ms']:.5f}, plain "
+            f"{x['unpack_plain_ms']:.5f}, bound {x['unpack_bound'][0]:.6f})")
+    r2, r4 = res[2], res[4]
+    out["mesh_pack"] = dict(
+        err=0.0, ms=r2["pack_ms"], call_ms=r2["pack_call_ms"],
+        plain_ms=r2["pack_plain_ms"], bound=r2["pack_bound"],
+        library_ms=r2["pack_library_ms"], ms_width_4=r4["pack_ms"])
+    out["mesh_unpack"] = dict(
+        err=0.0, ms=r2["unpack_ms"], call_ms=r2["unpack_call_ms"],
+        plain_ms=r2["unpack_plain_ms"], bound=r2["unpack_bound"],
+        library_ms=None, ms_width_4=r4["unpack_ms"])
+
+    # the lane base: K2's transition mode, K4's LV and Gaussian kernels
+    B = 65536
+    g.manual_seed(42)
+    prior = lv.default_prior().arrays(dev)
+    lo, hi = prior["loc"], prior["hi"]
+    fit = {"cdf": torch.cumsum(torch.rand(MESH_POP, generator=g,
+                                          device=dev), 0),
+           "thetas": lo + torch.rand(MESH_POP, 4, generator=g,
+                                     device=dev) * (hi - lo),
+           "chol": torch.eye(4, device=dev) * 0.1}
+    theta = (lo + torch.rand(B, 4, generator=g, device=dev)
+             * (hi - lo)).contiguous()
+    model = lv.make_lv_model()
+    lvkw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
+                y0=lv.Y0, noise_sd=model.noise_sd, log_parameters=False)
+    gth = torch.rand(B, 2, generator=g, device=dev) + 0.5
+
+    def stream(tag, lane0):
+        s = stream_on(dev, tag)
+        return philox.PhiloxStream(s.seed, s.generation, s.tag,
+                                   s.max_rounds, s.counters, lane0=lane0)
+
+    # K2's draws on the timed block's lanes: one, plus one a leading draw
+    # without prior mass
+    k2_draws = float(redraws_taken(stream(philox.TRANSITION, B // 2),
+                                   B // 2, prior, fit).sum())
+
+    kernels = {
+        "propose:lane_base": (
+            lambda s, a, n: propose(s, n, prior, fit),
+            lambda s, a, n: propose_plain(s, n, prior, fit),
+            philox.TRANSITION,
+            # the fit read, theta, logpri and valid written; the draws the
+            # block's lanes take
+            (MESH_POP * (1 + 4) + 16) * 4 + B // 2 * (4 * 4 + 4 + 1),
+            k2_draws * k2_per_draw(MESH_POP, 4)),
+        "lv_simulate:lane_base": (
+            lambda s, a, n: (lv_simulate(theta[a:a + n], None, stream=s,
+                                         **lvkw),),
+            lambda s, a, n: (lv_simulate_plain(theta[a:a + n], None,
+                                               stream=s, **lvkw),),
+            philox.SIM_NOISE,
+            B // 2 * (4 + 2 * model.n_obs) * 4,
+            B // 2 * ((model.n_obs - 1) * model.n_substeps * 4 * 12
+                      + 2 * model.n_obs * 30)),
+        "gaussian_simulate:lane_base": (
+            lambda s, a, n: (gaussian_simulate(gth[a:a + n], n=GAUSS_N,
+                                               stream=s),),
+            lambda s, a, n: (gaussian_simulate_plain(gth[a:a + n],
+                                                     n=GAUSS_N, stream=s),),
+            philox.SIM_NOISE, B // 2 * 16,
+            B // 2 * (3 * 100 + GAUSS_N * 31 + 4)),
+    }
+    for name, (fn, plain, tag, nbytes, flops) in kernels.items():
+        full = fn(stream(tag, 0), 0, B)
+        err, ok = 0.0, True
+        for w in (2, 4):
+            for r in range(w):
+                a, n = r * B // w, B // w
+                part = fn(stream(tag, a), a, n)
+                for x, y in zip(full, part):
+                    ok = ok and bool(torch.equal(x[a:a + n], y))
+                    err = max(err, float((x[a:a + n].float() - y.float())
+                                         .abs().nan_to_num().max()))
+        torch.cuda.synchronize()
+        log(f"{name} (B {B}, widths 2 and 4): each rank's block bit-equal "
+            f"to the whole round's rows: {ok}")
+        check(ok, f"{name}: a rank's block differs from the whole round's "
+              f"rows")
+        s1 = stream(tag, B // 2)
+        out[name] = dict(
+            err=err, ms=graph_ms(lambda: fn(s1, B // 2, B // 2)),
+            call_ms=time_ms(lambda: fn(s1, B // 2, B // 2), 50),
+            plain_ms=time_ms(lambda: plain(s1, B // 2, B // 2), 2,
+                             warmup=1),
+            bound=bound(nbytes, flops), library_ms=None)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -11087,6 +11595,7 @@ def main() -> int:
     results.update(round_checks(dev))
     results.update(shard_checks(dev))
     results.update(agg_shard_checks(dev))
+    results.update(mesh_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
     gaussian_toy(dev)
     noisy_anchor(dev)
@@ -11197,6 +11706,11 @@ def main() -> int:
     sched_sh_counts = lv_aggregate_sharded_leg(dev, "schedule")
     lv_aggregate_sharded_card_cpu(dev)
     mark("aggregated sharded legs")
+    # the device mesh over Gloo: w rank processes on the one card (K24e,
+    # the lane-base modes of K2 and K4)
+    mesh = mesh_legs(dev)
+    mesh_counts = mesh["lv", 2]
+    mark("mesh legs")
     agg_counts, _agg_modes, _agg_abc = lv_aggregate_leg(dev, "adaptive")
     lv_aggregate_cpu_trail(dev)
     sched_counts, _sched_modes, _sched_abc = lv_aggregate_leg(dev,
@@ -11255,7 +11769,8 @@ def main() -> int:
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (agg_sh_counts if k.name in AGG_SH_KERNELS
+        own = (mesh_counts if k.name in MESH_KERNELS
+               else agg_sh_counts if k.name in AGG_SH_KERNELS
                else lvs_counts if k.name in SHARD_KERNELS
                else x1["pipelined"] if k.name in HL_KERNELS
                else lvg_counts if k.name == "grid_search_cv"
@@ -11340,14 +11855,17 @@ def main() -> int:
                                  "lv_aggregate_sharded":
                                      agg_sh_counts[k.name],
                                  "lv_schedule_sharded":
-                                     sched_sh_counts[k.name]},
+                                     sched_sh_counts[k.name],
+                                 **{f"{leg}_mesh_w{w}": c[k.name]
+                                    for (leg, w), c in mesh.items()}},
         }
         for extra in ("cpu_lanes_differ", "ms_eps_inf", "ms_k19_round",
                       "n_changed_incremental", "noisy_keep_flips",
                       "transform_ms", "transform_err", "k5_ms",
                       "transform_call_ms", "gradient_err", "loss_rel",
                       "seed_ms", "seed_call_ms", "seed_bound_ms",
-                      "seed_plain_ms", "launches_seed_fit", "rel_err", "rel"):
+                      "seed_plain_ms", "launches_seed_fit", "rel_err", "rel",
+                      "ms_width_4"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:
@@ -11441,6 +11959,10 @@ def main() -> int:
              ("moment_fold:value_columns", "pyabc_tpu_torch/csrc/moments.cu",
               "pyabc_tpu/ops/scale_reduce.py:67",
               agg_sh_counts["moment_fold:shards"])]
+    # the lane-base modes of K2 and K4, their launches from the ranks past
+    # the first of the width-2 mesh legs (LV; config 1's Gaussian)
+    rows += [(name, source, replaces, mesh[leg, 2][name])
+             for name, source, replaces, leg in LANE_BASE_ROWS]
     for name, source, replaces, launches in rows:
         r = results[name]
         check(launches > 0, f"{name} was never launched on its path")
@@ -11452,7 +11974,7 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("ms_pnorm_mode", "ms_k20b_round",
                                  "ms_feature_mode", "ms_accept_alone",
-                                 "rel") if k in r},
+                                 "rel", "ms_width_4") if k in r},
             **({"k6_ring_mask": {
                 "ms": r["k6_ring_mask"]["ms"],
                 "call_ms": r["k6_ring_mask"]["call_ms"],
@@ -11661,6 +12183,11 @@ if __name__ == "__main__":
         print(json.dumps(k2_time(sys.argv[sys.argv.index("--k2-time")
                                           + 1])))
         sys.exit(0)
+    if "--mesh-rank" in sys.argv:
+        i = sys.argv.index("--mesh-rank")
+        sys.exit(mesh_rank_main(int(sys.argv[i + 1]), int(sys.argv[i + 2]),
+                                sys.argv[i + 3], sys.argv[i + 4],
+                                sys.argv[i + 5], sys.argv[i + 6:]))
     if "--cpu-refs" in sys.argv:
         sys.exit(cpu_refs_main(sys.argv[sys.argv.index("--cpu-refs") + 1]))
     if "--k2-turns" in sys.argv:

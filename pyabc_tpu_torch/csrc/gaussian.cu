@@ -13,6 +13,10 @@
 // std to col_std, a negative column being one the observation leaves out
 // ((mean, std) is S = 2, columns 0 and 1; an observed mean alone S = 1).
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Design: one thread a lane, the x_j recomputed from the Philox blocks in
 // the second pass rather than held (any n fits in registers that way); one
 // block of four normals costs one Philox call. Every product, sum and
@@ -44,13 +48,14 @@ __device__ __forceinline__ void block_normals(const pyabc::PhiloxLane& rng,
 __global__ void __launch_bounds__(kThreads)
 gaussian_simulate_kernel(const float* __restrict__ theta, int B, int stride,
                          int n, uint32_t k0, uint32_t k1, uint32_t gen,
-                         uint32_t tag, uint32_t max_rounds,
+                         uint32_t tag, uint32_t max_rounds, uint32_t lane0,
                          const int* __restrict__ counters, int S,
                          int col_mean, int col_std, float* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const pyabc::PhiloxLane rng = pyabc::philox_lane(
-      k0, k1, (uint32_t)b, gen, tag, max_rounds, (uint32_t)counters[1]);
+      k0, k1, lane0 + (uint32_t)b, gen, tag, max_rounds,
+      (uint32_t)counters[1]);
   const float mu = theta[(size_t)b * stride];
   const float sigma = fabsf(theta[(size_t)b * stride + 1]);
   const float fn = (float)n;
@@ -79,7 +84,7 @@ gaussian_simulate_kernel(const float* __restrict__ theta, int B, int stride,
 extern "C" int pyabc_gaussian_simulate(const float* theta, int B, int stride,
                                         int n, unsigned k0, unsigned k1,
                                         unsigned gen, unsigned tag,
-                                        unsigned max_rounds,
+                                        unsigned max_rounds, unsigned lane0,
                                         const int* counters, int S,
                                         int col_mean, int col_std, float* out,
                                         void* stream_ptr) {
@@ -90,7 +95,7 @@ extern "C" int pyabc_gaussian_simulate(const float* theta, int B, int stride,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int grid = (B + kThreads - 1) / kThreads;
   gaussian_simulate_kernel<<<grid, kThreads, 0, stream>>>(
-      theta, B, stride, n, k0, k1, gen, tag, max_rounds, counters, S, col_mean,
-      col_std, out);
+      theta, B, stride, n, k0, k1, gen, tag, max_rounds, lane0, counters, S,
+      col_mean, col_std, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,10 @@
 // counters[1]. The output row is SumStatSpec's sorted layout: out[b] =
 // pred[0:n_obs] | prey[0:n_obs].
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Bound on an H100: neither memory nor peak flops at the main-path shape;
 // each lane is a chain of 190 dependent RK4 steps, so with B=4096 lanes
 // (about one warp per SM) the kernel is latency bound. The design keeps
@@ -45,12 +49,13 @@ lv_simulate_kernel(const float* __restrict__ theta, int B, int stride,
                    int n_obs, int n_sub,
                    float dt, float y0_prey, float y0_pred, float noise_sd,
                    int log_params, uint32_t k0, uint32_t k1, uint32_t gen,
-                   uint32_t tag, uint32_t max_rounds,
+                   uint32_t tag, uint32_t max_rounds, uint32_t lane0,
                    const int* __restrict__ counters, float* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const pyabc::PhiloxLane rng = pyabc::philox_lane(
-      k0, k1, (uint32_t)b, gen, tag, max_rounds, (uint32_t)counters[1]);
+      k0, k1, lane0 + (uint32_t)b, gen, tag, max_rounds,
+      (uint32_t)counters[1]);
   const float* th = theta + (size_t)b * stride;
   Rates r{th[0], th[1], th[2], th[3]};
   if (log_params) {
@@ -90,7 +95,8 @@ extern "C" int pyabc_lv_simulate(const float* theta, int B, int stride,
                                   float dt, float y0_prey, float y0_pred,
                                   float noise_sd, int log_params, unsigned k0,
                                   unsigned k1, unsigned gen, unsigned tag,
-                                  unsigned max_rounds, const int* counters,
+                                  unsigned max_rounds, unsigned lane0,
+                                  const int* counters,
                                   float* out, void* stream_ptr) {
   if (B <= 0) return 0;
   if (counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -98,6 +104,6 @@ extern "C" int pyabc_lv_simulate(const float* theta, int B, int stride,
   const int grid = (B + kThreads - 1) / kThreads;
   lv_simulate_kernel<<<grid, kThreads, 0, stream>>>(
       theta, B, stride, n_obs, n_sub, dt, y0_prey, y0_pred, noise_sd,
-      log_params, k0, k1, gen, tag, max_rounds, counters, out);
+      log_params, k0, k1, gen, tag, max_rounds, lane0, counters, out);
   return static_cast<int>(cudaGetLastError());
 }

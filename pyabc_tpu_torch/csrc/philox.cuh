@@ -93,6 +93,9 @@ struct PhiloxLane {
   }
 };
 
+// `lane` is the lane's global number: a kernel launched over a block of a
+// round (a device mesh rank's lanes [lane0, lane0 + B)) passes lane0 + b,
+// so its rows are exactly those rows of the whole round's launch.
 __device__ __forceinline__ PhiloxLane philox_lane(uint32_t k0, uint32_t k1,
                                                   uint32_t lane, uint32_t gen,
                                                   uint32_t tag,

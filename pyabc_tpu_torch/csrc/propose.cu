@@ -66,6 +66,10 @@
 // The round index is read from counters[1] on the device; the generation
 // and stream tag are arguments.
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Bound on an H100: operations, and tiny ones. Per lane and redraw one
 // binary search over n (log2 n dependent loads), (1 + nb) Philox blocks of
 // 10 rounds each and d^2 multiply-adds; the inputs are n (d + 1) floats
@@ -439,14 +443,16 @@ propose_kernel(int B, int d, int n, const float* __restrict__ cdf,
                const float* __restrict__ thetas,
                const float* __restrict__ chol, int chol_per_row, Prior pr,
                uint32_t k0, uint32_t k1, uint32_t gen, uint32_t tag,
-               uint32_t max_rounds, const int* __restrict__ counters,
+               uint32_t max_rounds, uint32_t lane0,
+               const int* __restrict__ counters,
                int n_redraws, float* __restrict__ theta_out,
                float* __restrict__ logpri_out,
                uint8_t* __restrict__ valid_out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const pyabc::PhiloxLane rng = pyabc::philox_lane(
-      k0, k1, (uint32_t)b, gen, tag, max_rounds, (uint32_t)counters[1]);
+      k0, k1, lane0 + (uint32_t)b, gen, tag, max_rounds,
+      (uint32_t)counters[1]);
   const int nb = (d + 3) >> 2;
   float th[D];
   float lp = 0.f;
@@ -510,13 +516,13 @@ template <int D, bool FAM>
 void launch(int B, int d, int n, const float* cdf, const float* thetas,
             const float* chol, int chol_per_row, Prior pr, uint32_t k0,
             uint32_t k1,
-            uint32_t gen, uint32_t tag, uint32_t max_rounds,
+            uint32_t gen, uint32_t tag, uint32_t max_rounds, uint32_t lane0,
             const int* counters, int n_redraws, float* theta, float* logpri,
             uint8_t* valid, cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
   propose_kernel<D, FAM><<<grid, kThreads, 0, stream>>>(
       B, d, n, cdf, thetas, chol, chol_per_row, pr, k0, k1, gen, tag,
-      max_rounds, counters, n_redraws, theta, logpri, valid);
+      max_rounds, lane0, counters, n_redraws, theta, logpri, valid);
 }
 
 // Inverse-CDF categorical draw over K probabilities p[0..K) (p_k = f(k)):
@@ -564,7 +570,8 @@ propose_models_kernel(int B, int K, int d, int n,
                       const float* __restrict__ model_lp, uint32_t k0,
                       uint32_t k1, uint32_t gen, uint32_t tag,
                       uint32_t model_tag,
-                      uint32_t max_rounds, const int* __restrict__ counters,
+                      uint32_t max_rounds, uint32_t lane0,
+                      const int* __restrict__ counters,
                       int n_redraws, float* __restrict__ theta_out,
                       float* __restrict__ logpri_out,
                       uint8_t* __restrict__ valid_out,
@@ -573,9 +580,11 @@ propose_models_kernel(int B, int K, int d, int n,
   if (b >= B) return;
   const uint32_t round = (uint32_t)counters[1];
   const pyabc::PhiloxLane rng =
-      pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds, round);
+      pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, tag, max_rounds,
+                         round);
   const pyabc::Words4 mw =
-      pyabc::philox_lane(k0, k1, (uint32_t)b, gen, model_tag, max_rounds,
+      pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, model_tag,
+                         max_rounds,
                          round)
           .block(0);
   const int nb = (d + 3) >> 2;
@@ -668,15 +677,15 @@ void launch_models(int B, int K, int d, int n, const float* cdf,
                    const int* dims, const float* model_p, const float* mpk,
                    const float* model_lp, uint32_t k0, uint32_t k1,
                    uint32_t gen, uint32_t tag,
-                   uint32_t model_tag, uint32_t max_rounds,
+                   uint32_t model_tag, uint32_t max_rounds, uint32_t lane0,
                    const int* counters, int n_redraws, float* theta,
                    float* logpri, uint8_t* valid, int* m,
                    cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
   propose_models_kernel<D, FAM><<<grid, kThreads, 0, stream>>>(
       B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk,
-      model_lp, k0, k1, gen, tag, model_tag, max_rounds, counters, n_redraws,
-      theta, logpri, valid, m);
+      model_lp, k0, k1, gen, tag, model_tag, max_rounds, lane0, counters,
+      n_redraws, theta, logpri, valid, m);
 }
 
 // Known-answer check of philox.cuh: words, uniforms and the four
@@ -715,8 +724,9 @@ extern "C" int pyabc_propose(
     const float* chol, int chol_per_row, const int* kind, const float* loc,
     const float* scale, const float* hi, const float* log_scale,
     const float* par, int families, unsigned k0, unsigned k1, unsigned gen,
-    unsigned tag, unsigned max_rounds, const int* counters, int n_redraws,
-    float* theta, float* logpri, uint8_t* valid, void* stream_ptr) {
+    unsigned tag, unsigned max_rounds, unsigned lane0, const int* counters,
+    int n_redraws, float* theta, float* logpri, uint8_t* valid,
+    void* stream_ptr) {
   if (B <= 0) return 0;
   if (cdf != nullptr && n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -724,7 +734,7 @@ extern "C" int pyabc_propose(
 #define PYABC_PROPOSE(DB)                                                    \
   (families ? launch<DB, true> : launch<DB, false>)(                        \
       B, d, n, cdf, thetas, chol, chol_per_row, pr, k0, k1, gen, tag,       \
-      max_rounds, counters, n_redraws, theta, logpri, valid, stream)
+      max_rounds, lane0, counters, n_redraws, theta, logpri, valid, stream)
   if (d <= 1)
     PYABC_PROPOSE(1);
   else if (d <= 2)
@@ -758,7 +768,8 @@ extern "C" int pyabc_propose_models(
     const float* mpk, const float* model_lp, unsigned k0, unsigned k1,
     unsigned gen, unsigned tag,
     unsigned model_tag,
-    unsigned max_rounds, const int* counters, int n_redraws, float* theta,
+    unsigned max_rounds, unsigned lane0, const int* counters, int n_redraws,
+    float* theta,
     float* logpri, uint8_t* valid, int* m, void* stream_ptr) {
   if (B <= 0) return 0;
   if (K < 1 || (cdf != nullptr && (n <= 0 || mpk == nullptr ||
@@ -769,7 +780,7 @@ extern "C" int pyabc_propose_models(
 #define PYABC_PROPOSE_M(DB)                                                 \
   (families ? launch_models<DB, true> : launch_models<DB, false>)(         \
       B, K, d, n, cdf, thetas, chol, chol_per_row, pr, dims, model_p, mpk, \
-      model_lp, k0, k1, gen, tag, model_tag, max_rounds, counters,         \
+      model_lp, k0, k1, gen, tag, model_tag, max_rounds, lane0, counters,  \
       n_redraws, theta, logpri, valid, m, stream)
   if (d <= 1)
     PYABC_PROPOSE_M(1);

@@ -161,6 +161,17 @@ an accepted lane's as its feature row (its given-rows mode), and K25's
 sharded finish refits W and recomputes the distances; a fixed or
 scheduled aggregate runs as unsharded.
 
+On a device mesh (``ABCSMC(..., mesh=..., sharded=n)``, one process a
+device, ``parallel/mesh.py``) rank d of w runs the global shards ``[d v,
+(d + 1) v)`` (v = n / w): its lanes of each round (the streams' lane base,
+``block``), its reservoir blocks and its slice of the quotas, with no
+collective inside the generation. Then one gather: K24e packs the rank's
+counters, table, reservoir columns and moment blocks, Gloo gathers the w
+buffers in rank order and K24e's unpack tiles them into the global
+shard-blocked arrays, the virtual-shard run's bit for bit; every rank then
+runs the replicated stage (K24b, the refits, K7, K8, K26, K11) on them as
+the virtual run does.
+
 Every draw of a round sits at a fixed place of the run's Philox stream:
 key = the seed, counter = (lane, block, generation, tag * stride_rounds +
 round), the round read on the device from the counters; the stride is the
@@ -209,7 +220,8 @@ from ..observability.sync import SyncLedger, to_host
 from ..ops.health import generation_health
 from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
-from ..ops.shard import shard_quota_host
+from ..kernels.mesh_pack import mesh_pack, mesh_unpack
+from ..ops.shard import rank_block, shard_quota_host
 from ..ops.stats import normalize_log_weights, weighted_quantile
 from ..sumstat.base import expand_rows, identity_accept
 from ..transition.local_transition import LocalTransition
@@ -290,6 +302,8 @@ class GenerationRun:
     #: whether every shard met its quota (the host's reading of the table)
     k_mask: torch.Tensor | None = None
     gen_ok: bool | None = None
+    #: a mesh run: the primary's clock stop, as the gather brought it
+    clock_stop: bool = False
 
 
 @dataclass
@@ -338,7 +352,7 @@ class DeviceContext:
                  temp_config=None, models=None, priors=None,
                  model_prior=None, mpk=None, fit_statics=None,
                  local_statics=None, stride_rounds: int | None = None,
-                 n_shards: int | None = None):
+                 n_shards: int | None = None, mesh=None):
         self.model = model
         self.prior = prior
         #: K > 1 (model selection): the models; ``_init_models`` takes their
@@ -373,6 +387,11 @@ class DeviceContext:
                               or self.n_cap % self.n_shards):
             raise ValueError(f"{self.n_shards} shards must divide B "
                              f"{self.B} and n_cap {self.n_cap}")
+        #: a device mesh run: this rank's ``parallel.mesh.MeshRank``; and
+        #: the (first global lane, lanes) of the rank's block of the round
+        #: in progress, which the lane kernels draw at (None: the round)
+        self.mesh = mesh
+        self.block: tuple[int, int] | None = None
         #: the loop's round bound (a stop rule may lower it) and the
         #: Philox counter's round stride (the run's MAX_ROUNDS, which no
         #: stop rule changes, so a rule moves no draw)
@@ -481,7 +500,8 @@ class DeviceContext:
         """The Philox stream ``tag`` of generation ``t`` for the rounds of
         the generation in progress."""
         return PhiloxStream(self.seed, t, tag, self.stride_rounds,
-                            self.counters)
+                            self.counters,
+                            lane0=self.block[0] if self.block else 0)
 
     def _simulate(self, theta: torch.Tensor, t: int) -> torch.Tensor:
         return self.model.simulate_flat(
@@ -587,7 +607,7 @@ class DeviceContext:
         ``segmented`` runs K18 in the simulator's place; ``B`` lanes (the
         context's by default); ``model_logq`` (K > 1): logq adds the
         lane's model's log prior (K2 forms it)."""
-        B = self.B if B is None else int(B)
+        B = self._lanes_of_round() if B is None else int(B)
         if self.K > 1:
             # the model from the model prior, then its parameter prior;
             # the log weight is the acceptance weight alone (_lane_prior)
@@ -622,7 +642,7 @@ class DeviceContext:
         redraws against zero prior mass (K2). K > 1 takes the model terms
         from ``carry``; ``segmented`` runs K18 in the simulator's place;
         ``B`` lanes (the context's by default)."""
-        B = self.B if B is None else int(B)
+        B = self._lanes_of_round() if B is None else int(B)
         if self.K > 1:
             stream = self.stream(t, philox.TRANSITION)
             draw = propose_local if self.local else propose
@@ -652,6 +672,10 @@ class DeviceContext:
                 "accepted": accept, "valid": valid, "log_weight": logw,
                 "logq": logq, "ring_valid": keep,
                 **self._values_of_round()}
+
+    def _lanes_of_round(self) -> int:
+        """The lanes a round runs: a mesh rank's block, else B."""
+        return self.block[1] if self.block else self.B
 
     def _values_of_round(self) -> dict:
         """``{"vals": the round's (B, n) sub-distances}`` in a sharded
@@ -711,7 +735,9 @@ class DeviceContext:
 
     def generation_while_sharded(self, lanes, n_target: int,
                                  eps_at_min: torch.Tensor | None = None, *,
-                                 adaptive: bool = False) -> GenerationRun:
+                                 adaptive: bool = False,
+                                 clock=None,
+                                 sumstats: bool = True) -> GenerationRun:
         """One sharded generation (the JAX package's vmapped per-shard
         ``_generation_while``, ``util.py:2404-2420``): rounds of the global
         B lanes until every shard has met its quota of ``n_target`` or
@@ -725,10 +751,26 @@ class DeviceContext:
         Under an adaptive aggregated distance the fold's and the feature
         rows' columns are the lanes' sub-distances (``vals``, K25's
         value-rows mode), folded against a zero observation (the JAX
-        package's ``x0_cols``, ``aggregate.py:323``)."""
+        package's ``x0_cols``, ``aggregate.py:323``).
+
+        On a mesh the rank runs its block (``ops.shard.rank_block``: its v
+        shards on their slice of the quotas, their lanes, their rows) the
+        same way, then gathers once (``_mesh_gather``) and forms the mask
+        over the global arrays. ``clock``: a mesh run's clock stop, asked
+        on the primary just before the gather, whose answer rides it to
+        every rank (``GenerationRun.clock_stop``). ``sumstats``: whether a
+        mesh run's reservoir statistics ride the gather (the fetch stores
+        them for this generation); without them the gathered reservoir's
+        ``"sumstats"`` is None, as nothing else of the sharded path reads
+        them."""
         n = self.n_shards
         dev = self.device
-        res = self.new_reservoir()
+        mesh = self.mesh
+        blk = rank_block(n_target, n, mesh.width if mesh else 1,
+                         mesh.rank if mesh else 0, B=self.B,
+                         n_cap=self.n_cap)
+        v = blk.v
+        res = self.new_reservoir(blk.rows)
         values = adaptive and self.distance.aggregated
         # the columns of the fold and of the feature rows: S statistics,
         # or an aggregate's n sub-distances
@@ -736,54 +778,106 @@ class DeviceContext:
         x0_cols = (torch.zeros(F, dtype=torch.float32, device=dev) if values
                    else self.x0)
         if adaptive:
-            res["dfeat"] = torch.zeros(self.n_cap, F, dtype=torch.float32,
+            res["dfeat"] = torch.zeros(blk.rows, F, dtype=torch.float32,
                                        device=dev)
-        buf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
-        counters, table = buf[:5], buf[5:].view(n, 4)
+        buf = torch.zeros(5 + 4 * v, dtype=torch.int32, device=dev)
+        counters, table = buf[:5], buf[5:].view(v, 4)
         self.counters = counters
         if eps_at_min is not None:
             counters[EPS_AT_MIN] = eps_at_min.to(torch.int32)
-        counters[N_TARGET] = int(n_target)
-        mom = (init_moments(F, dev).expand(n, -1, -1).contiguous()
+        # a rank's v shards on the target whose quotas are its slice
+        counters[N_TARGET] = blk.target
+        mom = (init_moments(F, dev).expand(v, -1, -1).contiguous()
                if adaptive else None)
-        quota = shard_quota_host(n_target, n)
+        quota = blk.quota
         p = float(getattr(self.distance, "p", 2.0))
         self.rounds_read = 0
         self.value_rows = values
+        self.block = (blk.lane0, blk.lanes) if mesh else None
         try:
             while True:
                 out = lanes()
                 cols = out["vals"] if values else out["sumstats"]
                 if mom is not None:
                     moment_fold.shards(mom, cols, out["valid"], x0_cols,
-                                       counters, table, n_shards=n,
+                                       counters, table, n_shards=v,
                                        rec_cap=self.rec_cap,
                                        max_rounds=self.max_rounds)
                 compact_round.shards(
                     out["accepted"], out["valid"], out["theta"],
                     out["sumstats"], out["distance"], out["log_weight"], res,
-                    counters, table, n_shards=n, max_rounds=self.max_rounds,
+                    counters, table, n_shards=v, max_rounds=self.max_rounds,
                     m=out["m"] if self.K > 1 else None, x0=self.x0, p=p,
                     feat_rows=cols if values else None)
                 host = buf.cpu()
                 self.sync_ledger.record("round_counters", host.nbytes)
-                tab = host[5:].view(n, 4).numpy()
+                tab = host[5:].view(v, 4).numpy()
                 self.rounds_read = int(host[ROUNDS])
                 if ((tab[:, 0] >= quota)
                         | (tab[:, 1] >= self.max_rounds)).all():
                     break
         finally:
             self.value_rows = False
+            self.block = None
+        eps_min = bool(host[EPS_AT_MIN])
+        clock_stop = False
+        if mesh is not None:
+            stop = mesh.rank == 0 and clock is not None and bool(clock())
+            buf, res, mom, tab, clock_stop = self._mesh_gather(
+                buf, res, mom, n_target, eps_at_min, stop, sumstats)
+            counters, table = buf[:5], buf[5:].view(n, 4)
         cap_loc = self.n_cap // n
         _quota, k_mask, summary = shard_mask(counters, table, n_shards=n,
                                              cap_loc=cap_loc)
+        quota_all = shard_quota_host(n_target, n)
         return GenerationRun(
             n_acc=int(tab[:, 0].sum()), rounds=int(tab[:, 1].max()),
             n_valid=int(tab[:, 2].sum()),
-            eps_at_min=bool(host[EPS_AT_MIN]), counters=summary[:5],
-            res=res, rec=None, n_target=int(host[N_TARGET]), mom=mom,
-            k_mask=k_mask,
-            gen_ok=bool((tab[:, 0] >= np.minimum(quota, cap_loc)).all()))
+            eps_at_min=eps_min, counters=summary[:5],
+            res=res, rec=None, n_target=int(n_target), mom=mom,
+            k_mask=k_mask, clock_stop=clock_stop,
+            gen_ok=bool((tab[:, 0] >= np.minimum(quota_all, cap_loc)).all()))
+
+    def _mesh_gather(self, buf, res: dict, mom, n_target: int, eps_at_min,
+                     stop: bool, sumstats: bool):
+        """The generation's one collective on a mesh: K24e packs the rank's
+        counters, its clock stop, its ``(v, 4)`` table, its reservoir
+        blocks' columns (their statistics only under ``sumstats``) and its
+        moment blocks; the mesh gathers the w buffers in rank order;
+        K24e's unpack tiles them into the global
+        counters buffer (the virtual run's: its rounds the largest rank's),
+        reservoir and ``(n, 6, F)`` moment blocks -> (buf, res, mom, the
+        ``(n, 4)`` table on the host, the primary's stop)."""
+        mesh, n, dev = self.mesh, self.n_shards, self.device
+        flag = torch.full((1,), int(stop), dtype=torch.int32, device=dev)
+        cols = [k for k in res if sumstats or k != "sumstats"]
+        pieces = [buf[:5], flag, buf[5:], *(res[k] for k in cols)]
+        if mom is not None:
+            pieces.append(mom)
+        lens = [p.numel() for p in pieces]
+        host, recv = mesh.gather(mesh_pack(pieces), self.sync_ledger)
+        v4 = buf.numel() - 5
+        tab = host[:, 6:6 + v4].reshape(n, 4)
+        rounds = host[:, ROUNDS]
+        mesh.stats["rounds"].append(int(rounds[mesh.rank]))
+        gbuf = torch.zeros(5 + 4 * n, dtype=torch.int32, device=dev)
+        if eps_at_min is not None:
+            gbuf[EPS_AT_MIN] = eps_at_min.to(torch.int32)
+        gbuf[N_TARGET] = int(n_target)
+        # the virtual loop's round count: its longest-running shard's
+        gbuf[ROUNDS] = int(rounds.max())
+        gres = {k: torch.empty((res[k].shape[0] * mesh.width,
+                                *res[k].shape[1:]), dtype=res[k].dtype,
+                               device=dev) for k in cols}
+        gmom = (None if mom is None else torch.empty(
+            (n, *mom.shape[1:]), dtype=mom.dtype, device=dev))
+        dsts = [None, None, gbuf[5:], *(gres[k] for k in cols)]
+        if mom is not None:
+            dsts.append(gmom)
+        mesh_unpack(recv, dsts, lens)
+        if not sumstats:
+            gres["sumstats"] = None
+        return gbuf, gres, gmom, tab, bool(host[0, 5])
 
     # ------------------------------------------------ K26's round kernel
     def round(self, key: RoundKey, B: int, mode: str, dyn: dict) -> dict:

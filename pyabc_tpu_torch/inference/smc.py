@@ -204,6 +204,7 @@ from ..ops.pack import (fetch_dtype_of, pack_models, pack_rows,
                         pack_sumstats, unpack_rows)
 from ..kernels.linear_sumstat import MAX_C as MAX_LEARNED
 from ..ops.fit import pack_layers, unpack_layers
+from ..parallel.mesh import MeshRank, rank_seed
 from ..populationstrategy import (AdaptivePopulationSize,
                                   ConstantPopulationSize, ListPopulationSize)
 from ..sampler import BatchedSampler, exp_normalize_log_weights
@@ -319,12 +320,10 @@ class ABCSMC:
         #: segmented early reject: "auto" (on whenever capable), True
         #: (required: raise with the blocking reason) or False (never)
         self.early_reject = early_reject
-        if mesh is not None:
-            raise _not_ported("a device mesh (sharded=<power of two> "
-                              "without a mesh runs the same reduction on "
-                              "virtual shards)", "15")
-        #: sharded sampling as asked (``_sharded_n`` resolves it)
+        #: sharded sampling as asked (``_sharded_n`` resolves it) and the
+        #: device mesh it runs over (None: virtual shards in this process)
         self.sharded = sharded
+        self.mesh = mesh
         if checkpoint_path is not None:
             raise _not_ported("mid-chunk checkpoints", "8")
         if np.isfinite(max_nr_recorded_particles):
@@ -470,19 +469,47 @@ class ABCSMC:
         #: why no device-fit plan serves it, "seeds": whether generation 0
         #: reaches the first fit}``), None otherwise (``_sumstat_plan``)
         self._sumstat_host: dict | None = None
+        #: a mesh run: this process's rank of the one-dimensional mesh
+        #: (``parallel.mesh.MeshRank``: a Gloo group, the width, the rank)
+        self.mesh_rank = (MeshRank.of(mesh, self.device) if mesh is not None
+                          else None)
         #: the shard count of a sharded run, None unsharded
         self.sharded_n = self._sharded_n()
+        if self.mesh_rank is not None:
+            self._mesh_gate()
 
     def _sharded_n(self) -> int | None:
-        """The shard count of ``sharded`` (``pyabc_tpu`` ``smc.py:1740-1800``
-        without a mesh): an int n > 1 shards over n virtual shards; ``True``,
-        ``None``, ``False``, 0 and 1 run unsharded. A count the JAX package
-        cannot shard raises its ``ValueError``; a configuration it shards
-        and the port does not yet raises ``not_ported``."""
+        """The shard count of ``sharded`` (``pyabc_tpu`` ``smc.py:1740-1800``):
+        without a mesh an int n > 1 shards over n virtual shards and
+        ``True``, ``None``, ``False``, 0 and 1 run unsharded; on a mesh of
+        width w, ``sharded=n`` needs w to divide n (each rank runs n / w
+        virtual shards) and without an int n the run takes n = w. A count
+        the JAX package cannot shard raises its ``ValueError``, on a mesh
+        too (no replicated path serves it); a configuration it shards and
+        the port does not yet raises ``not_ported``. The JAX package's
+        multi-host reasons (uneven or interleaved per-process device
+        counts, ``smc.py:1936-1968``) cannot arise: a rank is one process
+        with one device, in mesh order."""
         s = self.sharded
-        if s is None or isinstance(s, bool) or int(s) <= 1:
+        if s is False or (s == 0 and not isinstance(s, bool)):
             return None
-        n = int(s)
+        n_req = (int(s) if isinstance(s, (int, np.integer))
+                 and not isinstance(s, bool) else None)
+        if self.mesh is not None:
+            w = int(self.mesh.size())
+            if n_req is None:
+                n = w
+            elif n_req < w or n_req % w:
+                raise ValueError(
+                    f"sharded={n_req} cannot run on a {w}-device mesh: "
+                    f"the mesh width must divide the shard count (each "
+                    f"device then runs n_shards/width virtual shards)")
+            else:
+                n = n_req
+        else:
+            n = n_req
+        if n is None or n <= 1:
+            return None
         reason = self._sharded_incapable_reason(n)
         if reason is not None:
             raise ValueError(f"sharded fused sampling unavailable: {reason}")
@@ -541,6 +568,24 @@ class ABCSMC:
                     f"serves this config — pick a shard count dividing "
                     f"the pow2 population bucket to shard")
         return None
+
+    def _mesh_gate(self) -> None:
+        """What a mesh run needs beyond the virtual shards: a sharded run
+        (w > 1; a width-1 mesh may run unsharded, on its one rank), and
+        models whose draws place a rank's block of a round at its lanes (a
+        user simulator drawing from the run's generator, K4's LV and
+        Gaussian kernels); the other built-in kernels number a round's
+        lanes from 0 and are refused naming themselves."""
+        if self.sharded_n is None and self.mesh_rank.width > 1:
+            raise _not_ported(
+                f"a {self.mesh_rank.width}-device mesh without sharded "
+                f"sampling (the JAX package's replicated GSPMD path)", "15")
+        for model in self.models:
+            if not getattr(model, "lane_base", True) or (
+                    model.segmented is not None):
+                raise _not_ported(
+                    f"a {type(model).__name__} model on a device mesh (its "
+                    f"kernel numbers the lanes of a round from 0)", "15")
 
     def _sharded_unserved(self) -> str | None:
         """A configuration the JAX package shards and the port does not
@@ -724,6 +769,15 @@ class ABCSMC:
             return None
         return (int(every), float(self.refit_drift_threshold))
 
+    def mesh_snapshot(self) -> dict | None:
+        """A mesh run's block (the JAX engine snapshot's ``"mesh"``): the
+        devices, this rank, the gathers and their bytes, the staging and
+        Gloo ms a gather and this rank's rounds of each generation; None
+        without a mesh."""
+        if self.mesh_rank is None:
+            return None
+        return {**self.mesh_rank.snapshot(), "shards": self.sharded_n}
+
     @property
     def model_names(self) -> list[str]:
         return [m.name for m in self.models]
@@ -738,6 +792,10 @@ class ABCSMC:
             raise ValueError("observed summary statistics are required")
         self.x_0 = {k: np.asarray(v) for k, v in observed_sum_stat.items()}
         self.spec = SumStatSpec(self.x_0)
+        if self.mesh_rank is not None and self.mesh_rank.rank != 0:
+            # every rank writes the same History: only the primary keeps it
+            # (``parallel.distributed.primary_db``)
+            db = "sqlite://"
         self.history = History(db, store_sum_stats=store_sum_stats)
         options = dict(meta_info or {})
         options["parameter_names"] = {
@@ -858,7 +916,8 @@ class ABCSMC:
             max_rounds=max_rounds, stride_rounds=self.MAX_ROUNDS,
             sync_ledger=self.sync_ledger,
             seed=self.seed, temp_config=temp_config,
-            n_shards=self.sharded_n, **models)
+            n_shards=self.sharded_n,
+            mesh=self.mesh_rank if self.sharded_n else None, **models)
 
     # ------------------------------------------------------ early reject
     def _early_reject_incapable_reason(self, *, adaptive: bool,
@@ -1154,6 +1213,15 @@ class ABCSMC:
             calib = {"eps0": carry.eps, **({"w0": w0} if calib_w else {})}
 
         G = self.fused_generations
+        mesh = ctx.mesh
+        if mesh is not None and mesh.rank:
+            # the calibration drew the same user-simulator noise on every
+            # rank; from here each rank draws its own block's
+            self.generator.manual_seed(rank_seed(self.seed, mesh.rank))
+
+        def clock() -> bool:
+            return (max_walltime is not None
+                    and time.perf_counter() - t_start > max_walltime)
 
         def chunk_limit(t: int) -> int:
             """The generations of the chunk that starts at ``t``: learned
@@ -1231,8 +1299,12 @@ class ABCSMC:
                 n_gen = (carry.n_target if adaptive_n is not None
                          else strategy(tg))
                 if sharded:
+                    # a mesh gathers the statistics only where the fetch
+                    # stores them (the sharded path serves no host fit)
                     run = ctx.generation_while_sharded(
-                        lanes, n_gen, eps_at_min=at_min, adaptive=adaptive)
+                        lanes, n_gen, eps_at_min=at_min, adaptive=adaptive,
+                        clock=clock,
+                        sumstats=self.history.wants_sum_stats(tg))
                 else:
                     run = (ctx.generation_while_seg if seg_g
                            else ctx.generation_while)(lanes, n_gen,
@@ -1251,12 +1323,12 @@ class ABCSMC:
                 # every stop rule reads host values of this generation's
                 # counters, so it is known before the step: K16 is skipped
                 # in the generation after which the run stops
+                # a mesh run's clock stop is the primary's, from the gather
                 last = bool(
                     run.eps_at_min or tg + 1 >= max_nr_populations
                     or acc_rate < min_acceptance_rate
                     or sims_total >= max_total_nr_simulations
-                    or (max_walltime is not None
-                        and time.perf_counter() - t_start > max_walltime))
+                    or (run.clock_stop if mesh is not None else clock()))
                 refit = True
                 if sharded:
                     refit = tg == 0 or gens_since + 1 >= refit_every

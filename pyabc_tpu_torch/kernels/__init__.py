@@ -30,6 +30,8 @@ from .linear_sumstat import (linear_accept, linear_accept_plain,
                              linear_values_plain, transform_rows,
                              transform_rows_plain)
 from .lv_simulate import lv_simulate, lv_simulate_plain
+from .mesh_pack import (mesh_pack, mesh_pack_plain, mesh_unpack,
+                        mesh_unpack_plain)
 from .mlp_fit import mlp_fit, mlp_fit_plain
 from .mlp_sumstat import mlp_accept, mlp_accept_plain, mlp_values_plain
 from .mlp_sumstat import transform_rows as mlp_transform_rows
@@ -64,8 +66,8 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
 #: the GP transform, K17, K4's Gaussian simulator, K24b's shard mask, K25's
-#: sharded finish; K24a, K24c and K24d are the shard and merge modes of
-#: K6, K10 and K22)
+#: sharded finish, K24e's mesh pack and unpack; K24a, K24c and K24d are the
+#: shard and merge modes of K6, K10 and K22)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -76,7 +78,7 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
            mlp_accept, gp_accept, grid_search_cv, gaussian_simulate,
-           shard_mask, aggregate_finish)
+           shard_mask, aggregate_finish, mesh_pack, mesh_unpack)
 
 
 def reset_launch_counts() -> None:
@@ -115,7 +117,8 @@ __all__ = [
     "generation_health", "generation_health_plain", "gp_accept",
     "gp_accept_plain", "gp_transform_rows", "gp_transform_rows_plain",
     "gp_values_plain", "grid_search_cv", "grid_search_cv_models_plain",
-    "grid_search_cv_plain", "kernel_accept",
+    "grid_search_cv_plain", "kernel_accept", "mesh_pack", "mesh_pack_plain",
+    "mesh_unpack", "mesh_unpack_plain",
     "kernel_accept_plain", "launch_counts", "local_cov",
     "local_cov_plain", "local_factor", "local_factor_plain", "local_logpdf",
     "local_logpdf_models_plain", "local_logpdf_plain",

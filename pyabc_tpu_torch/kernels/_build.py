@@ -39,12 +39,12 @@ SIGNATURES = {
     "pyabc_mvn_mixture_logpdf_models": [
         _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pyabc_lv_simulate": [
-        _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _P, _P,
-        _P],
+        _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _U, _P,
+        _P, _P],
     "pyabc_ode_family_simulate": [
         _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
-    "pyabc_gaussian_simulate": [_P, _I, _I, _I, _U, _U, _U, _U, _U, _P, _I,
-                                _I, _I, _P, _P],
+    "pyabc_gaussian_simulate": [_P, _I, _I, _I, _U, _U, _U, _U, _U, _U, _P,
+                                _I, _I, _I, _P, _P],
     "pyabc_sir_simulate": [
         _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_pnorm_accept_weight": [
@@ -57,6 +57,8 @@ SIGNATURES = {
         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P, _F, _P, _I, _I, _P, _P, _P],
     "pyabc_shard_mask": [_I, _I, _P, _P, _P, _P, _P, _P],
+    "pyabc_mesh_pack": [_I, _P, _P, _P, _P],
+    "pyabc_mesh_unpack": [_I, _P, _P, _P, _I, _P],
     "pyabc_temperature_update": [
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
         _F, _I, _I, _F, _I, _I, _F, _F, _I, _P, _P, _P],
@@ -65,10 +67,10 @@ SIGNATURES = {
         _U, _P, _P, _P, _P, _P],
     "pyabc_propose": [
         _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _U, _U, _U,
-        _U, _U, _P, _I, _P, _P, _P, _P],
+        _U, _U, _U, _P, _I, _P, _P, _P, _P],
     "pyabc_propose_models": [
         _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-        _P, _P, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
+        _P, _P, _U, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
     "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],

@@ -18,14 +18,13 @@ import torch
 
 from . import _build
 from .base import Kernel
-from .philox import PhiloxStream, normals
+from .philox import PhiloxStream, lanes, normals
 
 
 def gaussian_noise_plain(stream: PhiloxStream, B: int, n: int
                          ) -> torch.Tensor:
     """The ``(B, n)`` normals the kernel draws on ``stream``."""
-    lanes = torch.arange(B, dtype=torch.int64, device=stream.counters.device)
-    return normals(stream, lanes, 0, n)
+    return normals(stream, lanes(stream, B), 0, n)
 
 
 def _width(columns: tuple[int, int]) -> int:
@@ -56,6 +55,12 @@ class GaussianSimulate(Kernel):
     source = "pyabc_tpu_torch/csrc/gaussian.cu"
     replaces = "pyabc_tpu/models/gaussian.py:20"
 
+    def __init__(self):
+        super().__init__()
+        #: launches over a block of a round whose first lane is not 0 (a
+        #: device mesh rank's)
+        self.mode_launches = {"lane_base": 0}
+
     def __call__(self, theta: torch.Tensor, *, n: int, stream: PhiloxStream,
                  columns: tuple[int, int] = (0, 1)) -> torch.Tensor:
         if self.on_cpu(theta, stream.counters):
@@ -72,11 +77,13 @@ class GaussianSimulate(Kernel):
         err = _build.library().pyabc_gaussian_simulate(
             theta.data_ptr(), B, stride, int(n), *stream.key,
             stream.generation, stream.tag, stream.max_rounds,
-            stream.counters.data_ptr(), S, *map(int, columns),
-            out.data_ptr(),
+            int(stream.lane0), stream.counters.data_ptr(), S,
+            *map(int, columns), out.data_ptr(),
             _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1
+        if stream.lane0:
+            self.mode_launches["lane_base"] += 1
         return out
 
 

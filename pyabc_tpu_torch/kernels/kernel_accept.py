@@ -31,7 +31,7 @@ import torch
 
 from . import _build
 from .base import Kernel
-from .philox import PhiloxStream, uniforms
+from .philox import PhiloxStream, no_lane_base, uniforms
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -174,6 +174,7 @@ class KernelAccept(Kernel):
                  logpri=None, logq=None, family: str = "independent_normal"):
         if family not in FAMILY_CODES:
             raise ValueError(f"{self.name}: unknown noise family {family!r}")
+        no_lane_base(stream, self.name)
         kw = dict(stream=stream, lin=lin, apply_iw=apply_iw, logpri=logpri,
                   logq=logq, family=family)
         opt = [t for t in (logpri, logq) if t is not None]

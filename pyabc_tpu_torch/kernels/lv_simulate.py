@@ -17,7 +17,7 @@ import torch
 from ..models.ode import rk4_at_times
 from . import _build
 from .base import Kernel
-from .philox import PhiloxStream, normals
+from .philox import PhiloxStream, lanes, normals
 
 
 def lv_rhs(prey, pred, alpha, beta, gamma, delta):
@@ -29,9 +29,8 @@ def lv_rhs(prey, pred, alpha, beta, gamma, delta):
 
 def lv_noise_plain(stream: PhiloxStream, B: int, n_obs: int) -> torch.Tensor:
     """The ``(B, 2, n_obs)`` noise the kernel draws on ``stream``."""
-    lanes = torch.arange(B, dtype=torch.int64,
-                         device=stream.counters.device)
-    return normals(stream, lanes, 0, 2 * n_obs).reshape(B, 2, n_obs)
+    return normals(stream, lanes(stream, B), 0, 2 * n_obs).reshape(
+        B, 2, n_obs)
 
 
 def lv_simulate_plain(theta: torch.Tensor, noise: torch.Tensor | None, *,
@@ -74,6 +73,12 @@ class LvSimulate(Kernel):
     source = "pyabc_tpu_torch/csrc/lv_rk4.cu"
     replaces = "pyabc_tpu/models/ode.py:104"
 
+    def __init__(self):
+        super().__init__()
+        #: launches over a block of a round whose first lane is not 0 (a
+        #: device mesh rank's)
+        self.mode_launches = {"lane_base": 0}
+
     def __call__(self, theta: torch.Tensor, noise: torch.Tensor | None, *,
                  n_obs: int, n_substeps: int, dt: float,
                  y0: tuple[float, float], noise_sd: float,
@@ -102,10 +107,13 @@ class LvSimulate(Kernel):
             theta.data_ptr(), B, stride, n_obs, n_substeps, float(dt),
             float(y0[0]), float(y0[1]), float(noise_sd),
             int(bool(log_parameters)), *stream.key, stream.generation,
-            stream.tag, stream.max_rounds, stream.counters.data_ptr(),
-            out.data_ptr(), _build.stream_ptr(theta.device))
+            stream.tag, stream.max_rounds, int(stream.lane0),
+            stream.counters.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(theta.device))
         _build.check(err, self.name)
         self.launches += 1
+        if stream.lane0:
+            self.mode_launches["lane_base"] += 1
         return out
 
 

@@ -33,7 +33,7 @@ import torch
 from ..models.ode import rk4_at_times
 from . import _build
 from .base import Kernel
-from .philox import PhiloxStream, normals
+from .philox import PhiloxStream, no_lane_base, normals
 from .tau_leap import MAX_MODELS, ODE_FAMILY, SegModelC, segments_plain
 
 #: the family's models, in model-index order
@@ -86,6 +86,7 @@ class OdeFamilySimulate(Kernel):
                  n_substeps: int, dt: float, y0: float = 2.0,
                  noise_sd: float = 0.0, stream: PhiloxStream | None = None,
                  noise: torch.Tensor | None = None) -> torch.Tensor:
+        no_lane_base(stream, self.name)
         kw = dict(n_obs=n_obs, n_substeps=n_substeps, dt=dt, y0=y0,
                   noise_sd=noise_sd, stream=stream, noise=noise)
         extra = [t for t in (noise, stream and stream.counters)
@@ -239,6 +240,7 @@ class OdeFamilySegments(Kernel):
                  width: int | None = None, return_state: bool = False):
         """``spec`` is one model's ``OdeFamilySegSpec`` (every lane that
         model) or the family's K specs with the lanes' models ``m``."""
+        no_lane_base(stream, self.name)
         specs = _specs(spec)
         seg_to = specs[0].n_seg if seg_to is None else seg_to
         kw = dict(state=state, seg_from=seg_from, seg_to=seg_to,

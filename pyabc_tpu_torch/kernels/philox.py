@@ -13,6 +13,11 @@ A draw's counter is ``(lane, draw block, generation, tag * max_rounds +
 round)`` and its key the run's seed; the round is read on the device from
 the round counters (``counters[ROUND]``, the layout of ``compact.py``), so
 no host read is needed to place a draw.
+
+A stream's ``lane0`` is the global number of its first lane: a round of B
+lanes draws lanes ``lane0 .. lane0 + B - 1``. A rank of a device mesh runs
+its block of the global round with ``lane0`` at the block's first lane, so
+its rows are exactly those rows of the whole round (``lanes``).
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ class PhiloxStream:
     tag: int
     max_rounds: int
     counters: torch.Tensor
+    #: the global number of the round's first lane (a mesh rank's block)
+    lane0: int = 0
 
     @property
     def key(self) -> tuple[int, int]:
@@ -59,6 +66,23 @@ class PhiloxStream:
         """The counter's last word as a 0-dim int64 device tensor."""
         return (self.tag * self.max_rounds
                 + self.counters[ROUND].to(torch.int64))
+
+
+def lanes(stream: PhiloxStream, B: int) -> torch.Tensor:
+    """The global lane numbers ``lane0 .. lane0 + B - 1`` of a round of
+    ``B`` lanes on ``stream`` (int64, on the counters' device)."""
+    return stream.lane0 + torch.arange(B, dtype=torch.int64,
+                                       device=stream.counters.device)
+
+
+def no_lane_base(stream: PhiloxStream | None, name: str) -> None:
+    """Refuse a lane base in a kernel that numbers its lanes from 0: its
+    rows would be another block's draws."""
+    if stream is not None and stream.lane0:
+        from ..utils import not_ported
+
+        raise not_ported(f"{name} on a device mesh (its kernel numbers the "
+                         f"lanes of a round from 0)", "15")
 
 
 def _mulhilo(m: int, c: torch.Tensor):

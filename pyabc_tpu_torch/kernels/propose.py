@@ -73,6 +73,7 @@ from .base import Kernel
 from .philox import (MODEL, POISSON_MAX_UNIFORMS, PhiloxStream, _rdiv,
                      box_muller, lane_blocks, normals, poisson_plain,
                      poisson_uniforms, uniform_of, uniforms)
+from .philox import lanes as stream_lanes
 
 N_REDRAWS = 4
 #: register cap of the kernel's dim buckets (the K3 buckets)
@@ -474,7 +475,7 @@ def propose_plain(stream: PhiloxStream, B: int, prior: dict,
     """Plain PyTorch version -> (theta, logpri, valid); ``local`` draws
     with the ancestor's own factor ``chols[idx]`` (LocalTransition)."""
     dev = prior["loc"].device
-    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    lanes = stream_lanes(stream, B)
     d = prior["kind"].shape[0]
     nb = _blocks_per_draw(d)
     if params is None:
@@ -533,7 +534,7 @@ def draw_models_plain(stream: PhiloxStream, B: int, model_p: torch.Tensor,
     """The lanes' model indices: from the model prior ``model_p`` (mpk
     None), else the ancestor from ``exp(model_p)`` (log model
     probabilities) and its perturbation by row of ``mpk``."""
-    lanes = torch.arange(B, dtype=torch.int64, device=model_p.device)
+    lanes = stream_lanes(stream, B)
     w = lane_blocks(model_stream(stream), lanes,
                     torch.zeros((), dtype=torch.int64, device=lanes.device))
     if mpk is None:
@@ -556,7 +557,7 @@ def propose_models_plain(stream: PhiloxStream, B: int, priors: dict,
     K, d = priors["loc"].shape
     m = draw_models_plain(stream, B, model_p,
                           None if params is None else mpk).long()
-    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    lanes = stream_lanes(stream, B)
     nb = _blocks_per_draw(d)
     lane_prior = {k: priors[k][m] for k in PRIOR_KEYS}
     real = torch.arange(d, device=dev)[None, :] < priors["dims"][m][:, None]
@@ -609,13 +610,17 @@ class Propose(Kernel):
     def __init__(self):
         super().__init__()
         #: launches whose prior holds a family other than an undecorated
-        #: norm or uniform (``"propose:families"``), every mode
-        self.mode_launches = {"families": 0}
+        #: norm or uniform (``"propose:families"``), every mode; launches
+        #: over a block of a round whose first lane is not 0 (a device mesh
+        #: rank's, ``"propose:lane_base"``)
+        self.mode_launches = {"families": 0, "lane_base": 0}
 
-    def _count(self, prior: dict) -> None:
+    def _count(self, prior: dict, stream: PhiloxStream) -> None:
         self.launches += 1
         if families(prior):
             self.mode_launches["families"] += 1
+        if stream.lane0:
+            self.mode_launches["lane_base"] += 1
 
     def __call__(self, stream: PhiloxStream, B: int, prior: dict,
                  params: dict | None = None):
@@ -662,11 +667,11 @@ class Propose(Kernel):
             B, d, n, *ptrs, int(local),
             *(prior[k].data_ptr() for k in PRIOR_KEYS),
             int(families(prior)), k0, k1, stream.generation, stream.tag,
-            stream.max_rounds,
+            stream.max_rounds, int(stream.lane0),
             stream.counters.data_ptr(), N_REDRAWS, theta.data_ptr(),
             logpri.data_ptr(), valid.data_ptr(), _build.stream_ptr(dev))
         _build.check(err, self.name)
-        self._count(prior)
+        self._count(prior, stream)
         return theta, logpri, valid
 
     def models(self, stream: PhiloxStream, B: int, priors: dict,
@@ -737,11 +742,12 @@ class Propose(Kernel):
             model_p.data_ptr(), ptrs[3],
             None if model_logits is None else model_logits.data_ptr(), k0,
             k1, stream.generation,
-            stream.tag, MODEL, stream.max_rounds, stream.counters.data_ptr(),
-            N_REDRAWS, theta.data_ptr(), logpri.data_ptr(), valid.data_ptr(),
-            m.data_ptr(), _build.stream_ptr(dev))
+            stream.tag, MODEL, stream.max_rounds, int(stream.lane0),
+            stream.counters.data_ptr(), N_REDRAWS, theta.data_ptr(),
+            logpri.data_ptr(), valid.data_ptr(), m.data_ptr(),
+            _build.stream_ptr(dev))
         _build.check(err, self.name)
-        self._count(priors)
+        self._count(priors, stream)
         if local:
             self.mode_launches["models"] += 1
         return theta, logpri, valid, m

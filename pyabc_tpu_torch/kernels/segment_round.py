@@ -78,7 +78,7 @@ from .aggregate import MAX_SUB, p_codes
 from .base import Kernel
 from .kernel_accept import (BOUND_FAMILIES, FAMILY_CODES, accept_uniforms,
                             noise_bound_fold, upper_exceeds)
-from .philox import PhiloxStream
+from .philox import PhiloxStream, no_lane_base
 from .tau_leap import MAX_MODELS, SegModelC
 
 #: relative slack of the retirement test (pnorm.py's BOUND_RTOL)
@@ -265,6 +265,7 @@ class SegmentRound(Kernel):
                  pdf_norm: torch.Tensor | None = None,
                  accept: PhiloxStream | None = None, agg=None,
                  lin: dict | None = None):
+        no_lane_base(stream, self.name)
         kw = dict(imap=imap, x0=x0, w=w, p=p, eps=eps, hist_min=hist_min,
                   width=width, seg_ctr=seg_ctr, m=m, dims=dims,
                   return_nseg=return_nseg, noise=noise, pdf_norm=pdf_norm,

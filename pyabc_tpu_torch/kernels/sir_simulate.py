@@ -15,7 +15,7 @@ import torch
 from ..models.ode import rk4_at_times
 from . import _build
 from .base import Kernel
-from .philox import PhiloxStream, normals
+from .philox import PhiloxStream, no_lane_base, normals
 
 
 def sir_rhs(s, i, r, beta, gamma, n_pop: float):
@@ -52,6 +52,7 @@ class SirSimulate(Kernel):
     def __call__(self, theta: torch.Tensor, *, n_obs: int, n_substeps: int,
                  dt: float, n_pop: float, noise_sd: float = 0.0,
                  stream: PhiloxStream | None = None) -> torch.Tensor:
+        no_lane_base(stream, self.name)
         if noise_sd > 0 and stream is None:
             raise ValueError(f"{self.name}: noise_sd > 0 needs a stream")
         extra = [stream.counters] if stream is not None else []

@@ -29,7 +29,8 @@ import torch
 
 from . import _build
 from .base import Kernel
-from .philox import POISSON_MAX_DRAWS, PhiloxStream, poisson_plain
+from .philox import (POISSON_MAX_DRAWS, PhiloxStream, no_lane_base,
+                     poisson_plain)
 
 #: SegModel.kind of the built-in segmented simulators (csrc/seg_model.cuh)
 BIRTH_DEATH, STOCHASTIC_LV, NETWORK_SIR, ODE_FAMILY = 0, 1, 2, 3
@@ -233,6 +234,7 @@ class RangeKernel(Kernel):
                  seg_to: int | None = None,
                  colmap: torch.Tensor | None = None,
                  width: int | None = None, return_state: bool = False):
+        no_lane_base(stream, self.name)
         seg_to = spec.n_seg if seg_to is None else seg_to
         kw = dict(state=state, seg_from=seg_from, seg_to=seg_to,
                   colmap=colmap, width=width)

@@ -101,6 +101,9 @@ class OdeFamilyModel(TorchModel):
     """One model of the family; alone it simulates every lane as model
     ``index``, in a run with its siblings the family simulates the round."""
 
+    #: K20b numbers a round's lanes from 0 (no device mesh)
+    lane_base = False
+
     def __init__(self, family: OdeFamily, index: int):
         self.family = family
         self.index = int(index)

@@ -3,7 +3,10 @@ counterpart, reduced to a counter).
 
 Every place where the host waits on a device value (the per-round counter
 read, the per-chunk packed fetch) records one event here, so a run can
-report its syncs per generation.
+report its syncs per generation. A device mesh's gather (``mesh_gather``,
+one a generation, ``parallel/mesh.py``) records the bytes it gathered: the
+counterpart of the JAX engine snapshot's ``mesh`` block, with
+``ABCSMC.mesh_snapshot()``.
 """
 from __future__ import annotations
 

@@ -14,9 +14,12 @@ quota of the generation's n. The helpers here:
 - :func:`merge_index`: the gather of a generation's kept rows from the
   shard-blocked layout into dense accepted order (K24c computes it inside
   the fetch kernel);
-- :func:`shard_mask`: the kept rows over the shard-blocked layout (K24b).
+- :func:`shard_mask`: the kept rows over the shard-blocked layout (K24b);
+- :func:`rank_block`: a device mesh rank's block of shards, lanes and rows.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,3 +66,42 @@ def shard_mask(nacc_sh: torch.Tensor, quota_sh: torch.Tensor, n_shards: int,
     j = torch.arange(n_shards * cap_loc, device=nacc_sh.device)
     lim = torch.minimum(nacc_sh, quota_sh)
     return (j % cap_loc) < lim[j // cap_loc]
+
+
+class RankBlock(NamedTuple):
+    """Rank ``rank``'s part of a sharded generation on a mesh of width w
+    (``util.py:2560-2570``): the global shards ``[shard0, shard0 + v)``,
+    their lanes ``[lane0, lane0 + lanes)`` of the round and their reservoir
+    rows ``[row0, row0 + rows)``; ``quota`` their slice of the global
+    quotas and ``target`` its sum."""
+
+    shard0: int
+    v: int
+    lane0: int
+    lanes: int
+    row0: int
+    rows: int
+    quota: np.ndarray
+    target: int
+
+
+def rank_block(n_target: int, n_shards: int, width: int, rank: int, *,
+               B: int, n_cap: int) -> RankBlock:
+    """Rank ``rank``'s block of an ``n_shards``-shard generation of target
+    ``n_target`` over ``B`` lanes and ``n_cap`` rows. The extra rows of an
+    uneven n sit on the leading shards, so the slice of the global quotas
+    is the quotas of ``target`` over v shards: the kernels that compute a
+    shard's quota from the target (K24a, K24d) run the rank's v shards on
+    ``target`` unchanged."""
+    if n_shards % width or B % n_shards or n_cap % n_shards:
+        raise ValueError(f"a width {width} mesh needs it to divide "
+                         f"{n_shards} shards, which divide B {B} and n_cap "
+                         f"{n_cap}")
+    v = n_shards // width
+    shard0 = rank * v
+    quota = shard_quota_host(n_target, n_shards)[shard0:shard0 + v]
+    b_loc, cap_loc = B // n_shards, n_cap // n_shards
+    return RankBlock(shard0=shard0, v=v, lane0=shard0 * b_loc,
+                     lanes=v * b_loc, row0=shard0 * cap_loc,
+                     rows=v * cap_loc, quota=quota,
+                     target=int(quota.sum()))

@@ -200,8 +200,8 @@ def test_lv_run_on_the_card(dev):
     # adaptive population size's K16, the aggregated distances' K25, the
     # learned statistics' K23 (linear and MLP) and K18 operands, the
     # host-refit mode's GP transform, GridSearchCV's K17, config 1's
-    # Gaussian simulator, sharded sampling's K24b and K25's sharded finish
-    # are not on it)
+    # Gaussian simulator, sharded sampling's K24b and K25's sharded finish,
+    # the mesh's K24e pack and unpack are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -210,7 +210,8 @@ def test_lv_run_on_the_card(dev):
              "bootstrap_cv", "aggregate_accept_weight", "aggregate_refit",
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
              "mlp_accept", "gp_accept", "grid_search_cv",
-             "gaussian_simulate", "shard_mask", "aggregate_finish")
+             "gaussian_simulate", "shard_mask", "aggregate_finish",
+             "mesh_pack", "mesh_unpack")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -3517,3 +3518,124 @@ def test_sharded_aggregate_lv_runs_on_the_card(dev, kind):
     w = abc.distance_function.weights
     assert sorted(t for t in w if t >= 0) == list(range(5))
     assert all(not np.array_equal(w[t], w[t - 1]) for t in range(1, 5))
+
+
+# ------------------------------------------- K24e and the lane base
+def _mesh_pieces(dev, w, adaptive, seed=0):
+    """A rank's pieces at the LV mesh leg's shapes (n_cap 16384 on 8
+    shards, d 4, S 40): counters, the clock word, the (v, 4) table, the
+    reservoir blocks' slot, theta, sum stats, distance, log weight and,
+    adaptive, the distance features and the (v, 6, 40) moment blocks."""
+    g = _gen(dev, seed)
+    v, R = 8 // w, 16384 // w
+    i32 = dict(dtype=torch.int32, device=dev)
+    pieces = [torch.randint(0, 99, (5,), generator=g, **i32),
+              torch.randint(0, 2, (1,), generator=g, **i32),
+              torch.randint(0, 2048, (v * 4,), generator=g, **i32),
+              torch.randint(-1, 1 << 20, (R,), generator=g, **i32),
+              torch.randn(R, 4, generator=g, device=dev),
+              torch.randn(R, 40, generator=g, device=dev),
+              torch.rand(R, generator=g, device=dev),
+              torch.randn(R, generator=g, device=dev)]
+    pieces[-1][:7] = -math.inf
+    if adaptive:
+        pieces += [torch.rand(R, 40, generator=g, device=dev),
+                   torch.randn(v, 6, 40, generator=g, device=dev)]
+    return pieces
+
+
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_mesh_pack_kernel(dev, w, adaptive):
+    """K24e's pack of every rank and its unpack of the gathered buffer,
+    bit-exact against the plain twin; a None destination is left alone."""
+    from pyabc_tpu_torch.kernels import (mesh_pack, mesh_pack_plain,
+                                         mesh_unpack, mesh_unpack_plain)
+
+    ranks = [_mesh_pieces(dev, w, adaptive, seed=r) for r in range(w)]
+    before = (mesh_pack.launches, mesh_unpack.launches)
+    bufs = [mesh_pack(p) for p in ranks]
+    for p, b in zip(ranks, bufs):
+        assert torch.equal(b, mesh_pack_plain(p))
+    buf = torch.stack(bufs)
+    lens = [t.numel() for t in ranks[0]]
+
+    def dsts():
+        out = [None, None] + [torch.full((w * t.shape[0], *t.shape[1:]), 7,
+                                         dtype=t.dtype, device=dev)
+                              for t in ranks[0][2:]]
+        return out
+
+    got, want = dsts(), dsts()
+    mesh_unpack(buf, got, lens)
+    torch.cuda.synchronize()
+    mesh_unpack_plain(buf, want, lens)
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (mesh_pack.launches, mesh_unpack.launches) == (
+        before[0] + w, before[1] + 1)
+
+
+def _lane_stream(dev, tag, lane0=0):
+    s = _stream(dev, tag)
+    return philox.PhiloxStream(s.seed, s.generation, s.tag, s.max_rounds,
+                               s.counters, lane0=lane0)
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_lane_base_kernels(dev, w):
+    """K2 (prior, transition and K > 1 modes), K4's LV and Gaussian
+    kernels launched over each rank's lanes [a, b) of B 65536 with the
+    lane base a give rows [a, b) of the whole round's launch, bit for bit;
+    each such launch counts in its ``lane_base`` mode."""
+    from pyabc_tpu_torch.kernels import gaussian_simulate
+    from pyabc_tpu_torch.models import gaussian
+
+    B = 65536
+    g = _gen(dev, 3)
+    prior = lv.default_prior().arrays(dev)
+    fit = {"cdf": torch.cumsum(torch.rand(16384, generator=g, device=dev), 0),
+           "thetas": prior_rows(dev, 16384, g),
+           "chol": torch.eye(4, device=dev) * 0.1}
+    theta = prior_rows(dev, B, g)
+    model = lv.make_lv_model()
+    kw = dict(n_obs=model.n_obs, n_substeps=model.n_substeps, dt=model.dt,
+              y0=lv.Y0, noise_sd=model.noise_sd, log_parameters=False)
+    gp = gaussian.default_prior().arrays(dev)
+    priors = {k: torch.stack([gp[k], gp[k]]) for k in gp
+              if isinstance(gp[k], torch.Tensor)}
+    priors["dims"] = torch.tensor([2, 2], dtype=torch.int32, device=dev)
+    p_model = torch.tensor([0.4, 0.6], device=dev)
+    gth = torch.rand(B, 2, generator=g, device=dev) + 0.5
+    runs = {
+        "propose:prior": lambda s, n, a: propose(s, n, prior),
+        "propose:transition": lambda s, n, a: propose(s, n, prior, fit),
+        "propose:models": lambda s, n, a: propose.models(s, n, priors,
+                                                         p_model),
+        "lv_simulate": lambda s, n, a: (lv_simulate(
+            theta[a:a + n].contiguous(), None, stream=s, **kw),),
+        "gaussian_simulate": lambda s, n, a: (gaussian_simulate(
+            gth[a:a + n].contiguous(), n=10, stream=s),),
+    }
+    modes = (propose.mode_launches["lane_base"],
+             lv_simulate.mode_launches["lane_base"],
+             gaussian_simulate.mode_launches["lane_base"])
+    for name, fn in runs.items():
+        tag = philox.SIM_NOISE if "simulate" in name else philox.TRANSITION
+        full = fn(_lane_stream(dev, tag), B, 0)
+        for r in range(w):
+            a, n = r * B // w, B // w
+            part = fn(_lane_stream(dev, tag, a), n, a)
+            for x, y in zip(full, part):
+                assert torch.equal(x[a:a + n], y), (name, r)
+    assert (propose.mode_launches["lane_base"] - modes[0]
+            == 3 * (w - 1))
+    assert lv_simulate.mode_launches["lane_base"] - modes[1] == w - 1
+    assert gaussian_simulate.mode_launches["lane_base"] - modes[2] == w - 1
+
+
+def prior_rows(dev, n, g):
+    """n rows of LV's default prior (uniform boxes), drawn on ``g``."""
+    prior = lv.default_prior().arrays(dev)
+    u = torch.rand(n, 4, generator=g, device=dev)
+    return (prior["loc"] + u * (prior["hi"] - prior["loc"])).contiguous()

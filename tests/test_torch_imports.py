@@ -137,3 +137,49 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+_MESH_PROBE = r'''
+import importlib, importlib.abc, json, sys
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if (name == "jax" or name.startswith("jax.")
+                or name == "jaxlib" or name.startswith("jaxlib.")
+                or name == "pyabc_tpu" or name.startswith("pyabc_tpu.")):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+sys.path.insert(0, "tests")
+import torch
+torch.set_num_threads(1)
+from pyabc_tpu_torch.parallel import distributed, mesh
+import torch_mesh_ranks
+print(json.dumps({
+    "api": sorted(distributed.__all__),
+    "mesh": [mesh.MeshRank.__name__, mesh.rank_seed.__name__],
+    "ranks": sorted(torch_mesh_ranks.CONFIGS),
+    "loaded": sorted(k for k in sys.modules
+                     if k.split(".")[0] in ("jax", "jaxlib", "pyabc_tpu")),
+}))
+'''
+
+
+def test_parallel_and_mesh_ranks_import_neither_jax_nor_the_jax_package():
+    """``pyabc_tpu_torch/parallel/`` (the process setup and a rank's mesh)
+    and the mesh tests' rank processes (``tests/torch_mesh_ranks.py``) run
+    without JAX: a spawned rank is the port alone."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _MESH_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["api"] == ["DistributedConfigError", "barrier", "global_mesh",
+                          "initialize", "is_primary", "primary_db",
+                          "process_count"]
+    assert res["mesh"] == ["MeshRank", "rank_seed"]
+    assert res["ranks"] == ["adaptive", "aggregate", "gauss", "pair",
+                            "sparse", "toy"]
+    assert res["loaded"] == []

@@ -297,8 +297,12 @@ def test_previously_unserved_configurations_now_shard(what):
 
 
 def test_mesh_and_segmented_early_reject_are_not_ported():
+    """A mesh runs (``tests/test_torch_mesh.py``) when it is a
+    one-dimensional ``DeviceMesh``; anything else is a TypeError naming
+    it. Segmented early reject in a sharded run stays unported."""
     model, prior = gaussian.make_mean_only_model(), gaussian.mean_only_prior()
-    with pytest.raises(NotImplementedError, match="a device mesh.*item 15"):
+    with pytest.raises(TypeError,
+                       match="one-dimensional torch DeviceMesh.*got object"):
         tpt.ABCSMC(model, prior, mesh=object(), device="cpu")
     small = dict(n_leaps=20, n_obs=4, t1=2.0)
     with pytest.raises(NotImplementedError,
