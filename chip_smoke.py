@@ -2152,6 +2152,9 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.grid_search", "fold_scores_plain"),
     ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_simulate_plain"),
     ("pyabc_tpu_torch.kernels.gaussian_simulate", "gaussian_noise_plain"),
+    ("pyabc_tpu_torch.kernels.gaussian_simulate",
+     "mean_only_simulate_plain"),
+    ("pyabc_tpu_torch.kernels.gaussian_simulate", "mean_only_noise_plain"),
     ("pyabc_tpu_torch.kernels.mesh_pack", "mesh_pack_plain"),
     ("pyabc_tpu_torch.kernels.mesh_pack", "mesh_unpack_plain"),
 )
@@ -2298,16 +2301,16 @@ def finish_references() -> None:
 def toy_stats(where) -> dict:
     """The conjugate toy over TOY_SEEDS on one device -> each seed's
     posterior mean and least ESS, the lowest ESS (value, seed,
-    generation) and the wall."""
+    generation), seed 0's epsilon trail and the wall."""
     from pyabc_tpu_torch.models import gaussian
 
     mu_true, sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
     mus, ess_min = [], []
     t0 = time.perf_counter()
-    lowest = run_toy_seeds(where, mus, ess_min, mu_true, sd_true,
-                           where != "cpu")
+    lowest, eps0 = run_toy_seeds(where, mus, ess_min, mu_true, sd_true,
+                                 where != "cpu")
     return {"mus": mus, "ess_min": ess_min, "lowest": list(lowest),
-            "wall": time.perf_counter() - t0}
+            "eps0": eps0, "wall": time.perf_counter() - t0}
 
 
 @cpu_ref
@@ -2315,26 +2318,50 @@ def toy_cpu() -> dict:
     return toy_stats("cpu")
 
 
-def gaussian_toy(dev) -> None:
-    """The conjugate toy over TOY_SEEDS seeds on the card and, as the
-    reference, on the CPU (plain versions: the same Philox proposals, the
-    simulator's noise from another generator; in the CPU reference
-    process)."""
+#: the kernels of the conjugate toy's path: K4's mean-only simulator
+TOY_KERNELS = ("mean_only_simulate",)
+TOY_PATH = ("propose", "mvn_mixture_logpdf", "mean_only_simulate",
+            "pnorm_accept_weight", "compact_round", "normalize_quantile",
+            "mvn_fit", "pack_fetch", "generation_health")
+#: card against CPU on one seed (config 1's rule: pop X1_CMP_POP over
+#: X1_CMP_GENS generations): the same Philox streams on both, so the trails
+#: and the posterior agree within 1e-3 relative
+SEED_REL = 1e-3
+
+
+def rel_gap(card, cpu) -> float:
+    """The largest |card - cpu| / |cpu| over paired values."""
     import numpy as np
 
-    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    card, cpu = np.asarray(card, float), np.asarray(cpu, float)
+    check(card.shape == cpu.shape, f"card {card.shape} and CPU "
+          f"{cpu.shape} values differ in shape")
+    return float(np.max(np.abs(card - cpu)
+                        / np.maximum(np.abs(cpu), 1e-12)))
+
+
+def gaussian_toy(dev) -> dict:
+    """The conjugate toy over TOY_SEEDS seeds on the card and, as the
+    reference, on the CPU (plain versions on the same Philox streams, the
+    simulator's noise too; in the CPU reference process); seed 0's six
+    generations side by side, a reading (one acceptance flipped by an ulp
+    of a reduction moves a later generation's posterior mean by a Monte
+    Carlo sd: the CPU alone moves it with its thread count; ``toy_cpu_check``
+    holds config 1's rule) -> the card's launch counts."""
+    import numpy as np
+
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
     from pyabc_tpu_torch.models import gaussian
 
     mu_true, _sd_true = gaussian.conjugate_posterior(1.0, noise_sd=0.5)
     reset_launch_counts()
     with plain_versions_raise():
         card = toy_stats(dev)
-    counts = launch_counts()
-    log(f"gaussian toy ({dev}): kernel launches {counts}")
-    toy_path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
-                "compact_round", "normalize_quantile", "mvn_fit",
-                "pack_fetch", "generation_health")
-    check(all(counts[k] > 0 for k in toy_path),
+    counts = launch_counts() | mode_launch_counts()
+    log(f"gaussian toy ({dev}): kernel launches "
+        f"{ {k: counts[k] for k in TOY_PATH} }")
+    check(all(counts[k] > 0 for k in TOY_PATH),
           "a kernel of the Gaussian toy's path was never launched")
 
     def summary(where, st):
@@ -2358,25 +2385,62 @@ def gaussian_toy(dev) -> None:
           "gaussian toy mean over seeds off the analytic mean by >= 0.03")
 
     def compare():
-        m_c, se_c = summary("cpu", REFS.get("toy_cpu"))
+        cpu = REFS.get("toy_cpu")
+        m_c, se_c = summary("cpu", cpu)
         gap_se = (m_d - m_c) / math.hypot(se_d, se_c)
         log(f"gaussian toy: card - cpu {m_d - m_c:+.4f} ({gap_se:+.2f} se)")
         check(abs(gap_se) < 4.0, "gaussian toy: card and CPU means differ "
               "by >= 4 standard errors")
+        card0 = card["eps0"] + [card["mus"][0]]
+        cpu0 = cpu["eps0"] + [cpu["mus"][0]]
+        log(f"gaussian toy seed 0 (pop {POP}, 6 generations), card against "
+            f"CPU, a reading: eps trail and posterior mean card "
+            f"{np.round(card0, 6).tolist()} cpu {np.round(cpu0, 6).tolist()},"
+            f" largest relative gap {rel_gap(card0, cpu0):.3e}")
 
     PENDING.append(compare)
+    return counts
 
 
-def toy_run(where, seed):
+def toy_cpu_check(dev) -> None:
+    """Config 1's rule on the conjugate toy: seed 0 at pop X1_CMP_POP over
+    X1_CMP_GENS generations on the card (the plain versions set to raise)
+    and on the CPU, the same Philox streams: the epsilon trail and the
+    posterior mean within SEED_REL relative."""
+    import numpy as np
+
+    def run(where):
+        h = toy_abc(where, 0, X1_CMP_POP).run(max_nr_populations=X1_CMP_GENS)
+        df, w = h.get_distribution()
+        return h.get_all_populations().query("t >= 0")["epsilon"].tolist() + [
+            float(np.sum(df["theta"] * w))]
+
+    with plain_versions_raise():
+        card = run(dev)
+    cpu = run("cpu")
+    rel = rel_gap(card, cpu)
+    log(f"gaussian toy seed 0 card against CPU at pop {X1_CMP_POP} over "
+        f"{X1_CMP_GENS} generations: eps and posterior mean card "
+        f"{np.round(card, 6).tolist()} cpu {np.round(cpu, 6).tolist()}, "
+        f"largest relative gap {rel:.3e}")
+    check(rel <= SEED_REL, f"gaussian toy seed 0: card and CPU apart by "
+          f"more than {SEED_REL} relative")
+
+
+def toy_abc(where, seed, pop=POP):
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import gaussian
 
-    abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=0.5),
+    abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=TOY_NOISE_SD),
                     gaussian.mean_only_prior(), pt.PNormDistance(p=2),
-                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    population_size=pop, eps=pt.MedianEpsilon(), seed=seed,
                     device=where)
     abc.new("sqlite://", {"x": 1.0})
-    return abc.run(max_nr_populations=6)
+    return abc
+
+
+def toy_run(where, seed):
+    return toy_abc(where, seed).run(max_nr_populations=6)
 
 
 def ess_trail(h) -> list[float]:
@@ -2391,10 +2455,12 @@ def ess_trail(h) -> list[float]:
 
 def run_toy_seeds(where, mus, ess_min, mu_true, sd_true, on_card):
     """The conjugate toy over TOY_SEEDS on one device; appends each seed's
-    posterior mean and least ESS -> (lowest ESS, its seed, generation)."""
+    posterior mean and least ESS -> ((lowest ESS, its seed, generation),
+    the first seed's epsilon trail)."""
     import numpy as np
 
     lowest = (math.inf, None, None)
+    eps0 = []
     for seed in TOY_SEEDS:
         h = toy_run(where, seed)
         check(h.n_populations == 6,
@@ -2406,15 +2472,16 @@ def run_toy_seeds(where, mus, ess_min, mu_true, sd_true, on_card):
         ess_min.append(min(ess))
         if seed == TOY_SEEDS[0]:
             sd = float(np.sqrt(np.sum(w * (df["theta"] - mus[0]) ** 2)))
-            eps = [round(float(e), 5)
-                   for e in h.get_all_populations()["epsilon"][1:]]
+            eps0 = [float(e) for e in h.get_all_populations().query(
+                "t >= 0")["epsilon"]]
+            eps = [round(e, 5) for e in eps0]
             log(f"gaussian toy ({where}, seed {seed}): pop={POP} gens=6 "
                 f"posterior mean={mus[0]:.4f} sd={sd:.4f} analytic "
                 f"mean={mu_true:.4f} sd={sd_true:.4f} eps={eps}")
             if on_card:
                 check(abs(mus[0] - mu_true) < 0.1,
                       "gaussian posterior mean off by >= 0.1")
-    return lowest
+    return lowest, eps0
 
 
 def lotka_volterra(dev, adaptive: bool, gens: int):
@@ -2921,10 +2988,10 @@ def pair_anchor(dev, kind: str = "mvn") -> dict | None:
     counts = launch_counts() | mode_launch_counts()
     log(f"{name} ({dev}): kernel launches {counts}")
     path = {"mvn": [k for k in C5_PATH if k != "ode_family_simulate"],
-            "local": LOCAL_MODELS_PATH, "grid": PAIR_GRID_PATH,
+            "local": list(LOCAL_MODELS_PATH), "grid": list(PAIR_GRID_PATH),
             "sharded": [k for k in C5_PATH if k != "ode_family_simulate"]
             + ["compact_round:shards", "shard_mask",
-               "pack_fetch:merge"]}[kind]
+               "pack_fetch:merge"]}[kind] + ["mean_only_simulate"]
     check(all(counts[k] > 0 for k in path),
           f"a kernel of the {name}'s path was never launched")
     if kind == "local":
@@ -2949,13 +3016,22 @@ def pair_anchor(dev, kind: str = "mvn") -> dict | None:
           "P(m=0) is 0.05 or more off the exact posterior")
 
     def compare():
-        m_c, se_c = summary("cpu", REFS.get(
+        cpu = REFS.get(
             {"mvn": "pair_cpu", "local": "pair_local_cpu",
-             "grid": "pair_grid_cpu", "sharded": "pair_sharded_cpu"}[kind]))
+             "grid": "pair_grid_cpu", "sharded": "pair_sharded_cpu"}[kind])
+        m_c, se_c = summary("cpu", cpu)
         gap = (m_d - m_c) / math.hypot(se_d, se_c)
         log(f"{name}: card - cpu {m_d - m_c:+.4f} ({gap:+.2f} se)")
         check(abs(gap) < 4.0, f"{name}: card and CPU means differ by >= "
               "4 standard errors")
+        if kind == "mvn":
+            # the same Philox streams on card and CPU: seed 0 itself
+            rel = rel_gap([card["p0"][0]], [cpu["p0"][0]])
+            log(f"{name} seed 0, card against CPU: P(m=0) card "
+                f"{card['p0'][0]:.6f} cpu {cpu['p0'][0]:.6f}, relative gap "
+                f"{rel:.3e}")
+            check(rel <= SEED_REL, f"{name} seed 0: card and CPU P(m=0) "
+                  f"apart by more than {SEED_REL} relative")
 
     PENDING.append(compare)
     if kind not in ("mvn", "sharded"):
@@ -9792,6 +9868,217 @@ def gaussian_checks(dev) -> dict:
         bound=bound(nbytes, flops), library_ms=None)}
 
 
+#: the toy's noise sd (``toy_run``) and the odd shape of the mean-only
+#: kernel's check: B lanes of stride 2
+TOY_NOISE_SD = 0.5
+MEAN_ONLY_ODD = (257, 2)
+
+
+def mean_only_checks(dev) -> dict:
+    """K4's mean-only kernel against its plain version, bit for bit: the
+    toy's prior round at B 65536 (stride 1) and the odd shape
+    MEAN_ONLY_ODD."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import philox, propose
+    from pyabc_tpu_torch.kernels.gaussian_simulate import (
+        mean_only_simulate, mean_only_simulate_plain)
+    from pyabc_tpu_torch.models import gaussian
+
+    B = GAUSS_B
+    theta = propose(stream_on(dev, philox.PRIOR), B,
+                    gaussian.mean_only_prior().arrays(dev))[0]
+    kw = dict(noise_sd=TOY_NOISE_SD, stream=stream_on(dev, philox.SIM_NOISE))
+    k = mean_only_simulate(theta, **kw)
+    p = mean_only_simulate_plain(theta, **kw)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    Bo, stride = MEAN_ONLY_ODD
+    odd = torch.randn(Bo, stride, generator=g, device=dev)
+    ko = mean_only_simulate(odd, **kw)
+    po = mean_only_simulate_plain(odd, **kw)
+    torch.cuda.synchronize()
+    err = max(float((k - p).abs().max()), float((ko - po).abs().max()))
+    ok = (torch.equal(k, p) and torch.equal(ko, po)
+          and bool(torch.isfinite(k).all()) and tuple(k.shape) == (B, 1)
+          and tuple(ko.shape) == (Bo, 1))
+    log(f"K4 mean_only_simulate: B {B} (stride {theta.shape[1]}) and "
+        f"B {Bo} (stride {stride}) bit-equal to the plain version: {ok} "
+        f"(max_abs_err={err:.3e})")
+    check(ok, "K4 mean_only_simulate differs from its plain version")
+    # theta read, x written (each once); one Philox block (about 100
+    # operations), one Box-Muller normal (about 25), the product and sum
+    return {"mean_only_simulate": dict(
+        err=err,
+        call_ms=time_ms(lambda: mean_only_simulate(theta, **kw), 50),
+        ms=graph_ms(lambda: mean_only_simulate(theta, **kw)),
+        plain_ms=time_ms(lambda: mean_only_simulate_plain(theta, **kw), 5),
+        bound=bound(B * 4 + B * 4, B * (100 + 25 + 2)), library_ms=None)}
+
+
+def lane_base_checks(dev) -> dict:
+    """The lane base of K4's mean-only kernel, K20, K20b's family
+    (unsegmented and its range entry), K19 and K20b network at the shapes
+    of their phase-2 checks: a
+    launch over the upper half of the round (lanes [B/2, B), the stream's
+    lane0 at B/2) bit-equal to those rows of the whole round's launch, with
+    noise on each, and held against the plain version over the same half
+    at the kernel's phase-2 rule -> each mode's result, timed over the
+    half."""
+    from dataclasses import replace
+
+    import torch
+
+    from pyabc_tpu_torch.kernels import (mean_only_simulate,
+                                         mean_only_simulate_plain,
+                                         network_sir, network_sir_plain,
+                                         ode_family_segments,
+                                         ode_family_segments_plain,
+                                         ode_family_simulate,
+                                         ode_family_simulate_plain, philox,
+                                         sir_simulate, sir_simulate_plain,
+                                         tau_leap, tau_leap_plain)
+    from pyabc_tpu_torch.models import gillespie as gl
+    from pyabc_tpu_torch.models import model_selection as msel
+    from pyabc_tpu_torch.models import sir
+    from pyabc_tpu_torch.utils import pick_batch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+
+    def stream(lane0):
+        s = stream_on(dev, philox.SIM_NOISE)
+        return philox.PhiloxStream(s.seed, s.generation, s.tag,
+                                   s.max_rounds, s.counters, lane0=lane0)
+
+    def within(atol, rtol):
+        # |kernel - plain| <= atol + rtol |plain| where the plain row is
+        # finite, and the same rows non-finite (K20's, K20b's rules)
+        def rule(k, p):
+            fin = torch.isfinite(p)
+            return torch.equal(fin, torch.isfinite(k)) and bool(
+                ((k - p).abs()[fin] <= atol + rtol * p.abs()[fin]).all())
+        return rule
+
+    def rel(k, p):
+        # K20b network's: within 1e-4 of max(|plain|, 1)
+        return bool(((k - p).abs() / p.abs().clamp_min(1)).le(1e-4).all())
+
+    #: each kernel's phase-2 rule against its plain version
+    rules = {"mean_only_simulate": ("bit-equal", equal_nan),
+             "sir_simulate": ("|err| <= 1e-3 + 1e-4 |x|",
+                              within(1e-3, 1e-4)),
+             "ode_family_simulate": ("|err| <= 1e-4 + 1e-4 |x|",
+                                     within(1e-4, 1e-4)),
+             "ode_family_segments": ("|err| <= 1e-4 + 1e-4 |x|",
+                                     within(1e-4, 1e-4)),
+             "tau_leap": ("every count equal", equal_nan),
+             "network_sir": ("1e-4 relative", rel)}
+    cases = {}
+    # K4's mean-only kernel: the toy's round width (B 65536, stride 1)
+    cases["mean_only_simulate"] = (
+        torch.randn(GAUSS_B, 1, generator=g, device=dev),
+        lambda th, st: mean_only_simulate(th, noise_sd=TOY_NOISE_SD,
+                                          stream=st),
+        lambda th, st: mean_only_simulate_plain(th, noise_sd=TOY_NOISE_SD,
+                                                stream=st),
+        lambda n: bound(n * 4 + n * 4, n * (100 + 25 + 2)))
+    # K20: SIR config 4's round with measurement noise (sd 10)
+    x = sir_inputs(dev, B_MAIN)
+    skw = dict(x["kw"], noise_sd=10.0)
+    cases["sir_simulate"] = (
+        x["theta"], lambda th, st: sir_simulate(th, stream=st, **skw),
+        lambda th, st: sir_simulate_plain(th, stream=st, **skw),
+        lambda n: bound(n * (2 + 15) * 4, n * (14 * 8 * 66 + 15 * 38)))
+    # K20b family: config 5's round (K 3, n_obs 12, noise sd 0.3)
+    fam = msel.ode_family()[0][0].family
+    th5 = torch.rand(B_MAIN, 2, generator=g, device=dev) * torch.tensor(
+        [1.0, 9.0], device=dev) + torch.tensor([0.05, 1.0], device=dev)
+    m5 = torch.randint(0, 3, (B_MAIN,), generator=g, device=dev,
+                       dtype=torch.int32)
+    fkw = dict(n_obs=fam.n_obs, n_substeps=fam.n_substeps, dt=fam.dt,
+               y0=msel.Y0, noise_sd=fam.noise_sd)
+    steps5 = (fam.n_obs - 1) * fam.n_substeps
+    cases["ode_family_simulate"] = (
+        th5, lambda th, st: ode_family_simulate(
+            th, m5[B_MAIN - th.shape[0]:], stream=st, **fkw),
+        lambda th, st: ode_family_simulate_plain(
+            th, m5[B_MAIN - th.shape[0]:], stream=st, **fkw),
+        lambda n: bound(n * (2 * 4 + 4 + fam.n_obs * 4),
+                        n * (steps5 * (4 * 5 + 12) + fam.n_obs * 38)))
+    # K20b's range entry: the zoo's segmented family round, noise sd 0.3
+    Bf = pick_batch(ZMS_POP)
+    specs = msel.ode_family(segments=ZMS_SEGS)[0][0].family.specs
+    thf, mf, _valid = family_round(dev, Bf)
+    per_seg = specs[0].obs_per_seg * (specs[0].n_substeps * OPS_RK4_FAMILY
+                                      + OPS_NORMAL)
+    cases["ode_family_segments"] = (
+        thf, lambda th, st: ode_family_segments(
+            specs, th, st, m=mf[Bf - th.shape[0]:])[0],
+        lambda th, st: ode_family_segments_plain(
+            specs, th, st, m=mf[Bf - th.shape[0]:])[0],
+        lambda n: bound(n * (2 * 4 + 4 + 12 * 4), n * ZMS_SEGS * per_seg))
+    # K19: config 3's birth-death round (B 131072, 10 segments)
+    bd = gl.make_birth_death_model(segments=C3_SEGS)
+    xb = seg_inputs(dev, bd, gl.birth_death_prior(),
+                    gl.observed_birth_death(segments=C3_SEGS), C3_BENCH_POP)
+    bspec = bd.chain.kernel[1]
+    bkw = dict(colmap=xb["imap"], width=xb["spec"].total_size)
+    cases["tau_leap"] = (
+        xb["theta"], lambda th, st: tau_leap(bspec, th, st, **bkw)[0],
+        lambda th, st: tau_leap_plain(bspec, th, st, **bkw)[0],
+        lambda n: bound(n * (2 + xb["spec"].total_size) * 4,
+                        n * bspec.n_leaps * bspec.n_rates * OPS_PER_DRAW))
+    # K20b network: the zoo's round (B 65536) with measurement noise (sd 8)
+    nm = sir.make_network_sir_model()
+    xn = seg_inputs(dev, nm, sir.network_sir_prior(),
+                    sir.observed_network_sir(), pick_batch(ZOO_POP))
+    nspec = replace(nm.chain.kernel[1], noise_sd=8.0)
+    nsteps = nspec.n_obs * nspec.n_substeps
+    cases["network_sir"] = (
+        xn["theta"], lambda th, st: network_sir(nspec, th, st)[0],
+        lambda th, st: network_sir_plain(nspec, th, st)[0],
+        lambda n: bound(n * (2 + 128) * 4,
+                        n * (nsteps * 8 * 78 + 128 * 38)))
+
+    out = {}
+    for name, (theta, fn, plain, bnd) in cases.items():
+        B = theta.shape[0]
+        half = theta[B // 2:].contiguous()
+        full = fn(theta, stream(0))
+        st = stream(B // 2)
+        part = fn(half, st)
+        torch.cuda.synchronize()
+        ok = equal_nan(part, full[B // 2:]) and part.shape == \
+            full[B // 2:].shape
+        log(f"{name}:lane_base (B {B}, lanes [{B // 2}, {B})): bit-equal to "
+            f"the upper half of the whole round's rows: {ok}")
+        check(ok, f"{name}:lane_base: the upper half differs from the whole "
+              f"round's rows")
+        t0 = time.perf_counter()
+        ref = plain(half, st)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        what, rule = rules[name]
+        ok = ref.shape == part.shape and rule(part, ref)
+        p_err = abs_err(part, ref)
+        log(f"{name}:lane_base (lanes [{B // 2}, {B})) against its plain "
+            f"version on the same half ({what}): {ok} (max_abs_err="
+            f"{p_err:.3e})")
+        check(ok, f"{name}:lane_base: outside its phase-2 rule ({what}) "
+              f"against the plain version")
+        out[f"{name}:lane_base"] = dict(
+            err=p_err, ms=graph_ms(lambda: fn(half, st), iters=10,
+                                   replays=3),
+            call_ms=time_ms(lambda: fn(half, st), 10),
+            plain_ms=plain_ms, bound=bnd(B // 2), library_ms=None)
+        r = out[f"{name}:lane_base"]
+        log(f"{name}:lane_base ({B // 2} lanes): ms={r['ms']:.5f} call_ms="
+            f"{r['call_ms']:.5f} plain_ms={plain_ms:.3f} bound_ms="
+            f"{r['bound'][0]:.6f} ({r['bound'][1]})")
+    return out
+
+
 def round_plain(ctx, mode: str, dyn: dict, key, B: int) -> dict:
     """Config 1's round of ``mode`` composed of the plain versions (K2,
     K3, K4's Gaussian, K5) on the card's tensors."""
@@ -10209,8 +10496,8 @@ def pair_host_loop(dev) -> dict:
         card = pair_stats(dev, "host")
     counts = launch_counts()
     log(f"{name} ({dev}): kernel launches {counts}")
-    path = ("propose", "mvn_mixture_logpdf", "pnorm_accept_weight",
-            "compact_round")
+    path = ("propose", "mvn_mixture_logpdf", "mean_only_simulate",
+            "pnorm_accept_weight", "compact_round")
     check(all(counts[k] > 0 for k in path),
           f"a kernel of the {name}'s path was never launched")
 
@@ -10666,7 +10953,8 @@ def toy_sharded(dev) -> None:
     abc.new("sqlite://", {"x": 1.0})
     h, _wall, _c = sharded_run(
         dev, abc, SH_TOY_GENS, "gaussian toy sharded (pop 300)",
-        ("propose", "compact_round:shards", "shard_mask", "pack_fetch:merge"))
+        ("propose", "mean_only_simulate", "compact_round:shards",
+         "shard_mask", "pack_fetch:merge"))
     n = [int(v) for v in h.get_nr_particles_per_population()[1:]]
     df, w = h.get_distribution(0, h.max_t)
     mu = float(np.sum(df["theta"] * w))
@@ -11107,24 +11395,53 @@ def lv_aggregate_sharded_card_cpu(dev) -> None:
 #: rendezvous): the LV mesh leg (the LV sharded leg's model, prior,
 #: distance and observation at pop 16384, 8 generations, 8 shards, G 3,
 #: seed 0) at widths 2 and 4, the LV adaptive sharded leg (its list) at
-#: width 4 and config 1's Gaussian (K4's Gaussian kernel's lane base) at
-#: width 2; each primary's History bit for bit the virtual shards' run of
-#: the same configuration on this card
+#: width 4, and at width 2 config 1's Gaussian (K4's Gaussian kernel's lane
+#: base), the conjugate toy (K4's mean-only kernel: ``toy_run`` on 8
+#: shards), config 5 (K20b's family) and, at MESH_SMALL, SIR under a p-norm
+#: with measurement noise in the simulator (K20) and config 3's birth-death
+#: unsegmented (K19); each primary's History bit for bit the virtual
+#: shards' run of the same configuration on this card
 MESH_POP, MESH_GENS, MESH_G, MESH_SEED = 16384, 8, 3, 0
-MESH_GROUPS = {2: ("lv", "gauss"), 4: ("lv", "lv_adaptive")}
+#: config 5, SIR, birth-death and the segmented zoo models (early reject
+#: off) on the mesh: pop and generations
+MESH_SMALL_POP, MESH_SMALL_GENS = 1024, 4
+MESH_GROUPS = {2: ("lv", "gauss", "toy", "config5", "sir", "birth_death",
+                   "network_sir", "family_segments"),
+               4: ("lv", "lv_adaptive")}
 #: seconds a group of ranks may take, its start included
 MESH_JOIN_S = 300.0
 #: the kernels of the LV mesh leg's path beyond the sharded leg's, and the
 #: lane-base modes (the K2 and K4 launches of the ranks past the first)
 MESH_KERNELS = ("mesh_pack", "mesh_unpack")
 MESH_PATH = SH_PATH + MESH_KERNELS
+#: each leg's simulator path beyond K2 (the LV legs' are SH_PATH's)
+MESH_LEG_PATH = {"gauss": ("gaussian_simulate",),
+                 "toy": ("mean_only_simulate",),
+                 "config5": ("ode_family_simulate", "model_step"),
+                 "sir": ("sir_simulate",), "birth_death": ("tau_leap",),
+                 "network_sir": ("network_sir",),
+                 "family_segments": ("ode_family_segments", "model_step")}
+#: the lane-base modes: (mode, source, the TPU code it replaces, the width-2
+#: mesh leg whose ranks past the first launch it)
 LANE_BASE_ROWS = (
     ("propose:lane_base", "pyabc_tpu_torch/csrc/propose.cu",
      "pyabc_tpu/inference/util.py:335", "lv"),
     ("lv_simulate:lane_base", "pyabc_tpu_torch/csrc/lv_rk4.cu",
      "pyabc_tpu/models/ode.py:104", "lv"),
     ("gaussian_simulate:lane_base", "pyabc_tpu_torch/csrc/gaussian.cu",
-     "pyabc_tpu/models/gaussian.py:20", "gauss"))
+     "pyabc_tpu/models/gaussian.py:20", "gauss"),
+    ("mean_only_simulate:lane_base", "pyabc_tpu_torch/csrc/gaussian.cu",
+     "pyabc_tpu/models/gaussian.py:38", "toy"),
+    ("ode_family_simulate:lane_base", "pyabc_tpu_torch/csrc/ode_family_rk4.cu",
+     "pyabc_tpu/models/model_selection.py:53", "config5"),
+    ("sir_simulate:lane_base", "pyabc_tpu_torch/csrc/sir_rk4.cu",
+     "pyabc_tpu/models/sir.py:30", "sir"),
+    ("tau_leap:lane_base", "pyabc_tpu_torch/csrc/tau_leap.cu",
+     "pyabc_tpu/models/gillespie.py:35", "birth_death"),
+    ("ode_family_segments:lane_base", "pyabc_tpu_torch/csrc/ode_family_rk4.cu",
+     "pyabc_tpu/models/model_selection.py:83", "family_segments"),
+    ("network_sir:lane_base", "pyabc_tpu_torch/csrc/network_sir_rk4.cu",
+     "pyabc_tpu/models/sir.py:79", "network_sir"))
 
 
 def history_arrays(h, K: int = 1) -> dict:
@@ -11151,8 +11468,58 @@ def mesh_leg_abc(leg: str, where, mesh=None):
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.distance.scale import standard_deviation
     from pyabc_tpu_torch.models import gaussian
+    from pyabc_tpu_torch.models import gillespie as gl
     from pyabc_tpu_torch.models import lotka_volterra as lv
+    from pyabc_tpu_torch.models import model_selection as msel
+    from pyabc_tpu_torch.models import sir
 
+    small = dict(population_size=MESH_SMALL_POP, eps=pt.MedianEpsilon(),
+                 seed=MESH_SEED, mesh=mesh, sharded=SH_N,
+                 fused_generations=MESH_G, device=where)
+    if leg == "toy":
+        abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=TOY_NOISE_SD),
+                        gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+                        population_size=POP, eps=pt.MedianEpsilon(),
+                        seed=TOY_SEEDS[0], mesh=mesh, sharded=SH_N,
+                        fused_generations=MESH_G, device=where)
+        abc.new("sqlite://", {"x": 1.0})
+        return abc, 6
+    if leg == "config5":
+        models, priors, _ts = msel.ode_family()
+        abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2), **small)
+        abc.new("sqlite://", msel.observed_ode_family(seed=0, true_model=1),
+                store_sum_stats=False)
+        return abc, MESH_SMALL_GENS
+    if leg == "sir":
+        abc = pt.ABCSMC(sir.make_sir_model(noise_sd=10.0), sir.default_prior(),
+                        pt.PNormDistance(p=2), **small)
+        abc.new("sqlite://", sir.observed_data(seed=0), store_sum_stats=False)
+        return abc, MESH_SMALL_GENS
+    if leg == "birth_death":
+        abc = pt.ABCSMC(gl.make_birth_death_model(), gl.birth_death_prior(),
+                        pt.PNormDistance(p=2), **small)
+        abc.new("sqlite://", gl.observed_birth_death(seed=0),
+                store_sum_stats=False)
+        return abc, MESH_SMALL_GENS
+    if leg == "network_sir":
+        # the zoo's network SIR with simulator noise (sd 8), early reject
+        # off: K20b network's range over every segment
+        abc = pt.ABCSMC(sir.make_network_sir_model(noise_sd=8.0),
+                        sir.network_sir_prior(), pt.PNormDistance(p=2),
+                        early_reject=False, **small)
+        abc.new("sqlite://", sir.observed_network_sir(seed=0),
+                store_sum_stats=False)
+        return abc, MESH_SMALL_GENS
+    if leg == "family_segments":
+        # the zoo's model-selection family (4 segments), early reject off:
+        # K20b's range entry over every segment
+        models, priors, _ts = msel.ode_family(segments=ZMS_SEGS)
+        abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                        early_reject=False, **small)
+        abc.new("sqlite://", msel.observed_ode_family(seed=0,
+                                                      segments=ZMS_SEGS),
+                store_sum_stats=False)
+        return abc, MESH_SMALL_GENS
     if leg == "gauss":
         abc = pt.ABCSMC(gaussian.make_gaussian_model(),
                         gaussian.default_prior(), pt.PNormDistance(p=2),
@@ -11338,7 +11705,7 @@ def mesh_legs(dev) -> dict:
                           for k in prim["counts"]}
                 path = (MESH_PATH if leg == "lv" else
                         SH_AD_PATH + MESH_KERNELS if leg == "lv_adaptive"
-                        else ("propose", "gaussian_simulate")
+                        else ("propose",) + MESH_LEG_PATH[leg]
                         + MESH_KERNELS)
                 path += tuple(n for n, _s, _r, lg in LANE_BASE_ROWS
                               if lg == leg or (leg == "lv_adaptive"
@@ -11592,15 +11959,18 @@ def main() -> int:
     results.update(k17_checks(dev))
     results.update(k14_ring_checks(dev))
     results.update(gaussian_checks(dev))
+    results.update(mean_only_checks(dev))
     results.update(round_checks(dev))
     results.update(shard_checks(dev))
     results.update(agg_shard_checks(dev))
     results.update(mesh_checks(dev))
+    results.update(lane_base_checks(dev))
     mark("phase 2 (every kernel against its plain version)")
-    gaussian_toy(dev)
+    toy_counts = gaussian_toy(dev)
+    toy_cpu_check(dev)
     noisy_anchor(dev)
     fam_launches = family_anchor(dev)
-    pair_anchor(dev)
+    pair_counts = pair_anchor(dev)
     mark("anchors (toy, noisy, families, pair)")
     lotka_volterra(dev, adaptive=False, gens=6)
     counts, eps = lotka_volterra(dev, adaptive=True, gens=10)
@@ -11764,12 +12134,14 @@ def main() -> int:
             continue  # K16's four entries follow as rows of their own
         r = results[k.name]
         # each kernel's launches on its slice's main path: LV config 2 for
-        # K1-K11, SIR config 4 for K20, K21a and K21b, config 5 for K20b
+        # K1-K11, the conjugate toy for K4's mean-only kernel, SIR config 4
+        # for K20, K21a and K21b, config 5 for K20b
         # and K26, config 3 for K18 and K19, the scale lane for K12-K15,
         # the LV aggregated adaptive leg for K25, the learned-statistics
         # leg for K23 and K18's transformed operands, the MLP leg for K23's
         # MLP kernels, the host-refit GP leg for the GP transform
-        own = (mesh_counts if k.name in MESH_KERNELS
+        own = (toy_counts if k.name in TOY_KERNELS
+               else mesh_counts if k.name in MESH_KERNELS
                else agg_sh_counts if k.name in AGG_SH_KERNELS
                else lvs_counts if k.name in SHARD_KERNELS
                else x1["pipelined"] if k.name in HL_KERNELS
@@ -11791,7 +12163,9 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "launches_by_path": {"lv_config2": counts[k.name],
+            "launches_by_path": {"gaussian_toy": toy_counts[k.name],
+                                 "tractable_pair": pair_counts[k.name],
+                                 "lv_config2": counts[k.name],
                                  "sir_config4": sir_counts[k.name],
                                  "ode_config5": c5_counts[k.name],
                                  "tau_leap_config3": c3_counts[k.name],
@@ -11959,8 +12333,10 @@ def main() -> int:
              ("moment_fold:value_columns", "pyabc_tpu_torch/csrc/moments.cu",
               "pyabc_tpu/ops/scale_reduce.py:67",
               agg_sh_counts["moment_fold:shards"])]
-    # the lane-base modes of K2 and K4, their launches from the ranks past
-    # the first of the width-2 mesh legs (LV; config 1's Gaussian)
+    # the lane-base modes, their launches from the ranks past the first of
+    # the width-2 mesh legs (LV, config 1's Gaussian, the toy, config 5,
+    # SIR, birth-death, and with early reject off the segmented network
+    # SIR and family)
     rows += [(name, source, replaces, mesh[leg, 2][name])
              for name, source, replaces, leg in LANE_BASE_ROWS]
     for name, source, replaces, launches in rows:
@@ -12100,6 +12476,8 @@ def main() -> int:
             "config1_per_round": x1["rounds"]["round_kernel"],
             "config1_speculation_forced":
                 x1["speculative"]["round_kernel"]}})
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build's "
+        f"start, of a 1200 s limit, on {card}")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

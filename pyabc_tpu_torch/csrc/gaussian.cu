@@ -26,6 +26,25 @@
 // Bound on an H100: at B = 65536 lanes and n = 10 the work is 3 Philox
 // blocks and 10 Box-Muller pairs a lane and a pass, a few hundred thousand
 // operations in all, and 12 bytes a lane moved: latency bound.
+//
+// K4 mean_only_simulate: the conjugate toy's simulator of one proposal
+// round (examples/01_gaussian_toy.py) and each model of the tractable pair.
+//
+// Replaces: pyabc_tpu/models/gaussian.py::make_mean_only_model (:38, lane
+// body :44) and the same body in pyabc_tpu/models/model_selection.py::
+// tractable_pair (:35), vmapped over the round's lanes.
+//
+// Per lane: x = theta[b * stride] + noise_sd * z, with z normal number 0 of
+// Philox lane lane0 + b on the simulator-noise stream (the cosine of block
+// 0's first Box-Muller pair); noise_sd is the float32 the plain version
+// multiplies by, and the product and the sum are _rn intrinsics, so nvcc
+// contracts nothing into an FMA and the row is the plain version's bit for
+// bit. The output is the (B, 1) rows of the toy's one statistic.
+//
+// Bound on an H100: one Philox block (about 100 integer operations) and one
+// Box-Muller normal a lane against 4 bytes read and 4 written: at B =
+// 65536 both bounds are well under a microsecond, so the launch's latency
+// bounds it. One thread a lane, nothing held.
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -79,7 +98,40 @@ gaussian_simulate_kernel(const float* __restrict__ theta, int B, int stride,
   if (col_std >= 0) out[(size_t)b * S + col_std] = sqrtf(__fdiv_rn(ss, fn));
 }
 
+__global__ void __launch_bounds__(kThreads)
+mean_only_simulate_kernel(const float* __restrict__ theta, int B, int stride,
+                          float noise_sd, uint32_t k0, uint32_t k1,
+                          uint32_t gen, uint32_t tag, uint32_t max_rounds,
+                          uint32_t lane0, const int* __restrict__ counters,
+                          float* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const pyabc::PhiloxLane rng = pyabc::philox_lane(
+      k0, k1, lane0 + (uint32_t)b, gen, tag, max_rounds,
+      (uint32_t)counters[1]);
+  out[b] = __fadd_rn(theta[(size_t)b * stride],
+                     __fmul_rn(noise_sd, rng.normal(0, 0)));
+}
+
 }  // namespace
+
+extern "C" int pyabc_mean_only_simulate(const float* theta, int B,
+                                         int stride, float noise_sd,
+                                         unsigned k0, unsigned k1,
+                                         unsigned gen, unsigned tag,
+                                         unsigned max_rounds, unsigned lane0,
+                                         const int* counters, float* out,
+                                         void* stream_ptr) {
+  if (B <= 0) return 0;
+  if (counters == nullptr || stride < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int grid = (B + kThreads - 1) / kThreads;
+  mean_only_simulate_kernel<<<grid, kThreads, 0, stream>>>(
+      theta, B, stride, noise_sd, k0, k1, gen, tag, max_rounds, lane0,
+      counters, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int pyabc_gaussian_simulate(const float* theta, int B, int stride,
                                         int n, unsigned k0, unsigned k1,

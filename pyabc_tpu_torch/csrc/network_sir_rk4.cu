@@ -12,6 +12,10 @@
 // seg_from) * seg_size + k]] and, if y_out is given, its final state. K18
 // calls the same step one segment at a time.
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Bound on an H100: operations. Each lane runs 64 dependent RK4 steps of
 // 24 states (about 60 float operations a patch a stage); it reads 8 bytes
 // and writes 128 floats. The state stays in registers (the ring roll is an
@@ -29,7 +33,7 @@ network_sir_kernel(pyabc::SegModel m, const float* __restrict__ theta, int B,
                    const int* __restrict__ colmap, int width,
                    float* __restrict__ out, uint32_t k0, uint32_t k1,
                    uint32_t gen, uint32_t tag, uint32_t max_rounds,
-                   const int* __restrict__ counters) {
+                   uint32_t lane0, const int* __restrict__ counters) {
   using Step = pyabc::NetworkSirStep;
   constexpr int kState = 3 * Step::NP;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -39,8 +43,8 @@ network_sir_kernel(pyabc::SegModel m, const float* __restrict__ theta, int B,
              y_in != nullptr ? y_in + (size_t)b * kState : nullptr, st);
   pyabc::PhiloxLane rng{};
   if (m.noise_sd > 0.f)
-    rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
-                             (uint32_t)counters[1]);
+    rng = pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, tag,
+                             max_rounds, (uint32_t)counters[1]);
   float* row = out + (size_t)b * width;
   for (int seg = seg_from; seg < seg_to; ++seg) {
     const int* cols = colmap + (size_t)(seg - seg_from) * m.seg_size;
@@ -57,8 +61,8 @@ extern "C" int pyabc_network_sir(const pyabc::SegModel* model,
                                  int seg_from, int seg_to, const int* colmap,
                                  int width, float* out, unsigned k0,
                                  unsigned k1, unsigned gen, unsigned tag,
-                                 unsigned max_rounds, const int* counters,
-                                 void* stream_ptr) {
+                                 unsigned max_rounds, unsigned lane0,
+                                 const int* counters, void* stream_ptr) {
   if (B <= 0 || seg_to <= seg_from) return 0;
   if (model == nullptr || colmap == nullptr ||
       model->kind != pyabc::kNetworkSir ||
@@ -68,6 +72,6 @@ extern "C" int pyabc_network_sir(const pyabc::SegModel* model,
   const int grid = (B + kThreads - 1) / kThreads;
   network_sir_kernel<<<grid, kThreads, 0, stream>>>(
       *model, theta, B, stride, y_in, y_out, seg_from, seg_to, colmap, width,
-      out, k0, k1, gen, tag, max_rounds, counters);
+      out, k0, k1, gen, tag, max_rounds, lane0, counters);
   return static_cast<int>(cudaGetLastError());
 }

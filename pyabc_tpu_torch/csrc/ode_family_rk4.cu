@@ -17,6 +17,10 @@
 // adds noise_sd times normal number t of the lane on the simulator-noise
 // stream (philox.cuh), as the JAX simulator adds noise at all n_obs times.
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Bound on an H100: latency. 66 RK4 steps of 4 right-hand sides (about
 // 1e3 flops) form one dependent chain per lane, with 8 bytes read and 48
 // written; 4096 lanes are about one warp per SM, so neither the memory
@@ -77,7 +81,8 @@ ode_family_kernel(const float* __restrict__ theta,
                   const int* __restrict__ m, int B, int stride, int n_obs,
                   int n_sub, float dt, float y0, float noise_sd, uint32_t k0,
                   uint32_t k1, uint32_t gen, uint32_t tag,
-                  uint32_t max_rounds, const int* __restrict__ counters,
+                  uint32_t max_rounds, uint32_t lane0,
+                  const int* __restrict__ counters,
                   float* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -85,8 +90,8 @@ ode_family_kernel(const float* __restrict__ theta,
   const float c = stride > 1 ? theta[(size_t)b * stride + 1] : 0.f;
   pyabc::PhiloxLane rng{};
   if (noise_sd > 0.f)
-    rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
-                             (uint32_t)counters[1]);
+    rng = pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, tag,
+                             max_rounds, (uint32_t)counters[1]);
   const int variant = m[b] == 0 ? 0 : m[b] == 1 ? 1 : 2;
   integrate(variant, a, c, out + (size_t)b * n_obs, n_obs, n_sub, dt, y0,
             noise_sd, rng);
@@ -101,7 +106,7 @@ ode_family_segments_kernel(pyabc::SegModels models, int K,
                            int seg_to, const int* __restrict__ colmap,
                            int width, float* __restrict__ out, uint32_t k0,
                            uint32_t k1, uint32_t gen, uint32_t tag,
-                           uint32_t max_rounds,
+                           uint32_t max_rounds, uint32_t lane0,
                            const int* __restrict__ counters) {
   using Step = pyabc::OdeFamilyStep;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -113,8 +118,8 @@ ode_family_segments_kernel(pyabc::SegModels models, int K,
              y_in != nullptr ? y_in + b : nullptr, st);
   pyabc::PhiloxLane rng{};
   if (m.noise_sd > 0.f)
-    rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
-                             (uint32_t)counters[1]);
+    rng = pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, tag,
+                             max_rounds, (uint32_t)counters[1]);
   float* row = out + (size_t)b * width;
   for (int seg = seg_from; seg < seg_to; ++seg) {
     const int* cols = colmap + (size_t)(seg - seg_from) * m.seg_size;
@@ -132,7 +137,7 @@ extern "C" int pyabc_ode_family_segments(
     int B, int stride, const float* y_in, float* y_out, int seg_from,
     int seg_to, const int* colmap, int width, float* out, unsigned k0,
     unsigned k1, unsigned gen, unsigned tag, unsigned max_rounds,
-    const int* counters, void* stream_ptr) {
+    unsigned lane0, const int* counters, void* stream_ptr) {
   if (B <= 0 || seg_to <= seg_from) return 0;
   if (models == nullptr || colmap == nullptr || K < 1 || K > pyabc::kMaxModels ||
       stride < 1)
@@ -150,15 +155,15 @@ extern "C" int pyabc_ode_family_segments(
   const int grid = (B + kThreads - 1) / kThreads;
   ode_family_segments_kernel<<<grid, kThreads, 0, stream>>>(
       ms, K, m, theta, B, stride, y_in, y_out, seg_from, seg_to, colmap,
-      width, out, k0, k1, gen, tag, max_rounds, counters);
+      width, out, k0, k1, gen, tag, max_rounds, lane0, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pyabc_ode_family_simulate(
     const float* theta, const int* m, int B, int stride, int n_obs, int n_sub,
     float dt, float y0, float noise_sd, unsigned k0, unsigned k1,
-    unsigned gen, unsigned tag, unsigned max_rounds, const int* counters,
-    float* out, void* stream_ptr) {
+    unsigned gen, unsigned tag, unsigned max_rounds, unsigned lane0,
+    const int* counters, float* out, void* stream_ptr) {
   if (B <= 0) return 0;
   if (stride < 1 || n_obs < 1 || (noise_sd > 0.f && counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -166,6 +171,6 @@ extern "C" int pyabc_ode_family_simulate(
   const int grid = (B + kThreads - 1) / kThreads;
   ode_family_kernel<<<grid, kThreads, 0, stream>>>(
       theta, m, B, stride, n_obs, n_sub, dt, y0, noise_sd, k0, k1, gen, tag,
-      max_rounds, counters, out);
+      max_rounds, lane0, counters, out);
   return static_cast<int>(cudaGetLastError());
 }

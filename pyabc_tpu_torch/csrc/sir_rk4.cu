@@ -14,6 +14,10 @@
 // noise_sd > 0; a deterministic model (noise_sd = 0, BASELINE config 4)
 // draws nothing. No clip: the JAX simulator has none.
 //
+// Lane base: lane0 is the global number of the launch's first lane, and
+// lane b draws on Philox lane lane0 + b, so a device mesh rank's launch over
+// the lanes [lane0, lane0 + B) gives exactly those rows of the whole round.
+//
 // Bound on an H100: latency. Each lane is a chain of (n_obs - 1) *
 // n_substeps dependent RK4 steps (112 at config 4) and reads 8 bytes and
 // writes 60; with B = 4096 lanes (about one warp per SM) neither memory
@@ -49,7 +53,7 @@ __global__ void __launch_bounds__(kThreads)
 sir_simulate_kernel(const float* __restrict__ theta, int B, int stride,
                     int n_obs, int n_sub, float dt, float n_pop,
                     float noise_sd, uint32_t k0, uint32_t k1, uint32_t gen,
-                    uint32_t tag, uint32_t max_rounds,
+                    uint32_t tag, uint32_t max_rounds, uint32_t lane0,
                     const int* __restrict__ counters,
                     float* __restrict__ out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -59,8 +63,8 @@ sir_simulate_kernel(const float* __restrict__ theta, int B, int stride,
   const bool noisy = noise_sd > 0.f;
   pyabc::PhiloxLane rng{};
   if (noisy)
-    rng = pyabc::philox_lane(k0, k1, (uint32_t)b, gen, tag, max_rounds,
-                             (uint32_t)counters[1]);
+    rng = pyabc::philox_lane(k0, k1, lane0 + (uint32_t)b, gen, tag,
+                             max_rounds, (uint32_t)counters[1]);
   float* row = out + (size_t)b * n_obs;
   const float h2 = 0.5f * dt;
   const float h6 = dt / 6.0f;
@@ -87,8 +91,9 @@ extern "C" int pyabc_sir_simulate(const float* theta, int B, int stride,
                                    int n_obs, int n_sub, float dt,
                                    float n_pop, float noise_sd, unsigned k0,
                                    unsigned k1, unsigned gen, unsigned tag,
-                                   unsigned max_rounds, const int* counters,
-                                   float* out, void* stream_ptr) {
+                                   unsigned max_rounds, unsigned lane0,
+                                   const int* counters, float* out,
+                                   void* stream_ptr) {
   if (B <= 0) return 0;
   if (noise_sd > 0.f && counters == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -96,6 +101,6 @@ extern "C" int pyabc_sir_simulate(const float* theta, int B, int stride,
   const int grid = (B + kThreads - 1) / kThreads;
   sir_simulate_kernel<<<grid, kThreads, 0, stream>>>(
       theta, B, stride, n_obs, n_sub, dt, n_pop, noise_sd, k0, k1, gen, tag,
-      max_rounds, counters, out);
+      max_rounds, lane0, counters, out);
   return static_cast<int>(cudaGetLastError());
 }

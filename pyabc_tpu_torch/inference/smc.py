@@ -571,21 +571,25 @@ class ABCSMC:
 
     def _mesh_gate(self) -> None:
         """What a mesh run needs beyond the virtual shards: a sharded run
-        (w > 1; a width-1 mesh may run unsharded, on its one rank), and
-        models whose draws place a rank's block of a round at its lanes (a
-        user simulator drawing from the run's generator, K4's LV and
-        Gaussian kernels); the other built-in kernels number a round's
-        lanes from 0 and are refused naming themselves."""
+        (w > 1; a width-1 mesh may run unsharded, on its one rank), and no
+        segmented model under early reject (K18's segmented round numbers
+        a round's lanes from 0; the sharded gate's rule). Every built-in
+        simulator kernel, a segmented model's range kernels with early
+        reject off included, draws at its lanes' global numbers (the
+        stream's lane base), and a user simulator draws from its rank's
+        generator, so any other model runs."""
         if self.sharded_n is None and self.mesh_rank.width > 1:
             raise _not_ported(
                 f"a {self.mesh_rank.width}-device mesh without sharded "
                 f"sampling (the JAX package's replicated GSPMD path)", "15")
+        if self.early_reject is False:
+            return
         for model in self.models:
-            if not getattr(model, "lane_base", True) or (
-                    model.segmented is not None):
+            if model.segmented is not None:
                 raise _not_ported(
-                    f"a {type(model).__name__} model on a device mesh (its "
-                    f"kernel numbers the lanes of a round from 0)", "15")
+                    f"a segmented {type(model).__name__} model with early "
+                    f"reject on a device mesh (early reject on shards)",
+                    "15")
 
     def _sharded_unserved(self) -> str | None:
         """A configuration the JAX package shards and the port does not

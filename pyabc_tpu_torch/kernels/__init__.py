@@ -13,7 +13,8 @@ from .bootstrap_cv import (bootstrap_bisect_plain, bootstrap_cv,
                            bootstrap_fit_plain, bootstrap_local_density_plain,
                            bootstrap_local_gather_plain)
 from .compact import compact_round, compact_round_plain
-from .gaussian_simulate import gaussian_simulate, gaussian_simulate_plain
+from .gaussian_simulate import (gaussian_simulate, gaussian_simulate_plain,
+                                mean_only_simulate, mean_only_simulate_plain)
 from .generation_health import generation_health, generation_health_plain
 from .gp_sumstat import gp_accept, gp_accept_plain, gp_values_plain
 from .grid_search import (grid_search_cv, grid_search_cv_models_plain,
@@ -66,8 +67,8 @@ from .temperature_update import temperature_update, temperature_update_plain
 #: K21a, K21b, K22 fold and finish, K25 accept and refit, K26, K23's fit,
 #: transform and K18's transformed operands, K23's MLP fit and transform,
 #: the GP transform, K17, K4's Gaussian simulator, K24b's shard mask, K25's
-#: sharded finish, K24e's mesh pack and unpack; K24a, K24c and K24d are the
-#: shard and merge modes of K6, K10 and K22)
+#: sharded finish, K24e's mesh pack and unpack, K4's mean-only simulator;
+#: K24a, K24c and K24d are the shard and merge modes of K6, K10 and K22)
 KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            compact_round, normalize_quantile, mvn_fit, scale_reduce,
            pack_fetch, generation_health, local_cov, local_factor,
@@ -78,7 +79,8 @@ KERNELS = (propose, mvn_mixture_logpdf, lv_simulate, pnorm_accept_weight,
            moment_finish, aggregate_accept_weight, aggregate_refit,
            model_step, ridge_fit, linear_accept, linear_bound, mlp_fit,
            mlp_accept, gp_accept, grid_search_cv, gaussian_simulate,
-           shard_mask, aggregate_finish, mesh_pack, mesh_unpack)
+           shard_mask, aggregate_finish, mesh_pack, mesh_unpack,
+           mean_only_simulate)
 
 
 def reset_launch_counts() -> None:
@@ -124,7 +126,8 @@ __all__ = [
     "local_logpdf_models_plain", "local_logpdf_plain",
     "linear_accept", "linear_accept_plain", "linear_bound",
     "linear_bound_plain", "linear_values_plain",
-    "lv_simulate", "lv_simulate_plain", "mlp_accept", "mlp_accept_plain",
+    "lv_simulate", "lv_simulate_plain", "mean_only_simulate",
+    "mean_only_simulate_plain", "mlp_accept", "mlp_accept_plain",
     "mlp_fit", "mlp_fit_plain", "mlp_transform_rows",
     "mlp_transform_rows_plain", "mlp_values_plain", "model_step",
     "model_step_plain", "shard_mask", "shard_mask_plain",

@@ -42,11 +42,14 @@ SIGNATURES = {
         _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _U, _U, _U, _U, _U, _U, _P,
         _P, _P],
     "pyabc_ode_family_simulate": [
-        _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
+        _P, _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _U, _P, _P,
+        _P],
     "pyabc_gaussian_simulate": [_P, _I, _I, _I, _U, _U, _U, _U, _U, _U, _P,
                                 _I, _I, _I, _P, _P],
+    "pyabc_mean_only_simulate": [_P, _I, _I, _F, _U, _U, _U, _U, _U, _U, _P,
+                                 _P, _P],
     "pyabc_sir_simulate": [
-        _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _P, _P, _P],
+        _P, _I, _I, _I, _I, _F, _F, _F, _U, _U, _U, _U, _U, _U, _P, _P, _P],
     "pyabc_pnorm_accept_weight": [
         _P, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P,
         _P, _P],
@@ -103,11 +106,11 @@ SIGNATURES = {
     "pyabc_cast_rows": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _P],
     "pyabc_pack_models": [_I, _P, _I, _P, _I, _I, _P, _P],
     "pyabc_tau_leap": [
-        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
-        _P],
+        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _U,
+        _P, _P],
     "pyabc_network_sir": [
-        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _P,
-        _P],
+        _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U, _U, _U,
+        _P, _P],
     "pyabc_segment_round": [
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _I, _P, _P,
         _P, _P, _P, _U, _U, _U, _U, _U, _P, _I, _F, _P, _U, _U, _U, _U, _I,
@@ -142,7 +145,7 @@ SIGNATURES = {
         _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_ode_family_segments": [
         _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _U, _U, _U, _U,
-        _U, _P, _P],
+        _U, _U, _P, _P],
     "pyabc_moment_fold": [
         _P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P, _P],
     "pyabc_moment_fold_shards": [

@@ -53,3 +53,19 @@ class Kernel:
     @staticmethod
     def ptr(t: torch.Tensor | None) -> int | None:
         return None if t is None else t.data_ptr()
+
+
+class LaneKernel(Kernel):
+    """A simulator kernel drawing on a round's Philox stream at its lanes'
+    global numbers (the stream's ``lane0`` plus the lane's index): a launch
+    over a block of a round whose first lane is not 0 (a device mesh
+    rank's) also counts in its ``lane_base`` mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.mode_launches = {"lane_base": 0}
+
+    def count_launch(self, stream) -> None:
+        self.launches += 1
+        if stream is not None and stream.lane0:
+            self.mode_launches["lane_base"] += 1

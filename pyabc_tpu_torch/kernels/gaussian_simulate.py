@@ -1,5 +1,5 @@
 """K4: the Gaussian toy's simulator of one proposal round (BASELINE
-config 1).
+config 1), and the conjugate toy's mean-only simulator.
 
 Counterpart of ``pyabc_tpu/models/gaussian.py::make_gaussian_model``
 vmapped over a round; the CUDA kernel is ``csrc/gaussian.cu``. Each lane
@@ -11,13 +11,21 @@ observation leaves out (``(0, 1)`` for ``(mean, std)``, ``(0, -1)`` for an
 observed mean alone). The plain version draws the same words with the plain
 K1 and applies ``models.gaussian.gaussian_sim``. The draws follow
 ``jax.random``'s law, not its bits (a declared difference).
+
+``mean_only_simulate`` is ``pyabc_tpu/models/gaussian.py::
+make_mean_only_model`` (and each model of ``model_selection.py::
+tractable_pair``) vmapped over a round, the second kernel of
+``csrc/gaussian.cu``: lane b writes ``theta[b, 0] + noise_sd * z`` with z
+normal number 0 of its Philox lane on the round's simulator-noise stream,
+as the ``(B, 1)`` rows of the toy's one statistic ``"x"``; the plain
+version is ``models.gaussian.mean_only_sim`` on the plain K1's normals.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .base import Kernel
+from .base import LaneKernel
 from .philox import PhiloxStream, lanes, normals
 
 
@@ -50,16 +58,10 @@ def gaussian_simulate_plain(theta: torch.Tensor, *, n: int,
     return torch.stack([out[k] for c, k in by_col if c >= 0], dim=1)
 
 
-class GaussianSimulate(Kernel):
+class GaussianSimulate(LaneKernel):
     name = "gaussian_simulate"
     source = "pyabc_tpu_torch/csrc/gaussian.cu"
     replaces = "pyabc_tpu/models/gaussian.py:20"
-
-    def __init__(self):
-        super().__init__()
-        #: launches over a block of a round whose first lane is not 0 (a
-        #: device mesh rank's)
-        self.mode_launches = {"lane_base": 0}
 
     def __call__(self, theta: torch.Tensor, *, n: int, stream: PhiloxStream,
                  columns: tuple[int, int] = (0, 1)) -> torch.Tensor:
@@ -81,10 +83,53 @@ class GaussianSimulate(Kernel):
             *map(int, columns), out.data_ptr(),
             _build.stream_ptr(theta.device))
         _build.check(err, self.name)
-        self.launches += 1
-        if stream.lane0:
-            self.mode_launches["lane_base"] += 1
+        self.count_launch(stream)
         return out
 
 
 gaussian_simulate = GaussianSimulate()
+
+
+def mean_only_noise_plain(stream: PhiloxStream, B: int) -> torch.Tensor:
+    """The ``(B,)`` normals the mean-only kernel draws on ``stream``."""
+    return normals(stream, lanes(stream, B), 0, 1)[:, 0]
+
+
+def mean_only_simulate_plain(theta: torch.Tensor, *, noise_sd: float,
+                             stream: PhiloxStream) -> torch.Tensor:
+    """Plain PyTorch version: ``(B, >= 1)`` theta -> ``(B, 1)`` rows."""
+    from ..models.gaussian import mean_only_sim
+
+    x = mean_only_sim(theta, mean_only_noise_plain(stream, theta.shape[0]),
+                      noise_sd)["x"]
+    return x.to(torch.float32).unsqueeze(1)
+
+
+class MeanOnlySimulate(LaneKernel):
+    name = "mean_only_simulate"
+    source = "pyabc_tpu_torch/csrc/gaussian.cu"
+    replaces = "pyabc_tpu/models/gaussian.py:38"
+
+    def __call__(self, theta: torch.Tensor, *, noise_sd: float,
+                 stream: PhiloxStream) -> torch.Tensor:
+        if self.on_cpu(theta, stream.counters):
+            return mean_only_simulate_plain(theta, noise_sd=noise_sd,
+                                            stream=stream)
+        B, stride = theta.shape
+        if stride < 1:
+            raise ValueError(f"{self.name}: theta needs a column")
+        self.expect(theta, "theta", torch.float32, (B, stride))
+        self.expect(stream.counters, "counters", torch.int32,
+                    (stream.counters.shape[0],))
+        out = torch.empty(B, 1, dtype=torch.float32, device=theta.device)
+        err = _build.library().pyabc_mean_only_simulate(
+            theta.data_ptr(), B, stride, float(noise_sd), *stream.key,
+            stream.generation, stream.tag, stream.max_rounds,
+            int(stream.lane0), stream.counters.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(theta.device))
+        _build.check(err, self.name)
+        self.count_launch(stream)
+        return out
+
+
+mean_only_simulate = MeanOnlySimulate()

@@ -16,7 +16,7 @@ import torch
 
 from ..models.ode import rk4_at_times
 from . import _build
-from .base import Kernel
+from .base import LaneKernel
 from .philox import PhiloxStream, lanes, normals
 
 
@@ -68,16 +68,10 @@ def clip_keep_nan(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, x.clamp(lo, hi))
 
 
-class LvSimulate(Kernel):
+class LvSimulate(LaneKernel):
     name = "lv_simulate"
     source = "pyabc_tpu_torch/csrc/lv_rk4.cu"
     replaces = "pyabc_tpu/models/ode.py:104"
-
-    def __init__(self):
-        super().__init__()
-        #: launches over a block of a round whose first lane is not 0 (a
-        #: device mesh rank's)
-        self.mode_launches = {"lane_base": 0}
 
     def __call__(self, theta: torch.Tensor, noise: torch.Tensor | None, *,
                  n_obs: int, n_substeps: int, dt: float,
@@ -111,9 +105,7 @@ class LvSimulate(Kernel):
             stream.counters.data_ptr(), out.data_ptr(),
             _build.stream_ptr(theta.device))
         _build.check(err, self.name)
-        self.launches += 1
-        if stream.lane0:
-            self.mode_launches["lane_base"] += 1
+        self.count_launch(stream)
         return out
 
 

@@ -6,8 +6,9 @@ over the model index; the CUDA kernel is ``csrc/ode_family_rk4.cu``. Lane
 b integrates model ``m[b]``: decay ``(-a) y``, decay + production
 ``(-a) y + b`` or logistic ``(a y)(1 - y / k)``, from y0 = 2, and returns
 y at the ``n_obs`` times, ``(B, n_obs)``. With ``noise_sd > 0`` normal
-number t of each lane comes from the simulator-noise Philox stream (K1),
-in the kernel on the card and by the plain twin on the CPU; only the plain
+number t of each lane comes from the simulator-noise Philox stream (K1)
+at the lane's global number (the stream's ``lane0`` plus its index), in
+the kernel on the card and by the plain twin on the CPU; only the plain
 version also takes the noise as a given ``(B, n_obs)`` tensor (the parity
 tests feed it JAX's numbers, ``observed_ode_family`` numpy's).
 
@@ -32,8 +33,8 @@ import torch
 
 from ..models.ode import rk4_at_times
 from . import _build
-from .base import Kernel
-from .philox import PhiloxStream, no_lane_base, normals
+from .base import LaneKernel
+from .philox import PhiloxStream, lanes, normals
 from .tau_leap import MAX_MODELS, ODE_FAMILY, SegModelC, segments_plain
 
 #: the family's models, in model-index order
@@ -71,13 +72,12 @@ def ode_family_simulate_plain(theta: torch.Tensor, m: torch.Tensor, *,
         out = torch.where((m == k)[:, None], traj, out)
     if noise_sd > 0:
         if noise is None:
-            lanes = torch.arange(B, dtype=torch.int64, device=theta.device)
-            noise = normals(stream, lanes, 0, n_obs)
+            noise = normals(stream, lanes(stream, B), 0, n_obs)
         out = out + noise_sd * noise
     return out.contiguous()
 
 
-class OdeFamilySimulate(Kernel):
+class OdeFamilySimulate(LaneKernel):
     name = "ode_family_simulate"
     source = "pyabc_tpu_torch/csrc/ode_family_rk4.cu"
     replaces = "pyabc_tpu/models/model_selection.py:53"
@@ -86,7 +86,6 @@ class OdeFamilySimulate(Kernel):
                  n_substeps: int, dt: float, y0: float = 2.0,
                  noise_sd: float = 0.0, stream: PhiloxStream | None = None,
                  noise: torch.Tensor | None = None) -> torch.Tensor:
-        no_lane_base(stream, self.name)
         kw = dict(n_obs=n_obs, n_substeps=n_substeps, dt=dt, y0=y0,
                   noise_sd=noise_sd, stream=stream, noise=noise)
         extra = [t for t in (noise, stream and stream.counters)
@@ -102,19 +101,21 @@ class OdeFamilySimulate(Kernel):
         B, stride = theta.shape
         self.expect(theta, "theta", torch.float32, (B, stride))
         self.expect(m, "m", torch.int32, (B,))
-        key, gen, tag, max_rounds, ctr = (0, 0), 0, 0, 1, None
+        key, gen, tag, max_rounds, lane0, ctr = (0, 0), 0, 0, 1, 0, None
         if stream is not None:
             self.expect(stream.counters, "counters", torch.int32,
                         (stream.counters.shape[0],))
             key, gen, tag = stream.key, stream.generation, stream.tag
-            max_rounds, ctr = stream.max_rounds, stream.counters.data_ptr()
+            max_rounds, lane0 = stream.max_rounds, int(stream.lane0)
+            ctr = stream.counters.data_ptr()
         out = torch.empty(B, n_obs, dtype=torch.float32, device=theta.device)
         err = _build.library().pyabc_ode_family_simulate(
             theta.data_ptr(), m.data_ptr(), B, stride, n_obs, n_substeps,
             float(dt), float(y0), float(noise_sd), *key, gen, tag,
-            max_rounds, ctr, out.data_ptr(), _build.stream_ptr(theta.device))
+            max_rounds, lane0, ctr, out.data_ptr(),
+            _build.stream_ptr(theta.device))
         _build.check(err, self.name)
-        self.launches += 1
+        self.count_launch(stream)
         return out
 
 
@@ -224,7 +225,7 @@ def ode_family_segments_plain(spec, theta: torch.Tensor,
     return out, state
 
 
-class OdeFamilySegments(Kernel):
+class OdeFamilySegments(LaneKernel):
     """The range entry of the segmented family (K19's form, with the
     lanes' models)."""
 
@@ -240,7 +241,6 @@ class OdeFamilySegments(Kernel):
                  width: int | None = None, return_state: bool = False):
         """``spec`` is one model's ``OdeFamilySegSpec`` (every lane that
         model) or the family's K specs with the lanes' models ``m``."""
-        no_lane_base(stream, self.name)
         specs = _specs(spec)
         seg_to = specs[0].n_seg if seg_to is None else seg_to
         kw = dict(state=state, seg_from=seg_from, seg_to=seg_to,
@@ -278,9 +278,10 @@ class OdeFamilySegments(Kernel):
             theta.data_ptr(), B, stride, self.ptr(state), self.ptr(y_out),
             seg_from, seg_to, colmap.data_ptr(), width, out.data_ptr(),
             *stream.key, stream.generation, stream.tag, stream.max_rounds,
-            stream.counters.data_ptr(), _build.stream_ptr(dev))
+            int(stream.lane0), stream.counters.data_ptr(),
+            _build.stream_ptr(dev))
         _build.check(err, self.name)
-        self.launches += 1
+        self.count_launch(stream)
         return out, y_out
 
 

@@ -5,7 +5,8 @@ Counterpart of ``pyabc_tpu/models/ode.py::rk4_at_times`` with
 CUDA kernel is ``csrc/sir_rk4.cu``. The output is the infected compartment
 at the ``n_obs`` observation times, ``(B, n_obs)``. With ``noise_sd > 0``
 normal number i of each lane comes from the simulator-noise Philox stream
-(K1), in the kernel on the card and by the plain twin on the CPU; the
+(K1), in the kernel on the card and by the plain twin on the CPU, at the
+lane's global number (the stream's ``lane0`` plus its index); the
 deterministic model of BASELINE config 4 (``noise_sd = 0``) draws nothing.
 """
 from __future__ import annotations
@@ -14,8 +15,8 @@ import torch
 
 from ..models.ode import rk4_at_times
 from . import _build
-from .base import Kernel
-from .philox import PhiloxStream, no_lane_base, normals
+from .base import LaneKernel
+from .philox import PhiloxStream, lanes, normals
 
 
 def sir_rhs(s, i, r, beta, gamma, n_pop: float):
@@ -39,12 +40,12 @@ def sir_simulate_plain(theta: torch.Tensor, *, n_obs: int, n_substeps: int,
                       device=theta.device)[:, None].expand(3, B)
     infected = rk4_at_times(rhs, y0, n_obs, n_substeps, dt)[:, 1, :].T
     if noise_sd > 0:
-        lanes = torch.arange(B, dtype=torch.int64, device=theta.device)
-        infected = infected + noise_sd * normals(stream, lanes, 0, n_obs)
+        infected = infected + noise_sd * normals(stream, lanes(stream, B), 0,
+                                                 n_obs)
     return infected.contiguous()
 
 
-class SirSimulate(Kernel):
+class SirSimulate(LaneKernel):
     name = "sir_simulate"
     source = "pyabc_tpu_torch/csrc/sir_rk4.cu"
     replaces = "pyabc_tpu/models/sir.py:30"
@@ -52,7 +53,6 @@ class SirSimulate(Kernel):
     def __call__(self, theta: torch.Tensor, *, n_obs: int, n_substeps: int,
                  dt: float, n_pop: float, noise_sd: float = 0.0,
                  stream: PhiloxStream | None = None) -> torch.Tensor:
-        no_lane_base(stream, self.name)
         if noise_sd > 0 and stream is None:
             raise ValueError(f"{self.name}: noise_sd > 0 needs a stream")
         extra = [stream.counters] if stream is not None else []
@@ -64,19 +64,20 @@ class SirSimulate(Kernel):
         if stride < 2:
             raise ValueError(f"{self.name}: theta needs 2 columns")
         self.expect(theta, "theta", torch.float32, (B, stride))
-        key, gen, tag, max_rounds, ctr = (0, 0), 0, 0, 1, None
+        key, gen, tag, max_rounds, lane0, ctr = (0, 0), 0, 0, 1, 0, None
         if stream is not None:
             self.expect(stream.counters, "counters", torch.int32,
                         (stream.counters.shape[0],))
             key, gen, tag = stream.key, stream.generation, stream.tag
-            max_rounds, ctr = stream.max_rounds, stream.counters.data_ptr()
+            max_rounds, lane0 = stream.max_rounds, int(stream.lane0)
+            ctr = stream.counters.data_ptr()
         out = torch.empty(B, n_obs, dtype=torch.float32, device=theta.device)
         err = _build.library().pyabc_sir_simulate(
             theta.data_ptr(), B, stride, n_obs, n_substeps, float(dt),
-            float(n_pop), float(noise_sd), *key, gen, tag, max_rounds, ctr,
-            out.data_ptr(), _build.stream_ptr(theta.device))
+            float(n_pop), float(noise_sd), *key, gen, tag, max_rounds, lane0,
+            ctr, out.data_ptr(), _build.stream_ptr(theta.device))
         _build.check(err, self.name)
-        self.launches += 1
+        self.count_launch(stream)
         return out
 
 

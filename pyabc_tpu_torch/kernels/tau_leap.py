@@ -14,9 +14,10 @@ row in flat sum-stat order in one launch.
 
 The Poisson counts come from ``philox.poisson_plain`` / ``philox.cuh::
 poisson`` on the simulator-noise stream, draw number ``leap * n_channels +
-channel`` of the lane: keyed by the slot, the leap and the channel, never
-by the segment. So the segmented and the unsegmented constructors give the
-same numbers (a declared difference: JAX keys the two with ``fold_in`` and
+channel`` of the lane: keyed by the slot (its global number: the stream's
+``lane0`` plus its index), the leap and the channel, never by the
+segment. So the segmented and the unsegmented constructors give the same
+numbers (a declared difference: JAX keys the two with ``fold_in`` and
 ``split``).
 """
 from __future__ import annotations
@@ -28,9 +29,8 @@ from typing import Callable
 import torch
 
 from . import _build
-from .base import Kernel
-from .philox import (POISSON_MAX_DRAWS, PhiloxStream, no_lane_base,
-                     poisson_plain)
+from .base import LaneKernel
+from .philox import POISSON_MAX_DRAWS, PhiloxStream, lanes, poisson_plain
 
 #: SegModel.kind of the built-in segmented simulators (csrc/seg_model.cuh)
 BIRTH_DEATH, STOCHASTIC_LV, NETWORK_SIR, ODE_FAMILY = 0, 1, 2, 3
@@ -200,12 +200,12 @@ def segments_plain(spec, theta: torch.Tensor, stream: PhiloxStream, *,
         colmap = default_colmap(spec.seg_size, seg_from, seg_to,
                                 theta.device)
     width = colmap.numel() if width is None else width
-    lanes = torch.arange(B, dtype=torch.int64, device=theta.device)
+    lane = lanes(stream, B)
     state = spec.initial_state(B, theta.device) if state is None else state
     params = spec.lane_params(theta)
     out = torch.zeros(B, width, dtype=torch.float32, device=theta.device)
     for seg in range(seg_from, seg_to):
-        state, vals = spec.step(state, params, seg, stream, lanes)
+        state, vals = spec.step(state, params, seg, stream, lane)
         out[:, colmap[seg - seg_from].long()] = vals
     return out, state
 
@@ -216,7 +216,7 @@ def tau_leap_plain(spec: TauLeapSpec, theta: torch.Tensor,
     return segments_plain(spec, theta, stream, **kw)
 
 
-class RangeKernel(Kernel):
+class RangeKernel(LaneKernel):
     """The range entry of a built-in segmented simulator on the card."""
 
     #: the C entry point
@@ -234,7 +234,6 @@ class RangeKernel(Kernel):
                  seg_to: int | None = None,
                  colmap: torch.Tensor | None = None,
                  width: int | None = None, return_state: bool = False):
-        no_lane_base(stream, self.name)
         seg_to = spec.n_seg if seg_to is None else seg_to
         kw = dict(state=state, seg_from=seg_from, seg_to=seg_to,
                   colmap=colmap, width=width)
@@ -266,9 +265,10 @@ class RangeKernel(Kernel):
             self.ptr(state), self.ptr(x_out), seg_from, seg_to,
             colmap.data_ptr(), width, out.data_ptr(), *stream.key,
             stream.generation, stream.tag, stream.max_rounds,
-            stream.counters.data_ptr(), _build.stream_ptr(dev))
+            int(stream.lane0), stream.counters.data_ptr(),
+            _build.stream_ptr(dev))
         _build.check(err, self.name)
-        self.launches += 1
+        self.count_launch(stream)
         return out, x_out
 
 

@@ -30,12 +30,6 @@ class TorchModel:
     step in torch; the built-in ones (``models.gillespie``,
     ``models.sir.make_network_sir_model``) name their CUDA kernels."""
 
-    #: whether a round run in blocks of lanes (a device mesh rank's) gets
-    #: each block's rows of the whole round: a user simulator drawing from
-    #: the run's generator (in law), or a kernel that takes the stream's
-    #: lane base; False for a kernel that numbers a round's lanes from 0
-    lane_base = True
-
     def __init__(self, sim: Callable | None,
                  space: ParameterSpace | list[str],
                  name: str = "torch_model", segmented=None):
@@ -96,8 +90,6 @@ class ChainModel(TorchModel):
     kernel (``chain.kernel``); ``segmented`` is set only when the
     constructor was asked for segments (early reject), else the chain is
     one segment and serves the classic path alone."""
-
-    lane_base = False
 
     def __init__(self, chain: SegmentedSim, space, name: str,
                  segmented: bool):

@@ -2,9 +2,10 @@
 counterpart): the correctness anchor with a closed-form posterior.
 
 ``make_gaussian_model`` (BASELINE config 1) simulates a proposal round
-through K4's Gaussian kernel (``kernels/gaussian_simulate.py``), its
-normals drawn from the round's Philox stream; ``make_mean_only_model``
-stays a user-style model drawing from the run's generator.
+through K4's Gaussian kernel (``kernels/gaussian_simulate.py``) and
+``make_mean_only_model`` (the conjugate toy) through K4's mean-only
+kernel, both drawing their normals from the round's Philox stream at each
+lane's global number.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ..core.random_variables import RV, Distribution
 from ..core.sumstat_spec import SumStatSpec
-from ..kernels.gaussian_simulate import gaussian_simulate
+from ..kernels.gaussian_simulate import gaussian_simulate, mean_only_simulate
 from ..kernels.philox import PhiloxStream, generator_stream
 from ..model import TorchModel
 
@@ -80,16 +81,39 @@ def mean_only_sim(theta: torch.Tensor, z: torch.Tensor,
     return {"x": theta[:, 0] + noise_sd * z}
 
 
+class MeanOnlyGaussianModel(TorchModel):
+    """theta -> x ~ N(theta, noise_sd^2); every simulation, a round's rows
+    and a user's call alike, is K4's mean-only kernel."""
+
+    def __init__(self, noise_sd: float = 0.5, name: str = "gauss1d"):
+        self.noise_sd = float(noise_sd)
+        super().__init__(self._sim_dict, ["theta"], name=name)
+
+    def _sim_dict(self, theta, generator):
+        rows = mean_only_simulate(
+            theta.contiguous(), noise_sd=self.noise_sd,
+            stream=generator_stream(generator, theta.device))
+        return {"x": rows[:, 0]}
+
+    def simulate_flat(self, theta, generator, spec: SumStatSpec,
+                      stream: PhiloxStream | None = None):
+        missing = set(spec.names) - {"x"}
+        if missing:
+            raise KeyError(f"{self.name}: simulator output lacks "
+                           f"{sorted(missing)} of the observed data")
+        if spec.sizes["x"] != 1:
+            raise ValueError(f"{self.name}: x is a scalar, the observation "
+                             f"has {dict(spec.shapes)}")
+        if stream is None:
+            stream = generator_stream(generator, theta.device)
+        return mean_only_simulate(theta.contiguous(), noise_sd=self.noise_sd,
+                                  stream=stream)
+
+
 def make_mean_only_model(noise_sd: float = 0.5, name: str = "gauss1d"
-                         ) -> TorchModel:
+                         ) -> MeanOnlyGaussianModel:
     """1-parameter model: x | theta ~ N(theta, noise_sd^2)."""
-
-    def sim(theta, generator):
-        z = torch.randn(theta.shape[0], generator=generator,
-                        device=theta.device)
-        return mean_only_sim(theta, z, noise_sd)
-
-    return TorchModel(sim, ["theta"], name=name)
+    return MeanOnlyGaussianModel(noise_sd, name)
 
 
 def mean_only_prior() -> Distribution:

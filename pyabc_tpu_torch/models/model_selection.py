@@ -1,9 +1,10 @@
 """Model selection (BASELINE config 5; ``pyabc_tpu/models/model_selection.py``
 counterpart).
 
-- ``tractable_pair()``: two conjugate Gaussian user models with different
-  noise scales; their posterior model probabilities are exact, the
-  statistical anchor of a run over several models.
+- ``tractable_pair()``: two conjugate Gaussian models with different
+  noise scales (``gaussian.make_mean_only_model``, K4's mean-only kernel);
+  their posterior model probabilities are exact, the statistical anchor of
+  a run over several models.
 - ``ode_family()``: the K = 3 nested ODE models (decay, decay +
   production, logistic) of one observation. They are one built-in
   multi-model simulator: a round's lanes, each with its own model index,
@@ -33,6 +34,7 @@ from ..kernels.ode_family import (MODEL_NAMES, OdeFamilySegSpec,
 from ..kernels.philox import PhiloxStream, generator_stream
 from ..model import ChainModel, TorchModel
 from ..ops.segment import spec_protocol
+from .gaussian import make_mean_only_model
 from .ode import rk4_dt
 
 #: initial state of every model of the family
@@ -47,15 +49,10 @@ def tractable_pair(noise_sds=(0.6, 1.2), prior_sd: float = 1.0):
     marginal likelihood of model m at x0 is N(x0; 0, prior_sd^2 + sd_m^2),
     so the posterior model probabilities are exact. Returns (models,
     priors, analytic_posterior(x0))."""
-    models, priors = [], []
-    for i, sd in enumerate(noise_sds):
-        def sim(theta, generator, sd=float(sd)):
-            z = torch.randn(theta.shape[0], generator=generator,
-                            device=theta.device)
-            return {"x": theta[:, 0] + sd * z}
-
-        models.append(TorchModel(sim, ["theta"], name=f"gauss_sd{i}"))
-        priors.append(Distribution(theta=RV("norm", 0.0, prior_sd)))
+    models = [make_mean_only_model(sd, name=f"gauss_sd{i}")
+              for i, sd in enumerate(noise_sds)]
+    priors = [Distribution(theta=RV("norm", 0.0, prior_sd))
+              for _sd in noise_sds]
 
     def analytic_posterior(x0: float) -> np.ndarray:
         var = np.asarray([prior_sd ** 2 + sd ** 2 for sd in noise_sds])
@@ -100,9 +97,6 @@ class OdeFamily:
 class OdeFamilyModel(TorchModel):
     """One model of the family; alone it simulates every lane as model
     ``index``, in a run with its siblings the family simulates the round."""
-
-    #: K20b numbers a round's lanes from 0 (no device mesh)
-    lane_base = False
 
     def __init__(self, family: OdeFamily, index: int):
         self.family = family

@@ -40,9 +40,6 @@ __all__ = ["N_POP", "TRUE_PARS", "Y0", "SIRModel", "default_prior",
 class SIRModel(TorchModel):
     """The SIR simulator; ``simulate_flat`` launches K20 on CUDA tensors."""
 
-    #: K20 numbers a round's lanes from 0 (no device mesh)
-    lane_base = False
-
     def __init__(self, n_obs: int = 15, t1: float = 60.0,
                  n_substeps: int = 8, noise_sd: float = 0.0,
                  name: str = "sir"):

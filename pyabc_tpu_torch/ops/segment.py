@@ -64,8 +64,11 @@ def spec_protocol(spec, layout: tuple, kernel) -> SegmentedSim:
                                      device=theta.device)}
 
     def step(carry: dict, seg: int, stream):
+        # the lanes' global numbers: a mesh rank's block starts at lane0 (a
+        # noiseless step may be given no stream)
+        lane0 = 0 if stream is None else stream.lane0
         state, vals = spec.step(carry["state"], carry["params"], seg, stream,
-                                carry["lane"])
+                                lane0 + carry["lane"])
         return {**carry, "state": state}, vals
 
     return SegmentedSim(n_segments=spec.n_seg, init=init, step=step,

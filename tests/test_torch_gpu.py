@@ -201,7 +201,8 @@ def test_lv_run_on_the_card(dev):
     # learned statistics' K23 (linear and MLP) and K18 operands, the
     # host-refit mode's GP transform, GridSearchCV's K17, config 1's
     # Gaussian simulator, sharded sampling's K24b and K25's sharded finish,
-    # the mesh's K24e pack and unpack are not on it)
+    # the mesh's K24e pack and unpack, the conjugate toy's mean-only
+    # simulator are not on it)
     noisy = ("sir_simulate", "kernel_accept", "temperature_update",
              "ode_family_simulate", "model_step", "segment_round",
              "tau_leap", "network_sir", "local_cov", "local_factor",
@@ -211,7 +212,7 @@ def test_lv_run_on_the_card(dev):
              "ridge_fit", "linear_accept", "linear_bound", "mlp_fit",
              "mlp_accept", "gp_accept", "grid_search_cv",
              "gaussian_simulate", "shard_mask", "aggregate_finish",
-             "mesh_pack", "mesh_unpack")
+             "mesh_pack", "mesh_unpack", "mean_only_simulate")
     counts = launch_counts()
     assert all(v > 0 for k, v in counts.items() if k not in noisy)
     assert all(counts[k] == 0 for k in noisy)
@@ -3639,3 +3640,90 @@ def prior_rows(dev, n, g):
     prior = lv.default_prior().arrays(dev)
     u = torch.rand(n, 4, generator=g, device=dev)
     return (prior["loc"] + u * (prior["hi"] - prior["loc"])).contiguous()
+
+
+@pytest.mark.parametrize("B,stride", [(65536, 1), (257, 2)])
+def test_mean_only_simulate_kernel(dev, B, stride):
+    """K4's mean-only kernel against its plain version, bit for bit: the
+    toy's round width and an odd width of stride 2."""
+    from pyabc_tpu_torch.kernels import (mean_only_simulate,
+                                         mean_only_simulate_plain)
+
+    theta = torch.randn(B, stride, generator=_gen(dev, B), device=dev)
+    stream = _stream(dev, philox.SIM_NOISE, seed=B)
+    kw = dict(noise_sd=0.5, stream=stream)
+    before = mean_only_simulate.launches
+    got = mean_only_simulate(theta, **kw)
+    assert mean_only_simulate.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (B, 1) and torch.isfinite(got).all()
+    assert torch.equal(got, mean_only_simulate_plain(theta, **kw))
+
+
+def _lane_base_cases(dev):
+    """The five kernels that took the lane base, at their main paths'
+    widths: (wrapper, a launch on (theta, stream), theta)."""
+    from dataclasses import replace
+
+    from pyabc_tpu_torch.kernels import (network_sir, ode_family_segments,
+                                         ode_family_simulate, sir_simulate,
+                                         tau_leap)
+    from pyabc_tpu_torch.models import gillespie as gl
+    from pyabc_tpu_torch.models import model_selection as msel
+    from pyabc_tpu_torch.models import sir
+
+    g = _gen(dev, 5)
+    B = 4096
+    sm = sir.make_sir_model(noise_sd=10.0)
+    skw = dict(n_obs=sm.n_obs, n_substeps=sm.n_substeps, dt=sm.dt,
+               n_pop=sir.N_POP, noise_sd=10.0)
+    fam = msel.ode_family()[0][0].family
+    fkw = dict(n_obs=fam.n_obs, n_substeps=fam.n_substeps, dt=fam.dt,
+               y0=msel.Y0, noise_sd=fam.noise_sd)
+    specs = msel.ode_family(segments=4)[0][0].family.specs
+    m = torch.randint(0, 3, (B,), generator=g, device=dev, dtype=torch.int32)
+    bd = gl.make_birth_death_model().chain.kernel[1]
+    net = replace(sir.make_network_sir_model().chain.kernel[1], noise_sd=8.0)
+
+    def rates(lo, hi, cols):
+        return (lo + (hi - lo) * torch.rand(B, cols, generator=g,
+                                            device=dev)).contiguous()
+
+    fam_theta = rates(0.05, 1.0, 2) * torch.tensor([1.0, 9.0], device=dev)
+    return {
+        "sir_simulate": (sir_simulate, lambda th, st: sir_simulate(
+            th, stream=st, **skw), rates(0.1, 0.9, 2)),
+        "ode_family_simulate": (ode_family_simulate,
+                                lambda th, st: ode_family_simulate(
+                                    th, m[B - th.shape[0]:], stream=st,
+                                    **fkw), fam_theta + 0.5),
+        "ode_family_segments": (ode_family_segments,
+                                lambda th, st: ode_family_segments(
+                                    specs, th, st,
+                                    m=m[B - th.shape[0]:])[0],
+                                fam_theta + 0.5),
+        "tau_leap": (tau_leap, lambda th, st: tau_leap(bd, th, st)[0],
+                     rates(-0.5, 0.5, 2)),
+        "network_sir": (network_sir, lambda th, st: network_sir(
+            net, th, st)[0], rates(0.1, 0.9, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", ["sir_simulate", "ode_family_simulate",
+                                  "ode_family_segments", "tau_leap",
+                                  "network_sir"])
+def test_lane_base_simulator_kernels(dev, name):
+    """K20, K20b's family (unsegmented and its range entry), K19 and K20b
+    network launched over the upper half of a round with the lane base
+    B/2 give the upper half of the whole round's rows, bit for bit; the
+    launch counts in the ``lane_base`` mode."""
+    wrapper, fn, theta = _lane_base_cases(dev)[name]
+    B = theta.shape[0]
+    full = fn(theta, _lane_stream(dev, philox.SIM_NOISE))
+    before = wrapper.mode_launches["lane_base"]
+    half = fn(theta[B // 2:].contiguous(),
+              _lane_stream(dev, philox.SIM_NOISE, B // 2))
+    torch.cuda.synchronize()
+    assert wrapper.mode_launches["lane_base"] == before + 1
+    assert torch.equal(half.isnan(), full[B // 2:].isnan())
+    assert torch.equal(half.nan_to_num(), full[B // 2:].nan_to_num())

@@ -180,6 +180,8 @@ def test_parallel_and_mesh_ranks_import_neither_jax_nor_the_jax_package():
                           "initialize", "is_primary", "primary_db",
                           "process_count"]
     assert res["mesh"] == ["MeshRank", "rank_seed"]
-    assert res["ranks"] == ["adaptive", "aggregate", "gauss", "pair",
-                            "sparse", "toy"]
+    assert res["ranks"] == ["adaptive", "aggregate", "birth_death",
+                            "family", "family_segments", "gauss",
+                            "network_sir", "pair", "sir", "sparse", "toy",
+                            "tractable_pair", "user_toy"]
     assert res["loaded"] == []

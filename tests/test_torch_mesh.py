@@ -6,16 +6,21 @@ mesh run is bit for bit the virtual-shard run of the same shard count. The
 port's mesh runs, spawned here at widths 1, 2 and 4 over a ``file://``
 rendezvous (``tests/torch_mesh_ranks.py``, which imports neither JAX nor
 the JAX package), are held to the port's own ``sharded=8`` runs in this
-process: config 1's Gaussian at every width, the adaptive distance with a
-listed size at width 4, K = 2 and an adaptive aggregate at width 2. A user
-simulator drawing from the run's generator (the mean-only toy) is held in
-law: each rank's generator is seeded from (seed, rank), and the posterior
-agrees with the conjugate answer and the JAX package's virtual-shard run at
-``tests/test_torch_sharded_runs.py``'s tolerances. Also: the width errors
-word for word as the JAX package's, one gather a generation in the sync
-ledger, History on the primary only, a clock stop that ends every rank at
-the same generation, the NCCL and unserved-model refusals, and the shard
-and lane arithmetic the ranks rest on.
+process: config 1's Gaussian, the conjugate toy (K4's mean-only kernel),
+config 5's ODE family, SIR with simulator noise and unsegmented tau leaping
+at every width (every built-in simulator draws at its lanes' global
+numbers; the segmented network SIR and ODE family with early reject off
+too), the adaptive distance with a listed size at width 4, K = 2 (K4's
+Gaussian pair and the tractable pair) and an adaptive aggregate at width
+2. A user simulator drawing ``torch.randn`` from the run's generator is
+held in law: each rank's generator is seeded from (seed, rank), and the
+posterior agrees with the conjugate answer and the JAX package's
+virtual-shard run at ``tests/test_torch_sharded_runs.py``'s tolerances.
+Also: the width errors word for word as the JAX package's, one gather a
+generation in the sync ledger, History on the primary only, a clock stop
+that ends every rank at the same generation, the NCCL refusal, the
+refusals of segmented early reject and of an unsharded wide mesh, and the
+shard and lane arithmetic the ranks rest on.
 """
 import os
 
@@ -30,10 +35,9 @@ from jax.sharding import Mesh  # noqa: E402
 import pyabc_tpu as jpt  # noqa: E402
 import pyabc_tpu_torch as tpt  # noqa: E402
 import torch_mesh_ranks as ranks  # noqa: E402
-from pyabc_tpu_torch.kernels import (gaussian_simulate, lv_simulate,  # noqa
-                                     mesh_pack, mesh_unpack,
-                                     ode_family_simulate, propose,
-                                     sir_simulate)
+from pyabc_tpu_torch.kernels import (gaussian_simulate,  # noqa: E402
+                                     kernel_accept, lv_simulate, mesh_pack,
+                                     mesh_unpack, propose, segment_round)
 from pyabc_tpu_torch.kernels.mesh_pack import (mesh_pack_plain,  # noqa: E402
                                                mesh_unpack_plain)
 from pyabc_tpu_torch.kernels.philox import PhiloxStream  # noqa: E402
@@ -48,10 +52,14 @@ from pyabc_tpu_torch.parallel.mesh import MeshRank, rank_seed  # noqa: E402
 torch.set_num_threads(1)
 
 #: the groups spawned once for the module: width -> configurations
-GROUPS = {1: ["gauss"],
-          2: ["gauss", "sparse", "pair", "aggregate", "toy", "walltime", "db",
-              "nccl"],
-          4: ["gauss", "adaptive"]}
+#: the configurations whose draws every built-in simulator kernel places at
+#: its lanes' global numbers, at every width
+LANE_BASE = ["toy", "family", "sir", "birth_death", "network_sir",
+             "family_segments"]
+GROUPS = {1: ["gauss"] + LANE_BASE,
+          2: ["gauss", "sparse", "pair", "tractable_pair", "aggregate",
+              "user_toy", "walltime", "db", "nccl"] + LANE_BASE,
+          4: ["gauss", "adaptive"] + LANE_BASE}
 #: seconds a group may take, its start included
 JOIN_S = 240.0
 POST_MU = gaussian.conjugate_posterior(ranks.TOY_X,
@@ -80,7 +88,8 @@ def groups(tmp_path_factory):
 def virtual():
     """The port's virtual-shard runs of the same configurations."""
     out = {}
-    for name in ("gauss", "sparse", "adaptive", "pair", "aggregate"):
+    for name in ["gauss", "sparse", "adaptive", "pair", "tractable_pair",
+                 "aggregate"] + LANE_BASE:
         abc = ranks.CONFIGS[name]()
         h = abc.run(max_nr_populations=ranks.GENS)
         out[name] = (abc, ranks.history_arrays(h, abc.K))
@@ -108,10 +117,12 @@ def test_mesh_bit_identical_to_virtual_shards(groups, virtual, width):
 
 
 @pytest.mark.parametrize("width,name", [(4, "adaptive"), (2, "pair"),
+                                        (2, "tractable_pair"),
                                         (2, "aggregate"), (2, "sparse")])
 def test_configurations_bit_identical(groups, virtual, width, name):
     """The JAX headline's adaptive distance with a listed size at width 4,
-    K = 2 model selection (the model column gathered with the rows), an
+    K = 2 model selection (K4's Gaussian pair and the tractable pair on
+    K4's mean-only kernel; the model column gathered with the rows), an
     adaptive aggregate (K25's value rows gathered as the feature rows) and
     config 1 storing every second generation's statistics at width 2: bit
     for bit the virtual shards'; the adaptive weights the virtual run's
@@ -143,6 +154,22 @@ def test_every_rank_holds_the_same_history(groups, width, name):
                       f"{name}: rank {r} vs the primary")
 
 
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("name", LANE_BASE)
+def test_lane_base_models_bit_identical(groups, virtual, width, name):
+    """The conjugate toy (K4's mean-only kernel), config 5's K = 3 ODE
+    family (K20b, noise sd 0.3; the model column too), SIR with noise sd
+    5 under a p-norm (K20), unsegmented birth-death tau leaping (K19), and
+    with early reject off the segmented network SIR (K20b network, noise
+    sd 8) and the segmented family (K20b's range entry): each rank draws
+    its block of a round at the block's global lanes, so the mesh run is
+    the 8 virtual shards' bit for bit at every width."""
+    res = groups[width][0][name]
+    assert res["gens"] == ranks.GENS
+    assert res["mesh"]["devices"] == width
+    _assert_equal(res["arrays"], virtual[name][1], f"{name} w {width}")
+
+
 def _jax_toy():
     @jpt.JaxModel.from_function(["theta"], name="gauss_sharded")
     def model(key, theta):
@@ -162,17 +189,18 @@ def _moments(theta, w):
 
 
 def test_generator_toy_posterior(groups):
-    """A user simulator on the mesh: the law of the virtual run, not its
-    bits. Each rank's generator has its own seed (no two ranks draw the
-    same noise); the posterior mean is within 0.25 of the conjugate answer
-    and within 0.2 of the JAX package's virtual-shard run, the sd within
-    0.15 (``test_torch_sharded_runs.py``'s rules)."""
+    """A user simulator (``torch.randn`` from the run's generator) on the
+    mesh: the law of the virtual run, not its bits. Each rank's generator
+    has its own seed (no two ranks draw the same noise); the posterior mean
+    is within 0.25 of the conjugate answer and within 0.2 of the JAX
+    package's virtual-shard run, the sd within 0.15
+    (``test_torch_sharded_runs.py``'s rules)."""
     res = groups[2]
-    seeds = [r["toy"]["generator_seed"] for r in res]
+    seeds = [r["user_toy"]["generator_seed"] for r in res]
     assert seeds[0] == ranks.TOY_SEED and len(set(seeds)) == 2
     assert seeds[1] == rank_seed(ranks.TOY_SEED, 1)
     last = ranks.GENS - 1
-    arr = res[0]["toy"]["arrays"]
+    arr = res[0]["user_toy"]["arrays"]
     mu, sd = _moments(arr[f"theta_0_{last}"][:, 0], arr[f"w_0_{last}"])
     jh = _jax_toy()
     df, w = jh.get_distribution(0, jh.max_t)
@@ -313,30 +341,55 @@ def test_divisor_width_mesh_runs_hybrid_shards(width):
     assert _jax(8, width)._sharded_n() == 8
 
 
-def _refusing_models():
+def _gated_models():
+    """Each built-in model kind: (its unsegmented form, admitted on a mesh;
+    a segmented form of the same kind, refused, and its class name)."""
     small = dict(n_leaps=20, n_obs=4, t1=2.0)
     models, priors = tmsel.ode_family()[:2]
+    seg_models, seg_priors = tmsel.ode_family(segments=4)[:2]
     return {
-        "SIRModel": (tsir.make_sir_model(), tsir.default_prior()),
-        "OdeFamilyModel": (models, priors),
-        "ChainModel": (tg.make_birth_death_model(**small),
-                       tg.birth_death_prior()),
+        "SIRModel": ((tsir.make_sir_model(noise_sd=5.0),
+                      tsir.default_prior()),
+                     (tsir.make_network_sir_model(), tsir.network_sir_prior()),
+                     "ChainModel"),
+        "OdeFamilyModel": ((models, priors), (seg_models, seg_priors),
+                           "SegmentedFamilyModel"),
+        "ChainModel": ((tg.make_birth_death_model(**small),
+                        tg.birth_death_prior()),
+                       (tg.make_birth_death_model(segments=2, **small),
+                        tg.birth_death_prior()), "ChainModel"),
     }
 
 
-@pytest.mark.parametrize("what", sorted(_refusing_models()))
-def test_models_without_a_lane_base_are_refused_on_a_mesh(what):
-    """A built-in kernel that numbers a round's lanes from 0 would draw
-    rank 0's numbers on every rank: refused naming the model, item 15; so
-    is a mesh wider than 1 without sharded sampling."""
-    model, prior = _refusing_models()[what]
+def _gate(model, prior, width=2, early_reject=False):
     abc = tpt.ABCSMC(model, prior, tpt.PNormDistance(p=2),
                      population_size=64, sharded=8, early_reject=False,
                      device="cpu")
-    abc.mesh_rank = MeshRank(group=None, width=2, rank=0)
-    with pytest.raises(NotImplementedError,
-                       match=f"a {what} model on a device mesh.*item 15"):
-        abc._mesh_gate()
+    abc.mesh_rank = MeshRank(group=None, width=width, rank=0)
+    abc.early_reject = early_reject
+    abc._mesh_gate()
+
+
+@pytest.mark.parametrize("what", sorted(_gated_models()))
+def test_models_without_a_lane_base_are_refused_on_a_mesh(what):
+    """``_mesh_gate``'s two refusals, by their text: a segmented model
+    under early reject (K18's segmented round numbers a round's lanes from
+    0; early reject on shards is item 15) and a mesh wider than 1 without
+    sharded sampling. Every unsegmented built-in model (K20's SIR, K20b's
+    family, K19's chain) draws at its lanes' global numbers and is
+    admitted, and so is a segmented one with early reject off (its range
+    kernels draw at the global lanes too)."""
+    (model, prior), (seg, seg_prior), seg_cls = _gated_models()[what]
+    _gate(model, prior)
+    _gate(model, prior, early_reject="auto")
+    _gate(seg, seg_prior)
+    for early in ("auto", True):
+        with pytest.raises(NotImplementedError) as err:
+            _gate(seg, seg_prior, early_reject=early)
+        assert str(err.value).startswith(
+            f"a segmented {seg_cls} model with early reject on a device "
+            f"mesh (early reject on shards)")
+        assert "item 15" in str(err.value)
     abc = ranks.gauss(None, sharded=None)
     abc.mesh_rank = MeshRank(group=None, width=2, rank=0)
     with pytest.raises(NotImplementedError,
@@ -421,18 +474,18 @@ def test_lane_base_gives_the_rows_of_the_whole_round(a, b):
 
 
 def test_kernels_without_a_lane_base_refuse_one():
-    """A kernel that numbers a round's lanes from 0 (K20's SIR, K20b's ODE
-    family) raises when handed a stream with a lane base: it would draw
-    another block's numbers."""
-    theta = torch.rand(8, 2)
-    with pytest.raises(NotImplementedError, match="sir_simulate on a device"):
-        sir_simulate(theta, n_obs=5, n_substeps=2, dt=1.0, n_pop=1000.0,
-                     noise_sd=0.1, stream=_stream(64))
+    """The kernels that still number a round's lanes from 0 (K21a/K21c's
+    stochastic accept, K18's segmented round; their configurations are
+    refused before any mesh) raise when handed a stream with a lane base:
+    they would draw another block's numbers."""
     with pytest.raises(NotImplementedError,
-                       match="ode_family_simulate on a device"):
-        ode_family_simulate(theta, torch.zeros(8, dtype=torch.int32),
-                            n_obs=5, n_substeps=2, dt=0.5, noise_sd=0.1,
-                            stream=_stream(64))
+                       match="kernel_accept on a device mesh"):
+        kernel_accept(None, None, None, None, None, None, stream=_stream(64),
+                      lin=False, apply_iw=False)
+    with pytest.raises(NotImplementedError,
+                       match="segment_round on a device mesh"):
+        segment_round(None, None, None, _stream(64), imap=None, x0=None,
+                      w=None, p=2.0, eps=None, width=1, seg_ctr=None)
 
 
 @pytest.mark.parametrize("width", [1, 2, 4])

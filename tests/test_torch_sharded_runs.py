@@ -99,15 +99,30 @@ def test_sharded_toy_against_the_jax_package(toy):
     assert sd == pytest.approx(sd_u, abs=0.15)
 
 
+#: the seeds whose epsilon trails the trail cell averages: the fixture's
+#: seed 23 and the seven after it
+TRAIL_SEEDS = tuple(range(23, 31))
+
+
+def _trail(h):
+    return h.get_all_populations().query("t >= 0")["epsilon"].to_numpy()
+
+
 def test_sharded_toy_epsilon_trail_against_the_jax_package(toy):
-    """The trails fall alike: each generation's epsilon within 25 % of
-    the JAX package's sharded run (different Philox and threefry draws)."""
-    eps = toy["port", 8][1].get_all_populations().query("t >= 0")
-    eps_j = toy["jax", 8][1].get_all_populations().query("t >= 0")
-    a, b = eps["epsilon"].to_numpy(), eps_j["epsilon"].to_numpy()
+    """The trails fall alike: each generation's epsilon, averaged over
+    TRAIL_SEEDS, within 25 % of the JAX package's sharded runs' (different
+    Philox and threefry draws; one seed's trail at pop 128 strays by about
+    as much, so the cell compares seed means)."""
+    trails = {pkg: [_trail(toy[pkg, 8][1])] for pkg in ("port", "jax")}
+    for pkg in trails:
+        for seed in TRAIL_SEEDS[1:]:
+            trails[pkg].append(_trail(_make(pkg, seed).run(
+                max_nr_populations=6)))
+    a, b = (np.mean(trails[pkg], axis=0) for pkg in ("port", "jax"))
     assert len(a) == len(b) == 6
     np.testing.assert_allclose(a, b, rtol=0.25)
-    assert np.all(np.diff(a) < 0)
+    for trail in trails["port"]:
+        assert np.all(np.diff(trail) < 0)
 
 
 def test_refit_flags_equal_the_jax_package(toy):

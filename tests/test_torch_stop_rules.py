@@ -4,14 +4,17 @@ A stop rule stops a run and moves no draw: the port keys a round's Philox
 counter by the run's ``MAX_ROUNDS`` (the round stride), and a
 ``min_acceptance_rate`` lowers only the loop's round bound. So the toy's
 generations that the rule does not stop are bit-identical with and without
-it (pop 500, seed 0, ``MedianEpsilon``: the trail 1.0282, 0.5124, 0.2358,
-0.1229), as in the JAX package, whose runs do not depend on the rule until
-it stops them.
+it (pop 500, seed 0, ``MedianEpsilon``: the trail 1.0609, 0.4937, 0.2379,
+0.1204, the toy drawing its noise through K4's mean-only kernel), as in the
+JAX package, whose runs do not depend on the rule until it stops them.
 
 Beside it, the schedules and rules the port admits, each in both packages
-(the toy, pop 500, seeds 0 and 1): ``ConstantEpsilon`` and ``ListEpsilon``
-give equal trails (they are the schedule) and 2-seed posterior means within
-0.05 of each other (a seed's mean moves by about 0.01 at pop 500);
+(the toy, pop 500): ``ConstantEpsilon`` and ``ListEpsilon`` give equal
+trails (they are the schedule, seeds 0 and 1) and posterior means over
+seeds 0-31 within 0.05 of each other (a seed's mean has an sd of about
+0.045 in the port and 0.087 in the JAX package under ``ConstantEpsilon(0.3)``
+at pop 500, so 32 seeds put the gap's standard error near 0.017; both
+packages' means lie near the exact ABC posterior mean, 0.781 at 0.3);
 ``max_total_nr_simulations`` and ``min_acceptance_rate`` stop each package
 at the generation its own counts give (the first whose cumulative
 evaluations reach the cap; no generation before the last below the rate).
@@ -32,7 +35,9 @@ from pyabc_tpu_torch.models import gaussian  # noqa: E402
 torch.set_num_threads(1)
 
 NOISE_SD, X_OBS, POP = 0.5, 1.0, 500
-PROBE_TRAIL = [1.0282, 0.5124, 0.2358, 0.1229]
+PROBE_TRAIL = [1.0609, 0.4937, 0.2379, 0.1204]
+#: the seeds whose posterior means the schedules' cells compare
+SCHEDULE_SEEDS = tuple(range(32))
 
 
 def _run(pkg, seed=0, eps=None, **run_kw):
@@ -86,14 +91,14 @@ def test_schedules_give_equal_trails(kind):
     for pkg in ("port", "jax"):
         mod = jpt if pkg == "jax" else tpt
         runs = []
-        for seed in (0, 1):
+        for seed in SCHEDULE_SEEDS:
             if kind == "constant":
                 eps, gens = mod.ConstantEpsilon(0.3), 4
             else:
                 eps, gens = mod.ListEpsilon([1.0, 0.5, 0.3, 0.2]), 6
             runs.append(_run(pkg, seed, eps=eps, max_nr_populations=gens))
         trails[pkg] = [_pops(h)["epsilon"].to_numpy().tolist()
-                       for h in runs]
+                       for h in runs[:2]]
         means[pkg] = np.mean([_mean(h) for h in runs])
     want = [0.3] * 4 if kind == "constant" else [1.0, 0.5, 0.3, 0.2]
     for pkg in trails:

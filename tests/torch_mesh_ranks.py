@@ -102,14 +102,11 @@ def aggregate(mesh=None, sharded=SHARDS, seed=31):
     return abc
 
 
-def toy(mesh=None, sharded=SHARDS, seed=TOY_SEED):
-    """The mean-only toy: a user simulator drawing from the run's
-    generator (``tests/test_torch_sharded_runs.py``'s)."""
+def _toy_run(model, mesh, sharded, seed):
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import gaussian
 
-    abc = pt.ABCSMC(gaussian.make_mean_only_model(noise_sd=TOY_NOISE_SD),
-                    gaussian.mean_only_prior(), pt.PNormDistance(p=2),
+    abc = pt.ABCSMC(model, gaussian.mean_only_prior(), pt.PNormDistance(p=2),
                     population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
                     mesh=mesh, sharded=sharded, fused_generations=G,
                     device="cpu")
@@ -117,8 +114,125 @@ def toy(mesh=None, sharded=SHARDS, seed=TOY_SEED):
     return abc
 
 
+def toy(mesh=None, sharded=SHARDS, seed=TOY_SEED):
+    """The conjugate toy (``tests/test_torch_sharded_runs.py``'s): K4's
+    mean-only kernel, Philox noise at each lane's global number."""
+    from pyabc_tpu_torch.models import gaussian
+
+    return _toy_run(gaussian.make_mean_only_model(noise_sd=TOY_NOISE_SD),
+                    mesh, sharded, seed)
+
+
+def user_toy(mesh=None, sharded=SHARDS, seed=TOY_SEED):
+    """The same toy as a user writes it: a ``TorchModel`` drawing
+    ``torch.randn`` from the run's generator (each rank's its own)."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+
+    def sim(theta, generator):
+        z = torch.randn(theta.shape[0], generator=generator,
+                        device=theta.device)
+        return {"x": theta[:, 0] + TOY_NOISE_SD * z}
+
+    return _toy_run(pt.TorchModel(sim, ["theta"], name="user_toy"), mesh,
+                    sharded, seed)
+
+
+def family(mesh=None, sharded=SHARDS, seed=41):
+    """BASELINE config 5: the K = 3 ODE family (noise sd 0.3, K20b), the
+    observation of model 1 (``observed_ode_family``)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family()
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    mesh=mesh, sharded=sharded, fused_generations=G,
+                    device="cpu")
+    abc.new("sqlite://", msel.observed_ode_family(seed=0, true_model=1))
+    return abc
+
+
+def sir(mesh=None, sharded=SHARDS, seed=51):
+    """SIR (K20) with measurement noise in the simulator (sd 5) under a
+    p-norm."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import sir as tsir
+
+    abc = pt.ABCSMC(tsir.make_sir_model(noise_sd=5.0), tsir.default_prior(),
+                    pt.PNormDistance(p=2), population_size=POP,
+                    eps=pt.MedianEpsilon(), seed=seed, mesh=mesh,
+                    sharded=sharded, fused_generations=G, device="cpu")
+    abc.new("sqlite://", tsir.observed_data(seed=0))
+    return abc
+
+
+def birth_death(mesh=None, sharded=SHARDS, seed=61):
+    """Unsegmented tau leaping (K19): the birth-death process of BASELINE
+    config 3 without segments."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gillespie as tg
+
+    abc = pt.ABCSMC(tg.make_birth_death_model(), tg.birth_death_prior(),
+                    pt.PNormDistance(p=2), population_size=POP,
+                    eps=pt.MedianEpsilon(), seed=seed, mesh=mesh,
+                    sharded=sharded, fused_generations=G, device="cpu")
+    abc.new("sqlite://", tg.observed_birth_death(seed=0))
+    return abc
+
+
+def tractable_pair(mesh=None, sharded=SHARDS, seed=24):
+    """K = 2: the tractable pair (K4's mean-only kernel, noise sd 0.6 and
+    1.2), each model simulating every lane of a round."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _analytic = msel.tractable_pair()
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    mesh=mesh, sharded=sharded, fused_generations=G,
+                    device="cpu")
+    abc.new("sqlite://", {"x": TOY_X})
+    return abc
+
+
+def network_sir(mesh=None, sharded=SHARDS, seed=71):
+    """The zoo's segmented network SIR with measurement noise in the
+    simulator (sd 8) and early reject off: K20b network's range over every
+    segment."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import sir as tsir
+
+    abc = pt.ABCSMC(tsir.make_network_sir_model(noise_sd=8.0),
+                    tsir.network_sir_prior(), pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    mesh=mesh, sharded=sharded, fused_generations=G,
+                    early_reject=False, device="cpu")
+    abc.new("sqlite://", tsir.observed_network_sir(seed=0))
+    return abc
+
+
+def family_segments(mesh=None, sharded=SHARDS, seed=81):
+    """The zoo's segmented ODE family (K = 3, 4 segments, noise sd 0.3)
+    with early reject off: K20b's range entry over every segment."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import model_selection as msel
+
+    models, priors, _ts = msel.ode_family(segments=4)
+    abc = pt.ABCSMC(models, priors, pt.PNormDistance(p=2),
+                    population_size=POP, eps=pt.MedianEpsilon(), seed=seed,
+                    mesh=mesh, sharded=sharded, fused_generations=G,
+                    early_reject=False, device="cpu")
+    abc.new("sqlite://", msel.observed_ode_family(seed=0, segments=4))
+    return abc
+
+
 CONFIGS = {"gauss": gauss, "sparse": sparse, "adaptive": adaptive,
-           "pair": pair, "aggregate": aggregate, "toy": toy}
+           "pair": pair, "aggregate": aggregate, "toy": toy,
+           "user_toy": user_toy, "family": family, "sir": sir,
+           "birth_death": birth_death, "tractable_pair": tractable_pair,
+           "network_sir": network_sir, "family_segments": family_segments}
 
 
 def history_arrays(h, K: int = 1) -> dict:
