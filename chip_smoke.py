@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch / CUDA port (pyabc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--log FILE]
-    python3 chip_smoke.py --k2-turns PARENT_DIR
+    python3 chip_smoke.py --turns k2|lv PARENT_DIR
 
 (``--log FILE`` also appends every line to FILE, for runs whose output is
-cut. ``--k2-turns`` measures only K2 against another tree's (say the
-parent commit's), whose ``pyabc_tpu_torch`` lies in PARENT_DIR: register
-counts and its LV config 2 time in turns. ``--mesh-rank RANK WIDTH RDV OUT
+cut. ``--turns`` times one thing in turns against another tree's (say the
+parent commit's), whose ``pyabc_tpu_torch`` lies in PARENT_DIR: ``k2``
+K2's register counts and its LV config 2 time, ``lv`` LV config 2's
+accepted particles / s, three runs a process. ``--mesh-rank RANK WIDTH RDV OUT
 DEVICE LEG...`` is one rank of a mesh leg, started by the script itself.)
 Phases, one or more lines each:
 
@@ -17,7 +18,9 @@ Phases, one or more lines each:
    PyTorch version on the card, at the main-path shapes of BASELINE config
    2 (B = 4096 lanes, n_cap = 1024, d = 4, S = 40, the record ring 8192
    rows, a chunk of G = 8 generations) and, for K2 and K7-K11, at a second
-   shape (d = 1, n_cap = 64, an odd valid count); then K20 (SIR), K21a
+   shape (d = 1, n_cap = 64, an odd valid count); K7's normalization and
+   quantile epsilon in each of their modes (block, cluster, passes) at n
+   64 to 131073; then K20 (SIR), K21a
    (noise kernel + stochastic accept), K21b (pdf norm + temperature) and
    K6's record mode at the shapes of BASELINE config 4 (B = 4096, n_cap =
    1024, d = 2, S = 15, the ring 8192 rows) and at a small odd shape; then
@@ -797,7 +800,8 @@ def kernel_checks(dev) -> dict:
     logw = torch.where(k_mask, lw_k[:n], torch.full_like(lw_k[:n],
                                                           -math.inf))
     results["propose"] = k2_checks(dev, params, prior_arrays, B)
-    results["normalize_quantile"] = k7_checks(dev, logw, k_mask, d_k[:n])
+    results.update(k7_checks(dev, logw, k_mask, d_k[:n]))
+    k7_mode_checks(dev)
     results["mvn_fit"] = k8_checks(dev, res_theta, k_mask, logw)
     results["scale_reduce"] = k9_checks(dev, ring, ring_valid, x0, res_ss)
     results["pack_fetch"] = k10_checks(dev, theta, d_k, lw_k, ss_p, n)
@@ -952,11 +956,15 @@ def compare_quantile(points, weights, alpha) -> bool:
 
 
 def k7_checks(dev, logw, k_mask, dist) -> dict:
+    """K7's two entries at the main-path shape (n_cap 1024, 1000 kept), as
+    the generation step runs them: the normalization, then the weighted
+    median epsilon (LV config 2's MedianEpsilon, multiplier 1) on the
+    distances and the kept-row mask -> their rows."""
     import torch
 
     from pyabc_tpu_torch.kernels import (normalize_log_weights_plain,
                                          normalize_quantile,
-                                         weighted_quantile_plain)
+                                         quantile_epsilon_plain)
 
     n = logw.shape[0]
     w_k = normalize_quantile.normalize(logw, k_mask)
@@ -966,24 +974,149 @@ def k7_checks(dev, logw, k_mask, dist) -> dict:
     pts = torch.where(k_mask, dist, torch.full_like(dist, math.inf))
     same = [compare_quantile(pts, wts, a) for a in (0.5, 0.1, 0.9)
             for wts in (w_p, k_mask.float())]
+    eps_same = [compare_epsilon(dist, k_mask, w_p, weighted, a, m)
+                for weighted in (True, False) for a in (0.5, 0.9)
+                for m in (1.0, 0.8)]
     log(f"K7 normalize_quantile (n={n}): max_rel_err(w)={w_err:.3e} "
-        f"max_abs_err(w)={w_abs:.3e} quantile equal={same}")
+        f"max_abs_err(w)={w_abs:.3e} quantile equal={same} epsilon "
+        f"equal={eps_same}")
     check(w_err <= 1e-6, "K7 weights outside rel 1e-6")
-    # the generation step runs one normalization and one quantile
-    nbytes = n * (4 + 1 + 4) + n * 8 + 4
 
-    def both():
-        normalize_quantile.normalize(logw, k_mask)
-        normalize_quantile.quantile(pts, w_p, 0.5)
+    def eps():
+        return normalize_quantile.quantile_epsilon(dist, k_mask, w_p, True,
+                                                   0.5, 1.0)
 
-    def plain():
-        normalize_log_weights_plain(logw, k_mask)
-        weighted_quantile_plain(pts, w_p, 0.5)
-
+    # the epsilon row's error, on the arguments it is timed with (NaN
+    # against NaN, or inf against inf, is no error)
+    e_k = float(eps())
+    e_p = float(quantile_epsilon_plain(dist, k_mask, w_p, True, 0.5, 1.0))
+    e_err = (0.0 if e_k == e_p or (math.isnan(e_k) and math.isnan(e_p))
+             else abs(e_k - e_p) if math.isfinite(e_k - e_p) else math.inf)
+    log(f"K7 quantile epsilon (n={n}, weighted median): kernel {e_k!r} "
+        f"plain {e_p!r} abs err {e_err!r}")
     masked = torch.where(k_mask, logw, torch.full_like(logw, -math.inf))
-    return dict(err=w_abs, call_ms=time_ms(both, 50), ms=graph_ms(both),
-                plain_ms=time_ms(plain, 20), bound=bound(nbytes, 6 * n),
-                library_ms=time_ms(lambda: torch.softmax(masked, 0), 50))
+    return {
+        "normalize_quantile": dict(
+            err=w_abs,
+            call_ms=time_ms(lambda: normalize_quantile.normalize(
+                logw, k_mask), 50),
+            ms=graph_ms(lambda: normalize_quantile.normalize(logw, k_mask)),
+            plain_ms=time_ms(lambda: normalize_log_weights_plain(
+                logw, k_mask), 20),
+            # log_w and mask read, w written; a max, an exp, a sum and a
+            # divide a row
+            bound=bound(n * (4 + 1 + 4), 4 * n),
+            # torch.softmax of the masked log weights, timed as the kernel
+            # is (CUDA graph replays) and, as before PR 23, eagerly
+            library_ms=graph_ms(lambda: torch.softmax(masked, 0)),
+            library_eager_ms=time_ms(lambda: torch.softmax(masked, 0), 50)),
+        "normalize_quantile:epsilon": dict(
+            err=e_err, call_ms=time_ms(eps, 50), ms=graph_ms(eps),
+            plain_ms=time_ms(lambda: quantile_epsilon_plain(
+                dist, k_mask, w_p, True, 0.5, 1.0), 20),
+            # d, mask and w read, epsilon written; four 8-bit passes a row
+            bound=bound(n * (4 + 1 + 4) + 4, 4 * n), library_ms=None)}
+
+
+def compare_epsilon(d, mask, w, weighted, alpha, multiplier) -> bool:
+    """K7's quantile epsilon against its plain version: bit-equal (NaN
+    where NaN) on counts and, with float weights, wherever alpha is clear
+    of a step; the same bits on a second launch."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (normalize_quantile,
+                                         quantile_epsilon_plain)
+
+    got = normalize_quantile.quantile_epsilon(d, mask, w, weighted, alpha,
+                                              multiplier)
+    again = normalize_quantile.quantile_epsilon(d, mask, w, weighted, alpha,
+                                                multiplier)
+    ref = quantile_epsilon_plain(d, mask, w, weighted, alpha, multiplier)
+    pts = torch.where(mask, d, torch.full_like(d, math.inf))
+    wts = torch.where(mask, w, torch.zeros_like(w)) if weighted \
+        else mask.float()
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"K7 epsilon changed its bits from launch to launch (n "
+          f"{d.shape[0]}, alpha {alpha})")
+    equal = bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))
+                 or (got.isnan() and ref.isnan()))
+    # exact on counts; with float weights, wherever alpha is clear of a
+    # step of the CDF
+    check(equal or (weighted and not off_step(pts, wts, alpha)),
+          f"K7 epsilon {float(got)} != plain {float(ref)} (n {d.shape[0]}, "
+          f"alpha {alpha}, weighted {weighted})")
+    return equal
+
+
+#: K7's sizes: the block mode's edges, the cluster mode's (16385 and
+#: BASELINE config 3's 131072) and the passes mode above
+K7_SIZES = (64, 1000, 1024, 5000, 16384, 16385, 131072, 131073)
+
+
+def k7_mode_checks(dev) -> None:
+    """K7's block, cluster and passes modes against their plain versions
+    at every size of K7_SIZES: the normalization within rel 1e-6 and the
+    same bits launch to launch; the quantile epsilon bit-equal wherever
+    alpha is clear of a step (compare_epsilon) with a prefix, K24b's
+    shard-blocked and an empty mask, ties and NaN distances, weighted and
+    on counts (alpha 1.0 too); no weight at all gives the largest point;
+    each launch counts in its size's mode."""
+    import torch
+
+    from pyabc_tpu_torch.kernels import (normalize_log_weights_plain,
+                                         normalize_quantile,
+                                         weighted_quantile_plain)
+    from pyabc_tpu_torch.kernels.normalize_quantile import mode_of
+
+    g = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    seen = {}
+    for n in K7_SIZES:
+        g.manual_seed(n)
+        before = dict(normalize_quantile.mode_launches)
+        lw = torch.randn(n, generator=g, device=dev) * 5 - 40
+        idx = torch.arange(n, device=dev)
+        cap = -(-n // 8)
+        masks = {"prefix": idx < (4 * n) // 5,
+                 "shard-blocked": (idx % cap) < (7 * cap) // 10,
+                 "empty": torch.zeros(n, dtype=torch.bool, device=dev)}
+        d = torch.rand(n, generator=g, device=dev) * 4
+        d_nan = d.clone()
+        d_nan[::97] = math.nan
+        rel, equal, launches = 0.0, 0, 0
+        for mask in masks.values():
+            w_k = normalize_quantile.normalize(lw, mask)
+            w_again = normalize_quantile.normalize(lw, mask)
+            w_p = normalize_log_weights_plain(lw, mask)
+            launches += 2
+            check(torch.equal(w_k, w_again), f"K7 weights changed their "
+                  f"bits from launch to launch (n {n})")
+            check(within(w_k, w_p, 1e-12, 1e-6),
+                  f"K7 weights outside rel 1e-6 (n {n})")
+            rel = max(rel, float(((w_k - w_p).abs()
+                                  / w_p.abs().clamp_min(1e-30)).max()))
+            for dist in (d, d.mul(2).floor(), d_nan):
+                for weighted, alpha in ((True, 0.5), (True, 0.9),
+                                        (False, 0.1), (False, 1.0)):
+                    equal += compare_epsilon(dist, mask, w_p, weighted,
+                                             alpha, 0.8)
+                    launches += 2
+        zero = torch.zeros(n, device=dev)
+        got = normalize_quantile.quantile(d, zero, 0.5)
+        launches += 1
+        check(float(got) == float(weighted_quantile_plain(d, zero, 0.5))
+              == float(d.max()), f"K7 with no weight is not the largest "
+              f"point (n {n})")
+        torch.cuda.synchronize()
+        mode = mode_of(n)
+        for k in ("block", "cluster", "passes"):
+            check(normalize_quantile.mode_launches[k] - before[k]
+                  == (launches if k == mode else 0),
+                  f"K7 launches at n {n} not all in the {mode} mode")
+        seen[n] = (mode, rel, equal)
+    log(f"K7 modes (n: mode, weights max rel err, epsilons bit-equal of 36 "
+        f"cases): {seen} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def compare_fit(got, ref) -> tuple[float, float]:
@@ -2073,6 +2206,7 @@ PLAIN_VERSIONS = (
     ("pyabc_tpu_torch.kernels.normalize_quantile",
      "normalize_log_weights_plain"),
     ("pyabc_tpu_torch.kernels.normalize_quantile", "weighted_quantile_plain"),
+    ("pyabc_tpu_torch.kernels.normalize_quantile", "quantile_epsilon_plain"),
     ("pyabc_tpu_torch.kernels.mvn_fit", "mvn_fit_plain"),
     ("pyabc_tpu_torch.kernels.mvn_fit", "device_chol_guarded"),
     ("pyabc_tpu_torch.kernels.scale_reduce", "scale_reduce_plain"),
@@ -2491,7 +2625,8 @@ def lotka_volterra(dev, adaptive: bool, gens: int):
     import torch
 
     import pyabc_tpu_torch as pt
-    from pyabc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from pyabc_tpu_torch.kernels import (launch_counts, mode_launch_counts,
+                                         reset_launch_counts)
     from pyabc_tpu_torch.models import lotka_volterra as lv
 
     label = "LV config 2" if adaptive else "LV fixed p-norm"
@@ -2508,7 +2643,7 @@ def lotka_volterra(dev, adaptive: bool, gens: int):
         h = abc.run(max_nr_populations=gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = {**launch_counts(), **mode_launch_counts()}
     pops = h.get_all_populations()[1:]
     eps = [float(e) for e in pops["epsilon"]]
     n_gen = len(eps)
@@ -2547,6 +2682,16 @@ def lotka_volterra(dev, adaptive: bool, gens: int):
           "a kernel of the path was never launched")
     check(all(counts[k] == 0 for k in NOISY_KERNELS),
           "a noisy-ABC kernel ran on the LV path")
+    # K7: a normalization and a quantile epsilon a generation (and the
+    # calibration's epsilon), all in the block mode at n_cap 1024
+    k7_norm = counts["normalize_quantile:normalize"]
+    k7_eps = counts["normalize_quantile:epsilon"]
+    check(k7_eps == n_gen + 1 and k7_norm == n_gen
+          and counts["normalize_quantile:block"]
+          == counts["normalize_quantile"],
+          f"K7 did not launch twice a generation in its block mode "
+          f"({k7_norm} normalizations, {k7_eps} epsilons, "
+          f"{counts['normalize_quantile']} launches, {n_gen} generations)")
     check(all(math.isfinite(v) for v in means.values()),
           "non-finite LV posterior mean")
     for t in range(n_gen):
@@ -2576,8 +2721,37 @@ def config2(where):
 
 
 def profile_lv(dev) -> None:
-    """One more LV config 2 run under torch.profiler."""
-    profile_run("LV config 2", config2(dev), 10)
+    """One more LV config 2 run under torch.profiler: K7 is its block
+    kernels alone, a normalization and a quantile epsilon a generation (and
+    the calibration's epsilon), and none of its passes mode (select.cuh's
+    histogram and scan launches are K9's, one of each a pass)."""
+    gens = 10
+    by_name = profile_run("LV config 2", config2(dev), gens)
+    if by_name is None:
+        return
+
+    def launches(part: str) -> int:
+        return sum(cnt for name, (_t, cnt) in by_name.items() if part in name)
+
+    # K7 reaches select.cuh only in its passes mode, which launches its
+    # masking and multiply kernels around it
+    k7 = {part: launches(part) for part in (
+        "normalize_block_kernel", "quantile_block_kernel",
+        "normalize_cluster_kernel", "quantile_cluster_kernel",
+        "normalize_passes_kernel", "masked_points_kernel",
+        "multiply_kernel", "select_hist_kernel<true>", "select_hist_kernel",
+        "select_scan_kernel")}
+    log(f"LV config 2 under torch.profiler: K7's kernels and select.cuh's "
+        f"{k7}")
+    check(k7["normalize_block_kernel"] == gens
+          and k7["quantile_block_kernel"] == gens + 1
+          and all(k7[k] == 0 for k in (
+              "normalize_cluster_kernel", "quantile_cluster_kernel",
+              "normalize_passes_kernel", "masked_points_kernel",
+              "multiply_kernel", "select_hist_kernel<true>"))
+          and k7["select_scan_kernel"] == k7["select_hist_kernel"],
+          "LV config 2's profile: K7 is not two block launches a "
+          "generation, or select.cuh ran for it")
 
 
 def profile_run(label: str, abc, gens: int,
@@ -12157,9 +12331,14 @@ def main() -> int:
                if k.name == "network_sir" else ad_counts
                if k.name in PR7_KERNELS else zms_counts
                if k.name in ZMS_KERNELS else counts)
+        # K7's row is its normalization; the quantile epsilon has its own
+        # (its launches_by_path count both entries)
+        key = (k.name + ":normalize" if k.name == "normalize_quantile"
+               else k.name)
+        launches = own[key]
         entry = {
             "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": own[k.name],
+            "replaces": k.replaces, "launches": launches,
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
@@ -12239,7 +12418,7 @@ def main() -> int:
                       "transform_call_ms", "gradient_err", "loss_rel",
                       "seed_ms", "seed_call_ms", "seed_bound_ms",
                       "seed_plain_ms", "launches_seed_fit", "rel_err", "rel",
-                      "ms_width_4"):
+                      "ms_width_4", "library_eager_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         if k.name in MODEL_MODES:
@@ -12306,6 +12485,11 @@ def main() -> int:
                  "pyabc_tpu_torch/csrc/segment_round.cu",
                  "pyabc_tpu/ops/fit.py:240",
                  ls_modes["segment_round:linear"]))
+    # K7's quantile epsilon, its launches from LV config 2
+    rows.append(("normalize_quantile:epsilon",
+                 "pyabc_tpu_torch/csrc/normalize_quantile.cu",
+                 "pyabc_tpu/inference/util.py:1866",
+                 counts["normalize_quantile:epsilon"]))
     # K24's modes of K6, K10 and K22: K24a and K24c from the LV sharded
     # leg, K24d from the LV adaptive sharded leg (its only path)
     rows += [("compact_round:shards", "pyabc_tpu_torch/csrc/compact_round.cu",
@@ -12523,11 +12707,8 @@ def k2_time(root: str) -> dict:
     return out
 
 
-def k2_turns(parent: str) -> int:
-    """K2 against another tree's on one card: each tree's propose.cu
-    register counts (``nvcc -Xptxas -v``), then K2's LV config 2 time in
-    turns (parent, this tree, this tree, parent), each a process of its
-    own (``--k2-time``). ``parent`` holds the parent's pyabc_tpu_torch."""
+def k2_registers(parent: str) -> None:
+    """Each tree's propose.cu register counts (``nvcc -Xptxas -v``)."""
     import re
 
     for label, root in (("this tree", "."), ("parent", parent)):
@@ -12547,8 +12728,44 @@ def k2_turns(parent: str) -> int:
             if m and name:
                 log(f"registers ({label}) {name}: {m.group(1)}")
                 name = None
+
+
+def lv_time(root: str) -> dict:
+    """LV config 2's accepted particles / s (pop 1000, 10 generations, seed
+    0, the kernels built) three times in one process, for the package under
+    ``root``."""
+    sys.path.insert(0, root)
+    import torch
+
+    from pyabc_tpu_torch.kernels import _build
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    rates = []
+    for _ in range(3):
+        abc = config2(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = abc.run(max_nr_populations=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates.append(POP * (len(h.get_all_populations()) - 1) / wall)
+    return {"root": root, "accepted_particles_per_s": rates}
+
+
+#: what ``--turns`` times, one process a tree
+TIMERS = {"k2": k2_time, "lv": lv_time}
+
+
+def turns(what: str, parent: str) -> int:
+    """``TIMERS[what]`` against another tree's on one card, in turns
+    (parent, this tree, this tree, parent), each a process of its own
+    (``--time WHAT ROOT``); for K2 each tree's register counts first.
+    ``parent`` holds the parent's pyabc_tpu_torch."""
+    if what == "k2":
+        k2_registers(parent)
     for root in (parent, ".", ".", parent):
-        r = subprocess.run([sys.executable, __file__, "--k2-time", root],
+        r = subprocess.run([sys.executable, __file__, "--time", what, root],
                            capture_output=True, text=True)
         log(r.stdout.strip() or r.stderr[-2000:])
     return 0
@@ -12557,9 +12774,9 @@ def k2_turns(parent: str) -> int:
 if __name__ == "__main__":
     if "--log" in sys.argv:
         LOG_FILE = sys.argv[sys.argv.index("--log") + 1]
-    if "--k2-time" in sys.argv:
-        print(json.dumps(k2_time(sys.argv[sys.argv.index("--k2-time")
-                                          + 1])))
+    if "--time" in sys.argv:
+        i = sys.argv.index("--time")
+        print(json.dumps(TIMERS[sys.argv[i + 1]](sys.argv[i + 2])))
         sys.exit(0)
     if "--mesh-rank" in sys.argv:
         i = sys.argv.index("--mesh-rank")
@@ -12568,6 +12785,7 @@ if __name__ == "__main__":
                                 sys.argv[i + 5], sys.argv[i + 6:]))
     if "--cpu-refs" in sys.argv:
         sys.exit(cpu_refs_main(sys.argv[sys.argv.index("--cpu-refs") + 1]))
-    if "--k2-turns" in sys.argv:
-        sys.exit(k2_turns(sys.argv[sys.argv.index("--k2-turns") + 1]))
+    if "--turns" in sys.argv:
+        i = sys.argv.index("--turns")
+        sys.exit(turns(sys.argv[i + 1], sys.argv[i + 2]))
     sys.exit(main())

@@ -37,8 +37,13 @@
 // so nothing stacks the generations first.
 //
 // Bound on an H100: bytes (each kept row read once, the narrowed rows
-// written once). One thread per output element, neighbouring threads on
-// neighbouring elements of a row.
+// written once). A thread, or a group of gs threads (a power of two up to
+// 32, by the row's width), owns a row: the block's rows are found once
+// each (merged_row, 32-bit arithmetic), theta or the sum stats are read in
+// 16-byte loads where d * 4 and the pointers allow, and the narrowed rows
+// are staged in shared memory at the output's offset modulo 16, so the
+// block's contiguous output goes out as coalesced 16-byte stores (a row
+// wider than the stage is written in place instead).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -48,6 +53,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGen = 32;
+constexpr int kStageBytes = 16384;  // a block's staged output
 
 struct GenRows {
   const float* a[kMaxGen];  // theta (rows) or sum stats (cast)
@@ -110,61 +116,117 @@ __device__ __forceinline__ T narrow_down(float x, float step) {
   return narrow<T>(x * (x >= 0.f ? 1.f - step : 1.f + step));
 }
 
-template <typename T>
+// Copy a block's staged output s to dst (s and dst agree modulo 16): the
+// unaligned head and tail bytes one by one, the rest as 16-byte stores.
+__device__ __forceinline__ void store_staged(const unsigned char* s,
+                                             unsigned char* dst, int nbytes) {
+  const int head = min(nbytes, (int)((16 - ((uintptr_t)dst & 15)) & 15));
+  const int body = (nbytes - head) >> 4;
+  for (int k = threadIdx.x; k < head; k += blockDim.x) dst[k] = s[k];
+  const uint4* sv = reinterpret_cast<const uint4*>(s + head);
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  for (int k = threadIdx.x; k < body; k += blockDim.x) dv[k] = sv[k];
+  for (int k = head + (body << 4) + threadIdx.x; k < nbytes; k += blockDim.x)
+    dst[k] = s[k];
+}
+
+// How a launch lays out its rows: gs = 1 << log_gs threads a row, rows a
+// block, 16-byte loads of the floats (vec), staged output (staged).
+struct Layout {
+  int log_gs;
+  int rows;
+  int vec;
+  int staged;
+};
+
+// rows (kPack): out[g, i, :] = narrow(a_g[src, 0:d]), narrow_down(dist),
+// narrow(logw), w = d + 2; cast: out[g, i, :] = narrow(a_g[src, 0:d]).
+// Block (x, g) holds rows x * rows .. of generation g.
+template <typename T, bool kPack>
 __global__ void __launch_bounds__(kThreads)
-pack_rows_kernel(GenRows src, Merge mg, int n_gen, int n_keep, int d,
-                 float step, T* __restrict__ out) {
-  const int w = d + 2;
-  const long long per_gen = (long long)n_keep * w;
-  const long long total = per_gen * n_gen;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(idx / per_gen);
-    const long long r = idx - g * per_gen;
-    const int i = (int)(r / w), k = (int)(r - (long long)i * w);
-    const int src_i = merged_row(mg, g, i);
-    T v;
-    if (k < d) {
-      v = narrow<T>(src.a[g][(size_t)src_i * d + k]);
-    } else if (k == d) {
-      v = narrow_down<T>(src.dist[g][src_i], step);
-    } else {
-      v = narrow<T>(src.logw[g][src_i]);
+rows_kernel(GenRows src, Merge mg, int n_keep, int d, Layout lay, float step,
+            T* __restrict__ out) {
+  __shared__ __align__(16) unsigned char s_raw[kStageBytes + 16];
+  __shared__ int s_src[kThreads];
+  const int g = blockIdx.y;
+  const int w = kPack ? d + 2 : d;
+  const int r0 = blockIdx.x * lay.rows;
+  const int rows = min(lay.rows, n_keep - r0);
+  T* base = out + ((size_t)g * n_keep + r0) * w;
+  const int mis = (int)((uintptr_t)base & 15);
+  T* stage = lay.staged ? reinterpret_cast<T*>(s_raw + mis) : base;
+  if (lay.log_gs > 0) {  // a group a row: its source row found once
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      s_src[r] = merged_row(mg, g, r0 + r);
+    __syncthreads();
+  }
+  const int gs = 1 << lay.log_gs;
+  const int j = threadIdx.x & (gs - 1);
+  const float* a_g = src.a[g];
+  for (int r = threadIdx.x >> lay.log_gs; r < rows;
+       r += kThreads >> lay.log_gs) {
+    const int si = lay.log_gs > 0 ? s_src[r] : merged_row(mg, g, r0 + r);
+    const float* a = a_g + (size_t)si * d;
+    T* o = stage + (size_t)r * w;
+    for (int c = 4 * j; c < d; c += 4 * gs) {
+      if (lay.vec) {
+        const float4 v = *reinterpret_cast<const float4*>(a + c);
+        o[c] = narrow<T>(v.x);
+        o[c + 1] = narrow<T>(v.y);
+        o[c + 2] = narrow<T>(v.z);
+        o[c + 3] = narrow<T>(v.w);
+      } else {
+        for (int q = c; q < min(d, c + 4); ++q) o[q] = narrow<T>(a[q]);
+      }
     }
-    out[idx] = v;
+    if (kPack && j == 0) {
+      o[d] = narrow_down<T>(src.dist[g][si], step);
+      o[d + 1] = narrow<T>(src.logw[g][si]);
+    }
   }
+  if (!lay.staged) return;
+  __syncthreads();
+  store_staged(s_raw + mis, reinterpret_cast<unsigned char*>(base),
+               rows * w * (int)sizeof(T));
 }
 
-template <typename T>
+// models: a thread a row, out[g, i] = (int8) m_g[src].
 __global__ void __launch_bounds__(kThreads)
-cast_rows_kernel(GenRows src, Merge mg, int n_gen, int n_keep, int S,
-                 T* __restrict__ out) {
-  const long long per_gen = (long long)n_keep * S;
-  const long long total = per_gen * n_gen;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(idx / per_gen);
-    const long long r = idx - g * per_gen;
-    const int i = (int)(r / S), k = (int)(r - (long long)i * S);
-    out[idx] = narrow<T>(src.a[g][(size_t)merged_row(mg, g, i) * S + k]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-pack_models_kernel(GenModels src, Merge mg, int n_gen, int n_keep,
+pack_models_kernel(GenModels src, Merge mg, int n_keep,
                    int8_t* __restrict__ out) {
-  const long long total = (long long)n_keep * n_gen;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int g = (int)(idx / n_keep);
-    const int i = (int)(idx - (long long)g * n_keep);
-    out[idx] = (int8_t)src.m[g][merged_row(mg, g, i)];
-  }
+  __shared__ __align__(16) unsigned char s_raw[kThreads + 16];
+  const int g = blockIdx.y;
+  const int r0 = blockIdx.x * kThreads;
+  const int rows = min(kThreads, n_keep - r0);
+  int8_t* base = out + (size_t)g * n_keep + r0;
+  const int mis = (int)((uintptr_t)base & 15);
+  if ((int)threadIdx.x < rows)
+    s_raw[mis + threadIdx.x] =
+        (unsigned char)(int8_t)src.m[g][merged_row(mg, g, r0 + threadIdx.x)];
+  __syncthreads();
+  store_staged(s_raw + mis, reinterpret_cast<unsigned char*>(base), rows);
 }
 
-int grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return (int)(blocks < 4096 ? blocks : 4096);
+// The layout of rows of width w (d floats read a row) in T of `size` bytes.
+Layout layout_for(int d, int w, int size, bool vec) {
+  Layout lay{0, kThreads, vec ? 1 : 0, 1};
+  const int chunks = (d + 3) / 4;  // a thread's reads go 4 columns at a time
+  while ((1 << lay.log_gs) < chunks && lay.log_gs < 5) ++lay.log_gs;
+  lay.rows = kThreads >> lay.log_gs;
+  const int fit = kStageBytes / max(1, w * size);
+  if (fit < 1) {
+    lay.rows = 1;
+    lay.staged = 0;
+  } else {
+    lay.rows = min(lay.rows, fit);
+  }
+  return lay;
+}
+
+bool aligned16(const float* const* p, int n_gen) {
+  for (int g = 0; g < n_gen; ++g)
+    if (((uintptr_t)p[g] & 15) != 0) return false;
+  return true;
 }
 
 bool fill(GenRows* t, int n_gen, const void* const* a, const void* const* dist,
@@ -188,6 +250,34 @@ bool fill_merge(Merge* mg, int n_gen, const int* merge_n, int shards,
   return merge_n == nullptr || (shards > 0 && cap_loc > 0);
 }
 
+template <typename T, bool kPack>
+int launch_rows(const GenRows& src, const Merge& mg, int n_gen, int n_keep,
+                int d, float step, void* out, cudaStream_t stream) {
+  const int w = kPack ? d + 2 : d;
+  const Layout lay = layout_for(d, w, (int)sizeof(T),
+                                d % 4 == 0 && aligned16(src.a, n_gen));
+  const dim3 grid((unsigned)((n_keep + lay.rows - 1) / lay.rows),
+                  (unsigned)n_gen);
+  rows_kernel<T, kPack><<<grid, kThreads, 0, stream>>>(
+      src, mg, n_keep, d, lay, step, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPack>
+int launch_dtype(int dtype, const GenRows& src, const Merge& mg, int n_gen,
+                 int n_keep, int d, void* out, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_rows<float, kPack>(src, mg, n_gen, n_keep, d, 0.f, out,
+                                     stream);
+  if (dtype == 1)
+    return launch_rows<__half, kPack>(src, mg, n_gen, n_keep, d, 0x1p-10f,
+                                      out, stream);
+  if (dtype == 2)
+    return launch_rows<__nv_bfloat16, kPack>(src, mg, n_gen, n_keep, d,
+                                             0x1p-7f, out, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16. theta/dist/logw are host arrays
@@ -204,23 +294,9 @@ extern "C" int pyabc_pack_rows(int n_gen, const void* const* theta,
   if (!fill(&src, n_gen, theta, dist, logw) || n_keep < 0 || d < 0 ||
       !fill_merge(&mg, n_gen, merge_n, shards, cap_loc))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)n_gen * n_keep * (d + 2);
-  if (total == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int grid = grid_for(total);
-  if (dtype == 0) {
-    pack_rows_kernel<float><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, d, 0.f, static_cast<float*>(out));
-  } else if (dtype == 1) {
-    pack_rows_kernel<__half><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, d, 0x1p-10f, static_cast<__half*>(out));
-  } else if (dtype == 2) {
-    pack_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, d, 0x1p-7f, static_cast<__nv_bfloat16*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_keep == 0) return 0;
+  return launch_dtype<true>(dtype, src, mg, n_gen, n_keep, d, out,
+                            static_cast<cudaStream_t>(stream_ptr));
 }
 
 extern "C" int pyabc_cast_rows(int n_gen, const void* const* src_rows,
@@ -232,23 +308,9 @@ extern "C" int pyabc_cast_rows(int n_gen, const void* const* src_rows,
   if (!fill(&src, n_gen, src_rows, nullptr, nullptr) || n_keep < 0 ||
       S < 0 || !fill_merge(&mg, n_gen, merge_n, shards, cap_loc))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)n_gen * n_keep * S;
-  if (total == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int grid = grid_for(total);
-  if (dtype == 0) {
-    cast_rows_kernel<float><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, S, static_cast<float*>(out));
-  } else if (dtype == 1) {
-    cast_rows_kernel<__half><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, S, static_cast<__half*>(out));
-  } else if (dtype == 2) {
-    cast_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        src, mg, n_gen, n_keep, S, static_cast<__nv_bfloat16*>(out));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_keep == 0 || S == 0) return 0;
+  return launch_dtype<false>(dtype, src, mg, n_gen, n_keep, S, out,
+                             static_cast<cudaStream_t>(stream_ptr));
 }
 
 // models: m is a host array of n_gen device pointers to int32 rows; out
@@ -262,10 +324,11 @@ extern "C" int pyabc_pack_models(int n_gen, const void* const* m, int n_keep,
     return static_cast<int>(cudaErrorInvalidValue);
   GenModels src;
   for (int g = 0; g < n_gen; ++g) src.m[g] = static_cast<const int*>(m[g]);
-  const long long total = (long long)n_gen * n_keep;
-  if (total == 0) return 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  pack_models_kernel<<<grid_for(total), kThreads, 0, stream>>>(
-      src, mg, n_gen, n_keep, static_cast<int8_t*>(out));
+  if (n_keep == 0) return 0;
+  const dim3 grid((unsigned)((n_keep + kThreads - 1) / kThreads),
+                  (unsigned)n_gen);
+  pack_models_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
+                                              stream_ptr)>>>(
+      src, mg, n_keep, static_cast<int8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

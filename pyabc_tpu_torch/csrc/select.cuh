@@ -1,5 +1,7 @@
-// Radix selection by 256-bin histograms, shared by K7 (the weighted
-// quantile) and K9 (the medians of the adaptive scales).
+// Radix selection by 256-bin histograms, shared by K9 (the medians of the
+// adaptive scales) and K7's passes mode (the weighted quantile above 131072
+// rows; below that K7 selects inside one block or one thread-block
+// cluster, csrc/normalize_quantile.cu).
 //
 // Each float is mapped to the order-preserving uint32 image (sign bit
 // flipped for positives, all bits for negatives; NaN first made the

@@ -222,7 +222,7 @@ from ..ops.scale_reduce import init_moments
 from ..ops.segment import uniform_protocol_reason
 from ..kernels.mesh_pack import mesh_pack, mesh_unpack
 from ..ops.shard import rank_block, shard_quota_host
-from ..ops.stats import normalize_log_weights, weighted_quantile
+from ..ops.stats import normalize_log_weights, quantile_epsilon
 from ..sumstat.base import expand_rows, identity_accept
 from ..transition.local_transition import LocalTransition
 from ..utils import pow2_bucket
@@ -238,16 +238,6 @@ LEARNED_KERNELS = {"linear": (linear_accept, transform_rows),
                    "mlp": (mlp_accept, mlp_transform_rows),
                    "gp": (gp_accept, gp_transform_rows),
                    "identity": (identity_accept, expand_rows)}
-
-
-def quantile_epsilon(d, k_mask, w_norm, weighted: bool, alpha: float,
-                     multiplier: float) -> torch.Tensor:
-    """The next epsilon from the kept rows' distances: their (weighted)
-    alpha-quantile times ``multiplier`` (K7)."""
-    pts = torch.where(k_mask, d, torch.full_like(d, math.inf))
-    wts = (torch.where(k_mask, w_norm, torch.zeros_like(w_norm)) if weighted
-           else k_mask.to(torch.float32))
-    return weighted_quantile(pts, wts, alpha) * multiplier
 
 
 @dataclass
@@ -1199,9 +1189,7 @@ class DeviceContext:
                                          params=dist_w0)
         eps0 = None
         if calib_eps:
-            eps0 = weighted_quantile(
-                torch.where(mask, d0, torch.full_like(d0, math.inf)),
-                mask.to(torch.float32), alpha) * multiplier
+            eps0 = quantile_epsilon(d0, mask, None, False, alpha, multiplier)
         return w0, eps0, run
 
     def calibrate_stochastic(self, n_cal: int, var: torch.Tensor):

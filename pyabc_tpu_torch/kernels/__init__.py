@@ -46,7 +46,8 @@ from .mvn_logpdf import mvn_mixture_logpdf, mvn_mixture_logpdf_plain
 from .ode_family import (ode_family_segments, ode_family_segments_plain,
                          ode_family_simulate, ode_family_simulate_plain)
 from .normalize_quantile import (normalize_log_weights_plain,
-                                 normalize_quantile, weighted_quantile_plain)
+                                 normalize_quantile, quantile_epsilon_plain,
+                                 weighted_quantile_plain)
 from .pack_fetch import cast_rows_plain, pack_fetch, pack_rows_plain
 from .pnorm_accept import pnorm_accept_weight, pnorm_accept_weight_plain
 from .propose import (propose, propose_local, propose_local_plain,
@@ -137,6 +138,7 @@ __all__ = [
     "mvn_mixture_logpdf", "mvn_mixture_logpdf_plain", "network_sir",
     "network_sir_plain",
     "normalize_log_weights_plain", "normalize_quantile",
+    "quantile_epsilon_plain",
     "ode_family_segments", "ode_family_segments_plain",
     "ode_family_simulate", "ode_family_simulate_plain", "pack_fetch",
     "pack_rows_plain", "pnorm_accept_weight", "pnorm_accept_weight_plain",

@@ -76,7 +76,7 @@ SIGNATURES = {
         _P, _P, _U, _U, _U, _U, _U, _U, _U, _P, _I, _P, _P, _P, _P, _P],
     "pyabc_philox_blocks": [_P, _I, _U, _U, _P, _P, _P, _P],
     "pyabc_normalize_log_weights": [_P, _P, _I, _P, _P],
-    "pyabc_weighted_quantile": [_P, _P, _I, _F, _P, _P, _P],
+    "pyabc_quantile_epsilon": [_P, _P, _P, _I, _F, _F, _P, _P, _P],
     "pyabc_mvn_fit": [
         _P, _P, _I, _I, _I, _F, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _P],

@@ -3727,3 +3727,175 @@ def test_lane_base_simulator_kernels(dev, name):
     assert wrapper.mode_launches["lane_base"] == before + 1
     assert torch.equal(half.isnan(), full[B // 2:].isnan())
     assert torch.equal(half.nan_to_num(), full[B // 2:].nan_to_num())
+
+
+# ------------------------------------ K7's modes, K10/K24c's row layouts
+#: K7 sizes: the block mode's edges, the cluster mode's (16385 and BASELINE
+#: config 3's 131072) and the passes mode above
+K7_SIZES = [64, 1000, 1024, 5000, 16384, 16385, 131072, 131073]
+
+
+def _k7_mode(n):
+    return "block" if n <= 16384 else "cluster" if n <= 131072 else "passes"
+
+
+def _off_step(pts, wts, alpha):
+    """True when alpha lies clear of float rounding of every step of the
+    weighted CDF (float64 on the host)."""
+    p, w = pts.double().cpu().numpy(), wts.double().cpu().numpy()
+    cum = np.cumsum(w[np.argsort(p, kind="stable")])
+    if not cum[-1] > 0:
+        return True
+    return bool(np.abs(cum / cum[-1] - alpha).min() > 1e-6)
+
+
+def _bits(x):
+    return int(x.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", K7_SIZES)
+def test_normalize_quantile_modes(dev, n):
+    """K7's normalization within rel 1e-6 of its plain version and its
+    quantile epsilon bit-equal to its plain version on counts and, with
+    float weights, wherever alpha is clear of a step, with a prefix, K24b's
+    shard-blocked and an empty mask, ties, NaN distances, zero weights and
+    alpha 1.0 on counts; both give the same bits launch after launch, and
+    every launch counts in its size's mode."""
+    g = _gen(dev, n + 7)
+    lw = torch.randn(n, generator=g, device=dev) * 5 - 40
+    idx = torch.arange(n, device=dev)
+    cap = -(-n // 8)
+    masks = (idx < (4 * n) // 5, (idx % cap) < (7 * cap) // 10,
+             torch.zeros(n, dtype=torch.bool, device=dev))
+    mode = _k7_mode(n)
+    before = dict(normalize_quantile.mode_launches)
+    calls = norms = 0
+    for m in masks:
+        got = normalize_quantile.normalize(lw, m)
+        again = normalize_quantile.normalize(lw, m)
+        calls += 2
+        norms += 2
+        torch.testing.assert_close(got, normalize_log_weights_plain(lw, m),
+                                   rtol=1e-6, atol=1e-12)
+        assert torch.equal(got, again)
+    d = torch.rand(n, generator=g, device=dev) * 4
+    d_nan = d.clone()
+    d_nan[::97] = math.nan
+    for mask in masks:
+        w = normalize_log_weights_plain(lw, mask)
+        for dist in (d, d.mul(2).floor(), d_nan):
+            for weighted, alphas in ((True, (0.1, 0.5, 0.9)),
+                                     (False, (0.1, 0.5, 0.9, 1.0))):
+                pts = torch.where(mask, dist, torch.full_like(dist,
+                                                              math.inf))
+                wts = torch.where(mask, w, torch.zeros_like(w)) \
+                    if weighted else mask.float()
+                for alpha in alphas:
+                    got = normalize_quantile.quantile_epsilon(
+                        dist, mask, w, weighted, alpha, 0.8)
+                    again = normalize_quantile.quantile_epsilon(
+                        dist, mask, w, weighted, alpha, 0.8)
+                    calls += 2
+                    ref = weighted_quantile_plain(pts, wts, alpha) * 0.8
+                    assert _bits(got) == _bits(again)
+                    # exact on counts; with float weights, wherever
+                    # alpha is clear of a step of the CDF
+                    if not weighted or _off_step(pts, wts, alpha):
+                        assert _bits(got) == _bits(ref) or (
+                            got.isnan() and ref.isnan()), (
+                            float(got), float(ref), alpha, weighted)
+    zero = torch.zeros(n, device=dev)
+    for alpha in (0.1, 0.5):  # no weight at all: the largest point
+        got = normalize_quantile.quantile(d, zero, alpha)
+        calls += 1
+        assert float(got) == float(weighted_quantile_plain(d, zero, alpha))
+    torch.cuda.synchronize()
+    for k in ("block", "cluster", "passes"):
+        v = normalize_quantile.mode_launches[k]
+        assert v == before[k] + (calls if k == mode else 0), k
+    assert normalize_quantile.mode_launches["normalize"] == (
+        before["normalize"] + norms)
+    assert normalize_quantile.mode_launches["epsilon"] == (
+        before["epsilon"] + calls - norms)
+
+
+def _pack_inputs(dev, G, n_cap, d, S, seed, offset=0):
+    """G generations of reservoirs; ``offset`` floats into a buffer makes
+    the rows' pointers miss 16-byte alignment."""
+    g = _gen(dev, seed)
+
+    def rows(k, scale):
+        flat = torch.randn(n_cap * k + offset, generator=g, device=dev)
+        return flat.mul_(scale)[offset:].view(n_cap, k)
+
+    theta = [rows(d, 3.0) for _ in range(G)]
+    dist = [torch.rand(n_cap, generator=g, device=dev) for _ in range(G)]
+    logw = [torch.randn(n_cap, generator=g, device=dev) for _ in range(G)]
+    ss = [rows(S, 1e4) for _ in range(G)]
+    ms = [torch.randint(0, 3, (n_cap,), generator=g, device=dev,
+                        dtype=torch.int32) for _ in range(G)]
+    edge = torch.tensor(EDGE_VALUES, device=dev)
+    k = edge.numel()
+    dist[0][:k] = logw[G // 2][:k] = edge
+    theta[-1][:k, d - 1] = ss[0][:k, S - 1] = edge
+    return theta, dist, logw, ss, ms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 40, 128])
+@pytest.mark.parametrize("d", [1, 2, 4, 7])
+def test_pack_fetch_row_layouts(dev, d, S, dtype):
+    """K10 and K24c bit-exact against their plain versions at every row
+    layout: a thread or a group of threads a row, 16-byte loads where d * 4
+    and the pointers allow (and not where a pointer is off by a float),
+    staged 16-byte stores at any output offset (odd n_keep, an odd merge
+    list), over 40 generations (more than one launch's 32)."""
+    from pyabc_tpu_torch.kernels.pack_fetch import pack_models_plain
+
+    G, n, cap_loc = 40, 8, 64
+    n_cap = n * cap_loc
+    rng = np.random.default_rng(d * 1000 + S)
+    ns = [int(v) for v in rng.integers(200, n_cap + 1, size=G)]
+    for offset in (0, 1):
+        theta, dist, logw, ss, ms = _pack_inputs(dev, G, n_cap, d, S,
+                                                 seed=d + S + offset,
+                                                 offset=offset)
+        for merge, n_keep in ((None, 333), ((ns, n, cap_loc), max(ns))):
+            got = (pack_fetch.rows(theta, dist, logw, n_keep=n_keep,
+                                   dtype=dtype, merge=merge),
+                   pack_fetch.sumstats(ss, n_keep=n_keep, dtype=dtype,
+                                       merge=merge),
+                   pack_fetch.models(ms, n_keep=n_keep, merge=merge))
+            ref = (pack_rows_plain(theta, dist, logw, n_keep=n_keep,
+                                   dtype=dtype, merge=merge),
+                   cast_rows_plain(ss, n_keep=n_keep, dtype=dtype,
+                                   merge=merge),
+                   pack_models_plain(ms, n_keep=n_keep, merge=merge))
+            for a, b in zip(got, ref):
+                assert a.dtype == b.dtype and a.shape == b.shape
+                if a.dtype == torch.int8:
+                    assert torch.equal(a, b)
+                    continue
+                assert torch.equal(a.isnan(), b.isnan())
+                assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_fetch_wide_rows_unstaged(dev, dtype):
+    """A row wider than K10's 16 KB stage (9000 sum stats) is written in
+    place by a group of 32 threads, bit-exact, merged or not."""
+    G, n, cap_loc, S = 3, 4, 16, 9000
+    theta, dist, logw, ss, _ms = _pack_inputs(dev, G, n * cap_loc, 3, S,
+                                              seed=S)
+    for merge, n_keep in ((None, 37), (([61, 5, 64], n, cap_loc), 64)):
+        got = (pack_fetch.sumstats(ss, n_keep=n_keep, dtype=dtype,
+                                   merge=merge),
+               pack_fetch.rows(theta, dist, logw, n_keep=n_keep,
+                               dtype=dtype, merge=merge))
+        ref = (cast_rows_plain(ss, n_keep=n_keep, dtype=dtype, merge=merge),
+               pack_rows_plain(theta, dist, logw, n_keep=n_keep, dtype=dtype,
+                               merge=merge))
+        for a, b in zip(got, ref):
+            assert torch.equal(a.isnan(), b.isnan())
+            assert torch.equal(a[~a.isnan()], b[~b.isnan()])
