@@ -4576,6 +4576,7 @@ def k12_case(dev, label, n, d, dim, n_valid, kw, timed):
     import torch
 
     from pyabc_tpu_torch.kernels import local_cov, local_cov_plain
+    from pyabc_tpu_torch.kernels.local_cov import field_plan
     from pyabc_tpu_torch.transition import LocalTransition
 
     X, w = local_population(dev, n, d, n_valid, seed=n + d)
@@ -4592,11 +4593,14 @@ def k12_case(dev, label, n, d, dim, n_valid, kw, timed):
     err_abs = float((got["covs"] - ref["covs"]).abs().max())
     cnt = ref["cnt"].to(torch.int64)
     mode = "top-k" if cfg["topk"] else f"threshold stride {cfg['stride']}"
+    plan = field_plan(n, d, topk=cfg["topk"], stride=cfg["stride"],
+                      k_cap=cfg["k_cap"])
     log(f"K12 local_cov {label} (n_cap={n}, d={d}, dim={dim}, {n_valid} "
         f"valid, k_cap={cfg['k_cap']}, {mode}, "
-        f"{'diff' if cfg['dense'] else 'norm'} form): neighbours and counts "
-        f"equal {same}; counts {int(cnt.min())}-{int(cnt.max())}; "
-        f"covariance error {err:.3e} of the row scale ({err_abs:.3e} abs)")
+        f"{'diff' if cfg['dense'] else 'norm'} form; {plan_text(plan)}): "
+        f"neighbours and counts equal {same}; counts {int(cnt.min())}-"
+        f"{int(cnt.max())}; covariance error {err:.3e} of the row scale "
+        f"({err_abs:.3e} abs)")
     check(same, f"K12 {label}: the selection differs from the plain "
           f"version")
     check(err <= 1e-4 and within(got["weights"], ref["weights"], 0.0, 1e-6)
@@ -4604,16 +4608,38 @@ def k12_case(dev, label, n, d, dim, n_valid, kw, timed):
           f"K12 {label}: covariances, weights or cdf outside tolerance")
     if not timed:
         return None
+    sel = float(cnt.sum())
+    nbytes = (n * (d + 1) + n * (d + 2 + d * d) + n) * 4 + (n + 1) * 4
+    ops, old_ops = k12_ops(n, d, cfg, sel)
+    res = dict(err=err_abs, plain_ms=plain_s * 1e3,
+               call_ms=time_ms(lambda: local_cov(X, w, **cfg), 5, 1),
+               ms=graph_ms(lambda: local_cov(X, w, **cfg), 5, 3),
+               bound=bound(nbytes, ops), library_ms=None,
+               old_bound=bound(nbytes, old_ops), field=(X, w, cfg))
+    log(f"K12 local_cov {label}: ms={res['ms']:.5f} bound_ms="
+        f"{res['bound'][0]:.6f} ({res['bound'][1]}; the block-a-row "
+        f"design's bound, its 26 or 32 counting passes counted, "
+        f"{res['old_bound'][0]:.6f})")
+    return res
+
+
+def k12_ops(n: int, d: int, cfg: dict, sel: float) -> tuple[float, float]:
+    """K12's operations on n rows: (the work any implementation does: each
+    row's m distances of 3 d operations, one comparison a candidate for
+    the selection, 3 d^2 a selected neighbour for the covariance; the
+    same with the block-a-row design's 26 or 32 counting passes a
+    candidate, the bound of the block-a-row design it replaced)."""
     m = n if cfg["topk"] else -(-n // cfg["stride"])
     passes = 32 if cfg["topk"] else 26
-    sel = float(cnt.sum())
-    ops = n * (m * (3 * d + passes + 2)) + sel * 3 * d * d
-    nbytes = (n * (d + 1) + n * (d + 2 + d * d) + n) * 4 + (n + 1) * 4
-    return dict(err=err_abs, plain_ms=plain_s * 1e3,
-                call_ms=time_ms(lambda: local_cov(X, w, **cfg), 5, 1),
-                ms=graph_ms(lambda: local_cov(X, w, **cfg), 5, 3),
-                bound=bound(nbytes, ops), library_ms=None,
-                field=(X, w, cfg))
+    cov = sel * 3 * d * d
+    return (n * m * (3 * d + 1) + cov,
+            n * (m * (3 * d + passes + 2)) + cov)
+
+
+def plan_text(plan: dict) -> str:
+    """K12's launch plan as a log reads it."""
+    return (f"W={plan['warps']} rows a block, a ring of {plan['tc']}-"
+            f"candidate tiles, {plan['smem']} bytes of shared memory")
 
 
 def k12_checks(dev) -> dict:
@@ -6186,24 +6212,26 @@ def local_fit_plain_of(rows, boot_w, kb: int, dim: int, config: dict):
 
 def k16_local_bound(K, nb, n, d, live, configs, cnt_sum):
     """Bounds of a probe's entries at n: the gather (bytes), the K nb K12
-    fits (their distance, bisection and covariance operations, as the
+    fits (their distance, selection and covariance operations, as the
     phase-2 K12 bound counts them; ``cnt_sum`` the neighbours selected),
     the K nb K13 factorizations (bytes) and the local density (operations:
-    live nb n pairs) -> (gather, K12, K13, density)."""
+    live nb n pairs) -> (gather, K12, K13, density, K12 as the block-a-row
+    design's bound counted it)."""
     gather = bound((K * nb * n * (1 + 2 * d) + n + 6) * 4, 0)
-    ops = nbytes = 0.0
+    ops = old_ops = nbytes = 0.0
     for cfg in configs:
-        m = n if cfg["topk"] else -(-n // cfg["stride"])
-        passes = 32 if cfg["topk"] else 26
-        ops += nb * n * m * (3 * d + passes + 2)
+        o, oo = k12_ops(n, d, cfg, 0.0)
+        ops += nb * o
+        old_ops += nb * oo
         nbytes += nb * (n * (d + 1) + n * (d + 2 + d * d) + 2 * n + 1) * 4
     cov = bound(nbytes, ops + cnt_sum * 3 * d * d)
+    cov_old = bound(nbytes, old_ops + cnt_sum * 3 * d * d)
     factor = bound(len(configs) * nb * n * (d * d + 1 + 2 * d * d + 2) * 4,
                    len(configs) * nb * n * 4 * d ** 3)
     dens = bound((K * n * (d + 1) + K * nb * n * (d + d * d + 2)
                   + K * n_blocks_of(n) * 2) * 4,
                  live * nb * n * (d + 2 * d * (d + 1) + LOCAL_PAIR_OPS))
-    return gather, cov, factor, dens
+    return gather, cov, factor, dens, cov_old
 
 
 def fit_parts(rows, boot_w, go, fits, dims, configs, kbs):
@@ -6254,8 +6282,10 @@ def k16_local_case(dev, label: str, K: int, n_cap: int, d: int, nb: int,
     from pyabc_tpu_torch.kernels import bootstrap_cv, local_logpdf
     from pyabc_tpu_torch.kernels.bootstrap_cv import (
         MAX_PROBES, bootstrap_bisect_plain, bootstrap_draw_plain,
-        bootstrap_local_density_plain, bootstrap_local_gather_plain,
-        local_fit, local_fit_buffers, n_probes, required_nr)
+        LOCAL_DENSITY_ROWS, bootstrap_local_density_plain,
+        bootstrap_local_gather_plain, local_fit, local_fit_buffers, n_probes,
+        required_nr)
+    from pyabc_tpu_torch.kernels.local_cov import field_plan
 
     x, dims, configs, model_p = local_refit(dev, K, n_cap, d, n_live,
                                             seed=31 + K, statics=statics)
@@ -6385,12 +6415,18 @@ def k16_local_case(dev, label: str, K: int, n_cap: int, d: int, nb: int,
         f"{cv_rel:.3e}; log-densities bit-equal to K14's"
         + (f"; whole bisection to n={int(res['n_next'])} in {probes_done} "
            f"probes, state equal to the plain entries'" if whole else ""))
+    plan = field_plan(n_cap, d, topk=configs[0]["topk"],
+                      stride=configs[0]["stride"], k_cap=configs[0]["k_cap"])
+    log(f"K16 LocalTransition mode ({label}): K12 {plan_text(plan)}; local "
+        f"density R={LOCAL_DENSITY_ROWS} particles a thread, a block per "
+        f"(256-particle tile, bootstrap, model): {n_blocks_of(n_cap)} x "
+        f"{nb} x {K} blocks, the CV in each tile's last block (ticket mode)")
     if not timed:
         return out
     live = int((x["weights"] != 0).sum())
     cnt_sum = float(fits["cnt"].to(torch.float64).sum())
-    b_g, b_c, b_f, b_d = k16_local_bound(K, nb, n_cap, d, live, configs,
-                                         cnt_sum)
+    b_g, b_c, b_f, b_d, b_c_old = k16_local_bound(K, nb, n_cap, d, live,
+                                                  configs, cnt_sum)
     gather = lambda: bootstrap_cv.local_gather(  # noqa: E731
         x["thetas"], idx, state)
     gather_p = lambda: bootstrap_local_gather_plain(  # noqa: E731
@@ -6425,6 +6461,8 @@ def k16_local_case(dev, label: str, K: int, n_cap: int, d: int, nb: int,
         log(f"K16 {entry} ({label}): ms={r['ms']:.5f} call_ms="
             f"{r['call_ms']:.5f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound'][0]:.6f} ({r['bound'][1]})"
+            + (f", the block-a-row design's bound {b_c_old[0]:.6f}"
+               if entry == "local_cov:bootstrap" else "")
             + (f", {live * nb * n_cap} density pairs"
                if entry == "local_density" else "")
             + (f", {K * nb} launches"
@@ -6614,7 +6652,7 @@ def local_models_checks(dev) -> dict:
 
     cov()
     cnt = float(fld["cnt"][[0, 2]].to(torch.float64).sum())
-    _g, b_cov, b_fac, _d = k16_local_bound(
+    _g, b_cov, b_fac, _d, b_cov_old = k16_local_bound(
         2, 1, n, d, 0, [configs[0], configs[2]], cnt)
     share = {}
     for name, fn, bnd in (("local_cov:models", cov, b_cov),
@@ -6624,6 +6662,8 @@ def local_models_checks(dev) -> dict:
         out[name] = dict(err=max(v[0] for v in errs.values()),
                          rel=max(v[1] for v in errs.values()), call_ms=call,
                          ms=ms, bound=bnd, library_ms=None)
+    log(f"K12 local_cov:models bound_ms={b_cov[0]:.6f} ({b_cov[1]}; the "
+        f"block-a-row design's bound {b_cov_old[0]:.6f})")
     tot = max(sum(share.values()), 1e-9)
     for name in share:
         # the plain K12 and K13 ran as one: their time splits as the

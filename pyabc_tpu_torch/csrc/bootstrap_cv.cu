@@ -61,18 +61,28 @@
 //   bootstrap on these rows, each fit's params kept in (K nb, n_cap, ...)
 //   buffers: a bootstrap's k is K12's own, from the n rows of weight > 0
 //   (the float64 k table, as the refit's).
-// - local density (one thread per fitted particle j of model k, as the MVN
-//   density): ld_b = the log-density of x_j under bootstrap b's mixture
-//   through local_mix.cuh (the tile loop of K14, so bit-equal to K14 on the
-//   same mixture; its components past n have weight 0), over the first n
-//   components only; then the CV and the block sums exactly as above. The
-//   JAX package's constants log(1/n) sit inside lconst here and cancel in
-//   the shift by the per-point maximum as there.
+// - local density (a block per tile of 256 fitted particles, bootstrap b
+//   and model k, R = 2 particles a thread): the
+//   tile's log-densities under bootstrap b's mixture through local_mix.cuh
+//   (local_mix_logpdf_ring: the arithmetic of K14's tile loop for each
+//   particle, so bit-equal to K14 on the same mixture; its components past
+//   n have weight 0), over the first n components only, the components
+//   streaming through a ring of shared-memory tiles filled by cp.async.
+//   Each block writes its values to ld (K nb, n_cap) and takes a ticket
+//   for its tile in device memory; the last of the tile's nb blocks reads
+//   each particle's nb values, forms the CV in the order above and sums
+//   the tile by the fixed 256-particle tree, so partial has the same bits
+//   from run to run. A tile with no live particle returns at once (its
+//   bootstrap-0 block writes the tile's zero sums).
+//   The JAX package's constants log(1/n) sit inside lconst here and cancel
+//   in the shift by the per-point maximum as there.
 // Bound of the local density: operations, K n_live n_boot n pairs of
 // (2 d^2 + 2 d + 2 fmas and one exp): at the LV adaptive leg (n 16384, 10
-// bootstraps, d 4) 2.7e9 pairs, about 2 ms at 67 TFLOP/s. Each thread keeps
-// its n_boot log-densities in a local array (n_boot <= 32), the components
-// stream through shared-memory tiles of 128 (d 4).
+// bootstraps, d 4) 2.7e9 pairs, about 2 ms at 67 TFLOP/s, and some 40
+// FP32 instructions a pair (3.5-4 ms at the card's issue rate). The grid
+// over (tile, bootstrap, model) gives 640 blocks at that leg where one
+// block a tile gave 64; R particles a thread read each component once from
+// shared memory (16-byte loads) and run R independent chains.
 #include "common.cuh"
 #include "local_mix.cuh"
 #include "mvn_fit.cuh"
@@ -86,6 +96,9 @@ constexpr int kMaxModels = 8;
 constexpr int kMaxBoot = 32;
 constexpr int kMaxProbes = 32;
 constexpr int kDensityThreads = 256;
+// fitted particles a thread of the local density computes (R): 2 ran
+// 5.77 ms at the LV leg against 6.28 for 4 (an H100 80GB HBM3 at 700 W)
+constexpr int kDensityRows = 2;
 // the bisection state
 constexpr int kLo = 0, kHi = 1, kProbe = 2, kDone = 3, kStep = 4;
 
@@ -193,6 +206,28 @@ boot_fit_kernel(const float* __restrict__ thetas, const int* __restrict__ idx,
   }
 }
 
+// A 256-particle tile's sums of w cv and w by a fixed tree (the same sums
+// from run to run), written to partial[k][tile] by TPB threads; s_red
+// holds the tile's (w cv, w) at [o] and [256 + o] for particle offset o.
+template <int TPB>
+__device__ void tile_tree(float* s_red, float* __restrict__ partial, int k,
+                          int tile, int tiles) {
+  constexpr int T = kDensityThreads;
+  __syncthreads();
+  for (int stride = T / 2; stride > 0; stride >>= 1) {
+    for (int o = threadIdx.x; o < stride; o += TPB) {
+      s_red[o] += s_red[o + stride];
+      s_red[T + o] += s_red[T + o + stride];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    float* out = partial + ((size_t)k * tiles + tile) * 2;
+    out[0] = s_red[0];
+    out[1] = s_red[T];
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kDensityThreads)
 boot_density_kernel(const float* __restrict__ thetas,
@@ -290,22 +325,9 @@ boot_density_kernel(const float* __restrict__ thetas,
       wcv = w * cv;
     }
   }
-  // a fixed tree per block: the same sums from run to run
   s_red[tid] = wcv;
   s_red[T + tid] = w;
-  __syncthreads();
-  for (int stride = T / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      s_red[tid] += s_red[tid + stride];
-      s_red[T + tid] += s_red[T + tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float* out = partial + ((size_t)k * gridDim.x + blockIdx.x) * 2;
-    out[0] = s_red[0];
-    out[1] = s_red[T];
-  }
+  tile_tree<T>(s_red, partial, k, blockIdx.x, gridDim.x);
 }
 
 __global__ void boot_bisect_kernel(const float* __restrict__ partial, int K,
@@ -378,8 +400,12 @@ __global__ void boot_gather_kernel(const float* __restrict__ thetas,
   for (int q = 0; q < d; ++q) dst[q] = src[q];
 }
 
-template <int D>
-__global__ void __launch_bounds__(kDensityThreads)
+// One block per (particle tile of 256, bootstrap b, model k), R particles
+// a thread: the tile's log-densities under fit k nb + b into ld; the last
+// block of the tile to finish (a ticket in device memory) reads the nb
+// values of each particle and writes the tile's partial sums.
+template <int D, int R>
+__global__ void __launch_bounds__(kDensityThreads / R)
 boot_local_density_kernel(const float* __restrict__ thetas,
                           const float* __restrict__ weights,
                           const int* __restrict__ state, int nb, int n_cap,
@@ -388,62 +414,107 @@ boot_local_density_kernel(const float* __restrict__ thetas,
                           const float* __restrict__ flconst,
                           const float* __restrict__ fw,
                           float* __restrict__ partial,
-                          float* __restrict__ ld_out) {
-  constexpr int T = kDensityThreads;
+                          float* __restrict__ ld_out,
+                          int* __restrict__ tickets) {
+  constexpr int TPB = kDensityThreads / R;
   if (state[kDone]) return;
   const int n = max(0, min(state[kProbe], n_cap));
-  const int k = blockIdx.y, tid = threadIdx.x;
-  const int j = blockIdx.x * T + tid;
-  const float w = j < n_cap ? weights[(size_t)k * n_cap + j] : 0.f;
-  const bool live = w != 0.f;
-  __shared__ pyabc::MixTile<D> sh;
-  __shared__ float s_red[2 * T];
-  float wcv = 0.f;
-  if (__syncthreads_or(live)) {
-    float x[D];
+  const int tile = blockIdx.x, b = blockIdx.y, k = blockIdx.z;
+  const int tiles = gridDim.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  __shared__ float s_red[2 * kDensityThreads];
+  __shared__ int s_last;
+  int j[R];
+  float w[R];
+  bool live[R], any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    j[r] = tile * kDensityThreads + r * TPB + tid;
+    w[r] = j[r] < n_cap ? weights[(size_t)k * n_cap + j[r]] : 0.f;
+    live[r] = w[r] != 0.f;
+    any = any || live[r];
+  }
+  if (!__syncthreads_or(any)) {  // no live particle: bootstrap 0 writes
+    if (b != 0) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s_red[r * TPB + tid] = 0.f;
+      s_red[kDensityThreads + r * TPB + tid] = w[r];
+    }
+    tile_tree<TPB>(s_red, partial, k, tile, tiles);
+    return;
+  }
+  float x[R][D];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int q = 0; q < D; ++q)
-      x[q] = (live && q < d) ? thetas[((size_t)k * n_cap + j) * d + q] : 0.f;
-    float ld[kMaxBoot];
-    for (int b = 0; b < nb; ++b) {
-      const size_t c0 = (size_t)(k * nb + b) * n_cap;
-      ld[b] = pyabc::local_mix_logpdf<D>(x, live, fth + c0 * d,
-                                         fprec + c0 * d * d, flconst + c0,
-                                         fw + c0, n, d, sh);
-      if (ld_out != nullptr && live) ld_out[c0 + j] = ld[b];
-    }
-    if (live) {
+      x[r][q] = (live[r] && q < d)
+                    ? thetas[((size_t)k * n_cap + j[r]) * d + q]
+                    : 0.f;
+  const size_t c0 = (size_t)(k * nb + b) * n_cap;
+  float ld[R];
+  pyabc::local_mix_logpdf_ring<D, R>(
+      x, fth + c0 * d, fprec + c0 * d * d, flconst + c0, fw + c0, n, d,
+      reinterpret_cast<pyabc::MixStage<D>*>(ring_raw), ld);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (live[r]) ld_out[c0 + j[r]] = ld[r];
+  __threadfence();  // this block's ld before its ticket
+  __syncthreads();
+  if (tid == 0)
+    s_last = atomicAdd(&tickets[(size_t)k * tiles + tile], 1) == nb - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();  // the other blocks' ld after their tickets
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float wcv = 0.f;
+    if (live[r]) {
+      float v[kMaxBoot];
       float m = -INFINITY;
-      for (int b = 0; b < nb; ++b) m = nan_max(m, ld[b]);
+      for (int bb = 0; bb < nb; ++bb) {
+        v[bb] = __ldcg(ld_out + (size_t)(k * nb + bb) * n_cap + j[r]);
+        m = nan_max(m, v[bb]);
+      }
       float mean = 0.f;
-      for (int b = 0; b < nb; ++b) mean += expf(ld[b] - m);
+      for (int bb = 0; bb < nb; ++bb) mean += expf(v[bb] - m);
       mean = mean / (float)nb;
       float var = 0.f;
-      for (int b = 0; b < nb; ++b) {
-        const float e = expf(ld[b] - m) - mean;
+      for (int bb = 0; bb < nb; ++bb) {
+        const float e = expf(v[bb] - m) - mean;
         var += e * e;
       }
       const float sd = sqrtf(var / (float)nb);
       const float cv = mean > 0.f ? sd / mean : 0.f;
-      wcv = w * cv;
+      wcv = w[r] * cv;
     }
+    s_red[r * TPB + tid] = wcv;
+    s_red[kDensityThreads + r * TPB + tid] = w[r];
   }
-  // a fixed tree per block: the same sums from run to run
-  s_red[tid] = wcv;
-  s_red[T + tid] = w;
-  __syncthreads();
-  for (int stride = T / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      s_red[tid] += s_red[tid + stride];
-      s_red[T + tid] += s_red[T + tid + stride];
-    }
-    __syncthreads();
+  tile_tree<TPB>(s_red, partial, k, tile, tiles);
+}
+
+template <int D, int R>
+int local_density_launch(const float* thetas, const float* weights,
+                         const int* state, int K, int nb, int n_cap, int d,
+                         const float* fth, const float* fprec,
+                         const float* flconst, const float* fw,
+                         float* partial, float* ld, int* tickets,
+                         cudaStream_t stream) {
+  const size_t smem = pyabc::kMixStages * sizeof(pyabc::MixStage<D>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        boot_local_density_kernel<D, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (tid == 0) {
-    float* out = partial + ((size_t)k * gridDim.x + blockIdx.x) * 2;
-    out[0] = s_red[0];
-    out[1] = s_red[T];
-  }
+  const dim3 grid((n_cap + kDensityThreads - 1) / kDensityThreads, nb, K);
+  boot_local_density_kernel<D, R><<<grid, kDensityThreads / R, smem,
+                                     stream>>>(
+      thetas, weights, state, nb, n_cap, d, fth, fprec, flconst, fw, partial,
+      ld, tickets);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -594,31 +665,26 @@ extern "C" int pyabc_boot_local_gather(const float* thetas, const int* idx,
 
 // thetas (K, n_cap, d) and weights (K, n_cap) of the refit; the bootstrap
 // fits' thetas (K nb, n_cap, d), precs (K nb, n_cap, d, d), lconst and
-// weights (K nb, n_cap); partial (K, ceil(n_cap / 256), 2); ld nullable
-// (K nb, n_cap): each live particle's log-density under each fit.
+// weights (K nb, n_cap); partial (K, ceil(n_cap / 256), 2); ld (K nb,
+// n_cap): each live particle's log-density under each fit (written, then
+// read by the CV); tickets (K, ceil(n_cap / 256)) int32, zero.
 extern "C" int pyabc_boot_local_density(
     const float* thetas, const float* weights, const int* state, int K,
     int nb, int n_cap, int d, const float* fth, const float* fprec,
     const float* flconst, const float* fw, float* partial, float* ld,
-    void* stream_ptr) {
-  if (!shape_ok(K, nb, n_cap, d) || d > 16)
+    int* tickets, void* stream_ptr) {
+  if (!shape_ok(K, nb, n_cap, d) || d > 16 || ld == nullptr ||
+      tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const dim3 grid((n_cap + kDensityThreads - 1) / kDensityThreads, K);
-#define PYABC_BOOT_LOCAL(DB)                                                \
-  boot_local_density_kernel<DB><<<grid, kDensityThreads, 0, stream>>>(     \
-      thetas, weights, state, nb, n_cap, d, fth, fprec, flconst, fw,       \
-      partial, ld)
-  if (d <= 1)
-    PYABC_BOOT_LOCAL(1);
-  else if (d <= 2)
-    PYABC_BOOT_LOCAL(2);
-  else if (d <= 4)
-    PYABC_BOOT_LOCAL(4);
-  else if (d <= 8)
-    PYABC_BOOT_LOCAL(8);
-  else
-    PYABC_BOOT_LOCAL(16);
+#define PYABC_BOOT_LOCAL(DB)                                               \
+  return local_density_launch<DB, kDensityRows>(                          \
+      thetas, weights, state, K, nb, n_cap, d, fth, fprec, flconst, fw,    \
+      partial, ld, tickets, stream)
+  if (d <= 1) PYABC_BOOT_LOCAL(1);
+  if (d <= 2) PYABC_BOOT_LOCAL(2);
+  if (d <= 4) PYABC_BOOT_LOCAL(4);
+  if (d <= 8) PYABC_BOOT_LOCAL(8);
+  PYABC_BOOT_LOCAL(16);
 #undef PYABC_BOOT_LOCAL
-  return static_cast<int>(cudaGetLastError());
 }

@@ -47,3 +47,30 @@ __device__ __forceinline__ int warp_inclusive_scan(int v) {
   }
   return v;
 }
+
+// cp.async (sm_80+): a copy from global to shared memory that bypasses the
+// registers; commit_group closes a group of them and wait_group<N> waits
+// until at most N groups are pending. A barrier after the wait makes the
+// copies of every thread visible to the block.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// 4 bytes, or 4 zero bytes where `pred` is false (the source is not read).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}

@@ -97,7 +97,7 @@ SIGNATURES = {
     "pyabc_boot_bisect": [_P, _I, _I, _P, _P, _P, _F, _P],
     "pyabc_boot_local_gather": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "pyabc_boot_local_density": [
-        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+        _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_model_step": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pyabc_scale_reduce": [
@@ -156,7 +156,7 @@ SIGNATURES = {
         _P, _I, _P, _I, _F, _I, _P, _I, _F, _P, _P, _P, _P],
     "pyabc_local_cov": [
         _P, _P, _I, _I, _I, _P, _I, _F, _F, _F, _I, _I, _P, _P, _P, _P, _P,
-        _P, _P, _P, _P, _P, _I, _P],
+        _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     "pyabc_local_factor": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P,
         _P, _P, _P, _P, _P, _P],

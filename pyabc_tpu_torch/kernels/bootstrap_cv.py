@@ -69,6 +69,10 @@ DENSITY_THREADS = 256
 LO, HI, PROBE, DONE, STEP = range(5)
 #: dims LocalTransition's mode takes (K12-K14's buckets)
 MAX_LOCAL_DIM = 16
+#: fitted particles a thread of the local density computes (its R,
+#: ``kDensityRows`` in the CUDA source; the block is 256 / R threads over a
+#: tile of 256 particles)
+LOCAL_DENSITY_ROWS = 2
 
 
 def n_probes(min_n: int, max_n: int) -> int:
@@ -523,12 +527,14 @@ class BootstrapCV(Kernel):
             self.expect(fits[key], key, f32, shapes[key])
         dev = thetas.device
         partial = torch.empty(K, n_blocks(n), 2, dtype=f32, device=dev)
-        ld = (torch.zeros(kb, n, dtype=f32, device=dev) if want_ld
-              else None)
+        ld = (torch.zeros if want_ld else torch.empty)(kb, n, dtype=f32,
+                                                        device=dev)
+        tickets = torch.zeros(K, n_blocks(n), dtype=torch.int32, device=dev)
         err = _build.library().pyabc_boot_local_density(
             thetas.data_ptr(), weights.data_ptr(), state.data_ptr(), K,
             kb // K, n, d, *(fits[k].data_ptr() for k in keys),
-            partial.data_ptr(), self.ptr(ld), _build.stream_ptr(dev))
+            partial.data_ptr(), ld.data_ptr(), tickets.data_ptr(),
+            _build.stream_ptr(dev))
         self._launched(err, "local_density")
         return (partial, ld) if want_ld else partial
 

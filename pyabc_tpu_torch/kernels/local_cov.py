@@ -46,9 +46,17 @@ from .mvn_fit import ancestor_cdf_plain
 EPS = 1e-3
 #: dim buckets of the kernel
 MAX_DIM = 16
-#: shared memory a block may use (H100), for the row's distances and
-#: neighbour buffer
+#: shared memory a block may use (H100)
 MAX_SMEM_BYTES = 232448
+#: rows a field block serves (a warp each), by dim bucket
+FIELD_WARPS = {1: 32, 2: 32, 4: 32, 8: 16, 16: 8}
+#: depth of the field kernel's ring of candidate tiles
+RING_STAGES = 3
+#: bytes of one tile of the ring
+TILE_BYTES = 16384
+#: ints of a warp's scratch: the sample's keys (then the bracket's), a
+#: 256-bin histogram and the bracket's fill count
+WARP_SCRATCH = 1024 + 256 + 4
 #: rows of a tile of the plain version (its distance tile is rows x n_cap)
 PLAIN_ROWS = 2048
 
@@ -183,6 +191,40 @@ def local_cov_plain(thetas: torch.Tensor, weights: torch.Tensor, *,
     return res
 
 
+def dim_bucket(d: int) -> int:
+    """The kernel's compile-time width for d (1, 2, 4, 8 or 16)."""
+    return next(b for b in (1, 2, 4, 8, 16) if d <= b)
+
+
+def cand_words(d: int) -> int:
+    """Floats of one packed candidate: the bucket's coordinates, then (in
+    a second part of the packed array) the norm and the validity bit."""
+    return dim_bucket(d) + 2
+
+
+def pad32(m: int) -> int:
+    """m candidates rounded up to whole 32-candidate groups (the packed
+    array's padding, so a tile is copied whole)."""
+    return -(-m // 32) * 32
+
+
+def field_plan(n: int, d: int, *, topk: bool, stride: int,
+               k_cap: int) -> dict:
+    """The field kernel's launch plan, from the shape alone: ``m``
+    candidates, ``buf`` neighbour slots, ``warps`` rows a block (a warp
+    each, by the dim bucket), ``tc`` candidates a tile of the ring and the
+    block's shared memory ``smem`` bytes (the ring and each warp's
+    scratch; neither grows with m)."""
+    m = n if topk else -(-n // stride)
+    buf = k_cap if topk else -(-k_cap // stride)
+    e = cand_words(d)
+    tc = max(32, TILE_BYTES // (4 * e) // 32 * 32)
+    warps = FIELD_WARPS[dim_bucket(d)]
+    smem = 4 * (RING_STAGES * tc * e + warps * WARP_SCRATCH)
+    assert smem <= MAX_SMEM_BYTES
+    return dict(m=m, buf=buf, warps=warps, tc=tc, smem=smem)
+
+
 def _field_shapes(n: int, d: int) -> dict:
     """The output tensors of a field and their shapes."""
     return {"thetas": (n, d), "weights": (n,), "cdf": (n,),
@@ -228,13 +270,8 @@ class LocalCov(Kernel):
         if stride < 1 or not 0 < k_cap <= n:
             raise ValueError(f"{self.name}: k_cap {k_cap} or stride "
                              f"{stride} outside [1, n_cap {n}]")
-        buf = k_cap if topk else -(-k_cap // stride)
-        m = n if topk else -(-n // stride)
-        if 4 * (m + buf) > MAX_SMEM_BYTES:
-            raise ValueError(
-                f"{self.name}: a row's {m} distances and {buf} neighbour "
-                f"slots exceed a block's shared memory ({MAX_SMEM_BYTES} "
-                f"bytes)")
+        plan = field_plan(n, d, topk=topk, stride=stride, k_cap=k_cap)
+        m, buf = plan["m"], plan["buf"]
         dev = thetas.device
         shapes = _field_shapes(n, d)
         given = out or {}
@@ -249,8 +286,9 @@ class LocalCov(Kernel):
         if want_idx:
             out["idx"] = torch.empty(n, buf, dtype=i32, device=dev)
         norms = None if dense else torch.empty(n, dtype=f32, device=dev)
-        k_dyn = torch.empty(1, dtype=i32, device=dev)
+        k_dyn = torch.empty(2, dtype=i32, device=dev)
         factor2 = torch.empty(1, dtype=f32, device=dev)
+        cand = torch.empty(pad32(m) * cand_words(d), dtype=f32, device=dev)
         err = _build.library().pyabc_local_cov(
             thetas.data_ptr(), weights.data_ptr(), n, d, int(dim),
             k_table.data_ptr(), int(k_cap),
@@ -260,6 +298,7 @@ class LocalCov(Kernel):
             out["cdf"].data_ptr(), self.ptr(norms), k_dyn.data_ptr(),
             factor2.data_ptr(), out["covs"].data_ptr(),
             out["cnt"].data_ptr(), self.ptr(out.get("idx")), buf,
+            cand.data_ptr(), plan["warps"], plan["tc"],
             _build.stream_ptr(dev))
         _build.check(err, self.name)
         self.launches += 1

@@ -13,6 +13,18 @@
   count target ``ceil(k / stride)`` and a ``ceil(k_cap / stride)`` buffer.
 - :func:`apply_rowwise_blocked`: changed rows take new values, the others
   keep the old ones, and the number of changed rows is returned.
+
+K12's selection as its kernel computes it, for the tests and as its
+documentation (nothing on the main path calls these):
+
+- :func:`kth_key`: each row's k-th smallest distance as the kernel's
+  radix select finds it, on the float bits read as unsigned integers
+  (for distances >= +0 the same order as their values; NaN above +inf).
+- :func:`radius_from_kth`: :func:`radius_bisect`'s radius from that value
+  alone: ``count(sq <= mid) >= k`` holds exactly when ``mid >= V``, so the
+  bisection's steps replay on scalars.
+- :func:`topk_from_kth`: the top-k set from that value: every candidate
+  below V, then the lowest-index candidates equal to V.
 """
 from __future__ import annotations
 
@@ -83,6 +95,72 @@ def threshold_neighbors(sq: torch.Tensor, k, k_cap: int, *,
     if stride > 1:
         idx = idx * stride
     return idx, cnt, r
+
+
+def _keys(sq: torch.Tensor) -> torch.Tensor:
+    """The float bits of ``sq`` (-0 taken as +0, as the kernel writes its
+    distances) read as unsigned 32-bit integers, in int64."""
+    sq = torch.where(sq == 0, torch.zeros_like(sq), sq)
+    return sq.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def kth_key(sq: torch.Tensor, k: int) -> torch.Tensor:
+    """(rows,) int64: the k-th smallest (1-based) of each row's keys
+    (:func:`_keys`); -1 where k <= 0, 2^32 where k exceeds the row."""
+    rows, n = sq.shape
+    if k <= 0:
+        return torch.full((rows,), -1, dtype=torch.int64, device=sq.device)
+    if k > n:
+        return torch.full((rows,), 1 << 32, dtype=torch.int64,
+                          device=sq.device)
+    return torch.sort(_keys(sq), dim=1).values[:, k - 1]
+
+
+def radius_from_kth(sq: torch.Tensor, k, *,
+                    n_iters: int = DEFAULT_BISECT_ITERS) -> torch.Tensor:
+    """:func:`radius_bisect` from the k-th smallest value V alone: hi0 and
+    lo0 as there, then ``n_iters`` steps of ``mid = 0.5 (lo + hi)`` with
+    ``ok = mid >= V`` (NaN is never counted, so V is NaN where fewer than
+    k entries are numbers and ok never holds; +inf counts as a value).
+    ``sq`` (rows, n) float32 >= 0 (or -0, +inf, NaN)."""
+    k = int(k)
+    finite = torch.isfinite(sq)
+    hi = torch.where(finite, sq, torch.full_like(sq, -torch.inf)).amax(dim=1)
+    hi = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
+    lo = torch.zeros_like(hi)
+    key = kth_key(sq, k)
+    bits = torch.where((key >= 0) & (key < (1 << 32)), key,
+                       torch.full_like(key, 0x7FC00000))
+    v = bits.to(torch.int32).view(torch.float32)  # NaN when none is k-th
+    if k <= 0:
+        v = torch.full_like(hi, -torch.inf)
+    for _ in range(n_iters):
+        mid = 0.5 * (lo + hi)
+        ok = mid >= v
+        lo = torch.where(ok, lo, mid)
+        hi = torch.where(ok, mid, hi)
+    return hi
+
+
+def topk_from_kth(sq: torch.Tensor, k: int, k_cap: int):
+    """The k smallest of each row by (key, index) from the k-th smallest
+    key V -> (idx (rows, k_cap) int32 in candidate order, 0 past k; cnt
+    (rows,) int32 = k): :func:`kernels.local_cov.topk_neighbors`'s set
+    for distances >= +0 (+inf and NaN last) and k <= k_cap."""
+    rows, n = sq.shape
+    k = min(int(k), n)
+    keys = _keys(sq)
+    v = kth_key(sq, k)[:, None]
+    below = keys < v
+    eq = keys == v
+    need = k - below.sum(dim=1, keepdim=True)
+    eq_rank = torch.cumsum(eq.to(torch.int64), dim=1) - 1
+    mask = below | (eq & (eq_rank < need))
+    idx, _cnt = compact_within_radius(
+        torch.where(mask, torch.zeros_like(sq), torch.ones_like(sq)),
+        torch.zeros(rows, dtype=sq.dtype, device=sq.device), k_cap)
+    cnt = torch.full((rows,), k, dtype=torch.int32, device=sq.device)
+    return idx, cnt
 
 
 def apply_rowwise_blocked(fn, changed: torch.Tensor, prev_outs, *row_inputs):

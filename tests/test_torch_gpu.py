@@ -2760,6 +2760,168 @@ def test_k16_local_mode_kernels(dev, K, n_cap, d, nb, n_live, k_cap):
     assert torch.equal(res["state"], st)
 
 
+# K12's warp-a-row field: (n_cap, d, dim, valid rows, keywords, population)
+WARP_FIELDS = {
+    "top-k diff d 3": (1003, 3, 3, 1003, dict(k_cap=128), "randn"),
+    "top-k norm d 4, 16383 candidates": (16383, 4, 4, 16383,
+                                         dict(k_cap=1000), "randn"),
+    "top-k d 1, 40001 candidates": (40001, 1, 1, 40001, dict(k_cap=500),
+                                    "randn"),
+    "top-k d 1, beyond the block-a-row kernel's shared memory": (
+        60001, 1, 1, 60001, dict(k_cap=100), "randn"),
+    "threshold norm stride 4 d 4": (8195, 4, 4, 8195, dict(k_cap=2048),
+                                    "randn"),
+    "threshold diff d 8": (3001, 8, 8, 2990, dict(k_cap=1024), "randn"),
+    "top-k d 16 dim 12": (777, 16, 12, 770, dict(k_cap=64), "randn"),
+    "threshold d 16": (1201, 16, 16, 1201,
+                       dict(k_cap=300, selection="threshold"), "randn"),
+    "ties top-k": (2049, 4, 4, 2049, dict(k_cap=256), "ties"),
+    "ties threshold": (2049, 4, 4, 2049,
+                       dict(k_cap=512, selection="threshold"), "ties"),
+    "ties threshold stride 4": (9001, 2, 2, 9001, dict(k_cap=2000), "ties"),
+    "all ties, threshold stride 4": (8209, 2, 2, 8209, dict(k_cap=2000),
+                                     "same"),
+    "the sample unlike the row, threshold stride 4": (
+        16385, 4, 4, 16385, dict(k_cap=4096), "clustered"),
+    "the sample unlike the row, top-k": (3001, 2, 2, 3001, dict(k_cap=900),
+                                         "clustered"),
+    "fewer valid than k, top-k": (601, 4, 4, 2, dict(k_cap=64), "randn"),
+    "fewer valid than k, threshold": (
+        601, 4, 4, 3, dict(k_cap=64, selection="threshold"), "randn"),
+    "all invalid, top-k": (300, 3, 3, 0, dict(k_cap=32), "randn"),
+    "all invalid, threshold": (300, 3, 3, 0,
+                               dict(k_cap=32, selection="threshold"),
+                               "randn"),
+    "subsample invalid, stride 4": (8201, 4, 4, -1, dict(k_cap=1024),
+                                    "randn"),
+}
+
+
+def _warp_population(dev, n, d, n_valid, kind, seed):
+    """X (randn; ties: multiples of 1/2 in [-2, 2], so many distances are
+    equal; same: one point, every distance 0; clustered: the first quarter
+    of the rows tight around 0, the rest 10 away, so a row's first
+    candidates are no sample of its distances) and weights: the first
+    n_valid positive; -1 puts weight only off the stride-4 subsample (rows
+    4 i + 1)."""
+    g = _gen(dev, seed)
+    X = torch.randn(n, d, generator=g, device=dev)
+    if kind == "ties":
+        X = torch.round(X.clamp(-2, 2) * 2) / 2
+    elif kind == "same":
+        X = torch.ones_like(X)
+    elif kind == "clustered":
+        X[: n // 4] *= 0.01
+        X[n // 4:] += 10.0
+    w = torch.rand(n, generator=g, device=dev) + 0.1
+    if n_valid >= 0:
+        w[n_valid:] = 0.0
+    else:
+        w[torch.arange(n, device=dev) % 4 != 1] = 0.0
+    return X.contiguous(), w.contiguous()
+
+
+@pytest.mark.parametrize("name", list(WARP_FIELDS))
+def test_local_cov_warp_rows(dev, name):
+    """K12's field a warp a row: n_cap not a multiple of the rows a block,
+    d 1 to 16 (8 to 32 rows a block), both selections and both distance
+    forms, up to 60001 candidates a row, ties at the k-th distance (every
+    distance equal too), a row whose first candidates are no sample of its
+    distances (the k-th outside the sample's bracket), fewer valid
+    candidates than k and none: counts,
+    neighbour lists and thetas bit-equal to the plain version's,
+    covariances within 1e-4 of the row scale, the same bits from run to
+    run."""
+    from pyabc_tpu_torch.kernels import local_cov, local_cov_plain
+    from pyabc_tpu_torch.kernels.local_cov import field_plan
+    from pyabc_tpu_torch.transition import LocalTransition
+
+    n, d, dim, n_valid, kw, kind = WARP_FIELDS[name]
+    X, w = _warp_population(dev, n, d, n_valid, kind, seed=n + d)
+    cfg = LocalTransition.field_config(n, dim, scaling=1.0, device=dev, **kw)
+    plan = field_plan(n, d, topk=cfg["topk"], stride=cfg["stride"],
+                      k_cap=cfg["k_cap"])
+    assert n % plan["warps"]
+    got = local_cov(X, w, want_idx=True, **cfg)
+    again = local_cov(X, w, want_idx=True, **cfg)
+    ref = local_cov_plain(X, w, want_idx=True, **cfg)
+    assert torch.equal(got["cnt"], ref["cnt"])
+    assert torch.equal(got["idx"], ref["idx"])
+    assert torch.equal(got["thetas"], ref["thetas"])
+    assert _row_close(got["covs"], ref["covs"], 1e-4)
+    for key in ("covs", "cnt", "idx", "cdf", "weights"):
+        assert torch.equal(got[key], again[key])
+
+
+# K16's local density over (tile, bootstrap, model) blocks: (K, n_cap, d,
+# bootstraps, live rows, k_cap, the probe's n or None for n_cap)
+LOCAL_DENSITY_CASES = [
+    (1, 1000, 4, 1, 1000, 256, None),
+    (1, 1000, 3, 3, 900, 256, 700),
+    (1, 2500, 4, 10, 2500, 512, None),
+    (1, 700, 2, 32, 650, 128, None),
+    (3, 1000, 2, 3, 1000, 128, 600),
+    (1, 300, 8, 3, 300, 64, None),
+    (1, 300, 16, 2, 280, 32, None),
+    (1, 1000, 1, 4, 37, 16, None),
+]
+
+
+@pytest.mark.parametrize("case", range(len(LOCAL_DENSITY_CASES)))
+def test_local_density_tiles(dev, case):
+    """K16's local density a block per (particle tile, bootstrap, model):
+    n_cap not a multiple of the tile, 1 to 32 bootstraps, K 3 with a dead
+    model, a probe at n < n_cap, tiles with no live particle, d 1 to 16:
+    each live particle's log-density under every fit bit-equal to K14's
+    on that mixture, the CV within 1e-4 relative of the plain version's,
+    the partial sums the same bits from run to run, one launch a call and
+    nothing written by a done probe."""
+    from pyabc_tpu_torch.kernels import bootstrap_cv, local_logpdf
+    from pyabc_tpu_torch.kernels.bootstrap_cv import (
+        bootstrap_local_density_plain, local_fit, local_fit_buffers)
+
+    K, n_cap, d, nb, n_live, k_cap, n_probe = LOCAL_DENSITY_CASES[case]
+    x, dims, cfgs, probs = _local_k16_inputs(dev, K, n_cap, d, n_live,
+                                             k_cap, seed=case)
+    idx, state = bootstrap_cv.draw(x["cdf"], n_boot=nb, seed=5,
+                                   generation=3, max_rounds=256, min_n=10,
+                                   max_n=n_cap)
+    if n_probe is not None:
+        state[2] = n_probe
+    rows, boot_w, go = bootstrap_cv.local_gather(x["thetas"], idx, state)
+    fits = local_fit(rows, boot_w, go, state,
+                     local_fit_buffers(K, nb, n_cap, d, dev), dims=dims,
+                     configs=cfgs)
+    before = bootstrap_cv.mode_launches["local_density"]
+    part, ld = bootstrap_cv.local_density(x["thetas"], x["weights"], fits,
+                                          state, want_ld=True)
+    again = bootstrap_cv.local_density(x["thetas"], x["weights"], fits,
+                                       state)
+    assert bootstrap_cv.mode_launches["local_density"] - before == 2
+    part_p = bootstrap_local_density_plain(x["thetas"], x["weights"], fits,
+                                           state)
+    assert torch.equal(part, again)
+    alive = [k for k in range(K) if probs is None or float(probs[k]) > 0]
+    cv = part[..., 0].sum(1) / part[..., 1].sum(1).clamp_min(1e-38)
+    cv_p = part_p[..., 0].sum(1) / part_p[..., 1].sum(1).clamp_min(1e-38)
+    assert within(cv[alive], cv_p[alive], 0.0, 1e-4)
+    assert within(part[..., 1], part_p[..., 1], 1e-7, 1e-5)
+    for k in range(K):
+        live = x["weights"][k] > 0
+        for b in range(nb):
+            kb = k * nb + b
+            k14 = local_logpdf(x["thetas"][k].contiguous(), {
+                key: fits[key][kb] for key in ("thetas", "precs", "lconst",
+                                               "weights")})
+            assert torch.equal(ld[kb][live], k14[live])
+            assert float(ld[kb][~live].abs().sum()) == 0.0
+    done = state.clone()
+    done[3] = 1
+    _p, ld_done = bootstrap_cv.local_density(x["thetas"], x["weights"],
+                                             fits, done, want_ld=True)
+    assert float(ld_done.abs().sum()) == 0.0
+
+
 @pytest.mark.parametrize("B", [257, 8192])
 def test_local_k_gt_1_modes(dev, B):
     """K2's and K14's K > 1 local modes, K15's K > 1 mode and the per-model
